@@ -5,8 +5,11 @@ engine (counterpart: the single-strike branch of
 Runs on the CUDA device unless ``--device cpu`` is given; there is no
 fallback to another device or generator.  Prints one JSON line.
 
-Example:
+Examples (the second, past the single-tile horizon, runs the step-tiled
+kernels):
   mcop-price-torch --strike 105 --put --maturity 1.448 --steps 365 \\
+      --paths 1e7 --chunk-paths 131072 --pilot-paths 131072
+  mcop-price-torch --strike 105 --put --maturity 7.242 --steps 1825 \\
       --paths 1e7 --chunk-paths 131072 --pilot-paths 131072
 """
 

@@ -33,7 +33,8 @@
 // * The TPU grid ran blocks in order on one core; here blocks are
 //   independent.  The seeded stream depends only on the global row index
 //   and the step (Philox4x32-10 counter = (row, step pair, 0, 0), key =
-//   (folded seed word, 0)), never on the block size or schedule.
+//   (folded seed word, 0); csrc/philox.cuh, shared with the step-tiled
+//   kernels), never on the block size or schedule.
 // * The step axis runs in tiles of 64 columns.  For each tile the block
 //   computes the X tile as a register-tiled product (each thread a PM x 4
 //   micro-tile; Lt' staged through shared memory 32 rows at a time; the
@@ -47,6 +48,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -72,35 +75,6 @@ struct Args {
   int is_call;
 };
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return c;
-}
-
-__device__ __forceinline__ float uniform_open(uint32_t bits) {
-  return __fadd_rn(__fmul_rn(static_cast<float>(static_cast<int>(bits >> 8)),
-                             1.0f / 16777216.0f),
-                   0.5f / 16777216.0f);
-}
-
-__device__ __forceinline__ void box_muller(uint32_t ba, uint32_t bb,
-                                           float* n, float* w) {
-  const float rad = sqrtf(-2.0f * logf(uniform_open(ba)));
-  const float ang = __fmul_rn(6.2831855f, uniform_open(bb));
-  *n = rad * cosf(ang);
-  *w = rad * sinf(ang);
-}
-
 // Fill the block's N and W planes [BP][ld] from the stream or the input.
 template <int BP, bool SEEDED>
 __device__ void load_noise(const Args& a, int row0, float* ns, float* ws) {
@@ -109,18 +83,13 @@ __device__ void load_noise(const Args& a, int row0, float* ns, float* ws) {
     const int pairs = (n + 1) / 2;
     for (int idx = threadIdx.x; idx < BP * pairs; idx += kThreads) {
       const int p = idx / pairs, j = idx - p * pairs;
-      const uint4 b = philox4x32_10(
-          make_uint4(static_cast<uint32_t>(row0 + p),
-                     static_cast<uint32_t>(j), 0u, 0u),
-          a.key, 0u);
-      float nv, wv;
-      box_muller(b.x, b.y, &nv, &wv);
-      ns[p * ld + 2 * j] = nv;
-      ws[p * ld + 2 * j] = wv;
+      float n0, w0, n1, w1;
+      mcop::step_pair_normals(a.key, row0 + p, j, &n0, &w0, &n1, &w1);
+      ns[p * ld + 2 * j] = n0;
+      ws[p * ld + 2 * j] = w0;
       if (2 * j + 1 < n) {
-        box_muller(b.z, b.w, &nv, &wv);
-        ns[p * ld + 2 * j + 1] = nv;
-        ws[p * ld + 2 * j + 1] = wv;
+        ns[p * ld + 2 * j + 1] = n1;
+        ws[p * ld + 2 * j + 1] = w1;
       }
     }
   } else {

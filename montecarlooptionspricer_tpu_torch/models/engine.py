@@ -2,16 +2,22 @@
 ``montecarlooptionspricer_tpu/models/engine.py``, the single-device
 ``StreamingPricer.price`` path with the fused kernels).
 
-  pilot:  K1 (``pathgen_cuda.pathgen``) generates a pilot block, and the
-          LSM backward induction (``lsm.lsm_fit``) fits one exercise
-          policy per step;
+  pilot:  the family's path kernel (K1 ``pathgen_cuda.pathgen``, or K6
+          ``pathgen_tiled_cuda.tiled_pathgen`` at long horizons)
+          generates a pilot block, and the LSM backward induction
+          (``lsm.lsm_fit``) fits one exercise policy per step;
   tables: each step's quadratic decision becomes a log-space exercise
           interval (``boundary_rows`` -> ``log_boundary_rows``); time-0
           exercise is decided on the host side;
-  stream: K2 (``pathgen_cuda.priced_chunk``) regenerates each chunk's
-          paths on chip from its own random stream and returns the
-          chunk's payoff sum; chunk totals and their squares give the
-          price and its stderr.
+  stream: the family's priced kernel (K2 ``pathgen_cuda.priced_chunk``,
+          or K7 ``pathgen_tiled_cuda.tiled_priced_chunk``) regenerates
+          each chunk's paths on chip from its own random stream and
+          returns the chunk's payoff sum; chunk totals and their squares
+          give the price and its stderr.
+
+``resolve_kernel_family`` picks the family from the horizon: the
+single-tile kernels up to ``SINGLE_TILE_MAX_STEPS``, the step-tiled ones
+past it up to ``pathgen_tiled_cuda.max_tiled_steps()``.
 
 Only this path is ported.  Other configurations raise
 ``NotImplementedError`` naming their ROADMAP item; nothing runs another
@@ -30,17 +36,27 @@ import torch
 from ..ops.payoff import payoff
 from ..ops.regression import PolyFit, eval_poly, polyfit_from_numpy  # noqa: F401
 from ..ops.timegrid import step_mask
-from . import pathgen_cuda
+from . import pathgen_cuda, pathgen_tiled_cuda
 from .lsm import ITM_EPS, lsm_fit
 
 PILOT_STREAM = 3 << 28     # stream index of the pilot, past every chunk
 
+# Longest horizon priced by the single-tile kernels K1/K2; the step-tiled
+# K6/K7 take every longer one.  chip_smoke.py's crossover phase measured K7
+# faster than K2 per 131072-path chunk at every horizon it covers, 365 steps
+# included (PERF.md section 5), so the constant sits at the bench horizon,
+# which stays on K1/K2 until a benchmark can show the switch end to end.
+SINGLE_TILE_MAX_STEPS = 365
+
 
 @dataclasses.dataclass(frozen=True)
 class StreamConfig:
-    """The fields the ported path reads.  ``block_paths`` is the CUDA
-    path block (0 = the largest the card admits at this horizon, see
-    ``pathgen_cuda.max_block_paths``)."""
+    """The fields the ported path reads.  ``block_paths`` is the
+    single-tile kernels' CUDA path block (0 = the largest the card admits
+    at this horizon, see ``pathgen_cuda.max_block_paths``); the tiled
+    kernels choose theirs from the row count.  ``tiled_impl`` names the
+    long-horizon kernels as the JAX field does: "auto" and "slab" are the
+    step-tiled chol slab K6/K7; the factored DFT is not ported."""
 
     n_paths: int
     n_steps: int
@@ -52,6 +68,7 @@ class StreamConfig:
     block_paths: int = 0
     fgn_form: str = "auto"
     policy_form: str = "boundary"
+    tiled_impl: str = "auto"
 
     def __post_init__(self):
         if self.fgn_form not in ("auto", "chol"):
@@ -66,12 +83,32 @@ class StreamConfig:
             raise NotImplementedError(
                 "the fused kernels read quadratic fits; other poly_order "
                 "values need the generic path stream (ROADMAP A3)")
-        if not pathgen_cuda.supports(self.n_steps):
+        if self.tiled_impl not in ("auto", "slab", "factored"):
+            raise ValueError(f"unknown tiled_impl: {self.tiled_impl!r}")
+        if self.tiled_impl == "factored":
             raise NotImplementedError(
-                f"n_steps={self.n_steps} exceeds the single-tile kernels "
-                "(ROADMAP A8: long horizon)")
+                "tiled_impl='factored': the factored-DFT kernels are not "
+                "ported (ROADMAP B8/B9, with the spectral form)")
+        resolve_kernel_family(self.n_steps)
         if self.chunks_per_call < 1:
             raise ValueError("chunks_per_call must be >= 1")
+
+
+def resolve_kernel_family(n_steps: int) -> str:
+    """The kernel family of a horizon: "single" (K1/K2) up to
+    SINGLE_TILE_MAX_STEPS, "tiled" (K6/K7) past it up to
+    ``pathgen_tiled_cuda.max_tiled_steps()`` (counterpart:
+    ``_resolve_tiled_module``); NotImplementedError past that."""
+    if n_steps < 1:
+        raise ValueError(f"n_steps={n_steps} must be >= 1")
+    if n_steps <= SINGLE_TILE_MAX_STEPS and pathgen_cuda.supports(n_steps):
+        return "single"
+    if pathgen_tiled_cuda.supports(n_steps):
+        return "tiled"
+    raise NotImplementedError(
+        f"n_steps={n_steps} exceeds the step-tiled kernels (max "
+        f"{pathgen_tiled_cuda.max_tiled_steps()}); longer horizons need "
+        "the factored-DFT kernels (ROADMAP B8/B9)")
 
 
 # ---------------------------------------------------------------------------
@@ -228,10 +265,18 @@ class StreamingPricer:
         self.s0, self.r = float(s0), float(r)
         self.strike, self.maturity = float(strike), float(maturity)
         self.is_call = bool(is_call)
-        block = config.block_paths or pathgen_cuda.max_block_paths(
-            config.n_steps)
-        while config.chunk_paths % block or config.pilot_paths % block:
-            block //= 2
+        self.kernel_family = resolve_kernel_family(config.n_steps)
+        if self.kernel_family == "single":
+            block = config.block_paths or pathgen_cuda.max_block_paths(
+                config.n_steps)
+            while config.chunk_paths % block or config.pilot_paths % block:
+                block //= 2
+            self._pathgen = pathgen_cuda.pathgen
+            self._priced_chunk = pathgen_cuda.priced_chunk
+        else:
+            block = 0
+            self._pathgen = pathgen_tiled_cuda.tiled_pathgen
+            self._priced_chunk = pathgen_tiled_cuda.tiled_priced_chunk
         self.consts = pathgen_cuda.make_path_consts(
             s0, xi, h, eta, r, config.n_steps, config.dt, device,
             block_paths=block)
@@ -241,8 +286,8 @@ class StreamingPricer:
 
     def fit(self, carrier) -> PolyFit:
         """Pilot block from the (run_word, stream_index) ``carrier``
-        through K1, then the LSM policy fit."""
-        pilot = pathgen_cuda.pathgen(
+        through the family's path kernel, then the LSM policy fit."""
+        pilot = self._pathgen(
             self.consts, rows=self.config.pilot_paths,
             key=pathgen_cuda._fold_words(*carrier))
         _, fits = lsm_fit(pilot, self.r, self.strike, self.maturity,
@@ -295,9 +340,8 @@ class StreamingPricer:
                         run, start + i)}
                 else:
                     kw = {"noise": noise[i]}
-                c = pathgen_cuda.priced_chunk(self.consts, table,
-                                              self.strike, self.is_call,
-                                              **kw)
+                c = self._priced_chunk(self.consts, table, self.strike,
+                                       self.is_call, **kw)
                 tot_g = tot_g + c
                 sq_g = sq_g + c * c
             # Time-0 exercise: every path shares S0, so the run collapses

@@ -16,7 +16,9 @@ Each kernel has a seeded entry (Philox4x32-10 written into the kernel) and
 a noise-in entry.  The wrappers run the plain versions for tensors on the
 CPU and launch the kernel for tensors on a CUDA device; nothing falls back.
 
-Random stream layout (fixed; ``philox_normals_ref`` reproduces it):
+Random stream layout (fixed, written once in ``csrc/philox.cuh`` for these
+kernels and the step-tiled ones of ``pathgen_tiled_cuda``;
+``philox_normals_ref`` reproduces it):
 key = (fold(run_word, stream_index), 0); for path p of the chunk (global
 row index, 0-based) and step pair j, counter = (p, j, 0, 0) gives four
 words x0..x3.  Step 2j takes the Box-Muller pair of (x0, x1), step 2j+1
@@ -163,10 +165,12 @@ def _half_var_drift(n_steps: int, s_pad: int, xi, h, eta, dt) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class PathConsts:
-    """Everything both kernels read besides noise and policy: the
+    """Everything the path kernels read besides noise and policy: the
     half-scaled upper-triangular Cholesky factor ``lt_half`` [n, n], the
-    half variance drift ``vd`` [n], the market scalars and the CUDA path
-    block.  Its tensors' device decides where the wrappers run."""
+    half variance drift ``vd`` [n], the market scalars and the single-tile
+    kernels' path block (0 past their cap; the step-tiled kernels of
+    ``pathgen_tiled_cuda`` choose theirs from the row count).  Its
+    tensors' device decides where the wrappers run."""
 
     n_steps: int
     block_paths: int
@@ -183,23 +187,15 @@ class PathConsts:
 
 def make_path_consts(s0, xi, h, eta, r, n_steps: int, dt: float,
                      device, block_paths: int = 0) -> PathConsts:
-    """PathConsts for the chol fGN form.  ``block_paths`` 0 takes the
-    largest block the card admits at this horizon; a larger request
-    raises."""
+    """PathConsts for the chol fGN form, at any horizon.  ``block_paths``
+    0 takes the largest single-tile block the card admits at this horizon
+    (0 past the single-tile cap); the single-tile wrappers check it."""
     from .engine import _chol_matrix_host
 
-    cap = max_block_paths(n_steps)
-    if cap == 0:
-        raise NotImplementedError(
-            f"n_steps={n_steps} exceeds the single-tile kernels' shared "
-            "memory (ROADMAP A8: long horizon)")
-    bp = block_paths or cap
-    if bp not in BLOCK_CHOICES or bp > cap:
-        raise ValueError(f"block_paths={bp} not in {BLOCK_CHOICES} or over "
-                         f"the cap {cap} at n_steps={n_steps}")
     lt = torch.tensor(_chol_matrix_host(n_steps, h, eta, dt),
                       dtype=torch.float32)
     vd = _half_var_drift(n_steps, n_steps, xi, h, eta, dt)[0]
+    bp = block_paths or max_block_paths(n_steps)
     return PathConsts(n_steps=n_steps, block_paths=bp,
                       lt_half=(0.5 * lt).to(device).contiguous(),
                       vd=vd.to(device).contiguous(), s0=float(s0),
@@ -399,23 +395,33 @@ def _noise_or_rows(consts, rows, key, noise):
     return noise.shape[1]
 
 
-def _kernel_args(consts: PathConsts, rows: int, key, noise):
-    """Validated pointer and scalar arguments shared by both kernels."""
+def check_device_inputs(consts: PathConsts, noise, table=None) -> None:
+    """The checks every kernel wrapper makes before a launch: the
+    constants on a CUDA device, and noise and table contiguous float32 on
+    that device."""
     dev = consts.device
     if dev.type != "cuda":
         raise ValueError(f"the kernels run on a CUDA device, not {dev}")
-    if rows % consts.block_paths:
-        raise ValueError(f"rows={rows} must divide by block_paths="
-                         f"{consts.block_paths}")
-    if noise is not None:
-        if (noise.device != dev or noise.dtype != torch.float32
-                or not noise.is_contiguous()):
-            raise ValueError("noise must be contiguous float32 on "
-                             f"{dev}")
+    for name, t in (("noise", noise), ("table", table)):
+        if t is not None and (t.device != dev or t.dtype != torch.float32
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 on {dev}")
+
+
+def _kernel_args(consts: PathConsts, rows: int, key, noise):
+    """Validated pointer and scalar arguments shared by both single-tile
+    kernels."""
+    check_device_inputs(consts, noise)
+    bp, cap = consts.block_paths, max_block_paths(consts.n_steps)
+    if bp not in BLOCK_CHOICES or bp > cap:
+        raise ValueError(f"block_paths={bp} not in {BLOCK_CHOICES} or over "
+                         f"the single-tile cap {cap} at "
+                         f"n_steps={consts.n_steps}")
+    if rows % bp:
+        raise ValueError(f"rows={rows} must divide by block_paths={bp}")
     noise_ptr = None if noise is None else noise.data_ptr()
     return (noise_ptr, consts.lt_half.data_ptr(), consts.vd.data_ptr(),
-            rows, consts.n_steps, consts.block_paths,
-            0 if key is None else key & _U32)
+            rows, consts.n_steps, bp, 0 if key is None else key & _U32)
 
 
 def _scalars(consts: PathConsts):
@@ -472,9 +478,7 @@ def priced_chunk(consts: PathConsts, table: torch.Tensor, strike: float,
         return priced_chunk_from_noise_ref(consts, table, noise, strike,
                                            is_call)
     args = _kernel_args(consts, rows, key, noise)
-    if (table.device != consts.device or table.dtype != torch.float32
-            or not table.is_contiguous()):
-        raise ValueError("table must be contiguous float32 on the device")
+    check_device_inputs(consts, None, table)
     partial = torch.empty((rows // consts.block_paths,), dtype=torch.float32,
                           device=consts.device)
     from ..kernels import build

@@ -72,10 +72,10 @@ def fit_poly_masked(x, y, w, order: int, ridge: float = 1e-6) -> PolyFit:
     # Diagonal-scaled Tikhonov term; 1e-6 is the smallest ridge that is
     # meaningful in float32, and smaller requests are raised to it.
     lam = max(ridge, 1e-6)
-    eye = torch.eye(order + 1, dtype=gram.dtype, device=gram.device)
-    a = gram + (lam * (torch.diagonal(gram) + 1.0))[None, :] * eye
+    ridge_diag = lam * (torch.diagonal(gram) + 1.0)
+    a = gram + torch.diag(ridge_diag)
     if order + 1 <= 3:
-        coeffs = _solve_spd_small(a, rhs)
+        coeffs = _solve_spd_small(a, rhs, ridge_diag)
     else:
         coeffs = torch.cholesky_solve(rhs[:, None],
                                       torch.linalg.cholesky(a))[:, 0]
@@ -85,20 +85,29 @@ def fit_poly_masked(x, y, w, order: int, ridge: float = 1e-6) -> PolyFit:
     return PolyFit(coeffs, mu, sd)
 
 
-def _solve_spd_small(a, b):
-    """Solve a x = b for SPD a of size 1..3 by an unrolled Cholesky
-    factorization; pivots are clamped to 1e-30 so a rank-deficient a gives
-    finite output instead of NaN."""
+def _solve_spd_small(a, b, floor):
+    """Solve a x = b for a = G + diag(floor), G positive semidefinite and
+    floor > 0, of size 1..3, by an unrolled Cholesky factorization.
+
+    Each exact pivot of a is at least floor[k] (Schur complements are
+    monotone, and the diagonal term alone has pivot floor[k]), so a pivot
+    that float32 cancellation pushes below it is clamped to it.  The JAX
+    reference clamps to 1e-30 instead, which lets a near-rank-1 design's
+    coefficients reach ~1e27 (ROADMAP C); for a healthy design the floor
+    never engages and the two agree."""
     n = a.shape[-1]
-    tiny = 1e-30
-    sqrt = lambda v: torch.sqrt(torch.clamp_min(v, tiny))
     if n == 1:
-        return b / torch.clamp_min(a[..., 0, 0:1], tiny)
+        return b / torch.maximum(a[..., 0, 0:1], floor[..., 0:1])
+    f = [floor[..., k] for k in range(n)]
+
+    def sqrt(v, k):
+        return torch.sqrt(torch.maximum(v, f[k]))
+
     if n == 2:
         a00, a01, a11 = a[..., 0, 0], a[..., 0, 1], a[..., 1, 1]
-        l00 = sqrt(a00)
+        l00 = sqrt(a00, 0)
         l10 = a01 / l00
-        l11 = sqrt(a11 - l10 * l10)
+        l11 = sqrt(a11 - l10 * l10, 1)
         y0 = b[..., 0] / l00
         y1 = (b[..., 1] - l10 * y0) / l11
         x1 = y1 / l11
@@ -106,12 +115,12 @@ def _solve_spd_small(a, b):
         return torch.stack([x0, x1], dim=-1)
     a00, a01, a02 = a[..., 0, 0], a[..., 0, 1], a[..., 0, 2]
     a11, a12, a22 = a[..., 1, 1], a[..., 1, 2], a[..., 2, 2]
-    l00 = sqrt(a00)
+    l00 = sqrt(a00, 0)
     l10 = a01 / l00
     l20 = a02 / l00
-    l11 = sqrt(a11 - l10 * l10)
+    l11 = sqrt(a11 - l10 * l10, 1)
     l21 = (a12 - l20 * l10) / l11
-    l22 = sqrt(a22 - l20 * l20 - l21 * l21)
+    l22 = sqrt(a22 - l20 * l20 - l21 * l21, 2)
     b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
     y0 = b0 / l00
     y1 = (b1 - l10 * y0) / l11

@@ -1,19 +1,23 @@
 """Where one full-width price spends its time on the card.
 
 Runs the bench.py workload (1e7 paths x 365 steps, the same shape as
-``chip_smoke.py``) through ``StreamingPricer`` once to warm up, then times
-its two stages, the pilot fit (K1 + the LSM fit) and the stream (tables +
-K2 per chunk), first on the host clock without a profiler and then under
+``chip_smoke.py``; ``--steps 1825`` takes the long horizon of the same
+option, maturity steps/252) through ``StreamingPricer`` once to warm up,
+then times
+its two stages, the pilot fit (K1, or K6 past the single-tile horizon, +
+the LSM fit) and the stream (tables + K2 or K7 per chunk), first on the host clock without a profiler and then under
 ``torch.profiler``.  For each stage it prints one JSON line: host wall
 seconds, device kernel launches and busy seconds from the trace, the idle
 share 1 - busy / wall (against the unprofiled and the profiled wall), and
 the kernels that take the most device time.
 
-Usage (one CUDA card):  python -m montecarlooptionspricer_tpu_torch.profile_price
+Usage (one CUDA card):
+  python -m montecarlooptionspricer_tpu_torch.profile_price [--steps N]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -42,7 +46,10 @@ def _timed(torch, fn) -> float:
     return time.perf_counter() - t0
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    args.add_argument("--steps", type=int, default=365)
+    steps = args.parse_args(argv).steps
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -51,11 +58,11 @@ def main() -> int:
         return 1
     from .models import engine
 
-    cfg = engine.StreamConfig(n_paths=76 << 17, n_steps=365,
+    cfg = engine.StreamConfig(n_paths=76 << 17, n_steps=steps,
                               chunk_paths=1 << 17, pilot_paths=1 << 17,
                               dt=1.0 / 252.0, chunks_per_call=76)
     pricer = engine.StreamingPricer(100.0, 0.04, 0.1, 1.5, -0.4, 0.04,
-                                    105.0, 365 / 252, False, cfg,
+                                    105.0, steps / 252, False, cfg,
                                     device="cuda")
     seed = 42
     pricer.price(seed)          # build the kernels, warm every path
@@ -77,7 +84,9 @@ def main() -> int:
                 e.time_range.elapsed_us()
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         print(json.dumps({
-            "stage": name, "card": card, "wall_s": wall_plain,
+            "stage": name, "n_steps": steps,
+            "kernel_family": pricer.kernel_family, "card": card,
+            "wall_s": wall_plain,
             "wall_profiled_s": wall_prof, "device_launches": len(kernels),
             "device_busy_s": busy_s,
             "idle_share": 1.0 - busy_s / wall_plain,

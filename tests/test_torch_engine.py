@@ -117,6 +117,7 @@ def test_seed_carriers():
 @pytest.mark.parametrize("field,value", [("fgn_form", "spectral"),
                                          ("policy_form", "quadratic"),
                                          ("poly_order", 3),
+                                         # past max_tiled_steps() (3,620)
                                          ("n_steps", 4000)])
 def test_unported_configurations_raise(field, value):
     kw = dict(n_paths=1024, n_steps=32)

@@ -129,3 +129,39 @@ def test_fit_poly_masked_near_rank_1_design(seed):
     want = np.polynomial.polynomial.polyval((x[rows] - mu) / sd, coeffs)
     got = treg.eval_poly(tf, torch.from_numpy(x[rows])).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 4])
+def test_solve_floors_pivot_below_ridge(seed):
+    """The near-rank-1 design above with its Gram matrix formed in the
+    float32 matmul order the JAX reference uses: the last Cholesky pivot
+    a22 - l20^2 - l21^2 cancels below the ridge lam (g22 + 1) that bounds
+    it from below (negative on seed 0).  The solver clamps it to that
+    floor, so the coefficients stay finite and the fitted values on the
+    weighted rows match a float64 solve of the same system to 1e-3."""
+    rng = np.random.default_rng(seed)
+    n = 2048
+    x = np.full(n, 100.0, np.float32)
+    y = (0.02 * (x - 95.0) ** 2 + rng.normal(0, 1, n)).astype(np.float32)
+    w = (rng.uniform(size=n) < 0.4).astype(np.float32)
+    x[5], w[5] = 101.0, 1.0
+    tf = treg.fit_poly_masked(torch.from_numpy(x), torch.from_numpy(y),
+                              torch.from_numpy(w), 2)
+    z = (torch.from_numpy(x) - tf.mu) / tf.sd
+    basis = treg.poly_basis(z, 2)
+    wb = basis * torch.from_numpy(w)[:, None]
+    gram = wb.T @ basis
+    floor = 1e-6 * (torch.diagonal(gram) + 1.0)
+    a = gram + torch.diag(floor)
+    l0 = a[0] / torch.sqrt(a[0, 0])
+    l21 = (a[1, 2] - l0[2] * l0[1]) / torch.sqrt(a[1, 1] - l0[1] ** 2)
+    assert float(a[2, 2] - l0[2] ** 2 - l21 ** 2) < float(floor[2])
+
+    coeffs = treg._solve_spd_small(a, wb.T @ torch.from_numpy(y), floor)
+    assert np.all(np.isfinite(coeffs.numpy()))
+    want_c, mu, sd = _ridge_fit_f64(x, y, w)
+    rows = w > 0
+    want = np.polynomial.polynomial.polyval((x[rows] - mu) / sd, want_c)
+    got = treg.eval_poly(treg.PolyFit(coeffs, tf.mu, tf.sd),
+                         torch.from_numpy(x[rows])).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-3)
