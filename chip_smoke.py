@@ -3,13 +3,19 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, all started together), holds each kernel against its plain
-PyTorch version at its path's shapes, and drives two full-width
-fit-then-stream prices through the kernels, each with the launch counts set
+PyTorch version at its path's shapes, and drives five full-width
+fit-then-stream runs through the kernels, each with the launch counts set
 to 0 just before it and read just after:
 
 * the main path, 1e7 paths x 365 steps (the bench.py workload), through
   the single-tile kernels K1 and K2, checked against the same seed through
   the plain versions;
+* the strike chain of the same expiry, 21 strikes from 75 to 125, through
+  K1 once and the chain kernel K5 per chunk (``chain_price``), checked
+  against the plain versions on its first 8 chunks under the same fits;
+* the pathwise Greeks of the bench option through K3 (``greeks``) and of
+  the strip through K4 (``chain_greeks``), each price lane checked against
+  the prices above;
 * the long horizon, 1e7 paths x 1825 steps (the reference's longest), through
   the step-tiled kernels K6 and K7, checked against the plain versions on
   its first 8 chunks under the same fit.
@@ -50,13 +56,26 @@ LONG_MATURITY = LONG_STEPS * DT
 K6_VS_K1_STEPS = 1008
 CROSSOVER_STEPS = (365, 504, 1008, 1512)
 
+# The strike strip of the chain and Greeks phases: one expiry's chain around
+# s0, deep in and out of the money (the top strikes exercise at time 0).
+STRIP = tuple(75.0 + 2.5 * i for i in range(21))
+CHAIN_CHECKED = 8
+
 # Tolerances.  Paths: the kernel and the plain version sum the fGN product
 # and the log-price recursion in different orders (float32), ~2e-4
 # relative as the JAX package's own matmul-cumsum against float64.  Sums
 # and price: a boundary decision can flip only inside the float32 root
-# band, which moves a chunk sum by far less than 1e-4 relative.
+# band, which moves a chunk sum by far less than 1e-4 relative.  Greeks:
+# the tangent sums also run in another float32 order, so each of the six
+# chunk sums is held at 2e-4 of its scale (floored at 1e-3 of the largest
+# strike's, for near-zero deep out-of-the-money sums), as the CPU tests
+# hold the plain version against JAX; K4 and K3 run one body, so a strike's
+# column of K4 equals K3 up to the cross-block sum's order (1e-6 of each
+# output's largest strike).
 PATH_RTOL = 2e-4
 SUM_RTOL = 1e-4
+GREEKS_RTOL = 2e-4
+SAME_BODY_RTOL = 1e-6
 
 # H100 SXM peaks (NVIDIA data sheet): float32 without tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
@@ -69,6 +88,10 @@ REPLACES = {
         "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:267",
     "tiled_priced_chunk":
         "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:395",
+    "priced_chain": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:446",
+    "greeks_chunk": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:1016",
+    "chain_greeks_chunk":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas.py:954",
 }
 SOURCES = {
     "pathgen": "montecarlooptionspricer_tpu_torch/csrc/pathgen.cu",
@@ -76,7 +99,15 @@ SOURCES = {
     "tiled_pathgen": "montecarlooptionspricer_tpu_torch/csrc/pathgen_tiled.cu",
     "tiled_priced_chunk":
         "montecarlooptionspricer_tpu_torch/csrc/pathgen_tiled.cu",
+    "priced_chain": "montecarlooptionspricer_tpu_torch/csrc/chain.cu",
+    "greeks_chunk": "montecarlooptionspricer_tpu_torch/csrc/greeks.cu",
+    "chain_greeks_chunk": "montecarlooptionspricer_tpu_torch/csrc/greeks.cu",
 }
+
+
+def expected_counts(**nonzero) -> dict:
+    """Launch counts of a run that launched only the named kernels."""
+    return {k: nonzero.get(k, 0) for k in REPLACES}
 
 
 class SmokeError(RuntimeError):
@@ -107,14 +138,21 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(rows: int, n: int, out_bytes: int) -> tuple[float, str]:
+def bound_ms(rows: int, n: int, out_bytes: int, products: int = 1,
+             per_cell: float = 8.0, policy_rows: int = 4,
+             swept: int = 0) -> tuple[float, str]:
     """Least time for one launch at this shape: the larger of the bytes
-    that must move (Lt', vd and the policy rows read once, the output
-    written once) over HBM bandwidth and the float32 operations (the
-    triangular fGN product, 2 per multiply-add, plus ~8 per cell for the
-    variance, increment, running sum and test) over the float32 peak."""
-    bytes_ = 4 * (n * n + 4 * n) + out_bytes
-    flops = 2.0 * rows * n * (n + 1) / 2 + 8.0 * rows * n
+    that must move (the ``products`` triangular factors Lt' (and dLt'),
+    vd and the ``policy_rows`` rows of [n] read once, the output written
+    once) over HBM bandwidth and the float32 operations (each triangular
+    fGN product, 2 per multiply-add, plus ``per_cell`` per cell: ~8 for the
+    variance, increment, running sum and test, ~18 with the Greeks'
+    tangent brackets and sums; plus ~4 per strike-cell that a strike sweep
+    visits, ``swept``, counted from this run's stop steps) over the
+    float32 peak."""
+    bytes_ = 4 * (products * n * n + policy_rows * n) + out_bytes
+    flops = (2.0 * products * rows * n * (n + 1) / 2 + per_cell * rows * n
+             + 4.0 * swept)
     t_bytes, t_ops = bytes_ / PEAK_BYTES, flops / PEAK_F32_FLOPS
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
@@ -160,6 +198,322 @@ def plain_price(pc, engine, lsm_fit, pricer, seed: int) -> float:
     _, fits = lsm_fit(pilot, MARKET["r"], STRIKE, MATURITY, DT, IS_CALL, 2)
     return plain_stream_mean(pc, engine, pricer, fits, seed, N_CHUNKS,
                              STRIKE)
+
+
+def timed(torch, fn):
+    """(fn(), host seconds), the device synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def swept_cells(torch, paths, lo, hi) -> int:
+    """Strike-cells a first-hit sweep visits: for each strike, each path's
+    columns up to its first lo <= path <= hi, or all n where it never
+    hits (paths [rows, n] in the space of lo and hi [K, n])."""
+    n = paths.shape[1]
+    total = 0
+    for k in range(lo.shape[0]):
+        exf = (paths >= lo[k]) & (paths <= hi[k])
+        first = exf.to(torch.int8).argmax(dim=1) + 1
+        total += int(torch.where(exf.any(dim=1), first, n).sum())
+    return total
+
+
+def scaled_err(torch, got, want) -> float:
+    """Largest |got - want| over each entry's scale, floored at 1e-3 of
+    its row's largest |want|.  A row is one output over the strikes: the
+    six rows of Greeks sums, or the one row of a strip's sums."""
+    want = want.double().reshape(-1, want.shape[-1])
+    got = got.double().reshape(want.shape)
+    floor = 1e-3 * want.abs().amax(dim=-1, keepdim=True)
+    return float(((got - want).abs() / torch.maximum(want.abs(), floor))
+                 .max())
+
+
+def device_launches(torch, fn) -> int:
+    """Device kernels that fn() launches, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def plain_chain_means(torch, pc, cc, engine, chain, fits, seed: int,
+                      n_chunks: int):
+    """Per-strike mean discounted payoff of the first n_chunks chunks of
+    seed's stream under the strip's ``fits``, through the plain versions
+    (time-0 exercise decided per strike as the engine decides it)."""
+    consts, dev = chain.consts, chain.device
+    _, (run, start) = engine._pilot_stream_keys(seed)
+    tables = chain._tables(fits, chain.strikes)
+    ex0, p0 = pc.time0_value(fits, MARKET["s0"], chain.strikes, IS_CALL)
+    total = torch.zeros(len(STRIP), dtype=torch.float64, device=dev)
+    for i in range(n_chunks):
+        noise = pc.philox_normals_ref(pc._fold_words(run, start + i), CHUNK,
+                                      consts.n_steps, device=dev)
+        total += cc.priced_chain_from_noise_ref(consts, tables, noise,
+                                                IS_CALL).double()
+    mean = total / (n_chunks * CHUNK)
+    return torch.where(ex0, p0.double(), mean).cpu().numpy()
+
+
+def chain_and_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
+                            pricer, price: float, stderr: float,
+                            reset_counts, read_counts) -> tuple:
+    """The chain kernel K5 and the Greeks kernels K3 and K4 at the bench
+    shape: each against its plain version (K5 also against K2, K4 against
+    K3 per strike), then the strip's price, the bench option's Greeks and
+    the strip's Greeks at full width through them.  ``price`` and
+    ``stderr`` are the main path's.  Returns their entries of the kernels
+    line and their times."""
+    import numpy as np
+
+    chain = engine.StreamingChainPricer(**MARKET, strikes=STRIP,
+                                        maturity=MATURITY, is_call=IS_CALL,
+                                        config=pricer.config, device=dev)
+    consts, g = chain.consts, chain.greeks_consts
+    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    i_k = STRIP.index(STRIKE)
+    fits = chain.fit(k_pilot)
+    tables = chain._tables(fits, chain.strikes)
+    logs = pc.log_boundary_rows(tables).contiguous()
+    noise = pc.philox_normals_ref(key, CHUNK, N_STEPS, device=dev)
+
+    # K5, noise-in and seeded, against its plain version at K = 1 and 21,
+    # and seeded K5 at K = 1 against seeded K2 under the same fit.
+    k5 = []
+    for tab in (tables[i_k:i_k + 1], tables):
+        want = cc.priced_chain_from_noise_ref(consts, tab, noise, IS_CALL)
+        got_n = cc.priced_chain(consts, tab, IS_CALL, noise=noise)
+        got_s = cc.priced_chain(consts, tab, IS_CALL, rows=CHUNK, key=key)
+        torch.cuda.synchronize()
+        k5.append({"n_strikes": tab.shape[0],
+                   "noise_in_rel_err": scaled_err(torch, got_n, want),
+                   "seeded_rel_err": scaled_err(torch, got_s, want)})
+        check(k5[-1]["noise_in_rel_err"] <= SUM_RTOL
+              and k5[-1]["seeded_rel_err"] <= SUM_RTOL,
+              f"K5 disagrees with its plain version at K={tab.shape[0]}")
+    abs_k5 = float(torch.max(torch.abs(got_s - want)))
+    k5_one = float(cc.priced_chain(consts, tables[i_k:i_k + 1], IS_CALL,
+                                   rows=CHUNK, key=key)[0])
+    k2_one = float(pc.priced_chunk(consts, logs[i_k], STRIKE, IS_CALL,
+                                   rows=CHUNK, key=key))
+    k5_vs_k2 = abs(k5_one / k2_one - 1.0)
+    emit({"phase": "k5", "rows": CHUNK, "n_steps": N_STEPS,
+          "block_paths": cc.block_paths_for(N_STEPS, CHUNK),
+          "strikes_per_launch": cc.GROUP, "checks": k5,
+          "k5_sum_k1": k5_one, "k2_sum": k2_one, "k5_vs_k2_rel": k5_vs_k2,
+          "rtol": SUM_RTOL})
+    check(k5_vs_k2 <= SUM_RTOL, "seeded K5 and K2 disagree on one strike")
+
+    # The strip's price at full width, through K1 once and K5 per chunk.
+    reset_counts()
+    (prices, stderrs), wall = timed(
+        torch, lambda: chain.price(SEED, with_stderr=True))
+    launches = read_counts()
+    fits, fit_s = timed(torch, lambda: chain.fit(k_pilot))
+    _, stream_s = timed(torch, lambda: chain.price_with_fit(fits, SEED))
+    fit_launches = device_launches(torch, lambda: chain.fit(k_pilot))
+    single_fit_launches = device_launches(torch,
+                                          lambda: pricer.fit(k_pilot))
+    checked = chain.price_with_fit(fits, SEED, n_paths=CHAIN_CHECKED * CHUNK)
+    checked_plain = plain_chain_means(torch, pc, cc, engine, chain, fits,
+                                      SEED, CHAIN_CHECKED)
+    checked_rel = scaled_err(torch, torch.from_numpy(checked),
+                             torch.from_numpy(checked_plain))
+    n_paths = CHUNK * N_CHUNKS
+    p_k, se_k = float(prices[i_k]), float(stderrs[i_k])
+    emit({"phase": "chain_price", "card": smi, "n_paths": n_paths,
+          "n_steps": N_STEPS, "strikes": list(STRIP),
+          "prices": prices.tolist(), "stderrs": stderrs.tolist(),
+          "wall_s": wall, "paths_strikes_per_s": n_paths * len(STRIP) / wall,
+          "fit_s": fit_s, "stream_s": stream_s, "launches": launches,
+          "fit_device_launches": fit_launches,
+          "single_strike_fit_device_launches": single_fit_launches,
+          "checked_chunks": CHAIN_CHECKED,
+          "checked_rel_err": checked_rel, "rtol": SUM_RTOL,
+          "strike": STRIKE, "price_at_strike": p_k,
+          "stderr_at_strike": se_k, "single_strike_price": price})
+    check(launches == expected_counts(pathgen=1, priced_chain=N_CHUNKS),
+          f"chain launches {launches}, want 1 and {N_CHUNKS}")
+    check(bool(np.all(np.isfinite(prices))) and bool(np.all(prices > 0)),
+          "chain prices not finite and positive")
+    check(bool(np.all(np.diff(prices) > 0)),
+          "put prices do not rise with the strike")
+    check(checked_rel <= SUM_RTOL, "chain prices disagree with the plain path")
+    check(abs(p_k - price) <= 2.0 * stderr,
+          f"strike {STRIKE} of the strip {p_k} is over 2 stderr from the "
+          f"single-strike price {price}")
+    check(fit_launches <= single_fit_launches,
+          "the strip's fit launches more kernels than one strike's")
+
+    # K3 and K4 against their plain version on the strip's log tables, and
+    # K4's columns against K3 per strike.
+    want = gc.greeks_from_noise_ref(consts, g, logs, chain.strikes, noise,
+                                    IS_CALL)
+    k4_n = gc.chain_greeks_chunk(consts, g, logs, IS_CALL, noise=noise)
+    k4_s = gc.chain_greeks_chunk(consts, g, logs, IS_CALL, rows=CHUNK,
+                                 key=key)
+    k3_n = gc.greeks_chunk(consts, g, logs[i_k], STRIKE, IS_CALL,
+                           noise=noise)
+    k3_s = gc.greeks_chunk(consts, g, logs[i_k], STRIKE, IS_CALL,
+                           rows=CHUNK, key=key)
+    torch.cuda.synchronize()
+    err_k3 = [scaled_err(torch, got[:, None], want[:, i_k:i_k + 1])
+              for got in (k3_n, k3_s)]
+    abs_k3 = float(torch.max(torch.abs(k3_s - want[:, i_k])))
+    emit({"phase": "k3", "rows": CHUNK, "n_steps": N_STEPS,
+          "block_paths": gc.block_paths_for(N_STEPS, CHUNK),
+          "strike": STRIKE, "seeded": k3_s.tolist(),
+          "plain": want[:, i_k].tolist(), "noise_in_rel_err": err_k3[0],
+          "seeded_rel_err": err_k3[1], "rtol": GREEKS_RTOL})
+    check(max(err_k3) <= GREEKS_RTOL, "K3 disagrees with its plain version")
+    err_k4 = [scaled_err(torch, got, want) for got in (k4_n, k4_s)]
+    abs_k4 = float(torch.max(torch.abs(k4_s - want)))
+    per_strike = torch.stack([
+        gc.greeks_chunk(consts, g, logs[j], k, IS_CALL, rows=CHUNK, key=key)
+        for j, k in enumerate(STRIP)], dim=1)
+    same_body = float(((per_strike - k4_s).abs()
+                       / k4_s.abs().amax(dim=1, keepdim=True)).max())
+    emit({"phase": "k4", "rows": CHUNK, "n_strikes": len(STRIP),
+          "noise_in_rel_err": err_k4[0], "seeded_rel_err": err_k4[1],
+          "rtol": GREEKS_RTOL, "k3_per_strike_rel_err": same_body,
+          "k3_per_strike_rtol": SAME_BODY_RTOL})
+    check(max(err_k4) <= GREEKS_RTOL, "K4 disagrees with its plain version")
+    check(same_body <= SAME_BODY_RTOL, "K4's columns differ from K3's")
+    del per_strike
+
+    # The bench option's Greeks at full width, through K1 once and K3 per
+    # chunk, on price()'s pilot and fit.
+    reset_counts()
+    (greeks, greeks_se), g_wall = timed(
+        torch, lambda: pricer.price_and_greeks(SEED, with_stderr=True))
+    g_launches = read_counts()
+    one_fits, g_fit_s = timed(torch, lambda: pricer.fit(k_pilot))
+    _, g_stream_s = timed(torch,
+                          lambda: pricer.greeks_with_fit(one_fits, SEED))
+    g_rel = abs(greeks[0] / price - 1.0)
+    emit({"phase": "greeks", "card": smi, "n_paths": n_paths,
+          "greeks": dict(zip(gc.GREEK_ORDER, greeks)),
+          "stderrs": dict(zip(gc.GREEK_ORDER, greeks_se)), "wall_s": g_wall,
+          "paths_per_s": n_paths / g_wall, "fit_s": g_fit_s,
+          "stream_s": g_stream_s, "launches": g_launches,
+          "price_lane_rel_err": g_rel, "rtol": SUM_RTOL})
+    check(g_launches == expected_counts(pathgen=1, greeks_chunk=N_CHUNKS),
+          f"greeks launches {g_launches}, want 1 and {N_CHUNKS}")
+    check(all(math.isfinite(v) for v in (*greeks, *greeks_se)),
+          "non-finite Greeks")
+    check(g_rel <= SUM_RTOL, "the Greeks' price lane disagrees with price()")
+
+    # The strip's Greeks at full width, through K1 once and K4 per chunk.
+    reset_counts()
+    (cg, cg_se), cg_wall = timed(
+        torch, lambda: chain.price_and_greeks(SEED, with_stderr=True))
+    cg_launches = read_counts()
+    _, cg_stream_s = timed(torch, lambda: chain.greeks_with_fit(fits, SEED))
+    cg_rel = scaled_err(torch, torch.from_numpy(cg[0]),
+                        torch.from_numpy(prices))
+    emit({"phase": "chain_greeks", "card": smi, "n_paths": n_paths,
+          "strikes": list(STRIP),
+          "greeks": {n: row.tolist() for n, row in zip(gc.GREEK_ORDER, cg)},
+          "wall_s": cg_wall, "paths_per_s": n_paths / cg_wall,
+          "stream_s": cg_stream_s, "launches": cg_launches,
+          "price_row_rel_err": cg_rel, "rtol": SUM_RTOL})
+    check(cg_launches == expected_counts(pathgen=1,
+                                         chain_greeks_chunk=N_CHUNKS),
+          f"chain Greeks launches {cg_launches}, want 1 and {N_CHUNKS}")
+    check(bool(np.all(np.isfinite(cg))) and bool(np.all(np.isfinite(cg_se))),
+          "non-finite chain Greeks")
+    check(cg_rel <= SUM_RTOL, "the chain Greeks' price row disagrees with "
+          "the chain's prices")
+
+    # Times at the bench shape; bounds count this chunk's swept cells.
+    ls = pc._log_paths_ref(consts, noise)
+    k5_swept = swept_cells(torch, torch.exp(ls), tables[:, 0, :N_STEPS],
+                           tables[:, 1, :N_STEPS])
+    k4_swept = swept_cells(torch, ls, logs[:, 0, :N_STEPS],
+                           logs[:, 1, :N_STEPS])
+    k3_swept = swept_cells(torch, ls, logs[i_k:i_k + 1, 0, :N_STEPS],
+                           logs[i_k:i_k + 1, 1, :N_STEPS])
+    del ls, noise
+    blocks_k5 = CHUNK // cc.block_paths_for(N_STEPS, CHUNK)
+    blocks_g = CHUNK // gc.block_paths_for(N_STEPS, CHUNK)
+    k_n = len(STRIP)
+    # Rows of [n] read: vd and each strike's lo, hi, dk and disc (K5); vd,
+    # de, dh and each strike's log lo and log hi (K3, K4).
+    k5_b = bound_ms(CHUNK, N_STEPS, 4 * blocks_k5 * k_n,
+                    policy_rows=1 + 4 * k_n, swept=k5_swept)
+    k3_b = bound_ms(CHUNK, N_STEPS, 4 * blocks_g * 6, products=2,
+                    per_cell=18.0, policy_rows=3 + 2, swept=k3_swept)
+    k4_b = bound_ms(CHUNK, N_STEPS, 4 * blocks_g * 6 * k_n, products=2,
+                    per_cell=18.0, policy_rows=3 + 2 * k_n, swept=k4_swept)
+
+    def k5_run():
+        cc.priced_chain(consts, tables, IS_CALL, rows=CHUNK, key=key)
+
+    def k5_plain():
+        cc.priced_chain_from_noise_ref(consts, tables, pc.philox_normals_ref(
+            key, CHUNK, N_STEPS, device=dev), IS_CALL)
+
+    def k3_run():
+        gc.greeks_chunk(consts, g, logs[i_k], STRIKE, IS_CALL, rows=CHUNK,
+                        key=key)
+
+    def k3_plain():
+        gc.greeks_from_noise_ref(consts, g, logs[i_k:i_k + 1],
+                                 chain.strikes[i_k:i_k + 1],
+                                 pc.philox_normals_ref(key, CHUNK, N_STEPS,
+                                                       device=dev), IS_CALL)
+
+    def k4_run():
+        gc.chain_greeks_chunk(consts, g, logs, IS_CALL, rows=CHUNK, key=key)
+
+    def k4_plain():
+        gc.greeks_from_noise_ref(consts, g, logs, chain.strikes,
+                                 pc.philox_normals_ref(key, CHUNK, N_STEPS,
+                                                       device=dev), IS_CALL)
+
+    a = torch.randn((CHUNK, N_STEPS), device=dev)
+    lib1_ms = time_ms(torch, lambda: torch.matmul(a, consts.lt_half), reps=20)
+    lib2_ms = time_ms(torch, lambda: (torch.matmul(a, consts.lt_half),
+                                      torch.matmul(a, g.dlt_half)), reps=20)
+    del a
+    one = tables[i_k:i_k + 1]
+    times = {"k5_ms": time_ms(torch, k5_run, 10),
+             "k5_one_strike_ms": time_ms(
+                 torch, lambda: cc.priced_chain(consts, one, IS_CALL,
+                                                rows=CHUNK, key=key), 10),
+             "k3_ms": time_ms(torch, k3_run, 10),
+             "k4_ms": time_ms(torch, k4_run, 10),
+             "k5_plain_ms": time_ms(torch, k5_plain, 3),
+             "k3_plain_ms": time_ms(torch, k3_plain, 3),
+             "k4_plain_ms": time_ms(torch, k4_plain, 3),
+             "library_one_product_ms": lib1_ms,
+             "library_two_products_ms": lib2_ms,
+             "k5_swept_cells": k5_swept, "k3_swept_cells": k3_swept,
+             "k4_swept_cells": k4_swept, "chain_fit_s": fit_s,
+             "chain_stream_s": stream_s}
+    launch_counts = {**launches, "greeks_chunk": g_launches["greeks_chunk"],
+                     "chain_greeks_chunk":
+                         cg_launches["chain_greeks_chunk"]}
+    records = [
+        kernel_record("priced_chain", launch_counts, times["k5_ms"],
+                      times["k5_plain_ms"], *k5_b, abs_k5, lib1_ms),
+        kernel_record("greeks_chunk", launch_counts, times["k3_ms"],
+                      times["k3_plain_ms"], *k3_b, abs_k3, lib2_ms),
+        kernel_record("chain_greeks_chunk", launch_counts, times["k4_ms"],
+                      times["k4_plain_ms"], *k4_b, abs_k4, lib2_ms)]
+    for name, (b, _) in (("k5", k5_b), ("k3", k3_b), ("k4", k4_b)):
+        times[name + "_bound_ms"] = b
+    return records, times
 
 
 def threshold_table(torch, n: int, dev):
@@ -256,8 +610,8 @@ def long_horizon_phases(torch, pc, ptc, engine, smi, dev, key, rel_err,
           "fits_finite": fits_finite, "checked_chunks": LONG_CHECKED,
           "checked_price": checked, "checked_plain_price": checked_plain,
           "checked_rel_err": checked_rel, "rtol": SUM_RTOL})
-    check(launches == {"pathgen": 0, "priced_chunk": 0, "tiled_pathgen": 1,
-                       "tiled_priced_chunk": LONG_CHUNKS},
+    check(launches == expected_counts(tiled_pathgen=1,
+                                      tiled_priced_chunk=LONG_CHUNKS),
           f"long-horizon launches {launches}, want 1 and {LONG_CHUNKS}")
     check(math.isfinite(price) and 0.0 < price < STRIKE,
           f"long-horizon price {price} outside (0, strike)")
@@ -367,7 +721,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(root))
     from montecarlooptionspricer_tpu_torch.kernels import build
+    from montecarlooptionspricer_tpu_torch.models import chain_cuda as cc
     from montecarlooptionspricer_tpu_torch.models import engine
+    from montecarlooptionspricer_tpu_torch.models import greeks_cuda as gc
     from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
     from montecarlooptionspricer_tpu_torch.models import (
         pathgen_tiled_cuda as ptc)
@@ -385,7 +741,10 @@ def main() -> int:
     # Launch counters of every kernel wrapper.
     wrappers = {"pathgen": pc.pathgen, "priced_chunk": pc.priced_chunk,
                 "tiled_pathgen": ptc.tiled_pathgen,
-                "tiled_priced_chunk": ptc.tiled_priced_chunk}
+                "tiled_priced_chunk": ptc.tiled_priced_chunk,
+                "priced_chain": cc.priced_chain,
+                "greeks_chunk": gc.greeks_chunk,
+                "chain_greeks_chunk": gc.chain_greeks_chunk}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -477,8 +836,7 @@ def main() -> int:
           "paths_per_s": n_paths / wall, "launches": launches,
           "plain_price": price_plain, "rel_err": price_rel,
           "rtol": SUM_RTOL})
-    check(launches == {"pathgen": 1, "priced_chunk": N_CHUNKS,
-                       "tiled_pathgen": 0, "tiled_priced_chunk": 0},
+    check(launches == expected_counts(pathgen=1, priced_chunk=N_CHUNKS),
           f"main path launches {launches}, want 1 and {N_CHUNKS}")
     check(math.isfinite(price) and 0.0 < price < STRIKE,
           f"price {price} outside (0, strike)")
@@ -523,11 +881,18 @@ def main() -> int:
     pricer.price_with_fit(fits, SEED)
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
-    emit({"phase": "times", "card": smi, "library_call":
-          "torch.matmul [131072,365]x[365,365] float32 (fGN product only)",
-          "library_ms": lib_ms, "fit_s": fit_s, "stream_s": stream_s,
-          "k1_ms": k1_ms, "k2_ms": k2_ms})
     del a, table
+
+    # Phases k5, chain_price, k3, k4, greeks and chain_greeks.
+    records, chain_times = chain_and_greeks_phases(
+        torch, pc, cc, gc, engine, smi, dev, key, pricer, price, stderr,
+        reset_counts, read_counts)
+    kernels += records
+    emit({"phase": "times", "card": smi, "library_call":
+          "torch.matmul [131072,365]x[365,365] float32 (fGN product only; "
+          "K3/K4: with [365,365] dLt' too)",
+          "library_ms": lib_ms, "fit_s": fit_s, "stream_s": stream_s,
+          "k1_ms": k1_ms, "k2_ms": k2_ms, **chain_times})
 
     kernels += long_horizon_phases(torch, pc, ptc, engine, smi, dev, key,
                                    rel_err, reset_counts, read_counts)

@@ -1,16 +1,22 @@
-"""mcop-price-torch: price one American option with the port's streaming
-engine (counterpart: the single-strike branch of
-``montecarlooptionspricer_tpu/cli/price.py``).
+"""mcop-price-torch: price an American option, a strike strip, and their
+pathwise Greeks with the port's streaming engine (counterpart: the
+single-strike, ``--strikes`` and ``--greeks`` branches of
+``montecarlooptionspricer_tpu/cli/price.py``, with its JSON keys).
 
 Runs on the CUDA device unless ``--device cpu`` is given; there is no
-fallback to another device or generator.  Prints one JSON line.
+fallback to another device or generator.  Prints one JSON line; a
+non-finite number prints as null.
 
 Examples (the second, past the single-tile horizon, runs the step-tiled
-kernels):
+kernels; the third prices a 21-strike strip with implied vols, the fourth
+adds per-strike Greeks):
   mcop-price-torch --strike 105 --put --maturity 1.448 --steps 365 \\
       --paths 1e7 --chunk-paths 131072 --pilot-paths 131072
   mcop-price-torch --strike 105 --put --maturity 7.242 --steps 1825 \\
       --paths 1e7 --chunk-paths 131072 --pilot-paths 131072
+  mcop-price-torch --strikes 75,77.5,80,...,125 --put --maturity 1.448 \\
+      --steps 365 --paths 1e7
+  mcop-price-torch --strikes 95,100,105 --greeks --put --maturity 1.448
 """
 
 from __future__ import annotations
@@ -24,8 +30,7 @@ import time
 from ..config import MarketDefaults
 
 # Flags of the JAX CLI whose paths are not ported yet.
-_NOT_PORTED = ("strikes", "greeks", "bounds", "serve", "qmc", "antithetic",
-               "control_variate")
+_NOT_PORTED = ("bounds", "serve", "qmc", "antithetic", "control_variate")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,20 +58,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk-paths", type=int, default=1 << 17)
     p.add_argument("--pilot-paths", type=int, default=0,
                    help="pilot policy-fit paths (0 = min(65536, chunk))")
+    p.add_argument("--strikes", default="",
+                   help="comma-separated strike strip: prices, stderrs and "
+                        "implied vols of one expiry on shared paths")
+    p.add_argument("--greeks", action="store_true",
+                   help="also delta, vega_xi, vega_eta, rho_rate and vega_h "
+                        "(per strike with --strikes)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain versions)")
     for name in _NOT_PORTED:
-        flag = "--" + name.replace("_", "-")
-        if name == "strikes":
-            p.add_argument(flag, default="", help="not yet ported")
-        else:
-            p.add_argument(flag, action="store_true", help="not yet ported")
+        p.add_argument("--" + name.replace("_", "-"), action="store_true",
+                       help="not yet ported")
     return p
 
 
 def _j(v):
-    """JSON-safe number: null for NaN (a single chunk has no stderr)."""
+    """JSON-safe number: null when not finite (a single chunk has no
+    stderr; a deep-ITM put has no implied vol)."""
     return None if not math.isfinite(v) else round(float(v), 6)
 
 
@@ -95,23 +104,67 @@ def main(argv=None) -> int:
     pilot = args.pilot_paths or min(1 << 16, chunk)
     pilot = max(block, pilot // block * block)
     try:
+        strikes = ([float(v) for v in args.strikes.split(",")]
+                   if args.strikes else None)
         cfg = engine.StreamConfig(n_paths=n_paths, n_steps=n_steps,
                                   chunk_paths=chunk, pilot_paths=pilot,
                                   chunks_per_call=64)
+        market = dict(s0=args.s0, xi=args.xi, h=args.hurst, eta=args.eta,
+                      rho=args.rho, r=args.r)
         t0 = time.time()
-        pricer = engine.StreamingPricer(
-            args.s0, args.xi, args.hurst, args.eta, args.rho, args.r,
-            args.strike, args.maturity, args.is_call, cfg,
-            device=args.device)
-        price, se = pricer.price(args.seed, with_stderr=True)
+        if strikes:
+            out = _price_chain(args, cfg, market, strikes, engine)
+        else:
+            out = _price_one(args, cfg, market, engine)
     except (ValueError, NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    out = {"price": _j(price), "stderr": _j(se), "n_paths": n_paths,
-           "n_steps": n_steps, "is_call": args.is_call,
-           "elapsed_s": round(time.time() - t0, 3)}
+    out.update({"n_paths": n_paths, "n_steps": n_steps,
+                "is_call": args.is_call,
+                "elapsed_s": round(time.time() - t0, 3)})
     print(json.dumps(out))
     return 0
+
+
+def _price_one(args, cfg, market, engine) -> dict:
+    pricer = engine.StreamingPricer(
+        **market, strike=args.strike, maturity=args.maturity,
+        is_call=args.is_call, config=cfg, device=args.device)
+    if args.greeks:
+        g, se = pricer.price_and_greeks(args.seed, with_stderr=True)
+        out = {n: _j(v) for n, v in zip(engine.GREEK_ORDER, g)}
+        out["stderrs"] = {n: _j(v) for n, v in zip(engine.GREEK_ORDER, se)}
+        return out
+    price, se = pricer.price(args.seed, with_stderr=True)
+    return {"price": _j(price), "stderr": _j(se)}
+
+
+def _price_chain(args, cfg, market, strikes, engine) -> dict:
+    from ..models.closed_form import implied_vol
+
+    chain = engine.StreamingChainPricer(
+        **market, strikes=strikes, maturity=args.maturity,
+        is_call=args.is_call, config=cfg, device=args.device)
+    out = {"strikes": strikes}
+    if args.greeks:
+        # Whole-smile risk from one shared path stream: a [K] row per
+        # output, keyed as the JAX CLI keys them.
+        g, se = chain.price_and_greeks(args.seed, with_stderr=True)
+        names = ("prices",) + engine.GREEK_ORDER[1:]
+        out.update({n: [_j(v) for v in row] for n, row in zip(names, g)})
+        out["stderrs"] = {n: [_j(v) for v in row]
+                          for n, row in zip(names, se)}
+        prices = g[0]
+    else:
+        prices, stderrs = chain.price(args.seed, with_stderr=True)
+        out["prices"] = [_j(v) for v in prices]
+        out["stderrs"] = [_j(v) for v in stderrs]
+    # null outside the European no-arbitrage bracket, e.g. deep-ITM
+    # American puts.
+    out["implied_vols"] = [
+        _j(implied_vol(v, args.s0, k, args.r, args.maturity, args.is_call))
+        for v, k in zip(prices, strikes)]
+    return out
 
 
 if __name__ == "__main__":

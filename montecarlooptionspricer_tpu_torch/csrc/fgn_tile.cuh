@@ -1,0 +1,140 @@
+// The single-tile path block shared by K1, K2 (csrc/pathgen.cu), K5
+// (csrc/chain.cu), K3 and K4 (csrc/greeks.cu): a block of BP = 16 * PM
+// paths keeps its N and W noise planes in dynamic shared memory for the
+// whole horizon, and the step axis runs in tiles of kTileCols columns.
+//
+// load_noise fills the planes from the seeded stream (csrc/philox.cuh) or
+// from an injected [2, rows, n] plane; fgn_tile computes one step tile of
+// X = N @ M for one or two upper-triangular [n, n] factors M (K3 and K4
+// need Lt' and dLt' from the same N reads).  Every kernel that includes
+// this header therefore draws the same paths from a seed, and sums the
+// fGN product in the same order (k ascending, 32-row stages), so X is
+// bitwise the same in all five kernels.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "philox.cuh"
+
+namespace mcop {
+
+constexpr int kThreads = 256;
+constexpr int kTileCols = 64;
+constexpr int kTileK = 32;
+constexpr int kColGroups = 16;                 // threads across a tile row
+constexpr int kColsPerThread = kTileCols / kColGroups;
+constexpr int kXStride = kTileCols + 1;
+constexpr int kSmemLimit = 232448;
+
+// Row stride of the noise planes: n rounded up to odd, so the rows of a
+// warp fall on distinct banks.
+__host__ __device__ inline int plane_ld(int n) { return n | 1; }
+
+// Fill the block's N and W planes [BP][ld] from the stream of `key` (noise
+// null) or from the injected plane noise [2, rows, n].
+template <int BP, bool SEEDED>
+__device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
+                           int row0, float* ns, float* ws) {
+  const int ld = plane_ld(n);
+  if (SEEDED) {
+    const int pairs = (n + 1) / 2;
+    for (int idx = threadIdx.x; idx < BP * pairs; idx += kThreads) {
+      const int p = idx / pairs, j = idx - p * pairs;
+      float n0, w0, n1, w1;
+      step_pair_normals(key, row0 + p, j, &n0, &w0, &n1, &w1);
+      ns[p * ld + 2 * j] = n0;
+      ws[p * ld + 2 * j] = w0;
+      if (2 * j + 1 < n) {
+        ns[p * ld + 2 * j + 1] = n1;
+        ws[p * ld + 2 * j + 1] = w1;
+      }
+    }
+  } else {
+    const size_t plane = static_cast<size_t>(rows) * n;
+    for (int idx = threadIdx.x; idx < BP * n; idx += kThreads) {
+      const int p = idx / n, c = idx - p * n;
+      const size_t g = static_cast<size_t>(row0 + p) * n + c;
+      ns[p * ld + c] = noise[g];
+      ws[p * ld + c] = noise[plane + g];
+    }
+  }
+}
+
+// One step tile of the fGN products, for m0 (and m1 when NMAT is 2):
+// out_m[p * kXStride + cc] = sum_{k <= c} N[p, k] * m_m[k, c] for
+// c = c0 + cc < min(c0 + kTileCols, n), zero past n.  Each thread holds a PM x kColsPerThread
+// micro-tile per factor; the factors are staged through shared memory
+// (lts, NMAT * kTileK * kTileCols floats) kTileK rows at a time, and rows
+// past the tile's last column are skipped (the factors are upper
+// triangular).  Ends with the tile written and the block synchronised.
+template <int PM, int NMAT>
+__device__ void fgn_tile(const float* m0, const float* m1, int n, int c0,
+                         const float* ns, float* lts, float* out0,
+                         float* out1) {
+  const float* mats[2] = {m0, m1};
+  float* out[2] = {out0, out1};
+  const int ld = plane_ld(n);
+  const int tid = threadIdx.x;
+  const int tx = tid % kColGroups;        // columns tx + 16 j
+  const int ty = tid / kColGroups;        // paths ty * PM + i
+  const int kmax = min(c0 + kTileCols, n);
+  float acc[NMAT][PM][kColsPerThread];
+#pragma unroll
+  for (int m = 0; m < NMAT; ++m)
+#pragma unroll
+    for (int i = 0; i < PM; ++i)
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) acc[m][i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < kmax; k0 += kTileK) {
+    const int kn = min(kTileK, kmax - k0);
+    __syncthreads();  // previous users of lts (and of the out tiles) are done
+    for (int idx = tid; idx < kTileK * kTileCols; idx += kThreads) {
+      const int kk = idx / kTileCols, cc = idx - kk * kTileCols;
+      const int c = c0 + cc;
+      const bool in = kk < kn && c < n;
+      const size_t g = static_cast<size_t>(k0 + kk) * n + c;
+#pragma unroll
+      for (int m = 0; m < NMAT; ++m)
+        lts[m * kTileK * kTileCols + idx] = in ? mats[m][g] : 0.0f;
+    }
+    __syncthreads();
+    for (int kk = 0; kk < kn; ++kk) {
+      float b[NMAT][kColsPerThread];
+#pragma unroll
+      for (int m = 0; m < NMAT; ++m)
+#pragma unroll
+        for (int j = 0; j < kColsPerThread; ++j)
+          b[m][j] = lts[m * kTileK * kTileCols + kk * kTileCols + tx +
+                        kColGroups * j];
+#pragma unroll
+      for (int i = 0; i < PM; ++i) {
+        const float nv = ns[(ty * PM + i) * ld + k0 + kk];
+#pragma unroll
+        for (int m = 0; m < NMAT; ++m)
+#pragma unroll
+          for (int j = 0; j < kColsPerThread; ++j)
+            acc[m][i][j] = fmaf(nv, b[m][j], acc[m][i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < NMAT; ++m)
+#pragma unroll
+    for (int i = 0; i < PM; ++i)
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j)
+        out[m][(ty * PM + i) * kXStride + tx + kColGroups * j] = acc[m][i][j];
+  __syncthreads();
+}
+
+// Shared memory of the planes, NMAT product tiles, the staged factors and
+// `extra` floats more, for a block of bp paths at horizon n.
+__host__ __device__ inline int block_smem_bytes(int n, int bp, int nmat,
+                                                int extra) {
+  return 4 * (2 * bp * plane_ld(n) + nmat * bp * kXStride +
+              nmat * kTileK * kTileCols + extra);
+}
+
+}  // namespace mcop

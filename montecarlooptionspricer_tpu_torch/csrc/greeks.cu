@@ -1,0 +1,337 @@
+// K3 and K4, the pathwise Greeks kernels for Hopper (sm_90a), one device
+// body with two entries, bound through a plain C interface and loaded with
+// ctypes (models/greeks_cuda.py).
+//
+// mcop_greeks_chunk replaces montecarlooptionspricer_tpu/models/
+//    pathgen_pallas.py:_greeks_kernel and _greeks_kernel_noise_in
+//    (_greeks_body, _tangent_planes, _greek_stop_vals): one strike, given as
+//    an argument.
+// mcop_chain_greeks_chunk replaces _chain_greeks_kernel,
+//    _chain_greeks_kernel_noise_in and _chain_greeks_kernel_grid
+//    (_chain_greeks_body): a strike strip, each strike read from row 3 of
+//    its table.
+// Both: chol fGN form, log-boundary policy, no antithetic.
+//
+// What they compute, per path and step column c (column c = step c+1):
+//   x' = N @ Lt' and hx = N @ dLt' (Lt' = 0.5 Lt, dLt' = 0.5 dLt/dH)
+//   sv = exp(x' + vd), v = sv^2, svw = sv W sqrt(dt)
+//   inc = (r - v/2) dt + svw and the shared bracket b = svw - v dt
+//   running sums ls = log s0 + sum inc, cumb = sum b,
+//   cume = sum (x'/eta + de) b, cumh = sum (hx + dh) b
+// The policy of strike k is fixed (the envelope convention): the path
+// stops at the first c with llo_k[c] <= ls_c <= lhi_k[c]; then t* =
+// (c + 1) dt, d* = exp(-r t*), S* = exp(ls_c), p = +-(S* - K), and with
+// act = (d* > 0 and p > 0), pv = d* p and base = d* (+-1) S* (both 0
+// unless act), the six sums are
+//   pv, base, base cumb, base cume, t* (base - pv), base cumh
+// (the wrapper scales the second by 1/s0 and the third by 1/(2 xi):
+// price, delta, vega_xi, vega_eta, rho_rate, vega_h).  Each block writes
+// one partial sum per strike and output; no atomics.
+//
+// Bound on the H100: operations.  Two triangular products, ~n^2
+// multiply-adds per path (133k at n = 365), and ~4 operations per cell and
+// strike for the sweep: at 131,072 paths and 365 steps that is 17.5e9 FMA,
+// 0.54 ms at 67 TFLOP/s float32 for K3 and 0.59 ms for K4 at 21 strikes,
+// against ~1 MB of bytes that must move (Lt', dLt', rows, sums).
+//
+// Design:
+// * The path block, its noise and the tile product are K2's
+//   (csrc/fgn_tile.cuh), with both factors multiplied from the same N
+//   reads, so x' and the log price are K2's bit for bit.  At 365 steps the
+//   N and W planes, four 64-column tiles (x' then inc, hx then b, the
+//   eta and H brackets) and the two staged factors take 143,104 bytes at a
+//   32-path block; a 64-path block would need 269,824 (models/
+//   greeks_cuda.py smem_bytes).
+// * Per tile: the product, then the tangent brackets elementwise with all
+//   threads, then one thread per path carries the four running sums along
+//   the tile and writes them back in place, then every thread sweeps its
+//   strikes: thread (path p, lane l) keeps, in registers, the stop index
+//   and the four stopped sums of strikes l, l + L, ... (L = 256 / BP).
+//   K3 is the same body with one strike.  The TPU's four tangent cumsum
+//   matmuls and one-hot reductions become these loops.
+// * One launch sweeps up to kGroup = 32 strikes (4 per thread at BP = 32);
+//   a wider strip takes one launch per 32 strikes on the same seed.
+// * t* and d* are recomputed from the stop index, as on the TPU.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "fgn_tile.cuh"
+
+namespace {
+
+using namespace mcop;
+
+constexpr int kGroup = 32;   // strikes one launch sweeps
+constexpr int kOut = 6;      // sums per strike
+
+struct GreeksArgs {
+  const float* noise;   // [2, rows, n] or nullptr for the seeded entry
+  const float* lt;      // [n, n] half-scaled Cholesky factor
+  const float* dlt;     // [n, n] half-scaled dLt/dH
+  const float* vd;      // [n] half variance drift
+  const float* de;      // [n] eta tangent row
+  const float* dh;      // [n] H tangent row
+  const float* tables;  // [n_strikes] log_boundary_rows tables: rows llo,
+                        // lhi, disc, strike
+  long long strike_stride, row_stride;   // floats
+  int n_strikes;        // <= kGroup
+  int strike_from_table;
+  float strike;         // the strike when strike_from_table is 0
+  float* out;           // [rows / BP, n_strikes, kOut] partial sums
+  int rows, n;
+  uint32_t key;
+  float r, dt, sqrt_dt, log_s0, inv_eta;
+  int is_call;
+};
+
+template <int PM, bool SEEDED>
+__global__ void __launch_bounds__(kThreads, 1) greeks_kernel(GreeksArgs a) {
+  constexpr int BP = 16 * PM;
+  constexpr int kLanes = kThreads / BP;   // strike lanes per path
+  constexpr int kPer = kGroup / kLanes;   // strikes per thread
+  constexpr int kTile = BP * kXStride;
+  extern __shared__ float smem[];
+  const int n = a.n, ld = plane_ld(n);
+  float* ns = smem;                       // [BP][ld]
+  float* ws = ns + BP * ld;               // [BP][ld]
+  float* t0 = ws + BP * ld;               // x', then inc, then ls
+  float* t1 = t0 + kTile;                 // hx, then b, then cumb
+  float* t2 = t1 + kTile;                 // eta bracket, then cume
+  float* t3 = t2 + kTile;                 // H bracket, then cumh
+  float* lts = t3 + kTile;                // [2][kTileK][kTileCols]
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * BP;
+  const int p = tid % BP, lane = tid / BP;
+  load_noise<BP, SEEDED>(a.noise, a.rows, n, a.key, row0, ns, ws);
+
+  // Running sums, thread tid < BP.
+  float ls = a.log_s0, cb = 0.0f, ce = 0.0f, ch = 0.0f;
+  // Stop state of this thread's strikes.
+  int stop[kPer];
+  float s_ls[kPer], s_cb[kPer], s_ce[kPer], s_ch[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    stop[i] = -1;
+    s_ls[i] = s_cb[i] = s_ce[i] = s_ch[i] = 0.0f;
+  }
+
+  for (int c0 = 0; c0 < n; c0 += kTileCols) {
+    const int cn = min(c0 + kTileCols, n) - c0;
+    fgn_tile<PM, 2>(a.lt, a.dlt, n, c0, ns, lts, t0, t1);
+
+    // Increments and tangent brackets, elementwise over the tile.
+    for (int idx = tid; idx < BP * kTileCols; idx += kThreads) {
+      const int q = idx / kTileCols, cc = idx - q * kTileCols;
+      const int o = q * kXStride + cc;
+      if (cc < cn) {
+        const int c = c0 + cc;
+        const float x = t0[o], hx = t1[o];
+        const float sv = expf(x + a.vd[c]);
+        const float v = sv * sv;
+        const float svw = sv * (ws[q * ld + c] * a.sqrt_dt);
+        const float b = svw - v * a.dt;
+        t0[o] = (a.r - 0.5f * v) * a.dt + svw;
+        t1[o] = b;
+        t2[o] = (x * a.inv_eta + a.de[c]) * b;
+        t3[o] = (hx + a.dh[c]) * b;
+      } else {
+        t0[o] = t1[o] = t2[o] = t3[o] = 0.0f;
+      }
+    }
+    __syncthreads();
+
+    // The four running sums along the tile, one thread per path.
+    if (tid < BP) {
+      const int o = tid * kXStride;
+      for (int cc = 0; cc < cn; ++cc) {
+        ls += t0[o + cc];
+        cb += t1[o + cc];
+        ce += t2[o + cc];
+        ch += t3[o + cc];
+        t0[o + cc] = ls;
+        t1[o + cc] = cb;
+        t2[o + cc] = ce;
+        t3[o + cc] = ch;
+      }
+    }
+    __syncthreads();
+
+    // The strike sweep: thread (p, lane) over its strikes' first hits.
+    const int o = p * kXStride;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int k = lane + kLanes * i;
+      if (k >= a.n_strikes || stop[i] >= 0) continue;
+      const float* llo = a.tables + k * a.strike_stride + c0;
+      const float* lhi = llo + a.row_stride;
+      for (int cc = 0; cc < cn; ++cc) {
+        const float l = t0[o + cc];
+        if (l >= __ldg(llo + cc) && l <= __ldg(lhi + cc)) {
+          stop[i] = c0 + cc;
+          s_ls[i] = l;
+          s_cb[i] = t1[o + cc];
+          s_ce[i] = t2[o + cc];
+          s_ch[i] = t3[o + cc];
+          break;
+        }
+      }
+    }
+    // The next tile's product synchronises before it overwrites t0, t1;
+    // its elementwise pass writes t2, t3 only after that.
+  }
+
+  __syncthreads();
+  float* red = t0;                        // [n_strikes][kOut][BP]
+  const float sgn = a.is_call ? 1.0f : -1.0f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int k = lane + kLanes * i;
+    if (k >= a.n_strikes) continue;
+    const bool ex = stop[i] >= 0;
+    const float t_raw = static_cast<float>(stop[i] + 1) * a.dt;
+    const float d = ex ? expf(-a.r * t_raw) : 0.0f;
+    const float t_s = ex ? t_raw : 0.0f;
+    const float strike =
+        a.strike_from_table
+            ? __ldg(a.tables + k * a.strike_stride + 3 * a.row_stride)
+            : a.strike;
+    const float s_stop = expf(s_ls[i]);
+    const float pay = sgn * (s_stop - strike);
+    const bool act = d > 0.0f && pay > 0.0f;
+    const float pv = act ? d * pay : 0.0f;
+    const float base = act ? d * sgn * s_stop : 0.0f;
+    float* dst = red + k * kOut * BP + p;
+    dst[0] = pv;
+    dst[BP] = base;
+    dst[2 * BP] = base * s_cb[i];
+    dst[3 * BP] = base * s_ce[i];
+    dst[4 * BP] = t_s * (base - pv);
+    dst[5 * BP] = base * s_ch[i];
+  }
+  __syncthreads();
+  for (int j = tid; j < a.n_strikes * kOut; j += kThreads) {
+    float sum = 0.0f;
+    for (int q = 0; q < BP; ++q) sum += red[j * BP + q];
+    a.out[static_cast<size_t>(blockIdx.x) * a.n_strikes * kOut + j] = sum;
+  }
+}
+
+int smem_bytes(int n, int bp) {
+  return block_smem_bytes(n, bp, 2, 2 * bp * kXStride);
+}
+
+template <int PM, bool SEEDED>
+cudaError_t launch_one(const GreeksArgs& a, cudaStream_t stream) {
+  const int smem = smem_bytes(a.n, 16 * PM);
+  auto kernel = greeks_kernel<PM, SEEDED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.rows / (16 * PM), kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+int launch(GreeksArgs& a, int block_paths, cudaStream_t s) {
+  if (a.n < 1 || a.rows < 1 || block_paths < 16 || block_paths % 16 ||
+      a.rows % block_paths || a.n_strikes < 1 || a.n_strikes > kGroup ||
+      smem_bytes(a.n, block_paths) > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool seeded = a.noise == nullptr;
+  cudaError_t err;
+  switch (block_paths) {
+    case 64:
+      err = seeded ? launch_one<4, true>(a, s) : launch_one<4, false>(a, s);
+      break;
+    case 32:
+      err = seeded ? launch_one<2, true>(a, s) : launch_one<2, false>(a, s);
+      break;
+    case 16:
+      err = seeded ? launch_one<1, true>(a, s) : launch_one<1, false>(a, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+GreeksArgs common(const float* noise, const float* lt, const float* dlt,
+                  const float* vd, const float* de, const float* dh, int rows,
+                  int n_steps, unsigned int key, float r, float dt,
+                  float sqrt_dt, float log_s0, float inv_eta,
+                  const float* tables, long long strike_stride,
+                  long long row_stride, int is_call, float* out) {
+  GreeksArgs a{};
+  a.noise = noise;
+  a.lt = lt;
+  a.dlt = dlt;
+  a.vd = vd;
+  a.de = de;
+  a.dh = dh;
+  a.tables = tables;
+  a.strike_stride = strike_stride;
+  a.row_stride = row_stride;
+  a.out = out;
+  a.rows = rows;
+  a.n = n_steps;
+  a.key = key;
+  a.r = r;
+  a.dt = dt;
+  a.sqrt_dt = sqrt_dt;
+  a.log_s0 = log_s0;
+  a.inv_eta = inv_eta;
+  a.is_call = is_call;
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+int mcop_greeks_smem_bytes(int n_steps, int block_paths) {
+  return smem_bytes(n_steps, block_paths);
+}
+
+int mcop_greeks_group() { return kGroup; }
+
+// K3.  noise may be null (seeded entry, stream of `key`).  table: one
+// log_boundary_rows table, rows row_stride floats apart.  out: [rows /
+// block_paths, 6].
+int mcop_greeks_chunk(const float* noise, const float* lt, const float* dlt,
+                      const float* vd, const float* de, const float* dh,
+                      int rows, int n_steps, int block_paths,
+                      unsigned int key, float r, float dt, float sqrt_dt,
+                      float log_s0, float inv_eta, const float* table,
+                      long long row_stride, float strike, int is_call,
+                      float* out, void* stream) {
+  GreeksArgs a = common(noise, lt, dlt, vd, de, dh, rows, n_steps, key, r,
+                        dt, sqrt_dt, log_s0, inv_eta, table, 0, row_stride,
+                        is_call, out);
+  a.n_strikes = 1;
+  a.strike_from_table = 0;
+  a.strike = strike;
+  return launch(a, block_paths, static_cast<cudaStream_t>(stream));
+}
+
+// K4.  tables: the launch's n_strikes log_boundary_rows tables,
+// strike_stride floats apart; each strike is row 3 of its table.  out:
+// [rows / block_paths, n_strikes, 6].
+int mcop_chain_greeks_chunk(const float* noise, const float* lt,
+                            const float* dlt, const float* vd,
+                            const float* de, const float* dh, int rows,
+                            int n_steps, int block_paths, unsigned int key,
+                            float r, float dt, float sqrt_dt, float log_s0,
+                            float inv_eta, const float* tables,
+                            long long strike_stride, long long row_stride,
+                            int n_strikes, int is_call, float* out,
+                            void* stream) {
+  GreeksArgs a = common(noise, lt, dlt, vd, de, dh, rows, n_steps, key, r,
+                        dt, sqrt_dt, log_s0, inv_eta, tables, strike_stride,
+                        row_stride, is_call, out);
+  a.n_strikes = n_strikes;
+  a.strike_from_table = 1;
+  return launch(a, block_paths, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

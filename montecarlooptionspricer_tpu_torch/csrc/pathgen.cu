@@ -49,17 +49,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "philox.cuh"
+#include "fgn_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileCols = 64;
-constexpr int kTileK = 32;
-constexpr int kColGroups = 16;                 // threads across a tile row
-constexpr int kColsPerThread = kTileCols / kColGroups;
-constexpr int kXStride = kTileCols + 1;
-constexpr int kSmemLimit = 232448;
+using namespace mcop;
 
 struct Args {
   const float* noise;   // [2, rows, n] or nullptr for the seeded entry
@@ -75,34 +69,6 @@ struct Args {
   int is_call;
 };
 
-// Fill the block's N and W planes [BP][ld] from the stream or the input.
-template <int BP, bool SEEDED>
-__device__ void load_noise(const Args& a, int row0, float* ns, float* ws) {
-  const int n = a.n, ld = a.ld;
-  if (SEEDED) {
-    const int pairs = (n + 1) / 2;
-    for (int idx = threadIdx.x; idx < BP * pairs; idx += kThreads) {
-      const int p = idx / pairs, j = idx - p * pairs;
-      float n0, w0, n1, w1;
-      mcop::step_pair_normals(a.key, row0 + p, j, &n0, &w0, &n1, &w1);
-      ns[p * ld + 2 * j] = n0;
-      ws[p * ld + 2 * j] = w0;
-      if (2 * j + 1 < n) {
-        ns[p * ld + 2 * j + 1] = n1;
-        ws[p * ld + 2 * j + 1] = w1;
-      }
-    }
-  } else {
-    const size_t plane = static_cast<size_t>(a.rows) * n;
-    for (int idx = threadIdx.x; idx < BP * n; idx += kThreads) {
-      const int p = idx / n, c = idx - p * n;
-      const size_t g = static_cast<size_t>(row0 + p) * n + c;
-      ns[p * ld + c] = a.noise[g];
-      ws[p * ld + c] = a.noise[plane + g];
-    }
-  }
-}
-
 template <int PM, bool SEEDED, bool PRICED>
 __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
   constexpr int BP = 16 * PM;
@@ -116,10 +82,8 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * BP;
-  const int tx = tid % kColGroups;        // columns tx + 16 j
-  const int ty = tid / kColGroups;        // paths ty * PM + i
 
-  load_noise<BP, SEEDED>(a, row0, ns, ws);
+  load_noise<BP, SEEDED>(a.noise, a.rows, n, a.key, row0, ns, ws);
   if (!PRICED) {
     for (int p = tid; p < BP; p += kThreads)
       a.out[static_cast<size_t>(row0 + p) * (n + 1)] = a.s0;
@@ -132,43 +96,7 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
 
   for (int c0 = 0; c0 < n; c0 += kTileCols) {
     const int kmax = min(c0 + kTileCols, n);
-    float acc[PM][kColsPerThread];
-#pragma unroll
-    for (int i = 0; i < PM; ++i)
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = 0.0f;
-
-    for (int k0 = 0; k0 < kmax; k0 += kTileK) {
-      const int kn = min(kTileK, kmax - k0);
-      __syncthreads();  // previous users of lts (and of xs) are done
-      for (int idx = tid; idx < kTileK * kTileCols; idx += kThreads) {
-        const int kk = idx / kTileCols, cc = idx - kk * kTileCols;
-        const int c = c0 + cc;
-        lts[idx] = (kk < kn && c < n)
-                       ? a.lt[static_cast<size_t>(k0 + kk) * n + c]
-                       : 0.0f;
-      }
-      __syncthreads();
-      for (int kk = 0; kk < kn; ++kk) {
-        float b[kColsPerThread];
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j)
-          b[j] = lts[kk * kTileCols + tx + kColGroups * j];
-#pragma unroll
-        for (int i = 0; i < PM; ++i) {
-          const float nv = ns[(ty * PM + i) * ld + k0 + kk];
-#pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j)
-            acc[i][j] = fmaf(nv, b[j], acc[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < PM; ++i)
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j)
-        xs[(ty * PM + i) * kXStride + tx + kColGroups * j] = acc[i][j];
-    __syncthreads();
+    fgn_tile<PM, 1>(a.lt, nullptr, n, c0, ns, lts, xs, nullptr);
 
     // Variance exp and Euler increment, elementwise over the tile.
     const int cn = kmax - c0;
@@ -228,10 +156,7 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
   }
 }
 
-int smem_bytes(int n, int bp) {
-  const int ld = n | 1;
-  return 4 * (2 * bp * ld + bp * kXStride + kTileK * kTileCols + bp);
-}
+int smem_bytes(int n, int bp) { return block_smem_bytes(n, bp, 1, bp); }
 
 template <int PM, bool SEEDED, bool PRICED>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {

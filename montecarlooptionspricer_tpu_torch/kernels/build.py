@@ -24,8 +24,9 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = (CSRC / "pathgen.cu", CSRC / "pathgen_tiled.cu")
-HEADERS = (CSRC / "philox.cuh",)
+SOURCES = (CSRC / "pathgen.cu", CSRC / "pathgen_tiled.cu", CSRC / "chain.cu",
+           CSRC / "greeks.cu")
+HEADERS = (CSRC / "philox.cuh", CSRC / "fgn_tile.cuh")
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -94,7 +95,7 @@ def load() -> types.SimpleNamespace:
     if needed), as attributes of one namespace.  Every launching entry
     returns a cudaError_t as int."""
     paths, _ = build()
-    single, tiled = (ctypes.CDLL(str(p)) for p in paths)
+    single, tiled, chain, greeks = (ctypes.CDLL(str(p)) for p in paths)
     p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                   ctypes.c_float)
     ll = ctypes.c_longlong
@@ -107,6 +108,17 @@ def load() -> types.SimpleNamespace:
                                         f, p, p],
         (tiled, "mcop_tiled_priced_chunk"): [p, i, p, p, i, i, i, u, f, f,
                                              f, f, p, ll, f, i, p, p],
+        (chain, "mcop_chain_smem_bytes"): [i, i],
+        (chain, "mcop_chain_group"): [],
+        (chain, "mcop_priced_chain"): [p, p, p, i, i, i, u, f, f, f, f, p,
+                                       ll, ll, i, i, p, p],
+        (greeks, "mcop_greeks_smem_bytes"): [i, i],
+        (greeks, "mcop_greeks_group"): [],
+        (greeks, "mcop_greeks_chunk"): [p, p, p, p, p, p, i, i, i, u, f, f,
+                                        f, f, f, p, ll, f, i, p, p],
+        (greeks, "mcop_chain_greeks_chunk"): [p, p, p, p, p, p, i, i, i, u,
+                                              f, f, f, f, f, p, ll, ll, i,
+                                              i, p, p],
     }
     entries = {}
     for (lib, name), argtypes in signatures.items():

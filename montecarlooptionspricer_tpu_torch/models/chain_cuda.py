@@ -1,0 +1,130 @@
+"""The strike-chain kernel K5 for Hopper, its plain PyTorch version and
+its shared-memory model.
+
+Counterpart: ``make_pallas_priced_chain`` in
+``montecarlooptionspricer_tpu/models/pathgen_pallas.py`` with
+``policy_form="boundary"``.  K5 ``priced_chain`` (``csrc/chain.cu``,
+replaces ``_chain_kernel`` / ``_chain_kernel_noise_in`` /
+``_chain_kernel_grid``) generates each path block of a chunk once, as K2
+does, and sweeps every strike of the strip against it: the chunk's [K]
+payoff sums under the strip's S-space ``boundary_rows`` tables, each path
+stopped at its first step with lo <= S <= hi and worth disc * strike -
+disc * S for a put (disc * S - disc * strike for a call), with no clamp,
+as ``_policy_value_boundary`` decides.
+
+The seeded entry draws K1's and K2's Philox stream (``pathgen_cuda``), so
+a strike of the strip sees the paths a single-strike K2 sees on the same
+key.  The wrapper runs the plain version for tensors on the CPU and
+launches the kernel for tensors on a CUDA device; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import pathgen_cuda as pc
+
+# ---------------------------------------------------------------------------
+# The card's memory model (mirrors csrc/chain.cu).
+
+GROUP = 32                  # strikes one launch sweeps (csrc/chain.cu kGroup)
+MAX_CHAIN_STEPS = 512       # the JAX chain kernel's cap (pathgen_pallas.py)
+
+
+def smem_bytes(n_steps: int, block_paths: int) -> int:
+    """Shared memory of one CUDA block: K2's N and W planes, one step tile
+    (which also holds the block's per-strike sums at the end) and the
+    staged Lt' rows."""
+    return pc.block_smem_bytes(n_steps, block_paths)
+
+
+def supports(n_steps: int) -> bool:
+    """Whether K5 takes this horizon: at most the JAX chain kernel's 512
+    steps, with a block that fits shared memory."""
+    return (1 <= n_steps <= MAX_CHAIN_STEPS
+            and pc.fitting_block(smem_bytes, n_steps) > 0)
+
+
+def block_paths_for(n_steps: int, rows: int) -> int:
+    """K5's path block: the largest of pathgen_cuda.BLOCK_CHOICES whose
+    shared memory fits at this horizon and which divides ``rows``."""
+    bp = pc.fitting_block(smem_bytes, n_steps, rows)
+    if not bp:
+        raise ValueError(f"no K5 block divides rows={rows} at "
+                         f"n_steps={n_steps}")
+    return bp
+
+
+# ---------------------------------------------------------------------------
+# Plain version.
+
+def priced_chain_from_noise_ref(consts: pc.PathConsts, tables: torch.Tensor,
+                                noise: torch.Tensor,
+                                is_call: bool) -> torch.Tensor:
+    """Plain K5: [K] chunk payoff sums under the [K, 8, >= n_steps]
+    boundary_rows ``tables`` on the paths of ``noise`` [2, rows, n_steps]
+    (``_policy_value_boundary`` per strike on the S plane)."""
+    n = consts.n_steps
+    s = torch.exp(pc._log_paths_ref(consts, noise))
+    ds = s * tables[0, 3, :n]
+    sums = []
+    for tab in tables:
+        exf = (s >= tab[0, :n]) & (s <= tab[1, :n])
+        hit = exf.any(dim=1)
+        idx = exf.to(torch.int8).argmax(dim=1)
+        val = (ds - tab[2, :n]) if is_call else (tab[2, :n] - ds)
+        val = val.gather(1, idx[:, None])[:, 0]
+        sums.append(torch.sum(torch.where(hit, val, torch.zeros_like(val))))
+    return torch.stack(sums)
+
+
+# ---------------------------------------------------------------------------
+# Wrapper: plain version for CPU tensors, the kernel for CUDA tensors.
+
+def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
+                 rows: int = None, key: int = None,
+                 noise: torch.Tensor = None) -> torch.Tensor:
+    """K5: the chunk's [K] float32 payoff sums under the strip's
+    boundary_rows ``tables`` [K, 8, >= n_steps], from the seeded stream of
+    ``key`` or from injected ``noise`` [2, rows, n_steps].  On the card
+    one launch sweeps up to GROUP strikes; a wider strip takes one launch
+    per group on the same key or noise, which regenerates the same paths.
+    Each block writes one partial sum per strike and the blocks are summed
+    in a fixed order, so a seed gives the same sums every run."""
+    rows = pc._noise_or_rows(consts, rows, key, noise)
+    n = consts.n_steps
+    if tables.dim() != 3 or tables.shape[1] < 4 or tables.shape[2] < n:
+        raise ValueError("tables must be [K, 8, >= n_steps] (boundary_rows "
+                         f"of a strip), got {tuple(tables.shape)}")
+    if not supports(n):
+        raise ValueError(f"n_steps={n} is past K5's horizon "
+                         f"({MAX_CHAIN_STEPS})")
+    if consts.device.type == "cpu":
+        if noise is None:
+            noise = pc.philox_normals_ref(key, rows, n)
+        return priced_chain_from_noise_ref(consts, tables, noise, is_call)
+    pc.check_device_inputs(consts, noise, tables)
+    bp = block_paths_for(n, rows)
+    from ..kernels import build
+
+    lib = build.load()
+    stream = torch.cuda.current_stream(consts.device).cuda_stream
+    sums = []
+    for g in range(0, tables.shape[0], GROUP):
+        k = min(GROUP, tables.shape[0] - g)
+        partial = torch.empty((rows // bp, k), dtype=torch.float32,
+                              device=consts.device)
+        err = lib.mcop_priced_chain(
+            None if noise is None else noise.data_ptr(),
+            consts.lt_half.data_ptr(), consts.vd.data_ptr(), rows, n, bp,
+            0 if key is None else key & pc._U32, *pc._scalars(consts),
+            tables[g].data_ptr(), tables.stride(0), tables.stride(1), k,
+            int(bool(is_call)), partial.data_ptr(), stream)
+        pc._check(err, "priced_chain")
+        priced_chain.launches += 1
+        sums.append(torch.sum(partial, dim=0))
+    return torch.cat(sums)
+
+
+priced_chain.launches = 0
+

@@ -1,6 +1,7 @@
 """Fit-then-stream LSM pricing engine (counterpart:
 ``montecarlooptionspricer_tpu/models/engine.py``, the single-device
-``StreamingPricer.price`` path with the fused kernels).
+``StreamingPricer`` and the non-bucketed ``StreamingChainPricer`` with the
+fused kernels).
 
   pilot:  the family's path kernel (K1 ``pathgen_cuda.pathgen``, or K6
           ``pathgen_tiled_cuda.tiled_pathgen`` at long horizons)
@@ -19,6 +20,13 @@
 single-tile kernels up to ``SINGLE_TILE_MAX_STEPS``, the step-tiled ones
 past it up to ``pathgen_tiled_cuda.max_tiled_steps()``.
 
+A strike strip (``StreamingChainPricer``) fits every strike in one LSM
+backward pass on the K1 pilot and streams the strip through K5
+(``chain_cuda.priced_chain``) on S-space boundary tables.  Greeks
+(``price_and_greeks`` on both pricers) stream the same fits through the
+pathwise tangent kernels K3 and K4 (``greeks_cuda``) on the single-tile
+horizons.
+
 Only this path is ported.  Other configurations raise
 ``NotImplementedError`` naming their ROADMAP item; nothing runs another
 path silently.
@@ -36,7 +44,8 @@ import torch
 from ..ops.payoff import payoff
 from ..ops.regression import PolyFit, eval_poly, polyfit_from_numpy  # noqa: F401
 from ..ops.timegrid import step_mask
-from . import pathgen_cuda, pathgen_tiled_cuda
+from . import chain_cuda, greeks_cuda, pathgen_cuda, pathgen_tiled_cuda
+from .greeks_cuda import GREEK_ORDER  # noqa: F401
 from .lsm import ITM_EPS, lsm_fit
 
 PILOT_STREAM = 3 << 28     # stream index of the pilot, past every chunk
@@ -56,7 +65,10 @@ class StreamConfig:
     at this horizon, see ``pathgen_cuda.max_block_paths``); the tiled
     kernels choose theirs from the row count.  ``tiled_impl`` names the
     long-horizon kernels as the JAX field does: "auto" and "slab" are the
-    step-tiled chol slab K6/K7; the factored DFT is not ported."""
+    step-tiled chol slab K6/K7; the factored DFT is not ported.
+    ``antithetic``, ``qmc`` and ``control_variate`` name the JAX
+    package's estimators; the pricers reject each of them until it is
+    ported (``_reject_unported_estimators``)."""
 
     n_paths: int
     n_steps: int
@@ -69,6 +81,9 @@ class StreamConfig:
     fgn_form: str = "auto"
     policy_form: str = "boundary"
     tiled_impl: str = "auto"
+    antithetic: bool = False
+    qmc: bool = False
+    control_variate: bool = False
 
     def __post_init__(self):
         if self.fgn_form not in ("auto", "chol"):
@@ -159,6 +174,21 @@ def _chol_matrix_host(n_steps: int, h: float, eta: float,
     return lt
 
 
+@functools.lru_cache(maxsize=64)
+def _chol_dh_matrix_host(n_steps: int, h: float, eta: float, dt: float,
+                         eps: float = 1e-5) -> np.ndarray:
+    """d(Lt)/dH by a float64 central difference of ``_chol_np``, upper
+    triangular: the host constant behind the Greeks kernels' vega_h.
+    The map h -> Lt is smooth away from the jitter fallback, so the
+    truncation error is O(eps^2) ~ 1e-10 relative.  Cached and
+    read-only."""
+    lp = _chol_np(n_steps, h + eps, eta, dt)
+    lm = _chol_np(n_steps, h - eps, eta, dt)
+    dlt = np.ascontiguousarray(((lp - lm) / (2.0 * eps)).T)
+    dlt.setflags(write=False)
+    return dlt
+
+
 # ---------------------------------------------------------------------------
 # Seeds, ranges, stderr.
 
@@ -243,14 +273,24 @@ def lsm_policy_value(paths, fits: PolyFit, r, strike, maturity, dt,
 
 # ---------------------------------------------------------------------------
 
-class StreamingPricer:
-    """Fit-then-stream pricer of one American option under rough Bergomi.
+def _reject_unported_estimators(config: StreamConfig) -> None:
+    """NotImplementedError for the estimators the port does not have."""
+    if config.antithetic:
+        raise NotImplementedError(
+            "antithetic=True: antithetic pairing is not ported (ROADMAP A5)")
+    if config.qmc:
+        raise NotImplementedError(
+            "qmc=True: the randomized-Sobol noise is not ported (ROADMAP "
+            "A12)")
 
-    Runs on ``device`` ("cuda" unless the caller asks for "cpu"); on the
-    CPU the kernels' plain versions run in their place."""
 
-    def __init__(self, s0, xi, h, eta, rho, r, strike, maturity,
-                 is_call: bool, config: StreamConfig, device="cuda"):
+class _FusedStream:
+    """What both pricers share: the device, the path constants of the
+    fused kernels, the pilot, and the chunk loop that turns per-chunk
+    kernel sums into float64 totals and chunk-total stderrs."""
+
+    def __init__(self, s0, xi, h, eta, r, maturity, is_call: bool,
+                 config: StreamConfig, device):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run "
@@ -259,12 +299,13 @@ class StreamingPricer:
             raise ValueError(f"unsupported device {device}")
         if config.chunk_paths % 16 or config.pilot_paths % 16:
             raise ValueError("chunk_paths and pilot_paths must divide by 16")
-        del rho  # the price Brownian is drawn independent of the fGN driver
+        _reject_unported_estimators(config)
         self.config = config
         self.device = device
         self.s0, self.r = float(s0), float(r)
-        self.strike, self.maturity = float(strike), float(maturity)
+        self.maturity = float(maturity)
         self.is_call = bool(is_call)
+        self._xi, self._h, self._eta = float(xi), float(h), float(eta)
         self.kernel_family = resolve_kernel_family(config.n_steps)
         if self.kernel_family == "single":
             block = config.block_paths or pathgen_cuda.max_block_paths(
@@ -272,14 +313,110 @@ class StreamingPricer:
             while config.chunk_paths % block or config.pilot_paths % block:
                 block //= 2
             self._pathgen = pathgen_cuda.pathgen
-            self._priced_chunk = pathgen_cuda.priced_chunk
         else:
             block = 0
             self._pathgen = pathgen_tiled_cuda.tiled_pathgen
-            self._priced_chunk = pathgen_tiled_cuda.tiled_priced_chunk
         self.consts = pathgen_cuda.make_path_consts(
             s0, xi, h, eta, r, config.n_steps, config.dt, device,
             block_paths=block)
+
+    @functools.cached_property
+    def greeks_consts(self) -> pathgen_cuda.GreeksConsts:
+        """The Greeks kernels' constants, built at first use."""
+        return pathgen_cuda.make_greeks_consts(
+            self._xi, self._h, self._eta, self.config.n_steps,
+            self.config.dt, self.device)
+
+    def _pilot(self, carrier) -> torch.Tensor:
+        """Pilot block from the (run_word, stream_index) ``carrier``
+        through the family's path kernel."""
+        return self._pathgen(self.consts, rows=self.config.pilot_paths,
+                             key=pathgen_cuda._fold_words(*carrier))
+
+    def _require_greeks(self) -> None:
+        if self.kernel_family != "single" or not greeks_cuda.supports(
+                self.config.n_steps):
+            raise NotImplementedError(
+                f"n_steps={self.config.n_steps}: the fused Greeks kernels "
+                "K3/K4 run on the single-tile horizons only; Greeks past "
+                f"{SINGLE_TILE_MAX_STEPS} steps need the tiled Greeks or "
+                "the jvp stream (ROADMAP A10)")
+
+    def _n_paths(self, n_paths: Optional[int]) -> int:
+        if n_paths is None:
+            n_paths = self.config.n_paths
+        n_chunks, rem = divmod(n_paths, self.config.chunk_paths)
+        if rem or n_chunks < 1:
+            raise ValueError(f"n_paths={n_paths} is not a positive multiple "
+                             f"of chunk_paths={self.config.chunk_paths}")
+        _check_pallas_chunk_range(n_chunks)
+        return n_paths
+
+    def _stream(self, chunk_sum, seed: int, n_paths: Optional[int], noise,
+                ex0, v0: torch.Tensor, with_stderr: bool):
+        """Stream n_paths fresh paths through ``chunk_sum(**kw)`` (kw the
+        seeded rows/key of chunk i, or ``noise[i]``): the per-path means of
+        its float32 outputs, float64, and with ``with_stderr`` their
+        chunk-total stderrs.  Where ``ex0`` holds, time-0 exercise: every
+        path shares S0, so each path is worth ``v0`` and every chunk total
+        is v0 * chunk_paths exactly (stderr 0)."""
+        config = self.config
+        chunk = config.chunk_paths
+        if noise is not None:
+            n_paths = noise.shape[0] * chunk
+        n_paths = self._n_paths(n_paths)
+        n_chunks = n_paths // chunk
+        _, (run, start) = _pilot_stream_keys(seed)
+
+        # Float32 accumulation on the device per group of chunks_per_call
+        # chunks (no sync inside a group), float64 across groups.
+        total = sq = 0.0
+        done = 0
+        while done < n_chunks:
+            count = min(config.chunks_per_call, n_chunks - done)
+            tot_g = sq_g = 0.0
+            for i in range(done, done + count):
+                if noise is None:
+                    kw = {"rows": chunk, "key": pathgen_cuda._fold_words(
+                        run, start + i)}
+                else:
+                    kw = {"noise": noise[i]}
+                c = chunk_sum(**kw)
+                tot_g = tot_g + c
+                sq_g = sq_g + c * c
+            all0 = v0 * float(count * chunk)
+            c0 = v0 * float(chunk)
+            sq0 = float(count) * c0 * c0
+            total = total + torch.where(ex0, all0, tot_g).double().cpu()
+            sq = sq + torch.where(ex0, sq0, sq_g).double().cpu()
+            done += count
+        total, sq = total.numpy(), sq.numpy()
+        if not with_stderr:
+            return total / n_paths
+        return (total / n_paths,
+                _chunk_stderr(total, sq, n_chunks, chunk))
+
+
+class StreamingPricer(_FusedStream):
+    """Fit-then-stream pricer of one American option under rough Bergomi.
+
+    Runs on ``device`` ("cuda" unless the caller asks for "cpu"); on the
+    CPU the kernels' plain versions run in their place."""
+
+    def __init__(self, s0, xi, h, eta, rho, r, strike, maturity,
+                 is_call: bool, config: StreamConfig, device="cuda"):
+        del rho  # the price Brownian is drawn independent of the fGN noise
+        if config.control_variate:
+            raise NotImplementedError(
+                "control_variate=True: the fused martingale control is not "
+                "ported (ROADMAP A5)")
+        super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
+                         device)
+        self.strike = float(strike)
+        if self.kernel_family == "single":
+            self._priced_chunk = pathgen_cuda.priced_chunk
+        else:
+            self._priced_chunk = pathgen_tiled_cuda.tiled_priced_chunk
         self._make_rows = _fused_rows_builder(
             self.r, self.strike, self.maturity, config.dt, config.n_steps,
             self.is_call)
@@ -287,11 +424,8 @@ class StreamingPricer:
     def fit(self, carrier) -> PolyFit:
         """Pilot block from the (run_word, stream_index) ``carrier``
         through the family's path kernel, then the LSM policy fit."""
-        pilot = self._pathgen(
-            self.consts, rows=self.config.pilot_paths,
-            key=pathgen_cuda._fold_words(*carrier))
-        _, fits = lsm_fit(pilot, self.r, self.strike, self.maturity,
-                          self.config.dt, self.is_call,
+        _, fits = lsm_fit(self._pilot(carrier), self.r, self.strike,
+                          self.maturity, self.config.dt, self.is_call,
                           self.config.poly_order)
         return fits
 
@@ -314,55 +448,172 @@ class StreamingPricer:
         and converted with ``polyfit_from_numpy``).  With ``noise``
         [n_chunks, 2, chunk_paths, n_steps] the chunks read that noise
         instead of the seeded stream."""
-        config = self.config
-        chunk = config.chunk_paths
-        if noise is not None:
-            n_paths = noise.shape[0] * chunk
-        n_paths = self._n_paths(n_paths)
-        n_chunks = n_paths // chunk
-        _, (run, start) = _pilot_stream_keys(seed)
         table = self._make_rows(fits)
         ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, self.strike,
                                            self.is_call)
         p0_t = torch.tensor(p0, dtype=torch.float32, device=self.device)
-
-        # Float32 accumulation on the device per group of chunks_per_call
-        # chunks (no sync inside a group), float64 across groups.
-        total = sq = 0.0
-        done = 0
-        while done < n_chunks:
-            count = min(config.chunks_per_call, n_chunks - done)
-            tot_g = torch.zeros((), dtype=torch.float32, device=self.device)
-            sq_g = torch.zeros_like(tot_g)
-            for i in range(done, done + count):
-                if noise is None:
-                    kw = {"rows": chunk, "key": pathgen_cuda._fold_words(
-                        run, start + i)}
-                else:
-                    kw = {"noise": noise[i]}
-                c = self._priced_chunk(self.consts, table, self.strike,
-                                       self.is_call, **kw)
-                tot_g = tot_g + c
-                sq_g = sq_g + c * c
-            # Time-0 exercise: every path shares S0, so the run collapses
-            # to the immediate payoff and every chunk total is the same.
-            all0 = p0_t * float(count * chunk)
-            c0 = p0_t * float(chunk)
-            sq0 = float(count) * c0 * c0
-            total += float(torch.where(ex0, all0, tot_g))
-            sq += float(torch.where(ex0, sq0, sq_g))
-            done += count
+        out = self._stream(
+            lambda **kw: self._priced_chunk(self.consts, table, self.strike,
+                                            self.is_call, **kw),
+            seed, n_paths, noise, ex0, p0_t, with_stderr)
         if not with_stderr:
-            return total / n_paths
-        return (total / n_paths,
-                float(_chunk_stderr(total, sq, n_chunks, chunk)))
+            return float(out)
+        return float(out[0]), float(out[1])
 
-    def _n_paths(self, n_paths: Optional[int]) -> int:
-        if n_paths is None:
-            n_paths = self.config.n_paths
-        n_chunks, rem = divmod(n_paths, self.config.chunk_paths)
-        if rem or n_chunks < 1:
-            raise ValueError(f"n_paths={n_paths} is not a positive multiple "
-                             f"of chunk_paths={self.config.chunk_paths}")
-        _check_pallas_chunk_range(n_chunks)
-        return n_paths
+    def price_and_greeks(self, seed: int, n_paths: Optional[int] = None,
+                         with_stderr: bool = False):
+        """(price, delta, vega_xi, vega_eta, rho_rate, vega_h)
+        (``GREEK_ORDER``) on ``n_paths`` fresh paths from ``seed``, through
+        the fused Greeks kernel K3: pathwise forward tangents with the
+        exercise policy fixed from the same pilot and fit as ``price``
+        (counterpart of the JAX fused Greeks stream).  Time-0 exercise
+        leaves (p0, +-1, 0, 0, 0, 0).  ``with_stderr`` returns
+        (greeks, stderrs), each a tuple of six floats."""
+        self._require_greeks()
+        k_pilot, _ = _pilot_stream_keys(seed)
+        n_paths = self._n_paths(n_paths)
+        return self.greeks_with_fit(self.fit(k_pilot), seed, n_paths,
+                                    with_stderr)
+
+    def greeks_with_fit(self, fits: PolyFit, seed: int = 0,
+                        n_paths: Optional[int] = None,
+                        with_stderr: bool = False):
+        """``price_and_greeks`` against a given policy ``fits``."""
+        self._require_greeks()
+        table = self._make_rows(fits)
+        ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, self.strike,
+                                           self.is_call)
+        v0 = torch.tensor([p0, 1.0 if self.is_call else -1.0, 0, 0, 0, 0],
+                          dtype=torch.float32, device=self.device)
+        gconsts = self.greeks_consts
+        out = self._stream(
+            lambda **kw: greeks_cuda.greeks_chunk(
+                self.consts, gconsts, table, self.strike, self.is_call,
+                **kw), seed, n_paths, None, ex0, v0, with_stderr)
+        if not with_stderr:
+            return tuple(float(v) for v in out)
+        return (tuple(float(v) for v in out[0]),
+                tuple(float(v) for v in out[1]))
+
+
+class StreamingChainPricer(_FusedStream):
+    """Price a strike strip of one expiry on shared paths (counterpart of
+    the JAX ``StreamingChainPricer``'s fused, non-bucketed branch).
+
+    The pilot comes from K1 with the carriers ``StreamingPricer`` uses, so
+    a strike of the strip and a single-strike pricer with the same seed
+    fit on the same pilot and stream the same paths.  One backward pass
+    fits the whole strip (``lsm_fit`` with a strike tensor), and each
+    chunk runs K5 once per 32 strikes, every strike swept against the
+    same path block.  ``price_and_greeks`` runs K4 on the same stream.
+    Horizons are K5's (at most 512 steps, the JAX chain kernel's cap).
+    Runs on ``device`` ("cuda" unless the caller asks for "cpu")."""
+
+    def __init__(self, s0, xi, h, eta, rho, r, strikes, maturity,
+                 is_call: bool, config: StreamConfig, device="cuda",
+                 bucketed: bool = False, traced_h: bool = False,
+                 traced_market: bool = False):
+        del rho  # the price Brownian is drawn independent of the fGN noise
+        if config.control_variate:
+            raise ValueError(
+                "control_variate is not supported by the chain pricer: the "
+                "chain kernel emits per-strike payoff sums only (no control "
+                "sums); use StreamingPricer per strike for CV estimates.")
+        if bucketed or traced_h or traced_market:
+            raise NotImplementedError(
+                "bucketed and traced-market chains (the serving pricers) "
+                "are not ported (ROADMAP A13)")
+        if not chain_cuda.supports(config.n_steps):
+            raise NotImplementedError(
+                f"n_steps={config.n_steps} is past the chain kernel K5 "
+                f"(max {chain_cuda.MAX_CHAIN_STEPS}); longer chains need the "
+                "generic path stream (ROADMAP A3)")
+        super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
+                         device)
+        self.strikes = self._strip(strikes)
+
+    def _strip(self, strikes) -> torch.Tensor:
+        strip = torch.as_tensor(strikes, dtype=torch.float32).reshape(-1)
+        if strip.numel() < 1:
+            raise ValueError("the strike strip is empty")
+        if hasattr(self, "strikes") and strip.shape != self.strikes.shape:
+            raise ValueError(
+                f"strike strip length {strip.numel()} != the pricer's "
+                f"{self.strikes.numel()}; build a new pricer")
+        return strip.to(self.device)
+
+    def fit(self, carrier, strikes=None) -> PolyFit:
+        """K1 pilot from ``carrier``, then one LSM backward pass over the
+        strip (default the pricer's): fits with a leading [K] axis."""
+        strip = self.strikes if strikes is None else self._strip(strikes)
+        _, fits = lsm_fit(self._pilot(carrier), self.r, strip,
+                          self.maturity, self.config.dt, self.is_call,
+                          self.config.poly_order)
+        return fits
+
+    def _tables(self, fits: PolyFit, strip: torch.Tensor) -> torch.Tensor:
+        return pathgen_cuda.boundary_rows(
+            fits, self.r, strip, self.maturity, self.config.dt,
+            self.config.n_steps, self.is_call).contiguous()
+
+    def price(self, seed: int, n_paths: Optional[int] = None,
+              strikes=None, with_stderr: bool = False):
+        """[K] prices (numpy float64) of the strip on ``n_paths`` fresh
+        paths from ``seed``; ``strikes`` prices a fresh strip of the same
+        length without a rebuild.  ``with_stderr`` returns (prices,
+        stderrs), each per strike, conditional on the pilot's fits."""
+        strip = self.strikes if strikes is None else self._strip(strikes)
+        k_pilot, _ = _pilot_stream_keys(seed)
+        n_paths = self._n_paths(n_paths)
+        return self.price_with_fit(self.fit(k_pilot, strip), seed, n_paths,
+                                   strip, with_stderr)
+
+    def price_with_fit(self, fits: PolyFit, seed: int = 0,
+                       n_paths: Optional[int] = None, strikes=None,
+                       with_stderr: bool = False,
+                       noise: Optional[torch.Tensor] = None):
+        """Stream the strip against given fits (leading [K] axis), e.g.
+        converted from the JAX package with ``polyfit_from_numpy``.  With
+        ``noise`` [n_chunks, 2, chunk_paths, n_steps] the chunks read that
+        noise instead of the seeded stream."""
+        strip = self.strikes if strikes is None else self._strip(strikes)
+        tables = self._tables(fits, strip)
+        ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, strip,
+                                           self.is_call)
+        return self._stream(
+            lambda **kw: chain_cuda.priced_chain(self.consts, tables,
+                                                 self.is_call, **kw),
+            seed, n_paths, noise, ex0, p0, with_stderr)
+
+    def price_and_greeks(self, seed: int, n_paths: Optional[int] = None,
+                         strikes=None, with_stderr: bool = False):
+        """[6, K] (numpy float64, rows in ``GREEK_ORDER``) per-strike price
+        and Greeks of the strip through the chain Greeks kernel K4, with
+        the fits of the same pilot as ``price``; ``with_stderr`` returns
+        (values, stderrs).  Time-0 exercise leaves (p0, +-1, 0, 0, 0, 0)
+        for that strike."""
+        self._require_greeks()
+        strip = self.strikes if strikes is None else self._strip(strikes)
+        k_pilot, _ = _pilot_stream_keys(seed)
+        n_paths = self._n_paths(n_paths)
+        return self.greeks_with_fit(self.fit(k_pilot, strip), seed, n_paths,
+                                    strip, with_stderr)
+
+    def greeks_with_fit(self, fits: PolyFit, seed: int = 0,
+                        n_paths: Optional[int] = None, strikes=None,
+                        with_stderr: bool = False):
+        """``price_and_greeks`` against given fits (leading [K] axis)."""
+        self._require_greeks()
+        strip = self.strikes if strikes is None else self._strip(strikes)
+        tables = pathgen_cuda.log_boundary_rows(
+            self._tables(fits, strip)).contiguous()
+        ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, strip,
+                                           self.is_call)
+        zeros = torch.zeros_like(p0)
+        sgn = torch.full_like(p0, 1.0 if self.is_call else -1.0)
+        v0 = torch.stack([p0, sgn, zeros, zeros, zeros, zeros])
+        gconsts = self.greeks_consts
+        return self._stream(
+            lambda **kw: greeks_cuda.chain_greeks_chunk(
+                self.consts, gconsts, tables, self.is_call, **kw),
+            seed, n_paths, None, ex0, v0, with_stderr)

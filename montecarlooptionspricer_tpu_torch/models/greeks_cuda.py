@@ -1,0 +1,222 @@
+"""The pathwise Greeks kernels K3 and K4 for Hopper, their plain PyTorch
+version and their shared-memory model.
+
+Counterparts: ``make_pallas_greeks_chunk`` and
+``make_pallas_chain_greeks_chunk`` in
+``montecarlooptionspricer_tpu/models/pathgen_pallas.py``.  One device body
+in ``csrc/greeks.cu`` serves both:
+
+* K3 ``greeks_chunk`` (replaces ``_greeks_kernel`` /
+  ``_greeks_kernel_noise_in``): one strike, given as an argument;
+* K4 ``chain_greeks_chunk`` (replaces ``_chain_greeks_kernel`` /
+  ``_noise_in`` / ``_grid``): a strike strip, each strike read from row 3
+  of its table.
+
+Both return the chunk's sums of price, delta, vega_xi, vega_eta, rho_rate
+and vega_h (``GREEK_ORDER``) under the log_boundary_rows policy held
+fixed: forward tangents of the policy value, written out as
+``_tangent_planes`` and ``_greek_stop_vals`` do (the module docstring of
+the CUDA source gives the algebra).  The seeded entries draw K1's and K2's
+Philox stream.  The wrappers run the plain version for tensors on the CPU
+and launch the kernel for tensors on a CUDA device; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import pathgen_cuda as pc
+
+GREEK_ORDER = ("price", "delta", "vega_xi", "vega_eta", "rho_rate",
+               "vega_h")
+
+# ---------------------------------------------------------------------------
+# The card's memory model (mirrors csrc/greeks.cu).
+
+GROUP = 32                  # strikes one launch sweeps (csrc/greeks.cu kGroup)
+
+
+def smem_bytes(n_steps: int, block_paths: int) -> int:
+    """Shared memory of one CUDA block: the N and W planes, four step tiles
+    (x' and hx, then the running sums; they also hold the block's sums at
+    the end) and the staged Lt' and dLt' rows."""
+    return pc.block_smem_bytes(n_steps, block_paths, n_products=2,
+                               extra=2 * block_paths * (pc.TILE_COLS + 1))
+
+
+def supports(n_steps: int) -> bool:
+    """Whether K3 and K4 take this horizon."""
+    return n_steps >= 1 and pc.fitting_block(smem_bytes, n_steps) > 0
+
+
+def block_paths_for(n_steps: int, rows: int) -> int:
+    """The Greeks kernels' path block: the largest of
+    pathgen_cuda.BLOCK_CHOICES whose shared memory fits at this horizon and
+    which divides ``rows`` (32 at 365 steps)."""
+    bp = pc.fitting_block(smem_bytes, n_steps, rows)
+    if not bp:
+        raise ValueError(f"no Greeks block divides rows={rows} at "
+                         f"n_steps={n_steps}")
+    return bp
+
+
+def _to_greek_order(sums: torch.Tensor, consts: pc.PathConsts,
+                    gconsts: pc.GreeksConsts) -> torch.Tensor:
+    """Raw sums [6, ...] -> GREEK_ORDER, in place: delta divided by s0,
+    vega_xi by 2 xi.  Scalar multiplies, so nothing is copied from the
+    host and the stream never waits."""
+    sums[1].mul_(1.0 / consts.s0)
+    sums[2].mul_(1.0 / (2.0 * gconsts.xi))
+    return sums
+
+
+# ---------------------------------------------------------------------------
+# Plain version.
+
+def greeks_from_noise_ref(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
+                          tables: torch.Tensor, strikes: torch.Tensor,
+                          noise: torch.Tensor, is_call: bool) -> torch.Tensor:
+    """Plain K3 and K4: [6, K] chunk sums in GREEK_ORDER under the
+    [K, 8, >= n_steps] log_boundary_rows ``tables`` with strikes
+    ``strikes`` [K], on the paths of ``noise`` [2, rows, n_steps]."""
+    n = consts.n_steps
+    x = pc._matmul_f32(noise[0], consts.lt_half)
+    hx = pc._matmul_f32(noise[0], gconsts.dlt_half)
+    sv = torch.exp(x + consts.vd)
+    v = sv * sv
+    svw = sv * (noise[1] * math.sqrt(consts.dt))
+    inc = (consts.r - 0.5 * v) * consts.dt + svw
+    b = svw - v * consts.dt
+    ls = math.log(consts.s0) + torch.cumsum(inc, dim=1)
+    cumb = torch.cumsum(b, dim=1)
+    cume = torch.cumsum((x * (1.0 / gconsts.eta) + gconsts.de) * b, dim=1)
+    cumh = torch.cumsum((hx + gconsts.dh) * b, dim=1)
+    del x, hx, sv, v, svw, inc, b
+    sgn = 1.0 if is_call else -1.0
+    sums = []
+    for tab, k in zip(tables, strikes):
+        exf = (ls >= tab[0, :n]) & (ls <= tab[1, :n])
+        hit = exf.any(dim=1)
+        idx = exf.to(torch.int8).argmax(dim=1)[:, None]
+        ls_s, cb_s, ce_s, ch_s = (a.gather(1, idx)[:, 0]
+                                  for a in (ls, cumb, cume, cumh))
+        t_raw = (idx[:, 0].to(torch.float32) + 1.0) * consts.dt
+        zero = torch.zeros_like(t_raw)
+        d = torch.where(hit, torch.exp(-consts.r * t_raw), zero)
+        t_s = torch.where(hit, t_raw, zero)
+        s_stop = torch.exp(ls_s)
+        p = sgn * (s_stop - k)
+        act = (d > 0.0) & (p > 0.0)
+        pv = torch.where(act, d * p, zero)
+        base = torch.where(act, d * sgn * s_stop, zero)
+        sums.append(torch.stack([
+            torch.sum(pv), torch.sum(base), torch.sum(base * cb_s),
+            torch.sum(base * ce_s), torch.sum(t_s * (base - pv)),
+            torch.sum(base * ch_s)]))
+    return _to_greek_order(torch.stack(sums, dim=1), consts, gconsts)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: plain version for CPU tensors, the kernel for CUDA tensors.
+
+def _check_tables(consts: pc.PathConsts, tables: torch.Tensor) -> None:
+    if tables.dim() != 3 or tables.shape[1] < 4 or \
+            tables.shape[2] < consts.n_steps:
+        raise ValueError("tables must be [K, 8, >= n_steps] "
+                         f"(log_boundary_rows), got {tuple(tables.shape)}")
+    if not supports(consts.n_steps):
+        raise ValueError(f"n_steps={consts.n_steps} is past the Greeks "
+                         "kernels' shared memory")
+
+
+def _check_gconsts(consts: pc.PathConsts, gconsts: pc.GreeksConsts) -> None:
+    n = consts.n_steps
+    for name, t, shape in (("dlt_half", gconsts.dlt_half, (n, n)),
+                           ("de", gconsts.de, (n,)), ("dh", gconsts.dh, (n,))):
+        if (tuple(t.shape) != shape or t.device != consts.device
+                or t.dtype != torch.float32 or not t.is_contiguous()):
+            raise ValueError(f"gconsts.{name} must be contiguous float32 "
+                             f"{shape} on {consts.device}")
+
+
+def _launch(name, consts, gconsts, rows, key, noise, tables, extra, k):
+    """One launch of the Greeks body; returns its [k, 6] raw sums."""
+    n = consts.n_steps
+    bp = block_paths_for(n, rows)
+    partial = torch.empty((rows // bp, k, 6), dtype=torch.float32,
+                          device=consts.device)
+    from ..kernels import build
+
+    err = getattr(build.load(), name)(
+        None if noise is None else noise.data_ptr(),
+        consts.lt_half.data_ptr(), gconsts.dlt_half.data_ptr(),
+        consts.vd.data_ptr(), gconsts.de.data_ptr(), gconsts.dh.data_ptr(),
+        rows, n, bp, 0 if key is None else key & pc._U32,
+        *pc._scalars(consts), ctypes.c_float(1.0 / gconsts.eta),
+        tables.data_ptr(), *extra, partial.data_ptr(),
+        torch.cuda.current_stream(consts.device).cuda_stream)
+    pc._check(err, name)
+    return torch.sum(partial, dim=0)
+
+
+def greeks_chunk(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
+                 table: torch.Tensor, strike: float, is_call: bool,
+                 rows: int = None, key: int = None,
+                 noise: torch.Tensor = None) -> torch.Tensor:
+    """K3: the chunk's [6] float32 sums in GREEK_ORDER under the
+    log_boundary_rows ``table`` [8, >= n_steps] of ``strike``, from the
+    seeded stream of ``key`` or from injected ``noise``."""
+    rows = pc._noise_or_rows(consts, rows, key, noise)
+    _check_tables(consts, table[None])
+    if consts.device.type == "cpu":
+        if noise is None:
+            noise = pc.philox_normals_ref(key, rows, consts.n_steps)
+        return greeks_from_noise_ref(
+            consts, gconsts, table[None], torch.tensor([float(strike)]),
+            noise, is_call)[:, 0]
+    pc.check_device_inputs(consts, noise, table)
+    _check_gconsts(consts, gconsts)
+    raw = _launch("mcop_greeks_chunk", consts, gconsts, rows, key, noise,
+                  table, (table.stride(0), ctypes.c_float(strike),
+                          int(bool(is_call))), 1)
+    greeks_chunk.launches += 1
+    return _to_greek_order(raw[0], consts, gconsts)
+
+
+greeks_chunk.launches = 0
+
+
+def chain_greeks_chunk(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
+                       tables: torch.Tensor, is_call: bool, rows: int = None,
+                       key: int = None,
+                       noise: torch.Tensor = None) -> torch.Tensor:
+    """K4: the chunk's [6, K] float32 sums in GREEK_ORDER under the
+    strip's log_boundary_rows ``tables`` [K, 8, >= n_steps] (each strike
+    is row 3 of its table), from the seeded stream of ``key`` or from
+    injected ``noise``.  One launch sweeps up to GROUP strikes; a wider
+    strip takes one launch per group on the same key or noise."""
+    rows = pc._noise_or_rows(consts, rows, key, noise)
+    _check_tables(consts, tables)
+    if consts.device.type == "cpu":
+        if noise is None:
+            noise = pc.philox_normals_ref(key, rows, consts.n_steps)
+        return greeks_from_noise_ref(consts, gconsts, tables, tables[:, 3, 0],
+                                     noise, is_call)
+    pc.check_device_inputs(consts, noise, tables)
+    _check_gconsts(consts, gconsts)
+    raws = []
+    for g in range(0, tables.shape[0], GROUP):
+        k = min(GROUP, tables.shape[0] - g)
+        raws.append(_launch(
+            "mcop_chain_greeks_chunk", consts, gconsts, rows, key, noise,
+            tables[g], (tables.stride(0), tables.stride(1), k,
+                        int(bool(is_call))), k))
+        chain_greeks_chunk.launches += 1
+    return _to_greek_order(torch.cat(raws).T, consts, gconsts)
+
+
+chain_greeks_chunk.launches = 0
+

@@ -28,28 +28,40 @@ ITM_EPS = 1e-14
 
 def _lsm_backward(paths, r, strike, maturity, dt, is_call: bool,
                   poly_order: int = 2):
-    """(price, fits in forward step order) for paths [n, m]."""
+    """(price, fits in forward step order) for paths [n, m].  ``strike`` is
+    a number, or a [K] tensor of strikes sharing the paths: then every
+    per-path quantity carries a leading strike axis, the price is [K] and
+    each fit field gains a leading [K] axis, with the same launches per
+    step as one strike."""
     n_paths, m = paths.shape
     disc = math.exp(-r * dt)
     live = step_mask(m - 1, dt, maturity).tolist()
-    v = payoff(is_call, paths[:, m - 1], strike)
+    k = torch.as_tensor(strike, dtype=paths.dtype, device=paths.device)
+    k = k[..., None]                       # [1] or [K, 1] against [n]
+    v = payoff(is_call, paths[:, m - 1], k)
     fits = [None] * (m - 1)
     for j in range(m - 2, -1, -1):
         s = paths[:, j]
         vd = v * disc
-        p = payoff(is_call, s, strike)
+        p = payoff(is_call, s, k)
         itm = (p > ITM_EPS).to(paths.dtype)
         fit = fit_poly_masked(s, vd, itm, poly_order)
         fits[j] = fit
         if not live[j]:
             v = vd
             continue
-        cont = eval_poly(fit, s)
+        cont = eval_poly(PolyFit(fit.coeffs[..., None, :], fit.mu[..., None],
+                                 fit.sd[..., None]), s)
         v_exercised = torch.where(itm > 0, torch.maximum(p, cont), vd)
-        v = torch.where(torch.sum(itm) > 0, v_exercised, vd)
-    stacked = PolyFit(*(torch.stack([getattr(f, name) for f in fits])
+        # Per strike: a step with no ITM path only discounts.
+        v = torch.where(torch.sum(itm, dim=-1, keepdim=True) > 0,
+                        v_exercised, vd)
+    stacked = PolyFit(*(torch.stack([getattr(f, name) for f in fits],
+                                    dim=k.dim() - 1)
                         for name in PolyFit._fields))
-    return global_mean(v), stacked
+    if k.dim() == 1:
+        return global_mean(v), stacked
+    return torch.mean(v, dim=-1), stacked
 
 
 def lsm_price(paths, r, strike, maturity, dt, is_call: bool,
@@ -65,6 +77,11 @@ def lsm_fit(paths, r, strike, maturity, dt, is_call: bool,
     """(price, fits): the LSM price and the per-step PolyFit, leading axis
     of length steps in forward order (index j covers step j), for use as
     an exercise policy on independent paths.  Fits at past-maturity steps
-    are unused by the backward pass; consumers mask the live window."""
+    are unused by the backward pass; consumers mask the live window.
+
+    With a [K] strike tensor it fits the whole strip on the same paths in
+    one backward pass (the counterpart of ``jax.vmap`` over strikes of the
+    JAX function): the price is [K] and each field of the fit is [K,
+    steps, ...]."""
     return _lsm_backward(paths, r, strike, maturity, dt, is_call,
                          poly_order)

@@ -32,6 +32,7 @@ import ctypes
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 LANE = 128
@@ -125,23 +126,36 @@ TILE_K = 32                 # rows of Lt' staged per inner pass
 BLOCK_CHOICES = (64, 32, 16)
 
 
-def smem_bytes(n_steps: int, block_paths: int) -> int:
-    """Shared memory of one CUDA block: the N and W planes (row stride
-    n_steps rounded up to odd, so rows fall on distinct banks), the X tile
-    (stride TILE_COLS + 1), the staged Lt' tile and the path-sum slots."""
+def block_smem_bytes(n_steps: int, block_paths: int, n_products: int = 1,
+                     extra: int = 0) -> int:
+    """Shared memory of one single-tile CUDA block (``block_smem_bytes`` of
+    csrc/fgn_tile.cuh, which K1-K5 share): the N and W planes (row stride
+    n_steps rounded up to odd, so rows fall on distinct banks), per fGN
+    product an X tile (stride TILE_COLS + 1) and a staged factor tile, and
+    ``extra`` floats."""
     ld = n_steps | 1
-    floats = (2 * block_paths * ld + block_paths * (TILE_COLS + 1)
-              + TILE_K * TILE_COLS + block_paths)
+    floats = (2 * block_paths * ld + extra + n_products
+              * (block_paths * (TILE_COLS + 1) + TILE_K * TILE_COLS))
     return 4 * floats
 
 
-def max_block_paths(n_steps: int) -> int:
-    """Largest path block (64, 32 or 16) whose shared memory fits one H100
-    block at this horizon, or 0 when none does."""
+def smem_bytes(n_steps: int, block_paths: int) -> int:
+    """K1 and K2: one product and the path-sum slots."""
+    return block_smem_bytes(n_steps, block_paths, extra=block_paths)
+
+
+def fitting_block(smem, n_steps: int, rows: int = 0) -> int:
+    """Largest of BLOCK_CHOICES whose ``smem(n_steps, block)`` fits one H100
+    block (and which divides ``rows`` when given), or 0 when none does."""
     for bp in BLOCK_CHOICES:
-        if smem_bytes(n_steps, bp) <= SMEM_LIMIT:
+        if smem(n_steps, bp) <= SMEM_LIMIT and (not rows or rows % bp == 0):
             return bp
     return 0
+
+
+def max_block_paths(n_steps: int) -> int:
+    """Largest path block (64, 32 or 16) of K1/K2 at this horizon, or 0."""
+    return fitting_block(smem_bytes, n_steps)
 
 
 def supports(n_steps: int) -> bool:
@@ -202,10 +216,50 @@ def make_path_consts(s0, xi, h, eta, r, n_steps: int, dt: float,
                       r=float(r), dt=float(dt))
 
 
+@dataclasses.dataclass(frozen=True)
+class GreeksConsts:
+    """What the Greeks kernels K3 and K4 read beside a PathConsts
+    (counterpart: the ``dlt'`` and ``aux`` rows of
+    ``pathgen_pallas._greeks_consts``): the half-scaled dLt/dH factor
+    ``dlt_half`` [n, n] (upper triangular), the tangent rows ``de`` [n]
+    (d ln sv/d eta less x'/eta) and ``dh`` [n] (the drift's H derivative),
+    and the scalars xi and eta the tangents divide by.  Its tensors live
+    on the PathConsts' device."""
+
+    dlt_half: torch.Tensor
+    de: torch.Tensor
+    dh: torch.Tensor
+    xi: float
+    eta: float
+
+
+def make_greeks_consts(xi, h, eta, n_steps: int, dt: float,
+                       device) -> GreeksConsts:
+    """GreeksConsts from the float64 host dLt/dH (``_chol_dh_matrix_host``)
+    and the tangent rows -eta/2 t^2H and -eta^2/2 t^2H ln t at the drift
+    times t = c dt (0 at t = 0)."""
+    from .engine import _chol_dh_matrix_host
+
+    dlt = torch.tensor(_chol_dh_matrix_host(n_steps, h, eta, dt),
+                       dtype=torch.float32)
+    td = np.arange(n_steps, dtype=np.float64) * dt
+    t2h = td ** (2.0 * h)
+    lnt = np.where(td > 0, np.log(np.maximum(td, 1e-300)), 0.0)
+
+    def row(v):
+        return torch.tensor(v, dtype=torch.float32).to(device).contiguous()
+
+    return GreeksConsts(dlt_half=(0.5 * dlt).to(device).contiguous(),
+                        de=row(-0.5 * eta * t2h),
+                        dh=row(-0.5 * (eta * eta) * t2h * lnt),
+                        xi=float(xi), eta=float(eta))
+
+
 def _table_prep(fits, r, maturity, dt, n_steps: int, s_pad: int):
     """Column-shifted fit arrays (column c is step c + 1), the
     integer-exact live-window eps (the terminal step always live), and
-    the exp(-r t) discount."""
+    the exp(-r t) discount.  Fits may carry leading batch axes (a strike
+    strip), which the fit arrays keep; eps and the discount are shared."""
     from ..ops.timegrid import step_mask
 
     f32 = torch.float32
@@ -213,14 +267,15 @@ def _table_prep(fits, r, maturity, dt, n_steps: int, s_pad: int):
     t = torch.arange(1, n_steps + 1, dtype=f32, device=dev) * dt
 
     def shifted(a, fill, pad_value=0.0):
-        v = torch.cat([a[1:].to(f32), torch.full((1,), fill, dtype=f32,
-                                                 device=dev)])
+        a = a.to(f32)
+        v = torch.cat([a[..., 1:], torch.full((*a.shape[:-1], 1), fill,
+                                              dtype=f32, device=dev)], -1)
         return torch.nn.functional.pad(v, (0, s_pad - n_steps),
                                        value=pad_value)
 
-    c0 = shifted(fits.coeffs[:, 0], -1e30)
-    c1 = shifted(fits.coeffs[:, 1], 0.0)
-    c2 = shifted(fits.coeffs[:, 2], 0.0)
+    c0 = shifted(fits.coeffs[..., 0], -1e30)
+    c1 = shifted(fits.coeffs[..., 1], 0.0)
+    c2 = shifted(fits.coeffs[..., 2], 0.0)
     mu = shifted(fits.mu, 0.0)
     sd = torch.clamp_min(shifted(fits.sd, 1.0, pad_value=1.0), 1e-30)
 
@@ -241,13 +296,19 @@ def boundary_rows(fits, r, strike, maturity, dt, n_steps: int,
     lo <= S <= hi), row 2 disc * strike, row 3 the discount, row 4 the
     strike, rows 5-7 zero.  The quadratic decision is solved in the fit's
     standardized z basis with the stable root form; an empty set is
-    [1e30, -1e30] and an unbounded side keeps its +-1e30 sentinel."""
+    [1e30, -1e30] and an unbounded side keeps its +-1e30 sentinel.
+
+    With a [K] ``strike`` tensor and fits carrying a leading [K] axis (a
+    strike strip, ``lsm_fit`` with strikes) it returns the strip's
+    [K, 8, s_pad] tables, the counterpart of ``jax.vmap`` over strikes;
+    the chain kernel K5 reads them."""
     s_pad = _round_up(n_steps, LANE)
     big = 1e30
     c0, c1, c2, mu, sd, eps, disc = _table_prep(fits, r, maturity, dt,
                                                 n_steps, s_pad)
     dev = mu.device
-    strike_t = torch.tensor(strike, dtype=torch.float32, device=dev)
+    strike_t = torch.as_tensor(strike, dtype=torch.float32,
+                               device=dev)[..., None]
     big_t = torch.full_like(mu, big)
 
     if is_call:
@@ -293,16 +354,19 @@ def boundary_rows(fits, r, strike, maturity, dt, n_steps: int,
         lo_row, hi_row = set_lo, torch.minimum(set_hi, cap)
 
     zeros = torch.zeros_like(mu)
-    return torch.stack([lo_row, hi_row, disc * strike_t, disc,
-                        strike_t.expand(s_pad), zeros, zeros, zeros])
+    return torch.stack([lo_row, hi_row, disc * strike_t,
+                        disc.expand_as(mu), strike_t.expand_as(mu), zeros,
+                        zeros, zeros], dim=-2)
 
 
 def log_boundary_rows(table: torch.Tensor) -> torch.Tensor:
-    """boundary_rows -> the log-space [8, s_pad] table K2 reads: row 0
-    log lo, row 1 log hi, row 2 the discount, row 3 the strike.  The
-    +-1e30 sentinels stay exact (lo <= 0 passes every S > 0)."""
+    """boundary_rows -> the log-space [..., 8, s_pad] table K2, K3 and K4
+    read: row 0 log lo, row 1 log hi, row 2 the discount, row 3 the
+    strike.  The +-1e30 sentinels stay exact (lo <= 0 passes every
+    S > 0)."""
     big = 1e30
-    lo, hi, disc, strike = table[0], table[1], table[3], table[4]
+    lo, hi = table[..., 0, :], table[..., 1, :]
+    disc, strike = table[..., 3, :], table[..., 4, :]
     big_t = torch.full_like(lo, big)
 
     def to_log(v):
@@ -312,17 +376,22 @@ def log_boundary_rows(table: torch.Tensor) -> torch.Tensor:
 
     zeros = torch.zeros_like(disc)
     return torch.stack([to_log(lo), to_log(hi), disc, strike,
-                        zeros, zeros, zeros, zeros])
+                        zeros, zeros, zeros, zeros], dim=-2)
 
 
 def time0_value(fits, s0, strike, is_call: bool):
-    """(exercises_at_0 as a bool tensor, payoff_at_0 as a float): every
-    path shares S0, so time-0 exercise is one decision made outside the
-    kernels."""
-    p0 = max(s0 - strike, 0.0) if is_call else max(strike - s0, 0.0)
-    z0 = (s0 - fits.mu[0]) / fits.sd[0]
-    cont0 = (fits.coeffs[0, 2] * z0 + fits.coeffs[0, 1]) * z0 \
-        + fits.coeffs[0, 0]
+    """(exercises_at_0 as a bool tensor, payoff_at_0): every path shares
+    S0, so time-0 exercise is one decision made outside the kernels.  For
+    a number ``strike`` the payoff is a float; for a [K] strike tensor and
+    fits with a leading [K] axis both are [K] tensors (counterpart of the
+    chain stream's per-strike time-0 values)."""
+    if torch.is_tensor(strike):
+        p0 = torch.clamp_min(s0 - strike if is_call else strike - s0, 0.0)
+    else:
+        p0 = max(s0 - strike, 0.0) if is_call else max(strike - s0, 0.0)
+    z0 = (s0 - fits.mu[..., 0]) / fits.sd[..., 0]
+    cont0 = (fits.coeffs[..., 0, 2] * z0 + fits.coeffs[..., 0, 1]) * z0 \
+        + fits.coeffs[..., 0, 0]
     ex0 = (p0 > 1e-14) & (p0 >= cont0)
     return ex0, p0
 

@@ -45,43 +45,47 @@ def poly_basis(z: torch.Tensor, order: int) -> torch.Tensor:
 def fit_poly_masked(x, y, w, order: int, ridge: float = 1e-6) -> PolyFit:
     """Weighted polynomial least squares min_c sum_i w_i (P_c(x_i) - y_i)^2.
 
-    x, y, w: [n] tensors (w a {0,1} mask in LSM).  With zero total weight
-    the fit is a dead constant 1e30: a continuation nothing beats, so a
-    policy read from it never exercises at that step."""
+    x, y, w: [..., n] tensors that broadcast (w a {0,1} mask in LSM); the
+    leading axes are a batch of independent fits, e.g. the strikes of a
+    chain sharing one regressor column (the counterpart of ``jax.vmap``
+    over the JAX function), and the fit's fields carry them.  With zero
+    total weight the fit is a dead constant 1e30: a continuation nothing
+    beats, so a policy read from it never exercises at that step."""
     x = x.to(torch.float32)
     y = y.to(torch.float32)
     w = w.to(torch.float32)
 
-    wsum = torch.sum(w)
+    wsum = torch.sum(w, dim=-1)
     safe_wsum = torch.clamp_min(wsum, 1.0)
-    mu = torch.sum(w * x) / safe_wsum
-    var = torch.sum(w * (x - mu) ** 2) / safe_wsum
+    mu = torch.sum(w * x, dim=-1) / safe_wsum
+    var = torch.sum(w * (x - mu[..., None]) ** 2, dim=-1) / safe_wsum
     # Relative floor: a (near-)constant regressor such as the S0 column is
     # a pure intercept fit, and z snaps to exactly 0 there (a constant
     # nonzero z from roundoff in mu would make the solve near-singular).
     sd_floor = 1e-6 * (torch.abs(mu) + 1.0)
     sd = torch.sqrt(torch.maximum(var, sd_floor * sd_floor))
-    z = (x - mu) / sd
-    z = torch.where(var > sd_floor * sd_floor, z, torch.zeros_like(z))
+    z = (x - mu[..., None]) / sd[..., None]
+    z = torch.where((var > sd_floor * sd_floor)[..., None], z,
+                    torch.zeros_like(z))
 
-    basis = poly_basis(z, order)                          # [n, p+1]
-    wb = basis * w[:, None]
-    gram = torch.sum(wb[:, :, None] * basis[:, None, :], dim=0)
-    rhs = torch.sum(wb * y[:, None], dim=0)
+    basis = poly_basis(z, order)                          # [..., n, p+1]
+    wb = basis * w[..., None]
+    gram = torch.sum(wb[..., :, None] * basis[..., None, :], dim=-3)
+    rhs = torch.sum(wb * y[..., None], dim=-2)
 
     # Diagonal-scaled Tikhonov term; 1e-6 is the smallest ridge that is
     # meaningful in float32, and smaller requests are raised to it.
     lam = max(ridge, 1e-6)
-    ridge_diag = lam * (torch.diagonal(gram) + 1.0)
-    a = gram + torch.diag(ridge_diag)
+    ridge_diag = lam * (torch.diagonal(gram, dim1=-2, dim2=-1) + 1.0)
+    a = gram + torch.diag_embed(ridge_diag)
     if order + 1 <= 3:
         coeffs = _solve_spd_small(a, rhs, ridge_diag)
     else:
-        coeffs = torch.cholesky_solve(rhs[:, None],
-                                      torch.linalg.cholesky(a))[:, 0]
+        coeffs = torch.cholesky_solve(rhs[..., None],
+                                      torch.linalg.cholesky(a))[..., 0]
     dead = torch.zeros_like(coeffs)
-    dead[0] = 1e30
-    coeffs = torch.where(wsum > 0, coeffs, dead)
+    dead[..., 0] = 1e30
+    coeffs = torch.where((wsum > 0)[..., None], coeffs, dead)
     return PolyFit(coeffs, mu, sd)
 
 

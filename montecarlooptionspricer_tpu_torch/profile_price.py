@@ -3,16 +3,20 @@
 Runs the bench.py workload (1e7 paths x 365 steps, the same shape as
 ``chip_smoke.py``; ``--steps 1825`` takes the long horizon of the same
 option, maturity steps/252) through ``StreamingPricer`` once to warm up,
-then times
-its two stages, the pilot fit (K1, or K6 past the single-tile horizon, +
-the LSM fit) and the stream (tables + K2 or K7 per chunk), first on the host clock without a profiler and then under
-``torch.profiler``.  For each stage it prints one JSON line: host wall
-seconds, device kernel launches and busy seconds from the trace, the idle
-share 1 - busy / wall (against the unprofiled and the profiled wall), and
-the kernels that take the most device time.
+then times its two stages, the pilot fit (K1, or K6 past the single-tile
+horizon, + the LSM fit) and the stream (tables + K2 or K7 per chunk),
+first on the host clock without a profiler and then under
+``torch.profiler``.  ``--strikes`` prices that strike strip of the same
+expiry through ``StreamingChainPricer`` instead: the fit is one LSM
+backward pass over the strip, the stream K5 per chunk.  For each stage it
+prints one JSON line: host wall seconds, device kernel launches and busy
+seconds from the trace, the idle share 1 - busy / wall (against the
+unprofiled and the profiled wall), and the kernels that take the most
+device time.
 
 Usage (one CUDA card):
   python -m montecarlooptionspricer_tpu_torch.profile_price [--steps N]
+      [--strikes 75,77.5,...,125]
 """
 
 from __future__ import annotations
@@ -47,9 +51,14 @@ def _timed(torch, fn) -> float:
 
 
 def main(argv=None) -> int:
-    args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    args.add_argument("--steps", type=int, default=365)
-    steps = args.parse_args(argv).steps
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--steps", type=int, default=365)
+    parser.add_argument("--strikes", default="",
+                        help="comma-separated strike strip (default: the "
+                             "single strike 105)")
+    args = parser.parse_args(argv)
+    steps = args.steps
+    strikes = [float(v) for v in args.strikes.split(",") if v]
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -61,9 +70,14 @@ def main(argv=None) -> int:
     cfg = engine.StreamConfig(n_paths=76 << 17, n_steps=steps,
                               chunk_paths=1 << 17, pilot_paths=1 << 17,
                               dt=1.0 / 252.0, chunks_per_call=76)
-    pricer = engine.StreamingPricer(100.0, 0.04, 0.1, 1.5, -0.4, 0.04,
-                                    105.0, steps / 252, False, cfg,
-                                    device="cuda")
+    if strikes:
+        pricer = engine.StreamingChainPricer(
+            100.0, 0.04, 0.1, 1.5, -0.4, 0.04, strikes, steps / 252, False,
+            cfg, device="cuda")
+    else:
+        pricer = engine.StreamingPricer(100.0, 0.04, 0.1, 1.5, -0.4, 0.04,
+                                        105.0, steps / 252, False, cfg,
+                                        device="cuda")
     seed = 42
     pricer.price(seed)          # build the kernels, warm every path
     card = subprocess.run(
@@ -85,6 +99,7 @@ def main(argv=None) -> int:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         print(json.dumps({
             "stage": name, "n_steps": steps,
+            "n_strikes": len(strikes) or 1,
             "kernel_family": pricer.kernel_family, "card": card,
             "wall_s": wall_plain,
             "wall_profiled_s": wall_prof, "device_launches": len(kernels),

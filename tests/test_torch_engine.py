@@ -180,12 +180,44 @@ def test_cli_prices_on_cpu(capsys):
     assert out["price"] > 0 and out["stderr"] > 0 and not out["is_call"]
 
 
-@pytest.mark.parametrize("flag", ["--greeks", "--bounds", "--serve", "--qmc",
-                                  "--antithetic", "--control-variate",
-                                  "--strikes=95,100"])
+@pytest.mark.parametrize("flag", ["--bounds", "--serve", "--qmc",
+                                  "--antithetic", "--control-variate"])
 def test_cli_unported_flags_exit_2(capsys, flag):
     assert tcli.main([flag, "--device", "cpu"]) == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+_RUN = ["--strike", "102", "--put", "--maturity", "0.12", "--steps", "24",
+        "--paths", "4096", "--chunk-paths", "2048", "--device", "cpu"]
+_TAIL = {"n_paths", "n_steps", "is_call", "elapsed_s"}
+
+
+@pytest.mark.parametrize("flags", [["--strikes", "95,100,130"], ["--greeks"],
+                                   ["--strikes", "95,100,130", "--greeks"]])
+def test_cli_chains_and_greeks_on_cpu(capsys, flags):
+    """--strikes, --greeks and both print the JAX CLI's keys
+    (cli/price.py of the JAX package): per-strike rows for a strip,
+    GREEK_ORDER for one strike, stderrs beside each, implied vols for a
+    strip; a number that is not finite prints as null."""
+    assert tcli.main(_RUN + flags) == 0
+    out = json.loads(capsys.readouterr().out)
+    greeks = "--greeks" in flags
+    if "--strikes" not in flags:
+        assert set(out) == set(jengine.GREEK_ORDER) | {"stderrs"} | _TAIL
+        assert set(out["stderrs"]) == set(jengine.GREEK_ORDER)
+        assert out["price"] > 0 and out["delta"] < 0
+        return
+    rows = ("prices",) + (jengine.GREEK_ORDER[1:] if greeks else ())
+    assert set(out) == set(rows) | {"strikes", "stderrs",
+                                    "implied_vols"} | _TAIL
+    assert out["strikes"] == [95.0, 100.0, 130.0]
+    assert all(len(out[r]) == 3 for r in rows)
+    if greeks:
+        assert set(out["stderrs"]) == set(rows)
+    else:
+        assert len(out["stderrs"]) == 3
+    assert 0 < out["prices"][0] < out["prices"][1] < out["prices"][2]
+    assert out["implied_vols"][0] > 0
 
 
 @pytest.mark.parametrize("is_call,strike", [(False, 102.0), (True, 98.0)])

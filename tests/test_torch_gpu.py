@@ -8,7 +8,9 @@ machine without JAX it runs with the repository's conftest switched off:
 import pytest
 import torch
 
+from montecarlooptionspricer_tpu_torch.models import chain_cuda as cc
 from montecarlooptionspricer_tpu_torch.models import engine
+from montecarlooptionspricer_tpu_torch.models import greeks_cuda as gc
 from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
 from montecarlooptionspricer_tpu_torch.models import pathgen_tiled_cuda as ptc
 
@@ -163,3 +165,147 @@ def test_tiled_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):      # table on the wrong device
         ptc.tiled_priced_chunk(consts, table.cpu(), 100.0, False, rows=64,
                                key=1)
+
+
+def _strip_tables(cuda, consts, noise, strikes, scale=1.0):
+    """S-space tables of a put strip fitted on the first 16384 paths of
+    ``noise`` (times ``scale``), and their log forms."""
+    n = consts.n_steps
+    pilot = pc.pathgen_from_noise_ref(
+        consts, (scale * noise[:, : 1 << 14]).contiguous())
+    strip = torch.tensor(strikes, device=cuda)
+    _, fits = engine.lsm_fit(pilot, MARKET["r"], strip, n * DT, DT, False)
+    tables = pc.boundary_rows(fits, MARKET["r"], strip, n * DT, DT, n,
+                              False).contiguous()
+    return tables, pc.log_boundary_rows(tables).contiguous()
+
+
+def _rel(got, want):
+    """Largest |got - want| over each row's scale, floored at 1e-3 of the
+    row's largest entry (a deep out-of-the-money strike's sum is ~0)."""
+    floor = 1e-3 * want.abs().amax(dim=-1, keepdim=True)
+    return float(((got - want).abs() / torch.maximum(want.abs(), floor))
+                 .max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps,n_strikes", [(96, 23), (365, 23),
+                                               (365, 40)])
+def test_chain_kernel_matches_plain_version(cuda, n_steps, n_strikes):
+    """K5's [K] sums against its plain version, seeded and noise-in, at the
+    main path's chunk of 131072 rows: rtol 1e-4 per strike (a decision
+    flips only inside the float32 root band).  23 strikes do not divide
+    the kernel's strike lanes; 40 take two launches of one key."""
+    rows = 1 << 17
+    consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda)
+    key = pc._fold_words(5, 13)
+    noise = pc.philox_normals_ref(key, rows, n_steps, device=cuda)
+    tables, _ = _strip_tables(cuda, consts, noise,
+                              torch.linspace(80.0, 120.0, n_strikes).tolist())
+    want = cc.priced_chain_from_noise_ref(consts, tables, noise, False)
+    before = cc.priced_chain.launches
+    for got in (cc.priced_chain(consts, tables, False, noise=noise),
+                cc.priced_chain(consts, tables, False, rows=rows, key=key)):
+        torch.cuda.synchronize()
+        assert got.shape == (n_strikes,)
+        assert _rel(got, want) < 1e-4
+    assert cc.priced_chain.launches - before == 2 * -(-n_strikes // cc.GROUP)
+
+
+@pytest.mark.gpu
+def test_chain_kernel_wild_noise(cuda):
+    """x3 noise: paths cross several strikes' intervals within one step
+    tile and again in later tiles; each strike must stop at its own first
+    hit, so K5 matches its plain version at rtol 1e-4."""
+    n_steps, rows = 365, 1 << 17
+    consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda)
+    noise = 3.0 * pc.philox_normals_ref(pc._fold_words(6, 3), rows, n_steps,
+                                        device=cuda)
+    tables, _ = _strip_tables(cuda, consts, noise,
+                              torch.linspace(70.0, 130.0, 21).tolist())
+    want = cc.priced_chain_from_noise_ref(consts, tables, noise, False)
+    got = cc.priced_chain(consts, tables, False, noise=noise)
+    torch.cuda.synchronize()
+    assert float(want.min()) > 0
+    assert _rel(got, want) < 1e-4
+
+
+@pytest.mark.gpu
+def test_seeded_chain_of_one_matches_k2(cuda):
+    """Seeded K5 with one strike against seeded K2 on the same key and the
+    same fit: K5 decides on the S-space table, K2 on its log form, which
+    differ only in the root band (rtol 1e-4)."""
+    n_steps, rows = 365, 1 << 17
+    consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda)
+    key = pc._fold_words(5, 17)
+    noise = pc.philox_normals_ref(key, rows, n_steps, device=cuda)
+    tables, logs = _strip_tables(cuda, consts, noise, [104.0])
+    k5 = float(cc.priced_chain(consts, tables, False, rows=rows, key=key)[0])
+    k2 = float(pc.priced_chunk(consts, logs[0], 104.0, False, rows=rows,
+                               key=key))
+    assert k2 > 0 and abs(k5 / k2 - 1.0) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [96, 365])
+def test_greeks_kernels_match_plain_version(cuda, n_steps):
+    """K4's [6, K] sums and K3's [6] against their plain version, seeded
+    and noise-in, at 131072 rows: 2e-4 of each output's scale (the tangent
+    sums run in another float32 order; a decision flips only inside the
+    root band).  K4's columns equal K3 on each strike (the same body) up
+    to the order of the cross-block sum: 1e-6 of each output's largest."""
+    rows = 1 << 17
+    consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda)
+    g = pc.make_greeks_consts(MARKET["xi"], MARKET["h"], MARKET["eta"],
+                              n_steps, DT, cuda)
+    key = pc._fold_words(5, 19)
+    noise = pc.philox_normals_ref(key, rows, n_steps, device=cuda)
+    strikes = torch.linspace(85.0, 115.0, 23).tolist()
+    _, logs = _strip_tables(cuda, consts, noise, strikes)
+    want = gc.greeks_from_noise_ref(consts, g, logs,
+                                    torch.tensor(strikes, device=cuda),
+                                    noise, False)
+    for kw in ({"noise": noise}, {"rows": rows, "key": key}):
+        got = gc.chain_greeks_chunk(consts, g, logs, False, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (6, 23)
+        assert _rel(got, want) < 2e-4
+        for j in (0, 11, 22):
+            one = gc.greeks_chunk(consts, g, logs[j], strikes[j], False,
+                                  **kw)
+            torch.cuda.synchronize()
+            scale = got.abs().amax(dim=1)
+            assert bool(((one - got[:, j]).abs() <= 1e-6 * scale).all())
+
+
+@pytest.mark.gpu
+def test_chain_and_greeks_wrappers_reject_bad_inputs(cuda):
+    from montecarlooptionspricer_tpu_torch.kernels import build
+
+    lib = build.load()
+    for n in (96, 365, 512):       # the Python memory models are the card's
+        for bp in pc.BLOCK_CHOICES:
+            assert lib.mcop_chain_smem_bytes(n, bp) == cc.smem_bytes(n, bp)
+            assert lib.mcop_greeks_smem_bytes(n, bp) == gc.smem_bytes(n, bp)
+    assert lib.mcop_chain_group() == cc.GROUP
+    assert lib.mcop_greeks_group() == gc.GROUP
+    consts = pc.make_path_consts(*MARKET.values(), 64, DT, cuda)
+    g = pc.make_greeks_consts(MARKET["xi"], MARKET["h"], MARKET["eta"], 64,
+                              DT, cuda)
+    tables = torch.zeros((3, 8, 128), device=cuda)
+    with pytest.raises(ValueError):      # rows not a multiple of 16
+        cc.priced_chain(consts, tables, False, rows=40, key=1)
+    with pytest.raises(ValueError):      # tables on the wrong device
+        cc.priced_chain(consts, tables.cpu(), False, rows=64, key=1)
+    with pytest.raises(ValueError):      # one table, not a strip
+        cc.priced_chain(consts, tables[0], False, rows=64, key=1)
+    with pytest.raises(ValueError):      # noise on the wrong device
+        gc.greeks_chunk(consts, g, tables[0], 100.0, False,
+                        noise=torch.zeros((2, 64, 64)))
+    with pytest.raises(ValueError):      # non-contiguous tables
+        gc.chain_greeks_chunk(consts, g, tables[:, :, ::2], False, rows=64,
+                              key=1)
+    with pytest.raises(ValueError):      # Greeks constants on the CPU
+        gc.chain_greeks_chunk(consts, pc.make_greeks_consts(
+            MARKET["xi"], MARKET["h"], MARKET["eta"], 64, DT, "cpu"),
+            tables, False, rows=64, key=1)
