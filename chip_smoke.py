@@ -3,7 +3,7 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, all started together), holds each kernel against its plain
-PyTorch version at its path's shapes, and drives five full-width
+PyTorch version at its path's shapes, and drives seven full-width
 fit-then-stream runs through the kernels, each with the launch counts set
 to 0 just before it and read just after:
 
@@ -18,10 +18,17 @@ to 0 just before it and read just after:
   the prices above;
 * the long horizon, 1e7 paths x 1825 steps (the reference's longest), through
   the step-tiled kernels K6 and K7, checked against the plain versions on
-  its first 8 chunks under the same fit.
+  its first 8 chunks under the same fit;
+* the same horizon on the factored-DFT kernels K8 and K9 (the spectral
+  law, ``tiled_impl="factored"``, ``price_factored``), also streamed under
+  the fits of the K6 pilot and held within 5 combined stderr of K7's price;
+* 1e7 paths x 4000 steps (``price_xlong``), past the slab's range, through
+  K8 once and K9 76 times, checked against the plain versions on its first
+  8 chunks under the same fit.
 
 It also times K2 against K7 per chunk across horizons (the crossover that
-sets engine.SINGLE_TILE_MAX_STEPS) and times each kernel.
+sets engine.SINGLE_TILE_MAX_STEPS) and times each kernel (K8 and K9 at 1825
+and 4000 steps).
 
 Usage (from the root of a checkout, one CUDA card):  python3 chip_smoke.py
 
@@ -56,6 +63,14 @@ LONG_MATURITY = LONG_STEPS * DT
 K6_VS_K1_STEPS = 1008
 CROSSOVER_STEPS = (365, 504, 1008, 1512)
 
+# The extra-long horizon: 4000 steps (maturity 4000/252), past the chol
+# slab's 3,620, which only the factored-DFT kernels K8/K9 (the spectral law)
+# cover; the JAX package's records name it.  Its plain versions price the
+# first XLONG_CHECKED chunks under the kernels' fit.
+XLONG_STEPS, XLONG_CHUNKS, XLONG_CHECKED = 4000, 76, 8
+XLONG_MATURITY = XLONG_STEPS * DT
+FACTORED_STEPS = (LONG_STEPS, XLONG_STEPS)
+
 # The strike strip of the chain and Greeks phases: one expiry's chain around
 # s0, deep in and out of the money (the top strikes exercise at time 0).
 STRIP = tuple(75.0 + 2.5 * i for i in range(21))
@@ -73,9 +88,21 @@ CHAIN_CHECKED = 8
 # column of K4 equals K3 up to the cross-block sum's order (1e-6 of each
 # output's largest strike).
 PATH_RTOL = 2e-4
+# K8's paths: the four-step DFT and the plain version's FFT sum in other
+# float32 orders; the JAX package's own factored-vs-dense tolerance at m2
+# 2048 (tests/test_pallas_factored.py).  Prices under one set of fits on
+# two laws' noise (K9 against K7): within 5 combined stderr.
+FACTORED_PATH_RTOL = 5e-4
+STDERR_SIGMAS = 5.0
 SUM_RTOL = 1e-4
 GREEKS_RTOL = 2e-4
 SAME_BODY_RTOL = 1e-6
+# The strip's batched fit against one strike's, in device launches from
+# torch.profiler traces: a fit that looped over the 21 strikes would launch
+# ~21 times as many, and a trace can lose a few records, so the strip's
+# most is held to 1 % over one strike's least.
+FIT_TRACES = 3
+FIT_LAUNCH_SLACK = 0.01
 
 # H100 SXM peaks (NVIDIA data sheet): float32 without tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
@@ -92,6 +119,10 @@ REPLACES = {
     "greeks_chunk": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:1016",
     "chain_greeks_chunk":
         "montecarlooptionspricer_tpu/models/pathgen_pallas.py:954",
+    "factored_pathgen":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py:222",
+    "factored_priced_chunk":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py:330",
 }
 SOURCES = {
     "pathgen": "montecarlooptionspricer_tpu_torch/csrc/pathgen.cu",
@@ -102,6 +133,10 @@ SOURCES = {
     "priced_chain": "montecarlooptionspricer_tpu_torch/csrc/chain.cu",
     "greeks_chunk": "montecarlooptionspricer_tpu_torch/csrc/greeks.cu",
     "chain_greeks_chunk": "montecarlooptionspricer_tpu_torch/csrc/greeks.cu",
+    "factored_pathgen":
+        "montecarlooptionspricer_tpu_torch/csrc/pathgen_factored.cu",
+    "factored_priced_chunk":
+        "montecarlooptionspricer_tpu_torch/csrc/pathgen_factored.cu",
 }
 
 
@@ -170,10 +205,13 @@ def kernel_record(kname: str, launches: dict, ms: float, plain_ms: float,
 
 
 def plain_stream_mean(pc, engine, pricer, fits, seed: int, n_chunks: int,
-                      strike: float) -> float:
+                      strike: float, normals=None, chunk_ref=None) -> float:
     """Mean discounted payoff of the first n_chunks chunks of seed's stream
     under ``fits``, through the plain versions (time-0 exercise decided as
-    the engine decides it)."""
+    the engine decides it).  ``normals`` and ``chunk_ref`` name the
+    family's seeded stream and plain priced chunk (default K1/K2's)."""
+    normals = normals or pc.philox_normals_ref
+    chunk_ref = chunk_ref or pc.priced_chunk_from_noise_ref
     consts, dev = pricer.consts, pricer.device
     _, (run, start) = engine._pilot_stream_keys(seed)
     table = pricer._make_rows(fits)
@@ -182,10 +220,10 @@ def plain_stream_mean(pc, engine, pricer, fits, seed: int, n_chunks: int,
         return p0
     total = 0.0
     for i in range(n_chunks):
-        noise = pc.philox_normals_ref(pc._fold_words(run, start + i), CHUNK,
-                                      consts.n_steps, device=dev)
-        total += float(pc.priced_chunk_from_noise_ref(consts, table, noise,
-                                                      strike, IS_CALL))
+        noise = normals(pc._fold_words(run, start + i), CHUNK, consts.n_steps,
+                        device=dev)
+        total += float(chunk_ref(consts, table, noise, strike, IS_CALL))
+        del noise
     return total / (n_chunks * CHUNK)
 
 
@@ -321,9 +359,13 @@ def chain_and_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
     launches = read_counts()
     fits, fit_s = timed(torch, lambda: chain.fit(k_pilot))
     _, stream_s = timed(torch, lambda: chain.price_with_fit(fits, SEED))
-    fit_launches = device_launches(torch, lambda: chain.fit(k_pilot))
-    single_fit_launches = device_launches(torch,
-                                          lambda: pricer.fit(k_pilot))
+    # A trace may drop a few of its ~36,500 device records (repeats of one
+    # fit differ by up to ~10), so each fit is traced FIT_TRACES times.
+    fit_launches = [device_launches(torch, lambda: chain.fit(k_pilot))
+                    for _ in range(FIT_TRACES)]
+    single_fit_launches = [device_launches(torch,
+                                           lambda: pricer.fit(k_pilot))
+                           for _ in range(FIT_TRACES)]
     checked = chain.price_with_fit(fits, SEED, n_paths=CHAIN_CHECKED * CHUNK)
     checked_plain = plain_chain_means(torch, pc, cc, engine, chain, fits,
                                       SEED, CHAIN_CHECKED)
@@ -352,8 +394,11 @@ def chain_and_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
     check(abs(p_k - price) <= 2.0 * stderr,
           f"strike {STRIKE} of the strip {p_k} is over 2 stderr from the "
           f"single-strike price {price}")
-    check(fit_launches <= single_fit_launches,
-          "the strip's fit launches more kernels than one strike's")
+    check(max(fit_launches)
+          <= (1.0 + FIT_LAUNCH_SLACK) * min(single_fit_launches),
+          f"the strip's fit launches {fit_launches} kernels, over "
+          f"{FIT_LAUNCH_SLACK:.0%} more than one strike's "
+          f"{single_fit_launches}")
 
     # K3 and K4 against their plain version on the strip's log tables, and
     # K4's columns against K3 per strike.
@@ -532,7 +577,8 @@ def long_horizon_phases(torch, pc, ptc, engine, smi, dev, key, rel_err,
     """The step-tiled kernels K6 and K7: each against its plain version at
     1825 steps, seeded K6 against seeded K1, the full-width long-horizon
     price through them, the K2/K7 crossover and their times.  Returns their
-    entries of the kernels line."""
+    entries of the kernels line, the price's fits, the price and its
+    stderr."""
     cfg = engine.StreamConfig(n_paths=CHUNK * LONG_CHUNKS, n_steps=LONG_STEPS,
                               chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
                               chunks_per_call=LONG_CHUNKS)
@@ -704,7 +750,214 @@ def long_horizon_phases(torch, pc, ptc, engine, smi, dev, key, rel_err,
           "k6_bound_ms": k6_b, "k7_bound_ms": k7_b,
           "k6_plain_ms": records[0]["plain_ms"],
           "k7_plain_ms": records[1]["plain_ms"]})
-    return records
+    return records, fits, price, stderr
+
+def factored_bound_ms(rows: int, n: int, out_bytes: int,
+                      policy_rows: int = 0) -> tuple[float, str]:
+    """Least time for one K8/K9 launch at this shape: the larger of the
+    bytes that must move (the spectral diagonal [m2] complex, vd and
+    ``policy_rows`` rows of [n] read once, the output written once; the
+    seeded entry reads no noise) over HBM bandwidth, and the float32
+    operations the function needs over the float32 peak: per path the
+    diagonal's complex multiply (6 per step), one length-m2 complex FFT
+    (5 m2 log2 m2) and ~8 per step.  The kernels' dense 128-point stage 1
+    and N2-point stage 2 (8 N2 128^2 + 4 N2 s_pad per path, 19 times the
+    FFT's count at m2 4096) are the TPU's choice of algorithm, not what
+    the function needs, so they do not set the bound."""
+    m2 = 1 << (n - 1).bit_length()
+    bytes_ = 4 * (2 * m2 + (1 + policy_rows) * n) + out_bytes
+    flops = rows * (5.0 * m2 * math.log2(m2) + 6.0 * n + 8.0 * n)
+    t_bytes, t_ops = bytes_ / PEAK_BYTES, flops / PEAK_F32_FLOPS
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def factored_price_phase(torch, engine, smi, dev, name: str,
+                         n_steps: int, cfg_kw: dict, reset_counts,
+                         read_counts):
+    """One full-width price through the factored family: price() with the
+    launch counts read around it, then fit and stream timed apart.
+    Returns (pricer, fits, price, stderr, the phase's record)."""
+    maturity = n_steps * DT
+    cfg = engine.StreamConfig(n_paths=CHUNK * XLONG_CHUNKS, n_steps=n_steps,
+                              chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                              chunks_per_call=XLONG_CHUNKS, **cfg_kw)
+    pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                    maturity=maturity, is_call=IS_CALL,
+                                    config=cfg, device=dev)
+    check(pricer.kernel_family == "factored",
+          f"{name}: {n_steps} steps resolved to {pricer.kernel_family!r}")
+    reset_counts()
+    (price, stderr), wall = timed(
+        torch, lambda: pricer.price(SEED, with_stderr=True))
+    launches = read_counts()
+    fits, fit_s = timed(
+        torch, lambda: pricer.fit(engine._pilot_stream_keys(SEED)[0]))
+    _, stream_s = timed(torch, lambda: pricer.price_with_fit(fits, SEED))
+    n_paths = CHUNK * XLONG_CHUNKS
+    record = {"phase": name, "card": smi, "n_paths": n_paths,
+              "n_steps": n_steps, "maturity": maturity, **cfg_kw,
+              "kernel_family": pricer.kernel_family, "price": price,
+              "stderr": stderr, "wall_s": wall, "paths_per_s": n_paths / wall,
+              "fit_s": fit_s, "stream_s": stream_s, "launches": launches}
+    check(launches == expected_counts(factored_pathgen=1,
+                                      factored_priced_chunk=XLONG_CHUNKS),
+          f"{name} launches {launches}, want K8 once and K9 "
+          f"{XLONG_CHUNKS} times and nothing else")
+    check(math.isfinite(price) and 0.0 < price < STRIKE,
+          f"{name} price {price} outside (0, strike)")
+    check(math.isfinite(stderr) and stderr > 0.0,
+          f"{name} stderr {stderr} not finite and positive")
+    check(all(bool(torch.isfinite(t).all()) for t in fits),
+          f"{name}: non-finite fit coefficients")
+    return pricer, fits, price, stderr, record
+
+
+def factored_phases(torch, pc, pfc, engine, smi, dev, key, rel_err,
+                    reset_counts, read_counts, long_fits, long_price: float,
+                    long_stderr: float) -> list:
+    """The factored-DFT kernels K8 and K9 (the spectral law): K8 against
+    its plain version at 1825 and 4000 steps, the full-width prices at 1825
+    steps (``tiled_impl="factored"``, also streamed under the fits of
+    ``price_long``'s K6 pilot against ``price_long``) and at 4000 steps
+    (auto), K9 against its plain version under those fits, and their
+    times.  Returns their entries of the kernels line (at 4000 steps, the
+    horizon only they cover)."""
+    consts = {n: pfc.make_factored_consts(
+        MARKET["s0"], MARKET["xi"], MARKET["h"], MARKET["eta"], MARKET["r"],
+        n, DT, dev) for n in FACTORED_STEPS}
+
+    # K8 noise-in and seeded against its plain version, elementwise.
+    k8 = {}
+    for n in FACTORED_STEPS:
+        noise = pfc.philox_factored_normals_ref(key, PILOT, n, device=dev)
+        want = pfc.factored_pathgen_from_noise_ref(consts[n], noise)
+        got_n = pfc.factored_pathgen(consts[n], noise=noise)
+        del noise
+        torch.cuda.synchronize()
+        err_n = rel_err(got_n, want)
+        del got_n
+        got_s = pfc.factored_pathgen(consts[n], rows=PILOT, key=key)
+        torch.cuda.synchronize()
+        k8[n] = {"n_steps": n, "noise_in_rel_err": err_n,
+                 "seeded_rel_err": rel_err(got_s, want),
+                 "seeded_abs_err": float(torch.max(torch.abs(got_s - want))),
+                 "finite": bool(torch.isfinite(got_s).all())}
+        del got_s, want
+    emit({"phase": "k8", "rows": PILOT,
+          "paths_per_block": {n: pfc.paths_per_block(n)
+                              for n in FACTORED_STEPS},
+          "smem_bytes": {n: pfc.smem_bytes(n) for n in FACTORED_STEPS},
+          "checks": list(k8.values()), "rtol": FACTORED_PATH_RTOL})
+    check(all(c["finite"] and c["noise_in_rel_err"] <= FACTORED_PATH_RTOL
+              and c["seeded_rel_err"] <= FACTORED_PATH_RTOL
+              for c in k8.values()), "K8 disagrees with its plain version")
+
+    # 1825 steps on the factored family, and K9 under price_long's fits.
+    pricer, _, price, stderr, rec = factored_price_phase(
+        torch, engine, smi, dev, "price_factored", LONG_STEPS,
+        {"tiled_impl": "factored"}, reset_counts, read_counts)
+    under_k6, under_k6_se = pricer.price_with_fit(long_fits, SEED,
+                                                  with_stderr=True)
+    sigmas = abs(under_k6 - long_price) / math.hypot(under_k6_se,
+                                                     long_stderr)
+    emit({**rec, "price_under_k6_fits": under_k6,
+          "stderr_under_k6_fits": under_k6_se, "price_long": long_price,
+          "stderr_long": long_stderr, "combined_stderrs_apart": sigmas,
+          "limit": STDERR_SIGMAS})
+    check(sigmas <= STDERR_SIGMAS,
+          f"K9 under K6's fits is {sigmas:.2f} combined stderr from K7")
+    tables = {LONG_STEPS: pricer._make_rows(long_fits)}
+
+    # 4000 steps, auto: only K8/K9 cover it.
+    pricer, fits, price, stderr, rec = factored_price_phase(
+        torch, engine, smi, dev, "price_xlong", XLONG_STEPS, {},
+        reset_counts, read_counts)
+    xlong_launches = rec["launches"]
+    checked = pricer.price_with_fit(fits, SEED,
+                                    n_paths=XLONG_CHECKED * CHUNK)
+    checked_plain = plain_stream_mean(
+        pc, engine, pricer, fits, SEED, XLONG_CHECKED, STRIKE,
+        normals=pfc.philox_factored_normals_ref,
+        chunk_ref=pfc.factored_priced_chunk_from_noise_ref)
+    checked_rel = abs(checked / checked_plain - 1.0)
+    emit({**rec, "checked_chunks": XLONG_CHECKED, "checked_price": checked,
+          "checked_plain_price": checked_plain,
+          "checked_rel_err": checked_rel, "rtol": SUM_RTOL})
+    check(checked_rel <= SUM_RTOL,
+          "the 4000-step price disagrees with the plain path")
+    tables[XLONG_STEPS] = pricer._make_rows(fits)
+    del pricer
+
+    # K9 noise-in and seeded against its plain version on those tables.
+    k9 = {}
+    for n in FACTORED_STEPS:
+        noise = pfc.philox_factored_normals_ref(key, CHUNK, n, device=dev)
+        args = (consts[n], tables[n], STRIKE, IS_CALL)
+        got_n = float(pfc.factored_priced_chunk(*args, noise=noise))
+        got_s = float(pfc.factored_priced_chunk(*args, rows=CHUNK, key=key))
+        want = float(pfc.factored_priced_chunk_from_noise_ref(
+            consts[n], tables[n], noise, STRIKE, IS_CALL))
+        del noise
+        k9[n] = {"n_steps": n, "noise_in_sum": got_n, "seeded_sum": got_s,
+                 "plain_sum": want, "noise_in_rel_err": abs(got_n / want - 1),
+                 "seeded_rel_err": abs(got_s / want - 1),
+                 "seeded_abs_err": abs(got_s - want)}
+    emit({"phase": "k9", "rows": CHUNK, "checks": list(k9.values()),
+          "rtol": SUM_RTOL})
+    check(all(c["noise_in_rel_err"] <= SUM_RTOL
+              and c["seeded_rel_err"] <= SUM_RTOL for c in k9.values()),
+          "K9 disagrees with its plain version")
+
+    # Times at both horizons: the kernels, their plain versions, the
+    # library yardstick and the bounds.
+    times = {}
+    for n in FACTORED_STEPS:
+        c, tab, m2 = consts[n], tables[n], pfc.fgn.next_pow2(n)
+
+        def k8_run(c=c):
+            pfc.factored_pathgen(c, rows=PILOT, key=key)
+
+        def k8_plain(c=c, n=n):
+            pfc.factored_pathgen_from_noise_ref(
+                c, pfc.philox_factored_normals_ref(key, PILOT, n,
+                                                   device=dev))
+
+        def k9_run(c=c, tab=tab):
+            pfc.factored_priced_chunk(c, tab, STRIKE, IS_CALL, rows=CHUNK,
+                                      key=key)
+
+        def k9_plain(c=c, tab=tab, n=n):
+            pfc.factored_priced_chunk_from_noise_ref(
+                c, tab, pfc.philox_factored_normals_ref(key, CHUNK, n,
+                                                        device=dev),
+                STRIKE, IS_CALL)
+
+        a = torch.randn((CHUNK, m2), dtype=torch.complex64, device=dev)
+        lib_ms = time_ms(torch, lambda: torch.fft.fft(a, dim=1), reps=10)
+        del a
+        k8_b = factored_bound_ms(PILOT, n, 4 * PILOT * (n + 1))
+        k9_b = factored_bound_ms(
+            CHUNK, n, 4 * (CHUNK // pfc.paths_per_block(n)), policy_rows=3)
+        times[n] = {"n_steps": n, "k8_ms": time_ms(torch, k8_run, 5),
+                    "k9_ms": time_ms(torch, k9_run, 5),
+                    "k8_plain_ms": time_ms(torch, k8_plain, 2),
+                    "k9_plain_ms": time_ms(torch, k9_plain, 2),
+                    "library_ms": lib_ms, "k8_bound_ms": k8_b[0],
+                    "k9_bound_ms": k9_b[0], "bound_by": k8_b[1],
+                    "k9_bound_by": k9_b[1]}
+    emit({"phase": "times_factored", "card": smi, "library_call":
+          "torch.fft.fft of the chunk's [131072, m2] complex64 plane (the "
+          "synthesis alone)", "horizons": list(times.values())})
+    t = times[XLONG_STEPS]
+    return [
+        kernel_record("factored_pathgen", xlong_launches, t["k8_ms"],
+                      t["k8_plain_ms"], t["k8_bound_ms"], t["bound_by"],
+                      k8[XLONG_STEPS]["seeded_abs_err"], t["library_ms"]),
+        kernel_record("factored_priced_chunk", xlong_launches, t["k9_ms"],
+                      t["k9_plain_ms"], t["k9_bound_ms"], t["k9_bound_by"],
+                      k9[XLONG_STEPS]["seeded_abs_err"], t["library_ms"])]
 
 
 def main() -> int:
@@ -726,6 +979,8 @@ def main() -> int:
     from montecarlooptionspricer_tpu_torch.models import greeks_cuda as gc
     from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
     from montecarlooptionspricer_tpu_torch.models import (
+        pathgen_factored_cuda as pfc)
+    from montecarlooptionspricer_tpu_torch.models import (
         pathgen_tiled_cuda as ptc)
     from montecarlooptionspricer_tpu_torch.models.lsm import lsm_fit
 
@@ -744,7 +999,9 @@ def main() -> int:
                 "tiled_priced_chunk": ptc.tiled_priced_chunk,
                 "priced_chain": cc.priced_chain,
                 "greeks_chunk": gc.greeks_chunk,
-                "chain_greeks_chunk": gc.chain_greeks_chunk}
+                "chain_greeks_chunk": gc.chain_greeks_chunk,
+                "factored_pathgen": pfc.factored_pathgen,
+                "factored_priced_chunk": pfc.factored_priced_chunk}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -894,8 +1151,13 @@ def main() -> int:
           "library_ms": lib_ms, "fit_s": fit_s, "stream_s": stream_s,
           "k1_ms": k1_ms, "k2_ms": k2_ms, **chain_times})
 
-    kernels += long_horizon_phases(torch, pc, ptc, engine, smi, dev, key,
-                                   rel_err, reset_counts, read_counts)
+    records, long_fits, long_price, long_stderr = long_horizon_phases(
+        torch, pc, ptc, engine, smi, dev, key, rel_err, reset_counts,
+        read_counts)
+    kernels += records
+    kernels += factored_phases(torch, pc, pfc, engine, smi, dev, key,
+                               rel_err, reset_counts, read_counts,
+                               long_fits, long_price, long_stderr)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,11 +8,14 @@ fallback to another device or generator.  Prints one JSON line; a
 non-finite number prints as null.
 
 Examples (the second, past the single-tile horizon, runs the step-tiled
-kernels; the third prices a 21-strike strip with implied vols, the fourth
-adds per-strike Greeks):
+kernels; the third, past their 3,620 steps, the factored-DFT kernels of the
+spectral law, up to 8,192 steps; the fourth prices a 21-strike strip with
+implied vols, the fifth adds per-strike Greeks):
   mcop-price-torch --strike 105 --put --maturity 1.448 --steps 365 \\
       --paths 1e7 --chunk-paths 131072 --pilot-paths 131072
   mcop-price-torch --strike 105 --put --maturity 7.242 --steps 1825 \\
+      --paths 1e7 --chunk-paths 131072 --pilot-paths 131072
+  mcop-price-torch --strike 105 --put --maturity 15.873 --steps 4000 \\
       --paths 1e7 --chunk-paths 131072 --pilot-paths 131072
   mcop-price-torch --strikes 75,77.5,80,...,125 --put --maturity 1.448 \\
       --steps 365 --paths 1e7

@@ -1,0 +1,507 @@
+// Factored-DFT rough-Bergomi path kernels for Hopper (sm_90a): the spectral
+// fGN law at long horizons.  Bound through a plain C interface and loaded
+// with ctypes (models/pathgen_factored_cuda.py).
+//
+// K8 mcop_factored_pathgen replaces montecarlooptionspricer_tpu/models/
+//    pathgen_pallas_factored.py:_factored_pathgen_kernel (and
+//    _factored_pathgen_kernel_noise_in), no antithetic.
+// K9 mcop_factored_priced_chunk replaces pathgen_pallas_factored.py:
+//    _factored_priced_kernel (and _factored_priced_kernel_noise_in),
+//    log-boundary policy, no control variate, no antithetic.
+//
+// Per path p, with m2 = next_pow2(n), N2 = m2 / 128 and the fGN noise
+// a = Z * phi' stored transposed (column c = 128 k2 + k1 holds frequency
+// k = N2 k1 + k2), the half-scaled fGN increment of step m = m1 + 128 j is
+//   S [k2, m1] = sum_k1 a[128 k2 + k1] F1[k1, m1]     (stage 1, complex)
+//   S'[k2, m1] = S[k2, m1] tw[k2, m1]                   (twiddle)
+//   x_m = sum_k2 Re S'[k2, m1] cos2[k2, j] + Im S'[k2, m1] sin2[k2, j]
+//                                                       (stage 2)
+// with every angle reduced exactly on the host (no sinf/cosf of a large
+// argument here).  Then, as in K6/K7, sv = exp(x_m + vd[m]),
+// inc = (r - sv^2/2) dt + sv W[p,m] sqrt(dt), logS = log s0 + running sum;
+// K8 writes out[p, 0] = s0 and out[p, m+1] = exp(logS_m); K9 stops each
+// path at its first m with llo[m] <= logS_m <= lhi[m], adds
+// disc[m] max(+-(exp(logS_m) - strike), 0) and writes one partial sum per
+// block (no atomics, so a seed gives the same sum on every run).
+//
+// Work and bound on the H100.  This four-step split with a dense 128-point
+// stage 1 and an N2-point stage 2 is the TPU's choice of algorithm (its
+// MXU wants the product), kept here: per path stage 1 is 8 N2 128^2 float32
+// operations (a complex multiply-add is four), stage 2 4 N2 s_pad and the
+// rest ~8 per step, 2.24M at 1825 steps (N2 16, s_pad 1920) and 4.75M at
+// 4000 (N2 32, s_pad 4096), i.e. 4.4 ms and 9.3 ms per 131072 rows at the
+// card's 67 TFLOP/s float32 (full float32 on CUDA cores: no TF32, no
+// wgmma).  The function itself needs far less: a length-m2 FFT is
+// 5 m2 log2 m2 operations per path, 19 times fewer, so the least time is
+// set by K8's prices (2.1 GB, 0.63 ms at 4000 steps) and, for K9, by the
+// FFT's operations (0.59 ms); chip_smoke.py's factored_bound_ms counts it.
+//
+// Design:
+// * Shared memory.  The TPU kept the whole block's twiddled stage-1 output
+//   in VMEM ([N2, block, 128] x 2, 2 MB at block 256 and m2 2048); one
+//   H100 block may use 232,448 bytes, and at m2 4096 one path's S' alone is
+//   32 KB.  So a block owns the 64 stage-1 rows (path, k2) of P = 64 / N2
+//   paths (4 at 1825 steps, 2 at 4000): S' is 64 KB at every horizon.  A
+//   second 32 KB region holds first the staged k-tiles of the noise (row
+//   stride 68, so a thread reads its four rows as one float4) and of F1
+//   (16 of its 128 rows at a time), then the P paths' Euler increments
+//   ([P, m2] = 32 KB).  The stage-2 cos/sin table (rows padded to four
+//   columns) adds 2 N2 max(N2, 4) floats.  Total 100,352 bytes at N2 16,
+//   106,496 at N2 32: two blocks per SM.  N2 may grow to 64 (m2 8192),
+//   where the table brings the block to 131,072 bytes.
+// * Registers: 128 a thread (the cap for two 256-thread blocks per SM),
+//   no spills (-Xptxas -v).  The seeded entries' 32-byte stack frame is
+//   the precise sinf/cosf large-argument reduction buffer of Box-Muller,
+//   as in every seeded kernel of the port.
+// * Stage 1: 256 threads, each a 4-row x 8-column complex micro-tile of
+//   the [64, 128] output (rows ty*4.., columns tx*4.. and 64+tx*4..), six
+//   float4 shared-memory reads per 128 multiply-adds.  The seeded entry
+//   draws the noise straight into the staged k-tile (one Philox call per
+//   two columns); the noise-in entry reads it from device memory.
+// * Stage 2 and the increments (pass A): a thread takes one path, four
+//   consecutive steps m1..m1+3 and four step tiles j0..j0+3, so each S'
+//   float4 it reads serves sixteen outputs; it adds exp, W (one Philox call
+//   per four steps when seeded) and the Euler increment, and stores the
+//   increments in shared memory.
+// * The running sum (pass B): one warp per path walks the path 128 steps
+//   at a time, four steps a lane, with a warp scan and the carry in a
+//   register.  K9 finds the first hit with a ballot and leaves the path
+//   there.  The TPU's cross-tile scratch carries are gone: a block holds
+//   its paths whole.
+// * No --use_fast_math: logf/expf/sinf/cosf stay precise so the plain
+//   PyTorch versions agree to a few ulp per cell.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "philox.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kLane = 128;      // N1: stage-1 DFT length = one step tile
+constexpr int kRows = 64;       // stage-1 rows (path, k2) per block
+constexpr int kTileK = 16;      // k1 per staged k-tile
+constexpr int kAStride = kRows + 4;
+constexpr int kColGroups = 16;  // threads across the 128 output columns
+constexpr int kSmemLimit = 232448;
+constexpr int kStagingFloats = 2 * kTileK * kAStride + 2 * kTileK * kLane;
+constexpr int kIncFloats = kRows * kLane;  // P paths x m2 steps
+constexpr int kRegion2Floats =
+    kStagingFloats > kIncFloats ? kStagingFloats : kIncFloats;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Args {
+  const float* noise;  // [3, rows, m2], or nullptr for the seeded entry
+  const float* f1r;    // [128, 128] stage-1 DFT matrix
+  const float* f1i;
+  const float* phir;   // [N2, 128] half-scaled diagonal, storage order
+  const float* phii;
+  const float* twr;    // [N2, 128] twiddle
+  const float* twi;
+  const float* c2;     // [N2, N2] stage-2 cos and sin
+  const float* s2;
+  const float* vd;     // [n] half variance drift
+  const float* llo;    // [n] log lower bounds (K9)
+  const float* lhi;    // [n] log upper bounds (K9)
+  const float* disc;   // [n] discounts (K9)
+  float* out;          // K8: [rows, n+1]; K9: [rows / P] partial sums
+  int rows, n, m2, n2, s_pad, paths;
+  uint32_t key;
+  float r, dt, sqrt_dt, log_s0, s0, strike;
+  int is_call;
+};
+
+int next_pow2(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+__host__ __device__ constexpr int table_cols(int n2) {
+  return n2 < 4 ? 4 : n2;
+}
+
+int smem_bytes(int n2) {
+  return 4 * (2 * kRows * kLane + kRegion2Floats + 2 * n2 * table_cols(n2));
+}
+
+__device__ __forceinline__ void store_a(float* asr, float* asi, int kk, int r,
+                                        float zr, float zi, float pr,
+                                        float pi) {
+  asr[kk * kAStride + r] = zr * pr - zi * pi;
+  asi[kk * kAStride + r] = zr * pi + zi * pr;
+}
+
+template <bool SEEDED>
+__device__ void stage_a(const Args& a, float* asr, float* asi, int k0,
+                        int row0) {
+  const int n2 = a.n2;
+  if (SEEDED) {
+    constexpr int kPairs = kTileK / 2;
+    for (int idx = threadIdx.x; idx < kRows * kPairs; idx += kThreads) {
+      const int r = idx / kPairs, kp = idx - r * kPairs;
+      const int pl = r / n2, k2 = r - pl * n2;
+      const int k1 = k0 + 2 * kp;
+      const int c = k2 * kLane + k1;
+      float zr0, zi0, zr1, zi1;
+      mcop::factored_z_pair(a.key, row0 + pl, c >> 1, &zr0, &zi0, &zr1,
+                            &zi1);
+      store_a(asr, asi, 2 * kp, r, zr0, zi0, __ldg(a.phir + c),
+              __ldg(a.phii + c));
+      store_a(asr, asi, 2 * kp + 1, r, zr1, zi1, __ldg(a.phir + c + 1),
+              __ldg(a.phii + c + 1));
+    }
+  } else {
+    const size_t plane = static_cast<size_t>(a.rows) * a.m2;
+    for (int idx = threadIdx.x; idx < kRows * kTileK; idx += kThreads) {
+      const int r = idx / kTileK, kk = idx - r * kTileK;
+      const int pl = r / n2, k2 = r - pl * n2;
+      const int c = k2 * kLane + k0 + kk;
+      const size_t g = static_cast<size_t>(row0 + pl) * a.m2 + c;
+      store_a(asr, asi, kk, r, __ldg(a.noise + g), __ldg(a.noise + plane + g),
+              __ldg(a.phir + c), __ldg(a.phii + c));
+    }
+  }
+}
+
+template <bool SEEDED, bool PRICED>
+__global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  float* spr = reinterpret_cast<float*>(smem4);  // [kRows][kLane]   Re S'
+  float* spi = spr + kRows * kLane;              // [kRows][kLane]   Im S'
+  float* region2 = spi + kRows * kLane;
+  float* asr = region2;                          // [kTileK][kAStride]
+  float* asi = asr + kTileK * kAStride;
+  float* fsr = asi + kTileK * kAStride;          // [kTileK][kLane]
+  float* fsi = fsr + kTileK * kLane;
+  float* inc = region2;                          // [P][s_pad], after stage 1
+  const int n2 = a.n2, nj = table_cols(n2);
+  float* cs = region2 + kRegion2Floats;          // [n2][nj]
+  float* sn = cs + n2 * nj;
+  __shared__ float red[kWarps];
+
+  const int tid = threadIdx.x;
+  const int P = a.paths;
+  const int row0 = blockIdx.x * P;
+
+  for (int idx = tid; idx < n2 * nj; idx += kThreads) {
+    const int k2 = idx / nj, j = idx - k2 * nj;
+    cs[idx] = j < n2 ? __ldg(a.c2 + k2 * n2 + j) : 0.0f;
+    sn[idx] = j < n2 ? __ldg(a.s2 + k2 * n2 + j) : 0.0f;
+  }
+
+  // Stage 1: S = (Z * phi') @ F1 over the rows r = pl * N2 + k2.
+  const int tx = tid % kColGroups;  // columns tx*4.., 64+tx*4..
+  const int ty = tid / kColGroups;  // rows ty*4..ty*4+3
+  float accr[4][8], acci[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) accr[i][j] = acci[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < kLane; k0 += kTileK) {
+    __syncthreads();  // previous readers of the staged tiles are done
+    stage_a<SEEDED>(a, asr, asi, k0, row0);
+    for (int idx = tid; idx < kTileK * kLane / 4; idx += kThreads) {
+      reinterpret_cast<float4*>(fsr)[idx] =
+          __ldg(reinterpret_cast<const float4*>(a.f1r + k0 * kLane) + idx);
+      reinterpret_cast<float4*>(fsi)[idx] =
+          __ldg(reinterpret_cast<const float4*>(a.f1i + k0 * kLane) + idx);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kTileK; ++kk) {
+      const float4 ar4 =
+          *reinterpret_cast<const float4*>(asr + kk * kAStride + ty * 4);
+      const float4 ai4 =
+          *reinterpret_cast<const float4*>(asi + kk * kAStride + ty * 4);
+      const float4 br0 =
+          *reinterpret_cast<const float4*>(fsr + kk * kLane + tx * 4);
+      const float4 br1 =
+          *reinterpret_cast<const float4*>(fsr + kk * kLane + 64 + tx * 4);
+      const float4 bi0 =
+          *reinterpret_cast<const float4*>(fsi + kk * kLane + tx * 4);
+      const float4 bi1 =
+          *reinterpret_cast<const float4*>(fsi + kk * kLane + 64 + tx * 4);
+      const float ar[4] = {ar4.x, ar4.y, ar4.z, ar4.w};
+      const float ai[4] = {ai4.x, ai4.y, ai4.z, ai4.w};
+      const float br[8] = {br0.x, br0.y, br0.z, br0.w,
+                           br1.x, br1.y, br1.z, br1.w};
+      const float bi[8] = {bi0.x, bi0.y, bi0.z, bi0.w,
+                           bi1.x, bi1.y, bi1.z, bi1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          accr[i][j] = fmaf(ar[i], br[j], accr[i][j]);
+          accr[i][j] = fmaf(-ai[i], bi[j], accr[i][j]);
+          acci[i][j] = fmaf(ar[i], bi[j], acci[i][j]);
+          acci[i][j] = fmaf(ai[i], br[j], acci[i][j]);
+        }
+    }
+  }
+
+  // Twiddle, into S'.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    const int k2 = r % n2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col0 = h * 64 + tx * 4;
+      const float4 tr =
+          __ldg(reinterpret_cast<const float4*>(a.twr + k2 * kLane + col0));
+      const float4 ti =
+          __ldg(reinterpret_cast<const float4*>(a.twi + k2 * kLane + col0));
+      const float twr[4] = {tr.x, tr.y, tr.z, tr.w};
+      const float twi[4] = {ti.x, ti.y, ti.z, ti.w};
+      float outr[4], outi[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sr = accr[i][h * 4 + e], si = acci[i][h * 4 + e];
+        outr[e] = sr * twr[e] - si * twi[e];
+        outi[e] = sr * twi[e] + si * twr[e];
+      }
+      *reinterpret_cast<float4*>(spr + r * kLane + col0) =
+          make_float4(outr[0], outr[1], outr[2], outr[3]);
+      *reinterpret_cast<float4*>(spi + r * kLane + col0) =
+          make_float4(outi[0], outi[1], outi[2], outi[3]);
+    }
+  }
+  __syncthreads();  // S' complete; the staging region is free
+
+  // Pass A: stage 2, exp and the Euler increments, into inc.
+  const int n = a.n, s_pad = a.s_pad;
+  const int n_tiles = s_pad / kLane;
+  const int groups = (n_tiles + 3) / 4;
+  const int items = P * groups * (kLane / 4);
+  const size_t plane = static_cast<size_t>(a.rows) * a.m2;
+  for (int it = tid; it < items; it += kThreads) {
+    const int q = it % (kLane / 4);
+    const int rest = it / (kLane / 4);
+    const int g = rest % groups, pl = rest / groups;
+    const int j0 = 4 * g;
+    float x[4][4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[jj][e] = 0.0f;
+    const float* sr_row = spr + pl * n2 * kLane + 4 * q;
+    const float* si_row = spi + pl * n2 * kLane + 4 * q;
+    for (int k2 = 0; k2 < n2; ++k2) {
+      const float4 sr4 = *reinterpret_cast<const float4*>(sr_row + k2 * kLane);
+      const float4 si4 = *reinterpret_cast<const float4*>(si_row + k2 * kLane);
+      const float4 c4 = *reinterpret_cast<const float4*>(cs + k2 * nj + j0);
+      const float4 s4 = *reinterpret_cast<const float4*>(sn + k2 * nj + j0);
+      const float sr[4] = {sr4.x, sr4.y, sr4.z, sr4.w};
+      const float si[4] = {si4.x, si4.y, si4.z, si4.w};
+      const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+      const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[jj][e] = fmaf(si[e], s[jj], fmaf(sr[e], c[jj], x[jj][e]));
+    }
+    const int row = row0 + pl;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = j0 + jj;
+      if (j >= n_tiles) continue;
+      const int m = j * kLane + 4 * q;
+      const float4 w4 =
+          SEEDED ? mcop::factored_w_quad(a.key, row, m >> 2)
+                 : __ldg(reinterpret_cast<const float4*>(
+                       a.noise + 2 * plane + static_cast<size_t>(row) * a.m2 +
+                       m));
+      const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+      float v_inc[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v_inc[e] = 0.0f;
+        if (m + e < n) {
+          const float sv = expf(x[jj][e] + __ldg(a.vd + m + e));
+          const float v = sv * sv;
+          v_inc[e] = (a.r - 0.5f * v) * a.dt + sv * (w[e] * a.sqrt_dt);
+        }
+      }
+      *reinterpret_cast<float4*>(inc + pl * s_pad + m) =
+          make_float4(v_inc[0], v_inc[1], v_inc[2], v_inc[3]);
+    }
+  }
+  __syncthreads();
+
+  // Pass B: one warp per path, the running sum 128 steps at a time.
+  const int warp = tid >> 5, lane = tid & 31;
+  float wsum = 0.0f;
+  for (int pl = warp; pl < P; pl += kWarps) {
+    const size_t row = static_cast<size_t>(row0 + pl);
+    float carry = a.log_s0;
+    if (!PRICED && lane == 0) a.out[row * (n + 1)] = a.s0;
+    for (int c0 = 0; c0 < s_pad; c0 += kLane) {
+      const int m = c0 + 4 * lane;
+      const float4 v = *reinterpret_cast<const float4*>(inc + pl * s_pad + m);
+      const float p1 = v.x, p2 = p1 + v.y, p3 = p2 + v.z, p4 = p3 + v.w;
+      float s = p4;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float y = __shfl_up_sync(kFull, s, off);
+        if (lane >= off) s += y;
+      }
+      float excl = __shfl_up_sync(kFull, s, 1);
+      if (lane == 0) excl = 0.0f;
+      const float base = carry + excl;
+      const float ls[4] = {base + p1, base + p2, base + p3, base + p4};
+      carry += __shfl_sync(kFull, s, 31);
+      if (!PRICED) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (m + e < n) a.out[row * (n + 1) + 1 + m + e] = expf(ls[e]);
+      } else {
+        int first = 4;
+#pragma unroll
+        for (int e = 3; e >= 0; --e)
+          if (m + e < n && ls[e] >= __ldg(a.llo + m + e) &&
+              ls[e] <= __ldg(a.lhi + m + e))
+            first = e;
+        const unsigned hits = __ballot_sync(kFull, first < 4);
+        if (hits) {
+          if (lane == __ffs(hits) - 1) {
+            const float lsf = first == 0   ? ls[0]
+                              : first == 1 ? ls[1]
+                              : first == 2 ? ls[2]
+                                           : ls[3];
+            const float st = expf(lsf);
+            const float pay = a.is_call ? st - a.strike : a.strike - st;
+            wsum += __ldg(a.disc + m + first) * fmaxf(pay, 0.0f);
+          }
+          break;  // warp-uniform: the path stopped at its first hit
+        }
+      }
+    }
+  }
+
+  if (PRICED) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      wsum += __shfl_down_sync(kFull, wsum, off);
+    if (lane == 0) red[warp] = wsum;
+    __syncthreads();
+    if (tid == 0) {
+      float sum = 0.0f;
+      for (int w = 0; w < kWarps; ++w) sum += red[w];
+      a.out[blockIdx.x] = sum;
+    }
+  }
+}
+
+template <bool SEEDED, bool PRICED>
+cudaError_t launch_one(const Args& a, cudaStream_t stream) {
+  const int smem = smem_bytes(a.n2);
+  auto kernel = factored_kernel<SEEDED, PRICED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.rows / a.paths, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool PRICED>
+cudaError_t launch(Args a, cudaStream_t stream) {
+  a.m2 = next_pow2(a.n);
+  a.n2 = a.m2 / kLane;
+  a.s_pad = (a.n + kLane - 1) / kLane * kLane;
+  if (a.n <= kLane || a.n2 > kRows || smem_bytes(a.n2) > kSmemLimit)
+    return cudaErrorInvalidValue;
+  a.paths = kRows / a.n2;
+  if (a.rows < 1 || a.rows % a.paths) return cudaErrorInvalidValue;
+  return a.noise == nullptr ? launch_one<true, PRICED>(a, stream)
+                            : launch_one<false, PRICED>(a, stream);
+}
+
+Args make_args(const float* noise, const float* f1r, const float* f1i,
+               const float* phir, const float* phii, const float* twr,
+               const float* twi, const float* c2, const float* s2,
+               const float* vd, int rows, int n_steps, unsigned int key,
+               float r, float dt, float sqrt_dt, float log_s0) {
+  Args a{};
+  a.noise = noise;
+  a.f1r = f1r;
+  a.f1i = f1i;
+  a.phir = phir;
+  a.phii = phii;
+  a.twr = twr;
+  a.twi = twi;
+  a.c2 = c2;
+  a.s2 = s2;
+  a.vd = vd;
+  a.rows = rows;
+  a.n = n_steps;
+  a.key = key;
+  a.r = r;
+  a.dt = dt;
+  a.sqrt_dt = sqrt_dt;
+  a.log_s0 = log_s0;
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The per-block dynamic shared memory of K8/K9 at this horizon, or -1 for
+// a horizon they do not take.
+int mcop_factored_smem_bytes(int n_steps) {
+  if (n_steps <= kLane) return -1;
+  const int n2 = next_pow2(n_steps) / kLane;
+  if (n2 > kRows || smem_bytes(n2) > kSmemLimit) return -1;
+  return smem_bytes(n2);
+}
+
+// K8.  noise: [3, rows, m2] float32 (the noise-in entry), or null for the
+// seeded entry, which draws the stream of `key`.
+int mcop_factored_pathgen(const float* noise, const float* f1r,
+                          const float* f1i, const float* phir,
+                          const float* phii, const float* twr,
+                          const float* twi, const float* c2, const float* s2,
+                          const float* vd, int rows, int n_steps,
+                          unsigned int key, float r, float dt, float sqrt_dt,
+                          float log_s0, float s0, float* out, void* stream) {
+  Args a = make_args(noise, f1r, f1i, phir, phii, twr, twi, c2, s2, vd, rows,
+                     n_steps, key, r, dt, sqrt_dt, log_s0);
+  a.s0 = s0;
+  a.out = out;
+  return static_cast<int>(
+      launch<false>(a, static_cast<cudaStream_t>(stream)));
+}
+
+// K9.  table: rows 0-2 of the log_boundary_rows table, row stride
+// table_stride floats.  out: [rows / paths per block] partial sums.
+int mcop_factored_priced_chunk(const float* noise, const float* f1r,
+                               const float* f1i, const float* phir,
+                               const float* phii, const float* twr,
+                               const float* twi, const float* c2,
+                               const float* s2, const float* vd, int rows,
+                               int n_steps, unsigned int key, float r,
+                               float dt, float sqrt_dt, float log_s0,
+                               const float* table, long long table_stride,
+                               float strike, int is_call, float* out,
+                               void* stream) {
+  Args a = make_args(noise, f1r, f1i, phir, phii, twr, twi, c2, s2, vd, rows,
+                     n_steps, key, r, dt, sqrt_dt, log_s0);
+  a.llo = table;
+  a.lhi = table + table_stride;
+  a.disc = table + 2 * table_stride;
+  a.strike = strike;
+  a.is_call = is_call;
+  a.out = out;
+  return static_cast<int>(launch<true>(a, static_cast<cudaStream_t>(stream)));
+}
+
+}  // extern "C"

@@ -1,4 +1,4 @@
-// The seeded stream shared by every path kernel of the port: Philox4x32-10
+// The seeded streams shared by every path kernel of the port: Philox4x32-10
 // (Random123) and the Box-Muller pair it feeds.  Layout (models/
 // pathgen_cuda.py docstring; philox_normals_ref is its PyTorch version):
 // counter (global row, step pair, 0, 0), key (folded seed word, 0); step 2j
@@ -49,6 +49,37 @@ __device__ __forceinline__ void step_pair_normals(uint32_t key, int row,
       key, 0u);
   box_muller(b.x, b.y, n0, w0);
   box_muller(b.z, b.w, n1, w1);
+}
+
+// The factored-DFT kernels' stream (models/pathgen_factored_cuda.py
+// docstring; philox_factored_normals_ref is its PyTorch version).  The third
+// counter word (1, 2) keeps it apart from the stream above (0).
+//
+// fGN noise of storage columns 2*pair and 2*pair+1: counter
+// (row, pair, 1, 0), each column's (Zr, Zi) one Box-Muller pair.
+__device__ __forceinline__ void factored_z_pair(uint32_t key, int row,
+                                                int pair, float* zr0,
+                                                float* zi0, float* zr1,
+                                                float* zi1) {
+  const uint4 b = philox4x32_10(
+      make_uint4(static_cast<uint32_t>(row), static_cast<uint32_t>(pair), 1u,
+                 0u),
+      key, 0u);
+  box_muller(b.x, b.y, zr0, zi0);
+  box_muller(b.z, b.w, zr1, zi1);
+}
+
+// Price Brownian of steps 4*quad .. 4*quad+3: counter (row, quad, 2, 0).
+__device__ __forceinline__ float4 factored_w_quad(uint32_t key, int row,
+                                                  int quad) {
+  const uint4 b = philox4x32_10(
+      make_uint4(static_cast<uint32_t>(row), static_cast<uint32_t>(quad), 2u,
+                 0u),
+      key, 0u);
+  float4 w;
+  box_muller(b.x, b.y, &w.x, &w.y);
+  box_muller(b.z, b.w, &w.z, &w.w);
+  return w;
 }
 
 }  // namespace mcop

@@ -25,7 +25,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 SOURCES = (CSRC / "pathgen.cu", CSRC / "pathgen_tiled.cu", CSRC / "chain.cu",
-           CSRC / "greeks.cu")
+           CSRC / "greeks.cu", CSRC / "pathgen_factored.cu")
 HEADERS = (CSRC / "philox.cuh", CSRC / "fgn_tile.cuh")
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -95,7 +95,8 @@ def load() -> types.SimpleNamespace:
     if needed), as attributes of one namespace.  Every launching entry
     returns a cudaError_t as int."""
     paths, _ = build()
-    single, tiled, chain, greeks = (ctypes.CDLL(str(p)) for p in paths)
+    single, tiled, chain, greeks, factored = (ctypes.CDLL(str(p))
+                                              for p in paths)
     p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                   ctypes.c_float)
     ll = ctypes.c_longlong
@@ -119,6 +120,11 @@ def load() -> types.SimpleNamespace:
         (greeks, "mcop_chain_greeks_chunk"): [p, p, p, p, p, p, i, i, i, u,
                                               f, f, f, f, f, p, ll, ll, i,
                                               i, p, p],
+        (factored, "mcop_factored_smem_bytes"): [i],
+        (factored, "mcop_factored_pathgen"): [p] * 10 + [i, i, u, f, f, f, f,
+                                                         f, p, p],
+        (factored, "mcop_factored_priced_chunk"): [p] * 10 + [
+            i, i, u, f, f, f, f, p, ll, f, i, p, p],
     }
     entries = {}
     for (lib, name), argtypes in signatures.items():

@@ -3,22 +3,28 @@
 ``StreamingPricer`` and the non-bucketed ``StreamingChainPricer`` with the
 fused kernels).
 
-  pilot:  the family's path kernel (K1 ``pathgen_cuda.pathgen``, or K6
-          ``pathgen_tiled_cuda.tiled_pathgen`` at long horizons)
+  pilot:  the family's path kernel (K1 ``pathgen_cuda.pathgen``, K6
+          ``pathgen_tiled_cuda.tiled_pathgen`` or K8
+          ``pathgen_factored_cuda.factored_pathgen`` at long horizons)
           generates a pilot block, and the LSM backward induction
           (``lsm.lsm_fit``) fits one exercise policy per step;
   tables: each step's quadratic decision becomes a log-space exercise
           interval (``boundary_rows`` -> ``log_boundary_rows``); time-0
           exercise is decided on the host side;
   stream: the family's priced kernel (K2 ``pathgen_cuda.priced_chunk``,
-          or K7 ``pathgen_tiled_cuda.tiled_priced_chunk``) regenerates
+          K7 ``pathgen_tiled_cuda.tiled_priced_chunk`` or K9
+          ``pathgen_factored_cuda.factored_priced_chunk``) regenerates
           each chunk's paths on chip from its own random stream and
           returns the chunk's payoff sum; chunk totals and their squares
           give the price and its stderr.
 
-``resolve_kernel_family`` picks the family from the horizon: the
-single-tile kernels up to ``SINGLE_TILE_MAX_STEPS``, the step-tiled ones
-past it up to ``pathgen_tiled_cuda.max_tiled_steps()``.
+``resolve_kernel_family`` picks the family from the horizon, the fGN form
+and ``tiled_impl`` (counterpart: ``_resolve_tiled_module``): the
+single-tile chol kernels up to ``SINGLE_TILE_MAX_STEPS``, the chol slab
+K6/K7 past it up to ``pathgen_tiled_cuda.max_tiled_steps()``, and the
+factored-DFT kernels K8/K9 (the spectral law) past that up to
+``pathgen_factored_cuda.max_factored_steps()``, or wherever the spectral
+form or ``tiled_impl="factored"`` asks for them.
 
 A strike strip (``StreamingChainPricer``) fits every strike in one LSM
 backward pass on the K1 pilot and streams the strip through K5
@@ -44,7 +50,8 @@ import torch
 from ..ops.payoff import payoff
 from ..ops.regression import PolyFit, eval_poly, polyfit_from_numpy  # noqa: F401
 from ..ops.timegrid import step_mask
-from . import chain_cuda, greeks_cuda, pathgen_cuda, pathgen_tiled_cuda
+from . import (chain_cuda, greeks_cuda, pathgen_cuda, pathgen_factored_cuda,
+               pathgen_tiled_cuda)
 from .greeks_cuda import GREEK_ORDER  # noqa: F401
 from .lsm import ITM_EPS, lsm_fit
 
@@ -62,13 +69,14 @@ SINGLE_TILE_MAX_STEPS = 365
 class StreamConfig:
     """The fields the ported path reads.  ``block_paths`` is the
     single-tile kernels' CUDA path block (0 = the largest the card admits
-    at this horizon, see ``pathgen_cuda.max_block_paths``); the tiled
-    kernels choose theirs from the row count.  ``tiled_impl`` names the
-    long-horizon kernels as the JAX field does: "auto" and "slab" are the
-    step-tiled chol slab K6/K7; the factored DFT is not ported.
-    ``antithetic``, ``qmc`` and ``control_variate`` name the JAX
-    package's estimators; the pricers reject each of them until it is
-    ported (``_reject_unported_estimators``)."""
+    at this horizon, see ``pathgen_cuda.max_block_paths``); the long-horizon
+    kernels choose theirs.  ``fgn_form`` ("auto", "chol" or "spectral")
+    and ``tiled_impl`` ("auto", "slab" or "factored") name the fGN law and
+    the long-horizon kernels as the JAX fields do; ``resolve_kernel_family``
+    says what each combination runs.  ``antithetic``, ``qmc`` and
+    ``control_variate`` name the JAX package's estimators; the pricers
+    reject each of them until it is ported
+    (``_reject_unported_estimators``)."""
 
     n_paths: int
     n_steps: int
@@ -86,10 +94,6 @@ class StreamConfig:
     control_variate: bool = False
 
     def __post_init__(self):
-        if self.fgn_form not in ("auto", "chol"):
-            raise NotImplementedError(
-                f"fgn_form={self.fgn_form!r}: only the Cholesky form is "
-                "ported (spectral: ROADMAP B1/B2 remaining forms)")
         if self.policy_form != "boundary":
             raise NotImplementedError(
                 f"policy_form={self.policy_form!r}: only the log-boundary "
@@ -98,32 +102,75 @@ class StreamConfig:
             raise NotImplementedError(
                 "the fused kernels read quadratic fits; other poly_order "
                 "values need the generic path stream (ROADMAP A3)")
-        if self.tiled_impl not in ("auto", "slab", "factored"):
-            raise ValueError(f"unknown tiled_impl: {self.tiled_impl!r}")
-        if self.tiled_impl == "factored":
-            raise NotImplementedError(
-                "tiled_impl='factored': the factored-DFT kernels are not "
-                "ported (ROADMAP B8/B9, with the spectral form)")
-        resolve_kernel_family(self.n_steps)
+        resolve_kernel_family(self.n_steps, self.fgn_form, self.tiled_impl)
         if self.chunks_per_call < 1:
             raise ValueError("chunks_per_call must be >= 1")
 
 
-def resolve_kernel_family(n_steps: int) -> str:
-    """The kernel family of a horizon: "single" (K1/K2) up to
-    SINGLE_TILE_MAX_STEPS, "tiled" (K6/K7) past it up to
-    ``pathgen_tiled_cuda.max_tiled_steps()`` (counterpart:
-    ``_resolve_tiled_module``); NotImplementedError past that."""
+def resolve_kernel_family(n_steps: int, fgn_form: str = "auto",
+                          tiled_impl: str = "auto") -> str:
+    """The kernel family of a configuration (counterpart:
+    ``_resolve_tiled_module``): "single" (K1/K2), "tiled" (the chol slab
+    K6/K7) or "factored" (the factored-DFT K8/K9, spectral law).
+
+    * "auto"/"chol": single up to SINGLE_TILE_MAX_STEPS, then the slab up
+      to ``pathgen_tiled_cuda.max_tiled_steps()``, then factored; an
+      explicit "chol" that would need the factored kernels raises
+      ValueError (they have no Cholesky form).
+    * ``tiled_impl="factored"`` past the single-tile horizon: factored,
+      or ValueError past K8's range; ``tiled_impl="slab"`` past the slab's
+      range: ValueError.
+    * "spectral" past the single-tile horizon: factored.
+
+    Still NotImplementedError, naming the ROADMAP item: "spectral" at or
+    below SINGLE_TILE_MAX_STEPS (B1/B2), "spectral" with the slab (B7),
+    and horizons past K8's range (A3)."""
     if n_steps < 1:
         raise ValueError(f"n_steps={n_steps} must be >= 1")
-    if n_steps <= SINGLE_TILE_MAX_STEPS and pathgen_cuda.supports(n_steps):
+    if fgn_form not in ("auto", "chol", "spectral"):
+        raise ValueError(f"unknown fgn_form: {fgn_form!r}")
+    if tiled_impl not in ("auto", "slab", "factored"):
+        raise ValueError(f"unknown tiled_impl: {tiled_impl!r}")
+    single = (n_steps <= SINGLE_TILE_MAX_STEPS
+              and pathgen_cuda.supports(n_steps))
+    if fgn_form == "spectral":
+        if single:
+            raise NotImplementedError(
+                f"fgn_form='spectral' at n_steps={n_steps}: the spectral "
+                "form of the single-tile kernels K1/K2 is not ported "
+                "(ROADMAP B1/B2)")
+        if tiled_impl == "slab":
+            raise NotImplementedError(
+                "fgn_form='spectral' with tiled_impl='slab': the slab's "
+                "spectral form is not ported (ROADMAP B7)")
+    elif single:
         return "single"
-    if pathgen_tiled_cuda.supports(n_steps):
+    if (fgn_form != "spectral" and tiled_impl != "factored"
+            and pathgen_tiled_cuda.supports(n_steps)):
         return "tiled"
+    cap = pathgen_factored_cuda.max_factored_steps()
+    if tiled_impl != "slab" and pathgen_factored_cuda.supports(n_steps):
+        if fgn_form == "chol":
+            raise ValueError(
+                "fgn_form='chol' cannot run on the factored-DFT kernels "
+                "(spectral only); use fgn_form='auto', or tiled_impl='slab' "
+                "within the slab's range "
+                f"({pathgen_tiled_cuda.max_tiled_steps()} steps)")
+        return "factored"
+    if tiled_impl == "factored":
+        raise ValueError(
+            f"tiled_impl='factored' cannot cover n_steps={n_steps} (K8/K9 "
+            f"take {pathgen_factored_cuda.LANE} < n <= {cap}); longer "
+            "horizons need the generic path stream (ROADMAP A3)")
+    if tiled_impl == "slab":
+        raise ValueError(
+            f"tiled_impl='slab' cannot cover n_steps={n_steps} (K6/K7 take "
+            f"n <= {pathgen_tiled_cuda.max_tiled_steps()}); use "
+            "tiled_impl='auto'")
     raise NotImplementedError(
-        f"n_steps={n_steps} exceeds the step-tiled kernels (max "
-        f"{pathgen_tiled_cuda.max_tiled_steps()}); longer horizons need "
-        "the factored-DFT kernels (ROADMAP B8/B9)")
+        f"n_steps={n_steps} exceeds the factored-DFT kernels K8/K9 (max "
+        f"{cap}); longer horizons need the generic path stream "
+        "(ROADMAP A3)")
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +353,14 @@ class _FusedStream:
         self.maturity = float(maturity)
         self.is_call = bool(is_call)
         self._xi, self._h, self._eta = float(xi), float(h), float(eta)
-        self.kernel_family = resolve_kernel_family(config.n_steps)
+        self.kernel_family = resolve_kernel_family(
+            config.n_steps, config.fgn_form, config.tiled_impl)
+        if self.kernel_family == "factored":
+            # The family builds only its own constants: no Cholesky.
+            self._pathgen = pathgen_factored_cuda.factored_pathgen
+            self.consts = pathgen_factored_cuda.make_factored_consts(
+                s0, xi, h, eta, r, config.n_steps, config.dt, device)
+            return
         if self.kernel_family == "single":
             block = config.block_paths or pathgen_cuda.max_block_paths(
                 config.n_steps)
@@ -413,10 +467,11 @@ class StreamingPricer(_FusedStream):
         super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
                          device)
         self.strike = float(strike)
-        if self.kernel_family == "single":
-            self._priced_chunk = pathgen_cuda.priced_chunk
-        else:
-            self._priced_chunk = pathgen_tiled_cuda.tiled_priced_chunk
+        self._priced_chunk = {
+            "single": pathgen_cuda.priced_chunk,
+            "tiled": pathgen_tiled_cuda.tiled_priced_chunk,
+            "factored": pathgen_factored_cuda.factored_priced_chunk,
+        }[self.kernel_family]
         self._make_rows = _fused_rows_builder(
             self.r, self.strike, self.maturity, config.dt, config.n_steps,
             self.is_call)
@@ -445,9 +500,12 @@ class StreamingPricer(_FusedStream):
                        with_stderr: bool = False,
                        noise: Optional[torch.Tensor] = None):
         """Stream against a given policy ``fits`` (e.g. one made elsewhere
-        and converted with ``polyfit_from_numpy``).  With ``noise``
-        [n_chunks, 2, chunk_paths, n_steps] the chunks read that noise
-        instead of the seeded stream."""
+        and converted with ``polyfit_from_numpy``).  With ``noise`` the
+        chunks read that noise instead of the seeded stream: [n_chunks, 2,
+        chunk_paths, n_steps] (N, W) on the single and tiled families,
+        [n_chunks, 3, chunk_paths, m2] (Zr, Zi in the transposed storage
+        order, W; m2 = next_pow2(n_steps)) on the factored family (see
+        ``pathgen_factored_cuda``)."""
         table = self._make_rows(fits)
         ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, self.strike,
                                            self.is_call)
@@ -528,6 +586,10 @@ class StreamingChainPricer(_FusedStream):
                 f"n_steps={config.n_steps} is past the chain kernel K5 "
                 f"(max {chain_cuda.MAX_CHAIN_STEPS}); longer chains need the "
                 "generic path stream (ROADMAP A3)")
+        if resolve_kernel_family(config.n_steps, config.fgn_form,
+                                 config.tiled_impl) == "factored":
+            raise NotImplementedError(
+                "the chain kernel K5 has no spectral form yet (ROADMAP B5)")
         super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
                          device)
         self.strikes = self._strip(strikes)

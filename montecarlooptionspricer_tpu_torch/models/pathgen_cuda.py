@@ -411,25 +411,39 @@ def _matmul_f32(a, b):
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def _log_paths_ref(consts: PathConsts, noise: torch.Tensor) -> torch.Tensor:
-    """[rows, n_steps] log prices, column c = step c + 1."""
-    x = _matmul_f32(noise[0], consts.lt_half)
+def log_paths_from_x(consts, x: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+    """[rows, n_steps] log prices, column c = step c + 1, from the
+    half-scaled fGN plane ``x`` and the price Brownian ``w`` (both
+    [rows, n_steps]): sv = exp(x + vd), the Euler log increments and their
+    running sum.  ``consts`` carries vd, s0, r and dt (a PathConsts, or
+    the factored kernels' FactoredConsts)."""
     sv = torch.exp(x + consts.vd)
     v = sv * sv
-    inc = (consts.r - 0.5 * v) * consts.dt \
-        + sv * (noise[1] * math.sqrt(consts.dt))
+    inc = (consts.r - 0.5 * v) * consts.dt + sv * (w * math.sqrt(consts.dt))
     return math.log(consts.s0) + torch.cumsum(inc, dim=1)
+
+
+def _log_paths_ref(consts: PathConsts, noise: torch.Tensor) -> torch.Tensor:
+    """[rows, n_steps] log prices, column c = step c + 1."""
+    return log_paths_from_x(consts, _matmul_f32(noise[0], consts.lt_half),
+                            noise[1])
+
+
+def prices_from_log(ls: torch.Tensor, s0: float) -> torch.Tensor:
+    """[rows, n_steps] log prices -> [rows, n_steps + 1] prices with s0 in
+    column 0."""
+    out = torch.empty((ls.shape[0], ls.shape[1] + 1), dtype=torch.float32,
+                      device=ls.device)
+    out[:, 0] = s0
+    out[:, 1:] = torch.exp(ls)
+    return out
 
 
 def pathgen_from_noise_ref(consts: PathConsts,
                            noise: torch.Tensor) -> torch.Tensor:
     """Plain K1: [2, rows, n_steps] (N, W) -> [rows, n_steps + 1] prices."""
-    ls = _log_paths_ref(consts, noise)
-    out = torch.empty((ls.shape[0], consts.n_steps + 1), dtype=torch.float32,
-                      device=ls.device)
-    out[:, 0] = consts.s0
-    out[:, 1:] = torch.exp(ls)
-    return out
+    return prices_from_log(_log_paths_ref(consts, noise), consts.s0)
 
 
 def priced_chunk_from_noise_ref(consts: PathConsts, table: torch.Tensor,
@@ -437,8 +451,16 @@ def priced_chunk_from_noise_ref(consts: PathConsts, table: torch.Tensor,
                                 is_call: bool) -> torch.Tensor:
     """Plain K2: the chunk's payoff sum (0-d float32) under the log
     exercise-interval table (log_boundary_rows layout)."""
-    n = consts.n_steps
-    ls = _log_paths_ref(consts, noise)
+    return first_hit_sum(_log_paths_ref(consts, noise), table, strike,
+                         is_call)
+
+
+def first_hit_sum(ls: torch.Tensor, table: torch.Tensor, strike: float,
+                  is_call: bool) -> torch.Tensor:
+    """Payoff sum (0-d float32) of [rows, n] log paths, each stopped at its
+    first step inside the log exercise interval of ``table``
+    (log_boundary_rows layout); a path that never enters it adds 0."""
+    n = ls.shape[1]
     exf = (ls >= table[0, :n]) & (ls <= table[1, :n])
     hit = exf.any(dim=1)
     idx = exf.to(torch.int8).argmax(dim=1)      # first hit

@@ -1,0 +1,379 @@
+"""Factored-DFT rough-Bergomi path kernels for Hopper: the spectral fGN law
+at long horizons.
+
+Counterpart: ``montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py``.
+Two kernels live in ``csrc/pathgen_factored.cu``:
+
+* K8 ``factored_pathgen`` (replaces ``_factored_pathgen_kernel`` /
+  ``_factored_pathgen_kernel_noise_in``): ``[rows, n_steps + 1]`` prices
+  with S0 in column 0.
+* K9 ``factored_priced_chunk`` (replaces ``_factored_priced_kernel`` /
+  ``_factored_priced_kernel_noise_in`` with ``policy_form="boundary"``):
+  the chunk's payoff sum under a log exercise-interval table, one partial
+  sum per CUDA block.
+
+The fGN increments are the reference's spectral synthesis, half-scaled
+(``FactoredConsts``): X = Re DFT_m2(Z * phi'), a length-m2 DFT
+(m2 = next_pow2(n_steps)) of the complex fGN noise Z with the diagonal
+phi' = 0.5 sqrt(2H) eta phi / m2 in front (zero at k >= n_steps).  The
+kernels split it four-step, k = N2 k1 + k2 and m = m1 + 128 j
+(N2 = m2 / 128): stage 1 is a complex [rows N2, 128] x [128, 128] product
+against F1 over k1, then the twiddle W_m2^{k2 m1}; stage 2 sums the N2
+rows with W_N2^{k2 j} for each output step tile j.  The noise is stored
+transposed, so stage 1 reads it in place: storage column c = 128 k2 + k1
+holds logical frequency k = N2 k1 + k2 (``transposed_to_logical``).  The
+Euler recursion and the first-hit test are those of the other kernels, and
+the plain versions share their code (``pathgen_cuda.log_paths_from_x``,
+``first_hit_sum``).
+
+Noise layout (the JAX noise-in entry's): [3, rows, m2] float32, planes 0
+and 1 the real and imaginary fGN normals in storage order, plane 2 the
+price Brownian in step order (its first s_pad columns read).
+
+Random stream of the seeded entries (fixed, written in
+``csrc/philox.cuh``; ``philox_factored_normals_ref`` reproduces it), with
+key = (fold(run_word, stream_index), 0) as for the other kernels and p the
+path's global row: counter (p, i, 1, 0) gives the fGN noise of storage
+columns 2i and 2i+1, (Zr, Zi) = (radius cos, radius sin) of the
+Box-Muller pair of (x0, x1) and of (x2, x3) in turn; counter (p, q, 2, 0)
+gives the price Brownian of steps 4q .. 4q+3, the cos and sin of the pair
+of (x0, x1), then of (x2, x3).  The third counter word keeps it apart
+from the stream of K1-K7 (third word 0).
+
+The wrappers run the plain versions for tensors on the CPU and launch the
+kernel for tensors on a CUDA device; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..ops import fgn
+from . import pathgen_cuda as pc
+
+LANE = pc.LANE
+
+# ---------------------------------------------------------------------------
+# The card's memory model (mirrors csrc/pathgen_factored.cu).
+
+STAGE1_ROWS = 64        # (path, k2) rows of the stage-1 product per block
+TILE_K = 16             # k1 per staged k-tile of the noise and of F1
+
+
+def _n2(n_steps: int) -> int:
+    return fgn.next_pow2(n_steps) // LANE
+
+
+def paths_per_block(n_steps: int) -> int:
+    """Paths of one CUDA block: STAGE1_ROWS / N2."""
+    return STAGE1_ROWS // _n2(n_steps)
+
+
+def smem_bytes(n_steps: int) -> int:
+    """Shared memory of one CUDA block: the twiddled stage-1 output S'
+    (real and imaginary [STAGE1_ROWS, 128]), one region that holds first
+    the staged k-tiles (noise (row stride STAGE1_ROWS + 4) and F1) and
+    then the paths' Euler increments ([paths, m2] = STAGE1_ROWS * 128
+    floats), and the stage-2 cos and sin tables [N2, max(N2, 4)]."""
+    n2 = _n2(n_steps)
+    staging = 2 * TILE_K * (STAGE1_ROWS + 4) + 2 * TILE_K * LANE
+    floats = (2 * STAGE1_ROWS * LANE + max(staging, STAGE1_ROWS * LANE)
+              + 2 * n2 * max(n2, 4))
+    return 4 * floats
+
+
+def max_factored_steps() -> int:
+    """Largest horizon K8/K9 take: the longest m2 whose block holds at
+    least one path (N2 <= STAGE1_ROWS) inside the card's shared memory."""
+    best, m2 = 0, 2 * LANE
+    while m2 // LANE <= STAGE1_ROWS and smem_bytes(m2) <= pc.SMEM_LIMIT:
+        best, m2 = m2, 2 * m2
+    return best
+
+
+def supports(n_steps: int) -> bool:
+    """Steps must span two step tiles (a shorter horizon is the single-tile
+    kernels' work) and fit ``max_factored_steps``."""
+    return LANE < n_steps <= max_factored_steps()
+
+
+# ---------------------------------------------------------------------------
+# Host constants.
+
+@dataclasses.dataclass(frozen=True)
+class FactoredConsts:
+    """What K8 and K9 read besides noise and policy (counterpart:
+    ``pathgen_pallas_factored._consts``): the stage-1 DFT matrix ``f1r``,
+    ``f1i`` [128, 128], the half-scaled spectral diagonal in storage order
+    ``phi_r``, ``phi_i`` [N2, 128], the twiddle ``tw_r``, ``tw_i``
+    [N2, 128], the stage-2 table ``c2``, ``s2`` [N2, N2] (cos and sin of
+    2 pi ((k2 j) mod N2) / N2), the half variance drift ``vd`` [n] and
+    the market scalars.  Its tensors' device decides where the wrappers
+    run."""
+
+    n_steps: int
+    f1r: torch.Tensor
+    f1i: torch.Tensor
+    phi_r: torch.Tensor
+    phi_i: torch.Tensor
+    tw_r: torch.Tensor
+    tw_i: torch.Tensor
+    c2: torch.Tensor
+    s2: torch.Tensor
+    vd: torch.Tensor
+    s0: float
+    r: float
+    dt: float
+
+    @property
+    def device(self) -> torch.device:
+        return self.vd.device
+
+    @property
+    def m2(self) -> int:
+        return fgn.next_pow2(self.n_steps)
+
+    @property
+    def s_pad(self) -> int:
+        return pc._round_up(self.n_steps, LANE)
+
+
+def _unit_root(num: np.ndarray, den: int) -> np.ndarray:
+    """exp(-2 pi i num / den) in float64, num reduced mod den exactly."""
+    return np.exp((-2j * np.pi / den) * (num % den))
+
+
+def make_factored_consts(s0, xi, h, eta, r, n_steps: int, dt: float,
+                         device) -> FactoredConsts:
+    """FactoredConsts built in float64 on the host and cast once to
+    float32.  The diagonal carries the half-scaling of the other kernels'
+    ``lt_half``: with the extra 0.5, exp(x + vd) is sqrt(v).  No
+    Cholesky factor is built."""
+    if not supports(n_steps):
+        raise ValueError(f"n_steps={n_steps} outside the factored kernels' "
+                         f"range ({LANE} < n <= {max_factored_steps()})")
+    m2 = fgn.next_pow2(n_steps)
+    n2 = m2 // LANE
+    t = torch.arange(n_steps + 1, dtype=torch.float64) * dt
+    phi = fgn.rbergomi_phi(fgn.rbergomi_lambda(t, h)).numpy()
+    a_diag = np.zeros(m2, np.complex128)
+    a_diag[:n_steps] = phi[:n_steps] * (0.5 * math.sqrt(2.0 * h) * eta / m2)
+    k1 = np.arange(LANE, dtype=np.int64)
+    k2 = np.arange(n2, dtype=np.int64)
+    phi_t = a_diag[n2 * k1[None, :] + k2[:, None]]             # [n2, 128]
+    f1 = _unit_root(np.outer(k1, k1), LANE)                     # [k1, m1]
+    tw = _unit_root(np.outer(k2, k1), m2)                       # [k2, m1]
+    st2 = _unit_root(np.outer(k2, k2), n2)                      # [k2, j]
+
+    def dev(v):
+        return torch.tensor(v, dtype=torch.float32).to(device).contiguous()
+
+    vd = pc._half_var_drift(n_steps, n_steps, xi, h, eta, dt)[0]
+    # W_N2^{k2 j} = cos - i sin: stage 2 adds Re S' cos + Im S' sin.
+    return FactoredConsts(
+        n_steps=n_steps, f1r=dev(f1.real), f1i=dev(f1.imag),
+        phi_r=dev(phi_t.real), phi_i=dev(phi_t.imag), tw_r=dev(tw.real),
+        tw_i=dev(tw.imag), c2=dev(st2.real), s2=dev(-st2.imag),
+        vd=vd.to(device).contiguous(), s0=float(s0), r=float(r),
+        dt=float(dt))
+
+
+def transposed_to_logical(cols: int) -> torch.Tensor:
+    """Column permutation from the kernels' transposed fGN-noise storage
+    (flat c = 128 k2 + k1) to logical frequency order (k = N2 k1 + k2):
+    given a stored plane ZT, the logical plane is Z[:, perm] = ZT."""
+    n2 = cols // LANE
+    k1 = torch.arange(LANE)
+    k2 = torch.arange(n2)
+    return (n2 * k1[None, :] + k2[:, None]).reshape(-1)
+
+
+def _to_logical(plane: torch.Tensor) -> torch.Tensor:
+    """[..., m2] stored in (k2, k1) order -> logical frequency order."""
+    m2 = plane.shape[-1]
+    lead = plane.shape[:-1]
+    return plane.reshape(*lead, m2 // LANE, LANE).transpose(-1, -2) \
+        .reshape(*lead, m2)
+
+
+# ---------------------------------------------------------------------------
+# The seeded stream, reproduced.
+
+def philox_factored_normals_ref(key: int, rows: int, n_steps: int,
+                                device="cpu", row0: int = 0,
+                                block_rows: int = 1 << 14) -> torch.Tensor:
+    """[3, rows, m2] float32 noise of the seeded kernels' stream (module
+    docstring) for chunk rows row0 .. row0 + rows - 1, computed in blocks
+    of ``block_rows`` rows to bound the int64 temporaries."""
+    m2 = fgn.next_pow2(n_steps)
+    out = torch.empty((3, rows, m2), dtype=torch.float32, device=device)
+    k = key & pc._U32
+    for b0 in range(0, rows, block_rows):
+        nb = min(block_rows, rows - b0)
+        p = torch.arange(row0 + b0, row0 + b0 + nb, dtype=torch.int64,
+                         device=device)[:, None]
+        for tag, width in ((1, m2 // 2), (2, m2 // 4)):
+            j = torch.arange(width, dtype=torch.int64, device=device)[None, :]
+            pp, jj = p.expand(nb, width), j.expand(nb, width)
+            x0, x1, x2, x3 = pc.philox4x32_10(pp, jj, torch.full_like(pp, tag),
+                                              torch.zeros_like(pp), k, 0)
+            c_a, s_a = pc._box_muller(x0, x1)
+            c_b, s_b = pc._box_muller(x2, x3)
+            if tag == 1:
+                out[0, b0:b0 + nb] = torch.stack([c_a, c_b], -1).reshape(nb,
+                                                                         m2)
+                out[1, b0:b0 + nb] = torch.stack([s_a, s_b], -1).reshape(nb,
+                                                                         m2)
+            else:
+                out[2, b0:b0 + nb] = torch.stack([c_a, s_a, c_b, s_b],
+                                                 -1).reshape(nb, m2)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU path, and the card's reference).
+
+def fgn_from_noise_ref(consts: FactoredConsts,
+                       noise: torch.Tensor) -> torch.Tensor:
+    """[rows, n_steps] half-scaled fGN increments from [3, rows, m2] noise:
+    planes 0 and 1 permuted to logical order, then the reference's
+    spectral synthesis with the half-scaled diagonal."""
+    n, m2 = consts.n_steps, consts.m2
+    diag = torch.complex(_to_logical(consts.phi_r.reshape(m2)),
+                         _to_logical(consts.phi_i.reshape(m2)))
+    z = torch.complex(_to_logical(noise[0])[:, :n],
+                      _to_logical(noise[1])[:, :n])
+    return fgn.spectral_synthesis(diag, z)
+
+
+def _log_paths_ref(consts: FactoredConsts,
+                   noise: torch.Tensor) -> torch.Tensor:
+    return pc.log_paths_from_x(consts, fgn_from_noise_ref(consts, noise),
+                               noise[2, :, :consts.n_steps])
+
+
+def factored_pathgen_from_noise_ref(consts: FactoredConsts,
+                                    noise: torch.Tensor) -> torch.Tensor:
+    """Plain K8: [3, rows, m2] noise -> [rows, n_steps + 1] prices."""
+    return pc.prices_from_log(_log_paths_ref(consts, noise), consts.s0)
+
+
+def factored_priced_chunk_from_noise_ref(consts: FactoredConsts,
+                                         table: torch.Tensor,
+                                         noise: torch.Tensor, strike: float,
+                                         is_call: bool) -> torch.Tensor:
+    """Plain K9: the chunk's payoff sum (0-d float32) under the log
+    exercise-interval table (log_boundary_rows layout)."""
+    return pc.first_hit_sum(_log_paths_ref(consts, noise), table, strike,
+                            is_call)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: plain version for CPU tensors, the kernel for CUDA tensors.
+
+def _noise_or_rows(consts: FactoredConsts, rows, key, noise) -> int:
+    if (key is None) == (noise is None):
+        raise ValueError("pass exactly one of key (seeded) or noise")
+    if noise is None:
+        if rows is None:
+            raise ValueError("the seeded entry needs rows")
+        return rows
+    if noise.dim() != 3 or noise.shape[0] != 3 or noise.shape[2] != consts.m2:
+        raise ValueError(f"noise must be [3, rows, {consts.m2}], got "
+                         f"{tuple(noise.shape)}")
+    return noise.shape[1]
+
+
+def _const_ptrs(consts: FactoredConsts, rows: int, noise) -> tuple:
+    """Validated leading arguments of a launch: the noise pointer (None
+    for the seeded entry), the nine constant tensors' pointers, the rows
+    and the horizon."""
+    pc.check_device_inputs(consts, noise)
+    if noise is not None and noise.data_ptr() % 16:
+        raise ValueError("noise must start on a 16-byte boundary (the "
+                         "kernels read it as float4)")
+    tensors = (consts.f1r, consts.f1i, consts.phi_r, consts.phi_i,
+               consts.tw_r, consts.tw_i, consts.c2, consts.s2, consts.vd)
+    for t in tensors:
+        if t.device != consts.device or not t.is_contiguous():
+            raise ValueError("FactoredConsts tensors must be contiguous on "
+                             "one device")
+    per = paths_per_block(consts.n_steps)
+    if rows < 1 or rows % per:
+        raise ValueError(f"rows={rows} must be a positive multiple of the "
+                         f"{per} paths of a block at n_steps="
+                         f"{consts.n_steps}")
+    return (None if noise is None else noise.data_ptr(),
+            *(t.data_ptr() for t in tensors), rows, consts.n_steps)
+
+
+def _key_word(key) -> int:
+    return 0 if key is None else key & pc._U32
+
+
+def factored_pathgen(consts: FactoredConsts, rows: int = None,
+                     key: int = None,
+                     noise: torch.Tensor = None) -> torch.Tensor:
+    """K8: [rows, n_steps + 1] float32 prices, S0 in column 0, from the
+    seeded stream of ``key`` or from injected ``noise`` [3, rows, m2]."""
+    rows = _noise_or_rows(consts, rows, key, noise)
+    if consts.device.type == "cpu":
+        if noise is None:
+            noise = philox_factored_normals_ref(key, rows, consts.n_steps)
+        return factored_pathgen_from_noise_ref(consts, noise)
+    ptrs = _const_ptrs(consts, rows, noise)
+    out = torch.empty((rows, consts.n_steps + 1), dtype=torch.float32,
+                      device=consts.device)
+    from ..kernels import build
+
+    err = build.load().mcop_factored_pathgen(
+        *ptrs, _key_word(key), *pc._scalars(consts), ctypes.c_float(consts.s0),
+        out.data_ptr(), torch.cuda.current_stream(consts.device).cuda_stream)
+    pc._check(err, "factored_pathgen")
+    factored_pathgen.launches += 1
+    return out
+
+
+factored_pathgen.launches = 0
+
+
+def factored_priced_chunk(consts: FactoredConsts, table: torch.Tensor,
+                          strike: float, is_call: bool, rows: int = None,
+                          key: int = None,
+                          noise: torch.Tensor = None) -> torch.Tensor:
+    """K9: the chunk's discounted payoff sum (0-d float32 tensor) under the
+    log_boundary_rows ``table``, from the seeded stream of ``key`` or from
+    injected ``noise`` [3, rows, m2].  Each block writes one partial sum
+    and the blocks are summed in a fixed order, so a seed gives the same
+    sum every run."""
+    rows = _noise_or_rows(consts, rows, key, noise)
+    if table.dim() != 2 or table.shape[0] < 3 \
+            or table.shape[1] < consts.n_steps:
+        raise ValueError("table must be [8, >= n_steps] (log_boundary_rows)")
+    if consts.device.type == "cpu":
+        if noise is None:
+            noise = philox_factored_normals_ref(key, rows, consts.n_steps)
+        return factored_priced_chunk_from_noise_ref(consts, table, noise,
+                                                    strike, is_call)
+    ptrs = _const_ptrs(consts, rows, noise)
+    pc.check_device_inputs(consts, None, table)
+    partial = torch.empty((rows // paths_per_block(consts.n_steps),),
+                          dtype=torch.float32, device=consts.device)
+    from ..kernels import build
+
+    err = build.load().mcop_factored_priced_chunk(
+        *ptrs, _key_word(key), *pc._scalars(consts), table.data_ptr(),
+        table.stride(0), ctypes.c_float(strike), int(bool(is_call)),
+        partial.data_ptr(),
+        torch.cuda.current_stream(consts.device).cuda_stream)
+    pc._check(err, "factored_priced_chunk")
+    factored_priced_chunk.launches += 1
+    return torch.sum(partial)
+
+
+factored_priced_chunk.launches = 0

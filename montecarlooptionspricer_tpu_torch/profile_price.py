@@ -3,10 +3,13 @@
 Runs the bench.py workload (1e7 paths x 365 steps, the same shape as
 ``chip_smoke.py``; ``--steps 1825`` takes the long horizon of the same
 option, maturity steps/252) through ``StreamingPricer`` once to warm up,
-then times its two stages, the pilot fit (K1, or K6 past the single-tile
-horizon, + the LSM fit) and the stream (tables + K2 or K7 per chunk),
+then times its two stages, the pilot fit (the family's path kernel, K1,
+K6 or K8, + the LSM fit) and the stream (tables + K2, K7 or K9 per chunk),
 first on the host clock without a profiler and then under
-``torch.profiler``.  ``--strikes`` prices that strike strip of the same
+``torch.profiler``.  ``--tiled-impl`` passes through to ``StreamConfig``
+(``--steps 1825 --tiled-impl factored`` profiles K8/K9 where K6/K7 would
+run; ``--steps 4000`` takes K8/K9 by default).
+``--strikes`` prices that strike strip of the same
 expiry through ``StreamingChainPricer`` instead: the fit is one LSM
 backward pass over the strip, the stream K5 per chunk.  For each stage it
 prints one JSON line: host wall seconds, device kernel launches and busy
@@ -16,7 +19,7 @@ device time.
 
 Usage (one CUDA card):
   python -m montecarlooptionspricer_tpu_torch.profile_price [--steps N]
-      [--strikes 75,77.5,...,125]
+      [--strikes 75,77.5,...,125] [--tiled-impl factored]
 """
 
 from __future__ import annotations
@@ -56,6 +59,9 @@ def main(argv=None) -> int:
     parser.add_argument("--strikes", default="",
                         help="comma-separated strike strip (default: the "
                              "single strike 105)")
+    parser.add_argument("--tiled-impl", default="auto",
+                        choices=("auto", "slab", "factored"),
+                        help="StreamConfig.tiled_impl")
     args = parser.parse_args(argv)
     steps = args.steps
     strikes = [float(v) for v in args.strikes.split(",") if v]
@@ -69,7 +75,8 @@ def main(argv=None) -> int:
 
     cfg = engine.StreamConfig(n_paths=76 << 17, n_steps=steps,
                               chunk_paths=1 << 17, pilot_paths=1 << 17,
-                              dt=1.0 / 252.0, chunks_per_call=76)
+                              dt=1.0 / 252.0, chunks_per_call=76,
+                              tiled_impl=args.tiled_impl)
     if strikes:
         pricer = engine.StreamingChainPricer(
             100.0, 0.04, 0.1, 1.5, -0.4, 0.04, strikes, steps / 252, False,

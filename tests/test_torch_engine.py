@@ -117,8 +117,8 @@ def test_seed_carriers():
 @pytest.mark.parametrize("field,value", [("fgn_form", "spectral"),
                                          ("policy_form", "quadratic"),
                                          ("poly_order", 3),
-                                         # past max_tiled_steps() (3,620)
-                                         ("n_steps", 4000)])
+                                         # past max_factored_steps() (8,192)
+                                         ("n_steps", 8193)])
 def test_unported_configurations_raise(field, value):
     kw = dict(n_paths=1024, n_steps=32)
     kw[field] = value
@@ -148,6 +148,10 @@ def test_port_never_imports_jax():
         "montecarlooptionspricer_tpu_torch." + ".".join(
             p.relative_to(pkg).with_suffix("").parts)
         for p in pkg.rglob("*.py") if p.name != "__init__.py")
+    assert {"montecarlooptionspricer_tpu_torch.ops.fgn",
+            "montecarlooptionspricer_tpu_torch.models.pathgen_factored_cuda",
+            "montecarlooptionspricer_tpu_torch.models.pathgen_tiled_cuda",
+            } <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "spec = importlib.util.spec_from_file_location('cs', "

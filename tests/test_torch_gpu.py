@@ -12,6 +12,8 @@ from montecarlooptionspricer_tpu_torch.models import chain_cuda as cc
 from montecarlooptionspricer_tpu_torch.models import engine
 from montecarlooptionspricer_tpu_torch.models import greeks_cuda as gc
 from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
+from montecarlooptionspricer_tpu_torch.models import (
+    pathgen_factored_cuda as pfc)
 from montecarlooptionspricer_tpu_torch.models import pathgen_tiled_cuda as ptc
 
 MARKET = dict(s0=100.0, xi=0.05, h=0.15, eta=1.4, r=0.04)
@@ -309,3 +311,125 @@ def test_chain_and_greeks_wrappers_reject_bad_inputs(cuda):
         gc.chain_greeks_chunk(consts, pc.make_greeks_consts(
             MARKET["xi"], MARKET["h"], MARKET["eta"], 64, DT, "cpu"),
             tables, False, rows=64, key=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps,rows", [(1825, 1 << 17), (4000, 1 << 17),
+                                          (200, 1 << 17), (8192, 1 << 16)])
+def test_factored_kernels_match_plain_versions(cuda, n_steps, rows):
+    """K8 paths elementwise at rtol 5e-4 (the JAX package's own
+    factored-vs-dense tolerance at m2 2048) and K9 chunk sums at rtol 1e-4
+    against their plain versions, seeded (so also against
+    philox_factored_normals_ref) and noise-in, at the main path's chunk of
+    131072 rows; at K8's cap of 8192 steps (N2 64, one path a block) on
+    65536 rows, which keeps the plain version's planes in memory."""
+    consts = pfc.make_factored_consts(*MARKET.values(), n_steps, DT, cuda)
+    key = pc._fold_words(5, 23)
+    noise = pfc.philox_factored_normals_ref(key, rows, n_steps, device=cuda)
+    want = pfc.factored_pathgen_from_noise_ref(consts, noise)
+    for got in (pfc.factored_pathgen(consts, noise=noise),
+                pfc.factored_pathgen(consts, rows=rows, key=key)):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=5e-4, atol=0)
+        del got
+
+    strike, maturity = 100.0, n_steps * DT
+    _, fits = engine.lsm_fit(want[: 1 << 14], MARKET["r"], strike, maturity,
+                             DT, False)
+    del want
+    table = pc.log_boundary_rows(pc.boundary_rows(
+        fits, MARKET["r"], strike, maturity, DT, n_steps, False)).contiguous()
+    ref = float(pfc.factored_priced_chunk_from_noise_ref(consts, table, noise,
+                                                         strike, False))
+    assert ref > 0
+    for got in (pfc.factored_priced_chunk(consts, table, strike, False,
+                                          noise=noise),
+                pfc.factored_priced_chunk(consts, table, strike, False,
+                                          rows=rows, key=key)):
+        torch.cuda.synchronize()
+        assert abs(float(got) / ref - 1.0) < 1e-4
+
+
+@pytest.mark.gpu
+def test_factored_priced_first_exercise_wild_noise(cuda):
+    """Wild noise (x3): many paths enter the exercise interval in their
+    first step tile and again later; each must count once, at its first
+    hit (K9's ballot over a warp's 128 steps, then the warp leaves the
+    path), so K9 matches its plain version at rtol 1e-4."""
+    n_steps, rows, strike = 1825, 1 << 17, 100.0
+    consts = pfc.make_factored_consts(*MARKET.values(), n_steps, DT, cuda)
+    noise = 3.0 * pfc.philox_factored_normals_ref(pc._fold_words(6, 5), rows,
+                                                  n_steps, device=cuda)
+    paths = pfc.factored_pathgen(consts,
+                                 noise=noise[:, : 1 << 14].contiguous())
+    _, fits = engine.lsm_fit(paths, MARKET["r"], strike, n_steps * DT, DT,
+                             False)
+    del paths
+    table = pc.log_boundary_rows(pc.boundary_rows(
+        fits, MARKET["r"], strike, n_steps * DT, DT, n_steps,
+        False)).contiguous()
+    ls = pfc._log_paths_ref(consts, noise[:, :4096])
+    ex = (ls >= table[0, :n_steps]) & (ls <= table[1, :n_steps])
+    assert float((ex[:, :128].any(1) & ex[:, 128:].any(1)).float().mean()) \
+        > 0.02
+    del ls, ex
+    ref = float(pfc.factored_priced_chunk_from_noise_ref(consts, table, noise,
+                                                         strike, False))
+    got = float(pfc.factored_priced_chunk(consts, table, strike, False,
+                                          noise=noise))
+    assert ref > 0
+    assert abs(got / ref - 1.0) < 1e-4
+
+
+@pytest.mark.gpu
+def test_factored_price_matches_slab_price_under_same_fits(cuda):
+    """1e6 paths x 1825 steps: the factored family (spectral law, K9)
+    against the chol slab (K7) under one set of fits from the slab's
+    pilot.  The two laws are the same and the noise differs: within 5
+    combined stderr."""
+    n_steps, chunk = 1825, 1 << 17
+    kw = dict(s0=100.0, xi=0.04, h=0.1, eta=1.5, rho=-0.4, r=0.04,
+              strike=105.0, maturity=n_steps * DT, is_call=False,
+              device=cuda)
+    prices = {}
+    slab = None
+    for impl in ("slab", "factored"):
+        cfg = engine.StreamConfig(n_paths=8 * chunk, n_steps=n_steps,
+                                  chunk_paths=chunk, pilot_paths=chunk,
+                                  tiled_impl=impl)
+        pricer = engine.StreamingPricer(**kw, config=cfg)
+        if slab is None:
+            slab = pricer
+            fits = pricer.fit(engine._pilot_stream_keys(3)[0])
+        prices[impl] = pricer.price_with_fit(fits, 3, with_stderr=True)
+    assert pricer.kernel_family == "factored" \
+        and slab.kernel_family == "tiled"
+    (p_s, se_s), (p_f, se_f) = prices["slab"], prices["factored"]
+    assert 0 < se_s < 0.01 * p_s and 0 < se_f < 0.01 * p_f
+    assert abs(p_f - p_s) < 5 * (se_s ** 2 + se_f ** 2) ** 0.5, prices
+
+
+@pytest.mark.gpu
+def test_factored_wrappers_reject_bad_inputs(cuda):
+    from montecarlooptionspricer_tpu_torch.kernels import build
+
+    lib = build.load()
+    for n in (129, 200, 1825, 4000, 8192):   # the Python memory model
+        assert lib.mcop_factored_smem_bytes(n) == pfc.smem_bytes(n)
+    assert lib.mcop_factored_smem_bytes(128) == -1
+    assert lib.mcop_factored_smem_bytes(8193) == -1
+    consts = pfc.make_factored_consts(*MARKET.values(), 400, DT, cuda)
+    table = torch.zeros((8, 512), device=cuda)
+    with pytest.raises(ValueError):      # rows not a multiple of 8 paths
+        pfc.factored_pathgen(consts, rows=100, key=1)
+    with pytest.raises(ValueError):
+        pfc.factored_priced_chunk(consts, table, 100.0, False, rows=4,
+                                  key=1)
+    with pytest.raises(ValueError):      # noise on the wrong device
+        pfc.factored_pathgen(consts, noise=torch.zeros((3, 64, 512)))
+    with pytest.raises(ValueError):      # noise off a 16-byte boundary
+        flat = torch.zeros(3 * 64 * 512 + 1, device=cuda)
+        pfc.factored_pathgen(consts, noise=flat[1:].view(3, 64, 512))
+    with pytest.raises(ValueError):      # table on the wrong device
+        pfc.factored_priced_chunk(consts, table.cpu(), 100.0, False,
+                                  rows=64, key=1)

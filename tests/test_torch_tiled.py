@@ -20,6 +20,8 @@ from montecarlooptionspricer_tpu.models import pathgen_pallas as jpp
 from montecarlooptionspricer_tpu.models import pathgen_pallas_tiled as jtiled
 from montecarlooptionspricer_tpu_torch.models import engine as tengine
 from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
+from montecarlooptionspricer_tpu_torch.models import (
+    pathgen_factored_cuda as pfc)
 from montecarlooptionspricer_tpu_torch.models import pathgen_tiled_cuda as ptc
 
 from test_torch_pathgen import (DT, KW, jax_pilot_fits, port_noise,
@@ -141,14 +143,20 @@ def test_kernel_family_by_horizon():
 
 @pytest.mark.parametrize("field,value", [
     ("tiled_impl", "factored"),
-    ("n_steps", ptc.max_tiled_steps() + 1),
+    ("n_steps", pfc.max_factored_steps() + 1),
 ])
 def test_unported_long_horizon_raises(field, value):
-    """An explicit factored-DFT request, and a horizon past the tiled
-    kernels, raise naming the factored-DFT kernels' ROADMAP items."""
+    """An explicit factored-DFT request at 1825 steps now resolves to the
+    factored family; the limit moved to K8's range, and a horizon past it
+    raises naming the generic path stream (ROADMAP A3)."""
     kw = dict(n_paths=1024, n_steps=1825)
     kw[field] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP B8/B9"):
+    if field == "tiled_impl":
+        cfg = tengine.StreamConfig(**kw)
+        assert tengine.resolve_kernel_family(
+            cfg.n_steps, cfg.fgn_form, cfg.tiled_impl) == "factored"
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         tengine.StreamConfig(**kw)
 
 
@@ -205,7 +213,7 @@ def test_cli_prices_long_horizon_on_cpu(capsys):
 def test_cli_past_every_kernel_exits_2(capsys):
     from montecarlooptionspricer_tpu_torch.cli import price as tcli
 
-    steps = str(ptc.max_tiled_steps() + 1)
+    steps = str(pfc.max_factored_steps() + 1)
     assert tcli.main(["--steps", steps, "--paths", "1024", "--device",
                       "cpu"]) == 2
-    assert "ROADMAP B8/B9" in capsys.readouterr().err
+    assert "ROADMAP A3" in capsys.readouterr().err
