@@ -24,11 +24,23 @@ to 0 just before it and read just after:
   the fits of the K6 pilot and held within 5 combined stderr of K7's price;
 * 1e7 paths x 4000 steps (``price_xlong``), past the slab's range, through
   K8 once and K9 76 times, checked against the plain versions on its first
-  8 chunks under the same fit.
+  8 chunks under the same fit;
+* the estimators: each of the three forms of K2, K7 and K9 (antithetic,
+  control variate, both) against its plain version on the seeded stream
+  and on noise, paired against unpaired on the negated noise
+  (``k2_forms`` at 365 steps, ``k7_forms`` at 1825, ``k9_forms`` at 4000),
+  then nine full-width prices, one per form and horizon (``price_anti``,
+  ``price_cv``, ``price_anti_cv`` at 365 steps, ``price_long_anti``,
+  ``price_long_cv``, ``price_long_vr`` at 1825, ``price_xlong_anti``,
+  ``price_xlong_cv``, ``price_xlong_vr`` at 4000), each through the plain
+  pilot kernel once and its form 76 times, its first 8 chunks checked
+  against the plain versions under the same fits (and beta and centre),
+  and its price held within 5 combined stderr of the plain estimator's
+  price of the same seed, with the variance ratio (se_plain / se)^2 > 1.
 
 It also times K2 against K7 per chunk across horizons (the crossover that
-sets engine.SINGLE_TILE_MAX_STEPS) and times each kernel (K8 and K9 at 1825
-and 4000 steps).
+sets engine.SINGLE_TILE_MAX_STEPS) and times each kernel and form (K8 and
+K9 at 1825 and 4000 steps).
 
 Usage (from the root of a checkout, one CUDA card):  python3 chip_smoke.py
 
@@ -97,6 +109,12 @@ STDERR_SIGMAS = 5.0
 SUM_RTOL = 1e-4
 GREEKS_RTOL = 2e-4
 SAME_BODY_RTOL = 1e-6
+# A paired kernel against its unpaired form on the negated noise: each
+# member's arithmetic is the unpaired path's, so only the order of the
+# block sums differs.
+PAIR_RTOL = 1e-5
+# The estimator forms, (antithetic, with_cv), beside the plain one.
+FORMS = ((True, False), (False, True), (True, True))
 # The strip's batched fit against one strike's, in device launches from
 # torch.profiler traces: a fit that looped over the 21 strikes would launch
 # ~21 times as many, and a trace can lose a few records, so the strip's
@@ -123,6 +141,21 @@ REPLACES = {
         "montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py:222",
     "factored_priced_chunk":
         "montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py:330",
+    # The estimator forms, keyed kernel/form: the JAX body of each form.
+    "K2/anti": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:161",
+    "K2/cv": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:567",
+    "K2/anti+cv": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:650",
+    "K7/anti":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:382",
+    "K7/cv": "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:207",
+    "K7/anti+cv":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:395",
+    "K9/anti":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py:330",
+    "K9/cv":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py:330",
+    "K9/anti+cv":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py:330",
 }
 SOURCES = {
     "pathgen": "montecarlooptionspricer_tpu_torch/csrc/pathgen.cu",
@@ -137,7 +170,17 @@ SOURCES = {
         "montecarlooptionspricer_tpu_torch/csrc/pathgen_factored.cu",
     "factored_priced_chunk":
         "montecarlooptionspricer_tpu_torch/csrc/pathgen_factored.cu",
+    **{f"K2/{f}": "montecarlooptionspricer_tpu_torch/csrc/pathgen.cu"
+       for f in ("anti", "cv", "anti+cv")},
+    **{f"K7/{f}": "montecarlooptionspricer_tpu_torch/csrc/pathgen_tiled.cu"
+       for f in ("anti", "cv", "anti+cv")},
+    **{f"K9/{f}": "montecarlooptionspricer_tpu_torch/csrc/pathgen_factored.cu"
+       for f in ("anti", "cv", "anti+cv")},
 }
+# The priced wrappers whose launches count per form: the plain form keeps
+# the wrapper's name, the others are keyed kernel/form.
+FORM_WRAPPERS = {"K2": "priced_chunk", "K7": "tiled_priced_chunk",
+                 "K9": "factored_priced_chunk"}
 
 
 def expected_counts(**nonzero) -> dict:
@@ -175,19 +218,22 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
 
 def bound_ms(rows: int, n: int, out_bytes: int, products: int = 1,
              per_cell: float = 8.0, policy_rows: int = 4,
-             swept: int = 0) -> tuple[float, str]:
+             swept: int = 0, antithetic: bool = False,
+             with_cv: bool = False) -> tuple[float, str]:
     """Least time for one launch at this shape: the larger of the bytes
     that must move (the ``products`` triangular factors Lt' (and dLt'),
     vd and the ``policy_rows`` rows of [n] read once, the output written
     once) over HBM bandwidth and the float32 operations (each triangular
-    fGN product, 2 per multiply-add, plus ``per_cell`` per cell: ~8 for the
-    variance, increment, running sum and test, ~18 with the Greeks'
-    tangent brackets and sums; plus ~4 per strike-cell that a strike sweep
-    visits, ``swept``, counted from this run's stop steps) over the
-    float32 peak."""
+    fGN product, 2 per multiply-add, once per pair when ``antithetic``,
+    plus ``per_cell`` per cell of every path: ~8 for the variance,
+    increment, running sum and test, ~18 with the Greeks' tangent brackets
+    and sums; plus ~4 per strike-cell that a strike sweep visits,
+    ``swept``, counted from this run's stop steps; plus 2 per path for the
+    control's exp and sum ``with_cv``) over the float32 peak."""
     bytes_ = 4 * (products * n * n + policy_rows * n) + out_bytes
-    flops = (2.0 * products * rows * n * (n + 1) / 2 + per_cell * rows * n
-             + 4.0 * swept)
+    drawn = rows // 2 if antithetic else rows
+    flops = (2.0 * products * drawn * n * (n + 1) / 2 + per_cell * rows * n
+             + 4.0 * swept + (2.0 * rows if with_cv else 0.0))
     t_bytes, t_ops = bytes_ / PEAK_BYTES, flops / PEAK_F32_FLOPS
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
@@ -205,26 +251,38 @@ def kernel_record(kname: str, launches: dict, ms: float, plain_ms: float,
 
 
 def plain_stream_mean(pc, engine, pricer, fits, seed: int, n_chunks: int,
-                      strike: float, normals=None, chunk_ref=None) -> float:
-    """Mean discounted payoff of the first n_chunks chunks of seed's stream
-    under ``fits``, through the plain versions (time-0 exercise decided as
-    the engine decides it).  ``normals`` and ``chunk_ref`` name the
-    family's seeded stream and plain priced chunk (default K1/K2's)."""
+                      strike: float, normals=None, chunk_ref=None,
+                      antithetic: bool = False,
+                      with_cv: bool = False) -> float:
+    """Price of the first n_chunks chunks of seed's stream under ``fits``
+    (a CVFit ``with_cv``), through the plain versions of the form
+    (time-0 exercise decided as the engine decides it): the mean
+    discounted payoff, less beta (mean control - s0) under CV.
+    ``normals`` and ``chunk_ref`` name the family's seeded stream and
+    plain priced chunk (default K1/K2's)."""
     normals = normals or pc.philox_normals_ref
     chunk_ref = chunk_ref or pc.priced_chunk_from_noise_ref
     consts, dev = pricer.consts, pricer.device
     _, (run, start) = engine._pilot_stream_keys(seed)
+    cv = fits if with_cv else None
+    fits = cv.fits if with_cv else fits
     table = pricer._make_rows(fits)
     ex0, p0 = pc.time0_value(fits, MARKET["s0"], strike, IS_CALL)
     if bool(ex0):
         return p0
-    total = 0.0
+    total = control = 0.0
     for i in range(n_chunks):
-        noise = normals(pc._fold_words(run, start + i), CHUNK, consts.n_steps,
+        noise = normals(pc._fold_words(run, start + i),
+                        CHUNK // 2 if antithetic else CHUNK, consts.n_steps,
                         device=dev)
-        total += float(chunk_ref(consts, table, noise, strike, IS_CALL))
+        out = chunk_ref(consts, table, noise, strike, IS_CALL, antithetic,
+                        with_cv)
+        total += float(out[0] if with_cv else out)
+        control += float(out[1]) if with_cv else 0.0
         del noise
-    return total / (n_chunks * CHUNK)
+    n = n_chunks * CHUNK
+    return total / n - (cv.beta * (control / n - MARKET["s0"]) if with_cv
+                        else 0.0)
 
 
 def plain_price(pc, engine, lsm_fit, pricer, seed: int) -> float:
@@ -577,8 +635,8 @@ def long_horizon_phases(torch, pc, ptc, engine, smi, dev, key, rel_err,
     """The step-tiled kernels K6 and K7: each against its plain version at
     1825 steps, seeded K6 against seeded K1, the full-width long-horizon
     price through them, the K2/K7 crossover and their times.  Returns their
-    entries of the kernels line, the price's fits, the price and its
-    stderr."""
+    entries of the kernels line, the price's fits, the price, its stderr
+    and its stream's seconds."""
     cfg = engine.StreamConfig(n_paths=CHUNK * LONG_CHUNKS, n_steps=LONG_STEPS,
                               chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
                               chunks_per_call=LONG_CHUNKS)
@@ -750,23 +808,28 @@ def long_horizon_phases(torch, pc, ptc, engine, smi, dev, key, rel_err,
           "k6_bound_ms": k6_b, "k7_bound_ms": k7_b,
           "k6_plain_ms": records[0]["plain_ms"],
           "k7_plain_ms": records[1]["plain_ms"]})
-    return records, fits, price, stderr
+    return records, fits, price, stderr, stream_s
+
 
 def factored_bound_ms(rows: int, n: int, out_bytes: int,
-                      policy_rows: int = 0) -> tuple[float, str]:
+                      policy_rows: int = 0, antithetic: bool = False,
+                      with_cv: bool = False) -> tuple[float, str]:
     """Least time for one K8/K9 launch at this shape: the larger of the
     bytes that must move (the spectral diagonal [m2] complex, vd and
     ``policy_rows`` rows of [n] read once, the output written once; the
     seeded entry reads no noise) over HBM bandwidth, and the float32
-    operations the function needs over the float32 peak: per path the
-    diagonal's complex multiply (6 per step), one length-m2 complex FFT
-    (5 m2 log2 m2) and ~8 per step.  The kernels' dense 128-point stage 1
-    and N2-point stage 2 (8 N2 128^2 + 4 N2 s_pad per path, 19 times the
-    FFT's count at m2 4096) are the TPU's choice of algorithm, not what
-    the function needs, so they do not set the bound."""
+    operations the function needs over the float32 peak: per drawn path
+    the diagonal's complex multiply (6 per step) and one length-m2 complex
+    FFT (5 m2 log2 m2), once per pair when ``antithetic``; per path ~8 per
+    step, and 2 for the control ``with_cv``.  The kernels' dense 128-point
+    stage 1 and N2-point stage 2 (8 N2 128^2 + 4 N2 s_pad per path, 19
+    times the FFT's count at m2 4096) are the TPU's choice of algorithm,
+    not what the function needs, so they do not set the bound."""
     m2 = 1 << (n - 1).bit_length()
     bytes_ = 4 * (2 * m2 + (1 + policy_rows) * n) + out_bytes
-    flops = rows * (5.0 * m2 * math.log2(m2) + 6.0 * n + 8.0 * n)
+    drawn = rows // 2 if antithetic else rows
+    flops = (drawn * (5.0 * m2 * math.log2(m2) + 6.0 * n)
+             + rows * (8.0 * n + (2.0 if with_cv else 0.0)))
     t_bytes, t_ops = bytes_ / PEAK_BYTES, flops / PEAK_F32_FLOPS
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
@@ -823,7 +886,8 @@ def factored_phases(torch, pc, pfc, engine, smi, dev, key, rel_err,
     ``price_long``'s K6 pilot against ``price_long``) and at 4000 steps
     (auto), K9 against its plain version under those fits, and their
     times.  Returns their entries of the kernels line (at 4000 steps, the
-    horizon only they cover)."""
+    horizon only they cover) and the 4000-step run's fits, price, stderr
+    and stream seconds."""
     consts = {n: pfc.make_factored_consts(
         MARKET["s0"], MARKET["xi"], MARKET["h"], MARKET["eta"], MARKET["r"],
         n, DT, dev) for n in FACTORED_STEPS}
@@ -875,6 +939,7 @@ def factored_phases(torch, pc, pfc, engine, smi, dev, key, rel_err,
         torch, engine, smi, dev, "price_xlong", XLONG_STEPS, {},
         reset_counts, read_counts)
     xlong_launches = rec["launches"]
+    xlong = (fits, price, stderr, rec["stream_s"])
     checked = pricer.price_with_fit(fits, SEED,
                                     n_paths=XLONG_CHECKED * CHUNK)
     checked_plain = plain_stream_mean(
@@ -957,7 +1022,231 @@ def factored_phases(torch, pc, pfc, engine, smi, dev, key, rel_err,
                       k8[XLONG_STEPS]["seeded_abs_err"], t["library_ms"]),
         kernel_record("factored_priced_chunk", xlong_launches, t["k9_ms"],
                       t["k9_plain_ms"], t["k9_bound_ms"], t["k9_bound_by"],
-                      k9[XLONG_STEPS]["seeded_abs_err"], t["library_ms"])]
+                      k9[XLONG_STEPS]["seeded_abs_err"], t["library_ms"]),
+    ], xlong
+
+
+def lanes(out, with_cv: bool) -> tuple:
+    """A priced kernel's output as floats: (payoff sum[, control sum])."""
+    return tuple(float(v) for v in (out if with_cv else (out,)))
+
+
+def forms_phase(torch, pc, smi, name: str, kernel: str, priced, chunk_ref,
+                consts, table, normals, key, library, bound) -> dict:
+    """One priced kernel's three estimator forms at the bench chunk: each
+    against its plain version on the seeded stream and on noise (both
+    lanes within SUM_RTOL), paired against its unpaired form on the
+    concatenated negated noise (PAIR_RTOL), then timed beside its plain
+    version, the library yardstick ``library(antithetic)`` and its bound
+    ``bound(antithetic, with_cv)`` = (ms, by).  Returns the forms' numbers
+    keyed kernel/form."""
+    out, checks = {}, []
+    for anti, cv in FORMS:
+        form = f"{kernel}/{pc.form_name(anti, cv)}"
+        drawn = CHUNK // 2 if anti else CHUNK
+        kw = dict(antithetic=anti, with_cv=cv)
+        noise = normals(key, drawn)
+        want = lanes(chunk_ref(consts, table, noise, STRIKE, IS_CALL, anti,
+                               cv), cv)
+        got_n = lanes(priced(consts, table, STRIKE, IS_CALL, noise=noise,
+                             **kw), cv)
+        got_s = lanes(priced(consts, table, STRIKE, IS_CALL, rows=CHUNK,
+                             key=key, **kw), cv)
+        pair = None
+        if anti:
+            unpaired = lanes(priced(
+                consts, table, STRIKE, IS_CALL,
+                noise=torch.cat([noise, -noise], dim=1), with_cv=cv), cv)
+            pair = max(abs(g / u - 1.0) for g, u in zip(got_n, unpaired))
+        del noise
+        torch.cuda.synchronize()
+        err_n = max(abs(g / w - 1.0) for g, w in zip(got_n, want))
+        err_s = max(abs(g / w - 1.0) for g, w in zip(got_s, want))
+        checks.append({"form": form, "plain": want, "noise_in": got_n,
+                       "seeded": got_s, "noise_in_rel_err": err_n,
+                       "seeded_rel_err": err_s, "pair_rel_err": pair})
+        check(err_n <= SUM_RTOL and err_s <= SUM_RTOL,
+              f"{form} disagrees with its plain version")
+        check(pair is None or pair <= PAIR_RTOL,
+              f"{form} paired disagrees with its unpaired form on [X; -X]")
+
+        def run(kw=kw):
+            priced(consts, table, STRIKE, IS_CALL, rows=CHUNK, key=key, **kw)
+
+        def plain(anti=anti, cv=cv, drawn=drawn):
+            chunk_ref(consts, table, normals(key, drawn), STRIKE, IS_CALL,
+                      anti, cv)
+
+        b_ms, b_by = bound(anti, cv)
+        out[form] = {"ms": time_ms(torch, run, 5),
+                     "plain_ms": time_ms(torch, plain, 2),
+                     "library_ms": library(anti), "bound_ms": b_ms,
+                     "bound_by": b_by,
+                     "max_abs_err": max(abs(g - w)
+                                        for g, w in zip(got_s, want))}
+    emit({"phase": name, "card": smi, "rows": CHUNK,
+          "n_steps": consts.n_steps, "checks": checks, "times": out,
+          "rtol": SUM_RTOL, "pair_rtol": PAIR_RTOL})
+    return out
+
+
+def vr_price_phase(torch, pc, engine, smi, dev, name: str, kernel: str,
+                   n_steps: int, form: dict, pilot: str, plain: tuple,
+                   normals, chunk_ref, reset_counts, read_counts) -> dict:
+    """One full-width price in an estimator ``form`` (StreamConfig's
+    antithetic and control_variate): price() with the launch counts read
+    around it (the plain ``pilot`` kernel once, the form 76 times), the
+    stream timed alone, the first 8 chunks against the plain versions under
+    the same fits (and beta and centre), and the price against the plain
+    estimator's ``plain`` = (price, stderr, stream seconds) of the same
+    seed: within 5 combined stderr, with the variance ratio
+    (se_plain / se)^2 > 1 and the ratio per stream second.  Returns the
+    form's key and its launches in price()."""
+    anti = form.get("antithetic", False)
+    cv = form.get("control_variate", False)
+    key = f"{kernel}/{pc.form_name(anti, cv)}"
+    cfg = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=n_steps,
+                              chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                              chunks_per_call=N_CHUNKS, **form)
+    pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                    maturity=n_steps * DT, is_call=IS_CALL,
+                                    config=cfg, device=dev)
+    reset_counts()
+    (price, stderr), wall = timed(
+        torch, lambda: pricer.price(SEED, with_stderr=True))
+    launches = read_counts()
+    fits = pricer.fit(engine._pilot_stream_keys(SEED)[0])
+    _, stream_s = timed(torch, lambda: pricer.price_with_fit(fits, SEED))
+    checked = pricer.price_with_fit(fits, SEED, n_paths=LONG_CHECKED * CHUNK)
+    checked_plain = plain_stream_mean(pc, engine, pricer, fits, SEED,
+                                      LONG_CHECKED, STRIKE, normals,
+                                      chunk_ref, anti, cv)
+    checked_rel = abs(checked / checked_plain - 1.0)
+    p_plain, se_plain, stream_plain = plain
+    sigmas = abs(price - p_plain) / math.hypot(stderr, se_plain)
+    ratio = (se_plain / stderr) ** 2
+    n_paths = CHUNK * N_CHUNKS
+    emit({"phase": name, "card": smi, "n_paths": n_paths, "n_steps": n_steps,
+          **form, "kernel_family": pricer.kernel_family, "price": price,
+          "stderr": stderr, "wall_s": wall, "paths_per_s": n_paths / wall,
+          "stream_s": stream_s, "launches": launches,
+          "beta": fits.beta if cv else None,
+          "checked_chunks": LONG_CHECKED, "checked_price": checked,
+          "checked_plain_price": checked_plain,
+          "checked_rel_err": checked_rel, "rtol": SUM_RTOL,
+          "plain_price": p_plain, "plain_stderr": se_plain,
+          "combined_stderrs_apart": sigmas, "limit": STDERR_SIGMAS,
+          "variance_ratio": ratio,
+          "variance_ratio_per_stream_s": ratio * stream_plain / stream_s})
+    check(launches == expected_counts(**{pilot: 1, key: N_CHUNKS}),
+          f"{name} launches {launches}, want {pilot} once and {key} "
+          f"{N_CHUNKS} times and nothing else")
+    check(math.isfinite(price) and 0.0 < price < STRIKE,
+          f"{name} price {price} outside (0, strike)")
+    check(math.isfinite(stderr) and stderr > 0.0,
+          f"{name} stderr {stderr} not finite and positive")
+    check(checked_rel <= SUM_RTOL, f"{name} disagrees with the plain path")
+    check(sigmas <= STDERR_SIGMAS,
+          f"{name} is {sigmas:.2f} combined stderr from the plain price")
+    check(ratio > 1.0, f"{name}: variance ratio {ratio} <= 1")
+    return key, launches[key]
+
+
+VR_FORMS = (("anti", dict(antithetic=True)),
+            ("cv", dict(control_variate=True)),
+            ("anti_cv", dict(antithetic=True, control_variate=True)))
+
+
+def estimator_phases(torch, pc, ptc, pfc, engine, smi, dev, key, pricer,
+                     plain_runs: dict, reset_counts, read_counts) -> list:
+    """The three forms of K2 (365 steps), K7 (1825) and K9 (4000): each
+    against its plain version (``forms_phase``), then the nine estimator
+    prices (``vr_price_phase``) against the plain runs ``plain_runs``
+    {steps: (fits, price, stderr, stream seconds)}.  Returns the forms'
+    entries of the kernels line."""
+    def matmul_ms(lt, n):
+        def library(anti):
+            a = torch.randn((CHUNK // 2 if anti else CHUNK, n), device=dev)
+            ms = time_ms(torch, lambda: torch.matmul(a, lt), reps=10)
+            del a
+            return ms
+        return library
+
+    def fft_ms(n):
+        def library(anti):
+            a = torch.randn((CHUNK // 2 if anti else CHUNK,
+                             pfc.fgn.next_pow2(n)), dtype=torch.complex64,
+                            device=dev)
+            ms = time_ms(torch, lambda: torch.fft.fft(a, dim=1), reps=10)
+            del a
+            return ms
+        return library
+
+    def table_of(n):
+        return engine._fused_rows_builder(MARKET["r"], STRIKE, n * DT, DT, n,
+                                          IS_CALL)(plain_runs[n][0])
+
+    families = []
+    # K2 at the bench horizon, on the main path's constants.
+    c2 = pricer.consts
+    families.append((
+        "K2", "pathgen", N_STEPS, "k2_forms", pc.priced_chunk,
+        pc.priced_chunk_from_noise_ref, c2, pc.philox_normals_ref,
+        matmul_ms(c2.lt_half, N_STEPS),
+        lambda anti, cv: bound_ms(
+            CHUNK, N_STEPS, 4 * (2 if cv else 1)
+            * (CHUNK // pc.priced_block_paths(c2, CHUNK, anti, cv)),
+            antithetic=anti, with_cv=cv)))
+    c7 = pc.make_path_consts(MARKET["s0"], MARKET["xi"], MARKET["h"],
+                             MARKET["eta"], MARKET["r"], LONG_STEPS, DT, dev)
+    families.append((
+        "K7", "tiled_pathgen", LONG_STEPS, "k7_forms",
+        ptc.tiled_priced_chunk, ptc.priced_chunk_from_noise_ref, c7,
+        pc.philox_normals_ref,
+        matmul_ms(c7.lt_half, LONG_STEPS),
+        lambda anti, cv: bound_ms(
+            CHUNK, LONG_STEPS, 4 * (2 if cv else 1)
+            * (CHUNK // ptc.block_paths_for(CHUNK, anti)),
+            antithetic=anti, with_cv=cv)))
+    c9 = pfc.make_factored_consts(MARKET["s0"], MARKET["xi"], MARKET["h"],
+                                  MARKET["eta"], MARKET["r"], XLONG_STEPS,
+                                  DT, dev)
+    families.append((
+        "K9", "factored_pathgen", XLONG_STEPS, "k9_forms",
+        pfc.factored_priced_chunk, pfc.factored_priced_chunk_from_noise_ref,
+        c9, pfc.philox_factored_normals_ref,
+        fft_ms(XLONG_STEPS),
+        lambda anti, cv: factored_bound_ms(
+            CHUNK, XLONG_STEPS, 4 * (2 if cv else 1)
+            * ((CHUNK // 2 if anti else CHUNK)
+               // pfc.paths_per_block(XLONG_STEPS)),
+            policy_rows=3, antithetic=anti, with_cv=cv)))
+
+    prefix = {N_STEPS: "price", LONG_STEPS: "price_long",
+              XLONG_STEPS: "price_xlong"}
+    records = []
+    for kernel, pilot, n, phase, priced, ref, consts, stream, lib, bound \
+            in families:
+        times = forms_phase(
+            torch, pc, smi, phase, kernel, priced, ref, consts, table_of(n),
+            lambda k, rows, n=n, stream=stream: stream(k, rows, n,
+                                                       device=dev),
+            key, lib, bound)
+        launches = {}   # each form's count from its own price run
+        for suffix, form in VR_FORMS:
+            name = f"{prefix[n]}_{suffix}"
+            if n != N_STEPS and suffix == "anti_cv":
+                name = f"{prefix[n]}_vr"
+            form_key, count = vr_price_phase(
+                torch, pc, engine, smi, dev, name, kernel, n, form, pilot,
+                plain_runs[n][1:], stream, ref, reset_counts, read_counts)
+            launches[form_key] = count
+        for form, t in times.items():
+            records.append(kernel_record(form, launches, t["ms"],
+                                         t["plain_ms"], t["bound_ms"],
+                                         t["bound_by"], t["max_abs_err"],
+                                         t["library_ms"]))
+    return records
 
 
 def main() -> int:
@@ -1006,9 +1295,18 @@ def main() -> int:
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
+            for form in getattr(fn, "form_launches", {}):
+                fn.form_launches[form] = 0
 
     def read_counts():
-        return {k: fn.launches for k, fn in wrappers.items()}
+        # The plain form keeps the wrapper's name; the others are
+        # kernel/form.
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        for kernel, wname in FORM_WRAPPERS.items():
+            by_form = wrappers[wname].form_launches
+            counts[wname] = by_form["plain"]
+            counts.update({f"{kernel}/{f}": by_form[f] for f in pc.FORMS[1:]})
+        return counts
 
     # Phase 1: build.
     t0 = time.perf_counter()
@@ -1151,13 +1449,23 @@ def main() -> int:
           "library_ms": lib_ms, "fit_s": fit_s, "stream_s": stream_s,
           "k1_ms": k1_ms, "k2_ms": k2_ms, **chain_times})
 
-    records, long_fits, long_price, long_stderr = long_horizon_phases(
-        torch, pc, ptc, engine, smi, dev, key, rel_err, reset_counts,
-        read_counts)
+    records, long_fits, long_price, long_stderr, long_stream_s = \
+        long_horizon_phases(torch, pc, ptc, engine, smi, dev, key, rel_err,
+                            reset_counts, read_counts)
     kernels += records
-    kernels += factored_phases(torch, pc, pfc, engine, smi, dev, key,
-                               rel_err, reset_counts, read_counts,
-                               long_fits, long_price, long_stderr)
+    records, xlong = factored_phases(
+        torch, pc, pfc, engine, smi, dev, key, rel_err, reset_counts,
+        read_counts, long_fits, long_price, long_stderr)
+    kernels += records
+
+    # The estimators: K2, K7 and K9 in each form, and nine prices.
+    plain_runs = {N_STEPS: (fits, price, stderr, stream_s),
+                  LONG_STEPS: (long_fits, long_price, long_stderr,
+                               long_stream_s),
+                  XLONG_STEPS: xlong}
+    kernels += estimator_phases(torch, pc, ptc, pfc, engine, smi, dev, key,
+                                pricer, plain_runs, reset_counts,
+                                read_counts)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,7 +1,8 @@
 """mcop-price-torch: price an American option, a strike strip, and their
 pathwise Greeks with the port's streaming engine (counterpart: the
 single-strike, ``--strikes`` and ``--greeks`` branches of
-``montecarlooptionspricer_tpu/cli/price.py``, with its JSON keys).
+``montecarlooptionspricer_tpu/cli/price.py``, with its JSON keys, and its
+``--antithetic`` and ``--control-variate`` estimators).
 
 Runs on the CUDA device unless ``--device cpu`` is given; there is no
 fallback to another device or generator.  Prints one JSON line; a
@@ -10,7 +11,8 @@ non-finite number prints as null.
 Examples (the second, past the single-tile horizon, runs the step-tiled
 kernels; the third, past their 3,620 steps, the factored-DFT kernels of the
 spectral law, up to 8,192 steps; the fourth prices a 21-strike strip with
-implied vols, the fifth adds per-strike Greeks):
+implied vols, the fifth adds per-strike Greeks, the sixth prices with
+antithetic pairs and the martingale control variate):
   mcop-price-torch --strike 105 --put --maturity 1.448 --steps 365 \\
       --paths 1e7 --chunk-paths 131072 --pilot-paths 131072
   mcop-price-torch --strike 105 --put --maturity 7.242 --steps 1825 \\
@@ -20,6 +22,12 @@ implied vols, the fifth adds per-strike Greeks):
   mcop-price-torch --strikes 75,77.5,80,...,125 --put --maturity 1.448 \\
       --steps 365 --paths 1e7
   mcop-price-torch --strikes 95,100,105 --greeks --put --maturity 1.448
+  mcop-price-torch --strike 105 --put --maturity 1.448 --steps 365 \\
+      --paths 1e7 --antithetic --control-variate
+
+``--antithetic`` prices single strikes only (the chain and Greeks kernels
+have no pair form yet, ROADMAP A5); ``--control-variate`` prices single
+strikes, and with ``--greeks`` gives the plain Greeks, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import time
 from ..config import MarketDefaults
 
 # Flags of the JAX CLI whose paths are not ported yet.
-_NOT_PORTED = ("bounds", "serve", "qmc", "antithetic", "control_variate")
+_NOT_PORTED = ("bounds", "serve", "qmc")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,6 +75,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--greeks", action="store_true",
                    help="also delta, vega_xi, vega_eta, rho_rate and vega_h "
                         "(per strike with --strikes)")
+    p.add_argument("--control-variate", action="store_true",
+                   help="martingale control variate (e^{-rT} S_T, beta "
+                        "fitted on the pilot); single strikes only")
+    p.add_argument("--antithetic", action="store_true",
+                   help="antithetic pairing: each chunk prices chunk/2 "
+                        "pairs (N, W), (-N, -W) from half the draws; single "
+                        "strikes without --greeks (ROADMAP A5)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain versions)")
@@ -93,6 +108,15 @@ def main(argv=None) -> int:
     if args.paths < 1:
         print("error: --paths must be >= 1", file=sys.stderr)
         return 2
+    if args.strikes and args.control_variate:
+        print("error: --control-variate applies to single-strike pricing, "
+              "not --strikes chains", file=sys.stderr)
+        return 2
+    if args.antithetic and (args.strikes or args.greeks):
+        print("error: --antithetic with --strikes or --greeks: the chain "
+              "and Greeks kernels have no pair form yet (ROADMAP A5)",
+              file=sys.stderr)
+        return 2
 
     from ..models import engine
 
@@ -100,8 +124,9 @@ def main(argv=None) -> int:
     n_steps = args.steps or max(1, int(args.maturity * mkt.trading_days))
     n_paths = int(args.paths)
     # The chunk must divide the path count and the kernels' path block
-    # (a multiple of 16); round both down, to at least one block.
-    block = 16
+    # (a multiple of 16, of 32 when paired); round both down, to at least
+    # one block.
+    block = 32 if args.antithetic else 16
     chunk = max(block, (min(args.chunk_paths, n_paths) // block) * block)
     n_paths = max(chunk, (n_paths // chunk) * chunk)
     pilot = args.pilot_paths or min(1 << 16, chunk)
@@ -111,7 +136,9 @@ def main(argv=None) -> int:
                    if args.strikes else None)
         cfg = engine.StreamConfig(n_paths=n_paths, n_steps=n_steps,
                                   chunk_paths=chunk, pilot_paths=pilot,
-                                  chunks_per_call=64)
+                                  chunks_per_call=64,
+                                  antithetic=args.antithetic,
+                                  control_variate=args.control_variate)
         market = dict(s0=args.s0, xi=args.xi, h=args.hurst, eta=args.eta,
                       rho=args.rho, r=args.r)
         t0 = time.time()

@@ -6,7 +6,9 @@
 //    chol fGN form, no antithetic.
 // K2 mcop_priced_chunk replaces pathgen_pallas.py:_priced_kernel (and
 //    _priced_kernel_noise_in), chol form, log-boundary policy, interleave 1,
-//    no control variate, no antithetic.
+//    in four forms: plain, antithetic (_logpaths_from_x_anti:161), control
+//    variate (_cv_log_sum:567, _store_priced_log:577) and both
+//    (_priced_body:650).
 //
 // What they compute, per path p and step column c < n (column c = step c+1):
 //   x_c    = sum_{k <= c} N[p,k] * Lt'[k,c]        (Lt' = 0.5 Lt, upper)
@@ -17,12 +19,19 @@
 // path at the first c with llo[c] <= logS_c <= lhi[c] and adds
 // disc[c] * max(+-(exp(logS_c) - strike), 0); each block writes one
 // partial sum (no atomics, so a seed gives the same sum on every run).
+// The control-variate forms write a second partial sum per block,
+// cv_disc * sum_p exp(logS_{p,n-1}) with cv_disc = exp(-r n dt).  The
+// antithetic forms draw (or read) N and W for half the paths only: path q
+// of a drawn row and its partner price (N, W) and (-N, -W), and the fGN
+// map is linear, so the partner's plane is -x and the product runs once
+// per pair.
 //
 // Bound on the H100: operations.  The fGN product is ~n^2/2 multiply-adds
 // per path (67k at n = 365) against ~n transcendentals and n*4 bytes of
 // output; at 131072 paths that is 8.8e9 FMA, 0.26 ms at the card's
 // 67 TFLOP/s float32 (no tensor cores: full float32 is kept), while the
 // bytes that must move (Lt', the output) take at most 0.06 ms.
+// The antithetic forms run the product once per pair: half of that.
 //
 // Design:
 // * One block of 256 threads owns BP = 16*PM paths (64, 32 or 16, the
@@ -43,6 +52,12 @@
 //   threads, then the running sum and the first-hit test with one thread
 //   per path.  The TPU's triangular-matmul cumsum and min-index reduction
 //   become that sequential loop; padded steps are never computed.
+// * Antithetic blocks hold BP/2 drawn rows of N and W (the product's
+//   micro-tile maps 16*PM drawn rows onto the 256 threads, so a paired
+//   block of 32*PM paths reuses the unpaired block's product of 16*PM) and
+//   an X tile of BP paths: the elementwise pass writes both members'
+//   increments from one x and one w.  Halving the planes lets a 128-path
+//   paired block fit at 365 steps (229,376 bytes).
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise so the plain
 //   PyTorch versions agree to a few ulp per cell.
 
@@ -56,34 +71,45 @@ namespace {
 using namespace mcop;
 
 struct Args {
-  const float* noise;   // [2, rows, n] or nullptr for the seeded entry
+  const float* noise;   // [2, drawn, n] or nullptr for the seeded entry
   const float* lt;      // [n, n] half-scaled upper-triangular factor
   const float* vd;      // [n] half variance drift
   const float* llo;     // [n] log lower bounds (K2)
   const float* lhi;     // [n] log upper bounds (K2)
   const float* disc;    // [n] discounts (K2)
-  float* out;           // K1: [rows, n+1]; K2: [rows / BP] partial sums
-  int rows, n, ld;
+  float* out;           // K1: [rows, n+1]; K2: [1 or 2][blocks] partial sums
+  int rows, drawn, n, ld;  // paths, rows of the noise planes, steps, stride
   uint32_t key;
-  float r, dt, sqrt_dt, log_s0, s0, strike;
+  float r, dt, sqrt_dt, log_s0, s0, strike, cv_disc;
   int is_call;
 };
 
-template <int PM, bool SEEDED, bool PRICED>
+__device__ __forceinline__ float euler_inc(const Args& a, float x, float w,
+                                           int c) {
+  const float sv = expf(x + a.vd[c]);
+  const float v = sv * sv;
+  return (a.r - 0.5f * v) * a.dt + sv * (w * a.sqrt_dt);
+}
+
+// Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members (ANTI:
+// member p < D is drawn row p, member D + p its partner).  CV adds the
+// control lane.
+template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV>
 __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
-  constexpr int BP = 16 * PM;
+  constexpr int D = 16 * PM;
+  constexpr int BP = ANTI ? 2 * D : D;
   extern __shared__ float smem[];
   const int n = a.n, ld = a.ld;
-  float* ns = smem;                       // [BP][ld]
-  float* ws = ns + BP * ld;               // [BP][ld]
-  float* xs = ws + BP * ld;               // [BP][kXStride]
+  float* ns = smem;                       // [D][ld]
+  float* ws = ns + D * ld;                // [D][ld]
+  float* xs = ws + D * ld;                // [BP][kXStride]
   float* lts = xs + BP * kXStride;        // [kTileK][kTileCols]
-  float* red = lts + kTileK * kTileCols;  // [BP]
+  float* red = lts + kTileK * kTileCols;  // [BP], and [BP] more under CV
 
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BP;
+  const int row0 = blockIdx.x * D;        // first drawn row
 
-  load_noise<BP, SEEDED>(a.noise, a.rows, n, a.key, row0, ns, ws);
+  load_noise<D, SEEDED>(a.noise, a.drawn, n, a.key, row0, ns, ws);
   if (!PRICED) {
     for (int p = tid; p < BP; p += kThreads)
       a.out[static_cast<size_t>(row0 + p) * (n + 1)] = a.s0;
@@ -98,18 +124,20 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
     const int kmax = min(c0 + kTileCols, n);
     fgn_tile<PM, 1>(a.lt, nullptr, n, c0, ns, lts, xs, nullptr);
 
-    // Variance exp and Euler increment, elementwise over the tile.
+    // Variance exp and Euler increment, elementwise over the tile (both
+    // members of a pair from one x and one w).
     const int cn = kmax - c0;
-    for (int idx = tid; idx < BP * kTileCols; idx += kThreads) {
+    for (int idx = tid; idx < D * kTileCols; idx += kThreads) {
       const int p = idx / kTileCols, cc = idx - p * kTileCols;
       float* xp = &xs[p * kXStride + cc];
       if (cc < cn) {
         const int c = c0 + cc;
-        const float sv = expf(*xp + a.vd[c]);
-        const float v = sv * sv;
-        *xp = (a.r - 0.5f * v) * a.dt + sv * (ws[p * ld + c] * a.sqrt_dt);
+        const float x = *xp, w = ws[p * ld + c];
+        *xp = euler_inc(a, x, w, c);
+        if (ANTI) xp[D * kXStride] = euler_inc(a, -x, -w, c);
       } else {
         *xp = 0.0f;
+        if (ANTI) xp[D * kXStride] = 0.0f;
       }
     }
     __syncthreads();
@@ -146,48 +174,78 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
   }
 
   if (PRICED) {
-    if (tid < BP) red[tid] = val;
+    if (tid < BP) {
+      red[tid] = val;
+      if (CV) red[BP + tid] = expf(ls);  // ls is the terminal log price
+    }
     __syncthreads();
     if (tid == 0) {
       float sum = 0.0f;
       for (int p = 0; p < BP; ++p) sum += red[p];
       a.out[blockIdx.x] = sum;
+      if (CV) {
+        float cv = 0.0f;
+        for (int p = 0; p < BP; ++p) cv += red[BP + p];
+        a.out[gridDim.x + blockIdx.x] = a.cv_disc * cv;
+      }
     }
   }
 }
 
-int smem_bytes(int n, int bp) { return block_smem_bytes(n, bp, 1, bp); }
+// Shared memory of a block of bp paths (pair members when antithetic).
+int smem_bytes(int n, int bp, bool anti, bool cv) {
+  const int d = anti ? bp / 2 : bp;
+  return block_smem_bytes(n, d, 1, (bp - d) * kXStride + (cv ? 2 : 1) * bp);
+}
 
-template <int PM, bool SEEDED, bool PRICED>
+template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {
-  const int smem = smem_bytes(a.n, 16 * PM);
-  auto kernel = path_kernel<PM, SEEDED, PRICED>;
+  constexpr int D = 16 * PM;
+  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI, CV);
+  auto kernel = path_kernel<PM, SEEDED, PRICED, ANTI, CV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<a.rows / (16 * PM), kThreads, smem, stream>>>(a);
+  kernel<<<a.drawn / D, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool PRICED>
-cudaError_t launch(const Args& a, int block_paths, cudaStream_t stream) {
-  if (a.n < 1 || a.rows < 1 || block_paths < 16 || block_paths % 16 ||
-      a.rows % block_paths || smem_bytes(a.n, block_paths) > kSmemLimit)
-    return cudaErrorInvalidValue;
+template <bool PRICED, bool ANTI, bool CV>
+cudaError_t launch_pm(const Args& a, int pm, cudaStream_t stream) {
   const bool seeded = a.noise == nullptr;
-  switch (block_paths) {
-    case 64:
-      return seeded ? launch_one<4, true, PRICED>(a, stream)
-                    : launch_one<4, false, PRICED>(a, stream);
-    case 32:
-      return seeded ? launch_one<2, true, PRICED>(a, stream)
-                    : launch_one<2, false, PRICED>(a, stream);
-    case 16:
-      return seeded ? launch_one<1, true, PRICED>(a, stream)
-                    : launch_one<1, false, PRICED>(a, stream);
+  switch (pm) {
+    case 4:
+      return seeded ? launch_one<4, true, PRICED, ANTI, CV>(a, stream)
+                    : launch_one<4, false, PRICED, ANTI, CV>(a, stream);
+    case 2:
+      return seeded ? launch_one<2, true, PRICED, ANTI, CV>(a, stream)
+                    : launch_one<2, false, PRICED, ANTI, CV>(a, stream);
+    case 1:
+      return seeded ? launch_one<1, true, PRICED, ANTI, CV>(a, stream)
+                    : launch_one<1, false, PRICED, ANTI, CV>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// block_paths counts paths (pair members when antithetic): 16, 32 or 64
+// plain, 32, 64 or 128 paired.
+template <bool PRICED>
+cudaError_t launch(Args a, int block_paths, bool anti, bool cv,
+                   cudaStream_t stream) {
+  const int unit = anti ? 32 : 16;
+  if (a.n < 1 || a.rows < 1 || block_paths < unit || block_paths % unit ||
+      a.rows % block_paths ||
+      smem_bytes(a.n, block_paths, anti, cv) > kSmemLimit)
+    return cudaErrorInvalidValue;
+  a.drawn = anti ? a.rows / 2 : a.rows;
+  const int pm = block_paths / unit;
+  if (!PRICED) return launch_pm<false, false, false>(a, pm, stream);
+  if (anti)
+    return cv ? launch_pm<true, true, true>(a, pm, stream)
+              : launch_pm<true, true, false>(a, pm, stream);
+  return cv ? launch_pm<true, false, true>(a, pm, stream)
+            : launch_pm<true, false, false>(a, pm, stream);
 }
 
 }  // namespace
@@ -213,17 +271,21 @@ int mcop_pathgen(const float* noise, const float* lt, const float* vd,
   a.sqrt_dt = sqrt_dt;
   a.log_s0 = log_s0;
   a.s0 = s0;
-  return static_cast<int>(
-      launch<false>(a, block_paths, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch<false>(a, block_paths, false, false,
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 // K2.  table: rows 0-2 of the log_boundary_rows table, row stride
-// table_stride floats.  out: [rows / block_paths] partial sums.
+// table_stride floats.  rows counts paths; antithetic != 0 reads (or
+// draws) rows / 2 rows of noise, [2, rows / 2, n_steps].  out:
+// [rows / block_paths] partial sums, then as many control sums when
+// with_cv != 0.
 int mcop_priced_chunk(const float* noise, const float* lt, const float* vd,
                       int rows, int n_steps, int block_paths,
                       unsigned int key, float r, float dt, float sqrt_dt,
                       float log_s0, const float* table, long long table_stride,
-                      float strike, int is_call, float* out, void* stream) {
+                      float strike, int is_call, int antithetic, int with_cv,
+                      float cv_disc, float* out, void* stream) {
   Args a{};
   a.noise = noise;
   a.lt = lt;
@@ -241,9 +303,11 @@ int mcop_priced_chunk(const float* noise, const float* lt, const float* vd,
   a.sqrt_dt = sqrt_dt;
   a.log_s0 = log_s0;
   a.strike = strike;
+  a.cv_disc = cv_disc;
   a.is_call = is_call;
-  return static_cast<int>(
-      launch<true>(a, block_paths, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch<true>(a, block_paths, antithetic != 0,
+                                       with_cv != 0,
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -6,8 +6,9 @@
 //    pathgen_pallas_factored.py:_factored_pathgen_kernel (and
 //    _factored_pathgen_kernel_noise_in), no antithetic.
 // K9 mcop_factored_priced_chunk replaces pathgen_pallas_factored.py:
-//    _factored_priced_kernel (and _factored_priced_kernel_noise_in),
-//    log-boundary policy, no control variate, no antithetic.
+//    _factored_priced_kernel (and _factored_priced_kernel_noise_in, :330-385),
+//    log-boundary policy, in four forms: plain, antithetic (_pair_tiles),
+//    control variate (_finalize_priced_log) and both.
 //
 // Per path p, with m2 = next_pow2(n), N2 = m2 / 128 and the fGN noise
 // a = Z * phi' stored transposed (column c = 128 k2 + k1 holds frequency
@@ -22,7 +23,10 @@
 // K8 writes out[p, 0] = s0 and out[p, m+1] = exp(logS_m); K9 stops each
 // path at its first m with llo[m] <= logS_m <= lhi[m], adds
 // disc[m] max(+-(exp(logS_m) - strike), 0) and writes one partial sum per
-// block (no atomics, so a seed gives the same sum on every run).
+// block (no atomics, so a seed gives the same sum on every run).  The
+// control-variate forms add cv_disc * sum_p exp(logS_{p,n-1}) per block;
+// the antithetic forms price drawn path q as (Z, W) and (-Z, -W), and both
+// DFT stages are linear, so the partner's increments come from -x.
 //
 // Work and bound on the H100.  This four-step split with a dense 128-point
 // stage 1 and an N2-point stage 2 is the TPU's choice of algorithm (its
@@ -68,6 +72,14 @@
 //   register.  K9 finds the first hit with a ballot and leaves the path
 //   there.  The TPU's cross-tile scratch carries are gone: a block holds
 //   its paths whole.
+// * The forms.  Under CV a warp that found its path's first hit keeps
+//   scanning to step n-1 (the scan is cheap beside stage 1) for the
+//   terminal log price.  A paired block runs stages 1 and 2 for its P
+//   drawn paths only; pass A then stores x, not increments, and a pass A2
+//   writes both members' increments into the S' region, free once stage 2
+//   has read it (2 P m2 floats, 64 KB, at every horizon).  So shared
+//   memory does not grow, 8,192 steps (one drawn path, two members) still
+//   fit, and the W draw runs once per pair.
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise so the plain
 //   PyTorch versions agree to a few ulp per cell.
 
@@ -106,10 +118,11 @@ struct Args {
   const float* llo;    // [n] log lower bounds (K9)
   const float* lhi;    // [n] log upper bounds (K9)
   const float* disc;   // [n] discounts (K9)
-  float* out;          // K8: [rows, n+1]; K9: [rows / P] partial sums
-  int rows, n, m2, n2, s_pad, paths;
+  float* out;          // K8: [rows, n+1]; K9: [1 or 2][blocks] partial sums
+  int rows, drawn, n, m2, n2, s_pad;
+  int paths;           // drawn paths per block, P = 64 / N2
   uint32_t key;
-  float r, dt, sqrt_dt, log_s0, s0, strike;
+  float r, dt, sqrt_dt, log_s0, s0, strike, cv_disc;
   int is_call;
 };
 
@@ -154,7 +167,7 @@ __device__ void stage_a(const Args& a, float* asr, float* asi, int k0,
               __ldg(a.phii + c + 1));
     }
   } else {
-    const size_t plane = static_cast<size_t>(a.rows) * a.m2;
+    const size_t plane = static_cast<size_t>(a.drawn) * a.m2;
     for (int idx = threadIdx.x; idx < kRows * kTileK; idx += kThreads) {
       const int r = idx / kTileK, kk = idx - r * kTileK;
       const int pl = r / n2, k2 = r - pl * n2;
@@ -166,7 +179,26 @@ __device__ void stage_a(const Args& a, float* asr, float* asi, int k0,
   }
 }
 
-template <bool SEEDED, bool PRICED>
+__device__ __forceinline__ float euler_inc(const Args& a, float x, float w,
+                                           int m) {
+  const float sv = expf(x + __ldg(a.vd + m));
+  const float v = sv * sv;
+  return (a.r - 0.5f * v) * a.dt + sv * (w * a.sqrt_dt);
+}
+
+// The price Brownian of steps m..m+3 of drawn row `row`.
+template <bool SEEDED>
+__device__ __forceinline__ float4 load_w(const Args& a, int row, int m) {
+  if (SEEDED) return mcop::factored_w_quad(a.key, row, m >> 2);
+  const size_t plane = static_cast<size_t>(a.drawn) * a.m2;
+  return __ldg(reinterpret_cast<const float4*>(
+      a.noise + 2 * plane + static_cast<size_t>(row) * a.m2 + m));
+}
+
+// A block of P drawn paths: P paths, or 2P pair members (ANTI: member
+// q < P is drawn path q, member P + q its partner).  CV adds the control
+// lane.
+template <bool SEEDED, bool PRICED, bool ANTI, bool CV>
 __global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
   extern __shared__ float4 smem4[];
   float* spr = reinterpret_cast<float*>(smem4);  // [kRows][kLane]   Re S'
@@ -181,6 +213,7 @@ __global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
   float* cs = region2 + kRegion2Floats;          // [n2][nj]
   float* sn = cs + n2 * nj;
   __shared__ float red[kWarps];
+  __shared__ float red_cv[kWarps];
 
   const int tid = threadIdx.x;
   const int P = a.paths;
@@ -272,12 +305,12 @@ __global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
   }
   __syncthreads();  // S' complete; the staging region is free
 
-  // Pass A: stage 2, exp and the Euler increments, into inc.
+  // Pass A: stage 2, exp and the Euler increments, into inc (paired: x
+  // itself, for pass A2).
   const int n = a.n, s_pad = a.s_pad;
   const int n_tiles = s_pad / kLane;
   const int groups = (n_tiles + 3) / 4;
   const int items = P * groups * (kLane / 4);
-  const size_t plane = static_cast<size_t>(a.rows) * a.m2;
   for (int it = tid; it < items; it += kThreads) {
     const int q = it % (kLane / 4);
     const int rest = it / (kLane / 4);
@@ -311,38 +344,61 @@ __global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
       const int j = j0 + jj;
       if (j >= n_tiles) continue;
       const int m = j * kLane + 4 * q;
-      const float4 w4 =
-          SEEDED ? mcop::factored_w_quad(a.key, row, m >> 2)
-                 : __ldg(reinterpret_cast<const float4*>(
-                       a.noise + 2 * plane + static_cast<size_t>(row) * a.m2 +
-                       m));
+      float4* dst = reinterpret_cast<float4*>(inc + pl * s_pad + m);
+      if (ANTI) {
+        *dst = make_float4(x[jj][0], x[jj][1], x[jj][2], x[jj][3]);
+        continue;
+      }
+      const float4 w4 = load_w<SEEDED>(a, row, m);
       const float w[4] = {w4.x, w4.y, w4.z, w4.w};
       float v_inc[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        v_inc[e] = 0.0f;
-        if (m + e < n) {
-          const float sv = expf(x[jj][e] + __ldg(a.vd + m + e));
-          const float v = sv * sv;
-          v_inc[e] = (a.r - 0.5f * v) * a.dt + sv * (w[e] * a.sqrt_dt);
-        }
-      }
-      *reinterpret_cast<float4*>(inc + pl * s_pad + m) =
-          make_float4(v_inc[0], v_inc[1], v_inc[2], v_inc[3]);
+      for (int e = 0; e < 4; ++e)
+        v_inc[e] = m + e < n ? euler_inc(a, x[jj][e], w[e], m + e) : 0.0f;
+      *dst = make_float4(v_inc[0], v_inc[1], v_inc[2], v_inc[3]);
     }
   }
   __syncthreads();
 
-  // Pass B: one warp per path, the running sum 128 steps at a time.
+  // Pass A2 (paired): both members' increments from x and one W draw,
+  // into the S' region (S' is dead): member q at spr, its partner at spi.
+  if (ANTI) {
+    for (int it = tid; it < P * (s_pad / 4); it += kThreads) {
+      const int pl = it / (s_pad / 4), m = 4 * (it - pl * (s_pad / 4));
+      const float4 x4 = *reinterpret_cast<const float4*>(inc + pl * s_pad + m);
+      const float4 w4 = load_w<SEEDED>(a, row0 + pl, m);
+      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+      const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+      float vp[4], vm[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = m + e < n;
+        vp[e] = in ? euler_inc(a, x[e], w[e], m + e) : 0.0f;
+        vm[e] = in ? euler_inc(a, -x[e], -w[e], m + e) : 0.0f;
+      }
+      *reinterpret_cast<float4*>(spr + pl * s_pad + m) =
+          make_float4(vp[0], vp[1], vp[2], vp[3]);
+      *reinterpret_cast<float4*>(spi + pl * s_pad + m) =
+          make_float4(vm[0], vm[1], vm[2], vm[3]);
+    }
+    __syncthreads();
+  }
+
+  // Pass B: one warp per path (pair member), the running sum 128 steps at
+  // a time.
   const int warp = tid >> 5, lane = tid & 31;
-  float wsum = 0.0f;
-  for (int pl = warp; pl < P; pl += kWarps) {
-    const size_t row = static_cast<size_t>(row0 + pl);
+  const int members = ANTI ? 2 * P : P;
+  float wsum = 0.0f, wcv = 0.0f;
+  for (int mp = warp; mp < members; mp += kWarps) {
+    const size_t row = static_cast<size_t>(row0 + mp);  // K8 (no pairs)
+    const float* path_inc =
+        ANTI ? (mp < P ? spr : spi) + (mp % P) * s_pad : inc + mp * s_pad;
     float carry = a.log_s0;
+    bool stopped = false;
     if (!PRICED && lane == 0) a.out[row * (n + 1)] = a.s0;
     for (int c0 = 0; c0 < s_pad; c0 += kLane) {
       const int m = c0 + 4 * lane;
-      const float4 v = *reinterpret_cast<const float4*>(inc + pl * s_pad + m);
+      const float4 v = *reinterpret_cast<const float4*>(path_inc + m);
       const float p1 = v.x, p2 = p1 + v.y, p3 = p2 + v.z, p4 = p3 + v.w;
       float s = p4;
 #pragma unroll
@@ -359,7 +415,7 @@ __global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (m + e < n) a.out[row * (n + 1) + 1 + m + e] = expf(ls[e]);
-      } else {
+      } else if (!stopped) {
         int first = 4;
 #pragma unroll
         for (int e = 3; e >= 0; --e)
@@ -377,30 +433,41 @@ __global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
             const float pay = a.is_call ? st - a.strike : a.strike - st;
             wsum += __ldg(a.disc + m + first) * fmaxf(pay, 0.0f);
           }
-          break;  // warp-uniform: the path stopped at its first hit
+          // Warp-uniform: the path stopped at its first hit; under CV the
+          // scan goes on to the terminal log price.
+          stopped = true;
+          if (!CV) break;
         }
       }
     }
+    if (CV && lane == 0) wcv += expf(carry);  // carry = logS_{n-1}
   }
 
   if (PRICED) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       wsum += __shfl_down_sync(kFull, wsum, off);
-    if (lane == 0) red[warp] = wsum;
+    if (lane == 0) {
+      red[warp] = wsum;
+      red_cv[warp] = wcv;
+    }
     __syncthreads();
     if (tid == 0) {
-      float sum = 0.0f;
+      float sum = 0.0f, cv = 0.0f;
       for (int w = 0; w < kWarps; ++w) sum += red[w];
       a.out[blockIdx.x] = sum;
+      if (CV) {
+        for (int w = 0; w < kWarps; ++w) cv += red_cv[w];
+        a.out[gridDim.x + blockIdx.x] = a.cv_disc * cv;
+      }
     }
   }
 }
 
-template <bool SEEDED, bool PRICED>
+template <bool SEEDED, bool PRICED, bool ANTI, bool CV>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {
   const int smem = smem_bytes(a.n2);
-  auto kernel = factored_kernel<SEEDED, PRICED>;
+  auto kernel = factored_kernel<SEEDED, PRICED, ANTI, CV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -408,21 +475,33 @@ cudaError_t launch_one(const Args& a, cudaStream_t stream) {
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kernel<<<a.rows / a.paths, kThreads, smem, stream>>>(a);
+  kernel<<<a.drawn / a.paths, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <bool PRICED, bool ANTI, bool CV>
+cudaError_t launch_seeded(const Args& a, cudaStream_t stream) {
+  return a.noise == nullptr ? launch_one<true, PRICED, ANTI, CV>(a, stream)
+                            : launch_one<false, PRICED, ANTI, CV>(a, stream);
+}
+
 template <bool PRICED>
-cudaError_t launch(Args a, cudaStream_t stream) {
+cudaError_t launch(Args a, bool anti, bool cv, cudaStream_t stream) {
   a.m2 = next_pow2(a.n);
   a.n2 = a.m2 / kLane;
   a.s_pad = (a.n + kLane - 1) / kLane * kLane;
   if (a.n <= kLane || a.n2 > kRows || smem_bytes(a.n2) > kSmemLimit)
     return cudaErrorInvalidValue;
   a.paths = kRows / a.n2;
-  if (a.rows < 1 || a.rows % a.paths) return cudaErrorInvalidValue;
-  return a.noise == nullptr ? launch_one<true, PRICED>(a, stream)
-                            : launch_one<false, PRICED>(a, stream);
+  a.drawn = anti ? a.rows / 2 : a.rows;
+  if (a.rows < 1 || (anti && a.rows % 2) || a.drawn % a.paths)
+    return cudaErrorInvalidValue;
+  if (!PRICED) return launch_seeded<false, false, false>(a, stream);
+  if (anti)
+    return cv ? launch_seeded<true, true, true>(a, stream)
+              : launch_seeded<true, true, false>(a, stream);
+  return cv ? launch_seeded<true, false, true>(a, stream)
+            : launch_seeded<true, false, false>(a, stream);
 }
 
 Args make_args(const float* noise, const float* f1r, const float* f1i,
@@ -478,11 +557,14 @@ int mcop_factored_pathgen(const float* noise, const float* f1r,
   a.s0 = s0;
   a.out = out;
   return static_cast<int>(
-      launch<false>(a, static_cast<cudaStream_t>(stream)));
+      launch<false>(a, false, false, static_cast<cudaStream_t>(stream)));
 }
 
 // K9.  table: rows 0-2 of the log_boundary_rows table, row stride
-// table_stride floats.  out: [rows / paths per block] partial sums.
+// table_stride floats.  rows counts paths; antithetic != 0 reads (or
+// draws) rows / 2 rows of noise, [3, rows / 2, m2].  out: [rows / P]
+// partial sums (rows / 2P paired), then as many control sums when
+// with_cv != 0.
 int mcop_factored_priced_chunk(const float* noise, const float* f1r,
                                const float* f1i, const float* phir,
                                const float* phii, const float* twr,
@@ -491,7 +573,8 @@ int mcop_factored_priced_chunk(const float* noise, const float* f1r,
                                int n_steps, unsigned int key, float r,
                                float dt, float sqrt_dt, float log_s0,
                                const float* table, long long table_stride,
-                               float strike, int is_call, float* out,
+                               float strike, int is_call, int antithetic,
+                               int with_cv, float cv_disc, float* out,
                                void* stream) {
   Args a = make_args(noise, f1r, f1i, phir, phii, twr, twi, c2, s2, vd, rows,
                      n_steps, key, r, dt, sqrt_dt, log_s0);
@@ -500,8 +583,10 @@ int mcop_factored_priced_chunk(const float* noise, const float* f1r,
   a.disc = table + 2 * table_stride;
   a.strike = strike;
   a.is_call = is_call;
+  a.cv_disc = cv_disc;
   a.out = out;
-  return static_cast<int>(launch<true>(a, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch<true>(a, antithetic != 0, with_cv != 0,
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@
 //    _tiled_pathgen_kernel_noise_in), chol fGN form, no antithetic.
 // K7 mcop_tiled_priced_chunk replaces pathgen_pallas_tiled.py:
 //    _tiled_priced_kernel (and _tiled_priced_kernel_noise_in), chol form,
-//    log-boundary policy, no control variate, no antithetic.
+//    log-boundary policy, in four forms: plain, antithetic (_pair_tiles:382),
+//    control variate (_finalize_priced_log:207) and both.
 //
 // They compute what K1 and K2 compute, on the same seeded stream
 // (csrc/philox.cuh), re-blocked over the step axis.  Per path p and step
@@ -19,13 +20,17 @@
 // K6 writes out[p, 0] = s0 and out[p, c+1] = exp(logS_c).  K7 stops each
 // path at the first c with llo[c] <= logS_c <= lhi[c], adds
 // disc[c] * max(+-(exp(logS_c) - strike), 0), and writes one partial sum
-// per block (no atomics, so a seed gives the same sum on every run).
+// per block (no atomics, so a seed gives the same sum on every run).  The
+// forms are K2's: the control lane adds cv_disc * sum_p exp(logS_{p,n-1})
+// per block, and an antithetic block prices drawn row q as (N, W) and
+// (-N, -W), the partner's fGN tile being -x.
 //
 // Bound on the H100: operations.  At n = 1825 and 131072 rows the
 // triangular fGN product is 2.2e11 multiply-adds; with ~8 operations per
 // cell besides that is 4.4e11 operations, 6.55 ms at the card's 67 TFLOP/s
 // float32 (full float32 is kept: no tensor cores), while the bytes that
-// must move (Lt', and K6's 957 MB of prices) take 0.29 ms.
+// must move (Lt', and K6's 957 MB of prices) take 0.29 ms.  The
+// antithetic forms run the product once per pair, 1.1e11 multiply-adds.
 //
 // Design:
 // * Shared memory.  At 1825 steps one path's N row is 7.3 KB, so the N
@@ -49,6 +54,11 @@
 //   lives in the registers of thread p < BP, which runs the running sum and
 //   the first-hit test along each tile.  Padded columns past n are never
 //   computed.  W is read once, at its own tile.
+// * Antithetic blocks stream D = 16*PM drawn rows (64, 32 or 16) through
+//   the same product and keep 2D members: the X tile holds both halves,
+//   and thread p < 2D carries member p (p >= D the partner of row p - D).
+//   The 128-member paired block has the unpaired 128-path block's shared
+//   memory within 256 bytes, so two blocks still share an SM.
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise so the plain
 //   PyTorch versions agree to a few ulp per cell.
 
@@ -68,29 +78,30 @@ constexpr int kXStride = kTileCols + 1;
 constexpr int kSmemLimit = 232448;
 
 struct Args {
-  float* noise;         // [2, rows, n]: the input, or the seeded workspace
+  float* noise;         // [2, drawn, n]: the input, or the seeded workspace
   const float* lt;      // [n, n] half-scaled upper-triangular factor
   const float* vd;      // [n] half variance drift
   const float* llo;     // [n] log lower bounds (K7)
   const float* lhi;     // [n] log upper bounds (K7)
   const float* disc;    // [n] discounts (K7)
-  float* out;           // K6: [rows, n+1]; K7: [rows / BP] partial sums
-  int rows, n;
+  float* out;           // K6: [rows, n+1]; K7: [1 or 2][blocks] partial sums
+  int rows, drawn, n;   // paths, rows of the noise plane (rows / 2 paired)
   uint32_t key;
-  float r, dt, sqrt_dt, log_s0, s0, strike;
+  float r, dt, sqrt_dt, log_s0, s0, strike, cv_disc;
   int is_call;
 };
 
-// Shared memory of one block, in floats: the N^T k-tile (row stride BP+4,
-// a multiple of 4 for float4 reads), the Lt' k-tile, the X tile (stride
-// kTileCols+1, so the per-path loop reads distinct banks) and the
-// path-sum slots.
-template <int PM>
+// Shared memory of one block, in floats: the N^T k-tile of its D drawn
+// rows (row stride D+4, a multiple of 4 for float4 reads), the Lt' k-tile,
+// the X tile of its BP paths (stride kTileCols+1, so the per-path loop
+// reads distinct banks) and the path-sum slots (twice under CV).
+template <int PM, bool ANTI = false, bool CV = false>
 struct Layout {
-  static constexpr int kBP = 16 * PM;
-  static constexpr int kNStride = kBP + 4;
+  static constexpr int kD = 16 * PM;
+  static constexpr int kBP = ANTI ? 2 * kD : kD;
+  static constexpr int kNStride = kD + 4;
   static constexpr int kFloats = kTileK * kNStride + kTileK * kTileCols +
-                                 kBP * kXStride + kBP;
+                                 kBP * kXStride + (CV ? 2 : 1) * kBP;
   static constexpr int kBytes = 4 * kFloats;
 };
 
@@ -114,12 +125,12 @@ __device__ __forceinline__ void load_paths(const float* src, float (&v)[PM]) {
   }
 }
 
-// Seeded entry: draw the block's rows of N and W into the plane.
-template <int BP>
+// Seeded entry: draw the block's D rows of N and W into the plane.
+template <int D>
 __device__ void draw_rows(const Args& a, int row0) {
   const int n = a.n, pairs = (n + 1) / 2;
-  const size_t plane = static_cast<size_t>(a.rows) * n;
-  for (int idx = threadIdx.x; idx < BP * pairs; idx += kThreads) {
+  const size_t plane = static_cast<size_t>(a.drawn) * n;
+  for (int idx = threadIdx.x; idx < D * pairs; idx += kThreads) {
     const int p = idx / pairs, j = idx - p * pairs;
     float n0, w0, n1, w1;
     mcop::step_pair_normals(a.key, row0 + p, j, &n0, &w0, &n1, &w1);
@@ -133,28 +144,39 @@ __device__ void draw_rows(const Args& a, int row0) {
   }
 }
 
-template <int PM, bool SEEDED, bool PRICED>
+__device__ __forceinline__ float euler_inc(const Args& a, float x, float w,
+                                           int c) {
+  const float sv = expf(x + a.vd[c]);
+  const float v = sv * sv;
+  return (a.r - 0.5f * v) * a.dt + sv * (w * a.sqrt_dt);
+}
+
+// Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members (ANTI:
+// member p < D is drawn row p, member D + p its partner).  CV adds the
+// control lane.
+template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV>
 __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
-  using L = Layout<PM>;
+  using L = Layout<PM, ANTI, CV>;
+  constexpr int D = L::kD;
   constexpr int BP = L::kBP;
   constexpr int NS = L::kNStride;
   extern __shared__ float4 smem4[];
   float* ns = reinterpret_cast<float*>(smem4);  // [kTileK][NS]   N^T k-tile
   float* lts = ns + kTileK * NS;                // [kTileK][kTileCols]
   float* xs = lts + kTileK * kTileCols;         // [BP][kXStride]
-  float* red = xs + BP * kXStride;              // [BP]
+  float* red = xs + BP * kXStride;              // [BP] (twice under CV)
 
   const int n = a.n;
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BP;
+  const int row0 = blockIdx.x * D;              // first drawn row
   const int tx = tid % kColGroups;              // columns tx*4.., 64+tx*4..
-  const int ty = tid / kColGroups;              // paths ty*PM + i
-  const size_t plane = static_cast<size_t>(a.rows) * n;
+  const int ty = tid / kColGroups;              // drawn rows ty*PM + i
+  const size_t plane = static_cast<size_t>(a.drawn) * n;
   const float* nrows = a.noise + static_cast<size_t>(row0) * n;
   const float* wrows = nrows + plane;
 
   if (SEEDED) {
-    draw_rows<BP>(a, row0);
+    draw_rows<D>(a, row0);
     __syncthreads();  // the block's plane writes are visible to the block
   }
   if (!PRICED) {
@@ -178,7 +200,7 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
     for (int k0 = 0; k0 < kmax; k0 += kTileK) {
       const int kn = min(kTileK, kmax - k0);
       __syncthreads();  // previous readers of ns/lts are done
-      for (int idx = tid; idx < BP * kTileK; idx += kThreads) {
+      for (int idx = tid; idx < D * kTileK; idx += kThreads) {
         const int p = idx / kTileK, kk = idx - p * kTileK;
         ns[kk * NS + p] =
             kk < kn ? nrows[static_cast<size_t>(p) * n + k0 + kk] : 0.0f;
@@ -217,17 +239,17 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
     }
     __syncthreads();
 
-    // Variance exp and Euler increment, elementwise over the tile.
+    // Variance exp and Euler increment, elementwise over the tile (both
+    // members of a pair from one x and one w).
     const int cn = kmax - c0;
-    for (int idx = tid; idx < BP * kTileCols; idx += kThreads) {
+    for (int idx = tid; idx < D * kTileCols; idx += kThreads) {
       const int p = idx / kTileCols, cc = idx - p * kTileCols;
       if (cc < cn) {
         const int c = c0 + cc;
         float* xp = &xs[p * kXStride + cc];
-        const float sv = expf(*xp + a.vd[c]);
-        const float v = sv * sv;
-        *xp = (a.r - 0.5f * v) * a.dt +
-              sv * (wrows[static_cast<size_t>(p) * n + c] * a.sqrt_dt);
+        const float x = *xp, w = wrows[static_cast<size_t>(p) * n + c];
+        *xp = euler_inc(a, x, w, c);
+        if (ANTI) xp[D * kXStride] = euler_inc(a, -x, -w, c);
       }
     }
     __syncthreads();
@@ -264,21 +286,29 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
   }
 
   if (PRICED) {
-    if (tid < BP) red[tid] = val;
+    if (tid < BP) {
+      red[tid] = val;
+      if (CV) red[BP + tid] = expf(ls);  // ls is the terminal log price
+    }
     __syncthreads();
     if (tid == 0) {
       float sum = 0.0f;
       for (int p = 0; p < BP; ++p) sum += red[p];
       a.out[blockIdx.x] = sum;
+      if (CV) {
+        float cv = 0.0f;
+        for (int p = 0; p < BP; ++p) cv += red[BP + p];
+        a.out[gridDim.x + blockIdx.x] = a.cv_disc * cv;
+      }
     }
   }
 }
 
-template <int PM, bool SEEDED, bool PRICED>
+template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {
-  constexpr int smem = Layout<PM>::kBytes;
+  constexpr int smem = Layout<PM, ANTI, CV>::kBytes;
   static_assert(smem <= kSmemLimit, "tile shapes exceed shared memory");
-  auto kernel = tiled_kernel<PM, SEEDED, PRICED>;
+  auto kernel = tiled_kernel<PM, SEEDED, PRICED, ANTI, CV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -286,34 +316,52 @@ cudaError_t launch_one(const Args& a, cudaStream_t stream) {
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kernel<<<a.rows / (16 * PM), kThreads, smem, stream>>>(a);
+  kernel<<<a.drawn / (16 * PM), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool SEEDED, bool PRICED>
+// The plain forms take 128, 64, 32 or 16 paths a block; the paired forms
+// 128, 64 or 32 members (64, 32 or 16 drawn rows).
+template <bool SEEDED, bool PRICED, bool ANTI, bool CV>
 cudaError_t launch_pm(const Args& a, int block_paths, cudaStream_t stream) {
-  switch (block_paths) {
+  switch (ANTI ? block_paths / 2 : block_paths) {
     case 128:
-      return launch_one<8, SEEDED, PRICED>(a, stream);
+      if constexpr (ANTI) return cudaErrorInvalidValue;
+      else return launch_one<8, SEEDED, PRICED, ANTI, CV>(a, stream);
     case 64:
-      return launch_one<4, SEEDED, PRICED>(a, stream);
+      return launch_one<4, SEEDED, PRICED, ANTI, CV>(a, stream);
     case 32:
-      return launch_one<2, SEEDED, PRICED>(a, stream);
+      return launch_one<2, SEEDED, PRICED, ANTI, CV>(a, stream);
     case 16:
-      return launch_one<1, SEEDED, PRICED>(a, stream);
+      return launch_one<1, SEEDED, PRICED, ANTI, CV>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <bool PRICED, bool ANTI, bool CV>
+cudaError_t launch_seeded(const Args& a, int seeded, int block_paths,
+                          cudaStream_t stream) {
+  return seeded ? launch_pm<true, PRICED, ANTI, CV>(a, block_paths, stream)
+                : launch_pm<false, PRICED, ANTI, CV>(a, block_paths, stream);
+}
+
 template <bool PRICED>
-cudaError_t launch(const Args& a, int seeded, int block_paths,
+cudaError_t launch(Args a, int seeded, int block_paths, bool anti, bool cv,
                    cudaStream_t stream) {
   if (a.n < 1 || a.rows < 1 || a.noise == nullptr || block_paths < 16 ||
-      a.rows % block_paths)
+      a.rows % block_paths || (anti && block_paths % 32))
     return cudaErrorInvalidValue;
-  return seeded ? launch_pm<true, PRICED>(a, block_paths, stream)
-                : launch_pm<false, PRICED>(a, block_paths, stream);
+  a.drawn = anti ? a.rows / 2 : a.rows;
+  if (!PRICED)
+    return launch_seeded<false, false, false>(a, seeded, block_paths, stream);
+  if (anti)
+    return cv ? launch_seeded<true, true, true>(a, seeded, block_paths, stream)
+              : launch_seeded<true, true, false>(a, seeded, block_paths,
+                                                 stream);
+  return cv ? launch_seeded<true, false, true>(a, seeded, block_paths, stream)
+            : launch_seeded<true, false, false>(a, seeded, block_paths,
+                                                stream);
 }
 
 Args make_args(float* noise, const float* lt, const float* vd, int rows,
@@ -337,21 +385,16 @@ Args make_args(float* noise, const float* lt, const float* vd, int rows,
 
 extern "C" {
 
-// The per-block shared memory of the tiled kernels at this block size, or
-// -1 for a block size they do not take.
-int mcop_tiled_smem_bytes(int block_paths) {
-  switch (block_paths) {
-    case 128:
-      return Layout<8>::kBytes;
-    case 64:
-      return Layout<4>::kBytes;
-    case 32:
-      return Layout<2>::kBytes;
-    case 16:
-      return Layout<1>::kBytes;
-    default:
-      return -1;
-  }
+// The per-block shared memory of the tiled kernels at this block size
+// (pair members when antithetic), or -1 for a block size they do not take.
+int mcop_tiled_smem_bytes(int block_paths, int antithetic, int with_cv) {
+  const int d = antithetic ? block_paths / 2 : block_paths;
+  if (antithetic && (block_paths % 2 || d == 128)) return -1;
+  const int pm = d / 16;
+  if (d % 16 || (pm != 1 && pm != 2 && pm != 4 && pm != 8)) return -1;
+  const int bp = antithetic ? 2 * d : d;
+  return 4 * (kTileK * (d + 4) + kTileK * kTileCols + bp * kXStride +
+              (with_cv ? 2 : 1) * bp);
 }
 
 // K6.  noise: [2, rows, n_steps] float32, read as given (seeded == 0) or
@@ -365,18 +408,23 @@ int mcop_tiled_pathgen(float* noise, int seeded, const float* lt,
                      log_s0);
   a.s0 = s0;
   a.out = out;
-  return static_cast<int>(launch<false>(a, seeded, block_paths,
+  return static_cast<int>(launch<false>(a, seeded, block_paths, false,
+                                        false,
                                         static_cast<cudaStream_t>(stream)));
 }
 
 // K7.  table: rows 0-2 of the log_boundary_rows table, row stride
-// table_stride floats.  out: [rows / block_paths] partial sums.
+// table_stride floats.  rows counts paths; antithetic != 0 reads (or
+// draws into the workspace) rows / 2 rows of noise, [2, rows / 2,
+// n_steps], and block_paths counts pair members.  out: [rows /
+// block_paths] partial sums, then as many control sums when with_cv != 0.
 int mcop_tiled_priced_chunk(float* noise, int seeded, const float* lt,
                             const float* vd, int rows, int n_steps,
                             int block_paths, unsigned int key, float r,
                             float dt, float sqrt_dt, float log_s0,
                             const float* table, long long table_stride,
-                            float strike, int is_call, float* out,
+                            float strike, int is_call, int antithetic,
+                            int with_cv, float cv_disc, float* out,
                             void* stream) {
   Args a = make_args(noise, lt, vd, rows, n_steps, key, r, dt, sqrt_dt,
                      log_s0);
@@ -385,8 +433,10 @@ int mcop_tiled_priced_chunk(float* noise, int seeded, const float* lt,
   a.disc = table + 2 * table_stride;
   a.strike = strike;
   a.is_call = is_call;
+  a.cv_disc = cv_disc;
   a.out = out;
   return static_cast<int>(launch<true>(a, seeded, block_paths,
+                                       antithetic != 0, with_cv != 0,
                                        static_cast<cudaStream_t>(stream)));
 }
 

@@ -103,12 +103,13 @@ def load() -> types.SimpleNamespace:
     signatures = {
         (single, "mcop_pathgen"): [p, p, p, i, i, i, u, f, f, f, f, f, p, p],
         (single, "mcop_priced_chunk"): [p, p, p, i, i, i, u, f, f, f, f,
-                                        p, ll, f, i, p, p],
-        (tiled, "mcop_tiled_smem_bytes"): [i],
+                                        p, ll, f, i, i, i, f, p, p],
+        (tiled, "mcop_tiled_smem_bytes"): [i, i, i],
         (tiled, "mcop_tiled_pathgen"): [p, i, p, p, i, i, i, u, f, f, f, f,
                                         f, p, p],
         (tiled, "mcop_tiled_priced_chunk"): [p, i, p, p, i, i, i, u, f, f,
-                                             f, f, p, ll, f, i, p, p],
+                                             f, f, p, ll, f, i, i, i, f, p,
+                                             p],
         (chain, "mcop_chain_smem_bytes"): [i, i],
         (chain, "mcop_chain_group"): [],
         (chain, "mcop_priced_chain"): [p, p, p, i, i, i, u, f, f, f, f, p,
@@ -124,7 +125,7 @@ def load() -> types.SimpleNamespace:
         (factored, "mcop_factored_pathgen"): [p] * 10 + [i, i, u, f, f, f, f,
                                                          f, p, p],
         (factored, "mcop_factored_priced_chunk"): [p] * 10 + [
-            i, i, u, f, f, f, f, p, ll, f, i, p, p],
+            i, i, u, f, f, f, f, p, ll, f, i, i, i, f, p, p],
     }
     entries = {}
     for (lib, name), argtypes in signatures.items():

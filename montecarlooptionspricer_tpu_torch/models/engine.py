@@ -18,6 +18,15 @@ fused kernels).
           returns the chunk's payoff sum; chunk totals and their squares
           give the price and its stderr.
 
+The estimators (counterpart: ``StreamConfig.antithetic`` and
+``control_variate`` of the JAX engine) are forms of the same priced
+kernels: ``antithetic`` prices each chunk as chunk_paths / 2 pairs (N, W),
+(-N, -W) from half the draws; ``control_variate`` has the kernel return
+the martingale-control sum e^{-rT} sum S_T beside the payoff sum, and the
+price is corrected by beta (mean control - s0), with beta and the
+stderr's centre fitted on the pilot (``control_fit``).  The pilot stays
+plain under both.
+
 ``resolve_kernel_family`` picks the family from the horizon, the fGN form
 and ``tiled_impl`` (counterpart: ``_resolve_tiled_module``): the
 single-tile chol kernels up to ``SINGLE_TILE_MAX_STEPS``, the chol slab
@@ -35,14 +44,16 @@ horizons.
 
 Only this path is ported.  Other configurations raise
 ``NotImplementedError`` naming their ROADMAP item; nothing runs another
-path silently.
+path silently.  Chains and Greeks have no antithetic form yet (ROADMAP
+A5); Greeks under ``control_variate`` are the plain Greeks, as in the
+JAX engine.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -74,8 +85,9 @@ class StreamConfig:
     and ``tiled_impl`` ("auto", "slab" or "factored") name the fGN law and
     the long-horizon kernels as the JAX fields do; ``resolve_kernel_family``
     says what each combination runs.  ``antithetic``, ``qmc`` and
-    ``control_variate`` name the JAX package's estimators; the pricers
-    reject each of them until it is ported
+    ``control_variate`` name the JAX package's estimators: antithetic
+    pairing needs the boundary policy and chunk and pilot sizes divisible
+    by 32 and excludes qmc, which is not ported
     (``_reject_unported_estimators``)."""
 
     n_paths: int
@@ -94,6 +106,17 @@ class StreamConfig:
     control_variate: bool = False
 
     def __post_init__(self):
+        if self.antithetic and self.qmc:
+            raise ValueError("antithetic is incompatible with qmc (the "
+                             "Sobol set has its own stratification)")
+        if self.antithetic and self.policy_form != "boundary":
+            raise ValueError("antithetic=True requires policy_form="
+                             "'boundary' (the fused log-plane bodies pair)")
+        if self.antithetic and (self.chunk_paths % 32
+                                or self.pilot_paths % 32):
+            raise ValueError("antithetic needs chunk_paths and pilot_paths "
+                             "divisible by 32 (half of each block's paths "
+                             "are drawn)")
         if self.policy_form != "boundary":
             raise NotImplementedError(
                 f"policy_form={self.policy_form!r}: only the log-boundary "
@@ -318,13 +341,48 @@ def lsm_policy_value(paths, fits: PolyFit, r, strike, maturity, dt,
     return torch.sum(value), paths.shape[0]
 
 
+def martingale_control(paths, r, dt) -> torch.Tensor:
+    """[n] per-path martingale control e^{-rT} S_T: its expectation is
+    exactly S0 under the Euler log scheme (the price Brownian is
+    independent of the variance driver)."""
+    m = paths.shape[1]
+    return torch.exp(torch.tensor(-r * (m - 1) * dt,
+                                  dtype=paths.dtype)) * paths[:, -1]
+
+
+class CVFit(NamedTuple):
+    """What the control-variate stream needs from the pilot: the policy
+    ``fits``, the control's coefficient ``beta`` and ``center``, the
+    pilot's estimate of a corrected chunk total, on which the stream
+    centres its squares (float32 squares of raw CV-corrected totals cancel
+    to a false stderr of 0).  A JAX fit carries over with its beta and
+    center as floats."""
+
+    fits: PolyFit
+    beta: float
+    center: float
+
+
+def control_fit(paths, fits: PolyFit, r, strike, maturity, dt,
+                is_call: bool, chunk_paths: int) -> tuple[float, float]:
+    """(beta, center) from pilot ``paths`` under ``fits``: beta from the
+    centred moments of the policy values and the control, center = (mean
+    value - beta mean control) * chunk_paths, in the paths' float32."""
+    av = lsm_policy_path_values(paths, fits, r, strike, maturity, dt,
+                                is_call)
+    cv = martingale_control(paths, r, dt)
+    av_m, cv_m = torch.mean(av), torch.mean(cv)
+    cvc, avc = cv - cv_m, av - av_m
+    beta = torch.sum(cvc * avc) / torch.clamp_min(torch.sum(cvc * cvc),
+                                                  1e-12)
+    center = (av_m - beta * cv_m) * float(chunk_paths)
+    return float(beta), float(center)
+
+
 # ---------------------------------------------------------------------------
 
 def _reject_unported_estimators(config: StreamConfig) -> None:
     """NotImplementedError for the estimators the port does not have."""
-    if config.antithetic:
-        raise NotImplementedError(
-            "antithetic=True: antithetic pairing is not ported (ROADMAP A5)")
     if config.qmc:
         raise NotImplementedError(
             "qmc=True: the randomized-Sobol noise is not ported (ROADMAP "
@@ -388,6 +446,10 @@ class _FusedStream:
                              key=pathgen_cuda._fold_words(*carrier))
 
     def _require_greeks(self) -> None:
+        if self.config.antithetic:
+            raise NotImplementedError(
+                "antithetic=True: the Greeks kernels K3/K4 have no pair "
+                "form yet (ROADMAP A5)")
         if self.kernel_family != "single" or not greeks_cuda.supports(
                 self.config.n_steps):
             raise NotImplementedError(
@@ -406,35 +468,44 @@ class _FusedStream:
         _check_pallas_chunk_range(n_chunks)
         return n_paths
 
-    def _stream(self, chunk_sum, seed: int, n_paths: Optional[int], noise,
-                ex0, v0: torch.Tensor, with_stderr: bool):
-        """Stream n_paths fresh paths through ``chunk_sum(**kw)`` (kw the
-        seeded rows/key of chunk i, or ``noise[i]``): the per-path means of
-        its float32 outputs, float64, and with ``with_stderr`` their
-        chunk-total stderrs.  Where ``ex0`` holds, time-0 exercise: every
-        path shares S0, so each path is worth ``v0`` and every chunk total
-        is v0 * chunk_paths exactly (stderr 0)."""
-        config = self.config
-        chunk = config.chunk_paths
+    def _groups(self, seed: int, n_paths: Optional[int], noise):
+        """(n_paths, groups): each group of at most chunks_per_call chunks
+        lists each chunk's kernel arguments, the seeded rows/key of chunk
+        i or ``noise[i]``."""
+        chunk = self.config.chunk_paths
         if noise is not None:
             n_paths = noise.shape[0] * chunk
         n_paths = self._n_paths(n_paths)
         n_chunks = n_paths // chunk
         _, (run, start) = _pilot_stream_keys(seed)
+        groups = []
+        for done in range(0, n_chunks, self.config.chunks_per_call):
+            stop = min(done + self.config.chunks_per_call, n_chunks)
+            groups.append([
+                {"rows": chunk,
+                 "key": pathgen_cuda._fold_words(run, start + i)}
+                if noise is None else {"noise": noise[i]}
+                for i in range(done, stop)])
+        return n_paths, groups
+
+    def _stream(self, chunk_sum, seed: int, n_paths: Optional[int], noise,
+                ex0, v0: torch.Tensor, with_stderr: bool):
+        """Stream n_paths fresh paths through ``chunk_sum(**kw)`` (kw from
+        ``_groups``): the per-path means of its float32 outputs, float64,
+        and with ``with_stderr`` their chunk-total stderrs.  Where ``ex0``
+        holds, time-0 exercise: every path shares S0, so each path is
+        worth ``v0`` and every chunk total is v0 * chunk_paths exactly
+        (stderr 0)."""
+        chunk = self.config.chunk_paths
+        n_paths, groups = self._groups(seed, n_paths, noise)
 
         # Float32 accumulation on the device per group of chunks_per_call
         # chunks (no sync inside a group), float64 across groups.
         total = sq = 0.0
-        done = 0
-        while done < n_chunks:
-            count = min(config.chunks_per_call, n_chunks - done)
+        for group in groups:
+            count = len(group)
             tot_g = sq_g = 0.0
-            for i in range(done, done + count):
-                if noise is None:
-                    kw = {"rows": chunk, "key": pathgen_cuda._fold_words(
-                        run, start + i)}
-                else:
-                    kw = {"noise": noise[i]}
+            for kw in group:
                 c = chunk_sum(**kw)
                 tot_g = tot_g + c
                 sq_g = sq_g + c * c
@@ -443,27 +514,61 @@ class _FusedStream:
             sq0 = float(count) * c0 * c0
             total = total + torch.where(ex0, all0, tot_g).double().cpu()
             sq = sq + torch.where(ex0, sq0, sq_g).double().cpu()
-            done += count
         total, sq = total.numpy(), sq.numpy()
         if not with_stderr:
             return total / n_paths
         return (total / n_paths,
-                _chunk_stderr(total, sq, n_chunks, chunk))
+                _chunk_stderr(total, sq, n_paths // chunk, chunk))
+
+    def _stream_cv(self, chunk_sum, seed: int, n_paths: Optional[int],
+                   noise, ex0, p0: float, cv: CVFit, with_stderr: bool):
+        """The control-variate stream (counterpart: the JAX engine's fused
+        CV stream and its host correction): ``chunk_sum`` returns (payoff
+        sum a, control sum c) per chunk; the corrected totals a - beta c
+        accumulate centred on ``cv.center`` in float32 on the device, and
+        the price is sum a / n - beta (sum c / n - s0).  Time-0 exercise
+        sets a = p0 n and c = s0 n, so the correction vanishes and every
+        corrected total is the same constant (stderr 0)."""
+        chunk = self.config.chunk_paths
+        n_paths, groups = self._groups(seed, n_paths, noise)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        beta, center = (torch.tensor(v, **f32) for v in (cv.beta, cv.center))
+        p0_t, s0_t = (torch.tensor(v, **f32) for v in (p0, self.s0))
+        t0 = (p0_t - beta * s0_t) * float(chunk) - center
+        amer = ctl = sq = 0.0
+        for group in groups:
+            count = len(group)
+            a_g = c_g = q_g = 0.0
+            for kw in group:
+                da, dc = chunk_sum(**kw)
+                t = da - beta * dc - center
+                a_g, c_g, q_g = a_g + da, c_g + dc, q_g + t * t
+            n_f = torch.tensor(float(count * chunk), **f32)
+            sums = torch.stack([
+                torch.where(ex0, p0_t * n_f, a_g),
+                torch.where(ex0, s0_t * n_f, c_g),
+                torch.where(ex0, float(count) * t0 * t0, q_g)]).double().cpu()
+            amer, ctl, sq = (amer + float(sums[0]), ctl + float(sums[1]),
+                             sq + float(sums[2]))
+        value = amer / n_paths - cv.beta * (ctl / n_paths - self.s0)
+        if not with_stderr:
+            return value
+        return value, _chunk_stderr(amer - cv.beta * ctl, sq,
+                                    n_paths // chunk, chunk,
+                                    center=cv.center)
 
 
 class StreamingPricer(_FusedStream):
     """Fit-then-stream pricer of one American option under rough Bergomi.
 
     Runs on ``device`` ("cuda" unless the caller asks for "cpu"); on the
-    CPU the kernels' plain versions run in their place."""
+    CPU the kernels' plain versions run in their place.  ``antithetic`` and
+    ``control_variate`` stream through the priced kernel's forms of those
+    names; the pilot and its fit are the plain ones."""
 
     def __init__(self, s0, xi, h, eta, rho, r, strike, maturity,
                  is_call: bool, config: StreamConfig, device="cuda"):
         del rho  # the price Brownian is drawn independent of the fGN noise
-        if config.control_variate:
-            raise NotImplementedError(
-                "control_variate=True: the fused martingale control is not "
-                "ported (ROADMAP A5)")
         super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
                          device)
         self.strike = float(strike)
@@ -476,13 +581,24 @@ class StreamingPricer(_FusedStream):
             self.r, self.strike, self.maturity, config.dt, config.n_steps,
             self.is_call)
 
-    def fit(self, carrier) -> PolyFit:
-        """Pilot block from the (run_word, stream_index) ``carrier``
-        through the family's path kernel, then the LSM policy fit."""
-        _, fits = lsm_fit(self._pilot(carrier), self.r, self.strike,
-                          self.maturity, self.config.dt, self.is_call,
+    def _policy_fit(self, carrier):
+        pilot = self._pilot(carrier)
+        _, fits = lsm_fit(pilot, self.r, self.strike, self.maturity,
+                          self.config.dt, self.is_call,
                           self.config.poly_order)
-        return fits
+        return pilot, fits
+
+    def fit(self, carrier) -> Union[PolyFit, CVFit]:
+        """Pilot block from the (run_word, stream_index) ``carrier``
+        through the family's path kernel, then the LSM policy fit; under
+        ``control_variate`` a CVFit with the control's beta and centre
+        from the same pilot."""
+        pilot, fits = self._policy_fit(carrier)
+        if not self.config.control_variate:
+            return fits
+        return CVFit(fits, *control_fit(
+            pilot, fits, self.r, self.strike, self.maturity, self.config.dt,
+            self.is_call, self.config.chunk_paths))
 
     def price(self, seed: int, n_paths: Optional[int] = None,
               with_stderr: bool = False):
@@ -495,25 +611,43 @@ class StreamingPricer(_FusedStream):
         return self.price_with_fit(self.fit(k_pilot), seed, n_paths,
                                    with_stderr)
 
-    def price_with_fit(self, fits: PolyFit, seed: int = 0,
+    def price_with_fit(self, fits: Union[PolyFit, CVFit], seed: int = 0,
                        n_paths: Optional[int] = None,
                        with_stderr: bool = False,
                        noise: Optional[torch.Tensor] = None):
         """Stream against a given policy ``fits`` (e.g. one made elsewhere
-        and converted with ``polyfit_from_numpy``).  With ``noise`` the
-        chunks read that noise instead of the seeded stream: [n_chunks, 2,
-        chunk_paths, n_steps] (N, W) on the single and tiled families,
-        [n_chunks, 3, chunk_paths, m2] (Zr, Zi in the transposed storage
-        order, W; m2 = next_pow2(n_steps)) on the factored family (see
-        ``pathgen_factored_cuda``)."""
+        and converted with ``polyfit_from_numpy``; under
+        ``control_variate`` a CVFit, beta and center as floats).  With
+        ``noise`` the chunks read that noise instead of the seeded stream:
+        [n_chunks, 2, chunk_paths, n_steps] (N, W) on the single and tiled
+        families, [n_chunks, 3, chunk_paths, m2] (Zr, Zi in the transposed
+        storage order, W; m2 = next_pow2(n_steps)) on the factored family
+        (see ``pathgen_factored_cuda``); chunk_paths / 2 rows a chunk
+        under ``antithetic``."""
+        config = self.config
+        if config.control_variate != isinstance(fits, CVFit):
+            raise ValueError(
+                "control_variate=True streams against a CVFit (fits, beta, "
+                "center), any other configuration against the PolyFit "
+                f"alone; got {type(fits).__name__}")
+        cv = fits if config.control_variate else None
+        fits = cv.fits if cv else fits
         table = self._make_rows(fits)
         ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, self.strike,
                                            self.is_call)
-        p0_t = torch.tensor(p0, dtype=torch.float32, device=self.device)
-        out = self._stream(
-            lambda **kw: self._priced_chunk(self.consts, table, self.strike,
-                                            self.is_call, **kw),
-            seed, n_paths, noise, ex0, p0_t, with_stderr)
+
+        def chunk_sum(**kw):
+            return self._priced_chunk(
+                self.consts, table, self.strike, self.is_call,
+                antithetic=config.antithetic, with_cv=cv is not None, **kw)
+
+        if cv is not None:
+            out = self._stream_cv(chunk_sum, seed, n_paths, noise, ex0, p0,
+                                  cv, with_stderr)
+        else:
+            p0_t = torch.tensor(p0, dtype=torch.float32, device=self.device)
+            out = self._stream(chunk_sum, seed, n_paths, noise, ex0, p0_t,
+                               with_stderr)
         if not with_stderr:
             return float(out)
         return float(out[0]), float(out[1])
@@ -526,18 +660,24 @@ class StreamingPricer(_FusedStream):
         exercise policy fixed from the same pilot and fit as ``price``
         (counterpart of the JAX fused Greeks stream).  Time-0 exercise
         leaves (p0, +-1, 0, 0, 0, 0).  ``with_stderr`` returns
-        (greeks, stderrs), each a tuple of six floats."""
+        (greeks, stderrs), each a tuple of six floats.  Under
+        ``control_variate`` these are the plain Greeks, price lane
+        included, as in the JAX engine, whose fused Greeks stream ignores
+        the control."""
         self._require_greeks()
         k_pilot, _ = _pilot_stream_keys(seed)
         n_paths = self._n_paths(n_paths)
-        return self.greeks_with_fit(self.fit(k_pilot), seed, n_paths,
-                                    with_stderr)
+        return self.greeks_with_fit(self._policy_fit(k_pilot)[1], seed,
+                                    n_paths, with_stderr)
 
-    def greeks_with_fit(self, fits: PolyFit, seed: int = 0,
+    def greeks_with_fit(self, fits: Union[PolyFit, CVFit], seed: int = 0,
                         n_paths: Optional[int] = None,
                         with_stderr: bool = False):
-        """``price_and_greeks`` against a given policy ``fits``."""
+        """``price_and_greeks`` against a given policy ``fits`` (a CVFit's
+        beta and center are not read)."""
         self._require_greeks()
+        if isinstance(fits, CVFit):
+            fits = fits.fits
         table = self._make_rows(fits)
         ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, self.strike,
                                            self.is_call)
@@ -581,6 +721,10 @@ class StreamingChainPricer(_FusedStream):
             raise NotImplementedError(
                 "bucketed and traced-market chains (the serving pricers) "
                 "are not ported (ROADMAP A13)")
+        if config.antithetic:
+            raise NotImplementedError(
+                "antithetic=True: the chain kernel K5 has no pair form yet "
+                "(ROADMAP A5)")
         if not chain_cuda.supports(config.n_steps):
             raise NotImplementedError(
                 f"n_steps={config.n_steps} is past the chain kernel K5 "

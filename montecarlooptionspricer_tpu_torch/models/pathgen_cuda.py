@@ -10,7 +10,12 @@ Two kernels live in ``csrc/pathgen.cu``:
 * K2 ``priced_chunk`` (replaces ``_priced_kernel`` /
   ``_priced_kernel_noise_in`` with ``policy_form="log_boundary"``): the same
   generation kept on chip, each path stopped at its first step inside the
-  log exercise interval, one partial payoff sum per CUDA block.
+  log exercise interval, one partial payoff sum per CUDA block.  Its
+  ``antithetic`` and ``with_cv`` forms (``FORMS``) are the JAX maker's:
+  paired noise carries half the rows, each drawn row priced as (N, W) and
+  (-N, -W) (``pair_planes``), and the control-variate forms also return
+  the chunk's martingale-control sum ``cv_disc * sum_p S_{p,n}``, cv_disc =
+  exp(-r n dt).
 
 Each kernel has a seeded entry (Philox4x32-10 written into the kernel) and
 a noise-in entry.  The wrappers run the plain versions for tensors on the
@@ -23,7 +28,9 @@ key = (fold(run_word, stream_index), 0); for path p of the chunk (global
 row index, 0-based) and step pair j, counter = (p, j, 0, 0) gives four
 words x0..x3.  Step 2j takes the Box-Muller pair of (x0, x1), step 2j+1
 that of (x2, x3): u = (bits >> 8) * 2^-24 + 2^-25, radius
-sqrt(-2 log u_a), angle 2 pi u_b, N = radius cos, W = radius sin.
+sqrt(-2 log u_a), angle 2 pi u_b, N = radius cos, W = radius sin.  A
+paired chunk of ``rows`` paths draws rows / 2 rows: drawn row q is the
+stream's row q.
 """
 
 from __future__ import annotations
@@ -124,6 +131,19 @@ SMEM_LIMIT = 232_448        # dynamic shared memory one H100 block may use
 TILE_COLS = 64              # step columns per fGN tile
 TILE_K = 32                 # rows of Lt' staged per inner pass
 BLOCK_CHOICES = (64, 32, 16)
+PAIRED_BLOCK_CHOICES = (128, 64, 32)   # pair members; half of them drawn
+
+# The estimator forms of the priced kernels K2, K7 and K9: the launch
+# counters' keys.
+FORMS = ("plain", "anti", "cv", "anti+cv")
+
+
+def form_name(antithetic: bool, with_cv: bool) -> str:
+    return FORMS[int(bool(antithetic)) + 2 * int(bool(with_cv))]
+
+
+def new_form_counts() -> dict:
+    return dict.fromkeys(FORMS, 0)
 
 
 def block_smem_bytes(n_steps: int, block_paths: int, n_products: int = 1,
@@ -139,9 +159,16 @@ def block_smem_bytes(n_steps: int, block_paths: int, n_products: int = 1,
     return 4 * floats
 
 
-def smem_bytes(n_steps: int, block_paths: int) -> int:
-    """K1 and K2: one product and the path-sum slots."""
-    return block_smem_bytes(n_steps, block_paths, extra=block_paths)
+def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
+               with_cv: bool = False) -> int:
+    """K1 and K2 (``smem_bytes`` of csrc/pathgen.cu): one product and the
+    path-sum slots (twice under CV).  A paired block of ``block_paths``
+    members keeps half as many rows of noise and a product tile of every
+    member."""
+    drawn = block_paths // 2 if antithetic else block_paths
+    return block_smem_bytes(
+        n_steps, drawn, extra=(block_paths - drawn) * (TILE_COLS + 1)
+        + (2 if with_cv else 1) * block_paths)
 
 
 def fitting_block(smem, n_steps: int, rows: int = 0) -> int:
@@ -424,10 +451,20 @@ def log_paths_from_x(consts, x: torch.Tensor,
     return math.log(consts.s0) + torch.cumsum(inc, dim=1)
 
 
-def _log_paths_ref(consts: PathConsts, noise: torch.Tensor) -> torch.Tensor:
-    """[rows, n_steps] log prices, column c = step c + 1."""
-    return log_paths_from_x(consts, _matmul_f32(noise[0], consts.lt_half),
-                            noise[1])
+def pair_planes(x: torch.Tensor, w: torch.Tensor):
+    """Antithetic members from the drawn rows: [x; -x] and [w; -w] (the
+    fGN map is linear, so -x is the plane of -N exactly)."""
+    return torch.cat([x, -x]), torch.cat([w, -w])
+
+
+def _log_paths_ref(consts: PathConsts, noise: torch.Tensor,
+                   antithetic: bool = False) -> torch.Tensor:
+    """[rows, n_steps] log prices, column c = step c + 1 (2 rows per row of
+    noise when ``antithetic``)."""
+    x, w = _matmul_f32(noise[0], consts.lt_half), noise[1]
+    if antithetic:
+        x, w = pair_planes(x, w)
+    return log_paths_from_x(consts, x, w)
 
 
 def prices_from_log(ls: torch.Tensor, s0: float) -> torch.Tensor:
@@ -446,13 +483,31 @@ def pathgen_from_noise_ref(consts: PathConsts,
     return prices_from_log(_log_paths_ref(consts, noise), consts.s0)
 
 
+def cv_discount(consts) -> float:
+    """exp(-r T) of the martingale control e^{-rT} S_T (T = n_steps dt)."""
+    return math.exp(-consts.r * consts.n_steps * consts.dt)
+
+
+def priced_sums(consts, ls: torch.Tensor, table: torch.Tensor,
+                strike: float, is_call: bool, with_cv: bool):
+    """The priced kernels' output from log paths: the payoff sum, and with
+    ``with_cv`` also the control sum cv_disc * sum_p exp(ls[p, -1])."""
+    val = first_hit_sum(ls, table, strike, is_call)
+    if not with_cv:
+        return val
+    return val, cv_discount(consts) * torch.sum(torch.exp(ls[:, -1]))
+
+
 def priced_chunk_from_noise_ref(consts: PathConsts, table: torch.Tensor,
                                 noise: torch.Tensor, strike: float,
-                                is_call: bool) -> torch.Tensor:
+                                is_call: bool, antithetic: bool = False,
+                                with_cv: bool = False):
     """Plain K2: the chunk's payoff sum (0-d float32) under the log
-    exercise-interval table (log_boundary_rows layout)."""
-    return first_hit_sum(_log_paths_ref(consts, noise), table, strike,
-                         is_call)
+    exercise-interval table (log_boundary_rows layout); with
+    ``antithetic`` the rows of ``noise`` are priced as pairs, with
+    ``with_cv`` the result is (payoff sum, control sum)."""
+    return priced_sums(consts, _log_paths_ref(consts, noise, antithetic),
+                       table, strike, is_call, with_cv)
 
 
 def first_hit_sum(ls: torch.Tensor, table: torch.Tensor, strike: float,
@@ -473,17 +528,26 @@ def first_hit_sum(ls: torch.Tensor, table: torch.Tensor, strike: float,
 # ---------------------------------------------------------------------------
 # Wrappers: plain version for CPU tensors, the kernel for CUDA tensors.
 
-def _noise_or_rows(consts, rows, key, noise):
+def _noise_or_rows(consts, rows, key, noise, antithetic: bool = False):
+    """The chunk's path count: ``rows`` for the seeded entry, else from
+    the noise [2, rows (rows / 2 when antithetic), n_steps]."""
     if (key is None) == (noise is None):
         raise ValueError("pass exactly one of key (seeded) or noise")
     if noise is None:
         if rows is None:
             raise ValueError("the seeded entry needs rows")
+        if antithetic and rows % 2:
+            raise ValueError(f"antithetic rows={rows} must be even")
         return rows
     if noise.shape[0] != 2 or noise.shape[2] != consts.n_steps:
         raise ValueError(f"noise must be [2, rows, {consts.n_steps}], got "
                          f"{tuple(noise.shape)}")
-    return noise.shape[1]
+    return noise.shape[1] * (2 if antithetic else 1)
+
+
+def drawn_rows(rows: int, antithetic: bool) -> int:
+    """Rows of noise a chunk of ``rows`` paths draws."""
+    return rows // 2 if antithetic else rows
 
 
 def check_device_inputs(consts: PathConsts, noise, table=None) -> None:
@@ -499,15 +563,37 @@ def check_device_inputs(consts: PathConsts, noise, table=None) -> None:
             raise ValueError(f"{name} must be contiguous float32 on {dev}")
 
 
-def _kernel_args(consts: PathConsts, rows: int, key, noise):
+def priced_block_paths(consts: PathConsts, rows: int,
+                       antithetic: bool = False,
+                       with_cv: bool = False) -> int:
+    """The path block of a K2 launch: the plain form's is
+    ``consts.block_paths``; the CV form takes the largest block up to it
+    whose shared memory fits, and the paired forms the largest of
+    PAIRED_BLOCK_CHOICES that fits; each must divide ``rows``."""
+    if not antithetic and not with_cv:
+        return consts.block_paths
+    choices = PAIRED_BLOCK_CHOICES if antithetic else [
+        b for b in BLOCK_CHOICES if b <= consts.block_paths]
+    for bp in choices:
+        if (smem_bytes(consts.n_steps, bp, antithetic, with_cv) <= SMEM_LIMIT
+                and rows % bp == 0):
+            return bp
+    raise ValueError(f"no K2 block of {tuple(choices)} fits the "
+                     f"{form_name(antithetic, with_cv)!r} form at "
+                     f"n_steps={consts.n_steps} and divides rows={rows}")
+
+
+def _kernel_args(consts: PathConsts, rows: int, key, noise,
+                 block_paths: int = 0):
     """Validated pointer and scalar arguments shared by both single-tile
-    kernels."""
+    kernels (``block_paths`` 0: the constants' block, K1 and plain K2)."""
     check_device_inputs(consts, noise)
     bp, cap = consts.block_paths, max_block_paths(consts.n_steps)
     if bp not in BLOCK_CHOICES or bp > cap:
         raise ValueError(f"block_paths={bp} not in {BLOCK_CHOICES} or over "
                          f"the single-tile cap {cap} at "
                          f"n_steps={consts.n_steps}")
+    bp = block_paths or bp
     if rows % bp:
         raise ValueError(f"rows={rows} must divide by block_paths={bp}")
     noise_ptr = None if noise is None else noise.data_ptr()
@@ -552,35 +638,52 @@ def pathgen(consts: PathConsts, rows: int = None, key: int = None,
 pathgen.launches = 0
 
 
+def sums_from_partials(partial: torch.Tensor, with_cv: bool):
+    """A priced kernel's [1 or 2, blocks] partial sums, summed per lane in
+    a fixed order: the payoff sum, or (payoff sum, control sum)."""
+    sums = torch.sum(partial, dim=1)
+    return (sums[0], sums[1]) if with_cv else sums[0]
+
+
 def priced_chunk(consts: PathConsts, table: torch.Tensor, strike: float,
                  is_call: bool, rows: int = None, key: int = None,
-                 noise: torch.Tensor = None) -> torch.Tensor:
+                 noise: torch.Tensor = None, antithetic: bool = False,
+                 with_cv: bool = False):
     """K2: the chunk's discounted payoff sum (0-d float32 tensor) under
     the log_boundary_rows ``table``, from the seeded stream of ``key`` or
-    from injected ``noise``.  On the card each block writes one partial
-    sum and the blocks are summed in a fixed order, so a seed gives the
-    same sum every run."""
-    rows = _noise_or_rows(consts, rows, key, noise)
+    from injected ``noise``; with ``with_cv``, (payoff sum, control sum).
+    With ``antithetic`` the chunk's ``rows`` paths are rows / 2 pairs:
+    the seeded entry draws rows / 2 rows, and injected noise is [2,
+    rows / 2, n_steps].  On the card each block writes one partial sum
+    per lane and the blocks are summed in a fixed order, so a seed gives
+    the same sums every run."""
+    rows = _noise_or_rows(consts, rows, key, noise, antithetic)
     if table.shape[0] < 3 or table.shape[1] < consts.n_steps:
         raise ValueError("table must be [8, >= n_steps] (log_boundary_rows)")
     if consts.device.type == "cpu":
         if noise is None:
-            noise = philox_normals_ref(key, rows, consts.n_steps)
+            noise = philox_normals_ref(key, drawn_rows(rows, antithetic),
+                                       consts.n_steps)
         return priced_chunk_from_noise_ref(consts, table, noise, strike,
-                                           is_call)
-    args = _kernel_args(consts, rows, key, noise)
+                                           is_call, antithetic, with_cv)
+    bp = priced_block_paths(consts, rows, antithetic, with_cv)
+    args = _kernel_args(consts, rows, key, noise, bp)
     check_device_inputs(consts, None, table)
-    partial = torch.empty((rows // consts.block_paths,), dtype=torch.float32,
-                          device=consts.device)
+    partial = torch.empty((2 if with_cv else 1, rows // bp),
+                          dtype=torch.float32, device=consts.device)
     from ..kernels import build
 
     err = build.load().mcop_priced_chunk(
         *args, *_scalars(consts), table.data_ptr(), table.stride(0),
-        ctypes.c_float(strike), int(bool(is_call)), partial.data_ptr(),
+        ctypes.c_float(strike), int(bool(is_call)), int(bool(antithetic)),
+        int(bool(with_cv)), ctypes.c_float(cv_discount(consts)),
+        partial.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     _check(err, "priced_chunk")
     priced_chunk.launches += 1
-    return torch.sum(partial)
+    priced_chunk.form_launches[form_name(antithetic, with_cv)] += 1
+    return sums_from_partials(partial, with_cv)
 
 
 priced_chunk.launches = 0
+priced_chunk.form_launches = new_form_counts()

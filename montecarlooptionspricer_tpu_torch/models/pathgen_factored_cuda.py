@@ -10,7 +10,9 @@ Two kernels live in ``csrc/pathgen_factored.cu``:
 * K9 ``factored_priced_chunk`` (replaces ``_factored_priced_kernel`` /
   ``_factored_priced_kernel_noise_in`` with ``policy_form="boundary"``):
   the chunk's payoff sum under a log exercise-interval table, one partial
-  sum per CUDA block.
+  sum per CUDA block, in K2's four forms (``antithetic``: noise [3,
+  rows / 2, m2], each drawn row priced as (Z, W) and (-Z, -W); ``with_cv``:
+  the control sum beside it).
 
 The fGN increments are the reference's spectral synthesis, half-scaled
 (``FactoredConsts``): X = Re DFT_m2(Z * phi'), a length-m2 DFT
@@ -251,10 +253,12 @@ def fgn_from_noise_ref(consts: FactoredConsts,
     return fgn.spectral_synthesis(diag, z)
 
 
-def _log_paths_ref(consts: FactoredConsts,
-                   noise: torch.Tensor) -> torch.Tensor:
-    return pc.log_paths_from_x(consts, fgn_from_noise_ref(consts, noise),
-                               noise[2, :, :consts.n_steps])
+def _log_paths_ref(consts: FactoredConsts, noise: torch.Tensor,
+                   antithetic: bool = False) -> torch.Tensor:
+    x, w = fgn_from_noise_ref(consts, noise), noise[2, :, :consts.n_steps]
+    if antithetic:
+        x, w = pc.pair_planes(x, w)
+    return pc.log_paths_from_x(consts, x, w)
 
 
 def factored_pathgen_from_noise_ref(consts: FactoredConsts,
@@ -266,33 +270,44 @@ def factored_pathgen_from_noise_ref(consts: FactoredConsts,
 def factored_priced_chunk_from_noise_ref(consts: FactoredConsts,
                                          table: torch.Tensor,
                                          noise: torch.Tensor, strike: float,
-                                         is_call: bool) -> torch.Tensor:
+                                         is_call: bool,
+                                         antithetic: bool = False,
+                                         with_cv: bool = False):
     """Plain K9: the chunk's payoff sum (0-d float32) under the log
-    exercise-interval table (log_boundary_rows layout)."""
-    return pc.first_hit_sum(_log_paths_ref(consts, noise), table, strike,
-                            is_call)
+    exercise-interval table (log_boundary_rows layout); with
+    ``antithetic`` the rows of ``noise`` are priced as pairs, with
+    ``with_cv`` the result is (payoff sum, control sum)."""
+    return pc.priced_sums(consts, _log_paths_ref(consts, noise, antithetic),
+                          table, strike, is_call, with_cv)
 
 
 # ---------------------------------------------------------------------------
 # Wrappers: plain version for CPU tensors, the kernel for CUDA tensors.
 
-def _noise_or_rows(consts: FactoredConsts, rows, key, noise) -> int:
+def _noise_or_rows(consts: FactoredConsts, rows, key, noise,
+                   antithetic: bool = False) -> int:
+    """The chunk's path count: ``rows`` for the seeded entry, else from
+    the noise [3, rows (rows / 2 when antithetic), m2]."""
     if (key is None) == (noise is None):
         raise ValueError("pass exactly one of key (seeded) or noise")
     if noise is None:
         if rows is None:
             raise ValueError("the seeded entry needs rows")
+        if antithetic and rows % 2:
+            raise ValueError(f"antithetic rows={rows} must be even")
         return rows
     if noise.dim() != 3 or noise.shape[0] != 3 or noise.shape[2] != consts.m2:
         raise ValueError(f"noise must be [3, rows, {consts.m2}], got "
                          f"{tuple(noise.shape)}")
-    return noise.shape[1]
+    return noise.shape[1] * (2 if antithetic else 1)
 
 
-def _const_ptrs(consts: FactoredConsts, rows: int, noise) -> tuple:
+def _const_ptrs(consts: FactoredConsts, rows: int, noise,
+                drawn: int = None) -> tuple:
     """Validated leading arguments of a launch: the noise pointer (None
     for the seeded entry), the nine constant tensors' pointers, the rows
-    and the horizon."""
+    and the horizon.  ``drawn`` (default ``rows``) rows of noise must
+    fill whole blocks."""
     pc.check_device_inputs(consts, noise)
     if noise is not None and noise.data_ptr() % 16:
         raise ValueError("noise must start on a 16-byte boundary (the "
@@ -304,9 +319,10 @@ def _const_ptrs(consts: FactoredConsts, rows: int, noise) -> tuple:
             raise ValueError("FactoredConsts tensors must be contiguous on "
                              "one device")
     per = paths_per_block(consts.n_steps)
-    if rows < 1 or rows % per:
-        raise ValueError(f"rows={rows} must be a positive multiple of the "
-                         f"{per} paths of a block at n_steps="
+    drawn = rows if drawn is None else drawn
+    if drawn < 1 or drawn % per:
+        raise ValueError(f"{drawn} rows of noise must be a positive multiple "
+                         f"of the {per} drawn paths of a block at n_steps="
                          f"{consts.n_steps}")
     return (None if noise is None else noise.data_ptr(),
             *(t.data_ptr() for t in tensors), rows, consts.n_steps)
@@ -344,36 +360,44 @@ factored_pathgen.launches = 0
 
 def factored_priced_chunk(consts: FactoredConsts, table: torch.Tensor,
                           strike: float, is_call: bool, rows: int = None,
-                          key: int = None,
-                          noise: torch.Tensor = None) -> torch.Tensor:
+                          key: int = None, noise: torch.Tensor = None,
+                          antithetic: bool = False, with_cv: bool = False):
     """K9: the chunk's discounted payoff sum (0-d float32 tensor) under the
     log_boundary_rows ``table``, from the seeded stream of ``key`` or from
-    injected ``noise`` [3, rows, m2].  Each block writes one partial sum
-    and the blocks are summed in a fixed order, so a seed gives the same
-    sum every run."""
-    rows = _noise_or_rows(consts, rows, key, noise)
+    injected ``noise`` [3, rows, m2], and with ``with_cv`` the control sum
+    beside it.  With ``antithetic`` the chunk's ``rows`` paths are rows / 2
+    pairs (the seeded entry draws rows / 2 rows; noise is [3, rows / 2,
+    m2]).  Each block writes one partial sum per lane and the blocks are
+    summed in a fixed order, so a seed gives the same sums every run."""
+    rows = _noise_or_rows(consts, rows, key, noise, antithetic)
     if table.dim() != 2 or table.shape[0] < 3 \
             or table.shape[1] < consts.n_steps:
         raise ValueError("table must be [8, >= n_steps] (log_boundary_rows)")
+    drawn = pc.drawn_rows(rows, antithetic)
     if consts.device.type == "cpu":
         if noise is None:
-            noise = philox_factored_normals_ref(key, rows, consts.n_steps)
-        return factored_priced_chunk_from_noise_ref(consts, table, noise,
-                                                    strike, is_call)
-    ptrs = _const_ptrs(consts, rows, noise)
+            noise = philox_factored_normals_ref(key, drawn, consts.n_steps)
+        return factored_priced_chunk_from_noise_ref(
+            consts, table, noise, strike, is_call, antithetic, with_cv)
+    ptrs = _const_ptrs(consts, rows, noise, drawn)
     pc.check_device_inputs(consts, None, table)
-    partial = torch.empty((rows // paths_per_block(consts.n_steps),),
-                          dtype=torch.float32, device=consts.device)
+    partial = torch.empty(
+        (2 if with_cv else 1, drawn // paths_per_block(consts.n_steps)),
+        dtype=torch.float32, device=consts.device)
     from ..kernels import build
 
     err = build.load().mcop_factored_priced_chunk(
         *ptrs, _key_word(key), *pc._scalars(consts), table.data_ptr(),
         table.stride(0), ctypes.c_float(strike), int(bool(is_call)),
-        partial.data_ptr(),
+        int(bool(antithetic)), int(bool(with_cv)),
+        ctypes.c_float(pc.cv_discount(consts)), partial.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, "factored_priced_chunk")
     factored_priced_chunk.launches += 1
-    return torch.sum(partial)
+    factored_priced_chunk.form_launches[
+        pc.form_name(antithetic, with_cv)] += 1
+    return pc.sums_from_partials(partial, with_cv)
 
 
 factored_priced_chunk.launches = 0
+factored_priced_chunk.form_launches = pc.new_form_counts()

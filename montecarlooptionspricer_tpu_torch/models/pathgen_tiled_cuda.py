@@ -8,7 +8,8 @@ Counterpart: ``montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py``
   S0 in column 0.
 * K7 ``tiled_priced_chunk`` (replaces ``_tiled_priced_kernel`` /
   ``_tiled_priced_kernel_noise_in`` with ``policy_form="boundary"``): the
-  chunk's payoff sum under a log exercise-interval table.
+  chunk's payoff sum under a log exercise-interval table, in K2's four
+  forms (``antithetic``, ``with_cv``).
 
 They compute the same function as K1 and K2 of ``pathgen_cuda``, re-blocked
 over the step axis, and the seeded entries draw the same Philox stream.  So
@@ -41,15 +42,21 @@ priced_chunk_from_noise_ref = pc.priced_chunk_from_noise_ref
 TILE_COLS = 128             # step columns per output tile
 TILE_K = 16                 # steps per staged k-tile of N and Lt'
 BLOCK_CHOICES = (128, 64, 32, 16)
+PAIRED_BLOCK_CHOICES = (128, 64, 32)   # members: 64, 32 or 16 drawn rows
 L2_BYTES = 50 * 1024 * 1024  # H100 SXM L2 cache
 
 
-def smem_bytes(block_paths: int) -> int:
-    """Shared memory of one CUDA block: the N^T k-tile (row stride
-    block_paths + 4), the Lt' k-tile, the X tile (stride TILE_COLS + 1)
-    and the path-sum slots.  It does not depend on the horizon."""
-    floats = (TILE_K * (block_paths + 4) + TILE_K * TILE_COLS
-              + block_paths * (TILE_COLS + 1) + block_paths)
+def smem_bytes(block_paths: int, antithetic: bool = False,
+               with_cv: bool = False) -> int:
+    """Shared memory of one CUDA block (``mcop_tiled_smem_bytes``): the
+    N^T k-tile of its drawn rows (row stride drawn + 4), the Lt' k-tile,
+    the X tile of its ``block_paths`` paths (stride TILE_COLS + 1) and the
+    path-sum slots (twice under CV).  It does not depend on the
+    horizon."""
+    drawn = block_paths // 2 if antithetic else block_paths
+    floats = (TILE_K * (drawn + 4) + TILE_K * TILE_COLS
+              + block_paths * (TILE_COLS + 1)
+              + (2 if with_cv else 1) * block_paths)
     return 4 * floats
 
 
@@ -66,27 +73,31 @@ def supports(n_steps: int) -> bool:
     return 1 <= n_steps <= max_tiled_steps()
 
 
-def block_paths_for(rows: int) -> int:
+def block_paths_for(rows: int, antithetic: bool = False) -> int:
     """The CUDA path block for ``rows``: the largest of BLOCK_CHOICES that
-    divides it."""
-    for bp in BLOCK_CHOICES:
+    divides it; paired, the largest of PAIRED_BLOCK_CHOICES (members, half
+    of them drawn)."""
+    choices = PAIRED_BLOCK_CHOICES if antithetic else BLOCK_CHOICES
+    for bp in choices:
         if rows % bp == 0:
             return bp
-    raise ValueError(f"rows={rows} must divide by {BLOCK_CHOICES[-1]}")
+    raise ValueError(f"rows={rows} must divide by {choices[-1]}")
 
 
 # ---------------------------------------------------------------------------
 # Wrappers: plain version for CPU tensors, the kernel for CUDA tensors.
 
-def _plane_args(consts: pc.PathConsts, rows: int, key, noise):
+def _plane_args(consts: pc.PathConsts, rows: int, key, noise,
+                antithetic: bool = False):
     """(noise plane, seeded flag, block, key word) for a launch: the given
-    noise, or a workspace the seeded kernel fills from the stream."""
+    noise, or a workspace the seeded kernel fills from the stream (its
+    drawn rows only)."""
     pc.check_device_inputs(consts, noise)
-    bp = block_paths_for(rows)
+    bp = block_paths_for(rows, antithetic)
     if noise is not None:
         return noise, 0, bp, 0
-    plane = torch.empty((2, rows, consts.n_steps), dtype=torch.float32,
-                        device=consts.device)
+    plane = torch.empty((2, pc.drawn_rows(rows, antithetic), consts.n_steps),
+                        dtype=torch.float32, device=consts.device)
     return plane, 1, bp, key & pc._U32
 
 
@@ -120,36 +131,44 @@ tiled_pathgen.launches = 0
 
 def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
                        strike: float, is_call: bool, rows: int = None,
-                       key: int = None,
-                       noise: torch.Tensor = None) -> torch.Tensor:
+                       key: int = None, noise: torch.Tensor = None,
+                       antithetic: bool = False, with_cv: bool = False):
     """K7: the chunk's discounted payoff sum (0-d float32 tensor) under
     the log_boundary_rows ``table``, from the seeded stream of ``key`` or
-    from injected ``noise``; the same function as
-    ``pathgen_cuda.priced_chunk``.  Each block writes one partial sum and
-    the blocks are summed in a fixed order."""
-    rows = pc._noise_or_rows(consts, rows, key, noise)
+    from injected ``noise``, and with ``with_cv`` the control sum beside
+    it; the same function as ``pathgen_cuda.priced_chunk`` in each form
+    (``antithetic``: rows / 2 drawn rows, noise [2, rows / 2, n_steps]).
+    Each block writes one partial sum per lane and the blocks are summed
+    in a fixed order."""
+    rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
     if table.shape[0] < 3 or table.shape[1] < consts.n_steps:
         raise ValueError("table must be [8, >= n_steps] (log_boundary_rows)")
     if consts.device.type == "cpu":
         if noise is None:
-            noise = pc.philox_normals_ref(key, rows, consts.n_steps)
+            noise = pc.philox_normals_ref(
+                key, pc.drawn_rows(rows, antithetic), consts.n_steps)
         return priced_chunk_from_noise_ref(consts, table, noise, strike,
-                                           is_call)
-    plane, seeded, bp, word = _plane_args(consts, rows, key, noise)
+                                           is_call, antithetic, with_cv)
+    plane, seeded, bp, word = _plane_args(consts, rows, key, noise,
+                                          antithetic)
     pc.check_device_inputs(consts, None, table)
-    partial = torch.empty((rows // bp,), dtype=torch.float32,
-                          device=consts.device)
+    partial = torch.empty((2 if with_cv else 1, rows // bp),
+                          dtype=torch.float32, device=consts.device)
     from ..kernels import build
 
     err = build.load().mcop_tiled_priced_chunk(
         plane.data_ptr(), seeded, consts.lt_half.data_ptr(),
         consts.vd.data_ptr(), rows, consts.n_steps, bp, word,
         *pc._scalars(consts), table.data_ptr(), table.stride(0),
-        ctypes.c_float(strike), int(bool(is_call)), partial.data_ptr(),
+        ctypes.c_float(strike), int(bool(is_call)), int(bool(antithetic)),
+        int(bool(with_cv)), ctypes.c_float(pc.cv_discount(consts)),
+        partial.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, "tiled_priced_chunk")
     tiled_priced_chunk.launches += 1
-    return torch.sum(partial)
+    tiled_priced_chunk.form_launches[pc.form_name(antithetic, with_cv)] += 1
+    return pc.sums_from_partials(partial, with_cv)
 
 
 tiled_priced_chunk.launches = 0
+tiled_priced_chunk.form_launches = pc.new_form_counts()

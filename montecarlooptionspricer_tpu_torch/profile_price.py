@@ -8,8 +8,10 @@ K6 or K8, + the LSM fit) and the stream (tables + K2, K7 or K9 per chunk),
 first on the host clock without a profiler and then under
 ``torch.profiler``.  ``--tiled-impl`` passes through to ``StreamConfig``
 (``--steps 1825 --tiled-impl factored`` profiles K8/K9 where K6/K7 would
-run; ``--steps 4000`` takes K8/K9 by default).
-``--strikes`` prices that strike strip of the same
+run; ``--steps 4000`` takes K8/K9 by default).  ``--antithetic`` and
+``--control-variate`` pass through to ``StreamConfig`` too: the stream
+then runs that form of the priced kernel, and the fit adds the control's
+beta and centre.  ``--strikes`` prices that strike strip of the same
 expiry through ``StreamingChainPricer`` instead: the fit is one LSM
 backward pass over the strip, the stream K5 per chunk.  For each stage it
 prints one JSON line: host wall seconds, device kernel launches and busy
@@ -19,7 +21,8 @@ device time.
 
 Usage (one CUDA card):
   python -m montecarlooptionspricer_tpu_torch.profile_price [--steps N]
-      [--strikes 75,77.5,...,125] [--tiled-impl factored]
+      [--strikes 75,77.5,...,125] [--tiled-impl factored] [--antithetic]
+      [--control-variate]
 """
 
 from __future__ import annotations
@@ -62,6 +65,10 @@ def main(argv=None) -> int:
     parser.add_argument("--tiled-impl", default="auto",
                         choices=("auto", "slab", "factored"),
                         help="StreamConfig.tiled_impl")
+    parser.add_argument("--antithetic", action="store_true",
+                        help="StreamConfig.antithetic (single strikes)")
+    parser.add_argument("--control-variate", action="store_true",
+                        help="StreamConfig.control_variate (single strikes)")
     args = parser.parse_args(argv)
     steps = args.steps
     strikes = [float(v) for v in args.strikes.split(",") if v]
@@ -76,7 +83,9 @@ def main(argv=None) -> int:
     cfg = engine.StreamConfig(n_paths=76 << 17, n_steps=steps,
                               chunk_paths=1 << 17, pilot_paths=1 << 17,
                               dt=1.0 / 252.0, chunks_per_call=76,
-                              tiled_impl=args.tiled_impl)
+                              tiled_impl=args.tiled_impl,
+                              antithetic=args.antithetic,
+                              control_variate=args.control_variate)
     if strikes:
         pricer = engine.StreamingChainPricer(
             100.0, 0.04, 0.1, 1.5, -0.4, 0.04, strikes, steps / 252, False,
@@ -106,7 +115,8 @@ def main(argv=None) -> int:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         print(json.dumps({
             "stage": name, "n_steps": steps,
-            "n_strikes": len(strikes) or 1,
+            "n_strikes": len(strikes) or 1, "antithetic": args.antithetic,
+            "control_variate": args.control_variate,
             "kernel_family": pricer.kernel_family, "card": card,
             "wall_s": wall_plain,
             "wall_profiled_s": wall_prof, "device_launches": len(kernels),

@@ -155,7 +155,8 @@ def test_tiled_wrappers_reject_bad_inputs(cuda):
     from montecarlooptionspricer_tpu_torch.kernels import build
 
     for bp in ptc.BLOCK_CHOICES:      # the Python memory model is the card's
-        assert build.load().mcop_tiled_smem_bytes(bp) == ptc.smem_bytes(bp)
+        assert build.load().mcop_tiled_smem_bytes(bp, 0, 0) == \
+            ptc.smem_bytes(bp)
     consts = pc.make_path_consts(*MARKET.values(), 400, DT, cuda)
     table = torch.zeros((8, 512), device=cuda)
     with pytest.raises(ValueError):      # rows not a multiple of 16
@@ -433,3 +434,124 @@ def test_factored_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):      # table on the wrong device
         pfc.factored_priced_chunk(consts, table.cpu(), 100.0, False,
                                   rows=64, key=1)
+
+
+# ---------------------------------------------------------------------------
+# The estimator forms of K2, K7 and K9 (antithetic, control variate, both).
+
+FORMS = [(True, False), (False, True), (True, True)]
+
+
+def _fitted_table(consts, paths, n_steps, strike=100.0):
+    _, fits = engine.lsm_fit(paths, MARKET["r"], strike, n_steps * DT, DT,
+                             False)
+    return pc.log_boundary_rows(pc.boundary_rows(
+        fits, MARKET["r"], strike, n_steps * DT, DT, n_steps,
+        False)).contiguous()
+
+
+def _check_forms(priced, ref, consts, table, normals, rows, key):
+    """Each form of one priced kernel against its plain version, seeded
+    (so also against the stream's reference) and on noise: payoff and
+    control sums at rtol 1e-4 (a stop decision flips only inside the
+    float32 root band; the control sums order differs).  Paired, the
+    kernel on [planes, rows / 2, m] against its unpaired form on the
+    concatenated [X; -X] noise: each member's arithmetic is the unpaired
+    path's, so only the order of the block sums differs (rtol 1e-5)."""
+    for anti, cv in FORMS:
+        noise = normals(key, rows // 2 if anti else rows)
+        want = ref(consts, table, noise, 100.0, False, anti, cv)
+        want = want if cv else (want,)
+        form = dict(antithetic=anti, with_cv=cv)
+        for got in (priced(consts, table, 100.0, False, noise=noise, **form),
+                    priced(consts, table, 100.0, False, rows=rows, key=key,
+                           **form)):
+            torch.cuda.synchronize()
+            for g, w in zip(got if cv else (got,), want):
+                assert float(w) > 0
+                assert abs(float(g) / float(w) - 1.0) < 1e-4, (anti, cv)
+        if anti:
+            paired = priced(consts, table, 100.0, False, noise=noise, **form)
+            unpaired = priced(consts, table, 100.0, False,
+                              noise=torch.cat([noise, -noise], dim=1),
+                              with_cv=cv)
+            torch.cuda.synchronize()
+            for g, w in zip(paired if cv else (paired,),
+                            unpaired if cv else (unpaired,)):
+                assert abs(float(g) / float(w) - 1.0) < 1e-5, cv
+        del noise
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [96, 365])
+def test_k2_forms_match_plain_versions(cuda, n_steps):
+    """K2's antithetic, CV and paired-CV forms at the main path's chunk of
+    131072 rows (the paired blocks hold 128, 64 or 32 members)."""
+    rows, key = 1 << 17, pc._fold_words(5, 31)
+    consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda)
+    table = _fitted_table(consts, pc.pathgen(consts, rows=1 << 14, key=key),
+                          n_steps)
+    assert pc.priced_block_paths(consts, rows, True, True) == 128
+    _check_forms(pc.priced_chunk, pc.priced_chunk_from_noise_ref, consts,
+                 table, lambda k, r: pc.philox_normals_ref(
+                     k, r, n_steps, device=cuda), rows, key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [1825, 300])
+def test_k7_forms_match_plain_versions(cuda, n_steps):
+    """K7's forms at 131072 rows; 300 steps crosses three step tiles."""
+    rows, key = 1 << 17, pc._fold_words(5, 37)
+    consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda)
+    table = _fitted_table(
+        consts, ptc.tiled_pathgen(consts, rows=1 << 14, key=key), n_steps)
+    _check_forms(ptc.tiled_priced_chunk, ptc.priced_chunk_from_noise_ref,
+                 consts, table, lambda k, r: pc.philox_normals_ref(
+                     k, r, n_steps, device=cuda), rows, key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps,rows", [(1825, 1 << 17), (4000, 1 << 17),
+                                          (8192, 1 << 14)])
+def test_k9_forms_match_plain_versions(cuda, n_steps, rows):
+    """K9's forms at 131072 rows; at 8192 steps a paired block holds one
+    drawn path and its partner (16384 rows keep the plain version's
+    planes in memory).  The CV forms scan every path to its last step
+    after the first hit."""
+    key = pc._fold_words(5, 41)
+    consts = pfc.make_factored_consts(*MARKET.values(), n_steps, DT, cuda)
+    table = _fitted_table(
+        consts, pfc.factored_pathgen(consts, rows=1 << 13, key=key), n_steps)
+    _check_forms(pfc.factored_priced_chunk,
+                 pfc.factored_priced_chunk_from_noise_ref, consts, table,
+                 lambda k, r: pfc.philox_factored_normals_ref(
+                     k, r, n_steps, device=cuda), rows, key)
+
+
+@pytest.mark.gpu
+def test_form_wrappers_reject_bad_inputs(cuda):
+    """Odd path counts and blocks that do not fill under pairing raise
+    before a launch; the tiled kernels' memory model is the card's in
+    every form."""
+    from montecarlooptionspricer_tpu_torch.kernels import build
+
+    for bp in ptc.PAIRED_BLOCK_CHOICES:
+        for cv in (0, 1):
+            assert build.load().mcop_tiled_smem_bytes(bp, 1, cv) == \
+                ptc.smem_bytes(bp, True, bool(cv))
+    consts = pc.make_path_consts(*MARKET.values(), 96, DT, cuda)
+    table = torch.zeros((8, 128), device=cuda)
+    with pytest.raises(ValueError):      # odd rows
+        pc.priced_chunk(consts, table, 100.0, False, rows=65, key=1,
+                        antithetic=True)
+    with pytest.raises(ValueError):      # no paired block divides 48 rows
+        pc.priced_chunk(consts, table, 100.0, False, rows=48, key=1,
+                        antithetic=True)
+    with pytest.raises(ValueError):
+        ptc.tiled_priced_chunk(consts, table, 100.0, False, rows=48, key=1,
+                               antithetic=True)
+    fconsts = pfc.make_factored_consts(*MARKET.values(), 400, DT, cuda)
+    ftable = torch.zeros((8, 512), device=cuda)
+    with pytest.raises(ValueError):      # 4 drawn rows, 8 paths a block
+        pfc.factored_priced_chunk(fconsts, ftable, 100.0, False, rows=8,
+                                  key=1, antithetic=True)
