@@ -3,7 +3,7 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, all started together), holds each kernel against its plain
-PyTorch version at its path's shapes, and drives seven full-width
+PyTorch version at its path's shapes, and drives full-width
 fit-then-stream runs through the kernels, each with the launch counts set
 to 0 just before it and read just after:
 
@@ -36,7 +36,24 @@ to 0 just before it and read just after:
   pilot kernel once and its form 76 times, its first 8 chunks checked
   against the plain versions under the same fits (and beta and centre),
   and its price held within 5 combined stderr of the plain estimator's
-  price of the same seed, with the variance ratio (se_plain / se)^2 > 1.
+  price of the same seed, with the variance ratio (se_plain / se)^2 > 1;
+* the pair forms of the chain and Greeks kernels: K5/anti, K3/anti and
+  K4/anti against their plain versions and their unpaired forms on the
+  negated noise (``k5_anti``, ``k3_k4_anti``), then the paired strip
+  (``chain_anti``: K1, one batched fit, K5/anti 76 times, its first 8
+  chunks against the plain versions, strike 105 within 5 combined stderr
+  of ``price_anti``, each strike's variance ratio against the plain
+  strip) and the paired Greeks of the bench option and the strip
+  (``greeks_anti``, ``chain_greeks_anti``: K1 and K3/anti or K4/anti 76
+  times, price lanes against ``chain_anti``);
+* K5 and K5/anti past the single tile, at 400 and 512 steps, against
+  their plain versions (``chain_past_tile``);
+* the generic path stream, which launches no kernel: the strip at 1825
+  steps, plain and paired, at full width (``chain_stream``, strike 105
+  within 5 combined stderr of ``price_long``), 10,000 steps, past K8, on
+  the FFT synthesis against the matmul synthesis on the same noise and
+  fits (``stream_xlong``), and a cubic policy at 365 steps against its
+  fits on independent plain K1 paths (``stream_poly3``).
 
 It also times K2 against K7 per chunk across horizons (the crossover that
 sets engine.SINGLE_TILE_MAX_STEPS) and times each kernel and form (K8 and
@@ -87,6 +104,15 @@ FACTORED_STEPS = (LONG_STEPS, XLONG_STEPS)
 # s0, deep in and out of the money (the top strikes exercise at time 0).
 STRIP = tuple(75.0 + 2.5 * i for i in range(21))
 CHAIN_CHECKED = 8
+# K5 past the single tile: the strip's pilot runs on K6 there.
+PAST_TILE_STEPS = (400, 512)
+# The generic path stream past K8's 8,192 steps: a few chunks of 16384
+# (the FFT synthesis's complex plane at 10,000 steps is 2.1 GB a chunk).
+XLONG_STREAM_STEPS = 10_000
+XLONG_STREAM_CHUNK = 1 << 14
+XLONG_STREAM_CHUNKS = 4
+# Chunks of plain K1 paths that price the cubic policy's reference.
+POLY3_CHECKED = 16
 
 # Tolerances.  Paths: the kernel and the plain version sum the fGN product
 # and the log-price recursion in different orders (float32), ~2e-4
@@ -156,6 +182,10 @@ REPLACES = {
         "montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py:330",
     "K9/anti+cv":
         "montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py:330",
+    # The pair forms of the chain and Greeks kernels: their pair branches.
+    "K5/anti": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:432",
+    "K3/anti": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:849",
+    "K4/anti": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:849",
 }
 SOURCES = {
     "pathgen": "montecarlooptionspricer_tpu_torch/csrc/pathgen.cu",
@@ -176,11 +206,15 @@ SOURCES = {
        for f in ("anti", "cv", "anti+cv")},
     **{f"K9/{f}": "montecarlooptionspricer_tpu_torch/csrc/pathgen_factored.cu"
        for f in ("anti", "cv", "anti+cv")},
+    "K5/anti": "montecarlooptionspricer_tpu_torch/csrc/chain.cu",
+    "K3/anti": "montecarlooptionspricer_tpu_torch/csrc/greeks.cu",
+    "K4/anti": "montecarlooptionspricer_tpu_torch/csrc/greeks.cu",
 }
 # The priced wrappers whose launches count per form: the plain form keeps
 # the wrapper's name, the others are keyed kernel/form.
 FORM_WRAPPERS = {"K2": "priced_chunk", "K7": "tiled_priced_chunk",
-                 "K9": "factored_priced_chunk"}
+                 "K9": "factored_priced_chunk", "K5": "priced_chain",
+                 "K3": "greeks_chunk", "K4": "chain_greeks_chunk"}
 
 
 def expected_counts(**nonzero) -> dict:
@@ -343,20 +377,22 @@ def device_launches(torch, fn) -> int:
 
 
 def plain_chain_means(torch, pc, cc, engine, chain, fits, seed: int,
-                      n_chunks: int):
+                      n_chunks: int, antithetic: bool = False):
     """Per-strike mean discounted payoff of the first n_chunks chunks of
     seed's stream under the strip's ``fits``, through the plain versions
-    (time-0 exercise decided per strike as the engine decides it)."""
+    (time-0 exercise decided per strike as the engine decides it; each
+    drawn row priced as a pair ``antithetic``)."""
     consts, dev = chain.consts, chain.device
     _, (run, start) = engine._pilot_stream_keys(seed)
     tables = chain._tables(fits, chain.strikes)
     ex0, p0 = pc.time0_value(fits, MARKET["s0"], chain.strikes, IS_CALL)
     total = torch.zeros(len(STRIP), dtype=torch.float64, device=dev)
     for i in range(n_chunks):
-        noise = pc.philox_normals_ref(pc._fold_words(run, start + i), CHUNK,
+        noise = pc.philox_normals_ref(pc._fold_words(run, start + i),
+                                      CHUNK // 2 if antithetic else CHUNK,
                                       consts.n_steps, device=dev)
         total += cc.priced_chain_from_noise_ref(consts, tables, noise,
-                                                IS_CALL).double()
+                                                IS_CALL, antithetic).double()
     mean = total / (n_chunks * CHUNK)
     return torch.where(ex0, p0.double(), mean).cpu().numpy()
 
@@ -369,7 +405,7 @@ def chain_and_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
     K3 per strike), then the strip's price, the bench option's Greeks and
     the strip's Greeks at full width through them.  ``price`` and
     ``stderr`` are the main path's.  Returns their entries of the kernels
-    line and their times."""
+    line, their times and the strip's (prices, stderrs)."""
     import numpy as np
 
     chain = engine.StreamingChainPricer(**MARKET, strikes=STRIP,
@@ -616,7 +652,7 @@ def chain_and_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
                       times["k4_plain_ms"], *k4_b, abs_k4, lib2_ms)]
     for name, (b, _) in (("k5", k5_b), ("k3", k3_b), ("k4", k4_b)):
         times[name + "_bound_ms"] = b
-    return records, times
+    return records, times, (prices, stderrs)
 
 
 def threshold_table(torch, n: int, dev):
@@ -1101,7 +1137,7 @@ def vr_price_phase(torch, pc, engine, smi, dev, name: str, kernel: str,
     estimator's ``plain`` = (price, stderr, stream seconds) of the same
     seed: within 5 combined stderr, with the variance ratio
     (se_plain / se)^2 > 1 and the ratio per stream second.  Returns the
-    form's key and its launches in price()."""
+    form's key, its launches in price() and (price, stderr)."""
     anti = form.get("antithetic", False)
     cv = form.get("control_variate", False)
     key = f"{kernel}/{pc.form_name(anti, cv)}"
@@ -1149,7 +1185,7 @@ def vr_price_phase(torch, pc, engine, smi, dev, name: str, kernel: str,
     check(sigmas <= STDERR_SIGMAS,
           f"{name} is {sigmas:.2f} combined stderr from the plain price")
     check(ratio > 1.0, f"{name}: variance ratio {ratio} <= 1")
-    return key, launches[key]
+    return key, launches[key], (price, stderr)
 
 
 VR_FORMS = (("anti", dict(antithetic=True)),
@@ -1163,7 +1199,8 @@ def estimator_phases(torch, pc, ptc, pfc, engine, smi, dev, key, pricer,
     against its plain version (``forms_phase``), then the nine estimator
     prices (``vr_price_phase``) against the plain runs ``plain_runs``
     {steps: (fits, price, stderr, stream seconds)}.  Returns the forms'
-    entries of the kernels line."""
+    entries of the kernels line and each price's (price, stderr) by
+    phase name."""
     def matmul_ms(lt, n):
         def library(anti):
             a = torch.randn((CHUNK // 2 if anti else CHUNK, n), device=dev)
@@ -1224,7 +1261,7 @@ def estimator_phases(torch, pc, ptc, pfc, engine, smi, dev, key, pricer,
 
     prefix = {N_STEPS: "price", LONG_STEPS: "price_long",
               XLONG_STEPS: "price_xlong"}
-    records = []
+    records, prices = [], {}
     for kernel, pilot, n, phase, priced, ref, consts, stream, lib, bound \
             in families:
         times = forms_phase(
@@ -1237,7 +1274,7 @@ def estimator_phases(torch, pc, ptc, pfc, engine, smi, dev, key, pricer,
             name = f"{prefix[n]}_{suffix}"
             if n != N_STEPS and suffix == "anti_cv":
                 name = f"{prefix[n]}_vr"
-            form_key, count = vr_price_phase(
+            form_key, count, prices[name] = vr_price_phase(
                 torch, pc, engine, smi, dev, name, kernel, n, form, pilot,
                 plain_runs[n][1:], stream, ref, reset_counts, read_counts)
             launches[form_key] = count
@@ -1246,7 +1283,480 @@ def estimator_phases(torch, pc, ptc, pfc, engine, smi, dev, key, pricer,
                                          t["plain_ms"], t["bound_ms"],
                                          t["bound_by"], t["max_abs_err"],
                                          t["library_ms"]))
+    return records, prices
+
+
+def pair_phases(torch, pc, cc, gc, engine, smi, dev, key, pricer,
+                strip_plain: tuple, price_anti: tuple, reset_counts,
+                read_counts) -> list:
+    """The pair forms K5/anti, K3/anti and K4/anti at the bench shape:
+    each against its plain version (seeded and on noise) and against its
+    unpaired form on the negated noise [X; -X]; then the paired strip
+    (``chain_anti``), the paired Greeks of the bench option
+    (``greeks_anti``) and of the strip (``chain_greeks_anti``) at full
+    width, each with its launches read around it.  ``strip_plain`` is
+    (prices, stderrs) of the plain strip, ``price_anti`` (price, stderr)
+    of the paired single strike.  Returns their entries of the kernels
+    line."""
+    import dataclasses
+
+    import numpy as np
+
+    cfg = dataclasses.replace(pricer.config, antithetic=True)
+    chain = engine.StreamingChainPricer(**MARKET, strikes=STRIP,
+                                        maturity=MATURITY, is_call=IS_CALL,
+                                        config=cfg, device=dev)
+    one = engine.StreamingPricer(**MARKET, strike=STRIKE, maturity=MATURITY,
+                                 is_call=IS_CALL, config=cfg, device=dev)
+    consts, g = chain.consts, chain.greeks_consts
+    i_k = STRIP.index(STRIKE)
+    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    fits = chain.fit(k_pilot)
+    tables = chain._tables(fits, chain.strikes)
+    logs = pc.log_boundary_rows(tables).contiguous()
+    half = pc.philox_normals_ref(key, CHUNK // 2, N_STEPS, device=dev)
+    doubled = torch.cat([half, -half], dim=1)
+
+    # K5/anti against its plain version and its unpaired form.
+    want = cc.priced_chain_from_noise_ref(consts, tables, half, IS_CALL, True)
+    got_n = cc.priced_chain(consts, tables, IS_CALL, noise=half,
+                            antithetic=True)
+    got_s = cc.priced_chain(consts, tables, IS_CALL, rows=CHUNK, key=key,
+                            antithetic=True)
+    unpaired = cc.priced_chain(consts, tables, IS_CALL, noise=doubled)
+    torch.cuda.synchronize()
+    k5 = {"noise_in_rel_err": scaled_err(torch, got_n, want),
+          "seeded_rel_err": scaled_err(torch, got_s, want),
+          "pair_rel_err": scaled_err(torch, got_n, unpaired)}
+    abs_k5 = float(torch.max(torch.abs(got_s - want)))
+    emit({"phase": "k5_anti", "rows": CHUNK, "n_steps": N_STEPS,
+          "block_paths": cc.block_paths_for(N_STEPS, CHUNK, True), **k5,
+          "rtol": SUM_RTOL, "pair_rtol": PAIR_RTOL})
+    check(k5["noise_in_rel_err"] <= SUM_RTOL
+          and k5["seeded_rel_err"] <= SUM_RTOL,
+          "K5/anti disagrees with its plain version")
+    check(k5["pair_rel_err"] <= PAIR_RTOL,
+          "K5/anti disagrees with unpaired K5 on [X; -X]")
+
+    # K3/anti and K4/anti likewise.
+    want_g = gc.greeks_from_noise_ref(consts, g, logs, chain.strikes, half,
+                                      IS_CALL, True)
+    errs, abs_g = {}, {}
+    for name, run, ref in (
+            ("k3", lambda **kw: gc.greeks_chunk(
+                consts, g, logs[i_k], STRIKE, IS_CALL, **kw)[:, None],
+             want_g[:, i_k:i_k + 1]),
+            ("k4", lambda **kw: gc.chain_greeks_chunk(
+                consts, g, logs, IS_CALL, **kw), want_g)):
+        got_n = run(noise=half, antithetic=True)
+        got_s = run(rows=CHUNK, key=key, antithetic=True)
+        unp = run(noise=doubled)
+        torch.cuda.synchronize()
+        errs[name] = {"noise_in_rel_err": scaled_err(torch, got_n, ref),
+                      "seeded_rel_err": scaled_err(torch, got_s, ref),
+                      "pair_rel_err": scaled_err(torch, got_n, unp)}
+        abs_g[name] = float(torch.max(torch.abs(got_s - ref)))
+        check(errs[name]["noise_in_rel_err"] <= GREEKS_RTOL
+              and errs[name]["seeded_rel_err"] <= GREEKS_RTOL,
+              f"{name.upper()}/anti disagrees with its plain version")
+        check(errs[name]["pair_rel_err"] <= PAIR_RTOL,
+              f"{name.upper()}/anti disagrees with its unpaired form")
+    emit({"phase": "k3_k4_anti", "rows": CHUNK, "n_steps": N_STEPS,
+          "block_paths": gc.block_paths_for(N_STEPS, CHUNK, True),
+          "checks": errs, "rtol": GREEKS_RTOL, "pair_rtol": PAIR_RTOL})
+    del doubled, unpaired
+
+    # The paired strip at full width: K1 once, one batched fit, K5/anti.
+    reset_counts()
+    (prices, stderrs), wall = timed(
+        torch, lambda: chain.price(SEED, with_stderr=True))
+    launches = read_counts()
+    _, fit_s = timed(torch, lambda: chain.fit(k_pilot))
+    _, stream_s = timed(torch, lambda: chain.price_with_fit(fits, SEED))
+    checked = chain.price_with_fit(fits, SEED, n_paths=CHAIN_CHECKED * CHUNK)
+    checked_plain = plain_chain_means(torch, pc, cc, engine, chain, fits,
+                                      SEED, CHAIN_CHECKED, antithetic=True)
+    checked_rel = scaled_err(torch, torch.from_numpy(checked),
+                             torch.from_numpy(checked_plain))
+    p_plain, se_plain = strip_plain
+    live = stderrs > 0          # time-0 strikes have no variance
+    ratios = np.where(live, (se_plain / np.where(live, stderrs, 1.0)) ** 2,
+                      np.nan)
+    p_k, se_k = float(prices[i_k]), float(stderrs[i_k])
+    sigmas = abs(p_k - price_anti[0]) / math.hypot(se_k, price_anti[1])
+    n_paths = CHUNK * N_CHUNKS
+    emit({"phase": "chain_anti", "card": smi, "n_paths": n_paths,
+          "n_steps": N_STEPS, "strikes": list(STRIP),
+          "prices": prices.tolist(), "stderrs": stderrs.tolist(),
+          "wall_s": wall, "paths_strikes_per_s": n_paths * len(STRIP) / wall,
+          "fit_s": fit_s, "stream_s": stream_s, "launches": launches,
+          "checked_chunks": CHAIN_CHECKED, "checked_rel_err": checked_rel,
+          "rtol": SUM_RTOL, "strike": STRIKE, "price_at_strike": p_k,
+          "stderr_at_strike": se_k, "price_anti": list(price_anti),
+          "combined_stderrs_apart": sigmas, "limit": STDERR_SIGMAS,
+          "variance_ratio_per_strike": [
+              None if not math.isfinite(v) else float(v) for v in ratios]})
+    check(launches == expected_counts(pathgen=1, **{"K5/anti": N_CHUNKS}),
+          f"chain_anti launches {launches}, want K1 once and K5/anti "
+          f"{N_CHUNKS} times")
+    check(bool(np.all(np.isfinite(prices))) and bool(np.all(prices > 0)),
+          "paired chain prices not finite and positive")
+    check(bool(np.all(np.diff(prices) > 0)),
+          "paired put prices do not rise with the strike")
+    check(checked_rel <= SUM_RTOL,
+          "paired chain prices disagree with the plain path")
+    check(sigmas <= STDERR_SIGMAS,
+          f"strike {STRIKE} of the paired strip is {sigmas:.2f} combined "
+          "stderr from price_anti")
+    check(ratios[i_k] > 1.0,
+          f"paired strike {STRIKE}'s variance is not below the plain "
+          "strip's")
+
+    # The paired Greeks of the bench option (K3/anti) and of the strip
+    # (K4/anti) at full width, their price lanes against the paired strip.
+    reset_counts()
+    (greeks, greeks_se), g_wall = timed(
+        torch, lambda: one.price_and_greeks(SEED, with_stderr=True))
+    g_launches = read_counts()
+    g_rel = abs(greeks[0] / p_k - 1.0)
+    emit({"phase": "greeks_anti", "card": smi, "n_paths": n_paths,
+          "greeks": dict(zip(gc.GREEK_ORDER, greeks)),
+          "stderrs": dict(zip(gc.GREEK_ORDER, greeks_se)), "wall_s": g_wall,
+          "paths_per_s": n_paths / g_wall, "launches": g_launches,
+          "price_lane_rel_err": g_rel, "rtol": SUM_RTOL})
+    check(g_launches == expected_counts(pathgen=1,
+                                        **{"K3/anti": N_CHUNKS}),
+          f"greeks_anti launches {g_launches}, want K1 once and K3/anti "
+          f"{N_CHUNKS} times")
+    check(all(math.isfinite(v) for v in (*greeks, *greeks_se)),
+          "non-finite paired Greeks")
+    check(g_rel <= SUM_RTOL,
+          "the paired Greeks' price lane disagrees with chain_anti")
+    reset_counts()
+    (cg, cg_se), cg_wall = timed(
+        torch, lambda: chain.price_and_greeks(SEED, with_stderr=True))
+    cg_launches = read_counts()
+    cg_rel = scaled_err(torch, torch.from_numpy(cg[0]),
+                        torch.from_numpy(prices))
+    emit({"phase": "chain_greeks_anti", "card": smi, "n_paths": n_paths,
+          "strikes": list(STRIP),
+          "greeks": {n: row.tolist() for n, row in zip(gc.GREEK_ORDER, cg)},
+          "wall_s": cg_wall, "paths_per_s": n_paths / cg_wall,
+          "launches": cg_launches, "price_row_rel_err": cg_rel,
+          "rtol": SUM_RTOL})
+    check(cg_launches == expected_counts(pathgen=1,
+                                         **{"K4/anti": N_CHUNKS}),
+          f"chain_greeks_anti launches {cg_launches}, want K1 once and "
+          f"K4/anti {N_CHUNKS} times")
+    check(bool(np.all(np.isfinite(cg))) and bool(np.all(np.isfinite(cg_se))),
+          "non-finite paired chain Greeks")
+    check(cg_rel <= SUM_RTOL, "the paired chain Greeks' price row disagrees "
+          "with chain_anti's prices")
+
+    # Times at the bench shape; bounds count this chunk's swept cells on
+    # the paired paths, the products once per pair.
+    ls = pc._log_paths_ref(consts, half, antithetic=True)
+    k5_swept = swept_cells(torch, torch.exp(ls), tables[:, 0, :N_STEPS],
+                           tables[:, 1, :N_STEPS])
+    k4_swept = swept_cells(torch, ls, logs[:, 0, :N_STEPS],
+                           logs[:, 1, :N_STEPS])
+    k3_swept = swept_cells(torch, ls, logs[i_k:i_k + 1, 0, :N_STEPS],
+                           logs[i_k:i_k + 1, 1, :N_STEPS])
+    del ls
+    blocks_k5 = CHUNK // cc.block_paths_for(N_STEPS, CHUNK, True)
+    blocks_g = CHUNK // gc.block_paths_for(N_STEPS, CHUNK, True)
+    k_n = len(STRIP)
+    bounds = {
+        "K5/anti": bound_ms(CHUNK, N_STEPS, 4 * blocks_k5 * k_n,
+                            policy_rows=1 + 4 * k_n, swept=k5_swept,
+                            antithetic=True),
+        "K3/anti": bound_ms(CHUNK, N_STEPS, 4 * blocks_g * 6, products=2,
+                            per_cell=18.0, policy_rows=3 + 2,
+                            swept=k3_swept, antithetic=True),
+        "K4/anti": bound_ms(CHUNK, N_STEPS, 4 * blocks_g * 6 * k_n,
+                            products=2, per_cell=18.0,
+                            policy_rows=3 + 2 * k_n, swept=k4_swept,
+                            antithetic=True)}
+
+    def normals():
+        return pc.philox_normals_ref(key, CHUNK // 2, N_STEPS, device=dev)
+
+    runs = {
+        "K5/anti": (lambda: cc.priced_chain(consts, tables, IS_CALL,
+                                            rows=CHUNK, key=key,
+                                            antithetic=True),
+                    lambda: cc.priced_chain_from_noise_ref(
+                        consts, tables, normals(), IS_CALL, True)),
+        "K3/anti": (lambda: gc.greeks_chunk(consts, g, logs[i_k], STRIKE,
+                                            IS_CALL, rows=CHUNK, key=key,
+                                            antithetic=True),
+                    lambda: gc.greeks_from_noise_ref(
+                        consts, g, logs[i_k:i_k + 1],
+                        chain.strikes[i_k:i_k + 1], normals(), IS_CALL,
+                        True)),
+        "K4/anti": (lambda: gc.chain_greeks_chunk(consts, g, logs, IS_CALL,
+                                                  rows=CHUNK, key=key,
+                                                  antithetic=True),
+                    lambda: gc.greeks_from_noise_ref(
+                        consts, g, logs, chain.strikes, normals(), IS_CALL,
+                        True))}
+    a = torch.randn((CHUNK // 2, N_STEPS), device=dev)
+    lib1 = time_ms(torch, lambda: torch.matmul(a, consts.lt_half), reps=20)
+    lib2 = time_ms(torch, lambda: (torch.matmul(a, consts.lt_half),
+                                   torch.matmul(a, g.dlt_half)), reps=20)
+    del a, half
+    counts = {"K5/anti": launches["K5/anti"],
+              "K3/anti": g_launches["K3/anti"],
+              "K4/anti": cg_launches["K4/anti"]}
+    errs_abs = {"K5/anti": abs_k5, "K3/anti": abs_g["k3"],
+                "K4/anti": abs_g["k4"]}
+    libs = {"K5/anti": lib1, "K3/anti": lib2, "K4/anti": lib2}
+    records, times = [], {}
+    for name, (run, plain) in runs.items():
+        ms, plain_ms = time_ms(torch, run, 10), time_ms(torch, plain, 3)
+        times[name] = {"ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bounds[name][0]}
+        records.append(kernel_record(name, counts, ms, plain_ms,
+                                     *bounds[name], errs_abs[name],
+                                     libs[name]))
+    emit({"phase": "times_anti", "card": smi, "library_call":
+          "torch.matmul [65536,365]x[365,365] float32 (the fGN product of "
+          "the drawn rows only; K3/K4: with [365,365] dLt' too)",
+          "library_one_product_ms": lib1, "library_two_products_ms": lib2,
+          "k5_swept_cells": k5_swept, "k3_swept_cells": k3_swept,
+          "k4_swept_cells": k4_swept, "kernels": times,
+          "chain_anti_fit_s": fit_s, "chain_anti_stream_s": stream_s})
     return records
+
+
+def chain_past_tile_phase(torch, pc, cc, engine, smi, dev, key) -> None:
+    """K5 and K5/anti past the single tile, at 400 and 512 steps (the
+    strip's pilot runs on K6 there): each against its plain version,
+    seeded and on noise, and the pair against the unpaired form on
+    [X; -X], on the strip's tables fitted from a pilot at that horizon."""
+    checks = []
+    for n in PAST_TILE_STEPS:
+        cfg = engine.StreamConfig(n_paths=CHUNK, n_steps=n,
+                                  chunk_paths=CHUNK, pilot_paths=PILOT,
+                                  dt=DT)
+        chain = engine.StreamingChainPricer(**MARKET, strikes=STRIP,
+                                            maturity=n * DT,
+                                            is_call=IS_CALL, config=cfg,
+                                            device=dev)
+        check(chain.kernel_family == "tiled",
+              f"a {n}-step strip resolved to {chain.kernel_family!r}")
+        consts = chain.consts
+        tables = chain._tables(chain.fit(engine._pilot_stream_keys(SEED)[0]),
+                               chain.strikes)
+        for anti in (False, True):
+            noise = pc.philox_normals_ref(key, CHUNK // 2 if anti else CHUNK,
+                                          n, device=dev)
+            want = cc.priced_chain_from_noise_ref(consts, tables, noise,
+                                                  IS_CALL, anti)
+            got_n = cc.priced_chain(consts, tables, IS_CALL, noise=noise,
+                                    antithetic=anti)
+            got_s = cc.priced_chain(consts, tables, IS_CALL, rows=CHUNK,
+                                    key=key, antithetic=anti)
+            pair = None
+            if anti:
+                pair = scaled_err(torch, got_n, cc.priced_chain(
+                    consts, tables, IS_CALL,
+                    noise=torch.cat([noise, -noise], dim=1)))
+            torch.cuda.synchronize()
+            rec = {"n_steps": n, "antithetic": anti,
+                   "block_paths": cc.block_paths_for(n, CHUNK, anti),
+                   "noise_in_rel_err": scaled_err(torch, got_n, want),
+                   "seeded_rel_err": scaled_err(torch, got_s, want),
+                   "pair_rel_err": pair}
+            checks.append(rec)
+            del noise
+            check(rec["noise_in_rel_err"] <= SUM_RTOL
+                  and rec["seeded_rel_err"] <= SUM_RTOL,
+                  f"K5{'/anti' if anti else ''} disagrees with its plain "
+                  f"version at {n} steps")
+            check(pair is None or pair <= PAIR_RTOL,
+                  f"K5/anti disagrees with unpaired K5 at {n} steps")
+    emit({"phase": "chain_past_tile", "card": smi, "rows": CHUNK,
+          "n_strikes": len(STRIP), "checks": checks, "rtol": SUM_RTOL,
+          "pair_rtol": PAIR_RTOL})
+
+
+def stream_phases(torch, pc, engine, smi, dev, price_long: tuple,
+                  price_main: tuple, reset_counts, read_counts) -> None:
+    """The generic path stream, which no kernel runs: the 21-strike strip
+    at 1825 steps, plain and paired, at full width (``chain_stream``),
+    strike 105 against ``price_long`` = (price, stderr) of the K6/K7 run;
+    past K8's range, 10,000 steps on the FFT synthesis against the matmul
+    synthesis under the same fits (``stream_xlong``); and the cubic
+    policy at 365 steps against its own fits on independent plain K1 paths
+    (``stream_poly3``; ``price_main``, the quadratic policy's price, is
+    printed beside it).  Each price within 5 combined stderr."""
+    import dataclasses
+
+    import numpy as np
+
+    i_k = STRIP.index(STRIKE)
+    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    base = engine.StreamConfig(n_paths=CHUNK * LONG_CHUNKS,
+                               n_steps=LONG_STEPS, chunk_paths=CHUNK,
+                               pilot_paths=PILOT, dt=DT,
+                               chunks_per_call=LONG_CHUNKS)
+    runs = {}
+    for anti in (False, True):
+        cfg = dataclasses.replace(base, antithetic=anti)
+        chain = engine.StreamingChainPricer(**MARKET, strikes=STRIP,
+                                            maturity=LONG_MATURITY,
+                                            is_call=IS_CALL, config=cfg,
+                                            device=dev)
+        check(chain.kernel_family == "stream",
+              f"a {LONG_STEPS}-step strip resolved to "
+              f"{chain.kernel_family!r}")
+        # fit() and price_with_fit() are price()'s two stages, timed apart.
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        fits, fit_s = timed(torch, lambda: chain.fit(k_pilot))
+        (prices, stderrs), stream_s = timed(
+            torch, lambda: chain.price_with_fit(fits, SEED,
+                                                with_stderr=True))
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        wall = fit_s + stream_s
+        p_k, se_k = float(prices[i_k]), float(stderrs[i_k])
+        sigmas = abs(p_k - price_long[0]) / math.hypot(se_k, price_long[1])
+        n_paths = CHUNK * LONG_CHUNKS
+        runs[anti] = (prices, stderrs)
+        emit({"phase": "chain_stream", "card": smi, "antithetic": anti,
+              "n_paths": n_paths, "n_steps": LONG_STEPS,
+              "chunk_paths": CHUNK, "fgn_impl": chain.consts.fgn_impl,
+              "strikes": list(STRIP), "prices": prices.tolist(),
+              "stderrs": stderrs.tolist(), "wall_s": wall,
+              "paths_strikes_per_s": n_paths * len(STRIP) / wall,
+              "fit_s": fit_s, "stream_s": stream_s,
+              "peak_device_bytes": peak, "launches": launches,
+              "price_at_strike": p_k, "stderr_at_strike": se_k,
+              "price_long": list(price_long),
+              "combined_stderrs_apart": sigmas, "limit": STDERR_SIGMAS})
+        check(launches == expected_counts(),
+              f"chain_stream launched kernels: {launches}")
+        check(bool(np.all(np.isfinite(prices))) and bool(np.all(prices > 0))
+              and bool(np.all(np.diff(prices) > 0)),
+              "stream strip prices not finite, positive and rising")
+        check(sigmas <= STDERR_SIGMAS,
+              f"stream strike {STRIKE} is {sigmas:.2f} combined stderr from "
+              "price_long")
+        del chain
+    se_plain, se_anti = runs[False][1], runs[True][1]
+    live = se_anti > 0
+    ratio = np.where(live, (se_plain / np.where(live, se_anti, 1.0)) ** 2,
+                     np.nan)
+    emit({"phase": "chain_stream_pairs", "card": smi,
+          "variance_ratio_per_strike": [
+              None if not math.isfinite(v) else float(v) for v in ratio]})
+    check(ratio[i_k] > 1.0,
+          f"paired stream strike {STRIKE}'s variance is not below the "
+          "plain one's")
+
+    # Past K8's range: the FFT synthesis, its fits, and the matmul
+    # synthesis (the plain reference) on the same seed under those fits.
+    cfg = engine.StreamConfig(n_paths=XLONG_STREAM_CHUNK * XLONG_STREAM_CHUNKS,
+                              n_steps=XLONG_STREAM_STEPS,
+                              chunk_paths=XLONG_STREAM_CHUNK,
+                              pilot_paths=XLONG_STREAM_CHUNK, dt=DT,
+                              pathgen_impl="xla", fgn_impl="fft")
+    mat = XLONG_STREAM_STEPS * DT
+    fft = engine.StreamingPricer(**MARKET, strike=STRIKE, maturity=mat,
+                                 is_call=IS_CALL, config=cfg, device=dev)
+    check(fft.kernel_family == "stream", "10,000 steps did not resolve to "
+          "the stream")
+    reset_counts()
+    fits, fit_s = timed(torch, lambda: fft.fit(k_pilot))
+    (price, stderr), stream_s = timed(
+        torch, lambda: fft.price_with_fit(fits, SEED, with_stderr=True))
+    launches = read_counts()
+    ref = engine.StreamingPricer(
+        **MARKET, strike=STRIKE, maturity=mat, is_call=IS_CALL,
+        config=dataclasses.replace(cfg, fgn_impl="matmul"), device=dev)
+    (price_ref, se_ref), ref_s = timed(
+        torch, lambda: ref.price_with_fit(fits, SEED, with_stderr=True))
+    _, (run, start) = engine._pilot_stream_keys(SEED)
+    a = fft._stream_paths(rows=XLONG_STREAM_CHUNK, carrier=(run, start))
+    b = ref._stream_paths(rows=XLONG_STREAM_CHUNK, carrier=(run, start))
+    path_err = float(((a - b).abs() / b.abs()).max())
+    del a, b
+    sigmas = abs(price - price_ref) / math.hypot(stderr, se_ref)
+    emit({"phase": "stream_xlong", "card": smi,
+          "n_paths": XLONG_STREAM_CHUNK * XLONG_STREAM_CHUNKS,
+          "n_steps": XLONG_STREAM_STEPS, "fgn_impl": "fft", "price": price,
+          "stderr": stderr, "fit_s": fit_s, "stream_s": stream_s,
+          "launches": launches, "matmul_price_same_fits": price_ref, "matmul_stderr": se_ref,
+          "matmul_stream_s": ref_s, "first_chunk_path_rel_err": path_err,
+          "path_rtol": PATH_RTOL, "combined_stderrs_apart": sigmas,
+          "limit": STDERR_SIGMAS})
+    check(launches == expected_counts(),
+          f"stream_xlong launched kernels: {launches}")
+    check(math.isfinite(price) and 0.0 < price < STRIKE and stderr > 0.0,
+          f"stream_xlong price {price} +- {stderr} implausible")
+    check(path_err <= PATH_RTOL,
+          "the FFT and matmul syntheses disagree on the same noise")
+    check(sigmas <= STDERR_SIGMAS,
+          f"stream_xlong is {sigmas:.2f} combined stderr from the matmul run")
+    del fft, ref
+
+    # The cubic policy at the bench horizon, its fits also priced on
+    # independent paths of the plain K1 version (the chol law from Philox).
+    cfg = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
+                              chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                              chunks_per_call=N_CHUNKS, poly_order=3)
+    cubic = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                   maturity=MATURITY, is_call=IS_CALL,
+                                   config=cfg, device=dev)
+    reset_counts()
+    fits, fit_s = timed(torch, lambda: cubic.fit(k_pilot))
+    (price, stderr), stream_s = timed(
+        torch, lambda: cubic.price_with_fit(fits, SEED, with_stderr=True))
+    launches = read_counts()
+    ref, se_ref = plain_policy_price(torch, pc, engine, fits, POLY3_CHECKED)
+    sigmas = abs(price - ref) / math.hypot(stderr, se_ref)
+    emit({"phase": "stream_poly3", "card": smi, "n_paths": CHUNK * N_CHUNKS,
+          "n_steps": N_STEPS, "kernel_family": cubic.kernel_family,
+          "price": price, "stderr": stderr, "fit_s": fit_s,
+          "stream_s": stream_s,
+          "paths_per_s": CHUNK * N_CHUNKS / (fit_s + stream_s),
+          "launches": launches, "plain_k1_chunks": POLY3_CHECKED,
+          "plain_k1_price_same_fits": ref, "plain_k1_stderr": se_ref,
+          "combined_stderrs_apart": sigmas, "limit": STDERR_SIGMAS,
+          "quadratic_main_path_price": list(price_main)})
+    check(cubic.kernel_family == "stream" and launches == expected_counts(),
+          f"stream_poly3 ran {cubic.kernel_family!r} with {launches}")
+    check(math.isfinite(price) and 0.0 < price < STRIKE and stderr > 0.0,
+          f"stream_poly3 price {price} +- {stderr} implausible")
+    check(sigmas <= STDERR_SIGMAS,
+          f"stream_poly3 is {sigmas:.2f} combined stderr from the plain K1 "
+          "paths under its fits")
+
+
+def plain_policy_price(torch, pc, engine, fits, n_chunks: int) -> tuple:
+    """(price, stderr) of the bench option under ``fits`` (any order) on
+    n_chunks chunks of whole paths from the plain K1 version, seeded apart
+    from every other run (run word of seed SEED + 1)."""
+    import numpy as np
+
+    consts = pc.make_path_consts(MARKET["s0"], MARKET["xi"], MARKET["h"],
+                                 MARKET["eta"], MARKET["r"], N_STEPS, DT,
+                                 fits.mu.device)
+    _, (run, start) = engine._pilot_stream_keys(SEED + 1)
+    totals = []
+    for i in range(n_chunks):
+        paths = pc.pathgen_from_noise_ref(consts, pc.philox_normals_ref(
+            pc._fold_words(run, start + i), CHUNK, N_STEPS,
+            device=fits.mu.device))
+        totals.append(float(engine.lsm_policy_value(
+            paths, fits, MARKET["r"], STRIKE, MATURITY, DT, IS_CALL)[0]))
+        del paths
+    totals = np.asarray(totals)
+    return (float(totals.sum() / (n_chunks * CHUNK)),
+            float(engine._chunk_stderr(totals.sum(), (totals ** 2).sum(),
+                                       n_chunks, CHUNK)))
 
 
 def main() -> int:
@@ -1305,7 +1815,8 @@ def main() -> int:
         for kernel, wname in FORM_WRAPPERS.items():
             by_form = wrappers[wname].form_launches
             counts[wname] = by_form["plain"]
-            counts.update({f"{kernel}/{f}": by_form[f] for f in pc.FORMS[1:]})
+            counts.update({f"{kernel}/{f}": n for f, n in by_form.items()
+                           if f != "plain"})
         return counts
 
     # Phase 1: build.
@@ -1439,7 +1950,7 @@ def main() -> int:
     del a, table
 
     # Phases k5, chain_price, k3, k4, greeks and chain_greeks.
-    records, chain_times = chain_and_greeks_phases(
+    records, chain_times, strip_plain = chain_and_greeks_phases(
         torch, pc, cc, gc, engine, smi, dev, key, pricer, price, stderr,
         reset_counts, read_counts)
     kernels += records
@@ -1463,9 +1974,19 @@ def main() -> int:
                   LONG_STEPS: (long_fits, long_price, long_stderr,
                                long_stream_s),
                   XLONG_STEPS: xlong}
-    kernels += estimator_phases(torch, pc, ptc, pfc, engine, smi, dev, key,
-                                pricer, plain_runs, reset_counts,
-                                read_counts)
+    records, vr_prices = estimator_phases(
+        torch, pc, ptc, pfc, engine, smi, dev, key, pricer, plain_runs,
+        reset_counts, read_counts)
+    kernels += records
+
+    # The pair forms of K5, K3 and K4, K5 past the single tile, and the
+    # generic path stream.
+    kernels += pair_phases(torch, pc, cc, gc, engine, smi, dev, key, pricer,
+                           strip_plain, vr_prices["price_anti"],
+                           reset_counts, read_counts)
+    chain_past_tile_phase(torch, pc, cc, engine, smi, dev, key)
+    stream_phases(torch, pc, engine, smi, dev, (long_price, long_stderr),
+                  (price, stderr), reset_counts, read_counts)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,14 +5,19 @@ single-strike, ``--strikes`` and ``--greeks`` branches of
 ``--antithetic`` and ``--control-variate`` estimators).
 
 Runs on the CUDA device unless ``--device cpu`` is given; there is no
-fallback to another device or generator.  Prints one JSON line; a
-non-finite number prints as null.
+fallback to another device or generator.  Prints one JSON line, with the
+kernel family the run took (``engine.resolve_kernel_family``: "single",
+"tiled", "factored" or "stream"); a non-finite number prints as null.
+The path counts round as the JAX CLI's do: the chunk down to a multiple of
+256 (at least 256), the path count down to a multiple of the chunk.
 
 Examples (the second, past the single-tile horizon, runs the step-tiled
 kernels; the third, past their 3,620 steps, the factored-DFT kernels of the
 spectral law, up to 8,192 steps; the fourth prices a 21-strike strip with
 implied vols, the fifth adds per-strike Greeks, the sixth prices with
-antithetic pairs and the martingale control variate):
+antithetic pairs and the martingale control variate, the seventh prices
+the strip's Greeks with antithetic pairs, the eighth a 1825-step strip on
+the generic path stream, past the chain kernel's 512 steps):
   mcop-price-torch --strike 105 --put --maturity 1.448 --steps 365 \\
       --paths 1e7 --chunk-paths 131072 --pilot-paths 131072
   mcop-price-torch --strike 105 --put --maturity 7.242 --steps 1825 \\
@@ -24,10 +29,16 @@ antithetic pairs and the martingale control variate):
   mcop-price-torch --strikes 95,100,105 --greeks --put --maturity 1.448
   mcop-price-torch --strike 105 --put --maturity 1.448 --steps 365 \\
       --paths 1e7 --antithetic --control-variate
+  mcop-price-torch --strikes 95,100,105 --greeks --antithetic --put \\
+      --maturity 1.448
+  mcop-price-torch --strikes 75,77.5,80,...,125 --put --maturity 7.242 \\
+      --steps 1825 --paths 1e7 --antithetic
 
-``--antithetic`` prices single strikes only (the chain and Greeks kernels
-have no pair form yet, ROADMAP A5); ``--control-variate`` prices single
-strikes, and with ``--greeks`` gives the plain Greeks, as the JAX CLI does.
+``--antithetic`` pairs every quote: single strikes, ``--strikes`` and
+``--greeks``.  ``--control-variate`` prices single strikes, and with
+``--greeks`` gives the plain Greeks, as the JAX CLI does.  ``--pathgen
+xla`` prices on the generic path stream, as the JAX CLI's XLA generator
+does (Greeks there need the jvp Greeks, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -68,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--chunk-paths", type=int, default=1 << 17)
     p.add_argument("--pilot-paths", type=int, default=0,
-                   help="pilot policy-fit paths (0 = min(65536, chunk))")
+                   help="pilot policy-fit paths (0 = min(65536, chunk)); "
+                        "a multiple of 16, of 32 with --antithetic")
     p.add_argument("--strikes", default="",
                    help="comma-separated strike strip: prices, stderrs and "
                         "implied vols of one expiry on shared paths")
@@ -80,8 +92,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "fitted on the pilot); single strikes only")
     p.add_argument("--antithetic", action="store_true",
                    help="antithetic pairing: each chunk prices chunk/2 "
-                        "pairs (N, W), (-N, -W) from half the draws; single "
-                        "strikes without --greeks (ROADMAP A5)")
+                        "pairs (N, W), (-N, -W) from half the draws, with "
+                        "--strikes and --greeks too")
+    p.add_argument("--pathgen", choices=("pallas", "xla"), default="pallas",
+                   help="the hand-written kernels (pallas) or the generic "
+                        "path stream (xla), as StreamConfig.pathgen_impl")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain versions)")
@@ -112,25 +127,26 @@ def main(argv=None) -> int:
         print("error: --control-variate applies to single-strike pricing, "
               "not --strikes chains", file=sys.stderr)
         return 2
-    if args.antithetic and (args.strikes or args.greeks):
-        print("error: --antithetic with --strikes or --greeks: the chain "
-              "and Greeks kernels have no pair form yet (ROADMAP A5)",
-              file=sys.stderr)
-        return 2
 
     from ..models import engine
 
     mkt = MarketDefaults()
     n_steps = args.steps or max(1, int(args.maturity * mkt.trading_days))
     n_paths = int(args.paths)
-    # The chunk must divide the path count and the kernels' path block
-    # (a multiple of 16, of 32 when paired); round both down, to at least
-    # one block.
-    block = 32 if args.antithetic else 16
+    # The JAX CLI's rounding: the chunk down to a multiple of 256 (which
+    # the kernels' 16-path and 32-member blocks divide), at least 256, and
+    # the path count down to a multiple of the chunk.
+    block = 256
     chunk = max(block, (min(args.chunk_paths, n_paths) // block) * block)
     n_paths = max(chunk, (n_paths // chunk) * chunk)
     pilot = args.pilot_paths or min(1 << 16, chunk)
-    pilot = max(block, pilot // block * block)
+    unit = 32 if args.antithetic else 16
+    if pilot < 1 or pilot % unit:
+        print(f"error: --pilot-paths {pilot} must be a positive multiple of "
+              f"{unit}, the kernels' path block"
+              f"{' when paired' if args.antithetic else ''}",
+              file=sys.stderr)
+        return 2
     try:
         strikes = ([float(v) for v in args.strikes.split(",")]
                    if args.strikes else None)
@@ -138,19 +154,20 @@ def main(argv=None) -> int:
                                   chunk_paths=chunk, pilot_paths=pilot,
                                   chunks_per_call=64,
                                   antithetic=args.antithetic,
-                                  control_variate=args.control_variate)
+                                  control_variate=args.control_variate,
+                                  pathgen_impl=args.pathgen)
         market = dict(s0=args.s0, xi=args.xi, h=args.hurst, eta=args.eta,
                       rho=args.rho, r=args.r)
         t0 = time.time()
         if strikes:
-            out = _price_chain(args, cfg, market, strikes, engine)
+            out, family = _price_chain(args, cfg, market, strikes, engine)
         else:
-            out = _price_one(args, cfg, market, engine)
+            out, family = _price_one(args, cfg, market, engine)
     except (ValueError, NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     out.update({"n_paths": n_paths, "n_steps": n_steps,
-                "is_call": args.is_call,
+                "is_call": args.is_call, "kernel_family": family,
                 "elapsed_s": round(time.time() - t0, 3)})
     print(json.dumps(out))
     return 0
@@ -164,9 +181,9 @@ def _price_one(args, cfg, market, engine) -> dict:
         g, se = pricer.price_and_greeks(args.seed, with_stderr=True)
         out = {n: _j(v) for n, v in zip(engine.GREEK_ORDER, g)}
         out["stderrs"] = {n: _j(v) for n, v in zip(engine.GREEK_ORDER, se)}
-        return out
+        return out, pricer.kernel_family
     price, se = pricer.price(args.seed, with_stderr=True)
-    return {"price": _j(price), "stderr": _j(se)}
+    return {"price": _j(price), "stderr": _j(se)}, pricer.kernel_family
 
 
 def _price_chain(args, cfg, market, strikes, engine) -> dict:
@@ -194,7 +211,7 @@ def _price_chain(args, cfg, market, strikes, engine) -> dict:
     out["implied_vols"] = [
         _j(implied_vol(v, args.s0, k, args.r, args.maturity, args.is_call))
         for v, k in zip(prices, strikes)]
-    return out
+    return out, chain.kernel_family
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@
 // mcop_priced_chain replaces montecarlooptionspricer_tpu/models/
 //    pathgen_pallas.py:_chain_kernel, _chain_kernel_noise_in and
 //    _chain_kernel_grid (with _sweep_values and _policy_value_boundary),
-//    chol fGN form, boundary policy, no antithetic.
+//    chol fGN form, boundary policy, in two forms: plain and antithetic
+//    (the pair branch of _chain_paths:432).
 //
 // What it computes: the paths of K2 (csrc/pathgen.cu) from the same noise,
 // S_c = exp(logS_c) on every cell, and for each strike k of the strip the
@@ -12,7 +13,11 @@
 // boundary_rows table; the path is then worth dk_k[c] - disc[c] * S_c for a
 // put and disc[c] * S_c - dk_k[c] for a call (dk = disc * strike, no clamp,
 // as on the TPU), else 0.  Each block writes one partial sum per strike (no
-// atomics: a seed gives the same [K] on every run).
+// atomics: a seed gives the same [K] on every run).  The antithetic form
+// draws (or reads) N and W for half the paths: drawn row q prices (N, W)
+// and its partner (-N, -W), and the fGN map is linear, so the partner's
+// plane is -x and the product runs once per pair; each member then takes
+// its own exp, Euler recursion and S-space strike sweep.
 //
 // Bound on the H100: operations.  Per path the fGN product is ~n^2/2
 // multiply-adds (67k at n = 365) and the strike sweep ~4 operations per
@@ -20,7 +25,8 @@
 // flag): at 131,072 paths, 365 steps and 21 strikes that is 8.8e9 FMA
 // plus at most 4.0e9 sweep operations, at most 0.33 ms at 67 TFLOP/s
 // float32, against ~0.6 MB of bytes that must move (Lt', the tables, the
-// sums), 0.2 us at 3.35 TB/s.
+// sums), 0.2 us at 3.35 TB/s.  Paired, the product is half of that and
+// the sweep is not: every member sweeps.
 //
 // Design:
 // * The path block, its noise, the fGN tile product and the Euler
@@ -35,15 +41,25 @@
 //   BP lanes per path).  One thread per path writes each tile's running
 //   log price into shared memory, all threads turn it into S, then every
 //   thread sweeps its strikes over the tile.
-// * One launch sweeps up to kGroup = 32 strikes: 8 (flag, value) register
-//   pairs per thread at BP = 64, 4 at 32, 2 at 16.  A wider strip takes one
-//   launch per 32 strikes on the same seed, which regenerates
-//   bitwise-identical paths; the 21-strike strip needs one.
+// * One launch sweeps up to kGroup = 32 strikes: 16 (flag, value) register
+//   pairs per thread at BP = 128 pair members, 8 at 64, 4 at 32, 2 at 16.
+//   A wider strip takes one launch per 32 strikes on the same seed, which
+//   regenerates bitwise-identical paths: the Philox counter is (global
+//   drawn row, step pair), so a member and its partner are the same two
+//   paths for every strike of the strip.
 // * The block's partial sums are reduced in a fixed order through the
 //   shared-memory tile, one thread per strike.
-// * Shared memory is K2's without the path-sum slots: the N and W planes,
-//   one 64-column tile and the staged Lt' rows (models/chain_cuda.py
-//   smem_bytes); 64-path blocks up to 405 steps, 32 up to 843.
+// * Shared memory (models/chain_cuda.py smem_bytes): the N and W planes of
+//   the D = 16 * PM drawn rows, one 64-column X tile of every member (BP
+//   = D plain, 2D paired) and the staged Lt' rows: 4 (2 D ld + 65 BP +
+//   2048) bytes, ld = n rounded up to odd.  Plain blocks of 64 paths fit
+//   up to 405 steps and 32 up to 843.  A paired block keeps D drawn rows
+//   and runs the product of the unpaired D-path block: at 365 steps D = 64
+//   (128 members) takes 4 (2 * 64 * 365 + 65 * 128 + 2048) = 228,352 of
+//   the 232,448 bytes; at 512 steps it would take 304,128, so D = 32 (64
+//   members, 156,160 bytes).  The reduction's [32][BP] floats fit the X
+//   tile.
+// * The decision is taken in S space for both members, as on the TPU.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,7 +73,7 @@ using namespace mcop;
 constexpr int kGroup = 32;   // strikes one launch sweeps
 
 struct ChainArgs {
-  const float* noise;   // [2, rows, n] or nullptr for the seeded entry
+  const float* noise;   // [2, drawn, n] or nullptr for the seeded entry
   const float* lt;      // [n, n] half-scaled upper-triangular factor
   const float* vd;      // [n] half variance drift
   const float* tables;  // [n_strikes] boundary_rows tables: rows lo, hi,
@@ -65,28 +81,38 @@ struct ChainArgs {
   long long strike_stride, row_stride;   // floats
   int n_strikes;        // <= kGroup
   float* out;           // [rows / BP, n_strikes] partial sums
-  int rows, n;
+  int drawn, n;         // rows of the noise planes, steps
   uint32_t key;
   float r, dt, sqrt_dt, log_s0;
   int is_call;
 };
 
-template <int PM, bool SEEDED>
+__device__ __forceinline__ float euler_inc(const ChainArgs& a, float x,
+                                           float w, int c) {
+  const float sv = expf(x + a.vd[c]);
+  const float v = sv * sv;
+  return (a.r - 0.5f * v) * a.dt + sv * (w * a.sqrt_dt);
+}
+
+// Block of D = 16 * PM drawn rows; BP = D paths, or 2D pair members (ANTI:
+// member p < D is drawn row p, member D + p its partner).
+template <int PM, bool SEEDED, bool ANTI>
 __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
-  constexpr int BP = 16 * PM;
+  constexpr int D = 16 * PM;
+  constexpr int BP = ANTI ? 2 * D : D;
   constexpr int kLanes = kThreads / BP;   // strike lanes per path
   constexpr int kPer = kGroup / kLanes;   // strikes per thread
   extern __shared__ float smem[];
   const int n = a.n, ld = plane_ld(n);
-  float* ns = smem;                       // [BP][ld]
-  float* ws = ns + BP * ld;               // [BP][ld]
-  float* xs = ws + BP * ld;               // [BP][kXStride]
+  float* ns = smem;                       // [D][ld]
+  float* ws = ns + D * ld;                // [D][ld]
+  float* xs = ws + D * ld;                // [BP][kXStride]
   float* lts = xs + BP * kXStride;        // [kTileK][kTileCols]
 
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BP;
+  const int row0 = blockIdx.x * D;        // first drawn row
   const int p = tid % BP, lane = tid / BP;
-  load_noise<BP, SEEDED>(a.noise, a.rows, n, a.key, row0, ns, ws);
+  load_noise<D, SEEDED>(a.noise, a.drawn, n, a.key, row0, ns, ws);
 
   float ls = a.log_s0;                    // running log price, thread tid < BP
   bool stopped[kPer];
@@ -101,17 +127,19 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
     const int cn = min(c0 + kTileCols, n) - c0;
     fgn_tile<PM, 1>(a.lt, nullptr, n, c0, ns, lts, xs, nullptr);
 
-    // Variance exp and Euler increment, elementwise over the tile (K2's).
-    for (int idx = tid; idx < BP * kTileCols; idx += kThreads) {
+    // Variance exp and Euler increment, elementwise over the tile (K2's;
+    // both members of a pair from one x and one w).
+    for (int idx = tid; idx < D * kTileCols; idx += kThreads) {
       const int q = idx / kTileCols, cc = idx - q * kTileCols;
       float* xp = &xs[q * kXStride + cc];
       if (cc < cn) {
         const int c = c0 + cc;
-        const float sv = expf(*xp + a.vd[c]);
-        const float v = sv * sv;
-        *xp = (a.r - 0.5f * v) * a.dt + sv * (ws[q * ld + c] * a.sqrt_dt);
+        const float x = *xp, w = ws[q * ld + c];
+        *xp = euler_inc(a, x, w, c);
+        if (ANTI) xp[D * kXStride] = euler_inc(a, -x, -w, c);
       } else {
         *xp = 0.0f;
+        if (ANTI) xp[D * kXStride] = 0.0f;
       }
     }
     __syncthreads();
@@ -170,41 +198,72 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
   }
 }
 
-int smem_bytes(int n, int bp) { return block_smem_bytes(n, bp, 1, 0); }
+// Shared memory of a block of bp paths (pair members when antithetic).
+int smem_bytes(int n, int bp, bool anti) {
+  const int d = anti ? bp / 2 : bp;
+  return block_smem_bytes(n, d, 1, (bp - d) * kXStride);
+}
 
-template <int PM, bool SEEDED>
+template <int PM, bool SEEDED, bool ANTI>
 cudaError_t launch_one(const ChainArgs& a, cudaStream_t stream) {
-  const int smem = smem_bytes(a.n, 16 * PM);
-  auto kernel = chain_kernel<PM, SEEDED>;
+  constexpr int D = 16 * PM;
+  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI);
+  auto kernel = chain_kernel<PM, SEEDED, ANTI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<a.rows / (16 * PM), kThreads, smem, stream>>>(a);
+  kernel<<<a.drawn / D, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool ANTI>
+cudaError_t launch_pm(const ChainArgs& a, int pm, cudaStream_t s) {
+  const bool seeded = a.noise == nullptr;
+  switch (pm) {
+    case 4:
+      return seeded ? launch_one<4, true, ANTI>(a, s)
+                    : launch_one<4, false, ANTI>(a, s);
+    case 2:
+      return seeded ? launch_one<2, true, ANTI>(a, s)
+                    : launch_one<2, false, ANTI>(a, s);
+    case 1:
+      return seeded ? launch_one<1, true, ANTI>(a, s)
+                    : launch_one<1, false, ANTI>(a, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-int mcop_chain_smem_bytes(int n_steps, int block_paths) {
-  return smem_bytes(n_steps, block_paths);
+// block_paths counts paths (pair members when antithetic != 0).
+int mcop_chain_smem_bytes(int n_steps, int block_paths, int antithetic) {
+  return smem_bytes(n_steps, block_paths, antithetic != 0);
 }
 
 int mcop_chain_group() { return kGroup; }
 
-// K5.  noise may be null (seeded entry, stream of `key`).  tables: the
-// launch's n_strikes boundary_rows tables, strike_stride floats apart, rows
-// row_stride floats apart.  out: [rows / block_paths, n_strikes].
+// K5.  noise may be null (seeded entry, stream of `key`).  rows counts
+// paths; antithetic != 0 reads (or draws) rows / 2 rows of noise, [2,
+// rows / 2, n_steps], and block_paths (32, 64 or 128) counts pair members.
+// tables: the launch's n_strikes boundary_rows tables, strike_stride
+// floats apart, rows row_stride floats apart.  out: [rows / block_paths,
+// n_strikes].
 int mcop_priced_chain(const float* noise, const float* lt, const float* vd,
                       int rows, int n_steps, int block_paths,
                       unsigned int key, float r, float dt, float sqrt_dt,
                       float log_s0, const float* tables,
                       long long strike_stride, long long row_stride,
-                      int n_strikes, int is_call, float* out, void* stream) {
-  if (n_steps < 1 || rows < 1 || block_paths < 16 || block_paths % 16 ||
-      rows % block_paths || n_strikes < 1 || n_strikes > kGroup ||
-      smem_bytes(n_steps, block_paths) > kSmemLimit)
+                      int n_strikes, int is_call, int antithetic, float* out,
+                      void* stream) {
+  const bool anti = antithetic != 0;
+  const int unit = anti ? 32 : 16;
+  if (n_steps < 1 || rows < 1 || block_paths < unit || block_paths % unit ||
+      block_paths > 4 * unit || rows % block_paths || n_strikes < 1 ||
+      n_strikes > kGroup ||
+      smem_bytes(n_steps, block_paths, anti) > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   ChainArgs a{};
   a.noise = noise;
@@ -215,7 +274,7 @@ int mcop_priced_chain(const float* noise, const float* lt, const float* vd,
   a.row_stride = row_stride;
   a.n_strikes = n_strikes;
   a.out = out;
-  a.rows = rows;
+  a.drawn = anti ? rows / 2 : rows;
   a.n = n_steps;
   a.key = key;
   a.r = r;
@@ -224,21 +283,9 @@ int mcop_priced_chain(const float* noise, const float* lt, const float* vd,
   a.log_s0 = log_s0;
   a.is_call = is_call;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool seeded = noise == nullptr;
-  cudaError_t err;
-  switch (block_paths) {
-    case 64:
-      err = seeded ? launch_one<4, true>(a, s) : launch_one<4, false>(a, s);
-      break;
-    case 32:
-      err = seeded ? launch_one<2, true>(a, s) : launch_one<2, false>(a, s);
-      break;
-    case 16:
-      err = seeded ? launch_one<1, true>(a, s) : launch_one<1, false>(a, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
+  const int pm = block_paths / unit;
+  const cudaError_t err =
+      anti ? launch_pm<true>(a, pm, s) : launch_pm<false>(a, pm, s);
   return static_cast<int>(err);
 }
 

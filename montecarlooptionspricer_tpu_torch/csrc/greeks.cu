@@ -10,7 +10,8 @@
 //    _chain_greeks_kernel_noise_in and _chain_greeks_kernel_grid
 //    (_chain_greeks_body): a strike strip, each strike read from row 3 of
 //    its table.
-// Both: chol fGN form, log-boundary policy, no antithetic.
+// Both: chol fGN form, log-boundary policy, in two forms: plain and
+//    antithetic (the pair branch of _tangent_planes:849).
 //
 // What they compute, per path and step column c (column c = step c+1):
 //   x' = N @ Lt' and hx = N @ dLt' (Lt' = 0.5 Lt, dLt' = 0.5 dLt/dH)
@@ -28,11 +29,20 @@
 // price, delta, vega_xi, vega_eta, rho_rate, vega_h).  Each block writes
 // one partial sum per strike and output; no atomics.
 //
+// The antithetic form draws (or reads) N and W for half the paths.  Both
+// products are linear in N, so they run once per pair: the partner of
+// drawn row q takes -x', -hx and -W, and nothing else changes sign (the
+// tangent rows de and dh are constants, and its eta bracket x'/eta + de
+// reads its own -x').  Each member then carries its own increments,
+// brackets, running sums, first hit and six sums, in log space as the
+// plain form decides.
+//
 // Bound on the H100: operations.  Two triangular products, ~n^2
 // multiply-adds per path (133k at n = 365), and ~4 operations per cell and
 // strike for the sweep: at 131,072 paths and 365 steps that is 17.5e9 FMA,
 // 0.54 ms at 67 TFLOP/s float32 for K3 and 0.59 ms for K4 at 21 strikes,
-// against ~1 MB of bytes that must move (Lt', dLt', rows, sums).
+// against ~1 MB of bytes that must move (Lt', dLt', rows, sums).  Paired,
+// the products are half of that; the per-cell work and the sweep are not.
 //
 // Design:
 // * The path block, its noise and the tile product are K2's
@@ -41,7 +51,14 @@
 //   N and W planes, four 64-column tiles (x' then inc, hx then b, the
 //   eta and H brackets) and the two staged factors take 143,104 bytes at a
 //   32-path block; a 64-path block would need 269,824 (models/
-//   greeks_cuda.py smem_bytes).
+//   greeks_cuda.py smem_bytes).  In general a block of D = 16 * PM drawn
+//   rows and BP members (D plain, 2D paired) takes 4 (2 D ld + 4 * 65 BP +
+//   2 * 2048) bytes, ld = n rounded up to odd: the planes hold the drawn
+//   rows only, the four tiles every member.  A paired block at 365 steps
+//   with D = 32 (64 members) takes 4 (2 * 32 * 365 + 4 * 65 * 64 + 4096)
+//   = 176,384 bytes and runs the products of the unpaired 32-path block;
+//   D = 64 would take 336,384.  The reduction's [32][6][BP] floats fit the
+//   four tiles (260 BP floats).
 // * Per tile: the product, then the tangent brackets elementwise with all
 //   threads, then one thread per path carries the four running sums along
 //   the tile and writes them back in place, then every thread sweeps its
@@ -49,8 +66,10 @@
 //   and the four stopped sums of strikes l, l + L, ... (L = 256 / BP).
 //   K3 is the same body with one strike.  The TPU's four tangent cumsum
 //   matmuls and one-hot reductions become these loops.
-// * One launch sweeps up to kGroup = 32 strikes (4 per thread at BP = 32);
-//   a wider strip takes one launch per 32 strikes on the same seed.
+// * One launch sweeps up to kGroup = 32 strikes (4 per thread at BP = 32,
+//   8 at 64 pair members); a wider strip takes one launch per 32 strikes
+//   on the same seed, whose Philox counter (global drawn row, step pair)
+//   regenerates the same members and partners for every group.
 // * t* and d* are recomputed from the stop index, as on the TPU.
 
 #include <cuda_runtime.h>
@@ -66,7 +85,7 @@ constexpr int kGroup = 32;   // strikes one launch sweeps
 constexpr int kOut = 6;      // sums per strike
 
 struct GreeksArgs {
-  const float* noise;   // [2, rows, n] or nullptr for the seeded entry
+  const float* noise;   // [2, drawn, n] or nullptr for the seeded entry
   const float* lt;      // [n, n] half-scaled Cholesky factor
   const float* dlt;     // [n, n] half-scaled dLt/dH
   const float* vd;      // [n] half variance drift
@@ -79,32 +98,51 @@ struct GreeksArgs {
   int strike_from_table;
   float strike;         // the strike when strike_from_table is 0
   float* out;           // [rows / BP, n_strikes, kOut] partial sums
-  int rows, n;
+  int rows, drawn, n;   // paths, rows of the noise planes, steps
   uint32_t key;
   float r, dt, sqrt_dt, log_s0, inv_eta;
   int is_call;
 };
 
-template <int PM, bool SEEDED>
+// Tangent increment and brackets of one member at cell c from its x', hx
+// and w: the increment inc, the bracket b and the eta and H brackets.
+struct Brackets {
+  float inc, b, e, h;
+};
+
+__device__ __forceinline__ Brackets brackets(const GreeksArgs& a, float x,
+                                             float hx, float w, int c) {
+  const float sv = expf(x + a.vd[c]);
+  const float v = sv * sv;
+  const float svw = sv * (w * a.sqrt_dt);
+  const float b = svw - v * a.dt;
+  return {(a.r - 0.5f * v) * a.dt + svw, b, (x * a.inv_eta + a.de[c]) * b,
+          (hx + a.dh[c]) * b};
+}
+
+// Block of D = 16 * PM drawn rows; BP = D paths, or 2D pair members (ANTI:
+// member p < D is drawn row p, member D + p its partner).
+template <int PM, bool SEEDED, bool ANTI>
 __global__ void __launch_bounds__(kThreads, 1) greeks_kernel(GreeksArgs a) {
-  constexpr int BP = 16 * PM;
+  constexpr int D = 16 * PM;
+  constexpr int BP = ANTI ? 2 * D : D;
   constexpr int kLanes = kThreads / BP;   // strike lanes per path
   constexpr int kPer = kGroup / kLanes;   // strikes per thread
   constexpr int kTile = BP * kXStride;
   extern __shared__ float smem[];
   const int n = a.n, ld = plane_ld(n);
-  float* ns = smem;                       // [BP][ld]
-  float* ws = ns + BP * ld;               // [BP][ld]
-  float* t0 = ws + BP * ld;               // x', then inc, then ls
+  float* ns = smem;                       // [D][ld]
+  float* ws = ns + D * ld;                // [D][ld]
+  float* t0 = ws + D * ld;                // x', then inc, then ls
   float* t1 = t0 + kTile;                 // hx, then b, then cumb
   float* t2 = t1 + kTile;                 // eta bracket, then cume
   float* t3 = t2 + kTile;                 // H bracket, then cumh
   float* lts = t3 + kTile;                // [2][kTileK][kTileCols]
 
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BP;
+  const int row0 = blockIdx.x * D;        // first drawn row
   const int p = tid % BP, lane = tid / BP;
-  load_noise<BP, SEEDED>(a.noise, a.rows, n, a.key, row0, ns, ws);
+  load_noise<D, SEEDED>(a.noise, a.drawn, n, a.key, row0, ns, ws);
 
   // Running sums, thread tid < BP.
   float ls = a.log_s0, cb = 0.0f, ce = 0.0f, ch = 0.0f;
@@ -121,23 +159,30 @@ __global__ void __launch_bounds__(kThreads, 1) greeks_kernel(GreeksArgs a) {
     const int cn = min(c0 + kTileCols, n) - c0;
     fgn_tile<PM, 2>(a.lt, a.dlt, n, c0, ns, lts, t0, t1);
 
-    // Increments and tangent brackets, elementwise over the tile.
-    for (int idx = tid; idx < BP * kTileCols; idx += kThreads) {
+    // Increments and tangent brackets, elementwise over the tile (both
+    // members of a pair from one x', one hx and one w).
+    for (int idx = tid; idx < D * kTileCols; idx += kThreads) {
       const int q = idx / kTileCols, cc = idx - q * kTileCols;
       const int o = q * kXStride + cc;
+      constexpr int po = D * kXStride;    // the partner's offset
       if (cc < cn) {
         const int c = c0 + cc;
-        const float x = t0[o], hx = t1[o];
-        const float sv = expf(x + a.vd[c]);
-        const float v = sv * sv;
-        const float svw = sv * (ws[q * ld + c] * a.sqrt_dt);
-        const float b = svw - v * a.dt;
-        t0[o] = (a.r - 0.5f * v) * a.dt + svw;
-        t1[o] = b;
-        t2[o] = (x * a.inv_eta + a.de[c]) * b;
-        t3[o] = (hx + a.dh[c]) * b;
+        const float x = t0[o], hx = t1[o], w = ws[q * ld + c];
+        const Brackets m = brackets(a, x, hx, w, c);
+        t0[o] = m.inc;
+        t1[o] = m.b;
+        t2[o] = m.e;
+        t3[o] = m.h;
+        if (ANTI) {
+          const Brackets m2 = brackets(a, -x, -hx, -w, c);
+          t0[o + po] = m2.inc;
+          t1[o + po] = m2.b;
+          t2[o + po] = m2.e;
+          t3[o + po] = m2.h;
+        }
       } else {
         t0[o] = t1[o] = t2[o] = t3[o] = 0.0f;
+        if (ANTI) t0[o + po] = t1[o + po] = t2[o + po] = t3[o + po] = 0.0f;
       }
     }
     __syncthreads();
@@ -218,41 +263,56 @@ __global__ void __launch_bounds__(kThreads, 1) greeks_kernel(GreeksArgs a) {
   }
 }
 
-int smem_bytes(int n, int bp) {
-  return block_smem_bytes(n, bp, 2, 2 * bp * kXStride);
+// Shared memory of a block of bp paths (pair members when antithetic):
+// the planes of the drawn rows, four tiles of every member, two staged
+// factors.
+int smem_bytes(int n, int bp, bool anti) {
+  const int d = anti ? bp / 2 : bp;
+  return block_smem_bytes(n, d, 2, (4 * bp - 2 * d) * kXStride);
 }
 
-template <int PM, bool SEEDED>
+template <int PM, bool SEEDED, bool ANTI>
 cudaError_t launch_one(const GreeksArgs& a, cudaStream_t stream) {
-  const int smem = smem_bytes(a.n, 16 * PM);
-  auto kernel = greeks_kernel<PM, SEEDED>;
+  constexpr int D = 16 * PM;
+  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI);
+  auto kernel = greeks_kernel<PM, SEEDED, ANTI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<a.rows / (16 * PM), kThreads, smem, stream>>>(a);
+  kernel<<<a.drawn / D, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-int launch(GreeksArgs& a, int block_paths, cudaStream_t s) {
-  if (a.n < 1 || a.rows < 1 || block_paths < 16 || block_paths % 16 ||
-      a.rows % block_paths || a.n_strikes < 1 || a.n_strikes > kGroup ||
-      smem_bytes(a.n, block_paths) > kSmemLimit)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <bool ANTI>
+cudaError_t launch_pm(const GreeksArgs& a, int pm, cudaStream_t s) {
   const bool seeded = a.noise == nullptr;
-  cudaError_t err;
-  switch (block_paths) {
-    case 64:
-      err = seeded ? launch_one<4, true>(a, s) : launch_one<4, false>(a, s);
-      break;
-    case 32:
-      err = seeded ? launch_one<2, true>(a, s) : launch_one<2, false>(a, s);
-      break;
-    case 16:
-      err = seeded ? launch_one<1, true>(a, s) : launch_one<1, false>(a, s);
-      break;
+  switch (pm) {
+    case 4:
+      return seeded ? launch_one<4, true, ANTI>(a, s)
+                    : launch_one<4, false, ANTI>(a, s);
+    case 2:
+      return seeded ? launch_one<2, true, ANTI>(a, s)
+                    : launch_one<2, false, ANTI>(a, s);
+    case 1:
+      return seeded ? launch_one<1, true, ANTI>(a, s)
+                    : launch_one<1, false, ANTI>(a, s);
     default:
-      err = cudaErrorInvalidValue;
+      return cudaErrorInvalidValue;
   }
+}
+
+// block_paths counts paths: 16, 32 or 64 plain, 32, 64 or 128 pair members.
+int launch(GreeksArgs& a, int block_paths, bool anti, cudaStream_t s) {
+  const int unit = anti ? 32 : 16;
+  if (a.n < 1 || a.rows < 1 || block_paths < unit || block_paths % unit ||
+      block_paths > 4 * unit || a.rows % block_paths || a.n_strikes < 1 ||
+      a.n_strikes > kGroup ||
+      smem_bytes(a.n, block_paths, anti) > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.drawn = anti ? a.rows / 2 : a.rows;
+  const int pm = block_paths / unit;
+  const cudaError_t err =
+      anti ? launch_pm<true>(a, pm, s) : launch_pm<false>(a, pm, s);
   return static_cast<int>(err);
 }
 
@@ -289,34 +349,37 @@ GreeksArgs common(const float* noise, const float* lt, const float* dlt,
 
 extern "C" {
 
-int mcop_greeks_smem_bytes(int n_steps, int block_paths) {
-  return smem_bytes(n_steps, block_paths);
+// block_paths counts paths (pair members when antithetic != 0).
+int mcop_greeks_smem_bytes(int n_steps, int block_paths, int antithetic) {
+  return smem_bytes(n_steps, block_paths, antithetic != 0);
 }
 
 int mcop_greeks_group() { return kGroup; }
 
-// K3.  noise may be null (seeded entry, stream of `key`).  table: one
-// log_boundary_rows table, rows row_stride floats apart.  out: [rows /
-// block_paths, 6].
+// K3.  noise may be null (seeded entry, stream of `key`).  rows counts
+// paths; antithetic != 0 reads (or draws) rows / 2 rows of noise, [2,
+// rows / 2, n_steps].  table: one log_boundary_rows table, rows
+// row_stride floats apart.  out: [rows / block_paths, 6].
 int mcop_greeks_chunk(const float* noise, const float* lt, const float* dlt,
                       const float* vd, const float* de, const float* dh,
                       int rows, int n_steps, int block_paths,
                       unsigned int key, float r, float dt, float sqrt_dt,
                       float log_s0, float inv_eta, const float* table,
                       long long row_stride, float strike, int is_call,
-                      float* out, void* stream) {
+                      int antithetic, float* out, void* stream) {
   GreeksArgs a = common(noise, lt, dlt, vd, de, dh, rows, n_steps, key, r,
                         dt, sqrt_dt, log_s0, inv_eta, table, 0, row_stride,
                         is_call, out);
   a.n_strikes = 1;
   a.strike_from_table = 0;
   a.strike = strike;
-  return launch(a, block_paths, static_cast<cudaStream_t>(stream));
+  return launch(a, block_paths, antithetic != 0,
+                static_cast<cudaStream_t>(stream));
 }
 
-// K4.  tables: the launch's n_strikes log_boundary_rows tables,
-// strike_stride floats apart; each strike is row 3 of its table.  out:
-// [rows / block_paths, n_strikes, 6].
+// K4.  As K3 with a strip: tables are the launch's n_strikes
+// log_boundary_rows tables, strike_stride floats apart; each strike is row
+// 3 of its table.  out: [rows / block_paths, n_strikes, 6].
 int mcop_chain_greeks_chunk(const float* noise, const float* lt,
                             const float* dlt, const float* vd,
                             const float* de, const float* dh, int rows,
@@ -324,14 +387,15 @@ int mcop_chain_greeks_chunk(const float* noise, const float* lt,
                             float r, float dt, float sqrt_dt, float log_s0,
                             float inv_eta, const float* tables,
                             long long strike_stride, long long row_stride,
-                            int n_strikes, int is_call, float* out,
-                            void* stream) {
+                            int n_strikes, int is_call, int antithetic,
+                            float* out, void* stream) {
   GreeksArgs a = common(noise, lt, dlt, vd, de, dh, rows, n_steps, key, r,
                         dt, sqrt_dt, log_s0, inv_eta, tables, strike_stride,
                         row_stride, is_call, out);
   a.n_strikes = n_strikes;
   a.strike_from_table = 1;
-  return launch(a, block_paths, static_cast<cudaStream_t>(stream));
+  return launch(a, block_paths, antithetic != 0,
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -110,17 +110,17 @@ def load() -> types.SimpleNamespace:
         (tiled, "mcop_tiled_priced_chunk"): [p, i, p, p, i, i, i, u, f, f,
                                              f, f, p, ll, f, i, i, i, f, p,
                                              p],
-        (chain, "mcop_chain_smem_bytes"): [i, i],
+        (chain, "mcop_chain_smem_bytes"): [i, i, i],
         (chain, "mcop_chain_group"): [],
         (chain, "mcop_priced_chain"): [p, p, p, i, i, i, u, f, f, f, f, p,
-                                       ll, ll, i, i, p, p],
-        (greeks, "mcop_greeks_smem_bytes"): [i, i],
+                                       ll, ll, i, i, i, p, p],
+        (greeks, "mcop_greeks_smem_bytes"): [i, i, i],
         (greeks, "mcop_greeks_group"): [],
         (greeks, "mcop_greeks_chunk"): [p, p, p, p, p, p, i, i, i, u, f, f,
-                                        f, f, f, p, ll, f, i, p, p],
+                                        f, f, f, p, ll, f, i, i, p, p],
         (greeks, "mcop_chain_greeks_chunk"): [p, p, p, p, p, p, i, i, i, u,
                                               f, f, f, f, f, p, ll, ll, i,
-                                              i, p, p],
+                                              i, i, p, p],
         (factored, "mcop_factored_smem_bytes"): [i],
         (factored, "mcop_factored_pathgen"): [p] * 10 + [i, i, u, f, f, f, f,
                                                          f, p, p],

@@ -10,12 +10,16 @@ does, and sweeps every strike of the strip against it: the chunk's [K]
 payoff sums under the strip's S-space ``boundary_rows`` tables, each path
 stopped at its first step with lo <= S <= hi and worth disc * strike -
 disc * S for a put (disc * S - disc * strike for a call), with no clamp,
-as ``_policy_value_boundary`` decides.
+as ``_policy_value_boundary`` decides.  Its ``antithetic`` form (the
+JAX maker's ``antithetic=True``, ``_chain_paths``) prices each drawn row
+as the pair (N, W), (-N, -W), the fGN product once per pair, each member
+swept against every strike.
 
 The seeded entry draws K1's and K2's Philox stream (``pathgen_cuda``), so
 a strike of the strip sees the paths a single-strike K2 sees on the same
-key.  The wrapper runs the plain version for tensors on the CPU and
-launches the kernel for tensors on a CUDA device; nothing falls back.
+key (K2/anti's pairs under ``antithetic``).  The wrapper runs the plain
+version for tensors on the CPU and launches the kernel for tensors on a
+CUDA device; nothing falls back.
 """
 
 from __future__ import annotations
@@ -29,13 +33,18 @@ from . import pathgen_cuda as pc
 
 GROUP = 32                  # strikes one launch sweeps (csrc/chain.cu kGroup)
 MAX_CHAIN_STEPS = 512       # the JAX chain kernel's cap (pathgen_pallas.py)
+FORMS = pc.FORMS[:2]   # K5's forms: the launch counter's keys
 
 
-def smem_bytes(n_steps: int, block_paths: int) -> int:
-    """Shared memory of one CUDA block: K2's N and W planes, one step tile
-    (which also holds the block's per-strike sums at the end) and the
-    staged Lt' rows."""
-    return pc.block_smem_bytes(n_steps, block_paths)
+def smem_bytes(n_steps: int, block_paths: int,
+               antithetic: bool = False) -> int:
+    """Shared memory of one CUDA block: K2's N and W planes of the drawn
+    rows, one step tile of every path (pair member when ``antithetic``;
+    it also holds the block's per-strike sums at the end) and the staged
+    Lt' rows."""
+    drawn = pc.drawn_rows(block_paths, antithetic)
+    return pc.block_smem_bytes(
+        n_steps, drawn, extra=(block_paths - drawn) * (pc.TILE_COLS + 1))
 
 
 def supports(n_steps: int) -> bool:
@@ -45,10 +54,14 @@ def supports(n_steps: int) -> bool:
             and pc.fitting_block(smem_bytes, n_steps) > 0)
 
 
-def block_paths_for(n_steps: int, rows: int) -> int:
-    """K5's path block: the largest of pathgen_cuda.BLOCK_CHOICES whose
-    shared memory fits at this horizon and which divides ``rows``."""
-    bp = pc.fitting_block(smem_bytes, n_steps, rows)
+def block_paths_for(n_steps: int, rows: int,
+                    antithetic: bool = False) -> int:
+    """K5's path block: the largest of pathgen_cuda.BLOCK_CHOICES
+    (PAIRED_BLOCK_CHOICES, in pair members, when ``antithetic``) whose
+    shared memory fits at this horizon and which divides ``rows``: 64 at
+    365 steps and 32 at 512, 128 and 64 paired."""
+    bp = pc.fitting_block(lambda n, b: smem_bytes(n, b, antithetic),
+                          n_steps, rows, antithetic)
     if not bp:
         raise ValueError(f"no K5 block divides rows={rows} at "
                          f"n_steps={n_steps}")
@@ -59,13 +72,14 @@ def block_paths_for(n_steps: int, rows: int) -> int:
 # Plain version.
 
 def priced_chain_from_noise_ref(consts: pc.PathConsts, tables: torch.Tensor,
-                                noise: torch.Tensor,
-                                is_call: bool) -> torch.Tensor:
+                                noise: torch.Tensor, is_call: bool,
+                                antithetic: bool = False) -> torch.Tensor:
     """Plain K5: [K] chunk payoff sums under the [K, 8, >= n_steps]
     boundary_rows ``tables`` on the paths of ``noise`` [2, rows, n_steps]
-    (``_policy_value_boundary`` per strike on the S plane)."""
+    (``_policy_value_boundary`` per strike on the S plane); with
+    ``antithetic`` each row of noise is priced as a pair."""
     n = consts.n_steps
-    s = torch.exp(pc._log_paths_ref(consts, noise))
+    s = torch.exp(pc._log_paths_ref(consts, noise, antithetic))
     ds = s * tables[0, 3, :n]
     sums = []
     for tab in tables:
@@ -83,15 +97,19 @@ def priced_chain_from_noise_ref(consts: pc.PathConsts, tables: torch.Tensor,
 
 def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
                  rows: int = None, key: int = None,
-                 noise: torch.Tensor = None) -> torch.Tensor:
+                 noise: torch.Tensor = None,
+                 antithetic: bool = False) -> torch.Tensor:
     """K5: the chunk's [K] float32 payoff sums under the strip's
     boundary_rows ``tables`` [K, 8, >= n_steps], from the seeded stream of
-    ``key`` or from injected ``noise`` [2, rows, n_steps].  On the card
-    one launch sweeps up to GROUP strikes; a wider strip takes one launch
-    per group on the same key or noise, which regenerates the same paths.
-    Each block writes one partial sum per strike and the blocks are summed
-    in a fixed order, so a seed gives the same sums every run."""
-    rows = pc._noise_or_rows(consts, rows, key, noise)
+    ``key`` or from injected ``noise`` [2, rows, n_steps].  With
+    ``antithetic`` the chunk's ``rows`` paths are rows / 2 pairs: the
+    seeded entry draws rows / 2 rows, and injected noise is [2, rows / 2,
+    n_steps].  On the card one launch sweeps up to GROUP strikes; a wider
+    strip takes one launch per group on the same key or noise, which
+    regenerates the same paths (and pairs).  Each block writes one
+    partial sum per strike and the blocks are summed in a fixed order, so
+    a seed gives the same sums every run."""
+    rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
     n = consts.n_steps
     if tables.dim() != 3 or tables.shape[1] < 4 or tables.shape[2] < n:
         raise ValueError("tables must be [K, 8, >= n_steps] (boundary_rows "
@@ -101,10 +119,12 @@ def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
                          f"({MAX_CHAIN_STEPS})")
     if consts.device.type == "cpu":
         if noise is None:
-            noise = pc.philox_normals_ref(key, rows, n)
-        return priced_chain_from_noise_ref(consts, tables, noise, is_call)
+            noise = pc.philox_normals_ref(
+                key, pc.drawn_rows(rows, antithetic), n)
+        return priced_chain_from_noise_ref(consts, tables, noise, is_call,
+                                           antithetic)
     pc.check_device_inputs(consts, noise, tables)
-    bp = block_paths_for(n, rows)
+    bp = block_paths_for(n, rows, antithetic)
     from ..kernels import build
 
     lib = build.load()
@@ -119,12 +139,15 @@ def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
             consts.lt_half.data_ptr(), consts.vd.data_ptr(), rows, n, bp,
             0 if key is None else key & pc._U32, *pc._scalars(consts),
             tables[g].data_ptr(), tables.stride(0), tables.stride(1), k,
-            int(bool(is_call)), partial.data_ptr(), stream)
+            int(bool(is_call)), int(bool(antithetic)), partial.data_ptr(),
+            stream)
         pc._check(err, "priced_chain")
         priced_chain.launches += 1
+        priced_chain.form_launches[FORMS[int(bool(antithetic))]] += 1
         sums.append(torch.sum(partial, dim=0))
     return torch.cat(sums)
 
 
 priced_chain.launches = 0
+priced_chain.form_launches = dict.fromkeys(FORMS, 0)
 

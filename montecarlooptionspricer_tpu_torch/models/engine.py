@@ -40,13 +40,22 @@ backward pass on the K1 pilot and streams the strip through K5
 (``chain_cuda.priced_chain``) on S-space boundary tables.  Greeks
 (``price_and_greeks`` on both pricers) stream the same fits through the
 pathwise tangent kernels K3 and K4 (``greeks_cuda``) on the single-tile
-horizons.
+horizons.  K5, K3 and K4 pair under ``antithetic`` as K2 does.
+
+The generic path stream (``pathgen_stream``, the counterpart of the JAX
+engine's XLA generator, family "stream") prices whole chunks in plain
+PyTorch wherever no kernel applies: ``pathgen_impl="xla"``, a
+``poly_order`` other than 2, horizons past K8's range, and strips past
+K5's 512 steps.  Its pilot is the same generator's (plain under
+``antithetic``), fitted by ``lsm_fit`` at any order, and each chunk is
+priced by ``lsm_policy_value`` (with ``martingale_control`` under
+``control_variate``), as the JAX engine's XLA branch does.  The kernels
+never give way to it: it is chosen by the configuration alone.
 
 Only this path is ported.  Other configurations raise
 ``NotImplementedError`` naming their ROADMAP item; nothing runs another
-path silently.  Chains and Greeks have no antithetic form yet (ROADMAP
-A5); Greeks under ``control_variate`` are the plain Greeks, as in the
-JAX engine.
+path silently.  Greeks under ``control_variate`` are the plain Greeks, as
+in the JAX engine.
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ from ..ops.payoff import payoff
 from ..ops.regression import PolyFit, eval_poly, polyfit_from_numpy  # noqa: F401
 from ..ops.timegrid import step_mask
 from . import (chain_cuda, greeks_cuda, pathgen_cuda, pathgen_factored_cuda,
-               pathgen_tiled_cuda)
+               pathgen_stream, pathgen_tiled_cuda)
 from .greeks_cuda import GREEK_ORDER  # noqa: F401
 from .lsm import ITM_EPS, lsm_fit
 
@@ -83,11 +92,14 @@ class StreamConfig:
     at this horizon, see ``pathgen_cuda.max_block_paths``); the long-horizon
     kernels choose theirs.  ``fgn_form`` ("auto", "chol" or "spectral")
     and ``tiled_impl`` ("auto", "slab" or "factored") name the fGN law and
-    the long-horizon kernels as the JAX fields do; ``resolve_kernel_family``
-    says what each combination runs.  ``antithetic``, ``qmc`` and
-    ``control_variate`` name the JAX package's estimators: antithetic
-    pairing needs the boundary policy and chunk and pilot sizes divisible
-    by 32 and excludes qmc, which is not ported
+    the long-horizon kernels as the JAX fields do; ``pathgen_impl``
+    ("pallas": the hand-written kernels, the port's default; "xla": the
+    generic path stream, JAX's default) and ``fgn_impl`` ("auto" =
+    "matmul", or "fft": the stream's synthesis) too;
+    ``resolve_kernel_family`` says what each combination runs.
+    ``antithetic``, ``qmc`` and ``control_variate`` name the JAX package's
+    estimators: antithetic pairing needs the boundary policy and chunk and
+    pilot sizes divisible by 32 and excludes qmc, which is not ported
     (``_reject_unported_estimators``)."""
 
     n_paths: int
@@ -104,6 +116,8 @@ class StreamConfig:
     antithetic: bool = False
     qmc: bool = False
     control_variate: bool = False
+    pathgen_impl: str = "pallas"
+    fgn_impl: str = "auto"
 
     def __post_init__(self):
         if self.antithetic and self.qmc:
@@ -121,39 +135,50 @@ class StreamConfig:
             raise NotImplementedError(
                 f"policy_form={self.policy_form!r}: only the log-boundary "
                 "policy is ported (quadratic: ROADMAP B1 remaining forms)")
-        if self.poly_order != 2:
-            raise NotImplementedError(
-                "the fused kernels read quadratic fits; other poly_order "
-                "values need the generic path stream (ROADMAP A3)")
-        resolve_kernel_family(self.n_steps, self.fgn_form, self.tiled_impl)
+        if self.poly_order < 1:
+            raise ValueError(f"poly_order={self.poly_order} must be >= 1")
+        pathgen_stream.resolve_fgn_impl(self.fgn_impl)
+        resolve_kernel_family(self.n_steps, self.fgn_form, self.tiled_impl,
+                              self.pathgen_impl, self.poly_order)
         if self.chunks_per_call < 1:
             raise ValueError("chunks_per_call must be >= 1")
 
 
 def resolve_kernel_family(n_steps: int, fgn_form: str = "auto",
-                          tiled_impl: str = "auto") -> str:
+                          tiled_impl: str = "auto",
+                          pathgen_impl: str = "pallas",
+                          poly_order: int = 2) -> str:
     """The kernel family of a configuration (counterpart:
-    ``_resolve_tiled_module``): "single" (K1/K2), "tiled" (the chol slab
-    K6/K7) or "factored" (the factored-DFT K8/K9, spectral law).
+    ``_resolve_tiled_module`` and the JAX engine's fallbacks to its XLA
+    generator): "single" (K1/K2), "tiled" (the chol slab K6/K7),
+    "factored" (the factored-DFT K8/K9, spectral law) or "stream" (the
+    generic path stream, ``pathgen_stream``, no kernel).
 
+    * ``pathgen_impl="xla"`` or a ``poly_order`` other than 2 (the fused
+      kernels read quadratic fits): stream, at every horizon.
     * "auto"/"chol": single up to SINGLE_TILE_MAX_STEPS, then the slab up
-      to ``pathgen_tiled_cuda.max_tiled_steps()``, then factored; an
+      to ``pathgen_tiled_cuda.max_tiled_steps()``, then factored up to
+      ``pathgen_factored_cuda.max_factored_steps()``, then the stream; an
       explicit "chol" that would need the factored kernels raises
       ValueError (they have no Cholesky form).
     * ``tiled_impl="factored"`` past the single-tile horizon: factored,
       or ValueError past K8's range; ``tiled_impl="slab"`` past the slab's
       range: ValueError.
-    * "spectral" past the single-tile horizon: factored.
+    * "spectral" past the single-tile horizon: factored, then the stream.
 
     Still NotImplementedError, naming the ROADMAP item: "spectral" at or
-    below SINGLE_TILE_MAX_STEPS (B1/B2), "spectral" with the slab (B7),
-    and horizons past K8's range (A3)."""
+    below SINGLE_TILE_MAX_STEPS (B1/B2) and "spectral" with the slab
+    (B7), on the kernels."""
     if n_steps < 1:
         raise ValueError(f"n_steps={n_steps} must be >= 1")
     if fgn_form not in ("auto", "chol", "spectral"):
         raise ValueError(f"unknown fgn_form: {fgn_form!r}")
     if tiled_impl not in ("auto", "slab", "factored"):
         raise ValueError(f"unknown tiled_impl: {tiled_impl!r}")
+    if pathgen_impl not in ("pallas", "xla"):
+        raise ValueError(f"unknown pathgen_impl: {pathgen_impl!r}")
+    if pathgen_impl == "xla" or poly_order != 2:
+        return "stream"
     single = (n_steps <= SINGLE_TILE_MAX_STEPS
               and pathgen_cuda.supports(n_steps))
     if fgn_form == "spectral":
@@ -183,17 +208,15 @@ def resolve_kernel_family(n_steps: int, fgn_form: str = "auto",
     if tiled_impl == "factored":
         raise ValueError(
             f"tiled_impl='factored' cannot cover n_steps={n_steps} (K8/K9 "
-            f"take {pathgen_factored_cuda.LANE} < n <= {cap}); longer "
-            "horizons need the generic path stream (ROADMAP A3)")
+            f"take {pathgen_factored_cuda.LANE} < n <= {cap}); use "
+            "tiled_impl='auto', which takes the generic path stream past "
+            "them")
     if tiled_impl == "slab":
         raise ValueError(
             f"tiled_impl='slab' cannot cover n_steps={n_steps} (K6/K7 take "
             f"n <= {pathgen_tiled_cuda.max_tiled_steps()}); use "
             "tiled_impl='auto'")
-    raise NotImplementedError(
-        f"n_steps={n_steps} exceeds the factored-DFT kernels K8/K9 (max "
-        f"{cap}); longer horizons need the generic path stream "
-        "(ROADMAP A3)")
+    return "stream"
 
 
 # ---------------------------------------------------------------------------
@@ -391,11 +414,12 @@ def _reject_unported_estimators(config: StreamConfig) -> None:
 
 class _FusedStream:
     """What both pricers share: the device, the path constants of the
-    fused kernels, the pilot, and the chunk loop that turns per-chunk
-    kernel sums into float64 totals and chunk-total stderrs."""
+    family (the fused kernels', or the generic stream's), the pilot, and
+    the chunk loop that turns per-chunk sums into float64 totals and
+    chunk-total stderrs."""
 
     def __init__(self, s0, xi, h, eta, r, maturity, is_call: bool,
-                 config: StreamConfig, device):
+                 config: StreamConfig, device, family: Optional[str] = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run "
@@ -411,8 +435,14 @@ class _FusedStream:
         self.maturity = float(maturity)
         self.is_call = bool(is_call)
         self._xi, self._h, self._eta = float(xi), float(h), float(eta)
-        self.kernel_family = resolve_kernel_family(
-            config.n_steps, config.fgn_form, config.tiled_impl)
+        self.kernel_family = family or resolve_kernel_family(
+            config.n_steps, config.fgn_form, config.tiled_impl,
+            config.pathgen_impl, config.poly_order)
+        if self.kernel_family == "stream":
+            self.consts = pathgen_stream.make_stream_consts(
+                s0, xi, h, eta, r, config.n_steps, config.dt, device,
+                config.fgn_impl)
+            return
         if self.kernel_family == "factored":
             # The family builds only its own constants: no Cholesky.
             self._pathgen = pathgen_factored_cuda.factored_pathgen
@@ -441,15 +471,28 @@ class _FusedStream:
 
     def _pilot(self, carrier) -> torch.Tensor:
         """Pilot block from the (run_word, stream_index) ``carrier``
-        through the family's path kernel."""
+        through the family's path kernel, or the generic stream's
+        generator (plain under ``antithetic``)."""
+        if self.kernel_family == "stream":
+            return pathgen_stream.chunk_paths(
+                self.consts, self.config.pilot_paths, carrier)
         return self._pathgen(self.consts, rows=self.config.pilot_paths,
                              key=pathgen_cuda._fold_words(*carrier))
 
+    def _stream_paths(self, rows=None, carrier=None, noise=None):
+        """One chunk of the generic stream: from the seeded ``carrier`` or
+        from ``noise`` = (z, dw), paired under ``antithetic``."""
+        anti = self.config.antithetic
+        if noise is not None:
+            return pathgen_stream.paths_from_noise(self.consts, *noise, anti)
+        return pathgen_stream.chunk_paths(self.consts, rows, carrier, anti)
+
     def _require_greeks(self) -> None:
-        if self.config.antithetic:
+        if self.kernel_family == "stream":
             raise NotImplementedError(
-                "antithetic=True: the Greeks kernels K3/K4 have no pair "
-                "form yet (ROADMAP A5)")
+                "Greeks on the generic path stream (pathgen_impl='xla', "
+                "poly_order != 2 or past the kernels' horizons) need the "
+                "jvp Greeks (ROADMAP A10)")
         if self.kernel_family != "single" or not greeks_cuda.supports(
                 self.config.n_steps):
             raise NotImplementedError(
@@ -470,22 +513,29 @@ class _FusedStream:
 
     def _groups(self, seed: int, n_paths: Optional[int], noise):
         """(n_paths, groups): each group of at most chunks_per_call chunks
-        lists each chunk's kernel arguments, the seeded rows/key of chunk
-        i or ``noise[i]``."""
+        lists each chunk's arguments: the seeded rows and key of chunk i
+        (the carrier (run_word, stream_index) on the generic stream), or
+        ``noise[i]`` (a (z[i], dw[i]) pair of the stream's (z, dw))."""
         chunk = self.config.chunk_paths
+        stream = self.kernel_family == "stream"
         if noise is not None:
-            n_paths = noise.shape[0] * chunk
+            noise = list(zip(*noise)) if stream else noise
+            n_paths = len(noise) * chunk
         n_paths = self._n_paths(n_paths)
         n_chunks = n_paths // chunk
         _, (run, start) = _pilot_stream_keys(seed)
+
+        def seeded(i):
+            if stream:
+                return {"rows": chunk, "carrier": (run, start + i)}
+            return {"rows": chunk,
+                    "key": pathgen_cuda._fold_words(run, start + i)}
+
         groups = []
         for done in range(0, n_chunks, self.config.chunks_per_call):
             stop = min(done + self.config.chunks_per_call, n_chunks)
-            groups.append([
-                {"rows": chunk,
-                 "key": pathgen_cuda._fold_words(run, start + i)}
-                if noise is None else {"noise": noise[i]}
-                for i in range(done, stop)])
+            groups.append([seeded(i) if noise is None else {"noise": noise[i]}
+                           for i in range(done, stop)])
         return n_paths, groups
 
     def _stream(self, chunk_sum, seed: int, n_paths: Optional[int], noise,
@@ -564,7 +614,10 @@ class StreamingPricer(_FusedStream):
     Runs on ``device`` ("cuda" unless the caller asks for "cpu"); on the
     CPU the kernels' plain versions run in their place.  ``antithetic`` and
     ``control_variate`` stream through the priced kernel's forms of those
-    names; the pilot and its fit are the plain ones."""
+    names; the pilot and its fit are the plain ones.  On the generic path
+    stream (``kernel_family`` "stream") each chunk's whole paths are
+    priced by ``lsm_policy_value`` under the fitted policy of any order,
+    and under ``control_variate`` beside their ``martingale_control``."""
 
     def __init__(self, s0, xi, h, eta, rho, r, strike, maturity,
                  is_call: bool, config: StreamConfig, device="cuda"):
@@ -576,6 +629,7 @@ class StreamingPricer(_FusedStream):
             "single": pathgen_cuda.priced_chunk,
             "tiled": pathgen_tiled_cuda.tiled_priced_chunk,
             "factored": pathgen_factored_cuda.factored_priced_chunk,
+            "stream": None,
         }[self.kernel_family]
         self._make_rows = _fused_rows_builder(
             self.r, self.strike, self.maturity, config.dt, config.n_steps,
@@ -590,9 +644,9 @@ class StreamingPricer(_FusedStream):
 
     def fit(self, carrier) -> Union[PolyFit, CVFit]:
         """Pilot block from the (run_word, stream_index) ``carrier``
-        through the family's path kernel, then the LSM policy fit; under
-        ``control_variate`` a CVFit with the control's beta and centre
-        from the same pilot."""
+        through the family's path kernel (or the generic stream), then the
+        LSM policy fit; under ``control_variate`` a CVFit with the
+        control's beta and centre from the same pilot."""
         pilot, fits = self._policy_fit(carrier)
         if not self.config.control_variate:
             return fits
@@ -611,6 +665,21 @@ class StreamingPricer(_FusedStream):
         return self.price_with_fit(self.fit(k_pilot), seed, n_paths,
                                    with_stderr)
 
+    def _stream_chunk_sum(self, fits: PolyFit, with_cv: bool):
+        """The generic stream's chunk: the sum of the policy values of its
+        whole paths (time-0 exercise included), and with ``with_cv`` the
+        sum of their martingale controls."""
+        def chunk_sum(**kw):
+            paths = self._stream_paths(**kw)
+            total, _ = lsm_policy_value(paths, fits, self.r, self.strike,
+                                        self.maturity, self.config.dt,
+                                        self.is_call)
+            if not with_cv:
+                return total
+            return total, torch.sum(martingale_control(paths, self.r,
+                                                       self.config.dt))
+        return chunk_sum
+
     def price_with_fit(self, fits: Union[PolyFit, CVFit], seed: int = 0,
                        n_paths: Optional[int] = None,
                        with_stderr: bool = False,
@@ -622,8 +691,10 @@ class StreamingPricer(_FusedStream):
         [n_chunks, 2, chunk_paths, n_steps] (N, W) on the single and tiled
         families, [n_chunks, 3, chunk_paths, m2] (Zr, Zi in the transposed
         storage order, W; m2 = next_pow2(n_steps)) on the factored family
-        (see ``pathgen_factored_cuda``); chunk_paths / 2 rows a chunk
-        under ``antithetic``."""
+        (see ``pathgen_factored_cuda``), (z [n_chunks, 2, chunk_paths,
+        n_steps], dw [n_chunks, chunk_paths, n_steps]) on the generic
+        stream (``pathgen_stream.paths_from_noise``); chunk_paths / 2 rows
+        a chunk under ``antithetic``."""
         config = self.config
         if config.control_variate != isinstance(fits, CVFit):
             raise ValueError(
@@ -632,14 +703,21 @@ class StreamingPricer(_FusedStream):
                 f"alone; got {type(fits).__name__}")
         cv = fits if config.control_variate else None
         fits = cv.fits if cv else fits
-        table = self._make_rows(fits)
-        ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, self.strike,
-                                           self.is_call)
+        if self.kernel_family == "stream":
+            # Time 0 is one of the policy's columns on whole paths.
+            ex0 = torch.zeros((), dtype=torch.bool, device=self.device)
+            p0 = 0.0
+            chunk_sum = self._stream_chunk_sum(fits, cv is not None)
+        else:
+            table = self._make_rows(fits)
+            ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, self.strike,
+                                               self.is_call)
 
-        def chunk_sum(**kw):
-            return self._priced_chunk(
-                self.consts, table, self.strike, self.is_call,
-                antithetic=config.antithetic, with_cv=cv is not None, **kw)
+            def chunk_sum(**kw):
+                return self._priced_chunk(
+                    self.consts, table, self.strike, self.is_call,
+                    antithetic=config.antithetic, with_cv=cv is not None,
+                    **kw)
 
         if cv is not None:
             out = self._stream_cv(chunk_sum, seed, n_paths, noise, ex0, p0,
@@ -656,14 +734,14 @@ class StreamingPricer(_FusedStream):
                          with_stderr: bool = False):
         """(price, delta, vega_xi, vega_eta, rho_rate, vega_h)
         (``GREEK_ORDER``) on ``n_paths`` fresh paths from ``seed``, through
-        the fused Greeks kernel K3: pathwise forward tangents with the
-        exercise policy fixed from the same pilot and fit as ``price``
-        (counterpart of the JAX fused Greeks stream).  Time-0 exercise
-        leaves (p0, +-1, 0, 0, 0, 0).  ``with_stderr`` returns
-        (greeks, stderrs), each a tuple of six floats.  Under
-        ``control_variate`` these are the plain Greeks, price lane
-        included, as in the JAX engine, whose fused Greeks stream ignores
-        the control."""
+        the fused Greeks kernel K3 (its pair form under ``antithetic``):
+        pathwise forward tangents with the exercise policy fixed from the
+        same pilot and fit as ``price`` (counterpart of the JAX fused
+        Greeks stream).  Time-0 exercise leaves (p0, +-1, 0, 0, 0, 0).
+        ``with_stderr`` returns (greeks, stderrs), each a tuple of six
+        floats.  Under ``control_variate`` these are the plain Greeks,
+        price lane included, as in the JAX engine, whose fused Greeks
+        stream ignores the control."""
         self._require_greeks()
         k_pilot, _ = _pilot_stream_keys(seed)
         n_paths = self._n_paths(n_paths)
@@ -687,25 +765,44 @@ class StreamingPricer(_FusedStream):
         out = self._stream(
             lambda **kw: greeks_cuda.greeks_chunk(
                 self.consts, gconsts, table, self.strike, self.is_call,
-                **kw), seed, n_paths, None, ex0, v0, with_stderr)
+                antithetic=self.config.antithetic, **kw),
+            seed, n_paths, None, ex0, v0, with_stderr)
         if not with_stderr:
             return tuple(float(v) for v in out)
         return (tuple(float(v) for v in out[0]),
                 tuple(float(v) for v in out[1]))
 
 
+def chain_family(config: StreamConfig) -> str:
+    """The family a strike strip runs on (counterpart: the JAX chain
+    pricer's choice of its fused chain kernel or its XLA generator): the
+    generic stream under ``pathgen_impl="xla"``, a ``poly_order`` other
+    than 2, or past K5's horizon (``chain_cuda.MAX_CHAIN_STEPS``), else
+    the single-strike pricer's pilot family, with K5 streaming."""
+    if not chain_cuda.supports(config.n_steps):
+        return "stream"
+    return resolve_kernel_family(config.n_steps, config.fgn_form,
+                                 config.tiled_impl, config.pathgen_impl,
+                                 config.poly_order)
+
+
 class StreamingChainPricer(_FusedStream):
     """Price a strike strip of one expiry on shared paths (counterpart of
-    the JAX ``StreamingChainPricer``'s fused, non-bucketed branch).
+    the JAX ``StreamingChainPricer``'s non-bucketed branches).
 
-    The pilot comes from K1 with the carriers ``StreamingPricer`` uses, so
-    a strike of the strip and a single-strike pricer with the same seed
-    fit on the same pilot and stream the same paths.  One backward pass
-    fits the whole strip (``lsm_fit`` with a strike tensor), and each
-    chunk runs K5 once per 32 strikes, every strike swept against the
-    same path block.  ``price_and_greeks`` runs K4 on the same stream.
-    Horizons are K5's (at most 512 steps, the JAX chain kernel's cap).
-    Runs on ``device`` ("cuda" unless the caller asks for "cpu")."""
+    The pilot comes from K1 (K6 past 365 steps) with the carriers
+    ``StreamingPricer`` uses, so a strike of the strip and a single-strike
+    pricer with the same seed fit on the same pilot and stream the same
+    paths.  One backward pass fits the whole strip (``lsm_fit`` with a
+    strike tensor), and each chunk runs K5 once per 32 strikes, every
+    strike swept against the same path block (K5's pair form under
+    ``antithetic``).  ``price_and_greeks`` runs K4 on the same stream.
+    K5 takes horizons up to 512 steps (the JAX chain kernel's cap); past
+    it, under ``pathgen_impl="xla"`` and for a ``poly_order`` other than
+    2 the whole pricer takes the generic path stream (``chain_family``):
+    its pilot, one batched fit, and each strike's ``lsm_policy_value`` on
+    every chunk's whole paths, plain or paired.  Runs on ``device``
+    ("cuda" unless the caller asks for "cpu")."""
 
     def __init__(self, s0, xi, h, eta, rho, r, strikes, maturity,
                  is_call: bool, config: StreamConfig, device="cuda",
@@ -721,21 +818,12 @@ class StreamingChainPricer(_FusedStream):
             raise NotImplementedError(
                 "bucketed and traced-market chains (the serving pricers) "
                 "are not ported (ROADMAP A13)")
-        if config.antithetic:
-            raise NotImplementedError(
-                "antithetic=True: the chain kernel K5 has no pair form yet "
-                "(ROADMAP A5)")
-        if not chain_cuda.supports(config.n_steps):
-            raise NotImplementedError(
-                f"n_steps={config.n_steps} is past the chain kernel K5 "
-                f"(max {chain_cuda.MAX_CHAIN_STEPS}); longer chains need the "
-                "generic path stream (ROADMAP A3)")
-        if resolve_kernel_family(config.n_steps, config.fgn_form,
-                                 config.tiled_impl) == "factored":
+        family = chain_family(config)
+        if family == "factored":
             raise NotImplementedError(
                 "the chain kernel K5 has no spectral form yet (ROADMAP B5)")
         super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
-                         device)
+                         device, family)
         self.strikes = self._strip(strikes)
 
     def _strip(self, strikes) -> torch.Tensor:
@@ -749,8 +837,9 @@ class StreamingChainPricer(_FusedStream):
         return strip.to(self.device)
 
     def fit(self, carrier, strikes=None) -> PolyFit:
-        """K1 pilot from ``carrier``, then one LSM backward pass over the
-        strip (default the pricer's): fits with a leading [K] axis."""
+        """The pilot from ``carrier`` (K1, K6 or the generic stream), then
+        one LSM backward pass over the strip (default the pricer's): fits
+        with a leading [K] axis."""
         strip = self.strikes if strikes is None else self._strip(strikes)
         _, fits = lsm_fit(self._pilot(carrier), self.r, strip,
                           self.maturity, self.config.dt, self.is_call,
@@ -774,30 +863,53 @@ class StreamingChainPricer(_FusedStream):
         return self.price_with_fit(self.fit(k_pilot, strip), seed, n_paths,
                                    strip, with_stderr)
 
+    def _stream_chunk_sums(self, fits: PolyFit, strip: torch.Tensor):
+        """The generic stream's chunk: [K] sums of each strike's policy
+        values on the chunk's whole paths, one strike at a time."""
+        ks = strip.tolist()
+
+        def chunk_sums(**kw):
+            paths = self._stream_paths(**kw)
+            return torch.stack([
+                lsm_policy_value(paths, PolyFit(*(f[k] for f in fits)),
+                                 self.r, strike, self.maturity,
+                                 self.config.dt, self.is_call)[0]
+                for k, strike in enumerate(ks)])
+        return chunk_sums
+
     def price_with_fit(self, fits: PolyFit, seed: int = 0,
                        n_paths: Optional[int] = None, strikes=None,
                        with_stderr: bool = False,
                        noise: Optional[torch.Tensor] = None):
         """Stream the strip against given fits (leading [K] axis), e.g.
         converted from the JAX package with ``polyfit_from_numpy``.  With
-        ``noise`` [n_chunks, 2, chunk_paths, n_steps] the chunks read that
-        noise instead of the seeded stream."""
+        ``noise`` the chunks read that noise instead of the seeded stream:
+        [n_chunks, 2, chunk_paths, n_steps] on K5, (z, dw) as
+        ``StreamingPricer.price_with_fit`` takes them on the generic
+        stream; chunk_paths / 2 rows a chunk under ``antithetic``."""
         strip = self.strikes if strikes is None else self._strip(strikes)
+        if self.kernel_family == "stream":
+            ex0 = torch.zeros(strip.shape, dtype=torch.bool,
+                              device=self.device)
+            return self._stream(self._stream_chunk_sums(fits, strip), seed,
+                                n_paths, noise, ex0, torch.zeros_like(strip),
+                                with_stderr)
         tables = self._tables(fits, strip)
         ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, strip,
                                            self.is_call)
         return self._stream(
-            lambda **kw: chain_cuda.priced_chain(self.consts, tables,
-                                                 self.is_call, **kw),
+            lambda **kw: chain_cuda.priced_chain(
+                self.consts, tables, self.is_call,
+                antithetic=self.config.antithetic, **kw),
             seed, n_paths, noise, ex0, p0, with_stderr)
 
     def price_and_greeks(self, seed: int, n_paths: Optional[int] = None,
                          strikes=None, with_stderr: bool = False):
         """[6, K] (numpy float64, rows in ``GREEK_ORDER``) per-strike price
-        and Greeks of the strip through the chain Greeks kernel K4, with
-        the fits of the same pilot as ``price``; ``with_stderr`` returns
-        (values, stderrs).  Time-0 exercise leaves (p0, +-1, 0, 0, 0, 0)
-        for that strike."""
+        and Greeks of the strip through the chain Greeks kernel K4 (its
+        pair form under ``antithetic``), with the fits of the same pilot
+        as ``price``; ``with_stderr`` returns (values, stderrs).  Time-0
+        exercise leaves (p0, +-1, 0, 0, 0, 0) for that strike."""
         self._require_greeks()
         strip = self.strikes if strikes is None else self._strip(strikes)
         k_pilot, _ = _pilot_stream_keys(seed)
@@ -821,5 +933,6 @@ class StreamingChainPricer(_FusedStream):
         gconsts = self.greeks_consts
         return self._stream(
             lambda **kw: greeks_cuda.chain_greeks_chunk(
-                self.consts, gconsts, tables, self.is_call, **kw),
+                self.consts, gconsts, tables, self.is_call,
+                antithetic=self.config.antithetic, **kw),
             seed, n_paths, None, ex0, v0, with_stderr)

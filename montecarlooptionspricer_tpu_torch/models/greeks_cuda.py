@@ -16,9 +16,13 @@ Both return the chunk's sums of price, delta, vega_xi, vega_eta, rho_rate
 and vega_h (``GREEK_ORDER``) under the log_boundary_rows policy held
 fixed: forward tangents of the policy value, written out as
 ``_tangent_planes`` and ``_greek_stop_vals`` do (the module docstring of
-the CUDA source gives the algebra).  The seeded entries draw K1's and K2's
-Philox stream.  The wrappers run the plain version for tensors on the CPU
-and launch the kernel for tensors on a CUDA device; nothing falls back.
+the CUDA source gives the algebra).  Their ``antithetic`` forms (the
+pair branch of ``_tangent_planes``) price each drawn row as the pair (N,
+W), (-N, -W): both fGN products run once per pair, and the partner takes
+-x', -hx and -W, nothing else negated.  The seeded entries draw K1's and
+K2's Philox stream.  The wrappers run the plain version for tensors on the
+CPU and launch the kernel for tensors on a CUDA device; nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -37,14 +41,19 @@ GREEK_ORDER = ("price", "delta", "vega_xi", "vega_eta", "rho_rate",
 # The card's memory model (mirrors csrc/greeks.cu).
 
 GROUP = 32                  # strikes one launch sweeps (csrc/greeks.cu kGroup)
+FORMS = pc.FORMS[:2]   # the forms of K3 and K4: the counters' keys
 
 
-def smem_bytes(n_steps: int, block_paths: int) -> int:
-    """Shared memory of one CUDA block: the N and W planes, four step tiles
-    (x' and hx, then the running sums; they also hold the block's sums at
+def smem_bytes(n_steps: int, block_paths: int,
+               antithetic: bool = False) -> int:
+    """Shared memory of one CUDA block: the N and W planes of the drawn
+    rows, four step tiles of every path (pair member when ``antithetic``:
+    x' and hx, then the running sums; they also hold the block's sums at
     the end) and the staged Lt' and dLt' rows."""
-    return pc.block_smem_bytes(n_steps, block_paths, n_products=2,
-                               extra=2 * block_paths * (pc.TILE_COLS + 1))
+    drawn = pc.drawn_rows(block_paths, antithetic)
+    return pc.block_smem_bytes(
+        n_steps, drawn, n_products=2,
+        extra=(4 * block_paths - 2 * drawn) * (pc.TILE_COLS + 1))
 
 
 def supports(n_steps: int) -> bool:
@@ -52,11 +61,14 @@ def supports(n_steps: int) -> bool:
     return n_steps >= 1 and pc.fitting_block(smem_bytes, n_steps) > 0
 
 
-def block_paths_for(n_steps: int, rows: int) -> int:
+def block_paths_for(n_steps: int, rows: int,
+                    antithetic: bool = False) -> int:
     """The Greeks kernels' path block: the largest of
-    pathgen_cuda.BLOCK_CHOICES whose shared memory fits at this horizon and
-    which divides ``rows`` (32 at 365 steps)."""
-    bp = pc.fitting_block(smem_bytes, n_steps, rows)
+    pathgen_cuda.BLOCK_CHOICES (PAIRED_BLOCK_CHOICES, in pair members, when
+    ``antithetic``) whose shared memory fits at this horizon and which
+    divides ``rows`` (32 at 365 steps, 64 paired)."""
+    bp = pc.fitting_block(lambda n, b: smem_bytes(n, b, antithetic),
+                          n_steps, rows, antithetic)
     if not bp:
         raise ValueError(f"no Greeks block divides rows={rows} at "
                          f"n_steps={n_steps}")
@@ -78,23 +90,30 @@ def _to_greek_order(sums: torch.Tensor, consts: pc.PathConsts,
 
 def greeks_from_noise_ref(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
                           tables: torch.Tensor, strikes: torch.Tensor,
-                          noise: torch.Tensor, is_call: bool) -> torch.Tensor:
+                          noise: torch.Tensor, is_call: bool,
+                          antithetic: bool = False) -> torch.Tensor:
     """Plain K3 and K4: [6, K] chunk sums in GREEK_ORDER under the
     [K, 8, >= n_steps] log_boundary_rows ``tables`` with strikes
-    ``strikes`` [K], on the paths of ``noise`` [2, rows, n_steps]."""
+    ``strikes`` [K], on the paths of ``noise`` [2, rows, n_steps]; with
+    ``antithetic`` each row of noise is priced as a pair, the partner on
+    -x', -hx and -W."""
     n = consts.n_steps
     x = pc._matmul_f32(noise[0], consts.lt_half)
     hx = pc._matmul_f32(noise[0], gconsts.dlt_half)
+    w = noise[1]
+    if antithetic:
+        x, w = pc.pair_planes(x, w)
+        hx = torch.cat([hx, -hx])
     sv = torch.exp(x + consts.vd)
     v = sv * sv
-    svw = sv * (noise[1] * math.sqrt(consts.dt))
+    svw = sv * (w * math.sqrt(consts.dt))
     inc = (consts.r - 0.5 * v) * consts.dt + svw
     b = svw - v * consts.dt
     ls = math.log(consts.s0) + torch.cumsum(inc, dim=1)
     cumb = torch.cumsum(b, dim=1)
     cume = torch.cumsum((x * (1.0 / gconsts.eta) + gconsts.de) * b, dim=1)
     cumh = torch.cumsum((hx + gconsts.dh) * b, dim=1)
-    del x, hx, sv, v, svw, inc, b
+    del x, hx, w, sv, v, svw, inc, b
     sgn = 1.0 if is_call else -1.0
     sums = []
     for tab, k in zip(tables, strikes):
@@ -142,10 +161,11 @@ def _check_gconsts(consts: pc.PathConsts, gconsts: pc.GreeksConsts) -> None:
                              f"{shape} on {consts.device}")
 
 
-def _launch(name, consts, gconsts, rows, key, noise, tables, extra, k):
+def _launch(name, consts, gconsts, rows, key, noise, tables, extra, k,
+            antithetic):
     """One launch of the Greeks body; returns its [k, 6] raw sums."""
     n = consts.n_steps
-    bp = block_paths_for(n, rows)
+    bp = block_paths_for(n, rows, antithetic)
     partial = torch.empty((rows // bp, k, 6), dtype=torch.float32,
                           device=consts.device)
     from ..kernels import build
@@ -156,7 +176,8 @@ def _launch(name, consts, gconsts, rows, key, noise, tables, extra, k):
         consts.vd.data_ptr(), gconsts.de.data_ptr(), gconsts.dh.data_ptr(),
         rows, n, bp, 0 if key is None else key & pc._U32,
         *pc._scalars(consts), ctypes.c_float(1.0 / gconsts.eta),
-        tables.data_ptr(), *extra, partial.data_ptr(),
+        tables.data_ptr(), *extra, int(bool(antithetic)),
+        partial.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, name)
     return torch.sum(partial, dim=0)
@@ -165,46 +186,54 @@ def _launch(name, consts, gconsts, rows, key, noise, tables, extra, k):
 def greeks_chunk(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
                  table: torch.Tensor, strike: float, is_call: bool,
                  rows: int = None, key: int = None,
-                 noise: torch.Tensor = None) -> torch.Tensor:
+                 noise: torch.Tensor = None,
+                 antithetic: bool = False) -> torch.Tensor:
     """K3: the chunk's [6] float32 sums in GREEK_ORDER under the
     log_boundary_rows ``table`` [8, >= n_steps] of ``strike``, from the
-    seeded stream of ``key`` or from injected ``noise``."""
-    rows = pc._noise_or_rows(consts, rows, key, noise)
+    seeded stream of ``key`` or from injected ``noise``.  With
+    ``antithetic`` the chunk's ``rows`` paths are rows / 2 pairs (noise
+    [2, rows / 2, n_steps])."""
+    rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
     _check_tables(consts, table[None])
     if consts.device.type == "cpu":
         if noise is None:
-            noise = pc.philox_normals_ref(key, rows, consts.n_steps)
+            noise = pc.philox_normals_ref(
+                key, pc.drawn_rows(rows, antithetic), consts.n_steps)
         return greeks_from_noise_ref(
             consts, gconsts, table[None], torch.tensor([float(strike)]),
-            noise, is_call)[:, 0]
+            noise, is_call, antithetic)[:, 0]
     pc.check_device_inputs(consts, noise, table)
     _check_gconsts(consts, gconsts)
     raw = _launch("mcop_greeks_chunk", consts, gconsts, rows, key, noise,
                   table, (table.stride(0), ctypes.c_float(strike),
-                          int(bool(is_call))), 1)
+                          int(bool(is_call))), 1, antithetic)
     greeks_chunk.launches += 1
+    greeks_chunk.form_launches[FORMS[int(bool(antithetic))]] += 1
     return _to_greek_order(raw[0], consts, gconsts)
 
 
 greeks_chunk.launches = 0
+greeks_chunk.form_launches = dict.fromkeys(FORMS, 0)
 
 
 def chain_greeks_chunk(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
                        tables: torch.Tensor, is_call: bool, rows: int = None,
-                       key: int = None,
-                       noise: torch.Tensor = None) -> torch.Tensor:
+                       key: int = None, noise: torch.Tensor = None,
+                       antithetic: bool = False) -> torch.Tensor:
     """K4: the chunk's [6, K] float32 sums in GREEK_ORDER under the
     strip's log_boundary_rows ``tables`` [K, 8, >= n_steps] (each strike
     is row 3 of its table), from the seeded stream of ``key`` or from
-    injected ``noise``.  One launch sweeps up to GROUP strikes; a wider
-    strip takes one launch per group on the same key or noise."""
-    rows = pc._noise_or_rows(consts, rows, key, noise)
+    injected ``noise``; ``antithetic`` as in ``greeks_chunk``.  One launch
+    sweeps up to GROUP strikes; a wider strip takes one launch per group
+    on the same key or noise, which regenerates the same pairs."""
+    rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
     _check_tables(consts, tables)
     if consts.device.type == "cpu":
         if noise is None:
-            noise = pc.philox_normals_ref(key, rows, consts.n_steps)
+            noise = pc.philox_normals_ref(
+                key, pc.drawn_rows(rows, antithetic), consts.n_steps)
         return greeks_from_noise_ref(consts, gconsts, tables, tables[:, 3, 0],
-                                     noise, is_call)
+                                     noise, is_call, antithetic)
     pc.check_device_inputs(consts, noise, tables)
     _check_gconsts(consts, gconsts)
     raws = []
@@ -213,10 +242,12 @@ def chain_greeks_chunk(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
         raws.append(_launch(
             "mcop_chain_greeks_chunk", consts, gconsts, rows, key, noise,
             tables[g], (tables.stride(0), tables.stride(1), k,
-                        int(bool(is_call))), k))
+                        int(bool(is_call))), k, antithetic))
         chain_greeks_chunk.launches += 1
+        chain_greeks_chunk.form_launches[FORMS[int(bool(antithetic))]] += 1
     return _to_greek_order(torch.cat(raws).T, consts, gconsts)
 
 
 chain_greeks_chunk.launches = 0
+chain_greeks_chunk.form_launches = dict.fromkeys(FORMS, 0)
 

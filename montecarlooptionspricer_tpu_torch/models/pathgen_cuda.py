@@ -171,10 +171,12 @@ def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
         + (2 if with_cv else 1) * block_paths)
 
 
-def fitting_block(smem, n_steps: int, rows: int = 0) -> int:
-    """Largest of BLOCK_CHOICES whose ``smem(n_steps, block)`` fits one H100
-    block (and which divides ``rows`` when given), or 0 when none does."""
-    for bp in BLOCK_CHOICES:
+def fitting_block(smem, n_steps: int, rows: int = 0,
+                  antithetic: bool = False) -> int:
+    """Largest of BLOCK_CHOICES (PAIRED_BLOCK_CHOICES when ``antithetic``)
+    whose ``smem(n_steps, block)`` fits one H100 block (and which divides
+    ``rows`` when given), or 0 when none does."""
+    for bp in PAIRED_BLOCK_CHOICES if antithetic else BLOCK_CHOICES:
         if smem(n_steps, bp) <= SMEM_LIMIT and (not rows or rows % bp == 0):
             return bp
     return 0

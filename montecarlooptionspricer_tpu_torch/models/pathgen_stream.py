@@ -1,0 +1,206 @@
+"""The generic path stream: whole rough-Bergomi chunks in plain PyTorch
+(counterpart: ``engine.make_chunk_pathgen`` of
+``montecarlooptionspricer_tpu/models/engine.py``, the XLA generator).
+
+The JAX package computes this generator in XLA, outside any Pallas
+kernel, so it is plain PyTorch here too: ``torch.matmul`` or
+``torch.fft``, and torch's own random numbers.  It carries what the
+fused kernels do not: horizons past their caps, strips past the chain
+kernel's 512 steps, policies other than the quadratic
+(``StreamConfig.poly_order``) and ``StreamConfig.pathgen_impl="xla"``.
+
+Per chunk, with unit-eta spectral matrices (the fGN is linear in eta):
+
+  x_hat = Zr @ Cr - Zi @ Ci               (fgn_impl "matmul")
+        = Re(FFT(phi * (Zr + i Zi)))[:n] * sqrt(2H) / M2   ("fft")
+  v     = xi exp(eta x_hat - eta^2 t^{2H} / 2)
+  inc   = (r - v / 2) dt + sqrt(v) dW,  dW = N(0, 1) sqrt(dt)
+  S     = [s0, s0 exp(cumsum(inc))]      [rows, n_steps + 1]
+
+Antithetic pairing is the noise plane's: Z and dW are drawn for rows / 2
+rows, and rows i and i + rows / 2 are partners, (Z, dW) and (-Z, -dW).
+The synthesis is linear, so it runs once per pair and the partner's plane
+is -x_hat.
+
+Two entries: ``paths_from_noise`` takes the (z, dw) planes (JAX's own
+draws in the tests, held elementwise), and ``chunk_paths`` draws them from
+a ``torch.Generator`` on the constants' device, seeded from a (run word,
+stream index) carrier.  That stream is torch's, not JAX's threefry, so it
+is held against JAX in distribution.  The matmul form runs in full float32
+(TF32 pinned off)."""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..ops import fgn
+from .pathgen_cuda import _matmul_f32
+
+FGN_IMPLS = ("auto", "matmul", "fft")
+
+
+def resolve_fgn_impl(fgn_impl: str) -> str:
+    """"auto" is "matmul", as in the JAX engine's ``_resolve_fgn_impl``."""
+    if fgn_impl not in FGN_IMPLS:
+        raise ValueError(f"unknown fgn_impl: {fgn_impl!r}")
+    return "matmul" if fgn_impl == "auto" else fgn_impl
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamConsts:
+    """What the stream reads besides noise: the market scalars, the
+    variance compensator's t^{2H} row ``t_pow`` [n], and the synthesis's
+    constants: ``cr``, ``ci`` [n, n] (unit-eta spectral matrices) for
+    "matmul", the complex spectrum ``phi`` [n] and ``fft_scale`` for
+    "fft".  Its tensors' device is where the stream runs."""
+
+    n_steps: int
+    dt: float
+    s0: float
+    xi: float
+    r: float
+    eta: float
+    fgn_impl: str
+    t_pow: torch.Tensor
+    cr: torch.Tensor = None
+    ci: torch.Tensor = None
+    phi: torch.Tensor = None
+    fft_scale: float = 0.0
+
+    @property
+    def device(self) -> torch.device:
+        return self.t_pow.device
+
+
+def _unit_eta_matrices(n_steps: int, h: float, dt: float):
+    """float64 (Cr, Ci) at eta = 1, the JAX engine's
+    ``_fgn_matrices_host(n, h, 1.0, dt)`` before its cast."""
+    from .engine import _fgn_matrices_np
+
+    return _fgn_matrices_np(n_steps, h, 1.0, dt)
+
+
+def make_stream_consts(s0, xi, h, eta, r, n_steps: int, dt: float, device,
+                       fgn_impl: str = "auto", traced_h: bool = False,
+                       qmc: bool = False) -> StreamConsts:
+    """StreamConsts on ``device`` from float64 host constants.  The traced
+    Hurst exponent of the serving and jvp-Greeks generators and the QMC
+    noise are not ported."""
+    if traced_h:
+        raise NotImplementedError(
+            "traced_h: the in-graph spectral build of the serving and jvp "
+            "Greeks generators is not ported (ROADMAP A13, A10)")
+    if qmc:
+        raise NotImplementedError(
+            "qmc: the randomized-Sobol noise is not ported (ROADMAP A12)")
+    impl = resolve_fgn_impl(fgn_impl)
+    t = torch.arange(n_steps + 1, dtype=torch.float32) * dt
+    f32 = dict(dtype=torch.float32, device=device)
+    kw = dict(n_steps=n_steps, dt=float(dt), s0=float(s0), xi=float(xi),
+              r=float(r), eta=float(eta), fgn_impl=impl,
+              t_pow=torch.pow(t[:n_steps], 2.0 * h).to(device))
+    if impl == "matmul":
+        cr, ci = _unit_eta_matrices(n_steps, float(h), float(dt))
+        return StreamConsts(cr=torch.tensor(cr, **f32),
+                            ci=torch.tensor(ci, **f32), **kw)
+    t64 = np.arange(n_steps + 1, dtype=np.float64) * dt
+    phi = np.conj(np.fft.fft(0.5 * t64 ** (2.0 * h),
+                             n=fgn.next_pow2(n_steps + 1)))[:n_steps]
+    return StreamConsts(
+        phi=torch.tensor(phi.astype(np.complex64), device=device),
+        fft_scale=float(np.sqrt(2.0 * h)) / fgn.next_pow2(n_steps), **kw)
+
+
+def fgn_plane(consts: StreamConsts, z: torch.Tensor) -> torch.Tensor:
+    """[rows, n] unit-eta fGN plane from the [2, rows, n] (Zr, Zi)
+    normals: the matmul or the FFT synthesis."""
+    if consts.fgn_impl == "matmul":
+        return _matmul_f32(z[0], consts.cr) - _matmul_f32(z[1], consts.ci)
+    a = consts.phi[None, :] * torch.complex(z[0], z[1])
+    x = torch.fft.fft(a, n=fgn.next_pow2(consts.n_steps), dim=-1)
+    return torch.real(x)[..., :consts.n_steps] * consts.fft_scale
+
+
+def paths_from_noise(consts: StreamConsts, z: torch.Tensor, dw: torch.Tensor,
+                     antithetic: bool = False,
+                     n_live=None) -> torch.Tensor:
+    """[rows, n_steps + 1] float32 prices, s0 in column 0, from the normals
+    ``z`` [2, drawn, n] and the scaled price Brownian ``dw`` [drawn, n]
+    (N(0, 1) sqrt(dt), as the JAX generator draws it); rows = 2 drawn
+    under ``antithetic``, the partner of row i at row i + drawn.  The
+    bucketed generator's ``n_live`` is not ported."""
+    if n_live is not None:
+        raise NotImplementedError(
+            "n_live: the bucketed serving generator is not ported (ROADMAP "
+            "A13)")
+    n = consts.n_steps
+    if z.dim() != 3 or z.shape[0] != 2 or z.shape[2] != n or \
+            tuple(dw.shape) != tuple(z.shape[1:]):
+        raise ValueError(f"noise must be z [2, rows, {n}] and dw [rows, "
+                         f"{n}], got {tuple(z.shape)} and {tuple(dw.shape)}")
+    x = fgn_plane(consts, z)
+    if antithetic:
+        x, dw = torch.cat([x, -x]), torch.cat([dw, -dw])
+    eta = consts.eta
+    v = consts.xi * torch.exp(eta * x - 0.5 * (eta * eta) * consts.t_pow)
+    del x
+    inc = (consts.r - 0.5 * v) * consts.dt + torch.sqrt(
+        torch.clamp_min(v, 0.0)) * dw
+    del v
+    out = torch.empty((inc.shape[0], n + 1), dtype=torch.float32,
+                      device=inc.device)
+    out[:, 0] = consts.s0
+    torch.cumsum(inc, dim=1, out=out[:, 1:])
+    del inc
+    out[:, 1:].add_(math.log(consts.s0)).exp_()
+    return out
+
+
+_M64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finalizer: a bijection of 64-bit words whose low 32
+    bits depend on every input bit."""
+    z = (x + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
+
+
+def stream_generator(device, carrier) -> torch.Generator:
+    """A torch.Generator on ``device`` seeded from the (run_word,
+    stream_index) ``carrier`` (run word below 2^31, index below 2^32)
+    through a 64-bit bijection: the card's Philox generator takes the
+    whole 64-bit seed, so distinct carriers never share one; the CPU's
+    Mersenne twister keeps its low 32 bits, which the mix makes depend on
+    both words."""
+    run, index = carrier
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_mix64((int(run) << 32) | (int(index) & 0xFFFFFFFF)))
+    return gen
+
+
+def draw_noise(consts: StreamConsts, drawn: int, gen: torch.Generator):
+    """(z [2, drawn, n], dw [drawn, n]) from ``gen``: standard normals,
+    dw scaled by sqrt(dt)."""
+    n, dev = consts.n_steps, consts.device
+    z = torch.randn((2, drawn, n), generator=gen, device=dev)
+    dw = torch.randn((drawn, n), generator=gen, device=dev)
+    return z, dw.mul_(math.sqrt(consts.dt))
+
+
+def chunk_paths(consts: StreamConsts, rows: int, carrier,
+                antithetic: bool = False) -> torch.Tensor:
+    """[rows, n_steps + 1] prices of the chunk of ``carrier``: its noise
+    drawn by ``stream_generator`` (rows / 2 rows under ``antithetic``)."""
+    if antithetic and rows % 2:
+        raise ValueError(f"antithetic rows={rows} must be even")
+    drawn = rows // 2 if antithetic else rows
+    z, dw = draw_noise(consts, drawn,
+                       stream_generator(consts.device, carrier))
+    return paths_from_noise(consts, z, dw, antithetic)

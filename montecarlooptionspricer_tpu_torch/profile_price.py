@@ -13,7 +13,12 @@ run; ``--steps 4000`` takes K8/K9 by default).  ``--antithetic`` and
 then runs that form of the priced kernel, and the fit adds the control's
 beta and centre.  ``--strikes`` prices that strike strip of the same
 expiry through ``StreamingChainPricer`` instead: the fit is one LSM
-backward pass over the strip, the stream K5 per chunk.  For each stage it
+backward pass over the strip, the stream K5 per chunk.  ``--greeks``
+streams the Greeks kernel instead (K3, or K4 with ``--strikes``); each
+pairs with ``--antithetic``.  ``--pathgen xla`` takes the generic path
+stream (``pathgen_stream``): the stream stage then generates whole paths
+and prices them in plain PyTorch, which is also where ``--strikes`` goes
+past K5's 512 steps.  For each stage it
 prints one JSON line: host wall seconds, device kernel launches and busy
 seconds from the trace, the idle share 1 - busy / wall (against the
 unprofiled and the profiled wall), and the kernels that take the most
@@ -21,8 +26,8 @@ device time.
 
 Usage (one CUDA card):
   python -m montecarlooptionspricer_tpu_torch.profile_price [--steps N]
-      [--strikes 75,77.5,...,125] [--tiled-impl factored] [--antithetic]
-      [--control-variate]
+      [--strikes 75,77.5,...,125] [--greeks] [--tiled-impl factored]
+      [--antithetic] [--control-variate] [--pathgen xla]
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import sys
 import time
 
 
-def _stages(pricer, seed):
+def _stages(pricer, seed, greeks: bool):
     from .models.engine import _pilot_stream_keys
 
     state = {}
@@ -43,7 +48,10 @@ def _stages(pricer, seed):
         state["fits"] = pricer.fit(_pilot_stream_keys(seed)[0])
 
     def stream():
-        pricer.price_with_fit(state["fits"], seed)
+        if greeks:
+            pricer.greeks_with_fit(state["fits"], seed)
+        else:
+            pricer.price_with_fit(state["fits"], seed)
 
     return (("fit", fit), ("stream", stream))
 
@@ -65,10 +73,16 @@ def main(argv=None) -> int:
     parser.add_argument("--tiled-impl", default="auto",
                         choices=("auto", "slab", "factored"),
                         help="StreamConfig.tiled_impl")
+    parser.add_argument("--greeks", action="store_true",
+                        help="stream the Greeks kernel (K3, K4 with "
+                             "--strikes)")
     parser.add_argument("--antithetic", action="store_true",
-                        help="StreamConfig.antithetic (single strikes)")
+                        help="StreamConfig.antithetic")
     parser.add_argument("--control-variate", action="store_true",
                         help="StreamConfig.control_variate (single strikes)")
+    parser.add_argument("--pathgen", default="pallas",
+                        choices=("pallas", "xla"),
+                        help="StreamConfig.pathgen_impl")
     args = parser.parse_args(argv)
     steps = args.steps
     strikes = [float(v) for v in args.strikes.split(",") if v]
@@ -85,7 +99,8 @@ def main(argv=None) -> int:
                               dt=1.0 / 252.0, chunks_per_call=76,
                               tiled_impl=args.tiled_impl,
                               antithetic=args.antithetic,
-                              control_variate=args.control_variate)
+                              control_variate=args.control_variate,
+                              pathgen_impl=args.pathgen)
     if strikes:
         pricer = engine.StreamingChainPricer(
             100.0, 0.04, 0.1, 1.5, -0.4, 0.04, strikes, steps / 252, False,
@@ -95,12 +110,16 @@ def main(argv=None) -> int:
                                         105.0, steps / 252, False, cfg,
                                         device="cuda")
     seed = 42
-    pricer.price(seed)          # build the kernels, warm every path
+    # Build the kernels, warm every path.
+    if args.greeks:
+        pricer.price_and_greeks(seed)
+    else:
+        pricer.price(seed)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    for name, fn in _stages(pricer, seed):
+    for name, fn in _stages(pricer, seed, args.greeks):
         wall_plain = _timed(torch, fn)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -115,7 +134,8 @@ def main(argv=None) -> int:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         print(json.dumps({
             "stage": name, "n_steps": steps,
-            "n_strikes": len(strikes) or 1, "antithetic": args.antithetic,
+            "n_strikes": len(strikes) or 1, "greeks": args.greeks,
+            "antithetic": args.antithetic,
             "control_variate": args.control_variate,
             "kernel_family": pricer.kernel_family, "card": card,
             "wall_s": wall_plain,

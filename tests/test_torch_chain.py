@@ -34,6 +34,7 @@ N_STEPS, ROWS = 48, 256
 MATURITY = N_STEPS * DT
 STRIP3 = [94.0, 99.0, 104.0]
 STRIP13 = [float(k) for k in np.linspace(88.0, 112.0, 13)]
+STRIP40 = [float(k) for k in np.linspace(84.0, 116.0, 40)]
 BENCH_MARKET = dict(s0=100.0, xi=0.04, h=0.1, eta=1.5, rho=-0.4, r=0.04)
 
 
@@ -87,6 +88,47 @@ def test_priced_chain_ref_matches_jax(rng, is_call, strikes):
     assert got.shape == (len(strikes),) and want.max() > 0
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4,
                                atol=1e-3 * want.max())
+
+
+@pytest.mark.parametrize("is_call,strikes", [(False, STRIP3),
+                                             (False, STRIP40),
+                                             (True, STRIP13)])
+def test_priced_chain_pair_ref_matches_jax(rng, is_call, strikes):
+    """Plain K5/anti against JAX's boundary-form chain kernel with
+    antithetic=True in interpret mode, on the same half-row noise and
+    tables: rtol 1e-4 on each strike's sum, atol 1e-3 of the largest (a
+    deep out-of-the-money sum is ~0).  40 strikes are JAX's four
+    regenerated groups and the card's two, each pairing the same rows.
+    The paired plain version against the unpaired one on [X; -X]: within
+    1e-5."""
+    paths, _ = jax_pilot_fits(shared_noise(rng, 512, N_STEPS), 100.0,
+                              MATURITY, is_call, n_steps=N_STEPS)
+    _, jtab = jax_strip_fits(paths, strikes, is_call)
+    chain, _ = jpp.make_pallas_priced_chain(
+        **KW, strikes=strikes, maturity=MATURITY, dt=DT, n_steps=N_STEPS,
+        chunk_paths=ROWS, block_paths=128, is_call=is_call, interpret=True,
+        noise_input=True, fgn_form="chol", policy_form="boundary",
+        antithetic=True)
+    noise = shared_noise(rng, ROWS // 2, N_STEPS)
+    want = np.asarray(chain(jnp.asarray(noise), jtab))
+    tables = torch.tensor(np.asarray(jtab))
+    half = port_noise(noise, N_STEPS)
+    got = cc.priced_chain(consts_cpu(), tables, is_call, noise=half,
+                          antithetic=True)
+    assert got.shape == (len(strikes),) and want.max() > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                               atol=1e-3 * want.max())
+    unpaired = cc.priced_chain(consts_cpu(), tables, is_call,
+                               noise=torch.cat([half, -half], dim=1))
+    np.testing.assert_allclose(got.numpy(), unpaired.numpy(), rtol=1e-5,
+                               atol=1e-5 * want.max())
+    # The seeded entry draws rows / 2 rows of K2's stream.
+    key = pc._fold_words(9, 4)
+    seeded = cc.priced_chain(consts_cpu(), tables, is_call, rows=ROWS,
+                             key=key, antithetic=True)
+    torch.testing.assert_close(seeded, cc.priced_chain_from_noise_ref(
+        consts_cpu(), tables, pc.philox_normals_ref(key, ROWS // 2, N_STEPS),
+        is_call, antithetic=True), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("is_call", [False, True])
@@ -279,10 +321,8 @@ def test_strip_of_one_matches_single_strike_pricer():
 @pytest.mark.parametrize("kwargs,exc,match", [
     (dict(bucketed=True), NotImplementedError, "ROADMAP A13"),
     (dict(traced_market=True), NotImplementedError, "ROADMAP A13"),
-    (dict(config=dict(antithetic=True)), NotImplementedError, "ROADMAP A5"),
     (dict(config=dict(qmc=True)), NotImplementedError, "ROADMAP A12"),
     (dict(config=dict(control_variate=True)), ValueError, "control_variate"),
-    (dict(config=dict(n_steps=600)), NotImplementedError, "ROADMAP A3"),
 ])
 def test_chain_unported_options_raise(kwargs, exc, match):
     cfg = dict(n_paths=1024, n_steps=32, chunk_paths=256, pilot_paths=256)
@@ -292,6 +332,52 @@ def test_chain_unported_options_raise(kwargs, exc, match):
             **BENCH_MARKET, strikes=[95.0, 100.0], maturity=32 * DT,
             is_call=False, config=tengine.StreamConfig(**cfg), device="cpu",
             **kwargs)
+
+
+def test_antithetic_strip_streams_k5_pairs():
+    """An antithetic strip (refused before K5 had a pair form) streams
+    K5/anti: the seeded price equals the mean of the paired plain
+    version's sums over the chunks' keys under the same fits, to 1e-6,
+    and its stderr lies below the plain strip's on the same seed."""
+    cfg = dict(n_paths=4 * 512, n_steps=32, chunk_paths=512,
+               pilot_paths=1024, dt=DT)
+    strikes, maturity = [97.0, 103.0], 32 * DT
+    chain = tengine.StreamingChainPricer(
+        **BENCH_MARKET, strikes=strikes, maturity=maturity, is_call=False,
+        config=tengine.StreamConfig(**cfg, antithetic=True), device="cpu")
+    assert chain.kernel_family == "single"
+    fits = chain.fit(tengine._pilot_stream_keys(2)[0])
+    got, se = chain.price_with_fit(fits, 2, with_stderr=True)
+    _, (run, start) = tengine._pilot_stream_keys(2)
+    tables = chain._tables(fits, chain.strikes)
+    want = sum(cc.priced_chain_from_noise_ref(
+        chain.consts, tables, pc.philox_normals_ref(
+            pc._fold_words(run, start + i), 256, 32), False, True).double()
+        for i in range(4)) / 2048
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-6)
+    plain = tengine.StreamingChainPricer(
+        **BENCH_MARKET, strikes=strikes, maturity=maturity, is_call=False,
+        config=tengine.StreamConfig(**cfg), device="cpu")
+    _, se_plain = plain.price_with_fit(fits, 2, with_stderr=True)
+    assert np.all(se < se_plain)
+
+
+def test_strip_past_k5_takes_the_stream():
+    """A 600-step strip, past K5's 512 steps (refused before the generic
+    stream was ported), prices on the stream with a positive stderr per
+    strike; at 512 steps the strip stays on K5 with the K6 pilot."""
+    def chain(n_steps):
+        return tengine.StreamingChainPricer(
+            **BENCH_MARKET, strikes=[95.0, 100.0], maturity=n_steps * DT,
+            is_call=False, config=tengine.StreamConfig(
+                n_paths=2 * 256, n_steps=n_steps, chunk_paths=256,
+                pilot_paths=256, dt=DT), device="cpu")
+
+    assert chain(512).kernel_family == "tiled"
+    past = chain(600)
+    assert past.kernel_family == "stream"
+    prices, stderrs = past.price(0, with_stderr=True)
+    assert np.all(prices > 0) and np.all(stderrs > 0)
 
 
 @pytest.mark.parametrize("is_call", [False, True])

@@ -115,15 +115,28 @@ def test_seed_carriers():
 
 
 @pytest.mark.parametrize("field,value", [("fgn_form", "spectral"),
-                                         ("policy_form", "quadratic"),
-                                         ("poly_order", 3),
-                                         # past max_factored_steps() (8,192)
-                                         ("n_steps", 8193)])
+                                         ("policy_form", "quadratic")])
 def test_unported_configurations_raise(field, value):
     kw = dict(n_paths=1024, n_steps=32)
     kw[field] = value
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tengine.StreamConfig(**kw)
+
+
+@pytest.mark.parametrize("field,value", [("poly_order", 3),
+                                         # past max_factored_steps() (8,192)
+                                         ("n_steps", 8193),
+                                         ("pathgen_impl", "xla")])
+def test_stream_configurations_resolve(field, value):
+    """What the fused kernels cannot take (a cubic policy, past K8's
+    range; NotImplementedError before the generic path stream was ported)
+    and the JAX default generator resolve to the stream."""
+    kw = dict(n_paths=1024, n_steps=32)
+    kw[field] = value
+    cfg = tengine.StreamConfig(**kw)
+    assert tengine.resolve_kernel_family(
+        cfg.n_steps, cfg.fgn_form, cfg.tiled_impl, cfg.pathgen_impl,
+        cfg.poly_order) == "stream"
 
 
 def test_default_device_is_cuda_without_fallback():
@@ -179,8 +192,9 @@ def test_cli_prices_on_cpu(capsys):
     out = json.loads(capsys.readouterr().out)
     assert rc == 0
     assert set(out) == {"price", "stderr", "n_paths", "n_steps", "is_call",
-                        "elapsed_s"}
+                        "kernel_family", "elapsed_s"}
     assert out["n_paths"] == 4096 and out["n_steps"] == 24
+    assert out["kernel_family"] == "single"
     assert out["price"] > 0 and out["stderr"] > 0 and not out["is_call"]
 
 
@@ -192,7 +206,7 @@ def test_cli_unported_flags_exit_2(capsys, flag):
 
 _RUN = ["--strike", "102", "--put", "--maturity", "0.12", "--steps", "24",
         "--paths", "4096", "--chunk-paths", "2048", "--device", "cpu"]
-_TAIL = {"n_paths", "n_steps", "is_call", "elapsed_s"}
+_TAIL = {"n_paths", "n_steps", "is_call", "kernel_family", "elapsed_s"}
 
 
 @pytest.mark.parametrize("flags", [["--strikes", "95,100,130"], ["--greeks"],

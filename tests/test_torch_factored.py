@@ -316,18 +316,19 @@ def test_engine_streams_given_noise_on_the_factored_family(rng):
 
 def test_cli_prices_past_the_slab_on_cpu(capsys):
     """mcop-price-torch past the slab's 3,620 steps takes the factored
-    family (auto)."""
+    family (auto).  Two chunks of 256, the CLI's smallest (JAX's
+    rounding), so the stderr exists."""
     from montecarlooptionspricer_tpu_torch.cli import price as tcli
 
     steps = ptc.max_tiled_steps() + 80
     assert tengine.resolve_kernel_family(steps) == "factored"
     rc = tcli.main(["--strike", "105", "--put", "--maturity",
                     str(steps / 252), "--steps", str(steps), "--paths",
-                    "256", "--chunk-paths", "128", "--pilot-paths", "128",
+                    "512", "--chunk-paths", "256", "--pilot-paths", "128",
                     "--device", "cpu"])
     out = json.loads(capsys.readouterr().out)
-    assert rc == 0
-    assert out["n_steps"] == steps and out["n_paths"] == 256
+    assert rc == 0 and out["kernel_family"] == "factored"
+    assert out["n_steps"] == steps and out["n_paths"] == 512
     assert 0 < out["price"] < 105 and out["stderr"] > 0
 
 
@@ -354,14 +355,16 @@ SLAB = ptc.max_tiled_steps()
     # ValueError), tiled_impl past its kernel's range.
     (4000, "chol", "auto", (ValueError, "fgn_form='chol'")),
     (1825, "chol", "factored", (ValueError, "fgn_form='chol'")),
-    (CAP + 1, "auto", "factored", (ValueError, "ROADMAP A3")),
+    (CAP + 1, "auto", "factored", (ValueError, "tiled_impl='auto'")),
     (4000, "auto", "slab", (ValueError, "tiled_impl='slab'")),
     (1825, "cholesky", "auto", (ValueError, "fgn_form")),
     # Still to port, each naming its ROADMAP item.
     (365, "spectral", "auto", (NotImplementedError, "ROADMAP B1/B2")),
     (1825, "spectral", "slab", (NotImplementedError, "ROADMAP B7")),
-    (CAP + 1, "auto", "auto", (NotImplementedError, "ROADMAP A3")),
-    (CAP + 1, "spectral", "auto", (NotImplementedError, "ROADMAP A3")),
+    # Past K8's range: the generic path stream (NotImplementedError
+    # before it was ported).
+    (CAP + 1, "auto", "auto", "stream"),
+    (CAP + 1, "spectral", "auto", "stream"),
 ])
 def test_kernel_family_table(n_steps, fgn_form, tiled_impl, want):
     if isinstance(want, str):

@@ -193,12 +193,15 @@ def _rel(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_steps,n_strikes", [(96, 23), (365, 23),
-                                               (365, 40)])
+                                               (365, 40), (400, 23),
+                                               (512, 23)])
 def test_chain_kernel_matches_plain_version(cuda, n_steps, n_strikes):
     """K5's [K] sums against its plain version, seeded and noise-in, at the
     main path's chunk of 131072 rows: rtol 1e-4 per strike (a decision
     flips only inside the float32 root band).  23 strikes do not divide
-    the kernel's strike lanes; 40 take two launches of one key."""
+    the kernel's strike lanes; 40 take two launches of one key.  400 and
+    512 steps are past the single tile, where the chain's pilot runs on K6
+    and K5 still streams (64- and 32-path blocks)."""
     rows = 1 << 17
     consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda)
     key = pc._fold_words(5, 13)
@@ -213,6 +216,45 @@ def test_chain_kernel_matches_plain_version(cuda, n_steps, n_strikes):
         assert got.shape == (n_strikes,)
         assert _rel(got, want) < 1e-4
     assert cc.priced_chain.launches - before == 2 * -(-n_strikes // cc.GROUP)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps,n_strikes", [(96, 23), (365, 21),
+                                               (365, 40), (400, 23),
+                                               (512, 23)])
+def test_chain_pair_form_matches_plain_version(cuda, n_steps, n_strikes):
+    """K5/anti at 131072 rows (65536 drawn): against its plain version,
+    seeded and on noise, rtol 1e-4 per strike; against the unpaired K5 on
+    the concatenated [X; -X] noise, rtol 1e-5 (each member's arithmetic is
+    the unpaired path's, only the block sums' order differs).  40 strikes
+    take two launches, which must regenerate the same pairs; the paired
+    block holds 128 members at 365 steps and 64 at 512."""
+    rows = 1 << 17
+    consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda)
+    key = pc._fold_words(5, 23)
+    noise = pc.philox_normals_ref(key, rows // 2, n_steps, device=cuda)
+    tables, _ = _strip_tables(cuda, consts, noise,
+                              torch.linspace(80.0, 120.0, n_strikes).tolist())
+    assert cc.block_paths_for(n_steps, rows, True) == (
+        128 if n_steps <= 365 else 64)
+    want = cc.priced_chain_from_noise_ref(consts, tables, noise, False, True)
+    before = dict(cc.priced_chain.form_launches)
+    for got in (cc.priced_chain(consts, tables, False, noise=noise,
+                                antithetic=True),
+                cc.priced_chain(consts, tables, False, rows=rows, key=key,
+                                antithetic=True)):
+        torch.cuda.synchronize()
+        assert got.shape == (n_strikes,)
+        assert _rel(got, want) < 1e-4
+    groups = -(-n_strikes // cc.GROUP)
+    assert cc.priced_chain.form_launches["anti"] - before["anti"] == \
+        2 * groups
+    unpaired = cc.priced_chain(consts, tables, False,
+                               noise=torch.cat([noise, -noise], dim=1))
+    paired = cc.priced_chain(consts, tables, False, noise=noise,
+                             antithetic=True)
+    torch.cuda.synchronize()
+    assert _rel(paired, unpaired) < 1e-5
 
 
 @pytest.mark.gpu
@@ -282,14 +324,70 @@ def test_greeks_kernels_match_plain_version(cuda, n_steps):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_steps,n_strikes", [(96, 23), (365, 21),
+                                               (365, 40)])
+def test_greeks_pair_forms_match_plain_version(cuda, n_steps, n_strikes):
+    """K3/anti and K4/anti at 131072 rows (65536 drawn): against their
+    plain version, seeded and on noise, 2e-4 of each output's scale;
+    against the unpaired forms on the concatenated [X; -X] noise, 1e-5 of
+    each output's scale (the partner negates x', hx and W only, so each
+    member's arithmetic is the unpaired path's).  K4's columns equal
+    K3/anti per strike up to the cross-block sum's order."""
+    rows = 1 << 17
+    consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda)
+    g = pc.make_greeks_consts(MARKET["xi"], MARKET["h"], MARKET["eta"],
+                              n_steps, DT, cuda)
+    key = pc._fold_words(5, 29)
+    noise = pc.philox_normals_ref(key, rows // 2, n_steps, device=cuda)
+    strikes = torch.linspace(85.0, 115.0, n_strikes).tolist()
+    _, logs = _strip_tables(cuda, consts, noise, strikes)
+    assert gc.block_paths_for(n_steps, rows, True) == (
+        128 if n_steps <= 96 else 64)
+    want = gc.greeks_from_noise_ref(consts, g, logs,
+                                    torch.tensor(strikes, device=cuda),
+                                    noise, False, True)
+    for kw in ({"noise": noise}, {"rows": rows, "key": key}):
+        got = gc.chain_greeks_chunk(consts, g, logs, False, antithetic=True,
+                                    **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (6, n_strikes)
+        assert _rel(got, want) < 2e-4
+        for j in (0, n_strikes // 2):
+            one = gc.greeks_chunk(consts, g, logs[j], strikes[j], False,
+                                  antithetic=True, **kw)
+            torch.cuda.synchronize()
+            assert _rel(one[:, None], want[:, j:j + 1]) < 2e-4
+            scale = got.abs().amax(dim=1)
+            assert bool(((one - got[:, j]).abs() <= 1e-6 * scale).all())
+    doubled = torch.cat([noise, -noise], dim=1)
+    unpaired = gc.chain_greeks_chunk(consts, g, logs, False, noise=doubled)
+    paired = gc.chain_greeks_chunk(consts, g, logs, False, noise=noise,
+                                   antithetic=True)
+    one_u = gc.greeks_chunk(consts, g, logs[0], strikes[0], False,
+                            noise=doubled)
+    one_p = gc.greeks_chunk(consts, g, logs[0], strikes[0], False,
+                            noise=noise, antithetic=True)
+    torch.cuda.synchronize()
+    assert _rel(paired, unpaired) < 1e-5
+    assert _rel(one_p[:, None], one_u[:, None]) < 1e-5
+
+
+@pytest.mark.gpu
 def test_chain_and_greeks_wrappers_reject_bad_inputs(cuda):
     from montecarlooptionspricer_tpu_torch.kernels import build
 
     lib = build.load()
     for n in (96, 365, 512):       # the Python memory models are the card's
         for bp in pc.BLOCK_CHOICES:
-            assert lib.mcop_chain_smem_bytes(n, bp) == cc.smem_bytes(n, bp)
-            assert lib.mcop_greeks_smem_bytes(n, bp) == gc.smem_bytes(n, bp)
+            assert lib.mcop_chain_smem_bytes(n, bp, 0) == \
+                cc.smem_bytes(n, bp)
+            assert lib.mcop_greeks_smem_bytes(n, bp, 0) == \
+                gc.smem_bytes(n, bp)
+        for bp in pc.PAIRED_BLOCK_CHOICES:
+            assert lib.mcop_chain_smem_bytes(n, bp, 1) == \
+                cc.smem_bytes(n, bp, True)
+            assert lib.mcop_greeks_smem_bytes(n, bp, 1) == \
+                gc.smem_bytes(n, bp, True)
     assert lib.mcop_chain_group() == cc.GROUP
     assert lib.mcop_greeks_group() == gc.GROUP
     consts = pc.make_path_consts(*MARKET.values(), 64, DT, cuda)
@@ -555,3 +653,40 @@ def test_form_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):      # 4 drawn rows, 8 paths a block
         pfc.factored_priced_chunk(fconsts, ftable, 100.0, False, rows=8,
                                   key=1, antithetic=True)
+
+
+@pytest.mark.gpu
+def test_generic_stream_on_the_card(cuda):
+    """The generic path stream on the card: its matmul and FFT syntheses
+    agree on the same noise (2e-4 of the largest price), a paired chunk's
+    members are the unpaired paths of (z, dw) and (-z, -dw) (1e-5 of the
+    largest price), and a 600-step strip, past K5, prices through it
+    without launching a kernel."""
+    from montecarlooptionspricer_tpu_torch.models import pathgen_stream as ps
+
+    n_steps = 600
+    market = (MARKET["s0"], MARKET["xi"], MARKET["h"], MARKET["eta"],
+              MARKET["r"])
+    consts = ps.make_stream_consts(*market, n_steps, DT, cuda)
+    fft = ps.make_stream_consts(*market, n_steps, DT, cuda, fgn_impl="fft")
+    z, dw = ps.draw_noise(consts, 2048, ps.stream_generator(cuda, (7, 3)))
+    a = ps.paths_from_noise(consts, z, dw)
+    b = ps.paths_from_noise(fft, z, dw)
+    paired = ps.paths_from_noise(consts, z, dw, antithetic=True)
+    minus = ps.paths_from_noise(consts, -z, -dw)
+    torch.cuda.synchronize()
+    scale = float(a.abs().max())
+    assert bool(torch.isfinite(a).all())
+    assert float((a - b).abs().max()) <= 2e-4 * scale
+    assert float((paired - torch.cat([a, minus])).abs().max()) <= 1e-5 * scale
+    cfg = engine.StreamConfig(n_paths=4 << 12, n_steps=n_steps,
+                              chunk_paths=1 << 12, pilot_paths=1 << 12,
+                              dt=DT, antithetic=True)
+    chain = engine.StreamingChainPricer(
+        *market[:4], -0.4, MARKET["r"], [95.0, 105.0], n_steps * DT, False,
+        cfg, device=cuda)
+    before = cc.priced_chain.launches + pc.pathgen.launches
+    prices, stderrs = chain.price(3, with_stderr=True)
+    assert chain.kernel_family == "stream"
+    assert cc.priced_chain.launches + pc.pathgen.launches == before
+    assert (prices > 0).all() and (stderrs > 0).all()

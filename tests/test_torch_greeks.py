@@ -174,6 +174,70 @@ def test_chain_greeks_ref_matches_jax_and_single_strike(rng, strikes):
                                    rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("strikes", [[101.0], [94.0, 99.0, 104.0],
+                                     [float(k) for k in
+                                      np.linspace(88.0, 112.0, 13)]])
+def test_greeks_pair_ref_matches_jax(rng, strikes):
+    """Plain K3/anti (one strike) and K4/anti (3 and 13 strikes: JAX's
+    two regenerated groups) against JAX's Greeks kernels with
+    antithetic=True in interpret mode on the same half-row noise and
+    tables: 2e-4 of each output's scale.  The paired plain version
+    against the unpaired one on [X; -X]: 1e-5 of each output's scale."""
+    _, ltab = strip_tables(rng, strikes, False)
+    kw = dict(**KW, maturity=MATURITY, dt=DT, n_steps=N_STEPS,
+              chunk_paths=ROWS, block_paths=128, is_call=False,
+              interpret=True, noise_input=True, antithetic=True)
+    noise = shared_noise(rng, ROWS // 2, N_STEPS)
+    consts, g = consts_cpu()
+    tables = torch.tensor(np.asarray(ltab))
+    half = port_noise(noise, N_STEPS)
+    doubled = torch.cat([half, -half], dim=1)
+    if len(strikes) == 1:
+        greeks, _ = jpp.make_pallas_greeks_chunk(strike=strikes[0], **kw)
+        want = np.asarray(greeks(jnp.asarray(noise), ltab[0]))[:, None]
+        got = gc.greeks_chunk(consts, g, tables[0], strikes[0], False,
+                              noise=half, antithetic=True)[:, None]
+        unpaired = gc.greeks_chunk(consts, g, tables[0], strikes[0], False,
+                                   noise=doubled)[:, None]
+    else:
+        chain, _ = jpp.make_pallas_chain_greeks_chunk(strikes=len(strikes),
+                                                      **kw)
+        want = np.asarray(chain(jnp.asarray(noise), ltab))
+        got = gc.chain_greeks_chunk(consts, g, tables, False, noise=half,
+                                    antithetic=True)
+        unpaired = gc.chain_greeks_chunk(consts, g, tables, False,
+                                         noise=doubled)
+    assert got.shape == want.shape == (6, len(strikes)) and want[0, 0] > 0
+    for j in range(len(strikes)):
+        assert np.all(scaled_err(got[:, j].numpy(), want[:, j]) < 2e-4), j
+        assert np.all(scaled_err(got[:, j].numpy(),
+                                 unpaired[:, j].numpy()) < 1e-5), j
+
+
+def test_paired_greeks_stream_k3_and_k4_pairs():
+    """price_and_greeks under antithetic (refused before K3 and K4 had
+    pair forms): the single strike and the strip stream the pair forms,
+    their price lanes equal the paired prices of K2 and K5 on the same
+    seed (rtol 1e-4: log- and S-space decisions differ in the root band),
+    and the strip's columns equal the single pricer's at the same strike
+    (rtol 1e-5)."""
+    cfg = tengine.StreamConfig(n_paths=4 * 512, n_steps=N_STEPS,
+                               chunk_paths=512, pilot_paths=1024, dt=DT,
+                               antithetic=True)
+    pricer = tengine.StreamingPricer(**BENCH_MARKET, strike=103.0,
+                                     maturity=MATURITY, is_call=False,
+                                     config=cfg, device="cpu")
+    greeks, se = pricer.price_and_greeks(2, with_stderr=True)
+    np.testing.assert_allclose(greeks[0], pricer.price(2), rtol=1e-5)
+    assert greeks[1] < 0 and greeks[2] > 0 and all(np.isfinite(se))
+    chain = tengine.StreamingChainPricer(
+        **BENCH_MARKET, strikes=[97.0, 103.0], maturity=MATURITY,
+        is_call=False, config=cfg, device="cpu")
+    cg = chain.price_and_greeks(2)
+    np.testing.assert_allclose(cg[0], chain.price(2), rtol=1e-4)
+    np.testing.assert_allclose(cg[:, 1], greeks, rtol=1e-5, atol=1e-6)
+
+
 def test_price_lane_matches_price_and_time0():
     """price_and_greeks uses price()'s pilot, fit and table, so its price
     lane is price() on the same seed up to the stop step's recomputed
@@ -262,11 +326,22 @@ def test_seeded_greeks_in_distribution_match_jax(chain):
     assert np.all(np.abs(got - want) < tol), (got, want, tol)
 
 
-def test_greeks_past_the_single_tile_horizon_raise():
-    cfg = tengine.StreamConfig(n_paths=1024, n_steps=400, chunk_paths=256,
-                               pilot_paths=256, dt=DT)
+@pytest.mark.parametrize("config", [dict(n_steps=400),
+                                    dict(n_steps=32, pathgen_impl="xla"),
+                                    dict(n_steps=32, poly_order=3)],
+                         ids=["past-365", "xla", "poly3"])
+def test_greeks_past_the_single_tile_horizon_raise(config):
+    """Greeks past 365 steps and on the generic stream need the jvp Greeks
+    (ROADMAP A10), on both pricers."""
+    cfg = tengine.StreamConfig(n_paths=1024, chunk_paths=256,
+                               pilot_paths=256, dt=DT, **config)
+    maturity = config["n_steps"] * DT
     pricer = tengine.StreamingPricer(**BENCH_MARKET, strike=100.0,
-                                     maturity=400 * DT, is_call=False,
+                                     maturity=maturity, is_call=False,
                                      config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        pricer.price_and_greeks(0)
+    chain = tengine.StreamingChainPricer(**BENCH_MARKET, strikes=[100.0],
+                                         maturity=maturity, is_call=False,
+                                         config=cfg, device="cpu")
+    for call in (pricer.price_and_greeks, chain.price_and_greeks):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            call(0)

@@ -141,23 +141,19 @@ def test_kernel_family_by_horizon():
         assert pricer._priced_chunk is chunk_kernel[family]
 
 
-@pytest.mark.parametrize("field,value", [
-    ("tiled_impl", "factored"),
-    ("n_steps", pfc.max_factored_steps() + 1),
+@pytest.mark.parametrize("field,value,family", [
+    ("tiled_impl", "factored", "factored"),
+    ("n_steps", pfc.max_factored_steps() + 1, "stream"),
 ])
-def test_unported_long_horizon_raises(field, value):
-    """An explicit factored-DFT request at 1825 steps now resolves to the
-    factored family; the limit moved to K8's range, and a horizon past it
-    raises naming the generic path stream (ROADMAP A3)."""
+def test_long_horizon_requests_resolve(field, value, family):
+    """An explicit factored-DFT request at 1825 steps resolves to the
+    factored family, and a horizon past K8's range, which raised before
+    the generic path stream was ported, resolves to the stream."""
     kw = dict(n_paths=1024, n_steps=1825)
     kw[field] = value
-    if field == "tiled_impl":
-        cfg = tengine.StreamConfig(**kw)
-        assert tengine.resolve_kernel_family(
-            cfg.n_steps, cfg.fgn_form, cfg.tiled_impl) == "factored"
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        tengine.StreamConfig(**kw)
+    cfg = tengine.StreamConfig(**kw)
+    assert tengine.resolve_kernel_family(
+        cfg.n_steps, cfg.fgn_form, cfg.tiled_impl) == family
 
 
 def test_tiled_memory_model():
@@ -205,15 +201,23 @@ def test_cli_prices_long_horizon_on_cpu(capsys):
                     "--steps", "1825", "--paths", "2048", "--chunk-paths",
                     "1024", "--pilot-paths", "1024", "--device", "cpu"])
     out = json.loads(capsys.readouterr().out)
-    assert rc == 0
+    assert rc == 0 and out["kernel_family"] == "tiled"
     assert out["n_steps"] == 1825 and out["n_paths"] == 2048
     assert 0 < out["price"] < 105 and out["stderr"] > 0
 
 
-def test_cli_past_every_kernel_exits_2(capsys):
+def test_cli_past_every_kernel_takes_the_stream(capsys, monkeypatch):
+    """Past every kernel's horizon (exit 2 before the generic path stream
+    was ported) the CLI prices on the stream and says so.  The kernels'
+    caps are lowered to 300 steps here, so that a 400-step run is past
+    them without an 8,193-step host matrix on the CPU."""
     from montecarlooptionspricer_tpu_torch.cli import price as tcli
 
-    steps = str(pfc.max_factored_steps() + 1)
-    assert tcli.main(["--steps", steps, "--paths", "1024", "--device",
-                      "cpu"]) == 2
-    assert "ROADMAP A3" in capsys.readouterr().err
+    monkeypatch.setattr(ptc, "max_tiled_steps", lambda: 300)
+    monkeypatch.setattr(pfc, "max_factored_steps", lambda: 300)
+    assert tcli.main(["--steps", "400", "--maturity", "1.587", "--paths",
+                      "512", "--chunk-paths", "256", "--pilot-paths", "256",
+                      "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["kernel_family"] == "stream" and out["n_steps"] == 400
+    assert 0 < out["price"] < 100 and out["stderr"] > 0

@@ -387,22 +387,36 @@ def test_estimator_configurations_refused(config, exc, match):
                                 device="cpu")
 
 
-def test_chains_and_greeks_refuse_antithetic():
-    """K5, K3 and K4 have no pair form yet: the chain pricer and both
-    Greeks entries raise naming ROADMAP A5."""
-    cfg = tengine.StreamConfig(n_paths=512, n_steps=32, chunk_paths=256,
-                               pilot_paths=256, antithetic=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tengine.StreamingChainPricer(**BENCH_MARKET, strikes=[95.0, 100.0],
-                                     maturity=32 * DT, is_call=False,
-                                     config=cfg, device="cpu")
-    pricer = tengine.StreamingPricer(**BENCH_MARKET, strike=100.0,
-                                     maturity=32 * DT, is_call=False,
-                                     config=cfg, device="cpu")
-    for call in (lambda: pricer.price_and_greeks(0),
-                 lambda: pricer.greeks_with_fit(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            call()
+def test_chains_and_greeks_take_the_pair_forms():
+    """K5, K3 and K4 pair (refused, naming ROADMAP A5, before their pair
+    forms were ported): the chain pricer and both Greeks entries price
+    under antithetic, each with a smaller stderr than the plain form's on
+    the same seed and fits."""
+    kw = dict(n_paths=4 * 256, n_steps=32, chunk_paths=256, pilot_paths=256)
+    market = dict(**BENCH_MARKET, maturity=32 * DT, is_call=False)
+    pricers = {}
+    for anti in (False, True):
+        cfg = tengine.StreamConfig(**kw, antithetic=anti)
+        pricers[anti] = (
+            tengine.StreamingChainPricer(**market, strikes=[97.0, 103.0],
+                                         config=cfg, device="cpu"),
+            tengine.StreamingPricer(**market, strike=103.0, config=cfg,
+                                    device="cpu"))
+    chain, one = pricers[False]
+    k_pilot = tengine._pilot_stream_keys(0)[0]
+    strip_fits, fits = chain.fit(k_pilot), one.fit(k_pilot)
+    plain = (chain.price_with_fit(strip_fits, 0, with_stderr=True)[1],
+             one.greeks_with_fit(fits, 0, with_stderr=True)[1],
+             chain.greeks_with_fit(strip_fits, 0, with_stderr=True)[1])
+    chain, one = pricers[True]
+    paired = (chain.price_with_fit(strip_fits, 0, with_stderr=True)[1],
+              one.greeks_with_fit(fits, 0, with_stderr=True)[1],
+              chain.greeks_with_fit(strip_fits, 0, with_stderr=True)[1])
+    assert np.all(np.asarray(paired[0]) < np.asarray(plain[0]))
+    assert paired[1][0] < plain[1][0]
+    assert np.all(np.asarray(paired[2])[0] < np.asarray(plain[2])[0])
+    greeks = one.price_and_greeks(0)
+    assert len(greeks) == 6 and greeks[1] < 0
 
 
 def test_fit_and_configuration_must_agree():
@@ -434,18 +448,57 @@ def test_cli_estimators_price_on_cpu(capsys, flags):
     assert tcli.main(_RUN + flags) == 0
     out = json.loads(capsys.readouterr().out)
     assert set(out) == {"price", "stderr", "n_paths", "n_steps", "is_call",
-                        "elapsed_s"}
+                        "kernel_family", "elapsed_s"}
     assert out["n_paths"] == 4096 and out["price"] > 0 and out["stderr"] > 0
 
 
 @pytest.mark.parametrize("flags,match", [
     (["--control-variate", "--strikes", "95,100"], "--control-variate"),
-    (["--antithetic", "--greeks"], "ROADMAP A5"),
-    (["--antithetic", "--strikes", "95,100"], "ROADMAP A5"),
+    (["--antithetic", "--pilot-paths", "1040"], "multiple of 32"),
+    (["--pilot-paths", "1000"], "multiple of 16"),
 ])
 def test_cli_estimator_combinations_exit_2(capsys, flags, match):
+    """What the CLI refuses: the control variate on a strip, and an
+    explicit pilot that the kernels' path block (16, 32 paired) does not
+    divide, with the reason, never rounded silently."""
     assert tcli.main(_RUN + flags) == 2
     assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [["--strikes", "95,100"], ["--greeks"],
+                                   ["--strikes", "95,100", "--greeks"]],
+                         ids=["strikes", "greeks", "strikes+greeks"])
+def test_cli_antithetic_strips_and_greeks_on_cpu(capsys, flags):
+    """--antithetic with --strikes, --greeks and both (exit 2 before K5,
+    K3 and K4 had pair forms) prices on the CPU, with the keys of the
+    unpaired quote and a smaller stderr than it on the same seed."""
+    outs = []
+    for pair in ([], ["--antithetic"]):
+        assert tcli.main(_RUN + flags + pair) == 0
+        outs.append(json.loads(capsys.readouterr().out))
+    plain, paired = outs
+    assert set(paired) == set(plain)
+    assert paired["kernel_family"] == "single"
+    se = paired["stderrs"]
+    se_plain = plain["stderrs"]
+    if "--greeks" in flags:
+        lane = "prices" if "--strikes" in flags else "price"
+        se, se_plain = se[lane], se_plain[lane]
+    assert np.all(np.asarray(se) < np.asarray(se_plain)), (se, se_plain)
+
+
+def test_cli_path_count_rounds_as_jax(capsys):
+    """The chunk rounds down to a multiple of 256, as the JAX CLI's does:
+    --paths 1000 prices 768 paths in both (992 in the port before)."""
+    from montecarlooptionspricer_tpu.cli import price as jcli
+
+    flags = ["--strike", "102", "--put", "--maturity", "0.05", "--steps",
+             "12", "--paths", "1000"]
+    assert tcli.main(flags + ["--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert jcli.main(flags + ["--pathgen", "xla"]) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["n_paths"] == want["n_paths"] == 768
 
 
 def test_cli_control_variate_greeks_are_the_plain_greeks(capsys):
