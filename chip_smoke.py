@@ -53,7 +53,17 @@ to 0 just before it and read just after:
   within 5 combined stderr of ``price_long``), 10,000 steps, past K8, on
   the FFT synthesis against the matmul synthesis on the same noise and
   fits (``stream_xlong``), and a cubic policy at 365 steps against its
-  fits on independent plain K1 paths (``stream_poly3``).
+  fits on independent plain K1 paths (``stream_poly3``);
+* the streamed duality bounds (``price_with_bounds``) and the whole-path
+  pair forms they stream under ``antithetic``: K1/anti, K6/anti and
+  K8/anti against their plain versions (seeded and on noise) and against
+  their unpaired forms on [X; -X] (``path_pair_forms``, timed beside their
+  bounds and yardsticks), then the bracket of the bench option at full
+  width, plain and paired, its lower bound held against ``price`` on the
+  same seed (``bounds``: K1 once and K1 or K1/anti 76 times, no priced
+  kernel), the bracket at 1825 steps on K6/K6-anti and at 4000 steps on
+  K8/K8-anti cut to 16 chunks (``bounds_long``), and the GBM-limit bracket
+  around the binomial American value (``bounds_gbm``).
 
 It also times K2 against K7 per chunk across horizons (the crossover that
 sets engine.SINGLE_TILE_MAX_STEPS) and times each kernel and form (K8 and
@@ -139,6 +149,24 @@ SAME_BODY_RTOL = 1e-6
 # member's arithmetic is the unpaired path's, so only the order of the
 # block sums differs.
 PAIR_RTOL = 1e-5
+# A whole-path pair form against its unpaired form on the negated noise,
+# path by path: every rounding of the partner's cell is the unpaired
+# path's (the kernels round the Euler increment explicitly), so the two
+# agree to the bit; the tolerance is a few float32 ulps.
+PATH_PAIR_RTOL = 1e-6
+# The duality bounds past the bench horizon stream this many of the 76
+# chunks, so the script stays within its time (the LSM fit at 4000 steps
+# alone takes several seconds a run).
+BOUNDS_LONG_CHUNKS = 16
+# The GBM limit of the JAX package's bracket test (tests/test_engine.py):
+# h = 1/2 and a vanishing vol of vol make the rough-Bergomi paths
+# geometric Brownian motion with sigma = sqrt(xi), where the binomial
+# tree gives the American value; the bracket must hold it within
+# GBM_SIGMAS stderr and its gap stay under GBM_GAP of it.
+GBM = dict(s0=100.0, sigma=0.25, h=0.5, eta=1e-6, rho=-0.3, r=0.04,
+           strike=105.0, maturity=0.25, n_steps=63)
+GBM_SIGMAS = 3.0
+GBM_GAP = 0.08
 # The estimator forms, (antithetic, with_cv), beside the plain one.
 FORMS = ((True, False), (False, True), (True, True))
 # The strip's batched fit against one strike's, in device launches from
@@ -186,6 +214,12 @@ REPLACES = {
     "K5/anti": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:432",
     "K3/anti": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:849",
     "K4/anti": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:849",
+    # The whole-path pair bodies the duality bounds stream.
+    "K1/anti": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:261",
+    "K6/anti":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:267",
+    "K8/anti":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py:222",
 }
 SOURCES = {
     "pathgen": "montecarlooptionspricer_tpu_torch/csrc/pathgen.cu",
@@ -209,12 +243,17 @@ SOURCES = {
     "K5/anti": "montecarlooptionspricer_tpu_torch/csrc/chain.cu",
     "K3/anti": "montecarlooptionspricer_tpu_torch/csrc/greeks.cu",
     "K4/anti": "montecarlooptionspricer_tpu_torch/csrc/greeks.cu",
+    "K1/anti": "montecarlooptionspricer_tpu_torch/csrc/pathgen.cu",
+    "K6/anti": "montecarlooptionspricer_tpu_torch/csrc/pathgen_tiled.cu",
+    "K8/anti": "montecarlooptionspricer_tpu_torch/csrc/pathgen_factored.cu",
 }
 # The priced wrappers whose launches count per form: the plain form keeps
 # the wrapper's name, the others are keyed kernel/form.
 FORM_WRAPPERS = {"K2": "priced_chunk", "K7": "tiled_priced_chunk",
                  "K9": "factored_priced_chunk", "K5": "priced_chain",
-                 "K3": "greeks_chunk", "K4": "chain_greeks_chunk"}
+                 "K3": "greeks_chunk", "K4": "chain_greeks_chunk",
+                 "K1": "pathgen", "K6": "tiled_pathgen",
+                 "K8": "factored_pathgen"}
 
 
 def expected_counts(**nonzero) -> dict:
@@ -1735,6 +1774,232 @@ def stream_phases(torch, pc, engine, smi, dev, price_long: tuple,
           "paths under its fits")
 
 
+def path_pair_phase(torch, pc, ptc, pfc, smi, dev, key, rel_err) -> dict:
+    """K1/anti (365 steps), K6/anti (1825) and K8/anti (4000) at the bench
+    chunk of 131072 rows, 65536 drawn: paths elementwise against their
+    plain versions seeded and on noise (PATH_RTOL, K8's
+    FACTORED_PATH_RTOL), and on noise against the unpaired kernel on the
+    concatenated [X; -X] noise (PATH_PAIR_RTOL); then each timed beside
+    its plain version, its bound (the product or the FFT once per pair,
+    the full [rows, n + 1] output written once) and its yardstick
+    (``torch.matmul`` of the drawn rows by Lt', or ``torch.fft.fft`` of
+    their complex plane).  Returns their numbers keyed by form."""
+    def path_consts(n):
+        return pc.make_path_consts(MARKET["s0"], MARKET["xi"], MARKET["h"],
+                                   MARKET["eta"], MARKET["r"], n, DT, dev)
+
+    drawn = CHUNK // 2
+    c8 = pfc.make_factored_consts(MARKET["s0"], MARKET["xi"], MARKET["h"],
+                                  MARKET["eta"], MARKET["r"], XLONG_STEPS,
+                                  DT, dev)
+    cases = (
+        ("K1/anti", pc.pathgen, pc.pathgen_from_noise_ref,
+         pc.philox_normals_ref, path_consts(N_STEPS), N_STEPS, PATH_RTOL),
+        ("K6/anti", ptc.tiled_pathgen, ptc.pathgen_from_noise_ref,
+         pc.philox_normals_ref, path_consts(LONG_STEPS), LONG_STEPS,
+         PATH_RTOL),
+        ("K8/anti", pfc.factored_pathgen, pfc.factored_pathgen_from_noise_ref,
+         pfc.philox_factored_normals_ref, c8, XLONG_STEPS,
+         FACTORED_PATH_RTOL))
+    out, checks = {}, []
+    for form, wrapper, ref, normals, consts, n, rtol in cases:
+        noise = normals(key, drawn, n, device=dev)
+        want = ref(consts, noise, antithetic=True)
+        got = wrapper(consts, rows=CHUNK, key=key, antithetic=True)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{form}: non-finite paths")
+        err_s = rel_err(got, want)
+        abs_s = float(torch.max(torch.abs(got - want)))
+        del got
+        got = wrapper(consts, noise=noise, antithetic=True)
+        torch.cuda.synchronize()
+        err_n = rel_err(got, want)
+        del want
+        doubled = torch.cat([noise, -noise], dim=1)
+        del noise
+        unpaired = wrapper(consts, noise=doubled)
+        torch.cuda.synchronize()
+        err_pair = rel_err(got, unpaired)
+        del got, unpaired, doubled
+        checks.append({"form": form, "n_steps": n, "seeded_rel_err": err_s,
+                       "noise_in_rel_err": err_n, "pair_rel_err": err_pair,
+                       "rtol": rtol, "pair_rtol": PATH_PAIR_RTOL})
+        check(err_s <= rtol and err_n <= rtol,
+              f"{form} disagrees with its plain version")
+        check(err_pair <= PATH_PAIR_RTOL,
+              f"{form} disagrees with its unpaired form on [X; -X]")
+
+        def run(wrapper=wrapper, consts=consts):
+            wrapper(consts, rows=CHUNK, key=key, antithetic=True)
+
+        def plain(ref=ref, normals=normals, consts=consts, n=n):
+            ref(consts, normals(key, drawn, n, device=dev), antithetic=True)
+
+        out_bytes = 4 * CHUNK * (n + 1)
+        if form == "K8/anti":
+            a = torch.randn((drawn, pfc.fgn.next_pow2(n)),
+                            dtype=torch.complex64, device=dev)
+            lib_ms = time_ms(torch, lambda: torch.fft.fft(a, dim=1), reps=10)
+            b_ms, b_by = factored_bound_ms(CHUNK, n, out_bytes,
+                                           antithetic=True)
+        else:
+            a = torch.randn((drawn, n), device=dev)
+            lt = consts.lt_half
+            lib_ms = time_ms(torch, lambda: torch.matmul(a, lt), reps=10)
+            b_ms, b_by = bound_ms(CHUNK, n, out_bytes, antithetic=True)
+        del a
+        out[form] = {"ms": time_ms(torch, run, 5),
+                     "plain_ms": time_ms(torch, plain, 2),
+                     "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "max_abs_err": abs_s}
+    emit({"phase": "path_pair_forms", "card": smi, "rows": CHUNK,
+          "checks": checks, "times": out, "library_calls":
+          "torch.matmul [65536,n]x[n,n] float32 (K1/anti, K6/anti: the "
+          "drawn rows' fGN product); torch.fft.fft of the drawn rows' "
+          "[65536, m2] complex64 plane (K8/anti)"})
+    return out
+
+
+def bounds_phases(torch, pc, engine, closed_form, smi, dev, prices: dict,
+                  reset_counts, read_counts) -> dict:
+    """The streamed duality bounds at full width.  ``bounds``: the bench
+    option (365 steps, 76 chunks), plain and paired, through
+    ``price_with_bounds`` with the launch counts read around it (K1 once
+    for the pilot and 76 times, or K1/anti 76 times, and no priced
+    kernel), lower <= upper with finite stderrs, and the lower bound
+    within SUM_RTOL of ``price`` on the same seed (``prices``: "plain"
+    and "anti", each (price, stderr)); then fit and stream timed apart.
+    ``bounds_long``: 1825 steps on K6 and K6/anti, 4000 on K8 and
+    K8/anti, BOUNDS_LONG_CHUNKS chunks each, with the peak device bytes.
+    ``bounds_gbm``: the GBM limit, where the binomial American value
+    must lie inside the bracket within GBM_SIGMAS stderr.  Returns the
+    pair forms' launches in these runs."""
+    import dataclasses
+
+    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    pair_launches = {}
+
+    def one(name, pricer, n_chunks, pilot_kernel, form):
+        """One bracket: fit and stream timed apart (wall = their sum),
+        through price_with_bounds when the run is the full 76 chunks."""
+        anti = pricer.config.antithetic
+        n_paths = n_chunks * CHUNK
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        if n_chunks == N_CHUNKS:
+            (lo, up, lo_se, up_se), wall = timed(
+                torch, lambda: pricer.price_with_bounds(SEED,
+                                                        with_stderr=True))
+            launches = read_counts()
+            fit, fit_s = timed(torch, lambda: pricer.bounds_fit(k_pilot))
+            _, stream_s = timed(torch, lambda: pricer.bounds_with_fit(
+                fit, SEED, n_paths))
+        else:
+            fit, fit_s = timed(torch, lambda: pricer.bounds_fit(k_pilot))
+            (lo, up, lo_se, up_se), stream_s = timed(
+                torch, lambda: pricer.bounds_with_fit(fit, SEED, n_paths,
+                                                      with_stderr=True))
+            launches = read_counts()
+            wall = fit_s + stream_s
+        peak = torch.cuda.max_memory_allocated()
+        want = expected_counts(**{pilot_kernel: 1 if anti else 1 + n_chunks},
+                               **({form: n_chunks} if anti else {}))
+        rec = {"phase": name, "card": smi, "n_paths": n_paths,
+               "n_steps": pricer.config.n_steps, "antithetic": anti,
+               "kernel_family": pricer.kernel_family, "lower": lo,
+               "upper": up, "lower_stderr": lo_se, "upper_stderr": up_se,
+               "duality_gap": up - lo, "lam": float(fit[2]), "wall_s": wall,
+               "fit_s": fit_s, "stream_s": stream_s,
+               "paths_per_s": n_paths / wall, "peak_device_bytes": peak,
+               "launches": launches}
+        check(launches == want, f"{name} launches {launches}, want "
+              f"{pilot_kernel} once and {form if anti else pilot_kernel} "
+              f"{n_chunks} times and nothing else")
+        check(math.isfinite(lo) and math.isfinite(up) and lo <= up,
+              f"{name}: lower {lo} and upper {up} not an ordered bracket")
+        check(all(math.isfinite(v) and v > 0 for v in (lo_se, up_se)),
+              f"{name}: stderrs {lo_se}, {up_se} not finite and positive")
+        if anti:
+            pair_launches[form] = launches[form]
+        return rec, fit
+
+    base = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
+                               chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                               chunks_per_call=N_CHUNKS)
+    upper_se = {}
+    for anti in (False, True):
+        pricer = engine.StreamingPricer(
+            **MARKET, strike=STRIKE, maturity=MATURITY, is_call=IS_CALL,
+            config=dataclasses.replace(base, antithetic=anti), device=dev)
+        rec, _ = one("bounds", pricer, N_CHUNKS, "pathgen", "K1/anti")
+        price, _ = prices["anti" if anti else "plain"]
+        rel = abs(rec["lower"] / price - 1.0)
+        upper_se[anti] = rec["upper_stderr"]
+        extra = {}
+        if anti:
+            extra["upper_variance_ratio"] = (upper_se[False]
+                                             / upper_se[True]) ** 2
+        emit({**rec, "price_same_seed": price, "lower_vs_price_rel_err": rel,
+              "rtol": SUM_RTOL, **extra})
+        check(rel <= SUM_RTOL, f"bounds (antithetic={anti}): the lower bound "
+              f"is {rel:.2e} from price() on the same seed")
+        del pricer
+
+    for n, family, pilot_kernel, form, kw in (
+            (LONG_STEPS, "tiled", "tiled_pathgen", "K6/anti", {}),
+            (XLONG_STEPS, "factored", "factored_pathgen", "K8/anti", {})):
+        for anti in (False, True):
+            cfg = dataclasses.replace(
+                base, n_paths=CHUNK * BOUNDS_LONG_CHUNKS, n_steps=n,
+                chunks_per_call=BOUNDS_LONG_CHUNKS, antithetic=anti, **kw)
+            pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                            maturity=n * DT, is_call=IS_CALL,
+                                            config=cfg, device=dev)
+            check(pricer.kernel_family == family,
+                  f"{n} steps resolved to {pricer.kernel_family!r}")
+            rec, _ = one("bounds_long", pricer, BOUNDS_LONG_CHUNKS,
+                         pilot_kernel, form)
+            emit({**rec, "reduced": {"n_chunks": {
+                "from": N_CHUNKS, "to": BOUNDS_LONG_CHUNKS}}})
+            del pricer
+
+    g = GBM
+    dt = g["maturity"] / g["n_steps"]
+    amer = closed_form.binomial_american(g["s0"], g["strike"], g["r"],
+                                         g["sigma"], g["maturity"], IS_CALL,
+                                         steps=2000)
+    for anti in (False, True):
+        cfg = dataclasses.replace(base, n_steps=g["n_steps"], dt=dt,
+                                  antithetic=anti)
+        pricer = engine.StreamingPricer(
+            g["s0"], g["sigma"] ** 2, g["h"], g["eta"], g["rho"], g["r"],
+            g["strike"], g["maturity"], IS_CALL, cfg, device=dev)
+        reset_counts()
+        (lo, up, lo_se, up_se), wall = timed(
+            torch, lambda: pricer.price_with_bounds(SEED, with_stderr=True))
+        launches = read_counts()
+        inside = (lo - GBM_SIGMAS * lo_se <= amer
+                  <= up + GBM_SIGMAS * up_se)
+        emit({"phase": "bounds_gbm", "card": smi, "n_paths": CHUNK * N_CHUNKS,
+              "n_steps": g["n_steps"], "antithetic": anti, "market": g,
+              "lower": lo, "upper": up, "lower_stderr": lo_se,
+              "upper_stderr": up_se, "binomial_american": amer,
+              "gap_over_value": (up - lo) / amer, "gap_limit": GBM_GAP,
+              "sigmas": GBM_SIGMAS, "wall_s": wall, "launches": launches})
+        check(launches == expected_counts(
+            pathgen=1 if anti else 1 + N_CHUNKS,
+            **({"K1/anti": N_CHUNKS} if anti else {})),
+            f"bounds_gbm launches {launches}")
+        check(inside, f"bounds_gbm: the binomial value {amer} lies outside "
+              f"[{lo} - {GBM_SIGMAS} x {lo_se}, {up} + {GBM_SIGMAS} x "
+              f"{up_se}]")
+        check((up - lo) / amer < GBM_GAP,
+              f"bounds_gbm: the gap {(up - lo) / amer:.3f} of the value "
+              f"passes {GBM_GAP}")
+        del pricer
+    return pair_launches
+
+
 def plain_policy_price(torch, pc, engine, fits, n_chunks: int) -> tuple:
     """(price, stderr) of the bench option under ``fits`` (any order) on
     n_chunks chunks of whole paths from the plain K1 version, seeded apart
@@ -1774,6 +2039,7 @@ def main() -> int:
     sys.path.insert(0, str(root))
     from montecarlooptionspricer_tpu_torch.kernels import build
     from montecarlooptionspricer_tpu_torch.models import chain_cuda as cc
+    from montecarlooptionspricer_tpu_torch.models import closed_form
     from montecarlooptionspricer_tpu_torch.models import engine
     from montecarlooptionspricer_tpu_torch.models import greeks_cuda as gc
     from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
@@ -1987,6 +2253,18 @@ def main() -> int:
     chain_past_tile_phase(torch, pc, cc, engine, smi, dev, key)
     stream_phases(torch, pc, engine, smi, dev, (long_price, long_stderr),
                   (price, stderr), reset_counts, read_counts)
+
+    # The duality bounds and the whole-path pair forms they stream.
+    pair_times = path_pair_phase(torch, pc, ptc, pfc, smi, dev, key, rel_err)
+    pair_launches = bounds_phases(
+        torch, pc, engine, closed_form, smi, dev,
+        {"plain": (price, stderr), "anti": vr_prices["price_anti"]},
+        reset_counts, read_counts)
+    for form, t in pair_times.items():
+        kernels.append(kernel_record(form, pair_launches, t["ms"],
+                                     t["plain_ms"], t["bound_ms"],
+                                     t["bound_by"], t["max_abs_err"],
+                                     t["library_ms"]))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

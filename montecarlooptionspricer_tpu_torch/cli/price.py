@@ -1,6 +1,6 @@
 """mcop-price-torch: price an American option, a strike strip, and their
 pathwise Greeks with the port's streaming engine (counterpart: the
-single-strike, ``--strikes`` and ``--greeks`` branches of
+single-strike, ``--strikes``, ``--greeks`` and ``--bounds`` branches of
 ``montecarlooptionspricer_tpu/cli/price.py``, with its JSON keys, and its
 ``--antithetic`` and ``--control-variate`` estimators).
 
@@ -17,7 +17,8 @@ spectral law, up to 8,192 steps; the fourth prices a 21-strike strip with
 implied vols, the fifth adds per-strike Greeks, the sixth prices with
 antithetic pairs and the martingale control variate, the seventh prices
 the strip's Greeks with antithetic pairs, the eighth a 1825-step strip on
-the generic path stream, past the chain kernel's 512 steps):
+the generic path stream, past the chain kernel's 512 steps, the ninth the
+duality bracket [lower, upper] of one option from paired paths):
   mcop-price-torch --strike 105 --put --maturity 1.448 --steps 365 \\
       --paths 1e7 --chunk-paths 131072 --pilot-paths 131072
   mcop-price-torch --strike 105 --put --maturity 7.242 --steps 1825 \\
@@ -33,10 +34,15 @@ the generic path stream, past the chain kernel's 512 steps):
       --maturity 1.448
   mcop-price-torch --strikes 75,77.5,80,...,125 --put --maturity 7.242 \\
       --steps 1825 --paths 1e7 --antithetic
+  mcop-price-torch --strike 105 --put --maturity 1.448 --steps 365 \\
+      --paths 1e7 --bounds --antithetic
 
-``--antithetic`` pairs every quote: single strikes, ``--strikes`` and
-``--greeks``.  ``--control-variate`` prices single strikes, and with
-``--greeks`` gives the plain Greeks, as the JAX CLI does.  ``--pathgen
+``--antithetic`` pairs every quote: single strikes, ``--strikes``,
+``--greeks`` and ``--bounds``.  ``--control-variate`` prices single
+strikes, and with ``--greeks`` gives the plain Greeks, as the JAX CLI
+does.  ``--bounds`` prints the JAX CLI's fields (price, lower, upper,
+duality_gap and the two stderrs) and, as there, exits 2 with
+``--strikes``, ``--greeks`` or ``--control-variate``.  ``--pathgen
 xla`` prices on the generic path stream, as the JAX CLI's XLA generator
 does (Greeks there need the jvp Greeks, ROADMAP A10).
 """
@@ -52,7 +58,7 @@ import time
 from ..config import MarketDefaults
 
 # Flags of the JAX CLI whose paths are not ported yet.
-_NOT_PORTED = ("bounds", "serve", "qmc")
+_NOT_PORTED = ("serve", "qmc")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,6 +100,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="antithetic pairing: each chunk prices chunk/2 "
                         "pairs (N, W), (-N, -W) from half the draws, with "
                         "--strikes and --greeks too")
+    p.add_argument("--bounds", action="store_true",
+                   help="duality bracket: the fitted policy's value (lower) "
+                        "and the delta-hedge dual (upper) from the same "
+                        "paths; single strikes only")
     p.add_argument("--pathgen", choices=("pallas", "xla"), default="pallas",
                    help="the hand-written kernels (pallas) or the generic "
                         "path stream (xla), as StreamConfig.pathgen_impl")
@@ -123,9 +133,13 @@ def main(argv=None) -> int:
     if args.paths < 1:
         print("error: --paths must be >= 1", file=sys.stderr)
         return 2
-    if args.strikes and args.control_variate:
-        print("error: --control-variate applies to single-strike pricing, "
-              "not --strikes chains", file=sys.stderr)
+    if args.strikes and (args.control_variate or args.bounds):
+        print("error: --control-variate/--bounds apply to single-strike "
+              "pricing, not --strikes chains", file=sys.stderr)
+        return 2
+    if args.bounds and (args.greeks or args.control_variate):
+        print("error: --bounds cannot combine with --greeks/"
+              "--control-variate", file=sys.stderr)
         return 2
 
     from ..models import engine
@@ -182,6 +196,12 @@ def _price_one(args, cfg, market, engine) -> dict:
         out = {n: _j(v) for n, v in zip(engine.GREEK_ORDER, g)}
         out["stderrs"] = {n: _j(v) for n, v in zip(engine.GREEK_ORDER, se)}
         return out, pricer.kernel_family
+    if args.bounds:
+        lower, upper, lo_se, up_se = pricer.price_with_bounds(
+            args.seed, with_stderr=True)
+        return {"price": _j(lower), "lower": _j(lower), "upper": _j(upper),
+                "duality_gap": _j(upper - lower), "lower_stderr": _j(lo_se),
+                "upper_stderr": _j(up_se)}, pricer.kernel_family
     price, se = pricer.price(args.seed, with_stderr=True)
     return {"price": _j(price), "stderr": _j(se)}, pricer.kernel_family
 

@@ -87,11 +87,16 @@ struct ChainArgs {
   int is_call;
 };
 
+// The Euler log increment of one cell.  Every rounding is explicit (no
+// multiply-add contraction), so a pair's partner (-x, -w) rounds exactly as
+// the unpaired kernel on the negated noise does, in the plain versions'
+// order.
 __device__ __forceinline__ float euler_inc(const ChainArgs& a, float x,
                                            float w, int c) {
   const float sv = expf(x + a.vd[c]);
-  const float v = sv * sv;
-  return (a.r - 0.5f * v) * a.dt + sv * (w * a.sqrt_dt);
+  const float v = __fmul_rn(sv, sv);
+  return __fadd_rn(__fmul_rn(__fsub_rn(a.r, __fmul_rn(0.5f, v)), a.dt),
+                   __fmul_rn(sv, __fmul_rn(w, a.sqrt_dt)));
 }
 
 // Block of D = 16 * PM drawn rows; BP = D paths, or 2D pair members (ANTI:

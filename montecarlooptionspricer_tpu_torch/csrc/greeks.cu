@@ -106,6 +106,9 @@ struct GreeksArgs {
 
 // Tangent increment and brackets of one member at cell c from its x', hx
 // and w: the increment inc, the bracket b and the eta and H brackets.
+// Every rounding is explicit (no multiply-add contraction), so a pair's
+// partner (-x, -hx, -w) rounds exactly as the unpaired kernel on the
+// negated noise does.
 struct Brackets {
   float inc, b, e, h;
 };
@@ -113,11 +116,12 @@ struct Brackets {
 __device__ __forceinline__ Brackets brackets(const GreeksArgs& a, float x,
                                              float hx, float w, int c) {
   const float sv = expf(x + a.vd[c]);
-  const float v = sv * sv;
-  const float svw = sv * (w * a.sqrt_dt);
-  const float b = svw - v * a.dt;
-  return {(a.r - 0.5f * v) * a.dt + svw, b, (x * a.inv_eta + a.de[c]) * b,
-          (hx + a.dh[c]) * b};
+  const float v = __fmul_rn(sv, sv);
+  const float svw = __fmul_rn(sv, __fmul_rn(w, a.sqrt_dt));
+  const float b = __fsub_rn(svw, __fmul_rn(v, a.dt));
+  return {__fadd_rn(__fmul_rn(__fsub_rn(a.r, __fmul_rn(0.5f, v)), a.dt), svw),
+          b, __fmul_rn(__fadd_rn(__fmul_rn(x, a.inv_eta), a.de[c]), b),
+          __fmul_rn(__fadd_rn(hx, a.dh[c]), b)};
 }
 
 // Block of D = 16 * PM drawn rows; BP = D paths, or 2D pair members (ANTI:

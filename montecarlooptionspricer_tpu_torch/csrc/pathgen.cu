@@ -3,7 +3,8 @@
 //
 // K1 mcop_pathgen replaces montecarlooptionspricer_tpu/models/
 //    pathgen_pallas.py:_pathgen_kernel (and _pathgen_kernel_noise_in),
-//    chol fGN form, no antithetic.
+//    chol fGN form, plain and paired (the whole-path pair body of
+//    _euler_from_noise:261 with _logpaths_from_x_anti:161).
 // K2 mcop_priced_chunk replaces pathgen_pallas.py:_priced_kernel (and
 //    _priced_kernel_noise_in), chol form, log-boundary policy, interleave 1,
 //    in four forms: plain, antithetic (_logpaths_from_x_anti:161), control
@@ -15,7 +16,10 @@
 //   sv     = exp(x_c + vd[c])
 //   inc    = (r - sv^2/2) dt + sv * W[p,c] * sqrt(dt)
 //   logS_c = log s0 + sum_{k <= c} inc_k
-// K1 writes out[p, 0] = s0 and out[p, c+1] = exp(logS_c).  K2 stops each
+// K1 writes out[p, 0] = s0 and out[p, c+1] = exp(logS_c); its pair form
+// writes the drawn rows' paths to rows [0, rows/2) and their partners' to
+// [rows/2, rows), the [X; -X] of the unpaired kernel (JAX lays each pair
+// out inside each block instead; only the tests see the order).  K2 stops each
 // path at the first c with llo[c] <= logS_c <= lhi[c] and adds
 // disc[c] * max(+-(exp(logS_c) - strike), 0); each block writes one
 // partial sum (no atomics, so a seed gives the same sum on every run).
@@ -57,7 +61,10 @@
 //   block of 32*PM paths reuses the unpaired block's product of 16*PM) and
 //   an X tile of BP paths: the elementwise pass writes both members'
 //   increments from one x and one w.  Halving the planes lets a 128-path
-//   paired block fit at 365 steps (229,376 bytes).
+//   paired block fit at 365 steps (229,376 bytes).  A paired K1 block
+//   draws the same (global drawn row, step pair) counters as a paired K2
+//   block, so one key gives both kernels the same pairs, and it writes its
+//   partner rows `drawn` rows below the drawn ones (member_row).
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise so the plain
 //   PyTorch versions agree to a few ulp per cell.
 
@@ -84,11 +91,25 @@ struct Args {
   int is_call;
 };
 
+// The Euler log increment of one cell.  Every rounding is explicit (no
+// multiply-add contraction), so a pair's partner (-x, -w) rounds exactly as
+// the unpaired kernel on the negated noise does, in the plain versions'
+// order.
 __device__ __forceinline__ float euler_inc(const Args& a, float x, float w,
                                            int c) {
   const float sv = expf(x + a.vd[c]);
-  const float v = sv * sv;
-  return (a.r - 0.5f * v) * a.dt + sv * (w * a.sqrt_dt);
+  const float v = __fmul_rn(sv, sv);
+  return __fadd_rn(__fmul_rn(__fsub_rn(a.r, __fmul_rn(0.5f, v)), a.dt),
+                   __fmul_rn(sv, __fmul_rn(w, a.sqrt_dt)));
+}
+
+// K1's output row of block member p (block rows start at drawn row row0):
+// the drawn row, or under ANTI for p >= D the partner of drawn row p - D,
+// `drawn` rows further down.
+template <int D, bool ANTI>
+__device__ __forceinline__ size_t member_row(int drawn, int row0, int p) {
+  return static_cast<size_t>(ANTI && p >= D ? drawn + row0 + p - D
+                                            : row0 + p);
 }
 
 // Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members (ANTI:
@@ -112,7 +133,7 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
   load_noise<D, SEEDED>(a.noise, a.drawn, n, a.key, row0, ns, ws);
   if (!PRICED) {
     for (int p = tid; p < BP; p += kThreads)
-      a.out[static_cast<size_t>(row0 + p) * (n + 1)] = a.s0;
+      a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1)] = a.s0;
   }
 
   // Per-path state, held by thread p < BP across tiles.
@@ -167,8 +188,8 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
       for (int idx = tid; idx < BP * kTileCols; idx += kThreads) {
         const int p = idx / kTileCols, cc = idx - p * kTileCols;
         if (cc < cn)
-          a.out[static_cast<size_t>(row0 + p) * (n + 1) + c0 + cc + 1] =
-              expf(xs[p * kXStride + cc]);
+          a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1) + c0 + cc +
+                1] = expf(xs[p * kXStride + cc]);
       }
     }
   }
@@ -240,7 +261,9 @@ cudaError_t launch(Args a, int block_paths, bool anti, bool cv,
     return cudaErrorInvalidValue;
   a.drawn = anti ? a.rows / 2 : a.rows;
   const int pm = block_paths / unit;
-  if (!PRICED) return launch_pm<false, false, false>(a, pm, stream);
+  if (!PRICED)
+    return anti ? launch_pm<false, true, false>(a, pm, stream)
+                : launch_pm<false, false, false>(a, pm, stream);
   if (anti)
     return cv ? launch_pm<true, true, true>(a, pm, stream)
               : launch_pm<true, true, false>(a, pm, stream);
@@ -252,11 +275,14 @@ cudaError_t launch(Args a, int block_paths, bool anti, bool cv,
 
 extern "C" {
 
-// K1.  noise may be null (seeded entry, stream of `key`).
+// K1.  noise may be null (seeded entry, stream of `key`).  rows counts
+// paths; antithetic != 0 reads (or draws) rows / 2 rows of noise, [2,
+// rows / 2, n_steps], block_paths counts pair members, and out holds the
+// drawn rows' paths, then their partners'.
 int mcop_pathgen(const float* noise, const float* lt, const float* vd,
                  int rows, int n_steps, int block_paths, unsigned int key,
                  float r, float dt, float sqrt_dt, float log_s0, float s0,
-                 float* out, void* stream) {
+                 int antithetic, float* out, void* stream) {
   Args a{};
   a.noise = noise;
   a.lt = lt;
@@ -271,7 +297,8 @@ int mcop_pathgen(const float* noise, const float* lt, const float* vd,
   a.sqrt_dt = sqrt_dt;
   a.log_s0 = log_s0;
   a.s0 = s0;
-  return static_cast<int>(launch<false>(a, block_paths, false, false,
+  return static_cast<int>(launch<false>(a, block_paths, antithetic != 0,
+                                        false,
                                         static_cast<cudaStream_t>(stream)));
 }
 

@@ -4,7 +4,8 @@
 //
 // K8 mcop_factored_pathgen replaces montecarlooptionspricer_tpu/models/
 //    pathgen_pallas_factored.py:_factored_pathgen_kernel (and
-//    _factored_pathgen_kernel_noise_in), no antithetic.
+//    _factored_pathgen_kernel_noise_in), plain and paired (the whole-path
+//    pair body: stages 1 and 2 once per drawn path, :222 and :250).
 // K9 mcop_factored_priced_chunk replaces pathgen_pallas_factored.py:
 //    _factored_priced_kernel (and _factored_priced_kernel_noise_in, :330-385),
 //    log-boundary policy, in four forms: plain, antithetic (_pair_tiles),
@@ -20,7 +21,9 @@
 // with every angle reduced exactly on the host (no sinf/cosf of a large
 // argument here).  Then, as in K6/K7, sv = exp(x_m + vd[m]),
 // inc = (r - sv^2/2) dt + sv W[p,m] sqrt(dt), logS = log s0 + running sum;
-// K8 writes out[p, 0] = s0 and out[p, m+1] = exp(logS_m); K9 stops each
+// K8 writes out[p, 0] = s0 and out[p, m+1] = exp(logS_m), and its pair
+// form the drawn rows' paths to rows [0, rows/2) and their partners' to
+// [rows/2, rows), the [X; -X] of the unpaired kernel; K9 stops each
 // path at its first m with llo[m] <= logS_m <= lhi[m], adds
 // disc[m] max(+-(exp(logS_m) - strike), 0) and writes one partial sum per
 // block (no atomics, so a seed gives the same sum on every run).  The
@@ -79,7 +82,9 @@
 //   writes both members' increments into the S' region, free once stage 2
 //   has read it (2 P m2 floats, 64 KB, at every horizon).  So shared
 //   memory does not grow, 8,192 steps (one drawn path, two members) still
-//   fit, and the W draw runs once per pair.
+//   fit, and the W draw runs once per pair.  Paired K8 runs the same
+//   passes and writes member q >= P to the partner row `drawn` rows below
+//   drawn row q - P: it takes every horizon the plain K8 takes.
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise so the plain
 //   PyTorch versions agree to a few ulp per cell.
 
@@ -179,11 +184,16 @@ __device__ void stage_a(const Args& a, float* asr, float* asi, int k0,
   }
 }
 
+// The Euler log increment of one cell.  Every rounding is explicit (no
+// multiply-add contraction), so a pair's partner (-x, -w) rounds exactly as
+// the unpaired kernel on the negated noise does, in the plain versions'
+// order.
 __device__ __forceinline__ float euler_inc(const Args& a, float x, float w,
                                            int m) {
   const float sv = expf(x + __ldg(a.vd + m));
-  const float v = sv * sv;
-  return (a.r - 0.5f * v) * a.dt + sv * (w * a.sqrt_dt);
+  const float v = __fmul_rn(sv, sv);
+  return __fadd_rn(__fmul_rn(__fsub_rn(a.r, __fmul_rn(0.5f, v)), a.dt),
+                   __fmul_rn(sv, __fmul_rn(w, a.sqrt_dt)));
 }
 
 // The price Brownian of steps m..m+3 of drawn row `row`.
@@ -390,7 +400,9 @@ __global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
   const int members = ANTI ? 2 * P : P;
   float wsum = 0.0f, wcv = 0.0f;
   for (int mp = warp; mp < members; mp += kWarps) {
-    const size_t row = static_cast<size_t>(row0 + mp);  // K8 (no pairs)
+    // K8's output row: drawn, or (paired) `drawn` rows below its partner.
+    const size_t row = static_cast<size_t>(
+        ANTI && mp >= P ? a.drawn + row0 + mp - P : row0 + mp);
     const float* path_inc =
         ANTI ? (mp < P ? spr : spi) + (mp % P) * s_pad : inc + mp * s_pad;
     float carry = a.log_s0;
@@ -496,7 +508,9 @@ cudaError_t launch(Args a, bool anti, bool cv, cudaStream_t stream) {
   a.drawn = anti ? a.rows / 2 : a.rows;
   if (a.rows < 1 || (anti && a.rows % 2) || a.drawn % a.paths)
     return cudaErrorInvalidValue;
-  if (!PRICED) return launch_seeded<false, false, false>(a, stream);
+  if (!PRICED)
+    return anti ? launch_seeded<false, true, false>(a, stream)
+                : launch_seeded<false, false, false>(a, stream);
   if (anti)
     return cv ? launch_seeded<true, true, true>(a, stream)
               : launch_seeded<true, true, false>(a, stream);
@@ -544,20 +558,23 @@ int mcop_factored_smem_bytes(int n_steps) {
 }
 
 // K8.  noise: [3, rows, m2] float32 (the noise-in entry), or null for the
-// seeded entry, which draws the stream of `key`.
+// seeded entry, which draws the stream of `key`.  rows counts paths;
+// antithetic != 0 reads (or draws) rows / 2 rows of noise, [3, rows / 2,
+// m2], and out holds the drawn rows' paths, then their partners'.
 int mcop_factored_pathgen(const float* noise, const float* f1r,
                           const float* f1i, const float* phir,
                           const float* phii, const float* twr,
                           const float* twi, const float* c2, const float* s2,
                           const float* vd, int rows, int n_steps,
                           unsigned int key, float r, float dt, float sqrt_dt,
-                          float log_s0, float s0, float* out, void* stream) {
+                          float log_s0, float s0, int antithetic, float* out,
+                          void* stream) {
   Args a = make_args(noise, f1r, f1i, phir, phii, twr, twi, c2, s2, vd, rows,
                      n_steps, key, r, dt, sqrt_dt, log_s0);
   a.s0 = s0;
   a.out = out;
-  return static_cast<int>(
-      launch<false>(a, false, false, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch<false>(a, antithetic != 0, false,
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 // K9.  table: rows 0-2 of the log_boundary_rows table, row stride

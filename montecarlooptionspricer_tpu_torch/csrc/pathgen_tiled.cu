@@ -4,7 +4,8 @@
 //
 // K6 mcop_tiled_pathgen replaces montecarlooptionspricer_tpu/models/
 //    pathgen_pallas_tiled.py:_tiled_pathgen_kernel (and
-//    _tiled_pathgen_kernel_noise_in), chol fGN form, no antithetic.
+//    _tiled_pathgen_kernel_noise_in), chol fGN form, plain and paired
+//    (the whole-path pair body, _pair_tiles:382).
 // K7 mcop_tiled_priced_chunk replaces pathgen_pallas_tiled.py:
 //    _tiled_priced_kernel (and _tiled_priced_kernel_noise_in), chol form,
 //    log-boundary policy, in four forms: plain, antithetic (_pair_tiles:382),
@@ -17,7 +18,9 @@
 //   sv     = exp(x_c + vd[c])
 //   inc    = (r - sv^2/2) dt + sv * W[p,c] * sqrt(dt)
 //   logS_c = log s0 + sum_{k <= c} inc_k
-// K6 writes out[p, 0] = s0 and out[p, c+1] = exp(logS_c).  K7 stops each
+// K6 writes out[p, 0] = s0 and out[p, c+1] = exp(logS_c); its pair form
+// writes the drawn rows' paths to rows [0, rows/2) and their partners' to
+// [rows/2, rows), the [X; -X] of the unpaired kernel.  K7 stops each
 // path at the first c with llo[c] <= logS_c <= lhi[c], adds
 // disc[c] * max(+-(exp(logS_c) - strike), 0), and writes one partial sum
 // per block (no atomics, so a seed gives the same sum on every run).  The
@@ -58,7 +61,9 @@
 //   the same product and keep 2D members: the X tile holds both halves,
 //   and thread p < 2D carries member p (p >= D the partner of row p - D).
 //   The 128-member paired block has the unpaired 128-path block's shared
-//   memory within 256 bytes, so two blocks still share an SM.
+//   memory within 256 bytes, so two blocks still share an SM.  Paired K6
+//   writes member p >= D to the partner row `drawn` rows below drawn row
+//   p - D (member_row).
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise so the plain
 //   PyTorch versions agree to a few ulp per cell.
 
@@ -144,11 +149,25 @@ __device__ void draw_rows(const Args& a, int row0) {
   }
 }
 
+// The Euler log increment of one cell.  Every rounding is explicit (no
+// multiply-add contraction), so a pair's partner (-x, -w) rounds exactly as
+// the unpaired kernel on the negated noise does, in the plain versions'
+// order.
 __device__ __forceinline__ float euler_inc(const Args& a, float x, float w,
                                            int c) {
   const float sv = expf(x + a.vd[c]);
-  const float v = sv * sv;
-  return (a.r - 0.5f * v) * a.dt + sv * (w * a.sqrt_dt);
+  const float v = __fmul_rn(sv, sv);
+  return __fadd_rn(__fmul_rn(__fsub_rn(a.r, __fmul_rn(0.5f, v)), a.dt),
+                   __fmul_rn(sv, __fmul_rn(w, a.sqrt_dt)));
+}
+
+// K6's output row of block member p (block rows start at drawn row row0):
+// the drawn row, or under ANTI for p >= D the partner of drawn row p - D,
+// `drawn` rows further down.
+template <int D, bool ANTI>
+__device__ __forceinline__ size_t member_row(int drawn, int row0, int p) {
+  return static_cast<size_t>(ANTI && p >= D ? drawn + row0 + p - D
+                                            : row0 + p);
 }
 
 // Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members (ANTI:
@@ -181,7 +200,7 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
   }
   if (!PRICED) {
     for (int p = tid; p < BP; p += kThreads)
-      a.out[static_cast<size_t>(row0 + p) * (n + 1)] = a.s0;
+      a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1)] = a.s0;
   }
 
   // Per-path state, held by thread p < BP across tiles.
@@ -279,8 +298,8 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
       for (int idx = tid; idx < BP * kTileCols; idx += kThreads) {
         const int p = idx / kTileCols, cc = idx - p * kTileCols;
         if (cc < cn)
-          a.out[static_cast<size_t>(row0 + p) * (n + 1) + c0 + cc + 1] =
-              expf(xs[p * kXStride + cc]);
+          a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1) + c0 + cc +
+                1] = expf(xs[p * kXStride + cc]);
       }
     }
   }
@@ -354,7 +373,10 @@ cudaError_t launch(Args a, int seeded, int block_paths, bool anti, bool cv,
     return cudaErrorInvalidValue;
   a.drawn = anti ? a.rows / 2 : a.rows;
   if (!PRICED)
-    return launch_seeded<false, false, false>(a, seeded, block_paths, stream);
+    return anti ? launch_seeded<false, true, false>(a, seeded, block_paths,
+                                                    stream)
+                : launch_seeded<false, false, false>(a, seeded, block_paths,
+                                                     stream);
   if (anti)
     return cv ? launch_seeded<true, true, true>(a, seeded, block_paths, stream)
               : launch_seeded<true, true, false>(a, seeded, block_paths,
@@ -398,18 +420,21 @@ int mcop_tiled_smem_bytes(int block_paths, int antithetic, int with_cv) {
 }
 
 // K6.  noise: [2, rows, n_steps] float32, read as given (seeded == 0) or
-// filled first from the stream of `key` (seeded != 0, a workspace).
+// filled first from the stream of `key` (seeded != 0, a workspace).  rows
+// counts paths; antithetic != 0 reads (or draws into the workspace)
+// rows / 2 rows of noise, block_paths counts pair members, and out holds
+// the drawn rows' paths, then their partners'.
 int mcop_tiled_pathgen(float* noise, int seeded, const float* lt,
                        const float* vd, int rows, int n_steps,
                        int block_paths, unsigned int key, float r, float dt,
-                       float sqrt_dt, float log_s0, float s0, float* out,
-                       void* stream) {
+                       float sqrt_dt, float log_s0, float s0, int antithetic,
+                       float* out, void* stream) {
   Args a = make_args(noise, lt, vd, rows, n_steps, key, r, dt, sqrt_dt,
                      log_s0);
   a.s0 = s0;
   a.out = out;
-  return static_cast<int>(launch<false>(a, seeded, block_paths, false,
-                                        false,
+  return static_cast<int>(launch<false>(a, seeded, block_paths,
+                                        antithetic != 0, false,
                                         static_cast<cudaStream_t>(stream)));
 }
 

@@ -101,12 +101,13 @@ def load() -> types.SimpleNamespace:
                   ctypes.c_float)
     ll = ctypes.c_longlong
     signatures = {
-        (single, "mcop_pathgen"): [p, p, p, i, i, i, u, f, f, f, f, f, p, p],
+        (single, "mcop_pathgen"): [p, p, p, i, i, i, u, f, f, f, f, f, i, p,
+                                   p],
         (single, "mcop_priced_chunk"): [p, p, p, i, i, i, u, f, f, f, f,
                                         p, ll, f, i, i, i, f, p, p],
         (tiled, "mcop_tiled_smem_bytes"): [i, i, i],
         (tiled, "mcop_tiled_pathgen"): [p, i, p, p, i, i, i, u, f, f, f, f,
-                                        f, p, p],
+                                        f, i, p, p],
         (tiled, "mcop_tiled_priced_chunk"): [p, i, p, p, i, i, i, u, f, f,
                                              f, f, p, ll, f, i, i, i, f, p,
                                              p],
@@ -123,7 +124,7 @@ def load() -> types.SimpleNamespace:
                                               i, i, p, p],
         (factored, "mcop_factored_smem_bytes"): [i],
         (factored, "mcop_factored_pathgen"): [p] * 10 + [i, i, u, f, f, f, f,
-                                                         f, p, p],
+                                                         f, i, p, p],
         (factored, "mcop_factored_priced_chunk"): [p] * 10 + [
             i, i, u, f, f, f, f, p, ll, f, i, i, i, f, p, p],
     }

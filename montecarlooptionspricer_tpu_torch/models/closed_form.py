@@ -1,8 +1,9 @@
-"""Black-Scholes prices and implied volatility (counterpart: ``norm_cdf``,
-``black_scholes`` and ``implied_vol`` of
-``montecarlooptionspricer_tpu/models/closed_form.py``, copied so the port
-imports nothing of the JAX package).  Float64 on the host; the chain's
-implied vols come from here.
+"""Black-Scholes prices, implied volatility and the binomial American
+value (counterpart: ``norm_cdf``, ``black_scholes``, ``implied_vol`` and
+``binomial_american`` of ``montecarlooptionspricer_tpu/models/
+closed_form.py``, copied so the port imports nothing of the JAX package).
+Float64 on the host; the chain's implied vols come from here, and the
+binomial tree is the GBM-limit oracle of the duality bounds.
 """
 
 from __future__ import annotations
@@ -62,3 +63,33 @@ def implied_vol(price, s0, strike, r, maturity, is_call: bool,
         if hi - lo < tol:
             break
     return 0.5 * (lo + hi)
+
+
+def binomial_american(s0, strike, r, sigma, maturity, is_call: bool,
+                      steps: int = 2000, dividend: float = 0.0) -> float:
+    """Cox-Ross-Rubinstein binomial tree for American options (test
+    oracle)."""
+    dt = maturity / steps
+    u = np.exp(sigma * np.sqrt(dt))
+    d = 1.0 / u
+    disc = np.exp(-r * dt)
+    p = (np.exp((r - dividend) * dt) - d) / (u - d)
+    p = min(max(p, 0.0), 1.0)
+
+    j = np.arange(steps + 1)
+    prices = s0 * u ** (steps - j) * d ** j
+    if is_call:
+        values = np.maximum(0.0, prices - strike)
+    else:
+        values = np.maximum(0.0, strike - prices)
+
+    for n in range(steps - 1, -1, -1):
+        j = np.arange(n + 1)
+        prices = s0 * u ** (n - j) * d ** j
+        values = disc * (p * values[:-1] + (1.0 - p) * values[1:])
+        if is_call:
+            exercise = np.maximum(0.0, prices - strike)
+        else:
+            exercise = np.maximum(0.0, strike - prices)
+        values = np.maximum(values, exercise)
+    return float(values[0])

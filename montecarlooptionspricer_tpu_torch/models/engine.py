@@ -52,6 +52,16 @@ priced by ``lsm_policy_value`` (with ``martingale_control`` under
 ``control_variate``), as the JAX engine's XLA branch does.  The kernels
 never give way to it: it is chosen by the configuration alone.
 
+The streamed duality bounds (``StreamingPricer.price_with_bounds``,
+counterpart of the JAX method) bracket the price from the same chunks:
+the pilot fits the policy, the hedge's quartic value-to-go fits
+(``fit_hedge_deltas``) and the dual's scale (``fit_dual_scale``); each
+chunk's whole paths come from the family's path kernel (K1, K6 or K8,
+their pair forms under ``antithetic``) or the generic stream, and give the
+policy's value (lower) and the delta-hedge dual (upper,
+``dual_upper_values``).  The dual is plain PyTorch, as JAX computes it in
+XLA.
+
 Only this path is ported.  Other configurations raise
 ``NotImplementedError`` naming their ROADMAP item; nothing runs another
 path silently.  Greeks under ``control_variate`` are the plain Greeks, as
@@ -62,13 +72,16 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from ..ops.payoff import payoff
-from ..ops.regression import PolyFit, eval_poly, polyfit_from_numpy  # noqa: F401
+from ..ops.reductions import global_mean
+from ..ops.regression import (PolyFit, eval_poly, fit_poly_columns,
+                              polyfit_from_numpy)  # noqa: F401
 from ..ops.timegrid import step_mask
 from . import (chain_cuda, greeks_cuda, pathgen_cuda, pathgen_factored_cuda,
                pathgen_stream, pathgen_tiled_cuda)
@@ -338,13 +351,18 @@ def _fused_rows_builder(r, strike, maturity, dt, n_steps: int,
 # ---------------------------------------------------------------------------
 # Policy evaluation on whole paths (the test oracle of the fused kernel).
 
+def _time_discount(m: int, r, dt, device) -> torch.Tensor:
+    """[m] float32 exp(-r t) at t = j dt, j = 0..m-1."""
+    return torch.exp(-r * (torch.arange(m, dtype=torch.float32,
+                                        device=device) * dt))
+
+
 def lsm_policy_path_values(paths, fits: PolyFit, r, strike, maturity, dt,
                            is_call: bool) -> torch.Tensor:
     """[n] discounted payoff of each path under the fitted policy: the
     first step j < n_steps that is in the money with payoff >= the fitted
     continuation, else the terminal payoff."""
     n, m = paths.shape
-    t = torch.arange(m, dtype=paths.dtype, device=paths.device) * dt
     p = payoff(is_call, paths, strike)
     cont = eval_poly(fits, paths[:, : m - 1])
     live = step_mask(m - 1, dt, maturity, device=paths.device)[None, :]
@@ -352,7 +370,7 @@ def lsm_policy_path_values(paths, fits: PolyFit, r, strike, maturity, dt,
     exercise = torch.cat([exercise, torch.ones((n, 1), dtype=torch.bool,
                                                device=paths.device)], dim=1)
     stop = exercise.to(torch.int8).argmax(dim=1)
-    disc = torch.exp(-r * t)
+    disc = _time_discount(m, r, dt, paths.device)
     return (p * disc[None, :]).gather(1, stop[:, None])[:, 0]
 
 
@@ -371,6 +389,142 @@ def martingale_control(paths, r, dt) -> torch.Tensor:
     m = paths.shape[1]
     return torch.exp(torch.tensor(-r * (m - 1) * dt,
                                   dtype=paths.dtype)) * paths[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# The duality upper bound (counterpart: ``_hedge_martingale``,
+# ``fit_hedge_deltas``, ``dual_upper_values`` and ``fit_dual_scale`` of the
+# JAX engine, which computes them in XLA, not in a kernel: here they are
+# plain PyTorch on the paths' device).
+
+def _exercise_window(m: int, dt, maturity, device) -> torch.Tensor:
+    """[m] bool: the dual's exercise dates, step 0 and the live steps
+    (t <= maturity), and the terminal step always."""
+    return torch.cat([step_mask(m - 1, dt, maturity, device=device),
+                      torch.ones(1, dtype=torch.bool, device=device)])
+
+
+def _hedge_martingale(paths, delta_fits: PolyFit, r, strike, dt,
+                      is_call: bool) -> torch.Tensor:
+    """[n, m] path values of the delta-hedge martingale
+    M_t = sum_{k<t} g_k(S_k) (e^{-r t_{k+1}} S_{k+1} - e^{-r t_k} S_k),
+    g_k the derivative of the pilot's fitted value-to-go at step k,
+    clipped to the no-arbitrage delta band ([0, 1] for a call, [-1, 0] for
+    a put).  M is a martingale for any deterministic g_k, so the fit's
+    quality sets the bound's tightness, never its validity.  Updates its
+    temporaries in place (one [n, m - 1] plane at a time)."""
+    n, m = paths.shape
+    disc = _time_discount(m, r, dt, paths.device)[None, :]
+    s_steps = paths[:, : m - 1]
+    zstd = (s_steps - delta_fits.mu[None, :]) / delta_fits.sd[None, :]
+    order = delta_fits.coeffs.shape[-1] - 1
+    dv = torch.zeros_like(zstd)
+    for k in range(order, 0, -1):        # Horner on the derivative
+        dv.mul_(zstd).add_(k * delta_fits.coeffs[None, :, k])
+    del zstd
+    dv.div_(delta_fits.sd[None, :])
+    g = dv.clamp_(0.0, 1.0) if is_call else dv.clamp_(-1.0, 0.0)
+    ds = disc[:, 1:] * paths[:, 1:] - disc[:, : m - 1] * s_steps
+    return torch.cat([torch.zeros((n, 1), dtype=paths.dtype,
+                                  device=paths.device),
+                      torch.cumsum(g.mul_(ds), dim=1)], dim=1)
+
+
+# Quartic value-to-go fits for the dual's hedge deltas (the JAX engine's
+# choice: on the GBM limit it gave the tightest gap of the orders tried).
+HEDGE_POLY_ORDER = 4
+# Steps per group of the hedge fit: each group's power planes are
+# [steps, pilot rows], about 2^26 floats (256 MB) at most.
+_HEDGE_FIT_FLOATS = 1 << 26
+
+
+def fit_hedge_deltas(pilot, fits: PolyFit, r, strike, maturity, dt,
+                     is_call: bool) -> PolyFit:
+    """[m - 1] quartic fits of the realized value-to-go on S_k over all
+    pilot paths, whose derivatives drive the dual's delta hedge
+    (``_hedge_martingale``).  The value-to-go at step k is the discounted
+    payoff the fitted policy ``fits`` collects from step k onward, in
+    time-k dollars.  The JAX engine vmaps its masked fit over the steps;
+    here ``fit_poly_columns`` fits a group of steps at once from power
+    sums, in groups that bound the memory of the pilot's transposed
+    planes."""
+    n, m = pilot.shape
+    dev = pilot.device
+    disc = _time_discount(m, r, dt, dev)
+    p = payoff(is_call, pilot, strike)
+    s_steps = pilot[:, : m - 1]
+    cont = eval_poly(fits, s_steps)
+    live = step_mask(m - 1, dt, maturity, device=dev)[None, :]
+    ex = (p[:, : m - 1] > ITM_EPS) & (p[:, : m - 1] >= cont) & live
+    del cont
+    ex = torch.cat([ex, torch.ones((n, 1), dtype=torch.bool, device=dev)],
+                   dim=1)
+    # tau_k = the first exercise step >= k (a reverse running minimum).
+    cols = torch.arange(m, device=dev)[None, :]
+    idx = torch.where(ex, cols, torch.full_like(cols, m))
+    del ex
+    tau = torch.flip(torch.cummin(torch.flip(idx, [1]), dim=1).values, [1])
+    del idx
+    vtg = (p * disc[None, :]).gather(1, tau).div_(disc[None, :])[:, : m - 1]
+    del tau, p
+    group = max(1, _HEDGE_FIT_FLOATS // n)
+    parts = [fit_poly_columns(s_steps[:, j:j + group].T,
+                              vtg[:, j:j + group].T, HEDGE_POLY_ORDER)
+             for j in range(0, m - 1, group)]
+    return PolyFit(*(torch.cat(f) for f in zip(*parts)))
+
+
+def dual_upper_values(paths, delta_fits: PolyFit, lam, r, strike,
+                      maturity, dt, is_call: bool) -> torch.Tensor:
+    """[n] duality upper-bound values: the max over the exercise dates
+    (step 0, the live steps, the terminal step) of Z_t - lam M_t, with
+    Z_t = e^{-rt} payoff(S_t) and M the delta-hedge martingale.  For any
+    scale lam, E[max_t (Z_t - lam M_t)] >= sup_tau E[Z_tau] (the
+    Rogers / Haugh-Kogan dual), so the streamed mean is an upper bound
+    beside the fitted policy's lower bound; lam (``fit_dual_scale``) only
+    sets its tightness."""
+    m = paths.shape[1]
+    z = payoff(is_call, paths, strike) * _time_discount(m, r, dt,
+                                                        paths.device)
+    mart = _hedge_martingale(paths, delta_fits, r, strike, dt, is_call)
+    live = _exercise_window(m, dt, maturity, paths.device)[None, :]
+    vals = torch.where(live, z - lam * mart,
+                       torch.tensor(-math.inf, device=paths.device))
+    return torch.max(vals, dim=1).values
+
+
+def fit_dual_scale(paths, delta_fits: PolyFit, r, strike, maturity, dt,
+                   is_call: bool) -> torch.Tensor:
+    """The hedge scale lam (a 0-d float32 tensor on the paths' device)
+    that minimizes the pilot's dual bound, as the JAX engine searches it:
+    41 lam in [0, 2]; where the coarse argmin lands on the last point,
+    41 more in [2, 10]; then 21 points of +-0.05 (+-0.1 on the extended
+    grid) around the winner.  Z and the unit-scale martingale are hoisted
+    out of the sweep, one [n, m] pass per lam; ties go to the first
+    index.  The coarse argmin is read on the host once."""
+    m = paths.shape[1]
+    dev = paths.device
+    z = payoff(is_call, paths, strike) * _time_discount(m, r, dt, dev)
+    mart = _hedge_martingale(paths, delta_fits, r, strike, dt, is_call)
+    live = _exercise_window(m, dt, maturity, dev)[None, :]
+    z = torch.where(live, z, torch.tensor(-math.inf, device=dev))
+    mart = torch.where(live, mart, torch.zeros((), device=dev))
+
+    def obj(lams: torch.Tensor) -> torch.Tensor:
+        return torch.stack([global_mean(torch.max(z - lam * mart,
+                                                  dim=1).values)
+                            for lam in lams])
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    lams = torch.linspace(0.0, 2.0, 41, **f32)
+    i0 = int(torch.argmin(obj(lams)))
+    if i0 == lams.shape[0] - 1:
+        ext = torch.linspace(2.0, 10.0, 41, **f32)
+        l0, half = ext[torch.argmin(obj(ext))], 0.1
+    else:
+        l0, half = lams[i0], 0.05
+    fine = l0 + torch.linspace(-1.0, 1.0, 21, **f32) * half
+    return fine[torch.argmin(obj(fine))]
 
 
 class CVFit(NamedTuple):
@@ -486,6 +640,16 @@ class _FusedStream:
         if noise is not None:
             return pathgen_stream.paths_from_noise(self.consts, *noise, anti)
         return pathgen_stream.chunk_paths(self.consts, rows, carrier, anti)
+
+    def _chunk_paths(self, rows=None, key=None, carrier=None, noise=None):
+        """One chunk's whole paths (kw from ``_groups``): the family's path
+        kernel K1, K6 or K8 in its pair form under ``antithetic`` (the
+        drawn rows' paths, then their partners'), or the generic
+        stream's."""
+        if self.kernel_family == "stream":
+            return self._stream_paths(rows, carrier, noise)
+        return self._pathgen(self.consts, rows=rows, key=key, noise=noise,
+                             antithetic=self.config.antithetic)
 
     def _require_greeks(self) -> None:
         if self.kernel_family == "stream":
@@ -729,6 +893,85 @@ class StreamingPricer(_FusedStream):
         if not with_stderr:
             return float(out)
         return float(out[0]), float(out[1])
+
+    def _require_bounds(self) -> None:
+        if self.config.control_variate:
+            raise ValueError(
+                "duality bounds do not combine with control_variate: the "
+                "lower bound is the fitted policy's plain value")
+
+    def price_with_bounds(self, seed: int, n_paths: Optional[int] = None,
+                          with_stderr: bool = False):
+        """(lower, upper): a price bracket from the same streamed chunks
+        (counterpart: the JAX ``price_with_bounds``).  The lower bound is
+        the fitted policy's value (any stopping rule under-exercises the
+        optimum), the upper bound the delta-hedge dual
+        (``dual_upper_values``), its scale tuned on the pilot; the gap is
+        a certificate of the price's accuracy.  Each chunk's whole paths
+        come from the family's path kernel (K1, K6 or K8, its pair form
+        under ``antithetic``) or the generic stream, seeded as ``price``
+        seeds its chunks, so chunk i holds the paths (and pairs) of
+        ``price``'s chunk i.  ``with_stderr`` returns (lower, upper,
+        lower_se, upper_se) from the iid chunk totals, each centred on the
+        pilot's estimate."""
+        k_pilot, _ = _pilot_stream_keys(seed)
+        n_paths = self._n_paths(n_paths)
+        return self.bounds_with_fit(self.bounds_fit(k_pilot), seed, n_paths,
+                                    with_stderr)
+
+    def bounds_fit(self, carrier):
+        """(fits, deltas, lam, cc) from the plain pilot of ``carrier``
+        (counterpart: the JAX engine's ``bounds_fit_fn``): the LSM policy,
+        the hedge's quartic value-to-go fits, the dual's scale (0-d
+        tensor), and cc = (mean lower value, mean upper value) x
+        chunk_paths, the pilot's estimates of a chunk's two totals (a
+        [2] float32 tensor), on which the stderrs centre."""
+        self._require_bounds()
+        pilot, fits = self._policy_fit(carrier)
+        args = (self.r, self.strike, self.maturity, self.config.dt,
+                self.is_call)
+        deltas = fit_hedge_deltas(pilot, fits, *args)
+        lam = fit_dual_scale(pilot, deltas, *args)
+        lv = lsm_policy_path_values(pilot, fits, *args)
+        uv = dual_upper_values(pilot, deltas, lam, *args)
+        cc = torch.stack([global_mean(lv), global_mean(uv)]) \
+            * float(self.config.chunk_paths)
+        return fits, deltas, lam, cc
+
+    def bounds_with_fit(self, fit, seed: int = 0,
+                        n_paths: Optional[int] = None,
+                        with_stderr: bool = False, noise=None):
+        """Stream the bounds against ``fit`` = (fits, deltas, lam, cc), as
+        ``bounds_fit`` returns it: each chunk's whole paths, their lower
+        sum (``lsm_policy_value``) and upper sum (``dual_upper_values``)
+        and the squares of both about cc, summed in float32 on the device
+        per group of ``chunks_per_call`` chunks and in float64 across
+        groups.  ``noise`` takes the layouts of ``price_with_fit``."""
+        self._require_bounds()
+        fits, deltas, lam, cc = fit
+        chunk = self.config.chunk_paths
+        n_paths, groups = self._groups(seed, n_paths, noise)
+        args = (self.r, self.strike, self.maturity, self.config.dt,
+                self.is_call)
+        lo = up = lsq = usq = 0.0
+        for group in groups:
+            sums = torch.zeros(4, dtype=torch.float32, device=self.device)
+            for kw in group:
+                paths = self._chunk_paths(**kw)
+                a = lsm_policy_value(paths, fits, *args)[0]
+                b = torch.sum(dual_upper_values(paths, deltas, lam, *args))
+                del paths
+                sums += torch.stack([a, b, (a - cc[0]) ** 2,
+                                     (b - cc[1]) ** 2])
+            a, b, ql, qu = sums.double().cpu().tolist()
+            lo, up, lsq, usq = lo + a, up + b, lsq + ql, usq + qu
+        if not with_stderr:
+            return lo / n_paths, up / n_paths
+        m = n_paths // chunk
+        c_lo, c_up = cc.double().cpu().tolist()
+        return (lo / n_paths, up / n_paths,
+                float(_chunk_stderr(lo, lsq, m, chunk, center=c_lo)),
+                float(_chunk_stderr(up, usq, m, chunk, center=c_up)))
 
     def price_and_greeks(self, seed: int, n_paths: Optional[int] = None,
                          with_stderr: bool = False):

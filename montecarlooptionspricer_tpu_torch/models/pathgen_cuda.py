@@ -6,7 +6,13 @@ Two kernels live in ``csrc/pathgen.cu``:
 
 * K1 ``pathgen`` (replaces ``_pathgen_kernel`` / ``_pathgen_kernel_noise_in``):
   noise -> fGN ``X = N @ (0.5 Lt)`` -> ``sv = exp(X + vd)`` -> Euler
-  log-recursion -> ``[rows, n_steps + 1]`` prices with S0 in column 0.
+  log-recursion -> ``[rows, n_steps + 1]`` prices with S0 in column 0.  Its
+  ``antithetic`` form (the whole-path pair body, ``_euler_from_noise`` with
+  ``_logpaths_from_x_anti``) reads rows / 2 rows of noise and writes the
+  drawn rows' paths to rows [0, rows / 2) and their partners' (-N, -W) to
+  [rows / 2, rows): ``[X; -X]`` of the unpaired form (``pair_planes``).
+  JAX lays each pair out inside each Pallas block instead; whole-path
+  consumers sum over rows, so the order reaches only the tests.
 * K2 ``priced_chunk`` (replaces ``_priced_kernel`` /
   ``_priced_kernel_noise_in`` with ``policy_form="log_boundary"``): the same
   generation kept on chip, each path stopped at its first step inside the
@@ -30,7 +36,8 @@ words x0..x3.  Step 2j takes the Box-Muller pair of (x0, x1), step 2j+1
 that of (x2, x3): u = (bits >> 8) * 2^-24 + 2^-25, radius
 sqrt(-2 log u_a), angle 2 pi u_b, N = radius cos, W = radius sin.  A
 paired chunk of ``rows`` paths draws rows / 2 rows: drawn row q is the
-stream's row q.
+stream's row q, in K1's pair form as in K2's, so one key gives both the
+same pairs.
 """
 
 from __future__ import annotations
@@ -136,6 +143,8 @@ PAIRED_BLOCK_CHOICES = (128, 64, 32)   # pair members; half of them drawn
 # The estimator forms of the priced kernels K2, K7 and K9: the launch
 # counters' keys.
 FORMS = ("plain", "anti", "cv", "anti+cv")
+# The forms of the whole-path kernels K1, K6 and K8.
+PATH_FORMS = FORMS[:2]
 
 
 def form_name(antithetic: bool, with_cv: bool) -> str:
@@ -479,10 +488,13 @@ def prices_from_log(ls: torch.Tensor, s0: float) -> torch.Tensor:
     return out
 
 
-def pathgen_from_noise_ref(consts: PathConsts,
-                           noise: torch.Tensor) -> torch.Tensor:
-    """Plain K1: [2, rows, n_steps] (N, W) -> [rows, n_steps + 1] prices."""
-    return prices_from_log(_log_paths_ref(consts, noise), consts.s0)
+def pathgen_from_noise_ref(consts: PathConsts, noise: torch.Tensor,
+                           antithetic: bool = False) -> torch.Tensor:
+    """Plain K1: [2, rows, n_steps] (N, W) -> [rows, n_steps + 1] prices;
+    with ``antithetic`` [2 rows, n_steps + 1], the pairs' partners below
+    the drawn rows."""
+    return prices_from_log(_log_paths_ref(consts, noise, antithetic),
+                           consts.s0)
 
 
 def cv_discount(consts) -> float:
@@ -568,10 +580,11 @@ def check_device_inputs(consts: PathConsts, noise, table=None) -> None:
 def priced_block_paths(consts: PathConsts, rows: int,
                        antithetic: bool = False,
                        with_cv: bool = False) -> int:
-    """The path block of a K2 launch: the plain form's is
-    ``consts.block_paths``; the CV form takes the largest block up to it
-    whose shared memory fits, and the paired forms the largest of
-    PAIRED_BLOCK_CHOICES that fits; each must divide ``rows``."""
+    """The path block of a K2 launch (and of K1's, which has no CV
+    form): the plain form's is ``consts.block_paths``; the CV form takes
+    the largest block up to it whose shared memory fits, and the paired
+    forms the largest of PAIRED_BLOCK_CHOICES that fits; each must divide
+    ``rows``."""
     if not antithetic and not with_cv:
         return consts.block_paths
     choices = PAIRED_BLOCK_CHOICES if antithetic else [
@@ -615,29 +628,37 @@ def _check(err: int, name: str) -> None:
 
 
 def pathgen(consts: PathConsts, rows: int = None, key: int = None,
-            noise: torch.Tensor = None) -> torch.Tensor:
+            noise: torch.Tensor = None,
+            antithetic: bool = False) -> torch.Tensor:
     """K1: [rows, n_steps + 1] float32 prices, S0 in column 0, from the
     seeded stream of ``key`` (a uint32 word, see _fold_words) or from
-    injected ``noise`` [2, rows, n_steps]."""
-    rows = _noise_or_rows(consts, rows, key, noise)
+    injected ``noise`` [2, rows, n_steps].  With ``antithetic`` the rows
+    are rows / 2 pairs (the seeded entry draws rows / 2 rows, noise is [2,
+    rows / 2, n_steps]): the drawn rows' paths, then their partners'."""
+    rows = _noise_or_rows(consts, rows, key, noise, antithetic)
     if consts.device.type == "cpu":
         if noise is None:
-            noise = philox_normals_ref(key, rows, consts.n_steps)
-        return pathgen_from_noise_ref(consts, noise)
-    args = _kernel_args(consts, rows, key, noise)
+            noise = philox_normals_ref(key, drawn_rows(rows, antithetic),
+                                       consts.n_steps)
+        return pathgen_from_noise_ref(consts, noise, antithetic)
+    bp = priced_block_paths(consts, rows, antithetic)
+    args = _kernel_args(consts, rows, key, noise, bp)
     out = torch.empty((rows, consts.n_steps + 1), dtype=torch.float32,
                       device=consts.device)
     from ..kernels import build
 
     err = build.load().mcop_pathgen(
         *args, *_scalars(consts), ctypes.c_float(consts.s0),
-        out.data_ptr(), torch.cuda.current_stream(consts.device).cuda_stream)
+        int(bool(antithetic)), out.data_ptr(),
+        torch.cuda.current_stream(consts.device).cuda_stream)
     _check(err, "pathgen")
     pathgen.launches += 1
+    pathgen.form_launches[PATH_FORMS[int(bool(antithetic))]] += 1
     return out
 
 
 pathgen.launches = 0
+pathgen.form_launches = dict.fromkeys(PATH_FORMS, 0)
 
 
 def sums_from_partials(partial: torch.Tensor, with_cv: bool):

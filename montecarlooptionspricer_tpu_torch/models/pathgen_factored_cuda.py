@@ -6,7 +6,11 @@ Two kernels live in ``csrc/pathgen_factored.cu``:
 
 * K8 ``factored_pathgen`` (replaces ``_factored_pathgen_kernel`` /
   ``_factored_pathgen_kernel_noise_in``): ``[rows, n_steps + 1]`` prices
-  with S0 in column 0.
+  with S0 in column 0, plain or paired (``antithetic``: noise [3, rows / 2,
+  m2], the drawn rows' paths, then their partners' (-Z, -W), as K1's pair
+  form lays them out; stages 1 and 2 run once per drawn path, and the
+  pair form's shared memory is the plain form's, so it takes every
+  horizon K8 takes).
 * K9 ``factored_priced_chunk`` (replaces ``_factored_priced_kernel`` /
   ``_factored_priced_kernel_noise_in`` with ``policy_form="boundary"``):
   the chunk's payoff sum under a log exercise-interval table, one partial
@@ -262,9 +266,13 @@ def _log_paths_ref(consts: FactoredConsts, noise: torch.Tensor,
 
 
 def factored_pathgen_from_noise_ref(consts: FactoredConsts,
-                                    noise: torch.Tensor) -> torch.Tensor:
-    """Plain K8: [3, rows, m2] noise -> [rows, n_steps + 1] prices."""
-    return pc.prices_from_log(_log_paths_ref(consts, noise), consts.s0)
+                                    noise: torch.Tensor,
+                                    antithetic: bool = False) -> torch.Tensor:
+    """Plain K8: [3, rows, m2] noise -> [rows, n_steps + 1] prices; with
+    ``antithetic`` [2 rows, n_steps + 1], the partners below the drawn
+    rows."""
+    return pc.prices_from_log(_log_paths_ref(consts, noise, antithetic),
+                              consts.s0)
 
 
 def factored_priced_chunk_from_noise_ref(consts: FactoredConsts,
@@ -333,29 +341,36 @@ def _key_word(key) -> int:
 
 
 def factored_pathgen(consts: FactoredConsts, rows: int = None,
-                     key: int = None,
-                     noise: torch.Tensor = None) -> torch.Tensor:
+                     key: int = None, noise: torch.Tensor = None,
+                     antithetic: bool = False) -> torch.Tensor:
     """K8: [rows, n_steps + 1] float32 prices, S0 in column 0, from the
-    seeded stream of ``key`` or from injected ``noise`` [3, rows, m2]."""
-    rows = _noise_or_rows(consts, rows, key, noise)
+    seeded stream of ``key`` or from injected ``noise`` [3, rows, m2].
+    With ``antithetic`` the rows are rows / 2 pairs (the seeded entry
+    draws rows / 2 rows, noise is [3, rows / 2, m2]): the drawn rows'
+    paths, then their partners'."""
+    rows = _noise_or_rows(consts, rows, key, noise, antithetic)
+    drawn = pc.drawn_rows(rows, antithetic)
     if consts.device.type == "cpu":
         if noise is None:
-            noise = philox_factored_normals_ref(key, rows, consts.n_steps)
-        return factored_pathgen_from_noise_ref(consts, noise)
-    ptrs = _const_ptrs(consts, rows, noise)
+            noise = philox_factored_normals_ref(key, drawn, consts.n_steps)
+        return factored_pathgen_from_noise_ref(consts, noise, antithetic)
+    ptrs = _const_ptrs(consts, rows, noise, drawn)
     out = torch.empty((rows, consts.n_steps + 1), dtype=torch.float32,
                       device=consts.device)
     from ..kernels import build
 
     err = build.load().mcop_factored_pathgen(
         *ptrs, _key_word(key), *pc._scalars(consts), ctypes.c_float(consts.s0),
-        out.data_ptr(), torch.cuda.current_stream(consts.device).cuda_stream)
+        int(bool(antithetic)), out.data_ptr(),
+        torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, "factored_pathgen")
     factored_pathgen.launches += 1
+    factored_pathgen.form_launches[pc.PATH_FORMS[int(bool(antithetic))]] += 1
     return out
 
 
 factored_pathgen.launches = 0
+factored_pathgen.form_launches = dict.fromkeys(pc.PATH_FORMS, 0)
 
 
 def factored_priced_chunk(consts: FactoredConsts, table: torch.Tensor,

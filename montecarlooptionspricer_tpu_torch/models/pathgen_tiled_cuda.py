@@ -5,7 +5,8 @@ Counterpart: ``montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py``
 
 * K6 ``tiled_pathgen`` (replaces ``_tiled_pathgen_kernel`` /
   ``_tiled_pathgen_kernel_noise_in``): ``[rows, n_steps + 1]`` prices with
-  S0 in column 0.
+  S0 in column 0, plain or paired (``antithetic``: the drawn rows' paths,
+  then their partners', as K1's pair form lays them out).
 * K7 ``tiled_priced_chunk`` (replaces ``_tiled_priced_kernel`` /
   ``_tiled_priced_kernel_noise_in`` with ``policy_form="boundary"``): the
   chunk's payoff sum under a log exercise-interval table, in K2's four
@@ -76,7 +77,8 @@ def supports(n_steps: int) -> bool:
 def block_paths_for(rows: int, antithetic: bool = False) -> int:
     """The CUDA path block for ``rows``: the largest of BLOCK_CHOICES that
     divides it; paired, the largest of PAIRED_BLOCK_CHOICES (members, half
-    of them drawn)."""
+    of them drawn: at most 64 drawn rows, as ``mcop_tiled_smem_bytes``
+    refuses a paired block of 128 drawn rows)."""
     choices = PAIRED_BLOCK_CHOICES if antithetic else BLOCK_CHOICES
     for bp in choices:
         if rows % bp == 0:
@@ -102,16 +104,21 @@ def _plane_args(consts: pc.PathConsts, rows: int, key, noise,
 
 
 def tiled_pathgen(consts: pc.PathConsts, rows: int = None, key: int = None,
-                  noise: torch.Tensor = None) -> torch.Tensor:
+                  noise: torch.Tensor = None,
+                  antithetic: bool = False) -> torch.Tensor:
     """K6: [rows, n_steps + 1] float32 prices, S0 in column 0, from the
     seeded stream of ``key`` or from injected ``noise`` [2, rows,
-    n_steps]; the same function as ``pathgen_cuda.pathgen``."""
-    rows = pc._noise_or_rows(consts, rows, key, noise)
+    n_steps]; the same function as ``pathgen_cuda.pathgen``, in both its
+    forms (``antithetic``: rows / 2 drawn rows, noise [2, rows / 2,
+    n_steps], the partners' paths below the drawn rows')."""
+    rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
     if consts.device.type == "cpu":
         if noise is None:
-            noise = pc.philox_normals_ref(key, rows, consts.n_steps)
-        return pathgen_from_noise_ref(consts, noise)
-    plane, seeded, bp, word = _plane_args(consts, rows, key, noise)
+            noise = pc.philox_normals_ref(
+                key, pc.drawn_rows(rows, antithetic), consts.n_steps)
+        return pathgen_from_noise_ref(consts, noise, antithetic)
+    plane, seeded, bp, word = _plane_args(consts, rows, key, noise,
+                                          antithetic)
     out = torch.empty((rows, consts.n_steps + 1), dtype=torch.float32,
                       device=consts.device)
     from ..kernels import build
@@ -119,14 +126,17 @@ def tiled_pathgen(consts: pc.PathConsts, rows: int = None, key: int = None,
     err = build.load().mcop_tiled_pathgen(
         plane.data_ptr(), seeded, consts.lt_half.data_ptr(),
         consts.vd.data_ptr(), rows, consts.n_steps, bp, word,
-        *pc._scalars(consts), ctypes.c_float(consts.s0), out.data_ptr(),
+        *pc._scalars(consts), ctypes.c_float(consts.s0),
+        int(bool(antithetic)), out.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, "tiled_pathgen")
     tiled_pathgen.launches += 1
+    tiled_pathgen.form_launches[pc.PATH_FORMS[int(bool(antithetic))]] += 1
     return out
 
 
 tiled_pathgen.launches = 0
+tiled_pathgen.form_launches = dict.fromkeys(pc.PATH_FORMS, 0)
 
 
 def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,

@@ -89,6 +89,48 @@ def fit_poly_masked(x, y, w, order: int, ridge: float = 1e-6) -> PolyFit:
     return PolyFit(coeffs, mu, sd)
 
 
+def fit_poly_columns(x, y, order: int, ridge: float = 1e-6) -> PolyFit:
+    """Unweighted least squares of each row of y [G, n] on the same row of
+    x [G, n]: ``fit_poly_masked`` with every weight 1, for a batch of G
+    independent fits (the counterpart of ``jax.vmap`` over the JAX
+    function with a ones mask, as the dual's hedge fits use it).
+
+    The Gram matrix is Hankel, G_ij = sum_i z^(i+j), so it is built from
+    the 2 order + 1 power sums of z and never as an [G, n, p+1, p+1]
+    outer product: each pass holds one [G, n] power plane, whatever the
+    order."""
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    n = x.shape[-1]
+    mu = torch.sum(x, dim=-1) / float(n)
+    var = torch.sum((x - mu[..., None]) ** 2, dim=-1) / float(n)
+    sd_floor = 1e-6 * (torch.abs(mu) + 1.0)
+    sd = torch.sqrt(torch.maximum(var, sd_floor * sd_floor))
+    z = (x - mu[..., None]) / sd[..., None]
+    z = torch.where((var > sd_floor * sd_floor)[..., None], z,
+                    torch.zeros_like(z))
+
+    sums = [torch.full_like(mu, float(n))]         # sum z^k, k = 0..2p
+    rhs = [torch.sum(y, dim=-1)]                   # sum y z^k, k = 0..p
+    zk = z
+    for k in range(1, 2 * order + 1):
+        sums.append(torch.sum(zk, dim=-1))
+        if k <= order:
+            rhs.append(torch.sum(y * zk, dim=-1))
+        if k < 2 * order:
+            zk = zk * z
+    power = torch.stack(sums, dim=-1)              # [..., 2p+1]
+    idx = torch.arange(order + 1, device=x.device)
+    gram = power[..., idx[:, None] + idx[None, :]]
+    lam = max(ridge, 1e-6)
+    ridge_diag = lam * (torch.diagonal(gram, dim1=-2, dim2=-1) + 1.0)
+    a = gram + torch.diag_embed(ridge_diag)
+    chol, _ = torch.linalg.cholesky_ex(a)
+    coeffs = torch.cholesky_solve(torch.stack(rhs, dim=-1)[..., None],
+                                  chol)[..., 0]
+    return PolyFit(coeffs, mu, sd)
+
+
 def _solve_spd_small(a, b, floor):
     """Solve a x = b for a = G + diag(floor), G positive semidefinite and
     floor > 0, of size 1..3, by an unrolled Cholesky factorization.

@@ -18,7 +18,11 @@ streams the Greeks kernel instead (K3, or K4 with ``--strikes``); each
 pairs with ``--antithetic``.  ``--pathgen xla`` takes the generic path
 stream (``pathgen_stream``): the stream stage then generates whole paths
 and prices them in plain PyTorch, which is also where ``--strikes`` goes
-past K5's 512 steps.  For each stage it
+past K5's 512 steps.  ``--bounds`` profiles ``price_with_bounds``: the
+fit is ``bounds_fit`` (pilot, LSM fit, the hedge's quartic fits and the
+dual's scale), the stream ``bounds_with_fit`` (the family's path kernel,
+K1, K6 or K8, paired with ``--antithetic``, and the lower and upper sums of
+each chunk's whole paths).  For each stage it
 prints one JSON line: host wall seconds, device kernel launches and busy
 seconds from the trace, the idle share 1 - busy / wall (against the
 unprofiled and the profiled wall), and the kernels that take the most
@@ -27,7 +31,7 @@ device time.
 Usage (one CUDA card):
   python -m montecarlooptionspricer_tpu_torch.profile_price [--steps N]
       [--strikes 75,77.5,...,125] [--greeks] [--tiled-impl factored]
-      [--antithetic] [--control-variate] [--pathgen xla]
+      [--antithetic] [--control-variate] [--pathgen xla] [--bounds]
 """
 
 from __future__ import annotations
@@ -39,16 +43,20 @@ import sys
 import time
 
 
-def _stages(pricer, seed, greeks: bool):
+def _stages(pricer, seed, greeks: bool, bounds: bool):
     from .models.engine import _pilot_stream_keys
 
     state = {}
 
     def fit():
-        state["fits"] = pricer.fit(_pilot_stream_keys(seed)[0])
+        carrier = _pilot_stream_keys(seed)[0]
+        state["fits"] = (pricer.bounds_fit(carrier) if bounds
+                         else pricer.fit(carrier))
 
     def stream():
-        if greeks:
+        if bounds:
+            pricer.bounds_with_fit(state["fits"], seed)
+        elif greeks:
             pricer.greeks_with_fit(state["fits"], seed)
         else:
             pricer.price_with_fit(state["fits"], seed)
@@ -80,12 +88,17 @@ def main(argv=None) -> int:
                         help="StreamConfig.antithetic")
     parser.add_argument("--control-variate", action="store_true",
                         help="StreamConfig.control_variate (single strikes)")
+    parser.add_argument("--bounds", action="store_true",
+                        help="profile price_with_bounds (single strikes)")
     parser.add_argument("--pathgen", default="pallas",
                         choices=("pallas", "xla"),
                         help="StreamConfig.pathgen_impl")
     args = parser.parse_args(argv)
     steps = args.steps
     strikes = [float(v) for v in args.strikes.split(",") if v]
+    if args.bounds and (strikes or args.greeks or args.control_variate):
+        parser.error("--bounds prices one strike, without --greeks or "
+                     "--control-variate")
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -111,7 +124,9 @@ def main(argv=None) -> int:
                                         device="cuda")
     seed = 42
     # Build the kernels, warm every path.
-    if args.greeks:
+    if args.bounds:
+        pricer.price_with_bounds(seed)
+    elif args.greeks:
         pricer.price_and_greeks(seed)
     else:
         pricer.price(seed)
@@ -119,7 +134,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    for name, fn in _stages(pricer, seed, args.greeks):
+    for name, fn in _stages(pricer, seed, args.greeks, args.bounds):
         wall_plain = _timed(torch, fn)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -135,6 +150,7 @@ def main(argv=None) -> int:
         print(json.dumps({
             "stage": name, "n_steps": steps,
             "n_strikes": len(strikes) or 1, "greeks": args.greeks,
+            "bounds": args.bounds,
             "antithetic": args.antithetic,
             "control_variate": args.control_variate,
             "kernel_family": pricer.kernel_family, "card": card,

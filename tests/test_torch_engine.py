@@ -198,7 +198,7 @@ def test_cli_prices_on_cpu(capsys):
     assert out["price"] > 0 and out["stderr"] > 0 and not out["is_call"]
 
 
-@pytest.mark.parametrize("flag", ["--bounds", "--serve", "--qmc"])
+@pytest.mark.parametrize("flag", ["--serve", "--qmc"])
 def test_cli_unported_flags_exit_2(capsys, flag):
     assert tcli.main([flag, "--device", "cpu"]) == 2
     assert "not yet ported" in capsys.readouterr().err

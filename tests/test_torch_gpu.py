@@ -690,3 +690,111 @@ def test_generic_stream_on_the_card(cuda):
     assert chain.kernel_family == "stream"
     assert cc.priced_chain.launches + pc.pathgen.launches == before
     assert (prices > 0).all() and (stderrs > 0).all()
+
+
+# The whole-path pair forms of K1, K6 and K8: (wrapper, plain version,
+# seeded stream's reference, constants, path rtol) per family.
+def _path_family(family, n_steps, cuda):
+    if family == "factored":
+        return (pfc.factored_pathgen, pfc.factored_pathgen_from_noise_ref,
+                pfc.philox_factored_normals_ref,
+                pfc.make_factored_consts(*MARKET.values(), n_steps, DT, cuda),
+                5e-4)
+    wrapper = pc.pathgen if family == "single" else ptc.tiled_pathgen
+    return (wrapper, pc.pathgen_from_noise_ref, pc.philox_normals_ref,
+            pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda), 2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,n_steps", [
+    ("single", 47), ("single", 365), ("tiled", 1825), ("factored", 4000),
+    ("factored", 8192)])
+def test_path_pair_forms_match_plain_versions(cuda, family, n_steps):
+    """K1/anti, K6/anti and K8/anti at the main path's chunk of 131072
+    rows (65536 drawn): paths elementwise against their plain versions,
+    seeded (so also against the stream's reference) and on noise, at the
+    unpaired kernels' path tolerances (2e-4; 5e-4 for K8's four-step DFT);
+    and on noise against the unpaired kernel on the concatenated [X; -X]
+    noise at rtol 1e-6, as each member's arithmetic is the unpaired
+    path's (the fGN map is linear, so the partner's plane is exactly
+    -x).  K8/anti at 8192 steps is K8's cap: the pair form keeps the
+    plain form's shared memory."""
+    rows, key = 1 << 17, pc._fold_words(5, 41)
+    wrapper, ref, normals, consts, rtol = _path_family(family, n_steps,
+                                                       cuda)
+    noise = normals(key, rows // 2, n_steps, device=cuda)
+    want = ref(consts, noise, antithetic=True)
+    assert want.shape == (rows, n_steps + 1)
+    got = wrapper(consts, rows=rows, key=key, antithetic=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+    del got, want
+    got = wrapper(consts, noise=noise, antithetic=True)
+    torch.cuda.synchronize()
+    both = torch.cat([noise, -noise], dim=1)
+    del noise
+    torch.testing.assert_close(got, wrapper(consts, noise=both), rtol=1e-6,
+                               atol=0)
+    del both
+    want = ref(consts, normals(key, rows // 2, n_steps, device=cuda),
+               antithetic=True)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+
+
+@pytest.mark.gpu
+def test_seeded_k1_pair_lower_sum_matches_k2_pair(cuda):
+    """One key gives K1/anti and K2/anti the same pairs: the fitted
+    policy's value summed over K1/anti's whole paths (the bounds' lower
+    side, S-space decisions) equals K2/anti's priced sum (log-space
+    interval decisions) within 1e-4, at 365 steps and 131072 rows; the
+    decisions differ only inside the float32 root band."""
+    n_steps, rows, strike = 365, 1 << 17, 100.0
+    maturity = n_steps * DT
+    consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda)
+    pilot = pc.pathgen(consts, rows=1 << 15, key=pc._fold_words(5, 43))
+    _, fits = engine.lsm_fit(pilot, MARKET["r"], strike, maturity, DT, False)
+    table = pc.log_boundary_rows(pc.boundary_rows(
+        fits, MARKET["r"], strike, maturity, DT, n_steps, False)).contiguous()
+    key = pc._fold_words(5, 44)
+    ex0, _ = pc.time0_value(fits, MARKET["s0"], strike, False)
+    assert not bool(ex0)
+    lower, _ = engine.lsm_policy_value(
+        pc.pathgen(consts, rows=rows, key=key, antithetic=True), fits,
+        MARKET["r"], strike, maturity, DT, False)
+    priced = pc.priced_chunk(consts, table, strike, False, rows=rows,
+                             key=key, antithetic=True)
+    torch.cuda.synchronize()
+    assert float(priced) > 0
+    assert abs(float(lower) / float(priced) - 1.0) < 1e-4
+
+
+@pytest.mark.gpu
+def test_bounds_on_the_card(cuda):
+    """price_with_bounds at a small width on each kernel family, plain
+    and paired: lower <= upper, finite stderrs, the family's path kernel
+    launched once for the pilot and once per chunk in the right form, and
+    the priced kernels never."""
+    for n_steps, kw, wrapper in (
+            (96, {}, pc.pathgen), (400, {}, ptc.tiled_pathgen),
+            (400, {"tiled_impl": "factored"}, pfc.factored_pathgen)):
+        for anti in (False, True):
+            cfg = engine.StreamConfig(n_paths=1 << 15, n_steps=n_steps,
+                                      chunk_paths=1 << 13,
+                                      pilot_paths=1 << 13, dt=DT,
+                                      antithetic=anti, **kw)
+            pricer = engine.StreamingPricer(
+                MARKET["s0"], MARKET["xi"], MARKET["h"], MARKET["eta"], -0.4,
+                MARKET["r"], 100.0, n_steps * DT, False, cfg, device=cuda)
+            wrapper.launches = 0
+            wrapper.form_launches = dict.fromkeys(pc.PATH_FORMS, 0)
+            before = (pc.priced_chunk.launches,
+                      ptc.tiled_priced_chunk.launches,
+                      pfc.factored_priced_chunk.launches)
+            lo, up, lo_se, up_se = pricer.price_with_bounds(
+                3, with_stderr=True)
+            assert lo <= up and 0 < lo_se < 1 and 0 < up_se < 1
+            want = {"plain": 1 + (0 if anti else 4), "anti": 4 if anti else 0}
+            assert wrapper.form_launches == want
+            assert before == (pc.priced_chunk.launches,
+                              ptc.tiled_priced_chunk.launches,
+                              pfc.factored_priced_chunk.launches)
