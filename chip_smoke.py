@@ -63,7 +63,28 @@ to 0 just before it and read just after:
   same seed (``bounds``: K1 once and K1 or K1/anti 76 times, no priced
   kernel), the bracket at 1825 steps on K6/K6-anti and at 4000 steps on
   K8/K8-anti cut to 16 chunks (``bounds_long``), and the GBM-limit bracket
-  around the binomial American value (``bounds_gbm``).
+  around the binomial American value (``bounds_gbm``);
+* the spectral fGN form (``fgn_form="spectral"``: three noise planes and
+  the dense X = Zr @ Cr' - Zi @ Ci'), on every kernel that has it:
+  ``spectral_forms`` holds K1 and K2 (365 steps), K5 (365 steps, 21
+  strikes), K6 and K7 (1825 steps) in each of their forms against their
+  plain versions, seeded and on noise, and each pair form against its
+  unpaired form on [X; -X], timed beside the two-product yardstick and
+  the dense bound; ``price_spectral`` prices 1e7 x 365 through K1/spectral
+  once and K2/spectral 76 times, its first 8 chunks against the plain
+  versions and the price within 5 combined stderr of the chol ``price``;
+  ``price_spectral_vr_{anti,cv,anti_cv}`` its three estimator forms, each
+  with its variance ratio; ``chain_spectral`` the 21-strike strip at full
+  width, plain and paired (strike 105 within 5 combined stderr of
+  ``price_spectral``), and at 400 steps on the K8 pilot with K5/spectral
+  (cut to 16 chunks) against K8/K9's single-strike price;
+  ``price_spectral_slab`` 1e7 x 1825 on K6/K7 spectral
+  (``tiled_impl="slab"``) within 5 combined stderr of ``price_factored``
+  (the same law), and its estimator forms cut to 16 chunks
+  (``price_spectral_slab_{anti,cv,anti_cv}``); ``bounds_spectral`` the
+  bench bracket on K1/spectral and K1/spectral/anti, its lower bound held
+  against ``price_spectral``, and the slab's paired bracket at 1825 steps
+  cut to 16 chunks.
 
 It also times K2 against K7 per chunk across horizons (the crossover that
 sets engine.SINGLE_TILE_MAX_STEPS) and times each kernel and form (K8 and
@@ -123,6 +144,13 @@ XLONG_STREAM_CHUNK = 1 << 14
 XLONG_STREAM_CHUNKS = 4
 # Chunks of plain K1 paths that price the cubic policy's reference.
 POLY3_CHECKED = 16
+# The spectral fGN form: the strip past the single tile runs on the K8
+# pilot with K5 on its own spectral constants, and the slab's estimator
+# forms at 1825 steps; both are cut to 16 chunks (the LSM fit at 1825
+# steps is seconds a run, and each slab chunk runs the dense products).
+SPECTRAL_PAST_TILE_STEPS = 400
+SPECTRAL_PAST_TILE_CHUNKS = 16
+SPECTRAL_SLAB_FORM_CHUNKS = 16
 
 # Tolerances.  Paths: the kernel and the plain version sum the fGN product
 # and the log-price recursion in different orders (float32), ~2e-4
@@ -220,6 +248,34 @@ REPLACES = {
         "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:267",
     "K8/anti":
         "montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py:222",
+    # The spectral fGN form (_fgn_x:142; the slab's _fgn_tile:125) of each
+    # kernel and form, keyed kernel/spectral[/form]: the JAX body it runs
+    # under fgn_form="spectral".
+    "K1/spectral": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:522",
+    "K1/spectral/anti":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas.py:261",
+    "K2/spectral": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:685",
+    "K2/spectral/anti":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas.py:161",
+    "K2/spectral/cv":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas.py:567",
+    "K2/spectral/anti+cv":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas.py:650",
+    "K5/spectral": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:446",
+    "K5/spectral/anti":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas.py:432",
+    "K6/spectral":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:267",
+    "K6/spectral/anti":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:382",
+    "K7/spectral":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:395",
+    "K7/spectral/anti":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:382",
+    "K7/spectral/cv":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:207",
+    "K7/spectral/anti+cv":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:395",
 }
 SOURCES = {
     "pathgen": "montecarlooptionspricer_tpu_torch/csrc/pathgen.cu",
@@ -246,6 +302,14 @@ SOURCES = {
     "K1/anti": "montecarlooptionspricer_tpu_torch/csrc/pathgen.cu",
     "K6/anti": "montecarlooptionspricer_tpu_torch/csrc/pathgen_tiled.cu",
     "K8/anti": "montecarlooptionspricer_tpu_torch/csrc/pathgen_factored.cu",
+    **{f"K{k}/spectral{f}": f"montecarlooptionspricer_tpu_torch/csrc/{src}"
+       for k, src, forms in (
+           (1, "pathgen.cu", ("", "/anti")),
+           (2, "pathgen.cu", ("", "/anti", "/cv", "/anti+cv")),
+           (5, "chain.cu", ("", "/anti")),
+           (6, "pathgen_tiled.cu", ("", "/anti")),
+           (7, "pathgen_tiled.cu", ("", "/anti", "/cv", "/anti+cv")))
+       for f in forms},
 }
 # The priced wrappers whose launches count per form: the plain form keeps
 # the wrapper's name, the others are keyed kernel/form.
@@ -292,7 +356,8 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
 def bound_ms(rows: int, n: int, out_bytes: int, products: int = 1,
              per_cell: float = 8.0, policy_rows: int = 4,
              swept: int = 0, antithetic: bool = False,
-             with_cv: bool = False) -> tuple[float, str]:
+             with_cv: bool = False,
+             spectral: bool = False) -> tuple[float, str]:
     """Least time for one launch at this shape: the larger of the bytes
     that must move (the ``products`` triangular factors Lt' (and dLt'),
     vd and the ``policy_rows`` rows of [n] read once, the output written
@@ -302,11 +367,17 @@ def bound_ms(rows: int, n: int, out_bytes: int, products: int = 1,
     increment, running sum and test, ~18 with the Greeks' tangent brackets
     and sums; plus ~4 per strike-cell that a strike sweep visits,
     ``swept``, counted from this run's stop steps; plus 2 per path for the
-    control's exp and sum ``with_cv``) over the float32 peak."""
-    bytes_ = 4 * (products * n * n + policy_rows * n) + out_bytes
+    control's exp and sum ``with_cv``) over the float32 peak.  Under
+    ``spectral`` the fGN product is the two dense [n, n] products Zr @ Cr'
+    and Zi @ Ci' (2 n^2 multiply-adds per drawn path, both matrices read
+    once), not the triangle."""
+    mats = 2 if spectral else products
+    bytes_ = 4 * (mats * n * n + policy_rows * n) + out_bytes
     drawn = rows // 2 if antithetic else rows
-    flops = (2.0 * products * drawn * n * (n + 1) / 2 + per_cell * rows * n
-             + 4.0 * swept + (2.0 * rows if with_cv else 0.0))
+    product = (2.0 * 2 * drawn * n * n if spectral
+               else 2.0 * products * drawn * n * (n + 1) / 2)
+    flops = (product + per_cell * rows * n + 4.0 * swept
+             + (2.0 * rows if with_cv else 0.0))
     t_bytes, t_ops = bytes_ / PEAK_BYTES, flops / PEAK_F32_FLOPS
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
@@ -420,16 +491,17 @@ def plain_chain_means(torch, pc, cc, engine, chain, fits, seed: int,
     """Per-strike mean discounted payoff of the first n_chunks chunks of
     seed's stream under the strip's ``fits``, through the plain versions
     (time-0 exercise decided per strike as the engine decides it; each
-    drawn row priced as a pair ``antithetic``)."""
-    consts, dev = chain.consts, chain.device
+    drawn row priced as a pair ``antithetic``), on K5's constants and
+    stream in their fGN form."""
+    consts, dev = chain.chain_consts, chain.device
     _, (run, start) = engine._pilot_stream_keys(seed)
     tables = chain._tables(fits, chain.strikes)
     ex0, p0 = pc.time0_value(fits, MARKET["s0"], chain.strikes, IS_CALL)
     total = torch.zeros(len(STRIP), dtype=torch.float64, device=dev)
     for i in range(n_chunks):
-        noise = pc.philox_normals_ref(pc._fold_words(run, start + i),
-                                      CHUNK // 2 if antithetic else CHUNK,
-                                      consts.n_steps, device=dev)
+        noise = pc.normals_ref(consts, pc._fold_words(run, start + i),
+                               CHUNK // 2 if antithetic else CHUNK,
+                               device=dev)
         total += cc.priced_chain_from_noise_ref(consts, tables, noise,
                                                 IS_CALL, antithetic).double()
     mean = total / (n_chunks * CHUNK)
@@ -961,8 +1033,8 @@ def factored_phases(torch, pc, pfc, engine, smi, dev, key, rel_err,
     ``price_long``'s K6 pilot against ``price_long``) and at 4000 steps
     (auto), K9 against its plain version under those fits, and their
     times.  Returns their entries of the kernels line (at 4000 steps, the
-    horizon only they cover) and the 4000-step run's fits, price, stderr
-    and stream seconds."""
+    horizon only they cover), the 4000-step run's fits, price, stderr
+    and stream seconds, and the 1825-step run's (price, stderr)."""
     consts = {n: pfc.make_factored_consts(
         MARKET["s0"], MARKET["xi"], MARKET["h"], MARKET["eta"], MARKET["r"],
         n, DT, dev) for n in FACTORED_STEPS}
@@ -997,6 +1069,7 @@ def factored_phases(torch, pc, pfc, engine, smi, dev, key, rel_err,
     pricer, _, price, stderr, rec = factored_price_phase(
         torch, engine, smi, dev, "price_factored", LONG_STEPS,
         {"tiled_impl": "factored"}, reset_counts, read_counts)
+    factored_long = (price, stderr)
     under_k6, under_k6_se = pricer.price_with_fit(long_fits, SEED,
                                                   with_stderr=True)
     sigmas = abs(under_k6 - long_price) / math.hypot(under_k6_se,
@@ -1098,7 +1171,7 @@ def factored_phases(torch, pc, pfc, engine, smi, dev, key, rel_err,
         kernel_record("factored_priced_chunk", xlong_launches, t["k9_ms"],
                       t["k9_plain_ms"], t["k9_bound_ms"], t["k9_bound_by"],
                       k9[XLONG_STEPS]["seeded_abs_err"], t["library_ms"]),
-    ], xlong
+    ], xlong, factored_long
 
 
 def lanes(out, with_cv: bool) -> tuple:
@@ -1107,8 +1180,10 @@ def lanes(out, with_cv: bool) -> tuple:
 
 
 def forms_phase(torch, pc, smi, name: str, kernel: str, priced, chunk_ref,
-                consts, table, normals, key, library, bound) -> dict:
-    """One priced kernel's three estimator forms at the bench chunk: each
+                consts, table, normals, key, library, bound,
+                spectral: bool = False) -> dict:
+    """One priced kernel's three estimator forms (and, ``spectral``, its
+    plain form too, all in the spectral fGN form) at the bench chunk: each
     against its plain version on the seeded stream and on noise (both
     lanes within SUM_RTOL), paired against its unpaired form on the
     concatenated negated noise (PAIR_RTOL), then timed beside its plain
@@ -1116,8 +1191,8 @@ def forms_phase(torch, pc, smi, name: str, kernel: str, priced, chunk_ref,
     ``bound(antithetic, with_cv)`` = (ms, by).  Returns the forms' numbers
     keyed kernel/form."""
     out, checks = {}, []
-    for anti, cv in FORMS:
-        form = f"{kernel}/{pc.form_name(anti, cv)}"
+    for anti, cv in ((((False, False),) if spectral else ()) + FORMS):
+        form = f"{kernel}/{pc.form_name(anti, cv, spectral)}"
         drawn = CHUNK // 2 if anti else CHUNK
         kw = dict(antithetic=anti, with_cv=cv)
         noise = normals(key, drawn)
@@ -1159,7 +1234,7 @@ def forms_phase(torch, pc, smi, name: str, kernel: str, priced, chunk_ref,
                      "bound_by": b_by,
                      "max_abs_err": max(abs(g - w)
                                         for g, w in zip(got_s, want))}
-    emit({"phase": name, "card": smi, "rows": CHUNK,
+    emit({"phase": name, "card": smi, "kernel": kernel, "rows": CHUNK,
           "n_steps": consts.n_steps, "checks": checks, "times": out,
           "rtol": SUM_RTOL, "pair_rtol": PAIR_RTOL})
     return out
@@ -1167,10 +1242,12 @@ def forms_phase(torch, pc, smi, name: str, kernel: str, priced, chunk_ref,
 
 def vr_price_phase(torch, pc, engine, smi, dev, name: str, kernel: str,
                    n_steps: int, form: dict, pilot: str, plain: tuple,
-                   normals, chunk_ref, reset_counts, read_counts) -> dict:
+                   normals, chunk_ref, reset_counts, read_counts,
+                   n_chunks: int = N_CHUNKS) -> dict:
     """One full-width price in an estimator ``form`` (StreamConfig's
-    antithetic and control_variate): price() with the launch counts read
-    around it (the plain ``pilot`` kernel once, the form 76 times), the
+    antithetic and control_variate, and any other StreamConfig field it
+    names, e.g. fgn_form): price() with the launch counts read around it
+    (the plain ``pilot`` kernel once, the form ``n_chunks`` times), the
     stream timed alone, the first 8 chunks against the plain versions under
     the same fits (and beta and centre), and the price against the plain
     estimator's ``plain`` = (price, stderr, stream seconds) of the same
@@ -1179,10 +1256,11 @@ def vr_price_phase(torch, pc, engine, smi, dev, name: str, kernel: str,
     form's key, its launches in price() and (price, stderr)."""
     anti = form.get("antithetic", False)
     cv = form.get("control_variate", False)
-    key = f"{kernel}/{pc.form_name(anti, cv)}"
-    cfg = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=n_steps,
+    spectral = form.get("fgn_form") == "spectral"
+    key = f"{kernel}/{pc.form_name(anti, cv, spectral)}"
+    cfg = engine.StreamConfig(n_paths=CHUNK * n_chunks, n_steps=n_steps,
                               chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
-                              chunks_per_call=N_CHUNKS, **form)
+                              chunks_per_call=n_chunks, **form)
     pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
                                     maturity=n_steps * DT, is_call=IS_CALL,
                                     config=cfg, device=dev)
@@ -1200,7 +1278,7 @@ def vr_price_phase(torch, pc, engine, smi, dev, name: str, kernel: str,
     p_plain, se_plain, stream_plain = plain
     sigmas = abs(price - p_plain) / math.hypot(stderr, se_plain)
     ratio = (se_plain / stderr) ** 2
-    n_paths = CHUNK * N_CHUNKS
+    n_paths = CHUNK * n_chunks
     emit({"phase": name, "card": smi, "n_paths": n_paths, "n_steps": n_steps,
           **form, "kernel_family": pricer.kernel_family, "price": price,
           "stderr": stderr, "wall_s": wall, "paths_per_s": n_paths / wall,
@@ -1213,9 +1291,9 @@ def vr_price_phase(torch, pc, engine, smi, dev, name: str, kernel: str,
           "combined_stderrs_apart": sigmas, "limit": STDERR_SIGMAS,
           "variance_ratio": ratio,
           "variance_ratio_per_stream_s": ratio * stream_plain / stream_s})
-    check(launches == expected_counts(**{pilot: 1, key: N_CHUNKS}),
+    check(launches == expected_counts(**{pilot: 1, key: n_chunks}),
           f"{name} launches {launches}, want {pilot} once and {key} "
-          f"{N_CHUNKS} times and nothing else")
+          f"{n_chunks} times and nothing else")
     check(math.isfinite(price) and 0.0 < price < STRIKE,
           f"{name} price {price} outside (0, strike)")
     check(math.isfinite(stderr) and stderr > 0.0,
@@ -2024,6 +2102,491 @@ def plain_policy_price(torch, pc, engine, fits, n_chunks: int) -> tuple:
                                        n_chunks, CHUNK)))
 
 
+def spectral_path_forms(torch, pc, smi, dev, key, rel_err, kernel: str,
+                        wrapper, consts, library) -> dict:
+    """``kernel``/spectral and its pair form at the bench chunk of 131072
+    rows: paths elementwise against the plain versions, seeded (so also
+    against ``philox_spectral_normals_ref``) and on noise (PATH_RTOL),
+    the pair form on [3, rows / 2, n] against the unpaired kernel on the
+    concatenated [X; -X] noise (PATH_PAIR_RTOL), then each timed beside
+    its plain version, the two-product yardstick ``library(rows)`` and
+    its bound (the dense products, once per pair).  Returns their numbers
+    keyed by form."""
+    n, out, checks = consts.n_steps, {}, []
+    for anti in (False, True):
+        form = f"{kernel}/{pc.form_name(anti, spectral=True)}"
+        drawn = CHUNK // 2 if anti else CHUNK
+        noise = pc.philox_spectral_normals_ref(key, drawn, n, device=dev)
+        want = pc.pathgen_from_noise_ref(consts, noise, anti)
+        got = wrapper(consts, rows=CHUNK, key=key, antithetic=anti)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(got).all())
+        err_s = rel_err(got, want)
+        abs_s = float(torch.max(torch.abs(got - want)))
+        del got
+        got = wrapper(consts, noise=noise, antithetic=anti)
+        torch.cuda.synchronize()
+        err_n = rel_err(got, want)
+        del want
+        err_pair = None
+        if anti:
+            unpaired = wrapper(consts, noise=torch.cat([noise, -noise], 1))
+            torch.cuda.synchronize()
+            err_pair = rel_err(got, unpaired)
+            del unpaired
+        del got, noise
+        checks.append({"form": form, "seeded_rel_err": err_s,
+                       "noise_in_rel_err": err_n, "pair_rel_err": err_pair})
+        check(finite and err_s <= PATH_RTOL and err_n <= PATH_RTOL,
+              f"{form} disagrees with its plain version")
+        check(err_pair is None or err_pair <= PATH_PAIR_RTOL,
+              f"{form} disagrees with its unpaired form on [X; -X]")
+
+        def run(anti=anti):
+            wrapper(consts, rows=CHUNK, key=key, antithetic=anti)
+
+        def plain(anti=anti, drawn=drawn):
+            pc.pathgen_from_noise_ref(consts, pc.philox_spectral_normals_ref(
+                key, drawn, n, device=dev), anti)
+
+        b_ms, b_by = bound_ms(CHUNK, n, 4 * CHUNK * (n + 1),
+                              antithetic=anti, spectral=True)
+        out[form] = {"ms": time_ms(torch, run, 5),
+                     "plain_ms": time_ms(torch, plain, 2),
+                     "library_ms": library(drawn), "bound_ms": b_ms,
+                     "bound_by": b_by, "max_abs_err": abs_s}
+    emit({"phase": "spectral_forms", "card": smi, "kernel": kernel,
+          "rows": CHUNK, "n_steps": n, "block_paths": consts.block_paths,
+          "checks": checks, "times": out, "rtol": PATH_RTOL,
+          "pair_rtol": PATH_PAIR_RTOL})
+    return out
+
+
+def spectral_library(torch, consts, dev):
+    """rows -> ms of the spectral form's yardstick: two torch.matmul,
+    [rows, n] x Cr' and [rows, n] x Ci', float32 (TF32 off)."""
+    def library(rows):
+        a = torch.randn((rows, consts.n_steps), device=dev)
+        b = torch.randn((rows, consts.n_steps), device=dev)
+        ms = time_ms(torch, lambda: (torch.matmul(a, consts.cr_half),
+                                     torch.matmul(b, consts.ci_half)),
+                     reps=10)
+        del a, b
+        return ms
+    return library
+
+
+def spectral_price_phase(torch, pc, engine, smi, name: str, pricer, pilot,
+                         form: str, n_chunks: int, chunk_ref, ref: tuple,
+                         ref_name: str, reset_counts, read_counts) -> dict:
+    """One spectral price: price() with the launch counts read around it
+    (``pilot`` once, ``form`` n_chunks times), fit and stream timed apart,
+    its first LONG_CHECKED chunks against the plain versions under the
+    same fits, and the price within STDERR_SIGMAS combined stderr of
+    ``ref`` = (price, stderr) of the same law.  Returns the record."""
+    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    reset_counts()
+    (price, stderr), wall = timed(
+        torch, lambda: pricer.price(SEED, with_stderr=True))
+    launches = read_counts()
+    fits, fit_s = timed(torch, lambda: pricer.fit(k_pilot))
+    _, stream_s = timed(torch, lambda: pricer.price_with_fit(fits, SEED))
+    checked = pricer.price_with_fit(fits, SEED, n_paths=LONG_CHECKED * CHUNK)
+    checked_plain = plain_stream_mean(
+        pc, engine, pricer, fits, SEED, LONG_CHECKED, STRIKE,
+        pc.philox_spectral_normals_ref, chunk_ref)
+    checked_rel = abs(checked / checked_plain - 1.0)
+    sigmas = abs(price - ref[0]) / math.hypot(stderr, ref[1])
+    n_paths = CHUNK * n_chunks
+    rec = {"phase": name, "card": smi, "n_paths": n_paths,
+           "n_steps": pricer.config.n_steps, "fgn_form": "spectral",
+           "tiled_impl": pricer.config.tiled_impl,
+           "kernel_family": pricer.kernel_family, "price": price,
+           "stderr": stderr, "wall_s": wall, "paths_per_s": n_paths / wall,
+           "fit_s": fit_s, "stream_s": stream_s, "launches": launches,
+           "checked_chunks": LONG_CHECKED, "checked_price": checked,
+           "checked_plain_price": checked_plain,
+           "checked_rel_err": checked_rel, "rtol": SUM_RTOL,
+           ref_name: ref[0], f"{ref_name}_stderr": ref[1],
+           "combined_stderrs_apart": sigmas, "limit": STDERR_SIGMAS}
+    emit(rec)
+    check(launches == expected_counts(**{pilot: 1, form: n_chunks}),
+          f"{name} launches {launches}, want {pilot} once and {form} "
+          f"{n_chunks} times and nothing else")
+    check(math.isfinite(price) and 0.0 < price < STRIKE,
+          f"{name} price {price} outside (0, strike)")
+    check(math.isfinite(stderr) and 0.0 < stderr < 0.01 * price,
+          f"{name} stderr {stderr} implausible")
+    check(checked_rel <= SUM_RTOL, f"{name} disagrees with the plain path")
+    check(sigmas <= STDERR_SIGMAS,
+          f"{name} is {sigmas:.2f} combined stderr from {ref_name}")
+    return {**rec, "fits": fits}
+
+
+def spectral_chain_phases(torch, pc, cc, engine, smi, dev, key, base,
+                          price_spectral: tuple, times: dict,
+                          reset_counts, read_counts) -> dict:
+    """K5/spectral and K5/spectral/anti at the bench shape against their
+    plain versions (21 strikes; the pair on [X; -X]), timed; then
+    ``chain_spectral``: the 21-strike strip at full width, plain and
+    paired (K1/spectral once, the K5 form 76 times), its first 8 chunks
+    against the plain versions under the same fits and strike 105 within
+    5 combined stderr of ``price_spectral``; and at 400 steps (K8 once and
+    the K5 form SPECTRAL_PAST_TILE_CHUNKS times) against a single-strike
+    price on K8/K9 of the same seed and length.  Returns each K5 form's
+    launches in its run."""
+    import dataclasses
+
+    import numpy as np
+
+    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    i_k, k_n = STRIP.index(STRIKE), len(STRIP)
+    launches, strips = {}, {}
+    for anti in (False, True):
+        form = f"K5/{pc.form_name(anti, spectral=True)}"
+        chain = engine.StreamingChainPricer(
+            **MARKET, strikes=STRIP, maturity=MATURITY, is_call=IS_CALL,
+            config=dataclasses.replace(base, antithetic=anti), device=dev)
+        consts = chain.chain_consts
+        fits = chain.fit(k_pilot)
+        tables = chain._tables(fits, chain.strikes)
+        drawn = CHUNK // 2 if anti else CHUNK
+        noise = pc.philox_spectral_normals_ref(key, drawn, N_STEPS,
+                                               device=dev)
+        want = cc.priced_chain_from_noise_ref(consts, tables, noise,
+                                              IS_CALL, anti)
+        got_n = cc.priced_chain(consts, tables, IS_CALL, noise=noise,
+                                antithetic=anti)
+        got_s = cc.priced_chain(consts, tables, IS_CALL, rows=CHUNK,
+                                key=key, antithetic=anti)
+        pair = None
+        if anti:
+            pair = scaled_err(torch, got_n, cc.priced_chain(
+                consts, tables, IS_CALL,
+                noise=torch.cat([noise, -noise], dim=1)))
+        torch.cuda.synchronize()
+        errs = [scaled_err(torch, g, want) for g in (got_n, got_s)]
+        swept = swept_cells(torch, torch.exp(pc._log_paths_ref(
+            consts, noise, anti)), tables[:, 0, :N_STEPS],
+            tables[:, 1, :N_STEPS])
+        del noise
+        check(max(errs) <= SUM_RTOL, f"{form} disagrees with its plain "
+              "version")
+        check(pair is None or pair <= PAIR_RTOL,
+              f"{form} disagrees with its unpaired form on [X; -X]")
+        blocks = CHUNK // cc.block_paths_for(N_STEPS, CHUNK, anti, True)
+
+        def run(anti=anti):
+            cc.priced_chain(consts, tables, IS_CALL, rows=CHUNK, key=key,
+                            antithetic=anti)
+
+        def plain(anti=anti, drawn=drawn):
+            cc.priced_chain_from_noise_ref(
+                consts, tables, pc.philox_spectral_normals_ref(
+                    key, drawn, N_STEPS, device=dev), IS_CALL, anti)
+
+        b_ms, b_by = bound_ms(CHUNK, N_STEPS, 4 * blocks * k_n,
+                              policy_rows=1 + 4 * k_n, swept=swept,
+                              antithetic=anti, spectral=True)
+        times[form] = {"ms": time_ms(torch, run, 5),
+                       "plain_ms": time_ms(torch, plain, 2),
+                       "library_ms": spectral_library(torch, consts,
+                                                      dev)(drawn),
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "max_abs_err": float(torch.max(torch.abs(
+                           got_s - want)))}
+        emit({"phase": "spectral_forms", "card": smi, "kernel": "K5",
+              "form": form, "rows": CHUNK, "n_steps": N_STEPS,
+              "n_strikes": k_n, "swept_cells": swept,
+              "block_paths": CHUNK // blocks, "noise_in_rel_err": errs[0],
+              "seeded_rel_err": errs[1], "pair_rel_err": pair,
+              "rtol": SUM_RTOL, "pair_rtol": PAIR_RTOL,
+              "times": times[form]})
+
+        reset_counts()
+        (prices, stderrs), wall = timed(
+            torch, lambda: chain.price(SEED, with_stderr=True))
+        counts = read_counts()
+        fits, fit_s = timed(torch, lambda: chain.fit(k_pilot))
+        _, stream_s = timed(torch, lambda: chain.price_with_fit(fits, SEED))
+        checked = chain.price_with_fit(fits, SEED,
+                                       n_paths=CHAIN_CHECKED * CHUNK)
+        checked_rel = scaled_err(torch, torch.from_numpy(checked),
+                                 torch.from_numpy(plain_chain_means(
+                                     torch, pc, cc, engine, chain, fits,
+                                     SEED, CHAIN_CHECKED, anti)))
+        p_k, se_k = float(prices[i_k]), float(stderrs[i_k])
+        sigmas = abs(p_k - price_spectral[0]) / math.hypot(
+            se_k, price_spectral[1])
+        strips[anti] = stderrs
+        n_paths = CHUNK * N_CHUNKS
+        rec = {"phase": "chain_spectral", "card": smi, "n_paths": n_paths,
+               "n_steps": N_STEPS, "antithetic": anti,
+               "strikes": list(STRIP), "prices": prices.tolist(),
+               "stderrs": stderrs.tolist(), "wall_s": wall,
+               "paths_strikes_per_s": n_paths * k_n / wall, "fit_s": fit_s,
+               "stream_s": stream_s, "launches": counts,
+               "checked_chunks": CHAIN_CHECKED,
+               "checked_rel_err": checked_rel, "rtol": SUM_RTOL,
+               "price_at_strike": p_k, "stderr_at_strike": se_k,
+               "price_spectral": price_spectral[0],
+               "combined_stderrs_apart": sigmas, "limit": STDERR_SIGMAS}
+        if anti:
+            live = stderrs > 0      # time-0 strikes have no variance
+            rec["variance_ratio_per_strike"] = [
+                float((strips[False][j] / stderrs[j]) ** 2) if live[j]
+                else None for j in range(k_n)]
+        emit(rec)
+        check(counts == expected_counts(**{"K1/spectral": 1,
+                                           form: N_CHUNKS}),
+              f"chain_spectral launches {counts}")
+        check(bool(np.all(np.isfinite(prices))) and
+              bool(np.all(np.diff(prices) > 0)),
+              "chain_spectral prices not finite and rising with the strike")
+        check(checked_rel <= SUM_RTOL,
+              "chain_spectral disagrees with the plain path")
+        check(sigmas <= STDERR_SIGMAS, f"chain_spectral strike {STRIKE} is "
+              f"{sigmas:.2f} combined stderr from price_spectral")
+        launches[form] = counts[form]
+        del chain
+
+    # Past the single tile: the K8 pilot, K5 on its own spectral constants.
+    n, m = SPECTRAL_PAST_TILE_STEPS, SPECTRAL_PAST_TILE_CHUNKS
+    cfg = dataclasses.replace(base, n_paths=m * CHUNK, n_steps=n,
+                              chunks_per_call=m)
+    one = engine.StreamingPricer(**MARKET, strike=STRIKE, maturity=n * DT,
+                                 is_call=IS_CALL, config=cfg, device=dev)
+    single, single_se = one.price(SEED, with_stderr=True)
+    del one
+    for anti in (False, True):
+        form = f"K5/{pc.form_name(anti, spectral=True)}"
+        chain = engine.StreamingChainPricer(
+            **MARKET, strikes=STRIP, maturity=n * DT, is_call=IS_CALL,
+            config=dataclasses.replace(cfg, antithetic=anti), device=dev)
+        check(chain.kernel_family == "factored" and
+              chain.chain_consts.spectral,
+              f"the {n}-step spectral strip resolved to "
+              f"{chain.kernel_family!r}")
+        reset_counts()
+        (prices, stderrs), wall = timed(
+            torch, lambda: chain.price(SEED, with_stderr=True))
+        counts = read_counts()
+        fits = chain.fit(k_pilot)
+        checked = chain.price_with_fit(fits, SEED,
+                                       n_paths=CHAIN_CHECKED * CHUNK)
+        checked_rel = scaled_err(torch, torch.from_numpy(checked),
+                                 torch.from_numpy(plain_chain_means(
+                                     torch, pc, cc, engine, chain, fits,
+                                     SEED, CHAIN_CHECKED, anti)))
+        p_k, se_k = float(prices[i_k]), float(stderrs[i_k])
+        sigmas = abs(p_k - single) / math.hypot(se_k, single_se)
+        emit({"phase": "chain_spectral", "card": smi, "n_paths": m * CHUNK,
+              "n_steps": n, "antithetic": anti,
+              "kernel_family": chain.kernel_family,
+              "prices": prices.tolist(), "stderrs": stderrs.tolist(),
+              "wall_s": wall, "launches": counts,
+              "checked_chunks": CHAIN_CHECKED,
+              "checked_rel_err": checked_rel, "rtol": SUM_RTOL,
+              "price_at_strike": p_k, "stderr_at_strike": se_k,
+              "single_strike_price_k9": single,
+              "single_strike_stderr_k9": single_se,
+              "combined_stderrs_apart": sigmas, "limit": STDERR_SIGMAS,
+              "reduced": {"n_chunks": {"from": N_CHUNKS, "to": m}}})
+        check(counts == expected_counts(**{"factored_pathgen": 1, form: m}),
+              f"chain_spectral at {n} steps launches {counts}")
+        check(bool(np.all(np.isfinite(prices))) and
+              bool(np.all(np.diff(prices) > 0)),
+              f"the {n}-step spectral strip is not finite and rising")
+        check(checked_rel <= SUM_RTOL,
+              f"the {n}-step spectral strip disagrees with the plain path")
+        check(sigmas <= STDERR_SIGMAS, f"the {n}-step spectral strip at "
+              f"{STRIKE} is {sigmas:.2f} combined stderr from K9's price")
+        del chain
+    return launches
+
+
+def spectral_bounds_phase(torch, pc, engine, smi, dev, base, prices: dict,
+                          reset_counts, read_counts) -> dict:
+    """``bounds_spectral``: the bench bracket on K1/spectral (pilot and 76
+    chunks) and on K1/spectral/anti (76 chunks), no priced kernel, the
+    lower bound within SUM_RTOL of the same seed's ``prices`` ("plain":
+    price_spectral, "anti": its paired form); then the spectral slab's
+    paired bracket at 1825 steps (K6/spectral once, K6/spectral/anti
+    BOUNDS_LONG_CHUNKS times).  Returns the pair forms' launches."""
+    import dataclasses
+
+    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    pair_launches = {}
+    runs = [(N_STEPS, N_CHUNKS, anti, "K1") for anti in (False, True)]
+    runs.append((LONG_STEPS, BOUNDS_LONG_CHUNKS, True, "K6"))
+    for n, m, anti, kernel in runs:
+        cfg = dataclasses.replace(
+            base, n_paths=m * CHUNK, n_steps=n, chunks_per_call=m,
+            antithetic=anti, tiled_impl="slab" if kernel == "K6" else "auto")
+        pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                        maturity=n * DT, is_call=IS_CALL,
+                                        config=cfg, device=dev)
+        reset_counts()
+        fit, fit_s = timed(torch, lambda: pricer.bounds_fit(k_pilot))
+        (lo, up, lo_se, up_se), stream_s = timed(
+            torch, lambda: pricer.bounds_with_fit(fit, SEED, m * CHUNK,
+                                                  with_stderr=True))
+        launches = read_counts()
+        pilot, form = f"{kernel}/spectral", f"{kernel}/spectral/anti"
+        want = expected_counts(**{pilot: 1 if anti else 1 + m},
+                               **({form: m} if anti else {}))
+        rec = {"phase": "bounds_spectral", "card": smi,
+               "n_paths": m * CHUNK, "n_steps": n, "antithetic": anti,
+               "kernel_family": pricer.kernel_family, "lower": lo,
+               "upper": up, "lower_stderr": lo_se, "upper_stderr": up_se,
+               "duality_gap": up - lo, "lam": float(fit[2]),
+               "wall_s": fit_s + stream_s, "fit_s": fit_s,
+               "stream_s": stream_s,
+               "paths_per_s": m * CHUNK / (fit_s + stream_s),
+               "launches": launches}
+        if n == N_STEPS:
+            price = prices["anti" if anti else "plain"][0]
+            rec.update(price_same_seed=price,
+                       lower_vs_price_rel_err=abs(lo / price - 1.0),
+                       rtol=SUM_RTOL)
+        else:
+            rec["reduced"] = {"n_chunks": {"from": N_CHUNKS, "to": m}}
+        emit(rec)
+        check(launches == want, f"bounds_spectral launches {launches}, "
+              f"want {want}")
+        check(math.isfinite(lo) and math.isfinite(up) and lo <= up,
+              f"bounds_spectral: lower {lo} and upper {up} not ordered")
+        check(all(math.isfinite(v) and v > 0 for v in (lo_se, up_se)),
+              f"bounds_spectral: stderrs {lo_se}, {up_se}")
+        check(n != N_STEPS or rec["lower_vs_price_rel_err"] <= SUM_RTOL,
+              f"bounds_spectral (antithetic={anti}): the lower bound is "
+              "off price_spectral on the same seed")
+        if anti:
+            pair_launches[form] = launches[form]
+        del pricer
+    return pair_launches
+
+
+def spectral_phases(torch, pc, cc, ptc, engine, smi, dev, key, rel_err,
+                    refs: dict, reset_counts, read_counts) -> list:
+    """The spectral fGN form (``fgn_form="spectral"``) on every kernel
+    that has it: ``spectral_forms`` (K1, K2, K5 at 365 steps, K6, K7 at
+    1825, each form against its plain version and its pair against the
+    negated noise, timed), ``price_spectral`` (1e7 x 365, within 5
+    combined stderr of the chol ``price``, refs["price"]),
+    ``price_spectral_vr_*`` (its three estimator forms),
+    ``chain_spectral`` (365 and 400 steps), ``price_spectral_slab``
+    (1e7 x 1825 on K6/K7 with tiled_impl="slab", within 5 combined stderr
+    of the factored K9 price refs["price_factored"], the same law) and
+    its estimator forms at SPECTRAL_SLAB_FORM_CHUNKS chunks
+    (``price_spectral_slab_*``), and ``bounds_spectral``.  Returns the
+    spectral forms' entries of the kernels line."""
+    import dataclasses
+
+    base = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
+                               chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                               chunks_per_call=N_CHUNKS, fgn_form="spectral")
+    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    times, launches = {}, {}
+
+    # K1 and K2 at the bench horizon, then the price and its forms.
+    pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                    maturity=MATURITY, is_call=IS_CALL,
+                                    config=base, device=dev)
+    consts = pricer.consts
+    check(pricer.kernel_family == "single" and consts.spectral,
+          f"spectral at {N_STEPS} steps resolved to "
+          f"{pricer.kernel_family!r}")
+    lib = spectral_library(torch, consts, dev)
+    times.update(spectral_path_forms(torch, pc, smi, dev, key, rel_err, "K1",
+                                     pc.pathgen, consts, lib))
+    table = pricer._make_rows(pricer.fit(k_pilot))
+    times.update(forms_phase(
+        torch, pc, smi, "spectral_forms", "K2", pc.priced_chunk,
+        pc.priced_chunk_from_noise_ref, consts, table,
+        lambda k, rows: pc.philox_spectral_normals_ref(k, rows, N_STEPS,
+                                                       device=dev),
+        key, lambda anti: lib(CHUNK // 2 if anti else CHUNK),
+        lambda anti, cv: bound_ms(
+            CHUNK, N_STEPS, 4 * (2 if cv else 1)
+            * (CHUNK // pc.priced_block_paths(consts, CHUNK, anti, cv)),
+            antithetic=anti, with_cv=cv, spectral=True), spectral=True))
+    rec = spectral_price_phase(
+        torch, pc, engine, smi, "price_spectral", pricer, "K1/spectral",
+        "K2/spectral", N_CHUNKS, pc.priced_chunk_from_noise_ref,
+        refs["price"], "price_chol", reset_counts, read_counts)
+    price_spectral = (rec["price"], rec["stderr"])
+    for form in ("K1/spectral", "K2/spectral"):
+        launches[form] = rec["launches"][form]
+    del pricer
+    vr = {}
+    for suffix, form in VR_FORMS:
+        form_key, count, vr[suffix] = vr_price_phase(
+            torch, pc, engine, smi, dev, f"price_spectral_vr_{suffix}", "K2",
+            N_STEPS, {**form, "fgn_form": "spectral"}, "K1/spectral",
+            (*price_spectral, rec["stream_s"]),
+            pc.philox_spectral_normals_ref, pc.priced_chunk_from_noise_ref,
+            reset_counts, read_counts)
+        launches[form_key] = count
+
+    launches.update(spectral_chain_phases(
+        torch, pc, cc, engine, smi, dev, key, base, price_spectral, times,
+        reset_counts, read_counts))
+
+    # The slab: K6 and K7 at 1825 steps (tiled_impl="slab").
+    cfg = dataclasses.replace(base, n_steps=LONG_STEPS, tiled_impl="slab")
+    pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                    maturity=LONG_MATURITY, is_call=IS_CALL,
+                                    config=cfg, device=dev)
+    consts = pricer.consts
+    check(pricer.kernel_family == "tiled" and consts.spectral,
+          f"the spectral slab resolved to {pricer.kernel_family!r}")
+    lib = spectral_library(torch, consts, dev)
+    times.update(spectral_path_forms(torch, pc, smi, dev, key, rel_err, "K6",
+                                     ptc.tiled_pathgen, consts, lib))
+    table = pricer._make_rows(pricer.fit(k_pilot))
+    times.update(forms_phase(
+        torch, pc, smi, "spectral_forms", "K7", ptc.tiled_priced_chunk,
+        ptc.priced_chunk_from_noise_ref, consts, table,
+        lambda k, rows: pc.philox_spectral_normals_ref(k, rows, LONG_STEPS,
+                                                       device=dev),
+        key, lambda anti: lib(CHUNK // 2 if anti else CHUNK),
+        lambda anti, cv: bound_ms(
+            CHUNK, LONG_STEPS, 4 * (2 if cv else 1)
+            * (CHUNK // ptc.block_paths_for(CHUNK, anti)),
+            antithetic=anti, with_cv=cv, spectral=True), spectral=True))
+    rec = spectral_price_phase(
+        torch, pc, engine, smi, "price_spectral_slab", pricer, "K6/spectral",
+        "K7/spectral", N_CHUNKS, ptc.priced_chunk_from_noise_ref,
+        refs["price_factored"], "price_factored", reset_counts, read_counts)
+    for form in ("K6/spectral", "K7/spectral"):
+        launches[form] = rec["launches"][form]
+    m = SPECTRAL_SLAB_FORM_CHUNKS
+    plain_m, stream_m = timed(torch, lambda: pricer.price_with_fit(
+        rec["fits"], SEED, n_paths=m * CHUNK, with_stderr=True))
+    del pricer
+    for suffix, form in VR_FORMS:
+        form_key, count, _ = vr_price_phase(
+            torch, pc, engine, smi, dev, f"price_spectral_slab_{suffix}",
+            "K7", LONG_STEPS,
+            {**form, "fgn_form": "spectral", "tiled_impl": "slab"},
+            "K6/spectral", (*plain_m, stream_m),
+            pc.philox_spectral_normals_ref, ptc.priced_chunk_from_noise_ref,
+            reset_counts, read_counts, n_chunks=m)
+        launches[form_key] = count
+
+    launches.update(spectral_bounds_phase(
+        torch, pc, engine, smi, dev, base,
+        {"plain": price_spectral, "anti": vr["anti"]}, reset_counts,
+        read_counts))
+    emit({"phase": "times_spectral", "card": smi, "library_call":
+          "two torch.matmul, [rows, n] x Cr' and [rows, n] x Ci' float32 "
+          "(the drawn rows' spectral fGN products)", "kernels": times})
+    return [kernel_record(form, launches, t["ms"], t["plain_ms"],
+                          t["bound_ms"], t["bound_by"], t["max_abs_err"],
+                          t["library_ms"]) for form, t in times.items()]
+
+
 def main() -> int:
     import torch
 
@@ -2230,7 +2793,7 @@ def main() -> int:
         long_horizon_phases(torch, pc, ptc, engine, smi, dev, key, rel_err,
                             reset_counts, read_counts)
     kernels += records
-    records, xlong = factored_phases(
+    records, xlong, factored_long = factored_phases(
         torch, pc, pfc, engine, smi, dev, key, rel_err, reset_counts,
         read_counts, long_fits, long_price, long_stderr)
     kernels += records
@@ -2265,6 +2828,14 @@ def main() -> int:
                                      t["plain_ms"], t["bound_ms"],
                                      t["bound_by"], t["max_abs_err"],
                                      t["library_ms"]))
+
+    # The spectral fGN form of K1/K2, K5 and K6/K7.
+    kernels += spectral_phases(
+        torch, pc, cc, ptc, engine, smi, dev, key, rel_err,
+        {"price": (price, stderr), "price_factored": factored_long},
+        reset_counts, read_counts)
+    check(sorted(k["name"] for k in kernels) == sorted(REPLACES),
+          "the kernels line does not list every kernel and form")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

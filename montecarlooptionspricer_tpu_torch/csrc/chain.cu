@@ -4,8 +4,9 @@
 // mcop_priced_chain replaces montecarlooptionspricer_tpu/models/
 //    pathgen_pallas.py:_chain_kernel, _chain_kernel_noise_in and
 //    _chain_kernel_grid (with _sweep_values and _policy_value_boundary),
-//    chol fGN form, boundary policy, in two forms: plain and antithetic
-//    (the pair branch of _chain_paths:432).
+//    chol and spectral fGN forms (the spectral one, SPEC, reads Zr, Zi, W
+//    and the dense Cr', Ci' as K2's does), boundary policy, in two forms:
+//    plain and antithetic (the pair branch of _chain_paths:432).
 //
 // What it computes: the paths of K2 (csrc/pathgen.cu) from the same noise,
 // S_c = exp(logS_c) on every cell, and for each strike k of the strip the
@@ -26,7 +27,9 @@
 // plus at most 4.0e9 sweep operations, at most 0.33 ms at 67 TFLOP/s
 // float32, against ~0.6 MB of bytes that must move (Lt', the tables, the
 // sums), 0.2 us at 3.35 TB/s.  Paired, the product is half of that and
-// the sweep is not: every member sweeps.
+// the sweep is not: every member sweeps.  The spectral product is 2 n^2
+// multiply-adds per path (dense Cr', Ci'), four times the triangle: at
+// 365 steps and 21 strikes at most 1.1 ms.
 //
 // Design:
 // * The path block, its noise, the fGN tile product and the Euler
@@ -58,7 +61,9 @@
 //   (128 members) takes 4 (2 * 64 * 365 + 65 * 128 + 2048) = 228,352 of
 //   the 232,448 bytes; at 512 steps it would take 304,128, so D = 32 (64
 //   members, 156,160 bytes).  The reduction's [32][BP] floats fit the X
-//   tile.
+//   tile.  The spectral form adds the Zi plane and a staged Ci' tile:
+//   4 (3 D ld + 65 BP + 4096) bytes, 32 paths (64 members) at 365 and at
+//   512 steps (230,016 bytes paired at 512).
 // * The decision is taken in S space for both members, as on the TPU.
 
 #include <cuda_runtime.h>
@@ -73,8 +78,9 @@ using namespace mcop;
 constexpr int kGroup = 32;   // strikes one launch sweeps
 
 struct ChainArgs {
-  const float* noise;   // [2, drawn, n] or nullptr for the seeded entry
-  const float* lt;      // [n, n] half-scaled upper-triangular factor
+  const float* noise;   // [2 or 3, drawn, n] or nullptr (seeded entry)
+  const float* lt;      // [n, n] half-scaled factor: Lt' (upper), or Cr'
+  const float* ci;      // [n, n] Ci' (spectral), or nullptr (chol)
   const float* vd;      // [n] half variance drift
   const float* tables;  // [n_strikes] boundary_rows tables: rows lo, hi,
                         // disc * strike, disc
@@ -100,8 +106,9 @@ __device__ __forceinline__ float euler_inc(const ChainArgs& a, float x,
 }
 
 // Block of D = 16 * PM drawn rows; BP = D paths, or 2D pair members (ANTI:
-// member p < D is drawn row p, member D + p its partner).
-template <int PM, bool SEEDED, bool ANTI>
+// member p < D is drawn row p, member D + p its partner).  SPEC: the
+// spectral fGN form.
+template <int PM, bool SEEDED, bool ANTI, bool SPEC>
 __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
   constexpr int D = 16 * PM;
   constexpr int BP = ANTI ? 2 * D : D;
@@ -109,15 +116,16 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
   constexpr int kPer = kGroup / kLanes;   // strikes per thread
   extern __shared__ float smem[];
   const int n = a.n, ld = plane_ld(n);
-  float* ns = smem;                       // [D][ld]
+  float* ns = smem;                       // [D][ld] N (Zr)
   float* ws = ns + D * ld;                // [D][ld]
-  float* xs = ws + D * ld;                // [BP][kXStride]
-  float* lts = xs + BP * kXStride;        // [kTileK][kTileCols]
+  float* zs = ws + D * ld;                // [D][ld] Zi under SPEC
+  float* xs = zs + (SPEC ? D * ld : 0);   // [BP][kXStride]
+  float* lts = xs + BP * kXStride;        // [1 or 2][kTileK][kTileCols]
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * D;        // first drawn row
   const int p = tid % BP, lane = tid / BP;
-  load_noise<D, SEEDED>(a.noise, a.drawn, n, a.key, row0, ns, ws);
+  load_noise<D, SEEDED, SPEC>(a.noise, a.drawn, n, a.key, row0, ns, ws, zs);
 
   float ls = a.log_s0;                    // running log price, thread tid < BP
   bool stopped[kPer];
@@ -130,7 +138,7 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
 
   for (int c0 = 0; c0 < n; c0 += kTileCols) {
     const int cn = min(c0 + kTileCols, n) - c0;
-    fgn_tile<PM, 1>(a.lt, nullptr, n, c0, ns, lts, xs, nullptr);
+    fgn_tile<PM, 1, SPEC>(a.lt, a.ci, n, c0, ns, lts, xs, nullptr, zs);
 
     // Variance exp and Euler increment, elementwise over the tile (K2's;
     // both members of a pair from one x and one w).
@@ -204,16 +212,16 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
 }
 
 // Shared memory of a block of bp paths (pair members when antithetic).
-int smem_bytes(int n, int bp, bool anti) {
+int smem_bytes(int n, int bp, bool anti, bool spec) {
   const int d = anti ? bp / 2 : bp;
-  return block_smem_bytes(n, d, 1, (bp - d) * kXStride);
+  return block_smem_bytes(n, d, 1, (bp - d) * kXStride, spec);
 }
 
-template <int PM, bool SEEDED, bool ANTI>
+template <int PM, bool SEEDED, bool ANTI, bool SPEC>
 cudaError_t launch_one(const ChainArgs& a, cudaStream_t stream) {
   constexpr int D = 16 * PM;
-  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI);
-  auto kernel = chain_kernel<PM, SEEDED, ANTI>;
+  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI, SPEC);
+  auto kernel = chain_kernel<PM, SEEDED, ANTI, SPEC>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -221,19 +229,26 @@ cudaError_t launch_one(const ChainArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The seeded or noise-in entry, chol or spectral (from a.ci).
+template <int PM, bool ANTI>
+cudaError_t launch_entry(const ChainArgs& a, cudaStream_t s) {
+  const bool seeded = a.noise == nullptr;
+  if (a.ci != nullptr)
+    return seeded ? launch_one<PM, true, ANTI, true>(a, s)
+                  : launch_one<PM, false, ANTI, true>(a, s);
+  return seeded ? launch_one<PM, true, ANTI, false>(a, s)
+                : launch_one<PM, false, ANTI, false>(a, s);
+}
+
 template <bool ANTI>
 cudaError_t launch_pm(const ChainArgs& a, int pm, cudaStream_t s) {
-  const bool seeded = a.noise == nullptr;
   switch (pm) {
     case 4:
-      return seeded ? launch_one<4, true, ANTI>(a, s)
-                    : launch_one<4, false, ANTI>(a, s);
+      return launch_entry<4, ANTI>(a, s);
     case 2:
-      return seeded ? launch_one<2, true, ANTI>(a, s)
-                    : launch_one<2, false, ANTI>(a, s);
+      return launch_entry<2, ANTI>(a, s);
     case 1:
-      return seeded ? launch_one<1, true, ANTI>(a, s)
-                    : launch_one<1, false, ANTI>(a, s);
+      return launch_entry<1, ANTI>(a, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -243,21 +258,25 @@ cudaError_t launch_pm(const ChainArgs& a, int pm, cudaStream_t s) {
 
 extern "C" {
 
-// block_paths counts paths (pair members when antithetic != 0).
-int mcop_chain_smem_bytes(int n_steps, int block_paths, int antithetic) {
-  return smem_bytes(n_steps, block_paths, antithetic != 0);
+// block_paths counts paths (pair members when antithetic != 0); the
+// spectral form when spectral != 0.
+int mcop_chain_smem_bytes(int n_steps, int block_paths, int antithetic,
+                          int spectral) {
+  return smem_bytes(n_steps, block_paths, antithetic != 0, spectral != 0);
 }
 
 int mcop_chain_group() { return kGroup; }
 
-// K5.  noise may be null (seeded entry, stream of `key`).  rows counts
-// paths; antithetic != 0 reads (or draws) rows / 2 rows of noise, [2,
-// rows / 2, n_steps], and block_paths (32, 64 or 128) counts pair members.
+// K5.  noise may be null (seeded entry, stream of `key`).  lt is Lt'
+// (chol, ci null) or Cr' (spectral, ci = Ci'); noise is then [2, rows,
+// n_steps] (N, W) or [3, rows, n_steps] (Zr, Zi, W).  rows counts paths;
+// antithetic != 0 reads (or draws) rows / 2 rows of noise, and
+// block_paths (32, 64 or 128) counts pair members.
 // tables: the launch's n_strikes boundary_rows tables, strike_stride
 // floats apart, rows row_stride floats apart.  out: [rows / block_paths,
 // n_strikes].
-int mcop_priced_chain(const float* noise, const float* lt, const float* vd,
-                      int rows, int n_steps, int block_paths,
+int mcop_priced_chain(const float* noise, const float* lt, const float* ci,
+                      const float* vd, int rows, int n_steps, int block_paths,
                       unsigned int key, float r, float dt, float sqrt_dt,
                       float log_s0, const float* tables,
                       long long strike_stride, long long row_stride,
@@ -268,11 +287,12 @@ int mcop_priced_chain(const float* noise, const float* lt, const float* vd,
   if (n_steps < 1 || rows < 1 || block_paths < unit || block_paths % unit ||
       block_paths > 4 * unit || rows % block_paths || n_strikes < 1 ||
       n_strikes > kGroup ||
-      smem_bytes(n_steps, block_paths, anti) > kSmemLimit)
+      smem_bytes(n_steps, block_paths, anti, ci != nullptr) > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   ChainArgs a{};
   a.noise = noise;
   a.lt = lt;
+  a.ci = ci;
   a.vd = vd;
   a.tables = tables;
   a.strike_stride = strike_stride;

@@ -1,15 +1,18 @@
 // The single-tile path block shared by K1, K2 (csrc/pathgen.cu), K5
 // (csrc/chain.cu), K3 and K4 (csrc/greeks.cu): a block of BP = 16 * PM
-// paths keeps its N and W noise planes in dynamic shared memory for the
-// whole horizon, and the step axis runs in tiles of kTileCols columns.
+// paths keeps its N and W noise planes (and Zi under the spectral form) in
+// dynamic shared memory for the whole horizon, and the step axis runs in
+// tiles of kTileCols columns.
 //
 // load_noise fills the planes from the seeded stream (csrc/philox.cuh) or
-// from an injected [2, rows, n] plane; fgn_tile computes one step tile of
-// X = N @ M for one or two upper-triangular [n, n] factors M (K3 and K4
-// need Lt' and dLt' from the same N reads).  Every kernel that includes
-// this header therefore draws the same paths from a seed, and sums the
-// fGN product in the same order (k ascending, 32-row stages), so X is
-// bitwise the same in all five kernels.
+// from an injected [2, rows, n] plane ([3, rows, n] = Zr, Zi, W under the
+// spectral form); fgn_tile computes one step tile of X = N @ M for one or
+// two upper-triangular [n, n] factors M (K3 and K4 need Lt' and dLt' from
+// the same N reads), or of the spectral X = Zr @ Cr' - Zi @ Ci' for the
+// dense [n, n] Cr' and Ci' (pathgen_pallas.py:_fgn_x:142).  Every kernel
+// that includes this header therefore draws the same paths from a seed,
+// and sums the fGN product in the same order (k ascending, 32-row stages),
+// so X is bitwise the same in all five kernels.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,11 +34,15 @@ constexpr int kSmemLimit = 232448;
 // warp fall on distinct banks.
 __host__ __device__ inline int plane_ld(int n) { return n | 1; }
 
-// Fill the block's N and W planes [BP][ld] from the stream of `key` (noise
-// null) or from the injected plane noise [2, rows, n].
-template <int BP, bool SEEDED>
+// Fill the block's N and W planes [BP][ld] (and Zi into zs under SPEC)
+// from the stream of `key` (noise null) or from the injected plane noise
+// [2, rows, n] (N, W), or [3, rows, n] (Zr, Zi, W) under SPEC.  The
+// spectral form's Zr and W are the chol stream's N and W; its Zi comes
+// from the stream's own counter word (spectral_zi_quad).
+template <int BP, bool SEEDED, bool SPEC = false>
 __device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
-                           int row0, float* ns, float* ws) {
+                           int row0, float* ns, float* ws,
+                           float* zs = nullptr) {
   const int ld = plane_ld(n);
   if (SEEDED) {
     const int pairs = (n + 1) / 2;
@@ -50,35 +57,54 @@ __device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
         ws[p * ld + 2 * j + 1] = w1;
       }
     }
+    if (SPEC) {
+      const int quads = (n + 3) / 4;
+      for (int idx = threadIdx.x; idx < BP * quads; idx += kThreads) {
+        const int p = idx / quads, q = idx - p * quads;
+        const float4 z = spectral_zi_quad(key, row0 + p, q);
+        const float zv[4] = {z.x, z.y, z.z, z.w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (4 * q + t < n) zs[p * ld + 4 * q + t] = zv[t];
+      }
+    }
   } else {
     const size_t plane = static_cast<size_t>(rows) * n;
     for (int idx = threadIdx.x; idx < BP * n; idx += kThreads) {
       const int p = idx / n, c = idx - p * n;
       const size_t g = static_cast<size_t>(row0 + p) * n + c;
       ns[p * ld + c] = noise[g];
-      ws[p * ld + c] = noise[plane + g];
+      if (SPEC) zs[p * ld + c] = noise[plane + g];
+      ws[p * ld + c] = noise[(SPEC ? 2 : 1) * plane + g];
     }
   }
 }
 
 // One step tile of the fGN products, for m0 (and m1 when NMAT is 2):
 // out_m[p * kXStride + cc] = sum_{k <= c} N[p, k] * m_m[k, c] for
-// c = c0 + cc < min(c0 + kTileCols, n), zero past n.  Each thread holds a PM x kColsPerThread
-// micro-tile per factor; the factors are staged through shared memory
-// (lts, NMAT * kTileK * kTileCols floats) kTileK rows at a time, and rows
-// past the tile's last column are skipped (the factors are upper
-// triangular).  Ends with the tile written and the block synchronised.
-template <int PM, int NMAT>
+// c = c0 + cc < min(c0 + kTileCols, n), zero past n.  Each thread holds a
+// PM x kColsPerThread micro-tile per factor; the factors are staged through
+// shared memory (lts, NMAT * kTileK * kTileCols floats) kTileK rows at a
+// time, and rows past the tile's last column are skipped (the factors are
+// upper triangular).
+// SPEC (NMAT 1): the spectral product out0 = sum_{k < n} Zr[p, k] m0[k, c]
+// - Zi[p, k] m1[k, c], Zr in ns and Zi in zs, m0 = Cr' and m1 = Ci' both
+// staged (2 * kTileK * kTileCols floats).  Cr' and Ci' are dense, so every
+// column tile runs over all n rows: no triangle skip.
+// Ends with the tile written and the block synchronised.
+template <int PM, int NMAT, bool SPEC = false>
 __device__ void fgn_tile(const float* m0, const float* m1, int n, int c0,
                          const float* ns, float* lts, float* out0,
-                         float* out1) {
+                         float* out1, const float* zs = nullptr) {
+  static_assert(!SPEC || NMAT == 1, "the spectral product has one output");
+  constexpr int kStaged = SPEC ? 2 : NMAT;   // factor tiles staged
   const float* mats[2] = {m0, m1};
   float* out[2] = {out0, out1};
   const int ld = plane_ld(n);
   const int tid = threadIdx.x;
   const int tx = tid % kColGroups;        // columns tx + 16 j
   const int ty = tid / kColGroups;        // paths ty * PM + i
-  const int kmax = min(c0 + kTileCols, n);
+  const int kmax = SPEC ? n : min(c0 + kTileCols, n);
   float acc[NMAT][PM][kColsPerThread];
 #pragma unroll
   for (int m = 0; m < NMAT; ++m)
@@ -96,26 +122,35 @@ __device__ void fgn_tile(const float* m0, const float* m1, int n, int c0,
       const bool in = kk < kn && c < n;
       const size_t g = static_cast<size_t>(k0 + kk) * n + c;
 #pragma unroll
-      for (int m = 0; m < NMAT; ++m)
+      for (int m = 0; m < kStaged; ++m)
         lts[m * kTileK * kTileCols + idx] = in ? mats[m][g] : 0.0f;
     }
     __syncthreads();
     for (int kk = 0; kk < kn; ++kk) {
-      float b[NMAT][kColsPerThread];
+      float b[kStaged][kColsPerThread];
 #pragma unroll
-      for (int m = 0; m < NMAT; ++m)
+      for (int m = 0; m < kStaged; ++m)
 #pragma unroll
         for (int j = 0; j < kColsPerThread; ++j)
           b[m][j] = lts[m * kTileK * kTileCols + kk * kTileCols + tx +
                         kColGroups * j];
 #pragma unroll
       for (int i = 0; i < PM; ++i) {
-        const float nv = ns[(ty * PM + i) * ld + k0 + kk];
-#pragma unroll
-        for (int m = 0; m < NMAT; ++m)
+        const int cell = (ty * PM + i) * ld + k0 + kk;
+        const float nv = ns[cell];
+        if constexpr (SPEC) {
+          const float zv = zs[cell];
 #pragma unroll
           for (int j = 0; j < kColsPerThread; ++j)
-            acc[m][i][j] = fmaf(nv, b[m][j], acc[m][i][j]);
+            acc[0][i][j] = fmaf(-zv, b[kStaged - 1][j],
+                                fmaf(nv, b[0][j], acc[0][i][j]));
+        } else {
+#pragma unroll
+          for (int m = 0; m < NMAT; ++m)
+#pragma unroll
+            for (int j = 0; j < kColsPerThread; ++j)
+              acc[m][i][j] = fmaf(nv, b[m][j], acc[m][i][j]);
+        }
       }
     }
   }
@@ -129,12 +164,14 @@ __device__ void fgn_tile(const float* m0, const float* m1, int n, int c0,
   __syncthreads();
 }
 
-// Shared memory of the planes, NMAT product tiles, the staged factors and
+// Shared memory of the planes (three under the spectral form), NMAT
+// product tiles, the staged factors (two under the spectral form) and
 // `extra` floats more, for a block of bp paths at horizon n.
 __host__ __device__ inline int block_smem_bytes(int n, int bp, int nmat,
-                                                int extra) {
-  return 4 * (2 * bp * plane_ld(n) + nmat * bp * kXStride +
-              nmat * kTileK * kTileCols + extra);
+                                                int extra,
+                                                bool spec = false) {
+  return 4 * ((spec ? 3 : 2) * bp * plane_ld(n) + nmat * bp * kXStride +
+              (spec ? 2 : nmat) * kTileK * kTileCols + extra);
 }
 
 }  // namespace mcop

@@ -3,16 +3,19 @@
 //
 // K1 mcop_pathgen replaces montecarlooptionspricer_tpu/models/
 //    pathgen_pallas.py:_pathgen_kernel (and _pathgen_kernel_noise_in),
-//    chol fGN form, plain and paired (the whole-path pair body of
-//    _euler_from_noise:261 with _logpaths_from_x_anti:161).
+//    chol and spectral fGN forms, plain and paired (the whole-path pair
+//    body of _euler_from_noise:261 with _logpaths_from_x_anti:161).
 // K2 mcop_priced_chunk replaces pathgen_pallas.py:_priced_kernel (and
-//    _priced_kernel_noise_in), chol form, log-boundary policy, interleave 1,
-//    in four forms: plain, antithetic (_logpaths_from_x_anti:161), control
-//    variate (_cv_log_sum:567, _store_priced_log:577) and both
-//    (_priced_body:650).
+//    _priced_kernel_noise_in), chol and spectral forms, log-boundary
+//    policy, interleave 1, in four forms: plain, antithetic
+//    (_logpaths_from_x_anti:161), control variate (_cv_log_sum:567,
+//    _store_priced_log:577) and both (_priced_body:650).
 //
 // What they compute, per path p and step column c < n (column c = step c+1):
 //   x_c    = sum_{k <= c} N[p,k] * Lt'[k,c]        (Lt' = 0.5 Lt, upper)
+//            or, spectral (SPEC, ci non-null; _fgn_x:142):
+//            sum_{k < n} Zr[p,k] Cr'[k,c] - Zi[p,k] Ci'[k,c]
+//                                  (Cr' = 0.5 Cr, Ci' = 0.5 Ci, dense)
 //   sv     = exp(x_c + vd[c])
 //   inc    = (r - sv^2/2) dt + sv * W[p,c] * sqrt(dt)
 //   logS_c = log s0 + sum_{k <= c} inc_k
@@ -36,6 +39,9 @@
 // 67 TFLOP/s float32 (no tensor cores: full float32 is kept), while the
 // bytes that must move (Lt', the output) take at most 0.06 ms.
 // The antithetic forms run the product once per pair: half of that.
+// The spectral product is two dense [n, n] products, 2 n^2 multiply-adds
+// per path (266k at n = 365, four times the triangle): 1.05 ms at 131072
+// paths, 0.53 ms paired.
 //
 // Design:
 // * One block of 256 threads owns BP = 16*PM paths (64, 32 or 16, the
@@ -65,6 +71,13 @@
 //   draws the same (global drawn row, step pair) counters as a paired K2
 //   block, so one key gives both kernels the same pairs, and it writes its
 //   partner rows `drawn` rows below the drawn ones (member_row).
+// * The spectral form (SPEC, from the ci pointer) keeps a third plane, Zi,
+//   beside Zr (in the N plane) and W, and stages Cr' and Ci' k-tiles side
+//   by side; every column tile sums over all n rows, the matrices being
+//   dense.  Three planes at 365 steps fit 32 paths (64 members paired),
+//   not 64.  Its seeded Zr and W are the chol stream's N and W and its Zi
+//   the stream's own counter word (csrc/philox.cuh), drawn by K1 and K2
+//   alike, so one key gives both the same paths and pairs.
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise so the plain
 //   PyTorch versions agree to a few ulp per cell.
 
@@ -78,8 +91,9 @@ namespace {
 using namespace mcop;
 
 struct Args {
-  const float* noise;   // [2, drawn, n] or nullptr for the seeded entry
-  const float* lt;      // [n, n] half-scaled upper-triangular factor
+  const float* noise;   // [2 or 3, drawn, n] or nullptr (seeded entry)
+  const float* lt;      // [n, n] half-scaled factor: Lt' (upper), or Cr'
+  const float* ci;      // [n, n] Ci' (spectral), or nullptr (chol)
   const float* vd;      // [n] half variance drift
   const float* llo;     // [n] log lower bounds (K2)
   const float* lhi;     // [n] log upper bounds (K2)
@@ -114,23 +128,25 @@ __device__ __forceinline__ size_t member_row(int drawn, int row0, int p) {
 
 // Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members (ANTI:
 // member p < D is drawn row p, member D + p its partner).  CV adds the
-// control lane.
-template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV>
+// control lane, SPEC the spectral fGN form.
+template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC>
 __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
   constexpr int D = 16 * PM;
   constexpr int BP = ANTI ? 2 * D : D;
   extern __shared__ float smem[];
   const int n = a.n, ld = a.ld;
-  float* ns = smem;                       // [D][ld]
+  float* ns = smem;                       // [D][ld] N (Zr)
   float* ws = ns + D * ld;                // [D][ld]
-  float* xs = ws + D * ld;                // [BP][kXStride]
-  float* lts = xs + BP * kXStride;        // [kTileK][kTileCols]
-  float* red = lts + kTileK * kTileCols;  // [BP], and [BP] more under CV
+  float* zs = ws + D * ld;                // [D][ld] Zi under SPEC
+  float* xs = zs + (SPEC ? D * ld : 0);   // [BP][kXStride]
+  float* lts = xs + BP * kXStride;        // [1 or 2][kTileK][kTileCols]
+  float* red = lts + (SPEC ? 2 : 1) * kTileK * kTileCols;
+                                          // [BP], and [BP] more under CV
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * D;        // first drawn row
 
-  load_noise<D, SEEDED>(a.noise, a.drawn, n, a.key, row0, ns, ws);
+  load_noise<D, SEEDED, SPEC>(a.noise, a.drawn, n, a.key, row0, ns, ws, zs);
   if (!PRICED) {
     for (int p = tid; p < BP; p += kThreads)
       a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1)] = a.s0;
@@ -143,7 +159,7 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
 
   for (int c0 = 0; c0 < n; c0 += kTileCols) {
     const int kmax = min(c0 + kTileCols, n);
-    fgn_tile<PM, 1>(a.lt, nullptr, n, c0, ns, lts, xs, nullptr);
+    fgn_tile<PM, 1, SPEC>(a.lt, a.ci, n, c0, ns, lts, xs, nullptr, zs);
 
     // Variance exp and Euler increment, elementwise over the tile (both
     // members of a pair from one x and one w).
@@ -214,16 +230,17 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
 }
 
 // Shared memory of a block of bp paths (pair members when antithetic).
-int smem_bytes(int n, int bp, bool anti, bool cv) {
+int smem_bytes(int n, int bp, bool anti, bool cv, bool spec) {
   const int d = anti ? bp / 2 : bp;
-  return block_smem_bytes(n, d, 1, (bp - d) * kXStride + (cv ? 2 : 1) * bp);
+  return block_smem_bytes(n, d, 1, (bp - d) * kXStride + (cv ? 2 : 1) * bp,
+                          spec);
 }
 
-template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV>
+template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {
   constexpr int D = 16 * PM;
-  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI, CV);
-  auto kernel = path_kernel<PM, SEEDED, PRICED, ANTI, CV>;
+  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI, CV, SPEC);
+  auto kernel = path_kernel<PM, SEEDED, PRICED, ANTI, CV, SPEC>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -231,19 +248,26 @@ cudaError_t launch_one(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The seeded or noise-in entry, chol or spectral (from a.ci).
+template <int PM, bool PRICED, bool ANTI, bool CV>
+cudaError_t launch_entry(const Args& a, cudaStream_t stream) {
+  const bool seeded = a.noise == nullptr;
+  if (a.ci != nullptr)
+    return seeded ? launch_one<PM, true, PRICED, ANTI, CV, true>(a, stream)
+                  : launch_one<PM, false, PRICED, ANTI, CV, true>(a, stream);
+  return seeded ? launch_one<PM, true, PRICED, ANTI, CV, false>(a, stream)
+                : launch_one<PM, false, PRICED, ANTI, CV, false>(a, stream);
+}
+
 template <bool PRICED, bool ANTI, bool CV>
 cudaError_t launch_pm(const Args& a, int pm, cudaStream_t stream) {
-  const bool seeded = a.noise == nullptr;
   switch (pm) {
     case 4:
-      return seeded ? launch_one<4, true, PRICED, ANTI, CV>(a, stream)
-                    : launch_one<4, false, PRICED, ANTI, CV>(a, stream);
+      return launch_entry<4, PRICED, ANTI, CV>(a, stream);
     case 2:
-      return seeded ? launch_one<2, true, PRICED, ANTI, CV>(a, stream)
-                    : launch_one<2, false, PRICED, ANTI, CV>(a, stream);
+      return launch_entry<2, PRICED, ANTI, CV>(a, stream);
     case 1:
-      return seeded ? launch_one<1, true, PRICED, ANTI, CV>(a, stream)
-                    : launch_one<1, false, PRICED, ANTI, CV>(a, stream);
+      return launch_entry<1, PRICED, ANTI, CV>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -257,7 +281,7 @@ cudaError_t launch(Args a, int block_paths, bool anti, bool cv,
   const int unit = anti ? 32 : 16;
   if (a.n < 1 || a.rows < 1 || block_paths < unit || block_paths % unit ||
       a.rows % block_paths ||
-      smem_bytes(a.n, block_paths, anti, cv) > kSmemLimit)
+      smem_bytes(a.n, block_paths, anti, cv, a.ci != nullptr) > kSmemLimit)
     return cudaErrorInvalidValue;
   a.drawn = anti ? a.rows / 2 : a.rows;
   const int pm = block_paths / unit;
@@ -275,17 +299,29 @@ cudaError_t launch(Args a, int block_paths, bool anti, bool cv,
 
 extern "C" {
 
-// K1.  noise may be null (seeded entry, stream of `key`).  rows counts
-// paths; antithetic != 0 reads (or draws) rows / 2 rows of noise, [2,
-// rows / 2, n_steps], block_paths counts pair members, and out holds the
-// drawn rows' paths, then their partners'.
-int mcop_pathgen(const float* noise, const float* lt, const float* vd,
-                 int rows, int n_steps, int block_paths, unsigned int key,
+// Shared memory of a K1/K2 block of block_paths paths (pair members when
+// antithetic != 0), the spectral form when spectral != 0.
+int mcop_smem_bytes(int n_steps, int block_paths, int antithetic, int with_cv,
+                    int spectral) {
+  return smem_bytes(n_steps, block_paths, antithetic != 0, with_cv != 0,
+                    spectral != 0);
+}
+
+// K1.  noise may be null (seeded entry, stream of `key`).  lt is Lt' (chol,
+// ci null) or Cr' (spectral, ci = Ci'); noise is then [2, rows, n_steps]
+// (N, W) or [3, rows, n_steps] (Zr, Zi, W).  rows counts paths;
+// antithetic != 0 reads (or draws) rows / 2 rows of noise, block_paths
+// counts pair members, and out holds the drawn rows' paths, then their
+// partners'.
+int mcop_pathgen(const float* noise, const float* lt, const float* ci,
+                 const float* vd, int rows, int n_steps, int block_paths,
+                 unsigned int key,
                  float r, float dt, float sqrt_dt, float log_s0, float s0,
                  int antithetic, float* out, void* stream) {
   Args a{};
   a.noise = noise;
   a.lt = lt;
+  a.ci = ci;
   a.vd = vd;
   a.out = out;
   a.rows = rows;
@@ -303,12 +339,12 @@ int mcop_pathgen(const float* noise, const float* lt, const float* vd,
 }
 
 // K2.  table: rows 0-2 of the log_boundary_rows table, row stride
-// table_stride floats.  rows counts paths; antithetic != 0 reads (or
-// draws) rows / 2 rows of noise, [2, rows / 2, n_steps].  out:
+// table_stride floats.  lt, ci and the noise planes as K1's.  rows counts
+// paths; antithetic != 0 reads (or draws) rows / 2 rows of noise.  out:
 // [rows / block_paths] partial sums, then as many control sums when
 // with_cv != 0.
-int mcop_priced_chunk(const float* noise, const float* lt, const float* vd,
-                      int rows, int n_steps, int block_paths,
+int mcop_priced_chunk(const float* noise, const float* lt, const float* ci,
+                      const float* vd, int rows, int n_steps, int block_paths,
                       unsigned int key, float r, float dt, float sqrt_dt,
                       float log_s0, const float* table, long long table_stride,
                       float strike, int is_call, int antithetic, int with_cv,
@@ -316,6 +352,7 @@ int mcop_priced_chunk(const float* noise, const float* lt, const float* vd,
   Args a{};
   a.noise = noise;
   a.lt = lt;
+  a.ci = ci;
   a.vd = vd;
   a.llo = table;
   a.lhi = table + table_stride;

@@ -4,17 +4,20 @@
 //
 // K6 mcop_tiled_pathgen replaces montecarlooptionspricer_tpu/models/
 //    pathgen_pallas_tiled.py:_tiled_pathgen_kernel (and
-//    _tiled_pathgen_kernel_noise_in), chol fGN form, plain and paired
-//    (the whole-path pair body, _pair_tiles:382).
+//    _tiled_pathgen_kernel_noise_in), chol and spectral fGN forms, plain
+//    and paired (the whole-path pair body, _pair_tiles:382).
 // K7 mcop_tiled_priced_chunk replaces pathgen_pallas_tiled.py:
-//    _tiled_priced_kernel (and _tiled_priced_kernel_noise_in), chol form,
-//    log-boundary policy, in four forms: plain, antithetic (_pair_tiles:382),
-//    control variate (_finalize_priced_log:207) and both.
+//    _tiled_priced_kernel (and _tiled_priced_kernel_noise_in), chol and
+//    spectral forms, log-boundary policy, in four forms: plain, antithetic
+//    (_pair_tiles:382), control variate (_finalize_priced_log:207) and
+//    both.  The spectral form (SPEC, from the ci pointer) is the slab's
+//    _fgn_tile:125, Zr @ Cr' - Zi @ Ci' on three noise planes.
 //
 // They compute what K1 and K2 compute, on the same seeded stream
 // (csrc/philox.cuh), re-blocked over the step axis.  Per path p and step
 // column c < n (column c = step c+1):
 //   x_c    = sum_{k <= c} N[p,k] * Lt'[k,c]        (Lt' = 0.5 Lt, upper)
+//            or, spectral: sum_{k < n} Zr[p,k] Cr'[k,c] - Zi[p,k] Ci'[k,c]
 //   sv     = exp(x_c + vd[c])
 //   inc    = (r - sv^2/2) dt + sv * W[p,c] * sqrt(dt)
 //   logS_c = log s0 + sum_{k <= c} inc_k
@@ -34,6 +37,9 @@
 // float32 (full float32 is kept: no tensor cores), while the bytes that
 // must move (Lt', and K6's 957 MB of prices) take 0.29 ms.  The
 // antithetic forms run the product once per pair, 1.1e11 multiply-adds.
+// The spectral product is two dense [n, n] products, 2 n^2 multiply-adds
+// per path (8.7e11 at 1825 steps and 131072 rows, ~26 ms), four times
+// the triangle.
 //
 // Design:
 // * Shared memory.  At 1825 steps one path's N row is 7.3 KB, so the N
@@ -64,6 +70,13 @@
 //   memory within 256 bytes, so two blocks still share an SM.  Paired K6
 //   writes member p >= D to the partner row `drawn` rows below drawn row
 //   p - D (member_row).
+// * The spectral form keeps its noise as [3, rows, n] (Zr, Zi, W) and
+//   streams the Zr and Zi k-tiles beside the Cr' and Ci' k-tiles (16.6 KB
+//   more a block, still two blocks an SM).  Every output tile reads every
+//   k-tile: the matrices are dense.  Both matrices stay in L2 up to
+//   isqrt(L2 / 8) = 2,560 steps (max_tiled_steps), the chol factor to
+//   3,620.  The seeded entry draws Zr and W as the chol stream's N and W
+//   and Zi from its own counter word, as K1/K2 do.
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise so the plain
 //   PyTorch versions agree to a few ulp per cell.
 
@@ -83,8 +96,10 @@ constexpr int kXStride = kTileCols + 1;
 constexpr int kSmemLimit = 232448;
 
 struct Args {
-  float* noise;         // [2, drawn, n]: the input, or the seeded workspace
-  const float* lt;      // [n, n] half-scaled upper-triangular factor
+  float* noise;         // [2 or 3, drawn, n]: the input, or the seeded
+                        // workspace
+  const float* lt;      // [n, n] half-scaled factor: Lt' (upper), or Cr'
+  const float* ci;      // [n, n] Ci' (spectral), or nullptr (chol)
   const float* vd;      // [n] half variance drift
   const float* llo;     // [n] log lower bounds (K7)
   const float* lhi;     // [n] log upper bounds (K7)
@@ -97,15 +112,18 @@ struct Args {
 };
 
 // Shared memory of one block, in floats: the N^T k-tile of its D drawn
-// rows (row stride D+4, a multiple of 4 for float4 reads), the Lt' k-tile,
-// the X tile of its BP paths (stride kTileCols+1, so the per-path loop
-// reads distinct banks) and the path-sum slots (twice under CV).
-template <int PM, bool ANTI = false, bool CV = false>
+// rows (row stride D+4, a multiple of 4 for float4 reads), the Lt' k-tile
+// (under SPEC the Zr^T and Zi^T k-tiles and the Cr' and Ci' k-tiles), the
+// X tile of its BP paths (stride kTileCols+1, so the per-path loop reads
+// distinct banks) and the path-sum slots (twice under CV).
+template <int PM, bool ANTI = false, bool CV = false, bool SPEC = false>
 struct Layout {
   static constexpr int kD = 16 * PM;
   static constexpr int kBP = ANTI ? 2 * kD : kD;
   static constexpr int kNStride = kD + 4;
-  static constexpr int kFloats = kTileK * kNStride + kTileK * kTileCols +
+  static constexpr int kPlanes = SPEC ? 2 : 1;   // k-tiles of noise, factor
+  static constexpr int kFloats = kPlanes * (kTileK * kNStride +
+                                            kTileK * kTileCols) +
                                  kBP * kXStride + (CV ? 2 : 1) * kBP;
   static constexpr int kBytes = 4 * kFloats;
 };
@@ -130,21 +148,35 @@ __device__ __forceinline__ void load_paths(const float* src, float (&v)[PM]) {
   }
 }
 
-// Seeded entry: draw the block's D rows of N and W into the plane.
-template <int D>
+// Seeded entry: draw the block's D rows of N and W into the plane (SPEC:
+// Zr = N into plane 0, Zi into plane 1, W into plane 2).
+template <int D, bool SPEC>
 __device__ void draw_rows(const Args& a, int row0) {
   const int n = a.n, pairs = (n + 1) / 2;
   const size_t plane = static_cast<size_t>(a.drawn) * n;
+  float* wplane = a.noise + (SPEC ? 2 : 1) * plane;
   for (int idx = threadIdx.x; idx < D * pairs; idx += kThreads) {
     const int p = idx / pairs, j = idx - p * pairs;
     float n0, w0, n1, w1;
     mcop::step_pair_normals(a.key, row0 + p, j, &n0, &w0, &n1, &w1);
     const size_t g = static_cast<size_t>(row0 + p) * n + 2 * j;
     a.noise[g] = n0;
-    a.noise[plane + g] = w0;
+    wplane[g] = w0;
     if (2 * j + 1 < n) {
       a.noise[g + 1] = n1;
-      a.noise[plane + g + 1] = w1;
+      wplane[g + 1] = w1;
+    }
+  }
+  if (SPEC) {
+    const int quads = (n + 3) / 4;
+    for (int idx = threadIdx.x; idx < D * quads; idx += kThreads) {
+      const int p = idx / quads, q = idx - p * quads;
+      const float4 z = mcop::spectral_zi_quad(a.key, row0 + p, q);
+      const float zv[4] = {z.x, z.y, z.z, z.w};
+      float* zrow = a.noise + plane + static_cast<size_t>(row0 + p) * n;
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (4 * q + t < n) zrow[4 * q + t] = zv[t];
     }
   }
 }
@@ -172,17 +204,19 @@ __device__ __forceinline__ size_t member_row(int drawn, int row0, int p) {
 
 // Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members (ANTI:
 // member p < D is drawn row p, member D + p its partner).  CV adds the
-// control lane.
-template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV>
+// control lane, SPEC the spectral fGN form.
+template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC>
 __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
-  using L = Layout<PM, ANTI, CV>;
+  using L = Layout<PM, ANTI, CV, SPEC>;
   constexpr int D = L::kD;
   constexpr int BP = L::kBP;
   constexpr int NS = L::kNStride;
   extern __shared__ float4 smem4[];
   float* ns = reinterpret_cast<float*>(smem4);  // [kTileK][NS]   N^T k-tile
   float* lts = ns + kTileK * NS;                // [kTileK][kTileCols]
-  float* xs = lts + kTileK * kTileCols;         // [BP][kXStride]
+  float* zs = lts + kTileK * kTileCols;         // SPEC: Zi^T k-tile
+  float* cts = zs + kTileK * NS;                // SPEC: Ci' k-tile
+  float* xs = SPEC ? cts + kTileK * kTileCols : zs;   // [BP][kXStride]
   float* red = xs + BP * kXStride;              // [BP] (twice under CV)
 
   const int n = a.n;
@@ -192,10 +226,11 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
   const int ty = tid / kColGroups;              // drawn rows ty*PM + i
   const size_t plane = static_cast<size_t>(a.drawn) * n;
   const float* nrows = a.noise + static_cast<size_t>(row0) * n;
-  const float* wrows = nrows + plane;
+  const float* zrows = nrows + plane;           // SPEC: Zi
+  const float* wrows = nrows + (SPEC ? 2 : 1) * plane;
 
   if (SEEDED) {
-    draw_rows<D>(a, row0);
+    draw_rows<D, SPEC>(a, row0);
     __syncthreads();  // the block's plane writes are visible to the block
   }
   if (!PRICED) {
@@ -216,20 +251,25 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-    for (int k0 = 0; k0 < kmax; k0 += kTileK) {
-      const int kn = min(kTileK, kmax - k0);
-      __syncthreads();  // previous readers of ns/lts are done
+    // Lt' is upper triangular: k-tiles past the tile's last column are
+    // zero.  Cr' and Ci' are dense: every k-tile counts.
+    const int kend = SPEC ? n : kmax;
+    for (int k0 = 0; k0 < kend; k0 += kTileK) {
+      const int kn = min(kTileK, kend - k0);
+      __syncthreads();  // previous readers of ns/lts (zs/cts) are done
       for (int idx = tid; idx < D * kTileK; idx += kThreads) {
         const int p = idx / kTileK, kk = idx - p * kTileK;
-        ns[kk * NS + p] =
-            kk < kn ? nrows[static_cast<size_t>(p) * n + k0 + kk] : 0.0f;
+        const size_t g = static_cast<size_t>(p) * n + k0 + kk;
+        ns[kk * NS + p] = kk < kn ? nrows[g] : 0.0f;
+        if (SPEC) zs[kk * NS + p] = kk < kn ? zrows[g] : 0.0f;
       }
       for (int idx = tid; idx < kTileK * kTileCols; idx += kThreads) {
         const int kk = idx / kTileCols, cc = idx - kk * kTileCols;
         const int c = c0 + cc;
-        lts[idx] = (kk < kn && c < n)
-                       ? a.lt[static_cast<size_t>(k0 + kk) * n + c]
-                       : 0.0f;
+        const bool in = kk < kn && c < n;
+        const size_t g = static_cast<size_t>(k0 + kk) * n + c;
+        lts[idx] = in ? a.lt[g] : 0.0f;
+        if (SPEC) cts[idx] = in ? a.ci[g] : 0.0f;
       }
       __syncthreads();
 #pragma unroll
@@ -245,6 +285,21 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
         for (int i = 0; i < PM; ++i)
 #pragma unroll
           for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], b[j], acc[i][j]);
+        if constexpr (SPEC) {
+          float zv[PM];
+          load_paths<PM>(zs + kk * NS + ty * PM, zv);
+          const float4 d0 = *reinterpret_cast<const float4*>(
+              cts + kk * kTileCols + tx * 4);
+          const float4 d1 = *reinterpret_cast<const float4*>(
+              cts + kk * kTileCols + kHalfCols + tx * 4);
+          const float d[8] = {d0.x, d0.y, d0.z, d0.w,
+                              d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+          for (int i = 0; i < PM; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              acc[i][j] = fmaf(-zv[i], d[j], acc[i][j]);
+        }
       }
     }
 #pragma unroll
@@ -323,11 +378,11 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
   }
 }
 
-template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV>
+template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {
-  constexpr int smem = Layout<PM, ANTI, CV>::kBytes;
+  constexpr int smem = Layout<PM, ANTI, CV, SPEC>::kBytes;
   static_assert(smem <= kSmemLimit, "tile shapes exceed shared memory");
-  auto kernel = tiled_kernel<PM, SEEDED, PRICED, ANTI, CV>;
+  auto kernel = tiled_kernel<PM, SEEDED, PRICED, ANTI, CV, SPEC>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -341,28 +396,36 @@ cudaError_t launch_one(const Args& a, cudaStream_t stream) {
 
 // The plain forms take 128, 64, 32 or 16 paths a block; the paired forms
 // 128, 64 or 32 members (64, 32 or 16 drawn rows).
-template <bool SEEDED, bool PRICED, bool ANTI, bool CV>
+template <bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC>
 cudaError_t launch_pm(const Args& a, int block_paths, cudaStream_t stream) {
   switch (ANTI ? block_paths / 2 : block_paths) {
     case 128:
       if constexpr (ANTI) return cudaErrorInvalidValue;
-      else return launch_one<8, SEEDED, PRICED, ANTI, CV>(a, stream);
+      else return launch_one<8, SEEDED, PRICED, ANTI, CV, SPEC>(a, stream);
     case 64:
-      return launch_one<4, SEEDED, PRICED, ANTI, CV>(a, stream);
+      return launch_one<4, SEEDED, PRICED, ANTI, CV, SPEC>(a, stream);
     case 32:
-      return launch_one<2, SEEDED, PRICED, ANTI, CV>(a, stream);
+      return launch_one<2, SEEDED, PRICED, ANTI, CV, SPEC>(a, stream);
     case 16:
-      return launch_one<1, SEEDED, PRICED, ANTI, CV>(a, stream);
+      return launch_one<1, SEEDED, PRICED, ANTI, CV, SPEC>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// The seeded or noise-in entry, chol or spectral (from a.ci).
 template <bool PRICED, bool ANTI, bool CV>
 cudaError_t launch_seeded(const Args& a, int seeded, int block_paths,
                           cudaStream_t stream) {
-  return seeded ? launch_pm<true, PRICED, ANTI, CV>(a, block_paths, stream)
-                : launch_pm<false, PRICED, ANTI, CV>(a, block_paths, stream);
+  if (a.ci != nullptr)
+    return seeded
+               ? launch_pm<true, PRICED, ANTI, CV, true>(a, block_paths, stream)
+               : launch_pm<false, PRICED, ANTI, CV, true>(a, block_paths,
+                                                          stream);
+  return seeded
+             ? launch_pm<true, PRICED, ANTI, CV, false>(a, block_paths, stream)
+             : launch_pm<false, PRICED, ANTI, CV, false>(a, block_paths,
+                                                         stream);
 }
 
 template <bool PRICED>
@@ -386,12 +449,13 @@ cudaError_t launch(Args a, int seeded, int block_paths, bool anti, bool cv,
                                                 stream);
 }
 
-Args make_args(float* noise, const float* lt, const float* vd, int rows,
-               int n_steps, unsigned int key, float r, float dt,
-               float sqrt_dt, float log_s0) {
+Args make_args(float* noise, const float* lt, const float* ci,
+               const float* vd, int rows, int n_steps, unsigned int key,
+               float r, float dt, float sqrt_dt, float log_s0) {
   Args a{};
   a.noise = noise;
   a.lt = lt;
+  a.ci = ci;
   a.vd = vd;
   a.rows = rows;
   a.n = n_steps;
@@ -408,28 +472,32 @@ Args make_args(float* noise, const float* lt, const float* vd, int rows,
 extern "C" {
 
 // The per-block shared memory of the tiled kernels at this block size
-// (pair members when antithetic), or -1 for a block size they do not take.
-int mcop_tiled_smem_bytes(int block_paths, int antithetic, int with_cv) {
+// (pair members when antithetic; the spectral form when spectral != 0), or
+// -1 for a block size they do not take.
+int mcop_tiled_smem_bytes(int block_paths, int antithetic, int with_cv,
+                          int spectral) {
   const int d = antithetic ? block_paths / 2 : block_paths;
   if (antithetic && (block_paths % 2 || d == 128)) return -1;
   const int pm = d / 16;
   if (d % 16 || (pm != 1 && pm != 2 && pm != 4 && pm != 8)) return -1;
   const int bp = antithetic ? 2 * d : d;
-  return 4 * (kTileK * (d + 4) + kTileK * kTileCols + bp * kXStride +
-              (with_cv ? 2 : 1) * bp);
+  return 4 * ((spectral ? 2 : 1) * (kTileK * (d + 4) + kTileK * kTileCols) +
+              bp * kXStride + (with_cv ? 2 : 1) * bp);
 }
 
-// K6.  noise: [2, rows, n_steps] float32, read as given (seeded == 0) or
-// filled first from the stream of `key` (seeded != 0, a workspace).  rows
-// counts paths; antithetic != 0 reads (or draws into the workspace)
-// rows / 2 rows of noise, block_paths counts pair members, and out holds
-// the drawn rows' paths, then their partners'.
+// K6.  noise: [2, rows, n_steps] float32 (N, W; ci null: lt is Lt') or
+// [3, rows, n_steps] (Zr, Zi, W; spectral: lt is Cr', ci is Ci'), read as
+// given (seeded == 0) or filled first from the stream of `key` (seeded !=
+// 0, a workspace).  rows counts paths; antithetic != 0 reads (or draws
+// into the workspace) rows / 2 rows of noise, block_paths counts pair
+// members, and out holds the drawn rows' paths, then their partners'.
 int mcop_tiled_pathgen(float* noise, int seeded, const float* lt,
-                       const float* vd, int rows, int n_steps,
-                       int block_paths, unsigned int key, float r, float dt,
+                       const float* ci, const float* vd, int rows,
+                       int n_steps, int block_paths, unsigned int key,
+                       float r, float dt,
                        float sqrt_dt, float log_s0, float s0, int antithetic,
                        float* out, void* stream) {
-  Args a = make_args(noise, lt, vd, rows, n_steps, key, r, dt, sqrt_dt,
+  Args a = make_args(noise, lt, ci, vd, rows, n_steps, key, r, dt, sqrt_dt,
                      log_s0);
   a.s0 = s0;
   a.out = out;
@@ -439,19 +507,20 @@ int mcop_tiled_pathgen(float* noise, int seeded, const float* lt,
 }
 
 // K7.  table: rows 0-2 of the log_boundary_rows table, row stride
-// table_stride floats.  rows counts paths; antithetic != 0 reads (or
-// draws into the workspace) rows / 2 rows of noise, [2, rows / 2,
-// n_steps], and block_paths counts pair members.  out: [rows /
-// block_paths] partial sums, then as many control sums when with_cv != 0.
+// table_stride floats.  noise, lt and ci as K6's.  rows counts paths;
+// antithetic != 0 reads (or draws into the workspace) rows / 2 rows of
+// noise, and block_paths counts pair members.  out: [rows / block_paths]
+// partial sums, then as many control sums when with_cv != 0.
 int mcop_tiled_priced_chunk(float* noise, int seeded, const float* lt,
-                            const float* vd, int rows, int n_steps,
-                            int block_paths, unsigned int key, float r,
+                            const float* ci, const float* vd, int rows,
+                            int n_steps, int block_paths, unsigned int key,
+                            float r,
                             float dt, float sqrt_dt, float log_s0,
                             const float* table, long long table_stride,
                             float strike, int is_call, int antithetic,
                             int with_cv, float cv_disc, float* out,
                             void* stream) {
-  Args a = make_args(noise, lt, vd, rows, n_steps, key, r, dt, sqrt_dt,
+  Args a = make_args(noise, lt, ci, vd, rows, n_steps, key, r, dt, sqrt_dt,
                      log_s0);
   a.llo = table;
   a.lhi = table + table_stride;

@@ -3,7 +3,10 @@
 // pathgen_cuda.py docstring; philox_normals_ref is its PyTorch version):
 // counter (global row, step pair, 0, 0), key (folded seed word, 0); step 2j
 // takes the pair of (x0, x1), step 2j+1 that of (x2, x3); N = radius cos,
-// W = radius sin.
+// W = radius sin.  The spectral fGN form's three planes (Zr, Zi, W) keep
+// that N as Zr and that W, and draw Zi from counter (row, step quad, 3, 0)
+// (spectral_zi_quad; philox_spectral_normals_ref), a word no other stream
+// uses, so one key gives the chol and spectral bodies the same W.
 #pragma once
 
 #include <stdint.h>
@@ -69,17 +72,31 @@ __device__ __forceinline__ void factored_z_pair(uint32_t key, int row,
   box_muller(b.z, b.w, zr1, zi1);
 }
 
+// Four normals of steps 4*quad .. 4*quad+3 from counter (row, quad, word,
+// 0): the Box-Muller pairs of (x0, x1) and (x2, x3), cos then sin.
+__device__ __forceinline__ float4 normal_quad(uint32_t key, int row, int quad,
+                                              uint32_t word) {
+  const uint4 b = philox4x32_10(
+      make_uint4(static_cast<uint32_t>(row), static_cast<uint32_t>(quad),
+                 word, 0u),
+      key, 0u);
+  float4 v;
+  box_muller(b.x, b.y, &v.x, &v.y);
+  box_muller(b.z, b.w, &v.z, &v.w);
+  return v;
+}
+
 // Price Brownian of steps 4*quad .. 4*quad+3: counter (row, quad, 2, 0).
 __device__ __forceinline__ float4 factored_w_quad(uint32_t key, int row,
                                                   int quad) {
-  const uint4 b = philox4x32_10(
-      make_uint4(static_cast<uint32_t>(row), static_cast<uint32_t>(quad), 2u,
-                 0u),
-      key, 0u);
-  float4 w;
-  box_muller(b.x, b.y, &w.x, &w.y);
-  box_muller(b.z, b.w, &w.z, &w.w);
-  return w;
+  return normal_quad(key, row, quad, 2u);
+}
+
+// The spectral form's Zi of steps 4*quad .. 4*quad+3: counter
+// (row, quad, 3, 0).
+__device__ __forceinline__ float4 spectral_zi_quad(uint32_t key, int row,
+                                                   int quad) {
+  return normal_quad(key, row, quad, 3u);
 }
 
 }  // namespace mcop

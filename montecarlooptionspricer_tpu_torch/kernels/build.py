@@ -101,19 +101,20 @@ def load() -> types.SimpleNamespace:
                   ctypes.c_float)
     ll = ctypes.c_longlong
     signatures = {
-        (single, "mcop_pathgen"): [p, p, p, i, i, i, u, f, f, f, f, f, i, p,
-                                   p],
-        (single, "mcop_priced_chunk"): [p, p, p, i, i, i, u, f, f, f, f,
+        (single, "mcop_smem_bytes"): [i, i, i, i, i],
+        (single, "mcop_pathgen"): [p, p, p, p, i, i, i, u, f, f, f, f, f, i,
+                                   p, p],
+        (single, "mcop_priced_chunk"): [p, p, p, p, i, i, i, u, f, f, f, f,
                                         p, ll, f, i, i, i, f, p, p],
-        (tiled, "mcop_tiled_smem_bytes"): [i, i, i],
-        (tiled, "mcop_tiled_pathgen"): [p, i, p, p, i, i, i, u, f, f, f, f,
-                                        f, i, p, p],
-        (tiled, "mcop_tiled_priced_chunk"): [p, i, p, p, i, i, i, u, f, f,
+        (tiled, "mcop_tiled_smem_bytes"): [i, i, i, i],
+        (tiled, "mcop_tiled_pathgen"): [p, i, p, p, p, i, i, i, u, f, f, f,
+                                        f, f, i, p, p],
+        (tiled, "mcop_tiled_priced_chunk"): [p, i, p, p, p, i, i, i, u, f, f,
                                              f, f, p, ll, f, i, i, i, f, p,
                                              p],
-        (chain, "mcop_chain_smem_bytes"): [i, i, i],
+        (chain, "mcop_chain_smem_bytes"): [i, i, i, i],
         (chain, "mcop_chain_group"): [],
-        (chain, "mcop_priced_chain"): [p, p, p, i, i, i, u, f, f, f, f, p,
+        (chain, "mcop_priced_chain"): [p, p, p, p, i, i, i, u, f, f, f, f, p,
                                        ll, ll, i, i, i, p, p],
         (greeks, "mcop_greeks_smem_bytes"): [i, i, i],
         (greeks, "mcop_greeks_group"): [],

@@ -13,13 +13,16 @@ disc * S for a put (disc * S - disc * strike for a call), with no clamp,
 as ``_policy_value_boundary`` decides.  Its ``antithetic`` form (the
 JAX maker's ``antithetic=True``, ``_chain_paths``) prices each drawn row
 as the pair (N, W), (-N, -W), the fGN product once per pair, each member
-swept against every strike.
+swept against every strike.  Both run in the fGN form of the
+``PathConsts`` they are given: chol, or spectral (three noise planes Zr,
+Zi, W and the dense ``X = Zr @ Cr' - Zi @ Ci'``, the JAX chain kernel's
+default form), as K2's.
 
-The seeded entry draws K1's and K2's Philox stream (``pathgen_cuda``), so
-a strike of the strip sees the paths a single-strike K2 sees on the same
-key (K2/anti's pairs under ``antithetic``).  The wrapper runs the plain
-version for tensors on the CPU and launches the kernel for tensors on a
-CUDA device; nothing falls back.
+The seeded entry draws K1's and K2's Philox stream (``pathgen_cuda``) of
+its form, so a strike of the strip sees the paths a single-strike K2 sees
+on the same key (K2/anti's pairs under ``antithetic``).  The wrapper runs
+the plain version for tensors on the CPU and launches the kernel for
+tensors on a CUDA device; nothing falls back.
 """
 
 from __future__ import annotations
@@ -36,32 +39,37 @@ MAX_CHAIN_STEPS = 512       # the JAX chain kernel's cap (pathgen_pallas.py)
 FORMS = pc.FORMS[:2]   # K5's forms: the launch counter's keys
 
 
-def smem_bytes(n_steps: int, block_paths: int,
-               antithetic: bool = False) -> int:
-    """Shared memory of one CUDA block: K2's N and W planes of the drawn
-    rows, one step tile of every path (pair member when ``antithetic``;
-    it also holds the block's per-strike sums at the end) and the staged
-    Lt' rows."""
+def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
+               spectral: bool = False) -> int:
+    """Shared memory of one CUDA block: K2's noise planes of the drawn
+    rows (N and W, or Zr, Zi and W ``spectral``), one step tile of every
+    path (pair member when ``antithetic``; it also holds the block's
+    per-strike sums at the end) and the staged factor rows (Lt', or Cr'
+    and Ci')."""
     drawn = pc.drawn_rows(block_paths, antithetic)
     return pc.block_smem_bytes(
-        n_steps, drawn, extra=(block_paths - drawn) * (pc.TILE_COLS + 1))
+        n_steps, drawn, extra=(block_paths - drawn) * (pc.TILE_COLS + 1),
+        spectral=spectral)
 
 
-def supports(n_steps: int) -> bool:
-    """Whether K5 takes this horizon: at most the JAX chain kernel's 512
-    steps, with a block that fits shared memory."""
-    return (1 <= n_steps <= MAX_CHAIN_STEPS
-            and pc.fitting_block(smem_bytes, n_steps) > 0)
+def supports(n_steps: int, fgn_form: str = "chol") -> bool:
+    """Whether K5 takes this horizon in this fGN form: at most the JAX
+    chain kernel's 512 steps, with a block that fits shared memory."""
+    spectral = pc._check_form(fgn_form)
+    return (1 <= n_steps <= MAX_CHAIN_STEPS and pc.fitting_block(
+        lambda n, b: smem_bytes(n, b, spectral=spectral), n_steps) > 0)
 
 
-def block_paths_for(n_steps: int, rows: int,
-                    antithetic: bool = False) -> int:
+def block_paths_for(n_steps: int, rows: int, antithetic: bool = False,
+                    spectral: bool = False) -> int:
     """K5's path block: the largest of pathgen_cuda.BLOCK_CHOICES
     (PAIRED_BLOCK_CHOICES, in pair members, when ``antithetic``) whose
     shared memory fits at this horizon and which divides ``rows``: 64 at
-    365 steps and 32 at 512, 128 and 64 paired."""
-    bp = pc.fitting_block(lambda n, b: smem_bytes(n, b, antithetic),
-                          n_steps, rows, antithetic)
+    365 steps and 32 at 512, 128 and 64 paired; ``spectral``, 32 at both
+    (64 paired)."""
+    bp = pc.fitting_block(
+        lambda n, b: smem_bytes(n, b, antithetic, spectral), n_steps, rows,
+        antithetic)
     if not bp:
         raise ValueError(f"no K5 block divides rows={rows} at "
                          f"n_steps={n_steps}")
@@ -75,8 +83,9 @@ def priced_chain_from_noise_ref(consts: pc.PathConsts, tables: torch.Tensor,
                                 noise: torch.Tensor, is_call: bool,
                                 antithetic: bool = False) -> torch.Tensor:
     """Plain K5: [K] chunk payoff sums under the [K, 8, >= n_steps]
-    boundary_rows ``tables`` on the paths of ``noise`` [2, rows, n_steps]
-    (``_policy_value_boundary`` per strike on the S plane); with
+    boundary_rows ``tables`` on the paths of ``noise`` [2 or 3, rows,
+    n_steps] (the planes of ``consts``' form; ``_policy_value_boundary``
+    per strike on the S plane); with
     ``antithetic`` each row of noise is priced as a pair."""
     n = consts.n_steps
     s = torch.exp(pc._log_paths_ref(consts, noise, antithetic))
@@ -101,11 +110,12 @@ def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
                  antithetic: bool = False) -> torch.Tensor:
     """K5: the chunk's [K] float32 payoff sums under the strip's
     boundary_rows ``tables`` [K, 8, >= n_steps], from the seeded stream of
-    ``key`` or from injected ``noise`` [2, rows, n_steps].  With
-    ``antithetic`` the chunk's ``rows`` paths are rows / 2 pairs: the
-    seeded entry draws rows / 2 rows, and injected noise is [2, rows / 2,
-    n_steps].  On the card one launch sweeps up to GROUP strikes; a wider
-    strip takes one launch per group on the same key or noise, which
+    ``key`` or from injected ``noise`` [planes, rows, n_steps] (2 planes
+    chol, 3 spectral).  With ``antithetic`` the chunk's ``rows`` paths are
+    rows / 2 pairs: the seeded entry draws rows / 2 rows, and injected
+    noise is [planes, rows / 2, n_steps].  On the card one launch sweeps
+    up to GROUP strikes; a wider strip takes one launch per group on the
+    same key or noise, which
     regenerates the same paths (and pairs).  Each block writes one
     partial sum per strike and the blocks are summed in a fixed order, so
     a seed gives the same sums every run."""
@@ -114,17 +124,17 @@ def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
     if tables.dim() != 3 or tables.shape[1] < 4 or tables.shape[2] < n:
         raise ValueError("tables must be [K, 8, >= n_steps] (boundary_rows "
                          f"of a strip), got {tuple(tables.shape)}")
-    if not supports(n):
+    if not supports(n, consts.fgn_form):
         raise ValueError(f"n_steps={n} is past K5's horizon "
                          f"({MAX_CHAIN_STEPS})")
     if consts.device.type == "cpu":
         if noise is None:
-            noise = pc.philox_normals_ref(
-                key, pc.drawn_rows(rows, antithetic), n)
+            noise = pc.normals_ref(consts, key,
+                                   pc.drawn_rows(rows, antithetic))
         return priced_chain_from_noise_ref(consts, tables, noise, is_call,
                                            antithetic)
     pc.check_device_inputs(consts, noise, tables)
-    bp = block_paths_for(n, rows, antithetic)
+    bp = block_paths_for(n, rows, antithetic, consts.spectral)
     from ..kernels import build
 
     lib = build.load()
@@ -136,18 +146,19 @@ def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
                               device=consts.device)
         err = lib.mcop_priced_chain(
             None if noise is None else noise.data_ptr(),
-            consts.lt_half.data_ptr(), consts.vd.data_ptr(), rows, n, bp,
+            *consts.factor_ptrs(), consts.vd.data_ptr(), rows, n, bp,
             0 if key is None else key & pc._U32, *pc._scalars(consts),
             tables[g].data_ptr(), tables.stride(0), tables.stride(1), k,
             int(bool(is_call)), int(bool(antithetic)), partial.data_ptr(),
             stream)
         pc._check(err, "priced_chain")
         priced_chain.launches += 1
-        priced_chain.form_launches[FORMS[int(bool(antithetic))]] += 1
+        priced_chain.form_launches[pc.form_name(antithetic, False,
+                                                consts.spectral)] += 1
         sums.append(torch.sum(partial, dim=0))
     return torch.cat(sums)
 
 
 priced_chain.launches = 0
-priced_chain.form_launches = dict.fromkeys(FORMS, 0)
+priced_chain.form_launches = pc.new_form_counts(FORMS)
 

@@ -29,18 +29,24 @@ plain under both.
 
 ``resolve_kernel_family`` picks the family from the horizon, the fGN form
 and ``tiled_impl`` (counterpart: ``_resolve_tiled_module``): the
-single-tile chol kernels up to ``SINGLE_TILE_MAX_STEPS``, the chol slab
-K6/K7 past it up to ``pathgen_tiled_cuda.max_tiled_steps()``, and the
-factored-DFT kernels K8/K9 (the spectral law) past that up to
+single-tile kernels up to ``SINGLE_TILE_MAX_STEPS``, the slab K6/K7 past
+it up to ``pathgen_tiled_cuda.max_tiled_steps()``, and the factored-DFT
+kernels K8/K9 (the spectral law) past that up to
 ``pathgen_factored_cuda.max_factored_steps()``, or wherever the spectral
-form or ``tiled_impl="factored"`` asks for them.
+form or ``tiled_impl="factored"`` asks for them.  ``fgn_form="spectral"``
+runs the spectral bodies of K1/K2 (three noise planes, ``X = Zr @ Cr' -
+Zi @ Ci'``) up to ``SINGLE_TILE_MAX_STEPS``, of K6/K7 under
+``tiled_impl="slab"`` (to 2,560 steps), and K8/K9 past the single tile
+otherwise; "auto" and "chol" run the chol bodies.
 
 A strike strip (``StreamingChainPricer``) fits every strike in one LSM
-backward pass on the K1 pilot and streams the strip through K5
-(``chain_cuda.priced_chain``) on S-space boundary tables.  Greeks
-(``price_and_greeks`` on both pricers) stream the same fits through the
-pathwise tangent kernels K3 and K4 (``greeks_cuda``) on the single-tile
-horizons.  K5, K3 and K4 pair under ``antithetic`` as K2 does.
+backward pass on the single-strike pricer's pilot and streams the strip
+through K5 (``chain_cuda.priced_chain``) on S-space boundary tables, K5
+in the fGN form of that pilot's law (spectral on the factored family).
+Greeks (``price_and_greeks`` on both pricers) stream the same fits
+through the pathwise tangent kernels K3 and K4 (``greeks_cuda``) on the
+single-tile horizons, chol only, as in JAX.  K5, K3 and K4 pair under
+``antithetic`` as K2 does.
 
 The generic path stream (``pathgen_stream``, the counterpart of the JAX
 engine's XLA generator, family "stream") prices whole chunks in plain
@@ -109,7 +115,9 @@ class StreamConfig:
     ("pallas": the hand-written kernels, the port's default; "xla": the
     generic path stream, JAX's default) and ``fgn_impl`` ("auto" =
     "matmul", or "fft": the stream's synthesis) too;
-    ``resolve_kernel_family`` says what each combination runs.
+    ``resolve_kernel_family`` says what each combination runs
+    (``kernel_fgn_form``: "spectral" runs the spectral bodies of K1/K2,
+    K5 and K6/K7, "auto" and "chol" the chol ones).
     ``antithetic``, ``qmc`` and ``control_variate`` name the JAX package's
     estimators: antithetic pairing needs the boundary policy and chunk and
     pilot sizes divisible by 32 and excludes qmc, which is not ported
@@ -169,19 +177,20 @@ def resolve_kernel_family(n_steps: int, fgn_form: str = "auto",
 
     * ``pathgen_impl="xla"`` or a ``poly_order`` other than 2 (the fused
       kernels read quadratic fits): stream, at every horizon.
-    * "auto"/"chol": single up to SINGLE_TILE_MAX_STEPS, then the slab up
-      to ``pathgen_tiled_cuda.max_tiled_steps()``, then factored up to
-      ``pathgen_factored_cuda.max_factored_steps()``, then the stream; an
-      explicit "chol" that would need the factored kernels raises
+    * Every form: single (K1/K2 in the form's bodies) up to
+      SINGLE_TILE_MAX_STEPS.
+    * "auto"/"chol": then the chol slab up to
+      ``pathgen_tiled_cuda.max_tiled_steps()`` (3,620), then factored up
+      to ``pathgen_factored_cuda.max_factored_steps()``, then the stream;
+      an explicit "chol" that would need the factored kernels raises
       ValueError (they have no Cholesky form).
+    * "spectral": then factored, then the stream; with
+      ``tiled_impl="slab"`` the spectral slab up to
+      ``max_tiled_steps("spectral")`` (2,560), as JAX takes its slab
+      under spectral only when asked.
     * ``tiled_impl="factored"`` past the single-tile horizon: factored,
-      or ValueError past K8's range; ``tiled_impl="slab"`` past the slab's
-      range: ValueError.
-    * "spectral" past the single-tile horizon: factored, then the stream.
-
-    Still NotImplementedError, naming the ROADMAP item: "spectral" at or
-    below SINGLE_TILE_MAX_STEPS (B1/B2) and "spectral" with the slab
-    (B7), on the kernels."""
+      or ValueError past K8's range; ``tiled_impl="slab"`` past the
+      slab's range of the form: ValueError."""
     if n_steps < 1:
         raise ValueError(f"n_steps={n_steps} must be >= 1")
     if fgn_form not in ("auto", "chol", "spectral"):
@@ -192,22 +201,12 @@ def resolve_kernel_family(n_steps: int, fgn_form: str = "auto",
         raise ValueError(f"unknown pathgen_impl: {pathgen_impl!r}")
     if pathgen_impl == "xla" or poly_order != 2:
         return "stream"
-    single = (n_steps <= SINGLE_TILE_MAX_STEPS
-              and pathgen_cuda.supports(n_steps))
-    if fgn_form == "spectral":
-        if single:
-            raise NotImplementedError(
-                f"fgn_form='spectral' at n_steps={n_steps}: the spectral "
-                "form of the single-tile kernels K1/K2 is not ported "
-                "(ROADMAP B1/B2)")
-        if tiled_impl == "slab":
-            raise NotImplementedError(
-                "fgn_form='spectral' with tiled_impl='slab': the slab's "
-                "spectral form is not ported (ROADMAP B7)")
-    elif single:
+    form = kernel_fgn_form(fgn_form)
+    if (n_steps <= SINGLE_TILE_MAX_STEPS
+            and pathgen_cuda.supports(n_steps, form)):
         return "single"
-    if (fgn_form != "spectral" and tiled_impl != "factored"
-            and pathgen_tiled_cuda.supports(n_steps)):
+    slab = tiled_impl == "slab" or (tiled_impl == "auto" and form == "chol")
+    if slab and pathgen_tiled_cuda.supports(n_steps, form):
         return "tiled"
     cap = pathgen_factored_cuda.max_factored_steps()
     if tiled_impl != "slab" and pathgen_factored_cuda.supports(n_steps):
@@ -227,9 +226,18 @@ def resolve_kernel_family(n_steps: int, fgn_form: str = "auto",
     if tiled_impl == "slab":
         raise ValueError(
             f"tiled_impl='slab' cannot cover n_steps={n_steps} (K6/K7 take "
-            f"n <= {pathgen_tiled_cuda.max_tiled_steps()}); use "
-            "tiled_impl='auto'")
+            f"n <= {pathgen_tiled_cuda.max_tiled_steps(form)} in the {form} "
+            "form); use tiled_impl='auto'")
     return "stream"
+
+
+def kernel_fgn_form(fgn_form: str, family: str = "single") -> str:
+    """The fGN form of the kernel bodies a configuration runs on
+    ``family``: "spectral" where ``fgn_form`` asks for it and on the
+    factored family (the spectral law), else "chol" (JAX's "auto")."""
+    if fgn_form == "spectral" or family == "factored":
+        return "spectral"
+    return "chol"
 
 
 # ---------------------------------------------------------------------------
@@ -603,9 +611,10 @@ class _FusedStream:
             self.consts = pathgen_factored_cuda.make_factored_consts(
                 s0, xi, h, eta, r, config.n_steps, config.dt, device)
             return
+        form = kernel_fgn_form(config.fgn_form)
         if self.kernel_family == "single":
             block = config.block_paths or pathgen_cuda.max_block_paths(
-                config.n_steps)
+                config.n_steps, form)
             while config.chunk_paths % block or config.pilot_paths % block:
                 block //= 2
             self._pathgen = pathgen_cuda.pathgen
@@ -614,7 +623,7 @@ class _FusedStream:
             self._pathgen = pathgen_tiled_cuda.tiled_pathgen
         self.consts = pathgen_cuda.make_path_consts(
             s0, xi, h, eta, r, config.n_steps, config.dt, device,
-            block_paths=block)
+            block_paths=block, fgn_form=form)
 
     @functools.cached_property
     def greeks_consts(self) -> pathgen_cuda.GreeksConsts:
@@ -664,6 +673,12 @@ class _FusedStream:
                 "K3/K4 run on the single-tile horizons only; Greeks past "
                 f"{SINGLE_TILE_MAX_STEPS} steps need the tiled Greeks or "
                 "the jvp stream (ROADMAP A10)")
+        if self.consts.spectral:
+            raise NotImplementedError(
+                "fgn_form='spectral': the fused Greeks kernels K3/K4 take "
+                "the chol form only, as the JAX engine's do; a spectral "
+                "configuration's Greeks take JAX's jvp stream, which is not "
+                "ported (ROADMAP A10)")
 
     def _n_paths(self, n_paths: Optional[int]) -> int:
         if n_paths is None:
@@ -853,8 +868,10 @@ class StreamingPricer(_FusedStream):
         ``control_variate`` a CVFit, beta and center as floats).  With
         ``noise`` the chunks read that noise instead of the seeded stream:
         [n_chunks, 2, chunk_paths, n_steps] (N, W) on the single and tiled
-        families, [n_chunks, 3, chunk_paths, m2] (Zr, Zi in the transposed
-        storage order, W; m2 = next_pow2(n_steps)) on the factored family
+        families, [n_chunks, 3, chunk_paths, n_steps] (Zr, Zi, W) there
+        under ``fgn_form="spectral"``, [n_chunks, 3, chunk_paths, m2] (Zr,
+        Zi in the transposed storage order, W; m2 = next_pow2(n_steps)) on
+        the factored family
         (see ``pathgen_factored_cuda``), (z [n_chunks, 2, chunk_paths,
         n_steps], dw [n_chunks, chunk_paths, n_steps]) on the generic
         stream (``pathgen_stream.paths_from_noise``); chunk_paths / 2 rows
@@ -1021,22 +1038,30 @@ def chain_family(config: StreamConfig) -> str:
     pricer's choice of its fused chain kernel or its XLA generator): the
     generic stream under ``pathgen_impl="xla"``, a ``poly_order`` other
     than 2, or past K5's horizon (``chain_cuda.MAX_CHAIN_STEPS``), else
-    the single-strike pricer's pilot family, with K5 streaming."""
-    if not chain_cuda.supports(config.n_steps):
+    the single-strike pricer's pilot family, with K5 streaming in that
+    family's fGN form (``kernel_fgn_form``)."""
+    family = resolve_kernel_family(config.n_steps, config.fgn_form,
+                                   config.tiled_impl, config.pathgen_impl,
+                                   config.poly_order)
+    if not chain_cuda.supports(config.n_steps,
+                               kernel_fgn_form(config.fgn_form, family)):
         return "stream"
-    return resolve_kernel_family(config.n_steps, config.fgn_form,
-                                 config.tiled_impl, config.pathgen_impl,
-                                 config.poly_order)
+    return family
 
 
 class StreamingChainPricer(_FusedStream):
     """Price a strike strip of one expiry on shared paths (counterpart of
     the JAX ``StreamingChainPricer``'s non-bucketed branches).
 
-    The pilot comes from K1 (K6 past 365 steps) with the carriers
-    ``StreamingPricer`` uses, so a strike of the strip and a single-strike
-    pricer with the same seed fit on the same pilot and stream the same
-    paths.  One backward pass fits the whole strip (``lsm_fit`` with a
+    The pilot comes from the single-strike pricer's path kernel (K1 up to
+    365 steps; past them K6 on the slab, or K8 on the factored family,
+    which ``fgn_form="spectral"`` and ``tiled_impl="factored"`` take)
+    with the carriers ``StreamingPricer`` uses, so a strike of the strip
+    and a single-strike pricer with the same seed fit on the same pilot,
+    and stream the same paths up to 365 steps and on the slab.  K5 runs
+    in the fGN form of the pilot's law: on the factored family it keeps
+    its own spectral constants (``chain_consts``) beside K8's.  One
+    backward pass fits the whole strip (``lsm_fit`` with a
     strike tensor), and each chunk runs K5 once per 32 strikes, every
     strike swept against the same path block (K5's pair form under
     ``antithetic``).  ``price_and_greeks`` runs K4 on the same stream.
@@ -1062,12 +1087,17 @@ class StreamingChainPricer(_FusedStream):
                 "bucketed and traced-market chains (the serving pricers) "
                 "are not ported (ROADMAP A13)")
         family = chain_family(config)
-        if family == "factored":
-            raise NotImplementedError(
-                "the chain kernel K5 has no spectral form yet (ROADMAP B5)")
         super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
                          device, family)
         self.strikes = self._strip(strikes)
+        # K5's constants: the pilot family's (K1's, K6's), or on the
+        # factored family the spectral single-tile constants of the same
+        # law (K8's FactoredConsts carry no dense matrices).
+        self.chain_consts = self.consts
+        if family == "factored":
+            self.chain_consts = pathgen_cuda.make_path_consts(
+                s0, xi, h, eta, r, config.n_steps, config.dt, self.device,
+                fgn_form="spectral")
 
     def _strip(self, strikes) -> torch.Tensor:
         strip = torch.as_tensor(strikes, dtype=torch.float32).reshape(-1)
@@ -1127,7 +1157,8 @@ class StreamingChainPricer(_FusedStream):
         """Stream the strip against given fits (leading [K] axis), e.g.
         converted from the JAX package with ``polyfit_from_numpy``.  With
         ``noise`` the chunks read that noise instead of the seeded stream:
-        [n_chunks, 2, chunk_paths, n_steps] on K5, (z, dw) as
+        [n_chunks, 2 or 3, chunk_paths, n_steps] on K5 (3 planes Zr, Zi,
+        W in the spectral form, ``chain_consts.n_planes``), (z, dw) as
         ``StreamingPricer.price_with_fit`` takes them on the generic
         stream; chunk_paths / 2 rows a chunk under ``antithetic``."""
         strip = self.strikes if strikes is None else self._strip(strikes)
@@ -1142,7 +1173,7 @@ class StreamingChainPricer(_FusedStream):
                                            self.is_call)
         return self._stream(
             lambda **kw: chain_cuda.priced_chain(
-                self.consts, tables, self.is_call,
+                self.chain_consts, tables, self.is_call,
                 antithetic=self.config.antithetic, **kw),
             seed, n_paths, noise, ex0, p0, with_stderr)
 

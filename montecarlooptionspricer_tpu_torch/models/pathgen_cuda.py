@@ -23,6 +23,16 @@ Two kernels live in ``csrc/pathgen.cu``:
   the chunk's martingale-control sum ``cv_disc * sum_p S_{p,n}``, cv_disc =
   exp(-r n dt).
 
+Both run in two fGN forms, carried by the ``PathConsts`` they are given
+(``make_path_consts(fgn_form=)``): "chol", one noise plane N and the
+upper-triangular Cholesky factor, ``X = N @ Lt'``; and "spectral"
+(counterpart: ``fgn_form="spectral"``, ``_fgn_x:142``), three planes (Zr,
+Zi, W) and the reference's dense two-matrix map ``X = Zr @ Cr' - Zi @ Ci'``
+(``Cr' = 0.5 Cr``, ``Ci' = 0.5 Ci``, ``engine._fgn_matrices_np``).  The
+two are the same Gaussian law.  Noise is [2, rows, n_steps] (N, W) or
+[3, rows, n_steps] (Zr, Zi, W).  The launch counters count each form
+apart (``form_name``: "spectral", "spectral/anti", ...).
+
 Each kernel has a seeded entry (Philox4x32-10 written into the kernel) and
 a noise-in entry.  The wrappers run the plain versions for tensors on the
 CPU and launch the kernel for tensors on a CUDA device; nothing falls back.
@@ -37,7 +47,11 @@ that of (x2, x3): u = (bits >> 8) * 2^-24 + 2^-25, radius
 sqrt(-2 log u_a), angle 2 pi u_b, N = radius cos, W = radius sin.  A
 paired chunk of ``rows`` paths draws rows / 2 rows: drawn row q is the
 stream's row q, in K1's pair form as in K2's, so one key gives both the
-same pairs.
+same pairs.  The spectral form's Zr and W are that N and W; its Zi of
+steps 4q .. 4q+3 comes from counter (p, q, 3, 0), the cos and sin of the
+pair of (x0, x1), then of (x2, x3) (``philox_spectral_normals_ref``), a
+third word no other stream uses, so one key gives the chol and spectral
+bodies the same W.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -131,6 +146,46 @@ def philox_normals_ref(key: int, rows: int, n_steps: int, device="cpu",
     return torch.stack([n[:, :n_steps], w[:, :n_steps]])
 
 
+SPECTRAL_ZI_WORD = 3   # third counter word of the spectral form's Zi
+
+
+def normal_quads_ref(key: int, rows: int, n_steps: int, word: int,
+                     device="cpu", row0: int = 0) -> torch.Tensor:
+    """[rows, n_steps] float32 normals of the stream ``normal_quad`` of
+    csrc/philox.cuh: counter (row, q, word, 0) gives steps 4q .. 4q+3, the
+    cos and sin of the Box-Muller pair of (x0, x1), then of (x2, x3)."""
+    quads = (n_steps + 3) // 4
+    p = torch.arange(row0, row0 + rows, dtype=torch.int64,
+                     device=device)[:, None].expand(rows, quads)
+    q = torch.arange(quads, dtype=torch.int64,
+                     device=device)[None, :].expand(rows, quads)
+    x0, x1, x2, x3 = philox4x32_10(p, q, torch.full_like(p, word),
+                                   torch.zeros_like(p), key & _U32, 0)
+    c_a, s_a = _box_muller(x0, x1)
+    c_b, s_b = _box_muller(x2, x3)
+    return torch.stack([c_a, s_a, c_b, s_b], -1).reshape(
+        rows, 4 * quads)[:, :n_steps]
+
+
+def philox_spectral_normals_ref(key: int, rows: int, n_steps: int,
+                                device="cpu", row0: int = 0) -> torch.Tensor:
+    """[3, rows, n_steps] float32 (Zr, Zi, W) planes of the spectral form's
+    seeded stream (module docstring): Zr and W the chol stream's N and W,
+    Zi from the third counter word SPECTRAL_ZI_WORD."""
+    nw = philox_normals_ref(key, rows, n_steps, device, row0)
+    zi = normal_quads_ref(key, rows, n_steps, SPECTRAL_ZI_WORD, device, row0)
+    return torch.stack([nw[0], zi, nw[1]])
+
+
+def normals_ref(consts, key: int, rows: int, device="cpu",
+                row0: int = 0) -> torch.Tensor:
+    """The seeded kernels' noise of ``consts``' fGN form: [2, rows, n] (N,
+    W) or, spectral, [3, rows, n] (Zr, Zi, W)."""
+    make = (philox_spectral_normals_ref if consts.spectral
+            else philox_normals_ref)
+    return make(key, rows, consts.n_steps, device, row0)
+
+
 # ---------------------------------------------------------------------------
 # The card's shared-memory model (mirrors csrc/pathgen.cu).
 
@@ -141,35 +196,49 @@ BLOCK_CHOICES = (64, 32, 16)
 PAIRED_BLOCK_CHOICES = (128, 64, 32)   # pair members; half of them drawn
 
 # The estimator forms of the priced kernels K2, K7 and K9: the launch
-# counters' keys.
+# counters' keys (the chol form's; SPECTRAL prefixes the spectral form's).
 FORMS = ("plain", "anti", "cv", "anti+cv")
 # The forms of the whole-path kernels K1, K6 and K8.
 PATH_FORMS = FORMS[:2]
+SPECTRAL = "spectral"
+FGN_FORMS = ("chol", SPECTRAL)
 
 
-def form_name(antithetic: bool, with_cv: bool) -> str:
-    return FORMS[int(bool(antithetic)) + 2 * int(bool(with_cv))]
+def _spectral_name(form: str) -> str:
+    return SPECTRAL if form == "plain" else f"{SPECTRAL}/{form}"
 
 
-def new_form_counts() -> dict:
-    return dict.fromkeys(FORMS, 0)
+def form_name(antithetic: bool, with_cv: bool = False,
+              spectral: bool = False) -> str:
+    """A launch counter's key: "plain", "anti", "cv" or "anti+cv", and
+    "spectral", "spectral/anti", ... for the spectral fGN form."""
+    name = FORMS[int(bool(antithetic)) + 2 * int(bool(with_cv))]
+    return _spectral_name(name) if spectral else name
+
+
+def new_form_counts(forms=FORMS) -> dict:
+    """Zeroed launch counters of ``forms`` in both fGN forms."""
+    return dict.fromkeys([*forms, *map(_spectral_name, forms)], 0)
 
 
 def block_smem_bytes(n_steps: int, block_paths: int, n_products: int = 1,
-                     extra: int = 0) -> int:
+                     extra: int = 0, spectral: bool = False) -> int:
     """Shared memory of one single-tile CUDA block (``block_smem_bytes`` of
     csrc/fgn_tile.cuh, which K1-K5 share): the N and W planes (row stride
-    n_steps rounded up to odd, so rows fall on distinct banks), per fGN
-    product an X tile (stride TILE_COLS + 1) and a staged factor tile, and
-    ``extra`` floats."""
+    n_steps rounded up to odd, so rows fall on distinct banks; under
+    ``spectral`` Zr, Zi and W), per fGN product an X tile (stride
+    TILE_COLS + 1), the staged factor tiles (one per product, or Cr' and
+    Ci' under ``spectral``) and ``extra`` floats."""
     ld = n_steps | 1
-    floats = (2 * block_paths * ld + extra + n_products
-              * (block_paths * (TILE_COLS + 1) + TILE_K * TILE_COLS))
+    planes, staged = (3, 2) if spectral else (2, n_products)
+    floats = (planes * block_paths * ld + extra
+              + n_products * block_paths * (TILE_COLS + 1)
+              + staged * TILE_K * TILE_COLS)
     return 4 * floats
 
 
 def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
-               with_cv: bool = False) -> int:
+               with_cv: bool = False, spectral: bool = False) -> int:
     """K1 and K2 (``smem_bytes`` of csrc/pathgen.cu): one product and the
     path-sum slots (twice under CV).  A paired block of ``block_paths``
     members keeps half as many rows of noise and a product tile of every
@@ -177,7 +246,7 @@ def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
     drawn = block_paths // 2 if antithetic else block_paths
     return block_smem_bytes(
         n_steps, drawn, extra=(block_paths - drawn) * (TILE_COLS + 1)
-        + (2 if with_cv else 1) * block_paths)
+        + (2 if with_cv else 1) * block_paths, spectral=spectral)
 
 
 def fitting_block(smem, n_steps: int, rows: int = 0,
@@ -191,14 +260,26 @@ def fitting_block(smem, n_steps: int, rows: int = 0,
     return 0
 
 
-def max_block_paths(n_steps: int) -> int:
-    """Largest path block (64, 32 or 16) of K1/K2 at this horizon, or 0."""
-    return fitting_block(smem_bytes, n_steps)
+def _check_form(fgn_form: str) -> bool:
+    """Whether ``fgn_form`` ("chol" or "spectral") is the spectral one."""
+    if fgn_form not in FGN_FORMS:
+        raise ValueError(f"fgn_form must be one of {FGN_FORMS}, got "
+                         f"{fgn_form!r}")
+    return fgn_form == SPECTRAL
 
 
-def supports(n_steps: int) -> bool:
-    """Whether the single-tile kernels take this horizon."""
-    return n_steps >= 1 and max_block_paths(n_steps) > 0
+def max_block_paths(n_steps: int, fgn_form: str = "chol") -> int:
+    """Largest path block (64, 32 or 16) of K1/K2 at this horizon in this
+    fGN form, or 0 (the spectral form's three planes take 32 at 365
+    steps)."""
+    spectral = _check_form(fgn_form)
+    return fitting_block(lambda n, b: smem_bytes(n, b, spectral=spectral),
+                         n_steps)
+
+
+def supports(n_steps: int, fgn_form: str = "chol") -> bool:
+    """Whether the single-tile kernels take this horizon in this form."""
+    return n_steps >= 1 and max_block_paths(n_steps, fgn_form) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -217,41 +298,79 @@ def _half_var_drift(n_steps: int, s_pad: int, xi, h, eta, dt) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class PathConsts:
-    """Everything the path kernels read besides noise and policy: the
-    half-scaled upper-triangular Cholesky factor ``lt_half`` [n, n], the
-    half variance drift ``vd`` [n], the market scalars and the single-tile
-    kernels' path block (0 past their cap; the step-tiled kernels of
-    ``pathgen_tiled_cuda`` choose theirs from the row count).  Its
-    tensors' device decides where the wrappers run."""
+    """Everything the path kernels read besides noise and policy: the fGN
+    form's half-scaled factors, either the upper-triangular Cholesky
+    factor ``lt_half`` [n, n] (chol) or the dense spectral matrices
+    ``cr_half`` and ``ci_half`` [n, n] (spectral), the half variance drift
+    ``vd`` [n], the market scalars and the single-tile kernels' path block
+    (0 past their cap; the step-tiled kernels of ``pathgen_tiled_cuda``
+    choose theirs from the row count).  Its tensors' device decides where
+    the wrappers run."""
 
     n_steps: int
     block_paths: int
-    lt_half: torch.Tensor
+    lt_half: Optional[torch.Tensor]
     vd: torch.Tensor
     s0: float
     r: float
     dt: float
+    cr_half: Optional[torch.Tensor] = None
+    ci_half: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
-        return self.lt_half.device
+        return self.vd.device
+
+    @property
+    def spectral(self) -> bool:
+        return self.cr_half is not None
+
+    @property
+    def fgn_form(self) -> str:
+        return SPECTRAL if self.spectral else "chol"
+
+    @property
+    def n_planes(self) -> int:
+        """Noise planes a row reads: 3 (Zr, Zi, W) or 2 (N, W)."""
+        return 3 if self.spectral else 2
+
+    def factor_ptrs(self) -> tuple:
+        """The kernels' (lt, ci) pointer arguments: (Lt', null) or (Cr',
+        Ci')."""
+        if self.spectral:
+            return self.cr_half.data_ptr(), self.ci_half.data_ptr()
+        return self.lt_half.data_ptr(), None
 
 
 def make_path_consts(s0, xi, h, eta, r, n_steps: int, dt: float,
-                     device, block_paths: int = 0) -> PathConsts:
-    """PathConsts for the chol fGN form, at any horizon.  ``block_paths``
-    0 takes the largest single-tile block the card admits at this horizon
-    (0 past the single-tile cap); the single-tile wrappers check it."""
-    from .engine import _chol_matrix_host
+                     device, block_paths: int = 0,
+                     fgn_form: str = "chol") -> PathConsts:
+    """PathConsts for the chol or the spectral fGN form, at any horizon:
+    0.5 times the float64 host factors (``engine._chol_matrix_host``, or
+    ``engine._fgn_matrices_np``'s Cr and Ci) cast to float32.
+    ``block_paths`` 0 takes the largest single-tile block the card admits
+    at this horizon and form (0 past the single-tile cap); the single-tile
+    wrappers check it."""
+    from .engine import _chol_matrix_host, _fgn_matrices_np
 
-    lt = torch.tensor(_chol_matrix_host(n_steps, h, eta, dt),
-                      dtype=torch.float32)
+    spectral = _check_form(fgn_form)
+
+    def half(m):
+        m = torch.tensor(np.asarray(m), dtype=torch.float32)
+        return (0.5 * m).to(device).contiguous()
+
     vd = _half_var_drift(n_steps, n_steps, xi, h, eta, dt)[0]
-    bp = block_paths or max_block_paths(n_steps)
-    return PathConsts(n_steps=n_steps, block_paths=bp,
-                      lt_half=(0.5 * lt).to(device).contiguous(),
-                      vd=vd.to(device).contiguous(), s0=float(s0),
-                      r=float(r), dt=float(dt))
+    common = dict(n_steps=n_steps,
+                  block_paths=block_paths or max_block_paths(n_steps,
+                                                             fgn_form),
+                  vd=vd.to(device).contiguous(), s0=float(s0), r=float(r),
+                  dt=float(dt))
+    if spectral:
+        cr, ci = _fgn_matrices_np(n_steps, h, eta, dt)
+        return PathConsts(lt_half=None, cr_half=half(cr), ci_half=half(ci),
+                          **common)
+    return PathConsts(lt_half=half(_chol_matrix_host(n_steps, h, eta, dt)),
+                      **common)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -468,11 +587,21 @@ def pair_planes(x: torch.Tensor, w: torch.Tensor):
     return torch.cat([x, -x]), torch.cat([w, -w])
 
 
+def fgn_x_ref(consts: PathConsts, noise: torch.Tensor) -> torch.Tensor:
+    """[rows, n_steps] half-scaled fGN plane of the noise planes: N @ Lt'
+    (chol), or Zr @ Cr' - Zi @ Ci' (spectral, ``_fgn_x``), float32."""
+    if consts.spectral:
+        return (_matmul_f32(noise[0], consts.cr_half)
+                - _matmul_f32(noise[1], consts.ci_half))
+    return _matmul_f32(noise[0], consts.lt_half)
+
+
 def _log_paths_ref(consts: PathConsts, noise: torch.Tensor,
                    antithetic: bool = False) -> torch.Tensor:
     """[rows, n_steps] log prices, column c = step c + 1 (2 rows per row of
-    noise when ``antithetic``)."""
-    x, w = _matmul_f32(noise[0], consts.lt_half), noise[1]
+    noise when ``antithetic``), from [2 or 3, rows, n_steps] noise (W
+    last)."""
+    x, w = fgn_x_ref(consts, noise), noise[-1]
     if antithetic:
         x, w = pair_planes(x, w)
     return log_paths_from_x(consts, x, w)
@@ -490,7 +619,8 @@ def prices_from_log(ls: torch.Tensor, s0: float) -> torch.Tensor:
 
 def pathgen_from_noise_ref(consts: PathConsts, noise: torch.Tensor,
                            antithetic: bool = False) -> torch.Tensor:
-    """Plain K1: [2, rows, n_steps] (N, W) -> [rows, n_steps + 1] prices;
+    """Plain K1: [2, rows, n_steps] (N, W), or [3, rows, n_steps] (Zr, Zi,
+    W) spectral, -> [rows, n_steps + 1] prices;
     with ``antithetic`` [2 rows, n_steps + 1], the pairs' partners below
     the drawn rows."""
     return prices_from_log(_log_paths_ref(consts, noise, antithetic),
@@ -544,7 +674,8 @@ def first_hit_sum(ls: torch.Tensor, table: torch.Tensor, strike: float,
 
 def _noise_or_rows(consts, rows, key, noise, antithetic: bool = False):
     """The chunk's path count: ``rows`` for the seeded entry, else from
-    the noise [2, rows (rows / 2 when antithetic), n_steps]."""
+    the noise [planes, rows (rows / 2 when antithetic), n_steps], planes
+    2 (chol) or 3 (spectral)."""
     if (key is None) == (noise is None):
         raise ValueError("pass exactly one of key (seeded) or noise")
     if noise is None:
@@ -553,9 +684,11 @@ def _noise_or_rows(consts, rows, key, noise, antithetic: bool = False):
         if antithetic and rows % 2:
             raise ValueError(f"antithetic rows={rows} must be even")
         return rows
-    if noise.shape[0] != 2 or noise.shape[2] != consts.n_steps:
-        raise ValueError(f"noise must be [2, rows, {consts.n_steps}], got "
-                         f"{tuple(noise.shape)}")
+    planes = consts.n_planes
+    if (noise.dim() != 3 or noise.shape[0] != planes
+            or noise.shape[2] != consts.n_steps):
+        raise ValueError(f"{consts.fgn_form} noise must be [{planes}, rows, "
+                         f"{consts.n_steps}], got {tuple(noise.shape)}")
     return noise.shape[1] * (2 if antithetic else 1)
 
 
@@ -590,11 +723,12 @@ def priced_block_paths(consts: PathConsts, rows: int,
     choices = PAIRED_BLOCK_CHOICES if antithetic else [
         b for b in BLOCK_CHOICES if b <= consts.block_paths]
     for bp in choices:
-        if (smem_bytes(consts.n_steps, bp, antithetic, with_cv) <= SMEM_LIMIT
-                and rows % bp == 0):
+        if (smem_bytes(consts.n_steps, bp, antithetic, with_cv,
+                       consts.spectral) <= SMEM_LIMIT and rows % bp == 0):
             return bp
     raise ValueError(f"no K2 block of {tuple(choices)} fits the "
-                     f"{form_name(antithetic, with_cv)!r} form at "
+                     f"{form_name(antithetic, with_cv, consts.spectral)!r} "
+                     "form at "
                      f"n_steps={consts.n_steps} and divides rows={rows}")
 
 
@@ -603,7 +737,8 @@ def _kernel_args(consts: PathConsts, rows: int, key, noise,
     """Validated pointer and scalar arguments shared by both single-tile
     kernels (``block_paths`` 0: the constants' block, K1 and plain K2)."""
     check_device_inputs(consts, noise)
-    bp, cap = consts.block_paths, max_block_paths(consts.n_steps)
+    bp = consts.block_paths
+    cap = max_block_paths(consts.n_steps, consts.fgn_form)
     if bp not in BLOCK_CHOICES or bp > cap:
         raise ValueError(f"block_paths={bp} not in {BLOCK_CHOICES} or over "
                          f"the single-tile cap {cap} at "
@@ -612,7 +747,7 @@ def _kernel_args(consts: PathConsts, rows: int, key, noise,
     if rows % bp:
         raise ValueError(f"rows={rows} must divide by block_paths={bp}")
     noise_ptr = None if noise is None else noise.data_ptr()
-    return (noise_ptr, consts.lt_half.data_ptr(), consts.vd.data_ptr(),
+    return (noise_ptr, *consts.factor_ptrs(), consts.vd.data_ptr(),
             rows, consts.n_steps, bp, 0 if key is None else key & _U32)
 
 
@@ -632,14 +767,15 @@ def pathgen(consts: PathConsts, rows: int = None, key: int = None,
             antithetic: bool = False) -> torch.Tensor:
     """K1: [rows, n_steps + 1] float32 prices, S0 in column 0, from the
     seeded stream of ``key`` (a uint32 word, see _fold_words) or from
-    injected ``noise`` [2, rows, n_steps].  With ``antithetic`` the rows
-    are rows / 2 pairs (the seeded entry draws rows / 2 rows, noise is [2,
-    rows / 2, n_steps]): the drawn rows' paths, then their partners'."""
+    injected ``noise`` [planes, rows, n_steps] (``consts.n_planes``: 2 for
+    the chol form, 3 for the spectral).  With ``antithetic`` the rows are
+    rows / 2 pairs (the seeded entry draws rows / 2 rows, noise is
+    [planes, rows / 2, n_steps]): the drawn rows' paths, then their
+    partners'."""
     rows = _noise_or_rows(consts, rows, key, noise, antithetic)
     if consts.device.type == "cpu":
         if noise is None:
-            noise = philox_normals_ref(key, drawn_rows(rows, antithetic),
-                                       consts.n_steps)
+            noise = normals_ref(consts, key, drawn_rows(rows, antithetic))
         return pathgen_from_noise_ref(consts, noise, antithetic)
     bp = priced_block_paths(consts, rows, antithetic)
     args = _kernel_args(consts, rows, key, noise, bp)
@@ -653,12 +789,12 @@ def pathgen(consts: PathConsts, rows: int = None, key: int = None,
         torch.cuda.current_stream(consts.device).cuda_stream)
     _check(err, "pathgen")
     pathgen.launches += 1
-    pathgen.form_launches[PATH_FORMS[int(bool(antithetic))]] += 1
+    pathgen.form_launches[form_name(antithetic, False, consts.spectral)] += 1
     return out
 
 
 pathgen.launches = 0
-pathgen.form_launches = dict.fromkeys(PATH_FORMS, 0)
+pathgen.form_launches = new_form_counts(PATH_FORMS)
 
 
 def sums_from_partials(partial: torch.Tensor, with_cv: bool):
@@ -676,17 +812,16 @@ def priced_chunk(consts: PathConsts, table: torch.Tensor, strike: float,
     the log_boundary_rows ``table``, from the seeded stream of ``key`` or
     from injected ``noise``; with ``with_cv``, (payoff sum, control sum).
     With ``antithetic`` the chunk's ``rows`` paths are rows / 2 pairs:
-    the seeded entry draws rows / 2 rows, and injected noise is [2,
-    rows / 2, n_steps].  On the card each block writes one partial sum
-    per lane and the blocks are summed in a fixed order, so a seed gives
-    the same sums every run."""
+    the seeded entry draws rows / 2 rows, and injected noise is [planes,
+    rows / 2, n_steps] (planes as K1's).  On the card each block writes
+    one partial sum per lane and the blocks are summed in a fixed order,
+    so a seed gives the same sums every run."""
     rows = _noise_or_rows(consts, rows, key, noise, antithetic)
     if table.shape[0] < 3 or table.shape[1] < consts.n_steps:
         raise ValueError("table must be [8, >= n_steps] (log_boundary_rows)")
     if consts.device.type == "cpu":
         if noise is None:
-            noise = philox_normals_ref(key, drawn_rows(rows, antithetic),
-                                       consts.n_steps)
+            noise = normals_ref(consts, key, drawn_rows(rows, antithetic))
         return priced_chunk_from_noise_ref(consts, table, noise, strike,
                                            is_call, antithetic, with_cv)
     bp = priced_block_paths(consts, rows, antithetic, with_cv)
@@ -704,7 +839,8 @@ def priced_chunk(consts: PathConsts, table: torch.Tensor, strike: float,
         torch.cuda.current_stream(consts.device).cuda_stream)
     _check(err, "priced_chunk")
     priced_chunk.launches += 1
-    priced_chunk.form_launches[form_name(antithetic, with_cv)] += 1
+    priced_chunk.form_launches[form_name(antithetic, with_cv,
+                                         consts.spectral)] += 1
     return sums_from_partials(partial, with_cv)
 
 

@@ -223,21 +223,16 @@ def philox_factored_normals_ref(key: int, rows: int, n_steps: int,
         nb = min(block_rows, rows - b0)
         p = torch.arange(row0 + b0, row0 + b0 + nb, dtype=torch.int64,
                          device=device)[:, None]
-        for tag, width in ((1, m2 // 2), (2, m2 // 4)):
-            j = torch.arange(width, dtype=torch.int64, device=device)[None, :]
-            pp, jj = p.expand(nb, width), j.expand(nb, width)
-            x0, x1, x2, x3 = pc.philox4x32_10(pp, jj, torch.full_like(pp, tag),
-                                              torch.zeros_like(pp), k, 0)
-            c_a, s_a = pc._box_muller(x0, x1)
-            c_b, s_b = pc._box_muller(x2, x3)
-            if tag == 1:
-                out[0, b0:b0 + nb] = torch.stack([c_a, c_b], -1).reshape(nb,
-                                                                         m2)
-                out[1, b0:b0 + nb] = torch.stack([s_a, s_b], -1).reshape(nb,
-                                                                         m2)
-            else:
-                out[2, b0:b0 + nb] = torch.stack([c_a, s_a, c_b, s_b],
-                                                 -1).reshape(nb, m2)
+        j = torch.arange(m2 // 2, dtype=torch.int64, device=device)[None, :]
+        pp, jj = p.expand(nb, m2 // 2), j.expand(nb, m2 // 2)
+        x0, x1, x2, x3 = pc.philox4x32_10(pp, jj, torch.full_like(pp, 1),
+                                          torch.zeros_like(pp), k, 0)
+        c_a, s_a = pc._box_muller(x0, x1)
+        c_b, s_b = pc._box_muller(x2, x3)
+        out[0, b0:b0 + nb] = torch.stack([c_a, c_b], -1).reshape(nb, m2)
+        out[1, b0:b0 + nb] = torch.stack([s_a, s_b], -1).reshape(nb, m2)
+        out[2, b0:b0 + nb] = pc.normal_quads_ref(k, nb, m2, 2, device,
+                                                 row0 + b0)
     return out
 
 
@@ -415,4 +410,4 @@ def factored_priced_chunk(consts: FactoredConsts, table: torch.Tensor,
 
 
 factored_priced_chunk.launches = 0
-factored_priced_chunk.form_launches = pc.new_form_counts()
+factored_priced_chunk.form_launches = dict.fromkeys(pc.FORMS, 0)

@@ -1,7 +1,8 @@
 """Step-tiled rough-Bergomi path kernels for Hopper: the long horizons.
 
 Counterpart: ``montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py``
-(its chol slab).  Two kernels live in ``csrc/pathgen_tiled.cu``:
+(its slab, chol and spectral: ``_fgn_tile:125``).  Two kernels live in
+``csrc/pathgen_tiled.cu``:
 
 * K6 ``tiled_pathgen`` (replaces ``_tiled_pathgen_kernel`` /
   ``_tiled_pathgen_kernel_noise_in``): ``[rows, n_steps + 1]`` prices with
@@ -13,13 +14,16 @@ Counterpart: ``montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py``
   forms (``antithetic``, ``with_cv``).
 
 They compute the same function as K1 and K2 of ``pathgen_cuda``, re-blocked
-over the step axis, and the seeded entries draw the same Philox stream.  So
-their plain versions are K1's and K2's, named here as
-``pathgen_from_noise_ref`` and ``priced_chunk_from_noise_ref``.  The
+over the step axis, in the fGN form of the ``PathConsts`` they are given
+(chol, or spectral: three noise planes and the dense ``Zr @ Cr' - Zi @
+Ci'``), and the seeded entries draw the same Philox stream.  So their plain
+versions are K1's and K2's, named here as ``pathgen_from_noise_ref`` and
+``priced_chunk_from_noise_ref``.  The
 wrappers run the plain versions for tensors on the CPU and launch the
 kernel for tensors on a CUDA device; nothing falls back.
 
-The noise plane [2, rows, n_steps] stays in device memory and the kernels
+The noise planes [2, rows, n_steps] (N, W), or [3, rows, n_steps] (Zr, Zi,
+W) spectral, stay in device memory and the kernels
 stream it through shared memory in k-tiles (the design note in the CUDA
 source says why); the seeded entries first draw their rows into a
 workspace plane the wrapper allocates.
@@ -48,30 +52,35 @@ L2_BYTES = 50 * 1024 * 1024  # H100 SXM L2 cache
 
 
 def smem_bytes(block_paths: int, antithetic: bool = False,
-               with_cv: bool = False) -> int:
+               with_cv: bool = False, spectral: bool = False) -> int:
     """Shared memory of one CUDA block (``mcop_tiled_smem_bytes``): the
-    N^T k-tile of its drawn rows (row stride drawn + 4), the Lt' k-tile,
-    the X tile of its ``block_paths`` paths (stride TILE_COLS + 1) and the
-    path-sum slots (twice under CV).  It does not depend on the
+    N^T k-tile of its drawn rows (row stride drawn + 4), the Lt' k-tile
+    (``spectral``: the Zr^T and Zi^T k-tiles and the Cr' and Ci'
+    k-tiles), the X tile of its ``block_paths`` paths (stride TILE_COLS +
+    1) and the path-sum slots (twice under CV).  It does not depend on the
     horizon."""
     drawn = block_paths // 2 if antithetic else block_paths
-    floats = (TILE_K * (drawn + 4) + TILE_K * TILE_COLS
+    floats = ((2 if spectral else 1) * (TILE_K * (drawn + 4)
+                                        + TILE_K * TILE_COLS)
               + block_paths * (TILE_COLS + 1)
               + (2 if with_cv else 1) * block_paths)
     return 4 * floats
 
 
-def max_tiled_steps() -> int:
-    """Largest horizon the tiled kernels take: every block streams the
-    whole triangle of Lt' (n^2 float32), and up to this horizon it stays
-    resident in the card's L2.  Shared memory, fixed by the tile shapes
-    (``smem_bytes``), bounds the block and not the horizon."""
-    return math.isqrt(L2_BYTES // 4)
+def max_tiled_steps(fgn_form: str = "chol") -> int:
+    """Largest horizon the tiled kernels take in this fGN form: every
+    block streams the whole of its factors (n^2 float32 each: Lt', or the
+    dense Cr' and Ci'), and up to this horizon they stay resident in the
+    card's L2: 3,620 steps chol, 2,560 spectral.  Shared memory, fixed by
+    the tile shapes (``smem_bytes``), bounds the block and not the
+    horizon."""
+    n_mats = 2 if pc._check_form(fgn_form) else 1
+    return math.isqrt(L2_BYTES // (4 * n_mats))
 
 
-def supports(n_steps: int) -> bool:
-    """Whether the tiled kernels take this horizon."""
-    return 1 <= n_steps <= max_tiled_steps()
+def supports(n_steps: int, fgn_form: str = "chol") -> bool:
+    """Whether the tiled kernels take this horizon in this form."""
+    return 1 <= n_steps <= max_tiled_steps(fgn_form)
 
 
 def block_paths_for(rows: int, antithetic: bool = False) -> int:
@@ -98,8 +107,9 @@ def _plane_args(consts: pc.PathConsts, rows: int, key, noise,
     bp = block_paths_for(rows, antithetic)
     if noise is not None:
         return noise, 0, bp, 0
-    plane = torch.empty((2, pc.drawn_rows(rows, antithetic), consts.n_steps),
-                        dtype=torch.float32, device=consts.device)
+    plane = torch.empty((consts.n_planes, pc.drawn_rows(rows, antithetic),
+                         consts.n_steps), dtype=torch.float32,
+                        device=consts.device)
     return plane, 1, bp, key & pc._U32
 
 
@@ -107,15 +117,16 @@ def tiled_pathgen(consts: pc.PathConsts, rows: int = None, key: int = None,
                   noise: torch.Tensor = None,
                   antithetic: bool = False) -> torch.Tensor:
     """K6: [rows, n_steps + 1] float32 prices, S0 in column 0, from the
-    seeded stream of ``key`` or from injected ``noise`` [2, rows,
-    n_steps]; the same function as ``pathgen_cuda.pathgen``, in both its
-    forms (``antithetic``: rows / 2 drawn rows, noise [2, rows / 2,
-    n_steps], the partners' paths below the drawn rows')."""
+    seeded stream of ``key`` or from injected ``noise`` [planes, rows,
+    n_steps] (2 planes chol, 3 spectral); the same function as
+    ``pathgen_cuda.pathgen``, in both its forms (``antithetic``: rows / 2
+    drawn rows, noise [planes, rows / 2, n_steps], the partners' paths
+    below the drawn rows')."""
     rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
     if consts.device.type == "cpu":
         if noise is None:
-            noise = pc.philox_normals_ref(
-                key, pc.drawn_rows(rows, antithetic), consts.n_steps)
+            noise = pc.normals_ref(consts, key,
+                                   pc.drawn_rows(rows, antithetic))
         return pathgen_from_noise_ref(consts, noise, antithetic)
     plane, seeded, bp, word = _plane_args(consts, rows, key, noise,
                                           antithetic)
@@ -124,19 +135,20 @@ def tiled_pathgen(consts: pc.PathConsts, rows: int = None, key: int = None,
     from ..kernels import build
 
     err = build.load().mcop_tiled_pathgen(
-        plane.data_ptr(), seeded, consts.lt_half.data_ptr(),
+        plane.data_ptr(), seeded, *consts.factor_ptrs(),
         consts.vd.data_ptr(), rows, consts.n_steps, bp, word,
         *pc._scalars(consts), ctypes.c_float(consts.s0),
         int(bool(antithetic)), out.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, "tiled_pathgen")
     tiled_pathgen.launches += 1
-    tiled_pathgen.form_launches[pc.PATH_FORMS[int(bool(antithetic))]] += 1
+    tiled_pathgen.form_launches[pc.form_name(antithetic, False,
+                                             consts.spectral)] += 1
     return out
 
 
 tiled_pathgen.launches = 0
-tiled_pathgen.form_launches = dict.fromkeys(pc.PATH_FORMS, 0)
+tiled_pathgen.form_launches = pc.new_form_counts(pc.PATH_FORMS)
 
 
 def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
@@ -147,16 +159,16 @@ def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
     the log_boundary_rows ``table``, from the seeded stream of ``key`` or
     from injected ``noise``, and with ``with_cv`` the control sum beside
     it; the same function as ``pathgen_cuda.priced_chunk`` in each form
-    (``antithetic``: rows / 2 drawn rows, noise [2, rows / 2, n_steps]).
-    Each block writes one partial sum per lane and the blocks are summed
-    in a fixed order."""
+    (``antithetic``: rows / 2 drawn rows, noise [planes, rows / 2,
+    n_steps]).  Each block writes one partial sum per lane and the blocks
+    are summed in a fixed order."""
     rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
     if table.shape[0] < 3 or table.shape[1] < consts.n_steps:
         raise ValueError("table must be [8, >= n_steps] (log_boundary_rows)")
     if consts.device.type == "cpu":
         if noise is None:
-            noise = pc.philox_normals_ref(
-                key, pc.drawn_rows(rows, antithetic), consts.n_steps)
+            noise = pc.normals_ref(consts, key,
+                                   pc.drawn_rows(rows, antithetic))
         return priced_chunk_from_noise_ref(consts, table, noise, strike,
                                            is_call, antithetic, with_cv)
     plane, seeded, bp, word = _plane_args(consts, rows, key, noise,
@@ -167,7 +179,7 @@ def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
     from ..kernels import build
 
     err = build.load().mcop_tiled_priced_chunk(
-        plane.data_ptr(), seeded, consts.lt_half.data_ptr(),
+        plane.data_ptr(), seeded, *consts.factor_ptrs(),
         consts.vd.data_ptr(), rows, consts.n_steps, bp, word,
         *pc._scalars(consts), table.data_ptr(), table.stride(0),
         ctypes.c_float(strike), int(bool(is_call)), int(bool(antithetic)),
@@ -176,7 +188,8 @@ def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, "tiled_priced_chunk")
     tiled_priced_chunk.launches += 1
-    tiled_priced_chunk.form_launches[pc.form_name(antithetic, with_cv)] += 1
+    tiled_priced_chunk.form_launches[pc.form_name(antithetic, with_cv,
+                                                  consts.spectral)] += 1
     return pc.sums_from_partials(partial, with_cv)
 
 

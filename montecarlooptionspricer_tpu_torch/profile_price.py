@@ -22,7 +22,11 @@ past K5's 512 steps.  ``--bounds`` profiles ``price_with_bounds``: the
 fit is ``bounds_fit`` (pilot, LSM fit, the hedge's quartic fits and the
 dual's scale), the stream ``bounds_with_fit`` (the family's path kernel,
 K1, K6 or K8, paired with ``--antithetic``, and the lower and upper sums of
-each chunk's whole paths).  For each stage it
+each chunk's whole paths).  ``--fgn-form`` passes through to
+``StreamConfig.fgn_form`` as the JAX bench's ``BENCH_FGN_FORM`` does:
+"spectral" runs the spectral bodies (K1/K2 at 365 steps, K5 for a strip,
+K6/K7 with ``--tiled-impl slab``; K8/K9 past 365 steps otherwise).  For
+each stage it
 prints one JSON line: host wall seconds, device kernel launches and busy
 seconds from the trace, the idle share 1 - busy / wall (against the
 unprofiled and the profiled wall), and the kernels that take the most
@@ -32,6 +36,7 @@ Usage (one CUDA card):
   python -m montecarlooptionspricer_tpu_torch.profile_price [--steps N]
       [--strikes 75,77.5,...,125] [--greeks] [--tiled-impl factored]
       [--antithetic] [--control-variate] [--pathgen xla] [--bounds]
+      [--fgn-form {auto,chol,spectral}]
 """
 
 from __future__ import annotations
@@ -90,6 +95,9 @@ def main(argv=None) -> int:
                         help="StreamConfig.control_variate (single strikes)")
     parser.add_argument("--bounds", action="store_true",
                         help="profile price_with_bounds (single strikes)")
+    parser.add_argument("--fgn-form", default="auto",
+                        choices=("auto", "chol", "spectral"),
+                        help="StreamConfig.fgn_form")
     parser.add_argument("--pathgen", default="pallas",
                         choices=("pallas", "xla"),
                         help="StreamConfig.pathgen_impl")
@@ -113,6 +121,7 @@ def main(argv=None) -> int:
                               tiled_impl=args.tiled_impl,
                               antithetic=args.antithetic,
                               control_variate=args.control_variate,
+                              fgn_form=args.fgn_form,
                               pathgen_impl=args.pathgen)
     if strikes:
         pricer = engine.StreamingChainPricer(
@@ -153,7 +162,8 @@ def main(argv=None) -> int:
             "bounds": args.bounds,
             "antithetic": args.antithetic,
             "control_variate": args.control_variate,
-            "kernel_family": pricer.kernel_family, "card": card,
+            "kernel_family": pricer.kernel_family,
+            "fgn_form": args.fgn_form, "card": card,
             "wall_s": wall_plain,
             "wall_profiled_s": wall_prof, "device_launches": len(kernels),
             "device_busy_s": busy_s,

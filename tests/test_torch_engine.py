@@ -114,13 +114,24 @@ def test_seed_carriers():
         tengine._check_pallas_chunk_range(1 << 20)
 
 
-@pytest.mark.parametrize("field,value", [("fgn_form", "spectral"),
-                                         ("policy_form", "quadratic")])
-def test_unported_configurations_raise(field, value):
+@pytest.mark.parametrize("field,value,want", [
+    ("fgn_form", "spectral", "single"),
+    ("policy_form", "quadratic", NotImplementedError),
+], ids=["fgn_form-spectral", "policy_form-quadratic"])
+def test_unported_configurations_raise(field, value, want):
+    """A quadratic policy is still to port and raises naming its ROADMAP
+    item; the spectral fGN form raised too until K1/K2 had their spectral
+    bodies, and now resolves to the single-tile family."""
     kw = dict(n_paths=1024, n_steps=32)
     kw[field] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine.StreamConfig(**kw)
+    if want is NotImplementedError:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tengine.StreamConfig(**kw)
+        return
+    cfg = tengine.StreamConfig(**kw)
+    assert tengine.resolve_kernel_family(
+        cfg.n_steps, cfg.fgn_form, cfg.tiled_impl, cfg.pathgen_impl,
+        cfg.poly_order) == want
 
 
 @pytest.mark.parametrize("field,value", [("poly_order", 3),

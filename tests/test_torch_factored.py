@@ -358,13 +358,18 @@ SLAB = ptc.max_tiled_steps()
     (CAP + 1, "auto", "factored", (ValueError, "tiled_impl='auto'")),
     (4000, "auto", "slab", (ValueError, "tiled_impl='slab'")),
     (1825, "cholesky", "auto", (ValueError, "fgn_form")),
-    # Still to port, each naming its ROADMAP item.
-    (365, "spectral", "auto", (NotImplementedError, "ROADMAP B1/B2")),
-    (1825, "spectral", "slab", (NotImplementedError, "ROADMAP B7")),
+    # The spectral bodies of K1/K2 and of the slab K6/K7
+    # (NotImplementedError naming ROADMAP B1/B2 and B7 before they were
+    # ported).
+    (365, "spectral", "auto", "single"),
+    (1825, "spectral", "slab", "tiled"),
     # Past K8's range: the generic path stream (NotImplementedError
     # before it was ported).
     (CAP + 1, "auto", "auto", "stream"),
     (CAP + 1, "spectral", "auto", "stream"),
+    # The spectral slab's range: both dense matrices in L2, 2,560 steps.
+    (2560, "spectral", "slab", "tiled"),
+    (2561, "spectral", "slab", (ValueError, "tiled_impl='slab'")),
 ])
 def test_kernel_family_table(n_steps, fgn_form, tiled_impl, want):
     if isinstance(want, str):
@@ -383,14 +388,23 @@ def test_kernel_family_table(n_steps, fgn_form, tiled_impl, want):
 
 
 def test_factored_chain_raises():
-    """The strike chain has no spectral form: a configuration that
-    resolves to K8/K9 raises naming ROADMAP B5."""
+    """A strip whose configuration resolves to K8/K9 (400 steps, spectral)
+    raised naming ROADMAP B5 until K5 had its spectral form.  It now runs
+    on the K8 pilot with K5 streaming on its own spectral constants (the
+    plain versions here), in both pricers' law; only its Greeks still
+    raise, naming ROADMAP A10 (the fused Greeks are chol only)."""
     cfg = tengine.StreamConfig(n_paths=1024, n_steps=400, chunk_paths=512,
                                pilot_paths=512, fgn_form="spectral")
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-        tengine.StreamingChainPricer(**BENCH_MARKET, strikes=[95.0, 105.0],
-                                     maturity=400 * DT, is_call=False,
-                                     config=cfg, device="cpu")
+    chain = tengine.StreamingChainPricer(
+        **BENCH_MARKET, strikes=[95.0, 105.0], maturity=400 * DT,
+        is_call=False, config=cfg, device="cpu")
+    assert tengine.chain_family(cfg) == chain.kernel_family == "factored"
+    assert isinstance(chain.consts, pfc.FactoredConsts)
+    assert chain.chain_consts.spectral
+    prices = chain.price(0)
+    assert prices.shape == (2,) and 0 < prices[0] < prices[1] < 105.0
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        chain.price_and_greeks(0)
 
 
 def test_factored_memory_model():

@@ -155,7 +155,7 @@ def test_tiled_wrappers_reject_bad_inputs(cuda):
     from montecarlooptionspricer_tpu_torch.kernels import build
 
     for bp in ptc.BLOCK_CHOICES:      # the Python memory model is the card's
-        assert build.load().mcop_tiled_smem_bytes(bp, 0, 0) == \
+        assert build.load().mcop_tiled_smem_bytes(bp, 0, 0, 0) == \
             ptc.smem_bytes(bp)
     consts = pc.make_path_consts(*MARKET.values(), 400, DT, cuda)
     table = torch.zeros((8, 512), device=cuda)
@@ -379,12 +379,12 @@ def test_chain_and_greeks_wrappers_reject_bad_inputs(cuda):
     lib = build.load()
     for n in (96, 365, 512):       # the Python memory models are the card's
         for bp in pc.BLOCK_CHOICES:
-            assert lib.mcop_chain_smem_bytes(n, bp, 0) == \
+            assert lib.mcop_chain_smem_bytes(n, bp, 0, 0) == \
                 cc.smem_bytes(n, bp)
             assert lib.mcop_greeks_smem_bytes(n, bp, 0) == \
                 gc.smem_bytes(n, bp)
         for bp in pc.PAIRED_BLOCK_CHOICES:
-            assert lib.mcop_chain_smem_bytes(n, bp, 1) == \
+            assert lib.mcop_chain_smem_bytes(n, bp, 1, 0) == \
                 cc.smem_bytes(n, bp, True)
             assert lib.mcop_greeks_smem_bytes(n, bp, 1) == \
                 gc.smem_bytes(n, bp, True)
@@ -635,7 +635,7 @@ def test_form_wrappers_reject_bad_inputs(cuda):
 
     for bp in ptc.PAIRED_BLOCK_CHOICES:
         for cv in (0, 1):
-            assert build.load().mcop_tiled_smem_bytes(bp, 1, cv) == \
+            assert build.load().mcop_tiled_smem_bytes(bp, 1, cv, 0) == \
                 ptc.smem_bytes(bp, True, bool(cv))
     consts = pc.make_path_consts(*MARKET.values(), 96, DT, cuda)
     table = torch.zeros((8, 128), device=cuda)
@@ -786,15 +786,255 @@ def test_bounds_on_the_card(cuda):
                 MARKET["s0"], MARKET["xi"], MARKET["h"], MARKET["eta"], -0.4,
                 MARKET["r"], 100.0, n_steps * DT, False, cfg, device=cuda)
             wrapper.launches = 0
-            wrapper.form_launches = dict.fromkeys(pc.PATH_FORMS, 0)
+            wrapper.form_launches = dict.fromkeys(wrapper.form_launches, 0)
             before = (pc.priced_chunk.launches,
                       ptc.tiled_priced_chunk.launches,
                       pfc.factored_priced_chunk.launches)
             lo, up, lo_se, up_se = pricer.price_with_bounds(
                 3, with_stderr=True)
             assert lo <= up and 0 < lo_se < 1 and 0 < up_se < 1
-            want = {"plain": 1 + (0 if anti else 4), "anti": 4 if anti else 0}
+            want = dict.fromkeys(wrapper.form_launches, 0)
+            want.update(plain=1 + (0 if anti else 4), anti=4 if anti else 0)
             assert wrapper.form_launches == want
             assert before == (pc.priced_chunk.launches,
                               ptc.tiled_priced_chunk.launches,
                               pfc.factored_priced_chunk.launches)
+
+
+# ---------------------------------------------------------------------------
+# The spectral fGN form of K1/K2, K5 and K6/K7 (three noise planes, the
+# dense X = Zr @ Cr' - Zi @ Ci').
+
+def _spectral(n_steps, cuda, block_paths=0):
+    return pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda,
+                               block_paths=block_paths, fgn_form="spectral")
+
+
+def _check_path_forms(pathgen, consts, rows, key, cuda):
+    """A whole-path kernel's spectral forms: plain and paired against the
+    plain versions at rtol 2e-4, seeded and on noise, and the pair form on
+    [3, rows / 2, n] equal to the bit to the unpaired form on [X; -X]
+    (every rounding of a partner's cell is the unpaired path's)."""
+    noise = pc.philox_spectral_normals_ref(key, rows, consts.n_steps,
+                                           device=cuda)
+    want = pc.pathgen_from_noise_ref(consts, noise)
+    for got in (pathgen(consts, noise=noise),
+                pathgen(consts, rows=rows, key=key)):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=0)
+    del want, noise
+    half = pc.philox_spectral_normals_ref(key, rows // 2, consts.n_steps,
+                                          device=cuda)
+    want = pc.pathgen_from_noise_ref(consts, half, True)
+    paired = pathgen(consts, noise=half, antithetic=True)
+    for got in (paired, pathgen(consts, rows=rows, key=key,
+                                antithetic=True)):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=0)
+    del want
+    unpaired = pathgen(consts, noise=torch.cat([half, -half], dim=1))
+    torch.cuda.synchronize()
+    assert torch.equal(paired, unpaired)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [96, 365])
+def test_spectral_k1_k2_match_plain_versions(cuda, n_steps):
+    """K1 and K2 spectral in every form at the main path's chunk of 131072
+    rows (a 32-path block at 365 steps, 64 members paired)."""
+    rows, key = 1 << 17, pc._fold_words(5, 43)
+    consts = _spectral(n_steps, cuda)
+    assert consts.block_paths == (32 if n_steps == 365 else 64)
+    _check_path_forms(pc.pathgen, consts, rows, key, cuda)
+    table = _fitted_table(consts, pc.pathgen(consts, rows=1 << 14, key=key),
+                          n_steps)
+    normals = lambda k, r: pc.philox_spectral_normals_ref(  # noqa: E731
+        k, r, n_steps, device=cuda)
+    noise = normals(key, rows)
+    want = float(pc.priced_chunk_from_noise_ref(consts, table, noise, 100.0,
+                                                False))
+    for got in (pc.priced_chunk(consts, table, 100.0, False, noise=noise),
+                pc.priced_chunk(consts, table, 100.0, False, rows=rows,
+                                key=key)):
+        torch.cuda.synchronize()
+        assert want > 0 and abs(float(got) / want - 1.0) < 1e-4
+    del noise
+    _check_forms(pc.priced_chunk, pc.priced_chunk_from_noise_ref, consts,
+                 table, normals, rows, key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps,n_strikes", [(365, 21), (512, 23)])
+def test_spectral_chain_matches_plain_version(cuda, n_steps, n_strikes):
+    """K5 spectral, plain and paired, seeded and noise-in, at 131072 rows:
+    1e-4 of each strike's scale (floored at 1e-3 of the largest); paired
+    on [3, rows / 2, n] against the unpaired form on [X; -X] at 1e-5."""
+    rows, key = 1 << 17, pc._fold_words(5, 47)
+    consts = _spectral(n_steps, cuda)
+    strikes = [float(k) for k in torch.linspace(80.0, 120.0, n_strikes)]
+    noise = pc.philox_spectral_normals_ref(key, rows, n_steps, device=cuda)
+    tables, _ = _strip_tables(cuda, consts, noise, strikes)
+    for anti in (False, True):
+        nz = noise[:, : rows // 2].contiguous() if anti else noise
+        want = cc.priced_chain_from_noise_ref(consts, tables, nz, False,
+                                              anti)
+        for got in (cc.priced_chain(consts, tables, False, noise=nz,
+                                    antithetic=anti),
+                    cc.priced_chain(consts, tables, False, rows=rows,
+                                    key=key, antithetic=anti)):
+            torch.cuda.synchronize()
+            assert _rel(got, want) < 1e-4, anti
+        if anti:
+            paired = cc.priced_chain(consts, tables, False, noise=nz,
+                                     antithetic=True)
+            unpaired = cc.priced_chain(consts, tables, False,
+                                       noise=torch.cat([nz, -nz], dim=1))
+            torch.cuda.synchronize()
+            assert _rel(paired, unpaired) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [1825, 300])
+def test_spectral_slab_matches_plain_versions(cuda, n_steps):
+    """K6 and K7 spectral in every form at 131072 rows; 300 steps crosses
+    three output tiles, each reading every k-tile."""
+    rows, key = 1 << 17, pc._fold_words(5, 53)
+    consts = _spectral(n_steps, cuda)
+    _check_path_forms(ptc.tiled_pathgen, consts, rows, key, cuda)
+    table = _fitted_table(
+        consts, ptc.tiled_pathgen(consts, rows=1 << 14, key=key), n_steps)
+    normals = lambda k, r: pc.philox_spectral_normals_ref(  # noqa: E731
+        k, r, n_steps, device=cuda)
+    noise = normals(key, rows)
+    want = float(ptc.priced_chunk_from_noise_ref(consts, table, noise, 100.0,
+                                                 False))
+    for got in (ptc.tiled_priced_chunk(consts, table, 100.0, False,
+                                       noise=noise),
+                ptc.tiled_priced_chunk(consts, table, 100.0, False,
+                                       rows=rows, key=key)):
+        torch.cuda.synchronize()
+        assert want > 0 and abs(float(got) / want - 1.0) < 1e-4
+    del noise
+    _check_forms(ptc.tiled_priced_chunk, ptc.priced_chunk_from_noise_ref,
+                 consts, table, normals, rows, key)
+
+
+@pytest.mark.gpu
+def test_spectral_wrappers_reject_bad_inputs(cuda):
+    """The spectral memory models are the card's; chol-shaped noise [2,
+    ...] under the spectral form (and [3, ...] under chol) raises before a
+    launch."""
+    from montecarlooptionspricer_tpu_torch.kernels import build
+
+    lib = build.load()
+    for n in (96, 365, 512):
+        for anti, choices in ((0, pc.BLOCK_CHOICES),
+                              (1, pc.PAIRED_BLOCK_CHOICES)):
+            for bp in choices:
+                assert lib.mcop_chain_smem_bytes(n, bp, anti, 1) == \
+                    cc.smem_bytes(n, bp, bool(anti), True)
+                for cv in (0, 1):
+                    assert lib.mcop_smem_bytes(n, bp, anti, cv, 1) == \
+                        pc.smem_bytes(n, bp, bool(anti), bool(cv), True)
+                    assert lib.mcop_smem_bytes(n, bp, anti, cv, 0) == \
+                        pc.smem_bytes(n, bp, bool(anti), bool(cv))
+    for anti, choices in ((0, ptc.BLOCK_CHOICES),
+                          (1, ptc.PAIRED_BLOCK_CHOICES)):
+        for bp in choices:
+            for cv in (0, 1):
+                assert lib.mcop_tiled_smem_bytes(bp, anti, cv, 1) == \
+                    ptc.smem_bytes(bp, bool(anti), bool(cv), True)
+    spec, chol = _spectral(64, cuda), pc.make_path_consts(
+        *MARKET.values(), 64, DT, cuda)
+    table = torch.zeros((8, 128), device=cuda)
+    tables = torch.zeros((3, 8, 128), device=cuda)
+    two = torch.zeros((2, 64, 64), device=cuda)
+    three = torch.zeros((3, 64, 64), device=cuda)
+    for fn in (lambda c, z: pc.pathgen(c, noise=z),
+               lambda c, z: pc.priced_chunk(c, table, 100.0, False, noise=z),
+               lambda c, z: cc.priced_chain(c, tables, False, noise=z),
+               lambda c, z: ptc.tiled_pathgen(c, noise=z),
+               lambda c, z: ptc.tiled_priced_chunk(c, table, 100.0, False,
+                                                   noise=z)):
+        with pytest.raises(ValueError, match="spectral noise"):
+            fn(spec, two)
+        with pytest.raises(ValueError, match="chol noise"):
+            fn(chol, three)
+    g = pc.make_greeks_consts(MARKET["xi"], MARKET["h"], MARKET["eta"], 64,
+                              DT, cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        gc.greeks_chunk(spec, g, table, 100.0, False, rows=64, key=1)
+
+
+@pytest.mark.gpu
+def test_spectral_engine_on_the_card(cuda):
+    """StreamingPricer and StreamingChainPricer with fgn_form="spectral"
+    launch only the spectral bodies (K1 and K2; K1 and K5 at 96 steps;
+    K8 and K5 at 400), and the single-strike price agrees with its plain
+    versions on the same seed and fits within 1e-4."""
+    counters = (pc.pathgen, pc.priced_chunk, cc.priced_chain,
+                pfc.factored_pathgen)
+    for fn in counters:
+        fn.form_launches = dict.fromkeys(fn.form_launches, 0)
+    cfg = engine.StreamConfig(n_paths=4 << 14, n_steps=96,
+                              chunk_paths=1 << 14, pilot_paths=1 << 14,
+                              dt=DT, fgn_form="spectral")
+    pricer = engine.StreamingPricer(**MARKET, rho=0.0, strike=100.0,
+                                    maturity=96 * DT, is_call=False,
+                                    config=cfg, device=cuda)
+    fits = pricer.fit(engine._pilot_stream_keys(3)[0])
+    price = pricer.price_with_fit(fits, 3)
+    consts = pricer.consts
+    table = pricer._make_rows(fits)
+    _, (run, start) = engine._pilot_stream_keys(3)
+    total = sum(float(pc.priced_chunk_from_noise_ref(
+        consts, table, pc.philox_spectral_normals_ref(
+            pc._fold_words(run, start + i), 1 << 14, 96, device=cuda),
+        100.0, False)) for i in range(4))
+    assert abs(price / (total / (4 << 14)) - 1.0) < 1e-4
+    assert pc.pathgen.form_launches == {"plain": 0, "anti": 0,
+                                        "spectral": 1, "spectral/anti": 0}
+    assert pc.priced_chunk.form_launches["spectral"] == 4
+    assert sum(pc.priced_chunk.form_launches.values()) == 4
+    for n_steps in (96, 400):
+        chain = engine.StreamingChainPricer(
+            **MARKET, rho=0.0, strikes=[95.0, 105.0],
+            maturity=n_steps * DT, is_call=False,
+            config=engine.StreamConfig(
+                n_paths=2 << 14, n_steps=n_steps, chunk_paths=1 << 14,
+                pilot_paths=1 << 14, dt=DT, fgn_form="spectral"),
+            device=cuda)
+        assert chain.kernel_family == ("single" if n_steps == 96
+                                       else "factored")
+        prices = chain.price(3)
+        assert all(0.0 < p < 105.0 for p in prices)
+    assert cc.priced_chain.form_launches == {"plain": 0, "anti": 0,
+                                             "spectral": 4,
+                                             "spectral/anti": 0}
+    assert pfc.factored_pathgen.form_launches["plain"] == 1
+
+
+@pytest.mark.gpu
+def test_spectral_upper_rows_reach_early_columns_on_card(cuda):
+    """Zr and Zi zero in the first output tile of each kernel (64 columns
+    for K1, 128 for K6) and random past it: the dense Cr' and Ci' carry
+    that noise into the first tile, so a kernel that kept the chol form's
+    triangle skip would leave it flat there.  Each kernel's paths against
+    its plain version at rtol 2e-4, and the first tile moved by more than
+    1e-2 from the paths without fGN noise."""
+    for pathgen, n_steps, tile in ((pc.pathgen, 150, pc.TILE_COLS),
+                                   (ptc.tiled_pathgen, 300, ptc.TILE_COLS)):
+        consts = _spectral(n_steps, cuda)
+        noise = pc.philox_spectral_normals_ref(pc._fold_words(5, 59),
+                                               1 << 14, n_steps, device=cuda)
+        noise[:2, :, :tile] = 0.0
+        got = pathgen(consts, noise=noise)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            got, pc.pathgen_from_noise_ref(consts, noise), rtol=2e-4, atol=0)
+        no_fgn = noise.clone()
+        no_fgn[:2] = 0.0
+        flat = pathgen(consts, noise=no_fgn)
+        torch.cuda.synchronize()
+        assert float((got[:, 1:tile + 1] - flat[:, 1:tile + 1]).abs()
+                     .max()) > 1e-2

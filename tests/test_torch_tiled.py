@@ -213,7 +213,7 @@ def test_cli_past_every_kernel_takes_the_stream(capsys, monkeypatch):
     them without an 8,193-step host matrix on the CPU."""
     from montecarlooptionspricer_tpu_torch.cli import price as tcli
 
-    monkeypatch.setattr(ptc, "max_tiled_steps", lambda: 300)
+    monkeypatch.setattr(ptc, "max_tiled_steps", lambda fgn_form="chol": 300)
     monkeypatch.setattr(pfc, "max_factored_steps", lambda: 300)
     assert tcli.main(["--steps", "400", "--maturity", "1.587", "--paths",
                       "512", "--chunk-paths", "256", "--pilot-paths", "256",
