@@ -84,7 +84,24 @@ to 0 just before it and read just after:
   (``price_spectral_slab_{anti,cv,anti_cv}``); ``bounds_spectral`` the
   bench bracket on K1/spectral and K1/spectral/anti, its lower bound held
   against ``price_spectral``, and the slab's paired bracket at 1825 steps
-  cut to 16 chunks.
+  cut to 16 chunks;
+* the quadratic exercise-policy forms (``policy_form="quadratic"`` on K2,
+  K7 and K9, ``chain_policy_form="quadratic"`` on K5): ``quadratic_forms``
+  holds each of the 12 forms (K2/quad, K2/quad/cv and their spectral
+  forms at 365 steps, K7's likewise at 1825, K9/quad and K9/quad/cv at
+  4000, K5/quad and K5/spectral/quad on the 21 strikes at 365) against
+  its plain version, seeded and on noise, timed beside its boundary
+  row's yardstick and its bound; ``price_quadratic`` prices 1e7 x 365
+  through K1 once and K2/quad 76 times, within 1e-4 of ``price`` on the
+  same seed, its first 8 chunks against the plain versions, and its
+  bounds' lower side (K1 77 times) within 1e-5 of it;
+  ``price_quadratic_cv`` within 1e-4 of ``price_cv``;
+  ``price_quadratic_{spectral,long,slab,factored}[_cv]``, cut to 16
+  chunks, within 5 combined stderr of a price of the same law; and
+  ``chain_quadratic`` the strip at 365 steps, chol and spectral (76
+  chunks), and at 400 on the K8 pilot (16 chunks), each strike within
+  1e-4 of the boundary strip under the same fits, or within 5 combined
+  stderr.  Each checks that only the quadratic forms launched.
 
 It also times K2 against K7 per chunk across horizons (the crossover that
 sets engine.SINGLE_TILE_MAX_STEPS) and times each kernel and form (K8 and
@@ -92,9 +109,10 @@ K9 at 1825 and 4000 steps).
 
 Usage (from the root of a checkout, one CUDA card):  python3 chip_smoke.py
 
-Every phase prints one JSON line and ends in torch.cuda.synchronize(); any
-failure exits non-zero.  The line before the last is the kernels' JSON
-record and the last line is
+Every phase prints one JSON line, with the seconds since the start
+("t_s"), and ends in torch.cuda.synchronize(); any failure exits
+non-zero.  The kernels' JSON record, then the card's name and power
+limit, come before the last line, which is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -204,6 +222,21 @@ FORMS = ((True, False), (False, True), (True, True))
 FIT_TRACES = 3
 FIT_LAUNCH_SLACK = 0.01
 
+# The quadratic exercise-policy forms: the price runs past the bench horizon
+# (and the spectral ones, whose law the chol runs cover) stream this many of
+# the 76 chunks, so the script stays within its time (each runs its own
+# pilot fit, seconds at 1825 and 4000 steps).  Operations of the policy per
+# cell a path tests up to its first hit: the exp of the price and ~10 for
+# the payoff, z, the polynomial and the two compares (K2, K7, K9); ~12 per
+# strike-cell of K5's sweep, which has S already.
+QUAD_CHUNKS = 16
+QUAD_CELL_OPS = 11.0
+QUAD_SWEEP_OPS = 12.0
+# Under the quadratic policy the bounds' lower side and ``price`` decide by
+# the same fitted quadratic on the same paths: only the float32 order of
+# the sums differs.
+QUAD_LOWER_RTOL = 1e-5
+
 # H100 SXM peaks (NVIDIA data sheet): float32 without tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -276,6 +309,25 @@ REPLACES = {
         "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:207",
     "K7/spectral/anti+cv":
         "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:395",
+    # The quadratic exercise-policy forms, keyed kernel[/spectral]/quad[/cv]:
+    # the cell-level policy of each family, and its control lane.
+    **{f"K2{f}/quad": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:277"
+       for f in ("", "/spectral")},
+    **{f"K2{f}/quad/cv":
+       "montecarlooptionspricer_tpu/models/pathgen_pallas.py:549"
+       for f in ("", "/spectral")},
+    **{f"K7{f}/quad":
+       "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:161"
+       for f in ("", "/spectral")},
+    **{f"K7{f}/quad/cv":
+       "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:320"
+       for f in ("", "/spectral")},
+    "K9/quad":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py:300",
+    "K9/quad/cv":
+        "montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py:282",
+    **{f"K5{f}/quad": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:302"
+       for f in ("", "/spectral")},
 }
 SOURCES = {
     "pathgen": "montecarlooptionspricer_tpu_torch/csrc/pathgen.cu",
@@ -310,6 +362,12 @@ SOURCES = {
            (6, "pathgen_tiled.cu", ("", "/anti")),
            (7, "pathgen_tiled.cu", ("", "/anti", "/cv", "/anti+cv")))
        for f in forms},
+    **{f"K{k}{spec}/quad{cv}": f"montecarlooptionspricer_tpu_torch/csrc/{src}"
+       for k, src, cvs in ((2, "pathgen.cu", ("", "/cv")),
+                           (7, "pathgen_tiled.cu", ("", "/cv")),
+                           (9, "pathgen_factored.cu", ("", "/cv")),
+                           (5, "chain.cu", ("",)))
+       for spec in (("",) if k == 9 else ("", "/spectral")) for cv in cvs},
 }
 # The priced wrappers whose launches count per form: the plain form keeps
 # the wrapper's name, the others are keyed kernel/form.
@@ -329,7 +387,14 @@ class SmokeError(RuntimeError):
     pass
 
 
+# perf_counter() when main() started: each phase's record carries the
+# seconds since then ("t_s"), so a run shows where the script's time goes.
+_START = [0.0]
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _START[0], 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -356,8 +421,9 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
 def bound_ms(rows: int, n: int, out_bytes: int, products: int = 1,
              per_cell: float = 8.0, policy_rows: int = 4,
              swept: int = 0, antithetic: bool = False,
-             with_cv: bool = False,
-             spectral: bool = False) -> tuple[float, str]:
+             with_cv: bool = False, spectral: bool = False,
+             sweep_ops: float = 4.0,
+             quad_cells: int = 0) -> tuple[float, str]:
     """Least time for one launch at this shape: the larger of the bytes
     that must move (the ``products`` triangular factors Lt' (and dLt'),
     vd and the ``policy_rows`` rows of [n] read once, the output written
@@ -366,8 +432,11 @@ def bound_ms(rows: int, n: int, out_bytes: int, products: int = 1,
     plus ``per_cell`` per cell of every path: ~8 for the variance,
     increment, running sum and test, ~18 with the Greeks' tangent brackets
     and sums; plus ~4 per strike-cell that a strike sweep visits,
-    ``swept``, counted from this run's stop steps; plus 2 per path for the
-    control's exp and sum ``with_cv``) over the float32 peak.  Under
+    ``swept``, counted from this run's stop steps (``sweep_ops``: ~12
+    under the quadratic policy); plus QUAD_CELL_OPS per cell that a
+    quadratic policy tests, ``quad_cells``, counted likewise; plus 2 per
+    path for the control's exp and sum ``with_cv``) over the float32
+    peak.  Under
     ``spectral`` the fGN product is the two dense [n, n] products Zr @ Cr'
     and Zi @ Ci' (2 n^2 multiply-adds per drawn path, both matrices read
     once), not the triangle."""
@@ -376,7 +445,8 @@ def bound_ms(rows: int, n: int, out_bytes: int, products: int = 1,
     drawn = rows // 2 if antithetic else rows
     product = (2.0 * 2 * drawn * n * n if spectral
                else 2.0 * products * drawn * n * (n + 1) / 2)
-    flops = (product + per_cell * rows * n + 4.0 * swept
+    flops = (product + per_cell * rows * n + sweep_ops * swept
+             + QUAD_CELL_OPS * quad_cells
              + (2.0 * rows if with_cv else 0.0))
     t_bytes, t_ops = bytes_ / PEAK_BYTES, flops / PEAK_F32_FLOPS
     if t_ops >= t_bytes:
@@ -960,7 +1030,8 @@ def long_horizon_phases(torch, pc, ptc, engine, smi, dev, key, rel_err,
 
 def factored_bound_ms(rows: int, n: int, out_bytes: int,
                       policy_rows: int = 0, antithetic: bool = False,
-                      with_cv: bool = False) -> tuple[float, str]:
+                      with_cv: bool = False,
+                      quad_cells: int = 0) -> tuple[float, str]:
     """Least time for one K8/K9 launch at this shape: the larger of the
     bytes that must move (the spectral diagonal [m2] complex, vd and
     ``policy_rows`` rows of [n] read once, the output written once; the
@@ -968,7 +1039,8 @@ def factored_bound_ms(rows: int, n: int, out_bytes: int,
     operations the function needs over the float32 peak: per drawn path
     the diagonal's complex multiply (6 per step) and one length-m2 complex
     FFT (5 m2 log2 m2), once per pair when ``antithetic``; per path ~8 per
-    step, and 2 for the control ``with_cv``.  The kernels' dense 128-point
+    step, and 2 for the control ``with_cv``; QUAD_CELL_OPS per cell a
+    quadratic policy tests (``quad_cells``).  The kernels' dense 128-point
     stage 1 and N2-point stage 2 (8 N2 128^2 + 4 N2 s_pad per path, 19
     times the FFT's count at m2 4096) are the TPU's choice of algorithm,
     not what the function needs, so they do not set the bound."""
@@ -976,7 +1048,8 @@ def factored_bound_ms(rows: int, n: int, out_bytes: int,
     bytes_ = 4 * (2 * m2 + (1 + policy_rows) * n) + out_bytes
     drawn = rows // 2 if antithetic else rows
     flops = (drawn * (5.0 * m2 * math.log2(m2) + 6.0 * n)
-             + rows * (8.0 * n + (2.0 if with_cv else 0.0)))
+             + rows * (8.0 * n + (2.0 if with_cv else 0.0))
+             + QUAD_CELL_OPS * quad_cells)
     t_bytes, t_ops = bytes_ / PEAK_BYTES, flops / PEAK_F32_FLOPS
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
@@ -2587,7 +2660,450 @@ def spectral_phases(torch, pc, cc, ptc, engine, smi, dev, key, rel_err,
                           t["library_ms"]) for form, t in times.items()]
 
 
+def quad_forms_phase(torch, pc, smi, kernel: str, priced, chunk_ref,
+                     consts, table, normals, key, library, bound, log_paths,
+                     spectral: bool = False) -> dict:
+    """``quadratic_forms``: one priced kernel's quadratic form, plain and
+    CV, at the bench chunk of 131072 rows under the policy_rows ``table``:
+    each lane against its plain version, seeded and on noise (SUM_RTOL),
+    then timed beside its plain version, the library yardstick
+    ``library()`` and its bound ``bound(with_cv, cells)`` = (ms, by),
+    ``cells`` the cells the policy tests on this noise (each path up to
+    its first hit, from ``log_paths(consts, noise)``).  Returns the forms'
+    numbers keyed kernel/form."""
+    out, checks = {}, []
+    noise = normals(key, CHUNK)
+    _, first, _ = pc.quadratic_stops(torch.exp(log_paths(consts, noise)),
+                                     table, IS_CALL)
+    cells = int((first + 1).sum())
+    del first
+    for cv in (False, True):
+        form = f"{kernel}/{pc.form_name(False, cv, spectral, True)}"
+        kw = dict(with_cv=cv, policy_form="quadratic")
+        want = lanes(chunk_ref(consts, table, noise, STRIKE, IS_CALL, False,
+                               cv, "quadratic"), cv)
+        got_n = lanes(priced(consts, table, STRIKE, IS_CALL, noise=noise,
+                             **kw), cv)
+        got_s = lanes(priced(consts, table, STRIKE, IS_CALL, rows=CHUNK,
+                             key=key, **kw), cv)
+        torch.cuda.synchronize()
+        err_n = max(abs(g / w - 1.0) for g, w in zip(got_n, want))
+        err_s = max(abs(g / w - 1.0) for g, w in zip(got_s, want))
+        checks.append({"form": form, "plain": want, "noise_in": got_n,
+                       "seeded": got_s, "noise_in_rel_err": err_n,
+                       "seeded_rel_err": err_s})
+        check(err_n <= SUM_RTOL and err_s <= SUM_RTOL,
+              f"{form} disagrees with its plain version")
+
+        def run(kw=kw):
+            priced(consts, table, STRIKE, IS_CALL, rows=CHUNK, key=key, **kw)
+
+        def plain(cv=cv):
+            chunk_ref(consts, table, normals(key, CHUNK), STRIKE, IS_CALL,
+                      False, cv, "quadratic")
+
+        b_ms, b_by = bound(cv, cells)
+        out[form] = {"ms": time_ms(torch, run, 5),
+                     "plain_ms": time_ms(torch, plain, 2),
+                     "library_ms": library(), "bound_ms": b_ms,
+                     "bound_by": b_by,
+                     "max_abs_err": max(abs(g - w)
+                                        for g, w in zip(got_s, want))}
+    del noise
+    emit({"phase": "quadratic_forms", "card": smi, "kernel": kernel,
+          "fgn_form": getattr(consts, "fgn_form", "spectral"),
+          "rows": CHUNK, "n_steps": consts.n_steps, "policy_cells": cells,
+          "checks": checks, "times": out, "rtol": SUM_RTOL})
+    return out
+
+
+def quad_chain_forms(torch, pc, cc, engine, smi, dev, key, base,
+                     spectral: bool) -> dict:
+    """``quadratic_forms`` of K5: K5/quad (or K5/spectral/quad) on the
+    21-strike strip's policy_rows tables at 365 steps and 131072 rows,
+    seeded and noise-in against its plain version (SUM_RTOL of each
+    strike's scale), timed beside the fGN-product yardstick and its bound
+    (QUAD_SWEEP_OPS per strike-cell swept, counted from this noise's
+    stops).  Returns its numbers keyed by form."""
+    import dataclasses
+
+    chain = engine.StreamingChainPricer(
+        **MARKET, strikes=STRIP, maturity=MATURITY, is_call=IS_CALL,
+        config=dataclasses.replace(base, chain_policy_form="quadratic",
+                                   fgn_form="spectral" if spectral
+                                   else "auto"), device=dev)
+    consts, k_n = chain.chain_consts, len(STRIP)
+    form = f"K5/{pc.form_name(False, spectral=spectral, quadratic=True)}"
+    tables = chain._tables(chain.fit(engine._pilot_stream_keys(SEED)[0]),
+                           chain.strikes)
+    check(tables.shape[1] == 8, "the quadratic strip's tables are not "
+          "policy_rows")
+    noise = pc.normals_ref(consts, key, CHUNK, device=dev)
+    want = cc.priced_chain_from_noise_ref(consts, tables, noise, IS_CALL,
+                                          policy_form="quadratic")
+    got_n = cc.priced_chain(consts, tables, IS_CALL, noise=noise,
+                            policy_form="quadratic")
+    got_s = cc.priced_chain(consts, tables, IS_CALL, rows=CHUNK, key=key,
+                            policy_form="quadratic")
+    torch.cuda.synchronize()
+    errs = [scaled_err(torch, g, want) for g in (got_n, got_s)]
+    s = torch.exp(pc._log_paths_ref(consts, noise))
+    swept = sum(int((pc.quadratic_stops(s, tab, IS_CALL, True)[1] + 1).sum())
+                for tab in tables)
+    del noise, s
+    check(max(errs) <= SUM_RTOL, f"{form} disagrees with its plain version")
+    blocks = CHUNK // cc.block_paths_for(N_STEPS, CHUNK, False, spectral)
+
+    def run():
+        cc.priced_chain(consts, tables, IS_CALL, rows=CHUNK, key=key,
+                        policy_form="quadratic")
+
+    def plain():
+        cc.priced_chain_from_noise_ref(
+            consts, tables, pc.normals_ref(consts, key, CHUNK, device=dev),
+            IS_CALL, policy_form="quadratic")
+
+    if spectral:
+        lib_ms = spectral_library(torch, consts, dev)(CHUNK)
+    else:
+        a = torch.randn((CHUNK, N_STEPS), device=dev)
+        lib_ms = time_ms(torch, lambda: torch.matmul(a, consts.lt_half),
+                         reps=10)
+        del a
+    b_ms, b_by = bound_ms(CHUNK, N_STEPS, 4 * blocks * k_n,
+                          policy_rows=1 + 8 * k_n, swept=swept,
+                          sweep_ops=QUAD_SWEEP_OPS, spectral=spectral)
+    out = {form: {"ms": time_ms(torch, run, 5),
+                  "plain_ms": time_ms(torch, plain, 2), "library_ms": lib_ms,
+                  "bound_ms": b_ms, "bound_by": b_by,
+                  "max_abs_err": float(torch.max(torch.abs(got_s - want)))}}
+    emit({"phase": "quadratic_forms", "card": smi, "kernel": "K5",
+          "form": form, "rows": CHUNK, "n_steps": N_STEPS,
+          "n_strikes": k_n, "swept_cells": swept,
+          "block_paths": CHUNK // blocks, "noise_in_rel_err": errs[0],
+          "seeded_rel_err": errs[1], "rtol": SUM_RTOL, "times": out[form]})
+    return out
+
+
+def quad_price_phase(torch, engine, smi, dev, name: str, n_steps: int,
+                     n_chunks: int, cfg_kw: dict, want: dict, ref: tuple,
+                     ref_name: str, reset_counts, read_counts,
+                     rtol: float = 0.0, fits=None):
+    """One price under ``policy_form="quadratic"``: fit() and
+    price_with_fit(), price()'s two stages, with the launch counts read
+    around them (exactly ``want``: the pilot kernel once and the quadratic
+    form n_chunks times, no boundary form), held against ``ref`` = (price,
+    stderr) of ``ref_name``: within ``rtol`` relative where ``rtol`` is
+    set (the boundary form's price on the same seed and chunks), else
+    within STDERR_SIGMAS combined stderr.  Given ``fits`` (the policy of
+    another run's pilot on the same seed) it streams under them and
+    ``want`` names no pilot.  Returns (pricer, price, stderr, launches,
+    fits)."""
+    cfg = engine.StreamConfig(n_paths=CHUNK * n_chunks, n_steps=n_steps,
+                              chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                              chunks_per_call=n_chunks,
+                              policy_form="quadratic", **cfg_kw)
+    pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                    maturity=n_steps * DT, is_call=IS_CALL,
+                                    config=cfg, device=dev)
+    reused = fits is not None
+    reset_counts()
+    if not reused:
+        fits, fit_s = timed(torch, lambda: pricer.fit(
+            engine._pilot_stream_keys(SEED)[0]))
+    (price, stderr), stream_s = timed(
+        torch, lambda: pricer.price_with_fit(fits, SEED, with_stderr=True))
+    launches = read_counts()
+    n_paths = CHUNK * n_chunks
+    rel = abs(price / ref[0] - 1.0)
+    sigmas = abs(price - ref[0]) / math.hypot(stderr, ref[1])
+    wall = stream_s if reused else fit_s + stream_s
+    rec = {"phase": name, "card": smi, "n_paths": n_paths,
+           "n_steps": n_steps, "policy_form": "quadratic", **cfg_kw,
+           "kernel_family": pricer.kernel_family, "price": price,
+           "stderr": stderr, "wall_s": wall, "paths_per_s": n_paths / wall,
+           "fit_s": None if reused else fit_s, "stream_s": stream_s,
+           "fits_of_another_run": reused, "launches": launches,
+           "ref": ref_name, "ref_price": ref[0], "ref_stderr": ref[1],
+           "rel_err": rel, "combined_stderrs_apart": sigmas,
+           "limit": rtol or STDERR_SIGMAS}
+    if n_chunks != N_CHUNKS:
+        rec["reduced"] = {"n_chunks": {"from": N_CHUNKS, "to": n_chunks}}
+    emit(rec)
+    check(launches == expected_counts(**want),
+          f"{name} launches {launches}, want {want} and nothing else")
+    check(math.isfinite(price) and 0.0 < price < STRIKE,
+          f"{name} price {price} outside (0, strike)")
+    check(math.isfinite(stderr) and stderr > 0.0,
+          f"{name} stderr {stderr} not finite and positive")
+    if rtol:
+        check(rel <= rtol, f"{name} is {rel:.2e} from {ref_name} on the "
+              "same seed")
+    else:
+        check(sigmas <= STDERR_SIGMAS,
+              f"{name} is {sigmas:.2f} combined stderr from {ref_name}")
+    return pricer, price, stderr, launches, fits
+
+
+def quad_chain_phase(torch, engine, smi, dev, base, n_steps: int,
+                     n_chunks: int, fgn_form: str, want: dict,
+                     reset_counts, read_counts) -> dict:
+    """``chain_quadratic``: the 21-strike strip under
+    ``chain_policy_form="quadratic"``, fit() and price_with_fit() (price()'s
+    two stages) with the launches read around them (exactly ``want``),
+    then the boundary strip under the same
+    fits on the same seed: each strike within SUM_RTOL of it, or within
+    STDERR_SIGMAS combined stderr where a step's exercise set is two
+    intervals (the boundary form keeps one).  Returns its launches."""
+    import dataclasses
+
+    import numpy as np
+
+    cfg = dataclasses.replace(base, n_paths=CHUNK * n_chunks,
+                              n_steps=n_steps, chunks_per_call=n_chunks,
+                              fgn_form=fgn_form)
+    chains = {form: engine.StreamingChainPricer(
+        **MARKET, strikes=STRIP, maturity=n_steps * DT, is_call=IS_CALL,
+        config=dataclasses.replace(cfg, chain_policy_form=form), device=dev)
+        for form in ("quadratic", "boundary")}
+    reset_counts()
+    fits, fit_s = timed(torch, lambda: chains["quadratic"].fit(
+        engine._pilot_stream_keys(SEED)[0]))
+    (prices, stderrs), stream_s = timed(
+        torch, lambda: chains["quadratic"].price_with_fit(fits, SEED,
+                                                          with_stderr=True))
+    counts = read_counts()
+    wall = fit_s + stream_s
+    b_prices, b_stderrs = chains["boundary"].price_with_fit(
+        fits, SEED, with_stderr=True)
+    rel = np.abs(prices / b_prices - 1.0)
+    sigmas = np.abs(prices - b_prices) / np.maximum(
+        np.hypot(stderrs, b_stderrs), 1e-300)
+    ok = (rel <= SUM_RTOL) | (sigmas <= STDERR_SIGMAS)
+    n_paths = CHUNK * n_chunks
+    rec = {"phase": "chain_quadratic", "card": smi, "n_paths": n_paths,
+           "n_steps": n_steps, "fgn_form": fgn_form,
+           "kernel_family": chains["quadratic"].kernel_family,
+           "strikes": list(STRIP), "prices": prices.tolist(),
+           "stderrs": stderrs.tolist(), "wall_s": wall, "fit_s": fit_s,
+           "stream_s": stream_s,
+           "paths_strikes_per_s": n_paths * len(STRIP) / wall,
+           "launches": counts, "boundary_prices": b_prices.tolist(),
+           "rel_err_per_strike": rel.tolist(),
+           "combined_stderrs_apart": sigmas.tolist(), "rtol": SUM_RTOL,
+           "limit": STDERR_SIGMAS}
+    if n_chunks != N_CHUNKS:
+        rec["reduced"] = {"n_chunks": {"from": N_CHUNKS, "to": n_chunks}}
+    emit(rec)
+    check(counts == expected_counts(**want),
+          f"chain_quadratic at {n_steps} steps launches {counts}, want "
+          f"{want}")
+    check(bool(np.all(np.isfinite(prices))) and
+          bool(np.all(np.diff(prices) > 0)),
+          f"the {n_steps}-step quadratic strip is not finite and rising")
+    check(bool(np.all(ok)), f"the {n_steps}-step quadratic strip is off "
+          "the boundary strip on the same seed")
+    return counts
+
+
+def quadratic_phases(torch, pc, cc, ptc, pfc, engine, smi, dev, key,
+                     refs: dict, reset_counts, read_counts) -> list:
+    """The quadratic exercise-policy forms of K2, K7, K9 and K5:
+    ``quadratic_forms`` (each of the 12 forms against its plain version at
+    131072 rows: K2 and K5 at 365 steps, K7 at 1825, K9 at 4000, timed);
+    ``price_quadratic`` (1e7 x 365 on K2/quad, within 1e-4 of the
+    boundary ``price`` on the same seed, its first 8 chunks against the
+    plain versions, and the bounds' lower bound within 1e-5 of it) and
+    ``price_quadratic_cv``; the spectral single tile
+    (``price_quadratic_spectral[_cv]``), the chol and spectral slabs
+    (``price_quadratic_long[_cv]``, ``price_quadratic_slab[_cv]``) and the
+    factored family (``price_quadratic_factored[_cv]``) cut to QUAD_CHUNKS
+    chunks; and ``chain_quadratic`` (21 strikes at 365 steps, chol and
+    spectral, and at 400 steps on the K8 pilot).  ``refs`` holds the
+    boundary runs' (price, stderr) and fits.  Returns the 12 forms'
+    entries of the kernels line, launches from their price runs."""
+    import functools
+
+    times, launches = {}, {}
+    single = {f: pc.make_path_consts(
+        MARKET["s0"], MARKET["xi"], MARKET["h"], MARKET["eta"], MARKET["r"],
+        N_STEPS, DT, dev, fgn_form=f) for f in pc.FGN_FORMS}
+    slab = {f: pc.make_path_consts(
+        MARKET["s0"], MARKET["xi"], MARKET["h"], MARKET["eta"], MARKET["r"],
+        LONG_STEPS, DT, dev, fgn_form=f) for f in pc.FGN_FORMS}
+    c9 = pfc.make_factored_consts(MARKET["s0"], MARKET["xi"], MARKET["h"],
+                                  MARKET["eta"], MARKET["r"], XLONG_STEPS,
+                                  DT, dev)
+
+    def table_of(n, fits):
+        return engine._fused_rows_builder(MARKET["r"], STRIKE, n * DT, DT, n,
+                                          IS_CALL, "quadratic")(fits)
+
+    def matmul_ms(consts, n):
+        if consts.spectral:
+            return lambda: spectral_library(torch, consts, dev)(CHUNK)
+
+        def library():
+            a = torch.randn((CHUNK, n), device=dev)
+            ms = time_ms(torch, lambda: torch.matmul(a, consts.lt_half),
+                         reps=10)
+            del a
+            return ms
+        return library
+
+    def fft_ms():
+        a = torch.randn((CHUNK, pfc.fgn.next_pow2(XLONG_STEPS)),
+                        dtype=torch.complex64, device=dev)
+        ms = time_ms(torch, lambda: torch.fft.fft(a, dim=1), reps=10)
+        del a
+        return ms
+
+    for f, consts in single.items():
+        spec = f == "spectral"
+        times.update(quad_forms_phase(
+            torch, pc, smi, "K2", pc.priced_chunk,
+            pc.priced_chunk_from_noise_ref, consts,
+            table_of(N_STEPS, refs["fits"]),
+            lambda k, rows, c=consts: pc.normals_ref(c, k, rows, device=dev),
+            key, matmul_ms(consts, N_STEPS),
+            lambda cv, cells, c=consts, spec=spec: bound_ms(
+                CHUNK, N_STEPS, 4 * (2 if cv else 1)
+                * (CHUNK // pc.priced_block_paths(c, CHUNK, False, cv)),
+                policy_rows=8, with_cv=cv, spectral=spec, quad_cells=cells),
+            pc._log_paths_ref, spec))
+    for f, consts in slab.items():
+        spec = f == "spectral"
+        times.update(quad_forms_phase(
+            torch, pc, smi, "K7", ptc.tiled_priced_chunk,
+            ptc.priced_chunk_from_noise_ref, consts,
+            table_of(LONG_STEPS, refs["long_fits"]),
+            lambda k, rows, c=consts: pc.normals_ref(c, k, rows, device=dev),
+            key, matmul_ms(consts, LONG_STEPS),
+            lambda cv, cells, spec=spec: bound_ms(
+                CHUNK, LONG_STEPS, 4 * (2 if cv else 1)
+                * (CHUNK // ptc.block_paths_for(CHUNK)), policy_rows=8,
+                with_cv=cv, spectral=spec, quad_cells=cells),
+            pc._log_paths_ref, spec))
+    times.update(quad_forms_phase(
+        torch, pc, smi, "K9", pfc.factored_priced_chunk,
+        pfc.factored_priced_chunk_from_noise_ref, c9,
+        table_of(XLONG_STEPS, refs["xlong_fits"]),
+        lambda k, rows: pfc.philox_factored_normals_ref(k, rows, XLONG_STEPS,
+                                                        device=dev),
+        key, fft_ms,
+        lambda cv, cells: factored_bound_ms(
+            CHUNK, XLONG_STEPS, 4 * (2 if cv else 1)
+            * (CHUNK // pfc.paths_per_block(XLONG_STEPS)), policy_rows=8,
+            with_cv=cv, quad_cells=cells),
+        pfc._log_paths_ref))
+    base = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
+                               chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                               chunks_per_call=N_CHUNKS)
+    for spec in (False, True):
+        times.update(quad_chain_forms(torch, pc, cc, engine, smi, dev, key,
+                                      base, spec))
+    del single, slab, c9
+
+    # The bench cell, its bounds and its CV form.
+    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    pricer, price, stderr, counts, fits = quad_price_phase(
+        torch, engine, smi, dev, "price_quadratic", N_STEPS, N_CHUNKS,
+        {}, {"pathgen": 1, "K2/quad": N_CHUNKS}, refs["price"], "price",
+        reset_counts, read_counts, rtol=SUM_RTOL)
+    launches["K2/quad"] = counts["K2/quad"]
+    checked = pricer.price_with_fit(fits, SEED, n_paths=LONG_CHECKED * CHUNK)
+    checked_plain = plain_stream_mean(
+        pc, engine, pricer, fits, SEED, LONG_CHECKED, STRIKE,
+        chunk_ref=functools.partial(pc.priced_chunk_from_noise_ref,
+                                    policy_form="quadratic"))
+    checked_rel = abs(checked / checked_plain - 1.0)
+    reset_counts()
+    fit, bounds_fit_s = timed(torch, lambda: pricer.bounds_fit(k_pilot))
+    (lo, up, lo_se, up_se), bounds_stream_s = timed(
+        torch, lambda: pricer.bounds_with_fit(fit, SEED, with_stderr=True))
+    b_counts = read_counts()
+    lower_rel = abs(lo / price - 1.0)
+    emit({"phase": "price_quadratic_checks", "card": smi,
+          "checked_chunks": LONG_CHECKED,
+          "checked_price": checked, "checked_plain_price": checked_plain,
+          "checked_rel_err": checked_rel, "rtol": SUM_RTOL,
+          "bounds": {"lower": lo, "upper": up, "lower_stderr": lo_se,
+                     "upper_stderr": up_se, "fit_s": bounds_fit_s,
+                     "stream_s": bounds_stream_s, "launches": b_counts,
+                     "lower_vs_price_rel_err": lower_rel,
+                     "rtol": QUAD_LOWER_RTOL}})
+    check(checked_rel <= SUM_RTOL,
+          "price_quadratic disagrees with the plain path")
+    check(b_counts == expected_counts(pathgen=1 + N_CHUNKS),
+          f"the quadratic bounds launch {b_counts}, want K1 only")
+    check(math.isfinite(lo) and math.isfinite(up) and lo <= up,
+          f"the quadratic bounds {lo}, {up} are not ordered")
+    check(lower_rel <= QUAD_LOWER_RTOL, f"the quadratic lower bound is "
+          f"{lower_rel:.2e} from price_quadratic on the same seed")
+    del pricer
+    got = {"price_quadratic": (price, stderr)}
+    _, p, se, counts, _ = quad_price_phase(
+        torch, engine, smi, dev, "price_quadratic_cv", N_STEPS,
+        N_CHUNKS, {"control_variate": True},
+        {"pathgen": 1, "K2/quad/cv": N_CHUNKS}, refs["price_cv"],
+        "price_cv", reset_counts, read_counts, rtol=SUM_RTOL)
+    got["price_quadratic_cv"] = (p, se)
+    launches["K2/quad/cv"] = counts["K2/quad/cv"]
+
+    # The cut runs: the spectral single tile and slab against the chol
+    # quadratic prices (the same law), the chol slab and the factored
+    # family against their boundary prices.  The CV run fits; the plain
+    # run streams under its policy (a CVFit's fits).
+    m = QUAD_CHUNKS
+    runs = (
+        ("price_quadratic_spectral", N_STEPS, {"fgn_form": "spectral"},
+         "K1/spectral", "K2/spectral/quad", "price_quadratic"),
+        ("price_quadratic_long", LONG_STEPS, {}, "tiled_pathgen", "K7/quad",
+         "price_long"),
+        ("price_quadratic_slab", LONG_STEPS,
+         {"fgn_form": "spectral", "tiled_impl": "slab"}, "K6/spectral",
+         "K7/spectral/quad", "price_quadratic_long"),
+        ("price_quadratic_factored", XLONG_STEPS, {}, "factored_pathgen",
+         "K9/quad", "price_xlong"))
+    for name, n, kw, pilot, form, ref in runs:
+        cv_fit = None
+        for cv in (True, False):
+            suffix = "_cv" if cv else ""
+            ref_key = ref + suffix
+            key_form = form + suffix.replace("_", "/")
+            want = {key_form: m, **({} if cv_fit else {pilot: 1})}
+            _, p, se, counts, fit = quad_price_phase(
+                torch, engine, smi, dev, name + suffix, n, m,
+                {**kw, "control_variate": cv}, want,
+                got.get(ref_key) or refs[ref_key], ref_key, reset_counts,
+                read_counts, fits=cv_fit and cv_fit.fits)
+            cv_fit = cv_fit or fit
+            got[name + suffix] = (p, se)
+            launches[key_form] = counts[key_form]
+
+    # The strips.
+    for n, n_chunks, fgn_form, pilot, form in (
+            (N_STEPS, N_CHUNKS, "auto", "pathgen", "K5/quad"),
+            (N_STEPS, N_CHUNKS, "spectral", "K1/spectral",
+             "K5/spectral/quad"),
+            (SPECTRAL_PAST_TILE_STEPS, QUAD_CHUNKS, "spectral",
+             "factored_pathgen", "K5/spectral/quad")):
+        counts = quad_chain_phase(torch, engine, smi, dev, base, n,
+                                  n_chunks, fgn_form,
+                                  {pilot: 1, form: n_chunks}, reset_counts,
+                                  read_counts)
+        launches.setdefault(form, counts[form])
+    emit({"phase": "times_quadratic", "card": smi, "library_call":
+          "the boundary rows' yardsticks: torch.matmul of the fGN product "
+          "(two, [rows, n] x Cr' and x Ci', spectral) or torch.fft.fft of "
+          "the [131072, m2] complex64 plane (K9)", "kernels": times})
+    return [kernel_record(form, launches, t["ms"], t["plain_ms"],
+                          t["bound_ms"], t["bound_by"], t["max_abs_err"],
+                          t["library_ms"]) for form, t in times.items()]
+
+
 def main() -> int:
+    _START[0] = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2833,6 +3349,17 @@ def main() -> int:
     kernels += spectral_phases(
         torch, pc, cc, ptc, engine, smi, dev, key, rel_err,
         {"price": (price, stderr), "price_factored": factored_long},
+        reset_counts, read_counts)
+
+    # The quadratic exercise-policy forms of K2, K7, K9 and K5.
+    kernels += quadratic_phases(
+        torch, pc, cc, ptc, pfc, engine, smi, dev, key,
+        {"price": (price, stderr), "price_cv": vr_prices["price_cv"],
+         "price_long": (long_price, long_stderr),
+         "price_long_cv": vr_prices["price_long_cv"],
+         "price_xlong": xlong[1:3],
+         "price_xlong_cv": vr_prices["price_xlong_cv"], "fits": fits,
+         "long_fits": long_fits, "xlong_fits": xlong[0]},
         reset_counts, read_counts)
     check(sorted(k["name"] for k in kernels) == sorted(REPLACES),
           "the kernels line does not list every kernel and form")

@@ -5,16 +5,23 @@
 //    pathgen_pallas.py:_chain_kernel, _chain_kernel_noise_in and
 //    _chain_kernel_grid (with _sweep_values and _policy_value_boundary),
 //    chol and spectral fGN forms (the spectral one, SPEC, reads Zr, Zi, W
-//    and the dense Cr', Ci' as K2's does), boundary policy, in two forms:
-//    plain and antithetic (the pair branch of _chain_paths:432).
+//    and the dense Cr', Ci' as K2's does).  Boundary policy in two forms:
+//    plain and antithetic (the pair branch of _chain_paths:432); the
+//    quadratic policy (QUAD, chain_policy_form="quadratic":
+//    _sweep_values:408 with _policy_value_minreduce:302) plain.
 //
 // What it computes: the paths of K2 (csrc/pathgen.cu) from the same noise,
 // S_c = exp(logS_c) on every cell, and for each strike k of the strip the
 // first column c with lo_k[c] <= S_c <= hi_k[c] of its S-space
 // boundary_rows table; the path is then worth dk_k[c] - disc[c] * S_c for a
 // put and disc[c] * S_c - dk_k[c] for a call (dk = disc * strike, no clamp,
-// as on the TPU), else 0.  Each block writes one partial sum per strike (no
-// atomics: a seed gives the same [K] on every run).  The antithetic form
+// as on the TPU), else 0.  Under QUAD the strike's table is its
+// policy_rows table instead, and the path stops at the first c where the
+// quadratic says exercise (csrc/quad_policy.cuh, z = (s - mu) * (1 / sd) as
+// _policy_value_minreduce takes it; strike from row 7), worth
+// disc[c] * max(+-(S_c - strike), 0).  Each block writes one partial sum
+// per strike (no atomics: a seed gives the same [K] on every run).  The
+// antithetic form
 // draws (or reads) N and W for half the paths: drawn row q prices (N, W)
 // and its partner (-N, -W), and the fGN map is linear, so the partner's
 // plane is -x and the product runs once per pair; each member then takes
@@ -29,7 +36,10 @@
 // sums), 0.2 us at 3.35 TB/s.  Paired, the product is half of that and
 // the sweep is not: every member sweeps.  The spectral product is 2 n^2
 // multiply-adds per path (dense Cr', Ci'), four times the triangle: at
-// 365 steps and 21 strikes at most 1.1 ms.
+// 365 steps and 21 strikes at most 1.1 ms.  The QUAD sweep is ~12
+// operations a strike-cell up to its first hit (the quadratic, the payoff,
+// two compares; seven table reads through __ldg), three times the
+// boundary sweep's.
 //
 // Design:
 // * The path block, its noise, the fGN tile product and the Euler
@@ -70,6 +80,7 @@
 #include <stdint.h>
 
 #include "fgn_tile.cuh"
+#include "quad_policy.cuh"
 
 namespace {
 
@@ -83,7 +94,7 @@ struct ChainArgs {
   const float* ci;      // [n, n] Ci' (spectral), or nullptr (chol)
   const float* vd;      // [n] half variance drift
   const float* tables;  // [n_strikes] boundary_rows tables: rows lo, hi,
-                        // disc * strike, disc
+                        // disc * strike, disc (QUAD: policy_rows tables)
   long long strike_stride, row_stride;   // floats
   int n_strikes;        // <= kGroup
   float* out;           // [rows / BP, n_strikes] partial sums
@@ -107,8 +118,8 @@ __device__ __forceinline__ float euler_inc(const ChainArgs& a, float x,
 
 // Block of D = 16 * PM drawn rows; BP = D paths, or 2D pair members (ANTI:
 // member p < D is drawn row p, member D + p its partner).  SPEC: the
-// spectral fGN form.
-template <int PM, bool SEEDED, bool ANTI, bool SPEC>
+// spectral fGN form; QUAD: the quadratic policy.
+template <int PM, bool SEEDED, bool ANTI, bool SPEC, bool QUAD>
 __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
   constexpr int D = 16 * PM;
   constexpr int BP = ANTI ? 2 * D : D;
@@ -178,6 +189,19 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
     for (int i = 0; i < kPer; ++i) {
       const int k = lane + kLanes * i;
       if (k >= a.n_strikes || stopped[i]) continue;
+      if (QUAD) {
+        const float* tab = a.tables + k * a.strike_stride;
+        for (int cc = 0; cc < cn; ++cc) {
+          float v;
+          if (quad_exercise<true>(tab, a.row_stride, c0 + cc, sp[cc],
+                                  a.is_call, &v)) {
+            val[i] = v;
+            stopped[i] = true;
+            break;
+          }
+        }
+        continue;
+      }
       const float* lo = a.tables + k * a.strike_stride + c0;
       const float* hi = lo + a.row_stride;
       const float* dk = lo + 2 * a.row_stride;
@@ -217,11 +241,11 @@ int smem_bytes(int n, int bp, bool anti, bool spec) {
   return block_smem_bytes(n, d, 1, (bp - d) * kXStride, spec);
 }
 
-template <int PM, bool SEEDED, bool ANTI, bool SPEC>
+template <int PM, bool SEEDED, bool ANTI, bool SPEC, bool QUAD>
 cudaError_t launch_one(const ChainArgs& a, cudaStream_t stream) {
   constexpr int D = 16 * PM;
   const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI, SPEC);
-  auto kernel = chain_kernel<PM, SEEDED, ANTI, SPEC>;
+  auto kernel = chain_kernel<PM, SEEDED, ANTI, SPEC, QUAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -230,25 +254,25 @@ cudaError_t launch_one(const ChainArgs& a, cudaStream_t stream) {
 }
 
 // The seeded or noise-in entry, chol or spectral (from a.ci).
-template <int PM, bool ANTI>
+template <int PM, bool ANTI, bool QUAD>
 cudaError_t launch_entry(const ChainArgs& a, cudaStream_t s) {
   const bool seeded = a.noise == nullptr;
   if (a.ci != nullptr)
-    return seeded ? launch_one<PM, true, ANTI, true>(a, s)
-                  : launch_one<PM, false, ANTI, true>(a, s);
-  return seeded ? launch_one<PM, true, ANTI, false>(a, s)
-                : launch_one<PM, false, ANTI, false>(a, s);
+    return seeded ? launch_one<PM, true, ANTI, true, QUAD>(a, s)
+                  : launch_one<PM, false, ANTI, true, QUAD>(a, s);
+  return seeded ? launch_one<PM, true, ANTI, false, QUAD>(a, s)
+                : launch_one<PM, false, ANTI, false, QUAD>(a, s);
 }
 
-template <bool ANTI>
+template <bool ANTI, bool QUAD = false>
 cudaError_t launch_pm(const ChainArgs& a, int pm, cudaStream_t s) {
   switch (pm) {
     case 4:
-      return launch_entry<4, ANTI>(a, s);
+      return launch_entry<4, ANTI, QUAD>(a, s);
     case 2:
-      return launch_entry<2, ANTI>(a, s);
+      return launch_entry<2, ANTI, QUAD>(a, s);
     case 1:
-      return launch_entry<1, ANTI>(a, s);
+      return launch_entry<1, ANTI, QUAD>(a, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -272,21 +296,21 @@ int mcop_chain_group() { return kGroup; }
 // n_steps] (N, W) or [3, rows, n_steps] (Zr, Zi, W).  rows counts paths;
 // antithetic != 0 reads (or draws) rows / 2 rows of noise, and
 // block_paths (32, 64 or 128) counts pair members.
-// tables: the launch's n_strikes boundary_rows tables, strike_stride
-// floats apart, rows row_stride floats apart.  out: [rows / block_paths,
-// n_strikes].
+// tables: the launch's n_strikes boundary_rows tables (quadratic != 0:
+// policy_rows tables, not with antithetic), strike_stride floats apart,
+// rows row_stride floats apart.  out: [rows / block_paths, n_strikes].
 int mcop_priced_chain(const float* noise, const float* lt, const float* ci,
                       const float* vd, int rows, int n_steps, int block_paths,
                       unsigned int key, float r, float dt, float sqrt_dt,
                       float log_s0, const float* tables,
                       long long strike_stride, long long row_stride,
-                      int n_strikes, int is_call, int antithetic, float* out,
-                      void* stream) {
+                      int n_strikes, int is_call, int antithetic,
+                      int quadratic, float* out, void* stream) {
   const bool anti = antithetic != 0;
   const int unit = anti ? 32 : 16;
   if (n_steps < 1 || rows < 1 || block_paths < unit || block_paths % unit ||
       block_paths > 4 * unit || rows % block_paths || n_strikes < 1 ||
-      n_strikes > kGroup ||
+      n_strikes > kGroup || (quadratic != 0 && anti) ||
       smem_bytes(n_steps, block_paths, anti, ci != nullptr) > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   ChainArgs a{};
@@ -309,8 +333,9 @@ int mcop_priced_chain(const float* noise, const float* lt, const float* ci,
   a.is_call = is_call;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int pm = block_paths / unit;
-  const cudaError_t err =
-      anti ? launch_pm<true>(a, pm, s) : launch_pm<false>(a, pm, s);
+  const cudaError_t err = quadratic != 0 ? launch_pm<false, true>(a, pm, s)
+                          : anti         ? launch_pm<true>(a, pm, s)
+                                         : launch_pm<false>(a, pm, s);
   return static_cast<int>(err);
 }
 

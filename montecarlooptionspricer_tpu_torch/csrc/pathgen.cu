@@ -6,10 +6,12 @@
 //    chol and spectral fGN forms, plain and paired (the whole-path pair
 //    body of _euler_from_noise:261 with _logpaths_from_x_anti:161).
 // K2 mcop_priced_chunk replaces pathgen_pallas.py:_priced_kernel (and
-//    _priced_kernel_noise_in), chol and spectral forms, log-boundary
-//    policy, interleave 1, in four forms: plain, antithetic
+//    _priced_kernel_noise_in), chol and spectral forms, interleave 1.
+//    Log-boundary policy in four forms: plain, antithetic
 //    (_logpaths_from_x_anti:161), control variate (_cv_log_sum:567,
-//    _store_priced_log:577) and both (_priced_body:650).
+//    _store_priced_log:577) and both (_priced_body:650); the quadratic
+//    policy (QUAD: _priced_body's else branch, _policy_value:277 and
+//    _store_priced:549) plain and with the control variate.
 //
 // What they compute, per path p and step column c < n (column c = step c+1):
 //   x_c    = sum_{k <= c} N[p,k] * Lt'[k,c]        (Lt' = 0.5 Lt, upper)
@@ -26,6 +28,9 @@
 // path at the first c with llo[c] <= logS_c <= lhi[c] and adds
 // disc[c] * max(+-(exp(logS_c) - strike), 0); each block writes one
 // partial sum (no atomics, so a seed gives the same sum on every run).
+// The QUAD forms stop each path instead at the first c where the policy
+// table's quadratic says exercise (csrc/quad_policy.cuh, on
+// s = exp(logS_c), strike from the table) and add disc[c] * payoff.
 // The control-variate forms write a second partial sum per block,
 // cv_disc * sum_p exp(logS_{p,n-1}) with cv_disc = exp(-r n dt).  The
 // antithetic forms draw (or read) N and W for half the paths only: path q
@@ -39,6 +44,9 @@
 // 67 TFLOP/s float32 (no tensor cores: full float32 is kept), while the
 // bytes that must move (Lt', the output) take at most 0.06 ms.
 // The antithetic forms run the product once per pair: half of that.
+// The QUAD forms add, per cell up to the path's first hit, the exp of the
+// price and ~10 operations of the policy, at most 4.8e7 x 30 operations a
+// chunk (0.02 ms at the peak), on the one-thread-per-path running sum.
 // The spectral product is two dense [n, n] products, 2 n^2 multiply-adds
 // per path (266k at n = 365, four times the triangle): 1.05 ms at 131072
 // paths, 0.53 ms paired.
@@ -78,13 +86,19 @@
 //   not 64.  Its seeded Zr and W are the chol stream's N and W and its Zi
 //   the stream's own counter word (csrc/philox.cuh), drawn by K1 and K2
 //   alike, so one key gives both the same paths and pairs.
-// * No --use_fast_math: logf/expf/sinf/cosf stay precise so the plain
-//   PyTorch versions agree to a few ulp per cell.
+// * The QUAD forms test the quadratic in the same one-thread-per-path loop
+//   as the running sum: a path takes exp and the policy's seven table rows
+//   (through the read-only cache, __ldg) at each step until its first hit,
+//   then only the running sum (kept for the control lane).  The tables stay
+//   in device memory; shared memory is the boundary forms'.
+// * No --use_fast_math: logf/expf/sinf/cosf stay precise and / stays IEEE
+//   division, so the plain PyTorch versions agree to a few ulp per cell.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fgn_tile.cuh"
+#include "quad_policy.cuh"
 
 namespace {
 
@@ -98,6 +112,8 @@ struct Args {
   const float* llo;     // [n] log lower bounds (K2)
   const float* lhi;     // [n] log upper bounds (K2)
   const float* disc;    // [n] discounts (K2)
+  const float* tab;     // the policy_rows table (K2's QUAD forms)
+  long long tstride;    // its row stride, floats
   float* out;           // K1: [rows, n+1]; K2: [1 or 2][blocks] partial sums
   int rows, drawn, n, ld;  // paths, rows of the noise planes, steps, stride
   uint32_t key;
@@ -128,8 +144,9 @@ __device__ __forceinline__ size_t member_row(int drawn, int row0, int p) {
 
 // Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members (ANTI:
 // member p < D is drawn row p, member D + p its partner).  CV adds the
-// control lane, SPEC the spectral fGN form.
-template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC>
+// control lane, SPEC the spectral fGN form, QUAD the quadratic policy.
+template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC,
+          bool QUAD>
 __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
   constexpr int D = 16 * PM;
   constexpr int BP = ANTI ? 2 * D : D;
@@ -185,7 +202,11 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
       float* xp = &xs[tid * kXStride];
       for (int cc = 0; cc < cn; ++cc) {
         ls += xp[cc];
-        if (PRICED) {
+        if (PRICED && QUAD) {
+          if (!stopped)
+            stopped = quad_exercise<false>(a.tab, a.tstride, c0 + cc,
+                                           expf(ls), a.is_call, &val);
+        } else if (PRICED) {
           const int c = c0 + cc;
           if (!stopped && ls >= a.llo[c] && ls <= a.lhi[c]) {
             stopped = true;
@@ -236,11 +257,12 @@ int smem_bytes(int n, int bp, bool anti, bool cv, bool spec) {
                           spec);
 }
 
-template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC>
+template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC,
+          bool QUAD>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {
   constexpr int D = 16 * PM;
   const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI, CV, SPEC);
-  auto kernel = path_kernel<PM, SEEDED, PRICED, ANTI, CV, SPEC>;
+  auto kernel = path_kernel<PM, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -249,38 +271,42 @@ cudaError_t launch_one(const Args& a, cudaStream_t stream) {
 }
 
 // The seeded or noise-in entry, chol or spectral (from a.ci).
-template <int PM, bool PRICED, bool ANTI, bool CV>
+template <int PM, bool PRICED, bool ANTI, bool CV, bool QUAD>
 cudaError_t launch_entry(const Args& a, cudaStream_t stream) {
   const bool seeded = a.noise == nullptr;
   if (a.ci != nullptr)
-    return seeded ? launch_one<PM, true, PRICED, ANTI, CV, true>(a, stream)
-                  : launch_one<PM, false, PRICED, ANTI, CV, true>(a, stream);
-  return seeded ? launch_one<PM, true, PRICED, ANTI, CV, false>(a, stream)
-                : launch_one<PM, false, PRICED, ANTI, CV, false>(a, stream);
+    return seeded
+               ? launch_one<PM, true, PRICED, ANTI, CV, true, QUAD>(a, stream)
+               : launch_one<PM, false, PRICED, ANTI, CV, true, QUAD>(a,
+                                                                     stream);
+  return seeded
+             ? launch_one<PM, true, PRICED, ANTI, CV, false, QUAD>(a, stream)
+             : launch_one<PM, false, PRICED, ANTI, CV, false, QUAD>(a, stream);
 }
 
-template <bool PRICED, bool ANTI, bool CV>
+template <bool PRICED, bool ANTI, bool CV, bool QUAD = false>
 cudaError_t launch_pm(const Args& a, int pm, cudaStream_t stream) {
   switch (pm) {
     case 4:
-      return launch_entry<4, PRICED, ANTI, CV>(a, stream);
+      return launch_entry<4, PRICED, ANTI, CV, QUAD>(a, stream);
     case 2:
-      return launch_entry<2, PRICED, ANTI, CV>(a, stream);
+      return launch_entry<2, PRICED, ANTI, CV, QUAD>(a, stream);
     case 1:
-      return launch_entry<1, PRICED, ANTI, CV>(a, stream);
+      return launch_entry<1, PRICED, ANTI, CV, QUAD>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // block_paths counts paths (pair members when antithetic): 16, 32 or 64
-// plain, 32, 64 or 128 paired.
+// plain, 32, 64 or 128 paired.  The quadratic policy (quad) has no pair
+// form.
 template <bool PRICED>
-cudaError_t launch(Args a, int block_paths, bool anti, bool cv,
+cudaError_t launch(Args a, int block_paths, bool anti, bool cv, bool quad,
                    cudaStream_t stream) {
   const int unit = anti ? 32 : 16;
   if (a.n < 1 || a.rows < 1 || block_paths < unit || block_paths % unit ||
-      a.rows % block_paths ||
+      a.rows % block_paths || (quad && (anti || !PRICED)) ||
       smem_bytes(a.n, block_paths, anti, cv, a.ci != nullptr) > kSmemLimit)
     return cudaErrorInvalidValue;
   a.drawn = anti ? a.rows / 2 : a.rows;
@@ -288,6 +314,9 @@ cudaError_t launch(Args a, int block_paths, bool anti, bool cv,
   if (!PRICED)
     return anti ? launch_pm<false, true, false>(a, pm, stream)
                 : launch_pm<false, false, false>(a, pm, stream);
+  if (quad)
+    return cv ? launch_pm<true, false, true, true>(a, pm, stream)
+              : launch_pm<true, false, false, true>(a, pm, stream);
   if (anti)
     return cv ? launch_pm<true, true, true>(a, pm, stream)
               : launch_pm<true, true, false>(a, pm, stream);
@@ -334,13 +363,15 @@ int mcop_pathgen(const float* noise, const float* lt, const float* ci,
   a.log_s0 = log_s0;
   a.s0 = s0;
   return static_cast<int>(launch<false>(a, block_paths, antithetic != 0,
-                                        false,
+                                        false, false,
                                         static_cast<cudaStream_t>(stream)));
 }
 
-// K2.  table: rows 0-2 of the log_boundary_rows table, row stride
-// table_stride floats.  lt, ci and the noise planes as K1's.  rows counts
-// paths; antithetic != 0 reads (or draws) rows / 2 rows of noise.  out:
+// K2.  table: rows 0-2 of the log_boundary_rows table, or with
+// quadratic != 0 the eight rows of the policy_rows table (its strike in row
+// 7; `strike` is then not read), row stride table_stride floats.  lt, ci
+// and the noise planes as K1's.  rows counts paths; antithetic != 0 (not
+// with quadratic) reads (or draws) rows / 2 rows of noise.  out:
 // [rows / block_paths] partial sums, then as many control sums when
 // with_cv != 0.
 int mcop_priced_chunk(const float* noise, const float* lt, const float* ci,
@@ -348,7 +379,8 @@ int mcop_priced_chunk(const float* noise, const float* lt, const float* ci,
                       unsigned int key, float r, float dt, float sqrt_dt,
                       float log_s0, const float* table, long long table_stride,
                       float strike, int is_call, int antithetic, int with_cv,
-                      float cv_disc, float* out, void* stream) {
+                      int quadratic, float cv_disc, float* out,
+                      void* stream) {
   Args a{};
   a.noise = noise;
   a.lt = lt;
@@ -357,6 +389,8 @@ int mcop_priced_chunk(const float* noise, const float* lt, const float* ci,
   a.llo = table;
   a.lhi = table + table_stride;
   a.disc = table + 2 * table_stride;
+  a.tab = table;
+  a.tstride = table_stride;
   a.out = out;
   a.rows = rows;
   a.n = n_steps;
@@ -370,7 +404,7 @@ int mcop_priced_chunk(const float* noise, const float* lt, const float* ci,
   a.cv_disc = cv_disc;
   a.is_call = is_call;
   return static_cast<int>(launch<true>(a, block_paths, antithetic != 0,
-                                       with_cv != 0,
+                                       with_cv != 0, quadratic != 0,
                                        static_cast<cudaStream_t>(stream)));
 }
 

@@ -7,9 +7,11 @@
 //    _factored_pathgen_kernel_noise_in), plain and paired (the whole-path
 //    pair body: stages 1 and 2 once per drawn path, :222 and :250).
 // K9 mcop_factored_priced_chunk replaces pathgen_pallas_factored.py:
-//    _factored_priced_kernel (and _factored_priced_kernel_noise_in, :330-385),
-//    log-boundary policy, in four forms: plain, antithetic (_pair_tiles),
-//    control variate (_finalize_priced_log) and both.
+//    _factored_priced_kernel (and _factored_priced_kernel_noise_in, :330-385).
+//    Log-boundary policy in four forms: plain, antithetic (_pair_tiles),
+//    control variate (_finalize_priced_log) and both; the quadratic policy
+//    (QUAD: _priced_step:300-327's else branch, the policy of
+//    pathgen_pallas_tiled._policy_tile) plain and with the control variate.
 //
 // Per path p, with m2 = next_pow2(n), N2 = m2 / 128 and the fGN noise
 // a = Z * phi' stored transposed (column c = 128 k2 + k1 holds frequency
@@ -24,7 +26,8 @@
 // K8 writes out[p, 0] = s0 and out[p, m+1] = exp(logS_m), and its pair
 // form the drawn rows' paths to rows [0, rows/2) and their partners' to
 // [rows/2, rows), the [X; -X] of the unpaired kernel; K9 stops each
-// path at its first m with llo[m] <= logS_m <= lhi[m], adds
+// path at its first m with llo[m] <= logS_m <= lhi[m] (QUAD: where the
+// policy table's quadratic says exercise, csrc/quad_policy.cuh), adds
 // disc[m] max(+-(exp(logS_m) - strike), 0) and writes one partial sum per
 // block (no atomics, so a seed gives the same sum on every run).  The
 // control-variate forms add cv_disc * sum_p exp(logS_{p,n-1}) per block;
@@ -74,7 +77,9 @@
 //   at a time, four steps a lane, with a warp scan and the carry in a
 //   register.  K9 finds the first hit with a ballot and leaves the path
 //   there.  The TPU's cross-tile scratch carries are gone: a block holds
-//   its paths whole.
+//   its paths whole.  Under QUAD each lane tests its four steps in order,
+//   exp and the policy's seven table rows (__ldg) per step, up to its
+//   first hit, ahead of the same ballot.
 // * The forms.  Under CV a warp that found its path's first hit keeps
 //   scanning to step n-1 (the scan is cheap beside stage 1) for the
 //   terminal log price.  A paired block runs stages 1 and 2 for its P
@@ -92,6 +97,7 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "quad_policy.cuh"
 
 namespace {
 
@@ -123,6 +129,8 @@ struct Args {
   const float* llo;    // [n] log lower bounds (K9)
   const float* lhi;    // [n] log upper bounds (K9)
   const float* disc;   // [n] discounts (K9)
+  const float* tab;    // the policy_rows table (K9's QUAD forms)
+  long long tstride;   // its row stride, floats
   float* out;          // K8: [rows, n+1]; K9: [1 or 2][blocks] partial sums
   int rows, drawn, n, m2, n2, s_pad;
   int paths;           // drawn paths per block, P = 64 / N2
@@ -207,8 +215,8 @@ __device__ __forceinline__ float4 load_w(const Args& a, int row, int m) {
 
 // A block of P drawn paths: P paths, or 2P pair members (ANTI: member
 // q < P is drawn path q, member P + q its partner).  CV adds the control
-// lane.
-template <bool SEEDED, bool PRICED, bool ANTI, bool CV>
+// lane, QUAD the quadratic policy.
+template <bool SEEDED, bool PRICED, bool ANTI, bool CV, bool QUAD>
 __global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
   extern __shared__ float4 smem4[];
   float* spr = reinterpret_cast<float*>(smem4);  // [kRows][kLane]   Re S'
@@ -429,21 +437,35 @@ __global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
           if (m + e < n) a.out[row * (n + 1) + 1 + m + e] = expf(ls[e]);
       } else if (!stopped) {
         int first = 4;
+        float qval = 0.0f;
+        if (QUAD) {
 #pragma unroll
-        for (int e = 3; e >= 0; --e)
-          if (m + e < n && ls[e] >= __ldg(a.llo + m + e) &&
-              ls[e] <= __ldg(a.lhi + m + e))
-            first = e;
+          for (int e = 0; e < 4; ++e)
+            if (first == 4 && m + e < n &&
+                mcop::quad_exercise<false>(a.tab, a.tstride, m + e,
+                                           expf(ls[e]), a.is_call, &qval))
+              first = e;
+        } else {
+#pragma unroll
+          for (int e = 3; e >= 0; --e)
+            if (m + e < n && ls[e] >= __ldg(a.llo + m + e) &&
+                ls[e] <= __ldg(a.lhi + m + e))
+              first = e;
+        }
         const unsigned hits = __ballot_sync(kFull, first < 4);
         if (hits) {
           if (lane == __ffs(hits) - 1) {
-            const float lsf = first == 0   ? ls[0]
-                              : first == 1 ? ls[1]
-                              : first == 2 ? ls[2]
-                                           : ls[3];
-            const float st = expf(lsf);
-            const float pay = a.is_call ? st - a.strike : a.strike - st;
-            wsum += __ldg(a.disc + m + first) * fmaxf(pay, 0.0f);
+            if (QUAD) {
+              wsum += qval;
+            } else {
+              const float lsf = first == 0   ? ls[0]
+                                : first == 1 ? ls[1]
+                                : first == 2 ? ls[2]
+                                             : ls[3];
+              const float st = expf(lsf);
+              const float pay = a.is_call ? st - a.strike : a.strike - st;
+              wsum += __ldg(a.disc + m + first) * fmaxf(pay, 0.0f);
+            }
           }
           // Warp-uniform: the path stopped at its first hit; under CV the
           // scan goes on to the terminal log price.
@@ -476,10 +498,10 @@ __global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
   }
 }
 
-template <bool SEEDED, bool PRICED, bool ANTI, bool CV>
+template <bool SEEDED, bool PRICED, bool ANTI, bool CV, bool QUAD>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {
   const int smem = smem_bytes(a.n2);
-  auto kernel = factored_kernel<SEEDED, PRICED, ANTI, CV>;
+  auto kernel = factored_kernel<SEEDED, PRICED, ANTI, CV, QUAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -491,14 +513,16 @@ cudaError_t launch_one(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool PRICED, bool ANTI, bool CV>
+template <bool PRICED, bool ANTI, bool CV, bool QUAD = false>
 cudaError_t launch_seeded(const Args& a, cudaStream_t stream) {
-  return a.noise == nullptr ? launch_one<true, PRICED, ANTI, CV>(a, stream)
-                            : launch_one<false, PRICED, ANTI, CV>(a, stream);
+  return a.noise == nullptr
+             ? launch_one<true, PRICED, ANTI, CV, QUAD>(a, stream)
+             : launch_one<false, PRICED, ANTI, CV, QUAD>(a, stream);
 }
 
 template <bool PRICED>
-cudaError_t launch(Args a, bool anti, bool cv, cudaStream_t stream) {
+cudaError_t launch(Args a, bool anti, bool cv, bool quad,
+                   cudaStream_t stream) {
   a.m2 = next_pow2(a.n);
   a.n2 = a.m2 / kLane;
   a.s_pad = (a.n + kLane - 1) / kLane * kLane;
@@ -506,8 +530,12 @@ cudaError_t launch(Args a, bool anti, bool cv, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   a.paths = kRows / a.n2;
   a.drawn = anti ? a.rows / 2 : a.rows;
-  if (a.rows < 1 || (anti && a.rows % 2) || a.drawn % a.paths)
+  if (a.rows < 1 || (anti && a.rows % 2) || a.drawn % a.paths ||
+      (quad && (anti || !PRICED)))
     return cudaErrorInvalidValue;
+  if (quad)
+    return cv ? launch_seeded<true, false, true, true>(a, stream)
+              : launch_seeded<true, false, false, true>(a, stream);
   if (!PRICED)
     return anti ? launch_seeded<false, true, false>(a, stream)
                 : launch_seeded<false, false, false>(a, stream);
@@ -573,15 +601,16 @@ int mcop_factored_pathgen(const float* noise, const float* f1r,
                      n_steps, key, r, dt, sqrt_dt, log_s0);
   a.s0 = s0;
   a.out = out;
-  return static_cast<int>(launch<false>(a, antithetic != 0, false,
+  return static_cast<int>(launch<false>(a, antithetic != 0, false, false,
                                         static_cast<cudaStream_t>(stream)));
 }
 
-// K9.  table: rows 0-2 of the log_boundary_rows table, row stride
-// table_stride floats.  rows counts paths; antithetic != 0 reads (or
-// draws) rows / 2 rows of noise, [3, rows / 2, m2].  out: [rows / P]
-// partial sums (rows / 2P paired), then as many control sums when
-// with_cv != 0.
+// K9.  table: rows 0-2 of the log_boundary_rows table, or with
+// quadratic != 0 the eight rows of the policy_rows table (its strike in row
+// 7; `strike` is then not read), row stride table_stride floats.  rows
+// counts paths; antithetic != 0 (not with quadratic) reads (or draws)
+// rows / 2 rows of noise, [3, rows / 2, m2].  out: [rows / P] partial sums
+// (rows / 2P paired), then as many control sums when with_cv != 0.
 int mcop_factored_priced_chunk(const float* noise, const float* f1r,
                                const float* f1i, const float* phir,
                                const float* phii, const float* twr,
@@ -591,18 +620,21 @@ int mcop_factored_priced_chunk(const float* noise, const float* f1r,
                                float dt, float sqrt_dt, float log_s0,
                                const float* table, long long table_stride,
                                float strike, int is_call, int antithetic,
-                               int with_cv, float cv_disc, float* out,
-                               void* stream) {
+                               int with_cv, int quadratic, float cv_disc,
+                               float* out, void* stream) {
   Args a = make_args(noise, f1r, f1i, phir, phii, twr, twi, c2, s2, vd, rows,
                      n_steps, key, r, dt, sqrt_dt, log_s0);
   a.llo = table;
   a.lhi = table + table_stride;
   a.disc = table + 2 * table_stride;
+  a.tab = table;
+  a.tstride = table_stride;
   a.strike = strike;
   a.is_call = is_call;
   a.cv_disc = cv_disc;
   a.out = out;
   return static_cast<int>(launch<true>(a, antithetic != 0, with_cv != 0,
+                                       quadratic != 0,
                                        static_cast<cudaStream_t>(stream)));
 }
 

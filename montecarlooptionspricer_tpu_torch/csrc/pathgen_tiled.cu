@@ -8,10 +8,12 @@
 //    and paired (the whole-path pair body, _pair_tiles:382).
 // K7 mcop_tiled_priced_chunk replaces pathgen_pallas_tiled.py:
 //    _tiled_priced_kernel (and _tiled_priced_kernel_noise_in), chol and
-//    spectral forms, log-boundary policy, in four forms: plain, antithetic
+//    spectral forms.  Log-boundary policy in four forms: plain, antithetic
 //    (_pair_tiles:382), control variate (_finalize_priced_log:207) and
-//    both.  The spectral form (SPEC, from the ci pointer) is the slab's
-//    _fgn_tile:125, Zr @ Cr' - Zi @ Ci' on three noise planes.
+//    both; the quadratic policy (QUAD: _priced_tile_body:336's else branch,
+//    _policy_tile:161 and _accumulate_priced:320) plain and with the
+//    control variate.  The spectral form (SPEC, from the ci pointer) is the
+//    slab's _fgn_tile:125, Zr @ Cr' - Zi @ Ci' on three noise planes.
 //
 // They compute what K1 and K2 compute, on the same seeded stream
 // (csrc/philox.cuh), re-blocked over the step axis.  Per path p and step
@@ -24,7 +26,8 @@
 // K6 writes out[p, 0] = s0 and out[p, c+1] = exp(logS_c); its pair form
 // writes the drawn rows' paths to rows [0, rows/2) and their partners' to
 // [rows/2, rows), the [X; -X] of the unpaired kernel.  K7 stops each
-// path at the first c with llo[c] <= logS_c <= lhi[c], adds
+// path at the first c with llo[c] <= logS_c <= lhi[c] (QUAD: where the
+// policy table's quadratic says exercise, csrc/quad_policy.cuh), adds
 // disc[c] * max(+-(exp(logS_c) - strike), 0), and writes one partial sum
 // per block (no atomics, so a seed gives the same sum on every run).  The
 // forms are K2's: the control lane adds cv_disc * sum_p exp(logS_{p,n-1})
@@ -62,7 +65,11 @@
 //   Here the state of path p (log-price carry, stopped flag, stop value)
 //   lives in the registers of thread p < BP, which runs the running sum and
 //   the first-hit test along each tile.  Padded columns past n are never
-//   computed.  W is read once, at its own tile.
+//   computed.  W is read once, at its own tile.  The TPU carried "already
+//   exercised" across tiles in stop_ref; here it is the stopped flag.
+// * The QUAD forms take exp and the policy's seven table rows (through
+//   __ldg) per cell of that loop until the path's first hit, ~30
+//   operations a cell beside the product's 2 n per cell.
 // * Antithetic blocks stream D = 16*PM drawn rows (64, 32 or 16) through
 //   the same product and keep 2D members: the X tile holds both halves,
 //   and thread p < 2D carries member p (p >= D the partner of row p - D).
@@ -84,6 +91,7 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "quad_policy.cuh"
 
 namespace {
 
@@ -104,6 +112,8 @@ struct Args {
   const float* llo;     // [n] log lower bounds (K7)
   const float* lhi;     // [n] log upper bounds (K7)
   const float* disc;    // [n] discounts (K7)
+  const float* tab;     // the policy_rows table (K7's QUAD forms)
+  long long tstride;    // its row stride, floats
   float* out;           // K6: [rows, n+1]; K7: [1 or 2][blocks] partial sums
   int rows, drawn, n;   // paths, rows of the noise plane (rows / 2 paired)
   uint32_t key;
@@ -204,8 +214,9 @@ __device__ __forceinline__ size_t member_row(int drawn, int row0, int p) {
 
 // Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members (ANTI:
 // member p < D is drawn row p, member D + p its partner).  CV adds the
-// control lane, SPEC the spectral fGN form.
-template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC>
+// control lane, SPEC the spectral fGN form, QUAD the quadratic policy.
+template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC,
+          bool QUAD>
 __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
   using L = Layout<PM, ANTI, CV, SPEC>;
   constexpr int D = L::kD;
@@ -334,7 +345,11 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
       float* xp = &xs[tid * kXStride];
       for (int cc = 0; cc < cn; ++cc) {
         ls += xp[cc];
-        if (PRICED) {
+        if (PRICED && QUAD) {
+          if (!stopped)
+            stopped = mcop::quad_exercise<false>(
+                a.tab, a.tstride, c0 + cc, expf(ls), a.is_call, &val);
+        } else if (PRICED) {
           const int c = c0 + cc;
           if (!stopped && ls >= a.llo[c] && ls <= a.lhi[c]) {
             stopped = true;
@@ -378,11 +393,12 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
   }
 }
 
-template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC>
+template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC,
+          bool QUAD>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {
   constexpr int smem = Layout<PM, ANTI, CV, SPEC>::kBytes;
   static_assert(smem <= kSmemLimit, "tile shapes exceed shared memory");
-  auto kernel = tiled_kernel<PM, SEEDED, PRICED, ANTI, CV, SPEC>;
+  auto kernel = tiled_kernel<PM, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -396,45 +412,52 @@ cudaError_t launch_one(const Args& a, cudaStream_t stream) {
 
 // The plain forms take 128, 64, 32 or 16 paths a block; the paired forms
 // 128, 64 or 32 members (64, 32 or 16 drawn rows).
-template <bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC>
+template <bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC, bool QUAD>
 cudaError_t launch_pm(const Args& a, int block_paths, cudaStream_t stream) {
   switch (ANTI ? block_paths / 2 : block_paths) {
     case 128:
       if constexpr (ANTI) return cudaErrorInvalidValue;
-      else return launch_one<8, SEEDED, PRICED, ANTI, CV, SPEC>(a, stream);
+      else
+        return launch_one<8, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>(a, stream);
     case 64:
-      return launch_one<4, SEEDED, PRICED, ANTI, CV, SPEC>(a, stream);
+      return launch_one<4, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>(a, stream);
     case 32:
-      return launch_one<2, SEEDED, PRICED, ANTI, CV, SPEC>(a, stream);
+      return launch_one<2, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>(a, stream);
     case 16:
-      return launch_one<1, SEEDED, PRICED, ANTI, CV, SPEC>(a, stream);
+      return launch_one<1, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // The seeded or noise-in entry, chol or spectral (from a.ci).
-template <bool PRICED, bool ANTI, bool CV>
+template <bool PRICED, bool ANTI, bool CV, bool QUAD = false>
 cudaError_t launch_seeded(const Args& a, int seeded, int block_paths,
                           cudaStream_t stream) {
   if (a.ci != nullptr)
-    return seeded
-               ? launch_pm<true, PRICED, ANTI, CV, true>(a, block_paths, stream)
-               : launch_pm<false, PRICED, ANTI, CV, true>(a, block_paths,
-                                                          stream);
-  return seeded
-             ? launch_pm<true, PRICED, ANTI, CV, false>(a, block_paths, stream)
-             : launch_pm<false, PRICED, ANTI, CV, false>(a, block_paths,
-                                                         stream);
+    return seeded ? launch_pm<true, PRICED, ANTI, CV, true, QUAD>(
+                        a, block_paths, stream)
+                  : launch_pm<false, PRICED, ANTI, CV, true, QUAD>(
+                        a, block_paths, stream);
+  return seeded ? launch_pm<true, PRICED, ANTI, CV, false, QUAD>(
+                      a, block_paths, stream)
+                : launch_pm<false, PRICED, ANTI, CV, false, QUAD>(
+                      a, block_paths, stream);
 }
 
 template <bool PRICED>
 cudaError_t launch(Args a, int seeded, int block_paths, bool anti, bool cv,
-                   cudaStream_t stream) {
+                   bool quad, cudaStream_t stream) {
   if (a.n < 1 || a.rows < 1 || a.noise == nullptr || block_paths < 16 ||
-      a.rows % block_paths || (anti && block_paths % 32))
+      a.rows % block_paths || (anti && block_paths % 32) ||
+      (quad && (anti || !PRICED)))
     return cudaErrorInvalidValue;
   a.drawn = anti ? a.rows / 2 : a.rows;
+  if (quad)
+    return cv ? launch_seeded<true, false, true, true>(a, seeded,
+                                                       block_paths, stream)
+              : launch_seeded<true, false, false, true>(a, seeded,
+                                                        block_paths, stream);
   if (!PRICED)
     return anti ? launch_seeded<false, true, false>(a, seeded, block_paths,
                                                     stream)
@@ -502,15 +525,17 @@ int mcop_tiled_pathgen(float* noise, int seeded, const float* lt,
   a.s0 = s0;
   a.out = out;
   return static_cast<int>(launch<false>(a, seeded, block_paths,
-                                        antithetic != 0, false,
+                                        antithetic != 0, false, false,
                                         static_cast<cudaStream_t>(stream)));
 }
 
-// K7.  table: rows 0-2 of the log_boundary_rows table, row stride
-// table_stride floats.  noise, lt and ci as K6's.  rows counts paths;
-// antithetic != 0 reads (or draws into the workspace) rows / 2 rows of
-// noise, and block_paths counts pair members.  out: [rows / block_paths]
-// partial sums, then as many control sums when with_cv != 0.
+// K7.  table: rows 0-2 of the log_boundary_rows table, or with
+// quadratic != 0 the eight rows of the policy_rows table (its strike in row
+// 7; `strike` is then not read), row stride table_stride floats.  noise,
+// lt and ci as K6's.  rows counts paths; antithetic != 0 (not with
+// quadratic) reads (or draws into the workspace) rows / 2 rows of noise,
+// and block_paths counts pair members.  out: [rows / block_paths] partial
+// sums, then as many control sums when with_cv != 0.
 int mcop_tiled_priced_chunk(float* noise, int seeded, const float* lt,
                             const float* ci, const float* vd, int rows,
                             int n_steps, int block_paths, unsigned int key,
@@ -518,19 +543,22 @@ int mcop_tiled_priced_chunk(float* noise, int seeded, const float* lt,
                             float dt, float sqrt_dt, float log_s0,
                             const float* table, long long table_stride,
                             float strike, int is_call, int antithetic,
-                            int with_cv, float cv_disc, float* out,
-                            void* stream) {
+                            int with_cv, int quadratic, float cv_disc,
+                            float* out, void* stream) {
   Args a = make_args(noise, lt, ci, vd, rows, n_steps, key, r, dt, sqrt_dt,
                      log_s0);
   a.llo = table;
   a.lhi = table + table_stride;
   a.disc = table + 2 * table_stride;
+  a.tab = table;
+  a.tstride = table_stride;
   a.strike = strike;
   a.is_call = is_call;
   a.cv_disc = cv_disc;
   a.out = out;
   return static_cast<int>(launch<true>(a, seeded, block_paths,
                                        antithetic != 0, with_cv != 0,
+                                       quadratic != 0,
                                        static_cast<cudaStream_t>(stream)));
 }
 

@@ -26,7 +26,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 SOURCES = (CSRC / "pathgen.cu", CSRC / "pathgen_tiled.cu", CSRC / "chain.cu",
            CSRC / "greeks.cu", CSRC / "pathgen_factored.cu")
-HEADERS = (CSRC / "philox.cuh", CSRC / "fgn_tile.cuh")
+HEADERS = (CSRC / "philox.cuh", CSRC / "fgn_tile.cuh",
+           CSRC / "quad_policy.cuh")
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -105,17 +106,17 @@ def load() -> types.SimpleNamespace:
         (single, "mcop_pathgen"): [p, p, p, p, i, i, i, u, f, f, f, f, f, i,
                                    p, p],
         (single, "mcop_priced_chunk"): [p, p, p, p, i, i, i, u, f, f, f, f,
-                                        p, ll, f, i, i, i, f, p, p],
+                                        p, ll, f, i, i, i, i, f, p, p],
         (tiled, "mcop_tiled_smem_bytes"): [i, i, i, i],
         (tiled, "mcop_tiled_pathgen"): [p, i, p, p, p, i, i, i, u, f, f, f,
                                         f, f, i, p, p],
         (tiled, "mcop_tiled_priced_chunk"): [p, i, p, p, p, i, i, i, u, f, f,
-                                             f, f, p, ll, f, i, i, i, f, p,
-                                             p],
+                                             f, f, p, ll, f, i, i, i, i, f,
+                                             p, p],
         (chain, "mcop_chain_smem_bytes"): [i, i, i, i],
         (chain, "mcop_chain_group"): [],
         (chain, "mcop_priced_chain"): [p, p, p, p, i, i, i, u, f, f, f, f, p,
-                                       ll, ll, i, i, i, p, p],
+                                       ll, ll, i, i, i, i, p, p],
         (greeks, "mcop_greeks_smem_bytes"): [i, i, i],
         (greeks, "mcop_greeks_group"): [],
         (greeks, "mcop_greeks_chunk"): [p, p, p, p, p, p, i, i, i, u, f, f,
@@ -127,7 +128,7 @@ def load() -> types.SimpleNamespace:
         (factored, "mcop_factored_pathgen"): [p] * 10 + [i, i, u, f, f, f, f,
                                                          f, i, p, p],
         (factored, "mcop_factored_priced_chunk"): [p] * 10 + [
-            i, i, u, f, f, f, f, p, ll, f, i, i, i, f, p, p],
+            i, i, u, f, f, f, f, p, ll, f, i, i, i, i, f, p, p],
     }
     entries = {}
     for (lib, name), argtypes in signatures.items():

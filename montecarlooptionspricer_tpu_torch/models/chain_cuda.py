@@ -2,18 +2,22 @@
 its shared-memory model.
 
 Counterpart: ``make_pallas_priced_chain`` in
-``montecarlooptionspricer_tpu/models/pathgen_pallas.py`` with
-``policy_form="boundary"``.  K5 ``priced_chain`` (``csrc/chain.cu``,
-replaces ``_chain_kernel`` / ``_chain_kernel_noise_in`` /
-``_chain_kernel_grid``) generates each path block of a chunk once, as K2
+``montecarlooptionspricer_tpu/models/pathgen_pallas.py``.  K5
+``priced_chain`` (``csrc/chain.cu``, replaces ``_chain_kernel`` /
+``_chain_kernel_noise_in`` / ``_chain_kernel_grid``) generates each path block of a chunk once, as K2
 does, and sweeps every strike of the strip against it: the chunk's [K]
 payoff sums under the strip's S-space ``boundary_rows`` tables, each path
 stopped at its first step with lo <= S <= hi and worth disc * strike -
 disc * S for a put (disc * S - disc * strike for a call), with no clamp,
-as ``_policy_value_boundary`` decides.  Its ``antithetic`` form (the
-JAX maker's ``antithetic=True``, ``_chain_paths``) prices each drawn row
-as the pair (N, W), (-N, -W), the fGN product once per pair, each member
-swept against every strike.  Both run in the fGN form of the
+as ``_policy_value_boundary`` decides.  Under ``policy_form="quadratic"``
+(JAX's ``chain_policy_form="quadratic"``, ``_policy_value_minreduce:302``)
+it reads the strip's ``policy_rows`` tables instead and stops each path at
+the first step whose payoff is in the money and at least the fitted
+quadratic continuation, z = (S - mu) * (1 / sd), worth disc * payoff
+(``pathgen_cuda.quadratic_stops`` with ``recip``).  Its ``antithetic``
+form (the JAX maker's ``antithetic=True``, ``_chain_paths``; boundary
+policy only) prices each drawn row as the pair (N, W), (-N, -W), the fGN
+product once per pair, each member swept against every strike.  Both run in the fGN form of the
 ``PathConsts`` they are given: chol, or spectral (three noise planes Zr,
 Zi, W and the dense ``X = Zr @ Cr' - Zi @ Ci'``, the JAX chain kernel's
 default form), as K2's.
@@ -36,7 +40,9 @@ from . import pathgen_cuda as pc
 
 GROUP = 32                  # strikes one launch sweeps (csrc/chain.cu kGroup)
 MAX_CHAIN_STEPS = 512       # the JAX chain kernel's cap (pathgen_pallas.py)
-FORMS = pc.FORMS[:2]   # K5's forms: the launch counter's keys
+# K5's forms, the launch counter's keys: plain and paired under the
+# boundary policy, and the quadratic policy's plain form.
+FORMS = (*pc.FORMS[:2], pc.QUAD_FORMS[0])
 
 
 def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
@@ -81,14 +87,21 @@ def block_paths_for(n_steps: int, rows: int, antithetic: bool = False,
 
 def priced_chain_from_noise_ref(consts: pc.PathConsts, tables: torch.Tensor,
                                 noise: torch.Tensor, is_call: bool,
-                                antithetic: bool = False) -> torch.Tensor:
+                                antithetic: bool = False,
+                                policy_form: str = "boundary"
+                                ) -> torch.Tensor:
     """Plain K5: [K] chunk payoff sums under the [K, 8, >= n_steps]
     boundary_rows ``tables`` on the paths of ``noise`` [2 or 3, rows,
     n_steps] (the planes of ``consts``' form; ``_policy_value_boundary``
-    per strike on the S plane); with
+    per strike on the S plane), or under ``policy_form="quadratic"`` the
+    policy_rows ``tables`` (``_policy_value_minreduce``); with
     ``antithetic`` each row of noise is priced as a pair."""
     n = consts.n_steps
     s = torch.exp(pc._log_paths_ref(consts, noise, antithetic))
+    if pc.check_policy(policy_form, antithetic):
+        return torch.stack([pc.quadratic_first_hit_sum(s, tab, is_call,
+                                                       recip=True)
+                            for tab in tables])
     ds = s * tables[0, 3, :n]
     sums = []
     for tab in tables:
@@ -106,24 +119,28 @@ def priced_chain_from_noise_ref(consts: pc.PathConsts, tables: torch.Tensor,
 
 def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
                  rows: int = None, key: int = None,
-                 noise: torch.Tensor = None,
-                 antithetic: bool = False) -> torch.Tensor:
+                 noise: torch.Tensor = None, antithetic: bool = False,
+                 policy_form: str = "boundary") -> torch.Tensor:
     """K5: the chunk's [K] float32 payoff sums under the strip's
-    boundary_rows ``tables`` [K, 8, >= n_steps], from the seeded stream of
+    boundary_rows ``tables`` [K, 8, >= n_steps] (``policy_form=
+    "quadratic"``: its policy_rows tables), from the seeded stream of
     ``key`` or from injected ``noise`` [planes, rows, n_steps] (2 planes
-    chol, 3 spectral).  With ``antithetic`` the chunk's ``rows`` paths are
-    rows / 2 pairs: the seeded entry draws rows / 2 rows, and injected
-    noise is [planes, rows / 2, n_steps].  On the card one launch sweeps
-    up to GROUP strikes; a wider strip takes one launch per group on the
-    same key or noise, which
-    regenerates the same paths (and pairs).  Each block writes one
-    partial sum per strike and the blocks are summed in a fixed order, so
-    a seed gives the same sums every run."""
+    chol, 3 spectral).  With ``antithetic`` (the boundary policy only) the
+    chunk's ``rows`` paths are rows / 2 pairs: the seeded entry draws
+    rows / 2 rows, and injected noise is [planes, rows / 2, n_steps].  On
+    the card one launch sweeps up to GROUP strikes; a wider strip takes
+    one launch per group on the same key or noise, which regenerates the
+    same paths (and pairs).  Each block writes one partial sum per strike
+    and the blocks are summed in a fixed order, so a seed gives the same
+    sums every run."""
+    quadratic = pc.check_policy(policy_form, antithetic)
     rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
     n = consts.n_steps
-    if tables.dim() != 3 or tables.shape[1] < 4 or tables.shape[2] < n:
-        raise ValueError("tables must be [K, 8, >= n_steps] (boundary_rows "
-                         f"of a strip), got {tuple(tables.shape)}")
+    if (tables.dim() != 3 or tables.shape[1] < (8 if quadratic else 4)
+            or tables.shape[2] < n):
+        layout = "policy_rows" if quadratic else "boundary_rows"
+        raise ValueError(f"tables must be [K, 8, >= n_steps] ({layout} of "
+                         f"a strip), got {tuple(tables.shape)}")
     if not supports(n, consts.fgn_form):
         raise ValueError(f"n_steps={n} is past K5's horizon "
                          f"({MAX_CHAIN_STEPS})")
@@ -132,7 +149,7 @@ def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
             noise = pc.normals_ref(consts, key,
                                    pc.drawn_rows(rows, antithetic))
         return priced_chain_from_noise_ref(consts, tables, noise, is_call,
-                                           antithetic)
+                                           antithetic, policy_form)
     pc.check_device_inputs(consts, noise, tables)
     bp = block_paths_for(n, rows, antithetic, consts.spectral)
     from ..kernels import build
@@ -149,12 +166,13 @@ def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
             *consts.factor_ptrs(), consts.vd.data_ptr(), rows, n, bp,
             0 if key is None else key & pc._U32, *pc._scalars(consts),
             tables[g].data_ptr(), tables.stride(0), tables.stride(1), k,
-            int(bool(is_call)), int(bool(antithetic)), partial.data_ptr(),
-            stream)
+            int(bool(is_call)), int(bool(antithetic)), int(quadratic),
+            partial.data_ptr(), stream)
         pc._check(err, "priced_chain")
         priced_chain.launches += 1
         priced_chain.form_launches[pc.form_name(antithetic, False,
-                                                consts.spectral)] += 1
+                                                consts.spectral,
+                                                quadratic)] += 1
         sums.append(torch.sum(partial, dim=0))
     return torch.cat(sums)
 

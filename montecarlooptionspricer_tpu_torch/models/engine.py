@@ -9,7 +9,9 @@ fused kernels).
           generates a pilot block, and the LSM backward induction
           (``lsm.lsm_fit``) fits one exercise policy per step;
   tables: each step's quadratic decision becomes a log-space exercise
-          interval (``boundary_rows`` -> ``log_boundary_rows``); time-0
+          interval (``boundary_rows`` -> ``log_boundary_rows``), or under
+          ``policy_form="quadratic"`` stays the fitted quadratic, which
+          the kernels evaluate per cell (``policy_rows``); time-0
           exercise is decided on the host side;
   stream: the family's priced kernel (K2 ``pathgen_cuda.priced_chunk``,
           K7 ``pathgen_tiled_cuda.tiled_priced_chunk`` or K9
@@ -41,8 +43,10 @@ otherwise; "auto" and "chol" run the chol bodies.
 
 A strike strip (``StreamingChainPricer``) fits every strike in one LSM
 backward pass on the single-strike pricer's pilot and streams the strip
-through K5 (``chain_cuda.priced_chain``) on S-space boundary tables, K5
-in the fGN form of that pilot's law (spectral on the factored family).
+through K5 (``chain_cuda.priced_chain``) on S-space boundary tables (the
+strip's quadratic ``policy_rows`` under ``chain_policy_form=
+"quadratic"``), K5 in the fGN form of that pilot's law (spectral on the
+factored family).
 Greeks (``price_and_greeks`` on both pricers) stream the same fits
 through the pathwise tangent kernels K3 and K4 (``greeks_cuda``) on the
 single-tile horizons, chol only, as in JAX.  K5, K3 and K4 pair under
@@ -71,7 +75,12 @@ XLA.
 Only this path is ported.  Other configurations raise
 ``NotImplementedError`` naming their ROADMAP item; nothing runs another
 path silently.  Greeks under ``control_variate`` are the plain Greeks, as
-in the JAX engine.
+in the JAX engine.  The quadratic policy forms select the priced kernels'
+quadratic bodies and nothing else: the generic stream and the bounds
+decide on whole paths by the fitted quadratic under either form, pairs
+with a quadratic policy raise on a kernel family (no kernel pairs it, as
+in JAX) and price on the generic stream, and Greeks under it need JAX's
+jvp stream (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -117,11 +126,15 @@ class StreamConfig:
     "matmul", or "fft": the stream's synthesis) too;
     ``resolve_kernel_family`` says what each combination runs
     (``kernel_fgn_form``: "spectral" runs the spectral bodies of K1/K2,
-    K5 and K6/K7, "auto" and "chol" the chol ones).
+    K5 and K6/K7, "auto" and "chol" the chol ones).  ``policy_form``
+    (K2, K7 and K9) and ``chain_policy_form`` (K5) pick the priced
+    kernels' exercise policy, "boundary" (log-space or S-space exercise
+    intervals) or "quadratic" (the fitted quadratic per cell).
     ``antithetic``, ``qmc`` and ``control_variate`` name the JAX package's
-    estimators: antithetic pairing needs the boundary policy and chunk and
-    pilot sizes divisible by 32 and excludes qmc, which is not ported
-    (``_reject_unported_estimators``)."""
+    estimators: antithetic pairing needs chunk and pilot sizes divisible
+    by 32 and excludes qmc, which is not ported
+    (``_reject_unported_estimators``); on a kernel family it needs the
+    boundary policy (``_check_pairing``)."""
 
     n_paths: int
     n_steps: int
@@ -133,6 +146,7 @@ class StreamConfig:
     block_paths: int = 0
     fgn_form: str = "auto"
     policy_form: str = "boundary"
+    chain_policy_form: str = "boundary"
     tiled_impl: str = "auto"
     antithetic: bool = False
     qmc: bool = False
@@ -144,18 +158,14 @@ class StreamConfig:
         if self.antithetic and self.qmc:
             raise ValueError("antithetic is incompatible with qmc (the "
                              "Sobol set has its own stratification)")
-        if self.antithetic and self.policy_form != "boundary":
-            raise ValueError("antithetic=True requires policy_form="
-                             "'boundary' (the fused log-plane bodies pair)")
         if self.antithetic and (self.chunk_paths % 32
                                 or self.pilot_paths % 32):
             raise ValueError("antithetic needs chunk_paths and pilot_paths "
                              "divisible by 32 (half of each block's paths "
                              "are drawn)")
-        if self.policy_form != "boundary":
-            raise NotImplementedError(
-                f"policy_form={self.policy_form!r}: only the log-boundary "
-                "policy is ported (quadratic: ROADMAP B1 remaining forms)")
+        for name in ("policy_form", "chain_policy_form"):
+            if getattr(self, name) not in pathgen_cuda.POLICY_FORMS:
+                raise ValueError(f"unknown {name}: {getattr(self, name)!r}")
         if self.poly_order < 1:
             raise ValueError(f"poly_order={self.poly_order} must be >= 1")
         pathgen_stream.resolve_fgn_impl(self.fgn_impl)
@@ -303,6 +313,19 @@ def _chol_dh_matrix_host(n_steps: int, h: float, eta: float, dt: float,
     return dlt
 
 
+def _check_pairing(quadratic: bool, family: str, config: StreamConfig,
+                   field: str) -> None:
+    """The JAX engine's pairing rule (``_anti_ok``): under ``antithetic``
+    a kernel family needs the boundary policy, as only its bodies pair;
+    the generic stream pairs whole paths under either policy form."""
+    if config.antithetic and quadratic and family != "stream":
+        raise ValueError(
+            f"antithetic=True with {field}='quadratic' has no kernel on the "
+            f"{family!r} family (only the boundary bodies pair): use "
+            f"{field}='boundary', or pathgen_impl='xla' for the generic "
+            "stream, which pairs whole paths")
+
+
 # ---------------------------------------------------------------------------
 # Seeds, ranges, stderr.
 
@@ -347,8 +370,17 @@ def _chunk_stderr(totals, sumsq, m: int, per_chunk: int,
 
 
 def _fused_rows_builder(r, strike, maturity, dt, n_steps: int,
-                        is_call: bool):
-    """fits -> the log-space boundary table K2 reads."""
+                        is_call: bool, policy_form: str = "boundary"):
+    """fits -> the table the priced kernels read: the log-space boundary
+    table, or the quadratic ``policy_rows`` under
+    ``policy_form="quadratic"`` (counterpart: the JAX engine's
+    ``_fused_rows_builder``)."""
+    if pathgen_cuda.check_policy(policy_form):
+        def make_rows(fits):
+            return pathgen_cuda.policy_rows(fits, r, strike, maturity, dt,
+                                            n_steps, is_call).contiguous()
+        return make_rows
+
     def make_rows(fits):
         tab = pathgen_cuda.boundary_rows(fits, r, strike, maturity, dt,
                                          n_steps, is_call)
@@ -661,6 +693,12 @@ class _FusedStream:
                              antithetic=self.config.antithetic)
 
     def _require_greeks(self) -> None:
+        if self.quadratic:
+            raise NotImplementedError(
+                "Greeks under the quadratic policy: JAX's fused Greeks "
+                "kernels take the boundary policy only, and its quadratic "
+                "configurations take the jvp Greeks stream, which is not "
+                "ported (ROADMAP A10)")
         if self.kernel_family == "stream":
             raise NotImplementedError(
                 "Greeks on the generic path stream (pathgen_impl='xla', "
@@ -803,6 +841,9 @@ class StreamingPricer(_FusedStream):
         del rho  # the price Brownian is drawn independent of the fGN noise
         super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
                          device)
+        self.quadratic = config.policy_form == "quadratic"
+        _check_pairing(self.quadratic, self.kernel_family, config,
+                       "policy_form")
         self.strike = float(strike)
         self._priced_chunk = {
             "single": pathgen_cuda.priced_chunk,
@@ -812,7 +853,7 @@ class StreamingPricer(_FusedStream):
         }[self.kernel_family]
         self._make_rows = _fused_rows_builder(
             self.r, self.strike, self.maturity, config.dt, config.n_steps,
-            self.is_call)
+            self.is_call, config.policy_form)
 
     def _policy_fit(self, carrier):
         pilot = self._pilot(carrier)
@@ -898,7 +939,7 @@ class StreamingPricer(_FusedStream):
                 return self._priced_chunk(
                     self.consts, table, self.strike, self.is_call,
                     antithetic=config.antithetic, with_cv=cv is not None,
-                    **kw)
+                    policy_form=config.policy_form, **kw)
 
         if cv is not None:
             out = self._stream_cv(chunk_sum, seed, n_paths, noise, ex0, p0,
@@ -1001,7 +1042,9 @@ class StreamingPricer(_FusedStream):
         ``with_stderr`` returns (greeks, stderrs), each a tuple of six
         floats.  Under ``control_variate`` these are the plain Greeks,
         price lane included, as in the JAX engine, whose fused Greeks
-        stream ignores the control."""
+        stream ignores the control.  Under ``policy_form="quadratic"``
+        it raises NotImplementedError (ROADMAP A10): JAX's fused Greeks
+        take the boundary policy only."""
         self._require_greeks()
         k_pilot, _ = _pilot_stream_keys(seed)
         n_paths = self._n_paths(n_paths)
@@ -1089,6 +1132,8 @@ class StreamingChainPricer(_FusedStream):
         family = chain_family(config)
         super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
                          device, family)
+        self.quadratic = config.chain_policy_form == "quadratic"
+        _check_pairing(self.quadratic, family, config, "chain_policy_form")
         self.strikes = self._strip(strikes)
         # K5's constants: the pilot family's (K1's, K6's), or on the
         # factored family the spectral single-tile constants of the same
@@ -1120,9 +1165,13 @@ class StreamingChainPricer(_FusedStream):
         return fits
 
     def _tables(self, fits: PolyFit, strip: torch.Tensor) -> torch.Tensor:
-        return pathgen_cuda.boundary_rows(
-            fits, self.r, strip, self.maturity, self.config.dt,
-            self.config.n_steps, self.is_call).contiguous()
+        """The strip's [K, 8, s_pad] tables K5 reads: S-space
+        ``boundary_rows``, or ``policy_rows`` under
+        ``chain_policy_form="quadratic"``."""
+        rows = (pathgen_cuda.policy_rows if self.quadratic
+                else pathgen_cuda.boundary_rows)
+        return rows(fits, self.r, strip, self.maturity, self.config.dt,
+                    self.config.n_steps, self.is_call).contiguous()
 
     def price(self, seed: int, n_paths: Optional[int] = None,
               strikes=None, with_stderr: bool = False):
@@ -1174,7 +1223,8 @@ class StreamingChainPricer(_FusedStream):
         return self._stream(
             lambda **kw: chain_cuda.priced_chain(
                 self.chain_consts, tables, self.is_call,
-                antithetic=self.config.antithetic, **kw),
+                antithetic=self.config.antithetic,
+                policy_form=self.config.chain_policy_form, **kw),
             seed, n_paths, noise, ex0, p0, with_stderr)
 
     def price_and_greeks(self, seed: int, n_paths: Optional[int] = None,

@@ -14,14 +14,20 @@ Two kernels live in ``csrc/pathgen.cu``:
   JAX lays each pair out inside each Pallas block instead; whole-path
   consumers sum over rows, so the order reaches only the tests.
 * K2 ``priced_chunk`` (replaces ``_priced_kernel`` /
-  ``_priced_kernel_noise_in`` with ``policy_form="log_boundary"``): the same
-  generation kept on chip, each path stopped at its first step inside the
-  log exercise interval, one partial payoff sum per CUDA block.  Its
-  ``antithetic`` and ``with_cv`` forms (``FORMS``) are the JAX maker's:
-  paired noise carries half the rows, each drawn row priced as (N, W) and
-  (-N, -W) (``pair_planes``), and the control-variate forms also return
-  the chunk's martingale-control sum ``cv_disc * sum_p S_{p,n}``, cv_disc =
-  exp(-r n dt).
+  ``_priced_kernel_noise_in``): the same generation kept on chip, each
+  path stopped at its first exercising step, one partial payoff sum per
+  CUDA block.  Under ``policy_form="boundary"`` (JAX's "log_boundary") a
+  step exercises when the log price lies inside its log exercise interval
+  (``log_boundary_rows``); under ``policy_form="quadratic"`` (JAX's
+  ``_policy_value:277``) when the payoff is in the money and at least the
+  fitted quadratic continuation, evaluated per cell on S = exp(log S)
+  (``policy_rows``, ``quadratic_stops``).  Its ``antithetic`` and
+  ``with_cv`` forms (``FORMS``) are the JAX maker's: paired noise carries
+  half the rows, each drawn row priced as (N, W) and (-N, -W)
+  (``pair_planes``), and the control-variate forms also return the
+  chunk's martingale-control sum ``cv_disc * sum_p S_{p,n}``, cv_disc =
+  exp(-r n dt).  The quadratic policy has the plain and CV forms
+  (``QUAD_FORMS``); JAX pairs only the boundary bodies.
 
 Both run in two fGN forms, carried by the ``PathConsts`` they are given
 (``make_path_consts(fgn_form=)``): "chol", one noise plane N and the
@@ -198,10 +204,15 @@ PAIRED_BLOCK_CHOICES = (128, 64, 32)   # pair members; half of them drawn
 # The estimator forms of the priced kernels K2, K7 and K9: the launch
 # counters' keys (the chol form's; SPECTRAL prefixes the spectral form's).
 FORMS = ("plain", "anti", "cv", "anti+cv")
+# Their forms under the quadratic exercise policy, which JAX does not pair.
+QUAD_FORMS = ("quad", "quad/cv")
 # The forms of the whole-path kernels K1, K6 and K8.
 PATH_FORMS = FORMS[:2]
 SPECTRAL = "spectral"
 FGN_FORMS = ("chol", SPECTRAL)
+# The exercise-policy forms of the priced kernels (StreamConfig.policy_form):
+# log-space exercise intervals, or the fitted quadratic per cell.
+POLICY_FORMS = ("boundary", "quadratic")
 
 
 def _spectral_name(form: str) -> str:
@@ -209,11 +220,30 @@ def _spectral_name(form: str) -> str:
 
 
 def form_name(antithetic: bool, with_cv: bool = False,
-              spectral: bool = False) -> str:
-    """A launch counter's key: "plain", "anti", "cv" or "anti+cv", and
-    "spectral", "spectral/anti", ... for the spectral fGN form."""
-    name = FORMS[int(bool(antithetic)) + 2 * int(bool(with_cv))]
+              spectral: bool = False, quadratic: bool = False) -> str:
+    """A launch counter's key: "plain", "anti", "cv" or "anti+cv", "quad"
+    or "quad/cv" under the quadratic policy, and "spectral",
+    "spectral/anti", "spectral/quad", ... for the spectral fGN form."""
+    if quadratic:
+        name = QUAD_FORMS[int(bool(with_cv))]
+    else:
+        name = FORMS[int(bool(antithetic)) + 2 * int(bool(with_cv))]
     return _spectral_name(name) if spectral else name
+
+
+def check_policy(policy_form: str, antithetic: bool = False) -> bool:
+    """Whether ``policy_form`` ("boundary" or "quadratic") is the
+    quadratic one; ValueError for another name, or for the quadratic
+    policy with ``antithetic`` (JAX's makers refuse it too: only the
+    boundary bodies pair)."""
+    if policy_form not in POLICY_FORMS:
+        raise ValueError(f"policy_form must be one of {POLICY_FORMS}, got "
+                         f"{policy_form!r}")
+    quadratic = policy_form == "quadratic"
+    if quadratic and antithetic:
+        raise ValueError("antithetic requires policy_form='boundary' (the "
+                         "quadratic policy has no pair form)")
+    return quadratic
 
 
 def new_form_counts(forms=FORMS) -> dict:
@@ -412,11 +442,14 @@ def make_greeks_consts(xi, h, eta, n_steps: int, dt: float,
                         xi=float(xi), eta=float(eta))
 
 
-def _table_prep(fits, r, maturity, dt, n_steps: int, s_pad: int):
+def _table_prep(fits, r, maturity, dt, n_steps: int, s_pad: int,
+                terminal_eps: float):
     """Column-shifted fit arrays (column c is step c + 1), the
-    integer-exact live-window eps (the terminal step always live), and
-    the exp(-r t) discount.  Fits may carry leading batch axes (a strike
-    strip), which the fit arrays keep; eps and the discount are shared."""
+    integer-exact live-window eps with ``terminal_eps`` at the terminal
+    column (1e-14 keeps the in-the-money test there, -1 forces exercise)
+    and 1e30 past maturity and in the pad, and the exp(-r t) discount.
+    Fits may carry leading batch axes (a strike strip), which the fit
+    arrays keep; eps and the discount are shared."""
     from ..ops.timegrid import step_mask
 
     f32 = torch.float32
@@ -439,7 +472,7 @@ def _table_prep(fits, r, maturity, dt, n_steps: int, s_pad: int):
     live = step_mask(n_steps + 1, dt, maturity, device=dev)[1:]
     eps = torch.where(live, torch.tensor(1e-14, dtype=f32, device=dev),
                       torch.tensor(1e30, dtype=f32, device=dev))
-    eps[n_steps - 1] = 1e-14
+    eps[n_steps - 1] = terminal_eps
     eps = torch.nn.functional.pad(eps, (0, s_pad - n_steps), value=1e30)
     disc = torch.exp(-r * t)
     disc = torch.nn.functional.pad(disc, (0, s_pad - n_steps))
@@ -462,7 +495,7 @@ def boundary_rows(fits, r, strike, maturity, dt, n_steps: int,
     s_pad = _round_up(n_steps, LANE)
     big = 1e30
     c0, c1, c2, mu, sd, eps, disc = _table_prep(fits, r, maturity, dt,
-                                                n_steps, s_pad)
+                                                n_steps, s_pad, 1e-14)
     dev = mu.device
     strike_t = torch.as_tensor(strike, dtype=torch.float32,
                                device=dev)[..., None]
@@ -514,6 +547,27 @@ def boundary_rows(fits, r, strike, maturity, dt, n_steps: int,
     return torch.stack([lo_row, hi_row, disc * strike_t,
                         disc.expand_as(mu), strike_t.expand_as(mu), zeros,
                         zeros, zeros], dim=-2)
+
+
+def policy_rows(fits, r, strike, maturity, dt, n_steps: int,
+                is_call: bool) -> torch.Tensor:
+    """[8, s_pad] quadratic policy table (counterpart
+    ``pathgen_pallas.policy_rows``): rows c0, c1, c2 (the fit's
+    standardized coefficients), mu, sd, eps, the discount and the strike,
+    column c = step c + 1.  The terminal column always exercises (c0 =
+    -1e30, eps = -1); steps past maturity and the pad never do (eps =
+    1e30).  With a [K] ``strike`` tensor and fits carrying a leading [K]
+    axis it returns the strip's [K, 8, s_pad] tables, as
+    ``boundary_rows``.  ``is_call`` is not read (the kernels take the
+    payoff's sign), as in JAX."""
+    del is_call
+    s_pad = _round_up(n_steps, LANE)
+    c0, c1, c2, mu, sd, eps, disc = _table_prep(fits, r, maturity, dt,
+                                                n_steps, s_pad, -1.0)
+    strike_t = torch.as_tensor(strike, dtype=torch.float32,
+                               device=mu.device)[..., None]
+    return torch.stack([c0, c1, c2, mu, sd, eps.expand_as(mu),
+                        disc.expand_as(mu), strike_t.expand_as(mu)], dim=-2)
 
 
 def log_boundary_rows(table: torch.Tensor) -> torch.Tensor:
@@ -633,10 +687,17 @@ def cv_discount(consts) -> float:
 
 
 def priced_sums(consts, ls: torch.Tensor, table: torch.Tensor,
-                strike: float, is_call: bool, with_cv: bool):
-    """The priced kernels' output from log paths: the payoff sum, and with
-    ``with_cv`` also the control sum cv_disc * sum_p exp(ls[p, -1])."""
-    val = first_hit_sum(ls, table, strike, is_call)
+                strike: float, is_call: bool, with_cv: bool,
+                policy_form: str = "boundary"):
+    """The priced kernels' output from log paths: the payoff sum under
+    the log_boundary_rows ``table`` (``policy_form="quadratic"``: under
+    the policy_rows ``table``, on S = exp(ls), strike from its row 7),
+    and with ``with_cv`` also the control sum cv_disc * sum_p
+    exp(ls[p, -1])."""
+    if check_policy(policy_form):
+        val = quadratic_first_hit_sum(torch.exp(ls), table, is_call)
+    else:
+        val = first_hit_sum(ls, table, strike, is_call)
     if not with_cv:
         return val
     return val, cv_discount(consts) * torch.sum(torch.exp(ls[:, -1]))
@@ -645,13 +706,15 @@ def priced_sums(consts, ls: torch.Tensor, table: torch.Tensor,
 def priced_chunk_from_noise_ref(consts: PathConsts, table: torch.Tensor,
                                 noise: torch.Tensor, strike: float,
                                 is_call: bool, antithetic: bool = False,
-                                with_cv: bool = False):
+                                with_cv: bool = False,
+                                policy_form: str = "boundary"):
     """Plain K2: the chunk's payoff sum (0-d float32) under the log
-    exercise-interval table (log_boundary_rows layout); with
+    exercise-interval table (log_boundary_rows layout), or under
+    ``policy_form="quadratic"`` the policy_rows table; with
     ``antithetic`` the rows of ``noise`` are priced as pairs, with
     ``with_cv`` the result is (payoff sum, control sum)."""
     return priced_sums(consts, _log_paths_ref(consts, noise, antithetic),
-                       table, strike, is_call, with_cv)
+                       table, strike, is_call, with_cv, policy_form)
 
 
 def first_hit_sum(ls: torch.Tensor, table: torch.Tensor, strike: float,
@@ -666,6 +729,39 @@ def first_hit_sum(ls: torch.Tensor, table: torch.Tensor, strike: float,
     s_stop = torch.exp(ls.gather(1, idx[:, None])[:, 0])
     pay = s_stop - strike if is_call else strike - s_stop
     val = table[2, :n][idx] * torch.clamp_min(pay, 0.0)
+    return torch.sum(torch.where(hit, val, torch.zeros_like(val)))
+
+
+def quadratic_stops(s: torch.Tensor, table: torch.Tensor, is_call: bool,
+                    recip: bool = False):
+    """(hit, first step, value) of each of the [rows, n] price paths ``s``
+    (column c = step c + 1) under the quadratic policy table ``table``
+    (policy_rows layout; counterpart ``_policy_value:277``): a cell
+    exercises when its payoff p = max(+-(s - strike), 0) exceeds eps and
+    is at least the continuation (c2 z + c1) z + c0, z = (s - mu) / sd;
+    the first one is worth disc * p.  ``recip`` takes z = (s - mu) *
+    (1 / sd), the reciprocal per step, as the chain kernel's
+    ``_policy_value_minreduce:302`` does.  Every operation rounds to
+    float32 on its own, as the JAX interpreter's."""
+    n = s.shape[1]
+    c0, c1, c2, mu, sd, eps, disc, strike = table[:, :n].unbind(0)
+    p = torch.clamp_min(s - strike if is_call else strike - s, 0.0)
+    z = (s - mu) * (1.0 / sd) if recip else (s - mu) / sd
+    cont = (c2 * z + c1) * z + c0
+    exf = (p > eps) & (p >= cont)
+    idx = exf.to(torch.int8).argmax(dim=1)      # first hit
+    val = (p * disc).gather(1, idx[:, None])[:, 0]
+    return exf.any(dim=1), idx, val
+
+
+def quadratic_first_hit_sum(s: torch.Tensor, table: torch.Tensor,
+                            is_call: bool,
+                            recip: bool = False) -> torch.Tensor:
+    """Payoff sum (0-d float32) of the [rows, n] price paths ``s`` under
+    the quadratic policy (``quadratic_stops``); a path that never
+    exercises adds 0 (none does under policy_rows, whose terminal column
+    always exercises)."""
+    hit, _, val = quadratic_stops(s, table, is_call, recip)
     return torch.sum(torch.where(hit, val, torch.zeros_like(val)))
 
 
@@ -804,26 +900,40 @@ def sums_from_partials(partial: torch.Tensor, with_cv: bool):
     return (sums[0], sums[1]) if with_cv else sums[0]
 
 
+def check_table(table: torch.Tensor, n_steps: int,
+                quadratic: bool) -> None:
+    """A priced kernel's table: [8, >= n_steps], log_boundary_rows or
+    (``quadratic``) policy_rows; the boundary kernels read rows 0-2."""
+    if (table.dim() != 2 or table.shape[0] < (8 if quadratic else 3)
+            or table.shape[1] < n_steps):
+        layout = "policy_rows" if quadratic else "log_boundary_rows"
+        raise ValueError(f"table must be [8, >= n_steps] ({layout}), got "
+                         f"{tuple(table.shape)}")
+
+
 def priced_chunk(consts: PathConsts, table: torch.Tensor, strike: float,
                  is_call: bool, rows: int = None, key: int = None,
                  noise: torch.Tensor = None, antithetic: bool = False,
-                 with_cv: bool = False):
+                 with_cv: bool = False, policy_form: str = "boundary"):
     """K2: the chunk's discounted payoff sum (0-d float32 tensor) under
-    the log_boundary_rows ``table``, from the seeded stream of ``key`` or
-    from injected ``noise``; with ``with_cv``, (payoff sum, control sum).
-    With ``antithetic`` the chunk's ``rows`` paths are rows / 2 pairs:
+    the log_boundary_rows ``table`` (``policy_form="quadratic"``: the
+    policy_rows ``table``, which carries its strike in row 7), from the
+    seeded stream of ``key`` or from injected ``noise``; with
+    ``with_cv``, (payoff sum, control sum).  With ``antithetic`` (the
+    boundary policy only) the chunk's ``rows`` paths are rows / 2 pairs:
     the seeded entry draws rows / 2 rows, and injected noise is [planes,
     rows / 2, n_steps] (planes as K1's).  On the card each block writes
     one partial sum per lane and the blocks are summed in a fixed order,
     so a seed gives the same sums every run."""
+    quadratic = check_policy(policy_form, antithetic)
     rows = _noise_or_rows(consts, rows, key, noise, antithetic)
-    if table.shape[0] < 3 or table.shape[1] < consts.n_steps:
-        raise ValueError("table must be [8, >= n_steps] (log_boundary_rows)")
+    check_table(table, consts.n_steps, quadratic)
     if consts.device.type == "cpu":
         if noise is None:
             noise = normals_ref(consts, key, drawn_rows(rows, antithetic))
         return priced_chunk_from_noise_ref(consts, table, noise, strike,
-                                           is_call, antithetic, with_cv)
+                                           is_call, antithetic, with_cv,
+                                           policy_form)
     bp = priced_block_paths(consts, rows, antithetic, with_cv)
     args = _kernel_args(consts, rows, key, noise, bp)
     check_device_inputs(consts, None, table)
@@ -834,15 +944,15 @@ def priced_chunk(consts: PathConsts, table: torch.Tensor, strike: float,
     err = build.load().mcop_priced_chunk(
         *args, *_scalars(consts), table.data_ptr(), table.stride(0),
         ctypes.c_float(strike), int(bool(is_call)), int(bool(antithetic)),
-        int(bool(with_cv)), ctypes.c_float(cv_discount(consts)),
-        partial.data_ptr(),
+        int(bool(with_cv)), int(quadratic),
+        ctypes.c_float(cv_discount(consts)), partial.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     _check(err, "priced_chunk")
     priced_chunk.launches += 1
     priced_chunk.form_launches[form_name(antithetic, with_cv,
-                                         consts.spectral)] += 1
+                                         consts.spectral, quadratic)] += 1
     return sums_from_partials(partial, with_cv)
 
 
 priced_chunk.launches = 0
-priced_chunk.form_launches = new_form_counts()
+priced_chunk.form_launches = new_form_counts(FORMS + QUAD_FORMS)

@@ -12,11 +12,12 @@ Two kernels live in ``csrc/pathgen_factored.cu``:
   pair form's shared memory is the plain form's, so it takes every
   horizon K8 takes).
 * K9 ``factored_priced_chunk`` (replaces ``_factored_priced_kernel`` /
-  ``_factored_priced_kernel_noise_in`` with ``policy_form="boundary"``):
-  the chunk's payoff sum under a log exercise-interval table, one partial
-  sum per CUDA block, in K2's four forms (``antithetic``: noise [3,
-  rows / 2, m2], each drawn row priced as (Z, W) and (-Z, -W); ``with_cv``:
-  the control sum beside it).
+  ``_factored_priced_kernel_noise_in``): the chunk's payoff sum under a
+  log exercise-interval table, one partial sum per CUDA block, in K2's
+  four forms (``antithetic``: noise [3, rows / 2, m2], each drawn row
+  priced as (Z, W) and (-Z, -W); ``with_cv``: the control sum beside it),
+  or under the quadratic policy table (``policy_form="quadratic"``,
+  ``_priced_step:300-327``), plain and CV.
 
 The fGN increments are the reference's spectral synthesis, half-scaled
 (``FactoredConsts``): X = Re DFT_m2(Z * phi'), a length-m2 DFT
@@ -30,7 +31,7 @@ transposed, so stage 1 reads it in place: storage column c = 128 k2 + k1
 holds logical frequency k = N2 k1 + k2 (``transposed_to_logical``).  The
 Euler recursion and the first-hit test are those of the other kernels, and
 the plain versions share their code (``pathgen_cuda.log_paths_from_x``,
-``first_hit_sum``).
+``priced_sums``).
 
 Noise layout (the JAX noise-in entry's): [3, rows, m2] float32, planes 0
 and 1 the real and imaginary fGN normals in storage order, plane 2 the
@@ -275,13 +276,15 @@ def factored_priced_chunk_from_noise_ref(consts: FactoredConsts,
                                          noise: torch.Tensor, strike: float,
                                          is_call: bool,
                                          antithetic: bool = False,
-                                         with_cv: bool = False):
+                                         with_cv: bool = False,
+                                         policy_form: str = "boundary"):
     """Plain K9: the chunk's payoff sum (0-d float32) under the log
-    exercise-interval table (log_boundary_rows layout); with
+    exercise-interval table (log_boundary_rows layout), or under
+    ``policy_form="quadratic"`` the policy_rows table; with
     ``antithetic`` the rows of ``noise`` are priced as pairs, with
     ``with_cv`` the result is (payoff sum, control sum)."""
     return pc.priced_sums(consts, _log_paths_ref(consts, noise, antithetic),
-                          table, strike, is_call, with_cv)
+                          table, strike, is_call, with_cv, policy_form)
 
 
 # ---------------------------------------------------------------------------
@@ -371,24 +374,27 @@ factored_pathgen.form_launches = dict.fromkeys(pc.PATH_FORMS, 0)
 def factored_priced_chunk(consts: FactoredConsts, table: torch.Tensor,
                           strike: float, is_call: bool, rows: int = None,
                           key: int = None, noise: torch.Tensor = None,
-                          antithetic: bool = False, with_cv: bool = False):
+                          antithetic: bool = False, with_cv: bool = False,
+                          policy_form: str = "boundary"):
     """K9: the chunk's discounted payoff sum (0-d float32 tensor) under the
-    log_boundary_rows ``table``, from the seeded stream of ``key`` or from
+    log_boundary_rows ``table`` (``policy_form="quadratic"``: the
+    policy_rows ``table``), from the seeded stream of ``key`` or from
     injected ``noise`` [3, rows, m2], and with ``with_cv`` the control sum
-    beside it.  With ``antithetic`` the chunk's ``rows`` paths are rows / 2
-    pairs (the seeded entry draws rows / 2 rows; noise is [3, rows / 2,
-    m2]).  Each block writes one partial sum per lane and the blocks are
-    summed in a fixed order, so a seed gives the same sums every run."""
+    beside it.  With ``antithetic`` (the boundary policy only) the chunk's
+    ``rows`` paths are rows / 2 pairs (the seeded entry draws rows / 2
+    rows; noise is [3, rows / 2, m2]).  Each block writes one partial sum
+    per lane and the blocks are summed in a fixed order, so a seed gives
+    the same sums every run."""
+    quadratic = pc.check_policy(policy_form, antithetic)
     rows = _noise_or_rows(consts, rows, key, noise, antithetic)
-    if table.dim() != 2 or table.shape[0] < 3 \
-            or table.shape[1] < consts.n_steps:
-        raise ValueError("table must be [8, >= n_steps] (log_boundary_rows)")
+    pc.check_table(table, consts.n_steps, quadratic)
     drawn = pc.drawn_rows(rows, antithetic)
     if consts.device.type == "cpu":
         if noise is None:
             noise = philox_factored_normals_ref(key, drawn, consts.n_steps)
         return factored_priced_chunk_from_noise_ref(
-            consts, table, noise, strike, is_call, antithetic, with_cv)
+            consts, table, noise, strike, is_call, antithetic, with_cv,
+            policy_form)
     ptrs = _const_ptrs(consts, rows, noise, drawn)
     pc.check_device_inputs(consts, None, table)
     partial = torch.empty(
@@ -399,15 +405,16 @@ def factored_priced_chunk(consts: FactoredConsts, table: torch.Tensor,
     err = build.load().mcop_factored_priced_chunk(
         *ptrs, _key_word(key), *pc._scalars(consts), table.data_ptr(),
         table.stride(0), ctypes.c_float(strike), int(bool(is_call)),
-        int(bool(antithetic)), int(bool(with_cv)),
+        int(bool(antithetic)), int(bool(with_cv)), int(quadratic),
         ctypes.c_float(pc.cv_discount(consts)), partial.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, "factored_priced_chunk")
     factored_priced_chunk.launches += 1
     factored_priced_chunk.form_launches[
-        pc.form_name(antithetic, with_cv)] += 1
+        pc.form_name(antithetic, with_cv, quadratic=quadratic)] += 1
     return pc.sums_from_partials(partial, with_cv)
 
 
 factored_priced_chunk.launches = 0
-factored_priced_chunk.form_launches = dict.fromkeys(pc.FORMS, 0)
+factored_priced_chunk.form_launches = dict.fromkeys(pc.FORMS + pc.QUAD_FORMS,
+                                                    0)

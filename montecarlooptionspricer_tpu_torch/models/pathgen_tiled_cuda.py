@@ -9,9 +9,10 @@ Counterpart: ``montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py``
   S0 in column 0, plain or paired (``antithetic``: the drawn rows' paths,
   then their partners', as K1's pair form lays them out).
 * K7 ``tiled_priced_chunk`` (replaces ``_tiled_priced_kernel`` /
-  ``_tiled_priced_kernel_noise_in`` with ``policy_form="boundary"``): the
-  chunk's payoff sum under a log exercise-interval table, in K2's four
-  forms (``antithetic``, ``with_cv``).
+  ``_tiled_priced_kernel_noise_in``): the chunk's payoff sum under a log
+  exercise-interval table, in K2's four forms (``antithetic``,
+  ``with_cv``), or under the quadratic policy table
+  (``policy_form="quadratic"``, ``_policy_tile:161``), plain and CV.
 
 They compute the same function as K1 and K2 of ``pathgen_cuda``, re-blocked
 over the step axis, in the fGN form of the ``PathConsts`` they are given
@@ -154,23 +155,26 @@ tiled_pathgen.form_launches = pc.new_form_counts(pc.PATH_FORMS)
 def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
                        strike: float, is_call: bool, rows: int = None,
                        key: int = None, noise: torch.Tensor = None,
-                       antithetic: bool = False, with_cv: bool = False):
+                       antithetic: bool = False, with_cv: bool = False,
+                       policy_form: str = "boundary"):
     """K7: the chunk's discounted payoff sum (0-d float32 tensor) under
-    the log_boundary_rows ``table``, from the seeded stream of ``key`` or
-    from injected ``noise``, and with ``with_cv`` the control sum beside
-    it; the same function as ``pathgen_cuda.priced_chunk`` in each form
+    the log_boundary_rows ``table`` (``policy_form="quadratic"``: the
+    policy_rows ``table``), from the seeded stream of ``key`` or from
+    injected ``noise``, and with ``with_cv`` the control sum beside it;
+    the same function as ``pathgen_cuda.priced_chunk`` in each form
     (``antithetic``: rows / 2 drawn rows, noise [planes, rows / 2,
     n_steps]).  Each block writes one partial sum per lane and the blocks
     are summed in a fixed order."""
+    quadratic = pc.check_policy(policy_form, antithetic)
     rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
-    if table.shape[0] < 3 or table.shape[1] < consts.n_steps:
-        raise ValueError("table must be [8, >= n_steps] (log_boundary_rows)")
+    pc.check_table(table, consts.n_steps, quadratic)
     if consts.device.type == "cpu":
         if noise is None:
             noise = pc.normals_ref(consts, key,
                                    pc.drawn_rows(rows, antithetic))
         return priced_chunk_from_noise_ref(consts, table, noise, strike,
-                                           is_call, antithetic, with_cv)
+                                           is_call, antithetic, with_cv,
+                                           policy_form)
     plane, seeded, bp, word = _plane_args(consts, rows, key, noise,
                                           antithetic)
     pc.check_device_inputs(consts, None, table)
@@ -183,15 +187,16 @@ def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
         consts.vd.data_ptr(), rows, consts.n_steps, bp, word,
         *pc._scalars(consts), table.data_ptr(), table.stride(0),
         ctypes.c_float(strike), int(bool(is_call)), int(bool(antithetic)),
-        int(bool(with_cv)), ctypes.c_float(pc.cv_discount(consts)),
-        partial.data_ptr(),
+        int(bool(with_cv)), int(quadratic),
+        ctypes.c_float(pc.cv_discount(consts)), partial.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, "tiled_priced_chunk")
     tiled_priced_chunk.launches += 1
-    tiled_priced_chunk.form_launches[pc.form_name(antithetic, with_cv,
-                                                  consts.spectral)] += 1
+    tiled_priced_chunk.form_launches[pc.form_name(
+        antithetic, with_cv, consts.spectral, quadratic)] += 1
     return pc.sums_from_partials(partial, with_cv)
 
 
 tiled_priced_chunk.launches = 0
-tiled_priced_chunk.form_launches = pc.new_form_counts()
+tiled_priced_chunk.form_launches = pc.new_form_counts(pc.FORMS
+                                                      + pc.QUAD_FORMS)

@@ -25,9 +25,11 @@ K1, K6 or K8, paired with ``--antithetic``, and the lower and upper sums of
 each chunk's whole paths).  ``--fgn-form`` passes through to
 ``StreamConfig.fgn_form`` as the JAX bench's ``BENCH_FGN_FORM`` does:
 "spectral" runs the spectral bodies (K1/K2 at 365 steps, K5 for a strip,
-K6/K7 with ``--tiled-impl slab``; K8/K9 past 365 steps otherwise).  For
-each stage it
-prints one JSON line: host wall seconds, device kernel launches and busy
+K6/K7 with ``--tiled-impl slab``; K8/K9 past 365 steps otherwise).
+``--policy-form quadratic`` sets ``StreamConfig.policy_form`` and
+``chain_policy_form``: the stream then runs the quadratic form of the
+priced kernel (K2, K7 or K9; K5 for a strip), the fit and its tables
+being otherwise the same.  For each stage it prints one JSON line: host wall seconds, device kernel launches and busy
 seconds from the trace, the idle share 1 - busy / wall (against the
 unprofiled and the profiled wall), and the kernels that take the most
 device time.
@@ -36,7 +38,7 @@ Usage (one CUDA card):
   python -m montecarlooptionspricer_tpu_torch.profile_price [--steps N]
       [--strikes 75,77.5,...,125] [--greeks] [--tiled-impl factored]
       [--antithetic] [--control-variate] [--pathgen xla] [--bounds]
-      [--fgn-form {auto,chol,spectral}]
+      [--fgn-form {auto,chol,spectral}] [--policy-form quadratic]
 """
 
 from __future__ import annotations
@@ -98,6 +100,10 @@ def main(argv=None) -> int:
     parser.add_argument("--fgn-form", default="auto",
                         choices=("auto", "chol", "spectral"),
                         help="StreamConfig.fgn_form")
+    parser.add_argument("--policy-form", default="boundary",
+                        choices=("boundary", "quadratic"),
+                        help="StreamConfig.policy_form and "
+                             "chain_policy_form")
     parser.add_argument("--pathgen", default="pallas",
                         choices=("pallas", "xla"),
                         help="StreamConfig.pathgen_impl")
@@ -122,6 +128,8 @@ def main(argv=None) -> int:
                               antithetic=args.antithetic,
                               control_variate=args.control_variate,
                               fgn_form=args.fgn_form,
+                              policy_form=args.policy_form,
+                              chain_policy_form=args.policy_form,
                               pathgen_impl=args.pathgen)
     if strikes:
         pricer = engine.StreamingChainPricer(
@@ -163,7 +171,8 @@ def main(argv=None) -> int:
             "antithetic": args.antithetic,
             "control_variate": args.control_variate,
             "kernel_family": pricer.kernel_family,
-            "fgn_form": args.fgn_form, "card": card,
+            "fgn_form": args.fgn_form, "policy_form": args.policy_form,
+            "card": card,
             "wall_s": wall_plain,
             "wall_profiled_s": wall_prof, "device_launches": len(kernels),
             "device_busy_s": busy_s,

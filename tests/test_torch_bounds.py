@@ -440,21 +440,26 @@ def test_seeds_and_stderrs():
     assert anti[3] <= up_se
 
 
-@pytest.mark.parametrize("antithetic", [False, True], ids=["plain", "anti"])
-def test_lower_bound_equals_price_on_the_same_seed(antithetic):
+@pytest.mark.parametrize("antithetic,policy_form,rtol", [
+    (False, "boundary", 1e-4), (True, "boundary", 1e-4),
+    (False, "quadratic", 1e-5)], ids=["plain", "anti", "quadratic"])
+def test_lower_bound_equals_price_on_the_same_seed(antithetic, policy_form,
+                                                   rtol):
     """At 365 steps on the bench market, the lower bound (the policy's
     S-space decisions on K1's whole paths, paired on K1/anti) and
     ``price`` (K2's log-space intervals on the same chunks and pairs,
-    under the fits of the same pilot) agree within 1e-4 relative."""
+    under the fits of the same pilot) agree within 1e-4 relative.  Under
+    ``policy_form="quadratic"`` ``price`` takes K2's quadratic form, the
+    lower bound's own policy on the same paths: within 1e-5."""
     cfg = tengine.StreamConfig(n_paths=1 << 13, n_steps=365,
                                chunk_paths=1 << 12, pilot_paths=1 << 12,
-                               antithetic=antithetic)
+                               antithetic=antithetic, policy_form=policy_form)
     p = tengine.StreamingPricer(100.0, 0.04, 0.1, 1.5, -0.4, 0.04, 105.0,
                                 365 / 252, False, cfg, device="cpu")
     lo, up = p.price_with_bounds(42)
     price = p.price(42)
     assert lo < up
-    assert abs(lo / price - 1.0) <= 1e-4
+    assert abs(lo / price - 1.0) <= rtol
 
 
 def test_bounds_refusals():

@@ -116,22 +116,22 @@ def test_seed_carriers():
 
 @pytest.mark.parametrize("field,value,want", [
     ("fgn_form", "spectral", "single"),
-    ("policy_form", "quadratic", NotImplementedError),
+    ("policy_form", "quadratic", "single"),
 ], ids=["fgn_form-spectral", "policy_form-quadratic"])
 def test_unported_configurations_raise(field, value, want):
-    """A quadratic policy is still to port and raises naming its ROADMAP
-    item; the spectral fGN form raised too until K1/K2 had their spectral
-    bodies, and now resolves to the single-tile family."""
+    """The spectral fGN form and the quadratic policy each raised, naming
+    their ROADMAP items, until K1/K2 had their spectral bodies and K2 its
+    quadratic one; both now build and resolve to the single-tile family."""
     kw = dict(n_paths=1024, n_steps=32)
     kw[field] = value
-    if want is NotImplementedError:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tengine.StreamConfig(**kw)
-        return
     cfg = tengine.StreamConfig(**kw)
     assert tengine.resolve_kernel_family(
         cfg.n_steps, cfg.fgn_form, cfg.tiled_impl, cfg.pathgen_impl,
         cfg.poly_order) == want
+    pricer = tengine.StreamingPricer(100.0, 0.04, 0.1, 1.5, -0.4, 0.04,
+                                     105.0, 32 / 252, False, cfg,
+                                     device="cpu")
+    assert pricer.kernel_family == want
 
 
 @pytest.mark.parametrize("field,value", [("poly_order", 3),

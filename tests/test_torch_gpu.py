@@ -1008,9 +1008,8 @@ def test_spectral_engine_on_the_card(cuda):
                                        else "factored")
         prices = chain.price(3)
         assert all(0.0 < p < 105.0 for p in prices)
-    assert cc.priced_chain.form_launches == {"plain": 0, "anti": 0,
-                                             "spectral": 4,
-                                             "spectral/anti": 0}
+    assert cc.priced_chain.form_launches == dict(
+        dict.fromkeys(cc.priced_chain.form_launches, 0), spectral=4)
     assert pfc.factored_pathgen.form_launches["plain"] == 1
 
 
@@ -1038,3 +1037,191 @@ def test_spectral_upper_rows_reach_early_columns_on_card(cuda):
         torch.cuda.synchronize()
         assert float((got[:, 1:tile + 1] - flat[:, 1:tile + 1]).abs()
                      .max()) > 1e-2
+
+
+# ---------------------------------------------------------------------------
+# The quadratic exercise-policy forms (QUAD) of K2, K7, K9 and K5.
+
+def _policy_table(consts, paths, n_steps, strike=100.0):
+    """policy_rows of a put fitted on ``paths``, and the log boundary table
+    of the same fit."""
+    _, fits = engine.lsm_fit(paths, MARKET["r"], strike, n_steps * DT, DT,
+                             False)
+    quad = pc.policy_rows(fits, MARKET["r"], strike, n_steps * DT, DT,
+                          n_steps, False).contiguous()
+    return quad, pc.log_boundary_rows(pc.boundary_rows(
+        fits, MARKET["r"], strike, n_steps * DT, DT, n_steps,
+        False)).contiguous()
+
+
+def _check_quad_forms(priced, ref, consts, tables, normals, rows, key,
+                      spectral=False):
+    """The quadratic form of one priced kernel, plain and CV, against its
+    plain version, seeded and on noise: both lanes at rtol 1e-4 (a stop
+    decision flips only inside the float32 root band, where an exp of
+    the kernel and of PyTorch differ by an ulp).  Seeded, against the
+    boundary form on the same key: the same paths, so the control sums
+    agree to 1e-6 and the payoff sums to 1e-3 (the two policies decide
+    apart only in the root band and where a step's exercise set is two
+    intervals).  Each launch counts under its own form."""
+    quad, boundary = tables
+    noise = normals(key, rows)
+    for cv in (False, True):
+        want = ref(consts, quad, noise, 100.0, False, False, cv, "quadratic")
+        want = want if cv else (want,)
+        name = pc.form_name(False, cv, spectral, quadratic=True)
+        before = priced.form_launches[name]
+        seeded = priced(consts, quad, 100.0, False, rows=rows, key=key,
+                        with_cv=cv, policy_form="quadratic")
+        for got in (priced(consts, quad, 100.0, False, noise=noise,
+                           with_cv=cv, policy_form="quadratic"), seeded):
+            torch.cuda.synchronize()
+            for g, w in zip(got if cv else (got,), want):
+                assert float(w) > 0
+                assert abs(float(g) / float(w) - 1.0) < 1e-4, cv
+        assert priced.form_launches[name] - before == 2
+        other = priced(consts, boundary, 100.0, False, rows=rows, key=key,
+                       with_cv=cv)
+        torch.cuda.synchronize()
+        for i, (g, b) in enumerate(zip(seeded if cv else (seeded,),
+                                       other if cv else (other,))):
+            assert abs(float(g) / float(b) - 1.0) < (1e-6 if i else 1e-3)
+    del noise
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fgn_form", ["chol", "spectral"])
+@pytest.mark.parametrize("n_steps", [96, 365])
+def test_quadratic_k2_matches_plain_version(cuda, n_steps, fgn_form):
+    """K2/quad and K2/quad/cv, chol and spectral, at the main path's chunk
+    of 131072 rows."""
+    rows, key = 1 << 17, pc._fold_words(5, 61)
+    consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda,
+                                 fgn_form=fgn_form)
+    tables = _policy_table(consts, pc.pathgen(consts, rows=1 << 14, key=key),
+                           n_steps)
+    _check_quad_forms(pc.priced_chunk, pc.priced_chunk_from_noise_ref,
+                      consts, tables, lambda k, r: pc.normals_ref(
+                          consts, k, r, device=cuda), rows, key,
+                      fgn_form == "spectral")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fgn_form", ["chol", "spectral"])
+@pytest.mark.parametrize("n_steps", [1825, 300])
+def test_quadratic_k7_matches_plain_version(cuda, n_steps, fgn_form):
+    """K7/quad and K7/quad/cv, chol and spectral (the slab), at 131072
+    rows; 300 steps crosses three step tiles."""
+    rows, key = 1 << 17, pc._fold_words(5, 67)
+    consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda,
+                                 fgn_form=fgn_form)
+    tables = _policy_table(
+        consts, ptc.tiled_pathgen(consts, rows=1 << 14, key=key), n_steps)
+    _check_quad_forms(ptc.tiled_priced_chunk, ptc.priced_chunk_from_noise_ref,
+                      consts, tables, lambda k, r: pc.normals_ref(
+                          consts, k, r, device=cuda), rows, key,
+                      fgn_form == "spectral")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps,rows", [(1825, 1 << 17), (4000, 1 << 17)])
+def test_quadratic_k9_matches_plain_version(cuda, n_steps, rows):
+    """K9/quad and K9/quad/cv at 131072 rows (the lanes of a warp test
+    their four steps each in order ahead of the ballot)."""
+    key = pc._fold_words(5, 71)
+    consts = pfc.make_factored_consts(*MARKET.values(), n_steps, DT, cuda)
+    tables = _policy_table(
+        consts, pfc.factored_pathgen(consts, rows=1 << 13, key=key), n_steps)
+    _check_quad_forms(pfc.factored_priced_chunk,
+                      pfc.factored_priced_chunk_from_noise_ref, consts,
+                      tables, lambda k, r: pfc.philox_factored_normals_ref(
+                          k, r, n_steps, device=cuda), rows, key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fgn_form", ["chol", "spectral"])
+@pytest.mark.parametrize("n_steps,n_strikes", [(365, 21), (512, 23),
+                                               (365, 40)])
+def test_quadratic_chain_matches_plain_version(cuda, n_steps, n_strikes,
+                                               fgn_form):
+    """K5/quad, chol and spectral, seeded and noise-in, at 131072 rows,
+    against its plain version: 1e-4 of each strike's scale (floored at
+    1e-3 of the largest).  40 strikes take two launches of one key."""
+    rows, key = 1 << 17, pc._fold_words(5, 73)
+    consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda,
+                                 fgn_form=fgn_form)
+    noise = pc.normals_ref(consts, key, rows, device=cuda)
+    pilot = pc.pathgen_from_noise_ref(consts, noise[:, : 1 << 14])
+    strip = torch.linspace(80.0, 120.0, n_strikes, device=cuda)
+    _, fits = engine.lsm_fit(pilot, MARKET["r"], strip, n_steps * DT, DT,
+                             False)
+    tables = pc.policy_rows(fits, MARKET["r"], strip, n_steps * DT, DT,
+                            n_steps, False).contiguous()
+    want = cc.priced_chain_from_noise_ref(consts, tables, noise, False,
+                                          policy_form="quadratic")
+    name = pc.form_name(False, spectral=fgn_form == "spectral",
+                        quadratic=True)
+    before = cc.priced_chain.form_launches[name]
+    for got in (cc.priced_chain(consts, tables, False, noise=noise,
+                                policy_form="quadratic"),
+                cc.priced_chain(consts, tables, False, rows=rows, key=key,
+                                policy_form="quadratic")):
+        torch.cuda.synchronize()
+        assert got.shape == (n_strikes,)
+        assert _rel(got, want) < 1e-4
+    assert cc.priced_chain.form_launches[name] - before == \
+        2 * -(-n_strikes // cc.GROUP)
+
+
+@pytest.mark.gpu
+def test_quadratic_engine_on_the_card(cuda):
+    """StreamingPricer(policy_form="quadratic") launches K1 and K2/quad
+    only (K2/quad/cv under the control variate), its price agreeing with
+    its plain versions on the same seed and fits within 1e-4; the strip
+    under chain_policy_form="quadratic" launches K1 and K5/quad only; a
+    quadratic policy with pairs raises before any launch."""
+    counters = (pc.pathgen, pc.priced_chunk, cc.priced_chain)
+    for fn in counters:
+        fn.form_launches = dict.fromkeys(fn.form_launches, 0)
+    n = 96
+    for cv in (False, True):
+        cfg = engine.StreamConfig(n_paths=4 << 14, n_steps=n,
+                                  chunk_paths=1 << 14, pilot_paths=1 << 14,
+                                  dt=DT, policy_form="quadratic",
+                                  control_variate=cv)
+        pricer = engine.StreamingPricer(**MARKET, rho=0.0, strike=100.0,
+                                        maturity=n * DT, is_call=False,
+                                        config=cfg, device=cuda)
+        fits = pricer.fit(engine._pilot_stream_keys(3)[0])
+        price = pricer.price_with_fit(fits, 3)
+        if not cv:
+            table = pricer._make_rows(fits)
+            assert table.shape[0] == 8
+            _, (run, start) = engine._pilot_stream_keys(3)
+            total = sum(float(pc.priced_chunk_from_noise_ref(
+                pricer.consts, table, pc.philox_normals_ref(
+                    pc._fold_words(run, start + i), 1 << 14, n,
+                    device=cuda), 100.0, False,
+                policy_form="quadratic")) for i in range(4))
+            assert abs(price / (total / (4 << 14)) - 1.0) < 1e-4
+    assert pc.priced_chunk.form_launches == dict(
+        dict.fromkeys(pc.priced_chunk.form_launches, 0),
+        **{"quad": 4, "quad/cv": 4})
+    chain = engine.StreamingChainPricer(
+        **MARKET, rho=0.0, strikes=[95.0, 105.0], maturity=n * DT,
+        is_call=False, device=cuda,
+        config=engine.StreamConfig(n_paths=2 << 14, n_steps=n,
+                                   chunk_paths=1 << 14, pilot_paths=1 << 14,
+                                   dt=DT, chain_policy_form="quadratic"))
+    prices = chain.price(3)
+    assert all(0.0 < p < 105.0 for p in prices)
+    assert cc.priced_chain.form_launches == dict(
+        dict.fromkeys(cc.priced_chain.form_launches, 0), quad=2)
+    assert pc.pathgen.form_launches["plain"] == 3
+    with pytest.raises(ValueError, match="policy_form='quadratic'"):
+        engine.StreamingPricer(
+            **MARKET, rho=0.0, strike=100.0, maturity=n * DT, is_call=False,
+            config=engine.StreamConfig(
+                n_paths=2 << 14, n_steps=n, chunk_paths=1 << 14,
+                pilot_paths=1 << 14, dt=DT, policy_form="quadratic",
+                antithetic=True), device=cuda)
