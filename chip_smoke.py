@@ -101,7 +101,27 @@ to 0 just before it and read just after:
   ``chain_quadratic`` the strip at 365 steps, chol and spectral (76
   chunks), and at 400 on the K8 pilot (16 chunks), each strike within
   1e-4 of the boundary strip under the same fits, or within 5 combined
-  stderr.  Each checks that only the quadratic forms launched.
+  stderr.  Each checks that only the quadratic forms launched;
+* the bf16 fGN-input forms (``fgn_matmul_dtype="bfloat16"``, the tensor
+  cores' product): ``bf16_forms`` holds K1/bf16 and K2/bf16 at 365 steps,
+  K6/bf16 and K7/bf16 at 1825, in each of their forms against their plain
+  versions (paths 2e-4 and 10x closer to the bf16 plain version than to
+  the float32 one; sums 1e-4), seeded and on noise, pairs against [X; -X],
+  timed beside the bf16 product's yardstick and the bound;
+  ``price_bf16`` prices 1e7 x 365 through K1/bf16 once and K2/bf16 76
+  times, within 1e-4 of its plain versions and 5 combined stderr of
+  ``price``; ``price_bf16_long`` 1e7 x 1825 through K6/bf16 and K7/bf16,
+  its first 16 chunks against the plain versions, within 5 combined
+  stderr of ``price_long``; ``price_bf16[_long]_{anti,cv,anti_cv}`` and
+  ``price_bf16[_long]_bounds_anti`` run each estimator form and the
+  paired bounds (K1/bf16/anti, K6/bf16/anti) on 16 chunks;
+* P1 (``roofline``): the normals probe in its four variants and the
+  matmul probe in float32 and bf16, on the identity and a random
+  orthogonal B, against their plain versions, then the card's rates
+  (normals, exp, FMA, and the slab's tile product's multiply-adds in
+  float32 and bf16), each probe again against its plain version at the
+  shapes the rates come from, the library yardsticks, and each of
+  K1/K2/K6/K7 (float32 and bf16) beside its P1 ceiling.
 
 It also times K2 against K7 per chunk across horizons (the crossover that
 sets engine.SINGLE_TILE_MAX_STEPS) and times each kernel and form (K8 and
@@ -169,6 +189,9 @@ POLY3_CHECKED = 16
 SPECTRAL_PAST_TILE_STEPS = 400
 SPECTRAL_PAST_TILE_CHUNKS = 16
 SPECTRAL_SLAB_FORM_CHUNKS = 16
+# Blocks of 512 columns of the P1 normals probe per call of its plain
+# version when it is held against a whole launch (~3 GB a call at k 26).
+PROBE_REF_BLOCKS = 16
 
 # Tolerances.  Paths: the kernel and the plain version sum the fGN product
 # and the log-price recursion in different orders (float32), ~2e-4
@@ -237,9 +260,21 @@ QUAD_SWEEP_OPS = 12.0
 # the sums differs.
 QUAD_LOWER_RTOL = 1e-5
 
-# H100 SXM peaks (NVIDIA data sheet): float32 without tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): float32 without tensor cores, dense
+# bf16 on the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+
+# The bf16 fGN-input forms: the long price's plain-version check streams
+# this many chunks, and their estimator prices and paired bounds stream
+# BF16_FORM_CHUNKS chunks (each form's pilot fit at 1825 steps is seconds).
+BF16_LONG_CHECKED = 16
+BF16_FORM_CHUNKS = 16
+BF16_FORM_CHECKED = 4
+# A bf16 path form must lie this many times closer to the bf16 plain
+# version than to the float32 one (the discriminating check).
+BF16_CLOSER = 10.0
 
 REPLACES = {
     "pathgen": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:522",
@@ -328,6 +363,23 @@ REPLACES = {
         "montecarlooptionspricer_tpu/models/pathgen_pallas_factored.py:282",
     **{f"K5{f}/quad": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:302"
        for f in ("", "/spectral")},
+    # The bf16 fGN-input forms (fgn_dtype=jnp.bfloat16): the single tile's
+    # product _fgn_x:142 on bf16 matrices, the slab's bf16 noise tiles of
+    # its path (:308) and priced (:435) kernels.
+    **{f"K{k}/bf16{f}":
+       "montecarlooptionspricer_tpu/models/pathgen_pallas.py:142"
+       for k, forms in ((1, ("", "/anti")),
+                        (2, ("", "/anti", "/cv", "/anti+cv")))
+       for f in forms},
+    **{f"K6/bf16{f}":
+       "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:308"
+       for f in ("", "/anti")},
+    **{f"K7/bf16{f}":
+       "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:435"
+       for f in ("", "/anti", "/cv", "/anti+cv")},
+    # P1: the roofline probes.
+    "P1/normals": "parity/vpu_roofline.py:110",
+    "P1/matmul": "parity/vpu_roofline.py:177",
 }
 SOURCES = {
     "pathgen": "montecarlooptionspricer_tpu_torch/csrc/pathgen.cu",
@@ -368,6 +420,15 @@ SOURCES = {
                            (9, "pathgen_factored.cu", ("", "/cv")),
                            (5, "chain.cu", ("",)))
        for spec in (("",) if k == 9 else ("", "/spectral")) for cv in cvs},
+    **{f"K{k}/bf16{f}": f"montecarlooptionspricer_tpu_torch/csrc/{src}"
+       for k, src, forms in (
+           (1, "pathgen.cu", ("", "/anti")),
+           (2, "pathgen.cu", ("", "/anti", "/cv", "/anti+cv")),
+           (6, "pathgen_tiled.cu", ("", "/anti")),
+           (7, "pathgen_tiled.cu", ("", "/anti", "/cv", "/anti+cv")))
+       for f in forms},
+    "P1/normals": "montecarlooptionspricer_tpu_torch/csrc/roofline.cu",
+    "P1/matmul": "montecarlooptionspricer_tpu_torch/csrc/roofline.cu",
 }
 # The priced wrappers whose launches count per form: the plain form keeps
 # the wrapper's name, the others are keyed kernel/form.
@@ -423,7 +484,7 @@ def bound_ms(rows: int, n: int, out_bytes: int, products: int = 1,
              swept: int = 0, antithetic: bool = False,
              with_cv: bool = False, spectral: bool = False,
              sweep_ops: float = 4.0,
-             quad_cells: int = 0) -> tuple[float, str]:
+             quad_cells: int = 0, bf16: bool = False) -> tuple[float, str]:
     """Least time for one launch at this shape: the larger of the bytes
     that must move (the ``products`` triangular factors Lt' (and dLt'),
     vd and the ``policy_rows`` rows of [n] read once, the output written
@@ -439,16 +500,21 @@ def bound_ms(rows: int, n: int, out_bytes: int, products: int = 1,
     peak.  Under
     ``spectral`` the fGN product is the two dense [n, n] products Zr @ Cr'
     and Zi @ Ci' (2 n^2 multiply-adds per drawn path, both matrices read
-    once), not the triangle."""
+    once), not the triangle.  Under ``bf16`` the product's operations go
+    over the dense bf16 tensor-core peak and its factor is read at 2
+    bytes an entry; the rest stays float32."""
     mats = 2 if spectral else products
-    bytes_ = 4 * (mats * n * n + policy_rows * n) + out_bytes
+    bytes_ = ((2 if bf16 else 4) * mats * n * n + 4 * policy_rows * n
+              + out_bytes)
     drawn = rows // 2 if antithetic else rows
     product = (2.0 * 2 * drawn * n * n if spectral
                else 2.0 * products * drawn * n * (n + 1) / 2)
-    flops = (product + per_cell * rows * n + sweep_ops * swept
-             + QUAD_CELL_OPS * quad_cells
-             + (2.0 * rows if with_cv else 0.0))
-    t_bytes, t_ops = bytes_ / PEAK_BYTES, flops / PEAK_F32_FLOPS
+    rest = (per_cell * rows * n + sweep_ops * swept
+            + QUAD_CELL_OPS * quad_cells
+            + (2.0 * rows if with_cv else 0.0))
+    t_bytes = bytes_ / PEAK_BYTES
+    t_ops = (product / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+             + rest / PEAK_F32_FLOPS)
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
@@ -456,12 +522,14 @@ def bound_ms(rows: int, n: int, out_bytes: int, products: int = 1,
 
 def kernel_record(kname: str, launches: dict, ms: float, plain_ms: float,
                   b_ms: float, b_by: str, err: float,
-                  library_ms: float) -> dict:
-    """One kernel's entry of the kernels line."""
+                  library_ms: float, **extra) -> dict:
+    """One kernel's entry of the kernels line (``extra`` keys after the
+    contract's)."""
     return {"name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname], "launches": launches[kname],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            **extra}
 
 
 def plain_stream_mean(pc, engine, pricer, fits, seed: int, n_chunks: int,
@@ -1254,9 +1322,10 @@ def lanes(out, with_cv: bool) -> tuple:
 
 def forms_phase(torch, pc, smi, name: str, kernel: str, priced, chunk_ref,
                 consts, table, normals, key, library, bound,
-                spectral: bool = False) -> dict:
-    """One priced kernel's three estimator forms (and, ``spectral``, its
-    plain form too, all in the spectral fGN form) at the bench chunk: each
+                spectral: bool = False, bf16: bool = False) -> dict:
+    """One priced kernel's three estimator forms (and, ``spectral`` or
+    ``bf16``, its plain form too, all in the spectral fGN form or the bf16
+    fGN-input form) at the bench chunk: each
     against its plain version on the seeded stream and on noise (both
     lanes within SUM_RTOL), paired against its unpaired form on the
     concatenated negated noise (PAIR_RTOL), then timed beside its plain
@@ -1264,8 +1333,9 @@ def forms_phase(torch, pc, smi, name: str, kernel: str, priced, chunk_ref,
     ``bound(antithetic, with_cv)`` = (ms, by).  Returns the forms' numbers
     keyed kernel/form."""
     out, checks = {}, []
-    for anti, cv in ((((False, False),) if spectral else ()) + FORMS):
-        form = f"{kernel}/{pc.form_name(anti, cv, spectral)}"
+    for anti, cv in ((((False, False),) if spectral or bf16 else ())
+                     + FORMS):
+        form = f"{kernel}/{pc.form_name(anti, cv, spectral, bf16=bf16)}"
         drawn = CHUNK // 2 if anti else CHUNK
         kw = dict(antithetic=anti, with_cv=cv)
         noise = normals(key, drawn)
@@ -3102,6 +3172,503 @@ def quadratic_phases(torch, pc, cc, ptc, pfc, engine, smi, dev, key,
                           t["library_ms"]) for form, t in times.items()]
 
 
+def bf16_library(torch, consts, dev):
+    """rows -> ms of the bf16 form's yardstick: torch.matmul of a bf16
+    [rows, n] plane by the bf16 Lt' (the fGN product alone)."""
+    def library(rows):
+        a = torch.randn((rows, consts.n_steps), device=dev).to(torch.bfloat16)
+        ms = time_ms(torch, lambda: torch.matmul(a, consts.lt_half), reps=10)
+        del a
+        return ms
+    return library
+
+
+def bf16_path_forms(torch, pc, smi, dev, key, kernel: str, wrapper, consts,
+                    consts32, library) -> dict:
+    """``kernel``/bf16 and its pair form at the bench chunk of 131072 rows:
+    paths elementwise against the bf16 plain version, seeded and on noise
+    (PATH_RTOL), and BF16_CLOSER times closer to it than to the float32
+    plain version on the same noise (the discriminating check); the pair
+    form against the unpaired kernel on the concatenated [X; -X] noise
+    (PATH_PAIR_RTOL); then each timed beside its plain version, the bf16
+    product's yardstick ``library(rows)`` and its bound.  Returns their
+    numbers keyed by form."""
+    n, out, checks = consts.n_steps, {}, []
+    for anti in (False, True):
+        form = f"{kernel}/{pc.form_name(anti, bf16=True)}"
+        drawn = CHUNK // 2 if anti else CHUNK
+        noise = pc.philox_normals_ref(key, drawn, n, device=dev)
+        want = pc.pathgen_from_noise_ref(consts, noise, anti)
+        got = wrapper(consts, rows=CHUNK, key=key, antithetic=anti)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(got).all())
+        err_s = float(torch.max(torch.abs(got - want) / want))
+        abs_s = float(torch.max(torch.abs(got - want)))
+        want32 = pc.pathgen_from_noise_ref(consts32, noise, anti)
+        err_32 = float(torch.max(torch.abs(got - want32) / want32))
+        del got, want32
+        got = wrapper(consts, noise=noise, antithetic=anti)
+        torch.cuda.synchronize()
+        err_n = float(torch.max(torch.abs(got - want) / want))
+        del want
+        err_pair = None
+        if anti:
+            unpaired = wrapper(consts, noise=torch.cat([noise, -noise], 1))
+            torch.cuda.synchronize()
+            err_pair = float(torch.max(torch.abs(got - unpaired) / unpaired))
+            del unpaired
+        del got, noise
+        checks.append({"form": form, "seeded_rel_err": err_s,
+                       "noise_in_rel_err": err_n,
+                       "float32_plain_rel_err": err_32,
+                       "pair_rel_err": err_pair})
+        check(finite and err_s <= PATH_RTOL and err_n <= PATH_RTOL,
+              f"{form} disagrees with its plain version")
+        check(err_s * BF16_CLOSER <= err_32,
+              f"{form} is not {BF16_CLOSER}x closer to the bf16 plain "
+              f"version ({err_s:.2e}) than to the float32 one "
+              f"({err_32:.2e})")
+        check(err_pair is None or err_pair <= PATH_PAIR_RTOL,
+              f"{form} disagrees with its unpaired form on [X; -X]")
+
+        def run(anti=anti):
+            wrapper(consts, rows=CHUNK, key=key, antithetic=anti)
+
+        def plain(anti=anti, drawn=drawn):
+            pc.pathgen_from_noise_ref(consts, pc.philox_normals_ref(
+                key, drawn, n, device=dev), anti)
+
+        b_ms, b_by = bound_ms(CHUNK, n, 4 * CHUNK * (n + 1),
+                              antithetic=anti, bf16=True)
+        out[form] = {"ms": time_ms(torch, run, 5),
+                     "plain_ms": time_ms(torch, plain, 2),
+                     "library_ms": library(drawn), "bound_ms": b_ms,
+                     "bound_by": b_by, "max_abs_err": abs_s}
+    emit({"phase": "bf16_forms", "card": smi, "kernel": kernel,
+          "rows": CHUNK, "n_steps": n, "checks": checks, "times": out,
+          "rtol": PATH_RTOL, "closer_than_float32": BF16_CLOSER,
+          "pair_rtol": PATH_PAIR_RTOL})
+    return out
+
+
+def bf16_price_phase(torch, pc, engine, lsm_fit, smi, name: str, pricer,
+                     pilot: str, form: str, n_checked: int, chunk_ref,
+                     ref: tuple, ref_name: str, reset_counts,
+                     read_counts) -> dict:
+    """One full-width bf16 price: the pilot fit and the stream (76 chunks)
+    timed apart with the launch counts read around both (``pilot`` once,
+    ``form`` 76 times, nothing else); against the plain versions (the
+    whole price, pilot included, when ``n_checked`` is N_CHUNKS; else the
+    first n_checked chunks under the same fits) within SUM_RTOL, and within
+    STDERR_SIGMAS combined stderr of the float32 price ``ref`` = (price,
+    stderr) on the same seed.  Returns the record with the fits."""
+    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    reset_counts()
+    fits, fit_s = timed(torch, lambda: pricer.fit(k_pilot))
+    (price, stderr), stream_s = timed(
+        torch, lambda: pricer.price_with_fit(fits, SEED, with_stderr=True))
+    launches = read_counts()
+    wall = fit_s + stream_s
+    if n_checked == N_CHUNKS:
+        checked, plain = price, plain_price(pc, engine, lsm_fit, pricer,
+                                            SEED)
+    else:
+        checked = pricer.price_with_fit(fits, SEED,
+                                        n_paths=n_checked * CHUNK)
+        plain = plain_stream_mean(pc, engine, pricer, fits, SEED, n_checked,
+                                  STRIKE, chunk_ref=chunk_ref)
+    rel = abs(checked / plain - 1.0)
+    sigmas = abs(price - ref[0]) / math.hypot(stderr, ref[1])
+    n_paths = CHUNK * N_CHUNKS
+    rec = {"phase": name, "card": smi, "n_paths": n_paths,
+           "n_steps": pricer.config.n_steps, "fgn_matmul_dtype": "bfloat16",
+           "kernel_family": pricer.kernel_family, "price": price,
+           "stderr": stderr, "wall_s": wall, "paths_per_s": n_paths / wall,
+           "fit_s": fit_s, "stream_s": stream_s, "launches": launches,
+           "checked_chunks": n_checked, "checked_price": checked,
+           "checked_plain_price": plain, "checked_rel_err": rel,
+           "rtol": SUM_RTOL, ref_name: ref[0], f"{ref_name}_stderr": ref[1],
+           "combined_stderrs_apart": sigmas, "limit": STDERR_SIGMAS}
+    if n_checked != N_CHUNKS:
+        rec["reduced"] = {"checked_chunks": {"from": N_CHUNKS,
+                                             "to": n_checked}}
+    emit(rec)
+    check(launches == expected_counts(**{pilot: 1, form: N_CHUNKS}),
+          f"{name} launches {launches}, want {pilot} once and {form} "
+          f"{N_CHUNKS} times and nothing else")
+    check(math.isfinite(price) and 0.0 < price < STRIKE,
+          f"{name} price {price} outside (0, strike)")
+    check(math.isfinite(stderr) and 0.0 < stderr < 0.01 * price,
+          f"{name} stderr {stderr} implausible")
+    check(rel <= SUM_RTOL, f"{name} disagrees with the plain path")
+    check(sigmas <= STDERR_SIGMAS,
+          f"{name} is {sigmas:.2f} combined stderr from {ref_name}")
+    return {**rec, "fits": fits}
+
+
+def bf16_estimator_phases(torch, pc, engine, smi, dev, kernel: str,
+                          path_kernel: str, base, fits, chunk_ref, prefix,
+                          reset_counts, read_counts) -> dict:
+    """The bf16 forms of the estimators on BF16_FORM_CHUNKS chunks: each
+    VR form's price (``price_with_fit`` on the plain pilot's ``fits``; the
+    control variate's beta and centre from one CV fit of the same pilot)
+    with its launches read around it (the form BF16_FORM_CHUNKS times,
+    nothing else), its first BF16_FORM_CHECKED chunks against the plain
+    versions, within STDERR_SIGMAS combined stderr of the plain bf16 price
+    on the same chunks, with a variance ratio > 1; then the paired bounds
+    (``bounds_fit`` with the pilot kernel once, ``path_kernel``/bf16/anti
+    BF16_FORM_CHUNKS times), an ordered bracket.  Returns the forms'
+    launches."""
+    import dataclasses
+
+    m = BF16_FORM_CHUNKS
+    n = base.n_steps
+    cfg = dataclasses.replace(base, n_paths=m * CHUNK, chunks_per_call=m)
+
+    def pricer_of(**kw):
+        return engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                      maturity=n * DT, is_call=IS_CALL,
+                                      config=dataclasses.replace(cfg, **kw),
+                                      device=dev)
+
+    plain_pricer = pricer_of()
+    (p_plain, se_plain), stream_plain = timed(
+        torch, lambda: plain_pricer.price_with_fit(fits, SEED,
+                                                   with_stderr=True))
+    del plain_pricer
+    cv_fit, cv_fit_s = timed(torch, lambda: pricer_of(
+        control_variate=True).fit(engine._pilot_stream_keys(SEED)[0]))
+    launches = {}
+    for suffix, form in VR_FORMS:
+        anti = form.get("antithetic", False)
+        cv = form.get("control_variate", False)
+        key = f"{kernel}/{pc.form_name(anti, cv, bf16=True)}"
+        pricer = pricer_of(**form)
+        f = cv_fit if cv else fits
+        reset_counts()
+        (price, stderr), stream_s = timed(
+            torch, lambda: pricer.price_with_fit(f, SEED, with_stderr=True))
+        counts = read_counts()
+        checked = pricer.price_with_fit(f, SEED,
+                                        n_paths=BF16_FORM_CHECKED * CHUNK)
+        checked_plain = plain_stream_mean(
+            pc, engine, pricer, f, SEED, BF16_FORM_CHECKED, STRIKE,
+            chunk_ref=chunk_ref, antithetic=anti, with_cv=cv)
+        rel = abs(checked / checked_plain - 1.0)
+        sigmas = abs(price - p_plain) / math.hypot(stderr, se_plain)
+        ratio = (se_plain / stderr) ** 2
+        name = f"{prefix}_{suffix}"
+        emit({"phase": name, "card": smi, "n_paths": m * CHUNK,
+              "n_steps": n, **form, "fgn_matmul_dtype": "bfloat16",
+              "price": price, "stderr": stderr, "stream_s": stream_s,
+              "paths_per_s": m * CHUNK / stream_s, "launches": counts,
+              "beta": cv_fit.beta if cv else None,
+              "cv_fit_s": cv_fit_s if cv else None,
+              "checked_chunks": BF16_FORM_CHECKED, "checked_price": checked,
+              "checked_plain_price": checked_plain, "checked_rel_err": rel,
+              "rtol": SUM_RTOL, "plain_price": p_plain,
+              "plain_stderr": se_plain, "combined_stderrs_apart": sigmas,
+              "limit": STDERR_SIGMAS, "variance_ratio": ratio,
+              "variance_ratio_per_stream_s": ratio * stream_plain / stream_s,
+              "reduced": {"n_chunks": {"from": N_CHUNKS, "to": m}}})
+        check(counts == expected_counts(**{key: m}),
+              f"{name} launches {counts}, want {key} {m} times and nothing "
+              "else")
+        check(math.isfinite(price) and 0.0 < price < STRIKE
+              and math.isfinite(stderr) and stderr > 0.0,
+              f"{name} price {price} +- {stderr} implausible")
+        check(rel <= SUM_RTOL, f"{name} disagrees with the plain path")
+        check(sigmas <= STDERR_SIGMAS,
+              f"{name} is {sigmas:.2f} combined stderr from the plain price")
+        check(ratio > 1.0, f"{name}: variance ratio {ratio} <= 1")
+        launches[key] = counts[key]
+        del pricer
+
+    pricer = pricer_of(antithetic=True)
+    pair = f"{path_kernel}/bf16/anti"
+    reset_counts()
+    fit, fit_s = timed(torch, lambda: pricer.bounds_fit(
+        engine._pilot_stream_keys(SEED)[0]))
+    (lo, up, lo_se, up_se), stream_s = timed(
+        torch, lambda: pricer.bounds_with_fit(fit, SEED, m * CHUNK,
+                                              with_stderr=True))
+    counts = read_counts()
+    emit({"phase": f"{prefix}_bounds_anti", "card": smi,
+          "n_paths": m * CHUNK, "n_steps": n, "antithetic": True,
+          "fgn_matmul_dtype": "bfloat16", "lower": lo, "upper": up,
+          "lower_stderr": lo_se, "upper_stderr": up_se,
+          "duality_gap": up - lo, "fit_s": fit_s, "stream_s": stream_s,
+          "paths_per_s": m * CHUNK / (fit_s + stream_s),
+          "launches": counts,
+          "reduced": {"n_chunks": {"from": N_CHUNKS, "to": m}}})
+    check(counts == expected_counts(**{f"{path_kernel}/bf16": 1, pair: m}),
+          f"{prefix}_bounds_anti launches {counts}")
+    check(math.isfinite(lo) and math.isfinite(up) and lo <= up,
+          f"{prefix}_bounds_anti: [{lo}, {up}] is not an ordered bracket")
+    launches[pair] = counts[pair]
+    return launches
+
+
+def bf16_phases(torch, pc, ptc, engine, lsm_fit, smi, dev, key,
+                refs: dict, reset_counts, read_counts) -> tuple:
+    """The bf16 fGN-input forms (``fgn_matmul_dtype="bfloat16"``):
+    ``bf16_forms`` holds K1/bf16 and K2/bf16 (365 steps), K6/bf16 and
+    K7/bf16 (1825) in each of their forms against their plain versions,
+    seeded and on noise, timed beside the bf16 product's yardstick and the
+    bound; ``price_bf16`` prices 1e7 x 365 through K1/bf16 once and
+    K2/bf16 76 times (within SUM_RTOL of its plain versions, within 5
+    combined stderr of refs["price"]); ``price_bf16_long`` 1e7 x 1825
+    through K6/bf16 and K7/bf16 (its first BF16_LONG_CHECKED chunks against
+    the plain versions, within 5 combined stderr of refs["price_long"]);
+    then each horizon's estimator forms and paired bounds on
+    BF16_FORM_CHUNKS chunks.  Returns (the forms' kernel records, their
+    times keyed by form)."""
+    import dataclasses
+
+    base = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
+                               chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                               chunks_per_call=N_CHUNKS,
+                               fgn_matmul_dtype="bfloat16")
+    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    times, launches = {}, {}
+    horizons = (
+        (N_STEPS, MATURITY, "single", "K1", "K2", pc.pathgen,
+         pc.priced_chunk, pc.priced_chunk_from_noise_ref, "price_bf16",
+         N_CHUNKS, refs["price"], "price_float32",
+         lambda consts, anti, cv: CHUNK // pc.priced_block_paths(
+             consts, CHUNK, anti, cv)),
+        (LONG_STEPS, LONG_MATURITY, "tiled", "K6", "K7", ptc.tiled_pathgen,
+         ptc.tiled_priced_chunk, ptc.priced_chunk_from_noise_ref,
+         "price_bf16_long", BF16_LONG_CHECKED, refs["price_long"],
+         "price_long_float32",
+         lambda consts, anti, cv: CHUNK // ptc.block_paths_for(CHUNK, anti)))
+    for (n, maturity, family, k_path, k_priced, path, priced, chunk_ref,
+         name, n_checked, ref, ref_name, blocks) in horizons:
+        cfg = dataclasses.replace(base, n_steps=n)
+        pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                        maturity=maturity, is_call=IS_CALL,
+                                        config=cfg, device=dev)
+        consts = pricer.consts
+        check(pricer.kernel_family == family and consts.bf16,
+              f"bf16 at {n} steps resolved to {pricer.kernel_family!r}")
+        consts32 = pc.make_path_consts(
+            MARKET["s0"], MARKET["xi"], MARKET["h"], MARKET["eta"],
+            MARKET["r"], n, DT, dev, block_paths=consts.block_paths)
+        lib = bf16_library(torch, consts, dev)
+        times.update(bf16_path_forms(torch, pc, smi, dev, key, k_path, path,
+                                     consts, consts32, lib))
+        del consts32
+        table = pricer._make_rows(pricer.fit(k_pilot))
+        times.update(forms_phase(
+            torch, pc, smi, "bf16_forms", k_priced, priced, chunk_ref, consts,
+            table, lambda k, rows, n=n: pc.philox_normals_ref(
+                k, rows, n, device=dev),
+            key, lambda anti, lib=lib: lib(CHUNK // 2 if anti else CHUNK),
+            lambda anti, cv, n=n, consts=consts, blocks=blocks: bound_ms(
+                CHUNK, n, 4 * (2 if cv else 1) * blocks(consts, anti, cv),
+                antithetic=anti, with_cv=cv, bf16=True), bf16=True))
+        del table
+        rec = bf16_price_phase(
+            torch, pc, engine, lsm_fit, smi, name, pricer, f"{k_path}/bf16",
+            f"{k_priced}/bf16", n_checked, chunk_ref, ref, ref_name,
+            reset_counts, read_counts)
+        for form in (f"{k_path}/bf16", f"{k_priced}/bf16"):
+            launches[form] = rec["launches"][form]
+        del pricer
+        launches.update(bf16_estimator_phases(
+            torch, pc, engine, smi, dev, k_priced, k_path, cfg, rec["fits"],
+            chunk_ref, name, reset_counts, read_counts))
+    records = [kernel_record(form, launches, t["ms"], t["plain_ms"],
+                             t["bound_ms"], t["bound_by"], t["max_abs_err"],
+                             t["library_ms"]) for form, t in times.items()]
+    return records, times
+
+
+def roofline_phase(torch, rl, smi, dev, kernels: list, reset_counts,
+                   read_counts) -> list:
+    """P1: each probe against its plain version on a small grid (the
+    normals in their four variants; the matmul in float32 and bf16 on the
+    identity and a random orthogonal B), then the rates
+    (``roofline.measure``, its launches counted), each probe again at the
+    shapes the rates come from, the library yardsticks, and the P1
+    ceiling of K1/K2 and K6/K7 in both dtypes (serial and overlapped)
+    beside their measured times in ``kernels`` (their fraction of it; the
+    rates in paths per second).  Adds "ceiling_ms" and
+    "ceiling_overlap_ms" to those records and returns the probes'
+    records."""
+    key, checks = 11, []
+    for unroll, with_exp, fma in ((1, False, 0), (3, False, 0),
+                                  (1, True, 0), (1, False, rl.FMA_CHAIN)):
+        got = rl.normals(key, 8, 2, unroll, with_exp, fma, device=dev)
+        want = rl.normals_ref(key, 8, 2, unroll, with_exp, fma, device=dev)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = 4e-5 * 1024 * unroll
+        checks.append({"probe": "normals", "unroll": unroll,
+                       "with_exp": with_exp, "fma": fma, "max_abs_err": err,
+                       "atol": tol})
+        check(err <= tol, f"P1/normals {checks[-1]} disagrees")
+    s_pad = 384
+    for which, b in (("identity", torch.eye(s_pad, device=dev)),
+                     ("orthogonal", rl.orthogonal(s_pad).to(dev))):
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-3)):
+            bb = b.to(dtype).contiguous()
+            got = rl.matmul(key, bb, 2, 3)
+            want = rl.matmul_ref(key, bb, 2, 3)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            checks.append({"probe": "matmul", "b": which,
+                           "dtype": str(dtype), "max_abs_err": err,
+                           "atol": tol * scale})
+            check(err <= tol * scale, f"P1/matmul {checks[-1]} disagrees")
+
+    reset_counts()
+    res = rl.measure(dev, N_STEPS)
+    launches = read_counts()
+    rates = res["rates"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    # Each probe again at the shapes the rates come from, against its
+    # plain version: the normals' unroll-1 launch on its whole grid (the
+    # kernels line's ms, plain_ms and max_abs_err; the plain version in
+    # groups of blocks), its unroll-3, exp and FMA launches on three of
+    # their blocks; the matmul at the measured grid and k, unroll 1 and 3,
+    # in both dtypes, on the orthogonal B the rates were measured with.
+    nrm = res["normals"]
+    grid, k_n = nrm["grid"], nrm["k"]
+
+    def normals_plain(unroll=1, with_exp=False, fma=0, blocks=None):
+        blocks = range(grid) if blocks is None else blocks
+        groups = [blocks[i:i + PROBE_REF_BLOCKS]
+                  for i in range(0, len(blocks), PROBE_REF_BLOCKS)]
+        return torch.cat([rl.normals_ref(key, len(g), k_n, unroll, with_exp,
+                                         fma, device=dev, block0=g[0])
+                          for g in groups])
+
+    got = rl.normals(key, grid, k_n, device=dev)
+    want, plain_s = timed(torch, normals_plain)
+    nrm_err = float((got - want).abs().max())
+    tol = 4e-5 * rl.BLOCK * k_n
+    checks.append({"probe": "normals", "grid": grid, "k": k_n, "unroll": 1,
+                   "blocks": "all", "max_abs_err": nrm_err, "atol": tol})
+    check(nrm_err <= tol, f"P1/normals {checks[-1]} disagrees")
+    del got, want
+    few = [0, grid // 2, grid - 1]
+    for unroll, with_exp, fma in ((3, False, 0), (1, True, 0),
+                                  (1, False, rl.FMA_CHAIN)):
+        got = rl.normals(key, grid, k_n, unroll, with_exp, fma,
+                         device=dev)[few]
+        want = torch.cat([normals_plain(unroll, with_exp, fma, [blk])
+                          for blk in few])
+        err = float((got - want).abs().max())
+        tol = 4e-5 * rl.BLOCK * k_n * unroll
+        checks.append({"probe": "normals", "grid": grid, "k": k_n,
+                       "unroll": unroll, "with_exp": with_exp, "fma": fma,
+                       "blocks": few, "max_abs_err": err, "atol": tol})
+        check(err <= tol, f"P1/normals {checks[-1]} disagrees")
+    count = nrm["normals_per_launch"]
+    nrm_rec = {"ms": nrm["ms_u1"], "plain_ms": plain_s * 1e3,
+               "library_ms": nrm["library_ms"]}
+    b_ops = 2.0 * count / PEAK_F32_FLOPS
+    b_bytes = 4.0 * grid * rl.LANES / PEAK_BYTES
+    nrm_rec["bound_ms"] = max(b_ops, b_bytes) * 1e3
+    nrm_rec["bound_by"] = "operations" if b_ops >= b_bytes else "bytes"
+
+    mm = res["matmul"]
+    mgrid = mm["grid"]
+    b32 = rl.orthogonal(mm["s_pad"]).to(dev)
+    mm_err, mm_plain = {}, {}
+    for name, bb in (("float32", b32), ("bfloat16", b32.to(torch.bfloat16))):
+        k_m = mm[name]["k"]
+        for unroll in (1, 3):
+            got = rl.matmul(key, bb, mgrid, k_m, unroll)
+            want, plain_s = timed(torch, lambda: rl.matmul_ref(
+                key, bb, mgrid, k_m, unroll))
+            err = float((got - want).abs().max())
+            atol = rl.chain_atol(name == "bfloat16", k_m * unroll,
+                                 float(want.abs().max()))
+            checks.append({"probe": "matmul", "b": "orthogonal",
+                           "dtype": name, "grid": mgrid, "k": k_m,
+                           "unroll": unroll, "max_abs_err": err,
+                           "atol": atol})
+            check(err <= atol, f"P1/matmul {checks[-1]} disagrees")
+            if unroll == 1:
+                mm_err[name], mm_plain[name] = err, plain_s * 1e3
+            del got, want
+    mm_rec = {"ms": mm["float32"]["ms_u1"],
+              "library_ms": mm["float32"]["library_ms"],
+              "plain_ms": mm_plain["float32"]}
+    bf = mm["bfloat16"]
+    macs32 = mm["float32"]["macs_per_launch"]
+    mm_rec["bound_ms"] = max(2.0 * macs32 / PEAK_F32_FLOPS,
+                             4.0 * (s_pad * s_pad + mgrid * rl.MM_SPLIT
+                                    * s_pad) / PEAK_BYTES) * 1e3
+    mm_rec["bound_by"] = "operations"
+    del b32
+
+    # The ceilings: the port's kernels at their main-path shapes.
+    by_name = {k["name"]: k for k in kernels}
+    shapes = {"pathgen": ("K1", PILOT, N_STEPS, "float32"),
+              "priced_chunk": ("K2", CHUNK, N_STEPS, "float32"),
+              "tiled_pathgen": ("K6", PILOT, LONG_STEPS, "float32"),
+              "tiled_priced_chunk": ("K7", CHUNK, LONG_STEPS, "float32"),
+              "K1/bf16": ("K1", PILOT, N_STEPS, "bfloat16"),
+              "K2/bf16": ("K2", CHUNK, N_STEPS, "bfloat16"),
+              "K6/bf16": ("K6", PILOT, LONG_STEPS, "bfloat16"),
+              "K7/bf16": ("K7", CHUNK, LONG_STEPS, "bfloat16")}
+    ceilings = {}
+    for name, (kernel, rows, n, dtype) in shapes.items():
+        c_ms = rl.ceiling_ms(rates, kernel, rows, n, dtype)
+        o_ms = rl.ceiling_ms(rates, kernel, rows, n, dtype, overlap=True)
+        rec = by_name[name]
+        rec["ceiling_ms"] = c_ms
+        rec["ceiling_overlap_ms"] = o_ms
+        ceilings[name] = {"ceiling_ms": c_ms, "ceiling_overlap_ms": o_ms,
+                          "ms": rec["ms"], "fraction": c_ms / rec["ms"],
+                          "overlap_fraction": o_ms / rec["ms"],
+                          "paths_per_s": rows / (rec["ms"] * 1e-3)}
+    emit({"phase": "roofline", "card": smi, "sms": sms, "checks": checks,
+          "rates": {"normals_per_s": rates.normals, "exp_per_s": rates.exp,
+                    "fma_per_s": rates.fma,
+                    "mm_f32_mac_per_s": rates.mm_f32,
+                    "mm_bf16_mac_per_s": rates.mm_bf16,
+                    "lib_mm_f32_mac_per_s": rates.lib_mm_f32,
+                    "lib_mm_bf16_mac_per_s": rates.lib_mm_bf16},
+          "data_sheet": {"fma_per_s": rl.PEAK_FMA_PER_S,
+                         "bf16_mac_per_s": rl.PEAK_BF16_MAC_PER_S},
+          "fma_share_of_peak": res["fma_share_of_peak"],
+          "mm_f32_share_of_peak": res["mm_f32_share_of_peak"],
+          "mm_bf16_share_of_peak": res["mm_bf16_share_of_peak"],
+          "lib_mm_f32_share_of_peak": res["lib_mm_f32_share_of_peak"],
+          "lib_mm_bf16_share_of_peak": res["lib_mm_bf16_share_of_peak"],
+          "normals": nrm, "matmul": mm, "launches": launches,
+          "records": {"P1/normals": nrm_rec, "P1/matmul": mm_rec},
+          "matmul_bf16": {"ms": bf["ms_u1"], "plain_ms": mm_plain["bfloat16"],
+                          "library_ms": bf["library_ms"],
+                          "max_abs_err": mm_err["bfloat16"]},
+          "ceilings": ceilings})
+    check(all(v > 0 and math.isfinite(v) for v in (
+        rates.normals, rates.exp, rates.fma, rates.mm_f32, rates.mm_bf16)),
+        f"roofline rates {rates} not finite and positive")
+    check(launches["P1/normals"] > 0 and launches["P1/matmul"] > 0,
+          f"roofline launches {launches}")
+    return [kernel_record("P1/normals", launches, nrm_rec["ms"],
+                          nrm_rec["plain_ms"], nrm_rec["bound_ms"],
+                          nrm_rec["bound_by"], nrm_err,
+                          nrm_rec["library_ms"]),
+            kernel_record("P1/matmul", launches, mm_rec["ms"],
+                          mm_rec["plain_ms"], mm_rec["bound_ms"],
+                          mm_rec["bound_by"], mm_err["float32"],
+                          mm_rec["library_ms"],
+                          bf16_ms=bf["ms_u1"],
+                          bf16_plain_ms=mm_plain["bfloat16"],
+                          bf16_max_abs_err=mm_err["bfloat16"],
+                          bf16_library_ms=bf["library_ms"],
+                          bf16_bound_ms=2.0 * bf["macs_per_launch"]
+                          / PEAK_BF16_FLOPS * 1e3)]
+
+
 def main() -> int:
     _START[0] = time.perf_counter()
     import torch
@@ -3116,6 +3683,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(root))
+    from montecarlooptionspricer_tpu_torch import roofline as rl
     from montecarlooptionspricer_tpu_torch.kernels import build
     from montecarlooptionspricer_tpu_torch.models import chain_cuda as cc
     from montecarlooptionspricer_tpu_torch.models import closed_form
@@ -3145,7 +3713,8 @@ def main() -> int:
                 "greeks_chunk": gc.greeks_chunk,
                 "chain_greeks_chunk": gc.chain_greeks_chunk,
                 "factored_pathgen": pfc.factored_pathgen,
-                "factored_priced_chunk": pfc.factored_priced_chunk}
+                "factored_priced_chunk": pfc.factored_priced_chunk,
+                "P1/normals": rl.normals, "P1/matmul": rl.matmul}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -3361,6 +3930,15 @@ def main() -> int:
          "price_xlong_cv": vr_prices["price_xlong_cv"], "fits": fits,
          "long_fits": long_fits, "xlong_fits": xlong[0]},
         reset_counts, read_counts)
+
+    # The bf16 fGN-input forms of K1/K2 and K6/K7, then P1.
+    records, _ = bf16_phases(
+        torch, pc, ptc, engine, lsm_fit, smi, dev, key,
+        {"price": (price, stderr), "price_long": (long_price, long_stderr)},
+        reset_counts, read_counts)
+    kernels += records
+    kernels += roofline_phase(torch, rl, smi, dev, kernels, reset_counts,
+                              read_counts)
     check(sorted(k["name"] for k in kernels) == sorted(REPLACES),
           "the kernels line does not list every kernel and form")
     emit({"kernels": kernels})

@@ -13,11 +13,22 @@
 // that includes this header therefore draws the same paths from a seed,
 // and sums the fGN product in the same order (k ascending, 32-row stages),
 // so X is bitwise the same in all five kernels.
+//
+// The bf16 fGN-input form (BF16; StreamConfig.fgn_matmul_dtype="bfloat16",
+// counterpart _fgn_x with bf16 matrices) keeps the N plane in bf16, each
+// normal rounded to nearest even as it is drawn or read, reads the factor
+// Lt' as bf16 and runs the product on the tensor cores
+// (csrc/mma_bf16.cuh), float32 sums; W stays float32.  It takes one
+// triangular factor and the chol form (NMAT 1, no SPEC).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 #include "philox.cuh"
 
 namespace mcop {
@@ -34,26 +45,65 @@ constexpr int kSmemLimit = 232448;
 // warp fall on distinct banks.
 __host__ __device__ inline int plane_ld(int n) { return n | 1; }
 
+// The BF16 form: the N plane's row stride in bf16, n rounded up to whole
+// k16 steps plus 8 (4 mod 8 words: conflict-free fragment reads), zero
+// past n; and the stride of the staged factor tile [kTileCols][kTileKB]
+// (column by column, k contiguous, the B fragments' layout).
+__host__ __device__ inline int plane_ld_bf16(int n) {
+  return (n + 15) / 16 * 16 + 8;
+}
+constexpr int kTileKB = kTileK + 8;
+
+// The element type of the N plane and of the factors: float, or bf16 under
+// the BF16 form.
+template <bool BF16>
+using fgn_elem = std::conditional_t<BF16, __nv_bfloat16, float>;
+
+template <bool BF16>
+__device__ __forceinline__ fgn_elem<BF16> to_fgn_elem(float v) {
+  if constexpr (BF16) {
+    return __float2bfloat16_rn(v);
+  } else {
+    return v;
+  }
+}
+
+// Floats of shared memory the staged factor tiles take.
+__host__ __device__ constexpr int staged_floats(bool spec, bool bf16) {
+  return bf16 ? kTileCols * kTileKB / 2
+              : (spec ? 2 : 1) * kTileK * kTileCols;
+}
+
+// Floats of shared memory the N plane of bp rows takes.
+__host__ __device__ inline int n_plane_floats(int n, int bp, bool bf16) {
+  return bf16 ? bp * plane_ld_bf16(n) / 2 : bp * plane_ld(n);
+}
+
 // Fill the block's N and W planes [BP][ld] (and Zi into zs under SPEC)
 // from the stream of `key` (noise null) or from the injected plane noise
 // [2, rows, n] (N, W), or [3, rows, n] (Zr, Zi, W) under SPEC.  The
 // spectral form's Zr and W are the chol stream's N and W; its Zi comes
-// from the stream's own counter word (spectral_zi_quad).
-template <int BP, bool SEEDED, bool SPEC = false>
+// from the stream's own counter word (spectral_zi_quad).  Under BF16 the
+// N plane is bf16 [BP][plane_ld_bf16(n)], each normal rounded to nearest
+// even, and its columns past n are zero (the tensor-core product reads
+// whole k16 steps).
+template <int BP, bool SEEDED, bool SPEC = false, bool BF16 = false>
 __device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
-                           int row0, float* ns, float* ws,
+                           int row0, fgn_elem<BF16>* ns, float* ws,
                            float* zs = nullptr) {
+  static_assert(!(SPEC && BF16), "the bf16 form is the chol form's");
   const int ld = plane_ld(n);
+  const int ldn = BF16 ? plane_ld_bf16(n) : ld;
   if (SEEDED) {
     const int pairs = (n + 1) / 2;
     for (int idx = threadIdx.x; idx < BP * pairs; idx += kThreads) {
       const int p = idx / pairs, j = idx - p * pairs;
       float n0, w0, n1, w1;
       step_pair_normals(key, row0 + p, j, &n0, &w0, &n1, &w1);
-      ns[p * ld + 2 * j] = n0;
+      ns[p * ldn + 2 * j] = to_fgn_elem<BF16>(n0);
       ws[p * ld + 2 * j] = w0;
       if (2 * j + 1 < n) {
-        ns[p * ld + 2 * j + 1] = n1;
+        ns[p * ldn + 2 * j + 1] = to_fgn_elem<BF16>(n1);
         ws[p * ld + 2 * j + 1] = w1;
       }
     }
@@ -73,11 +123,70 @@ __device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
     for (int idx = threadIdx.x; idx < BP * n; idx += kThreads) {
       const int p = idx / n, c = idx - p * n;
       const size_t g = static_cast<size_t>(row0 + p) * n + c;
-      ns[p * ld + c] = noise[g];
+      ns[p * ldn + c] = to_fgn_elem<BF16>(noise[g]);
       if (SPEC) zs[p * ld + c] = noise[plane + g];
       ws[p * ld + c] = noise[(SPEC ? 2 : 1) * plane + g];
     }
   }
+  if (BF16) {
+    const int pad = ldn - n;
+    for (int idx = threadIdx.x; idx < BP * pad; idx += kThreads) {
+      const int p = idx / pad;
+      ns[p * ldn + n + idx - p * pad] = to_fgn_elem<BF16>(0.0f);
+    }
+  }
+}
+
+// One step tile of X = N @ Lt' on the tensor cores (the BF16 form of
+// fgn_tile, NMAT 1): N in ns [D][plane_ld_bf16(n)] bf16, Lt' [n, n] bf16
+// in device memory, staged kTileK rows at a time into lts
+// [kTileCols][kTileKB] column by column; out [D][kXStride] float32 sums.
+// Warp w owns columns c0 + 8w .. c0 + 8w + 7 of the tile and all PM m16
+// row groups of the block's D = 16 PM rows; it skips the k16 steps past
+// its last column (Lt' is upper triangular, so they add zeros).
+template <int PM>
+__device__ void fgn_tile_mma(const __nv_bfloat16* lt, int n, int c0,
+                             const __nv_bfloat16* ns, __nv_bfloat16* lts,
+                             float* out) {
+  const int ldn = plane_ld_bf16(n);
+  const int warp = threadIdx.x / 32;
+  const int kmax = min(c0 + kTileCols, n);
+  const int kwarp = min(c0 + 8 * warp + 8, kmax);
+  float acc[PM][4];
+#pragma unroll
+  for (int i = 0; i < PM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < kmax; k0 += kTileK) {
+    const int kn = min(kTileK, kmax - k0);
+    __syncthreads();  // previous users of lts (and of the out tile) are done
+    for (int idx = threadIdx.x; idx < kTileK * kTileCols; idx += kThreads) {
+      const int kk = idx / kTileCols, cc = idx - kk * kTileCols;
+      const int c = c0 + cc;
+      lts[cc * kTileKB + kk] =
+          kk < kn && c < n ? lt[static_cast<size_t>(k0 + kk) * n + c]
+                           : __float2bfloat16_rn(0.0f);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kTileK; ks += 16) {
+      if (k0 + ks < kwarp) {
+        uint32_t b[2];
+        load_b_frag(lts, kTileKB, 8 * warp, ks, b);
+#pragma unroll
+        for (int i = 0; i < PM; ++i) {
+          uint32_t a[4];
+          load_a_frag(ns, ldn, 16 * i, k0 + ks, a);
+          mma_bf16_16816(acc[i], a, b);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PM; ++i)
+    store_c_frag(out, kXStride, 16 * i, 8 * warp, acc[i]);
+  __syncthreads();
 }
 
 // One step tile of the fGN products, for m0 (and m1 when NMAT is 2):
@@ -91,87 +200,102 @@ __device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
 // - Zi[p, k] m1[k, c], Zr in ns and Zi in zs, m0 = Cr' and m1 = Ci' both
 // staged (2 * kTileK * kTileCols floats).  Cr' and Ci' are dense, so every
 // column tile runs over all n rows: no triangle skip.
+// BF16: the tensor-core product of fgn_tile_mma (m0 = Lt' and ns, lts
+// bf16; m1 and zs unused).
 // Ends with the tile written and the block synchronised.
-template <int PM, int NMAT, bool SPEC = false>
-__device__ void fgn_tile(const float* m0, const float* m1, int n, int c0,
-                         const float* ns, float* lts, float* out0,
-                         float* out1, const float* zs = nullptr) {
+template <int PM, int NMAT, bool SPEC = false, bool BF16 = false>
+__device__ void fgn_tile(const fgn_elem<BF16>* m0, const fgn_elem<BF16>* m1,
+                         int n, int c0, const fgn_elem<BF16>* ns,
+                         fgn_elem<BF16>* lts, float* out0, float* out1,
+                         const float* zs = nullptr) {
   static_assert(!SPEC || NMAT == 1, "the spectral product has one output");
-  constexpr int kStaged = SPEC ? 2 : NMAT;   // factor tiles staged
-  const float* mats[2] = {m0, m1};
-  float* out[2] = {out0, out1};
-  const int ld = plane_ld(n);
-  const int tid = threadIdx.x;
-  const int tx = tid % kColGroups;        // columns tx + 16 j
-  const int ty = tid / kColGroups;        // paths ty * PM + i
-  const int kmax = SPEC ? n : min(c0 + kTileCols, n);
-  float acc[NMAT][PM][kColsPerThread];
+  if constexpr (BF16) {
+    static_assert(NMAT == 1 && !SPEC, "the bf16 form has one chol factor");
+    fgn_tile_mma<PM>(m0, n, c0, ns, lts, out0);
+  } else {
+    constexpr int kStaged = SPEC ? 2 : NMAT;   // factor tiles staged
+    const float* mats[2] = {m0, m1};
+    float* out[2] = {out0, out1};
+    const int ld = plane_ld(n);
+    const int tid = threadIdx.x;
+    const int tx = tid % kColGroups;        // columns tx + 16 j
+    const int ty = tid / kColGroups;        // paths ty * PM + i
+    const int kmax = SPEC ? n : min(c0 + kTileCols, n);
+    float acc[NMAT][PM][kColsPerThread];
 #pragma unroll
-  for (int m = 0; m < NMAT; ++m)
+    for (int m = 0; m < NMAT; ++m)
 #pragma unroll
-    for (int i = 0; i < PM; ++i)
+      for (int i = 0; i < PM; ++i)
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) acc[m][i][j] = 0.0f;
+        for (int j = 0; j < kColsPerThread; ++j) acc[m][i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < kmax; k0 += kTileK) {
-    const int kn = min(kTileK, kmax - k0);
-    __syncthreads();  // previous users of lts (and of the out tiles) are done
-    for (int idx = tid; idx < kTileK * kTileCols; idx += kThreads) {
-      const int kk = idx / kTileCols, cc = idx - kk * kTileCols;
-      const int c = c0 + cc;
-      const bool in = kk < kn && c < n;
-      const size_t g = static_cast<size_t>(k0 + kk) * n + c;
+    for (int k0 = 0; k0 < kmax; k0 += kTileK) {
+      const int kn = min(kTileK, kmax - k0);
+      __syncthreads();  // previous users of lts (and the out tiles) are done
+      for (int idx = tid; idx < kTileK * kTileCols; idx += kThreads) {
+        const int kk = idx / kTileCols, cc = idx - kk * kTileCols;
+        const int c = c0 + cc;
+        const bool in = kk < kn && c < n;
+        const size_t g = static_cast<size_t>(k0 + kk) * n + c;
 #pragma unroll
-      for (int m = 0; m < kStaged; ++m)
-        lts[m * kTileK * kTileCols + idx] = in ? mats[m][g] : 0.0f;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kn; ++kk) {
-      float b[kStaged][kColsPerThread];
+        for (int m = 0; m < kStaged; ++m)
+          lts[m * kTileK * kTileCols + idx] = in ? mats[m][g] : 0.0f;
+      }
+      __syncthreads();
+      for (int kk = 0; kk < kn; ++kk) {
+        float b[kStaged][kColsPerThread];
 #pragma unroll
-      for (int m = 0; m < kStaged; ++m)
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j)
-          b[m][j] = lts[m * kTileK * kTileCols + kk * kTileCols + tx +
-                        kColGroups * j];
-#pragma unroll
-      for (int i = 0; i < PM; ++i) {
-        const int cell = (ty * PM + i) * ld + k0 + kk;
-        const float nv = ns[cell];
-        if constexpr (SPEC) {
-          const float zv = zs[cell];
+        for (int m = 0; m < kStaged; ++m)
 #pragma unroll
           for (int j = 0; j < kColsPerThread; ++j)
-            acc[0][i][j] = fmaf(-zv, b[kStaged - 1][j],
-                                fmaf(nv, b[0][j], acc[0][i][j]));
-        } else {
+            b[m][j] = lts[m * kTileK * kTileCols + kk * kTileCols + tx +
+                          kColGroups * j];
 #pragma unroll
-          for (int m = 0; m < NMAT; ++m)
+        for (int i = 0; i < PM; ++i) {
+          const int cell = (ty * PM + i) * ld + k0 + kk;
+          const float nv = ns[cell];
+          if constexpr (SPEC) {
+            const float zv = zs[cell];
 #pragma unroll
             for (int j = 0; j < kColsPerThread; ++j)
-              acc[m][i][j] = fmaf(nv, b[m][j], acc[m][i][j]);
+              acc[0][i][j] = fmaf(-zv, b[kStaged - 1][j],
+                                  fmaf(nv, b[0][j], acc[0][i][j]));
+          } else {
+#pragma unroll
+            for (int m = 0; m < NMAT; ++m)
+#pragma unroll
+              for (int j = 0; j < kColsPerThread; ++j)
+                acc[m][i][j] = fmaf(nv, b[m][j], acc[m][i][j]);
+          }
         }
       }
     }
+#pragma unroll
+    for (int m = 0; m < NMAT; ++m)
+#pragma unroll
+      for (int i = 0; i < PM; ++i)
+#pragma unroll
+        for (int j = 0; j < kColsPerThread; ++j)
+          out[m][(ty * PM + i) * kXStride + tx + kColGroups * j] =
+              acc[m][i][j];
+    __syncthreads();
   }
-#pragma unroll
-  for (int m = 0; m < NMAT; ++m)
-#pragma unroll
-    for (int i = 0; i < PM; ++i)
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j)
-        out[m][(ty * PM + i) * kXStride + tx + kColGroups * j] = acc[m][i][j];
-  __syncthreads();
 }
 
-// Shared memory of the planes (three under the spectral form), NMAT
-// product tiles, the staged factors (two under the spectral form) and
-// `extra` floats more, for a block of bp paths at horizon n.
+// Shared memory of the planes (three under the spectral form; N in bf16
+// under the bf16 form), NMAT product tiles, the staged factors (two under
+// the spectral form, one bf16 tile under the bf16 form) and `extra` floats
+// more, for a block of bp paths at horizon n.
 __host__ __device__ inline int block_smem_bytes(int n, int bp, int nmat,
                                                 int extra,
-                                                bool spec = false) {
-  return 4 * ((spec ? 3 : 2) * bp * plane_ld(n) + nmat * bp * kXStride +
-              (spec ? 2 : nmat) * kTileK * kTileCols + extra);
+                                                bool spec = false,
+                                                bool bf16 = false) {
+  const int staged =
+      bf16 ? staged_floats(false, true) : (spec ? 2 : nmat) * kTileK *
+                                              kTileCols;
+  return 4 * (n_plane_floats(n, bp, bf16) +
+              (spec ? 2 : 1) * bp * plane_ld(n) + nmat * bp * kXStride +
+              staged + extra);
 }
 
 }  // namespace mcop

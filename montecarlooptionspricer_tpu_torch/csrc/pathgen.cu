@@ -12,6 +12,10 @@
 //    _store_priced_log:577) and both (_priced_body:650); the quadratic
 //    policy (QUAD: _priced_body's else branch, _policy_value:277 and
 //    _store_priced:549) plain and with the control variate.
+// Both also run the bf16 fGN-input form of the chol body (BF16, from the
+//    bf16 flag; StreamConfig.fgn_matmul_dtype="bfloat16", _fgn_x:142 with
+//    the bf16 matrices of _fgn_consts:1359): K1 plain and paired, K2 in
+//    its four boundary forms.
 //
 // What they compute, per path p and step column c < n (column c = step c+1):
 //   x_c    = sum_{k <= c} N[p,k] * Lt'[k,c]        (Lt' = 0.5 Lt, upper)
@@ -50,6 +54,9 @@
 // The spectral product is two dense [n, n] products, 2 n^2 multiply-adds
 // per path (266k at n = 365, four times the triangle): 1.05 ms at 131072
 // paths, 0.53 ms paired.
+// The bf16 form runs the triangle on the tensor cores (989 TFLOP/s dense
+// bf16): 0.02 ms of product at 131072 paths, so the exp, the Box-Muller
+// draws and the serial running sum bound it.
 //
 // Design:
 // * One block of 256 threads owns BP = 16*PM paths (64, 32 or 16, the
@@ -91,6 +98,15 @@
 //   (through the read-only cache, __ldg) at each step until its first hit,
 //   then only the running sum (kept for the control lane).  The tables stay
 //   in device memory; shared memory is the boundary forms'.
+// * The bf16 form (BF16) keeps its N plane in bf16 (each normal rounded to
+//   nearest even, the stride padded to whole k16 steps with zeros) beside
+//   the float32 W plane, and each warp runs 8 columns of the 64-column
+//   tile as m16n8k16 tensor-core products with float32 sums
+//   (csrc/fgn_tile.cuh:fgn_tile_mma), skipping the k16 steps past its
+//   last column.  The variance exp, the Euler increment, the running sum
+//   and the first-hit test are the float32 form's.  A pair's partner is
+//   -x to the bit, as in the float32 form.  It keeps the float32 form's
+//   path blocks (its planes take less shared memory).
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise and / stays IEEE
 //   division, so the plain PyTorch versions agree to a few ulp per cell.
 
@@ -106,7 +122,8 @@ using namespace mcop;
 
 struct Args {
   const float* noise;   // [2 or 3, drawn, n] or nullptr (seeded entry)
-  const float* lt;      // [n, n] half-scaled factor: Lt' (upper), or Cr'
+  const void* lt;       // [n, n] half-scaled factor: Lt' (upper), or Cr';
+                        // bf16 under the bf16 form, else float32
   const float* ci;      // [n, n] Ci' (spectral), or nullptr (chol)
   const float* vd;      // [n] half variance drift
   const float* llo;     // [n] log lower bounds (K2)
@@ -119,6 +136,7 @@ struct Args {
   uint32_t key;
   float r, dt, sqrt_dt, log_s0, s0, strike, cv_disc;
   int is_call;
+  bool bf16;            // the bf16 fGN-input form
 };
 
 // The Euler log increment of one cell.  Every rounding is explicit (no
@@ -144,26 +162,31 @@ __device__ __forceinline__ size_t member_row(int drawn, int row0, int p) {
 
 // Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members (ANTI:
 // member p < D is drawn row p, member D + p its partner).  CV adds the
-// control lane, SPEC the spectral fGN form, QUAD the quadratic policy.
+// control lane, SPEC the spectral fGN form, QUAD the quadratic policy,
+// BF16 the bf16 fGN-input form.
 template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC,
-          bool QUAD>
+          bool QUAD, bool BF16>
 __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
   constexpr int D = 16 * PM;
   constexpr int BP = ANTI ? 2 * D : D;
+  using E = fgn_elem<BF16>;
   extern __shared__ float smem[];
   const int n = a.n, ld = a.ld;
-  float* ns = smem;                       // [D][ld] N (Zr)
-  float* ws = ns + D * ld;                // [D][ld]
+  E* ns = reinterpret_cast<E*>(smem);     // [D][ld] N (Zr); bf16: [D][ldn]
+  float* ws = smem + n_plane_floats(n, D, BF16);   // [D][ld]
   float* zs = ws + D * ld;                // [D][ld] Zi under SPEC
   float* xs = zs + (SPEC ? D * ld : 0);   // [BP][kXStride]
-  float* lts = xs + BP * kXStride;        // [1 or 2][kTileK][kTileCols]
-  float* red = lts + (SPEC ? 2 : 1) * kTileK * kTileCols;
+  E* lts = reinterpret_cast<E*>(xs + BP * kXStride);
+                                          // [1 or 2][kTileK][kTileCols];
+                                          // bf16: [kTileCols][kTileKB]
+  float* red = xs + BP * kXStride + staged_floats(SPEC, BF16);
                                           // [BP], and [BP] more under CV
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * D;        // first drawn row
 
-  load_noise<D, SEEDED, SPEC>(a.noise, a.drawn, n, a.key, row0, ns, ws, zs);
+  load_noise<D, SEEDED, SPEC, BF16>(a.noise, a.drawn, n, a.key, row0, ns, ws,
+                                    zs);
   if (!PRICED) {
     for (int p = tid; p < BP; p += kThreads)
       a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1)] = a.s0;
@@ -176,7 +199,9 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
 
   for (int c0 = 0; c0 < n; c0 += kTileCols) {
     const int kmax = min(c0 + kTileCols, n);
-    fgn_tile<PM, 1, SPEC>(a.lt, a.ci, n, c0, ns, lts, xs, nullptr, zs);
+    fgn_tile<PM, 1, SPEC, BF16>(static_cast<const E*>(a.lt),
+                                reinterpret_cast<const E*>(a.ci), n, c0, ns,
+                                lts, xs, nullptr, zs);
 
     // Variance exp and Euler increment, elementwise over the tile (both
     // members of a pair from one x and one w).
@@ -251,18 +276,19 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
 }
 
 // Shared memory of a block of bp paths (pair members when antithetic).
-int smem_bytes(int n, int bp, bool anti, bool cv, bool spec) {
+int smem_bytes(int n, int bp, bool anti, bool cv, bool spec,
+               bool bf16 = false) {
   const int d = anti ? bp / 2 : bp;
   return block_smem_bytes(n, d, 1, (bp - d) * kXStride + (cv ? 2 : 1) * bp,
-                          spec);
+                          spec, bf16);
 }
 
 template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC,
-          bool QUAD>
+          bool QUAD, bool BF16 = false>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {
   constexpr int D = 16 * PM;
-  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI, CV, SPEC);
-  auto kernel = path_kernel<PM, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>;
+  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI, CV, SPEC, BF16);
+  auto kernel = path_kernel<PM, SEEDED, PRICED, ANTI, CV, SPEC, QUAD, BF16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -270,10 +296,21 @@ cudaError_t launch_one(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The seeded or noise-in entry, chol or spectral (from a.ci).
+// The seeded or noise-in entry, chol or spectral (from a.ci), or the
+// chol body's bf16 form (a.bf16; boundary policy only).
 template <int PM, bool PRICED, bool ANTI, bool CV, bool QUAD>
 cudaError_t launch_entry(const Args& a, cudaStream_t stream) {
   const bool seeded = a.noise == nullptr;
+  if (a.bf16) {
+    if constexpr (QUAD) {
+      return cudaErrorInvalidValue;
+    } else {
+      return seeded ? launch_one<PM, true, PRICED, ANTI, CV, false, false,
+                                 true>(a, stream)
+                    : launch_one<PM, false, PRICED, ANTI, CV, false, false,
+                                 true>(a, stream);
+    }
+  }
   if (a.ci != nullptr)
     return seeded
                ? launch_one<PM, true, PRICED, ANTI, CV, true, QUAD>(a, stream)
@@ -300,14 +337,16 @@ cudaError_t launch_pm(const Args& a, int pm, cudaStream_t stream) {
 
 // block_paths counts paths (pair members when antithetic): 16, 32 or 64
 // plain, 32, 64 or 128 paired.  The quadratic policy (quad) has no pair
-// form.
+// form; the bf16 form is the chol body's, boundary policy only.
 template <bool PRICED>
 cudaError_t launch(Args a, int block_paths, bool anti, bool cv, bool quad,
                    cudaStream_t stream) {
   const int unit = anti ? 32 : 16;
   if (a.n < 1 || a.rows < 1 || block_paths < unit || block_paths % unit ||
       a.rows % block_paths || (quad && (anti || !PRICED)) ||
-      smem_bytes(a.n, block_paths, anti, cv, a.ci != nullptr) > kSmemLimit)
+      (a.bf16 && (quad || a.ci != nullptr)) ||
+      smem_bytes(a.n, block_paths, anti, cv, a.ci != nullptr, a.bf16) >
+          kSmemLimit)
     return cudaErrorInvalidValue;
   a.drawn = anti ? a.rows / 2 : a.rows;
   const int pm = block_paths / unit;
@@ -338,15 +377,16 @@ int mcop_smem_bytes(int n_steps, int block_paths, int antithetic, int with_cv,
 
 // K1.  noise may be null (seeded entry, stream of `key`).  lt is Lt' (chol,
 // ci null) or Cr' (spectral, ci = Ci'); noise is then [2, rows, n_steps]
-// (N, W) or [3, rows, n_steps] (Zr, Zi, W).  rows counts paths;
-// antithetic != 0 reads (or draws) rows / 2 rows of noise, block_paths
-// counts pair members, and out holds the drawn rows' paths, then their
-// partners'.
-int mcop_pathgen(const float* noise, const float* lt, const float* ci,
+// (N, W) or [3, rows, n_steps] (Zr, Zi, W).  bf16 != 0: the bf16 form, lt
+// a bf16 Lt' (chol), noise float32 (N rounded as it is read).  rows counts
+// paths; antithetic != 0 reads (or draws) rows / 2 rows of noise,
+// block_paths counts pair members, and out holds the drawn rows' paths,
+// then their partners'.
+int mcop_pathgen(const float* noise, const void* lt, const float* ci,
                  const float* vd, int rows, int n_steps, int block_paths,
                  unsigned int key,
                  float r, float dt, float sqrt_dt, float log_s0, float s0,
-                 int antithetic, float* out, void* stream) {
+                 int antithetic, int bf16, float* out, void* stream) {
   Args a{};
   a.noise = noise;
   a.lt = lt;
@@ -362,6 +402,7 @@ int mcop_pathgen(const float* noise, const float* lt, const float* ci,
   a.sqrt_dt = sqrt_dt;
   a.log_s0 = log_s0;
   a.s0 = s0;
+  a.bf16 = bf16 != 0;
   return static_cast<int>(launch<false>(a, block_paths, antithetic != 0,
                                         false, false,
                                         static_cast<cudaStream_t>(stream)));
@@ -369,17 +410,17 @@ int mcop_pathgen(const float* noise, const float* lt, const float* ci,
 
 // K2.  table: rows 0-2 of the log_boundary_rows table, or with
 // quadratic != 0 the eight rows of the policy_rows table (its strike in row
-// 7; `strike` is then not read), row stride table_stride floats.  lt, ci
-// and the noise planes as K1's.  rows counts paths; antithetic != 0 (not
-// with quadratic) reads (or draws) rows / 2 rows of noise.  out:
-// [rows / block_paths] partial sums, then as many control sums when
-// with_cv != 0.
-int mcop_priced_chunk(const float* noise, const float* lt, const float* ci,
+// 7; `strike` is then not read), row stride table_stride floats.  lt, ci,
+// bf16 and the noise planes as K1's (bf16 not with quadratic).  rows
+// counts paths; antithetic != 0 (not with quadratic) reads (or draws)
+// rows / 2 rows of noise.  out: [rows / block_paths] partial sums, then as
+// many control sums when with_cv != 0.
+int mcop_priced_chunk(const float* noise, const void* lt, const float* ci,
                       const float* vd, int rows, int n_steps, int block_paths,
                       unsigned int key, float r, float dt, float sqrt_dt,
                       float log_s0, const float* table, long long table_stride,
                       float strike, int is_call, int antithetic, int with_cv,
-                      int quadratic, float cv_disc, float* out,
+                      int quadratic, int bf16, float cv_disc, float* out,
                       void* stream) {
   Args a{};
   a.noise = noise;
@@ -403,6 +444,7 @@ int mcop_priced_chunk(const float* noise, const float* lt, const float* ci,
   a.strike = strike;
   a.cv_disc = cv_disc;
   a.is_call = is_call;
+  a.bf16 = bf16 != 0;
   return static_cast<int>(launch<true>(a, block_paths, antithetic != 0,
                                        with_cv != 0, quadratic != 0,
                                        static_cast<cudaStream_t>(stream)));

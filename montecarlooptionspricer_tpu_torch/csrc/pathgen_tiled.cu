@@ -14,6 +14,10 @@
 //    _policy_tile:161 and _accumulate_priced:320) plain and with the
 //    control variate.  The spectral form (SPEC, from the ci pointer) is the
 //    slab's _fgn_tile:125, Zr @ Cr' - Zi @ Ci' on three noise planes.
+// Both also run the bf16 fGN-input form of the chol body (BF16, from the
+//    bf16 flag; StreamConfig.fgn_matmul_dtype="bfloat16", the slab's
+//    _consts:88 in bf16 and its bf16 noise tiles, pathgen_pallas_tiled.py
+//    :249, :308, :435): K6 plain and paired, K7 in its four boundary forms.
 //
 // They compute what K1 and K2 compute, on the same seeded stream
 // (csrc/philox.cuh), re-blocked over the step axis.  Per path p and step
@@ -42,7 +46,9 @@
 // antithetic forms run the product once per pair, 1.1e11 multiply-adds.
 // The spectral product is two dense [n, n] products, 2 n^2 multiply-adds
 // per path (8.7e11 at 1825 steps and 131072 rows, ~26 ms), four times
-// the triangle.
+// the triangle.  The bf16 form runs the triangle on the tensor cores:
+// 0.44 ms at the 989 TFLOP/s dense bf16 peak, so its ~8 operations a cell
+// besides the product (and the draws of the seeded entry) bound it.
 //
 // Design:
 // * Shared memory.  At 1825 steps one path's N row is 7.3 KB, so the N
@@ -60,7 +66,9 @@
 //   each thread accumulates a PM x 8 micro-tile (paths ty*PM.., columns
 //   tx*4..+3 and 64+tx*4..+3, read as float4 so a quarter-warp reads 128
 //   contiguous bytes of the Lt' tile).  Output tile c reads k-tiles that
-//   end at its last column only: Lt' is upper triangular.
+//   end at its last column only: Lt' is upper triangular.  The product of
+//   a column tile, float32 and bf16, is csrc/slab_tile.cuh's, which the
+//   P1 matmul probe (csrc/roofline.cu) also runs.
 // * The TPU grid carried per-path state across step tiles in scratch.
 //   Here the state of path p (log-price carry, stopped flag, stop value)
 //   lives in the registers of thread p < BP, which runs the running sum and
@@ -84,29 +92,37 @@
 //   isqrt(L2 / 8) = 2,560 steps (max_tiled_steps), the chol factor to
 //   3,620.  The seeded entry draws Zr and W as the chol stream's N and W
 //   and Zi from its own counter word, as K1/K2 do.
+// * The bf16 form (BF16) stages each k-tile as bf16, the N^T tile as
+//   [D][kNB] (k contiguous; each normal rounded to nearest even from the
+//   float32 plane) and the Lt' tile column by column, [kTileCols][kNB],
+//   and runs the tile as m16n8k16 tensor-core products with float32 sums
+//   (csrc/mma_bf16.cuh): warp w owns the 8-column groups w and w + 8 of
+//   the 128-column tile and every m16 row group, and skips a group's
+//   product on the k-tiles past its last column (the triangle).  The
+//   rest of the body is the float32 form's; a pair's partner is -x to the
+//   bit.  It keeps the float32 form's path blocks.
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise so the plain
 //   PyTorch versions agree to a few ulp per cell.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
 #include "philox.cuh"
 #include "quad_policy.cuh"
+#include "slab_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileCols = 128;                 // step columns per output tile
-constexpr int kHalfCols = kTileCols / 2;
-constexpr int kTileK = 16;                     // steps per staged k-tile
-constexpr int kColGroups = 16;                 // threads across a tile row
-constexpr int kXStride = kTileCols + 1;
+using namespace mcop::slab;
+
 constexpr int kSmemLimit = 232448;
 
 struct Args {
   float* noise;         // [2 or 3, drawn, n]: the input, or the seeded
                         // workspace
-  const float* lt;      // [n, n] half-scaled factor: Lt' (upper), or Cr'
+  const void* lt;       // [n, n] half-scaled factor: Lt' (upper), or Cr';
+                        // bf16 under the bf16 form, else float32
   const float* ci;      // [n, n] Ci' (spectral), or nullptr (chol)
   const float* vd;      // [n] half variance drift
   const float* llo;     // [n] log lower bounds (K7)
@@ -119,44 +135,26 @@ struct Args {
   uint32_t key;
   float r, dt, sqrt_dt, log_s0, s0, strike, cv_disc;
   int is_call;
+  bool bf16;            // the bf16 fGN-input form
 };
 
 // Shared memory of one block, in floats: the N^T k-tile of its D drawn
 // rows (row stride D+4, a multiple of 4 for float4 reads), the Lt' k-tile
-// (under SPEC the Zr^T and Zi^T k-tiles and the Cr' and Ci' k-tiles), the
-// X tile of its BP paths (stride kTileCols+1, so the per-path loop reads
-// distinct banks) and the path-sum slots (twice under CV).
-template <int PM, bool ANTI = false, bool CV = false, bool SPEC = false>
+// (under SPEC the Zr^T and Zi^T k-tiles and the Cr' and Ci' k-tiles; under
+// BF16 the bf16 N tile [D][kNB] and Lt' tile [kTileCols][kNB]), the X tile
+// of its BP paths (stride kTileCols+1, so the per-path loop reads distinct
+// banks) and the path-sum slots (twice under CV).
+template <int PM, bool ANTI = false, bool CV = false, bool SPEC = false,
+          bool BF16 = false>
 struct Layout {
   static constexpr int kD = 16 * PM;
   static constexpr int kBP = ANTI ? 2 * kD : kD;
   static constexpr int kNStride = kD + 4;
-  static constexpr int kPlanes = SPEC ? 2 : 1;   // k-tiles of noise, factor
-  static constexpr int kFloats = kPlanes * (kTileK * kNStride +
-                                            kTileK * kTileCols) +
-                                 kBP * kXStride + (CV ? 2 : 1) * kBP;
+  static constexpr int kTileFloats = tile_floats<PM, SPEC, BF16>();
+  static constexpr int kFloats =
+      kTileFloats + kBP * kXStride + (CV ? 2 : 1) * kBP;
   static constexpr int kBytes = 4 * kFloats;
 };
-
-template <int PM>
-__device__ __forceinline__ void load_paths(const float* src, float (&v)[PM]) {
-  if constexpr (PM % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < PM; i += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(src + i);
-      v[i] = q.x;
-      v[i + 1] = q.y;
-      v[i + 2] = q.z;
-      v[i + 3] = q.w;
-    }
-  } else if constexpr (PM == 2) {
-    const float2 q = *reinterpret_cast<const float2*>(src);
-    v[0] = q.x;
-    v[1] = q.y;
-  } else {
-    v[0] = src[0];
-  }
-}
 
 // Seeded entry: draw the block's D rows of N and W into the plane (SPEC:
 // Zr = N into plane 0, Zi into plane 1, W into plane 2).
@@ -214,11 +212,12 @@ __device__ __forceinline__ size_t member_row(int drawn, int row0, int p) {
 
 // Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members (ANTI:
 // member p < D is drawn row p, member D + p its partner).  CV adds the
-// control lane, SPEC the spectral fGN form, QUAD the quadratic policy.
+// control lane, SPEC the spectral fGN form, QUAD the quadratic policy,
+// BF16 the bf16 fGN-input form.
 template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC,
-          bool QUAD>
+          bool QUAD, bool BF16>
 __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
-  using L = Layout<PM, ANTI, CV, SPEC>;
+  using L = Layout<PM, ANTI, CV, SPEC, BF16>;
   constexpr int D = L::kD;
   constexpr int BP = L::kBP;
   constexpr int NS = L::kNStride;
@@ -227,14 +226,15 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
   float* lts = ns + kTileK * NS;                // [kTileK][kTileCols]
   float* zs = lts + kTileK * kTileCols;         // SPEC: Zi^T k-tile
   float* cts = zs + kTileK * NS;                // SPEC: Ci' k-tile
-  float* xs = SPEC ? cts + kTileK * kTileCols : zs;   // [BP][kXStride]
+  auto* nsb = reinterpret_cast<__nv_bfloat16*>(smem4);  // BF16: [D][kNB]
+  __nv_bfloat16* ltb = nsb + D * kNB;           // BF16: [kTileCols][kNB]
+  float* xs = reinterpret_cast<float*>(smem4) + L::kTileFloats;
+                                                // [BP][kXStride]
   float* red = xs + BP * kXStride;              // [BP] (twice under CV)
 
   const int n = a.n;
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * D;              // first drawn row
-  const int tx = tid % kColGroups;              // columns tx*4.., 64+tx*4..
-  const int ty = tid / kColGroups;              // drawn rows ty*PM + i
   const size_t plane = static_cast<size_t>(a.drawn) * n;
   const float* nrows = a.noise + static_cast<size_t>(row0) * n;
   const float* zrows = nrows + plane;           // SPEC: Zi
@@ -256,73 +256,10 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
 
   for (int c0 = 0; c0 < n; c0 += kTileCols) {
     const int kmax = min(c0 + kTileCols, n);
-    float acc[PM][8];
-#pragma unroll
-    for (int i = 0; i < PM; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-    // Lt' is upper triangular: k-tiles past the tile's last column are
-    // zero.  Cr' and Ci' are dense: every k-tile counts.
-    const int kend = SPEC ? n : kmax;
-    for (int k0 = 0; k0 < kend; k0 += kTileK) {
-      const int kn = min(kTileK, kend - k0);
-      __syncthreads();  // previous readers of ns/lts (zs/cts) are done
-      for (int idx = tid; idx < D * kTileK; idx += kThreads) {
-        const int p = idx / kTileK, kk = idx - p * kTileK;
-        const size_t g = static_cast<size_t>(p) * n + k0 + kk;
-        ns[kk * NS + p] = kk < kn ? nrows[g] : 0.0f;
-        if (SPEC) zs[kk * NS + p] = kk < kn ? zrows[g] : 0.0f;
-      }
-      for (int idx = tid; idx < kTileK * kTileCols; idx += kThreads) {
-        const int kk = idx / kTileCols, cc = idx - kk * kTileCols;
-        const int c = c0 + cc;
-        const bool in = kk < kn && c < n;
-        const size_t g = static_cast<size_t>(k0 + kk) * n + c;
-        lts[idx] = in ? a.lt[g] : 0.0f;
-        if (SPEC) cts[idx] = in ? a.ci[g] : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kTileK; ++kk) {
-        float av[PM];
-        load_paths<PM>(ns + kk * NS + ty * PM, av);
-        const float4 b0 =
-            *reinterpret_cast<const float4*>(lts + kk * kTileCols + tx * 4);
-        const float4 b1 = *reinterpret_cast<const float4*>(
-            lts + kk * kTileCols + kHalfCols + tx * 4);
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < PM; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], b[j], acc[i][j]);
-        if constexpr (SPEC) {
-          float zv[PM];
-          load_paths<PM>(zs + kk * NS + ty * PM, zv);
-          const float4 d0 = *reinterpret_cast<const float4*>(
-              cts + kk * kTileCols + tx * 4);
-          const float4 d1 = *reinterpret_cast<const float4*>(
-              cts + kk * kTileCols + kHalfCols + tx * 4);
-          const float d[8] = {d0.x, d0.y, d0.z, d0.w,
-                              d1.x, d1.y, d1.z, d1.w};
-#pragma unroll
-          for (int i = 0; i < PM; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              acc[i][j] = fmaf(-zv[i], d[j], acc[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < PM; ++i) {
-      float* xrow = xs + (ty * PM + i) * kXStride;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        xrow[tx * 4 + j] = acc[i][j];
-        xrow[kHalfCols + tx * 4 + j] = acc[i][4 + j];
-      }
-    }
-    __syncthreads();
+    if constexpr (BF16)
+      tile_product_bf16<PM>(a, nrows, c0, nsb, ltb, xs);
+    else
+      tile_product<PM, SPEC>(a, nrows, zrows, c0, ns, lts, zs, cts, xs);
 
     // Variance exp and Euler increment, elementwise over the tile (both
     // members of a pair from one x and one w).
@@ -394,11 +331,11 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
 }
 
 template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC,
-          bool QUAD>
+          bool QUAD, bool BF16>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {
-  constexpr int smem = Layout<PM, ANTI, CV, SPEC>::kBytes;
+  constexpr int smem = Layout<PM, ANTI, CV, SPEC, BF16>::kBytes;
   static_assert(smem <= kSmemLimit, "tile shapes exceed shared memory");
-  auto kernel = tiled_kernel<PM, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>;
+  auto kernel = tiled_kernel<PM, SEEDED, PRICED, ANTI, CV, SPEC, QUAD, BF16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -412,28 +349,44 @@ cudaError_t launch_one(const Args& a, cudaStream_t stream) {
 
 // The plain forms take 128, 64, 32 or 16 paths a block; the paired forms
 // 128, 64 or 32 members (64, 32 or 16 drawn rows).
-template <bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC, bool QUAD>
+template <bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC, bool QUAD,
+          bool BF16 = false>
 cudaError_t launch_pm(const Args& a, int block_paths, cudaStream_t stream) {
   switch (ANTI ? block_paths / 2 : block_paths) {
     case 128:
       if constexpr (ANTI) return cudaErrorInvalidValue;
       else
-        return launch_one<8, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>(a, stream);
+        return launch_one<8, SEEDED, PRICED, ANTI, CV, SPEC, QUAD, BF16>(
+            a, stream);
     case 64:
-      return launch_one<4, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>(a, stream);
+      return launch_one<4, SEEDED, PRICED, ANTI, CV, SPEC, QUAD, BF16>(
+          a, stream);
     case 32:
-      return launch_one<2, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>(a, stream);
+      return launch_one<2, SEEDED, PRICED, ANTI, CV, SPEC, QUAD, BF16>(
+          a, stream);
     case 16:
-      return launch_one<1, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>(a, stream);
+      return launch_one<1, SEEDED, PRICED, ANTI, CV, SPEC, QUAD, BF16>(
+          a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// The seeded or noise-in entry, chol or spectral (from a.ci).
+// The seeded or noise-in entry, chol or spectral (from a.ci), or the chol
+// body's bf16 form (a.bf16; boundary policy only).
 template <bool PRICED, bool ANTI, bool CV, bool QUAD = false>
 cudaError_t launch_seeded(const Args& a, int seeded, int block_paths,
                           cudaStream_t stream) {
+  if (a.bf16) {
+    if constexpr (QUAD) {
+      return cudaErrorInvalidValue;
+    } else {
+      return seeded ? launch_pm<true, PRICED, ANTI, CV, false, false, true>(
+                          a, block_paths, stream)
+                    : launch_pm<false, PRICED, ANTI, CV, false, false, true>(
+                          a, block_paths, stream);
+    }
+  }
   if (a.ci != nullptr)
     return seeded ? launch_pm<true, PRICED, ANTI, CV, true, QUAD>(
                         a, block_paths, stream)
@@ -450,7 +403,7 @@ cudaError_t launch(Args a, int seeded, int block_paths, bool anti, bool cv,
                    bool quad, cudaStream_t stream) {
   if (a.n < 1 || a.rows < 1 || a.noise == nullptr || block_paths < 16 ||
       a.rows % block_paths || (anti && block_paths % 32) ||
-      (quad && (anti || !PRICED)))
+      (quad && (anti || !PRICED)) || (a.bf16 && (quad || a.ci != nullptr)))
     return cudaErrorInvalidValue;
   a.drawn = anti ? a.rows / 2 : a.rows;
   if (quad)
@@ -472,10 +425,11 @@ cudaError_t launch(Args a, int seeded, int block_paths, bool anti, bool cv,
                                                 stream);
 }
 
-Args make_args(float* noise, const float* lt, const float* ci,
+Args make_args(float* noise, const void* lt, const float* ci,
                const float* vd, int rows, int n_steps, unsigned int key,
-               float r, float dt, float sqrt_dt, float log_s0) {
+               float r, float dt, float sqrt_dt, float log_s0, int bf16) {
   Args a{};
+  a.bf16 = bf16 != 0;
   a.noise = noise;
   a.lt = lt;
   a.ci = ci;
@@ -511,17 +465,18 @@ int mcop_tiled_smem_bytes(int block_paths, int antithetic, int with_cv,
 // K6.  noise: [2, rows, n_steps] float32 (N, W; ci null: lt is Lt') or
 // [3, rows, n_steps] (Zr, Zi, W; spectral: lt is Cr', ci is Ci'), read as
 // given (seeded == 0) or filled first from the stream of `key` (seeded !=
-// 0, a workspace).  rows counts paths; antithetic != 0 reads (or draws
-// into the workspace) rows / 2 rows of noise, block_paths counts pair
-// members, and out holds the drawn rows' paths, then their partners'.
-int mcop_tiled_pathgen(float* noise, int seeded, const float* lt,
+// 0, a workspace).  bf16 != 0: the bf16 form, lt a bf16 Lt' (chol), the
+// noise float32.  rows counts paths; antithetic != 0 reads (or draws into
+// the workspace) rows / 2 rows of noise, block_paths counts pair members,
+// and out holds the drawn rows' paths, then their partners'.
+int mcop_tiled_pathgen(float* noise, int seeded, const void* lt,
                        const float* ci, const float* vd, int rows,
                        int n_steps, int block_paths, unsigned int key,
                        float r, float dt,
                        float sqrt_dt, float log_s0, float s0, int antithetic,
-                       float* out, void* stream) {
+                       int bf16, float* out, void* stream) {
   Args a = make_args(noise, lt, ci, vd, rows, n_steps, key, r, dt, sqrt_dt,
-                     log_s0);
+                     log_s0, bf16);
   a.s0 = s0;
   a.out = out;
   return static_cast<int>(launch<false>(a, seeded, block_paths,
@@ -532,21 +487,22 @@ int mcop_tiled_pathgen(float* noise, int seeded, const float* lt,
 // K7.  table: rows 0-2 of the log_boundary_rows table, or with
 // quadratic != 0 the eight rows of the policy_rows table (its strike in row
 // 7; `strike` is then not read), row stride table_stride floats.  noise,
-// lt and ci as K6's.  rows counts paths; antithetic != 0 (not with
-// quadratic) reads (or draws into the workspace) rows / 2 rows of noise,
-// and block_paths counts pair members.  out: [rows / block_paths] partial
-// sums, then as many control sums when with_cv != 0.
-int mcop_tiled_priced_chunk(float* noise, int seeded, const float* lt,
+// lt, ci and bf16 as K6's (bf16 not with quadratic).  rows counts paths;
+// antithetic != 0 (not with quadratic) reads (or draws into the
+// workspace) rows / 2 rows of noise, and block_paths counts pair members.
+// out: [rows / block_paths] partial sums, then as many control sums when
+// with_cv != 0.
+int mcop_tiled_priced_chunk(float* noise, int seeded, const void* lt,
                             const float* ci, const float* vd, int rows,
                             int n_steps, int block_paths, unsigned int key,
                             float r,
                             float dt, float sqrt_dt, float log_s0,
                             const float* table, long long table_stride,
                             float strike, int is_call, int antithetic,
-                            int with_cv, int quadratic, float cv_disc,
-                            float* out, void* stream) {
+                            int with_cv, int quadratic, int bf16,
+                            float cv_disc, float* out, void* stream) {
   Args a = make_args(noise, lt, ci, vd, rows, n_steps, key, r, dt, sqrt_dt,
-                     log_s0);
+                     log_s0, bf16);
   a.llo = table;
   a.lhi = table + table_stride;
   a.disc = table + 2 * table_stride;

@@ -25,9 +25,11 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 SOURCES = (CSRC / "pathgen.cu", CSRC / "pathgen_tiled.cu", CSRC / "chain.cu",
-           CSRC / "greeks.cu", CSRC / "pathgen_factored.cu")
+           CSRC / "greeks.cu", CSRC / "pathgen_factored.cu",
+           CSRC / "roofline.cu")
 HEADERS = (CSRC / "philox.cuh", CSRC / "fgn_tile.cuh",
-           CSRC / "quad_policy.cuh")
+           CSRC / "quad_policy.cuh", CSRC / "mma_bf16.cuh",
+           CSRC / "slab_tile.cuh")
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -96,23 +98,23 @@ def load() -> types.SimpleNamespace:
     if needed), as attributes of one namespace.  Every launching entry
     returns a cudaError_t as int."""
     paths, _ = build()
-    single, tiled, chain, greeks, factored = (ctypes.CDLL(str(p))
-                                              for p in paths)
+    single, tiled, chain, greeks, factored, roofline = (
+        ctypes.CDLL(str(p)) for p in paths)
     p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                   ctypes.c_float)
     ll = ctypes.c_longlong
     signatures = {
         (single, "mcop_smem_bytes"): [i, i, i, i, i],
         (single, "mcop_pathgen"): [p, p, p, p, i, i, i, u, f, f, f, f, f, i,
-                                   p, p],
+                                   i, p, p],
         (single, "mcop_priced_chunk"): [p, p, p, p, i, i, i, u, f, f, f, f,
-                                        p, ll, f, i, i, i, i, f, p, p],
+                                        p, ll, f, i, i, i, i, i, f, p, p],
         (tiled, "mcop_tiled_smem_bytes"): [i, i, i, i],
         (tiled, "mcop_tiled_pathgen"): [p, i, p, p, p, i, i, i, u, f, f, f,
-                                        f, f, i, p, p],
+                                        f, f, i, i, p, p],
         (tiled, "mcop_tiled_priced_chunk"): [p, i, p, p, p, i, i, i, u, f, f,
-                                             f, f, p, ll, f, i, i, i, i, f,
-                                             p, p],
+                                             f, f, p, ll, f, i, i, i, i, i,
+                                             f, p, p],
         (chain, "mcop_chain_smem_bytes"): [i, i, i, i],
         (chain, "mcop_chain_group"): [],
         (chain, "mcop_priced_chain"): [p, p, p, p, i, i, i, u, f, f, f, f, p,
@@ -129,6 +131,8 @@ def load() -> types.SimpleNamespace:
                                                          f, i, p, p],
         (factored, "mcop_factored_priced_chunk"): [p] * 10 + [
             i, i, u, f, f, f, f, p, ll, f, i, i, i, i, f, p, p],
+        (roofline, "mcop_roofline_normals"): [u, i, i, i, i, i, p, p],
+        (roofline, "mcop_roofline_matmul"): [u, p, i, i, i, i, i, p, p, p],
     }
     entries = {}
     for (lib, name), argtypes in signatures.items():

@@ -135,6 +135,7 @@ def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
     sums every run."""
     quadratic = pc.check_policy(policy_form, antithetic)
     rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
+    consts.check_dtype(False, "K5")
     n = consts.n_steps
     if (tables.dim() != 3 or tables.shape[1] < (8 if quadratic else 4)
             or tables.shape[2] < n):

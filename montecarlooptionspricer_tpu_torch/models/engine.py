@@ -72,6 +72,15 @@ policy's value (lower) and the delta-hedge dual (upper,
 ``dual_upper_values``).  The dual is plain PyTorch, as JAX computes it in
 XLA.
 
+``fgn_matmul_dtype="bfloat16"`` (counterpart: the JAX field of that name,
+JAX's bench default at long horizons) runs the fGN product on bf16 inputs
+with float32 sums: the bf16 forms of K1/K2 on the single tile and of K6/K7
+on the chol slab (the same family ranges as float32), and the bf16 matmul
+synthesis on the generic stream; the bounds stream K1/K6 in that form.
+Its other kernel combinations (the spectral form, the quadratic policy on
+a kernel family, strips on K5, Greeks on K3/K4, the factored family)
+raise ``NotImplementedError`` naming ROADMAP B12.
+
 Only this path is ported.  Other configurations raise
 ``NotImplementedError`` naming their ROADMAP item; nothing runs another
 path silently.  Greeks under ``control_variate`` are the plain Greeks, as
@@ -134,7 +143,9 @@ class StreamConfig:
     estimators: antithetic pairing needs chunk and pilot sizes divisible
     by 32 and excludes qmc, which is not ported
     (``_reject_unported_estimators``); on a kernel family it needs the
-    boundary policy (``_check_pairing``)."""
+    boundary policy (``_check_pairing``).  ``fgn_matmul_dtype``
+    ("float32" or "bfloat16") is the fGN product's input dtype; the
+    family does not depend on it (``_check_bf16`` says where bf16 runs)."""
 
     n_paths: int
     n_steps: int
@@ -153,8 +164,10 @@ class StreamConfig:
     control_variate: bool = False
     pathgen_impl: str = "pallas"
     fgn_impl: str = "auto"
+    fgn_matmul_dtype: str = "float32"
 
     def __post_init__(self):
+        pathgen_cuda.check_fgn_dtype(self.fgn_matmul_dtype)
         if self.antithetic and self.qmc:
             raise ValueError("antithetic is incompatible with qmc (the "
                              "Sobol set has its own stratification)")
@@ -311,6 +324,27 @@ def _chol_dh_matrix_host(n_steps: int, h: float, eta: float, dt: float,
     dlt = np.ascontiguousarray(((lp - lm) / (2.0 * eps)).T)
     dlt.setflags(write=False)
     return dlt
+
+
+def _check_bf16(config: StreamConfig, family: str, quadratic: bool,
+                chain: bool = False) -> None:
+    """Where ``fgn_matmul_dtype="bfloat16"`` runs: the chol bodies of
+    K1/K2 and K6/K7 under the boundary policy, and the generic stream.
+    The other kernel combinations raise NotImplementedError naming
+    ROADMAP B12: the spectral form, the quadratic policy, strips on K5
+    (``chain``) and the factored family K8/K9."""
+    if (not pathgen_cuda.check_fgn_dtype(config.fgn_matmul_dtype)
+            or family == "stream"):
+        return
+    if family == "factored":
+        raise pathgen_cuda.b12_error(
+            f"on the factored family K8/K9 (n_steps={config.n_steps})")
+    if kernel_fgn_form(config.fgn_form) == "spectral":
+        raise pathgen_cuda.b12_error("with fgn_form='spectral'")
+    if quadratic:
+        raise pathgen_cuda.b12_error("under the quadratic policy")
+    if chain:
+        raise pathgen_cuda.b12_error("on a strike strip (K5)")
 
 
 def _check_pairing(quadratic: bool, family: str, config: StreamConfig,
@@ -635,7 +669,7 @@ class _FusedStream:
         if self.kernel_family == "stream":
             self.consts = pathgen_stream.make_stream_consts(
                 s0, xi, h, eta, r, config.n_steps, config.dt, device,
-                config.fgn_impl)
+                config.fgn_impl, fgn_dtype=config.fgn_matmul_dtype)
             return
         if self.kernel_family == "factored":
             # The family builds only its own constants: no Cholesky.
@@ -655,7 +689,8 @@ class _FusedStream:
             self._pathgen = pathgen_tiled_cuda.tiled_pathgen
         self.consts = pathgen_cuda.make_path_consts(
             s0, xi, h, eta, r, config.n_steps, config.dt, device,
-            block_paths=block, fgn_form=form)
+            block_paths=block, fgn_form=form,
+            fgn_dtype=config.fgn_matmul_dtype)
 
     @functools.cached_property
     def greeks_consts(self) -> pathgen_cuda.GreeksConsts:
@@ -717,6 +752,8 @@ class _FusedStream:
                 "the chol form only, as the JAX engine's do; a spectral "
                 "configuration's Greeks take JAX's jvp stream, which is not "
                 "ported (ROADMAP A10)")
+        if self.consts.bf16:
+            raise pathgen_cuda.b12_error("for the Greeks (K3/K4)")
 
     def _n_paths(self, n_paths: Optional[int]) -> int:
         if n_paths is None:
@@ -839,9 +876,13 @@ class StreamingPricer(_FusedStream):
     def __init__(self, s0, xi, h, eta, rho, r, strike, maturity,
                  is_call: bool, config: StreamConfig, device="cuda"):
         del rho  # the price Brownian is drawn independent of the fGN noise
-        super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
-                         device)
+        family = resolve_kernel_family(config.n_steps, config.fgn_form,
+                                       config.tiled_impl, config.pathgen_impl,
+                                       config.poly_order)
         self.quadratic = config.policy_form == "quadratic"
+        _check_bf16(config, family, self.quadratic)
+        super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
+                         device, family)
         _check_pairing(self.quadratic, self.kernel_family, config,
                        "policy_form")
         self.strike = float(strike)
@@ -1130,6 +1171,7 @@ class StreamingChainPricer(_FusedStream):
                 "bucketed and traced-market chains (the serving pricers) "
                 "are not ported (ROADMAP A13)")
         family = chain_family(config)
+        _check_bf16(config, family, False, chain=True)
         super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
                          device, family)
         self.quadratic = config.chain_policy_form == "quadratic"

@@ -199,6 +199,7 @@ def greeks_chunk(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
     ``antithetic`` the chunk's ``rows`` paths are rows / 2 pairs (noise
     [2, rows / 2, n_steps])."""
     rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
+    consts.check_dtype(False, "K3")
     _check_tables(consts, table[None])
     if consts.device.type == "cpu":
         if noise is None:
@@ -232,6 +233,7 @@ def chain_greeks_chunk(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
     sweeps up to GROUP strikes; a wider strip takes one launch per group
     on the same key or noise, which regenerates the same pairs."""
     rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
+    consts.check_dtype(False, "K4")
     _check_tables(consts, tables)
     if consts.device.type == "cpu":
         if noise is None:

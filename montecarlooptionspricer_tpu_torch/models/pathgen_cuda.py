@@ -39,6 +39,17 @@ two are the same Gaussian law.  Noise is [2, rows, n_steps] (N, W) or
 [3, rows, n_steps] (Zr, Zi, W).  The launch counters count each form
 apart (``form_name``: "spectral", "spectral/anti", ...).
 
+The chol form also runs with bf16 fGN inputs (``make_path_consts(
+fgn_dtype="bfloat16")``; counterpart: ``StreamConfig.fgn_matmul_dtype`` and
+the ``fgn_dtype`` of the JAX makers, ``_fgn_consts:1359`` and
+``_fgn_x:142``): ``lt_half`` is a torch.bfloat16 Lt', bit-equal to JAX's
+bf16 matrix (the float64 factor rounded to bf16, then halved, which is
+exact), and the kernels round N to bf16 (nearest even) and sum the product
+on the tensor cores in float32.  The plain versions round N likewise and
+take the float32 product of the bf16 values.  K1 and K2 count it as "bf16",
+"bf16/anti", "bf16/cv" and "bf16/anti+cv".  The spectral form, the
+quadratic policy, and K5, K3, K4 take no bf16 constants yet (ROADMAP B12).
+
 Each kernel has a seeded entry (Philox4x32-10 written into the kernel) and
 a noise-in entry.  The wrappers run the plain versions for tensors on the
 CPU and launch the kernel for tensors on a CUDA device; nothing falls back.
@@ -210,24 +221,36 @@ QUAD_FORMS = ("quad", "quad/cv")
 PATH_FORMS = FORMS[:2]
 SPECTRAL = "spectral"
 FGN_FORMS = ("chol", SPECTRAL)
+# The fGN product's input dtypes (StreamConfig.fgn_matmul_dtype), and the
+# launch counters' prefix of the bf16 forms.
+FGN_DTYPES = ("float32", "bfloat16")
+BF16 = "bf16"
 # The exercise-policy forms of the priced kernels (StreamConfig.policy_form):
 # log-space exercise intervals, or the fitted quadratic per cell.
 POLICY_FORMS = ("boundary", "quadratic")
 
 
+def _prefixed(prefix: str, form: str) -> str:
+    return prefix if form == "plain" else f"{prefix}/{form}"
+
+
 def _spectral_name(form: str) -> str:
-    return SPECTRAL if form == "plain" else f"{SPECTRAL}/{form}"
+    return _prefixed(SPECTRAL, form)
 
 
 def form_name(antithetic: bool, with_cv: bool = False,
-              spectral: bool = False, quadratic: bool = False) -> str:
+              spectral: bool = False, quadratic: bool = False,
+              bf16: bool = False) -> str:
     """A launch counter's key: "plain", "anti", "cv" or "anti+cv", "quad"
-    or "quad/cv" under the quadratic policy, and "spectral",
-    "spectral/anti", "spectral/quad", ... for the spectral fGN form."""
+    or "quad/cv" under the quadratic policy, "spectral",
+    "spectral/anti", "spectral/quad", ... for the spectral fGN form, and
+    "bf16", "bf16/anti", ... for the bf16 fGN-input form."""
     if quadratic:
         name = QUAD_FORMS[int(bool(with_cv))]
     else:
         name = FORMS[int(bool(antithetic)) + 2 * int(bool(with_cv))]
+    if bf16:
+        return _prefixed(BF16, name)
     return _spectral_name(name) if spectral else name
 
 
@@ -246,9 +269,11 @@ def check_policy(policy_form: str, antithetic: bool = False) -> bool:
     return quadratic
 
 
-def new_form_counts(forms=FORMS) -> dict:
-    """Zeroed launch counters of ``forms`` in both fGN forms."""
-    return dict.fromkeys([*forms, *map(_spectral_name, forms)], 0)
+def new_form_counts(forms=FORMS, bf16_forms=()) -> dict:
+    """Zeroed launch counters of ``forms`` in both fGN forms, and of
+    ``bf16_forms`` in the bf16 fGN-input form."""
+    return dict.fromkeys([*forms, *map(_spectral_name, forms),
+                          *(_prefixed(BF16, f) for f in bf16_forms)], 0)
 
 
 def block_smem_bytes(n_steps: int, block_paths: int, n_products: int = 1,
@@ -296,6 +321,22 @@ def _check_form(fgn_form: str) -> bool:
         raise ValueError(f"fgn_form must be one of {FGN_FORMS}, got "
                          f"{fgn_form!r}")
     return fgn_form == SPECTRAL
+
+
+def check_fgn_dtype(fgn_dtype: str) -> bool:
+    """Whether ``fgn_dtype`` ("float32" or "bfloat16") is the bf16 one."""
+    if fgn_dtype not in FGN_DTYPES:
+        raise ValueError(f"fgn_matmul_dtype must be one of {FGN_DTYPES}, "
+                         f"got {fgn_dtype!r}")
+    return fgn_dtype == "bfloat16"
+
+
+def b12_error(what: str) -> NotImplementedError:
+    """The error of a bf16 fGN-input form that is not ported yet."""
+    return NotImplementedError(
+        f"fgn_matmul_dtype='bfloat16' {what}: the bf16 forms of the "
+        "spectral bodies, the quadratic policy, K5, K3/K4 and K8/K9 are not "
+        "ported (ROADMAP B12)")
 
 
 def max_block_paths(n_steps: int, fgn_form: str = "chol") -> int:
@@ -346,6 +387,7 @@ class PathConsts:
     dt: float
     cr_half: Optional[torch.Tensor] = None
     ci_half: Optional[torch.Tensor] = None
+    fgn_dtype: str = "float32"
 
     @property
     def device(self) -> torch.device:
@@ -354,6 +396,27 @@ class PathConsts:
     @property
     def spectral(self) -> bool:
         return self.cr_half is not None
+
+    @property
+    def bf16(self) -> bool:
+        """Whether these are the bf16 fGN-input form's constants."""
+        return self.fgn_dtype == "bfloat16"
+
+    def check_dtype(self, bf16_kernel: bool = True, kernel: str = "") -> None:
+        """The factors in the dtype their form names: torch.bfloat16 under
+        ``fgn_dtype="bfloat16"``, float32 otherwise (ValueError on a
+        mismatch, so no kernel reads one as the other).  A ``kernel``
+        without the bf16 form (``bf16_kernel`` False) refuses bf16
+        constants, naming ROADMAP B12."""
+        want = torch.bfloat16 if self.bf16 else torch.float32
+        factors = [t for t in (self.lt_half, self.cr_half, self.ci_half)
+                   if t is not None]
+        if any(t.dtype != want for t in factors):
+            raise ValueError(
+                f"fgn_dtype={self.fgn_dtype!r} needs {want} factors, got "
+                f"{[t.dtype for t in factors]}")
+        if self.bf16 and not bf16_kernel:
+            raise b12_error(f"on {kernel}")
 
     @property
     def fgn_form(self) -> str:
@@ -374,27 +437,37 @@ class PathConsts:
 
 def make_path_consts(s0, xi, h, eta, r, n_steps: int, dt: float,
                      device, block_paths: int = 0,
-                     fgn_form: str = "chol") -> PathConsts:
+                     fgn_form: str = "chol",
+                     fgn_dtype: str = "float32") -> PathConsts:
     """PathConsts for the chol or the spectral fGN form, at any horizon:
     0.5 times the float64 host factors (``engine._chol_matrix_host``, or
-    ``engine._fgn_matrices_np``'s Cr and Ci) cast to float32.
-    ``block_paths`` 0 takes the largest single-tile block the card admits
-    at this horizon and form (0 past the single-tile cap); the single-tile
+    ``engine._fgn_matrices_np``'s Cr and Ci) cast to float32, or under
+    ``fgn_dtype="bfloat16"`` (the chol form) the factor rounded to
+    torch.bfloat16 and halved, bit for bit JAX's ``_fgn_consts`` matrix
+    (float64 -> float32 -> bf16, nearest even, as ``jnp.asarray`` rounds;
+    halving is exact).  ``block_paths`` 0 takes the largest single-tile
+    block the card admits at this horizon and form (0 past the single-tile
+    cap; the bf16 form keeps the float32 form's blocks); the single-tile
     wrappers check it."""
     from .engine import _chol_matrix_host, _fgn_matrices_np
 
     spectral = _check_form(fgn_form)
+    bf16 = check_fgn_dtype(fgn_dtype)
+    if bf16 and spectral:
+        raise b12_error("with fgn_form='spectral'")
 
     def half(m):
-        m = torch.tensor(np.asarray(m), dtype=torch.float32)
-        return (0.5 * m).to(device).contiguous()
+        m = 0.5 * torch.tensor(np.asarray(m), dtype=torch.float32)
+        if bf16:
+            m = m.to(torch.bfloat16)
+        return m.to(device).contiguous()
 
     vd = _half_var_drift(n_steps, n_steps, xi, h, eta, dt)[0]
     common = dict(n_steps=n_steps,
                   block_paths=block_paths or max_block_paths(n_steps,
                                                              fgn_form),
                   vd=vd.to(device).contiguous(), s0=float(s0), r=float(r),
-                  dt=float(dt))
+                  dt=float(dt), fgn_dtype=fgn_dtype)
     if spectral:
         cr, ci = _fgn_matrices_np(n_steps, h, eta, dt)
         return PathConsts(lt_half=None, cr_half=half(cr), ci_half=half(ci),
@@ -641,12 +714,22 @@ def pair_planes(x: torch.Tensor, w: torch.Tensor):
     return torch.cat([x, -x]), torch.cat([w, -w])
 
 
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to bf16 (nearest even), as float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 def fgn_x_ref(consts: PathConsts, noise: torch.Tensor) -> torch.Tensor:
     """[rows, n_steps] half-scaled fGN plane of the noise planes: N @ Lt'
-    (chol), or Zr @ Cr' - Zi @ Ci' (spectral, ``_fgn_x``), float32."""
+    (chol), or Zr @ Cr' - Zi @ Ci' (spectral, ``_fgn_x``), float32.  The
+    bf16 form rounds N to bf16 and takes the float32 product of the bf16
+    N and Lt' (every product of two bf16 values is exact in float32)."""
     if consts.spectral:
         return (_matmul_f32(noise[0], consts.cr_half)
                 - _matmul_f32(noise[1], consts.ci_half))
+    if consts.bf16:
+        return _matmul_f32(round_bf16(noise[0]),
+                           consts.lt_half.to(torch.float32))
     return _matmul_f32(noise[0], consts.lt_half)
 
 
@@ -869,6 +952,7 @@ def pathgen(consts: PathConsts, rows: int = None, key: int = None,
     [planes, rows / 2, n_steps]): the drawn rows' paths, then their
     partners'."""
     rows = _noise_or_rows(consts, rows, key, noise, antithetic)
+    consts.check_dtype()
     if consts.device.type == "cpu":
         if noise is None:
             noise = normals_ref(consts, key, drawn_rows(rows, antithetic))
@@ -881,16 +965,17 @@ def pathgen(consts: PathConsts, rows: int = None, key: int = None,
 
     err = build.load().mcop_pathgen(
         *args, *_scalars(consts), ctypes.c_float(consts.s0),
-        int(bool(antithetic)), out.data_ptr(),
+        int(bool(antithetic)), int(consts.bf16), out.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     _check(err, "pathgen")
     pathgen.launches += 1
-    pathgen.form_launches[form_name(antithetic, False, consts.spectral)] += 1
+    pathgen.form_launches[form_name(antithetic, False, consts.spectral,
+                                    bf16=consts.bf16)] += 1
     return out
 
 
 pathgen.launches = 0
-pathgen.form_launches = new_form_counts(PATH_FORMS)
+pathgen.form_launches = new_form_counts(PATH_FORMS, PATH_FORMS)
 
 
 def sums_from_partials(partial: torch.Tensor, with_cv: bool):
@@ -928,6 +1013,7 @@ def priced_chunk(consts: PathConsts, table: torch.Tensor, strike: float,
     quadratic = check_policy(policy_form, antithetic)
     rows = _noise_or_rows(consts, rows, key, noise, antithetic)
     check_table(table, consts.n_steps, quadratic)
+    consts.check_dtype(not quadratic, "the quadratic policy")
     if consts.device.type == "cpu":
         if noise is None:
             noise = normals_ref(consts, key, drawn_rows(rows, antithetic))
@@ -944,15 +1030,16 @@ def priced_chunk(consts: PathConsts, table: torch.Tensor, strike: float,
     err = build.load().mcop_priced_chunk(
         *args, *_scalars(consts), table.data_ptr(), table.stride(0),
         ctypes.c_float(strike), int(bool(is_call)), int(bool(antithetic)),
-        int(bool(with_cv)), int(quadratic),
+        int(bool(with_cv)), int(quadratic), int(consts.bf16),
         ctypes.c_float(cv_discount(consts)), partial.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     _check(err, "priced_chunk")
     priced_chunk.launches += 1
     priced_chunk.form_launches[form_name(antithetic, with_cv,
-                                         consts.spectral, quadratic)] += 1
+                                         consts.spectral, quadratic,
+                                         consts.bf16)] += 1
     return sums_from_partials(partial, with_cv)
 
 
 priced_chunk.launches = 0
-priced_chunk.form_launches = new_form_counts(FORMS + QUAD_FORMS)
+priced_chunk.form_launches = new_form_counts(FORMS + QUAD_FORMS, FORMS)

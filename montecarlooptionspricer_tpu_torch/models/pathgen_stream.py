@@ -27,7 +27,14 @@ draws in the tests, held elementwise), and ``chunk_paths`` draws them from
 a ``torch.Generator`` on the constants' device, seeded from a (run word,
 stream index) carrier.  That stream is torch's, not JAX's threefry, so it
 is held against JAX in distribution.  The matmul form runs in full float32
-(TF32 pinned off)."""
+(TF32 pinned off).
+
+Under ``fgn_dtype="bfloat16"`` (``StreamConfig.fgn_matmul_dtype``; JAX's
+``make_chunk_pathgen(fgn_dtype=)``) the matmul synthesis takes bf16 inputs
+with float32 sums: Cr and Ci rounded to bf16 (as ``_fgn_matrices_host``
+casts them) and Zr, Zi rounded to bf16 before the product.  JAX draws its
+normals in bf16; the stream draws float32 and rounds, which on JAX's own
+draws is the identity.  The FFT synthesis ignores the dtype, as in JAX."""
 
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ import numpy as np
 import torch
 
 from ..ops import fgn
-from .pathgen_cuda import _matmul_f32
+from .pathgen_cuda import _matmul_f32, check_fgn_dtype, round_bf16
 
 FGN_IMPLS = ("auto", "matmul", "fft")
 
@@ -56,7 +63,9 @@ class StreamConsts:
     variance compensator's t^{2H} row ``t_pow`` [n], and the synthesis's
     constants: ``cr``, ``ci`` [n, n] (unit-eta spectral matrices) for
     "matmul", the complex spectrum ``phi`` [n] and ``fft_scale`` for
-    "fft".  Its tensors' device is where the stream runs."""
+    "fft", and ``bf16``: the matmul synthesis on bf16 inputs (``cr`` and
+    ``ci`` then hold bf16 values).  Its tensors' device is where the
+    stream runs."""
 
     n_steps: int
     dt: float
@@ -70,6 +79,7 @@ class StreamConsts:
     ci: torch.Tensor = None
     phi: torch.Tensor = None
     fft_scale: float = 0.0
+    bf16: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -86,10 +96,12 @@ def _unit_eta_matrices(n_steps: int, h: float, dt: float):
 
 def make_stream_consts(s0, xi, h, eta, r, n_steps: int, dt: float, device,
                        fgn_impl: str = "auto", traced_h: bool = False,
-                       qmc: bool = False) -> StreamConsts:
-    """StreamConsts on ``device`` from float64 host constants.  The traced
-    Hurst exponent of the serving and jvp-Greeks generators and the QMC
-    noise are not ported."""
+                       qmc: bool = False,
+                       fgn_dtype: str = "float32") -> StreamConsts:
+    """StreamConsts on ``device`` from float64 host constants (the matmul
+    synthesis's matrices rounded to bf16 under ``fgn_dtype="bfloat16"``).
+    The traced Hurst exponent of the serving and jvp-Greeks generators and
+    the QMC noise are not ported."""
     if traced_h:
         raise NotImplementedError(
             "traced_h: the in-graph spectral build of the serving and jvp "
@@ -98,15 +110,18 @@ def make_stream_consts(s0, xi, h, eta, r, n_steps: int, dt: float, device,
         raise NotImplementedError(
             "qmc: the randomized-Sobol noise is not ported (ROADMAP A12)")
     impl = resolve_fgn_impl(fgn_impl)
+    bf16 = check_fgn_dtype(fgn_dtype) and impl == "matmul"
     t = torch.arange(n_steps + 1, dtype=torch.float32) * dt
     f32 = dict(dtype=torch.float32, device=device)
     kw = dict(n_steps=n_steps, dt=float(dt), s0=float(s0), xi=float(xi),
               r=float(r), eta=float(eta), fgn_impl=impl,
               t_pow=torch.pow(t[:n_steps], 2.0 * h).to(device))
     if impl == "matmul":
-        cr, ci = _unit_eta_matrices(n_steps, float(h), float(dt))
-        return StreamConsts(cr=torch.tensor(cr, **f32),
-                            ci=torch.tensor(ci, **f32), **kw)
+        cr, ci = (torch.tensor(m, **f32)
+                  for m in _unit_eta_matrices(n_steps, float(h), float(dt)))
+        if bf16:
+            cr, ci = round_bf16(cr), round_bf16(ci)
+        return StreamConsts(cr=cr, ci=ci, bf16=bf16, **kw)
     t64 = np.arange(n_steps + 1, dtype=np.float64) * dt
     phi = np.conj(np.fft.fft(0.5 * t64 ** (2.0 * h),
                              n=fgn.next_pow2(n_steps + 1)))[:n_steps]
@@ -117,8 +132,11 @@ def make_stream_consts(s0, xi, h, eta, r, n_steps: int, dt: float, device,
 
 def fgn_plane(consts: StreamConsts, z: torch.Tensor) -> torch.Tensor:
     """[rows, n] unit-eta fGN plane from the [2, rows, n] (Zr, Zi)
-    normals: the matmul or the FFT synthesis."""
+    normals: the matmul (on bf16-rounded normals under ``consts.bf16``)
+    or the FFT synthesis."""
     if consts.fgn_impl == "matmul":
+        if consts.bf16:
+            z = round_bf16(z)
         return _matmul_f32(z[0], consts.cr) - _matmul_f32(z[1], consts.ci)
     a = consts.phi[None, :] * torch.complex(z[0], z[1])
     x = torch.fft.fft(a, n=fgn.next_pow2(consts.n_steps), dim=-1)

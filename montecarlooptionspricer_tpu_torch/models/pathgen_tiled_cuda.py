@@ -23,6 +23,13 @@ versions are K1's and K2's, named here as ``pathgen_from_noise_ref`` and
 wrappers run the plain versions for tensors on the CPU and launch the
 kernel for tensors on a CUDA device; nothing falls back.
 
+Both also run the chol form with bf16 fGN inputs (a PathConsts of
+``fgn_dtype="bfloat16"``; counterpart: the slab's ``fgn_dtype``,
+``_consts:88`` and its bf16 noise tiles): the kernels round each N k-tile
+to bf16 and read bf16 Lt' k-tiles, summing the product on the tensor cores
+in float32; the plain versions are K1's and K2's bf16 ones.  Their counters
+count it as "bf16", "bf16/anti", ...
+
 The noise planes [2, rows, n_steps] (N, W), or [3, rows, n_steps] (Zr, Zi,
 W) spectral, stay in device memory and the kernels
 stream it through shared memory in k-tiles (the design note in the CUDA
@@ -124,6 +131,7 @@ def tiled_pathgen(consts: pc.PathConsts, rows: int = None, key: int = None,
     drawn rows, noise [planes, rows / 2, n_steps], the partners' paths
     below the drawn rows')."""
     rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
+    consts.check_dtype()
     if consts.device.type == "cpu":
         if noise is None:
             noise = pc.normals_ref(consts, key,
@@ -139,17 +147,19 @@ def tiled_pathgen(consts: pc.PathConsts, rows: int = None, key: int = None,
         plane.data_ptr(), seeded, *consts.factor_ptrs(),
         consts.vd.data_ptr(), rows, consts.n_steps, bp, word,
         *pc._scalars(consts), ctypes.c_float(consts.s0),
-        int(bool(antithetic)), out.data_ptr(),
+        int(bool(antithetic)), int(consts.bf16), out.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, "tiled_pathgen")
     tiled_pathgen.launches += 1
     tiled_pathgen.form_launches[pc.form_name(antithetic, False,
-                                             consts.spectral)] += 1
+                                             consts.spectral,
+                                             bf16=consts.bf16)] += 1
     return out
 
 
 tiled_pathgen.launches = 0
-tiled_pathgen.form_launches = pc.new_form_counts(pc.PATH_FORMS)
+tiled_pathgen.form_launches = pc.new_form_counts(pc.PATH_FORMS,
+                                                 pc.PATH_FORMS)
 
 
 def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
@@ -168,6 +178,7 @@ def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
     quadratic = pc.check_policy(policy_form, antithetic)
     rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
     pc.check_table(table, consts.n_steps, quadratic)
+    consts.check_dtype(not quadratic, "the quadratic policy")
     if consts.device.type == "cpu":
         if noise is None:
             noise = pc.normals_ref(consts, key,
@@ -187,16 +198,16 @@ def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
         consts.vd.data_ptr(), rows, consts.n_steps, bp, word,
         *pc._scalars(consts), table.data_ptr(), table.stride(0),
         ctypes.c_float(strike), int(bool(is_call)), int(bool(antithetic)),
-        int(bool(with_cv)), int(quadratic),
+        int(bool(with_cv)), int(quadratic), int(consts.bf16),
         ctypes.c_float(pc.cv_discount(consts)), partial.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, "tiled_priced_chunk")
     tiled_priced_chunk.launches += 1
     tiled_priced_chunk.form_launches[pc.form_name(
-        antithetic, with_cv, consts.spectral, quadratic)] += 1
+        antithetic, with_cv, consts.spectral, quadratic, consts.bf16)] += 1
     return pc.sums_from_partials(partial, with_cv)
 
 
 tiled_priced_chunk.launches = 0
-tiled_priced_chunk.form_launches = pc.new_form_counts(pc.FORMS
-                                                      + pc.QUAD_FORMS)
+tiled_priced_chunk.form_launches = pc.new_form_counts(
+    pc.FORMS + pc.QUAD_FORMS, pc.FORMS)

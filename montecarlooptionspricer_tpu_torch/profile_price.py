@@ -29,7 +29,9 @@ K6/K7 with ``--tiled-impl slab``; K8/K9 past 365 steps otherwise).
 ``--policy-form quadratic`` sets ``StreamConfig.policy_form`` and
 ``chain_policy_form``: the stream then runs the quadratic form of the
 priced kernel (K2, K7 or K9; K5 for a strip), the fit and its tables
-being otherwise the same.  For each stage it prints one JSON line: host wall seconds, device kernel launches and busy
+being otherwise the same.  ``--fgn-matmul-dtype bfloat16`` sets
+``StreamConfig.fgn_matmul_dtype``: the bf16 fGN-input forms of K1/K2 (K6/K7
+past 365 steps), as the JAX bench runs its long horizon.  For each stage it prints one JSON line: host wall seconds, device kernel launches and busy
 seconds from the trace, the idle share 1 - busy / wall (against the
 unprofiled and the profiled wall), and the kernels that take the most
 device time.
@@ -39,6 +41,7 @@ Usage (one CUDA card):
       [--strikes 75,77.5,...,125] [--greeks] [--tiled-impl factored]
       [--antithetic] [--control-variate] [--pathgen xla] [--bounds]
       [--fgn-form {auto,chol,spectral}] [--policy-form quadratic]
+      [--fgn-matmul-dtype bfloat16]
 """
 
 from __future__ import annotations
@@ -107,6 +110,9 @@ def main(argv=None) -> int:
     parser.add_argument("--pathgen", default="pallas",
                         choices=("pallas", "xla"),
                         help="StreamConfig.pathgen_impl")
+    parser.add_argument("--fgn-matmul-dtype", default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="StreamConfig.fgn_matmul_dtype")
     args = parser.parse_args(argv)
     steps = args.steps
     strikes = [float(v) for v in args.strikes.split(",") if v]
@@ -130,7 +136,8 @@ def main(argv=None) -> int:
                               fgn_form=args.fgn_form,
                               policy_form=args.policy_form,
                               chain_policy_form=args.policy_form,
-                              pathgen_impl=args.pathgen)
+                              pathgen_impl=args.pathgen,
+                              fgn_matmul_dtype=args.fgn_matmul_dtype)
     if strikes:
         pricer = engine.StreamingChainPricer(
             100.0, 0.04, 0.1, 1.5, -0.4, 0.04, strikes, steps / 252, False,

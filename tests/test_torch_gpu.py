@@ -5,6 +5,8 @@ machine without JAX it runs with the repository's conftest switched off:
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -992,8 +994,8 @@ def test_spectral_engine_on_the_card(cuda):
             pc._fold_words(run, start + i), 1 << 14, 96, device=cuda),
         100.0, False)) for i in range(4))
     assert abs(price / (total / (4 << 14)) - 1.0) < 1e-4
-    assert pc.pathgen.form_launches == {"plain": 0, "anti": 0,
-                                        "spectral": 1, "spectral/anti": 0}
+    assert pc.pathgen.form_launches == dict(
+        dict.fromkeys(pc.pathgen.form_launches, 0), spectral=1)
     assert pc.priced_chunk.form_launches["spectral"] == 4
     assert sum(pc.priced_chunk.form_launches.values()) == 4
     for n_steps in (96, 400):
@@ -1225,3 +1227,170 @@ def test_quadratic_engine_on_the_card(cuda):
                 n_paths=2 << 14, n_steps=n, chunk_paths=1 << 14,
                 pilot_paths=1 << 14, dt=DT, policy_form="quadratic",
                 antithetic=True), device=cuda)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 fGN-input forms of K1/K2 and K6/K7, and the P1 roofline probes.
+
+def _bf16_consts(n_steps, device, **kw):
+    return (pc.make_path_consts(*MARKET.values(), n_steps, DT, device,
+                                fgn_dtype="bfloat16", **kw),
+            pc.make_path_consts(*MARKET.values(), n_steps, DT, device, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,n_steps", [("single", 365), ("single", 47),
+                                            ("tiled", 1825),
+                                            ("tiled", 300)])
+def test_bf16_kernels_match_plain_versions(cuda, family, n_steps):
+    """K1/bf16, K1/bf16/anti (K6 likewise) paths at rtol 2e-4 against the
+    bf16 plain version, and 10x closer to it than to the float32 plain
+    version (the tensor cores' float32 sums do not round each add, but
+    the bf16 rounding of N and Lt' is what sets the two forms apart); the
+    four K2/bf16 forms (K7) at rtol 1e-4; pairs to the bit against the
+    unpaired form on [X; -X]; seeded and on noise."""
+    rows, key = 1 << 17, pc._fold_words(5, 83)
+    consts, consts32 = _bf16_consts(n_steps, cuda)
+    path, priced = {"single": (pc.pathgen, pc.priced_chunk),
+                    "tiled": (ptc.tiled_pathgen, ptc.tiled_priced_chunk)}[
+        family]
+    for anti in (False, True):
+        drawn = rows // 2 if anti else rows
+        noise = pc.philox_normals_ref(key, drawn, n_steps, device=cuda)
+        want = pc.pathgen_from_noise_ref(consts, noise, anti)
+        want32 = pc.pathgen_from_noise_ref(consts32, noise, anti)
+        name = pc.form_name(anti, bf16=True)
+        before = path.form_launches[name]
+        for got in (path(consts, noise=noise, antithetic=anti),
+                    path(consts, rows=rows, key=key, antithetic=anti)):
+            torch.cuda.synchronize()
+            err = float(((got - want) / want).abs().max())
+            err32 = float(((got - want32) / want32).abs().max())
+            assert err < 2e-4 and err * 10 < err32, (err, err32)
+        assert path.form_launches[name] - before == 2
+        if anti:
+            both = torch.cat([noise, -noise], dim=1)
+            torch.testing.assert_close(
+                path(consts, noise=noise, antithetic=True),
+                path(consts, noise=both), rtol=0, atol=0)
+    quad, table = _policy_table(consts32, want32[: 1 << 14], n_steps)
+    del quad
+    for anti in (False, True):
+        for cv in (False, True):
+            drawn = rows // 2 if anti else rows
+            noise = pc.philox_normals_ref(key, drawn, n_steps, device=cuda)
+            ref = pc.priced_chunk_from_noise_ref(consts, table, noise, 100.0,
+                                                 False, anti, cv)
+            ref = ref if cv else (ref,)
+            for got in (priced(consts, table, 100.0, False, noise=noise,
+                               antithetic=anti, with_cv=cv),
+                        priced(consts, table, 100.0, False, rows=rows,
+                               key=key, antithetic=anti, with_cv=cv)):
+                got = got if cv else (got,)
+                torch.cuda.synchronize()
+                for g, w in zip(got, ref):
+                    assert abs(float(g) / float(w) - 1.0) < 1e-4
+
+
+@pytest.mark.gpu
+def test_bf16_wrappers_refuse_other_constants(cuda):
+    """A bf16 PathConsts whose factor is float32 (or the reverse) raises
+    before any launch; K5, K3, K4 and the quadratic policy refuse bf16
+    constants naming B12."""
+    consts, consts32 = _bf16_consts(96, cuda)
+    bad = dataclasses.replace(consts, lt_half=consts32.lt_half)
+    with pytest.raises(ValueError, match="bfloat16"):
+        pc.pathgen(bad, rows=64, key=1)
+    bad = dataclasses.replace(consts32, lt_half=consts.lt_half)
+    with pytest.raises(ValueError, match="float32"):
+        ptc.tiled_pathgen(bad, rows=64, key=1)
+    tables = torch.zeros((2, 8, 96), device=cuda)
+    with pytest.raises(NotImplementedError, match="B12"):
+        cc.priced_chain(consts, tables, False, rows=64, key=1)
+    with pytest.raises(NotImplementedError, match="B12"):
+        pc.priced_chunk(consts, tables[0], 100.0, False, rows=64, key=1,
+                        policy_form="quadratic")
+
+
+@pytest.mark.gpu
+def test_bf16_engine_on_the_card(cuda):
+    """StreamConfig(fgn_matmul_dtype="bfloat16") prices through K1/bf16 and
+    K2/bf16 at 96 steps and K6/bf16 and K7/bf16 at 400, launching no other
+    form, each within 1e-4 of its plain versions on the same fits."""
+    for n, family, path, priced in (
+            (96, "single", pc.pathgen, pc.priced_chunk),
+            (400, "tiled", ptc.tiled_pathgen, ptc.tiled_priced_chunk)):
+        for fn in (path, priced):
+            fn.form_launches = dict.fromkeys(fn.form_launches, 0)
+        cfg = engine.StreamConfig(n_paths=2 << 14, n_steps=n,
+                                  chunk_paths=1 << 14, pilot_paths=1 << 14,
+                                  dt=DT, fgn_matmul_dtype="bfloat16")
+        pricer = engine.StreamingPricer(**MARKET, rho=0.0, strike=100.0,
+                                        maturity=n * DT, is_call=False,
+                                        config=cfg, device=cuda)
+        assert pricer.kernel_family == family
+        fits = pricer.fit(engine._pilot_stream_keys(3)[0])
+        price = pricer.price_with_fit(fits, 3)
+        assert path.form_launches == dict(
+            dict.fromkeys(path.form_launches, 0), bf16=1)
+        assert priced.form_launches == dict(
+            dict.fromkeys(priced.form_launches, 0), bf16=2)
+        table = pricer._make_rows(fits)
+        _, (run, start) = engine._pilot_stream_keys(3)
+        total = sum(float(pc.priced_chunk_from_noise_ref(
+            pricer.consts, table, pc.philox_normals_ref(
+                pc._fold_words(run, start + i), 1 << 14, n, device=cuda),
+            100.0, False)) for i in range(2))
+        assert abs(price / (total / (2 << 14)) - 1.0) < 1e-4
+
+
+@pytest.mark.gpu
+def test_roofline_probes_match_plain_versions(cuda):
+    """P1/normals in its four variants against its plain version: the
+    column sums of 1024 normals a plane pair, to 4e-5 a normal (float32
+    sums in another order; expf, logf, sinf, cosf of the card and of
+    PyTorch differ by an ulp), where a wrong counter moves a sum by ~30;
+    P1/matmul in float32 and bf16 on the identity and a random
+    orthogonal B against its plain version after 3 steps, float32 to 1e-5
+    and bf16 to 2e-3 of the largest column sum (a value on a rounding tie
+    of the tensor cores' sums may round to the other bf16 neighbour)."""
+    from montecarlooptionspricer_tpu_torch import roofline as rl
+
+    key = 11
+    for unroll, with_exp, fma in ((1, False, 0), (3, False, 0),
+                                  (1, True, 0), (1, False, rl.FMA_CHAIN)):
+        got = rl.normals(key, 3, 2, unroll, with_exp, fma, device=cuda)
+        want = rl.normals_ref(key, 3, 2, unroll, with_exp, fma, device=cuda)
+        torch.cuda.synchronize()
+        assert got.shape == (3, 512)
+        assert float((got - want).abs().max()) < 4e-5 * 1024 * unroll
+    for b in (torch.eye(384, device=cuda), rl.orthogonal(384).to(cuda)):
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-3)):
+            bb = b.to(dtype).contiguous()
+            got = rl.matmul(key, bb, 2, 3)
+            want = rl.matmul_ref(key, bb, 2, 3)
+            torch.cuda.synchronize()
+            assert got.shape == (2, 384)
+            assert float((got - want).abs().max()) <= \
+                tol * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_pad", [128, 512])
+def test_roofline_matmul_long_chain(cuda, s_pad):
+    """P1/matmul through 30 dependent steps (k 10, unroll 3) on a random
+    orthogonal B, one and four column tiles, against its plain version,
+    to ``roofline.chain_atol``: float32 within the random walk of two
+    summation orders, bf16 within that of two independent roundings."""
+    from montecarlooptionspricer_tpu_torch import roofline as rl
+
+    key, grid, k, unroll = 5, 3, 10, 3
+    b = rl.orthogonal(s_pad, seed=1).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        bb = b.to(dtype).contiguous()
+        got = rl.matmul(key, bb, grid, k, unroll)
+        want = rl.matmul_ref(key, bb, grid, k, unroll)
+        torch.cuda.synchronize()
+        assert got.shape == (grid, s_pad)
+        assert float((got - want).abs().max()) <= rl.chain_atol(
+            dtype == torch.bfloat16, k * unroll, float(want.abs().max()))
