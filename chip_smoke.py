@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
-per source, all started together), holds each kernel against its plain
-PyTorch version at its path's shapes, and drives full-width
+per build unit, all started together; the ``build`` line gives each
+unit's seconds), holds each kernel against its plain PyTorch version at
+its path's shapes, and drives full-width
 fit-then-stream runs through the kernels, each with the launch counts set
 to 0 just before it and read just after:
 
@@ -115,6 +116,25 @@ to 0 just before it and read just after:
   stderr of ``price_long``; ``price_bf16[_long]_{anti,cv,anti_cv}`` and
   ``price_bf16[_long]_bounds_anti`` run each estimator form and the
   paired bounds (K1/bf16/anti, K6/bf16/anti) on 16 chunks;
+* the bf16 forms of K8/K9, of the spectral bodies of K1/K2 and K6/K7,
+  and of the quadratic bodies of K2/K7/K9 (``bf16_later_phases``):
+  ``bf16_factored_forms`` (K8/bf16 and its pair at 1825 and 4000 steps,
+  paths 5e-4 and 10x closer to the bf16 plain version, the four-step
+  split, than to the float32 FFT; K9/bf16's four boundary forms at 4000),
+  ``bf16_spectral_forms`` (K1/K2 at 365, K6/K7 at 1825, every form),
+  ``bf16_quadratic_forms`` (K2 and K7 chol and spectral, K9), each
+  against its plain version and timed; the prices ``price_bf16_xlong``
+  (1e7 x 4000 through K8/bf16 once and K9/bf16 76 times, its first 8
+  chunks against the plain versions, within 5 combined stderr of
+  ``price_xlong``), ``price_bf16_spectral`` (1e7 x 365, within 5
+  combined stderr of ``price_spectral``), ``price_bf16_spectral_slab``
+  (1825, 16 chunks) and ``price_bf16_quadratic`` (1e7 x 365 within 1e-4
+  of ``price_bf16`` on the same seed), each family's estimator forms
+  (``..._anti``, ``..._cv``, ``price_bf16_xlong_vr`` and
+  ``..._anti_cv``), paired bounds (``..._bounds_anti``) and quadratic
+  runs (``..._quadratic[_cv]``, ``price_bf16_quadratic_long[_cv]``) on 16
+  chunks under the policy of the same pilot, each launching only its
+  bf16 forms;
 * P1 (``roofline``): the normals probe in its four variants and the
   matmul probe in float32 and bf16, on the identity and a random
   orthogonal B, against their plain versions, then the card's rates
@@ -265,6 +285,8 @@ QUAD_LOWER_RTOL = 1e-5
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# K8/K9's stage-1 DFT length (N1 = 128, one step tile).
+LANE_1 = 128
 
 # The bf16 fGN-input forms: the long price's plain-version check streams
 # this many chunks, and their estimator prices and paired bounds stream
@@ -275,6 +297,30 @@ BF16_FORM_CHECKED = 4
 # A bf16 path form must lie this many times closer to the bf16 plain
 # version than to the float32 one (the discriminating check).
 BF16_CLOSER = 10.0
+# The bf16 forms of K8/K9, of the spectral bodies and of the quadratic
+# bodies: the 4000-step price checks its first BF16_XLONG_CHECKED chunks
+# against the plain versions; the prices past the bench horizon other than
+# it (each with a pilot fit of seconds) stream BF16_CUT_CHUNKS chunks.
+BF16_XLONG_CHECKED = 8
+BF16_CUT_CHUNKS = 16
+
+# The bf16 forms of slice 11, by kernel: (kernel, JAX file:line of the
+# bf16 body, forms).
+BF16_LATER_FORMS = (
+    (1, "pathgen_pallas.py:142", ("/spectral", "/spectral/anti")),
+    (2, "pathgen_pallas.py:142",
+     ("/spectral", "/spectral/anti", "/spectral/cv", "/spectral/anti+cv",
+      "/quad", "/quad/cv", "/spectral/quad", "/spectral/quad/cv")),
+    (6, "pathgen_pallas_tiled.py:308", ("/spectral", "/spectral/anti")),
+    (7, "pathgen_pallas_tiled.py:435",
+     ("/spectral", "/spectral/anti", "/spectral/cv", "/spectral/anti+cv",
+      "/quad", "/quad/cv", "/spectral/quad", "/spectral/quad/cv")),
+    (8, "pathgen_pallas_factored.py:158", ("", "/anti")),
+    (9, "pathgen_pallas_factored.py:158",
+     ("", "/anti", "/cv", "/anti+cv", "/quad", "/quad/cv")))
+CSRC_OF = {1: "pathgen.cu", 2: "pathgen.cu", 6: "pathgen_tiled.cu",
+           7: "pathgen_tiled.cu", 8: "pathgen_factored.cu",
+           9: "pathgen_factored.cu"}
 
 REPLACES = {
     "pathgen": "montecarlooptionspricer_tpu/models/pathgen_pallas.py:522",
@@ -377,6 +423,11 @@ REPLACES = {
     **{f"K7/bf16{f}":
        "montecarlooptionspricer_tpu/models/pathgen_pallas_tiled.py:435"
        for f in ("", "/anti", "/cv", "/anti+cv")},
+    # The bf16 forms of the spectral and quadratic bodies (the same bf16
+    # product and bf16 noise tiles, on Zr and Zi) and of K8/K9 (_stage1 on
+    # bf16 a and F1).
+    **{f"K{k}/bf16{f}": f"montecarlooptionspricer_tpu/models/{src}"
+       for k, src, forms in BF16_LATER_FORMS for f in forms},
     # P1: the roofline probes.
     "P1/normals": "parity/vpu_roofline.py:110",
     "P1/matmul": "parity/vpu_roofline.py:177",
@@ -427,6 +478,9 @@ SOURCES = {
            (6, "pathgen_tiled.cu", ("", "/anti")),
            (7, "pathgen_tiled.cu", ("", "/anti", "/cv", "/anti+cv")))
        for f in forms},
+    **{f"K{k}/bf16{f}":
+       f"montecarlooptionspricer_tpu_torch/csrc/{CSRC_OF[k]}"
+       for k, _, forms in BF16_LATER_FORMS for f in forms},
     "P1/normals": "montecarlooptionspricer_tpu_torch/csrc/roofline.cu",
     "P1/matmul": "montecarlooptionspricer_tpu_torch/csrc/roofline.cu",
 }
@@ -477,6 +531,13 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def plain_time(torch, fn, reps: int) -> float:
+    """A plain version's ms: the mean of ``reps`` runs after a warm run,
+    or with one rep a single run (the checks just ran it at this shape,
+    so nothing is cold)."""
+    return time_ms(torch, fn, reps, warmup=1 if reps > 1 else 0)
 
 
 def bound_ms(rows: int, n: int, out_bytes: int, products: int = 1,
@@ -612,12 +673,14 @@ def scaled_err(torch, got, want) -> float:
 
 
 def device_launches(torch, fn) -> int:
-    """Device kernels that fn() launches, from a torch.profiler trace."""
+    """Device kernels that fn() launches, from a torch.profiler trace of
+    the device activity alone (host operators are not recorded: they do
+    not count here, and recording tens of thousands of them costs seconds
+    a trace)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return sum(1 for e in prof.events()
@@ -967,23 +1030,13 @@ def long_horizon_phases(torch, pc, ptc, engine, smi, dev, key, rel_err,
     check(err_k6_k1 <= PATH_RTOL, "seeded K6 and K1 draw different paths")
     del one, tiled, mid
 
-    # The full-width long-horizon price, through K6 and K7.
+    # The full-width long-horizon price, through K6 and K7: price()'s
+    # fit and stream on one pilot, timed apart on the host clock.
     reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    price, stderr = pricer.price(SEED, with_stderr=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    fits, price, stderr, fit_s, stream_s = fit_and_price(torch, engine,
+                                                         pricer)
     launches = read_counts()
-    # Host-clock split: pilot + fit, then the stream.
-    t0 = time.perf_counter()
-    fits = pricer.fit(engine._pilot_stream_keys(SEED)[0])
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pricer.price_with_fit(fits, SEED)
-    torch.cuda.synchronize()
-    stream_s = time.perf_counter() - t0
+    wall = fit_s + stream_s
     fits_finite = all(bool(torch.isfinite(t).all()) for t in fits)
     checked = pricer.price_with_fit(fits, SEED,
                                     n_paths=LONG_CHECKED * CHUNK)
@@ -1098,8 +1151,8 @@ def long_horizon_phases(torch, pc, ptc, engine, smi, dev, key, rel_err,
 
 def factored_bound_ms(rows: int, n: int, out_bytes: int,
                       policy_rows: int = 0, antithetic: bool = False,
-                      with_cv: bool = False,
-                      quad_cells: int = 0) -> tuple[float, str]:
+                      with_cv: bool = False, quad_cells: int = 0,
+                      bf16: bool = False) -> tuple[float, str]:
     """Least time for one K8/K9 launch at this shape: the larger of the
     bytes that must move (the spectral diagonal [m2] complex, vd and
     ``policy_rows`` rows of [n] read once, the output written once; the
@@ -1111,25 +1164,44 @@ def factored_bound_ms(rows: int, n: int, out_bytes: int,
     quadratic policy tests (``quad_cells``).  The kernels' dense 128-point
     stage 1 and N2-point stage 2 (8 N2 128^2 + 4 N2 s_pad per path, 19
     times the FFT's count at m2 4096) are the TPU's choice of algorithm,
-    not what the function needs, so they do not set the bound."""
+    not what the function needs, so they do not set the bound.  Under
+    ``bf16`` the FFT's first log2(128) = 7 radix-2 stages (stage 1's
+    128-point DFTs, 5 m2 7 operations a path) run on bf16 inputs, so
+    they go over the dense bf16 tensor-core peak and the rest over the
+    float32 peak, and the bf16 F1 (two [128, 128] planes at 2 bytes) is
+    read once."""
     m2 = 1 << (n - 1).bit_length()
-    bytes_ = 4 * (2 * m2 + (1 + policy_rows) * n) + out_bytes
+    bytes_ = (4 * (2 * m2 + (1 + policy_rows) * n) + out_bytes
+              + (2 * 2 * LANE_1 * LANE_1 if bf16 else 0))
     drawn = rows // 2 if antithetic else rows
-    flops = (drawn * (5.0 * m2 * math.log2(m2) + 6.0 * n)
+    stage1 = drawn * 5.0 * m2 * math.log2(LANE_1) if bf16 else 0.0
+    flops = (drawn * (5.0 * m2 * math.log2(m2) + 6.0 * n) - stage1
              + rows * (8.0 * n + (2.0 if with_cv else 0.0))
              + QUAD_CELL_OPS * quad_cells)
-    t_bytes, t_ops = bytes_ / PEAK_BYTES, flops / PEAK_F32_FLOPS
+    t_bytes = bytes_ / PEAK_BYTES
+    t_ops = flops / PEAK_F32_FLOPS + stage1 / PEAK_BF16_FLOPS
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
 
 
+def fit_and_price(torch, engine, pricer, n_paths=None) -> tuple:
+    """price()'s two stages timed apart on one pilot: fit() on SEED's
+    pilot key, then price_with_fit() (what price(SEED) runs, so the price
+    is price()'s).  Returns (fits, price, stderr, fit_s, stream_s)."""
+    fits, fit_s = timed(
+        torch, lambda: pricer.fit(engine._pilot_stream_keys(SEED)[0]))
+    (price, stderr), stream_s = timed(torch, lambda: pricer.price_with_fit(
+        fits, SEED, n_paths, with_stderr=True))
+    return fits, price, stderr, fit_s, stream_s
+
+
 def factored_price_phase(torch, engine, smi, dev, name: str,
                          n_steps: int, cfg_kw: dict, reset_counts,
                          read_counts):
-    """One full-width price through the factored family: price() with the
-    launch counts read around it, then fit and stream timed apart.
-    Returns (pricer, fits, price, stderr, the phase's record)."""
+    """One full-width price through the factored family: price()'s fit
+    and stream (``fit_and_price``) with the launch counts read around
+    them.  Returns (pricer, fits, price, stderr, the phase's record)."""
     maturity = n_steps * DT
     cfg = engine.StreamConfig(n_paths=CHUNK * XLONG_CHUNKS, n_steps=n_steps,
                               chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
@@ -1140,12 +1212,10 @@ def factored_price_phase(torch, engine, smi, dev, name: str,
     check(pricer.kernel_family == "factored",
           f"{name}: {n_steps} steps resolved to {pricer.kernel_family!r}")
     reset_counts()
-    (price, stderr), wall = timed(
-        torch, lambda: pricer.price(SEED, with_stderr=True))
+    fits, price, stderr, fit_s, stream_s = fit_and_price(torch, engine,
+                                                         pricer)
     launches = read_counts()
-    fits, fit_s = timed(
-        torch, lambda: pricer.fit(engine._pilot_stream_keys(SEED)[0]))
-    _, stream_s = timed(torch, lambda: pricer.price_with_fit(fits, SEED))
+    wall = fit_s + stream_s
     n_paths = CHUNK * XLONG_CHUNKS
     record = {"phase": name, "card": smi, "n_paths": n_paths,
               "n_steps": n_steps, "maturity": maturity, **cfg_kw,
@@ -1322,16 +1392,18 @@ def lanes(out, with_cv: bool) -> tuple:
 
 def forms_phase(torch, pc, smi, name: str, kernel: str, priced, chunk_ref,
                 consts, table, normals, key, library, bound,
-                spectral: bool = False, bf16: bool = False) -> dict:
+                spectral: bool = False, bf16: bool = False,
+                plain_reps: int = 2) -> dict:
     """One priced kernel's three estimator forms (and, ``spectral`` or
     ``bf16``, its plain form too, all in the spectral fGN form or the bf16
     fGN-input form) at the bench chunk: each
     against its plain version on the seeded stream and on noise (both
     lanes within SUM_RTOL), paired against its unpaired form on the
     concatenated negated noise (PAIR_RTOL), then timed beside its plain
-    version, the library yardstick ``library(antithetic)`` and its bound
-    ``bound(antithetic, with_cv)`` = (ms, by).  Returns the forms' numbers
-    keyed kernel/form."""
+    version (``plain_time`` over ``plain_reps`` runs), the library
+    yardstick ``library(antithetic)`` and its bound ``bound(antithetic,
+    with_cv)`` = (ms, by).  Returns the forms' numbers keyed
+    kernel/form."""
     out, checks = {}, []
     for anti, cv in ((((False, False),) if spectral or bf16 else ())
                      + FORMS):
@@ -1372,7 +1444,7 @@ def forms_phase(torch, pc, smi, name: str, kernel: str, priced, chunk_ref,
 
         b_ms, b_by = bound(anti, cv)
         out[form] = {"ms": time_ms(torch, run, 5),
-                     "plain_ms": time_ms(torch, plain, 2),
+                     "plain_ms": plain_time(torch, plain, plain_reps),
                      "library_ms": library(anti), "bound_ms": b_ms,
                      "bound_by": b_by,
                      "max_abs_err": max(abs(g - w)
@@ -1389,14 +1461,15 @@ def vr_price_phase(torch, pc, engine, smi, dev, name: str, kernel: str,
                    n_chunks: int = N_CHUNKS) -> dict:
     """One full-width price in an estimator ``form`` (StreamConfig's
     antithetic and control_variate, and any other StreamConfig field it
-    names, e.g. fgn_form): price() with the launch counts read around it
-    (the plain ``pilot`` kernel once, the form ``n_chunks`` times), the
-    stream timed alone, the first 8 chunks against the plain versions under
-    the same fits (and beta and centre), and the price against the plain
-    estimator's ``plain`` = (price, stderr, stream seconds) of the same
-    seed: within 5 combined stderr, with the variance ratio
-    (se_plain / se)^2 > 1 and the ratio per stream second.  Returns the
-    form's key, its launches in price() and (price, stderr)."""
+    names, e.g. fgn_form): price()'s fit and stream (``fit_and_price``)
+    with the launch counts read around them (the plain ``pilot`` kernel
+    once, the form ``n_chunks`` times), the first 8 chunks against the
+    plain versions under the same fits (and beta and centre), and the
+    price against the plain estimator's ``plain`` = (price, stderr,
+    stream seconds) of the same seed: within 5 combined stderr, with the
+    variance ratio (se_plain / se)^2 > 1 and the ratio per stream second.
+    Returns the form's key, its launches in price() and (price,
+    stderr)."""
     anti = form.get("antithetic", False)
     cv = form.get("control_variate", False)
     spectral = form.get("fgn_form") == "spectral"
@@ -1408,11 +1481,10 @@ def vr_price_phase(torch, pc, engine, smi, dev, name: str, kernel: str,
                                     maturity=n_steps * DT, is_call=IS_CALL,
                                     config=cfg, device=dev)
     reset_counts()
-    (price, stderr), wall = timed(
-        torch, lambda: pricer.price(SEED, with_stderr=True))
+    fits, price, stderr, fit_s, stream_s = fit_and_price(torch, engine,
+                                                         pricer)
     launches = read_counts()
-    fits = pricer.fit(engine._pilot_stream_keys(SEED)[0])
-    _, stream_s = timed(torch, lambda: pricer.price_with_fit(fits, SEED))
+    wall = fit_s + stream_s
     checked = pricer.price_with_fit(fits, SEED, n_paths=LONG_CHECKED * CHUNK)
     checked_plain = plain_stream_mean(pc, engine, pricer, fits, SEED,
                                       LONG_CHECKED, STRIKE, normals,
@@ -1469,15 +1541,6 @@ def estimator_phases(torch, pc, ptc, pfc, engine, smi, dev, key, pricer,
             return ms
         return library
 
-    def fft_ms(n):
-        def library(anti):
-            a = torch.randn((CHUNK // 2 if anti else CHUNK,
-                             pfc.fgn.next_pow2(n)), dtype=torch.complex64,
-                            device=dev)
-            ms = time_ms(torch, lambda: torch.fft.fft(a, dim=1), reps=10)
-            del a
-            return ms
-        return library
 
     def table_of(n):
         return engine._fused_rows_builder(MARKET["r"], STRIKE, n * DT, DT, n,
@@ -1512,7 +1575,8 @@ def estimator_phases(torch, pc, ptc, pfc, engine, smi, dev, key, pricer,
         "K9", "factored_pathgen", XLONG_STEPS, "k9_forms",
         pfc.factored_priced_chunk, pfc.factored_priced_chunk_from_noise_ref,
         c9, pfc.philox_factored_normals_ref,
-        fft_ms(XLONG_STEPS),
+        lambda anti, lib=fft_library(torch, XLONG_STEPS, dev): lib(
+            CHUNK // 2 if anti else CHUNK),
         lambda anti, cv: factored_bound_ms(
             CHUNK, XLONG_STEPS, 4 * (2 if cv else 1)
             * ((CHUNK // 2 if anti else CHUNK)
@@ -2307,10 +2371,12 @@ def spectral_path_forms(torch, pc, smi, dev, key, rel_err, kernel: str,
 
 def spectral_library(torch, consts, dev):
     """rows -> ms of the spectral form's yardstick: two torch.matmul,
-    [rows, n] x Cr' and [rows, n] x Ci', float32 (TF32 off)."""
+    [rows, n] x Cr' and [rows, n] x Ci', in the matrices' dtype (float32
+    with TF32 off, or bf16 inputs with float32 sums)."""
     def library(rows):
-        a = torch.randn((rows, consts.n_steps), device=dev)
-        b = torch.randn((rows, consts.n_steps), device=dev)
+        dtype = consts.cr_half.dtype
+        a = torch.randn((rows, consts.n_steps), device=dev).to(dtype)
+        b = torch.randn((rows, consts.n_steps), device=dev).to(dtype)
         ms = time_ms(torch, lambda: (torch.matmul(a, consts.cr_half),
                                      torch.matmul(b, consts.ci_half)),
                      reps=10)
@@ -2319,21 +2385,32 @@ def spectral_library(torch, consts, dev):
     return library
 
 
+def fft_library(torch, n: int, dev):
+    """rows -> ms of K8/K9's yardstick: torch.fft.fft of a [rows, m2]
+    complex64 plane (the synthesis alone)."""
+    def library(rows):
+        a = torch.randn((rows, 1 << (n - 1).bit_length()),
+                        dtype=torch.complex64, device=dev)
+        ms = time_ms(torch, lambda: torch.fft.fft(a, dim=1), reps=10)
+        del a
+        return ms
+    return library
+
+
 def spectral_price_phase(torch, pc, engine, smi, name: str, pricer, pilot,
                          form: str, n_chunks: int, chunk_ref, ref: tuple,
                          ref_name: str, reset_counts, read_counts) -> dict:
-    """One spectral price: price() with the launch counts read around it
-    (``pilot`` once, ``form`` n_chunks times), fit and stream timed apart,
-    its first LONG_CHECKED chunks against the plain versions under the
-    same fits, and the price within STDERR_SIGMAS combined stderr of
-    ``ref`` = (price, stderr) of the same law.  Returns the record."""
-    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    """One spectral price: price()'s fit and stream (``fit_and_price``)
+    with the launch counts read around them (``pilot`` once, ``form``
+    n_chunks times), its first LONG_CHECKED chunks against the plain
+    versions under the same fits, and the price within STDERR_SIGMAS
+    combined stderr of ``ref`` = (price, stderr) of the same law.
+    Returns the record."""
     reset_counts()
-    (price, stderr), wall = timed(
-        torch, lambda: pricer.price(SEED, with_stderr=True))
+    fits, price, stderr, fit_s, stream_s = fit_and_price(torch, engine,
+                                                         pricer)
     launches = read_counts()
-    fits, fit_s = timed(torch, lambda: pricer.fit(k_pilot))
-    _, stream_s = timed(torch, lambda: pricer.price_with_fit(fits, SEED))
+    wall = fit_s + stream_s
     checked = pricer.price_with_fit(fits, SEED, n_paths=LONG_CHECKED * CHUNK)
     checked_plain = plain_stream_mean(
         pc, engine, pricer, fits, SEED, LONG_CHECKED, STRIKE,
@@ -2623,7 +2700,8 @@ def spectral_phases(torch, pc, cc, ptc, engine, smi, dev, key, rel_err,
     of the factored K9 price refs["price_factored"], the same law) and
     its estimator forms at SPECTRAL_SLAB_FORM_CHUNKS chunks
     (``price_spectral_slab_*``), and ``bounds_spectral``.  Returns the
-    spectral forms' entries of the kernels line."""
+    spectral forms' entries of the kernels line and price_spectral's
+    (price, stderr)."""
     import dataclasses
 
     base = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
@@ -2727,17 +2805,22 @@ def spectral_phases(torch, pc, cc, ptc, engine, smi, dev, key, rel_err,
           "(the drawn rows' spectral fGN products)", "kernels": times})
     return [kernel_record(form, launches, t["ms"], t["plain_ms"],
                           t["bound_ms"], t["bound_by"], t["max_abs_err"],
-                          t["library_ms"]) for form, t in times.items()]
+                          t["library_ms"]) for form, t in times.items()], \
+        price_spectral
 
 
 def quad_forms_phase(torch, pc, smi, kernel: str, priced, chunk_ref,
                      consts, table, normals, key, library, bound, log_paths,
-                     spectral: bool = False) -> dict:
-    """``quadratic_forms``: one priced kernel's quadratic form, plain and
-    CV, at the bench chunk of 131072 rows under the policy_rows ``table``:
+                     spectral: bool = False, bf16: bool = False,
+                     phase: str = "quadratic_forms",
+                     plain_reps: int = 2) -> dict:
+    """``phase``: one priced kernel's quadratic form (``bf16``: its bf16
+    form), plain and CV, at the bench chunk of 131072 rows under the
+    policy_rows ``table``:
     each lane against its plain version, seeded and on noise (SUM_RTOL),
-    then timed beside its plain version, the library yardstick
-    ``library()`` and its bound ``bound(with_cv, cells)`` = (ms, by),
+    then timed beside its plain version (``plain_time`` over
+    ``plain_reps`` runs), the library yardstick ``library()`` and its
+    bound ``bound(with_cv, cells)`` = (ms, by),
     ``cells`` the cells the policy tests on this noise (each path up to
     its first hit, from ``log_paths(consts, noise)``).  Returns the forms'
     numbers keyed kernel/form."""
@@ -2748,7 +2831,7 @@ def quad_forms_phase(torch, pc, smi, kernel: str, priced, chunk_ref,
     cells = int((first + 1).sum())
     del first
     for cv in (False, True):
-        form = f"{kernel}/{pc.form_name(False, cv, spectral, True)}"
+        form = f"{kernel}/{pc.form_name(False, cv, spectral, True, bf16)}"
         kw = dict(with_cv=cv, policy_form="quadratic")
         want = lanes(chunk_ref(consts, table, noise, STRIKE, IS_CALL, False,
                                cv, "quadratic"), cv)
@@ -2774,14 +2857,15 @@ def quad_forms_phase(torch, pc, smi, kernel: str, priced, chunk_ref,
 
         b_ms, b_by = bound(cv, cells)
         out[form] = {"ms": time_ms(torch, run, 5),
-                     "plain_ms": time_ms(torch, plain, 2),
+                     "plain_ms": plain_time(torch, plain, plain_reps),
                      "library_ms": library(), "bound_ms": b_ms,
                      "bound_by": b_by,
                      "max_abs_err": max(abs(g - w)
                                         for g, w in zip(got_s, want))}
     del noise
-    emit({"phase": "quadratic_forms", "card": smi, "kernel": kernel,
+    emit({"phase": phase, "card": smi, "kernel": kernel,
           "fgn_form": getattr(consts, "fgn_form", "spectral"),
+          "fgn_matmul_dtype": consts.fgn_dtype,
           "rows": CHUNK, "n_steps": consts.n_steps, "policy_cells": cells,
           "checks": checks, "times": out, "rtol": SUM_RTOL})
     return out
@@ -3021,12 +3105,6 @@ def quadratic_phases(torch, pc, cc, ptc, pfc, engine, smi, dev, key,
             return ms
         return library
 
-    def fft_ms():
-        a = torch.randn((CHUNK, pfc.fgn.next_pow2(XLONG_STEPS)),
-                        dtype=torch.complex64, device=dev)
-        ms = time_ms(torch, lambda: torch.fft.fft(a, dim=1), reps=10)
-        del a
-        return ms
 
     for f, consts in single.items():
         spec = f == "spectral"
@@ -3060,7 +3138,7 @@ def quadratic_phases(torch, pc, cc, ptc, pfc, engine, smi, dev, key,
         table_of(XLONG_STEPS, refs["xlong_fits"]),
         lambda k, rows: pfc.philox_factored_normals_ref(k, rows, XLONG_STEPS,
                                                         device=dev),
-        key, fft_ms,
+        key, lambda: fft_library(torch, XLONG_STEPS, dev)(CHUNK),
         lambda cv, cells: factored_bound_ms(
             CHUNK, XLONG_STEPS, 4 * (2 if cv else 1)
             * (CHUNK // pfc.paths_per_block(XLONG_STEPS)), policy_rows=8,
@@ -3184,27 +3262,39 @@ def bf16_library(torch, consts, dev):
 
 
 def bf16_path_forms(torch, pc, smi, dev, key, kernel: str, wrapper, consts,
-                    consts32, library) -> dict:
-    """``kernel``/bf16 and its pair form at the bench chunk of 131072 rows:
-    paths elementwise against the bf16 plain version, seeded and on noise
-    (PATH_RTOL), and BF16_CLOSER times closer to it than to the float32
-    plain version on the same noise (the discriminating check); the pair
-    form against the unpaired kernel on the concatenated [X; -X] noise
-    (PATH_PAIR_RTOL); then each timed beside its plain version, the bf16
-    product's yardstick ``library(rows)`` and its bound.  Returns their
-    numbers keyed by form."""
+                    consts32, library, phase: str = "bf16_forms",
+                    spectral: bool = False, normals=None, ref=None,
+                    rtol: float = PATH_RTOL, bound=None,
+                    plain_reps: int = 2) -> dict:
+    """``kernel``/bf16 (``spectral``: ``kernel``/bf16/spectral) and its pair
+    form at the bench chunk of 131072 rows: paths elementwise against the
+    bf16 plain version ``ref`` (default K1's), seeded and on the noise of
+    ``normals(key, rows)`` (default K1/K2's stream) within ``rtol``, and
+    BF16_CLOSER times closer to it than to the float32 plain version on
+    the same noise (the discriminating check); the pair form against the
+    unpaired kernel on the concatenated [X; -X] noise (PATH_PAIR_RTOL);
+    then each timed beside its plain version, the bf16 product's
+    yardstick ``library(rows)`` and its bound ``bound(antithetic)``
+    (default the single tile's chol bound); the plain version's time is
+    the mean of ``plain_reps`` runs (``plain_time``).  Emits ``phase``;
+    returns their numbers keyed by form."""
     n, out, checks = consts.n_steps, {}, []
+    ref = ref or pc.pathgen_from_noise_ref
+    normals = normals or (lambda k, rows: pc.philox_normals_ref(
+        k, rows, n, device=dev))
+    bound = bound or (lambda anti: bound_ms(
+        CHUNK, n, 4 * CHUNK * (n + 1), antithetic=anti, bf16=True))
     for anti in (False, True):
-        form = f"{kernel}/{pc.form_name(anti, bf16=True)}"
+        form = f"{kernel}/{pc.form_name(anti, spectral=spectral, bf16=True)}"
         drawn = CHUNK // 2 if anti else CHUNK
-        noise = pc.philox_normals_ref(key, drawn, n, device=dev)
-        want = pc.pathgen_from_noise_ref(consts, noise, anti)
+        noise = normals(key, drawn)
+        want = ref(consts, noise, anti)
         got = wrapper(consts, rows=CHUNK, key=key, antithetic=anti)
         torch.cuda.synchronize()
         finite = bool(torch.isfinite(got).all())
         err_s = float(torch.max(torch.abs(got - want) / want))
         abs_s = float(torch.max(torch.abs(got - want)))
-        want32 = pc.pathgen_from_noise_ref(consts32, noise, anti)
+        want32 = ref(consts32, noise, anti)
         err_32 = float(torch.max(torch.abs(got - want32) / want32))
         del got, want32
         got = wrapper(consts, noise=noise, antithetic=anti)
@@ -3222,7 +3312,7 @@ def bf16_path_forms(torch, pc, smi, dev, key, kernel: str, wrapper, consts,
                        "noise_in_rel_err": err_n,
                        "float32_plain_rel_err": err_32,
                        "pair_rel_err": err_pair})
-        check(finite and err_s <= PATH_RTOL and err_n <= PATH_RTOL,
+        check(finite and err_s <= rtol and err_n <= rtol,
               f"{form} disagrees with its plain version")
         check(err_s * BF16_CLOSER <= err_32,
               f"{form} is not {BF16_CLOSER}x closer to the bf16 plain "
@@ -3235,18 +3325,16 @@ def bf16_path_forms(torch, pc, smi, dev, key, kernel: str, wrapper, consts,
             wrapper(consts, rows=CHUNK, key=key, antithetic=anti)
 
         def plain(anti=anti, drawn=drawn):
-            pc.pathgen_from_noise_ref(consts, pc.philox_normals_ref(
-                key, drawn, n, device=dev), anti)
+            ref(consts, normals(key, drawn), anti)
 
-        b_ms, b_by = bound_ms(CHUNK, n, 4 * CHUNK * (n + 1),
-                              antithetic=anti, bf16=True)
+        b_ms, b_by = bound(anti)
         out[form] = {"ms": time_ms(torch, run, 5),
-                     "plain_ms": time_ms(torch, plain, 2),
+                     "plain_ms": plain_time(torch, plain, plain_reps),
                      "library_ms": library(drawn), "bound_ms": b_ms,
                      "bound_by": b_by, "max_abs_err": abs_s}
-    emit({"phase": "bf16_forms", "card": smi, "kernel": kernel,
+    emit({"phase": phase, "card": smi, "kernel": kernel,
           "rows": CHUNK, "n_steps": n, "checks": checks, "times": out,
-          "rtol": PATH_RTOL, "closer_than_float32": BF16_CLOSER,
+          "rtol": rtol, "closer_than_float32": BF16_CLOSER,
           "pair_rtol": PATH_PAIR_RTOL})
     return out
 
@@ -3254,74 +3342,105 @@ def bf16_path_forms(torch, pc, smi, dev, key, kernel: str, wrapper, consts,
 def bf16_price_phase(torch, pc, engine, lsm_fit, smi, name: str, pricer,
                      pilot: str, form: str, n_checked: int, chunk_ref,
                      ref: tuple, ref_name: str, reset_counts,
-                     read_counts) -> dict:
-    """One full-width bf16 price: the pilot fit and the stream (76 chunks)
+                     read_counts, normals=None, fits=None,
+                     rtol: float = 0.0) -> dict:
+    """One bf16 price: the pilot fit and the stream (the pricer's chunks)
     timed apart with the launch counts read around both (``pilot`` once,
-    ``form`` 76 times, nothing else); against the plain versions (the
+    ``form`` once a chunk, nothing else); against the plain versions (the
     whole price, pilot included, when ``n_checked`` is N_CHUNKS; else the
-    first n_checked chunks under the same fits) within SUM_RTOL, and within
-    STDERR_SIGMAS combined stderr of the float32 price ``ref`` = (price,
-    stderr) on the same seed.  Returns the record with the fits."""
+    first n_checked chunks under the same fits, on the stream of
+    ``normals``, default K1/K2's) within SUM_RTOL, and within
+    STDERR_SIGMAS combined stderr of ``ref`` = (price, stderr) on the
+    same seed (with ``rtol``: within rtol of it, relative).  Given
+    ``fits`` (another run's policy from the same pilot: same seed,
+    family, fGN form and dtype; a CVFit under the control variate) it
+    streams under them and ``pilot`` is not launched.  Returns the record
+    with the fits."""
     k_pilot = engine._pilot_stream_keys(SEED)[0]
+    n_chunks = pricer.config.n_paths // CHUNK
+    reused = fits is not None
     reset_counts()
-    fits, fit_s = timed(torch, lambda: pricer.fit(k_pilot))
+    if not reused:
+        fits, fit_s = timed(torch, lambda: pricer.fit(k_pilot))
     (price, stderr), stream_s = timed(
         torch, lambda: pricer.price_with_fit(fits, SEED, with_stderr=True))
     launches = read_counts()
-    wall = fit_s + stream_s
-    if n_checked == N_CHUNKS:
+    fit_s = None if reused else fit_s
+    wall = stream_s + (fit_s or 0.0)
+    if n_checked == N_CHUNKS and not reused:
         checked, plain = price, plain_price(pc, engine, lsm_fit, pricer,
                                             SEED)
     else:
         checked = pricer.price_with_fit(fits, SEED,
                                         n_paths=n_checked * CHUNK)
-        plain = plain_stream_mean(pc, engine, pricer, fits, SEED, n_checked,
-                                  STRIKE, chunk_ref=chunk_ref)
+        plain = plain_stream_mean(
+            pc, engine, pricer, fits, SEED, n_checked, STRIKE,
+            normals=normals, chunk_ref=chunk_ref,
+            antithetic=pricer.config.antithetic,
+            with_cv=pricer.config.control_variate)
     rel = abs(checked / plain - 1.0)
     sigmas = abs(price - ref[0]) / math.hypot(stderr, ref[1])
-    n_paths = CHUNK * N_CHUNKS
+    ref_rel = abs(price / ref[0] - 1.0)
+    n_paths = CHUNK * n_chunks
     rec = {"phase": name, "card": smi, "n_paths": n_paths,
            "n_steps": pricer.config.n_steps, "fgn_matmul_dtype": "bfloat16",
+           "fgn_form": pricer.config.fgn_form,
+           "policy_form": pricer.config.policy_form,
            "kernel_family": pricer.kernel_family, "price": price,
            "stderr": stderr, "wall_s": wall, "paths_per_s": n_paths / wall,
-           "fit_s": fit_s, "stream_s": stream_s, "launches": launches,
+           "fit_s": fit_s, "stream_s": stream_s,
+           "fits_of_another_run": reused, "launches": launches,
            "checked_chunks": n_checked, "checked_price": checked,
            "checked_plain_price": plain, "checked_rel_err": rel,
            "rtol": SUM_RTOL, ref_name: ref[0], f"{ref_name}_stderr": ref[1],
            "combined_stderrs_apart": sigmas, "limit": STDERR_SIGMAS}
+    if rtol:
+        rec.update(ref_rel_err=ref_rel, limit=rtol)
+    reduced = {}
     if n_checked != N_CHUNKS:
-        rec["reduced"] = {"checked_chunks": {"from": N_CHUNKS,
-                                             "to": n_checked}}
+        reduced["checked_chunks"] = {"from": N_CHUNKS, "to": n_checked}
+    if n_chunks != N_CHUNKS:
+        reduced["n_chunks"] = {"from": N_CHUNKS, "to": n_chunks}
+    if reduced:
+        rec["reduced"] = reduced
     emit(rec)
-    check(launches == expected_counts(**{pilot: 1, form: N_CHUNKS}),
-          f"{name} launches {launches}, want {pilot} once and {form} "
-          f"{N_CHUNKS} times and nothing else")
+    want = {form: n_chunks, **({} if reused else {pilot: 1})}
+    check(launches == expected_counts(**want),
+          f"{name} launches {launches}, want {want} and nothing else")
     check(math.isfinite(price) and 0.0 < price < STRIKE,
           f"{name} price {price} outside (0, strike)")
     check(math.isfinite(stderr) and 0.0 < stderr < 0.01 * price,
           f"{name} stderr {stderr} implausible")
     check(rel <= SUM_RTOL, f"{name} disagrees with the plain path")
-    check(sigmas <= STDERR_SIGMAS,
-          f"{name} is {sigmas:.2f} combined stderr from {ref_name}")
+    if rtol:
+        check(ref_rel <= rtol,
+              f"{name} is {ref_rel:.2e} from {ref_name} on the same seed")
+    else:
+        check(sigmas <= STDERR_SIGMAS,
+              f"{name} is {sigmas:.2f} combined stderr from {ref_name}")
     return {**rec, "fits": fits}
 
 
 def bf16_estimator_phases(torch, pc, engine, smi, dev, kernel: str,
                           path_kernel: str, base, fits, chunk_ref, prefix,
-                          reset_counts, read_counts) -> dict:
-    """The bf16 forms of the estimators on BF16_FORM_CHUNKS chunks: each
-    VR form's price (``price_with_fit`` on the plain pilot's ``fits``; the
-    control variate's beta and centre from one CV fit of the same pilot)
-    with its launches read around it (the form BF16_FORM_CHUNKS times,
-    nothing else), its first BF16_FORM_CHECKED chunks against the plain
-    versions, within STDERR_SIGMAS combined stderr of the plain bf16 price
-    on the same chunks, with a variance ratio > 1; then the paired bounds
-    (``bounds_fit`` with the pilot kernel once, ``path_kernel``/bf16/anti
-    BF16_FORM_CHUNKS times), an ordered bracket.  Returns the forms'
-    launches."""
+                          reset_counts, read_counts, normals=None,
+                          spectral: bool = False, bounds: bool = True,
+                          m: int = BF16_FORM_CHUNKS,
+                          both_name: str = "anti_cv") -> tuple:
+    """The bf16 forms of the estimators on ``m`` chunks: each VR form's
+    price (``price_with_fit`` on the plain pilot's ``fits``; the control
+    variate's beta and centre from one CV fit of the same pilot) with its
+    launches read around it (the form m times, nothing else), its first
+    BF16_FORM_CHECKED chunks against the plain versions (on the stream of
+    ``normals``, default K1/K2's), within STDERR_SIGMAS combined stderr
+    of the plain bf16 price on the same chunks, with a variance ratio > 1;
+    then, with ``bounds``, the paired bounds (``bf16_bounds_phase``).
+    ``spectral`` names the spectral forms' keys; the paired CV form's
+    phase ends in ``both_name``.  Returns (the forms' launches, the CV
+    fit, the plain bf16 price on the m chunks as (price, stderr, stream
+    seconds))."""
     import dataclasses
 
-    m = BF16_FORM_CHUNKS
     n = base.n_steps
     cfg = dataclasses.replace(base, n_paths=m * CHUNK, chunks_per_call=m)
 
@@ -3342,7 +3461,7 @@ def bf16_estimator_phases(torch, pc, engine, smi, dev, kernel: str,
     for suffix, form in VR_FORMS:
         anti = form.get("antithetic", False)
         cv = form.get("control_variate", False)
-        key = f"{kernel}/{pc.form_name(anti, cv, bf16=True)}"
+        key = f"{kernel}/{pc.form_name(anti, cv, spectral, bf16=True)}"
         pricer = pricer_of(**form)
         f = cv_fit if cv else fits
         reset_counts()
@@ -3353,13 +3472,16 @@ def bf16_estimator_phases(torch, pc, engine, smi, dev, kernel: str,
                                         n_paths=BF16_FORM_CHECKED * CHUNK)
         checked_plain = plain_stream_mean(
             pc, engine, pricer, f, SEED, BF16_FORM_CHECKED, STRIKE,
-            chunk_ref=chunk_ref, antithetic=anti, with_cv=cv)
+            normals=normals, chunk_ref=chunk_ref, antithetic=anti,
+            with_cv=cv)
         rel = abs(checked / checked_plain - 1.0)
         sigmas = abs(price - p_plain) / math.hypot(stderr, se_plain)
         ratio = (se_plain / stderr) ** 2
-        name = f"{prefix}_{suffix}"
+        name = f"{prefix}_{both_name if anti and cv else suffix}"
         emit({"phase": name, "card": smi, "n_paths": m * CHUNK,
               "n_steps": n, **form, "fgn_matmul_dtype": "bfloat16",
+              "fgn_form": base.fgn_form, "tiled_impl": base.tiled_impl,
+              "kernel_family": pricer.kernel_family,
               "price": price, "stderr": stderr, "stream_s": stream_s,
               "paths_per_s": m * CHUNK / stream_s, "launches": counts,
               "beta": cv_fit.beta if cv else None,
@@ -3383,9 +3505,29 @@ def bf16_estimator_phases(torch, pc, engine, smi, dev, kernel: str,
         check(ratio > 1.0, f"{name}: variance ratio {ratio} <= 1")
         launches[key] = counts[key]
         del pricer
+    if bounds:
+        launches.update(bf16_bounds_phase(
+            torch, pc, engine, smi, dev, path_kernel, cfg, prefix, spectral,
+            reset_counts, read_counts))
+    return launches, cv_fit, (p_plain, se_plain, stream_plain)
 
-    pricer = pricer_of(antithetic=True)
-    pair = f"{path_kernel}/bf16/anti"
+
+def bf16_bounds_phase(torch, pc, engine, smi, dev, path_kernel: str, cfg,
+                      prefix: str, spectral: bool, reset_counts,
+                      read_counts) -> dict:
+    """``{prefix}_bounds_anti``: the paired bounds of ``cfg`` (its chunks)
+    in the bf16 form, ``bounds_fit`` with the pilot kernel once and
+    ``path_kernel``/bf16[/spectral]/anti once a chunk, nothing else, an
+    ordered bracket.  Returns the pair form's launches."""
+    import dataclasses
+
+    m, n = cfg.n_paths // CHUNK, cfg.n_steps
+    pricer = engine.StreamingPricer(
+        **MARKET, strike=STRIKE, maturity=n * DT, is_call=IS_CALL,
+        config=dataclasses.replace(cfg, antithetic=True), device=dev)
+    pilot = (f"{path_kernel}/"
+             f"{pc.form_name(False, spectral=spectral, bf16=True)}")
+    pair = f"{path_kernel}/{pc.form_name(True, spectral=spectral, bf16=True)}"
     reset_counts()
     fit, fit_s = timed(torch, lambda: pricer.bounds_fit(
         engine._pilot_stream_keys(SEED)[0]))
@@ -3395,18 +3537,19 @@ def bf16_estimator_phases(torch, pc, engine, smi, dev, kernel: str,
     counts = read_counts()
     emit({"phase": f"{prefix}_bounds_anti", "card": smi,
           "n_paths": m * CHUNK, "n_steps": n, "antithetic": True,
-          "fgn_matmul_dtype": "bfloat16", "lower": lo, "upper": up,
+          "fgn_matmul_dtype": "bfloat16", "fgn_form": cfg.fgn_form,
+          "tiled_impl": cfg.tiled_impl,
+          "kernel_family": pricer.kernel_family, "lower": lo, "upper": up,
           "lower_stderr": lo_se, "upper_stderr": up_se,
           "duality_gap": up - lo, "fit_s": fit_s, "stream_s": stream_s,
           "paths_per_s": m * CHUNK / (fit_s + stream_s),
           "launches": counts,
           "reduced": {"n_chunks": {"from": N_CHUNKS, "to": m}}})
-    check(counts == expected_counts(**{f"{path_kernel}/bf16": 1, pair: m}),
+    check(counts == expected_counts(**{pilot: 1, pair: m}),
           f"{prefix}_bounds_anti launches {counts}")
     check(math.isfinite(lo) and math.isfinite(up) and lo <= up,
           f"{prefix}_bounds_anti: [{lo}, {up}] is not an ordered bracket")
-    launches[pair] = counts[pair]
-    return launches
+    return {pair: counts[pair]}
 
 
 def bf16_phases(torch, pc, ptc, engine, lsm_fit, smi, dev, key,
@@ -3422,7 +3565,8 @@ def bf16_phases(torch, pc, ptc, engine, lsm_fit, smi, dev, key,
     the plain versions, within 5 combined stderr of refs["price_long"]);
     then each horizon's estimator forms and paired bounds on
     BF16_FORM_CHUNKS chunks.  Returns (the forms' kernel records, their
-    times keyed by form)."""
+    times keyed by form, each price's (price, stderr), fits and CV fit
+    keyed by phase name)."""
     import dataclasses
 
     base = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
@@ -3430,7 +3574,7 @@ def bf16_phases(torch, pc, ptc, engine, lsm_fit, smi, dev, key,
                                chunks_per_call=N_CHUNKS,
                                fgn_matmul_dtype="bfloat16")
     k_pilot = engine._pilot_stream_keys(SEED)[0]
-    times, launches = {}, {}
+    times, launches, runs = {}, {}, {}
     horizons = (
         (N_STEPS, MATURITY, "single", "K1", "K2", pc.pathgen,
          pc.priced_chunk, pc.priced_chunk_from_noise_ref, "price_bf16",
@@ -3475,13 +3619,305 @@ def bf16_phases(torch, pc, ptc, engine, lsm_fit, smi, dev, key,
         for form in (f"{k_path}/bf16", f"{k_priced}/bf16"):
             launches[form] = rec["launches"][form]
         del pricer
-        launches.update(bf16_estimator_phases(
+        form_launches, cv_fit, _ = bf16_estimator_phases(
             torch, pc, engine, smi, dev, k_priced, k_path, cfg, rec["fits"],
-            chunk_ref, name, reset_counts, read_counts))
+            chunk_ref, name, reset_counts, read_counts)
+        launches.update(form_launches)
+        runs[name] = {"price": (rec["price"], rec["stderr"]),
+                      "fits": rec["fits"], "cv_fit": cv_fit}
     records = [kernel_record(form, launches, t["ms"], t["plain_ms"],
                              t["bound_ms"], t["bound_by"], t["max_abs_err"],
                              t["library_ms"]) for form, t in times.items()]
-    return records, times
+    return records, times, runs
+
+
+def bf16_later_phases(torch, pc, ptc, pfc, engine, lsm_fit, smi, dev, key,
+                      refs: dict, reset_counts, read_counts) -> list:
+    """The bf16 forms of K8/K9, of the spectral bodies of K1/K2 and K6/K7
+    and of the quadratic bodies of K2/K7/K9, each against its plain
+    version (seeded and on noise), timed beside its yardstick and bound,
+    and each launched on a price path:
+
+    * ``bf16_factored_forms``: K8/bf16 and its pair at 1825 and 4000
+      steps (paths FACTORED_PATH_RTOL and BF16_CLOSER times closer to the
+      bf16 plain version, the four-step split, than to the float32 one,
+      the FFT), K9/bf16's four boundary forms at 4000 under
+      refs["xlong_fits"]; ``price_bf16_xlong`` 1e7 x 4000 (K8/bf16 once,
+      K9/bf16 76 times, its first BF16_XLONG_CHECKED chunks against the
+      plain versions, within 5 combined stderr of refs["price_xlong"]);
+      ``price_bf16_xlong_{anti,cv,vr}`` on BF16_CUT_CHUNKS chunks;
+      ``price_bf16_factored_bounds_anti`` (K8/bf16/anti at 1825 steps on
+      the factored family);
+    * ``bf16_spectral_forms``: K1/K2 at 365 steps, K6/K7 at 1825, in every
+      form; ``price_bf16_spectral`` (1e7 x 365, within 5 combined stderr
+      of refs["price_spectral"]), ``price_bf16_spectral_slab`` (1825,
+      BF16_CUT_CHUNKS chunks, within 5 combined stderr of
+      refs["price_factored"], the same law), each with its estimator
+      forms and paired bounds on BF16_CUT_CHUNKS chunks;
+    * ``bf16_quadratic_forms``: K2/bf16 chol and spectral at 365, K7/bf16
+      likewise at 1825, K9/bf16 at 4000, quadratic plain and CV;
+      ``price_bf16_quadratic`` (1e7 x 365 within SUM_RTOL of
+      refs["price_bf16"] on the same seed) and the quadratic prices of
+      every other bf16 family on BF16_CUT_CHUNKS chunks, each under the
+      policy (and CV fit) of the same pilot's boundary run.
+
+    Each price reads its launch counts around it: only its bf16 forms
+    ran.  Returns the 28 forms' entries of the kernels line."""
+    import dataclasses
+    import functools
+
+    m = BF16_CUT_CHUNKS
+    base = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
+                               chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                               chunks_per_call=N_CHUNKS,
+                               fgn_matmul_dtype="bfloat16")
+    market = [MARKET[k] for k in ("s0", "xi", "h", "eta", "r")]
+    times, launches = {}, {}
+
+    def cfg_of(n, n_chunks=N_CHUNKS, **kw):
+        return dataclasses.replace(base, n_steps=n, n_paths=n_chunks * CHUNK,
+                                   chunks_per_call=n_chunks, **kw)
+
+    def pricer_of(cfg):
+        return engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                      maturity=cfg.n_steps * DT,
+                                      is_call=IS_CALL, config=cfg,
+                                      device=dev)
+
+    def table_of(n, fits, policy_form="boundary"):
+        return engine._fused_rows_builder(MARKET["r"], STRIKE, n * DT, DT, n,
+                                          IS_CALL, policy_form)(fits)
+
+    def quad_runs(names, n, cfg_kw, priced, spectral, pilot_fits, cv_fit,
+                  ref, normals, chunk_ref):
+        """The quadratic runs ``names`` = (plain or None, CV) on m chunks
+        under the boundary run's policy and CV fit of the same pilot (no
+        pilot launched), within 5 combined stderr of ``ref`` = that run's
+        plain price on the same chunks; returns the quadratic forms'
+        launches."""
+        out = {}
+        for name, cv, fits in zip(names, (False, True),
+                                  (pilot_fits, cv_fit)):
+            if name is None:
+                continue
+            pricer = pricer_of(cfg_of(n, m, policy_form="quadratic",
+                                      control_variate=cv, **cfg_kw))
+            form = f"{priced}/{pc.form_name(False, cv, spectral, True, True)}"
+            rec = bf16_price_phase(
+                torch, pc, engine, lsm_fit, smi, name, pricer, None, form,
+                BF16_FORM_CHECKED,
+                functools.partial(chunk_ref, policy_form="quadratic"), ref[:2],
+                f"boundary_bf16_{m}_chunks", reset_counts, read_counts,
+                normals=normals, fits=fits)
+            out[form] = rec["launches"][form]
+            del pricer
+        return out
+
+    # -- K8/K9: the forms, then the 4000-step price and its estimators.
+    fc = {n: pfc.make_factored_consts(*market, n, DT, dev,
+                                      fgn_dtype="bfloat16")
+          for n in FACTORED_STEPS}
+    for n in FACTORED_STEPS:
+        fc32 = pfc.make_factored_consts(*market, n, DT, dev)
+        t = bf16_path_forms(
+            torch, pc, smi, dev, key, "K8", pfc.factored_pathgen, fc[n],
+            fc32, fft_library(torch, n, dev), phase="bf16_factored_forms",
+            normals=lambda k, rows, n=n: pfc.philox_factored_normals_ref(
+                k, rows, n, device=dev),
+            ref=pfc.factored_pathgen_from_noise_ref,
+            rtol=FACTORED_PATH_RTOL,
+            bound=lambda anti, n=n: factored_bound_ms(
+                CHUNK, n, 4 * CHUNK * (n + 1), antithetic=anti, bf16=True),
+            plain_reps=1)
+        if n == XLONG_STEPS:
+            times.update(t)
+        del fc32
+    xn = XLONG_STEPS
+    x_normals = functools.partial(pfc.philox_factored_normals_ref, n_steps=xn,
+                                  device=dev)
+    lib = fft_library(torch, xn, dev)
+    times.update(forms_phase(
+        torch, pc, smi, "bf16_factored_forms", "K9",
+        pfc.factored_priced_chunk, pfc.factored_priced_chunk_from_noise_ref,
+        fc[xn], table_of(xn, refs["xlong_fits"]),
+        lambda k, rows: x_normals(k, rows), key,
+        lambda anti: lib(CHUNK // 2 if anti else CHUNK),
+        lambda anti, cv: factored_bound_ms(
+            CHUNK, xn, 4 * (2 if cv else 1)
+            * ((CHUNK // 2 if anti else CHUNK) // pfc.paths_per_block(xn)),
+            policy_rows=3, antithetic=anti, with_cv=cv, bf16=True),
+        bf16=True, plain_reps=1))
+    times.update(quad_forms_phase(
+        torch, pc, smi, "K9", pfc.factored_priced_chunk,
+        pfc.factored_priced_chunk_from_noise_ref, fc[xn],
+        table_of(xn, refs["xlong_fits"], "quadratic"),
+        lambda k, rows: x_normals(k, rows), key, lambda: lib(CHUNK),
+        lambda cv, cells: factored_bound_ms(
+            CHUNK, xn, 4 * (2 if cv else 1) * (CHUNK // pfc.paths_per_block(
+                xn)), policy_rows=8, with_cv=cv, quad_cells=cells,
+            bf16=True),
+        pfc._log_paths_ref, bf16=True, phase="bf16_quadratic_forms",
+        plain_reps=1))
+    del fc
+    cfg = cfg_of(xn)
+    pricer = pricer_of(cfg)
+    check(pricer.kernel_family == "factored" and pricer.consts.bf16,
+          f"bf16 at {xn} steps resolved to {pricer.kernel_family!r}")
+    rec = bf16_price_phase(
+        torch, pc, engine, lsm_fit, smi, "price_bf16_xlong", pricer,
+        "K8/bf16", "K9/bf16", BF16_XLONG_CHECKED,
+        pfc.factored_priced_chunk_from_noise_ref, refs["price_xlong"],
+        "price_xlong_float32", reset_counts, read_counts,
+        normals=pfc.philox_factored_normals_ref)
+    launches.update({f: rec["launches"][f] for f in ("K8/bf16", "K9/bf16")})
+    del pricer
+    form_launches, cv_fit, plain_m = bf16_estimator_phases(
+        torch, pc, engine, smi, dev, "K9", "K8", cfg, rec["fits"],
+        pfc.factored_priced_chunk_from_noise_ref, "price_bf16_xlong",
+        reset_counts, read_counts, normals=pfc.philox_factored_normals_ref,
+        bounds=False, m=m, both_name="vr")
+    launches.update(form_launches)
+    launches.update(quad_runs(
+        ("price_bf16_xlong_quadratic", "price_bf16_xlong_quadratic_cv"), xn,
+        {}, "K9", False, rec["fits"], cv_fit, plain_m,
+        pfc.philox_factored_normals_ref,
+        pfc.factored_priced_chunk_from_noise_ref))
+    # The paired bounds on K8/bf16/anti, at 1825 steps on the factored
+    # family (its pilot fits in a third of the 4000-step time).
+    launches.update(bf16_bounds_phase(
+        torch, pc, engine, smi, dev, "K8",
+        cfg_of(LONG_STEPS, m, tiled_impl="factored"),
+        "price_bf16_factored", False, reset_counts, read_counts))
+
+    # -- The spectral bodies: K1/K2 at 365 steps, K6/K7 on the slab at
+    # 1825, each price first, then its forms under the price's fits, its
+    # estimators, bounds and quadratic runs.
+    spectral_normals = pc.philox_spectral_normals_ref
+    for (n, n_chunks, cfg_kw, k_path, k_priced, path, priced, chunk_ref,
+         name, ref, ref_name, blocks) in (
+            (N_STEPS, N_CHUNKS, {"fgn_form": "spectral"}, "K1", "K2",
+             pc.pathgen, pc.priced_chunk, pc.priced_chunk_from_noise_ref,
+             "price_bf16_spectral", refs["price_spectral"],
+             "price_spectral_float32",
+             lambda c, anti, cv: CHUNK // pc.priced_block_paths(
+                 c, CHUNK, anti, cv)),
+            (LONG_STEPS, m, {"fgn_form": "spectral", "tiled_impl": "slab"},
+             "K6", "K7", ptc.tiled_pathgen, ptc.tiled_priced_chunk,
+             ptc.priced_chunk_from_noise_ref, "price_bf16_spectral_slab",
+             refs["price_factored"], "price_factored_float32",
+             lambda c, anti, cv: CHUNK // ptc.block_paths_for(CHUNK, anti))):
+        cfg = cfg_of(n, n_chunks, **cfg_kw)
+        pricer = pricer_of(cfg)
+        consts = pricer.consts
+        check(consts.spectral and consts.bf16,
+              f"{name}: the constants are not the bf16 spectral form's")
+        pilot = f"{k_path}/bf16/spectral"
+        rec = bf16_price_phase(
+            torch, pc, engine, lsm_fit, smi, name, pricer, pilot,
+            f"{k_priced}/bf16/spectral", LONG_CHECKED, chunk_ref, ref,
+            ref_name, reset_counts, read_counts, normals=spectral_normals)
+        launches.update({f: rec["launches"][f] for f in (
+            pilot, f"{k_priced}/bf16/spectral")})
+        del pricer
+        consts32 = pc.make_path_consts(*market, n, DT, dev,
+                                       block_paths=consts.block_paths,
+                                       fgn_form="spectral")
+        lib = spectral_library(torch, consts, dev)
+        s_normals = functools.partial(spectral_normals, n_steps=n,
+                                      device=dev)
+        times.update(bf16_path_forms(
+            torch, pc, smi, dev, key, k_path, path, consts, consts32, lib,
+            phase="bf16_spectral_forms", spectral=True,
+            normals=lambda k, rows, f=s_normals: f(k, rows),
+            bound=lambda anti, n=n: bound_ms(
+                CHUNK, n, 4 * CHUNK * (n + 1), antithetic=anti,
+                spectral=True, bf16=True), plain_reps=1))
+        del consts32
+        times.update(forms_phase(
+            torch, pc, smi, "bf16_spectral_forms", k_priced, priced,
+            chunk_ref, consts, table_of(n, rec["fits"]),
+            lambda k, rows, f=s_normals: f(k, rows), key,
+            lambda anti, lib=lib: lib(CHUNK // 2 if anti else CHUNK),
+            lambda anti, cv, n=n, c=consts, b=blocks: bound_ms(
+                CHUNK, n, 4 * (2 if cv else 1) * b(c, anti, cv),
+                antithetic=anti, with_cv=cv, spectral=True, bf16=True),
+            spectral=True, bf16=True, plain_reps=1))
+        times.update(quad_forms_phase(
+            torch, pc, smi, k_priced, priced, chunk_ref, consts,
+            table_of(n, rec["fits"], "quadratic"),
+            lambda k, rows, f=s_normals: f(k, rows), key,
+            lambda lib=lib: lib(CHUNK),
+            lambda cv, cells, n=n, c=consts, b=blocks: bound_ms(
+                CHUNK, n, 4 * (2 if cv else 1) * b(c, False, cv),
+                policy_rows=8, with_cv=cv, spectral=True, quad_cells=cells,
+                bf16=True),
+            pc._log_paths_ref, True, bf16=True,
+            phase="bf16_quadratic_forms", plain_reps=1))
+        del consts
+        form_launches, cv_fit, plain_m = bf16_estimator_phases(
+            torch, pc, engine, smi, dev, k_priced, k_path, cfg, rec["fits"],
+            chunk_ref, name, reset_counts, read_counts,
+            normals=spectral_normals, spectral=True, m=m)
+        launches.update(form_launches)
+        launches.update(quad_runs(
+            (f"{name}_quadratic", f"{name}_quadratic_cv"), n, cfg_kw,
+            k_priced, True, rec["fits"], cv_fit, plain_m, spectral_normals,
+            chunk_ref))
+
+    # -- The chol bodies' quadratic forms: K2 at 365, K7 at 1825.
+    for n, k_priced, priced, blocks in (
+            (N_STEPS, "K2", pc.priced_chunk,
+             lambda c, cv: CHUNK // pc.priced_block_paths(c, CHUNK, False,
+                                                          cv)),
+            (LONG_STEPS, "K7", ptc.tiled_priced_chunk,
+             lambda c, cv: CHUNK // ptc.block_paths_for(CHUNK))):
+        consts = pc.make_path_consts(*market, n, DT, dev,
+                                     fgn_dtype="bfloat16")
+        fits = refs["bf16"]["price_bf16" if n == N_STEPS
+                            else "price_bf16_long"]["fits"]
+        lib = bf16_library(torch, consts, dev)
+        times.update(quad_forms_phase(
+            torch, pc, smi, k_priced, priced, pc.priced_chunk_from_noise_ref,
+            consts, table_of(n, fits, "quadratic"),
+            lambda k, rows, n=n: pc.philox_normals_ref(k, rows, n,
+                                                       device=dev),
+            key, lambda lib=lib: lib(CHUNK),
+            lambda cv, cells, n=n, c=consts, b=blocks: bound_ms(
+                CHUNK, n, 4 * (2 if cv else 1) * b(c, cv), policy_rows=8,
+                with_cv=cv, quad_cells=cells, bf16=True),
+            pc._log_paths_ref, bf16=True, phase="bf16_quadratic_forms",
+            plain_reps=1))
+        del consts
+    # price_bf16_quadratic: the whole bench run, pilot included, on the
+    # seed of price_bf16; then its CV form and the slab's quadratic runs
+    # under the policy and CV fit of price_bf16(_long)'s pilot.
+    cfg = cfg_of(N_STEPS, policy_form="quadratic")
+    pricer = pricer_of(cfg)
+    rec = bf16_price_phase(
+        torch, pc, engine, lsm_fit, smi, "price_bf16_quadratic", pricer,
+        "K1/bf16", "K2/bf16/quad", LONG_CHECKED,
+        functools.partial(pc.priced_chunk_from_noise_ref,
+                          policy_form="quadratic"),
+        refs["bf16"]["price_bf16"]["price"], "price_bf16", reset_counts,
+        read_counts, rtol=SUM_RTOL)
+    launches["K2/bf16/quad"] = rec["launches"]["K2/bf16/quad"]
+    del pricer
+    for n, names, k_priced, run in (
+            (N_STEPS, (None, "price_bf16_quadratic_cv"), "K2", "price_bf16"),
+            (LONG_STEPS, ("price_bf16_quadratic_long",
+                          "price_bf16_quadratic_long_cv"), "K7",
+             "price_bf16_long")):
+        bf = refs["bf16"][run]
+        pricer = pricer_of(cfg_of(n, m))
+        plain_m, stream_m = timed(torch, lambda: pricer.price_with_fit(
+            bf["fits"], SEED, with_stderr=True))
+        del pricer
+        launches.update(quad_runs(
+            names, n, {}, k_priced, False, bf["fits"], bf["cv_fit"],
+            (*plain_m, stream_m), None, pc.priced_chunk_from_noise_ref))
+    return [kernel_record(form, launches, t["ms"], t["plain_ms"],
+                          t["bound_ms"], t["bound_by"], t["max_abs_err"],
+                          t["library_ms"]) for form, t in times.items()]
 
 
 def roofline_phase(torch, rl, smi, dev, kernels: list, reset_counts,
@@ -3733,13 +4169,13 @@ def main() -> int:
                            if f != "plain"})
         return counts
 
-    # Phase 1: build.
+    # Phase 1: build, one nvcc per unit, all started together.
     t0 = time.perf_counter()
-    lib_paths, nvcc_s = build.build(verbose=True)
+    lib_paths, nvcc_s, unit_s = build.build(verbose=True)
     build.load()
     torch.cuda.synchronize()
     emit({"phase": "build", "libraries": [p.name for p in lib_paths],
-          "nvcc_wall_s": round(nvcc_s, 3),
+          "nvcc_wall_s": round(nvcc_s, 3), "nvcc_s_per_unit": unit_s,
           "seconds": round(time.perf_counter() - t0, 3)})
 
     cfg = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
@@ -3915,10 +4351,11 @@ def main() -> int:
                                      t["library_ms"]))
 
     # The spectral fGN form of K1/K2, K5 and K6/K7.
-    kernels += spectral_phases(
+    records, price_spectral = spectral_phases(
         torch, pc, cc, ptc, engine, smi, dev, key, rel_err,
         {"price": (price, stderr), "price_factored": factored_long},
         reset_counts, read_counts)
+    kernels += records
 
     # The quadratic exercise-policy forms of K2, K7, K9 and K5.
     kernels += quadratic_phases(
@@ -3931,12 +4368,18 @@ def main() -> int:
          "long_fits": long_fits, "xlong_fits": xlong[0]},
         reset_counts, read_counts)
 
-    # The bf16 fGN-input forms of K1/K2 and K6/K7, then P1.
-    records, _ = bf16_phases(
+    # The bf16 fGN-input forms of K1/K2 and K6/K7; of K8/K9, the spectral
+    # and the quadratic bodies; then P1.
+    records, _, bf16_runs = bf16_phases(
         torch, pc, ptc, engine, lsm_fit, smi, dev, key,
         {"price": (price, stderr), "price_long": (long_price, long_stderr)},
         reset_counts, read_counts)
     kernels += records
+    kernels += bf16_later_phases(
+        torch, pc, ptc, pfc, engine, lsm_fit, smi, dev, key,
+        {"price_xlong": xlong[1:3], "xlong_fits": xlong[0],
+         "price_spectral": price_spectral, "price_factored": factored_long,
+         "bf16": bf16_runs}, reset_counts, read_counts)
     kernels += roofline_phase(torch, rl, smi, dev, kernels, reset_counts,
                               read_counts)
     check(sorted(k["name"] for k in kernels) == sorted(REPLACES),

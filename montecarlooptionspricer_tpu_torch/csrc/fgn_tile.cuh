@@ -15,11 +15,11 @@
 // so X is bitwise the same in all five kernels.
 //
 // The bf16 fGN-input form (BF16; StreamConfig.fgn_matmul_dtype="bfloat16",
-// counterpart _fgn_x with bf16 matrices) keeps the N plane in bf16, each
-// normal rounded to nearest even as it is drawn or read, reads the factor
-// Lt' as bf16 and runs the product on the tensor cores
-// (csrc/mma_bf16.cuh), float32 sums; W stays float32.  It takes one
-// triangular factor and the chol form (NMAT 1, no SPEC).
+// counterpart _fgn_x with bf16 matrices) keeps the N plane (and under SPEC
+// the Zi plane) in bf16, each normal rounded to nearest even as it is
+// drawn or read, reads the factors (Lt', or Cr' and Ci') as bf16 and runs
+// the product on the tensor cores (csrc/mma_bf16.cuh), float32 sums; W
+// stays float32.  It takes one product (NMAT 1).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -68,10 +68,11 @@ __device__ __forceinline__ fgn_elem<BF16> to_fgn_elem(float v) {
   }
 }
 
-// Floats of shared memory the staged factor tiles take.
+// Floats of shared memory the staged factor tiles take (two under SPEC:
+// Cr' and Ci').
 __host__ __device__ constexpr int staged_floats(bool spec, bool bf16) {
-  return bf16 ? kTileCols * kTileKB / 2
-              : (spec ? 2 : 1) * kTileK * kTileCols;
+  return (spec ? 2 : 1) * (bf16 ? kTileCols * kTileKB / 2
+                                : kTileK * kTileCols);
 }
 
 // Floats of shared memory the N plane of bp rows takes.
@@ -84,14 +85,13 @@ __host__ __device__ inline int n_plane_floats(int n, int bp, bool bf16) {
 // [2, rows, n] (N, W), or [3, rows, n] (Zr, Zi, W) under SPEC.  The
 // spectral form's Zr and W are the chol stream's N and W; its Zi comes
 // from the stream's own counter word (spectral_zi_quad).  Under BF16 the
-// N plane is bf16 [BP][plane_ld_bf16(n)], each normal rounded to nearest
-// even, and its columns past n are zero (the tensor-core product reads
-// whole k16 steps).
+// N plane (and Zi under SPEC) is bf16 [BP][plane_ld_bf16(n)], each normal
+// rounded to nearest even, and its columns past n are zero (the
+// tensor-core product reads whole k16 steps).
 template <int BP, bool SEEDED, bool SPEC = false, bool BF16 = false>
 __device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
                            int row0, fgn_elem<BF16>* ns, float* ws,
-                           float* zs = nullptr) {
-  static_assert(!(SPEC && BF16), "the bf16 form is the chol form's");
+                           fgn_elem<BF16>* zs = nullptr) {
   const int ld = plane_ld(n);
   const int ldn = BF16 ? plane_ld_bf16(n) : ld;
   if (SEEDED) {
@@ -115,7 +115,8 @@ __device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
         const float zv[4] = {z.x, z.y, z.z, z.w};
 #pragma unroll
         for (int t = 0; t < 4; ++t)
-          if (4 * q + t < n) zs[p * ld + 4 * q + t] = zv[t];
+          if (4 * q + t < n)
+            zs[p * ldn + 4 * q + t] = to_fgn_elem<BF16>(zv[t]);
       }
     }
   } else {
@@ -124,7 +125,7 @@ __device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
       const int p = idx / n, c = idx - p * n;
       const size_t g = static_cast<size_t>(row0 + p) * n + c;
       ns[p * ldn + c] = to_fgn_elem<BF16>(noise[g]);
-      if (SPEC) zs[p * ld + c] = noise[plane + g];
+      if (SPEC) zs[p * ldn + c] = to_fgn_elem<BF16>(noise[plane + g]);
       ws[p * ld + c] = noise[(SPEC ? 2 : 1) * plane + g];
     }
   }
@@ -133,6 +134,7 @@ __device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
     for (int idx = threadIdx.x; idx < BP * pad; idx += kThreads) {
       const int p = idx / pad;
       ns[p * ldn + n + idx - p * pad] = to_fgn_elem<BF16>(0.0f);
+      if (SPEC) zs[p * ldn + n + idx - p * pad] = to_fgn_elem<BF16>(0.0f);
     }
   }
 }
@@ -144,14 +146,22 @@ __device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
 // Warp w owns columns c0 + 8w .. c0 + 8w + 7 of the tile and all PM m16
 // row groups of the block's D = 16 PM rows; it skips the k16 steps past
 // its last column (Lt' is upper triangular, so they add zeros).
-template <int PM>
-__device__ void fgn_tile_mma(const __nv_bfloat16* lt, int n, int c0,
-                             const __nv_bfloat16* ns, __nv_bfloat16* lts,
+// SPEC: the dense X = Zr @ Cr' - Zi @ Ci' (m0 = Cr', m1 = Ci', Zr in ns and
+// Zi in zs, both bf16 planes): Cr' and Ci' k-tiles staged side by side in
+// lts, every k < n for every column (no triangle skip), and the Zi
+// fragment negated (exact in bf16) so both products add into one float32
+// accumulator.  The planes are zero past n, so the last k16 step adds
+// zeros there.
+template <int PM, bool SPEC = false>
+__device__ void fgn_tile_mma(const __nv_bfloat16* m0, const __nv_bfloat16* m1,
+                             int n, int c0, const __nv_bfloat16* ns,
+                             const __nv_bfloat16* zs, __nv_bfloat16* lts,
                              float* out) {
   const int ldn = plane_ld_bf16(n);
   const int warp = threadIdx.x / 32;
-  const int kmax = min(c0 + kTileCols, n);
-  const int kwarp = min(c0 + 8 * warp + 8, kmax);
+  const int kmax = SPEC ? n : min(c0 + kTileCols, n);
+  const int kwarp = SPEC ? kmax : min(c0 + 8 * warp + 8, kmax);
+  __nv_bfloat16* cts = lts + kTileCols * kTileKB;   // SPEC: Ci' k-tile
   float acc[PM][4];
 #pragma unroll
   for (int i = 0; i < PM; ++i)
@@ -164,21 +174,29 @@ __device__ void fgn_tile_mma(const __nv_bfloat16* lt, int n, int c0,
     for (int idx = threadIdx.x; idx < kTileK * kTileCols; idx += kThreads) {
       const int kk = idx / kTileCols, cc = idx - kk * kTileCols;
       const int c = c0 + cc;
-      lts[cc * kTileKB + kk] =
-          kk < kn && c < n ? lt[static_cast<size_t>(k0 + kk) * n + c]
-                           : __float2bfloat16_rn(0.0f);
+      const bool in = kk < kn && c < n;
+      const size_t g = static_cast<size_t>(k0 + kk) * n + c;
+      const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+      lts[cc * kTileKB + kk] = in ? m0[g] : zero;
+      if (SPEC) cts[cc * kTileKB + kk] = in ? m1[g] : zero;
     }
     __syncthreads();
 #pragma unroll
     for (int ks = 0; ks < kTileK; ks += 16) {
       if (k0 + ks < kwarp) {
-        uint32_t b[2];
+        uint32_t b[2], bi[2];
         load_b_frag(lts, kTileKB, 8 * warp, ks, b);
+        if (SPEC) load_b_frag(cts, kTileKB, 8 * warp, ks, bi);
 #pragma unroll
         for (int i = 0; i < PM; ++i) {
           uint32_t a[4];
           load_a_frag(ns, ldn, 16 * i, k0 + ks, a);
           mma_bf16_16816(acc[i], a, b);
+          if (SPEC) {
+            load_a_frag(zs, ldn, 16 * i, k0 + ks, a);
+            negate_bf16_frag(a);
+            mma_bf16_16816(acc[i], a, bi);
+          }
         }
       }
     }
@@ -200,18 +218,18 @@ __device__ void fgn_tile_mma(const __nv_bfloat16* lt, int n, int c0,
 // - Zi[p, k] m1[k, c], Zr in ns and Zi in zs, m0 = Cr' and m1 = Ci' both
 // staged (2 * kTileK * kTileCols floats).  Cr' and Ci' are dense, so every
 // column tile runs over all n rows: no triangle skip.
-// BF16: the tensor-core product of fgn_tile_mma (m0 = Lt' and ns, lts
-// bf16; m1 and zs unused).
+// BF16: the tensor-core product of fgn_tile_mma (m0 = Lt', or Cr' and
+// m1 = Ci' under SPEC; ns, zs and lts bf16).
 // Ends with the tile written and the block synchronised.
 template <int PM, int NMAT, bool SPEC = false, bool BF16 = false>
 __device__ void fgn_tile(const fgn_elem<BF16>* m0, const fgn_elem<BF16>* m1,
                          int n, int c0, const fgn_elem<BF16>* ns,
                          fgn_elem<BF16>* lts, float* out0, float* out1,
-                         const float* zs = nullptr) {
+                         const fgn_elem<BF16>* zs = nullptr) {
   static_assert(!SPEC || NMAT == 1, "the spectral product has one output");
   if constexpr (BF16) {
-    static_assert(NMAT == 1 && !SPEC, "the bf16 form has one chol factor");
-    fgn_tile_mma<PM>(m0, n, c0, ns, lts, out0);
+    static_assert(NMAT == 1, "the bf16 form has one product");
+    fgn_tile_mma<PM, SPEC>(m0, m1, n, c0, ns, zs, lts, out0);
   } else {
     constexpr int kStaged = SPEC ? 2 : NMAT;   // factor tiles staged
     const float* mats[2] = {m0, m1};
@@ -282,20 +300,19 @@ __device__ void fgn_tile(const fgn_elem<BF16>* m0, const fgn_elem<BF16>* m1,
   }
 }
 
-// Shared memory of the planes (three under the spectral form; N in bf16
-// under the bf16 form), NMAT product tiles, the staged factors (two under
-// the spectral form, one bf16 tile under the bf16 form) and `extra` floats
-// more, for a block of bp paths at horizon n.
+// Shared memory of the planes (three under the spectral form; N, and Zi
+// under the spectral form, in bf16 under the bf16 form), NMAT product
+// tiles, the staged factors (two under the spectral form, in bf16 under
+// the bf16 form) and `extra` floats more, for a block of bp paths at
+// horizon n.
 __host__ __device__ inline int block_smem_bytes(int n, int bp, int nmat,
                                                 int extra,
                                                 bool spec = false,
                                                 bool bf16 = false) {
-  const int staged =
-      bf16 ? staged_floats(false, true) : (spec ? 2 : nmat) * kTileK *
-                                              kTileCols;
-  return 4 * (n_plane_floats(n, bp, bf16) +
-              (spec ? 2 : 1) * bp * plane_ld(n) + nmat * bp * kXStride +
-              staged + extra);
+  const int staged = bf16 || spec ? staged_floats(spec, bf16)
+                                  : nmat * kTileK * kTileCols;
+  return 4 * ((spec ? 2 : 1) * n_plane_floats(n, bp, bf16) +
+              bp * plane_ld(n) + nmat * bp * kXStride + staged + extra);
 }
 
 }  // namespace mcop

@@ -1,7 +1,8 @@
 // The tensor-core product of the bf16 fGN-input forms (K1/K2 in
 // csrc/fgn_tile.cuh; K6/K7 and the P1 matmul probe in
-// csrc/slab_tile.cuh): mma.sync.aligned.m16n8k16 with bf16 inputs and
-// float32 sums (counterpart: jnp.dot(x.astype(bf16), m_bf16,
+// csrc/slab_tile.cuh; K8/K9's stage 1 in csrc/pathgen_factored.cu):
+// mma.sync.aligned.m16n8k16 with bf16 inputs and float32 sums
+// (counterpart: jnp.dot(x.astype(bf16), m_bf16,
 // preferred_element_type=float32) of pathgen_pallas.py:_fgn_x:142).
 //
 // Fragments are read from shared memory with 32-bit loads, two bf16 of one
@@ -61,6 +62,14 @@ __device__ __forceinline__ void load_b_frag(const __nv_bfloat16* bt, int ld,
   const __nv_bfloat16* p = bt + (c0 + g) * ld + k0 + 2 * t;
   f[0] = bf16_pair(p);
   f[1] = bf16_pair(p + 8);
+}
+
+// Negate a fragment (A or B) in place: flip the sign bit of each bf16
+// (exact, so a product by -A is the negated product to the bit).
+template <int N>
+__device__ __forceinline__ void negate_bf16_frag(uint32_t (&f)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) f[i] ^= 0x80008000u;
 }
 
 // Write a 16 x 8 float32 accumulator to out[(r0 + row) * ld + c0 + col].

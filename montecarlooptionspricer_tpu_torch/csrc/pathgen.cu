@@ -12,10 +12,15 @@
 //    _store_priced_log:577) and both (_priced_body:650); the quadratic
 //    policy (QUAD: _priced_body's else branch, _policy_value:277 and
 //    _store_priced:549) plain and with the control variate.
-// Both also run the bf16 fGN-input form of the chol body (BF16, from the
+// Both also run the bf16 fGN-input form of every body (BF16, from the
 //    bf16 flag; StreamConfig.fgn_matmul_dtype="bfloat16", _fgn_x:142 with
-//    the bf16 matrices of _fgn_consts:1359): K1 plain and paired, K2 in
-//    its four boundary forms.
+//    the bf16 matrices of _fgn_consts:1359), chol and spectral: K1 plain
+//    and paired, K2 in its four boundary forms and its two quadratic ones.
+//
+// Build units (csrc/build_unit.cuh): this source is built four times, the
+// float32 and the bf16 bodies, each seeded and noise-in, apart; an entry
+// given a body its unit does not hold (the other dtype's flag, or the
+// other noise source) returns cudaErrorInvalidValue.
 //
 // What they compute, per path p and step column c < n (column c = step c+1):
 //   x_c    = sum_{k <= c} N[p,k] * Lt'[k,c]        (Lt' = 0.5 Lt, upper)
@@ -55,8 +60,9 @@
 // per path (266k at n = 365, four times the triangle): 1.05 ms at 131072
 // paths, 0.53 ms paired.
 // The bf16 form runs the triangle on the tensor cores (989 TFLOP/s dense
-// bf16): 0.02 ms of product at 131072 paths, so the exp, the Box-Muller
-// draws and the serial running sum bound it.
+// bf16): 0.02 ms of product at 131072 paths (the spectral form's two dense
+// products 0.07 ms), so the exp, the Box-Muller draws and the serial
+// running sum bound it.
 //
 // Design:
 // * One block of 256 threads owns BP = 16*PM paths (64, 32 or 16, the
@@ -103,16 +109,20 @@
 //   the float32 W plane, and each warp runs 8 columns of the 64-column
 //   tile as m16n8k16 tensor-core products with float32 sums
 //   (csrc/fgn_tile.cuh:fgn_tile_mma), skipping the k16 steps past its
-//   last column.  The variance exp, the Euler increment, the running sum
-//   and the first-hit test are the float32 form's.  A pair's partner is
-//   -x to the bit, as in the float32 form.  It keeps the float32 form's
-//   path blocks (its planes take less shared memory).
+//   last column.  Under SPEC both Zr and Zi are bf16 planes (zero past
+//   n), Cr' and Ci' k-tiles are staged side by side, and the dense product
+//   runs every k < n with the Zi fragment negated into the one
+//   accumulator.  The variance exp, the Euler increment, the running sum,
+//   the first-hit test and the QUAD policy are the float32 form's.  A
+//   pair's partner is -x to the bit, as in the float32 form.  It keeps
+//   the float32 form's path blocks (its planes take less shared memory).
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise and / stays IEEE
 //   division, so the plain PyTorch versions agree to a few ulp per cell.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "build_unit.cuh"
 #include "fgn_tile.cuh"
 #include "quad_policy.cuh"
 
@@ -124,7 +134,8 @@ struct Args {
   const float* noise;   // [2 or 3, drawn, n] or nullptr (seeded entry)
   const void* lt;       // [n, n] half-scaled factor: Lt' (upper), or Cr';
                         // bf16 under the bf16 form, else float32
-  const float* ci;      // [n, n] Ci' (spectral), or nullptr (chol)
+  const void* ci;       // [n, n] Ci' (spectral, the dtype of lt), or
+                        // nullptr (chol)
   const float* vd;      // [n] half variance drift
   const float* llo;     // [n] log lower bounds (K2)
   const float* lhi;     // [n] log upper bounds (K2)
@@ -172,10 +183,11 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
   using E = fgn_elem<BF16>;
   extern __shared__ float smem[];
   const int n = a.n, ld = a.ld;
+  const int npf = n_plane_floats(n, D, BF16);
   E* ns = reinterpret_cast<E*>(smem);     // [D][ld] N (Zr); bf16: [D][ldn]
-  float* ws = smem + n_plane_floats(n, D, BF16);   // [D][ld]
-  float* zs = ws + D * ld;                // [D][ld] Zi under SPEC
-  float* xs = zs + (SPEC ? D * ld : 0);   // [BP][kXStride]
+  E* zs = reinterpret_cast<E*>(smem + npf);   // the same, Zi under SPEC
+  float* ws = smem + (SPEC ? 2 : 1) * npf;    // [D][ld]
+  float* xs = ws + D * ld;                // [BP][kXStride]
   E* lts = reinterpret_cast<E*>(xs + BP * kXStride);
                                           // [1 or 2][kTileK][kTileCols];
                                           // bf16: [kTileCols][kTileKB]
@@ -200,7 +212,7 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
   for (int c0 = 0; c0 < n; c0 += kTileCols) {
     const int kmax = min(c0 + kTileCols, n);
     fgn_tile<PM, 1, SPEC, BF16>(static_cast<const E*>(a.lt),
-                                reinterpret_cast<const E*>(a.ci), n, c0, ns,
+                                static_cast<const E*>(a.ci), n, c0, ns,
                                 lts, xs, nullptr, zs);
 
     // Variance exp and Euler increment, elementwise over the tile (both
@@ -296,29 +308,29 @@ cudaError_t launch_one(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The seeded or noise-in entry, chol or spectral (from a.ci), or the
-// chol body's bf16 form (a.bf16; boundary policy only).
+// Chol or spectral (from a.ci), in this unit's fGN input dtype.
+template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool QUAD>
+cudaError_t launch_form(const Args& a, cudaStream_t stream) {
+  return a.ci != nullptr
+             ? launch_one<PM, SEEDED, PRICED, ANTI, CV, true, QUAD,
+                          kUnitBf16>(a, stream)
+             : launch_one<PM, SEEDED, PRICED, ANTI, CV, false, QUAD,
+                          kUnitBf16>(a, stream);
+}
+
+// The seeded (noise null) or noise-in entry, where this unit holds it and
+// a.bf16 names its dtype.
 template <int PM, bool PRICED, bool ANTI, bool CV, bool QUAD>
 cudaError_t launch_entry(const Args& a, cudaStream_t stream) {
-  const bool seeded = a.noise == nullptr;
-  if (a.bf16) {
-    if constexpr (QUAD) {
-      return cudaErrorInvalidValue;
-    } else {
-      return seeded ? launch_one<PM, true, PRICED, ANTI, CV, false, false,
-                                 true>(a, stream)
-                    : launch_one<PM, false, PRICED, ANTI, CV, false, false,
-                                 true>(a, stream);
-    }
+  if (a.bf16 != kUnitBf16) return cudaErrorInvalidValue;
+  if (a.noise == nullptr) {
+    if constexpr (kUnitSeeded)
+      return launch_form<PM, true, PRICED, ANTI, CV, QUAD>(a, stream);
+  } else {
+    if constexpr (kUnitNoiseIn)
+      return launch_form<PM, false, PRICED, ANTI, CV, QUAD>(a, stream);
   }
-  if (a.ci != nullptr)
-    return seeded
-               ? launch_one<PM, true, PRICED, ANTI, CV, true, QUAD>(a, stream)
-               : launch_one<PM, false, PRICED, ANTI, CV, true, QUAD>(a,
-                                                                     stream);
-  return seeded
-             ? launch_one<PM, true, PRICED, ANTI, CV, false, QUAD>(a, stream)
-             : launch_one<PM, false, PRICED, ANTI, CV, false, QUAD>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <bool PRICED, bool ANTI, bool CV, bool QUAD = false>
@@ -337,14 +349,13 @@ cudaError_t launch_pm(const Args& a, int pm, cudaStream_t stream) {
 
 // block_paths counts paths (pair members when antithetic): 16, 32 or 64
 // plain, 32, 64 or 128 paired.  The quadratic policy (quad) has no pair
-// form; the bf16 form is the chol body's, boundary policy only.
+// form.
 template <bool PRICED>
 cudaError_t launch(Args a, int block_paths, bool anti, bool cv, bool quad,
                    cudaStream_t stream) {
   const int unit = anti ? 32 : 16;
   if (a.n < 1 || a.rows < 1 || block_paths < unit || block_paths % unit ||
       a.rows % block_paths || (quad && (anti || !PRICED)) ||
-      (a.bf16 && (quad || a.ci != nullptr)) ||
       smem_bytes(a.n, block_paths, anti, cv, a.ci != nullptr, a.bf16) >
           kSmemLimit)
     return cudaErrorInvalidValue;
@@ -368,25 +379,27 @@ cudaError_t launch(Args a, int block_paths, bool anti, bool cv, bool quad,
 extern "C" {
 
 // Shared memory of a K1/K2 block of block_paths paths (pair members when
-// antithetic != 0), the spectral form when spectral != 0.
-int mcop_smem_bytes(int n_steps, int block_paths, int antithetic, int with_cv,
-                    int spectral) {
+// antithetic != 0), the spectral form when spectral != 0, in this unit's
+// fGN input dtype.
+int MCOP_ENTRY(mcop_smem_bytes)(int n_steps, int block_paths, int antithetic,
+                                int with_cv, int spectral) {
   return smem_bytes(n_steps, block_paths, antithetic != 0, with_cv != 0,
-                    spectral != 0);
+                    spectral != 0, kUnitBf16);
 }
 
 // K1.  noise may be null (seeded entry, stream of `key`).  lt is Lt' (chol,
 // ci null) or Cr' (spectral, ci = Ci'); noise is then [2, rows, n_steps]
-// (N, W) or [3, rows, n_steps] (Zr, Zi, W).  bf16 != 0: the bf16 form, lt
-// a bf16 Lt' (chol), noise float32 (N rounded as it is read).  rows counts
-// paths; antithetic != 0 reads (or draws) rows / 2 rows of noise,
-// block_paths counts pair members, and out holds the drawn rows' paths,
-// then their partners'.
-int mcop_pathgen(const float* noise, const void* lt, const float* ci,
-                 const float* vd, int rows, int n_steps, int block_paths,
-                 unsigned int key,
-                 float r, float dt, float sqrt_dt, float log_s0, float s0,
-                 int antithetic, int bf16, float* out, void* stream) {
+// (N, W) or [3, rows, n_steps] (Zr, Zi, W).  bf16 != 0 (the _bf16 units
+// only): the bf16 form, lt and ci bf16, noise float32 (N, and Zi, rounded
+// as they are read).  rows counts paths; antithetic != 0 reads (or draws)
+// rows / 2 rows of noise, block_paths counts pair members, and out holds
+// the drawn rows' paths, then their partners'.
+int MCOP_ENTRY(mcop_pathgen)(const float* noise, const void* lt,
+                             const void* ci, const float* vd, int rows,
+                             int n_steps, int block_paths, unsigned int key,
+                             float r, float dt, float sqrt_dt, float log_s0,
+                             float s0, int antithetic, int bf16, float* out,
+                             void* stream) {
   Args a{};
   a.noise = noise;
   a.lt = lt;
@@ -411,17 +424,17 @@ int mcop_pathgen(const float* noise, const void* lt, const float* ci,
 // K2.  table: rows 0-2 of the log_boundary_rows table, or with
 // quadratic != 0 the eight rows of the policy_rows table (its strike in row
 // 7; `strike` is then not read), row stride table_stride floats.  lt, ci,
-// bf16 and the noise planes as K1's (bf16 not with quadratic).  rows
-// counts paths; antithetic != 0 (not with quadratic) reads (or draws)
-// rows / 2 rows of noise.  out: [rows / block_paths] partial sums, then as
-// many control sums when with_cv != 0.
-int mcop_priced_chunk(const float* noise, const void* lt, const float* ci,
-                      const float* vd, int rows, int n_steps, int block_paths,
-                      unsigned int key, float r, float dt, float sqrt_dt,
-                      float log_s0, const float* table, long long table_stride,
-                      float strike, int is_call, int antithetic, int with_cv,
-                      int quadratic, int bf16, float cv_disc, float* out,
-                      void* stream) {
+// bf16 and the noise planes as K1's.  rows counts paths; antithetic != 0
+// (not with quadratic) reads (or draws) rows / 2 rows of noise.  out:
+// [rows / block_paths] partial sums, then as many control sums when
+// with_cv != 0.
+int MCOP_ENTRY(mcop_priced_chunk)(
+    const float* noise, const void* lt, const void* ci, const float* vd,
+    int rows, int n_steps, int block_paths, unsigned int key, float r,
+    float dt, float sqrt_dt, float log_s0, const float* table,
+    long long table_stride, float strike, int is_call, int antithetic,
+    int with_cv, int quadratic, int bf16, float cv_disc, float* out,
+    void* stream) {
   Args a{};
   a.noise = noise;
   a.lt = lt;

@@ -12,6 +12,17 @@
 //    control variate (_finalize_priced_log) and both; the quadratic policy
 //    (QUAD: _priced_step:300-327's else branch, the policy of
 //    pathgen_pallas_tiled._policy_tile) plain and with the control variate.
+// Both also run the bf16 fGN-input form of every body (BF16, from the
+//    bf16 flag; StreamConfig.fgn_matmul_dtype="bfloat16", _stage1:158 on
+//    bf16 a and F1, pathgen_pallas_factored.py:174-175 and :129-131): the
+//    host rounds F1 to bf16, the kernel rounds a = Z * phi' to bf16, and
+//    stage 1 sums in float32 on the tensor cores; the twiddle, stage 2 and
+//    everything after stay float32.
+//
+// Build units (csrc/build_unit.cuh): this source is built twice, the
+// float32 and the bf16 bodies apart (each with its seeded and noise-in
+// entries); an entry given the other dtype's flag returns
+// cudaErrorInvalidValue.
 //
 // Per path p, with m2 = next_pow2(n), N2 = m2 / 128 and the fGN noise
 // a = Z * phi' stored transposed (column c = 128 k2 + k1 holds frequency
@@ -45,6 +56,10 @@
 // 5 m2 log2 m2 operations per path, 19 times fewer, so the least time is
 // set by K8's prices (2.1 GB, 0.63 ms at 4000 steps) and, for K9, by the
 // FFT's operations (0.59 ms); chip_smoke.py's factored_bound_ms counts it.
+// The bf16 form moves stage 1 (the FFT's first log2(128) of log2(m2)
+// stages) onto the tensor cores at 989 TFLOP/s: stage 1's 8 N2 128^2
+// operations a path become 0.3 ms at 4000 steps, so stage 2, the exp and
+// the scan on the CUDA cores bound it.
 //
 // Design:
 // * Shared memory.  The TPU kept the whole block's twiddled stage-1 output
@@ -90,16 +105,42 @@
 //   fit, and the W draw runs once per pair.  Paired K8 runs the same
 //   passes and writes member q >= P to the partner row `drawn` rows below
 //   drawn row q - P: it takes every horizon the plain K8 takes.
+// * The bf16 form (BF16) runs stage 1 as m16n8k16 tensor-core products
+//   (csrc/mma_bf16.cuh): a = Z * phi' is computed in float32 with every
+//   rounding explicit (the plain version's order) and stored rounded to
+//   nearest even, all 128 k at once, into bf16 rows [64][136] in the S'
+//   region (free until the twiddle; k contiguous, the row stride of 68
+//   words 4 mod 8, so fragment reads are conflict-free), before any sum
+//   is live, so the draws and the 64 accumulators never share registers;
+//   F1's bf16 k-tiles of 32 are stored column by column in region 2,
+//   [128 columns][40], entry (k, m1) at m1 * 40 + k, as the B fragments
+//   read it.  F1 is symmetric, so that index order is the one thing a
+//   check of S cannot see; it follows load_b_frag's layout.  Warp w owns
+//   row group w / 2 (16 stage-1 rows) and the eight 8-column groups of
+//   half w % 2: Sr = Ar F1r + Ai (-F1i) (the negation exact in bf16, and
+//   taken on the B fragment, which is loaded per column group anyway, so
+//   it holds no register across the loop), Si = Ar F1i + Ai F1r, 64
+//   float32 sums a thread.  The twiddle then reads
+//   each sum where the accumulator fragment holds it (rows g and g + 8,
+//   columns 2t and 2t + 1 of each m16n8 tile) and stores S' there, after
+//   a barrier (a lived in S').  The staging (a 34 KB of S' 64 KB, F1 20 KB
+//   of the 32 KB region 2) fits the float32 form's layout, so shared
+//   memory, the block and every horizon to 8,192 stay as they are.
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise so the plain
 //   PyTorch versions agree to a few ulp per cell.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "build_unit.cuh"
+#include "mma_bf16.cuh"
 #include "philox.cuh"
 #include "quad_policy.cuh"
 
 namespace {
+
+using mcop::kUnitBf16;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -113,12 +154,23 @@ constexpr int kStagingFloats = 2 * kTileK * kAStride + 2 * kTileK * kLane;
 constexpr int kIncFloats = kRows * kLane;  // P paths x m2 steps
 constexpr int kRegion2Floats =
     kStagingFloats > kIncFloats ? kStagingFloats : kIncFloats;
+// The bf16 form's staging: a (real, imaginary) [kRows][kAStrideB] for
+// all 128 k in the S' region (free until the twiddle), and F1's k-tiles
+// (real, imaginary) [kLane][kFStrideB] in region 2.  Both strides are 4
+// (mod 8) words: conflict-free fragment reads.
+constexpr int kTileKB = 32;
+constexpr int kAStrideB = kLane + 8;
+constexpr int kFStrideB = kTileKB + 8;
+static_assert(2 * kRows * kAStrideB / 2 <= 2 * kRows * kLane,
+              "the bf16 a must fit the S' region");
+static_assert(2 * kLane * kFStrideB / 2 <= kRegion2Floats,
+              "the bf16 F1 k-tiles must fit region 2");
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
   const float* noise;  // [3, rows, m2], or nullptr for the seeded entry
-  const float* f1r;    // [128, 128] stage-1 DFT matrix
-  const float* f1i;
+  const void* f1r;     // [128, 128] stage-1 DFT matrix (bf16 under the
+  const void* f1i;     // bf16 form, else float32)
   const float* phir;   // [N2, 128] half-scaled diagonal, storage order
   const float* phii;
   const float* twr;    // [N2, 128] twiddle
@@ -137,6 +189,7 @@ struct Args {
   uint32_t key;
   float r, dt, sqrt_dt, log_s0, s0, strike, cv_disc;
   int is_call;
+  bool bf16;           // the bf16 fGN-input form
 };
 
 int next_pow2(int n) {
@@ -192,58 +245,80 @@ __device__ void stage_a(const Args& a, float* asr, float* asi, int k0,
   }
 }
 
-// The Euler log increment of one cell.  Every rounding is explicit (no
-// multiply-add contraction), so a pair's partner (-x, -w) rounds exactly as
-// the unpaired kernel on the negated noise does, in the plain versions'
-// order.
-__device__ __forceinline__ float euler_inc(const Args& a, float x, float w,
-                                           int m) {
-  const float sv = expf(x + __ldg(a.vd + m));
-  const float v = __fmul_rn(sv, sv);
-  return __fadd_rn(__fmul_rn(__fsub_rn(a.r, __fmul_rn(0.5f, v)), a.dt),
-                   __fmul_rn(sv, __fmul_rn(w, a.sqrt_dt)));
+// The bf16 form's a = Z * phi' of one cell: float32, every rounding
+// explicit (the plain version's order), then rounded to bf16.
+__device__ __forceinline__ void store_a_bf16(__nv_bfloat16* abr,
+                                             __nv_bfloat16* abi, int r,
+                                             int k1, float zr, float zi,
+                                             float pr, float pi) {
+  abr[r * kAStrideB + k1] =
+      __float2bfloat16_rn(__fsub_rn(__fmul_rn(zr, pr), __fmul_rn(zi, pi)));
+  abi[r * kAStrideB + k1] =
+      __float2bfloat16_rn(__fadd_rn(__fmul_rn(zr, pi), __fmul_rn(zi, pr)));
 }
 
-// The price Brownian of steps m..m+3 of drawn row `row`.
+// Stage the bf16 a of the block's 64 rows, all 128 k1 (seeded: one
+// Philox call per two columns, as stage_a).
 template <bool SEEDED>
-__device__ __forceinline__ float4 load_w(const Args& a, int row, int m) {
-  if (SEEDED) return mcop::factored_w_quad(a.key, row, m >> 2);
-  const size_t plane = static_cast<size_t>(a.drawn) * a.m2;
-  return __ldg(reinterpret_cast<const float4*>(
-      a.noise + 2 * plane + static_cast<size_t>(row) * a.m2 + m));
+__device__ void stage_a_bf16(const Args& a, __nv_bfloat16* abr,
+                             __nv_bfloat16* abi, int row0) {
+  const int n2 = a.n2;
+  if (SEEDED) {
+    constexpr int kPairs = kLane / 2;
+    for (int idx = threadIdx.x; idx < kRows * kPairs; idx += kThreads) {
+      const int r = idx / kPairs, kp = idx - r * kPairs;
+      const int pl = r / n2, k2 = r - pl * n2;
+      const int c = k2 * kLane + 2 * kp;
+      float zr0, zi0, zr1, zi1;
+      mcop::factored_z_pair(a.key, row0 + pl, c >> 1, &zr0, &zi0, &zr1,
+                            &zi1);
+      store_a_bf16(abr, abi, r, 2 * kp, zr0, zi0, __ldg(a.phir + c),
+                   __ldg(a.phii + c));
+      store_a_bf16(abr, abi, r, 2 * kp + 1, zr1, zi1, __ldg(a.phir + c + 1),
+                   __ldg(a.phii + c + 1));
+    }
+  } else {
+    const size_t plane = static_cast<size_t>(a.drawn) * a.m2;
+    for (int idx = threadIdx.x; idx < kRows * kLane; idx += kThreads) {
+      const int r = idx / kLane, k1 = idx - r * kLane;
+      const int pl = r / n2, k2 = r - pl * n2;
+      const int c = k2 * kLane + k1;
+      const size_t g = static_cast<size_t>(row0 + pl) * a.m2 + c;
+      store_a_bf16(abr, abi, r, k1, __ldg(a.noise + g),
+                   __ldg(a.noise + plane + g), __ldg(a.phir + c),
+                   __ldg(a.phii + c));
+    }
+  }
 }
 
-// A block of P drawn paths: P paths, or 2P pair members (ANTI: member
-// q < P is drawn path q, member P + q its partner).  CV adds the control
-// lane, QUAD the quadratic policy.
-template <bool SEEDED, bool PRICED, bool ANTI, bool CV, bool QUAD>
-__global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  float* spr = reinterpret_cast<float*>(smem4);  // [kRows][kLane]   Re S'
-  float* spi = spr + kRows * kLane;              // [kRows][kLane]   Im S'
-  float* region2 = spi + kRows * kLane;
+// The twiddle of one stage-1 sum pair (sr, si) at row r, column col, into
+// S'.
+__device__ __forceinline__ void twiddle_store(const Args& a, float* spr,
+                                              float* spi, int r, int col,
+                                              float sr, float si) {
+  const int k2 = r % a.n2;
+  const float tr = __ldg(a.twr + k2 * kLane + col);
+  const float ti = __ldg(a.twi + k2 * kLane + col);
+  spr[r * kLane + col] = sr * tr - si * ti;
+  spi[r * kLane + col] = sr * ti + si * tr;
+}
+
+// Stage 1 and the twiddle in float32 on the CUDA cores: S' of the block's
+// 64 rows r = pl * N2 + k2, S = (Z * phi') @ F1, each thread a 4-row x
+// 8-column complex micro-tile; ends with S' written and the block
+// synchronised.
+template <bool SEEDED>
+__device__ __forceinline__ void stage1_f32(const Args& a, float* spr,
+                                           float* spi, float* region2,
+                                           int row0) {
   float* asr = region2;                          // [kTileK][kAStride]
   float* asi = asr + kTileK * kAStride;
   float* fsr = asi + kTileK * kAStride;          // [kTileK][kLane]
   float* fsi = fsr + kTileK * kLane;
-  float* inc = region2;                          // [P][s_pad], after stage 1
-  const int n2 = a.n2, nj = table_cols(n2);
-  float* cs = region2 + kRegion2Floats;          // [n2][nj]
-  float* sn = cs + n2 * nj;
-  __shared__ float red[kWarps];
-  __shared__ float red_cv[kWarps];
-
   const int tid = threadIdx.x;
-  const int P = a.paths;
-  const int row0 = blockIdx.x * P;
-
-  for (int idx = tid; idx < n2 * nj; idx += kThreads) {
-    const int k2 = idx / nj, j = idx - k2 * nj;
-    cs[idx] = j < n2 ? __ldg(a.c2 + k2 * n2 + j) : 0.0f;
-    sn[idx] = j < n2 ? __ldg(a.s2 + k2 * n2 + j) : 0.0f;
-  }
-
-  // Stage 1: S = (Z * phi') @ F1 over the rows r = pl * N2 + k2.
+  const int n2 = a.n2;
+  const float* f1r = static_cast<const float*>(a.f1r);
+  const float* f1i = static_cast<const float*>(a.f1i);
   const int tx = tid % kColGroups;  // columns tx*4.., 64+tx*4..
   const int ty = tid / kColGroups;  // rows ty*4..ty*4+3
   float accr[4][8], acci[4][8];
@@ -257,9 +332,9 @@ __global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
     stage_a<SEEDED>(a, asr, asi, k0, row0);
     for (int idx = tid; idx < kTileK * kLane / 4; idx += kThreads) {
       reinterpret_cast<float4*>(fsr)[idx] =
-          __ldg(reinterpret_cast<const float4*>(a.f1r + k0 * kLane) + idx);
+          __ldg(reinterpret_cast<const float4*>(f1r + k0 * kLane) + idx);
       reinterpret_cast<float4*>(fsi)[idx] =
-          __ldg(reinterpret_cast<const float4*>(a.f1i + k0 * kLane) + idx);
+          __ldg(reinterpret_cast<const float4*>(f1i + k0 * kLane) + idx);
     }
     __syncthreads();
 #pragma unroll
@@ -322,6 +397,125 @@ __global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
     }
   }
   __syncthreads();  // S' complete; the staging region is free
+}
+
+// Stage 1 and the twiddle on the tensor cores (the BF16 form): S' of the
+// block's 64 rows from bf16 a and F1, float32 sums; ends with S' written
+// and the block synchronised.  a is drawn whole before any sum is live, so
+// the draws and the accumulators never hold registers together.
+template <bool SEEDED>
+__device__ void stage1_bf16(const Args& a, float* spr, float* spi,
+                            float* region2, int row0) {
+  auto* abr = reinterpret_cast<__nv_bfloat16*>(spr);  // [kRows][136], in S'
+  __nv_bfloat16* abi = abr + kRows * kAStrideB;
+  auto* fbr = reinterpret_cast<__nv_bfloat16*>(region2);  // [kLane][40]
+  __nv_bfloat16* fbi = fbr + kLane * kFStrideB;
+  const auto* f1r = static_cast<const __nv_bfloat16*>(a.f1r);
+  const auto* f1i = static_cast<const __nv_bfloat16*>(a.f1i);
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int r0 = 16 * (warp >> 1);          // this warp's row group
+  const int cg0 = 8 * (warp & 1);           // its first 8-column group
+  float accr[8][4], acci[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) accr[j][e] = acci[j][e] = 0.0f;
+
+  stage_a_bf16<SEEDED>(a, abr, abi, row0);
+  for (int k0 = 0; k0 < kLane; k0 += kTileKB) {
+    __syncthreads();  // a is staged; previous readers of F1's tile are done
+    for (int idx = tid; idx < kTileKB * kLane; idx += kThreads) {
+      const int kk = idx / kLane, m1 = idx - kk * kLane;
+      const int g = (k0 + kk) * kLane + m1;   // F1[k1, m1]
+      fbr[m1 * kFStrideB + kk] = f1r[g];
+      fbi[m1 * kFStrideB + kk] = f1i[g];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kTileKB; ks += 16) {
+      uint32_t ar[4], ai[4];
+      mcop::load_a_frag(abr, kAStrideB, r0, k0 + ks, ar);
+      mcop::load_a_frag(abi, kAStrideB, r0, k0 + ks, ai);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c0 = 8 * (cg0 + j);
+        uint32_t br[2], bi[2];
+        mcop::load_b_frag(fbr, kFStrideB, c0, ks, br);
+        mcop::load_b_frag(fbi, kFStrideB, c0, ks, bi);
+        mcop::mma_bf16_16816(acci[j], ar, bi);
+        mcop::mma_bf16_16816(acci[j], ai, br);
+        mcop::mma_bf16_16816(accr[j], ar, br);
+        mcop::negate_bf16_frag(bi);            // -F1i: Sr = Ar F1r - Ai F1i
+        mcop::mma_bf16_16816(accr[j], ai, bi);
+      }
+    }
+  }
+
+  __syncthreads();  // every warp has read a (in S') and F1
+  // Twiddle, into S', where each accumulator fragment holds its sums.
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * (cg0 + j) + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      twiddle_store(a, spr, spi, r0 + g + (e >> 1) * 8, col + (e & 1),
+                    accr[j][e], acci[j][e]);
+  }
+  __syncthreads();  // S' complete; the staging region is free
+}
+
+// The Euler log increment of one cell.  Every rounding is explicit (no
+// multiply-add contraction), so a pair's partner (-x, -w) rounds exactly as
+// the unpaired kernel on the negated noise does, in the plain versions'
+// order.
+__device__ __forceinline__ float euler_inc(const Args& a, float x, float w,
+                                           int m) {
+  const float sv = expf(x + __ldg(a.vd + m));
+  const float v = __fmul_rn(sv, sv);
+  return __fadd_rn(__fmul_rn(__fsub_rn(a.r, __fmul_rn(0.5f, v)), a.dt),
+                   __fmul_rn(sv, __fmul_rn(w, a.sqrt_dt)));
+}
+
+// The price Brownian of steps m..m+3 of drawn row `row`.
+template <bool SEEDED>
+__device__ __forceinline__ float4 load_w(const Args& a, int row, int m) {
+  if (SEEDED) return mcop::factored_w_quad(a.key, row, m >> 2);
+  const size_t plane = static_cast<size_t>(a.drawn) * a.m2;
+  return __ldg(reinterpret_cast<const float4*>(
+      a.noise + 2 * plane + static_cast<size_t>(row) * a.m2 + m));
+}
+
+// A block of P drawn paths: P paths, or 2P pair members (ANTI: member
+// q < P is drawn path q, member P + q its partner).  CV adds the control
+// lane, QUAD the quadratic policy, BF16 the bf16 fGN-input form.
+template <bool SEEDED, bool PRICED, bool ANTI, bool CV, bool QUAD, bool BF16>
+__global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  float* spr = reinterpret_cast<float*>(smem4);  // [kRows][kLane]   Re S'
+  float* spi = spr + kRows * kLane;              // [kRows][kLane]   Im S'
+  float* region2 = spi + kRows * kLane;          // stage 1's staging, then
+  float* inc = region2;                          // [P][s_pad]
+  const int n2 = a.n2, nj = table_cols(n2);
+  float* cs = region2 + kRegion2Floats;          // [n2][nj]
+  float* sn = cs + n2 * nj;
+  __shared__ float red[kWarps];
+  __shared__ float red_cv[kWarps];
+
+  const int tid = threadIdx.x;
+  const int P = a.paths;
+  const int row0 = blockIdx.x * P;
+
+  for (int idx = tid; idx < n2 * nj; idx += kThreads) {
+    const int k2 = idx / nj, j = idx - k2 * nj;
+    cs[idx] = j < n2 ? __ldg(a.c2 + k2 * n2 + j) : 0.0f;
+    sn[idx] = j < n2 ? __ldg(a.s2 + k2 * n2 + j) : 0.0f;
+  }
+
+  if constexpr (BF16)
+    stage1_bf16<SEEDED>(a, spr, spi, region2, row0);
+  else
+    stage1_f32<SEEDED>(a, spr, spi, region2, row0);
 
   // Pass A: stage 2, exp and the Euler increments, into inc (paired: x
   // itself, for pass A2).
@@ -501,7 +695,7 @@ __global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
 template <bool SEEDED, bool PRICED, bool ANTI, bool CV, bool QUAD>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {
   const int smem = smem_bytes(a.n2);
-  auto kernel = factored_kernel<SEEDED, PRICED, ANTI, CV, QUAD>;
+  auto kernel = factored_kernel<SEEDED, PRICED, ANTI, CV, QUAD, kUnitBf16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -531,7 +725,7 @@ cudaError_t launch(Args a, bool anti, bool cv, bool quad,
   a.paths = kRows / a.n2;
   a.drawn = anti ? a.rows / 2 : a.rows;
   if (a.rows < 1 || (anti && a.rows % 2) || a.drawn % a.paths ||
-      (quad && (anti || !PRICED)))
+      (quad && (anti || !PRICED)) || a.bf16 != kUnitBf16)
     return cudaErrorInvalidValue;
   if (quad)
     return cv ? launch_seeded<true, false, true, true>(a, stream)
@@ -546,12 +740,13 @@ cudaError_t launch(Args a, bool anti, bool cv, bool quad,
             : launch_seeded<true, false, false>(a, stream);
 }
 
-Args make_args(const float* noise, const float* f1r, const float* f1i,
+Args make_args(const float* noise, const void* f1r, const void* f1i,
                const float* phir, const float* phii, const float* twr,
                const float* twi, const float* c2, const float* s2,
                const float* vd, int rows, int n_steps, unsigned int key,
-               float r, float dt, float sqrt_dt, float log_s0) {
+               float r, float dt, float sqrt_dt, float log_s0, int bf16) {
   Args a{};
+  a.bf16 = bf16 != 0;
   a.noise = noise;
   a.f1r = f1r;
   a.f1i = f1i;
@@ -576,9 +771,9 @@ Args make_args(const float* noise, const float* f1r, const float* f1i,
 
 extern "C" {
 
-// The per-block dynamic shared memory of K8/K9 at this horizon, or -1 for
-// a horizon they do not take.
-int mcop_factored_smem_bytes(int n_steps) {
+// The per-block dynamic shared memory of K8/K9 at this horizon (the same in
+// both fGN input dtypes), or -1 for a horizon they do not take.
+int MCOP_ENTRY(mcop_factored_smem_bytes)(int n_steps) {
   if (n_steps <= kLane) return -1;
   const int n2 = next_pow2(n_steps) / kLane;
   if (n2 > kRows || smem_bytes(n2) > kSmemLimit) return -1;
@@ -586,19 +781,18 @@ int mcop_factored_smem_bytes(int n_steps) {
 }
 
 // K8.  noise: [3, rows, m2] float32 (the noise-in entry), or null for the
-// seeded entry, which draws the stream of `key`.  rows counts paths;
+// seeded entry, which draws the stream of `key`.  f1r and f1i are float32,
+// or bf16 with bf16 != 0 (the _bf16 unit only).  rows counts paths;
 // antithetic != 0 reads (or draws) rows / 2 rows of noise, [3, rows / 2,
 // m2], and out holds the drawn rows' paths, then their partners'.
-int mcop_factored_pathgen(const float* noise, const float* f1r,
-                          const float* f1i, const float* phir,
-                          const float* phii, const float* twr,
-                          const float* twi, const float* c2, const float* s2,
-                          const float* vd, int rows, int n_steps,
-                          unsigned int key, float r, float dt, float sqrt_dt,
-                          float log_s0, float s0, int antithetic, float* out,
-                          void* stream) {
+int MCOP_ENTRY(mcop_factored_pathgen)(
+    const float* noise, const void* f1r, const void* f1i, const float* phir,
+    const float* phii, const float* twr, const float* twi, const float* c2,
+    const float* s2, const float* vd, int rows, int n_steps,
+    unsigned int key, float r, float dt, float sqrt_dt, float log_s0,
+    float s0, int antithetic, int bf16, float* out, void* stream) {
   Args a = make_args(noise, f1r, f1i, phir, phii, twr, twi, c2, s2, vd, rows,
-                     n_steps, key, r, dt, sqrt_dt, log_s0);
+                     n_steps, key, r, dt, sqrt_dt, log_s0, bf16);
   a.s0 = s0;
   a.out = out;
   return static_cast<int>(launch<false>(a, antithetic != 0, false, false,
@@ -609,21 +803,19 @@ int mcop_factored_pathgen(const float* noise, const float* f1r,
 // quadratic != 0 the eight rows of the policy_rows table (its strike in row
 // 7; `strike` is then not read), row stride table_stride floats.  rows
 // counts paths; antithetic != 0 (not with quadratic) reads (or draws)
-// rows / 2 rows of noise, [3, rows / 2, m2].  out: [rows / P] partial sums
-// (rows / 2P paired), then as many control sums when with_cv != 0.
-int mcop_factored_priced_chunk(const float* noise, const float* f1r,
-                               const float* f1i, const float* phir,
-                               const float* phii, const float* twr,
-                               const float* twi, const float* c2,
-                               const float* s2, const float* vd, int rows,
-                               int n_steps, unsigned int key, float r,
-                               float dt, float sqrt_dt, float log_s0,
-                               const float* table, long long table_stride,
-                               float strike, int is_call, int antithetic,
-                               int with_cv, int quadratic, float cv_disc,
-                               float* out, void* stream) {
+// rows / 2 rows of noise, [3, rows / 2, m2].  f1r, f1i and bf16 as K8's.
+// out: [rows / P] partial sums (rows / 2P paired), then as many control
+// sums when with_cv != 0.
+int MCOP_ENTRY(mcop_factored_priced_chunk)(
+    const float* noise, const void* f1r, const void* f1i, const float* phir,
+    const float* phii, const float* twr, const float* twi, const float* c2,
+    const float* s2, const float* vd, int rows, int n_steps,
+    unsigned int key, float r, float dt, float sqrt_dt, float log_s0,
+    const float* table, long long table_stride, float strike, int is_call,
+    int antithetic, int with_cv, int quadratic, int bf16, float cv_disc,
+    float* out, void* stream) {
   Args a = make_args(noise, f1r, f1i, phir, phii, twr, twi, c2, s2, vd, rows,
-                     n_steps, key, r, dt, sqrt_dt, log_s0);
+                     n_steps, key, r, dt, sqrt_dt, log_s0, bf16);
   a.llo = table;
   a.lhi = table + table_stride;
   a.disc = table + 2 * table_stride;

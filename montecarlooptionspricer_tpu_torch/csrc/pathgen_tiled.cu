@@ -14,10 +14,16 @@
 //    _policy_tile:161 and _accumulate_priced:320) plain and with the
 //    control variate.  The spectral form (SPEC, from the ci pointer) is the
 //    slab's _fgn_tile:125, Zr @ Cr' - Zi @ Ci' on three noise planes.
-// Both also run the bf16 fGN-input form of the chol body (BF16, from the
+// Both also run the bf16 fGN-input form of every body (BF16, from the
 //    bf16 flag; StreamConfig.fgn_matmul_dtype="bfloat16", the slab's
 //    _consts:88 in bf16 and its bf16 noise tiles, pathgen_pallas_tiled.py
-//    :249, :308, :435): K6 plain and paired, K7 in its four boundary forms.
+//    :249, :308, :435), chol and spectral: K6 plain and paired, K7 in its
+//    four boundary forms and its two quadratic ones.
+//
+// Build units (csrc/build_unit.cuh): this source is built four times, the
+// float32 and the bf16 bodies, each seeded and noise-in, apart; an entry
+// given a body its unit does not hold (the other dtype's flag, or the
+// other seeded flag) returns cudaErrorInvalidValue.
 //
 // They compute what K1 and K2 compute, on the same seeded stream
 // (csrc/philox.cuh), re-blocked over the step axis.  Per path p and step
@@ -47,8 +53,9 @@
 // The spectral product is two dense [n, n] products, 2 n^2 multiply-adds
 // per path (8.7e11 at 1825 steps and 131072 rows, ~26 ms), four times
 // the triangle.  The bf16 form runs the triangle on the tensor cores:
-// 0.44 ms at the 989 TFLOP/s dense bf16 peak, so its ~8 operations a cell
-// besides the product (and the draws of the seeded entry) bound it.
+// 0.44 ms at the 989 TFLOP/s dense bf16 peak (the spectral form's dense
+// products 1.8 ms), so its ~8 operations a cell besides the product (and
+// the draws of the seeded entry) bound it.
 //
 // Design:
 // * Shared memory.  At 1825 steps one path's N row is 7.3 KB, so the N
@@ -98,15 +105,20 @@
 //   and runs the tile as m16n8k16 tensor-core products with float32 sums
 //   (csrc/mma_bf16.cuh): warp w owns the 8-column groups w and w + 8 of
 //   the 128-column tile and every m16 row group, and skips a group's
-//   product on the k-tiles past its last column (the triangle).  The
-//   rest of the body is the float32 form's; a pair's partner is -x to the
-//   bit.  It keeps the float32 form's path blocks.
+//   product on the k-tiles past its last column (the triangle).  Under
+//   SPEC the Zi k-tile and the Ci' k-tile are staged in bf16 beside them
+//   (24.6 KB of tiles at 128 paths, 91.6 KB a block: still two an SM) and
+//   every column tile sums over every k-tile, the Zi fragments negated
+//   into the same accumulators.  The rest of the body (the QUAD policy
+//   included) is the float32 form's; a pair's partner is -x to the bit.
+//   It keeps the float32 form's path blocks.
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise so the plain
 //   PyTorch versions agree to a few ulp per cell.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "build_unit.cuh"
 #include "mma_bf16.cuh"
 #include "philox.cuh"
 #include "quad_policy.cuh"
@@ -115,6 +127,9 @@
 namespace {
 
 using namespace mcop::slab;
+using mcop::kUnitBf16;
+using mcop::kUnitNoiseIn;
+using mcop::kUnitSeeded;
 
 constexpr int kSmemLimit = 232448;
 
@@ -123,7 +138,8 @@ struct Args {
                         // workspace
   const void* lt;       // [n, n] half-scaled factor: Lt' (upper), or Cr';
                         // bf16 under the bf16 form, else float32
-  const float* ci;      // [n, n] Ci' (spectral), or nullptr (chol)
+  const float* ci;      // [n, n] Ci' (spectral; its bf16 bits under the
+                        // bf16 form), or nullptr (chol)
   const float* vd;      // [n] half variance drift
   const float* llo;     // [n] log lower bounds (K7)
   const float* lhi;     // [n] log upper bounds (K7)
@@ -228,6 +244,8 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
   float* cts = zs + kTileK * NS;                // SPEC: Ci' k-tile
   auto* nsb = reinterpret_cast<__nv_bfloat16*>(smem4);  // BF16: [D][kNB]
   __nv_bfloat16* ltb = nsb + D * kNB;           // BF16: [kTileCols][kNB]
+  __nv_bfloat16* zsb = ltb + kTileCols * kNB;   // BF16 and SPEC: Zi tile
+  __nv_bfloat16* ctb = zsb + D * kNB;           // BF16 and SPEC: Ci' tile
   float* xs = reinterpret_cast<float*>(smem4) + L::kTileFloats;
                                                 // [BP][kXStride]
   float* red = xs + BP * kXStride;              // [BP] (twice under CV)
@@ -257,7 +275,8 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
   for (int c0 = 0; c0 < n; c0 += kTileCols) {
     const int kmax = min(c0 + kTileCols, n);
     if constexpr (BF16)
-      tile_product_bf16<PM>(a, nrows, c0, nsb, ltb, xs);
+      tile_product_bf16<PM, true, SPEC>(a, nrows, c0, nsb, ltb, xs, zrows,
+                                        zsb, ctb);
     else
       tile_product<PM, SPEC>(a, nrows, zrows, c0, ns, lts, zs, cts, xs);
 
@@ -372,30 +391,32 @@ cudaError_t launch_pm(const Args& a, int block_paths, cudaStream_t stream) {
   }
 }
 
-// The seeded or noise-in entry, chol or spectral (from a.ci), or the chol
-// body's bf16 form (a.bf16; boundary policy only).
+// Chol or spectral (from a.ci), in this unit's fGN input dtype.
+template <bool SEEDED, bool PRICED, bool ANTI, bool CV, bool QUAD>
+cudaError_t launch_form(const Args& a, int block_paths, cudaStream_t stream) {
+  return a.ci != nullptr
+             ? launch_pm<SEEDED, PRICED, ANTI, CV, true, QUAD, kUnitBf16>(
+                   a, block_paths, stream)
+             : launch_pm<SEEDED, PRICED, ANTI, CV, false, QUAD, kUnitBf16>(
+                   a, block_paths, stream);
+}
+
+// The seeded or noise-in entry, where this unit holds it and a.bf16 names
+// its dtype.
 template <bool PRICED, bool ANTI, bool CV, bool QUAD = false>
 cudaError_t launch_seeded(const Args& a, int seeded, int block_paths,
                           cudaStream_t stream) {
-  if (a.bf16) {
-    if constexpr (QUAD) {
-      return cudaErrorInvalidValue;
-    } else {
-      return seeded ? launch_pm<true, PRICED, ANTI, CV, false, false, true>(
-                          a, block_paths, stream)
-                    : launch_pm<false, PRICED, ANTI, CV, false, false, true>(
-                          a, block_paths, stream);
-    }
+  if (a.bf16 != kUnitBf16) return cudaErrorInvalidValue;
+  if (seeded) {
+    if constexpr (kUnitSeeded)
+      return launch_form<true, PRICED, ANTI, CV, QUAD>(a, block_paths,
+                                                       stream);
+  } else {
+    if constexpr (kUnitNoiseIn)
+      return launch_form<false, PRICED, ANTI, CV, QUAD>(a, block_paths,
+                                                        stream);
   }
-  if (a.ci != nullptr)
-    return seeded ? launch_pm<true, PRICED, ANTI, CV, true, QUAD>(
-                        a, block_paths, stream)
-                  : launch_pm<false, PRICED, ANTI, CV, true, QUAD>(
-                        a, block_paths, stream);
-  return seeded ? launch_pm<true, PRICED, ANTI, CV, false, QUAD>(
-                      a, block_paths, stream)
-                : launch_pm<false, PRICED, ANTI, CV, false, QUAD>(
-                      a, block_paths, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <bool PRICED>
@@ -403,7 +424,7 @@ cudaError_t launch(Args a, int seeded, int block_paths, bool anti, bool cv,
                    bool quad, cudaStream_t stream) {
   if (a.n < 1 || a.rows < 1 || a.noise == nullptr || block_paths < 16 ||
       a.rows % block_paths || (anti && block_paths % 32) ||
-      (quad && (anti || !PRICED)) || (a.bf16 && (quad || a.ci != nullptr)))
+      (quad && (anti || !PRICED)))
     return cudaErrorInvalidValue;
   a.drawn = anti ? a.rows / 2 : a.rows;
   if (quad)
@@ -425,14 +446,14 @@ cudaError_t launch(Args a, int seeded, int block_paths, bool anti, bool cv,
                                                 stream);
 }
 
-Args make_args(float* noise, const void* lt, const float* ci,
+Args make_args(float* noise, const void* lt, const void* ci,
                const float* vd, int rows, int n_steps, unsigned int key,
                float r, float dt, float sqrt_dt, float log_s0, int bf16) {
   Args a{};
   a.bf16 = bf16 != 0;
   a.noise = noise;
   a.lt = lt;
-  a.ci = ci;
+  a.ci = static_cast<const float*>(ci);
   a.vd = vd;
   a.rows = rows;
   a.n = n_steps;
@@ -449,32 +470,32 @@ Args make_args(float* noise, const void* lt, const float* ci,
 extern "C" {
 
 // The per-block shared memory of the tiled kernels at this block size
-// (pair members when antithetic; the spectral form when spectral != 0), or
-// -1 for a block size they do not take.
-int mcop_tiled_smem_bytes(int block_paths, int antithetic, int with_cv,
-                          int spectral) {
+// (pair members when antithetic; the spectral form when spectral != 0) in
+// this unit's fGN input dtype, or -1 for a block size they do not take.
+int MCOP_ENTRY(mcop_tiled_smem_bytes)(int block_paths, int antithetic,
+                                      int with_cv, int spectral) {
   const int d = antithetic ? block_paths / 2 : block_paths;
   if (antithetic && (block_paths % 2 || d == 128)) return -1;
   const int pm = d / 16;
   if (d % 16 || (pm != 1 && pm != 2 && pm != 4 && pm != 8)) return -1;
   const int bp = antithetic ? 2 * d : d;
-  return 4 * ((spectral ? 2 : 1) * (kTileK * (d + 4) + kTileK * kTileCols) +
-              bp * kXStride + (with_cv ? 2 : 1) * bp);
+  return 4 * (tile_floats_of(d, spectral != 0, kUnitBf16) + bp * kXStride +
+              (with_cv ? 2 : 1) * bp);
 }
 
 // K6.  noise: [2, rows, n_steps] float32 (N, W; ci null: lt is Lt') or
 // [3, rows, n_steps] (Zr, Zi, W; spectral: lt is Cr', ci is Ci'), read as
 // given (seeded == 0) or filled first from the stream of `key` (seeded !=
-// 0, a workspace).  bf16 != 0: the bf16 form, lt a bf16 Lt' (chol), the
-// noise float32.  rows counts paths; antithetic != 0 reads (or draws into
-// the workspace) rows / 2 rows of noise, block_paths counts pair members,
-// and out holds the drawn rows' paths, then their partners'.
-int mcop_tiled_pathgen(float* noise, int seeded, const void* lt,
-                       const float* ci, const float* vd, int rows,
-                       int n_steps, int block_paths, unsigned int key,
-                       float r, float dt,
-                       float sqrt_dt, float log_s0, float s0, int antithetic,
-                       int bf16, float* out, void* stream) {
+// 0, a workspace; the _seeded units only).  bf16 != 0 (the _bf16 units
+// only): the bf16 form, lt and ci bf16, the noise float32.  rows counts paths; antithetic != 0
+// reads (or draws into the workspace) rows / 2 rows of noise, block_paths
+// counts pair members, and out holds the drawn rows' paths, then their
+// partners'.
+int MCOP_ENTRY(mcop_tiled_pathgen)(
+    float* noise, int seeded, const void* lt, const void* ci,
+    const float* vd, int rows, int n_steps, int block_paths,
+    unsigned int key, float r, float dt, float sqrt_dt, float log_s0,
+    float s0, int antithetic, int bf16, float* out, void* stream) {
   Args a = make_args(noise, lt, ci, vd, rows, n_steps, key, r, dt, sqrt_dt,
                      log_s0, bf16);
   a.s0 = s0;
@@ -487,20 +508,18 @@ int mcop_tiled_pathgen(float* noise, int seeded, const void* lt,
 // K7.  table: rows 0-2 of the log_boundary_rows table, or with
 // quadratic != 0 the eight rows of the policy_rows table (its strike in row
 // 7; `strike` is then not read), row stride table_stride floats.  noise,
-// lt, ci and bf16 as K6's (bf16 not with quadratic).  rows counts paths;
-// antithetic != 0 (not with quadratic) reads (or draws into the
-// workspace) rows / 2 rows of noise, and block_paths counts pair members.
+// lt, ci and bf16 as K6's.  rows counts paths; antithetic != 0 (not with
+// quadratic) reads (or draws into the workspace) rows / 2 rows of noise,
+// and block_paths counts pair members.
 // out: [rows / block_paths] partial sums, then as many control sums when
 // with_cv != 0.
-int mcop_tiled_priced_chunk(float* noise, int seeded, const void* lt,
-                            const float* ci, const float* vd, int rows,
-                            int n_steps, int block_paths, unsigned int key,
-                            float r,
-                            float dt, float sqrt_dt, float log_s0,
-                            const float* table, long long table_stride,
-                            float strike, int is_call, int antithetic,
-                            int with_cv, int quadratic, int bf16,
-                            float cv_disc, float* out, void* stream) {
+int MCOP_ENTRY(mcop_tiled_priced_chunk)(
+    float* noise, int seeded, const void* lt, const void* ci,
+    const float* vd, int rows, int n_steps, int block_paths,
+    unsigned int key, float r, float dt, float sqrt_dt, float log_s0,
+    const float* table, long long table_stride, float strike, int is_call,
+    int antithetic, int with_cv, int quadratic, int bf16, float cv_disc,
+    float* out, void* stream) {
   Args a = make_args(noise, lt, ci, vd, rows, n_steps, key, r, dt, sqrt_dt,
                      log_s0, bf16);
   a.llo = table;

@@ -16,7 +16,9 @@
 //   [kTileCols][kNB]; warp w runs the m16n8k16 products of the 8-column
 //   groups w and w + 8 for every m16 row group.  TRI skips a group's
 //   product on the k-tiles past its last column (an upper-triangular
-//   factor).
+//   factor).  SPEC stages the Zi k-tile and the bf16 Ci' k-tile beside
+//   them and adds (-Zi) @ Ci' into the same float32 accumulators (the
+//   negation is exact in bf16), over every k < n.
 //
 // Both take the factor and the width from `a` (a.lt: the factor [n][n],
 // float32 or bf16; a.ci: Ci' under SPEC; a.n), read rows of N with row
@@ -43,12 +45,17 @@ constexpr int kXStride = kTileCols + 1;
 constexpr int kNB = kTileK + 8;  // bf16 row stride of a staged k-tile: 4
                                  // (mod 8) words, conflict-free fragments
 
-// Floats of the staged k-tiles of a D = 16 * PM row block: float32 N^T and
-// factor tiles (SPEC: two of each), or the bf16 N and factor tiles.
+// Floats of the staged k-tiles of a block of d rows: float32 N^T and
+// factor tiles, or the bf16 N and factor tiles (spec: two of each).
+__host__ __device__ constexpr int tile_floats_of(int d, bool spec,
+                                                 bool bf16) {
+  return (spec ? 2 : 1) * (bf16 ? (d + kTileCols) * kNB / 2
+                                : kTileK * (d + 4) + kTileK * kTileCols);
+}
+
 template <int PM, bool SPEC, bool BF16>
 __host__ __device__ constexpr int tile_floats() {
-  return BF16 ? (16 * PM + kTileCols) * kNB / 2
-              : (SPEC ? 2 : 1) * (kTileK * (16 * PM + 4) + kTileK * kTileCols);
+  return tile_floats_of(16 * PM, SPEC, BF16);
 }
 
 template <int PM>
@@ -155,17 +162,26 @@ __device__ void tile_product(const Src& a, const float* nrows,
 
 // The same columns with N rounded to bf16 and a bf16 factor a.lt, on the
 // tensor cores; nsb [D][kNB] and ltb [kTileCols][kNB] are the staged
-// k-tiles.
-template <int PM, bool TRI = true, class Src>
+// k-tiles.  SPEC: X = Zr @ Cr' - Zi @ Ci' (nrows Zr, zrows Zi, a.lt Cr',
+// a.ci Ci', all k < n), the Zi and Ci' k-tiles staged in zsb [D][kNB] and
+// ctb [kTileCols][kNB]; each row group's two A fragments are loaded once a
+// k-tile (the Zi one negated) and each column group's B fragments once a
+// row group, so the fragments held stay within the two-blocks-an-SM
+// register budget at PM 8.
+template <int PM, bool TRI = true, bool SPEC = false, class Src>
 __device__ void tile_product_bf16(const Src& a, const float* nrows, int c0,
                                   __nv_bfloat16* nsb, __nv_bfloat16* ltb,
-                                  float* xs) {
+                                  float* xs, const float* zrows = nullptr,
+                                  __nv_bfloat16* zsb = nullptr,
+                                  __nv_bfloat16* ctb = nullptr) {
   constexpr int D = 16 * PM;
   const int n = a.n;
   const __nv_bfloat16* lt = static_cast<const __nv_bfloat16*>(a.lt);
+  const __nv_bfloat16* ci =   // Ci' (SPEC), whatever pointer type a holds
+      static_cast<const __nv_bfloat16*>(static_cast<const void*>(a.ci));
   const int tid = threadIdx.x;
   const int warp = tid / 32;
-  const int kend = TRI ? min(c0 + kTileCols, n) : n;
+  const int kend = TRI && !SPEC ? min(c0 + kTileCols, n) : n;
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
   float acc[PM][2][4];
 #pragma unroll
@@ -177,32 +193,53 @@ __device__ void tile_product_bf16(const Src& a, const float* nrows, int c0,
 
   for (int k0 = 0; k0 < kend; k0 += kTileK) {
     const int kn = min(kTileK, kend - k0);
-    __syncthreads();  // previous readers of nsb/ltb are done
+    __syncthreads();  // previous readers of nsb/ltb (zsb/ctb) are done
     for (int idx = tid; idx < D * kTileK; idx += kThreads) {
       const int p = idx / kTileK, kk = idx - p * kTileK;
-      nsb[p * kNB + kk] =
-          kk < kn ? __float2bfloat16_rn(
-                        nrows[static_cast<size_t>(p) * n + k0 + kk])
-                  : zero;
+      const size_t g = static_cast<size_t>(p) * n + k0 + kk;
+      nsb[p * kNB + kk] = kk < kn ? __float2bfloat16_rn(nrows[g]) : zero;
+      if (SPEC)
+        zsb[p * kNB + kk] = kk < kn ? __float2bfloat16_rn(zrows[g]) : zero;
     }
     for (int idx = tid; idx < kTileK * kTileCols; idx += kThreads) {
       const int kk = idx / kTileCols, cc = idx - kk * kTileCols;
       const int c = c0 + cc;
-      ltb[cc * kNB + kk] =
-          kk < kn && c < n ? lt[static_cast<size_t>(k0 + kk) * n + c] : zero;
+      const bool in = kk < kn && c < n;
+      const size_t g = static_cast<size_t>(k0 + kk) * n + c;
+      ltb[cc * kNB + kk] = in ? lt[g] : zero;
+      if (SPEC) ctb[cc * kNB + kk] = in ? ci[g] : zero;
     }
     __syncthreads();
-    uint32_t af[PM][4];
+    if constexpr (SPEC) {
 #pragma unroll
-    for (int i = 0; i < PM; ++i) load_a_frag(nsb, kNB, 16 * i, 0, af[i]);
+      for (int i = 0; i < PM; ++i) {
+        uint32_t af[4], zf[4];
+        load_a_frag(nsb, kNB, 16 * i, 0, af);
+        load_a_frag(zsb, kNB, 16 * i, 0, zf);
+        negate_bf16_frag(zf);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = 8 * (warp + 8 * j);
-      if (!TRI || k0 <= c0 + col + 7) {   // the triangle: zeros past it
-        uint32_t b[2];
-        load_b_frag(ltb, kNB, col, 0, b);
+        for (int j = 0; j < 2; ++j) {
+          const int col = 8 * (warp + 8 * j);
+          uint32_t b[2], bi[2];
+          load_b_frag(ltb, kNB, col, 0, b);
+          load_b_frag(ctb, kNB, col, 0, bi);
+          mma_bf16_16816(acc[i][j], af, b);
+          mma_bf16_16816(acc[i][j], zf, bi);
+        }
+      }
+    } else {
+      uint32_t af[PM][4];
 #pragma unroll
-        for (int i = 0; i < PM; ++i) mma_bf16_16816(acc[i][j], af[i], b);
+      for (int i = 0; i < PM; ++i) load_a_frag(nsb, kNB, 16 * i, 0, af[i]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 8 * (warp + 8 * j);
+        if (!TRI || k0 <= c0 + col + 7) {   // the triangle: zeros past it
+          uint32_t b[2];
+          load_b_frag(ltb, kNB, col, 0, b);
+#pragma unroll
+          for (int i = 0; i < PM; ++i) mma_bf16_16816(acc[i][j], af[i], b);
+        }
       }
     }
   }

@@ -1,13 +1,18 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` source is compiled at first use with ``nvcc`` for
-``sm_90a`` into a shared library of its own with a plain C interface,
-under ``build/kernels/`` at the root of the checkout (a directory
-``.gitignore`` lists), and loaded with ``ctypes``.  The sources compile in
-parallel, one ``nvcc`` each, all started together.  A library's file name
-carries a hash of its source, the shared headers and the flags, so an
-edited source is rebuilt and a stale library never loads.  Nothing here
-runs at import time.
+Each build unit (``UNITS``: a ``csrc/*.cu`` source and its defines) is
+compiled at first use with ``nvcc`` for ``sm_90a`` into a shared library
+of its own with a plain C interface, under ``build/kernels/`` at the root
+of the checkout (a directory ``.gitignore`` lists), and loaded with
+``ctypes``.  The units compile in parallel, one ``nvcc`` each, all started
+together, so the build's wall is its slowest unit's: the path sources
+build their bf16 bodies apart from the float32 ones, and K1/K2's and
+K6/K7's seeded bodies apart from their noise-in ones
+(``csrc/build_unit.cuh``; a unit's entries carry the suffix of what it
+holds, ``entry`` picks one).  A library's file name carries a hash of its
+source, the shared headers, the flags and the defines, so an edited
+source is rebuilt and a stale library never loads.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -24,12 +29,25 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = (CSRC / "pathgen.cu", CSRC / "pathgen_tiled.cu", CSRC / "chain.cu",
-           CSRC / "greeks.cu", CSRC / "pathgen_factored.cu",
-           CSRC / "roofline.cu")
+# The units a source splits into: (extra nvcc flags, the suffix of the
+# unit's library and entry names), csrc/build_unit.cuh.
+_BF16, _SEEDED, _NOISE_IN = ("-DMCOP_UNIT_BF16=1", "-DMCOP_UNIT_SEEDED=1",
+                             "-DMCOP_UNIT_SEEDED=0")
+_WHOLE = (((), ""),)
+_BY_DTYPE = (((), ""), ((_BF16,), "_bf16"))
+_BY_DTYPE_AND_SEEDED = (((_NOISE_IN,), ""), ((_SEEDED,), "_seeded"),
+                        ((_BF16, _NOISE_IN), "_bf16"),
+                        ((_BF16, _SEEDED), "_bf16_seeded"))
+SPLITS = {"pathgen": _BY_DTYPE_AND_SEEDED,
+          "pathgen_tiled": _BY_DTYPE_AND_SEEDED, "chain": _WHOLE,
+          "greeks": _WHOLE, "pathgen_factored": _BY_DTYPE,
+          "roofline": _WHOLE}
+# (library name, source, extra nvcc flags, entry-name suffix) of each unit.
+UNITS = tuple((stem + suffix, CSRC / f"{stem}.cu", flags, suffix)
+              for stem, units in SPLITS.items() for flags, suffix in units)
 HEADERS = (CSRC / "philox.cuh", CSRC / "fgn_tile.cuh",
            CSRC / "quad_policy.cuh", CSRC / "mma_bf16.cuh",
-           CSRC / "slab_tile.cuh")
+           CSRC / "slab_tile.cuh", CSRC / "build_unit.cuh")
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -52,44 +70,54 @@ def nvcc_path() -> str:
                             "source at first use")
 
 
-def library_path(src: Path) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, src: Path, flags: tuple = ()) -> Path:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *flags)).encode())
     for f in (src, *HEADERS):
         h.update(f.read_bytes())
-    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> tuple[list[Path], float]:
-    """Compile every source whose library does not exist yet, all at once;
-    returns (library paths, wall seconds spent compiling)."""
-    libs = [library_path(src) for src in SOURCES]
-    todo = [(src, lib) for src, lib in zip(SOURCES, libs) if not lib.exists()]
+def build(verbose: bool = False) -> tuple[list[Path], float, dict]:
+    """Compile every unit whose library does not exist yet, all at once;
+    returns (library paths in UNITS order, wall seconds spent compiling,
+    {unit name: seconds from the common start to its nvcc's exit})."""
+    libs = [library_path(*unit[:3]) for unit in UNITS]
+    todo = [(unit, lib) for unit, lib in zip(UNITS, libs) if not lib.exists()]
     if not todo:
-        return libs, 0.0
+        return libs, 0.0, {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     procs = []
-    for src, lib in todo:
+    for (name, src, flags, _), lib in todo:
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(src)]
-        procs.append((src, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        log = lib.with_suffix(f".{os.getpid()}.log")
+        cmd = [nvcc, *NVCC_FLAGS, *flags,
+               *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp),
+               str(src)]
+        with open(log, "w") as out:   # a file, not a pipe: nothing blocks
+            procs.append((name, lib, tmp, log, subprocess.Popen(
+                cmd, stdout=out, stderr=subprocess.STDOUT)))
+    seconds = {}
+    while len(seconds) < len(procs):
+        for name, _, _, _, proc in procs:
+            if name not in seconds and proc.poll() is not None:
+                seconds[name] = round(time.perf_counter() - t0, 3)
+        time.sleep(0.05)
     failed = []
-    for src, lib, tmp, proc in procs:
-        out, _ = proc.communicate()
+    for name, lib, tmp, log, proc in procs:
+        out = log.read_text()
+        log.unlink()
         if proc.returncode != 0:
-            failed.append(f"{src.name}: nvcc failed ({proc.returncode}):\n"
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n"
                           f"{out}")
             continue
         if verbose:
-            print(f"{src.name}:\n{out}", flush=True)
+            print(f"{name}:\n{out}", flush=True)
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return libs, time.perf_counter() - t0
+    return libs, time.perf_counter() - t0, seconds
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,47 +125,63 @@ def load() -> types.SimpleNamespace:
     """The kernels' C entries with their signatures declared (built first
     if needed), as attributes of one namespace.  Every launching entry
     returns a cudaError_t as int."""
-    paths, _ = build()
-    single, tiled, chain, greeks, factored, roofline = (
-        ctypes.CDLL(str(p)) for p in paths)
+    paths, _, _ = build()
     p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                   ctypes.c_float)
     ll = ctypes.c_longlong
+    # Each source's entries; a unit exports them with its suffix.
     signatures = {
-        (single, "mcop_smem_bytes"): [i, i, i, i, i],
-        (single, "mcop_pathgen"): [p, p, p, p, i, i, i, u, f, f, f, f, f, i,
-                                   i, p, p],
-        (single, "mcop_priced_chunk"): [p, p, p, p, i, i, i, u, f, f, f, f,
-                                        p, ll, f, i, i, i, i, i, f, p, p],
-        (tiled, "mcop_tiled_smem_bytes"): [i, i, i, i],
-        (tiled, "mcop_tiled_pathgen"): [p, i, p, p, p, i, i, i, u, f, f, f,
-                                        f, f, i, i, p, p],
-        (tiled, "mcop_tiled_priced_chunk"): [p, i, p, p, p, i, i, i, u, f, f,
-                                             f, f, p, ll, f, i, i, i, i, i,
-                                             f, p, p],
-        (chain, "mcop_chain_smem_bytes"): [i, i, i, i],
-        (chain, "mcop_chain_group"): [],
-        (chain, "mcop_priced_chain"): [p, p, p, p, i, i, i, u, f, f, f, f, p,
-                                       ll, ll, i, i, i, i, p, p],
-        (greeks, "mcop_greeks_smem_bytes"): [i, i, i],
-        (greeks, "mcop_greeks_group"): [],
-        (greeks, "mcop_greeks_chunk"): [p, p, p, p, p, p, i, i, i, u, f, f,
-                                        f, f, f, p, ll, f, i, i, p, p],
-        (greeks, "mcop_chain_greeks_chunk"): [p, p, p, p, p, p, i, i, i, u,
-                                              f, f, f, f, f, p, ll, ll, i,
-                                              i, i, p, p],
-        (factored, "mcop_factored_smem_bytes"): [i],
-        (factored, "mcop_factored_pathgen"): [p] * 10 + [i, i, u, f, f, f, f,
-                                                         f, i, p, p],
-        (factored, "mcop_factored_priced_chunk"): [p] * 10 + [
-            i, i, u, f, f, f, f, p, ll, f, i, i, i, i, f, p, p],
-        (roofline, "mcop_roofline_normals"): [u, i, i, i, i, i, p, p],
-        (roofline, "mcop_roofline_matmul"): [u, p, i, i, i, i, i, p, p, p],
+        "pathgen": {
+            "mcop_smem_bytes": [i, i, i, i, i],
+            "mcop_pathgen": [p, p, p, p, i, i, i, u, f, f, f, f, f, i, i, p,
+                             p],
+            "mcop_priced_chunk": [p, p, p, p, i, i, i, u, f, f, f, f, p, ll,
+                                  f, i, i, i, i, i, f, p, p]},
+        "pathgen_tiled": {
+            "mcop_tiled_smem_bytes": [i, i, i, i],
+            "mcop_tiled_pathgen": [p, i, p, p, p, i, i, i, u, f, f, f, f, f,
+                                   i, i, p, p],
+            "mcop_tiled_priced_chunk": [p, i, p, p, p, i, i, i, u, f, f, f,
+                                        f, p, ll, f, i, i, i, i, i, f, p,
+                                        p]},
+        "chain": {
+            "mcop_chain_smem_bytes": [i, i, i, i],
+            "mcop_chain_group": [],
+            "mcop_priced_chain": [p, p, p, p, i, i, i, u, f, f, f, f, p, ll,
+                                  ll, i, i, i, i, p, p]},
+        "greeks": {
+            "mcop_greeks_smem_bytes": [i, i, i],
+            "mcop_greeks_group": [],
+            "mcop_greeks_chunk": [p, p, p, p, p, p, i, i, i, u, f, f, f, f,
+                                  f, p, ll, f, i, i, p, p],
+            "mcop_chain_greeks_chunk": [p, p, p, p, p, p, i, i, i, u, f, f,
+                                        f, f, f, p, ll, ll, i, i, i, p, p]},
+        "pathgen_factored": {
+            "mcop_factored_smem_bytes": [i],
+            "mcop_factored_pathgen": [p] * 10 + [i, i, u, f, f, f, f, f, i,
+                                                 i, p, p],
+            "mcop_factored_priced_chunk": [p] * 10 + [
+                i, i, u, f, f, f, f, p, ll, f, i, i, i, i, i, f, p, p]},
+        "roofline": {
+            "mcop_roofline_normals": [u, i, i, i, i, i, p, p],
+            "mcop_roofline_matmul": [u, p, i, i, i, i, i, p, p, p]},
     }
     entries = {}
-    for (lib, name), argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = i
-        entries[name] = fn
+    for (_, src, _, suffix), path in zip(UNITS, paths):
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in signatures[src.stem].items():
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = argtypes
+            fn.restype = i
+            entries[name + suffix] = fn
     return types.SimpleNamespace(**entries)
+
+
+def entry(lib: types.SimpleNamespace, stem: str, name: str, bf16: bool,
+          seeded: bool = False):
+    """The C entry ``name`` of source ``stem`` from the unit that holds the
+    float32 or (``bf16``) the bf16 bodies and, where the source splits
+    them (``SPLITS``), the seeded (``seeded``) or the noise-in ones."""
+    split = SPLITS[stem] is _BY_DTYPE_AND_SEEDED
+    return getattr(lib, name + ("_bf16" if bf16 else "")
+                   + ("_seeded" if seeded and split else ""))

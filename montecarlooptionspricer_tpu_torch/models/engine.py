@@ -74,12 +74,14 @@ XLA.
 
 ``fgn_matmul_dtype="bfloat16"`` (counterpart: the JAX field of that name,
 JAX's bench default at long horizons) runs the fGN product on bf16 inputs
-with float32 sums: the bf16 forms of K1/K2 on the single tile and of K6/K7
-on the chol slab (the same family ranges as float32), and the bf16 matmul
-synthesis on the generic stream; the bounds stream K1/K6 in that form.
-Its other kernel combinations (the spectral form, the quadratic policy on
-a kernel family, strips on K5, Greeks on K3/K4, the factored family)
-raise ``NotImplementedError`` naming ROADMAP B12.
+with float32 sums, in every estimator, fGN and policy form of
+``StreamingPricer.price`` and ``price_with_bounds``: the bf16 forms of
+K1/K2 on the single tile, of K6/K7 on the slab (chol, and spectral under
+``tiled_impl="slab"``) and of K8/K9 on the factored family (stage 1 on
+bf16 inputs), each family's range as under float32, and the bf16 matmul
+synthesis on the generic stream; the bounds stream K1/K6/K8 in that form.
+Strips on K5 and Greeks on K3/K4 raise ``NotImplementedError`` naming
+ROADMAP B12.
 
 Only this path is ported.  Other configurations raise
 ``NotImplementedError`` naming their ROADMAP item; nothing runs another
@@ -145,7 +147,9 @@ class StreamConfig:
     (``_reject_unported_estimators``); on a kernel family it needs the
     boundary policy (``_check_pairing``).  ``fgn_matmul_dtype``
     ("float32" or "bfloat16") is the fGN product's input dtype; the
-    family does not depend on it (``_check_bf16`` says where bf16 runs)."""
+    family does not depend on it, and every single-strike kernel body
+    runs in both (strips on K5 and the Greeks refuse bf16:
+    ``_check_bf16_chain``, ``_require_greeks``)."""
 
     n_paths: int
     n_steps: int
@@ -326,24 +330,14 @@ def _chol_dh_matrix_host(n_steps: int, h: float, eta: float, dt: float,
     return dlt
 
 
-def _check_bf16(config: StreamConfig, family: str, quadratic: bool,
-                chain: bool = False) -> None:
-    """Where ``fgn_matmul_dtype="bfloat16"`` runs: the chol bodies of
-    K1/K2 and K6/K7 under the boundary policy, and the generic stream.
-    The other kernel combinations raise NotImplementedError naming
-    ROADMAP B12: the spectral form, the quadratic policy, strips on K5
-    (``chain``) and the factored family K8/K9."""
-    if (not pathgen_cuda.check_fgn_dtype(config.fgn_matmul_dtype)
-            or family == "stream"):
-        return
-    if family == "factored":
-        raise pathgen_cuda.b12_error(
-            f"on the factored family K8/K9 (n_steps={config.n_steps})")
-    if kernel_fgn_form(config.fgn_form) == "spectral":
-        raise pathgen_cuda.b12_error("with fgn_form='spectral'")
-    if quadratic:
-        raise pathgen_cuda.b12_error("under the quadratic policy")
-    if chain:
+def _check_bf16_chain(config: StreamConfig, family: str) -> None:
+    """Where ``fgn_matmul_dtype="bfloat16"`` runs a strip: the generic
+    stream only.  A strip on a kernel family (K5) raises
+    NotImplementedError naming ROADMAP B12; every single-strike kernel
+    body has its bf16 form, and the Greeks refuse it in
+    ``_require_greeks``."""
+    if (pathgen_cuda.check_fgn_dtype(config.fgn_matmul_dtype)
+            and family != "stream"):
         raise pathgen_cuda.b12_error("on a strike strip (K5)")
 
 
@@ -675,7 +669,8 @@ class _FusedStream:
             # The family builds only its own constants: no Cholesky.
             self._pathgen = pathgen_factored_cuda.factored_pathgen
             self.consts = pathgen_factored_cuda.make_factored_consts(
-                s0, xi, h, eta, r, config.n_steps, config.dt, device)
+                s0, xi, h, eta, r, config.n_steps, config.dt, device,
+                fgn_dtype=config.fgn_matmul_dtype)
             return
         form = kernel_fgn_form(config.fgn_form)
         if self.kernel_family == "single":
@@ -880,7 +875,6 @@ class StreamingPricer(_FusedStream):
                                        config.tiled_impl, config.pathgen_impl,
                                        config.poly_order)
         self.quadratic = config.policy_form == "quadratic"
-        _check_bf16(config, family, self.quadratic)
         super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
                          device, family)
         _check_pairing(self.quadratic, self.kernel_family, config,
@@ -1171,7 +1165,7 @@ class StreamingChainPricer(_FusedStream):
                 "bucketed and traced-market chains (the serving pricers) "
                 "are not ported (ROADMAP A13)")
         family = chain_family(config)
-        _check_bf16(config, family, False, chain=True)
+        _check_bf16_chain(config, family)
         super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
                          device, family)
         self.quadratic = config.chain_policy_form == "quadratic"

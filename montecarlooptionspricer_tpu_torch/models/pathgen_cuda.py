@@ -39,16 +39,18 @@ two are the same Gaussian law.  Noise is [2, rows, n_steps] (N, W) or
 [3, rows, n_steps] (Zr, Zi, W).  The launch counters count each form
 apart (``form_name``: "spectral", "spectral/anti", ...).
 
-The chol form also runs with bf16 fGN inputs (``make_path_consts(
+Both fGN forms also run with bf16 fGN inputs (``make_path_consts(
 fgn_dtype="bfloat16")``; counterpart: ``StreamConfig.fgn_matmul_dtype`` and
 the ``fgn_dtype`` of the JAX makers, ``_fgn_consts:1359`` and
-``_fgn_x:142``): ``lt_half`` is a torch.bfloat16 Lt', bit-equal to JAX's
-bf16 matrix (the float64 factor rounded to bf16, then halved, which is
-exact), and the kernels round N to bf16 (nearest even) and sum the product
-on the tensor cores in float32.  The plain versions round N likewise and
-take the float32 product of the bf16 values.  K1 and K2 count it as "bf16",
-"bf16/anti", "bf16/cv" and "bf16/anti+cv".  The spectral form, the
-quadratic policy, and K5, K3, K4 take no bf16 constants yet (ROADMAP B12).
+``_fgn_x:142``): ``lt_half`` (or ``cr_half`` and ``ci_half``) is a
+torch.bfloat16 matrix, bit-equal to JAX's bf16 one (the float64 matrix
+rounded to bf16, then halved, which is exact), and the kernels round the
+noise planes they multiply (N, or Zr and Zi) to bf16 (nearest even) and
+sum the products on the tensor cores in float32.  The plain versions
+round them likewise and take the float32 products of the bf16 values.
+The launch counters put "bf16/" ahead of the float32 form's name:
+"bf16", "bf16/anti", ..., "bf16/spectral/quad/cv" (``form_name``).  K5,
+K3 and K4 take no bf16 constants yet (ROADMAP B12).
 
 Each kernel has a seeded entry (Philox4x32-10 written into the kernel) and
 a noise-in entry.  The wrappers run the plain versions for tensors on the
@@ -244,14 +246,15 @@ def form_name(antithetic: bool, with_cv: bool = False,
     """A launch counter's key: "plain", "anti", "cv" or "anti+cv", "quad"
     or "quad/cv" under the quadratic policy, "spectral",
     "spectral/anti", "spectral/quad", ... for the spectral fGN form, and
-    "bf16", "bf16/anti", ... for the bf16 fGN-input form."""
+    "bf16" ahead of either for the bf16 fGN-input form: "bf16",
+    "bf16/anti", ..., "bf16/spectral/quad/cv"."""
     if quadratic:
         name = QUAD_FORMS[int(bool(with_cv))]
     else:
         name = FORMS[int(bool(antithetic)) + 2 * int(bool(with_cv))]
-    if bf16:
-        return _prefixed(BF16, name)
-    return _spectral_name(name) if spectral else name
+    if spectral:
+        name = _spectral_name(name)
+    return _prefixed(BF16, name) if bf16 else name
 
 
 def check_policy(policy_form: str, antithetic: bool = False) -> bool:
@@ -269,31 +272,47 @@ def check_policy(policy_form: str, antithetic: bool = False) -> bool:
     return quadratic
 
 
-def new_form_counts(forms=FORMS, bf16_forms=()) -> dict:
-    """Zeroed launch counters of ``forms`` in both fGN forms, and of
-    ``bf16_forms`` in the bf16 fGN-input form."""
-    return dict.fromkeys([*forms, *map(_spectral_name, forms),
-                          *(_prefixed(BF16, f) for f in bf16_forms)], 0)
+def bf16_names(forms) -> list:
+    """The bf16 fGN-input form's counter keys of ``forms``."""
+    return [_prefixed(BF16, f) for f in forms]
+
+
+def new_form_counts(forms=FORMS, bf16: bool = False) -> dict:
+    """Zeroed launch counters of ``forms`` in both fGN forms, and with
+    ``bf16`` of the same in the bf16 fGN-input form."""
+    names = [*forms, *map(_spectral_name, forms)]
+    return dict.fromkeys([*names, *(bf16_names(names) if bf16 else ())], 0)
+
+
+TILE_KB = TILE_K + 8   # bf16 row stride of a staged factor tile
 
 
 def block_smem_bytes(n_steps: int, block_paths: int, n_products: int = 1,
-                     extra: int = 0, spectral: bool = False) -> int:
+                     extra: int = 0, spectral: bool = False,
+                     bf16: bool = False) -> int:
     """Shared memory of one single-tile CUDA block (``block_smem_bytes`` of
     csrc/fgn_tile.cuh, which K1-K5 share): the N and W planes (row stride
     n_steps rounded up to odd, so rows fall on distinct banks; under
     ``spectral`` Zr, Zi and W), per fGN product an X tile (stride
     TILE_COLS + 1), the staged factor tiles (one per product, or Cr' and
-    Ci' under ``spectral``) and ``extra`` floats."""
+    Ci' under ``spectral``) and ``extra`` floats.  Under ``bf16`` the
+    planes multiplied (N, or Zr and Zi) are bf16 with row stride n_steps
+    rounded up to 16 plus 8, and each staged tile is bf16
+    [TILE_COLS][TILE_KB]."""
     ld = n_steps | 1
-    planes, staged = (3, 2) if spectral else (2, n_products)
-    floats = (planes * block_paths * ld + extra
-              + n_products * block_paths * (TILE_COLS + 1)
-              + staged * TILE_K * TILE_COLS)
+    mult = 2 if spectral else 1          # planes multiplied, tiles staged
+    plane = (block_paths * (_round_up(n_steps, 16) + 8) // 2 if bf16
+             else block_paths * ld)
+    staged = (mult * TILE_COLS * TILE_KB // 2 if bf16
+              else (mult if spectral else n_products) * TILE_K * TILE_COLS)
+    floats = (mult * plane + block_paths * ld + extra
+              + n_products * block_paths * (TILE_COLS + 1) + staged)
     return 4 * floats
 
 
 def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
-               with_cv: bool = False, spectral: bool = False) -> int:
+               with_cv: bool = False, spectral: bool = False,
+               bf16: bool = False) -> int:
     """K1 and K2 (``smem_bytes`` of csrc/pathgen.cu): one product and the
     path-sum slots (twice under CV).  A paired block of ``block_paths``
     members keeps half as many rows of noise and a product tile of every
@@ -301,7 +320,7 @@ def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
     drawn = block_paths // 2 if antithetic else block_paths
     return block_smem_bytes(
         n_steps, drawn, extra=(block_paths - drawn) * (TILE_COLS + 1)
-        + (2 if with_cv else 1) * block_paths, spectral=spectral)
+        + (2 if with_cv else 1) * block_paths, spectral=spectral, bf16=bf16)
 
 
 def fitting_block(smem, n_steps: int, rows: int = 0,
@@ -334,9 +353,8 @@ def check_fgn_dtype(fgn_dtype: str) -> bool:
 def b12_error(what: str) -> NotImplementedError:
     """The error of a bf16 fGN-input form that is not ported yet."""
     return NotImplementedError(
-        f"fgn_matmul_dtype='bfloat16' {what}: the bf16 forms of the "
-        "spectral bodies, the quadratic policy, K5, K3/K4 and K8/K9 are not "
-        "ported (ROADMAP B12)")
+        f"fgn_matmul_dtype='bfloat16' {what}: the bf16 forms of K5 and "
+        "K3/K4 are not ported (ROADMAP B12)")
 
 
 def max_block_paths(n_steps: int, fgn_form: str = "chol") -> int:
@@ -442,10 +460,10 @@ def make_path_consts(s0, xi, h, eta, r, n_steps: int, dt: float,
     """PathConsts for the chol or the spectral fGN form, at any horizon:
     0.5 times the float64 host factors (``engine._chol_matrix_host``, or
     ``engine._fgn_matrices_np``'s Cr and Ci) cast to float32, or under
-    ``fgn_dtype="bfloat16"`` (the chol form) the factor rounded to
-    torch.bfloat16 and halved, bit for bit JAX's ``_fgn_consts`` matrix
-    (float64 -> float32 -> bf16, nearest even, as ``jnp.asarray`` rounds;
-    halving is exact).  ``block_paths`` 0 takes the largest single-tile
+    ``fgn_dtype="bfloat16"`` each matrix rounded to torch.bfloat16 and
+    halved, bit for bit JAX's ``_fgn_consts`` matrices (float64 ->
+    float32 -> bf16, nearest even, as ``jnp.asarray`` rounds; halving is
+    exact).  ``block_paths`` 0 takes the largest single-tile
     block the card admits at this horizon and form (0 past the single-tile
     cap; the bf16 form keeps the float32 form's blocks); the single-tile
     wrappers check it."""
@@ -453,8 +471,6 @@ def make_path_consts(s0, xi, h, eta, r, n_steps: int, dt: float,
 
     spectral = _check_form(fgn_form)
     bf16 = check_fgn_dtype(fgn_dtype)
-    if bf16 and spectral:
-        raise b12_error("with fgn_form='spectral'")
 
     def half(m):
         m = 0.5 * torch.tensor(np.asarray(m), dtype=torch.float32)
@@ -722,15 +738,17 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
 def fgn_x_ref(consts: PathConsts, noise: torch.Tensor) -> torch.Tensor:
     """[rows, n_steps] half-scaled fGN plane of the noise planes: N @ Lt'
     (chol), or Zr @ Cr' - Zi @ Ci' (spectral, ``_fgn_x``), float32.  The
-    bf16 form rounds N to bf16 and takes the float32 product of the bf16
-    N and Lt' (every product of two bf16 values is exact in float32)."""
+    bf16 form rounds N (Zr and Zi) to bf16 and takes the float32 products
+    of the bf16 planes and matrices (every product of two bf16 values is
+    exact in float32), as JAX's ``_fgn_x`` does with bf16 matrices."""
+    def mm(plane, m):
+        if consts.bf16:
+            return _matmul_f32(round_bf16(plane), m.to(torch.float32))
+        return _matmul_f32(plane, m)
+
     if consts.spectral:
-        return (_matmul_f32(noise[0], consts.cr_half)
-                - _matmul_f32(noise[1], consts.ci_half))
-    if consts.bf16:
-        return _matmul_f32(round_bf16(noise[0]),
-                           consts.lt_half.to(torch.float32))
-    return _matmul_f32(noise[0], consts.lt_half)
+        return mm(noise[0], consts.cr_half) - mm(noise[1], consts.ci_half)
+    return mm(noise[0], consts.lt_half)
 
 
 def _log_paths_ref(consts: PathConsts, noise: torch.Tensor,
@@ -963,7 +981,8 @@ def pathgen(consts: PathConsts, rows: int = None, key: int = None,
                       device=consts.device)
     from ..kernels import build
 
-    err = build.load().mcop_pathgen(
+    err = build.entry(build.load(), "pathgen", "mcop_pathgen", consts.bf16,
+                      noise is None)(
         *args, *_scalars(consts), ctypes.c_float(consts.s0),
         int(bool(antithetic)), int(consts.bf16), out.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
@@ -975,7 +994,7 @@ def pathgen(consts: PathConsts, rows: int = None, key: int = None,
 
 
 pathgen.launches = 0
-pathgen.form_launches = new_form_counts(PATH_FORMS, PATH_FORMS)
+pathgen.form_launches = new_form_counts(PATH_FORMS, bf16=True)
 
 
 def sums_from_partials(partial: torch.Tensor, with_cv: bool):
@@ -1013,7 +1032,7 @@ def priced_chunk(consts: PathConsts, table: torch.Tensor, strike: float,
     quadratic = check_policy(policy_form, antithetic)
     rows = _noise_or_rows(consts, rows, key, noise, antithetic)
     check_table(table, consts.n_steps, quadratic)
-    consts.check_dtype(not quadratic, "the quadratic policy")
+    consts.check_dtype()
     if consts.device.type == "cpu":
         if noise is None:
             noise = normals_ref(consts, key, drawn_rows(rows, antithetic))
@@ -1027,7 +1046,8 @@ def priced_chunk(consts: PathConsts, table: torch.Tensor, strike: float,
                           dtype=torch.float32, device=consts.device)
     from ..kernels import build
 
-    err = build.load().mcop_priced_chunk(
+    err = build.entry(build.load(), "pathgen", "mcop_priced_chunk",
+                      consts.bf16, noise is None)(
         *args, *_scalars(consts), table.data_ptr(), table.stride(0),
         ctypes.c_float(strike), int(bool(is_call)), int(bool(antithetic)),
         int(bool(with_cv)), int(quadratic), int(consts.bf16),
@@ -1042,4 +1062,4 @@ def priced_chunk(consts: PathConsts, table: torch.Tensor, strike: float,
 
 
 priced_chunk.launches = 0
-priced_chunk.form_launches = new_form_counts(FORMS + QUAD_FORMS, FORMS)
+priced_chunk.form_launches = new_form_counts(FORMS + QUAD_FORMS, bf16=True)

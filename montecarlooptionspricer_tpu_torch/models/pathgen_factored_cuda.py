@@ -33,6 +33,17 @@ Euler recursion and the first-hit test are those of the other kernels, and
 the plain versions share their code (``pathgen_cuda.log_paths_from_x``,
 ``priced_sums``).
 
+Both also run with bf16 fGN inputs (``make_factored_consts(
+fgn_dtype="bfloat16")``; counterpart: ``fgn_dtype`` of the JAX makers,
+``_consts:129-131`` and ``_stage1:158``): F1 is a torch.bfloat16 matrix
+(the float32 F1 rounded to nearest even), the kernels round a = Z * phi'
+to bf16 and run stage 1 on the tensor cores with float32 sums; phi', the
+twiddle, stage 2 and everything after stay float32, as in JAX.  The plain
+version is then the four-step split itself (``four_step_x``), the
+rounding sitting on stage 1's inputs, which the FFT has no place for.
+The counters count these forms as "bf16", "bf16/anti", ...,
+"bf16/quad/cv".
+
 Noise layout (the JAX noise-in entry's): [3, rows, m2] float32, planes 0
 and 1 the real and imaginary fGN normals in storage order, plane 2 the
 price Brownian in step order (its first s_pad columns read).
@@ -120,8 +131,9 @@ class FactoredConsts:
     ``phi_r``, ``phi_i`` [N2, 128], the twiddle ``tw_r``, ``tw_i``
     [N2, 128], the stage-2 table ``c2``, ``s2`` [N2, N2] (cos and sin of
     2 pi ((k2 j) mod N2) / N2), the half variance drift ``vd`` [n] and
-    the market scalars.  Its tensors' device decides where the wrappers
-    run."""
+    the market scalars.  Under ``fgn_dtype="bfloat16"`` F1 is
+    torch.bfloat16 and the rest stays float32.  Its tensors' device
+    decides where the wrappers run."""
 
     n_steps: int
     f1r: torch.Tensor
@@ -136,10 +148,26 @@ class FactoredConsts:
     s0: float
     r: float
     dt: float
+    fgn_dtype: str = "float32"
 
     @property
     def device(self) -> torch.device:
         return self.vd.device
+
+    @property
+    def bf16(self) -> bool:
+        """Whether these are the bf16 fGN-input form's constants."""
+        return self.fgn_dtype == "bfloat16"
+
+    def check_dtype(self) -> None:
+        """F1 in the dtype its form names, torch.bfloat16 under
+        ``fgn_dtype="bfloat16"`` and float32 otherwise (ValueError on a
+        mismatch, so no kernel reads one as the other)."""
+        want = torch.bfloat16 if self.bf16 else torch.float32
+        if self.f1r.dtype != want or self.f1i.dtype != want:
+            raise ValueError(
+                f"fgn_dtype={self.fgn_dtype!r} needs {want} F1, got "
+                f"{self.f1r.dtype}, {self.f1i.dtype}")
 
     @property
     def m2(self) -> int:
@@ -156,11 +184,13 @@ def _unit_root(num: np.ndarray, den: int) -> np.ndarray:
 
 
 def make_factored_consts(s0, xi, h, eta, r, n_steps: int, dt: float,
-                         device) -> FactoredConsts:
+                         device, fgn_dtype: str = "float32") -> FactoredConsts:
     """FactoredConsts built in float64 on the host and cast once to
-    float32.  The diagonal carries the half-scaling of the other kernels'
-    ``lt_half``: with the extra 0.5, exp(x + vd) is sqrt(v).  No
-    Cholesky factor is built."""
+    float32 (F1 then to bf16 under ``fgn_dtype="bfloat16"``).  The
+    diagonal carries the half-scaling of the other kernels' ``lt_half``:
+    with the extra 0.5, exp(x + vd) is sqrt(v).  No Cholesky factor is
+    built."""
+    bf16 = pc.check_fgn_dtype(fgn_dtype)
     if not supports(n_steps):
         raise ValueError(f"n_steps={n_steps} outside the factored kernels' "
                          f"range ({LANE} < n <= {max_factored_steps()})")
@@ -177,17 +207,19 @@ def make_factored_consts(s0, xi, h, eta, r, n_steps: int, dt: float,
     tw = _unit_root(np.outer(k2, k1), m2)                       # [k2, m1]
     st2 = _unit_root(np.outer(k2, k2), n2)                      # [k2, j]
 
-    def dev(v):
-        return torch.tensor(v, dtype=torch.float32).to(device).contiguous()
+    def dev(v, dtype=torch.float32):
+        t = torch.tensor(v, dtype=torch.float32).to(dtype)
+        return t.to(device).contiguous()
 
+    f1_dtype = torch.bfloat16 if bf16 else torch.float32
     vd = pc._half_var_drift(n_steps, n_steps, xi, h, eta, dt)[0]
     # W_N2^{k2 j} = cos - i sin: stage 2 adds Re S' cos + Im S' sin.
     return FactoredConsts(
-        n_steps=n_steps, f1r=dev(f1.real), f1i=dev(f1.imag),
-        phi_r=dev(phi_t.real), phi_i=dev(phi_t.imag), tw_r=dev(tw.real),
-        tw_i=dev(tw.imag), c2=dev(st2.real), s2=dev(-st2.imag),
-        vd=vd.to(device).contiguous(), s0=float(s0), r=float(r),
-        dt=float(dt))
+        n_steps=n_steps, f1r=dev(f1.real, f1_dtype),
+        f1i=dev(f1.imag, f1_dtype), phi_r=dev(phi_t.real),
+        phi_i=dev(phi_t.imag), tw_r=dev(tw.real), tw_i=dev(tw.imag),
+        c2=dev(st2.real), s2=dev(-st2.imag), vd=vd.to(device).contiguous(),
+        s0=float(s0), r=float(r), dt=float(dt), fgn_dtype=fgn_dtype)
 
 
 def transposed_to_logical(cols: int) -> torch.Tensor:
@@ -240,11 +272,46 @@ def philox_factored_normals_ref(key: int, rows: int, n_steps: int,
 # ---------------------------------------------------------------------------
 # Plain versions (the CPU path, and the card's reference).
 
+def four_step_x(consts: FactoredConsts, noise: torch.Tensor,
+                block_rows: int = 1 << 14) -> torch.Tensor:
+    """[rows, n_steps] half-scaled fGN increments from [3, rows, m2] noise
+    by the kernels' own four-step split (``_stage1:158``, then stage 2):
+    a = Z * phi' in float32, each product and sum rounded apart in the
+    kernels' order (rounded to bf16 under the bf16 form, with the bf16
+    F1); S = a @ F1 with float32 products and sums; the float32 twiddle;
+    and x = Re S' @ cos2 + Im S' @ sin2 over k2.  The rows go in blocks of
+    ``block_rows`` to bound the temporaries."""
+    n, m2, n2 = consts.n_steps, consts.m2, _n2(consts.n_steps)
+    rows = noise.shape[1]
+    f1r = consts.f1r.to(torch.float32)
+    f1i = consts.f1i.to(torch.float32)
+    out = torch.empty((rows, n), dtype=torch.float32, device=noise.device)
+    for b0 in range(0, rows, block_rows):
+        zr = noise[0, b0:b0 + block_rows].reshape(-1, n2, LANE)
+        zi = noise[1, b0:b0 + block_rows].reshape(-1, n2, LANE)
+        ar = zr * consts.phi_r - zi * consts.phi_i
+        ai = zr * consts.phi_i + zi * consts.phi_r
+        if consts.bf16:
+            ar, ai = pc.round_bf16(ar), pc.round_bf16(ai)
+        sr = pc._matmul_f32(ar, f1r) - pc._matmul_f32(ai, f1i)
+        si = pc._matmul_f32(ar, f1i) + pc._matmul_f32(ai, f1r)
+        spr = sr * consts.tw_r - si * consts.tw_i     # [rows, k2, m1]
+        spi = sr * consts.tw_i + si * consts.tw_r
+        x = (pc._matmul_f32(spr.transpose(1, 2), consts.c2)
+             + pc._matmul_f32(spi.transpose(1, 2), consts.s2))   # [., m1, j]
+        out[b0:b0 + block_rows] = x.transpose(1, 2).reshape(-1, m2)[:, :n]
+    return out
+
+
 def fgn_from_noise_ref(consts: FactoredConsts,
                        noise: torch.Tensor) -> torch.Tensor:
     """[rows, n_steps] half-scaled fGN increments from [3, rows, m2] noise:
     planes 0 and 1 permuted to logical order, then the reference's
-    spectral synthesis with the half-scaled diagonal."""
+    spectral synthesis with the half-scaled diagonal; under the bf16 form
+    the four-step split (``four_step_x``), where the rounding of stage
+    1's inputs has its place."""
+    if consts.bf16:
+        return four_step_x(consts, noise)
     n, m2 = consts.n_steps, consts.m2
     diag = torch.complex(_to_logical(consts.phi_r.reshape(m2)),
                          _to_logical(consts.phi_i.reshape(m2)))
@@ -347,6 +414,7 @@ def factored_pathgen(consts: FactoredConsts, rows: int = None,
     draws rows / 2 rows, noise is [3, rows / 2, m2]): the drawn rows'
     paths, then their partners'."""
     rows = _noise_or_rows(consts, rows, key, noise, antithetic)
+    consts.check_dtype()
     drawn = pc.drawn_rows(rows, antithetic)
     if consts.device.type == "cpu":
         if noise is None:
@@ -357,18 +425,21 @@ def factored_pathgen(consts: FactoredConsts, rows: int = None,
                       device=consts.device)
     from ..kernels import build
 
-    err = build.load().mcop_factored_pathgen(
+    err = build.entry(build.load(), "pathgen_factored",
+                      "mcop_factored_pathgen", consts.bf16)(
         *ptrs, _key_word(key), *pc._scalars(consts), ctypes.c_float(consts.s0),
-        int(bool(antithetic)), out.data_ptr(),
+        int(bool(antithetic)), int(consts.bf16), out.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, "factored_pathgen")
     factored_pathgen.launches += 1
-    factored_pathgen.form_launches[pc.PATH_FORMS[int(bool(antithetic))]] += 1
+    factored_pathgen.form_launches[pc.form_name(antithetic,
+                                                bf16=consts.bf16)] += 1
     return out
 
 
 factored_pathgen.launches = 0
-factored_pathgen.form_launches = dict.fromkeys(pc.PATH_FORMS, 0)
+factored_pathgen.form_launches = dict.fromkeys(
+    [*pc.PATH_FORMS, *pc.bf16_names(pc.PATH_FORMS)], 0)
 
 
 def factored_priced_chunk(consts: FactoredConsts, table: torch.Tensor,
@@ -388,6 +459,7 @@ def factored_priced_chunk(consts: FactoredConsts, table: torch.Tensor,
     quadratic = pc.check_policy(policy_form, antithetic)
     rows = _noise_or_rows(consts, rows, key, noise, antithetic)
     pc.check_table(table, consts.n_steps, quadratic)
+    consts.check_dtype()
     drawn = pc.drawn_rows(rows, antithetic)
     if consts.device.type == "cpu":
         if noise is None:
@@ -402,19 +474,21 @@ def factored_priced_chunk(consts: FactoredConsts, table: torch.Tensor,
         dtype=torch.float32, device=consts.device)
     from ..kernels import build
 
-    err = build.load().mcop_factored_priced_chunk(
+    err = build.entry(build.load(), "pathgen_factored",
+                      "mcop_factored_priced_chunk", consts.bf16)(
         *ptrs, _key_word(key), *pc._scalars(consts), table.data_ptr(),
         table.stride(0), ctypes.c_float(strike), int(bool(is_call)),
         int(bool(antithetic)), int(bool(with_cv)), int(quadratic),
-        ctypes.c_float(pc.cv_discount(consts)), partial.data_ptr(),
+        int(consts.bf16), ctypes.c_float(pc.cv_discount(consts)),
+        partial.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, "factored_priced_chunk")
     factored_priced_chunk.launches += 1
-    factored_priced_chunk.form_launches[
-        pc.form_name(antithetic, with_cv, quadratic=quadratic)] += 1
+    factored_priced_chunk.form_launches[pc.form_name(
+        antithetic, with_cv, quadratic=quadratic, bf16=consts.bf16)] += 1
     return pc.sums_from_partials(partial, with_cv)
 
 
 factored_priced_chunk.launches = 0
-factored_priced_chunk.form_launches = dict.fromkeys(pc.FORMS + pc.QUAD_FORMS,
-                                                    0)
+factored_priced_chunk.form_launches = dict.fromkeys(
+    [*pc.FORMS, *pc.QUAD_FORMS, *pc.bf16_names(pc.FORMS + pc.QUAD_FORMS)], 0)

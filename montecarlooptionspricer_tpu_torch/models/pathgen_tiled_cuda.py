@@ -23,12 +23,13 @@ versions are K1's and K2's, named here as ``pathgen_from_noise_ref`` and
 wrappers run the plain versions for tensors on the CPU and launch the
 kernel for tensors on a CUDA device; nothing falls back.
 
-Both also run the chol form with bf16 fGN inputs (a PathConsts of
-``fgn_dtype="bfloat16"``; counterpart: the slab's ``fgn_dtype``,
-``_consts:88`` and its bf16 noise tiles): the kernels round each N k-tile
-to bf16 and read bf16 Lt' k-tiles, summing the product on the tensor cores
-in float32; the plain versions are K1's and K2's bf16 ones.  Their counters
-count it as "bf16", "bf16/anti", ...
+Both also run with bf16 fGN inputs, chol and spectral, in every form (a
+PathConsts of ``fgn_dtype="bfloat16"``; counterpart: the slab's
+``fgn_dtype``, ``_consts:88`` and its bf16 noise tiles): the kernels round
+each N (Zr, Zi) k-tile to bf16 and read bf16 Lt' (Cr', Ci') k-tiles,
+summing the products on the tensor cores in float32; the plain versions
+are K1's and K2's bf16 ones.  Their counters count it as "bf16",
+"bf16/anti", ..., "bf16/spectral/quad/cv".
 
 The noise planes [2, rows, n_steps] (N, W), or [3, rows, n_steps] (Zr, Zi,
 W) spectral, stay in device memory and the kernels
@@ -59,17 +60,23 @@ PAIRED_BLOCK_CHOICES = (128, 64, 32)   # members: 64, 32 or 16 drawn rows
 L2_BYTES = 50 * 1024 * 1024  # H100 SXM L2 cache
 
 
+TILE_KB = TILE_K + 8        # bf16 row stride of a staged k-tile
+
+
 def smem_bytes(block_paths: int, antithetic: bool = False,
-               with_cv: bool = False, spectral: bool = False) -> int:
+               with_cv: bool = False, spectral: bool = False,
+               bf16: bool = False) -> int:
     """Shared memory of one CUDA block (``mcop_tiled_smem_bytes``): the
     N^T k-tile of its drawn rows (row stride drawn + 4), the Lt' k-tile
     (``spectral``: the Zr^T and Zi^T k-tiles and the Cr' and Ci'
-    k-tiles), the X tile of its ``block_paths`` paths (stride TILE_COLS +
-    1) and the path-sum slots (twice under CV).  It does not depend on the
-    horizon."""
+    k-tiles; ``bf16``: each a bf16 tile of row stride TILE_KB, N's
+    [drawn][TILE_KB], the factor's [TILE_COLS][TILE_KB]), the X tile of its
+    ``block_paths`` paths (stride TILE_COLS + 1) and the path-sum slots
+    (twice under CV).  It does not depend on the horizon."""
     drawn = block_paths // 2 if antithetic else block_paths
-    floats = ((2 if spectral else 1) * (TILE_K * (drawn + 4)
-                                        + TILE_K * TILE_COLS)
+    tiles = ((drawn + TILE_COLS) * TILE_KB // 2 if bf16
+             else TILE_K * (drawn + 4) + TILE_K * TILE_COLS)
+    floats = ((2 if spectral else 1) * tiles
               + block_paths * (TILE_COLS + 1)
               + (2 if with_cv else 1) * block_paths)
     return 4 * floats
@@ -143,7 +150,8 @@ def tiled_pathgen(consts: pc.PathConsts, rows: int = None, key: int = None,
                       device=consts.device)
     from ..kernels import build
 
-    err = build.load().mcop_tiled_pathgen(
+    err = build.entry(build.load(), "pathgen_tiled", "mcop_tiled_pathgen",
+                      consts.bf16, bool(seeded))(
         plane.data_ptr(), seeded, *consts.factor_ptrs(),
         consts.vd.data_ptr(), rows, consts.n_steps, bp, word,
         *pc._scalars(consts), ctypes.c_float(consts.s0),
@@ -158,8 +166,7 @@ def tiled_pathgen(consts: pc.PathConsts, rows: int = None, key: int = None,
 
 
 tiled_pathgen.launches = 0
-tiled_pathgen.form_launches = pc.new_form_counts(pc.PATH_FORMS,
-                                                 pc.PATH_FORMS)
+tiled_pathgen.form_launches = pc.new_form_counts(pc.PATH_FORMS, bf16=True)
 
 
 def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
@@ -178,7 +185,7 @@ def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
     quadratic = pc.check_policy(policy_form, antithetic)
     rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
     pc.check_table(table, consts.n_steps, quadratic)
-    consts.check_dtype(not quadratic, "the quadratic policy")
+    consts.check_dtype()
     if consts.device.type == "cpu":
         if noise is None:
             noise = pc.normals_ref(consts, key,
@@ -193,7 +200,8 @@ def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
                           dtype=torch.float32, device=consts.device)
     from ..kernels import build
 
-    err = build.load().mcop_tiled_priced_chunk(
+    err = build.entry(build.load(), "pathgen_tiled",
+                      "mcop_tiled_priced_chunk", consts.bf16, bool(seeded))(
         plane.data_ptr(), seeded, *consts.factor_ptrs(),
         consts.vd.data_ptr(), rows, consts.n_steps, bp, word,
         *pc._scalars(consts), table.data_ptr(), table.stride(0),
@@ -210,4 +218,4 @@ def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
 
 tiled_priced_chunk.launches = 0
 tiled_priced_chunk.form_launches = pc.new_form_counts(
-    pc.FORMS + pc.QUAD_FORMS, pc.FORMS)
+    pc.FORMS + pc.QUAD_FORMS, bf16=True)

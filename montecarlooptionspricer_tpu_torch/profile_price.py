@@ -30,10 +30,12 @@ K6/K7 with ``--tiled-impl slab``; K8/K9 past 365 steps otherwise).
 ``chain_policy_form``: the stream then runs the quadratic form of the
 priced kernel (K2, K7 or K9; K5 for a strip), the fit and its tables
 being otherwise the same.  ``--fgn-matmul-dtype bfloat16`` sets
-``StreamConfig.fgn_matmul_dtype``: the bf16 fGN-input forms of K1/K2 (K6/K7
-past 365 steps), as the JAX bench runs its long horizon.  For each stage it prints one JSON line: host wall seconds, device kernel launches and busy
-seconds from the trace, the idle share 1 - busy / wall (against the
-unprofiled and the profiled wall), and the kernels that take the most
+``StreamConfig.fgn_matmul_dtype``: the bf16 fGN-input forms of the
+family's kernels (K1/K2, K6/K7, K8/K9, in the fGN and policy forms the
+other flags name), as the JAX bench runs its long horizons.  For each
+stage it prints one JSON line: host wall seconds, device kernel launches
+and busy seconds from the trace, the idle share 1 - busy / wall (against
+the unprofiled and the profiled wall), and the kernels that take the most
 device time.
 
 Usage (one CUDA card):

@@ -219,28 +219,59 @@ def _cfg(n_steps, **kw):
 
 
 @pytest.mark.parametrize("case", [
-    dict(n_steps=32, fgn_form="spectral"),
-    dict(n_steps=32, policy_form="quadratic"),
-    dict(n_steps=400, policy_form="quadratic"),
-    dict(n_steps=4000),
-    dict(n_steps=1825, tiled_impl="factored"),
+    dict(cfg=dict(n_steps=32, fgn_form="spectral"), family="single",
+         forms=("bf16/spectral", "bf16/spectral")),
+    dict(cfg=dict(n_steps=32, policy_form="quadratic"), family="single",
+         forms=("bf16", "bf16/quad")),
+    dict(cfg=dict(n_steps=400, policy_form="quadratic"), family="tiled",
+         forms=("bf16", "bf16/quad")),
+    dict(cfg=dict(n_steps=4000), family="factored", forms=("bf16", "bf16")),
+    dict(cfg=dict(n_steps=1825, tiled_impl="factored"), family="factored",
+         forms=("bf16", "bf16")),
+    dict(cfg=dict(n_steps=32), strip=True),
+    dict(cfg=dict(n_steps=32), greeks=True),
+    dict(cfg=dict(n_steps=32), strip=True, greeks=True),
 ], ids=["spectral", "quadratic", "quadratic-slab", "factored-4000",
-        "factored-1825"])
+        "factored-1825", "k5-strip", "k3-greeks", "k4-strip-greeks"])
 def test_bf16_routing_raises_b12(case):
-    """Each kernel combination without a bf16 form raises naming ROADMAP
-    B12 at construction, before any constant is built."""
-    with pytest.raises(NotImplementedError, match="B12"):
-        tengine.StreamingPricer(**BENCH_MARKET, strike=105.0,
-                                maturity=case["n_steps"] * DT,
-                                is_call=False, config=_cfg(**case),
-                                device="cpu")
+    """Every single-strike kernel combination routes bf16 to its bf16
+    body: the family is the float32 one, the constants are bf16, and the
+    family's path and priced wrappers count the form under "bf16/..."
+    keys (no launch on the CPU, which runs the plain versions).  What has
+    no bf16 body raises naming ROADMAP B12 before any constant is built:
+    a strip on K5 at construction, the Greeks on K3 when asked for, and
+    a strip's Greeks (K4) at its strip's construction."""
+    n = case["cfg"]["n_steps"]
+    market = dict(**BENCH_MARKET, maturity=n * DT, is_call=False,
+                  config=_cfg(**case["cfg"]), device="cpu")
+    if case.get("strip"):
+        with pytest.raises(NotImplementedError, match="B12"):
+            tengine.StreamingChainPricer(**market, strikes=[95.0, 105.0])
+        return
+    p = tengine.StreamingPricer(**market, strike=105.0)
+    if case.get("greeks"):
+        with pytest.raises(NotImplementedError, match="B12"):
+            p.price_and_greeks(0)
+        return
+    assert p.kernel_family == case["family"] and p.consts.bf16
+    # K8/K9 are spectral by law and name no fGN form in their keys.
+    spectral = (case["family"] != "factored"
+                and case["cfg"].get("fgn_form") == "spectral")
+    assert case["family"] == "factored" or p.consts.spectral == spectral
+    path_form, priced_form = case["forms"]
+    quadratic = case["cfg"].get("policy_form") == "quadratic"
+    assert pc.form_name(False, False, spectral, quadratic,
+                        True) == priced_form
+    assert path_form in p._pathgen.form_launches
+    assert priced_form in p._priced_chunk.form_launches
 
 
 def test_bf16_routing():
     """bf16 keeps the float32 form's families (single to 365 steps, the
     chol slab past it), runs the generic stream under pathgen_impl="xla"
-    and a quadratic policy there; strips on K5 and the Greeks raise B12;
-    an unknown dtype raises ValueError."""
+    and a quadratic policy there; strips on K5 and the Greeks raise B12,
+    strips on the generic stream do not; an unknown dtype raises
+    ValueError."""
     with pytest.raises(ValueError, match="fgn_matmul_dtype"):
         tengine.StreamConfig(n_paths=1024, n_steps=32,
                              fgn_matmul_dtype="float16")

@@ -5,6 +5,7 @@ machine without JAX it runs with the repository's conftest switched off:
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu
 """
 
+import ctypes
 import dataclasses
 
 import pytest
@@ -1057,7 +1058,7 @@ def _policy_table(consts, paths, n_steps, strike=100.0):
 
 
 def _check_quad_forms(priced, ref, consts, tables, normals, rows, key,
-                      spectral=False):
+                      spectral=False, bf16=False):
     """The quadratic form of one priced kernel, plain and CV, against its
     plain version, seeded and on noise: both lanes at rtol 1e-4 (a stop
     decision flips only inside the float32 root band, where an exp of
@@ -1065,13 +1066,14 @@ def _check_quad_forms(priced, ref, consts, tables, normals, rows, key,
     boundary form on the same key: the same paths, so the control sums
     agree to 1e-6 and the payoff sums to 1e-3 (the two policies decide
     apart only in the root band and where a step's exercise set is two
-    intervals).  Each launch counts under its own form."""
+    intervals).  Each launch counts under its own form (``bf16``: the
+    bf16 form's key)."""
     quad, boundary = tables
     noise = normals(key, rows)
     for cv in (False, True):
         want = ref(consts, quad, noise, 100.0, False, False, cv, "quadratic")
         want = want if cv else (want,)
-        name = pc.form_name(False, cv, spectral, quadratic=True)
+        name = pc.form_name(False, cv, spectral, quadratic=True, bf16=bf16)
         before = priced.form_launches[name]
         seeded = priced(consts, quad, 100.0, False, rows=rows, key=key,
                         with_cv=cv, policy_form="quadratic")
@@ -1238,28 +1240,26 @@ def _bf16_consts(n_steps, device, **kw):
             pc.make_path_consts(*MARKET.values(), n_steps, DT, device, **kw))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("family,n_steps", [("single", 365), ("single", 47),
-                                            ("tiled", 1825),
-                                            ("tiled", 300)])
-def test_bf16_kernels_match_plain_versions(cuda, family, n_steps):
+def _check_bf16_family(cuda, family, n_steps, fgn_form="chol"):
     """K1/bf16, K1/bf16/anti (K6 likewise) paths at rtol 2e-4 against the
     bf16 plain version, and 10x closer to it than to the float32 plain
     version (the tensor cores' float32 sums do not round each add, but
-    the bf16 rounding of N and Lt' is what sets the two forms apart); the
-    four K2/bf16 forms (K7) at rtol 1e-4; pairs to the bit against the
-    unpaired form on [X; -X]; seeded and on noise."""
+    the bf16 rounding of the noise and the factors is what sets the two
+    forms apart); the four K2/bf16 forms (K7) at rtol 1e-4; pairs to the
+    bit against the unpaired form on [X; -X]; seeded and on noise; each
+    launch counted under its form in ``fgn_form``."""
     rows, key = 1 << 17, pc._fold_words(5, 83)
-    consts, consts32 = _bf16_consts(n_steps, cuda)
+    consts, consts32 = _bf16_consts(n_steps, cuda, fgn_form=fgn_form)
+    spectral = fgn_form == "spectral"
     path, priced = {"single": (pc.pathgen, pc.priced_chunk),
                     "tiled": (ptc.tiled_pathgen, ptc.tiled_priced_chunk)}[
         family]
     for anti in (False, True):
         drawn = rows // 2 if anti else rows
-        noise = pc.philox_normals_ref(key, drawn, n_steps, device=cuda)
+        noise = pc.normals_ref(consts, key, drawn, device=cuda)
         want = pc.pathgen_from_noise_ref(consts, noise, anti)
         want32 = pc.pathgen_from_noise_ref(consts32, noise, anti)
-        name = pc.form_name(anti, bf16=True)
+        name = pc.form_name(anti, spectral=spectral, bf16=True)
         before = path.form_launches[name]
         for got in (path(consts, noise=noise, antithetic=anti),
                     path(consts, rows=rows, key=key, antithetic=anti)):
@@ -1278,10 +1278,12 @@ def test_bf16_kernels_match_plain_versions(cuda, family, n_steps):
     for anti in (False, True):
         for cv in (False, True):
             drawn = rows // 2 if anti else rows
-            noise = pc.philox_normals_ref(key, drawn, n_steps, device=cuda)
+            noise = pc.normals_ref(consts, key, drawn, device=cuda)
             ref = pc.priced_chunk_from_noise_ref(consts, table, noise, 100.0,
                                                  False, anti, cv)
             ref = ref if cv else (ref,)
+            name = pc.form_name(anti, cv, spectral, bf16=True)
+            before = priced.form_launches[name]
             for got in (priced(consts, table, 100.0, False, noise=noise,
                                antithetic=anti, with_cv=cv),
                         priced(consts, table, 100.0, False, rows=rows,
@@ -1290,13 +1292,127 @@ def test_bf16_kernels_match_plain_versions(cuda, family, n_steps):
                 torch.cuda.synchronize()
                 for g, w in zip(got, ref):
                     assert abs(float(g) / float(w) - 1.0) < 1e-4
+            assert priced.form_launches[name] - before == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,n_steps", [("single", 365), ("single", 47),
+                                            ("tiled", 1825),
+                                            ("tiled", 300)])
+def test_bf16_kernels_match_plain_versions(cuda, family, n_steps):
+    """The chol bodies' bf16 forms (``_check_bf16_family``)."""
+    _check_bf16_family(cuda, family, n_steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,n_steps", [("single", 365), ("single", 47),
+                                            ("tiled", 1825),
+                                            ("tiled", 300)])
+def test_bf16_spectral_kernels_match_plain_versions(cuda, family, n_steps):
+    """The spectral bodies' bf16 forms (``_check_bf16_family``): both
+    bf16 planes zero past a ragged n (47, 365), the dense product over
+    every k < n."""
+    _check_bf16_family(cuda, family, n_steps, "spectral")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [1825, 4000])
+def test_bf16_factored_matches_plain_versions(cuda, n_steps):
+    """K8/bf16 and K8/bf16/anti paths at rtol 5e-4 (K8's float32
+    tolerance) against the bf16 plain version (the four-step split), and
+    10x closer to it than to the float32 plain version (the FFT); the pair
+    to the bit against the unpaired form on [X; -X]; the six K9/bf16
+    forms at rtol 1e-4; seeded and on noise, each launch counted under its
+    form."""
+    rows, key = 1 << 17, pc._fold_words(5, 89)
+    consts = pfc.make_factored_consts(*MARKET.values(), n_steps, DT, cuda,
+                                      fgn_dtype="bfloat16")
+    consts32 = pfc.make_factored_consts(*MARKET.values(), n_steps, DT, cuda)
+    path, priced = pfc.factored_pathgen, pfc.factored_priced_chunk
+    for anti in (False, True):
+        drawn = rows // 2 if anti else rows
+        noise = pfc.philox_factored_normals_ref(key, drawn, n_steps,
+                                                device=cuda)
+        want = pfc.factored_pathgen_from_noise_ref(consts, noise, anti)
+        want32 = pfc.factored_pathgen_from_noise_ref(consts32, noise, anti)
+        name = pc.form_name(anti, bf16=True)
+        before = path.form_launches[name]
+        for got in (path(consts, noise=noise, antithetic=anti),
+                    path(consts, rows=rows, key=key, antithetic=anti)):
+            torch.cuda.synchronize()
+            err = float(((got - want) / want).abs().max())
+            err32 = float(((got - want32) / want32).abs().max())
+            assert err < 5e-4 and err * 10 < err32, (err, err32)
+        assert path.form_launches[name] - before == 2
+        if anti:
+            torch.testing.assert_close(
+                path(consts, noise=noise, antithetic=True),
+                path(consts, noise=torch.cat([noise, -noise], dim=1)),
+                rtol=0, atol=0)
+        del noise, want, want32
+    quad, table = _policy_table(
+        consts, path(consts32, rows=1 << 13, key=key), n_steps)
+    del quad
+    for anti in (False, True):
+        for cv in (False, True):
+            drawn = rows // 2 if anti else rows
+            noise = pfc.philox_factored_normals_ref(key, drawn, n_steps,
+                                                    device=cuda)
+            ref = pfc.factored_priced_chunk_from_noise_ref(
+                consts, table, noise, 100.0, False, anti, cv)
+            ref = ref if cv else (ref,)
+            name = pc.form_name(anti, cv, bf16=True)
+            before = priced.form_launches[name]
+            for got in (priced(consts, table, 100.0, False, noise=noise,
+                               antithetic=anti, with_cv=cv),
+                        priced(consts, table, 100.0, False, rows=rows,
+                               key=key, antithetic=anti, with_cv=cv)):
+                got = got if cv else (got,)
+                torch.cuda.synchronize()
+                for g, w in zip(got, ref):
+                    assert abs(float(g) / float(w) - 1.0) < 1e-4
+            assert priced.form_launches[name] - before == 2
+    tables = _policy_table(
+        consts, path(consts32, rows=1 << 13, key=key), n_steps)
+    _check_quad_forms(priced, pfc.factored_priced_chunk_from_noise_ref,
+                      consts, tables,
+                      lambda k, r: pfc.philox_factored_normals_ref(
+                          k, r, n_steps, device=cuda), rows, key, bf16=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fgn_form", ["chol", "spectral"])
+@pytest.mark.parametrize("family,n_steps", [("single", 365), ("single", 96),
+                                            ("tiled", 1825),
+                                            ("tiled", 300)])
+def test_bf16_quadratic_matches_plain_versions(cuda, family, n_steps,
+                                               fgn_form):
+    """K2/bf16/quad[/cv] and K7/bf16/quad[/cv], chol and spectral, at
+    131072 rows (``_check_quad_forms``)."""
+    rows, key = 1 << 17, pc._fold_words(5, 97)
+    consts, consts32 = _bf16_consts(n_steps, cuda, fgn_form=fgn_form)
+    path, priced, ref = {
+        "single": (pc.pathgen, pc.priced_chunk,
+                   pc.priced_chunk_from_noise_ref),
+        "tiled": (ptc.tiled_pathgen, ptc.tiled_priced_chunk,
+                  ptc.priced_chunk_from_noise_ref)}[family]
+    tables = _policy_table(consts, path(consts32, rows=1 << 14, key=key),
+                           n_steps)
+    _check_quad_forms(priced, ref, consts, tables, lambda k, r: pc.normals_ref(
+        consts, k, r, device=cuda), rows, key, fgn_form == "spectral",
+        bf16=True)
 
 
 @pytest.mark.gpu
 def test_bf16_wrappers_refuse_other_constants(cuda):
-    """A bf16 PathConsts whose factor is float32 (or the reverse) raises
-    before any launch; K5, K3, K4 and the quadratic policy refuse bf16
-    constants naming B12."""
+    """A bf16 PathConsts whose factor (or spectral matrix) is float32, or
+    the reverse, and a bf16 FactoredConsts with a float32 F1, raise before
+    any launch; K5, K3 and K4 refuse bf16 constants naming B12; and a C
+    entry given the other dtype's flag, or (K1/K2, K6/K7, whose seeded
+    and noise-in bodies build apart) the other noise source, returns
+    cudaErrorInvalidValue (1) without running another body."""
+    from montecarlooptionspricer_tpu_torch.kernels import build
+
     consts, consts32 = _bf16_consts(96, cuda)
     bad = dataclasses.replace(consts, lt_half=consts32.lt_half)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -1304,12 +1420,77 @@ def test_bf16_wrappers_refuse_other_constants(cuda):
     bad = dataclasses.replace(consts32, lt_half=consts.lt_half)
     with pytest.raises(ValueError, match="float32"):
         ptc.tiled_pathgen(bad, rows=64, key=1)
+    spec, spec32 = _bf16_consts(96, cuda, fgn_form="spectral")
+    bad = dataclasses.replace(spec, ci_half=spec32.ci_half)
+    with pytest.raises(ValueError, match="bfloat16"):
+        pc.priced_chunk(bad, torch.zeros((8, 96), device=cuda), 100.0,
+                        False, rows=64, key=1, policy_form="quadratic")
+    fac = pfc.make_factored_consts(*MARKET.values(), 400, DT, cuda,
+                                   fgn_dtype="bfloat16")
+    fac32 = pfc.make_factored_consts(*MARKET.values(), 400, DT, cuda)
+    bad = dataclasses.replace(fac, f1r=fac32.f1r, f1i=fac32.f1i)
+    with pytest.raises(ValueError, match="bfloat16"):
+        pfc.factored_pathgen(bad, rows=64, key=1)
     tables = torch.zeros((2, 8, 96), device=cuda)
     with pytest.raises(NotImplementedError, match="B12"):
         cc.priced_chain(consts, tables, False, rows=64, key=1)
+    g = pc.make_greeks_consts(MARKET["xi"], MARKET["h"], MARKET["eta"], 96,
+                              DT, cuda)
     with pytest.raises(NotImplementedError, match="B12"):
-        pc.priced_chunk(consts, tables[0], 100.0, False, rows=64, key=1,
-                        policy_form="quadratic")
+        gc.greeks_chunk(consts, g, tables[0], 100.0, False, rows=64, key=1)
+    with pytest.raises(NotImplementedError, match="B12"):
+        gc.chain_greeks_chunk(consts, g, tables, False, rows=64, key=1)
+    lib = build.load()
+    out = torch.empty((64, 401), device=cuda)
+    for c, bf16 in ((fac32, 1), (fac, 0)):
+        err = build.entry(lib, "pathgen_factored", "mcop_factored_pathgen",
+                          not bf16)(
+            *pfc._const_ptrs(c, 64, None), 1, *pc._scalars(c),
+            ctypes.c_float(c.s0), 0, bf16, out.data_ptr(),
+            torch.cuda.current_stream(cuda).cuda_stream)
+        assert err == 1
+    out = torch.empty((64, 97), device=cuda)
+    for seeded in (False, True):
+        args = pc._kernel_args(consts32, 64, 1, None)
+        # The seeded call (noise null) to the noise-in unit, and a call
+        # with noise to the seeded unit.
+        if seeded:
+            args = (torch.zeros((2, 64, 96), device=cuda).data_ptr(),
+                    *args[1:])
+        err = build.entry(lib, "pathgen", "mcop_pathgen", False, seeded)(
+            *args, *pc._scalars(consts32), ctypes.c_float(consts32.s0), 0, 0,
+            out.data_ptr(), torch.cuda.current_stream(cuda).cuda_stream)
+        assert err == 1
+
+
+@pytest.mark.gpu
+def test_bf16_memory_models_are_the_cards(cuda):
+    """The bf16 units' shared-memory entries equal the Python models of
+    K1/K2 and K6/K7 under bf16 in every form, and K8/K9's is the float32
+    form's at every horizon."""
+    from montecarlooptionspricer_tpu_torch.kernels import build
+
+    lib = build.load()
+    for n in (47, 96, 365):
+        for anti, choices in ((0, pc.BLOCK_CHOICES),
+                              (1, pc.PAIRED_BLOCK_CHOICES)):
+            for bp in choices:
+                for cv in (0, 1):
+                    for spec in (0, 1):
+                        assert lib.mcop_smem_bytes_bf16(
+                            n, bp, anti, cv, spec) == pc.smem_bytes(
+                            n, bp, bool(anti), bool(cv), bool(spec),
+                            bf16=True)
+    for anti, choices in ((0, ptc.BLOCK_CHOICES),
+                          (1, ptc.PAIRED_BLOCK_CHOICES)):
+        for bp in choices:
+            for cv in (0, 1):
+                for spec in (0, 1):
+                    assert lib.mcop_tiled_smem_bytes_bf16(
+                        bp, anti, cv, spec) == ptc.smem_bytes(
+                        bp, bool(anti), bool(cv), bool(spec), bf16=True)
+    for n in (129, 1825, 4000, 8192):
+        assert lib.mcop_factored_smem_bytes_bf16(n) == pfc.smem_bytes(n)
 
 
 @pytest.mark.gpu
