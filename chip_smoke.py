@@ -135,6 +135,25 @@ to 0 just before it and read just after:
   runs (``..._quadratic[_cv]``, ``price_bf16_quadratic_long[_cv]``) on 16
   chunks under the policy of the same pilot, each launching only its
   bf16 forms;
+* the bf16 forms of K5 and K3/K4 (``bf16_chain_greeks_phases``):
+  ``chain_bf16`` (the 21-strike strip at 1e7 x 365 through K1/bf16 once
+  and K5/bf16 76 times, ``chain_price``'s checks but the fit traces,
+  strike 105 within 5 combined stderr of the float32 strip and 2 stderr
+  of ``price_bf16``), ``bf16_chain_forms`` (the six K5/bf16 forms at 365
+  steps, plain and paired at 512, seeded and noise-in against their plain
+  versions, sums 1e-4 and 10x closer to the bf16 plain version than to
+  the float32 one, pairs against [X; -X]),
+  the other K5/bf16 forms' strips on 16 chunks under their pilot's fits
+  (``chain_bf16_{anti,quadratic,spectral_anti,spectral_quadratic}``),
+  ``chain_bf16_spectral`` (400 steps on K8/bf16 and K5/bf16/spectral, 16
+  chunks, beside a single-strike K8/K9 bf16 price), ``bf16_greeks_forms``
+  (K3/bf16, K4/bf16 and their pairs against their plain versions, 2e-4
+  of each Greek's scale), ``greeks_bf16`` (K1/bf16 once and K3/bf16 76
+  times, the price lane within 1e-4 of ``price_bf16``, each Greek within
+  5 combined stderr of the float32 ``greeks``), ``chain_greeks_bf16``
+  (K4/bf16 76 times) and the pairs' Greeks on 16 chunks
+  (``greeks_bf16_anti``, ``chain_greeks_bf16_anti``), each launching only
+  its bf16 forms;
 * P1 (``roofline``): the normals probe in its four variants and the
   matmul probe in float32 and bf16, on the identity and a random
   orthogonal B, against their plain versions, then the card's rates
@@ -318,6 +337,13 @@ BF16_LATER_FORMS = (
     (8, "pathgen_pallas_factored.py:158", ("", "/anti")),
     (9, "pathgen_pallas_factored.py:158",
      ("", "/anti", "/cv", "/anti+cv", "/quad", "/quad/cv")))
+# The bf16 forms of K5 (slice 12): (form, JAX file:line of its body).
+BF16_K5_FORMS = (("", "pathgen_pallas.py:1943"),
+                 ("/anti", "pathgen_pallas.py:432"),
+                 ("/spectral", "pathgen_pallas.py:1943"),
+                 ("/spectral/anti", "pathgen_pallas.py:432"),
+                 ("/quad", "pathgen_pallas.py:302"),
+                 ("/spectral/quad", "pathgen_pallas.py:302"))
 CSRC_OF = {1: "pathgen.cu", 2: "pathgen.cu", 6: "pathgen_tiled.cu",
            7: "pathgen_tiled.cu", 8: "pathgen_factored.cu",
            9: "pathgen_factored.cu"}
@@ -428,6 +454,15 @@ REPLACES = {
     # bf16 a and F1).
     **{f"K{k}/bf16{f}": f"montecarlooptionspricer_tpu/models/{src}"
        for k, src, forms in BF16_LATER_FORMS for f in forms},
+    # The bf16 forms of K5 and K3/K4 (slice 12): the chain kernel on the
+    # bf16 factor of _fgn_consts (taken at pathgen_pallas.py:1943), its
+    # pair branch and quadratic sweep likewise; the Greeks' two bf16
+    # products from one N (_tangent_planes:845-848) and their pair branch.
+    **{f"K5/bf16{f}": f"montecarlooptionspricer_tpu/models/{src}"
+       for f, src in BF16_K5_FORMS},
+    **{f"K{k}/bf16{f}": f"montecarlooptionspricer_tpu/models/{src}"
+       for k in (3, 4) for f, src in (("", "pathgen_pallas.py:845"),
+                                      ("/anti", "pathgen_pallas.py:849"))},
     # P1: the roofline probes.
     "P1/normals": "parity/vpu_roofline.py:110",
     "P1/matmul": "parity/vpu_roofline.py:177",
@@ -481,6 +516,10 @@ SOURCES = {
     **{f"K{k}/bf16{f}":
        f"montecarlooptionspricer_tpu_torch/csrc/{CSRC_OF[k]}"
        for k, _, forms in BF16_LATER_FORMS for f in forms},
+    **{f"K5/bf16{f}": "montecarlooptionspricer_tpu_torch/csrc/chain.cu"
+       for f, _ in BF16_K5_FORMS},
+    **{f"K{k}/bf16{f}": "montecarlooptionspricer_tpu_torch/csrc/greeks.cu"
+       for k in (3, 4) for f in ("", "/anti")},
     "P1/normals": "montecarlooptionspricer_tpu_torch/csrc/roofline.cu",
     "P1/matmul": "montecarlooptionspricer_tpu_torch/csrc/roofline.cu",
 }
@@ -693,7 +732,7 @@ def plain_chain_means(torch, pc, cc, engine, chain, fits, seed: int,
     seed's stream under the strip's ``fits``, through the plain versions
     (time-0 exercise decided per strike as the engine decides it; each
     drawn row priced as a pair ``antithetic``), on K5's constants and
-    stream in their fGN form."""
+    stream in their fGN form and dtype, under the strip's policy form."""
     consts, dev = chain.chain_consts, chain.device
     _, (run, start) = engine._pilot_stream_keys(seed)
     tables = chain._tables(fits, chain.strikes)
@@ -703,8 +742,9 @@ def plain_chain_means(torch, pc, cc, engine, chain, fits, seed: int,
         noise = pc.normals_ref(consts, pc._fold_words(run, start + i),
                                CHUNK // 2 if antithetic else CHUNK,
                                device=dev)
-        total += cc.priced_chain_from_noise_ref(consts, tables, noise,
-                                                IS_CALL, antithetic).double()
+        total += cc.priced_chain_from_noise_ref(
+            consts, tables, noise, IS_CALL, antithetic,
+            chain.config.chain_policy_form).double()
     mean = total / (n_chunks * CHUNK)
     return torch.where(ex0, p0.double(), mean).cpu().numpy()
 
@@ -717,7 +757,9 @@ def chain_and_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
     K3 per strike), then the strip's price, the bench option's Greeks and
     the strip's Greeks at full width through them.  ``price`` and
     ``stderr`` are the main path's.  Returns their entries of the kernels
-    line, their times and the strip's (prices, stderrs)."""
+    line, their times, the strip's (prices, stderrs) and the Greeks'
+    ((greeks, stderrs) of the bench option, (values, stderrs) of the
+    strip))."""
     import numpy as np
 
     chain = engine.StreamingChainPricer(**MARKET, strikes=STRIP,
@@ -964,7 +1006,8 @@ def chain_and_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
                       times["k4_plain_ms"], *k4_b, abs_k4, lib2_ms)]
     for name, (b, _) in (("k5", k5_b), ("k3", k3_b), ("k4", k4_b)):
         times[name + "_bound_ms"] = b
-    return records, times, (prices, stderrs)
+    return (records, times, (prices, stderrs),
+            ((greeks, greeks_se), (cg, cg_se)))
 
 
 def threshold_table(torch, n: int, dev):
@@ -3250,12 +3293,14 @@ def quadratic_phases(torch, pc, cc, ptc, pfc, engine, smi, dev, key,
                           t["library_ms"]) for form, t in times.items()]
 
 
-def bf16_library(torch, consts, dev):
+def bf16_library(torch, consts, dev, extra=()):
     """rows -> ms of the bf16 form's yardstick: torch.matmul of a bf16
-    [rows, n] plane by the bf16 Lt' (the fGN product alone)."""
+    [rows, n] plane by the bf16 Lt' (the fGN product alone), and by each
+    bf16 matrix of ``extra`` (K3/K4: dLt' too)."""
     def library(rows):
         a = torch.randn((rows, consts.n_steps), device=dev).to(torch.bfloat16)
-        ms = time_ms(torch, lambda: torch.matmul(a, consts.lt_half), reps=10)
+        ms = time_ms(torch, lambda: [torch.matmul(a, m) for m in (
+            consts.lt_half, *extra)], reps=10)
         del a
         return ms
     return library
@@ -3920,6 +3965,482 @@ def bf16_later_phases(torch, pc, ptc, pfc, engine, lsm_fit, smi, dev, key,
                           t["library_ms"]) for form, t in times.items()]
 
 
+def bf16_strip_forms(torch, pc, cc, smi, dev, key, chain, fits, n: int,
+                     forms, times: dict) -> None:
+    """``bf16_chain_forms`` at horizon ``n``: each K5/bf16 form of
+    ``forms`` = ((antithetic, quadratic), ...) in the fGN form of
+    ``chain``'s constants, on the strip's tables of ``fits``, at the bench
+    chunk of 131072 rows: seeded and noise-in against its plain version
+    (SUM_RTOL of each strike's scale, ``scaled_err``) and BF16_CLOSER
+    times closer to it than to the float32 plain version on the same
+    noise; a pair against the unpaired form on [X; -X] (PAIR_RTOL); then
+    timed beside its plain version (one run), the bf16 product's
+    yardstick and its bound.  Emits the phase, then checks.  Adds the
+    forms' numbers to ``times``, keyed K5/form."""
+    consts = chain.chain_consts
+    consts32 = pc.make_path_consts(
+        *(MARKET[k] for k in ("s0", "xi", "h", "eta", "r")), n, DT, dev,
+        fgn_form=consts.fgn_form)
+    spectral, k_n = consts.spectral, len(STRIP)
+    if spectral:
+        library = spectral_library(torch, consts, dev)
+    else:
+        library = bf16_library(torch, consts, dev)
+    checks, fails = [], []
+    for anti, quad in forms:
+        form = f"K5/{pc.form_name(anti, False, spectral, quad, True)}"
+        policy = "quadratic" if quad else "boundary"
+        rows_of = pc.policy_rows if quad else pc.boundary_rows
+        tables = rows_of(fits, MARKET["r"], chain.strikes, n * DT, DT, n,
+                         IS_CALL).contiguous()
+        drawn = CHUNK // 2 if anti else CHUNK
+        noise = pc.normals_ref(consts, key, drawn, device=dev)
+        want = cc.priced_chain_from_noise_ref(consts, tables, noise,
+                                              IS_CALL, anti, policy)
+        want32 = cc.priced_chain_from_noise_ref(consts32, tables, noise,
+                                                IS_CALL, anti, policy)
+        got_n = cc.priced_chain(consts, tables, IS_CALL, noise=noise,
+                                antithetic=anti, policy_form=policy)
+        got_s = cc.priced_chain(consts, tables, IS_CALL, rows=CHUNK, key=key,
+                                antithetic=anti, policy_form=policy)
+        pair = None
+        if anti:
+            pair = scaled_err(torch, got_n, cc.priced_chain(
+                consts, tables, IS_CALL,
+                noise=torch.cat([noise, -noise], dim=1)))
+        torch.cuda.synchronize()
+        s = torch.exp(pc._log_paths_ref(consts, noise, anti))
+        if quad:
+            swept = sum(int((pc.quadratic_stops(s, tab, IS_CALL, True)[1]
+                             + 1).sum()) for tab in tables)
+        else:
+            swept = swept_cells(torch, s, tables[:, 0, :n], tables[:, 1, :n])
+        del noise, s
+        rec = {"form": form, "n_steps": n,
+               "block_paths": cc.block_paths_for(n, CHUNK, anti, spectral,
+                                                 True),
+               "noise_in_rel_err": scaled_err(torch, got_n, want),
+               "seeded_rel_err": scaled_err(torch, got_s, want),
+               "float32_plain_rel_err": scaled_err(torch, got_s, want32),
+               "pair_rel_err": pair, "swept_cells": swept}
+        checks.append(rec)
+        if max(rec["noise_in_rel_err"], rec["seeded_rel_err"]) > SUM_RTOL:
+            fails.append(f"{form} disagrees with its plain version at {n} "
+                         "steps")
+        if rec["seeded_rel_err"] * BF16_CLOSER > rec["float32_plain_rel_err"]:
+            fails.append(f"{form} at {n} steps is not {BF16_CLOSER}x closer "
+                         "to the bf16 plain version than to the float32 one")
+        if pair is not None and pair > PAIR_RTOL:
+            fails.append(f"{form} disagrees with its unpaired form on "
+                         "[X; -X]")
+
+        def run(tables=tables, anti=anti, policy=policy):
+            cc.priced_chain(consts, tables, IS_CALL, rows=CHUNK, key=key,
+                            antithetic=anti, policy_form=policy)
+
+        def plain(tables=tables, anti=anti, policy=policy, drawn=drawn):
+            cc.priced_chain_from_noise_ref(consts, tables, pc.normals_ref(
+                consts, key, drawn, device=dev), IS_CALL, anti, policy)
+
+        blocks = CHUNK // rec["block_paths"]
+        b_ms, b_by = bound_ms(
+            CHUNK, n, 4 * blocks * k_n,
+            policy_rows=1 + (8 if quad else 4) * k_n, swept=swept,
+            antithetic=anti, spectral=spectral,
+            sweep_ops=QUAD_SWEEP_OPS if quad else 4.0, bf16=True)
+        key_t = form if n == N_STEPS else f"{form}@{n}"
+        times[key_t] = {"ms": time_ms(torch, run, 5),
+                        "plain_ms": plain_time(torch, plain, 1),
+                        "library_ms": library(drawn), "bound_ms": b_ms,
+                        "bound_by": b_by,
+                        "max_abs_err": float(torch.max(torch.abs(
+                            got_s - want)))}
+        rec["times"] = times[key_t]
+    emit({"phase": "bf16_chain_forms", "card": smi, "kernel": "K5",
+          "fgn_form": consts.fgn_form, "rows": CHUNK, "n_steps": n,
+          "n_strikes": k_n, "checks": checks, "rtol": SUM_RTOL,
+          "closer_than_float32": BF16_CLOSER, "pair_rtol": PAIR_RTOL})
+    check(not fails, "; ".join(fails))
+
+
+def bf16_greeks_forms(torch, pc, gc, smi, dev, key, consts, g, logs,
+                      strikes, times: dict) -> None:
+    """``bf16_greeks_forms``: K3/bf16, K3/bf16/anti (strike 105), K4/bf16
+    and K4/bf16/anti (21 strikes) at the bench chunk, seeded and noise-in,
+    against their plain version (GREEKS_RTOL of each Greek's scale); K3
+    against K4's column at 105 (the same body, SAME_BODY_RTOL); the pairs
+    against the unpaired forms on [X; -X] (PAIR_RTOL); then each timed
+    beside its plain version (one run), the two bf16 products' yardstick
+    and its bound (two products).  Emits the phase, then checks.  Adds
+    the forms' numbers to ``times``."""
+    i_k, k_n = STRIP.index(STRIKE), len(STRIP)
+    library = bf16_library(torch, consts, dev, (g.dlt_half,))
+    checks, fails = [], []
+    for anti in (False, True):
+        drawn = CHUNK // 2 if anti else CHUNK
+        noise = pc.philox_normals_ref(key, drawn, N_STEPS, device=dev)
+        want = gc.greeks_from_noise_ref(consts, g, logs, strikes, noise,
+                                        IS_CALL, anti)
+        ls = pc._log_paths_ref(consts, noise, anti)
+        swept = {"K3": swept_cells(torch, ls, logs[i_k:i_k + 1, 0, :N_STEPS],
+                                   logs[i_k:i_k + 1, 1, :N_STEPS]),
+                 "K4": swept_cells(torch, ls, logs[:, 0, :N_STEPS],
+                                   logs[:, 1, :N_STEPS])}
+        del ls
+        runs = {
+            "K3": (lambda anti, **kw: gc.greeks_chunk(
+                consts, g, logs[i_k], STRIKE, IS_CALL, antithetic=anti,
+                **kw)[:, None], want[:, i_k:i_k + 1], 1),
+            "K4": (lambda anti, **kw: gc.chain_greeks_chunk(
+                consts, g, logs, IS_CALL, antithetic=anti, **kw), want, k_n)}
+        got = {}
+        for kernel, (run, ref, k) in runs.items():
+            form = f"{kernel}/{pc.form_name(anti, bf16=True)}"
+            got_n = run(anti, noise=noise)
+            got_s = run(anti, rows=CHUNK, key=key)
+            pair = None
+            if anti:
+                pair = scaled_err(torch, got_n, run(
+                    False, noise=torch.cat([noise, -noise], dim=1)))
+            torch.cuda.synchronize()
+            got[kernel] = got_s
+            rec = {"form": form, "n_strikes": k,
+                   "block_paths": gc.block_paths_for(N_STEPS, CHUNK, anti,
+                                                     True),
+                   "noise_in_rel_err": scaled_err(torch, got_n, ref),
+                   "seeded_rel_err": scaled_err(torch, got_s, ref),
+                   "pair_rel_err": pair, "swept_cells": swept[kernel]}
+            checks.append(rec)
+            if max(rec["noise_in_rel_err"],
+                   rec["seeded_rel_err"]) > GREEKS_RTOL:
+                fails.append(f"{form} disagrees with its plain version")
+            if pair is not None and pair > PAIR_RTOL:
+                fails.append(f"{form} disagrees with its unpaired form on "
+                             "[X; -X]")
+
+            def plain(anti=anti, drawn=drawn, k=k):
+                gc.greeks_from_noise_ref(
+                    consts, g, logs[i_k:i_k + 1] if k == 1 else logs,
+                    strikes[i_k:i_k + 1] if k == 1 else strikes,
+                    pc.philox_normals_ref(key, drawn, N_STEPS, device=dev),
+                    IS_CALL, anti)
+
+            blocks = CHUNK // rec["block_paths"]
+            b_ms, b_by = bound_ms(CHUNK, N_STEPS, 4 * blocks * 6 * k,
+                                  products=2, per_cell=18.0,
+                                  policy_rows=3 + 2 * k,
+                                  swept=swept[kernel], antithetic=anti,
+                                  bf16=True)
+            times[form] = {"ms": time_ms(torch, lambda run=run, anti=anti:
+                                         run(anti, rows=CHUNK, key=key), 5),
+                           "plain_ms": plain_time(torch, plain, 1),
+                           "library_ms": library(drawn), "bound_ms": b_ms,
+                           "bound_by": b_by,
+                           "max_abs_err": float(torch.max(torch.abs(
+                               got_s - ref)))}
+            rec["times"] = times[form]
+        same = float(((got["K3"][:, 0] - got["K4"][:, i_k]).abs()
+                      / got["K4"].abs().amax(dim=1)).max())
+        checks.append({"form": f"K3/{pc.form_name(anti, bf16=True)} vs K4",
+                       "k4_column_rel_err": same})
+        if same > SAME_BODY_RTOL:
+            fails.append(f"K3/{pc.form_name(anti, bf16=True)} differs from "
+                         "K4's column")
+        del noise
+    emit({"phase": "bf16_greeks_forms", "card": smi, "rows": CHUNK,
+          "n_steps": N_STEPS, "checks": checks, "rtol": GREEKS_RTOL,
+          "pair_rtol": PAIR_RTOL, "same_body_rtol": SAME_BODY_RTOL})
+    check(not fails, "; ".join(fails))
+
+
+def bf16_strip_run(torch, pc, cc, engine, smi, name: str, chain, fits,
+                   form: str, pilot, n_chunks: int, ref: tuple,
+                   ref_name: str, reset_counts, read_counts,
+                   n_checked: int = CHAIN_CHECKED) -> dict:
+    """One bf16 strip on ``n_chunks`` chunks of SEED's stream: with
+    ``fits`` None, fit() (``pilot`` launched once) and price_with_fit()
+    timed apart; else streamed under ``fits`` (another run's, of the same
+    pilot: no pilot launched).  Its launches are exactly those (``form``
+    once a chunk); prices finite and rising with the strike; its first
+    ``n_checked`` chunks within SUM_RTOL of the plain versions under the
+    same fits; strike 105 within STDERR_SIGMAS combined stderr of ``ref``
+    = (price, stderr).  Emits ``name``; returns the record with the
+    prices, stderrs and fits."""
+    import numpy as np
+
+    i_k, k_n, n = STRIP.index(STRIKE), len(STRIP), chain.config.n_steps
+    reset_counts()
+    fit_s = None
+    if fits is None:
+        fits, fit_s = timed(torch, lambda: chain.fit(
+            engine._pilot_stream_keys(SEED)[0]))
+    (prices, stderrs), stream_s = timed(torch, lambda: chain.price_with_fit(
+        fits, SEED, n_chunks * CHUNK, with_stderr=True))
+    launches = read_counts()
+    checked = chain.price_with_fit(fits, SEED, n_paths=n_checked * CHUNK)
+    checked_rel = scaled_err(torch, torch.from_numpy(checked),
+                             torch.from_numpy(plain_chain_means(
+                                 torch, pc, cc, engine, chain, fits, SEED,
+                                 n_checked, chain.config.antithetic)))
+    p_k, se_k = float(prices[i_k]), float(stderrs[i_k])
+    sigmas = abs(p_k - ref[0]) / math.hypot(se_k, ref[1])
+    n_paths = n_chunks * CHUNK
+    wall = stream_s + (fit_s or 0.0)
+    rec = {"phase": name, "card": smi, "n_paths": n_paths, "n_steps": n,
+           "fgn_matmul_dtype": "bfloat16",
+           "fgn_form": chain.chain_consts.fgn_form,
+           "antithetic": chain.config.antithetic,
+           "chain_policy_form": chain.config.chain_policy_form,
+           "kernel_family": chain.kernel_family, "strikes": list(STRIP),
+           "prices": prices.tolist(), "stderrs": stderrs.tolist(),
+           "wall_s": wall, "paths_strikes_per_s": n_paths * k_n / wall,
+           "fit_s": fit_s, "stream_s": stream_s,
+           "fits_of_another_run": fit_s is None, "launches": launches,
+           "checked_chunks": n_checked, "checked_rel_err": checked_rel,
+           "rtol": SUM_RTOL, "strike": STRIKE, "price_at_strike": p_k,
+           "stderr_at_strike": se_k, ref_name: list(ref),
+           "combined_stderrs_apart": sigmas, "limit": STDERR_SIGMAS}
+    if n_chunks != N_CHUNKS:
+        rec["reduced"] = {"n_chunks": {"from": N_CHUNKS, "to": n_chunks}}
+    emit(rec)
+    want = {form: n_chunks, **({} if fit_s is None else {pilot: 1})}
+    check(launches == expected_counts(**want),
+          f"{name} launches {launches}, want {want} and nothing else")
+    check(bool(np.all(np.isfinite(prices))) and bool(np.all(prices > 0))
+          and bool(np.all(np.diff(prices) > 0)),
+          f"{name} prices are not finite, positive and rising")
+    check(checked_rel <= SUM_RTOL, f"{name} disagrees with the plain path")
+    check(sigmas <= STDERR_SIGMAS,
+          f"{name} strike {STRIKE} is {sigmas:.2f} combined stderr from "
+          f"{ref_name}")
+    return {**rec, "fits": fits}
+
+
+def bf16_greeks_run(torch, engine, gc, smi, name: str, pricer, fits,
+                    form: str, pilot, n_chunks: int, price_ref: float,
+                    float32: tuple, reset_counts, read_counts) -> dict:
+    """The Greeks (``pricer`` a StreamingPricer, [6]; a
+    StreamingChainPricer, [6, K]) on ``n_chunks`` chunks of SEED's stream:
+    with ``fits`` None, fit() (``pilot`` launched once) and
+    greeks_with_fit() timed apart; else streamed under ``fits``.  Its
+    launches are exactly those; every Greek and stderr finite; the price
+    lane within SUM_RTOL of ``price_ref`` (a price or [K] prices of the
+    same seed and fits' law; ``scaled_err``); with ``float32`` = (Greeks, stderrs) of the
+    float32 run of the same seed, each Greek within STDERR_SIGMAS combined
+    stderr of it.  Emits ``name``; returns the record."""
+    import numpy as np
+
+    reset_counts()
+    fit_s = None
+    if fits is None:
+        fits, fit_s = timed(torch, lambda: pricer.fit(
+            engine._pilot_stream_keys(SEED)[0]))
+    (greeks, ses), stream_s = timed(torch, lambda: pricer.greeks_with_fit(
+        fits, SEED, n_chunks * CHUNK, with_stderr=True))
+    launches = read_counts()
+    greeks, ses = np.asarray(greeks), np.asarray(ses)
+    price_rel = scaled_err(torch, torch.from_numpy(np.atleast_1d(greeks[0])),
+                           torch.from_numpy(np.atleast_1d(np.asarray(
+                               price_ref, dtype=np.float64))))
+    n_paths = n_chunks * CHUNK
+    wall = stream_s + (fit_s or 0.0)
+    rec = {"phase": name, "card": smi, "n_paths": n_paths,
+           "n_steps": pricer.config.n_steps, "fgn_matmul_dtype": "bfloat16",
+           "antithetic": pricer.config.antithetic,
+           "greeks": {k: v.tolist() for k, v in zip(gc.GREEK_ORDER, greeks)},
+           "stderrs": {k: v.tolist() for k, v in zip(gc.GREEK_ORDER, ses)},
+           "wall_s": wall, "paths_per_s": n_paths / wall, "fit_s": fit_s,
+           "stream_s": stream_s, "fits_of_another_run": fit_s is None,
+           "launches": launches, "price_lane_rel_err": price_rel,
+           "rtol": SUM_RTOL}
+    sigmas = None
+    if float32 is not None:
+        g32, se32 = (np.asarray(v) for v in float32)
+        both = np.hypot(ses, se32)
+        sigmas = float(np.max(np.where(both > 0, np.abs(greeks - g32)
+                                       / np.where(both > 0, both, 1.0),
+                                       0.0)))
+        rec.update(float32_combined_stderrs_apart=sigmas,
+                   limit=STDERR_SIGMAS)
+    if n_chunks != N_CHUNKS:
+        rec["reduced"] = {"n_chunks": {"from": N_CHUNKS, "to": n_chunks}}
+    emit(rec)
+    want = {form: n_chunks, **({} if fit_s is None else {pilot: 1})}
+    check(launches == expected_counts(**want),
+          f"{name} launches {launches}, want {want} and nothing else")
+    check(bool(np.all(np.isfinite(greeks))) and bool(np.all(np.isfinite(
+        ses))), f"non-finite {name}")
+    check(price_rel <= SUM_RTOL, f"{name}'s price lane is {price_rel:.2e} "
+          "from the price of the same seed")
+    check(sigmas is None or sigmas <= STDERR_SIGMAS,
+          f"{name} is {sigmas} combined stderr from the float32 Greeks")
+    return rec
+
+
+def bf16_chain_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
+                             refs: dict, reset_counts, read_counts) -> list:
+    """The bf16 forms of K5 and K3/K4 (``fgn_matmul_dtype="bfloat16"``):
+    ``chain_bf16`` prices the 21-strike strip at 1e7 x 365 through K1/bf16
+    once and K5/bf16 76 times (``chain_price``'s checks but the fit
+    traces: strike 105 within 2 stderr of ``price_bf16`` and 5 combined
+    stderr of the float32 strip); ``bf16_chain_forms`` holds the six
+    K5/bf16 forms at 365 steps and plain and paired at 512 against their
+    plain versions (``bf16_strip_forms``); ``bf16_greeks_forms`` K3/bf16,
+    K4/bf16 and their pairs (``bf16_greeks_forms``); the other K5/bf16
+    forms stream 16 chunks under their pilot's fits
+    (``chain_bf16_{anti,quadratic,spectral_anti,spectral_quadratic}``);
+    ``chain_bf16_spectral`` the strip at 400 steps on K8/bf16 and
+    K5/bf16/spectral (16 chunks) beside a single-strike K8/K9 bf16 price
+    of the same seed; ``greeks_bf16`` the bench option's Greeks at full
+    width (K1/bf16 once, K3/bf16 76 times: price lane within 1e-4 of
+    ``price_bf16``, each Greek within 5 combined stderr of the float32
+    ``greeks``), ``chain_greeks_bf16`` the strip's (K4/bf16 76 times,
+    price row against ``chain_bf16``, each Greek within 5 combined stderr
+    of the float32 ``chain_greeks``) and their pair forms on 16 chunks
+    (``greeks_bf16_anti``, ``chain_greeks_bf16_anti``: price lanes against
+    the paired bf16 strip of the same chunks).  ``refs``: "price_bf16"
+    (price, stderr), "strip" (float32 prices, stderrs), "greeks" and
+    "chain_greeks" (float32 values, stderrs).  Returns the ten forms'
+    entries of the kernels line."""
+    import dataclasses
+
+    import numpy as np
+
+    m, times, launches = BF16_FORM_CHUNKS, {}, {}
+    base = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
+                               chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                               chunks_per_call=N_CHUNKS,
+                               fgn_matmul_dtype="bfloat16")
+    i_k = STRIP.index(STRIKE)
+
+    def chain_of(n=N_STEPS, n_chunks=N_CHUNKS, **kw):
+        cfg = dataclasses.replace(base, n_steps=n, n_paths=n_chunks * CHUNK,
+                                  chunks_per_call=n_chunks, **kw)
+        chain = engine.StreamingChainPricer(
+            **MARKET, strikes=STRIP, maturity=n * DT, is_call=IS_CALL,
+            config=cfg, device=dev)
+        check(chain.chain_consts.bf16, f"the {n}-step bf16 strip {kw} has "
+              "float32 constants")
+        return chain
+
+    # chain_bf16: the strip at full width; its fits serve every K5/bf16
+    # form run, the K5 and Greeks form checks and the strip's Greeks.
+    chain = chain_of()
+    strip32 = tuple(float(v[i_k]) for v in refs["strip"])
+    rec = bf16_strip_run(torch, pc, cc, engine, smi, "chain_bf16", chain,
+                         None, "K5/bf16", "K1/bf16", N_CHUNKS, strip32,
+                         "chain_price_float32", reset_counts, read_counts)
+    launches["K5/bf16"] = rec["launches"]["K5/bf16"]
+    fits, bf16_prices = rec["fits"], np.asarray(rec["prices"])
+    p_k, se_k = rec["price_at_strike"], rec["stderr_at_strike"]
+    one_sigmas = abs(p_k - refs["price_bf16"][0]) / refs["price_bf16"][1]
+    emit({"phase": "chain_bf16_vs_price_bf16", "strike": STRIKE,
+          "price_at_strike": p_k, "price_bf16": list(refs["price_bf16"]),
+          "stderrs_from_price_bf16": one_sigmas, "limit": 2.0})
+    check(one_sigmas <= 2.0, f"chain_bf16 strike {STRIKE} {p_k} is over 2 "
+          f"stderr from price_bf16 {refs['price_bf16'][0]}")
+    bf16_strip_forms(torch, pc, cc, smi, dev, key, chain, fits, N_STEPS,
+                     ((False, False), (True, False), (False, True)), times)
+    for suffix, kw, form in (("anti", {"antithetic": True}, "K5/bf16/anti"),
+                             ("quadratic", {"chain_policy_form":
+                                            "quadratic"}, "K5/bf16/quad")):
+        run = bf16_strip_run(torch, pc, cc, engine, smi,
+                             f"chain_bf16_{suffix}", chain_of(n_chunks=m,
+                                                              **kw),
+                             fits, form, None, m, (p_k, se_k), "chain_bf16",
+                             reset_counts, read_counts,
+                             n_checked=BF16_FORM_CHECKED)
+        launches[form] = run["launches"][form]
+    # The spectral forms at 365 steps: their own pilot's fits.
+    spec = chain_of(fgn_form="spectral")
+    spec_fits = spec.fit(engine._pilot_stream_keys(SEED)[0])
+    bf16_strip_forms(torch, pc, cc, smi, dev, key, spec, spec_fits, N_STEPS,
+                     ((False, False), (True, False), (False, True)), times)
+    del spec
+    for suffix, kw, form in (
+            ("_anti", {"antithetic": True}, "K5/bf16/spectral/anti"),
+            ("_quadratic", {"chain_policy_form": "quadratic"},
+             "K5/bf16/spectral/quad")):
+        run = bf16_strip_run(torch, pc, cc, engine, smi,
+                             f"chain_bf16_spectral{suffix}",
+                             chain_of(n_chunks=m, fgn_form="spectral", **kw),
+                             spec_fits, form, None, m, (p_k, se_k),
+                             "chain_bf16", reset_counts, read_counts,
+                             n_checked=BF16_FORM_CHECKED)
+        launches[form] = run["launches"][form]
+    # Past the single tile: plain and paired at 512 steps (K6/bf16 pilot).
+    far = chain_of(n=PAST_TILE_STEPS[-1])
+    check(far.kernel_family == "tiled", "the 512-step bf16 strip resolved "
+          f"to {far.kernel_family!r}")
+    bf16_strip_forms(torch, pc, cc, smi, dev, key, far,
+                     far.fit(engine._pilot_stream_keys(SEED)[0]),
+                     PAST_TILE_STEPS[-1], ((False, False), (True, False)),
+                     {})
+    del far
+
+    # chain_bf16_spectral: 400 steps, the K8/bf16 pilot, 16 chunks, beside
+    # a single-strike K8/bf16 + K9/bf16 price of the same seed.
+    n = SPECTRAL_PAST_TILE_STEPS
+    one = engine.StreamingPricer(
+        **MARKET, strike=STRIKE, maturity=n * DT, is_call=IS_CALL,
+        config=dataclasses.replace(base, n_steps=n, n_paths=m * CHUNK,
+                                   chunks_per_call=m, fgn_form="spectral"),
+        device=dev)
+    single = one.price(SEED, with_stderr=True)
+    del one
+    far = chain_of(n=n, n_chunks=m, fgn_form="spectral")
+    check(far.kernel_family == "factored" and far.chain_consts.spectral,
+          f"the {n}-step spectral bf16 strip resolved to "
+          f"{far.kernel_family!r}")
+    run = bf16_strip_run(torch, pc, cc, engine, smi, "chain_bf16_spectral",
+                         far, None, "K5/bf16/spectral", "K8/bf16", m,
+                         single, "single_strike_price_k9_bf16",
+                         reset_counts, read_counts)
+    launches["K5/bf16/spectral"] = run["launches"]["K5/bf16/spectral"]
+    del far
+
+    # The Greeks: the forms on the strip's log tables, then the full-width
+    # runs and their pairs on 16 chunks under the same pilots' fits.
+    consts = chain.consts
+    g = chain.greeks_consts
+    check(g.bf16 and consts.bf16, "the bf16 Greeks constants are float32")
+    logs = pc.log_boundary_rows(chain._tables(fits, chain.strikes)
+                                ).contiguous()
+    bf16_greeks_forms(torch, pc, gc, smi, dev, key, consts, g, logs,
+                      chain.strikes, times)
+    one = engine.StreamingPricer(**MARKET, strike=STRIKE, maturity=MATURITY,
+                                 is_call=IS_CALL, config=base, device=dev)
+    grec = bf16_greeks_run(torch, engine, gc, smi, "greeks_bf16", one, None,
+                           "K3/bf16", "K1/bf16", N_CHUNKS,
+                           refs["price_bf16"][0], refs["greeks"],
+                           reset_counts, read_counts)
+    launches["K3/bf16"] = grec["launches"]["K3/bf16"]
+    crec = bf16_greeks_run(torch, engine, gc, smi, "chain_greeks_bf16",
+                           chain, None, "K4/bf16", "K1/bf16", N_CHUNKS,
+                           bf16_prices, refs["chain_greeks"], reset_counts,
+                           read_counts)
+    launches["K4/bf16"] = crec["launches"]["K4/bf16"]
+    anti_cfg = dataclasses.replace(base, antithetic=True, n_paths=m * CHUNK,
+                                   chunks_per_call=m)
+    anti_strip = chain_of(n_chunks=m, antithetic=True)
+    anti_prices = anti_strip.price_with_fit(fits, SEED)
+    one_fits = one.fit(engine._pilot_stream_keys(SEED)[0])
+    one = engine.StreamingPricer(**MARKET, strike=STRIKE, maturity=MATURITY,
+                                 is_call=IS_CALL, config=anti_cfg,
+                                 device=dev)
+    for name, pricer, f, form, ref in (
+            ("greeks_bf16_anti", one, one_fits, "K3/bf16/anti",
+             float(anti_prices[i_k])),
+            ("chain_greeks_bf16_anti", anti_strip, fits, "K4/bf16/anti",
+             anti_prices)):
+        run = bf16_greeks_run(torch, engine, gc, smi, name, pricer, f, form,
+                              None, m, ref, None, reset_counts, read_counts)
+        launches[form] = run["launches"][form]
+    return [kernel_record(form, launches, t["ms"], t["plain_ms"],
+                          t["bound_ms"], t["bound_by"], t["max_abs_err"],
+                          t["library_ms"]) for form, t in times.items()]
+
+
 def roofline_phase(torch, rl, smi, dev, kernels: list, reset_counts,
                    read_counts) -> list:
     """P1: each probe against its plain version on a small grid (the
@@ -4300,7 +4821,7 @@ def main() -> int:
     del a, table
 
     # Phases k5, chain_price, k3, k4, greeks and chain_greeks.
-    records, chain_times, strip_plain = chain_and_greeks_phases(
+    records, chain_times, strip_plain, greeks32 = chain_and_greeks_phases(
         torch, pc, cc, gc, engine, smi, dev, key, pricer, price, stderr,
         reset_counts, read_counts)
     kernels += records
@@ -4369,7 +4890,7 @@ def main() -> int:
         reset_counts, read_counts)
 
     # The bf16 fGN-input forms of K1/K2 and K6/K7; of K8/K9, the spectral
-    # and the quadratic bodies; then P1.
+    # and the quadratic bodies; of K5 and K3/K4; then P1.
     records, _, bf16_runs = bf16_phases(
         torch, pc, ptc, engine, lsm_fit, smi, dev, key,
         {"price": (price, stderr), "price_long": (long_price, long_stderr)},
@@ -4380,6 +4901,11 @@ def main() -> int:
         {"price_xlong": xlong[1:3], "xlong_fits": xlong[0],
          "price_spectral": price_spectral, "price_factored": factored_long,
          "bf16": bf16_runs}, reset_counts, read_counts)
+    kernels += bf16_chain_greeks_phases(
+        torch, pc, cc, gc, engine, smi, dev, key,
+        {"price_bf16": bf16_runs["price_bf16"]["price"],
+         "strip": strip_plain, "greeks": greeks32[0],
+         "chain_greeks": greeks32[1]}, reset_counts, read_counts)
     kernels += roofline_phase(torch, rl, smi, dev, kernels, reset_counts,
                               read_counts)
     check(sorted(k["name"] for k in kernels) == sorted(REPLACES),

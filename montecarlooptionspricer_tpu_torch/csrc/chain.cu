@@ -9,6 +9,14 @@
 //    plain and antithetic (the pair branch of _chain_paths:432); the
 //    quadratic policy (QUAD, chain_policy_form="quadratic":
 //    _sweep_values:408 with _policy_value_minreduce:302) plain.
+//    Every form also runs on bf16 fGN inputs (BF16, from the bf16 flag;
+//    StreamConfig.fgn_matmul_dtype="bfloat16": make_pallas_priced_chain
+//    takes its bf16 factor from _fgn_consts at pathgen_pallas.py:1943, and
+//    _chain_paths forms X with _fgn_x:142 on the bf16 matrices).
+//
+// Build units (csrc/build_unit.cuh): this source is built twice, the
+// float32 and the bf16 bodies apart; an entry given the other dtype's
+// flag returns cudaErrorInvalidValue.
 //
 // What it computes: the paths of K2 (csrc/pathgen.cu) from the same noise,
 // S_c = exp(logS_c) on every cell, and for each strike k of the strip the
@@ -43,10 +51,15 @@
 //
 // Design:
 // * The path block, its noise, the fGN tile product and the Euler
-//   increments are K2's (csrc/fgn_tile.cuh), so the seeded paths are K2's
-//   bit for bit.  Each path block is generated once and every strike of the
-//   launch is swept against it; there are no per-group passes over the
-//   paths inside a launch.
+//   increments are K2's (csrc/fgn_tile.cuh), bit for bit.  The log price
+//   is log s0 + (the running sum of the increments), JAX's association
+//   (log_s0 + the cumsum matmul) and the plain version's, not K2's running
+//   sum from log s0: a float32 sum carried at log s0 ~ 4.6 rounds each
+//   step at 4.8e-7, which put the kernel's log prices a few ulps from the
+//   plain version's and flipped enough root-band decisions to move a deep
+//   out-of-the-money strike's sum by 1e-4 of itself.  Each path block is
+//   generated once and every strike of the launch is swept against it;
+//   there are no per-group passes over the paths inside a launch.
 // * The TPU swept at most 10 strikes per pass because Mosaic schedules a
 //   longer unroll badly.  Here the strike sweep is where K2's idle threads
 //   work: thread (path p, lane l) of the block's 256 keeps, in registers,
@@ -75,10 +88,22 @@
 //   4 (3 D ld + 65 BP + 4096) bytes, 32 paths (64 members) at 365 and at
 //   512 steps (230,016 bytes paired at 512).
 // * The decision is taken in S space for both members, as on the TPU.
+// * The bf16 form (BF16) keeps its N plane (and Zi) in bf16, each normal
+//   rounded to nearest even as it is drawn or read, the rows padded with
+//   zeros to whole k16 steps, and runs the product on the tensor cores
+//   (csrc/fgn_tile.cuh:fgn_tile_mma, m16n8k16, float32 sums); W, the X
+//   tile, the Euler recursion and the sweep are the float32 form's.  Its
+//   planes and staged tiles are narrower: 2 D (ceil16(n) + 8) bytes a
+//   bf16 plane and 2 * 64 * 40 bytes a staged tile, so its block is the
+//   largest its own model fits (models/chain_cuda.py block_paths_for),
+//   never smaller than the float32 form's: 64 paths at 365 and 512 steps
+//   (128 and 64 members paired), spectral 64 at 365 and 32 at 512 (64
+//   members paired at both).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "build_unit.cuh"
 #include "fgn_tile.cuh"
 #include "quad_policy.cuh"
 
@@ -90,8 +115,10 @@ constexpr int kGroup = 32;   // strikes one launch sweeps
 
 struct ChainArgs {
   const float* noise;   // [2 or 3, drawn, n] or nullptr (seeded entry)
-  const float* lt;      // [n, n] half-scaled factor: Lt' (upper), or Cr'
-  const float* ci;      // [n, n] Ci' (spectral), or nullptr (chol)
+  const void* lt;       // [n, n] half-scaled factor: Lt' (upper), or Cr';
+                        // bf16 under the bf16 form, else float32
+  const void* ci;       // [n, n] Ci' (spectral, the dtype of lt), or
+                        // nullptr (chol)
   const float* vd;      // [n] half variance drift
   const float* tables;  // [n_strikes] boundary_rows tables: rows lo, hi,
                         // disc * strike, disc (QUAD: policy_rows tables)
@@ -102,6 +129,7 @@ struct ChainArgs {
   uint32_t key;
   float r, dt, sqrt_dt, log_s0;
   int is_call;
+  bool bf16;            // the bf16 fGN-input form
 };
 
 // The Euler log increment of one cell.  Every rounding is explicit (no
@@ -118,27 +146,33 @@ __device__ __forceinline__ float euler_inc(const ChainArgs& a, float x,
 
 // Block of D = 16 * PM drawn rows; BP = D paths, or 2D pair members (ANTI:
 // member p < D is drawn row p, member D + p its partner).  SPEC: the
-// spectral fGN form; QUAD: the quadratic policy.
-template <int PM, bool SEEDED, bool ANTI, bool SPEC, bool QUAD>
+// spectral fGN form; QUAD: the quadratic policy; BF16: the bf16 fGN-input
+// form.
+template <int PM, bool SEEDED, bool ANTI, bool SPEC, bool QUAD, bool BF16>
 __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
   constexpr int D = 16 * PM;
   constexpr int BP = ANTI ? 2 * D : D;
   constexpr int kLanes = kThreads / BP;   // strike lanes per path
   constexpr int kPer = kGroup / kLanes;   // strikes per thread
+  using E = fgn_elem<BF16>;
   extern __shared__ float smem[];
   const int n = a.n, ld = plane_ld(n);
-  float* ns = smem;                       // [D][ld] N (Zr)
-  float* ws = ns + D * ld;                // [D][ld]
-  float* zs = ws + D * ld;                // [D][ld] Zi under SPEC
-  float* xs = zs + (SPEC ? D * ld : 0);   // [BP][kXStride]
-  float* lts = xs + BP * kXStride;        // [1 or 2][kTileK][kTileCols]
+  const int npf = n_plane_floats(n, D, BF16);
+  E* ns = reinterpret_cast<E*>(smem);     // [D][ld] N (Zr); bf16: [D][ldn]
+  E* zs = reinterpret_cast<E*>(smem + npf);   // the same, Zi under SPEC
+  float* ws = smem + (SPEC ? 2 : 1) * npf;    // [D][ld]
+  float* xs = ws + D * ld;                // [BP][kXStride]
+  E* lts = reinterpret_cast<E*>(xs + BP * kXStride);
+                                          // [1 or 2][kTileK][kTileCols];
+                                          // bf16: [kTileCols][kTileKB]
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * D;        // first drawn row
   const int p = tid % BP, lane = tid / BP;
-  load_noise<D, SEEDED, SPEC>(a.noise, a.drawn, n, a.key, row0, ns, ws, zs);
+  load_noise<D, SEEDED, SPEC, BF16>(a.noise, a.drawn, n, a.key, row0, ns, ws,
+                                    zs);
 
-  float ls = a.log_s0;                    // running log price, thread tid < BP
+  float cum = 0.0f;    // running sum of the log increments, thread tid < BP
   bool stopped[kPer];
   float val[kPer];
 #pragma unroll
@@ -149,7 +183,9 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
 
   for (int c0 = 0; c0 < n; c0 += kTileCols) {
     const int cn = min(c0 + kTileCols, n) - c0;
-    fgn_tile<PM, 1, SPEC>(a.lt, a.ci, n, c0, ns, lts, xs, nullptr, zs);
+    fgn_tile<PM, 1, SPEC, BF16>(static_cast<const E*>(a.lt),
+                                static_cast<const E*>(a.ci), n, c0, ns, lts,
+                                xs, nullptr, zs);
 
     // Variance exp and Euler increment, elementwise over the tile (K2's;
     // both members of a pair from one x and one w).
@@ -168,12 +204,13 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
     }
     __syncthreads();
 
-    // Running log price along the tile, one thread per path.
+    // Running log price along the tile, one thread per path: log s0 plus
+    // the running sum of the increments.
     if (tid < BP) {
       float* xp = &xs[tid * kXStride];
       for (int cc = 0; cc < cn; ++cc) {
-        ls += xp[cc];
-        xp[cc] = ls;
+        cum += xp[cc];
+        xp[cc] = a.log_s0 + cum;
       }
     }
     __syncthreads();
@@ -235,17 +272,18 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
   }
 }
 
-// Shared memory of a block of bp paths (pair members when antithetic).
-int smem_bytes(int n, int bp, bool anti, bool spec) {
+// Shared memory of a block of bp paths (pair members when antithetic), in
+// the bf16 form's layout when bf16.
+int smem_bytes(int n, int bp, bool anti, bool spec, bool bf16) {
   const int d = anti ? bp / 2 : bp;
-  return block_smem_bytes(n, d, 1, (bp - d) * kXStride, spec);
+  return block_smem_bytes(n, d, 1, (bp - d) * kXStride, spec, bf16);
 }
 
 template <int PM, bool SEEDED, bool ANTI, bool SPEC, bool QUAD>
 cudaError_t launch_one(const ChainArgs& a, cudaStream_t stream) {
   constexpr int D = 16 * PM;
-  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI, SPEC);
-  auto kernel = chain_kernel<PM, SEEDED, ANTI, SPEC, QUAD>;
+  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI, SPEC, kUnitBf16);
+  auto kernel = chain_kernel<PM, SEEDED, ANTI, SPEC, QUAD, kUnitBf16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -253,9 +291,11 @@ cudaError_t launch_one(const ChainArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The seeded or noise-in entry, chol or spectral (from a.ci).
+// The seeded or noise-in entry, chol or spectral (from a.ci), where
+// a.bf16 names this unit's fGN input dtype.
 template <int PM, bool ANTI, bool QUAD>
 cudaError_t launch_entry(const ChainArgs& a, cudaStream_t s) {
+  if (a.bf16 != kUnitBf16) return cudaErrorInvalidValue;
   const bool seeded = a.noise == nullptr;
   if (a.ci != nullptr)
     return seeded ? launch_one<PM, true, ANTI, true, QUAD>(a, s)
@@ -283,35 +323,39 @@ cudaError_t launch_pm(const ChainArgs& a, int pm, cudaStream_t s) {
 extern "C" {
 
 // block_paths counts paths (pair members when antithetic != 0); the
-// spectral form when spectral != 0.
-int mcop_chain_smem_bytes(int n_steps, int block_paths, int antithetic,
-                          int spectral) {
-  return smem_bytes(n_steps, block_paths, antithetic != 0, spectral != 0);
+// spectral form when spectral != 0; in this unit's fGN input dtype.
+int MCOP_ENTRY(mcop_chain_smem_bytes)(int n_steps, int block_paths,
+                                      int antithetic, int spectral) {
+  return smem_bytes(n_steps, block_paths, antithetic != 0, spectral != 0,
+                    kUnitBf16);
 }
 
-int mcop_chain_group() { return kGroup; }
+int MCOP_ENTRY(mcop_chain_group)() { return kGroup; }
 
 // K5.  noise may be null (seeded entry, stream of `key`).  lt is Lt'
 // (chol, ci null) or Cr' (spectral, ci = Ci'); noise is then [2, rows,
-// n_steps] (N, W) or [3, rows, n_steps] (Zr, Zi, W).  rows counts paths;
-// antithetic != 0 reads (or draws) rows / 2 rows of noise, and
-// block_paths (32, 64 or 128) counts pair members.
+// n_steps] (N, W) or [3, rows, n_steps] (Zr, Zi, W).  bf16 != 0 (the _bf16
+// unit only): the bf16 form, lt and ci bf16, noise float32 (N, and Zi,
+// rounded as they are read).  rows counts paths; antithetic != 0 reads
+// (or draws) rows / 2 rows of noise, and block_paths (32, 64 or 128)
+// counts pair members.
 // tables: the launch's n_strikes boundary_rows tables (quadratic != 0:
 // policy_rows tables, not with antithetic), strike_stride floats apart,
 // rows row_stride floats apart.  out: [rows / block_paths, n_strikes].
-int mcop_priced_chain(const float* noise, const float* lt, const float* ci,
-                      const float* vd, int rows, int n_steps, int block_paths,
-                      unsigned int key, float r, float dt, float sqrt_dt,
-                      float log_s0, const float* tables,
-                      long long strike_stride, long long row_stride,
-                      int n_strikes, int is_call, int antithetic,
-                      int quadratic, float* out, void* stream) {
+int MCOP_ENTRY(mcop_priced_chain)(
+    const float* noise, const void* lt, const void* ci, const float* vd,
+    int rows, int n_steps, int block_paths, unsigned int key, float r,
+    float dt, float sqrt_dt, float log_s0, const float* tables,
+    long long strike_stride, long long row_stride, int n_strikes,
+    int is_call, int antithetic, int quadratic, int bf16, float* out,
+    void* stream) {
   const bool anti = antithetic != 0;
   const int unit = anti ? 32 : 16;
   if (n_steps < 1 || rows < 1 || block_paths < unit || block_paths % unit ||
       block_paths > 4 * unit || rows % block_paths || n_strikes < 1 ||
       n_strikes > kGroup || (quadratic != 0 && anti) ||
-      smem_bytes(n_steps, block_paths, anti, ci != nullptr) > kSmemLimit)
+      smem_bytes(n_steps, block_paths, anti, ci != nullptr, kUnitBf16) >
+          kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   ChainArgs a{};
   a.noise = noise;
@@ -331,6 +375,7 @@ int mcop_priced_chain(const float* noise, const float* lt, const float* ci,
   a.sqrt_dt = sqrt_dt;
   a.log_s0 = log_s0;
   a.is_call = is_call;
+  a.bf16 = bf16 != 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int pm = block_paths / unit;
   const cudaError_t err = quadratic != 0 ? launch_pm<false, true>(a, pm, s)

@@ -15,11 +15,11 @@
 // so X is bitwise the same in all five kernels.
 //
 // The bf16 fGN-input form (BF16; StreamConfig.fgn_matmul_dtype="bfloat16",
-// counterpart _fgn_x with bf16 matrices) keeps the N plane (and under SPEC
-// the Zi plane) in bf16, each normal rounded to nearest even as it is
-// drawn or read, reads the factors (Lt', or Cr' and Ci') as bf16 and runs
-// the product on the tensor cores (csrc/mma_bf16.cuh), float32 sums; W
-// stays float32.  It takes one product (NMAT 1).
+// counterpart _fgn_x with bf16 matrices, and _tangent_planes:845 for K3/K4)
+// keeps the N plane (and under SPEC the Zi plane) in bf16, each normal
+// rounded to nearest even as it is drawn or read, reads the factors (Lt',
+// and dLt' for K3/K4, or Cr' and Ci') as bf16 and runs the products on the
+// tensor cores (csrc/mma_bf16.cuh), float32 sums; W stays float32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -68,11 +68,10 @@ __device__ __forceinline__ fgn_elem<BF16> to_fgn_elem(float v) {
   }
 }
 
-// Floats of shared memory the staged factor tiles take (two under SPEC:
-// Cr' and Ci').
-__host__ __device__ constexpr int staged_floats(bool spec, bool bf16) {
-  return (spec ? 2 : 1) * (bf16 ? kTileCols * kTileKB / 2
-                                : kTileK * kTileCols);
+// Floats of shared memory `tiles` staged factor tiles take (one per
+// product; two under SPEC: Cr' and Ci').
+__host__ __device__ constexpr int staged_floats(int tiles, bool bf16) {
+  return tiles * (bf16 ? kTileCols * kTileKB / 2 : kTileK * kTileCols);
 }
 
 // Floats of shared memory the N plane of bp rows takes.
@@ -140,37 +139,45 @@ __device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
 }
 
 // One step tile of X = N @ Lt' on the tensor cores (the BF16 form of
-// fgn_tile, NMAT 1): N in ns [D][plane_ld_bf16(n)] bf16, Lt' [n, n] bf16
-// in device memory, staged kTileK rows at a time into lts
-// [kTileCols][kTileKB] column by column; out [D][kXStride] float32 sums.
-// Warp w owns columns c0 + 8w .. c0 + 8w + 7 of the tile and all PM m16
-// row groups of the block's D = 16 PM rows; it skips the k16 steps past
-// its last column (Lt' is upper triangular, so they add zeros).
+// fgn_tile): N in ns [D][plane_ld_bf16(n)] bf16, Lt' [n, n] bf16 in device
+// memory, staged kTileK rows at a time into lts [kTileCols][kTileKB]
+// column by column; out0 [D][kXStride] float32 sums.  Warp w owns columns
+// c0 + 8w .. c0 + 8w + 7 of the tile and all PM m16 row groups of the
+// block's D = 16 PM rows; it skips the k16 steps past its last column (Lt'
+// is upper triangular, so they add zeros).
+// NMAT 2 (K3/K4): the second upper-triangular product N @ m1 (dLt') into
+// out1 from the same N reads: the m1 k-tile is staged beside m0's, each A
+// fragment of N is loaded once and issued into both float32 accumulators,
+// and the triangle skip is the same.
 // SPEC: the dense X = Zr @ Cr' - Zi @ Ci' (m0 = Cr', m1 = Ci', Zr in ns and
 // Zi in zs, both bf16 planes): Cr' and Ci' k-tiles staged side by side in
 // lts, every k < n for every column (no triangle skip), and the Zi
 // fragment negated (exact in bf16) so both products add into one float32
 // accumulator.  The planes are zero past n, so the last k16 step adds
 // zeros there.
-template <int PM, bool SPEC = false>
+template <int PM, bool SPEC = false, int NMAT = 1>
 __device__ void fgn_tile_mma(const __nv_bfloat16* m0, const __nv_bfloat16* m1,
                              int n, int c0, const __nv_bfloat16* ns,
                              const __nv_bfloat16* zs, __nv_bfloat16* lts,
-                             float* out) {
+                             float* out0, float* out1 = nullptr) {
+  static_assert(!SPEC || NMAT == 1, "the spectral product has one output");
+  constexpr bool kTwoTiles = SPEC || NMAT == 2;   // m1 staged too
   const int ldn = plane_ld_bf16(n);
   const int warp = threadIdx.x / 32;
   const int kmax = SPEC ? n : min(c0 + kTileCols, n);
   const int kwarp = SPEC ? kmax : min(c0 + 8 * warp + 8, kmax);
-  __nv_bfloat16* cts = lts + kTileCols * kTileKB;   // SPEC: Ci' k-tile
-  float acc[PM][4];
+  __nv_bfloat16* cts = lts + kTileCols * kTileKB;   // Ci' or dLt' k-tile
+  float acc[NMAT][PM][4];
 #pragma unroll
-  for (int i = 0; i < PM; ++i)
+  for (int m = 0; m < NMAT; ++m)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int i = 0; i < PM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][i][j] = 0.0f;
 
   for (int k0 = 0; k0 < kmax; k0 += kTileK) {
     const int kn = min(kTileK, kmax - k0);
-    __syncthreads();  // previous users of lts (and of the out tile) are done
+    __syncthreads();  // previous users of lts (and of the out tiles) are done
     for (int idx = threadIdx.x; idx < kTileK * kTileCols; idx += kThreads) {
       const int kk = idx / kTileCols, cc = idx - kk * kTileCols;
       const int c = c0 + cc;
@@ -178,7 +185,7 @@ __device__ void fgn_tile_mma(const __nv_bfloat16* m0, const __nv_bfloat16* m1,
       const size_t g = static_cast<size_t>(k0 + kk) * n + c;
       const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
       lts[cc * kTileKB + kk] = in ? m0[g] : zero;
-      if (SPEC) cts[cc * kTileKB + kk] = in ? m1[g] : zero;
+      if (kTwoTiles) cts[cc * kTileKB + kk] = in ? m1[g] : zero;
     }
     __syncthreads();
 #pragma unroll
@@ -186,24 +193,29 @@ __device__ void fgn_tile_mma(const __nv_bfloat16* m0, const __nv_bfloat16* m1,
       if (k0 + ks < kwarp) {
         uint32_t b[2], bi[2];
         load_b_frag(lts, kTileKB, 8 * warp, ks, b);
-        if (SPEC) load_b_frag(cts, kTileKB, 8 * warp, ks, bi);
+        if (kTwoTiles) load_b_frag(cts, kTileKB, 8 * warp, ks, bi);
 #pragma unroll
         for (int i = 0; i < PM; ++i) {
           uint32_t a[4];
           load_a_frag(ns, ldn, 16 * i, k0 + ks, a);
-          mma_bf16_16816(acc[i], a, b);
-          if (SPEC) {
+          mma_bf16_16816(acc[0][i], a, b);
+          if constexpr (NMAT == 2) {
+            mma_bf16_16816(acc[NMAT - 1][i], a, bi);
+          } else if constexpr (SPEC) {
             load_a_frag(zs, ldn, 16 * i, k0 + ks, a);
             negate_bf16_frag(a);
-            mma_bf16_16816(acc[i], a, bi);
+            mma_bf16_16816(acc[0][i], a, bi);
           }
         }
       }
     }
   }
+  float* out[2] = {out0, out1};
 #pragma unroll
-  for (int i = 0; i < PM; ++i)
-    store_c_frag(out, kXStride, 16 * i, 8 * warp, acc[i]);
+  for (int m = 0; m < NMAT; ++m)
+#pragma unroll
+    for (int i = 0; i < PM; ++i)
+      store_c_frag(out[m], kXStride, 16 * i, 8 * warp, acc[m][i]);
   __syncthreads();
 }
 
@@ -218,8 +230,8 @@ __device__ void fgn_tile_mma(const __nv_bfloat16* m0, const __nv_bfloat16* m1,
 // - Zi[p, k] m1[k, c], Zr in ns and Zi in zs, m0 = Cr' and m1 = Ci' both
 // staged (2 * kTileK * kTileCols floats).  Cr' and Ci' are dense, so every
 // column tile runs over all n rows: no triangle skip.
-// BF16: the tensor-core product of fgn_tile_mma (m0 = Lt', or Cr' and
-// m1 = Ci' under SPEC; ns, zs and lts bf16).
+// BF16: the tensor-core products of fgn_tile_mma (m0 = Lt' and, NMAT 2,
+// m1 = dLt'; or Cr' and m1 = Ci' under SPEC; ns, zs and lts bf16).
 // Ends with the tile written and the block synchronised.
 template <int PM, int NMAT, bool SPEC = false, bool BF16 = false>
 __device__ void fgn_tile(const fgn_elem<BF16>* m0, const fgn_elem<BF16>* m1,
@@ -228,8 +240,7 @@ __device__ void fgn_tile(const fgn_elem<BF16>* m0, const fgn_elem<BF16>* m1,
                          const fgn_elem<BF16>* zs = nullptr) {
   static_assert(!SPEC || NMAT == 1, "the spectral product has one output");
   if constexpr (BF16) {
-    static_assert(NMAT == 1, "the bf16 form has one product");
-    fgn_tile_mma<PM, SPEC>(m0, m1, n, c0, ns, zs, lts, out0);
+    fgn_tile_mma<PM, SPEC, NMAT>(m0, m1, n, c0, ns, zs, lts, out0, out1);
   } else {
     constexpr int kStaged = SPEC ? 2 : NMAT;   // factor tiles staged
     const float* mats[2] = {m0, m1};
@@ -302,17 +313,16 @@ __device__ void fgn_tile(const fgn_elem<BF16>* m0, const fgn_elem<BF16>* m1,
 
 // Shared memory of the planes (three under the spectral form; N, and Zi
 // under the spectral form, in bf16 under the bf16 form), NMAT product
-// tiles, the staged factors (two under the spectral form, in bf16 under
-// the bf16 form) and `extra` floats more, for a block of bp paths at
-// horizon n.
+// tiles, the staged factors (one a product, two under the spectral form,
+// in bf16 under the bf16 form) and `extra` floats more, for a block of bp
+// paths at horizon n.
 __host__ __device__ inline int block_smem_bytes(int n, int bp, int nmat,
                                                 int extra,
                                                 bool spec = false,
                                                 bool bf16 = false) {
-  const int staged = bf16 || spec ? staged_floats(spec, bf16)
-                                  : nmat * kTileK * kTileCols;
   return 4 * ((spec ? 2 : 1) * n_plane_floats(n, bp, bf16) +
-              bp * plane_ld(n) + nmat * bp * kXStride + staged + extra);
+              bp * plane_ld(n) + nmat * bp * kXStride +
+              staged_floats(spec ? 2 : nmat, bf16) + extra);
 }
 
 }  // namespace mcop

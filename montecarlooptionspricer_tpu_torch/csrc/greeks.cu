@@ -11,7 +11,15 @@
 //    (_chain_greeks_body): a strike strip, each strike read from row 3 of
 //    its table.
 // Both: chol fGN form, log-boundary policy, in two forms: plain and
-//    antithetic (the pair branch of _tangent_planes:849).
+//    antithetic (the pair branch of _tangent_planes:849), each also on
+//    bf16 fGN inputs (BF16, from the bf16 flag; StreamConfig.
+//    fgn_matmul_dtype="bfloat16": _greeks_consts:1028 rounds Lt' and dLt'
+//    to bf16, :1035-1036, and _tangent_planes:845-848 forms N @ Lt' and
+//    N @ dLt' on bf16 inputs from one N).
+//
+// Build units (csrc/build_unit.cuh): this source is built twice, the
+// float32 and the bf16 bodies apart; an entry given the other dtype's
+// flag returns cudaErrorInvalidValue.
 //
 // What they compute, per path and step column c (column c = step c+1):
 //   x' = N @ Lt' and hx = N @ dLt' (Lt' = 0.5 Lt, dLt' = 0.5 dLt/dH)
@@ -47,7 +55,9 @@
 // Design:
 // * The path block, its noise and the tile product are K2's
 //   (csrc/fgn_tile.cuh), with both factors multiplied from the same N
-//   reads, so x' and the log price are K2's bit for bit.  At 365 steps the
+//   reads, so x' is K2's bit for bit; the log price is log s0 + (the
+//   running sum of the increments), as JAX and the plain version
+//   associate it (as K5 does; csrc/chain.cu).  At 365 steps the
 //   N and W planes, four 64-column tiles (x' then inc, hx then b, the
 //   eta and H brackets) and the two staged factors take 143,104 bytes at a
 //   32-path block; a 64-path block would need 269,824 (models/
@@ -71,10 +81,22 @@
 //   on the same seed, whose Philox counter (global drawn row, step pair)
 //   regenerates the same members and partners for every group.
 // * t* and d* are recomputed from the stop index, as on the TPU.
+// * The bf16 form (BF16) keeps the N plane in bf16 (each normal rounded to
+//   nearest even, the rows zero-padded to whole k16 steps) and runs both
+//   products on the tensor cores from one N: the Lt' and dLt' k-tiles are
+//   staged side by side, each warp keeps the triangle skip of its 8
+//   columns, and each A fragment of N is loaded once and issued into two
+//   float32 accumulators (csrc/fgn_tile.cuh:fgn_tile_mma, NMAT 2).  W,
+//   the tiles, the tangent brackets, the sums and the sweep are the
+//   float32 form's; a pair's partner is -x', -hx to the bit.  Its plane
+//   and staged tiles are narrower, so its block is the largest its own
+//   model fits (models/greeks_cuda.py block_paths_for): 64 paths at 365
+//   steps (64 members paired), twice the float32 form's plain block.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "build_unit.cuh"
 #include "fgn_tile.cuh"
 
 namespace {
@@ -86,8 +108,9 @@ constexpr int kOut = 6;      // sums per strike
 
 struct GreeksArgs {
   const float* noise;   // [2, drawn, n] or nullptr for the seeded entry
-  const float* lt;      // [n, n] half-scaled Cholesky factor
-  const float* dlt;     // [n, n] half-scaled dLt/dH
+  const void* lt;       // [n, n] half-scaled Cholesky factor, and
+  const void* dlt;      // [n, n] half-scaled dLt/dH: bf16 under the bf16
+                        // form, else float32
   const float* vd;      // [n] half variance drift
   const float* de;      // [n] eta tangent row
   const float* dh;      // [n] H tangent row
@@ -102,6 +125,7 @@ struct GreeksArgs {
   uint32_t key;
   float r, dt, sqrt_dt, log_s0, inv_eta;
   int is_call;
+  bool bf16;            // the bf16 fGN-input form
 };
 
 // Tangent increment and brackets of one member at cell c from its x', hx
@@ -125,31 +149,36 @@ __device__ __forceinline__ Brackets brackets(const GreeksArgs& a, float x,
 }
 
 // Block of D = 16 * PM drawn rows; BP = D paths, or 2D pair members (ANTI:
-// member p < D is drawn row p, member D + p its partner).
-template <int PM, bool SEEDED, bool ANTI>
+// member p < D is drawn row p, member D + p its partner).  BF16: the bf16
+// fGN-input form.
+template <int PM, bool SEEDED, bool ANTI, bool BF16>
 __global__ void __launch_bounds__(kThreads, 1) greeks_kernel(GreeksArgs a) {
   constexpr int D = 16 * PM;
   constexpr int BP = ANTI ? 2 * D : D;
   constexpr int kLanes = kThreads / BP;   // strike lanes per path
   constexpr int kPer = kGroup / kLanes;   // strikes per thread
   constexpr int kTile = BP * kXStride;
+  using E = fgn_elem<BF16>;
   extern __shared__ float smem[];
   const int n = a.n, ld = plane_ld(n);
-  float* ns = smem;                       // [D][ld]
-  float* ws = ns + D * ld;                // [D][ld]
+  E* ns = reinterpret_cast<E*>(smem);     // [D][ld]; bf16: [D][ldn]
+  float* ws = smem + n_plane_floats(n, D, BF16);   // [D][ld]
   float* t0 = ws + D * ld;                // x', then inc, then ls
   float* t1 = t0 + kTile;                 // hx, then b, then cumb
   float* t2 = t1 + kTile;                 // eta bracket, then cume
   float* t3 = t2 + kTile;                 // H bracket, then cumh
-  float* lts = t3 + kTile;                // [2][kTileK][kTileCols]
+  E* lts = reinterpret_cast<E*>(t3 + kTile);
+                                          // [2][kTileK][kTileCols];
+                                          // bf16: [2][kTileCols][kTileKB]
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * D;        // first drawn row
   const int p = tid % BP, lane = tid / BP;
-  load_noise<D, SEEDED>(a.noise, a.drawn, n, a.key, row0, ns, ws);
+  load_noise<D, SEEDED, false, BF16>(a.noise, a.drawn, n, a.key, row0, ns,
+                                     ws);
 
   // Running sums, thread tid < BP.
-  float ls = a.log_s0, cb = 0.0f, ce = 0.0f, ch = 0.0f;
+  float cum = 0.0f, cb = 0.0f, ce = 0.0f, ch = 0.0f;
   // Stop state of this thread's strikes.
   int stop[kPer];
   float s_ls[kPer], s_cb[kPer], s_ce[kPer], s_ch[kPer];
@@ -161,7 +190,9 @@ __global__ void __launch_bounds__(kThreads, 1) greeks_kernel(GreeksArgs a) {
 
   for (int c0 = 0; c0 < n; c0 += kTileCols) {
     const int cn = min(c0 + kTileCols, n) - c0;
-    fgn_tile<PM, 2>(a.lt, a.dlt, n, c0, ns, lts, t0, t1);
+    fgn_tile<PM, 2, false, BF16>(static_cast<const E*>(a.lt),
+                                 static_cast<const E*>(a.dlt), n, c0, ns,
+                                 lts, t0, t1);
 
     // Increments and tangent brackets, elementwise over the tile (both
     // members of a pair from one x', one hx and one w).
@@ -195,11 +226,11 @@ __global__ void __launch_bounds__(kThreads, 1) greeks_kernel(GreeksArgs a) {
     if (tid < BP) {
       const int o = tid * kXStride;
       for (int cc = 0; cc < cn; ++cc) {
-        ls += t0[o + cc];
+        cum += t0[o + cc];
         cb += t1[o + cc];
         ce += t2[o + cc];
         ch += t3[o + cc];
-        t0[o + cc] = ls;
+        t0[o + cc] = a.log_s0 + cum;
         t1[o + cc] = cb;
         t2[o + cc] = ce;
         t3[o + cc] = ch;
@@ -269,17 +300,18 @@ __global__ void __launch_bounds__(kThreads, 1) greeks_kernel(GreeksArgs a) {
 
 // Shared memory of a block of bp paths (pair members when antithetic):
 // the planes of the drawn rows, four tiles of every member, two staged
-// factors.
-int smem_bytes(int n, int bp, bool anti) {
+// factors; in the bf16 form's layout when bf16.
+int smem_bytes(int n, int bp, bool anti, bool bf16) {
   const int d = anti ? bp / 2 : bp;
-  return block_smem_bytes(n, d, 2, (4 * bp - 2 * d) * kXStride);
+  return block_smem_bytes(n, d, 2, (4 * bp - 2 * d) * kXStride, false,
+                          bf16);
 }
 
 template <int PM, bool SEEDED, bool ANTI>
 cudaError_t launch_one(const GreeksArgs& a, cudaStream_t stream) {
   constexpr int D = 16 * PM;
-  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI);
-  auto kernel = greeks_kernel<PM, SEEDED, ANTI>;
+  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI, kUnitBf16);
+  auto kernel = greeks_kernel<PM, SEEDED, ANTI, kUnitBf16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -287,8 +319,11 @@ cudaError_t launch_one(const GreeksArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The seeded or noise-in entry, where a.bf16 names this unit's fGN input
+// dtype.
 template <bool ANTI>
 cudaError_t launch_pm(const GreeksArgs& a, int pm, cudaStream_t s) {
+  if (a.bf16 != kUnitBf16) return cudaErrorInvalidValue;
   const bool seeded = a.noise == nullptr;
   switch (pm) {
     case 4:
@@ -311,7 +346,7 @@ int launch(GreeksArgs& a, int block_paths, bool anti, cudaStream_t s) {
   if (a.n < 1 || a.rows < 1 || block_paths < unit || block_paths % unit ||
       block_paths > 4 * unit || a.rows % block_paths || a.n_strikes < 1 ||
       a.n_strikes > kGroup ||
-      smem_bytes(a.n, block_paths, anti) > kSmemLimit)
+      smem_bytes(a.n, block_paths, anti, kUnitBf16) > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   a.drawn = anti ? a.rows / 2 : a.rows;
   const int pm = block_paths / unit;
@@ -320,12 +355,12 @@ int launch(GreeksArgs& a, int block_paths, bool anti, cudaStream_t s) {
   return static_cast<int>(err);
 }
 
-GreeksArgs common(const float* noise, const float* lt, const float* dlt,
+GreeksArgs common(const float* noise, const void* lt, const void* dlt,
                   const float* vd, const float* de, const float* dh, int rows,
                   int n_steps, unsigned int key, float r, float dt,
                   float sqrt_dt, float log_s0, float inv_eta,
                   const float* tables, long long strike_stride,
-                  long long row_stride, int is_call, float* out) {
+                  long long row_stride, int is_call, int bf16, float* out) {
   GreeksArgs a{};
   a.noise = noise;
   a.lt = lt;
@@ -346,6 +381,7 @@ GreeksArgs common(const float* noise, const float* lt, const float* dlt,
   a.log_s0 = log_s0;
   a.inv_eta = inv_eta;
   a.is_call = is_call;
+  a.bf16 = bf16 != 0;
   return a;
 }
 
@@ -353,27 +389,31 @@ GreeksArgs common(const float* noise, const float* lt, const float* dlt,
 
 extern "C" {
 
-// block_paths counts paths (pair members when antithetic != 0).
-int mcop_greeks_smem_bytes(int n_steps, int block_paths, int antithetic) {
-  return smem_bytes(n_steps, block_paths, antithetic != 0);
+// block_paths counts paths (pair members when antithetic != 0); in this
+// unit's fGN input dtype.
+int MCOP_ENTRY(mcop_greeks_smem_bytes)(int n_steps, int block_paths,
+                                       int antithetic) {
+  return smem_bytes(n_steps, block_paths, antithetic != 0, kUnitBf16);
 }
 
-int mcop_greeks_group() { return kGroup; }
+int MCOP_ENTRY(mcop_greeks_group)() { return kGroup; }
 
 // K3.  noise may be null (seeded entry, stream of `key`).  rows counts
 // paths; antithetic != 0 reads (or draws) rows / 2 rows of noise, [2,
-// rows / 2, n_steps].  table: one log_boundary_rows table, rows
-// row_stride floats apart.  out: [rows / block_paths, 6].
-int mcop_greeks_chunk(const float* noise, const float* lt, const float* dlt,
-                      const float* vd, const float* de, const float* dh,
-                      int rows, int n_steps, int block_paths,
-                      unsigned int key, float r, float dt, float sqrt_dt,
-                      float log_s0, float inv_eta, const float* table,
-                      long long row_stride, float strike, int is_call,
-                      int antithetic, float* out, void* stream) {
+// rows / 2, n_steps].  bf16 != 0 (the _bf16 unit only): the bf16 form, lt
+// and dlt bf16, noise float32 (N rounded as it is read).  table: one
+// log_boundary_rows table, rows row_stride floats apart.  out:
+// [rows / block_paths, 6].
+int MCOP_ENTRY(mcop_greeks_chunk)(
+    const float* noise, const void* lt, const void* dlt, const float* vd,
+    const float* de, const float* dh, int rows, int n_steps,
+    int block_paths, unsigned int key, float r, float dt, float sqrt_dt,
+    float log_s0, float inv_eta, const float* table, long long row_stride,
+    float strike, int is_call, int antithetic, int bf16, float* out,
+    void* stream) {
   GreeksArgs a = common(noise, lt, dlt, vd, de, dh, rows, n_steps, key, r,
                         dt, sqrt_dt, log_s0, inv_eta, table, 0, row_stride,
-                        is_call, out);
+                        is_call, bf16, out);
   a.n_strikes = 1;
   a.strike_from_table = 0;
   a.strike = strike;
@@ -384,18 +424,16 @@ int mcop_greeks_chunk(const float* noise, const float* lt, const float* dlt,
 // K4.  As K3 with a strip: tables are the launch's n_strikes
 // log_boundary_rows tables, strike_stride floats apart; each strike is row
 // 3 of its table.  out: [rows / block_paths, n_strikes, 6].
-int mcop_chain_greeks_chunk(const float* noise, const float* lt,
-                            const float* dlt, const float* vd,
-                            const float* de, const float* dh, int rows,
-                            int n_steps, int block_paths, unsigned int key,
-                            float r, float dt, float sqrt_dt, float log_s0,
-                            float inv_eta, const float* tables,
-                            long long strike_stride, long long row_stride,
-                            int n_strikes, int is_call, int antithetic,
-                            float* out, void* stream) {
+int MCOP_ENTRY(mcop_chain_greeks_chunk)(
+    const float* noise, const void* lt, const void* dlt, const float* vd,
+    const float* de, const float* dh, int rows, int n_steps,
+    int block_paths, unsigned int key, float r, float dt, float sqrt_dt,
+    float log_s0, float inv_eta, const float* tables,
+    long long strike_stride, long long row_stride, int n_strikes,
+    int is_call, int antithetic, int bf16, float* out, void* stream) {
   GreeksArgs a = common(noise, lt, dlt, vd, de, dh, rows, n_steps, key, r,
                         dt, sqrt_dt, log_s0, inv_eta, tables, strike_stride,
-                        row_stride, is_call, out);
+                        row_stride, is_call, bf16, out);
   a.n_strikes = n_strikes;
   a.strike_from_table = 1;
   return launch(a, block_paths, antithetic != 0,

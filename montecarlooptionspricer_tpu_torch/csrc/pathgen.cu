@@ -191,7 +191,7 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
   E* lts = reinterpret_cast<E*>(xs + BP * kXStride);
                                           // [1 or 2][kTileK][kTileCols];
                                           // bf16: [kTileCols][kTileKB]
-  float* red = xs + BP * kXStride + staged_floats(SPEC, BF16);
+  float* red = xs + BP * kXStride + staged_floats(SPEC ? 2 : 1, BF16);
                                           // [BP], and [BP] more under CV
 
   const int tid = threadIdx.x;

@@ -5,9 +5,9 @@ compiled at first use with ``nvcc`` for ``sm_90a`` into a shared library
 of its own with a plain C interface, under ``build/kernels/`` at the root
 of the checkout (a directory ``.gitignore`` lists), and loaded with
 ``ctypes``.  The units compile in parallel, one ``nvcc`` each, all started
-together, so the build's wall is its slowest unit's: the path sources
-build their bf16 bodies apart from the float32 ones, and K1/K2's and
-K6/K7's seeded bodies apart from their noise-in ones
+together, so the build's wall is its slowest unit's: every kernel source
+but P1's builds its bf16 bodies apart from the float32 ones, and K1/K2's
+and K6/K7's seeded bodies apart from their noise-in ones
 (``csrc/build_unit.cuh``; a unit's entries carry the suffix of what it
 holds, ``entry`` picks one).  A library's file name carries a hash of its
 source, the shared headers, the flags and the defines, so an edited
@@ -39,8 +39,8 @@ _BY_DTYPE_AND_SEEDED = (((_NOISE_IN,), ""), ((_SEEDED,), "_seeded"),
                         ((_BF16, _NOISE_IN), "_bf16"),
                         ((_BF16, _SEEDED), "_bf16_seeded"))
 SPLITS = {"pathgen": _BY_DTYPE_AND_SEEDED,
-          "pathgen_tiled": _BY_DTYPE_AND_SEEDED, "chain": _WHOLE,
-          "greeks": _WHOLE, "pathgen_factored": _BY_DTYPE,
+          "pathgen_tiled": _BY_DTYPE_AND_SEEDED, "chain": _BY_DTYPE,
+          "greeks": _BY_DTYPE, "pathgen_factored": _BY_DTYPE,
           "roofline": _WHOLE}
 # (library name, source, extra nvcc flags, entry-name suffix) of each unit.
 UNITS = tuple((stem + suffix, CSRC / f"{stem}.cu", flags, suffix)
@@ -148,14 +148,15 @@ def load() -> types.SimpleNamespace:
             "mcop_chain_smem_bytes": [i, i, i, i],
             "mcop_chain_group": [],
             "mcop_priced_chain": [p, p, p, p, i, i, i, u, f, f, f, f, p, ll,
-                                  ll, i, i, i, i, p, p]},
+                                  ll, i, i, i, i, i, p, p]},
         "greeks": {
             "mcop_greeks_smem_bytes": [i, i, i],
             "mcop_greeks_group": [],
             "mcop_greeks_chunk": [p, p, p, p, p, p, i, i, i, u, f, f, f, f,
-                                  f, p, ll, f, i, i, p, p],
+                                  f, p, ll, f, i, i, i, p, p],
             "mcop_chain_greeks_chunk": [p, p, p, p, p, p, i, i, i, u, f, f,
-                                        f, f, f, p, ll, ll, i, i, i, p, p]},
+                                        f, f, f, p, ll, ll, i, i, i, i, p,
+                                        p]},
         "pathgen_factored": {
             "mcop_factored_smem_bytes": [i],
             "mcop_factored_pathgen": [p] * 10 + [i, i, u, f, f, f, f, f, i,

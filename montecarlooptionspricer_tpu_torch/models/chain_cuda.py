@@ -20,7 +20,13 @@ policy only) prices each drawn row as the pair (N, W), (-N, -W), the fGN
 product once per pair, each member swept against every strike.  Both run in the fGN form of the
 ``PathConsts`` they are given: chol, or spectral (three noise planes Zr,
 Zi, W and the dense ``X = Zr @ Cr' - Zi @ Ci'``, the JAX chain kernel's
-default form), as K2's.
+default form), as K2's; and each form in the fGN input dtype of those
+constants: float32, or bf16 (``make_path_consts(fgn_dtype="bfloat16")``,
+the JAX maker's ``fgn_dtype=jnp.bfloat16``): the kernel rounds N (Zr and
+Zi) to bf16 and sums the product on the tensor cores in float32, and the
+plain version takes the float32 product of the same bf16 values
+(``pathgen_cuda.fgn_x_ref``).  The counters count it under "bf16/..."
+(``pathgen_cuda.form_name``).
 
 The seeded entry draws K1's and K2's Philox stream (``pathgen_cuda``) of
 its form, so a strike of the strip sees the paths a single-strike K2 sees
@@ -46,16 +52,17 @@ FORMS = (*pc.FORMS[:2], pc.QUAD_FORMS[0])
 
 
 def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
-               spectral: bool = False) -> int:
+               spectral: bool = False, bf16: bool = False) -> int:
     """Shared memory of one CUDA block: K2's noise planes of the drawn
     rows (N and W, or Zr, Zi and W ``spectral``), one step tile of every
     path (pair member when ``antithetic``; it also holds the block's
     per-strike sums at the end) and the staged factor rows (Lt', or Cr'
-    and Ci')."""
+    and Ci'); under ``bf16`` the multiplied planes and the staged tiles
+    in bf16 (``pathgen_cuda.block_smem_bytes``)."""
     drawn = pc.drawn_rows(block_paths, antithetic)
     return pc.block_smem_bytes(
         n_steps, drawn, extra=(block_paths - drawn) * (pc.TILE_COLS + 1),
-        spectral=spectral)
+        spectral=spectral, bf16=bf16)
 
 
 def supports(n_steps: int, fgn_form: str = "chol") -> bool:
@@ -67,15 +74,16 @@ def supports(n_steps: int, fgn_form: str = "chol") -> bool:
 
 
 def block_paths_for(n_steps: int, rows: int, antithetic: bool = False,
-                    spectral: bool = False) -> int:
+                    spectral: bool = False, bf16: bool = False) -> int:
     """K5's path block: the largest of pathgen_cuda.BLOCK_CHOICES
     (PAIRED_BLOCK_CHOICES, in pair members, when ``antithetic``) whose
     shared memory fits at this horizon and which divides ``rows``: 64 at
     365 steps and 32 at 512, 128 and 64 paired; ``spectral``, 32 at both
-    (64 paired)."""
+    (64 paired).  The bf16 form's narrower planes fit 64 at 512 steps
+    and, spectral, 64 at 365 (pairs as in float32)."""
     bp = pc.fitting_block(
-        lambda n, b: smem_bytes(n, b, antithetic, spectral), n_steps, rows,
-        antithetic)
+        lambda n, b: smem_bytes(n, b, antithetic, spectral, bf16), n_steps,
+        rows, antithetic)
     if not bp:
         raise ValueError(f"no K5 block divides rows={rows} at "
                          f"n_steps={n_steps}")
@@ -135,7 +143,7 @@ def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
     sums every run."""
     quadratic = pc.check_policy(policy_form, antithetic)
     rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
-    consts.check_dtype(False, "K5")
+    consts.check_dtype()
     n = consts.n_steps
     if (tables.dim() != 3 or tables.shape[1] < (8 if quadratic else 4)
             or tables.shape[2] < n):
@@ -152,32 +160,33 @@ def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
         return priced_chain_from_noise_ref(consts, tables, noise, is_call,
                                            antithetic, policy_form)
     pc.check_device_inputs(consts, noise, tables)
-    bp = block_paths_for(n, rows, antithetic, consts.spectral)
+    bp = block_paths_for(n, rows, antithetic, consts.spectral, consts.bf16)
     from ..kernels import build
 
-    lib = build.load()
+    launch = build.entry(build.load(), "chain", "mcop_priced_chain",
+                         consts.bf16)
+    form = pc.form_name(antithetic, False, consts.spectral, quadratic,
+                        consts.bf16)
     stream = torch.cuda.current_stream(consts.device).cuda_stream
     sums = []
     for g in range(0, tables.shape[0], GROUP):
         k = min(GROUP, tables.shape[0] - g)
         partial = torch.empty((rows // bp, k), dtype=torch.float32,
                               device=consts.device)
-        err = lib.mcop_priced_chain(
+        err = launch(
             None if noise is None else noise.data_ptr(),
             *consts.factor_ptrs(), consts.vd.data_ptr(), rows, n, bp,
             0 if key is None else key & pc._U32, *pc._scalars(consts),
             tables[g].data_ptr(), tables.stride(0), tables.stride(1), k,
             int(bool(is_call)), int(bool(antithetic)), int(quadratic),
-            partial.data_ptr(), stream)
+            int(consts.bf16), partial.data_ptr(), stream)
         pc._check(err, "priced_chain")
         priced_chain.launches += 1
-        priced_chain.form_launches[pc.form_name(antithetic, False,
-                                                consts.spectral,
-                                                quadratic)] += 1
+        priced_chain.form_launches[form] += 1
         sums.append(torch.sum(partial, dim=0))
     return torch.cat(sums)
 
 
 priced_chain.launches = 0
-priced_chain.form_launches = pc.new_form_counts(FORMS)
+priced_chain.form_launches = pc.new_form_counts(FORMS, bf16=True)
 

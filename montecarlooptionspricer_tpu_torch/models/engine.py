@@ -75,13 +75,16 @@ XLA.
 ``fgn_matmul_dtype="bfloat16"`` (counterpart: the JAX field of that name,
 JAX's bench default at long horizons) runs the fGN product on bf16 inputs
 with float32 sums, in every estimator, fGN and policy form of
-``StreamingPricer.price`` and ``price_with_bounds``: the bf16 forms of
-K1/K2 on the single tile, of K6/K7 on the slab (chol, and spectral under
-``tiled_impl="slab"``) and of K8/K9 on the factored family (stage 1 on
-bf16 inputs), each family's range as under float32, and the bf16 matmul
-synthesis on the generic stream; the bounds stream K1/K6/K8 in that form.
-Strips on K5 and Greeks on K3/K4 raise ``NotImplementedError`` naming
-ROADMAP B12.
+``StreamingPricer.price`` and ``price_with_bounds``, of
+``StreamingChainPricer.price`` and of both pricers' ``price_and_greeks``:
+the bf16 forms of K1/K2 on the single tile, of K6/K7 on the slab (chol,
+and spectral under ``tiled_impl="slab"``) and of K8/K9 on the factored
+family (stage 1 on bf16 inputs), each family's range as under float32;
+strips on K5/bf16 (every form, to 512 steps, piloted on K1, K6 or K8 in
+their bf16 forms), Greeks on K3/bf16 and K4/bf16 (piloted on K1/bf16), as
+the JAX engine sends the dtype into its chain and Greeks kernels; and the
+bf16 matmul synthesis on the generic stream.  The bounds stream K1/K6/K8
+in that form.
 
 Only this path is ported.  Other configurations raise
 ``NotImplementedError`` naming their ROADMAP item; nothing runs another
@@ -147,9 +150,7 @@ class StreamConfig:
     (``_reject_unported_estimators``); on a kernel family it needs the
     boundary policy (``_check_pairing``).  ``fgn_matmul_dtype``
     ("float32" or "bfloat16") is the fGN product's input dtype; the
-    family does not depend on it, and every single-strike kernel body
-    runs in both (strips on K5 and the Greeks refuse bf16:
-    ``_check_bf16_chain``, ``_require_greeks``)."""
+    family does not depend on it, and every kernel body runs in both."""
 
     n_paths: int
     n_steps: int
@@ -328,17 +329,6 @@ def _chol_dh_matrix_host(n_steps: int, h: float, eta: float, dt: float,
     dlt = np.ascontiguousarray(((lp - lm) / (2.0 * eps)).T)
     dlt.setflags(write=False)
     return dlt
-
-
-def _check_bf16_chain(config: StreamConfig, family: str) -> None:
-    """Where ``fgn_matmul_dtype="bfloat16"`` runs a strip: the generic
-    stream only.  A strip on a kernel family (K5) raises
-    NotImplementedError naming ROADMAP B12; every single-strike kernel
-    body has its bf16 form, and the Greeks refuse it in
-    ``_require_greeks``."""
-    if (pathgen_cuda.check_fgn_dtype(config.fgn_matmul_dtype)
-            and family != "stream"):
-        raise pathgen_cuda.b12_error("on a strike strip (K5)")
 
 
 def _check_pairing(quadratic: bool, family: str, config: StreamConfig,
@@ -689,10 +679,12 @@ class _FusedStream:
 
     @functools.cached_property
     def greeks_consts(self) -> pathgen_cuda.GreeksConsts:
-        """The Greeks kernels' constants, built at first use."""
+        """The Greeks kernels' constants in the configuration's fGN input
+        dtype, built at first use."""
         return pathgen_cuda.make_greeks_consts(
             self._xi, self._h, self._eta, self.config.n_steps,
-            self.config.dt, self.device)
+            self.config.dt, self.device,
+            fgn_dtype=self.config.fgn_matmul_dtype)
 
     def _pilot(self, carrier) -> torch.Tensor:
         """Pilot block from the (run_word, stream_index) ``carrier``
@@ -747,8 +739,6 @@ class _FusedStream:
                 "the chol form only, as the JAX engine's do; a spectral "
                 "configuration's Greeks take JAX's jvp stream, which is not "
                 "ported (ROADMAP A10)")
-        if self.consts.bf16:
-            raise pathgen_cuda.b12_error("for the Greeks (K3/K4)")
 
     def _n_paths(self, n_paths: Optional[int]) -> int:
         if n_paths is None:
@@ -1165,7 +1155,6 @@ class StreamingChainPricer(_FusedStream):
                 "bucketed and traced-market chains (the serving pricers) "
                 "are not ported (ROADMAP A13)")
         family = chain_family(config)
-        _check_bf16_chain(config, family)
         super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
                          device, family)
         self.quadratic = config.chain_policy_form == "quadratic"
@@ -1173,12 +1162,13 @@ class StreamingChainPricer(_FusedStream):
         self.strikes = self._strip(strikes)
         # K5's constants: the pilot family's (K1's, K6's), or on the
         # factored family the spectral single-tile constants of the same
-        # law (K8's FactoredConsts carry no dense matrices).
+        # law (K8's FactoredConsts carry no dense matrices), in the
+        # configuration's fGN input dtype.
         self.chain_consts = self.consts
         if family == "factored":
             self.chain_consts = pathgen_cuda.make_path_consts(
                 s0, xi, h, eta, r, config.n_steps, config.dt, self.device,
-                fgn_form="spectral")
+                fgn_form="spectral", fgn_dtype=config.fgn_matmul_dtype)
 
     def _strip(self, strikes) -> torch.Tensor:
         strip = torch.as_tensor(strikes, dtype=torch.float32).reshape(-1)

@@ -19,10 +19,16 @@ fixed: forward tangents of the policy value, written out as
 the CUDA source gives the algebra).  Their ``antithetic`` forms (the
 pair branch of ``_tangent_planes``) price each drawn row as the pair (N,
 W), (-N, -W): both fGN products run once per pair, and the partner takes
--x', -hx and -W, nothing else negated.  The seeded entries draw K1's and
-K2's Philox stream.  The wrappers run the plain version for tensors on the
-CPU and launch the kernel for tensors on a CUDA device; nothing falls
-back.
+-x', -hx and -W, nothing else negated.  Both run in the fGN input dtype
+of their constants: float32, or bf16 (``make_path_consts`` and
+``make_greeks_consts`` with ``fgn_dtype="bfloat16"``, the JAX makers'
+``fgn_dtype=jnp.bfloat16``): Lt' and dLt' are bf16, the kernel rounds N
+to bf16 and sums both products on the tensor cores in float32, and the
+plain version takes the float32 products of the same bf16 values
+(``pathgen_cuda.fgn_matmul_ref``); the counters count "bf16" and
+"bf16/anti".  The seeded entries draw K1's and K2's Philox stream.  The
+wrappers run the plain version for tensors on the CPU and launch the
+kernel for tensors on a CUDA device; nothing falls back.
 """
 
 from __future__ import annotations
@@ -41,19 +47,22 @@ GREEK_ORDER = ("price", "delta", "vega_xi", "vega_eta", "rho_rate",
 # The card's memory model (mirrors csrc/greeks.cu).
 
 GROUP = 32                  # strikes one launch sweeps (csrc/greeks.cu kGroup)
-FORMS = pc.FORMS[:2]   # the forms of K3 and K4: the counters' keys
+FORMS = pc.FORMS[:2]   # the forms of K3 and K4
+# The counters' keys: each form in float32 and in the bf16 fGN-input form.
+FORM_KEYS = (*FORMS, *pc.bf16_names(FORMS))
 
 
-def smem_bytes(n_steps: int, block_paths: int,
-               antithetic: bool = False) -> int:
+def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
+               bf16: bool = False) -> int:
     """Shared memory of one CUDA block: the N and W planes of the drawn
     rows, four step tiles of every path (pair member when ``antithetic``:
     x' and hx, then the running sums; they also hold the block's sums at
-    the end) and the staged Lt' and dLt' rows."""
+    the end) and the staged Lt' and dLt' rows; under ``bf16`` the N plane
+    and the two staged tiles in bf16."""
     drawn = pc.drawn_rows(block_paths, antithetic)
     return pc.block_smem_bytes(
         n_steps, drawn, n_products=2,
-        extra=(4 * block_paths - 2 * drawn) * (pc.TILE_COLS + 1))
+        extra=(4 * block_paths - 2 * drawn) * (pc.TILE_COLS + 1), bf16=bf16)
 
 
 def supports(n_steps: int) -> bool:
@@ -61,13 +70,14 @@ def supports(n_steps: int) -> bool:
     return n_steps >= 1 and pc.fitting_block(smem_bytes, n_steps) > 0
 
 
-def block_paths_for(n_steps: int, rows: int,
-                    antithetic: bool = False) -> int:
+def block_paths_for(n_steps: int, rows: int, antithetic: bool = False,
+                    bf16: bool = False) -> int:
     """The Greeks kernels' path block: the largest of
     pathgen_cuda.BLOCK_CHOICES (PAIRED_BLOCK_CHOICES, in pair members, when
     ``antithetic``) whose shared memory fits at this horizon and which
-    divides ``rows`` (32 at 365 steps, 64 paired)."""
-    bp = pc.fitting_block(lambda n, b: smem_bytes(n, b, antithetic),
+    divides ``rows`` (32 at 365 steps, 64 paired; the bf16 form's narrower
+    plane fits 64, 64 paired)."""
+    bp = pc.fitting_block(lambda n, b: smem_bytes(n, b, antithetic, bf16),
                           n_steps, rows, antithetic)
     if not bp:
         raise ValueError(f"no Greeks block divides rows={rows} at "
@@ -96,10 +106,11 @@ def greeks_from_noise_ref(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
     [K, 8, >= n_steps] log_boundary_rows ``tables`` with strikes
     ``strikes`` [K], on the paths of ``noise`` [2, rows, n_steps]; with
     ``antithetic`` each row of noise is priced as a pair, the partner on
-    -x', -hx and -W."""
+    -x', -hx and -W.  The bf16 form rounds N to bf16 for both products
+    (``pathgen_cuda.fgn_matmul_ref``)."""
     n = consts.n_steps
-    x = pc._matmul_f32(noise[0], consts.lt_half)
-    hx = pc._matmul_f32(noise[0], gconsts.dlt_half)
+    x = pc.fgn_matmul_ref(noise[0], consts.lt_half)
+    hx = pc.fgn_matmul_ref(noise[0], gconsts.dlt_half)
     w = noise[1]
     if antithetic:
         x, w = pc.pair_planes(x, w)
@@ -157,12 +168,21 @@ def _check_tables(consts: pc.PathConsts, tables: torch.Tensor) -> None:
 
 
 def _check_gconsts(consts: pc.PathConsts, gconsts: pc.GreeksConsts) -> None:
+    """The Greeks constants in the PathConsts' fGN input dtype, dLt' in
+    it (torch.bfloat16 or float32), on its device: ValueError otherwise,
+    so no product mixes the two forms."""
+    if gconsts.fgn_dtype != consts.fgn_dtype:
+        raise ValueError(f"gconsts are {gconsts.fgn_dtype!r}, the path "
+                         f"constants {consts.fgn_dtype!r}")
     n = consts.n_steps
-    for name, t, shape in (("dlt_half", gconsts.dlt_half, (n, n)),
-                           ("de", gconsts.de, (n,)), ("dh", gconsts.dh, (n,))):
+    mat = torch.bfloat16 if consts.bf16 else torch.float32
+    for name, t, shape, dtype in (
+            ("dlt_half", gconsts.dlt_half, (n, n), mat),
+            ("de", gconsts.de, (n,), torch.float32),
+            ("dh", gconsts.dh, (n,), torch.float32)):
         if (tuple(t.shape) != shape or t.device != consts.device
-                or t.dtype != torch.float32 or not t.is_contiguous()):
-            raise ValueError(f"gconsts.{name} must be contiguous float32 "
+                or t.dtype != dtype or not t.is_contiguous()):
+            raise ValueError(f"gconsts.{name} must be contiguous {dtype} "
                              f"{shape} on {consts.device}")
 
 
@@ -170,18 +190,18 @@ def _launch(name, consts, gconsts, rows, key, noise, tables, extra, k,
             antithetic):
     """One launch of the Greeks body; returns its [k, 6] raw sums."""
     n = consts.n_steps
-    bp = block_paths_for(n, rows, antithetic)
+    bp = block_paths_for(n, rows, antithetic, consts.bf16)
     partial = torch.empty((rows // bp, k, 6), dtype=torch.float32,
                           device=consts.device)
     from ..kernels import build
 
-    err = getattr(build.load(), name)(
+    err = build.entry(build.load(), "greeks", name, consts.bf16)(
         None if noise is None else noise.data_ptr(),
         consts.lt_half.data_ptr(), gconsts.dlt_half.data_ptr(),
         consts.vd.data_ptr(), gconsts.de.data_ptr(), gconsts.dh.data_ptr(),
         rows, n, bp, 0 if key is None else key & pc._U32,
         *pc._scalars(consts), ctypes.c_float(1.0 / gconsts.eta),
-        tables.data_ptr(), *extra, int(bool(antithetic)),
+        tables.data_ptr(), *extra, int(bool(antithetic)), int(consts.bf16),
         partial.data_ptr(),
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, name)
@@ -199,8 +219,9 @@ def greeks_chunk(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
     ``antithetic`` the chunk's ``rows`` paths are rows / 2 pairs (noise
     [2, rows / 2, n_steps])."""
     rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
-    consts.check_dtype(False, "K3")
+    consts.check_dtype()
     _check_tables(consts, table[None])
+    _check_gconsts(consts, gconsts)
     if consts.device.type == "cpu":
         if noise is None:
             noise = pc.philox_normals_ref(
@@ -209,17 +230,17 @@ def greeks_chunk(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
             consts, gconsts, table[None], torch.tensor([float(strike)]),
             noise, is_call, antithetic)[:, 0]
     pc.check_device_inputs(consts, noise, table)
-    _check_gconsts(consts, gconsts)
     raw = _launch("mcop_greeks_chunk", consts, gconsts, rows, key, noise,
                   table, (table.stride(0), ctypes.c_float(strike),
                           int(bool(is_call))), 1, antithetic)
     greeks_chunk.launches += 1
-    greeks_chunk.form_launches[FORMS[int(bool(antithetic))]] += 1
+    greeks_chunk.form_launches[pc.form_name(antithetic,
+                                            bf16=consts.bf16)] += 1
     return _to_greek_order(raw[0], consts, gconsts)
 
 
 greeks_chunk.launches = 0
-greeks_chunk.form_launches = dict.fromkeys(FORMS, 0)
+greeks_chunk.form_launches = dict.fromkeys(FORM_KEYS, 0)
 
 
 def chain_greeks_chunk(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
@@ -233,8 +254,9 @@ def chain_greeks_chunk(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
     sweeps up to GROUP strikes; a wider strip takes one launch per group
     on the same key or noise, which regenerates the same pairs."""
     rows = pc._noise_or_rows(consts, rows, key, noise, antithetic)
-    consts.check_dtype(False, "K4")
+    consts.check_dtype()
     _check_tables(consts, tables)
+    _check_gconsts(consts, gconsts)
     if consts.device.type == "cpu":
         if noise is None:
             noise = pc.philox_normals_ref(
@@ -242,7 +264,7 @@ def chain_greeks_chunk(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
         return greeks_from_noise_ref(consts, gconsts, tables, tables[:, 3, 0],
                                      noise, is_call, antithetic)
     pc.check_device_inputs(consts, noise, tables)
-    _check_gconsts(consts, gconsts)
+    form = pc.form_name(antithetic, bf16=consts.bf16)
     raws = []
     for g in range(0, tables.shape[0], GROUP):
         k = min(GROUP, tables.shape[0] - g)
@@ -251,10 +273,10 @@ def chain_greeks_chunk(consts: pc.PathConsts, gconsts: pc.GreeksConsts,
             tables[g], (tables.stride(0), tables.stride(1), k,
                         int(bool(is_call))), k, antithetic))
         chain_greeks_chunk.launches += 1
-        chain_greeks_chunk.form_launches[FORMS[int(bool(antithetic))]] += 1
+        chain_greeks_chunk.form_launches[form] += 1
     return _to_greek_order(torch.cat(raws).T, consts, gconsts)
 
 
 chain_greeks_chunk.launches = 0
-chain_greeks_chunk.form_launches = dict.fromkeys(FORMS, 0)
+chain_greeks_chunk.form_launches = dict.fromkeys(FORM_KEYS, 0)
 

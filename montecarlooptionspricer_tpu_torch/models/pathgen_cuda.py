@@ -49,8 +49,10 @@ noise planes they multiply (N, or Zr and Zi) to bf16 (nearest even) and
 sum the products on the tensor cores in float32.  The plain versions
 round them likewise and take the float32 products of the bf16 values.
 The launch counters put "bf16/" ahead of the float32 form's name:
-"bf16", "bf16/anti", ..., "bf16/spectral/quad/cv" (``form_name``).  K5,
-K3 and K4 take no bf16 constants yet (ROADMAP B12).
+"bf16", "bf16/anti", ..., "bf16/spectral/quad/cv" (``form_name``).  The
+strike-chain kernel K5 (``chain_cuda``) and the Greeks kernels K3/K4
+(``greeks_cuda``, with ``make_greeks_consts(fgn_dtype="bfloat16")``'s
+bf16 dLt') run the bf16 form likewise.
 
 Each kernel has a seeded entry (Philox4x32-10 written into the kernel) and
 a noise-in entry.  The wrappers run the plain versions for tensors on the
@@ -300,12 +302,13 @@ def block_smem_bytes(n_steps: int, block_paths: int, n_products: int = 1,
     rounded up to 16 plus 8, and each staged tile is bf16
     [TILE_COLS][TILE_KB]."""
     ld = n_steps | 1
-    mult = 2 if spectral else 1          # planes multiplied, tiles staged
+    planes = 2 if spectral else 1        # planes multiplied
+    tiles = 2 if spectral else n_products  # factor tiles staged
     plane = (block_paths * (_round_up(n_steps, 16) + 8) // 2 if bf16
              else block_paths * ld)
-    staged = (mult * TILE_COLS * TILE_KB // 2 if bf16
-              else (mult if spectral else n_products) * TILE_K * TILE_COLS)
-    floats = (mult * plane + block_paths * ld + extra
+    staged = tiles * (TILE_COLS * TILE_KB // 2 if bf16
+                      else TILE_K * TILE_COLS)
+    floats = (planes * plane + block_paths * ld + extra
               + n_products * block_paths * (TILE_COLS + 1) + staged)
     return 4 * floats
 
@@ -348,13 +351,6 @@ def check_fgn_dtype(fgn_dtype: str) -> bool:
         raise ValueError(f"fgn_matmul_dtype must be one of {FGN_DTYPES}, "
                          f"got {fgn_dtype!r}")
     return fgn_dtype == "bfloat16"
-
-
-def b12_error(what: str) -> NotImplementedError:
-    """The error of a bf16 fGN-input form that is not ported yet."""
-    return NotImplementedError(
-        f"fgn_matmul_dtype='bfloat16' {what}: the bf16 forms of K5 and "
-        "K3/K4 are not ported (ROADMAP B12)")
 
 
 def max_block_paths(n_steps: int, fgn_form: str = "chol") -> int:
@@ -420,12 +416,10 @@ class PathConsts:
         """Whether these are the bf16 fGN-input form's constants."""
         return self.fgn_dtype == "bfloat16"
 
-    def check_dtype(self, bf16_kernel: bool = True, kernel: str = "") -> None:
+    def check_dtype(self) -> None:
         """The factors in the dtype their form names: torch.bfloat16 under
         ``fgn_dtype="bfloat16"``, float32 otherwise (ValueError on a
-        mismatch, so no kernel reads one as the other).  A ``kernel``
-        without the bf16 form (``bf16_kernel`` False) refuses bf16
-        constants, naming ROADMAP B12."""
+        mismatch, so no kernel reads one as the other)."""
         want = torch.bfloat16 if self.bf16 else torch.float32
         factors = [t for t in (self.lt_half, self.cr_half, self.ci_half)
                    if t is not None]
@@ -433,8 +427,6 @@ class PathConsts:
             raise ValueError(
                 f"fgn_dtype={self.fgn_dtype!r} needs {want} factors, got "
                 f"{[t.dtype for t in factors]}")
-        if self.bf16 and not bf16_kernel:
-            raise b12_error(f"on {kernel}")
 
     @property
     def fgn_form(self) -> str:
@@ -497,27 +489,40 @@ class GreeksConsts:
     """What the Greeks kernels K3 and K4 read beside a PathConsts
     (counterpart: the ``dlt'`` and ``aux`` rows of
     ``pathgen_pallas._greeks_consts``): the half-scaled dLt/dH factor
-    ``dlt_half`` [n, n] (upper triangular), the tangent rows ``de`` [n]
-    (d ln sv/d eta less x'/eta) and ``dh`` [n] (the drift's H derivative),
-    and the scalars xi and eta the tangents divide by.  Its tensors live
-    on the PathConsts' device."""
+    ``dlt_half`` [n, n] (upper triangular; torch.bfloat16 under
+    ``fgn_dtype="bfloat16"``, which the PathConsts' must match), the
+    tangent rows ``de`` [n] (d ln sv/d eta less x'/eta) and ``dh`` [n] (the
+    drift's H derivative), and the scalars xi and eta the tangents divide
+    by.  Its tensors live on the PathConsts' device."""
 
     dlt_half: torch.Tensor
     de: torch.Tensor
     dh: torch.Tensor
     xi: float
     eta: float
+    fgn_dtype: str = "float32"
+
+    @property
+    def bf16(self) -> bool:
+        """Whether these are the bf16 fGN-input form's constants."""
+        return self.fgn_dtype == "bfloat16"
 
 
-def make_greeks_consts(xi, h, eta, n_steps: int, dt: float,
-                       device) -> GreeksConsts:
+def make_greeks_consts(xi, h, eta, n_steps: int, dt: float, device,
+                       fgn_dtype: str = "float32") -> GreeksConsts:
     """GreeksConsts from the float64 host dLt/dH (``_chol_dh_matrix_host``)
     and the tangent rows -eta/2 t^2H and -eta^2/2 t^2H ln t at the drift
-    times t = c dt (0 at t = 0)."""
+    times t = c dt (0 at t = 0).  Under ``fgn_dtype="bfloat16"`` dLt is
+    rounded to torch.bfloat16 and halved, bit for bit JAX's
+    ``_greeks_consts(..., jnp.bfloat16)`` dLt' (as ``make_path_consts``
+    rounds Lt')."""
     from .engine import _chol_dh_matrix_host
 
-    dlt = torch.tensor(_chol_dh_matrix_host(n_steps, h, eta, dt),
-                       dtype=torch.float32)
+    bf16 = check_fgn_dtype(fgn_dtype)
+    dlt = 0.5 * torch.tensor(_chol_dh_matrix_host(n_steps, h, eta, dt),
+                             dtype=torch.float32)
+    if bf16:
+        dlt = dlt.to(torch.bfloat16)
     td = np.arange(n_steps, dtype=np.float64) * dt
     t2h = td ** (2.0 * h)
     lnt = np.where(td > 0, np.log(np.maximum(td, 1e-300)), 0.0)
@@ -525,10 +530,10 @@ def make_greeks_consts(xi, h, eta, n_steps: int, dt: float,
     def row(v):
         return torch.tensor(v, dtype=torch.float32).to(device).contiguous()
 
-    return GreeksConsts(dlt_half=(0.5 * dlt).to(device).contiguous(),
+    return GreeksConsts(dlt_half=dlt.to(device).contiguous(),
                         de=row(-0.5 * eta * t2h),
                         dh=row(-0.5 * (eta * eta) * t2h * lnt),
-                        xi=float(xi), eta=float(eta))
+                        xi=float(xi), eta=float(eta), fgn_dtype=fgn_dtype)
 
 
 def _table_prep(fits, r, maturity, dt, n_steps: int, s_pad: int,
@@ -735,20 +740,25 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def fgn_matmul_ref(plane: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """plane @ m in float32.  For a bf16 factor ``m`` (the bf16 form) the
+    plane is rounded to bf16 first and the product is the float32 one of
+    the bf16 values (every product of two bf16 values is exact in
+    float32), as JAX's ``jnp.dot`` of bf16 inputs with float32 sums."""
+    if m.dtype == torch.bfloat16:
+        return _matmul_f32(round_bf16(plane), m.to(torch.float32))
+    return _matmul_f32(plane, m)
+
+
 def fgn_x_ref(consts: PathConsts, noise: torch.Tensor) -> torch.Tensor:
     """[rows, n_steps] half-scaled fGN plane of the noise planes: N @ Lt'
     (chol), or Zr @ Cr' - Zi @ Ci' (spectral, ``_fgn_x``), float32.  The
-    bf16 form rounds N (Zr and Zi) to bf16 and takes the float32 products
-    of the bf16 planes and matrices (every product of two bf16 values is
-    exact in float32), as JAX's ``_fgn_x`` does with bf16 matrices."""
-    def mm(plane, m):
-        if consts.bf16:
-            return _matmul_f32(round_bf16(plane), m.to(torch.float32))
-        return _matmul_f32(plane, m)
-
+    bf16 form rounds N (Zr and Zi) to bf16 (``fgn_matmul_ref``), as JAX's
+    ``_fgn_x`` does with bf16 matrices."""
     if consts.spectral:
-        return mm(noise[0], consts.cr_half) - mm(noise[1], consts.ci_half)
-    return mm(noise[0], consts.lt_half)
+        return (fgn_matmul_ref(noise[0], consts.cr_half)
+                - fgn_matmul_ref(noise[1], consts.ci_half))
+    return fgn_matmul_ref(noise[0], consts.lt_half)
 
 
 def _log_paths_ref(consts: PathConsts, noise: torch.Tensor,

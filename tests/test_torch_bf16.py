@@ -18,7 +18,9 @@ import torch
 from montecarlooptionspricer_tpu.models import engine as jengine
 from montecarlooptionspricer_tpu.models import pathgen_pallas as jpp
 from montecarlooptionspricer_tpu.models import pathgen_pallas_tiled as jtiled
+from montecarlooptionspricer_tpu_torch.models import chain_cuda as cc
 from montecarlooptionspricer_tpu_torch.models import engine as tengine
+from montecarlooptionspricer_tpu_torch.models import greeks_cuda as gc
 from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
 from montecarlooptionspricer_tpu_torch.models import pathgen_stream as ps
 from montecarlooptionspricer_tpu_torch.models import pathgen_tiled_cuda as ptc
@@ -234,25 +236,37 @@ def _cfg(n_steps, **kw):
 ], ids=["spectral", "quadratic", "quadratic-slab", "factored-4000",
         "factored-1825", "k5-strip", "k3-greeks", "k4-strip-greeks"])
 def test_bf16_routing_raises_b12(case):
-    """Every single-strike kernel combination routes bf16 to its bf16
-    body: the family is the float32 one, the constants are bf16, and the
-    family's path and priced wrappers count the form under "bf16/..."
-    keys (no launch on the CPU, which runs the plain versions).  What has
-    no bf16 body raises naming ROADMAP B12 before any constant is built:
-    a strip on K5 at construction, the Greeks on K3 when asked for, and
-    a strip's Greeks (K4) at its strip's construction."""
+    """Every kernel combination routes bf16 to its bf16 body: the family
+    is the float32 one, the constants are bf16, and the family's path and
+    priced wrappers count the form under "bf16/..." keys (no launch on the
+    CPU, which runs the plain versions).  Nothing raises ROADMAP B12 any
+    more: a strip on K5 pilots on K1/bf16 and has bf16 chain constants
+    and K5's "bf16" key, the Greeks on K3 bf16 Lt' and dLt' and K3's
+    "bf16" key, and a strip's Greeks (K4) the same with K4's key, each
+    also under "bf16/anti"."""
     n = case["cfg"]["n_steps"]
     market = dict(**BENCH_MARKET, maturity=n * DT, is_call=False,
                   config=_cfg(**case["cfg"]), device="cpu")
-    if case.get("strip"):
-        with pytest.raises(NotImplementedError, match="B12"):
-            tengine.StreamingChainPricer(**market, strikes=[95.0, 105.0])
+    if case.get("strip") or case.get("greeks"):
+        cls = (tengine.StreamingChainPricer if case.get("strip")
+               else tengine.StreamingPricer)
+        p = cls(**market, **({"strikes": [95.0, 105.0]} if case.get("strip")
+                             else {"strike": 105.0}))
+        assert p.kernel_family == "single" and p.consts.bf16
+        assert "bf16" in p._pathgen.form_launches
+        if case.get("strip"):
+            assert p.chain_consts.bf16 and not p.chain_consts.spectral
+        if case.get("greeks"):
+            g = p.greeks_consts
+            assert g.bf16 and g.dlt_half.dtype == torch.bfloat16
+            assert p.consts.lt_half.dtype == torch.bfloat16
+        wrapper = ((gc.chain_greeks_chunk if case.get("strip")
+                    else gc.greeks_chunk) if case.get("greeks")
+                   else cc.priced_chain)
+        for anti in (False, True):
+            assert pc.form_name(anti, bf16=True) in wrapper.form_launches
         return
     p = tengine.StreamingPricer(**market, strike=105.0)
-    if case.get("greeks"):
-        with pytest.raises(NotImplementedError, match="B12"):
-            p.price_and_greeks(0)
-        return
     assert p.kernel_family == case["family"] and p.consts.bf16
     # K8/K9 are spectral by law and name no fGN form in their keys.
     spectral = (case["family"] != "factored"
@@ -269,9 +283,9 @@ def test_bf16_routing_raises_b12(case):
 def test_bf16_routing():
     """bf16 keeps the float32 form's families (single to 365 steps, the
     chol slab past it), runs the generic stream under pathgen_impl="xla"
-    and a quadratic policy there; strips on K5 and the Greeks raise B12,
-    strips on the generic stream do not; an unknown dtype raises
-    ValueError."""
+    and a quadratic policy there; strips run on K5/bf16 and the Greeks on
+    K3/bf16 (no B12 raise any more), strips on the generic stream under
+    pathgen_impl="xla"; an unknown dtype raises ValueError."""
     with pytest.raises(ValueError, match="fgn_matmul_dtype"):
         tengine.StreamConfig(n_paths=1024, n_steps=32,
                              fgn_matmul_dtype="float16")
@@ -282,17 +296,19 @@ def test_bf16_routing():
                                 maturity=32 * DT, is_call=False,
                                 config=_cfg(32), device="cpu")
     assert p.kernel_family == "single" and p.consts.bf16
-    with pytest.raises(NotImplementedError, match="B12"):
-        p.price_and_greeks(0)
+    assert p.greeks_consts.bf16
+    greeks = p.price_and_greeks(0)
+    assert len(greeks) == 6 and all(np.isfinite(greeks))
     s = tengine.StreamingPricer(
         **BENCH_MARKET, strike=105.0, maturity=32 * DT, is_call=False,
         config=_cfg(32, pathgen_impl="xla", policy_form="quadratic"),
         device="cpu")
     assert s.kernel_family == "stream" and s.consts.bf16
-    with pytest.raises(NotImplementedError, match="B12"):
-        tengine.StreamingChainPricer(**BENCH_MARKET, strikes=[95.0, 105.0],
-                                     maturity=32 * DT, is_call=False,
-                                     config=_cfg(32), device="cpu")
+    strip = tengine.StreamingChainPricer(**BENCH_MARKET,
+                                         strikes=[95.0, 105.0],
+                                         maturity=32 * DT, is_call=False,
+                                         config=_cfg(32), device="cpu")
+    assert strip.kernel_family == "single" and strip.chain_consts.bf16
     chain = tengine.StreamingChainPricer(
         **BENCH_MARKET, strikes=[95.0, 105.0], maturity=32 * DT,
         is_call=False, config=_cfg(32, pathgen_impl="xla"), device="cpu")

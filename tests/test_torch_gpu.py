@@ -1404,13 +1404,123 @@ def test_bf16_quadratic_matches_plain_versions(cuda, family, n_steps,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fgn_form", ["chol", "spectral"])
+@pytest.mark.parametrize("n_steps,n_strikes", [(365, 21), (512, 23),
+                                               (365, 40), (47, 23)])
+def test_bf16_chain_matches_plain_versions(cuda, n_steps, n_strikes,
+                                           fgn_form):
+    """K5/bf16 in its six forms (plain, paired and quadratic, chol and
+    spectral) at 131072 rows, seeded and noise-in, against the bf16 plain
+    version: 1e-4 of each strike's scale (floored at 1e-3 of the largest)
+    and 10x closer to it than to the float32 plain version on the same
+    noise; the pair against unpaired K5/bf16 on [X; -X] (1e-5).  40
+    strikes take two launches of one key; 47 steps leave a ragged last
+    k16 step (so does 365).  Each launch counts under its "bf16/..."
+    key."""
+    rows, key = 1 << 17, pc._fold_words(5, 101)
+    consts, consts32 = _bf16_consts(n_steps, cuda, fgn_form=fgn_form)
+    spectral = fgn_form == "spectral"
+    strip = torch.linspace(80.0, 120.0, n_strikes, device=cuda)
+    pilot = pc.pathgen_from_noise_ref(consts32, pc.normals_ref(
+        consts32, key, 1 << 14, device=cuda, row0=rows))
+    _, fits = engine.lsm_fit(pilot, MARKET["r"], strip, n_steps * DT, DT,
+                             False)
+    launches = 2 * -(-n_strikes // cc.GROUP)
+    for anti, quad in ((False, False), (True, False), (False, True)):
+        rows_fn = pc.policy_rows if quad else pc.boundary_rows
+        tables = rows_fn(fits, MARKET["r"], strip, n_steps * DT, DT,
+                         n_steps, False).contiguous()
+        policy = "quadratic" if quad else "boundary"
+        noise = pc.normals_ref(consts, key, rows // 2 if anti else rows,
+                               device=cuda)
+        want = cc.priced_chain_from_noise_ref(consts, tables, noise, False,
+                                              anti, policy)
+        want32 = cc.priced_chain_from_noise_ref(consts32, tables, noise,
+                                                False, anti, policy)
+        name = pc.form_name(anti, spectral=spectral, quadratic=quad,
+                            bf16=True)
+        before = cc.priced_chain.form_launches[name]
+        for got in (cc.priced_chain(consts, tables, False, noise=noise,
+                                    antithetic=anti, policy_form=policy),
+                    cc.priced_chain(consts, tables, False, rows=rows,
+                                    key=key, antithetic=anti,
+                                    policy_form=policy)):
+            torch.cuda.synchronize()
+            assert got.shape == (n_strikes,)
+            err, err32 = _rel(got, want), _rel(got, want32)
+            assert err < 1e-4 and err * 10 < err32, (name, err, err32)
+        assert cc.priced_chain.form_launches[name] - before == launches
+        if anti:
+            unpaired = cc.priced_chain(consts, tables, False,
+                                       noise=torch.cat([noise, -noise], 1))
+            paired = cc.priced_chain(consts, tables, False, noise=noise,
+                                     antithetic=True)
+            torch.cuda.synchronize()
+            assert _rel(paired, unpaired) < 1e-5
+        del noise
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps,n_strikes", [(365, 21), (96, 23),
+                                               (365, 40), (47, 23)])
+def test_bf16_greeks_match_plain_versions(cuda, n_steps, n_strikes):
+    """K3/bf16, K4/bf16 and their pair forms at 131072 rows, seeded and
+    noise-in, against the bf16 plain version: 2e-4 of each output's scale;
+    K4's columns equal K3's per strike (the same body, 1e-6 of each
+    output's largest); the pairs against the unpaired forms on [X; -X]
+    (1e-5).  Each launch counts under "bf16" or "bf16/anti"."""
+    rows, key = 1 << 17, pc._fold_words(5, 103)
+    consts, consts32 = _bf16_consts(n_steps, cuda)
+    g = pc.make_greeks_consts(MARKET["xi"], MARKET["h"], MARKET["eta"],
+                              n_steps, DT, cuda, fgn_dtype="bfloat16")
+    strikes = torch.linspace(85.0, 115.0, n_strikes).tolist()
+    _, logs = _strip_tables(cuda, consts32, pc.philox_normals_ref(
+        key, 1 << 14, n_steps, device=cuda, row0=rows), strikes)
+    for anti in (False, True):
+        noise = pc.philox_normals_ref(key, rows // 2 if anti else rows,
+                                      n_steps, device=cuda)
+        want = gc.greeks_from_noise_ref(consts, g, logs,
+                                        torch.tensor(strikes, device=cuda),
+                                        noise, False, anti)
+        name = pc.form_name(anti, bf16=True)
+        before = (gc.greeks_chunk.form_launches[name],
+                  gc.chain_greeks_chunk.form_launches[name])
+        for kw in ({"noise": noise}, {"rows": rows, "key": key}):
+            got = gc.chain_greeks_chunk(consts, g, logs, False,
+                                        antithetic=anti, **kw)
+            torch.cuda.synchronize()
+            assert got.shape == (6, n_strikes)
+            assert _rel(got, want) < 2e-4, name
+            for j in (0, n_strikes // 2, n_strikes - 1):
+                one = gc.greeks_chunk(consts, g, logs[j], strikes[j], False,
+                                      antithetic=anti, **kw)
+                torch.cuda.synchronize()
+                scale = got.abs().amax(dim=1)
+                assert bool(((one - got[:, j]).abs() <= 1e-6 * scale).all())
+        assert (gc.greeks_chunk.form_launches[name] - before[0],
+                gc.chain_greeks_chunk.form_launches[name] - before[1]) == (
+            6, 2 * -(-n_strikes // gc.GROUP))
+        if anti:
+            doubled = torch.cat([noise, -noise], dim=1)
+            unpaired = gc.chain_greeks_chunk(consts, g, logs, False,
+                                             noise=doubled)
+            paired = gc.chain_greeks_chunk(consts, g, logs, False,
+                                           noise=noise, antithetic=True)
+            torch.cuda.synchronize()
+            assert _rel(paired, unpaired) < 1e-5
+        del noise
+
+
+@pytest.mark.gpu
 def test_bf16_wrappers_refuse_other_constants(cuda):
     """A bf16 PathConsts whose factor (or spectral matrix) is float32, or
     the reverse, and a bf16 FactoredConsts with a float32 F1, raise before
-    any launch; K5, K3 and K4 refuse bf16 constants naming B12; and a C
-    entry given the other dtype's flag, or (K1/K2, K6/K7, whose seeded
-    and noise-in bodies build apart) the other noise source, returns
-    cudaErrorInvalidValue (1) without running another body."""
+    any launch; so do K5 on such mixed constants and K3/K4 on Greeks
+    constants of the other dtype than the path constants'; and a C entry
+    given the other dtype's flag (K5, K3, K4, K8 included), or (K1/K2,
+    K6/K7, whose seeded and noise-in bodies build apart) the other noise
+    source, returns cudaErrorInvalidValue (1) without running another
+    body."""
     from montecarlooptionspricer_tpu_torch.kernels import build
 
     consts, consts32 = _bf16_consts(96, cuda)
@@ -1432,15 +1542,44 @@ def test_bf16_wrappers_refuse_other_constants(cuda):
     with pytest.raises(ValueError, match="bfloat16"):
         pfc.factored_pathgen(bad, rows=64, key=1)
     tables = torch.zeros((2, 8, 96), device=cuda)
-    with pytest.raises(NotImplementedError, match="B12"):
-        cc.priced_chain(consts, tables, False, rows=64, key=1)
+    for c, c_other, match in ((consts, consts32, "bfloat16"),
+                              (consts32, consts, "float32")):
+        bad = dataclasses.replace(c, lt_half=c_other.lt_half)
+        with pytest.raises(ValueError, match=match):
+            cc.priced_chain(bad, tables, False, rows=64, key=1)
+    bad = dataclasses.replace(spec, ci_half=spec32.ci_half)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cc.priced_chain(bad, tables, False, rows=64, key=1)
+    g32 = pc.make_greeks_consts(MARKET["xi"], MARKET["h"], MARKET["eta"], 96,
+                                DT, cuda)
     g = pc.make_greeks_consts(MARKET["xi"], MARKET["h"], MARKET["eta"], 96,
-                              DT, cuda)
-    with pytest.raises(NotImplementedError, match="B12"):
-        gc.greeks_chunk(consts, g, tables[0], 100.0, False, rows=64, key=1)
-    with pytest.raises(NotImplementedError, match="B12"):
-        gc.chain_greeks_chunk(consts, g, tables, False, rows=64, key=1)
+                              DT, cuda, fgn_dtype="bfloat16")
+    for c, gg in ((consts, g32), (consts32, g)):
+        with pytest.raises(ValueError, match="gconsts"):
+            gc.greeks_chunk(c, gg, tables[0], 100.0, False, rows=64, key=1)
+        with pytest.raises(ValueError, match="gconsts"):
+            gc.chain_greeks_chunk(c, gg, tables, False, rows=64, key=1)
+    bad = dataclasses.replace(g, dlt_half=g32.dlt_half)
+    with pytest.raises(ValueError, match="dlt_half"):
+        gc.greeks_chunk(consts, bad, tables[0], 100.0, False, rows=64, key=1)
     lib = build.load()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    partial = torch.empty((64, 2, 6), device=cuda)
+    for c, bf16 in ((consts32, 1), (consts, 0)):
+        err = build.entry(lib, "chain", "mcop_priced_chain", not bf16)(
+            None, *c.factor_ptrs(), c.vd.data_ptr(), 64, 96, 64, 1,
+            *pc._scalars(c), tables.data_ptr(), tables.stride(0),
+            tables.stride(1), 2, 0, 0, 0, bf16, partial.data_ptr(), stream)
+        assert err == 1
+        gg = g32 if c is consts32 else g
+        err = build.entry(lib, "greeks", "mcop_chain_greeks_chunk",
+                          not bf16)(
+            None, c.lt_half.data_ptr(), gg.dlt_half.data_ptr(),
+            c.vd.data_ptr(), gg.de.data_ptr(), gg.dh.data_ptr(), 64, 96, 32,
+            1, *pc._scalars(c), ctypes.c_float(1.0 / gg.eta),
+            tables.data_ptr(), tables.stride(0), tables.stride(1), 2, 0, 0,
+            bf16, partial.data_ptr(), stream)
+        assert err == 1
     out = torch.empty((64, 401), device=cuda)
     for c, bf16 in ((fac32, 1), (fac, 0)):
         err = build.entry(lib, "pathgen_factored", "mcop_factored_pathgen",
@@ -1466,8 +1605,8 @@ def test_bf16_wrappers_refuse_other_constants(cuda):
 @pytest.mark.gpu
 def test_bf16_memory_models_are_the_cards(cuda):
     """The bf16 units' shared-memory entries equal the Python models of
-    K1/K2 and K6/K7 under bf16 in every form, and K8/K9's is the float32
-    form's at every horizon."""
+    K1/K2, K6/K7, K5 and K3/K4 under bf16 in every form, and K8/K9's is
+    the float32 form's at every horizon."""
     from montecarlooptionspricer_tpu_torch.kernels import build
 
     lib = build.load()
@@ -1491,6 +1630,18 @@ def test_bf16_memory_models_are_the_cards(cuda):
                         bp, bool(anti), bool(cv), bool(spec), bf16=True)
     for n in (129, 1825, 4000, 8192):
         assert lib.mcop_factored_smem_bytes_bf16(n) == pfc.smem_bytes(n)
+    for n in (47, 96, 365, 512):
+        for anti, choices in ((0, pc.BLOCK_CHOICES),
+                              (1, pc.PAIRED_BLOCK_CHOICES)):
+            for bp in choices:
+                for spec in (0, 1):
+                    assert lib.mcop_chain_smem_bytes_bf16(
+                        n, bp, anti, spec) == cc.smem_bytes(
+                        n, bp, bool(anti), bool(spec), bf16=True)
+                assert lib.mcop_greeks_smem_bytes_bf16(n, bp, anti) == \
+                    gc.smem_bytes(n, bp, bool(anti), bf16=True)
+    assert lib.mcop_chain_group_bf16() == cc.GROUP
+    assert lib.mcop_greeks_group_bf16() == gc.GROUP
 
 
 @pytest.mark.gpu
@@ -1523,6 +1674,76 @@ def test_bf16_engine_on_the_card(cuda):
                 pc._fold_words(run, start + i), 1 << 14, n, device=cuda),
             100.0, False)) for i in range(2))
         assert abs(price / (total / (2 << 14)) - 1.0) < 1e-4
+
+
+@pytest.mark.gpu
+def test_bf16_strip_and_greeks_engine_on_the_card(cuda):
+    """Under StreamConfig(fgn_matmul_dtype="bfloat16") a strip prices on
+    K1/bf16 and K5/bf16 at 96 steps (K6/bf16 and K5/bf16 at 400,
+    K8/bf16 and K5/bf16/spectral at 400 spectral), and the Greeks stream
+    K3/bf16 and K4/bf16 (K3/bf16/anti, K4/bf16/anti paired), launching no
+    other form; the strip within 1e-4 of its plain versions on the same
+    fits, the Greeks' price lanes within 1e-4 of the strip's."""
+    strikes = [95.0, 100.0, 105.0]
+    counted = (pc.pathgen, ptc.tiled_pathgen, pfc.factored_pathgen,
+               cc.priced_chain, gc.greeks_chunk, gc.chain_greeks_chunk)
+
+    def reset():
+        for fn in counted:
+            fn.form_launches = dict.fromkeys(fn.form_launches, 0)
+
+    def launched():
+        return {(fn.__name__, k): v for fn in counted
+                for k, v in fn.form_launches.items() if v}
+
+    for n, kw, path, k5 in (
+            (96, {}, "pathgen", "bf16"),
+            (400, {}, "tiled_pathgen", "bf16"),
+            (400, {"fgn_form": "spectral"}, "factored_pathgen",
+             "bf16/spectral")):
+        cfg = engine.StreamConfig(n_paths=2 << 14, n_steps=n,
+                                  chunk_paths=1 << 14, pilot_paths=1 << 14,
+                                  dt=DT, fgn_matmul_dtype="bfloat16", **kw)
+        chain = engine.StreamingChainPricer(**MARKET, rho=0.0,
+                                            strikes=strikes, maturity=n * DT,
+                                            is_call=False, config=cfg,
+                                            device=cuda)
+        assert chain.chain_consts.bf16
+        reset()
+        fits = chain.fit(engine._pilot_stream_keys(3)[0])
+        prices = chain.price_with_fit(fits, 3)
+        assert launched() == {(path, "bf16"): 1, ("priced_chain", k5): 2}
+        tables = chain._tables(fits, chain.strikes)
+        _, (run, start) = engine._pilot_stream_keys(3)
+        total = sum(cc.priced_chain_from_noise_ref(
+            chain.chain_consts, tables, pc.normals_ref(
+                chain.chain_consts, pc._fold_words(run, start + i), 1 << 14,
+                device=cuda), False).double() for i in range(2))
+        want = (total / (2 << 14)).cpu().numpy()
+        assert float(abs(prices / want - 1.0).max()) < 1e-4
+    for anti in (False, True):
+        cfg = engine.StreamConfig(n_paths=2 << 14, n_steps=96,
+                                  chunk_paths=1 << 14, pilot_paths=1 << 14,
+                                  dt=DT, fgn_matmul_dtype="bfloat16",
+                                  antithetic=anti)
+        chain = engine.StreamingChainPricer(**MARKET, rho=0.0,
+                                            strikes=strikes,
+                                            maturity=96 * DT, is_call=False,
+                                            config=cfg, device=cuda)
+        one = engine.StreamingPricer(**MARKET, rho=0.0, strike=100.0,
+                                     maturity=96 * DT, is_call=False,
+                                     config=cfg, device=cuda)
+        name = pc.form_name(anti, bf16=True)
+        reset()
+        greeks = one.price_and_greeks(3)
+        strip = chain.price_and_greeks(3)
+        assert launched() == {("pathgen", "bf16"): 2,
+                              ("greeks_chunk", name): 2,
+                              ("chain_greeks_chunk", name): 2}
+        prices = chain.price(3)
+        assert float(abs(strip[0] / prices - 1.0).max()) < 1e-4
+        assert abs(greeks[0] / prices[1] - 1.0) < 1e-4
+        assert abs(strip[1, 1] / greeks[1] - 1.0) < 1e-5
 
 
 @pytest.mark.gpu
