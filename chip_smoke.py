@@ -164,7 +164,11 @@ to 0 just before it and read just after:
 
 It also times K2 against K7 per chunk across horizons (the crossover that
 sets engine.SINGLE_TILE_MAX_STEPS) and times each kernel and form (K8 and
-K9 at 1825 and 4000 steps).
+K9 at 1825 and 4000 steps).  Each K5 form is timed on one strike beside
+the strip (``one_strike_ms``, ``sweep_ms``: the strike sweep's share),
+each K4 form beside K3 of the same form (``k4_minus_k3_ms``), and each
+K5, K3 and K4 entry of the kernels line carries the blocks one SM runs at
+once (``blocks_per_sm``, the C entries' occupancy query).
 
 Usage (from the root of a checkout, one CUDA card):  python3 chip_smoke.py
 
@@ -711,6 +715,49 @@ def scaled_err(torch, got, want) -> float:
                  .max())
 
 
+# The keys a K5, K3 or K4 form's times carry into its kernels-line entry:
+# the sweep's split and the blocks an SM runs at once.
+SPLIT_KEYS = ("one_strike_ms", "sweep_ms", "blocks_per_sm",
+              "one_strike_blocks_per_sm", "k3_ms", "k4_minus_k3_ms",
+              "k3_blocks_per_sm")
+
+
+def split_of(t: dict) -> dict:
+    """The SPLIT_KEYS of one form's times."""
+    return {k: t[k] for k in SPLIT_KEYS if k in t}
+
+
+def k5_split(torch, cc, consts, tables, ms: float, key: int, reps: int,
+             antithetic: bool = False,
+             policy_form: str = "boundary") -> dict:
+    """Where a K5 form's ``ms`` on the strip's tables goes: the same form's
+    one-strike launch (strike STRIKE's table, the same key and rows)
+    beside it, their difference (the strike sweep's share), and the
+    blocks one SM runs at once for either launch (the occupancy query of
+    the C entry)."""
+    one = tables[STRIP.index(STRIKE)][None]
+    one_ms = time_ms(torch, lambda: cc.priced_chain(
+        consts, one, IS_CALL, rows=CHUNK, key=key, antithetic=antithetic,
+        policy_form=policy_form), reps)
+    return {"one_strike_ms": one_ms, "sweep_ms": ms - one_ms,
+            "blocks_per_sm": cc.blocks_per_sm(
+                consts, CHUNK, tables.shape[0], antithetic, policy_form),
+            "one_strike_blocks_per_sm": cc.blocks_per_sm(
+                consts, CHUNK, 1, antithetic, policy_form)}
+
+
+def k4_split(gc, consts, k4_ms: float, k3_ms: float, n_strikes: int,
+             antithetic: bool = False) -> dict:
+    """Where a K4 form's ``k4_ms`` goes: K3 of the same form from the same
+    run (one strike on the same body), K4 - K3 (the sweep of the other
+    strikes), and the blocks one SM runs at once of K4 and of K3."""
+    return {"k3_ms": k3_ms, "k4_minus_k3_ms": k4_ms - k3_ms,
+            "blocks_per_sm": gc.blocks_per_sm(consts, CHUNK, n_strikes,
+                                              antithetic),
+            "k3_blocks_per_sm": gc.blocks_per_sm(consts, CHUNK, 1,
+                                                 antithetic)}
+
+
 def device_launches(torch, fn) -> int:
     """Device kernels that fn() launches, from a torch.profiler trace of
     the device activity alone (host operators are not recorded: they do
@@ -979,11 +1026,7 @@ def chain_and_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
     lib2_ms = time_ms(torch, lambda: (torch.matmul(a, consts.lt_half),
                                       torch.matmul(a, g.dlt_half)), reps=20)
     del a
-    one = tables[i_k:i_k + 1]
     times = {"k5_ms": time_ms(torch, k5_run, 10),
-             "k5_one_strike_ms": time_ms(
-                 torch, lambda: cc.priced_chain(consts, one, IS_CALL,
-                                                rows=CHUNK, key=key), 10),
              "k3_ms": time_ms(torch, k3_run, 10),
              "k4_ms": time_ms(torch, k4_run, 10),
              "k5_plain_ms": time_ms(torch, k5_plain, 3),
@@ -994,16 +1037,27 @@ def chain_and_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
              "k5_swept_cells": k5_swept, "k3_swept_cells": k3_swept,
              "k4_swept_cells": k4_swept, "chain_fit_s": fit_s,
              "chain_stream_s": stream_s}
+    split5 = k5_split(torch, cc, consts, tables, times["k5_ms"], key, 10)
+    split4 = k4_split(gc, consts, times["k4_ms"], times["k3_ms"], k_n)
+    times.update({"k5_one_strike_ms": split5["one_strike_ms"],
+                  "k5_sweep_ms": split5["sweep_ms"],
+                  "k5_blocks_per_sm": split5["blocks_per_sm"],
+                  "k4_minus_k3_ms": split4["k4_minus_k3_ms"],
+                  "k4_blocks_per_sm": split4["blocks_per_sm"],
+                  "k3_blocks_per_sm": split4["k3_blocks_per_sm"]})
     launch_counts = {**launches, "greeks_chunk": g_launches["greeks_chunk"],
                      "chain_greeks_chunk":
                          cg_launches["chain_greeks_chunk"]}
     records = [
         kernel_record("priced_chain", launch_counts, times["k5_ms"],
-                      times["k5_plain_ms"], *k5_b, abs_k5, lib1_ms),
+                      times["k5_plain_ms"], *k5_b, abs_k5, lib1_ms,
+                      **split5),
         kernel_record("greeks_chunk", launch_counts, times["k3_ms"],
-                      times["k3_plain_ms"], *k3_b, abs_k3, lib2_ms),
+                      times["k3_plain_ms"], *k3_b, abs_k3, lib2_ms,
+                      blocks_per_sm=split4["k3_blocks_per_sm"]),
         kernel_record("chain_greeks_chunk", launch_counts, times["k4_ms"],
-                      times["k4_plain_ms"], *k4_b, abs_k4, lib2_ms)]
+                      times["k4_plain_ms"], *k4_b, abs_k4, lib2_ms,
+                      **split4)]
     for name, (b, _) in (("k5", k5_b), ("k3", k3_b), ("k4", k4_b)):
         times[name + "_bound_ms"] = b
     return (records, times, (prices, stderrs),
@@ -1883,9 +1937,15 @@ def pair_phases(torch, pc, cc, gc, engine, smi, dev, key, pricer,
         ms, plain_ms = time_ms(torch, run, 10), time_ms(torch, plain, 3)
         times[name] = {"ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bounds[name][0]}
-        records.append(kernel_record(name, counts, ms, plain_ms,
+    times["K5/anti"].update(k5_split(torch, cc, consts, tables,
+                                     times["K5/anti"]["ms"], key, 10, True))
+    times["K4/anti"].update(k4_split(gc, consts, times["K4/anti"]["ms"],
+                                     times["K3/anti"]["ms"], k_n, True))
+    times["K3/anti"]["blocks_per_sm"] = times["K4/anti"]["k3_blocks_per_sm"]
+    for name, t in times.items():
+        records.append(kernel_record(name, counts, t["ms"], t["plain_ms"],
                                      *bounds[name], errs_abs[name],
-                                     libs[name]))
+                                     libs[name], **split_of(t)))
     emit({"phase": "times_anti", "card": smi, "library_call":
           "torch.matmul [65536,365]x[365,365] float32 (the fGN product of "
           "the drawn rows only; K3/K4: with [365,365] dLt' too)",
@@ -2558,6 +2618,8 @@ def spectral_chain_phases(torch, pc, cc, engine, smi, dev, key, base,
                        "bound_ms": b_ms, "bound_by": b_by,
                        "max_abs_err": float(torch.max(torch.abs(
                            got_s - want)))}
+        times[form].update(k5_split(torch, cc, consts, tables,
+                                    times[form]["ms"], key, 5, anti))
         emit({"phase": "spectral_forms", "card": smi, "kernel": "K5",
               "form": form, "rows": CHUNK, "n_steps": N_STEPS,
               "n_strikes": k_n, "swept_cells": swept,
@@ -2848,8 +2910,8 @@ def spectral_phases(torch, pc, cc, ptc, engine, smi, dev, key, rel_err,
           "(the drawn rows' spectral fGN products)", "kernels": times})
     return [kernel_record(form, launches, t["ms"], t["plain_ms"],
                           t["bound_ms"], t["bound_by"], t["max_abs_err"],
-                          t["library_ms"]) for form, t in times.items()], \
-        price_spectral
+                          t["library_ms"], **split_of(t))
+            for form, t in times.items()], price_spectral
 
 
 def quad_forms_phase(torch, pc, smi, kernel: str, priced, chunk_ref,
@@ -2949,7 +3011,8 @@ def quad_chain_forms(torch, pc, cc, engine, smi, dev, key, base,
                 for tab in tables)
     del noise, s
     check(max(errs) <= SUM_RTOL, f"{form} disagrees with its plain version")
-    blocks = CHUNK // cc.block_paths_for(N_STEPS, CHUNK, False, spectral)
+    blocks = CHUNK // cc.block_paths_for(N_STEPS, CHUNK, False, spectral,
+                                         quadratic=True)
 
     def run():
         cc.priced_chain(consts, tables, IS_CALL, rows=CHUNK, key=key,
@@ -2974,6 +3037,8 @@ def quad_chain_forms(torch, pc, cc, engine, smi, dev, key, base,
                   "plain_ms": time_ms(torch, plain, 2), "library_ms": lib_ms,
                   "bound_ms": b_ms, "bound_by": b_by,
                   "max_abs_err": float(torch.max(torch.abs(got_s - want)))}}
+    out[form].update(k5_split(torch, cc, consts, tables, out[form]["ms"],
+                              key, 5, policy_form="quadratic"))
     emit({"phase": "quadratic_forms", "card": smi, "kernel": "K5",
           "form": form, "rows": CHUNK, "n_steps": N_STEPS,
           "n_strikes": k_n, "swept_cells": swept,
@@ -3290,7 +3355,8 @@ def quadratic_phases(torch, pc, cc, ptc, pfc, engine, smi, dev, key,
           "the [131072, m2] complex64 plane (K9)", "kernels": times})
     return [kernel_record(form, launches, t["ms"], t["plain_ms"],
                           t["bound_ms"], t["bound_by"], t["max_abs_err"],
-                          t["library_ms"]) for form, t in times.items()]
+                          t["library_ms"], **split_of(t))
+            for form, t in times.items()]
 
 
 def bf16_library(torch, consts, dev, extra=()):
@@ -4055,6 +4121,9 @@ def bf16_strip_forms(torch, pc, cc, smi, dev, key, chain, fits, n: int,
                         "bound_by": b_by,
                         "max_abs_err": float(torch.max(torch.abs(
                             got_s - want)))}
+        times[key_t].update(k5_split(torch, cc, consts, tables,
+                                     times[key_t]["ms"], key, 5, anti,
+                                     policy))
         rec["times"] = times[key_t]
     emit({"phase": "bf16_chain_forms", "card": smi, "kernel": "K5",
           "fgn_form": consts.fgn_form, "rows": CHUNK, "n_steps": n,
@@ -4138,6 +4207,11 @@ def bf16_greeks_forms(torch, pc, gc, smi, dev, key, consts, g, logs,
                            "bound_by": b_by,
                            "max_abs_err": float(torch.max(torch.abs(
                                got_s - ref)))}
+            if kernel == "K4":
+                k3 = times[f"K3/{pc.form_name(anti, bf16=True)}"]
+                times[form].update(k4_split(gc, consts, times[form]["ms"],
+                                            k3["ms"], k, anti))
+                k3["blocks_per_sm"] = times[form]["k3_blocks_per_sm"]
             rec["times"] = times[form]
         same = float(((got["K3"][:, 0] - got["K4"][:, i_k]).abs()
                       / got["K4"].abs().amax(dim=1)).max())
@@ -4438,7 +4512,8 @@ def bf16_chain_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
         launches[form] = run["launches"][form]
     return [kernel_record(form, launches, t["ms"], t["plain_ms"],
                           t["bound_ms"], t["bound_by"], t["max_abs_err"],
-                          t["library_ms"]) for form, t in times.items()]
+                          t["library_ms"], **split_of(t))
+            for form, t in times.items()]
 
 
 def roofline_phase(torch, rl, smi, dev, kernels: list, reset_counts,

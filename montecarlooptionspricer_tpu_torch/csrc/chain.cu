@@ -46,59 +46,82 @@
 // multiply-adds per path (dense Cr', Ci'), four times the triangle: at
 // 365 steps and 21 strikes at most 1.1 ms.  The QUAD sweep is ~12
 // operations a strike-cell up to its first hit (the quadratic, the payoff,
-// two compares; seven table reads through __ldg), three times the
-// boundary sweep's.
+// two compares), three times the boundary sweep's.
 //
 // Design:
-// * The path block, its noise, the fGN tile product and the Euler
-//   increments are K2's (csrc/fgn_tile.cuh), bit for bit.  The log price
-//   is log s0 + (the running sum of the increments), JAX's association
-//   (log_s0 + the cumsum matmul) and the plain version's, not K2's running
-//   sum from log s0: a float32 sum carried at log s0 ~ 4.6 rounds each
-//   step at 4.8e-7, which put the kernel's log prices a few ulps from the
-//   plain version's and flipped enough root-band decisions to move a deep
-//   out-of-the-money strike's sum by 1e-4 of itself.  Each path block is
-//   generated once and every strike of the launch is swept against it;
-//   there are no per-group passes over the paths inside a launch.
-// * The TPU swept at most 10 strikes per pass because Mosaic schedules a
-//   longer unroll badly.  Here the strike sweep is where K2's idle threads
-//   work: thread (path p, lane l) of the block's 256 keeps, in registers,
-//   the stopped flag and value of strikes l, l + L, l + 2L, ... (L = 256 /
-//   BP lanes per path).  One thread per path writes each tile's running
-//   log price into shared memory, all threads turn it into S, then every
-//   thread sweeps its strikes over the tile.
-// * One launch sweeps up to kGroup = 32 strikes: 16 (flag, value) register
-//   pairs per thread at BP = 128 pair members, 8 at 64, 4 at 32, 2 at 16.
-//   A wider strip takes one launch per 32 strikes on the same seed, which
+// * The path block, its N plane (and Zi), the fGN tile product and the
+//   Euler increments are K2's (csrc/fgn_tile.cuh), bit for bit.  The log
+//   price is log s0 + (the running sum of the increments), JAX's
+//   association (log_s0 + the cumsum matmul) and the plain version's, not
+//   K2's running sum from log s0: a float32 sum carried at log s0 ~ 4.6
+//   rounds each step at 4.8e-7, which flipped root-band decisions against
+//   the plain version.  Each path block is generated once and every
+//   strike of the launch is swept against it, tile by tile.
+// * No W plane stays resident: the Euler pass takes each tile's W per
+//   step pair, redrawn from the seeded stream at the counter load_noise
+//   uses (csrc/strip_sweep.cuh:tile_w_pair) or read from the injected
+//   plane.  That frees D ld floats, the room the staged tables take, and
+//   lets the bf16 chol blocks run two to an SM (__launch_bounds__(256, 2):
+//   at most 128 registers a thread).
+// * The strike sweep, JAX's min-index reduction over columns
+//   (_sweep_values, _policy_value_boundary) written for a warp: the lanes
+//   sit on the tile's columns (lane l on columns l and l + 32) and warp w
+//   owns paths w, w + 8, ... (BP / 8 of them).  Each lane takes exp of its
+//   columns' log prices once per tile.  For each strike k of the launch
+//   the warp reads k's lo and hi at its two columns from shared memory
+//   (conflict-free), then for each of its paths tests both columns and
+//   takes two ballots (columns 0-31, 32-63: bit order is column order),
+//   all with no branch, and branches once per strike, where a path that
+//   had not stopped hits in the tile; __ffs then gives that path's first
+//   hit.  Lane k keeps strike k's stop state for the warp's paths (a
+//   stopped bit and the value per path); the warp broadcasts lane k's
+//   bits, so a (path, strike) that stopped in an earlier tile is masked
+//   warp-uniformly and a strike every path of the warp has left is
+//   skipped whole.  On a first hit the S of that column comes from its
+//   lane by shuffle and lane k reads dk and disc at that column (once per
+//   path and strike) for the value.  No thread walks columns one by one
+//   and nothing exits early: a (path, strike, tile) costs four compares,
+//   two ballots and a mask update, however far the first hit lies.
+// * The tables: rows lo and hi of the launch's strikes for the tile's 64
+//   columns are copied into shared memory with cp.async, issued before
+//   the tile's product and waited for after its Euler pass and running
+//   sum, so the copy overlaps the product (n_strikes * 512 bytes a block;
+//   the reserve is sized by the launch's strikes, the block by kGroup).
+//   The QUAD sweep reads its seven policy_rows rows at its two columns
+//   per strike straight from global memory, coalesced (a warp reads a
+//   row's 64 columns as two 128-byte lines), with sd's reciprocal taken
+//   once per column and strike (csrc/quad_policy.cuh:QuadCell); staging
+//   seven rows of 32 strikes (57 KB) would cost the block its size.
+// * The running log price along a tile stays one thread per path (64
+//   dependent adds); its association is the plain version's.
+// * One launch sweeps up to kGroup = 32 strikes (one per lane).  A wider
+//   strip takes one launch per 32 strikes on the same seed, which
 //   regenerates bitwise-identical paths: the Philox counter is (global
 //   drawn row, step pair), so a member and its partner are the same two
 //   paths for every strike of the strip.
 // * The block's partial sums are reduced in a fixed order through the
-//   shared-memory tile, one thread per strike.
-// * Shared memory (models/chain_cuda.py smem_bytes): the N and W planes of
-//   the D = 16 * PM drawn rows, one 64-column X tile of every member (BP
-//   = D plain, 2D paired) and the staged Lt' rows: 4 (2 D ld + 65 BP +
-//   2048) bytes, ld = n rounded up to odd.  Plain blocks of 64 paths fit
-//   up to 405 steps and 32 up to 843.  A paired block keeps D drawn rows
-//   and runs the product of the unpaired D-path block: at 365 steps D = 64
-//   (128 members) takes 4 (2 * 64 * 365 + 65 * 128 + 2048) = 228,352 of
-//   the 232,448 bytes; at 512 steps it would take 304,128, so D = 32 (64
-//   members, 156,160 bytes).  The reduction's [32][BP] floats fit the X
-//   tile.  The spectral form adds the Zi plane and a staged Ci' tile:
-//   4 (3 D ld + 65 BP + 4096) bytes, 32 paths (64 members) at 365 and at
-//   512 steps (230,016 bytes paired at 512).
+//   shared-memory tile, one thread per strike: no atomics.
+// * Shared memory (models/chain_cuda.py smem_bytes): the N plane (Zr and
+//   Zi under SPEC) of the D = 16 * PM drawn rows, one 64-column X tile of
+//   every member (BP = D plain, 2D paired), the staged factor rows and
+//   the staged strike rows: 4 (P D ld + 65 BP + F + 128 K) bytes, P
+//   planes, ld = n rounded up to odd, F = 2048 floats a staged float32
+//   factor tile, K strikes (0 under QUAD).  The bf16 form (BF16) keeps
+//   its planes in bf16 (2 D (ceil16(n) + 8) bytes each) and stages
+//   [64][40] bf16 factor tiles.  The block is the largest the model fits
+//   at kGroup strikes (models/chain_cuda.py block_paths_for): at 365
+//   steps 64 paths (128 members paired) in every chol form, spectral 32
+//   (64) in float32 and 64 (128) in bf16; at 512 steps 64 (128) chol,
+//   spectral 32 (64) float32, 64 (128) bf16.  A bf16 chol block at 365
+//   steps takes 86,272 bytes plain and 102,912 paired at 32 strikes, so
+//   two share an SM; the float32 and spectral blocks run one to an SM.
+//   The reduction's [32][BP] floats fit the X tile.
 // * The decision is taken in S space for both members, as on the TPU.
-// * The bf16 form (BF16) keeps its N plane (and Zi) in bf16, each normal
-//   rounded to nearest even as it is drawn or read, the rows padded with
-//   zeros to whole k16 steps, and runs the product on the tensor cores
-//   (csrc/fgn_tile.cuh:fgn_tile_mma, m16n8k16, float32 sums); W, the X
-//   tile, the Euler recursion and the sweep are the float32 form's.  Its
-//   planes and staged tiles are narrower: 2 D (ceil16(n) + 8) bytes a
-//   bf16 plane and 2 * 64 * 40 bytes a staged tile, so its block is the
-//   largest its own model fits (models/chain_cuda.py block_paths_for),
-//   never smaller than the float32 form's: 64 paths at 365 and 512 steps
-//   (128 and 64 members paired), spectral 64 at 365 and 32 at 512 (64
-//   members paired at both).
+// * The bf16 form (BF16) rounds each normal of N (and Zi) to nearest even
+//   as it is drawn or read, pads the rows with zeros to whole k16 steps
+//   and runs the product on the tensor cores (csrc/fgn_tile.cuh:
+//   fgn_tile_mma, m16n8k16, float32 sums); W, the X tile, the Euler
+//   recursion and the sweep are the float32 form's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,6 +129,7 @@
 #include "build_unit.cuh"
 #include "fgn_tile.cuh"
 #include "quad_policy.cuh"
+#include "strip_sweep.cuh"
 
 namespace {
 
@@ -129,7 +153,6 @@ struct ChainArgs {
   uint32_t key;
   float r, dt, sqrt_dt, log_s0;
   int is_call;
-  bool bf16;            // the bf16 fGN-input form
 };
 
 // The Euler log increment of one cell.  Every rounding is explicit (no
@@ -144,62 +167,85 @@ __device__ __forceinline__ float euler_inc(const ChainArgs& a, float x,
                    __fmul_rn(sv, __fmul_rn(w, a.sqrt_dt)));
 }
 
+// The value of a path stopped at column c at price s for strike k: the
+// boundary form's dk - disc * s (put; disc * s - dk call), or under QUAD
+// disc * payoff, as quad_exercise takes it.
+template <bool QUAD>
+__device__ __forceinline__ float stop_value(const ChainArgs& a, int k, int c,
+                                            float s) {
+  const float* row = a.tables + k * a.strike_stride + c;
+  if (QUAD) {
+    return __fmul_rn(quad_payoff(s, __ldg(row + 7 * a.row_stride), a.is_call),
+                     __ldg(row + 6 * a.row_stride));
+  }
+  const float ds = __fmul_rn(s, __ldg(row + 3 * a.row_stride));
+  const float dk = __ldg(row + 2 * a.row_stride);
+  return a.is_call ? __fsub_rn(ds, dk) : __fsub_rn(dk, ds);
+}
+
 // Block of D = 16 * PM drawn rows; BP = D paths, or 2D pair members (ANTI:
 // member p < D is drawn row p, member D + p its partner).  SPEC: the
 // spectral fGN form; QUAD: the quadratic policy; BF16: the bf16 fGN-input
 // form.
 template <int PM, bool SEEDED, bool ANTI, bool SPEC, bool QUAD, bool BF16>
-__global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
+__global__ void __launch_bounds__(kThreads, 2) chain_kernel(ChainArgs a) {
   constexpr int D = 16 * PM;
   constexpr int BP = ANTI ? 2 * D : D;
-  constexpr int kLanes = kThreads / BP;   // strike lanes per path
-  constexpr int kPer = kGroup / kLanes;   // strikes per thread
+  constexpr int kPaths = BP / kWarps;     // paths each warp sweeps
+  constexpr unsigned kAllPaths = (1u << kPaths) - 1u;
+  constexpr int kHalf = kTileCols / 2;
   using E = fgn_elem<BF16>;
   extern __shared__ float smem[];
-  const int n = a.n, ld = plane_ld(n);
+  const int n = a.n;
   const int npf = n_plane_floats(n, D, BF16);
   E* ns = reinterpret_cast<E*>(smem);     // [D][ld] N (Zr); bf16: [D][ldn]
   E* zs = reinterpret_cast<E*>(smem + npf);   // the same, Zi under SPEC
-  float* ws = smem + (SPEC ? 2 : 1) * npf;    // [D][ld]
-  float* xs = ws + D * ld;                // [BP][kXStride]
+  float* xs = smem + (SPEC ? 2 : 1) * npf;    // [BP][kXStride]
   E* lts = reinterpret_cast<E*>(xs + BP * kXStride);
                                           // [1 or 2][kTileK][kTileCols];
                                           // bf16: [kTileCols][kTileKB]
+  float* tab = xs + BP * kXStride + staged_floats(SPEC ? 2 : 1, BF16);
+                                          // [n_strikes][2][kTileCols]
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int row0 = blockIdx.x * D;        // first drawn row
-  const int p = tid % BP, lane = tid / BP;
-  load_noise<D, SEEDED, SPEC, BF16>(a.noise, a.drawn, n, a.key, row0, ns, ws,
-                                    zs);
+  load_noise<D, SEEDED, SPEC, BF16, false>(a.noise, a.drawn, n, a.key, row0,
+                                           ns, nullptr, zs);
 
   float cum = 0.0f;    // running sum of the log increments, thread tid < BP
-  bool stopped[kPer];
-  float val[kPer];
+  // Lane k keeps strike k's stop state for paths warp + kWarps * j: bit j
+  // of `stopped` and val[j].
+  unsigned stopped = 0u;
+  float val[kPaths];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    stopped[i] = false;
-    val[i] = 0.0f;
-  }
+  for (int j = 0; j < kPaths; ++j) val[j] = 0.0f;
 
   for (int c0 = 0; c0 < n; c0 += kTileCols) {
     const int cn = min(c0 + kTileCols, n) - c0;
+    __syncthreads();   // the last tile's sweep is done with tab
+    if (!QUAD)
+      stage_strike_rows(a.tables, a.strike_stride, a.row_stride,
+                        a.n_strikes, c0, cn, tab);
     fgn_tile<PM, 1, SPEC, BF16>(static_cast<const E*>(a.lt),
                                 static_cast<const E*>(a.ci), n, c0, ns, lts,
                                 xs, nullptr, zs);
 
-    // Variance exp and Euler increment, elementwise over the tile (K2's;
-    // both members of a pair from one x and one w).
-    for (int idx = tid; idx < D * kTileCols; idx += kThreads) {
-      const int q = idx / kTileCols, cc = idx - q * kTileCols;
+    // Variance exp and Euler increment of each step pair (K2's cells;
+    // both members of a pair from one x and one w), W drawn or read here.
+    for (int idx = tid; idx < D * kHalf; idx += kThreads) {
+      const int q = idx / kHalf, cc = 2 * (idx - q * kHalf);
+      if (cc >= cn) continue;
+      float w[2];
+      tile_w_pair<SEEDED, SPEC>(a.noise, a.drawn, n, a.key, row0 + q, c0 + cc,
+                                w);
       float* xp = &xs[q * kXStride + cc];
-      if (cc < cn) {
-        const int c = c0 + cc;
-        const float x = *xp, w = ws[q * ld + c];
-        *xp = euler_inc(a, x, w, c);
-        if (ANTI) xp[D * kXStride] = euler_inc(a, -x, -w, c);
-      } else {
-        *xp = 0.0f;
-        if (ANTI) xp[D * kXStride] = 0.0f;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        if (cc + t < cn) {
+          const float x = xp[t];
+          xp[t] = euler_inc(a, x, w[t], c0 + cc + t);
+          if (ANTI) xp[D * kXStride + t] = euler_inc(a, -x, -w[t], c0 + cc + t);
+        }
       }
     }
     __syncthreads();
@@ -213,56 +259,74 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
         xp[cc] = a.log_s0 + cum;
       }
     }
-    __syncthreads();
-    for (int idx = tid; idx < BP * kTileCols; idx += kThreads) {
-      const int q = idx / kTileCols, cc = idx - q * kTileCols;
-      if (cc < cn) xs[q * kXStride + cc] = expf(xs[q * kXStride + cc]);
-    }
+    cp_async_wait_all();
     __syncthreads();
 
-    // The strike sweep: thread (p, lane) over its strikes' first hits.
-    const float* sp = &xs[p * kXStride];
+    // The strike sweep: lanes on columns, the warp over its (path,
+    // strike) items.
+    const bool v0 = lane < cn, v1 = lane + 32 < cn;
+    float s0[kPaths], s1[kPaths];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int k = lane + kLanes * i;
-      if (k >= a.n_strikes || stopped[i]) continue;
-      if (QUAD) {
-        const float* tab = a.tables + k * a.strike_stride;
-        for (int cc = 0; cc < cn; ++cc) {
-          float v;
-          if (quad_exercise<true>(tab, a.row_stride, c0 + cc, sp[cc],
-                                  a.is_call, &v)) {
-            val[i] = v;
-            stopped[i] = true;
-            break;
-          }
-        }
-        continue;
+    for (int j = 0; j < kPaths; ++j) {
+      const float* xp = &xs[(warp + kWarps * j) * kXStride];
+      s0[j] = expf(xp[lane]);
+      s1[j] = expf(xp[lane + 32]);
+    }
+    // One strike's items: `test(s, h)` is the strike's test of the lane's
+    // column l (h 0) or l + 32 (h 1) at price s.  Every path's ballots
+    // first, with no branch; then one warp-uniform branch for the strike,
+    // taken where a path that had not stopped hits in this tile.
+    auto sweep_strike = [&](int k, unsigned done, auto test) {
+      unsigned b0[kPaths], b1[kPaths], hits = 0u;
+#pragma unroll
+      for (int j = 0; j < kPaths; ++j) {
+        b0[j] = __ballot_sync(kFullMask, v0 & test(s0[j], 0));
+        b1[j] = __ballot_sync(kFullMask, v1 & test(s1[j], 1));
+        hits |= (b0[j] | b1[j]) != 0u ? 1u << j : 0u;
       }
-      const float* lo = a.tables + k * a.strike_stride + c0;
-      const float* hi = lo + a.row_stride;
-      const float* dk = lo + 2 * a.row_stride;
-      const float* disc = lo + 3 * a.row_stride;
-      for (int cc = 0; cc < cn; ++cc) {
-        const float s = sp[cc];
-        if (s >= __ldg(lo + cc) && s <= __ldg(hi + cc)) {
-          const float ds = __fmul_rn(s, __ldg(disc + cc));
-          val[i] = a.is_call ? __fsub_rn(ds, __ldg(dk + cc))
-                             : __fsub_rn(__ldg(dk + cc), ds);
-          stopped[i] = true;
-          break;
+      hits &= ~done;
+      if (hits == 0u) return;
+#pragma unroll
+      for (int j = 0; j < kPaths; ++j) {
+        if (!((hits >> j) & 1u)) continue;
+        const int c = first_hit(b0[j], b1[j]);
+        const float s =
+            __shfl_sync(kFullMask, c < 32 ? s0[j] : s1[j], c & 31);
+        if (lane == k) {
+          val[j] = stop_value<QUAD>(a, k, c0 + c, s);
+          stopped |= 1u << j;
         }
+      }
+    };
+    for (int k = 0; k < a.n_strikes; ++k) {
+      const unsigned done = __shfl_sync(kFullMask, stopped, k);
+      if (done == kAllPaths) continue;
+      if constexpr (QUAD) {
+        const float* tk = a.tables + k * a.strike_stride;
+        const QuadCell q0 = quad_cell(tk, a.row_stride, v0 ? c0 + lane : 0);
+        const QuadCell q1 =
+            quad_cell(tk, a.row_stride, v1 ? c0 + lane + 32 : 0);
+        sweep_strike(k, done, [&](float s, int h) {
+          return quad_cell_exercises(h ? q1 : q0, s, a.is_call);
+        });
+      } else {
+        const float* tk = tab + k * kStagedStrikeFloats;
+        const float lo[2] = {tk[lane], tk[lane + 32]};
+        const float hi[2] = {tk[kTileCols + lane], tk[kTileCols + lane + 32]};
+        sweep_strike(k, done, [&](float s, int h) {
+          return (s >= lo[h]) & (s <= hi[h]);
+        });
       }
     }
-    // The next tile's product synchronises before it overwrites xs.
+    // The next tile synchronises before it overwrites tab and xs.
   }
 
   __syncthreads();
   float* red = xs;                        // [n_strikes][BP]
+  if (lane < a.n_strikes) {
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int k = lane + kLanes * i;
-    if (k < a.n_strikes) red[k * BP + p] = val[i];
+    for (int j = 0; j < kPaths; ++j)
+      red[lane * BP + warp + kWarps * j] = val[j];
   }
   __syncthreads();
   if (tid < a.n_strikes) {
@@ -273,48 +337,55 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs a) {
 }
 
 // Shared memory of a block of bp paths (pair members when antithetic), in
-// the bf16 form's layout when bf16.
-int smem_bytes(int n, int bp, bool anti, bool spec, bool bf16) {
+// the bf16 form's layout when bf16, for a launch of n_strikes strikes
+// (whose lo and hi rows it stages, none under quad).
+int smem_bytes(int n, int bp, bool anti, bool spec, bool bf16, bool quad,
+               int n_strikes) {
   const int d = anti ? bp / 2 : bp;
-  return block_smem_bytes(n, d, 1, (bp - d) * kXStride, spec, bf16);
+  return block_smem_bytes(
+      n, d, 1,
+      (bp - d) * kXStride + (quad ? 0 : n_strikes * kStagedStrikeFloats),
+      spec, bf16, false);
 }
 
-template <int PM, bool SEEDED, bool ANTI, bool SPEC, bool QUAD>
-cudaError_t launch_one(const ChainArgs& a, cudaStream_t stream) {
-  constexpr int D = 16 * PM;
-  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI, SPEC, kUnitBf16);
-  auto kernel = chain_kernel<PM, SEEDED, ANTI, SPEC, QUAD, kUnitBf16>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<a.drawn / D, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
+using Kernel = void (*)(ChainArgs);
 
-// The seeded or noise-in entry, chol or spectral (from a.ci), where
-// a.bf16 names this unit's fGN input dtype.
 template <int PM, bool ANTI, bool QUAD>
-cudaError_t launch_entry(const ChainArgs& a, cudaStream_t s) {
-  if (a.bf16 != kUnitBf16) return cudaErrorInvalidValue;
-  const bool seeded = a.noise == nullptr;
-  if (a.ci != nullptr)
-    return seeded ? launch_one<PM, true, ANTI, true, QUAD>(a, s)
-                  : launch_one<PM, false, ANTI, true, QUAD>(a, s);
-  return seeded ? launch_one<PM, true, ANTI, false, QUAD>(a, s)
-                : launch_one<PM, false, ANTI, false, QUAD>(a, s);
+Kernel body_of(bool seeded, bool spec) {
+  if (spec)
+    return seeded ? chain_kernel<PM, true, ANTI, true, QUAD, kUnitBf16>
+                  : chain_kernel<PM, false, ANTI, true, QUAD, kUnitBf16>;
+  return seeded ? chain_kernel<PM, true, ANTI, false, QUAD, kUnitBf16>
+                : chain_kernel<PM, false, ANTI, false, QUAD, kUnitBf16>;
 }
 
-template <bool ANTI, bool QUAD = false>
-cudaError_t launch_pm(const ChainArgs& a, int pm, cudaStream_t s) {
-  switch (pm) {
+template <int PM>
+Kernel body_of(bool seeded, bool anti, bool spec, bool quad) {
+  if (quad) return body_of<PM, false, true>(seeded, spec);
+  return anti ? body_of<PM, true, false>(seeded, spec)
+              : body_of<PM, false, false>(seeded, spec);
+}
+
+// This unit's body of the form (block_paths counts members when anti), or
+// null where the arguments name none.
+Kernel kernel_for(int n, int block_paths, bool seeded, bool anti, bool spec,
+                  bool quad, int n_strikes) {
+  const int unit = anti ? 32 : 16;
+  if (n < 1 || block_paths < unit || block_paths % unit ||
+      block_paths > 4 * unit || n_strikes < 1 || n_strikes > kGroup ||
+      (quad && anti) ||
+      smem_bytes(n, block_paths, anti, spec, kUnitBf16, quad, n_strikes) >
+          kSmemLimit)
+    return nullptr;
+  switch (block_paths / unit) {
     case 4:
-      return launch_entry<4, ANTI, QUAD>(a, s);
+      return body_of<4>(seeded, anti, spec, quad);
     case 2:
-      return launch_entry<2, ANTI, QUAD>(a, s);
+      return body_of<2>(seeded, anti, spec, quad);
     case 1:
-      return launch_entry<1, ANTI, QUAD>(a, s);
+      return body_of<1>(seeded, anti, spec, quad);
     default:
-      return cudaErrorInvalidValue;
+      return nullptr;
   }
 }
 
@@ -323,14 +394,38 @@ cudaError_t launch_pm(const ChainArgs& a, int pm, cudaStream_t s) {
 extern "C" {
 
 // block_paths counts paths (pair members when antithetic != 0); the
-// spectral form when spectral != 0; in this unit's fGN input dtype.
+// spectral form when spectral != 0, the quadratic policy when quadratic
+// != 0, a launch of n_strikes strikes; in this unit's fGN input dtype.
 int MCOP_ENTRY(mcop_chain_smem_bytes)(int n_steps, int block_paths,
-                                      int antithetic, int spectral) {
+                                      int antithetic, int spectral,
+                                      int quadratic, int n_strikes) {
   return smem_bytes(n_steps, block_paths, antithetic != 0, spectral != 0,
-                    kUnitBf16);
+                    kUnitBf16, quadratic != 0, n_strikes);
 }
 
 int MCOP_ENTRY(mcop_chain_group)() { return kGroup; }
+
+// Blocks of the form's seeded body one SM runs at once at this launch's
+// shared memory, by cudaOccupancyMaxActiveBlocksPerMultiprocessor; minus
+// a cudaError_t where the arguments name no body or the query fails.
+int MCOP_ENTRY(mcop_chain_blocks_per_sm)(int n_steps, int block_paths,
+                                         int antithetic, int spectral,
+                                         int quadratic, int n_strikes) {
+  const Kernel k = kernel_for(n_steps, block_paths, true,
+                              antithetic != 0, spectral != 0,
+                              quadratic != 0, n_strikes);
+  if (k == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  const int smem = smem_bytes(n_steps, block_paths, antithetic != 0,
+                              spectral != 0, kUnitBf16, quadratic != 0,
+                              n_strikes);
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads,
+                                                        smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
 
 // K5.  noise may be null (seeded entry, stream of `key`).  lt is Lt'
 // (chol, ci null) or Cr' (spectral, ci = Ci'); noise is then [2, rows,
@@ -349,13 +444,12 @@ int MCOP_ENTRY(mcop_priced_chain)(
     long long strike_stride, long long row_stride, int n_strikes,
     int is_call, int antithetic, int quadratic, int bf16, float* out,
     void* stream) {
-  const bool anti = antithetic != 0;
-  const int unit = anti ? 32 : 16;
-  if (n_steps < 1 || rows < 1 || block_paths < unit || block_paths % unit ||
-      block_paths > 4 * unit || rows % block_paths || n_strikes < 1 ||
-      n_strikes > kGroup || (quadratic != 0 && anti) ||
-      smem_bytes(n_steps, block_paths, anti, ci != nullptr, kUnitBf16) >
-          kSmemLimit)
+  const bool anti = antithetic != 0, quad = quadratic != 0;
+  const bool spec = ci != nullptr;
+  const Kernel k = kernel_for(n_steps, block_paths, noise == nullptr, anti,
+                              spec, quad, n_strikes);
+  if (k == nullptr || (bf16 != 0) != kUnitBf16 || rows < 1 ||
+      rows % block_paths)
     return static_cast<int>(cudaErrorInvalidValue);
   ChainArgs a{};
   a.noise = noise;
@@ -375,13 +469,14 @@ int MCOP_ENTRY(mcop_priced_chain)(
   a.sqrt_dt = sqrt_dt;
   a.log_s0 = log_s0;
   a.is_call = is_call;
-  a.bf16 = bf16 != 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int pm = block_paths / unit;
-  const cudaError_t err = quadratic != 0 ? launch_pm<false, true>(a, pm, s)
-                          : anti         ? launch_pm<true>(a, pm, s)
-                                         : launch_pm<false>(a, pm, s);
-  return static_cast<int>(err);
+  const int smem =
+      smem_bytes(n_steps, block_paths, anti, spec, kUnitBf16, quad, n_strikes);
+  const cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int d = anti ? block_paths / 2 : block_paths;
+  k<<<a.drawn / d, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

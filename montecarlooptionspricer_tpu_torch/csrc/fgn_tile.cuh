@@ -1,7 +1,8 @@
 // The single-tile path block shared by K1, K2 (csrc/pathgen.cu), K5
 // (csrc/chain.cu), K3 and K4 (csrc/greeks.cu): a block of BP = 16 * PM
-// paths keeps its N and W noise planes (and Zi under the spectral form) in
-// dynamic shared memory for the whole horizon, and the step axis runs in
+// paths keeps its N noise plane (and Zi under the spectral form) in
+// dynamic shared memory for the whole horizon, with its W plane (K1, K2)
+// or without it (K5, K3/K4 draw W per tile), and the step axis runs in
 // tiles of kTileCols columns.
 //
 // load_noise fills the planes from the seeded stream (csrc/philox.cuh) or
@@ -86,8 +87,11 @@ __host__ __device__ inline int n_plane_floats(int n, int bp, bool bf16) {
 // from the stream's own counter word (spectral_zi_quad).  Under BF16 the
 // N plane (and Zi under SPEC) is bf16 [BP][plane_ld_bf16(n)], each normal
 // rounded to nearest even, and its columns past n are zero (the
-// tensor-core product reads whole k16 steps).
-template <int BP, bool SEEDED, bool SPEC = false, bool BF16 = false>
+// tensor-core product reads whole k16 steps).  Without WITH_W (K5, K3/K4:
+// csrc/strip_sweep.cuh:tile_w_pair draws W per tile) no W plane is
+// written and ws may be null.
+template <int BP, bool SEEDED, bool SPEC = false, bool BF16 = false,
+          bool WITH_W = true>
 __device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
                            int row0, fgn_elem<BF16>* ns, float* ws,
                            fgn_elem<BF16>* zs = nullptr) {
@@ -100,10 +104,10 @@ __device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
       float n0, w0, n1, w1;
       step_pair_normals(key, row0 + p, j, &n0, &w0, &n1, &w1);
       ns[p * ldn + 2 * j] = to_fgn_elem<BF16>(n0);
-      ws[p * ld + 2 * j] = w0;
+      if (WITH_W) ws[p * ld + 2 * j] = w0;
       if (2 * j + 1 < n) {
         ns[p * ldn + 2 * j + 1] = to_fgn_elem<BF16>(n1);
-        ws[p * ld + 2 * j + 1] = w1;
+        if (WITH_W) ws[p * ld + 2 * j + 1] = w1;
       }
     }
     if (SPEC) {
@@ -125,7 +129,7 @@ __device__ void load_noise(const float* noise, int rows, int n, uint32_t key,
       const size_t g = static_cast<size_t>(row0 + p) * n + c;
       ns[p * ldn + c] = to_fgn_elem<BF16>(noise[g]);
       if (SPEC) zs[p * ldn + c] = to_fgn_elem<BF16>(noise[plane + g]);
-      ws[p * ld + c] = noise[(SPEC ? 2 : 1) * plane + g];
+      if (WITH_W) ws[p * ld + c] = noise[(SPEC ? 2 : 1) * plane + g];
     }
   }
   if (BF16) {
@@ -312,16 +316,17 @@ __device__ void fgn_tile(const fgn_elem<BF16>* m0, const fgn_elem<BF16>* m1,
 }
 
 // Shared memory of the planes (three under the spectral form; N, and Zi
-// under the spectral form, in bf16 under the bf16 form), NMAT product
-// tiles, the staged factors (one a product, two under the spectral form,
-// in bf16 under the bf16 form) and `extra` floats more, for a block of bp
-// paths at horizon n.
+// under the spectral form, in bf16 under the bf16 form; no W plane without
+// w_plane), NMAT product tiles, the staged factors (one a product, two
+// under the spectral form, in bf16 under the bf16 form) and `extra` floats
+// more, for a block of bp paths at horizon n.
 __host__ __device__ inline int block_smem_bytes(int n, int bp, int nmat,
                                                 int extra,
                                                 bool spec = false,
-                                                bool bf16 = false) {
+                                                bool bf16 = false,
+                                                bool w_plane = true) {
   return 4 * ((spec ? 2 : 1) * n_plane_floats(n, bp, bf16) +
-              bp * plane_ld(n) + nmat * bp * kXStride +
+              (w_plane ? bp * plane_ld(n) : 0) + nmat * bp * kXStride +
               staged_floats(spec ? 2 : nmat, bf16) + extra);
 }
 

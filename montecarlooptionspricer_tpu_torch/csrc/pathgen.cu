@@ -241,8 +241,8 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
         ls += xp[cc];
         if (PRICED && QUAD) {
           if (!stopped)
-            stopped = quad_exercise<false>(a.tab, a.tstride, c0 + cc,
-                                           expf(ls), a.is_call, &val);
+            stopped = quad_exercise(a.tab, a.tstride, c0 + cc, expf(ls),
+                                    a.is_call, &val);
         } else if (PRICED) {
           const int c = c0 + cc;
           if (!stopped && ls >= a.llo[c] && ls <= a.lhi[c]) {

@@ -636,8 +636,8 @@ __global__ void __launch_bounds__(kThreads, 2) factored_kernel(Args a) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             if (first == 4 && m + e < n &&
-                mcop::quad_exercise<false>(a.tab, a.tstride, m + e,
-                                           expf(ls[e]), a.is_call, &qval))
+                mcop::quad_exercise(a.tab, a.tstride, m + e, expf(ls[e]),
+                                    a.is_call, &qval))
               first = e;
         } else {
 #pragma unroll

@@ -303,8 +303,8 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
         ls += xp[cc];
         if (PRICED && QUAD) {
           if (!stopped)
-            stopped = mcop::quad_exercise<false>(
-                a.tab, a.tstride, c0 + cc, expf(ls), a.is_call, &val);
+            stopped = mcop::quad_exercise(a.tab, a.tstride, c0 + cc,
+                                          expf(ls), a.is_call, &val);
         } else if (PRICED) {
           const int c = c0 + cc;
           if (!stopped && ls >= a.llo[c] && ls <= a.lhi[c]) {

@@ -1,6 +1,6 @@
 // The quadratic exercise policy of one cell, shared by the QUAD forms of K2
 // (csrc/pathgen.cu), K7 (csrc/pathgen_tiled.cu), K9
-// (csrc/pathgen_factored.cu) and K5 (csrc/chain.cu).
+// (csrc/pathgen_factored.cu) and K5 (csrc/chain.cu, through QuadCell).
 //
 // Counterpart: montecarlooptionspricer_tpu/models/pathgen_pallas.py:
 // _policy_value:277 (K2; K7's _policy_tile and K9's _priced_step test the
@@ -9,10 +9,10 @@
 // floats: c0, c1, c2 (the fit's standardized coefficients), mu, sd, eps,
 // the discount and the strike.  At column c and price s:
 //   p    = max(+-(s - strike), 0)
-//   z    = (s - mu) / sd            (RECIP: (s - mu) * (1 / sd), K5's form,
-//                                    where JAX hoists the reciprocal per
-//                                    step; here each cell takes it with the
-//                                    same IEEE rounding)
+//   z    = (s - mu) / sd            (K5: (s - mu) * (1 / sd), where JAX
+//                                    hoists the reciprocal per step; here
+//                                    each cell takes it with the same
+//                                    IEEE rounding)
 //   cont = (c2 z + c1) z + c0
 // and the cell exercises iff p > eps and p >= cont, worth p * disc.
 //
@@ -28,26 +28,62 @@
 
 namespace mcop {
 
-template <bool RECIP>
+// The payoff max(+-(s - strike), 0).
+__device__ __forceinline__ float quad_payoff(float s, float strike,
+                                             int is_call) {
+  return fmaxf(is_call ? __fsub_rn(s, strike) : __fsub_rn(strike, s), 0.0f);
+}
+
+// The continuation value (c2 z + c1) z + c0, coefficient i read as
+// coef(i) where the polynomial first needs it.
+template <class Coef>
+__device__ __forceinline__ float quad_cont(Coef coef, float z) {
+  return __fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(coef(2), z), coef(1)), z),
+                   coef(0));
+}
+
+// K2's, K7's and K9's cell: whether the path at price s exercises at
+// column c, and then its value.
 __device__ __forceinline__ bool quad_exercise(const float* tab,
                                               long long stride, int c,
                                               float s, int is_call,
                                               float* value) {
-  const float strike = __ldg(tab + 7 * stride + c);
-  const float p =
-      fmaxf(is_call ? __fsub_rn(s, strike) : __fsub_rn(strike, s), 0.0f);
+  const float p = quad_payoff(s, __ldg(tab + 7 * stride + c), is_call);
   if (!(p > __ldg(tab + 5 * stride + c))) return false;
   const float d = __fsub_rn(s, __ldg(tab + 3 * stride + c));
   const float sd = __ldg(tab + 4 * stride + c);
-  const float z = RECIP ? __fmul_rn(d, __frcp_rn(sd)) : __fdiv_rn(d, sd);
-  const float cont = __fadd_rn(
-      __fmul_rn(__fadd_rn(__fmul_rn(__ldg(tab + 2 * stride + c), z),
-                          __ldg(tab + stride + c)),
-                z),
-      __ldg(tab + c));
+  const float z = __fdiv_rn(d, sd);
+  const float cont =
+      quad_cont([&](int i) { return __ldg(tab + i * stride + c); }, z);
   if (!(p >= cont)) return false;
   *value = __fmul_rn(p, __ldg(tab + 6 * stride + c));
   return true;
+}
+
+// K5's sweep (csrc/chain.cu) tests one column of one strike against many
+// paths, so it reads the column's rows once and takes the reciprocal of sd
+// once.
+struct QuadCell {
+  float coef[3], mu, rsd, eps, strike;
+};
+
+__device__ __forceinline__ QuadCell quad_cell(const float* tab,
+                                              long long stride, int c) {
+  return {{__ldg(tab + c), __ldg(tab + stride + c),
+           __ldg(tab + 2 * stride + c)},
+          __ldg(tab + 3 * stride + c),
+          __frcp_rn(__ldg(tab + 4 * stride + c)),
+          __ldg(tab + 5 * stride + c),
+          __ldg(tab + 7 * stride + c)};
+}
+
+// Whether the path at price s exercises at K5's cell q.
+__device__ __forceinline__ bool quad_cell_exercises(const QuadCell& q,
+                                                    float s, int is_call) {
+  const float p = quad_payoff(s, q.strike, is_call);
+  const float z = __fmul_rn(__fsub_rn(s, q.mu), q.rsd);
+  return (p > q.eps) &
+         (p >= quad_cont([&](int i) { return q.coef[i]; }, z));
 }
 
 }  // namespace mcop

@@ -47,7 +47,8 @@ UNITS = tuple((stem + suffix, CSRC / f"{stem}.cu", flags, suffix)
               for stem, units in SPLITS.items() for flags, suffix in units)
 HEADERS = (CSRC / "philox.cuh", CSRC / "fgn_tile.cuh",
            CSRC / "quad_policy.cuh", CSRC / "mma_bf16.cuh",
-           CSRC / "slab_tile.cuh", CSRC / "build_unit.cuh")
+           CSRC / "slab_tile.cuh", CSRC / "build_unit.cuh",
+           CSRC / "strip_sweep.cuh")
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -145,13 +146,15 @@ def load() -> types.SimpleNamespace:
                                         f, p, ll, f, i, i, i, i, i, f, p,
                                         p]},
         "chain": {
-            "mcop_chain_smem_bytes": [i, i, i, i],
+            "mcop_chain_smem_bytes": [i] * 6,
             "mcop_chain_group": [],
+            "mcop_chain_blocks_per_sm": [i] * 6,
             "mcop_priced_chain": [p, p, p, p, i, i, i, u, f, f, f, f, p, ll,
                                   ll, i, i, i, i, i, p, p]},
         "greeks": {
-            "mcop_greeks_smem_bytes": [i, i, i],
+            "mcop_greeks_smem_bytes": [i] * 4,
             "mcop_greeks_group": [],
+            "mcop_greeks_blocks_per_sm": [i] * 4,
             "mcop_greeks_chunk": [p, p, p, p, p, p, i, i, i, u, f, f, f, f,
                                   f, p, ll, f, i, i, i, p, p],
             "mcop_chain_greeks_chunk": [p, p, p, p, p, p, i, i, i, u, f, f,

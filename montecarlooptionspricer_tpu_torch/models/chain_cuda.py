@@ -45,6 +45,9 @@ from . import pathgen_cuda as pc
 # The card's memory model (mirrors csrc/chain.cu).
 
 GROUP = 32                  # strikes one launch sweeps (csrc/chain.cu kGroup)
+# Floats one strike's staged rows take in a block: lo and hi of one step
+# tile (csrc/strip_sweep.cuh kStagedStrikeFloats).
+STAGED_STRIKE_FLOATS = 2 * pc.TILE_COLS
 MAX_CHAIN_STEPS = 512       # the JAX chain kernel's cap (pathgen_pallas.py)
 # K5's forms, the launch counter's keys: plain and paired under the
 # boundary policy, and the quadratic policy's plain form.
@@ -52,17 +55,22 @@ FORMS = (*pc.FORMS[:2], pc.QUAD_FORMS[0])
 
 
 def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
-               spectral: bool = False, bf16: bool = False) -> int:
-    """Shared memory of one CUDA block: K2's noise planes of the drawn
-    rows (N and W, or Zr, Zi and W ``spectral``), one step tile of every
-    path (pair member when ``antithetic``; it also holds the block's
-    per-strike sums at the end) and the staged factor rows (Lt', or Cr'
-    and Ci'); under ``bf16`` the multiplied planes and the staged tiles
-    in bf16 (``pathgen_cuda.block_smem_bytes``)."""
+               spectral: bool = False, bf16: bool = False,
+               quadratic: bool = False, n_strikes: int = GROUP) -> int:
+    """Shared memory of one CUDA block: K2's N plane of the drawn rows (Zr
+    and Zi ``spectral``; no W plane, which K5 draws per tile), one step
+    tile of every path (pair member when ``antithetic``; it also holds the
+    block's per-strike sums at the end), the staged factor rows (Lt', or
+    Cr' and Ci') and the lo and hi rows of a launch's ``n_strikes``
+    strikes for one tile (none under ``quadratic``, whose sweep reads its
+    rows from device memory); under ``bf16`` the multiplied planes and the
+    staged factor tiles in bf16 (``pathgen_cuda.block_smem_bytes``)."""
     drawn = pc.drawn_rows(block_paths, antithetic)
+    staged = 0 if quadratic else n_strikes * STAGED_STRIKE_FLOATS
     return pc.block_smem_bytes(
-        n_steps, drawn, extra=(block_paths - drawn) * (pc.TILE_COLS + 1),
-        spectral=spectral, bf16=bf16)
+        n_steps, drawn,
+        extra=(block_paths - drawn) * (pc.TILE_COLS + 1) + staged,
+        spectral=spectral, bf16=bf16, w_plane=False)
 
 
 def supports(n_steps: int, fgn_form: str = "chol") -> bool:
@@ -74,20 +82,43 @@ def supports(n_steps: int, fgn_form: str = "chol") -> bool:
 
 
 def block_paths_for(n_steps: int, rows: int, antithetic: bool = False,
-                    spectral: bool = False, bf16: bool = False) -> int:
+                    spectral: bool = False, bf16: bool = False,
+                    quadratic: bool = False) -> int:
     """K5's path block: the largest of pathgen_cuda.BLOCK_CHOICES
     (PAIRED_BLOCK_CHOICES, in pair members, when ``antithetic``) whose
-    shared memory fits at this horizon and which divides ``rows``: 64 at
-    365 steps and 32 at 512, 128 and 64 paired; ``spectral``, 32 at both
-    (64 paired).  The bf16 form's narrower planes fit 64 at 512 steps
-    and, spectral, 64 at 365 (pairs as in float32)."""
+    shared memory at GROUP strikes fits at this horizon and which divides
+    ``rows``: 64 at 365 and at 512 steps, 128 paired; ``spectral``, 32 at
+    both (64 paired) in float32 and 64 (128 paired) in bf16."""
     bp = pc.fitting_block(
-        lambda n, b: smem_bytes(n, b, antithetic, spectral, bf16), n_steps,
-        rows, antithetic)
+        lambda n, b: smem_bytes(n, b, antithetic, spectral, bf16,
+                                quadratic), n_steps, rows, antithetic)
     if not bp:
         raise ValueError(f"no K5 block divides rows={rows} at "
                          f"n_steps={n_steps}")
     return bp
+
+
+def blocks_per_sm(consts: pc.PathConsts, rows: int, n_strikes: int = GROUP,
+                  antithetic: bool = False,
+                  policy_form: str = "boundary") -> int:
+    """Blocks of K5 one SM of the card runs at once for a launch of
+    ``n_strikes`` strikes in the form of ``consts`` (its fGN form and
+    dtype), ``antithetic`` and ``policy_form``, at the block
+    ``block_paths_for`` picks (the CUDA runtime's occupancy query on the
+    seeded body)."""
+    quadratic = pc.check_policy(policy_form, antithetic)
+    bp = block_paths_for(consts.n_steps, rows, antithetic, consts.spectral,
+                         consts.bf16, quadratic)
+    from ..kernels import build
+
+    got = build.entry(build.load(), "chain", "mcop_chain_blocks_per_sm",
+                      consts.bf16)(consts.n_steps, bp, int(antithetic),
+                                   int(consts.spectral), int(quadratic),
+                                   n_strikes)
+    if got < 0:
+        raise RuntimeError(f"mcop_chain_blocks_per_sm failed: cudaError "
+                           f"{-got}")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +191,8 @@ def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
         return priced_chain_from_noise_ref(consts, tables, noise, is_call,
                                            antithetic, policy_form)
     pc.check_device_inputs(consts, noise, tables)
-    bp = block_paths_for(n, rows, antithetic, consts.spectral, consts.bf16)
+    bp = block_paths_for(n, rows, antithetic, consts.spectral, consts.bf16,
+                         quadratic)
     from ..kernels import build
 
     launch = build.entry(build.load(), "chain", "mcop_priced_chain",

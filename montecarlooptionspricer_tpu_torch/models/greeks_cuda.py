@@ -47,22 +47,26 @@ GREEK_ORDER = ("price", "delta", "vega_xi", "vega_eta", "rho_rate",
 # The card's memory model (mirrors csrc/greeks.cu).
 
 GROUP = 32                  # strikes one launch sweeps (csrc/greeks.cu kGroup)
+STAGED_STRIKE_FLOATS = 2 * pc.TILE_COLS   # a strike's staged rows, one tile
 FORMS = pc.FORMS[:2]   # the forms of K3 and K4
 # The counters' keys: each form in float32 and in the bf16 fGN-input form.
 FORM_KEYS = (*FORMS, *pc.bf16_names(FORMS))
 
 
 def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
-               bf16: bool = False) -> int:
-    """Shared memory of one CUDA block: the N and W planes of the drawn
-    rows, four step tiles of every path (pair member when ``antithetic``:
-    x' and hx, then the running sums; they also hold the block's sums at
-    the end) and the staged Lt' and dLt' rows; under ``bf16`` the N plane
-    and the two staged tiles in bf16."""
+               bf16: bool = False, n_strikes: int = GROUP) -> int:
+    """Shared memory of one CUDA block: the N plane of the drawn rows (no W
+    plane, which the kernels draw per tile), four step tiles of every path
+    (pair member when ``antithetic``: x' and hx, then the running sums;
+    they also hold the block's sums at the end), the staged Lt' and dLt'
+    rows and the log lo and log hi rows of a launch's ``n_strikes``
+    strikes for one tile; under ``bf16`` the N plane and the two staged
+    factor tiles in bf16."""
     drawn = pc.drawn_rows(block_paths, antithetic)
     return pc.block_smem_bytes(
         n_steps, drawn, n_products=2,
-        extra=(4 * block_paths - 2 * drawn) * (pc.TILE_COLS + 1), bf16=bf16)
+        extra=(4 * block_paths - 2 * drawn) * (pc.TILE_COLS + 1)
+        + n_strikes * STAGED_STRIKE_FLOATS, bf16=bf16, w_plane=False)
 
 
 def supports(n_steps: int) -> bool:
@@ -74,15 +78,33 @@ def block_paths_for(n_steps: int, rows: int, antithetic: bool = False,
                     bf16: bool = False) -> int:
     """The Greeks kernels' path block: the largest of
     pathgen_cuda.BLOCK_CHOICES (PAIRED_BLOCK_CHOICES, in pair members, when
-    ``antithetic``) whose shared memory fits at this horizon and which
-    divides ``rows`` (32 at 365 steps, 64 paired; the bf16 form's narrower
-    plane fits 64, 64 paired)."""
+    ``antithetic``) whose shared memory at GROUP strikes fits at this
+    horizon and which divides ``rows``: 64 at 365 steps, 64 paired, in
+    float32 and bf16."""
     bp = pc.fitting_block(lambda n, b: smem_bytes(n, b, antithetic, bf16),
                           n_steps, rows, antithetic)
     if not bp:
         raise ValueError(f"no Greeks block divides rows={rows} at "
                          f"n_steps={n_steps}")
     return bp
+
+
+def blocks_per_sm(consts: pc.PathConsts, rows: int, n_strikes: int = GROUP,
+                  antithetic: bool = False) -> int:
+    """Blocks of K3 (``n_strikes`` 1) or K4 one SM of the card runs at
+    once in the dtype of ``consts``, ``antithetic``, at the block
+    ``block_paths_for`` picks (the CUDA runtime's occupancy query on the
+    seeded body)."""
+    bp = block_paths_for(consts.n_steps, rows, antithetic, consts.bf16)
+    from ..kernels import build
+
+    got = build.entry(build.load(), "greeks", "mcop_greeks_blocks_per_sm",
+                      consts.bf16)(consts.n_steps, bp, int(antithetic),
+                                   n_strikes)
+    if got < 0:
+        raise RuntimeError(f"mcop_greeks_blocks_per_sm failed: cudaError "
+                           f"{-got}")
+    return got
 
 
 def _to_greek_order(sums: torch.Tensor, consts: pc.PathConsts,

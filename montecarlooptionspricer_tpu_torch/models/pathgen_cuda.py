@@ -291,11 +291,12 @@ TILE_KB = TILE_K + 8   # bf16 row stride of a staged factor tile
 
 def block_smem_bytes(n_steps: int, block_paths: int, n_products: int = 1,
                      extra: int = 0, spectral: bool = False,
-                     bf16: bool = False) -> int:
+                     bf16: bool = False, w_plane: bool = True) -> int:
     """Shared memory of one single-tile CUDA block (``block_smem_bytes`` of
     csrc/fgn_tile.cuh, which K1-K5 share): the N and W planes (row stride
     n_steps rounded up to odd, so rows fall on distinct banks; under
-    ``spectral`` Zr, Zi and W), per fGN product an X tile (stride
+    ``spectral`` Zr, Zi and W; no W plane without ``w_plane``, as K5 and
+    K3/K4 draw W per tile), per fGN product an X tile (stride
     TILE_COLS + 1), the staged factor tiles (one per product, or Cr' and
     Ci' under ``spectral``) and ``extra`` floats.  Under ``bf16`` the
     planes multiplied (N, or Zr and Zi) are bf16 with row stride n_steps
@@ -308,7 +309,7 @@ def block_smem_bytes(n_steps: int, block_paths: int, n_products: int = 1,
              else block_paths * ld)
     staged = tiles * (TILE_COLS * TILE_KB // 2 if bf16
                       else TILE_K * TILE_COLS)
-    floats = (planes * plane + block_paths * ld + extra
+    floats = (planes * plane + (block_paths * ld if w_plane else 0) + extra
               + n_products * block_paths * (TILE_COLS + 1) + staged)
     return 4 * floats
 

@@ -187,10 +187,10 @@ def test_k4_bf16_matches_jax(rng, antithetic):
 def test_k5_bf16_memory_model():
     """K5's bf16 block takes no more shared memory than the float32 block
     in every form and horizon (its N and Zi planes and staged tiles are
-    bf16), so the block it chooses is never smaller: 64 paths at 512 steps
-    where float32 takes 32, 64 spectral at 365 where float32 takes 32,
-    the pairs' blocks unchanged.  The numbers are the card's model
-    (csrc/chain.cu smem_bytes, held equal on the card)."""
+    bf16), so the block it chooses is never smaller: spectral 64 paths
+    (128 paired) at 365 and 512 steps where float32 takes 32 (64).  The
+    numbers are the card's model (csrc/chain.cu smem_bytes, held equal on
+    the card)."""
     for n in (48, 365, 400, 512):
         for spec in (False, True):
             for anti, choices in ((False, pc.BLOCK_CHOICES),
@@ -200,25 +200,26 @@ def test_k5_bf16_memory_model():
                         cc.smem_bytes(n, bp, anti, spec)
                 assert cc.block_paths_for(n, 1 << 17, anti, spec, True) >= \
                     cc.block_paths_for(n, 1 << 17, anti, spec)
-    # 64 drawn rows at 365 steps: N 64 x 376 bf16, W 64 x 365, the X tile
-    # 64 x 65 and one staged [64][40] bf16 tile.
+    # 64 drawn rows at 365 steps: N 64 x 376 bf16 (no W plane), the X tile
+    # 64 x 65, one staged [64][40] bf16 tile and the lo and hi rows of 32
+    # strikes for one 64-column tile.
     assert cc.smem_bytes(365, 64, bf16=True) == 4 * (
-        64 * 376 // 2 + 64 * 365 + 64 * 65 + 64 * 40 // 2)
+        64 * 376 // 2 + 64 * 65 + 64 * 40 // 2 + 32 * 2 * 64)
     blocks = {(n, anti, spec): cc.block_paths_for(n, 1 << 17, anti, spec,
                                                   True)
               for n in (365, 512) for anti in (False, True)
               for spec in (False, True)}
     assert blocks == {(365, False, False): 64, (365, True, False): 128,
-                      (365, False, True): 64, (365, True, True): 64,
-                      (512, False, False): 64, (512, True, False): 64,
-                      (512, False, True): 32, (512, True, True): 64}
+                      (365, False, True): 64, (365, True, True): 128,
+                      (512, False, False): 64, (512, True, False): 128,
+                      (512, False, True): 64, (512, True, True): 128}
 
 
 def test_k3_k4_bf16_memory_model():
     """The Greeks kernels' bf16 block: the bf16 N plane and two staged
     bf16 tiles (Lt' and dLt' side by side) take no more shared memory
     than the float32 block, so the block is never smaller: 64 paths at
-    365 steps where float32 takes 32, 64 pair members as in float32."""
+    365 steps as in float32, 128 pair members where float32 takes 64."""
     for n in (48, 96, 365):
         for anti, choices in ((False, pc.BLOCK_CHOICES),
                               (True, pc.PAIRED_BLOCK_CHOICES)):
@@ -228,9 +229,9 @@ def test_k3_k4_bf16_memory_model():
             assert gc.block_paths_for(n, 1 << 17, anti, True) >= \
                 gc.block_paths_for(n, 1 << 17, anti)
     assert gc.smem_bytes(365, 64, bf16=True) == 4 * (
-        64 * 376 // 2 + 64 * 365 + 4 * 64 * 65 + 2 * 64 * 40 // 2)
+        64 * 376 // 2 + 4 * 64 * 65 + 2 * 64 * 40 // 2 + 32 * 2 * 64)
     assert (gc.block_paths_for(365, 1 << 17, False, True),
-            gc.block_paths_for(365, 1 << 17, True, True)) == (64, 64)
+            gc.block_paths_for(365, 1 << 17, True, True)) == (64, 128)
 
 
 def test_greeks_refuse_other_dtype_constants():

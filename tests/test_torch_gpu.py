@@ -204,7 +204,7 @@ def test_chain_kernel_matches_plain_version(cuda, n_steps, n_strikes):
     flips only inside the float32 root band).  23 strikes do not divide
     the kernel's strike lanes; 40 take two launches of one key.  400 and
     512 steps are past the single tile, where the chain's pilot runs on K6
-    and K5 still streams (64- and 32-path blocks)."""
+    and K5 still streams (64-path blocks)."""
     rows = 1 << 17
     consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda)
     key = pc._fold_words(5, 13)
@@ -231,15 +231,14 @@ def test_chain_pair_form_matches_plain_version(cuda, n_steps, n_strikes):
     the concatenated [X; -X] noise, rtol 1e-5 (each member's arithmetic is
     the unpaired path's, only the block sums' order differs).  40 strikes
     take two launches, which must regenerate the same pairs; the paired
-    block holds 128 members at 365 steps and 64 at 512."""
+    block holds 128 members at every horizon (no W plane resident)."""
     rows = 1 << 17
     consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda)
     key = pc._fold_words(5, 23)
     noise = pc.philox_normals_ref(key, rows // 2, n_steps, device=cuda)
     tables, _ = _strip_tables(cuda, consts, noise,
                               torch.linspace(80.0, 120.0, n_strikes).tolist())
-    assert cc.block_paths_for(n_steps, rows, True) == (
-        128 if n_steps <= 365 else 64)
+    assert cc.block_paths_for(n_steps, rows, True) == 128
     want = cc.priced_chain_from_noise_ref(consts, tables, noise, False, True)
     before = dict(cc.priced_chain.form_launches)
     for got in (cc.priced_chain(consts, tables, False, noise=noise,
@@ -381,16 +380,20 @@ def test_chain_and_greeks_wrappers_reject_bad_inputs(cuda):
 
     lib = build.load()
     for n in (96, 365, 512):       # the Python memory models are the card's
-        for bp in pc.BLOCK_CHOICES:
-            assert lib.mcop_chain_smem_bytes(n, bp, 0, 0) == \
-                cc.smem_bytes(n, bp)
-            assert lib.mcop_greeks_smem_bytes(n, bp, 0) == \
-                gc.smem_bytes(n, bp)
-        for bp in pc.PAIRED_BLOCK_CHOICES:
-            assert lib.mcop_chain_smem_bytes(n, bp, 1, 0) == \
-                cc.smem_bytes(n, bp, True)
-            assert lib.mcop_greeks_smem_bytes(n, bp, 1) == \
-                gc.smem_bytes(n, bp, True)
+        for k in (1, 21, cc.GROUP):
+            for bp in pc.BLOCK_CHOICES:
+                for quad in (0, 1):
+                    assert lib.mcop_chain_smem_bytes(n, bp, 0, 0, quad,
+                                                     k) == \
+                        cc.smem_bytes(n, bp, quadratic=bool(quad),
+                                      n_strikes=k)
+                assert lib.mcop_greeks_smem_bytes(n, bp, 0, k) == \
+                    gc.smem_bytes(n, bp, n_strikes=k)
+            for bp in pc.PAIRED_BLOCK_CHOICES:
+                assert lib.mcop_chain_smem_bytes(n, bp, 1, 0, 0, k) == \
+                    cc.smem_bytes(n, bp, True, n_strikes=k)
+                assert lib.mcop_greeks_smem_bytes(n, bp, 1, k) == \
+                    gc.smem_bytes(n, bp, True, n_strikes=k)
     assert lib.mcop_chain_group() == cc.GROUP
     assert lib.mcop_greeks_group() == gc.GROUP
     consts = pc.make_path_consts(*MARKET.values(), 64, DT, cuda)
@@ -934,7 +937,8 @@ def test_spectral_wrappers_reject_bad_inputs(cuda):
         for anti, choices in ((0, pc.BLOCK_CHOICES),
                               (1, pc.PAIRED_BLOCK_CHOICES)):
             for bp in choices:
-                assert lib.mcop_chain_smem_bytes(n, bp, anti, 1) == \
+                assert lib.mcop_chain_smem_bytes(n, bp, anti, 1, 0,
+                                                 cc.GROUP) == \
                     cc.smem_bytes(n, bp, bool(anti), True)
                 for cv in (0, 1):
                     assert lib.mcop_smem_bytes(n, bp, anti, cv, 1) == \
@@ -1636,10 +1640,11 @@ def test_bf16_memory_models_are_the_cards(cuda):
             for bp in choices:
                 for spec in (0, 1):
                     assert lib.mcop_chain_smem_bytes_bf16(
-                        n, bp, anti, spec) == cc.smem_bytes(
+                        n, bp, anti, spec, 0, cc.GROUP) == cc.smem_bytes(
                         n, bp, bool(anti), bool(spec), bf16=True)
-                assert lib.mcop_greeks_smem_bytes_bf16(n, bp, anti) == \
-                    gc.smem_bytes(n, bp, bool(anti), bf16=True)
+                assert lib.mcop_greeks_smem_bytes_bf16(
+                    n, bp, anti, gc.GROUP) == gc.smem_bytes(
+                    n, bp, bool(anti), bf16=True)
     assert lib.mcop_chain_group_bf16() == cc.GROUP
     assert lib.mcop_greeks_group_bf16() == gc.GROUP
 
@@ -1796,3 +1801,136 @@ def test_roofline_matmul_long_chain(cuda, s_pad):
         assert got.shape == (grid, s_pad)
         assert float((got - want).abs().max()) <= rl.chain_atol(
             dtype == torch.bfloat16, k * unroll, float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The strike sweep's edges (K5, K3/K4): synthetic tables that force each
+# strike's first hit to a chosen column of the 365-step horizon.
+
+# The columns the strikes cycle through: the first, the last of the first
+# tile and the first of the second (the tile edge), the last step, never
+# (the [1e30, -1e30] sentinels), then several in one tile and two in later
+# tiles.
+_EDGE_COLUMNS = (0, 63, 64, 364, None, 5, 17, 40, 130, 200)
+
+
+def _edge_bounds(values, n_strikes):
+    """Lower and upper rows [K, n] of ``n_strikes`` synthetic strikes on the
+    paths' ``values`` [rows, n] (S, log S or the payoff): strike j cannot
+    hit before column c_j of _EDGE_COLUMNS, hits at c_j where its value is
+    at least a quantile (10 % to 90 % over the strikes) and at every later
+    column, so each path stops at c_j or c_j + 1 (or never, at the last
+    step); the "never" strike keeps the sentinels throughout."""
+    n = values.shape[1]
+    lo = torch.full((n_strikes, n), 1e30, device=values.device)
+    hi = torch.full((n_strikes, n), -1e30, device=values.device)
+    for j in range(n_strikes):
+        c = _EDGE_COLUMNS[j % len(_EDGE_COLUMNS)]
+        if c is None:
+            continue
+        lo[j, c] = torch.quantile(values[:, c],
+                                  0.1 + 0.8 * j / max(n_strikes - 1, 1))
+        lo[j, c + 1:] = -1e30
+        hi[j, c:] = 1e30
+    return lo, hi
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_strikes", [1, 31, 32, 33])
+@pytest.mark.parametrize("form", ["plain", "anti", "quad"])
+@pytest.mark.parametrize("fgn_dtype", ["float32", "bfloat16"])
+def test_chain_sweep_edges(cuda, fgn_dtype, form, n_strikes):
+    """K5 (boundary plain and paired, quadratic) on synthetic tables whose
+    first hits fall at column 0, at the tile edge (63, 64), at the last
+    step, never, and at several strikes in one tile, at 131072 rows and
+    365 steps: seeded and noise-in against the plain version (1e-4 of each
+    strike's scale), two seeded launches bit for bit, and the pair against
+    the unpaired form on [X; -X] (1e-5).  33 strikes take two launches of
+    one key.  The quadratic tables hold cont at the payoff's quantile (c0,
+    with c1 = c2 = mu = 0, sd = 1, eps = -1)."""
+    n, rows, key, strike = 365, 1 << 17, pc._fold_words(5, 107), 105.0
+    anti, quad = form == "anti", form == "quad"
+    policy = "quadratic" if quad else "boundary"
+    consts = pc.make_path_consts(*MARKET.values(), n, DT, cuda,
+                                 fgn_dtype=fgn_dtype)
+    noise = pc.philox_normals_ref(key, rows // 2 if anti else rows, n,
+                                  device=cuda)
+    s = torch.exp(pc._log_paths_ref(consts, noise, anti))
+    disc = torch.exp(-MARKET["r"] * DT * torch.arange(1, n + 1,
+                                                      device=cuda))
+    if quad:
+        lo, _ = _edge_bounds(torch.clamp(strike - s, min=0.0), n_strikes)
+        tables = torch.zeros((n_strikes, 8, n), device=cuda)
+        tables[:, 0] = lo
+        tables[:, 4] = 1.0
+        tables[:, 5] = -1.0
+        tables[:, 6] = disc
+        tables[:, 7] = strike
+    else:
+        lo, hi = _edge_bounds(s, n_strikes)
+        tables = torch.stack([lo, hi, (strike * disc).expand_as(lo),
+                              disc.expand_as(lo)], dim=1).contiguous()
+    del s
+    want = cc.priced_chain_from_noise_ref(consts, tables, noise, False, anti,
+                                          policy)
+    got_n, got_s, again = (
+        cc.priced_chain(consts, tables, False, antithetic=anti,
+                        policy_form=policy, **kw)
+        for kw in ({"noise": noise}, {"rows": rows, "key": key},
+                   {"rows": rows, "key": key}))
+    torch.cuda.synchronize()
+    assert float(want.abs().max()) > 0
+    assert _rel(got_n, want) < 1e-4 and _rel(got_s, want) < 1e-4
+    assert torch.equal(got_s, again)
+    if anti:
+        unpaired = cc.priced_chain(consts, tables, False,
+                                   noise=torch.cat([noise, -noise], dim=1))
+        torch.cuda.synchronize()
+        assert _rel(got_n, unpaired) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_strikes", [1, 31, 32, 33])
+@pytest.mark.parametrize("anti", [False, True])
+@pytest.mark.parametrize("fgn_dtype", ["float32", "bfloat16"])
+def test_greeks_sweep_edges(cuda, fgn_dtype, anti, n_strikes):
+    """K4 and K3 (plain and paired) on synthetic log tables whose first
+    hits fall at column 0, at the tile edge, at the last step, never, and
+    at several strikes in one tile, at 131072 rows and 365 steps: K4
+    seeded and noise-in against the plain version (2e-4 of each output's
+    scale), two seeded launches bit for bit, K3 on the first and last
+    strike against it likewise, and the pair against the unpaired form on
+    [X; -X] (1e-5).  33 strikes take two launches of one key."""
+    n, rows, key = 365, 1 << 17, pc._fold_words(5, 109)
+    consts = pc.make_path_consts(*MARKET.values(), n, DT, cuda,
+                                 fgn_dtype=fgn_dtype)
+    g = pc.make_greeks_consts(MARKET["xi"], MARKET["h"], MARKET["eta"], n,
+                              DT, cuda, fgn_dtype=fgn_dtype)
+    noise = pc.philox_normals_ref(key, rows // 2 if anti else rows, n,
+                                  device=cuda)
+    lo, hi = _edge_bounds(pc._log_paths_ref(consts, noise, anti), n_strikes)
+    strikes = torch.linspace(95.0, 115.0, n_strikes, device=cuda)
+    disc = torch.exp(-MARKET["r"] * DT * torch.arange(1, n + 1,
+                                                      device=cuda))
+    logs = torch.stack([lo, hi, disc.expand_as(lo),
+                        strikes[:, None].expand_as(lo)], dim=1).contiguous()
+    want = gc.greeks_from_noise_ref(consts, g, logs, strikes, noise, False,
+                                    anti)
+    got_n, got_s, again = (
+        gc.chain_greeks_chunk(consts, g, logs, False, antithetic=anti, **kw)
+        for kw in ({"noise": noise}, {"rows": rows, "key": key},
+                   {"rows": rows, "key": key}))
+    ones = [gc.greeks_chunk(consts, g, logs[j], float(strikes[j]), False,
+                            rows=rows, key=key, antithetic=anti)
+            for j in (0, n_strikes - 1)]
+    torch.cuda.synchronize()
+    assert got_s.shape == (6, n_strikes)
+    assert _rel(got_n, want) < 2e-4 and _rel(got_s, want) < 2e-4
+    assert torch.equal(got_s, again)
+    for one, j in zip(ones, (0, n_strikes - 1)):
+        assert _rel(one[:, None], want[:, j:j + 1]) < 2e-4
+    if anti:
+        unpaired = gc.chain_greeks_chunk(
+            consts, g, logs, False, noise=torch.cat([noise, -noise], dim=1))
+        torch.cuda.synchronize()
+        assert _rel(got_n, unpaired) < 1e-5
