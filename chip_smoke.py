@@ -137,7 +137,7 @@ to 0 just before it and read just after:
   bf16 forms;
 * the bf16 forms of K5 and K3/K4 (``bf16_chain_greeks_phases``):
   ``chain_bf16`` (the 21-strike strip at 1e7 x 365 through K1/bf16 once
-  and K5/bf16 76 times, ``chain_price``'s checks but the fit traces,
+  and K5/bf16 76 times, ``chain_price``'s checks but the fit count,
   strike 105 within 5 combined stderr of the float32 strip and 2 stderr
   of ``price_bf16``), ``bf16_chain_forms`` (the six K5/bf16 forms at 365
   steps, plain and paired at 512, seeded and noise-in against their plain
@@ -168,7 +168,11 @@ K9 at 1825 and 4000 steps).  Each K5 form is timed on one strike beside
 the strip (``one_strike_ms``, ``sweep_ms``: the strike sweep's share),
 each K4 form beside K3 of the same form (``k4_minus_k3_ms``), and each
 K5, K3 and K4 entry of the kernels line carries the blocks one SM runs at
-once (``blocks_per_sm``, the C entries' occupancy query).
+once (``blocks_per_sm``, the C entries' occupancy query); each K2 entry
+carries its blocks per SM, the ms of K1 in the same fGN form, dtype and
+pairing (``k1_ms``) and K5's one-strike ms in its form where K5 has it
+(``k5_one_strike_ms``).  ``python3 chip_smoke.py --k2-forms [ROOT]`` times
+K2's 24 forms alone (``k2_forms_main``), on this checkout or another.
 
 Usage (from the root of a checkout, one CUDA card):  python3 chip_smoke.py
 
@@ -281,11 +285,9 @@ GBM_SIGMAS = 3.0
 GBM_GAP = 0.08
 # The estimator forms, (antithetic, with_cv), beside the plain one.
 FORMS = ((True, False), (False, True), (True, True))
-# The strip's batched fit against one strike's, in device launches from
-# torch.profiler traces: a fit that looped over the 21 strikes would launch
-# ~21 times as many, and a trace can lose a few records, so the strip's
-# most is held to 1 % over one strike's least.
-FIT_TRACES = 3
+# The strip's batched fit against one strike's, in operators dispatched on
+# CUDA tensors: a fit that looped over the 21 strikes would dispatch ~21
+# times as many, so the strip's count is held to 1 % over one strike's.
 FIT_LAUNCH_SLACK = 0.01
 
 # The quadratic exercise-policy forms: the price runs past the bench horizon
@@ -758,19 +760,67 @@ def k4_split(gc, consts, k4_ms: float, k3_ms: float, n_strikes: int,
                                                  antithetic)}
 
 
-def device_launches(torch, fn) -> int:
-    """Device kernels that fn() launches, from a torch.profiler trace of
-    the device activity alone (host operators are not recorded: they do
-    not count here, and recording tens of thousands of them costs seconds
-    a trace)."""
-    from torch.profiler import ProfilerActivity, profile
+def cuda_ops(torch, fn) -> int:
+    """Operators fn() dispatches with a CUDA tensor among their arguments
+    or results, counted by a TorchDispatchMode as each is dispatched: none
+    is lost, so a run counts the same every time."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in tree_flatten((args, kwargs, out))[0]):
+                self.n += 1
+            return out
+
+    with Count() as count:
         fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    torch.cuda.synchronize()
+    return count.n
+
+
+def k2_split(pc, kernels: list, dev) -> None:
+    """Each K2 entry of the kernels line gains the blocks one SM runs at
+    once of its form (``blocks_per_sm``, the C entry's occupancy query at
+    the block the wrapper picks), the ms of K1 in the same fGN form, dtype
+    and pairing (``k1_ms``) and, where K5 has the form (plain, paired,
+    quadratic), K5's one-strike ms in it (``k5_one_strike_ms``; null for
+    the CV forms), both from this run's entries."""
+    by_name = {k["name"]: k for k in kernels}
+    market = [MARKET[k] for k in ("s0", "xi", "h", "eta", "r")]
+    consts = {}
+    for rec in kernels:
+        name = rec["name"]
+        if name != "priced_chunk" and not name.startswith("K2/"):
+            continue
+        parts = name.split("/")[1:]
+        bf16, spec = "bf16" in parts, "spectral" in parts
+        quad = "quad" in parts
+        anti = "anti" in parts or "anti+cv" in parts
+        cv = "cv" in parts or "anti+cv" in parts
+        base = [p for p, on in (("bf16", bf16), ("spectral", spec)) if on]
+        k1 = "/".join(["K1", *base, *(["anti"] if anti else [])])
+        k5 = "/".join(["K5", *base, *(["anti"] if anti else []),
+                       *(["quad"] if quad else [])])
+        k1 = "pathgen" if k1 == "K1" else k1
+        k5 = "priced_chain" if k5 == "K5" else k5
+        if (bf16, spec) not in consts:
+            consts[bf16, spec] = pc.make_path_consts(
+                *market, N_STEPS, DT, dev,
+                fgn_form="spectral" if spec else "chol",
+                fgn_dtype="bfloat16" if bf16 else "float32")
+        rec["blocks_per_sm"] = pc.priced_blocks_per_sm(
+            consts[bf16, spec], CHUNK, anti, cv,
+            "quadratic" if quad else "boundary")
+        rec["k1_ms"] = by_name[k1]["ms"]
+        rec["k5_one_strike_ms"] = (None if cv
+                                   else by_name[k5]["one_strike_ms"])
 
 
 def plain_chain_means(torch, pc, cc, engine, chain, fits, seed: int,
@@ -854,13 +904,8 @@ def chain_and_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
     launches = read_counts()
     fits, fit_s = timed(torch, lambda: chain.fit(k_pilot))
     _, stream_s = timed(torch, lambda: chain.price_with_fit(fits, SEED))
-    # A trace may drop a few of its ~36,500 device records (repeats of one
-    # fit differ by up to ~10), so each fit is traced FIT_TRACES times.
-    fit_launches = [device_launches(torch, lambda: chain.fit(k_pilot))
-                    for _ in range(FIT_TRACES)]
-    single_fit_launches = [device_launches(torch,
-                                           lambda: pricer.fit(k_pilot))
-                           for _ in range(FIT_TRACES)]
+    fit_ops = cuda_ops(torch, lambda: chain.fit(k_pilot))
+    single_fit_ops = cuda_ops(torch, lambda: pricer.fit(k_pilot))
     checked = chain.price_with_fit(fits, SEED, n_paths=CHAIN_CHECKED * CHUNK)
     checked_plain = plain_chain_means(torch, pc, cc, engine, chain, fits,
                                       SEED, CHAIN_CHECKED)
@@ -873,8 +918,8 @@ def chain_and_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
           "prices": prices.tolist(), "stderrs": stderrs.tolist(),
           "wall_s": wall, "paths_strikes_per_s": n_paths * len(STRIP) / wall,
           "fit_s": fit_s, "stream_s": stream_s, "launches": launches,
-          "fit_device_launches": fit_launches,
-          "single_strike_fit_device_launches": single_fit_launches,
+          "fit_cuda_ops": fit_ops,
+          "single_strike_fit_cuda_ops": single_fit_ops,
           "checked_chunks": CHAIN_CHECKED,
           "checked_rel_err": checked_rel, "rtol": SUM_RTOL,
           "strike": STRIKE, "price_at_strike": p_k,
@@ -889,11 +934,11 @@ def chain_and_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
     check(abs(p_k - price) <= 2.0 * stderr,
           f"strike {STRIKE} of the strip {p_k} is over 2 stderr from the "
           f"single-strike price {price}")
-    check(max(fit_launches)
-          <= (1.0 + FIT_LAUNCH_SLACK) * min(single_fit_launches),
-          f"the strip's fit launches {fit_launches} kernels, over "
+    check(0 < fit_ops
+          <= (1.0 + FIT_LAUNCH_SLACK) * single_fit_ops,
+          f"the strip's fit dispatches {fit_ops} CUDA operators, over "
           f"{FIT_LAUNCH_SLACK:.0%} more than one strike's "
-          f"{single_fit_launches}")
+          f"{single_fit_ops}")
 
     # K3 and K4 against their plain version on the strip's log tables, and
     # K4's columns against K3 per strike.
@@ -1652,7 +1697,7 @@ def estimator_phases(torch, pc, ptc, pfc, engine, smi, dev, key, pricer,
         matmul_ms(c2.lt_half, N_STEPS),
         lambda anti, cv: bound_ms(
             CHUNK, N_STEPS, 4 * (2 if cv else 1)
-            * (CHUNK // pc.priced_block_paths(c2, CHUNK, anti, cv)),
+            * (CHUNK // pc.priced_block_paths(c2, CHUNK, anti)),
             antithetic=anti, with_cv=cv)))
     c7 = pc.make_path_consts(MARKET["s0"], MARKET["xi"], MARKET["h"],
                              MARKET["eta"], MARKET["r"], LONG_STEPS, DT, dev)
@@ -2835,7 +2880,7 @@ def spectral_phases(torch, pc, cc, ptc, engine, smi, dev, key, rel_err,
         key, lambda anti: lib(CHUNK // 2 if anti else CHUNK),
         lambda anti, cv: bound_ms(
             CHUNK, N_STEPS, 4 * (2 if cv else 1)
-            * (CHUNK // pc.priced_block_paths(consts, CHUNK, anti, cv)),
+            * (CHUNK // pc.priced_block_paths(consts, CHUNK, anti)),
             antithetic=anti, with_cv=cv, spectral=True), spectral=True))
     rec = spectral_price_phase(
         torch, pc, engine, smi, "price_spectral", pricer, "K1/spectral",
@@ -3224,7 +3269,7 @@ def quadratic_phases(torch, pc, cc, ptc, pfc, engine, smi, dev, key,
             key, matmul_ms(consts, N_STEPS),
             lambda cv, cells, c=consts, spec=spec: bound_ms(
                 CHUNK, N_STEPS, 4 * (2 if cv else 1)
-                * (CHUNK // pc.priced_block_paths(c, CHUNK, False, cv)),
+                * (CHUNK // pc.priced_block_paths(c, CHUNK)),
                 policy_rows=8, with_cv=cv, spectral=spec, quad_cells=cells),
             pc._log_paths_ref, spec))
     for f, consts in slab.items():
@@ -3691,7 +3736,7 @@ def bf16_phases(torch, pc, ptc, engine, lsm_fit, smi, dev, key,
          pc.priced_chunk, pc.priced_chunk_from_noise_ref, "price_bf16",
          N_CHUNKS, refs["price"], "price_float32",
          lambda consts, anti, cv: CHUNK // pc.priced_block_paths(
-             consts, CHUNK, anti, cv)),
+             consts, CHUNK, anti)),
         (LONG_STEPS, LONG_MATURITY, "tiled", "K6", "K7", ptc.tiled_pathgen,
          ptc.tiled_priced_chunk, ptc.priced_chunk_from_noise_ref,
          "price_bf16_long", BF16_LONG_CHECKED, refs["price_long"],
@@ -3911,7 +3956,7 @@ def bf16_later_phases(torch, pc, ptc, pfc, engine, lsm_fit, smi, dev, key,
              "price_bf16_spectral", refs["price_spectral"],
              "price_spectral_float32",
              lambda c, anti, cv: CHUNK // pc.priced_block_paths(
-                 c, CHUNK, anti, cv)),
+                 c, CHUNK, anti)),
             (LONG_STEPS, m, {"fgn_form": "spectral", "tiled_impl": "slab"},
              "K6", "K7", ptc.tiled_pathgen, ptc.tiled_priced_chunk,
              ptc.priced_chunk_from_noise_ref, "price_bf16_spectral_slab",
@@ -3978,8 +4023,7 @@ def bf16_later_phases(torch, pc, ptc, pfc, engine, lsm_fit, smi, dev, key,
     # -- The chol bodies' quadratic forms: K2 at 365, K7 at 1825.
     for n, k_priced, priced, blocks in (
             (N_STEPS, "K2", pc.priced_chunk,
-             lambda c, cv: CHUNK // pc.priced_block_paths(c, CHUNK, False,
-                                                          cv)),
+             lambda c, cv: CHUNK // pc.priced_block_paths(c, CHUNK)),
             (LONG_STEPS, "K7", ptc.tiled_priced_chunk,
              lambda c, cv: CHUNK // ptc.block_paths_for(CHUNK))):
         consts = pc.make_path_consts(*market, n, DT, dev,
@@ -4356,7 +4400,7 @@ def bf16_chain_greeks_phases(torch, pc, cc, gc, engine, smi, dev, key,
     """The bf16 forms of K5 and K3/K4 (``fgn_matmul_dtype="bfloat16"``):
     ``chain_bf16`` prices the 21-strike strip at 1e7 x 365 through K1/bf16
     once and K5/bf16 76 times (``chain_price``'s checks but the fit
-    traces: strike 105 within 2 stderr of ``price_bf16`` and 5 combined
+    count: strike 105 within 2 stderr of ``price_bf16`` and 5 combined
     stderr of the float32 strip); ``bf16_chain_forms`` holds the six
     K5/bf16 forms at 365 steps and plain and paired at 512 against their
     plain versions (``bf16_strip_forms``); ``bf16_greeks_forms`` K3/bf16,
@@ -4701,6 +4745,105 @@ def roofline_phase(torch, rl, smi, dev, kernels: list, reset_counts,
                           / PEAK_BF16_FLOPS * 1e3)]
 
 
+def k2_forms_main(root: Path) -> int:
+    """``python3 chip_smoke.py --k2-forms [ROOT]``: K2 in each of its 24
+    forms (float32 and bf16, chol and spectral, the four boundary forms
+    and the two quadratic ones) on the bench option's fitted tables at
+    131,072 rows and 365 steps, seeded, with the package of the checkout at
+    ROOT (default: this script's): each form's ms (CUDA events, the mean
+    of 10 launches after a warm one), its lanes' relative error against
+    the plain version on the same seed and its block, beside K1's ms in
+    each fGN form, dtype and pairing and K5's one-strike ms in its
+    plain, paired and quadratic forms.  Prints one JSON line; run it on
+    two checkouts in one call, in turns, to compare them."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root.resolve()))
+    from montecarlooptionspricer_tpu_torch.kernels import build
+    from montecarlooptionspricer_tpu_torch.models import chain_cuda as cc
+    from montecarlooptionspricer_tpu_torch.models import engine
+    from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
+
+    check(Path(pc.__file__).resolve().is_relative_to(root.resolve()),
+          f"imported {pc.__file__}, not the checkout at {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load()
+    dev = torch.device("cuda", 0)
+    market = [MARKET[k] for k in ("s0", "xi", "h", "eta", "r")]
+    cfg = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
+                              chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                              chunks_per_call=N_CHUNKS)
+    pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                    maturity=MATURITY, is_call=IS_CALL,
+                                    config=cfg, device=dev)
+    fits = pricer.fit(engine._pilot_stream_keys(SEED)[0])
+    s_table = pc.boundary_rows(fits, MARKET["r"], STRIKE, MATURITY, DT,
+                               N_STEPS, IS_CALL).contiguous()
+    tables = {"boundary": pc.log_boundary_rows(s_table).contiguous(),
+              "quadratic": pc.policy_rows(fits, MARKET["r"], STRIKE,
+                                          MATURITY, DT, N_STEPS,
+                                          IS_CALL).contiguous()}
+    key = pc._fold_words(12345, 7)
+    forms, k1, k5 = [], {}, {}
+    for bf16 in (False, True):
+        for spec in (False, True):
+            consts = pc.make_path_consts(
+                *market, N_STEPS, DT, dev,
+                fgn_form="spectral" if spec else "chol",
+                fgn_dtype="bfloat16" if bf16 else "float32")
+            for anti in (False, True):
+                k1[pc.form_name(anti, spectral=spec, bf16=bf16)] = time_ms(
+                    torch, lambda: pc.pathgen(consts, rows=CHUNK, key=key,
+                                              antithetic=anti), 10)
+            for anti, quad in ((False, False), (True, False), (False, True)):
+                policy = "quadratic" if quad else "boundary"
+                one = (tables[policy] if quad else s_table)[None]
+                k5[pc.form_name(anti, False, spec, quad, bf16)] = time_ms(
+                    torch, lambda: cc.priced_chain(
+                        consts, one, IS_CALL, rows=CHUNK, key=key,
+                        antithetic=anti, policy_form=policy), 10)
+            for anti, cv, quad in ((False, False, False),
+                                   (True, False, False),
+                                   (False, True, False), (True, True, False),
+                                   (False, False, True), (False, True, True)):
+                policy = "quadratic" if quad else "boundary"
+                table = tables[policy]
+
+                def run():
+                    return pc.priced_chunk(
+                        consts, table, STRIKE, IS_CALL, rows=CHUNK, key=key,
+                        antithetic=anti, with_cv=cv, policy_form=policy)
+
+                got = run()
+                noise = pc.normals_ref(consts, key,
+                                       CHUNK // 2 if anti else CHUNK,
+                                       device=dev)
+                want = pc.priced_chunk_from_noise_ref(
+                    consts, table, noise, STRIKE, IS_CALL, anti, cv, policy)
+                del noise
+                got, want = (got, want) if cv else ((got,), (want,))
+                rec = {"form": pc.form_name(anti, cv, spec, quad, bf16),
+                       "ms": time_ms(torch, run, 10),
+                       "rel_err": [abs(float(g) / float(w) - 1.0)
+                                   for g, w in zip(got, want)],
+                       "block_paths": pc.priced_block_paths(consts, CHUNK,
+                                                            anti)}
+                if hasattr(pc, "priced_blocks_per_sm"):
+                    rec["blocks_per_sm"] = pc.priced_blocks_per_sm(
+                        consts, CHUNK, anti, cv, policy)
+                forms.append(rec)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    emit({"k2_forms": forms, "k1_ms": k1, "k5_one_strike_ms": k5,
+          "root": str(root), "card": smi})
+    return 0
+
+
 def main() -> int:
     _START[0] = time.perf_counter()
     import torch
@@ -4876,7 +5019,7 @@ def main() -> int:
     lib_ms = time_ms(torch, lambda: torch.matmul(a, lt), reps=20)
     k1_b, k1_by = bound_ms(PILOT, N_STEPS, 4 * PILOT * (N_STEPS + 1))
     k2_b, k2_by = bound_ms(CHUNK, N_STEPS,
-                           4 * (CHUNK // consts.block_paths))
+                           4 * (CHUNK // pc.priced_block_paths(consts, CHUNK)))
     k1_ms, k2_ms = time_ms(torch, k1, 10), time_ms(torch, k2, 10)
     kernels = [
         kernel_record("pathgen", launches, k1_ms, time_ms(torch, k1_plain, 3),
@@ -4983,6 +5126,7 @@ def main() -> int:
          "chain_greeks": greeks32[1]}, reset_counts, read_counts)
     kernels += roofline_phase(torch, rl, smi, dev, kernels, reset_counts,
                               read_counts)
+    k2_split(pc, kernels, dev)
     check(sorted(k["name"] for k in kernels) == sorted(REPLACES),
           "the kernels line does not list every kernel and form")
     emit({"kernels": kernels})
@@ -4994,6 +5138,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--k2-forms"]:
+            sys.exit(k2_forms_main(Path(sys.argv[2]) if len(sys.argv) > 2
+                                   else Path(__file__).resolve().parent))
         sys.exit(main())
     except SmokeError as e:
         print(f"error: {e}", file=sys.stderr)

@@ -1,8 +1,8 @@
 // The single-tile path block shared by K1, K2 (csrc/pathgen.cu), K5
 // (csrc/chain.cu), K3 and K4 (csrc/greeks.cu): a block of BP = 16 * PM
 // paths keeps its N noise plane (and Zi under the spectral form) in
-// dynamic shared memory for the whole horizon, with its W plane (K1, K2)
-// or without it (K5, K3/K4 draw W per tile), and the step axis runs in
+// dynamic shared memory for the whole horizon, with its W plane (K1) or
+// without it (K2, K5, K3/K4 draw W per tile), and the step axis runs in
 // tiles of kTileCols columns.
 //
 // load_noise fills the planes from the seeded stream (csrc/philox.cuh) or
@@ -70,9 +70,10 @@ __device__ __forceinline__ fgn_elem<BF16> to_fgn_elem(float v) {
 }
 
 // Floats of shared memory `tiles` staged factor tiles take (one per
-// product; two under SPEC: Cr' and Ci').
-__host__ __device__ constexpr int staged_floats(int tiles, bool bf16) {
-  return tiles * (bf16 ? kTileCols * kTileKB / 2 : kTileK * kTileCols);
+// product; two under SPEC: Cr' and Ci'), of tk rows each in float32.
+__host__ __device__ constexpr int staged_floats(int tiles, bool bf16,
+                                                int tk = kTileK) {
+  return tiles * (bf16 ? kTileCols * kTileKB / 2 : tk * kTileCols);
 }
 
 // Floats of shared memory the N plane of bp rows takes.
@@ -87,8 +88,8 @@ __host__ __device__ inline int n_plane_floats(int n, int bp, bool bf16) {
 // from the stream's own counter word (spectral_zi_quad).  Under BF16 the
 // N plane (and Zi under SPEC) is bf16 [BP][plane_ld_bf16(n)], each normal
 // rounded to nearest even, and its columns past n are zero (the
-// tensor-core product reads whole k16 steps).  Without WITH_W (K5, K3/K4:
-// csrc/strip_sweep.cuh:tile_w_pair draws W per tile) no W plane is
+// tensor-core product reads whole k16 steps).  Without WITH_W (K2, K5,
+// K3/K4: csrc/strip_sweep.cuh:tile_w_pair draws W per tile) no W plane is
 // written and ws may be null.
 template <int BP, bool SEEDED, bool SPEC = false, bool BF16 = false,
           bool WITH_W = true>
@@ -227,9 +228,10 @@ __device__ void fgn_tile_mma(const __nv_bfloat16* m0, const __nv_bfloat16* m1,
 // out_m[p * kXStride + cc] = sum_{k <= c} N[p, k] * m_m[k, c] for
 // c = c0 + cc < min(c0 + kTileCols, n), zero past n.  Each thread holds a
 // PM x kColsPerThread micro-tile per factor; the factors are staged through
-// shared memory (lts, NMAT * kTileK * kTileCols floats) kTileK rows at a
-// time, and rows past the tile's last column are skipped (the factors are
-// upper triangular).
+// shared memory (lts, NMAT * TK * kTileCols floats) TK rows at a time
+// (kTileK, or fewer where a block needs the room; the sums run k ascending
+// whatever TK, so X is the same bits), and rows past the tile's last
+// column are skipped (the factors are upper triangular).
 // SPEC (NMAT 1): the spectral product out0 = sum_{k < n} Zr[p, k] m0[k, c]
 // - Zi[p, k] m1[k, c], Zr in ns and Zi in zs, m0 = Cr' and m1 = Ci' both
 // staged (2 * kTileK * kTileCols floats).  Cr' and Ci' are dense, so every
@@ -237,12 +239,14 @@ __device__ void fgn_tile_mma(const __nv_bfloat16* m0, const __nv_bfloat16* m1,
 // BF16: the tensor-core products of fgn_tile_mma (m0 = Lt' and, NMAT 2,
 // m1 = dLt'; or Cr' and m1 = Ci' under SPEC; ns, zs and lts bf16).
 // Ends with the tile written and the block synchronised.
-template <int PM, int NMAT, bool SPEC = false, bool BF16 = false>
+template <int PM, int NMAT, bool SPEC = false, bool BF16 = false,
+          int TK = kTileK>
 __device__ void fgn_tile(const fgn_elem<BF16>* m0, const fgn_elem<BF16>* m1,
                          int n, int c0, const fgn_elem<BF16>* ns,
                          fgn_elem<BF16>* lts, float* out0, float* out1,
                          const fgn_elem<BF16>* zs = nullptr) {
   static_assert(!SPEC || NMAT == 1, "the spectral product has one output");
+  static_assert(!BF16 || TK == kTileK, "the bf16 product stages kTileK");
   if constexpr (BF16) {
     fgn_tile_mma<PM, SPEC, NMAT>(m0, m1, n, c0, ns, zs, lts, out0, out1);
   } else {
@@ -262,17 +266,17 @@ __device__ void fgn_tile(const fgn_elem<BF16>* m0, const fgn_elem<BF16>* m1,
 #pragma unroll
         for (int j = 0; j < kColsPerThread; ++j) acc[m][i][j] = 0.0f;
 
-    for (int k0 = 0; k0 < kmax; k0 += kTileK) {
-      const int kn = min(kTileK, kmax - k0);
+    for (int k0 = 0; k0 < kmax; k0 += TK) {
+      const int kn = min(TK, kmax - k0);
       __syncthreads();  // previous users of lts (and the out tiles) are done
-      for (int idx = tid; idx < kTileK * kTileCols; idx += kThreads) {
+      for (int idx = tid; idx < TK * kTileCols; idx += kThreads) {
         const int kk = idx / kTileCols, cc = idx - kk * kTileCols;
         const int c = c0 + cc;
         const bool in = kk < kn && c < n;
         const size_t g = static_cast<size_t>(k0 + kk) * n + c;
 #pragma unroll
         for (int m = 0; m < kStaged; ++m)
-          lts[m * kTileK * kTileCols + idx] = in ? mats[m][g] : 0.0f;
+          lts[m * TK * kTileCols + idx] = in ? mats[m][g] : 0.0f;
       }
       __syncthreads();
       for (int kk = 0; kk < kn; ++kk) {
@@ -281,7 +285,7 @@ __device__ void fgn_tile(const fgn_elem<BF16>* m0, const fgn_elem<BF16>* m1,
         for (int m = 0; m < kStaged; ++m)
 #pragma unroll
           for (int j = 0; j < kColsPerThread; ++j)
-            b[m][j] = lts[m * kTileK * kTileCols + kk * kTileCols + tx +
+            b[m][j] = lts[m * TK * kTileCols + kk * kTileCols + tx +
                           kColGroups * j];
 #pragma unroll
         for (int i = 0; i < PM; ++i) {

@@ -55,21 +55,20 @@
 // The antithetic forms run the product once per pair: half of that.
 // The QUAD forms add, per cell up to the path's first hit, the exp of the
 // price and ~10 operations of the policy, at most 4.8e7 x 30 operations a
-// chunk (0.02 ms at the peak), on the one-thread-per-path running sum.
+// chunk (0.02 ms at the peak).
 // The spectral product is two dense [n, n] products, 2 n^2 multiply-adds
 // per path (266k at n = 365, four times the triangle): 1.05 ms at 131072
 // paths, 0.53 ms paired.
 // The bf16 form runs the triangle on the tensor cores (989 TFLOP/s dense
 // bf16): 0.02 ms of product at 131072 paths (the spectral form's two dense
-// products 0.07 ms), so the exp, the Box-Muller draws and the serial
-// running sum bound it.
+// products 0.07 ms), so the exp, the Box-Muller draws and the running sum
+// bound it.
 //
 // Design:
-// * One block of 256 threads owns BP = 16*PM paths (64, 32 or 16, the
-//   largest whose planes fit the 227 KB of shared memory).  Its N and W
-//   planes live in dynamic shared memory for the whole block (row stride
-//   n rounded up to odd, so the rows of a warp fall on distinct banks);
-//   paths never touch device memory in K2.
+// * One block of 256 threads owns BP = 16*PM paths (64, 32 or 16).  Its N
+//   plane (and Zi) lives in dynamic shared memory for the whole block
+//   (row stride n rounded up to odd, so the rows of a warp fall on
+//   distinct banks); paths never touch device memory in K2.
 // * The TPU grid ran blocks in order on one core; here blocks are
 //   independent.  The seeded stream depends only on the global row index
 //   and the step (Philox4x32-10 counter = (row, step pair, 0, 0), key =
@@ -80,42 +79,70 @@
 //   micro-tile; Lt' staged through shared memory 32 rows at a time; the
 //   triangle is used: rows past the tile's last column are skipped), then
 //   the variance exp and Euler increment elementwise over the tile with all
-//   threads, then the running sum and the first-hit test with one thread
-//   per path.  The TPU's triangular-matmul cumsum and min-index reduction
-//   become that sequential loop; padded steps are never computed.
-// * Antithetic blocks hold BP/2 drawn rows of N and W (the product's
-//   micro-tile maps 16*PM drawn rows onto the 256 threads, so a paired
-//   block of 32*PM paths reuses the unpaired block's product of 16*PM) and
-//   an X tile of BP paths: the elementwise pass writes both members'
-//   increments from one x and one w.  Halving the planes lets a 128-path
-//   paired block fit at 365 steps (229,376 bytes).  A paired K1 block
-//   draws the same (global drawn row, step pair) counters as a paired K2
-//   block, so one key gives both kernels the same pairs, and it writes its
+//   threads, then the running log price with one thread per path.  Padded
+//   steps are never computed.
+// * K1 keeps a W plane [BP][ld] resident beside N and carries its running
+//   sum from log s0; the block size (max_block_paths in models/
+//   pathgen_cuda.py) sets the single-tile family's range.
+// * K2 (priced_kernel) keeps no W plane: the Euler pass takes each tile's
+//   W per step pair, redrawn from the seeded stream at the counter
+//   load_noise uses, or read from the injected plane
+//   (csrc/strip_sweep.cuh:tile_w_pair), so W is bitwise K1's.  Its log
+//   price is log s0 plus the running sum of the increments, JAX's
+//   association (log_s0 + the cumsum matmul) and the plain version's.
+//   Without W the bf16 chol block at 365 steps takes 69,888 bytes, so
+//   three share an SM, and the float32 chol block, staging Lt' 16 rows a
+//   pass (priced_tile_k), 114,176, so two do (__launch_bounds__ per form,
+//   priced_kernel).  K2's block is its own (models/pathgen_cuda.py
+//   priced_block_paths: the largest that fits, below measured caps).
+// * K2's decision, JAX's min-index reduction over columns
+//   (_priced_log_subvals:589, _policy_value:277), runs as a parallel pass
+//   once the tile's log prices stand: warp w owns paths w, w + 8, ...
+//   (BP / 8 of them), and lane l tests columns l and l + 32.  For each path
+//   the warp takes two ballots (columns 0-31, then 32-63: bit order is
+//   column order), all with no branch; then, for each path that had not
+//   stopped and hits in this tile (one warp-uniform branch), first_hit
+//   gives the column, the hit column's lane supplies its log price (or
+//   price) by shuffle, and lane j keeps path j's value.  A path stopped in
+//   an earlier tile is masked; no thread walks columns one by one and
+//   nothing exits early.  The boundary forms test llo <= logS <= lhi in log
+//   space and take the exp only for the hit; the QUAD forms take exp of
+//   each lane's two columns once per tile and test quad_exercise's
+//   arithmetic (IEEE division, as _policy_value divides), z and the
+//   polynomial only for a path some lane's column pays on, and skip a
+//   stopped path.
+// * The rows the decision reads for the tile's 64 columns (llo, lhi and
+//   disc, or the eight policy_rows rows under QUAD) are copied with
+//   cp.async into the staged factor tiles' room once the tile's product is
+//   done with it, and waited for after the running sum, so the copy
+//   overlaps the Euler pass and takes no shared memory of its own.
+// * K2's partial sums are reduced in a fixed order through the X tile: no
+//   atomics.  Shared memory (priced_smem_bytes): the planes, one X tile of
+//   every member and the staged factor tiles, in either policy.
+// * Antithetic blocks hold BP/2 drawn rows of N (and W in K1) (the
+//   product's micro-tile maps 16*PM drawn rows onto the 256 threads, so a
+//   paired block of 32*PM paths reuses the unpaired block's product of
+//   16*PM) and an X tile of BP paths: the elementwise pass writes both
+//   members' increments from one x and one w.  A paired K1 block draws
+//   the same (global drawn row, step pair) counters as a paired K2 block,
+//   so one key gives both kernels the same pairs, and it writes its
 //   partner rows `drawn` rows below the drawn ones (member_row).
-// * The spectral form (SPEC, from the ci pointer) keeps a third plane, Zi,
-//   beside Zr (in the N plane) and W, and stages Cr' and Ci' k-tiles side
-//   by side; every column tile sums over all n rows, the matrices being
-//   dense.  Three planes at 365 steps fit 32 paths (64 members paired),
-//   not 64.  Its seeded Zr and W are the chol stream's N and W and its Zi
+// * The spectral form (SPEC, from the ci pointer) keeps a second plane,
+//   Zi, beside Zr (in the N plane), and stages Cr' and Ci' k-tiles side by
+//   side; every column tile sums over all n rows, the matrices being
+//   dense.  Its seeded Zr and W are the chol stream's N and W and its Zi
 //   the stream's own counter word (csrc/philox.cuh), drawn by K1 and K2
 //   alike, so one key gives both the same paths and pairs.
-// * The QUAD forms test the quadratic in the same one-thread-per-path loop
-//   as the running sum: a path takes exp and the policy's seven table rows
-//   (through the read-only cache, __ldg) at each step until its first hit,
-//   then only the running sum (kept for the control lane).  The tables stay
-//   in device memory; shared memory is the boundary forms'.
 // * The bf16 form (BF16) keeps its N plane in bf16 (each normal rounded to
-//   nearest even, the stride padded to whole k16 steps with zeros) beside
-//   the float32 W plane, and each warp runs 8 columns of the 64-column
-//   tile as m16n8k16 tensor-core products with float32 sums
-//   (csrc/fgn_tile.cuh:fgn_tile_mma), skipping the k16 steps past its
-//   last column.  Under SPEC both Zr and Zi are bf16 planes (zero past
-//   n), Cr' and Ci' k-tiles are staged side by side, and the dense product
-//   runs every k < n with the Zi fragment negated into the one
-//   accumulator.  The variance exp, the Euler increment, the running sum,
-//   the first-hit test and the QUAD policy are the float32 form's.  A
-//   pair's partner is -x to the bit, as in the float32 form.  It keeps
-//   the float32 form's path blocks (its planes take less shared memory).
+//   nearest even, the stride padded to whole k16 steps with zeros), and
+//   each warp runs 8 columns of the 64-column tile as m16n8k16 tensor-core
+//   products with float32 sums (csrc/fgn_tile.cuh:fgn_tile_mma), skipping
+//   the k16 steps past its last column.  Under SPEC both Zr and Zi are
+//   bf16 planes (zero past n), Cr' and Ci' k-tiles are staged side by
+//   side, and the dense product runs every k < n with the Zi fragment
+//   negated into the one accumulator.  W, the variance exp, the Euler
+//   increment, the running sum and the decision are the float32 form's.
+//   A pair's partner is -x to the bit, as in the float32 form.
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise and / stays IEEE
 //   division, so the plain PyTorch versions agree to a few ulp per cell.
 
@@ -125,6 +152,7 @@
 #include "build_unit.cuh"
 #include "fgn_tile.cuh"
 #include "quad_policy.cuh"
+#include "strip_sweep.cuh"
 
 namespace {
 
@@ -171,12 +199,10 @@ __device__ __forceinline__ size_t member_row(int drawn, int row0, int p) {
                                             : row0 + p);
 }
 
-// Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members (ANTI:
-// member p < D is drawn row p, member D + p its partner).  CV adds the
-// control lane, SPEC the spectral fGN form, QUAD the quadratic policy,
-// BF16 the bf16 fGN-input form.
-template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC,
-          bool QUAD, bool BF16>
+// K1.  Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members
+// (ANTI: member p < D is drawn row p, member D + p its partner).  SPEC the
+// spectral fGN form, BF16 the bf16 fGN-input form.
+template <int PM, bool SEEDED, bool ANTI, bool SPEC, bool BF16>
 __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
   constexpr int D = 16 * PM;
   constexpr int BP = ANTI ? 2 * D : D;
@@ -191,23 +217,16 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
   E* lts = reinterpret_cast<E*>(xs + BP * kXStride);
                                           // [1 or 2][kTileK][kTileCols];
                                           // bf16: [kTileCols][kTileKB]
-  float* red = xs + BP * kXStride + staged_floats(SPEC ? 2 : 1, BF16);
-                                          // [BP], and [BP] more under CV
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * D;        // first drawn row
 
   load_noise<D, SEEDED, SPEC, BF16>(a.noise, a.drawn, n, a.key, row0, ns, ws,
                                     zs);
-  if (!PRICED) {
-    for (int p = tid; p < BP; p += kThreads)
-      a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1)] = a.s0;
-  }
+  for (int p = tid; p < BP; p += kThreads)
+    a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1)] = a.s0;
 
-  // Per-path state, held by thread p < BP across tiles.
-  float ls = a.log_s0;
-  bool stopped = false;
-  float val = 0.0f;
+  float ls = a.log_s0;   // running log price of path tid < BP
 
   for (int c0 = 0; c0 < n; c0 += kTileCols) {
     const int kmax = min(c0 + kTileCols, n);
@@ -233,61 +252,252 @@ __global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
     }
     __syncthreads();
 
-    // Running sum (and the first-hit test) along the tile, one thread per
-    // path.
+    // Running sum along the tile, one thread per path.
     if (tid < BP) {
       float* xp = &xs[tid * kXStride];
       for (int cc = 0; cc < cn; ++cc) {
         ls += xp[cc];
-        if (PRICED && QUAD) {
-          if (!stopped)
-            stopped = quad_exercise(a.tab, a.tstride, c0 + cc, expf(ls),
-                                    a.is_call, &val);
-        } else if (PRICED) {
-          const int c = c0 + cc;
-          if (!stopped && ls >= a.llo[c] && ls <= a.lhi[c]) {
-            stopped = true;
-            const float s = expf(ls);
-            const float pay = a.is_call ? s - a.strike : a.strike - s;
-            val = a.disc[c] * fmaxf(pay, 0.0f);
-          }
-        } else {
-          xp[cc] = ls;
-        }
+        xp[cc] = ls;
       }
     }
 
-    if (!PRICED) {
-      __syncthreads();
-      for (int idx = tid; idx < BP * kTileCols; idx += kThreads) {
-        const int p = idx / kTileCols, cc = idx - p * kTileCols;
-        if (cc < cn)
-          a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1) + c0 + cc +
-                1] = expf(xs[p * kXStride + cc]);
-      }
-    }
-  }
-
-  if (PRICED) {
-    if (tid < BP) {
-      red[tid] = val;
-      if (CV) red[BP + tid] = expf(ls);  // ls is the terminal log price
-    }
     __syncthreads();
-    if (tid == 0) {
-      float sum = 0.0f;
-      for (int p = 0; p < BP; ++p) sum += red[p];
-      a.out[blockIdx.x] = sum;
-      if (CV) {
-        float cv = 0.0f;
-        for (int p = 0; p < BP; ++p) cv += red[BP + p];
-        a.out[gridDim.x + blockIdx.x] = a.cv_disc * cv;
-      }
+    for (int idx = tid; idx < BP * kTileCols; idx += kThreads) {
+      const int p = idx / kTileCols, cc = idx - p * kTileCols;
+      if (cc < cn)
+        a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1) + c0 + cc +
+              1] = expf(xs[p * kXStride + cc]);
     }
   }
 }
 
-// Shared memory of a block of bp paths (pair members when antithetic).
+// Rows K2's decision reads per tile: llo, lhi and disc, or the eight
+// policy_rows rows under the quadratic policy.
+__host__ __device__ constexpr int priced_rows(bool quad) {
+  return quad ? 8 : 3;
+}
+
+// Rows of Lt' K2 stages per pass of its float32 product: 16 for the
+// unpaired chol block, whose shared memory then fits two blocks an SM at
+// 365 steps (the product's sums run k ascending whatever the depth, so X
+// is the same bits), else kTileK.
+__host__ __device__ constexpr int priced_tile_k(bool anti, bool spec,
+                                                bool bf16) {
+  return !anti && !spec && !bf16 ? 16 : kTileK;
+}
+
+// Copy rows 0 .. rows - 1 of a table (row r at row(r)) for the tile's
+// columns c0 .. c0 + cn - 1 into tab [rows][kTileCols], asynchronously;
+// cp_async_wait_all and a barrier make them visible.  Columns past cn are
+// left as they were.
+template <class Row>
+__device__ __forceinline__ void stage_rows(int rows, Row row, int c0, int cn,
+                                           float* tab) {
+  for (int idx = threadIdx.x; idx < rows * kTileCols; idx += kThreads) {
+    const int r = idx / kTileCols, cc = idx - r * kTileCols;
+    if (cc >= cn) continue;
+    const unsigned dst =
+        static_cast<unsigned>(__cvta_generic_to_shared(tab + idx));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                 "l"(row(r) + c0 + cc)
+                 : "memory");
+  }
+}
+
+// K2.  Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members
+// (ANTI, as K1's).  CV adds the control lane, SPEC the spectral fGN form,
+// QUAD the quadratic policy, BF16 the bf16 fGN-input form.  The launch
+// bounds' minimum of blocks an SM caps the registers (128 a thread at 2,
+// 80 at 3): at 365 steps three bf16 blocks fit an SM, but the paired chol
+// one (two), and two float32 unpaired chol blocks or three paired ones;
+// the float32 spectral ones fit one.
+template <int PM, bool SEEDED, bool ANTI, bool CV, bool SPEC, bool QUAD,
+          bool BF16>
+__global__ void __launch_bounds__(kThreads,
+                                  BF16 && (SPEC || !ANTI) ? 3 : 2)
+    priced_kernel(Args a) {
+  constexpr int D = 16 * PM;
+  constexpr int BP = ANTI ? 2 * D : D;
+  constexpr int kPaths = BP / kWarps;     // paths each warp decides
+  constexpr int kHalf = kTileCols / 2;
+  constexpr int TK = priced_tile_k(ANTI, SPEC, BF16);
+  static_assert(staged_floats(1, BF16, TK) >= 8 * kTileCols,
+                "the staged rows live in the factor tiles' room");
+  using E = fgn_elem<BF16>;
+  extern __shared__ float smem[];
+  const int n = a.n;
+  const int npf = n_plane_floats(n, D, BF16);
+  E* ns = reinterpret_cast<E*>(smem);     // [D][ld] N (Zr); bf16: [D][ldn]
+  E* zs = reinterpret_cast<E*>(smem + npf);   // the same, Zi under SPEC
+  float* xs = smem + (SPEC ? 2 : 1) * npf;    // [BP][kXStride]
+  E* lts = reinterpret_cast<E*>(xs + BP * kXStride);
+                                          // [1 or 2][TK][kTileCols];
+                                          // bf16: [kTileCols][kTileKB]
+  // [priced_rows][kTileCols]: the decision's rows, staged in the factor
+  // tiles' room once the tile's product is done with it.
+  float* tab = xs + BP * kXStride;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int row0 = blockIdx.x * D;        // first drawn row
+  load_noise<D, SEEDED, SPEC, BF16, false>(a.noise, a.drawn, n, a.key, row0,
+                                           ns, nullptr, zs);
+
+  float cum = 0.0f;   // running sum of the log increments, thread tid < BP
+  // Bit j: path warp + kWarps * j has stopped (warp-uniform); lane j keeps
+  // that path's value.
+  unsigned stopped = 0u;
+  float val = 0.0f;
+
+  for (int c0 = 0; c0 < n; c0 += kTileCols) {
+    const int cn = min(c0 + kTileCols, n) - c0;
+    __syncthreads();   // the last tile's decision is done with tab and xs
+    fgn_tile<PM, 1, SPEC, BF16, TK>(static_cast<const E*>(a.lt),
+                                    static_cast<const E*>(a.ci), n, c0, ns,
+                                    lts, xs, nullptr, zs);
+    if constexpr (QUAD)
+      stage_rows(priced_rows(true),
+                 [&](int r) { return a.tab + r * a.tstride; }, c0, cn, tab);
+    else
+      stage_rows(priced_rows(false), [&](int r) {
+        return r == 0 ? a.llo : r == 1 ? a.lhi : a.disc;
+      }, c0, cn, tab);
+
+    // Variance exp and Euler increment of each step pair (both members of
+    // a pair from one x and one w), W drawn or read here.
+    for (int idx = tid; idx < D * kHalf; idx += kThreads) {
+      const int q = idx / kHalf, cc = 2 * (idx - q * kHalf);
+      if (cc >= cn) continue;
+      float w[2];
+      tile_w_pair<SEEDED, SPEC>(a.noise, a.drawn, n, a.key, row0 + q, c0 + cc,
+                                w);
+      float* xp = &xs[q * kXStride + cc];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        if (cc + t < cn) {
+          const float x = xp[t];
+          xp[t] = euler_inc(a, x, w[t], c0 + cc + t);
+          if (ANTI)
+            xp[D * kXStride + t] = euler_inc(a, -x, -w[t], c0 + cc + t);
+        }
+      }
+    }
+    __syncthreads();
+
+    // Running log price along the tile, one thread per path: log s0 plus
+    // the running sum of the increments.
+    if (tid < BP) {
+      float* xp = &xs[tid * kXStride];
+      for (int cc = 0; cc < cn; ++cc) {
+        cum += xp[cc];
+        xp[cc] = a.log_s0 + cum;
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // The decision: lanes on columns, the warp over its paths.  The lane's
+    // rows at its two columns are read once per tile.
+    const bool valid[2] = {lane < cn, lane + 32 < cn};
+    float lo[2], hi[2];
+    QuadRows q[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (QUAD) {
+        q[h] = quad_rows(tab, kTileCols, lane + 32 * h);
+      } else {
+        lo[h] = tab[lane + 32 * h];
+        hi[h] = tab[kTileCols + lane + 32 * h];
+      }
+    }
+    // Path p's ballots b over the tile (bit l of b[h]: column l + 32 h
+    // exercises) and the lane's values x at its columns: the log price, or
+    // under QUAD the price.
+    auto ballots = [&](int p, unsigned b[2], float x[2]) {
+      const float* xp = &xs[p * kXStride + lane];
+      if constexpr (QUAD) {
+        // quad_exercise's test, p > eps and p >= cont; z and the
+        // polynomial only where a lane's column pays over eps.
+        float pay[2];
+        bool over[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          x[h] = expf(xp[32 * h]);
+          pay[h] = quad_payoff(x[h], q[h].strike, a.is_call);
+          over[h] = valid[h] & (pay[h] > q[h].eps);
+        }
+        if (__any_sync(kFullMask, over[0] | over[1])) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            b[h] = __ballot_sync(
+                kFullMask, over[h] & (pay[h] >= quad_rows_cont(q[h], x[h])));
+        } else {
+          b[0] = b[1] = 0u;
+        }
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          x[h] = xp[32 * h];
+          b[h] = __ballot_sync(kFullMask,
+                               valid[h] & (x[h] >= lo[h]) & (x[h] <= hi[h]));
+        }
+      }
+    };
+    unsigned hits = 0u;
+#pragma unroll
+    for (int j = 0; j < kPaths; ++j) {
+      // A stopped path's exps and quadratics are skipped (warp-uniform);
+      // the boundary test costs less than the branch.
+      if (QUAD && ((stopped >> j) & 1u)) continue;
+      unsigned b[2];
+      float x[2];
+      ballots(warp + kWarps * j, b, x);
+      hits |= (b[0] | b[1]) != 0u ? 1u << j : 0u;
+    }
+    hits &= ~stopped;
+    stopped |= hits;
+    while (hits != 0u) {   // the paths whose first hit is in this tile
+      const int j = __ffs(hits) - 1;
+      hits &= hits - 1u;
+      unsigned b[2];
+      float x[2];
+      ballots(warp + kWarps * j, b, x);
+      const int c = first_hit(b[0], b[1]);
+      const float xc = __shfl_sync(kFullMask, c < 32 ? x[0] : x[1], c & 31);
+      if (lane == j) {
+        if constexpr (QUAD) {
+          val = __fmul_rn(
+              quad_payoff(xc, tab[7 * kTileCols + c], a.is_call),
+              tab[6 * kTileCols + c]);
+        } else {
+          const float s = expf(xc);
+          const float pay = a.is_call ? s - a.strike : a.strike - s;
+          val = tab[2 * kTileCols + c] * fmaxf(pay, 0.0f);
+        }
+      }
+    }
+    // The next tile synchronises before it overwrites tab and xs.
+  }
+
+  __syncthreads();
+  float* red = xs;                        // [BP], and [BP] more under CV
+  if (lane < kPaths) red[warp + kWarps * lane] = val;
+  if (CV && tid < BP) red[BP + tid] = expf(a.log_s0 + cum);  // terminal
+  __syncthreads();
+  if (tid == 0) {
+    float sum = 0.0f;
+    for (int p = 0; p < BP; ++p) sum += red[p];
+    a.out[blockIdx.x] = sum;
+    if (CV) {
+      float cv = 0.0f;
+      for (int p = 0; p < BP; ++p) cv += red[BP + p];
+      a.out[gridDim.x + blockIdx.x] = a.cv_disc * cv;
+    }
+  }
+}
+
+// Shared memory of a K1 block of bp paths (pair members when antithetic):
+// the planes with W, one X tile of every member, the staged factor tiles
+// and (cv ? 2 : 1) * bp floats more.
 int smem_bytes(int n, int bp, bool anti, bool cv, bool spec,
                bool bf16 = false) {
   const int d = anti ? bp / 2 : bp;
@@ -295,96 +505,156 @@ int smem_bytes(int n, int bp, bool anti, bool cv, bool spec,
                           spec, bf16);
 }
 
-template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC,
-          bool QUAD, bool BF16 = false>
-cudaError_t launch_one(const Args& a, cudaStream_t stream) {
-  constexpr int D = 16 * PM;
-  const int smem = smem_bytes(a.n, ANTI ? 2 * D : D, ANTI, CV, SPEC, BF16);
-  auto kernel = path_kernel<PM, SEEDED, PRICED, ANTI, CV, SPEC, QUAD, BF16>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<a.drawn / D, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+// Shared memory of a K2 block: the planes without W, one X tile of every
+// member (its partial sums at the end) and the staged factor tiles of
+// priced_tile_k rows (the decision's rows in their room), in either
+// policy.
+int priced_smem_bytes(int n, int bp, bool anti, bool spec, bool bf16) {
+  const int d = anti ? bp / 2 : bp;
+  return 4 * ((spec ? 2 : 1) * n_plane_floats(n, d, bf16) + bp * kXStride +
+              staged_floats(spec ? 2 : 1, bf16,
+                            priced_tile_k(anti, spec, bf16)));
 }
 
-// Chol or spectral (from a.ci), in this unit's fGN input dtype.
-template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool QUAD>
-cudaError_t launch_form(const Args& a, cudaStream_t stream) {
-  return a.ci != nullptr
-             ? launch_one<PM, SEEDED, PRICED, ANTI, CV, true, QUAD,
-                          kUnitBf16>(a, stream)
-             : launch_one<PM, SEEDED, PRICED, ANTI, CV, false, QUAD,
-                          kUnitBf16>(a, stream);
-}
+using Kernel = void (*)(Args);
 
-// The seeded (noise null) or noise-in entry, where this unit holds it and
-// a.bf16 names its dtype.
-template <int PM, bool PRICED, bool ANTI, bool CV, bool QUAD>
-cudaError_t launch_entry(const Args& a, cudaStream_t stream) {
-  if (a.bf16 != kUnitBf16) return cudaErrorInvalidValue;
-  if (a.noise == nullptr) {
+// This unit's K1 body of the form, or null where the unit holds none.
+template <int PM, bool ANTI>
+Kernel path_body(bool seeded, bool spec) {
+  if (seeded) {
     if constexpr (kUnitSeeded)
-      return launch_form<PM, true, PRICED, ANTI, CV, QUAD>(a, stream);
+      return spec ? path_kernel<PM, true, ANTI, true, kUnitBf16>
+                  : path_kernel<PM, true, ANTI, false, kUnitBf16>;
   } else {
     if constexpr (kUnitNoiseIn)
-      return launch_form<PM, false, PRICED, ANTI, CV, QUAD>(a, stream);
+      return spec ? path_kernel<PM, false, ANTI, true, kUnitBf16>
+                  : path_kernel<PM, false, ANTI, false, kUnitBf16>;
   }
-  return cudaErrorInvalidValue;
+  return nullptr;
 }
 
-template <bool PRICED, bool ANTI, bool CV, bool QUAD = false>
-cudaError_t launch_pm(const Args& a, int pm, cudaStream_t stream) {
-  switch (pm) {
-    case 4:
-      return launch_entry<4, PRICED, ANTI, CV, QUAD>(a, stream);
-    case 2:
-      return launch_entry<2, PRICED, ANTI, CV, QUAD>(a, stream);
-    case 1:
-      return launch_entry<1, PRICED, ANTI, CV, QUAD>(a, stream);
-    default:
-      return cudaErrorInvalidValue;
+// This unit's K2 body of the form, or null where the unit holds none.
+template <int PM, bool ANTI, bool CV, bool QUAD>
+Kernel priced_body(bool seeded, bool spec) {
+  if (seeded) {
+    if constexpr (kUnitSeeded)
+      return spec ? priced_kernel<PM, true, ANTI, CV, true, QUAD, kUnitBf16>
+                  : priced_kernel<PM, true, ANTI, CV, false, QUAD, kUnitBf16>;
+  } else {
+    if constexpr (kUnitNoiseIn)
+      return spec ? priced_kernel<PM, false, ANTI, CV, true, QUAD, kUnitBf16>
+                  : priced_kernel<PM, false, ANTI, CV, false, QUAD,
+                                  kUnitBf16>;
   }
+  return nullptr;
 }
 
-// block_paths counts paths (pair members when antithetic): 16, 32 or 64
-// plain, 32, 64 or 128 paired.  The quadratic policy (quad) has no pair
-// form.
-template <bool PRICED>
-cudaError_t launch(Args a, int block_paths, bool anti, bool cv, bool quad,
-                   cudaStream_t stream) {
+template <int PM>
+Kernel body_of(bool priced, bool seeded, bool anti, bool cv, bool spec,
+               bool quad) {
+  if (!priced)
+    return anti ? path_body<PM, true>(seeded, spec)
+                : path_body<PM, false>(seeded, spec);
+  if (quad)
+    return cv ? priced_body<PM, false, true, true>(seeded, spec)
+              : priced_body<PM, false, false, true>(seeded, spec);
+  if (anti)
+    return cv ? priced_body<PM, true, true, false>(seeded, spec)
+              : priced_body<PM, true, false, false>(seeded, spec);
+  return cv ? priced_body<PM, false, true, false>(seeded, spec)
+            : priced_body<PM, false, false, false>(seeded, spec);
+}
+
+// The shared memory of K1's (priced false) or K2's block of the form.
+int form_smem_bytes(bool priced, int n, int bp, bool anti, bool spec) {
+  return priced ? priced_smem_bytes(n, bp, anti, spec, kUnitBf16)
+                : smem_bytes(n, bp, anti, false, spec, kUnitBf16);
+}
+
+// This unit's body of the form (block_paths counts paths, pair members when
+// anti: 16, 32 or 64 plain, 32, 64 or 128 paired), or null where the
+// arguments name none.  The quadratic policy (quad) has no pair form.
+Kernel kernel_for(bool priced, int n, int block_paths, bool seeded,
+                  bool anti, bool cv, bool spec, bool quad) {
   const int unit = anti ? 32 : 16;
-  if (a.n < 1 || a.rows < 1 || block_paths < unit || block_paths % unit ||
-      a.rows % block_paths || (quad && (anti || !PRICED)) ||
-      smem_bytes(a.n, block_paths, anti, cv, a.ci != nullptr, a.bf16) >
-          kSmemLimit)
+  if (n < 1 || block_paths < unit || block_paths % unit ||
+      (quad && (anti || !priced)) ||
+      form_smem_bytes(priced, n, block_paths, anti, spec) > kSmemLimit)
+    return nullptr;
+  switch (block_paths / unit) {
+    case 4:
+      return body_of<4>(priced, seeded, anti, cv, spec, quad);
+    case 2:
+      return body_of<2>(priced, seeded, anti, cv, spec, quad);
+    case 1:
+      return body_of<1>(priced, seeded, anti, cv, spec, quad);
+    default:
+      return nullptr;
+  }
+}
+
+// Launch K1 (priced false) or K2 over a.rows paths in blocks of block_paths.
+cudaError_t launch(bool priced, Args a, int block_paths, bool anti, bool cv,
+                   bool quad, cudaStream_t stream) {
+  const bool spec = a.ci != nullptr;
+  const Kernel k = kernel_for(priced, a.n, block_paths, a.noise == nullptr,
+                              anti, cv, spec, quad);
+  if (k == nullptr || a.bf16 != kUnitBf16 || a.rows < 1 ||
+      a.rows % block_paths)
     return cudaErrorInvalidValue;
   a.drawn = anti ? a.rows / 2 : a.rows;
-  const int pm = block_paths / unit;
-  if (!PRICED)
-    return anti ? launch_pm<false, true, false>(a, pm, stream)
-                : launch_pm<false, false, false>(a, pm, stream);
-  if (quad)
-    return cv ? launch_pm<true, false, true, true>(a, pm, stream)
-              : launch_pm<true, false, false, true>(a, pm, stream);
-  if (anti)
-    return cv ? launch_pm<true, true, true>(a, pm, stream)
-              : launch_pm<true, true, false>(a, pm, stream);
-  return cv ? launch_pm<true, false, true>(a, pm, stream)
-            : launch_pm<true, false, false>(a, pm, stream);
+  const int smem = form_smem_bytes(priced, a.n, block_paths, anti, spec);
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int d = anti ? block_paths / 2 : block_paths;
+  k<<<a.drawn / d, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory of a K1/K2 block of block_paths paths (pair members when
+// Shared memory of a K1 block of block_paths paths (pair members when
 // antithetic != 0), the spectral form when spectral != 0, in this unit's
 // fGN input dtype.
 int MCOP_ENTRY(mcop_smem_bytes)(int n_steps, int block_paths, int antithetic,
                                 int with_cv, int spectral) {
   return smem_bytes(n_steps, block_paths, antithetic != 0, with_cv != 0,
                     spectral != 0, kUnitBf16);
+}
+
+// Shared memory of a K2 block of block_paths paths (pair members when
+// antithetic != 0), the spectral form when spectral != 0, in this unit's
+// fGN input dtype (the policy and the control variate take none more).
+int MCOP_ENTRY(mcop_priced_smem_bytes)(int n_steps, int block_paths,
+                                       int antithetic, int spectral) {
+  return priced_smem_bytes(n_steps, block_paths, antithetic != 0,
+                           spectral != 0, kUnitBf16);
+}
+
+// Blocks of the K2 form one SM runs at once, of this unit's seeded body
+// (its noise-in one in a noise-in unit), by
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor at the form's shared
+// memory; minus a cudaError_t where the arguments name no body or the
+// query fails.
+int MCOP_ENTRY(mcop_priced_blocks_per_sm)(int n_steps, int block_paths,
+                                          int antithetic, int with_cv,
+                                          int spectral, int quadratic) {
+  const Kernel k = kernel_for(true, n_steps, block_paths, kUnitSeeded,
+                              antithetic != 0, with_cv != 0, spectral != 0,
+                              quadratic != 0);
+  if (k == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  const int smem = priced_smem_bytes(n_steps, block_paths, antithetic != 0,
+                                     spectral != 0, kUnitBf16);
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads,
+                                                        smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 // K1.  noise may be null (seeded entry, stream of `key`).  lt is Lt' (chol,
@@ -416,9 +686,9 @@ int MCOP_ENTRY(mcop_pathgen)(const float* noise, const void* lt,
   a.log_s0 = log_s0;
   a.s0 = s0;
   a.bf16 = bf16 != 0;
-  return static_cast<int>(launch<false>(a, block_paths, antithetic != 0,
-                                        false, false,
-                                        static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch(false, a, block_paths, antithetic != 0,
+                                 false, false,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
 // K2.  table: rows 0-2 of the log_boundary_rows table, or with
@@ -458,9 +728,9 @@ int MCOP_ENTRY(mcop_priced_chunk)(
   a.cv_disc = cv_disc;
   a.is_call = is_call;
   a.bf16 = bf16 != 0;
-  return static_cast<int>(launch<true>(a, block_paths, antithetic != 0,
-                                       with_cv != 0, quadratic != 0,
-                                       static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch(true, a, block_paths, antithetic != 0,
+                                 with_cv != 0, quadratic != 0,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 // The quadratic exercise policy of one cell, shared by the QUAD forms of K2
-// (csrc/pathgen.cu), K7 (csrc/pathgen_tiled.cu), K9
+// (csrc/pathgen.cu, through QuadRows), K7 (csrc/pathgen_tiled.cu), K9
 // (csrc/pathgen_factored.cu) and K5 (csrc/chain.cu, through QuadCell).
 //
 // Counterpart: montecarlooptionspricer_tpu/models/pathgen_pallas.py:
@@ -42,8 +42,8 @@ __device__ __forceinline__ float quad_cont(Coef coef, float z) {
                    coef(0));
 }
 
-// K2's, K7's and K9's cell: whether the path at price s exercises at
-// column c, and then its value.
+// K7's and K9's cell: whether the path at price s exercises at column c,
+// and then its value.
 __device__ __forceinline__ bool quad_exercise(const float* tab,
                                               long long stride, int c,
                                               float s, int is_call,
@@ -58,6 +58,30 @@ __device__ __forceinline__ bool quad_exercise(const float* tab,
   if (!(p >= cont)) return false;
   *value = __fmul_rn(p, __ldg(tab + 6 * stride + c));
   return true;
+}
+
+// K2's decision (csrc/pathgen.cu) tests one column against many paths: each
+// lane reads its column's rows once per tile from the staged [8][stride]
+// rows, and a cell's test is quad_exercise's, arithmetic and all: p =
+// quad_payoff(s, strike) > eps and p >= quad_rows_cont (IEEE division, as
+// _policy_value:277 divides); its value, p * disc, is taken at the hit.
+struct QuadRows {
+  float coef[3], mu, sd, eps, strike;
+};
+
+__device__ __forceinline__ QuadRows quad_rows(const float* tab, int stride,
+                                              int c) {
+  return {{tab[c], tab[stride + c], tab[2 * stride + c]},
+          tab[3 * stride + c],
+          tab[4 * stride + c],
+          tab[5 * stride + c],
+          tab[7 * stride + c]};
+}
+
+// The continuation value of K2's cell q at price s.
+__device__ __forceinline__ float quad_rows_cont(const QuadRows& q, float s) {
+  const float z = __fdiv_rn(__fsub_rn(s, q.mu), q.sd);
+  return quad_cont([&](int i) { return q.coef[i]; }, z);
 }
 
 // K5's sweep (csrc/chain.cu) tests one column of one strike against many

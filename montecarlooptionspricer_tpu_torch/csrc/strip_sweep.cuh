@@ -1,11 +1,13 @@
-// The strike sweep shared by K5 (csrc/chain.cu) and K3/K4 (csrc/greeks.cu):
-// what a block needs to find, for each (path, strike), the first column of
-// a 64-column step tile inside the strike's exercise interval, with the
-// lanes of a warp on the tile's columns instead of one thread walking them.
+// The strike sweep shared by K5 (csrc/chain.cu) and K3/K4 (csrc/greeks.cu),
+// and K2's decision (csrc/pathgen.cu, one strike): what a block needs to
+// find, for each (path, strike), the first column of a 64-column step tile
+// inside the strike's exercise interval, with the lanes of a warp on the
+// tile's columns instead of one thread walking them.
 //
 // * tile_w_pair: the price Brownian W of two columns, redrawn per tile
-//   from the seeded stream or read from the injected plane, so neither
-//   kernel keeps a W plane resident (load_noise<..., WITH_W = false>).
+//   from the seeded stream or read from the injected plane, so none of
+//   these kernels keeps a W plane resident (load_noise<..., WITH_W =
+//   false>).
 // * stage_strike_rows: rows 0 and 1 of each strike's table (lo and hi, or
 //   log lo and log hi) for the tile's columns, copied into shared memory
 //   with cp.async; the copy is issued before the tile's fGN product and

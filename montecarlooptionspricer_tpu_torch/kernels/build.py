@@ -134,6 +134,8 @@ def load() -> types.SimpleNamespace:
     signatures = {
         "pathgen": {
             "mcop_smem_bytes": [i, i, i, i, i],
+            "mcop_priced_smem_bytes": [i] * 4,
+            "mcop_priced_blocks_per_sm": [i] * 6,
             "mcop_pathgen": [p, p, p, p, i, i, i, u, f, f, f, f, f, i, i, p,
                              p],
             "mcop_priced_chunk": [p, p, p, p, i, i, i, u, f, f, f, f, p, ll,

@@ -291,24 +291,25 @@ TILE_KB = TILE_K + 8   # bf16 row stride of a staged factor tile
 
 def block_smem_bytes(n_steps: int, block_paths: int, n_products: int = 1,
                      extra: int = 0, spectral: bool = False,
-                     bf16: bool = False, w_plane: bool = True) -> int:
+                     bf16: bool = False, w_plane: bool = True,
+                     tile_k: int = TILE_K) -> int:
     """Shared memory of one single-tile CUDA block (``block_smem_bytes`` of
     csrc/fgn_tile.cuh, which K1-K5 share): the N and W planes (row stride
     n_steps rounded up to odd, so rows fall on distinct banks; under
     ``spectral`` Zr, Zi and W; no W plane without ``w_plane``, as K5 and
     K3/K4 draw W per tile), per fGN product an X tile (stride
     TILE_COLS + 1), the staged factor tiles (one per product, or Cr' and
-    Ci' under ``spectral``) and ``extra`` floats.  Under ``bf16`` the
-    planes multiplied (N, or Zr and Zi) are bf16 with row stride n_steps
-    rounded up to 16 plus 8, and each staged tile is bf16
-    [TILE_COLS][TILE_KB]."""
+    Ci' under ``spectral``, ``tile_k`` rows each) and ``extra`` floats.
+    Under ``bf16`` the planes multiplied (N, or Zr and Zi) are bf16 with
+    row stride n_steps rounded up to 16 plus 8, and each staged tile is
+    bf16 [TILE_COLS][TILE_KB]."""
     ld = n_steps | 1
     planes = 2 if spectral else 1        # planes multiplied
     tiles = 2 if spectral else n_products  # factor tiles staged
     plane = (block_paths * (_round_up(n_steps, 16) + 8) // 2 if bf16
              else block_paths * ld)
     staged = tiles * (TILE_COLS * TILE_KB // 2 if bf16
-                      else TILE_K * TILE_COLS)
+                      else tile_k * TILE_COLS)
     floats = (planes * plane + (block_paths * ld if w_plane else 0) + extra
               + n_products * block_paths * (TILE_COLS + 1) + staged)
     return 4 * floats
@@ -317,23 +318,79 @@ def block_smem_bytes(n_steps: int, block_paths: int, n_products: int = 1,
 def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
                with_cv: bool = False, spectral: bool = False,
                bf16: bool = False) -> int:
-    """K1 and K2 (``smem_bytes`` of csrc/pathgen.cu): one product and the
-    path-sum slots (twice under CV).  A paired block of ``block_paths``
-    members keeps half as many rows of noise and a product tile of every
-    member."""
+    """K1 (``smem_bytes`` of csrc/pathgen.cu): the planes with W, one
+    product and ``block_paths`` floats more (twice ``with_cv``).  A paired
+    block of ``block_paths`` members keeps half as many rows of noise and
+    a product tile of every member.  Its block sets the single-tile
+    family's range (``max_block_paths``)."""
     drawn = block_paths // 2 if antithetic else block_paths
     return block_smem_bytes(
         n_steps, drawn, extra=(block_paths - drawn) * (TILE_COLS + 1)
         + (2 if with_cv else 1) * block_paths, spectral=spectral, bf16=bf16)
 
 
+def priced_tile_k(antithetic: bool = False, spectral: bool = False,
+                  bf16: bool = False) -> int:
+    """Rows of Lt' K2 stages per pass of its float32 product
+    (``priced_tile_k`` of csrc/pathgen.cu): 16 for the unpaired chol
+    block, which then fits two blocks an SM at 365 steps, else TILE_K."""
+    return 16 if not (antithetic or spectral or bf16) else TILE_K
+
+
+def priced_smem_bytes(n_steps: int, block_paths: int,
+                      antithetic: bool = False, spectral: bool = False,
+                      bf16: bool = False) -> int:
+    """K2 (``priced_smem_bytes`` of csrc/pathgen.cu): the planes without W
+    (K2 draws W per tile), one product tile of every member (it holds the
+    block's partial sums at the end, the control lane's too) and the
+    staged factor tiles of ``priced_tile_k`` rows, in whose room the
+    decision's rows of a step tile are staged once the product is done:
+    the same in both policies."""
+    drawn = drawn_rows(block_paths, antithetic)
+    return block_smem_bytes(
+        n_steps, drawn, extra=(block_paths - drawn) * (TILE_COLS + 1),
+        spectral=spectral, bf16=bf16, w_plane=False,
+        tile_k=priced_tile_k(antithetic, spectral, bf16))
+
+
+SM_SMEM = 233_472          # shared memory of one H100 SM
+BLOCK_RESERVE = 1_024      # the runtime's shared memory per resident block
+MAX_BLOCKS_PER_SM = 8      # 2,048 threads an SM, 256 a block
+
+
+def smem_blocks_per_sm(smem: int) -> int:
+    """Blocks of 256 threads taking ``smem`` bytes of shared memory each
+    that one SM holds by its shared memory and threads (registers aside)."""
+    return min(MAX_BLOCKS_PER_SM, SM_SMEM // (smem + BLOCK_RESERVE))
+
+
+def priced_min_blocks(antithetic: bool = False, spectral: bool = False,
+                      bf16: bool = False) -> int:
+    """K2's ``__launch_bounds__`` minimum of blocks an SM (csrc/pathgen.cu
+    priced_kernel), which caps its registers: 3 for the bf16 forms but
+    the paired chol one (three of their blocks fit an SM at 365 steps),
+    else 2."""
+    return 3 if bf16 and (spectral or not antithetic) else 2
+
+
+# K2's largest block per form (bf16, spectral, antithetic), below the
+# largest that fits where a smaller block, more of them an SM, ran faster
+# at 365 steps on the H100 (PERF.md §6, PR 14): the float32 chol pair
+# (64 members, three an SM: 0.81x of 128), the bf16 spectral form (32
+# paths, three an SM: 0.85x of 64) and its pair (64, 0.84x of 128).  The
+# float32 spectral pair and the bf16 chol pair ran slower halved.
+PRICED_BLOCK_CAPS = {(False, False, True): 64, (True, True, False): 32,
+                     (True, True, True): 64}
+
+
 def fitting_block(smem, n_steps: int, rows: int = 0,
-                  antithetic: bool = False) -> int:
+                  antithetic: bool = False, cap: int = 128) -> int:
     """Largest of BLOCK_CHOICES (PAIRED_BLOCK_CHOICES when ``antithetic``)
-    whose ``smem(n_steps, block)`` fits one H100 block (and which divides
-    ``rows`` when given), or 0 when none does."""
+    up to ``cap`` whose ``smem(n_steps, block)`` fits one H100 block (and
+    which divides ``rows`` when given), or 0 when none does."""
     for bp in PAIRED_BLOCK_CHOICES if antithetic else BLOCK_CHOICES:
-        if smem(n_steps, bp) <= SMEM_LIMIT and (not rows or rows % bp == 0):
+        if (bp <= cap and smem(n_steps, bp) <= SMEM_LIMIT
+                and (not rows or rows % bp == 0)):
             return bp
     return 0
 
@@ -918,26 +975,67 @@ def check_device_inputs(consts: PathConsts, noise, table=None) -> None:
             raise ValueError(f"{name} must be contiguous float32 on {dev}")
 
 
-def priced_block_paths(consts: PathConsts, rows: int,
-                       antithetic: bool = False,
-                       with_cv: bool = False) -> int:
-    """The path block of a K2 launch (and of K1's, which has no CV
-    form): the plain form's is ``consts.block_paths``; the CV form takes
-    the largest block up to it whose shared memory fits, and the paired
-    forms the largest of PAIRED_BLOCK_CHOICES that fits; each must divide
-    ``rows``."""
-    if not antithetic and not with_cv:
+def _no_block(kernel: str, consts: PathConsts, rows: int,
+              antithetic: bool) -> ValueError:
+    form = form_name(antithetic, spectral=consts.spectral, bf16=consts.bf16)
+    return ValueError(f"no {kernel} block fits the {form!r} form at "
+                      f"n_steps={consts.n_steps} and divides rows={rows}")
+
+
+def path_block_paths(consts: PathConsts, rows: int,
+                     antithetic: bool = False) -> int:
+    """The path block of a K1 launch: ``consts.block_paths``, or paired
+    the largest of PAIRED_BLOCK_CHOICES whose float32 shared memory fits
+    and which divides ``rows``."""
+    if not antithetic:
         return consts.block_paths
-    choices = PAIRED_BLOCK_CHOICES if antithetic else [
-        b for b in BLOCK_CHOICES if b <= consts.block_paths]
-    for bp in choices:
-        if (smem_bytes(consts.n_steps, bp, antithetic, with_cv,
-                       consts.spectral) <= SMEM_LIMIT and rows % bp == 0):
-            return bp
-    raise ValueError(f"no K2 block of {tuple(choices)} fits the "
-                     f"{form_name(antithetic, with_cv, consts.spectral)!r} "
-                     "form at "
-                     f"n_steps={consts.n_steps} and divides rows={rows}")
+    bp = fitting_block(lambda n, b: smem_bytes(n, b, True,
+                                               spectral=consts.spectral),
+                       consts.n_steps, rows, True)
+    if not bp:
+        raise _no_block("K1", consts, rows, True)
+    return bp
+
+
+def priced_block_paths(consts: PathConsts, rows: int,
+                       antithetic: bool = False) -> int:
+    """The path block of a K2 launch, K2's own as K5's is (not
+    ``consts.block_paths``, which is K1's): the largest of BLOCK_CHOICES
+    (PAIRED_BLOCK_CHOICES, in pair members, when ``antithetic``), up to
+    the form's PRICED_BLOCK_CAPS, whose shared memory in the constants'
+    fGN form and dtype fits and which divides ``rows``, the same in both
+    policies, with or without the control variate: at 365 steps 64 paths
+    and 128 members paired, but 64 for the float32 pairs, 32 and 64 for
+    the bf16 spectral forms."""
+    bp = fitting_block(
+        lambda n, b: priced_smem_bytes(n, b, antithetic, consts.spectral,
+                                       consts.bf16),
+        consts.n_steps, rows, antithetic, PRICED_BLOCK_CAPS.get(
+            (consts.bf16, consts.spectral, bool(antithetic)), 128))
+    if not bp:
+        raise _no_block("K2", consts, rows, antithetic)
+    return bp
+
+
+def priced_blocks_per_sm(consts: PathConsts, rows: int,
+                         antithetic: bool = False, with_cv: bool = False,
+                         policy_form: str = "boundary") -> int:
+    """Blocks of K2 one SM of the card runs at once in the form of
+    ``consts`` (its fGN form and dtype), ``antithetic``, ``with_cv`` and
+    ``policy_form``, at the block ``priced_block_paths`` picks (the CUDA
+    runtime's occupancy query on the seeded body)."""
+    quadratic = check_policy(policy_form, antithetic)
+    bp = priced_block_paths(consts, rows, antithetic)
+    from ..kernels import build
+
+    got = build.entry(build.load(), "pathgen", "mcop_priced_blocks_per_sm",
+                      consts.bf16, True)(
+        consts.n_steps, bp, int(antithetic), int(with_cv),
+        int(consts.spectral), int(quadratic))
+    if got < 0:
+        raise RuntimeError(f"mcop_priced_blocks_per_sm failed: cudaError "
+                           f"{-got}")
+    return got
 
 
 def _kernel_args(consts: PathConsts, rows: int, key, noise,
@@ -986,7 +1084,7 @@ def pathgen(consts: PathConsts, rows: int = None, key: int = None,
         if noise is None:
             noise = normals_ref(consts, key, drawn_rows(rows, antithetic))
         return pathgen_from_noise_ref(consts, noise, antithetic)
-    bp = priced_block_paths(consts, rows, antithetic)
+    bp = path_block_paths(consts, rows, antithetic)
     args = _kernel_args(consts, rows, key, noise, bp)
     out = torch.empty((rows, consts.n_steps + 1), dtype=torch.float32,
                       device=consts.device)
@@ -1050,7 +1148,7 @@ def priced_chunk(consts: PathConsts, table: torch.Tensor, strike: float,
         return priced_chunk_from_noise_ref(consts, table, noise, strike,
                                            is_call, antithetic, with_cv,
                                            policy_form)
-    bp = priced_block_paths(consts, rows, antithetic, with_cv)
+    bp = priced_block_paths(consts, rows, antithetic)
     args = _kernel_args(consts, rows, key, noise, bp)
     check_device_inputs(consts, None, table)
     partial = torch.empty((2 if with_cv else 1, rows // bp),

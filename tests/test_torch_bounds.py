@@ -278,7 +278,7 @@ def test_pair_forms_memory_model():
         bp = ptc.block_paths_for(rows, antithetic=True)
         assert bp in ptc.PAIRED_BLOCK_CHOICES and bp // 2 <= 64
         assert ptc.smem_bytes(bp, antithetic=True) <= pc.SMEM_LIMIT
-    assert pc.priced_block_paths(path_consts(365), 1 << 17, True) == 128
+    assert pc.path_block_paths(path_consts(365), 1 << 17, True) == 128
 
 
 # ---------------------------------------------------------------------------

@@ -590,12 +590,13 @@ def _check_forms(priced, ref, consts, table, normals, rows, key):
 @pytest.mark.parametrize("n_steps", [96, 365])
 def test_k2_forms_match_plain_versions(cuda, n_steps):
     """K2's antithetic, CV and paired-CV forms at the main path's chunk of
-    131072 rows (the paired blocks hold 128, 64 or 32 members)."""
+    131072 rows (the paired blocks hold 128, 64 or 32 members; the float32
+    chol pair's 64)."""
     rows, key = 1 << 17, pc._fold_words(5, 31)
     consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda)
     table = _fitted_table(consts, pc.pathgen(consts, rows=1 << 14, key=key),
                           n_steps)
-    assert pc.priced_block_paths(consts, rows, True, True) == 128
+    assert pc.priced_block_paths(consts, rows, True) == 64
     _check_forms(pc.priced_chunk, pc.priced_chunk_from_noise_ref, consts,
                  table, lambda k, r: pc.philox_normals_ref(
                      k, r, n_steps, device=cuda), rows, key)
@@ -1934,3 +1935,264 @@ def test_greeks_sweep_edges(cuda, fgn_dtype, anti, n_strikes):
             consts, g, logs, False, noise=torch.cat([noise, -noise], dim=1))
         torch.cuda.synchronize()
         assert _rel(got_n, unpaired) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# K2's redesign: every form at the horizons round the tile edges, tables
+# that force its first hits to chosen columns, the quadratic policy where
+# the boundary would decide otherwise, its memory model and blocks, and K2
+# against K5 at one strike.
+
+# K2's 24 forms: (fgn_dtype, fgn_form, antithetic, cv, policy_form).
+K2_FORMS = [(d, f, a, cv, p) for d in ("float32", "bfloat16")
+            for f in ("chol", "spectral")
+            for a, cv, p in ((False, False, "boundary"),
+                             (True, False, "boundary"),
+                             (False, True, "boundary"),
+                             (True, True, "boundary"),
+                             (False, False, "quadratic"),
+                             (False, True, "quadratic"))]
+
+
+def _k2_edge_columns(n):
+    """The columns whose exercise set is open: the last of the first tile
+    and the first of the second (63, 64, where they exist) and the last
+    step; before and between them none is."""
+    return sorted({c for c in (63, 64, n - 1) if c < n})
+
+
+def _k2_edge_tables(ls, first_tile=False):
+    """A log_boundary_rows table and a policy_rows table on the log paths
+    ``ls`` [rows, n] (a put at 105): each open column stops about a third of
+    the paths still running (the bottom third of log S, or the top third
+    of the payoff less 0.5 z, z = (S - mu) / sd with mu and sd the
+    column's mean and standard deviation), every other column none, so
+    paths stop at 63, 64 or n - 1 or never.  ``first_tile``: every path
+    stops at column min(5, n - 1)."""
+    n, dev = ls.shape[1], ls.device
+    disc = torch.exp(-MARKET["r"] * DT * torch.arange(1, n + 1, device=dev))
+    log_t = torch.zeros((8, n), device=dev)
+    log_t[0], log_t[1], log_t[2] = 1e30, -1e30, disc
+    quad = torch.zeros((8, n), device=dev)
+    quad[3], quad[4], quad[5], quad[6], quad[7] = 0.0, 1.0, 1e30, disc, 105.0
+    quad[1] = 0.5
+    s = torch.exp(ls)
+    cols = [min(5, n - 1)] if first_tile else _k2_edge_columns(n)
+    for c in cols:
+        if first_tile:
+            log_t[0, c], log_t[1, c] = -1e30, 1e30
+            quad[0, c], quad[1, c], quad[5, c] = -1e30, 0.0, -1.0
+            continue
+        log_t[0, c] = -1e30
+        log_t[1, c] = torch.quantile(ls[:, c], 1 / 3)
+        mu, sd = s[:, c].mean(), s[:, c].std()
+        z = (s[:, c] - mu) / sd
+        pay = torch.clamp_min(105.0 - s[:, c], 0.0)
+        quad[0, c] = torch.quantile(pay - 0.5 * z, 2 / 3)
+        quad[3, c], quad[4, c], quad[5, c] = mu, sd, -1.0
+    return log_t.contiguous(), quad.contiguous()
+
+
+def _check_k2_form(cuda, consts, table, noise, key, anti, cv, policy,
+                   rows):
+    """One K2 form, seeded and noise-in, against its plain version (each
+    lane at rtol 1e-4), two seeded launches bit for bit, and paired against
+    the unpaired form on [X; -X] (1e-5)."""
+    want = pc.priced_chunk_from_noise_ref(consts, table, noise, 105.0, False,
+                                          anti, cv, policy)
+    want = want if cv else (want,)
+    form = dict(antithetic=anti, with_cv=cv, policy_form=policy)
+    got_n, got_s, again = (
+        pc.priced_chunk(consts, table, 105.0, False, **form, **kw)
+        for kw in ({"noise": noise}, {"rows": rows, "key": key},
+                   {"rows": rows, "key": key}))
+    torch.cuda.synchronize()
+    for got in (got_n, got_s):
+        for g, w in zip(got if cv else (got,), want):
+            assert float(w) > 0
+            assert abs(float(g) / float(w) - 1.0) < 1e-4, form
+    for g, w in zip(got_s if cv else (got_s,), again if cv else (again,)):
+        assert torch.equal(g, w)
+    if anti:
+        unpaired = pc.priced_chunk(consts, table, 105.0, False,
+                                   noise=torch.cat([noise, -noise], dim=1),
+                                   with_cv=cv)
+        torch.cuda.synchronize()
+        for g, w in zip(got_n if cv else (got_n,),
+                        unpaired if cv else (unpaired,)):
+            assert abs(float(g) / float(w) - 1.0) < 1e-5, form
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [1, 47, 64, 65, 96, 365])
+def test_k2_every_form_on_edge_tables(cuda, n_steps):
+    """K2 in each of its 24 forms at 131072 rows, on tables whose first hits
+    fall at columns 63, 64 and n - 1 or never (``_k2_edge_tables``), then
+    on a table every path leaves in the first tile: against the plain
+    versions, seeded and noise-in, with pairs against [X; -X].  Each
+    launch counts under its form."""
+    rows, key = 1 << 17, pc._fold_words(5, 131)
+    for dtype, fgn_form, anti, cv, policy in K2_FORMS:
+        consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda,
+                                     fgn_form=fgn_form, fgn_dtype=dtype)
+        noise = pc.normals_ref(consts, key, rows // 2 if anti else rows,
+                               device=cuda)
+        ls = pc._log_paths_ref(consts, noise, anti)
+        name = pc.form_name(anti, cv, fgn_form == "spectral",
+                            policy == "quadratic", dtype == "bfloat16")
+        before = pc.priced_chunk.form_launches[name]
+        for first_tile in (False, True):
+            log_t, quad = _k2_edge_tables(ls, first_tile)
+            _check_k2_form(cuda, consts, quad if policy == "quadratic"
+                           else log_t, noise, key, anti, cv, policy, rows)
+        assert pc.priced_chunk.form_launches[name] - before == 6
+        del noise, ls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fgn_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("policy", ["boundary", "quadratic"])
+def test_k2_wild_noise(cuda, policy, fgn_dtype):
+    """x3 noise at 365 steps on the edge tables of its own paths: paths
+    cross the open columns' sets far apart; K2 and K2/cv still match their
+    plain versions (rtol 1e-4), and K2/anti its pair on [X; -X]."""
+    n, rows, key = 365, 1 << 17, pc._fold_words(6, 131)
+    consts = pc.make_path_consts(*MARKET.values(), n, DT, cuda,
+                                 fgn_dtype=fgn_dtype)
+    for anti, cv in ((False, False), (False, True), (True, False)):
+        if anti and policy == "quadratic":
+            continue
+        noise = 3.0 * pc.normals_ref(consts, key, rows // 2 if anti else rows,
+                                     device=cuda)
+        log_t, quad = _k2_edge_tables(pc._log_paths_ref(consts, noise, anti))
+        want = pc.priced_chunk_from_noise_ref(
+            consts, quad if policy == "quadratic" else log_t, noise, 105.0,
+            False, anti, cv, policy)
+        got = pc.priced_chunk(consts, quad if policy == "quadratic"
+                              else log_t, 105.0, False, noise=noise,
+                              antithetic=anti, with_cv=cv,
+                              policy_form=policy)
+        torch.cuda.synchronize()
+        for g, w in zip(got if cv else (got,), want if cv else (want,)):
+            assert float(w) > 0 and abs(float(g) / float(w) - 1.0) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fgn_form", ["chol", "spectral"])
+@pytest.mark.parametrize("n_steps", [96, 365])
+def test_k2_quadratic_where_boundary_decides_otherwise(cuda, n_steps,
+                                                       fgn_form):
+    """A policy table whose exercise set at columns 63, 64 and n - 1 is two
+    intervals of S (c2 = -1: the paths with the payoff plus z^2 in its top
+    third, both tails), and the log boundary table of its hull (one
+    interval, from the least to the largest log price there): the hull
+    also stops the middle paths the quadratic keeps running, so the two
+    plain sums differ by over 1 %; K2/quad (float32 and bf16) follows the
+    quadratic plain version and K2 the boundary one, seeded and noise-in
+    (rtol 1e-4)."""
+    rows, key = 1 << 17, pc._fold_words(5, 137)
+    for dtype in ("float32", "bfloat16"):
+        consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda,
+                                     fgn_form=fgn_form, fgn_dtype=dtype)
+        noise = pc.normals_ref(consts, key, rows, device=cuda)
+        ls = pc._log_paths_ref(consts, noise)
+        s = torch.exp(ls)
+        disc = torch.exp(-MARKET["r"] * DT
+                         * torch.arange(1, n_steps + 1, device=cuda))
+        quad = torch.zeros((8, n_steps), device=cuda)
+        quad[2], quad[4], quad[5], quad[6], quad[7] = -1.0, 1.0, 1e30, disc, \
+            105.0
+        hull = torch.zeros((8, n_steps), device=cuda)
+        hull[0], hull[1], hull[2] = 1e30, -1e30, disc
+        for c in _k2_edge_columns(n_steps):
+            mu, sd = s[:, c].mean(), s[:, c].std()
+            z = (s[:, c] - mu) / sd
+            g = torch.clamp_min(105.0 - s[:, c], 0.0) + z * z
+            quad[0, c] = torch.quantile(g, 2 / 3)
+            quad[3, c], quad[4, c], quad[5, c] = mu, sd, -1.0
+            hull[0, c], hull[1, c] = ls[:, c].min(), ls[:, c].max()
+        quad, hull = quad.contiguous(), hull.contiguous()
+        want = {}
+        for table, policy in ((quad, "quadratic"), (hull, "boundary")):
+            want[policy] = float(pc.priced_chunk_from_noise_ref(
+                consts, table, noise, 105.0, False, policy_form=policy))
+            for got in (pc.priced_chunk(consts, table, 105.0, False,
+                                        noise=noise, policy_form=policy),
+                        pc.priced_chunk(consts, table, 105.0, False,
+                                        rows=rows, key=key,
+                                        policy_form=policy)):
+                assert abs(float(got) / want[policy] - 1.0) < 1e-4, (
+                    dtype, policy)
+        assert abs(want["quadratic"] / want["boundary"] - 1.0) > 0.01
+        del noise, ls, s
+
+
+@pytest.mark.gpu
+def test_k2_memory_model_and_blocks_are_the_cards(cuda):
+    """Every unit's mcop_priced_smem_bytes equals pc.priced_smem_bytes, and
+    the runtime holds each form's block (the wrapper's pick) at least as
+    often as the launch bounds' minimum allows within shared memory, and
+    no more than shared memory allows."""
+    from montecarlooptionspricer_tpu_torch.kernels import build
+
+    lib = build.load()
+    for bf16 in (False, True):
+        for seeded in (False, True):
+            entry = build.entry(lib, "pathgen", "mcop_priced_smem_bytes",
+                                bf16, seeded)
+            for n in (1, 47, 96, 365):
+                for anti, choices in ((False, pc.BLOCK_CHOICES),
+                                      (True, pc.PAIRED_BLOCK_CHOICES)):
+                    for bp in choices:
+                        for spec in (False, True):
+                            assert entry(n, bp, anti, spec) == \
+                                pc.priced_smem_bytes(n, bp, anti, spec,
+                                                     bf16)
+    for n in (47, 96, 365):
+        for dtype, fgn_form, anti, cv, policy in K2_FORMS:
+            consts = pc.make_path_consts(*MARKET.values(), n, DT, cuda,
+                                         fgn_form=fgn_form, fgn_dtype=dtype)
+            bp = pc.priced_block_paths(consts, 1 << 17, anti)
+            smem = pc.priced_smem_bytes(n, bp, anti, consts.spectral,
+                                        consts.bf16)
+            most = pc.smem_blocks_per_sm(smem)
+            least = min(most, pc.priced_min_blocks(anti, consts.spectral,
+                                                   consts.bf16))
+            got = pc.priced_blocks_per_sm(consts, 1 << 17, anti, cv, policy)
+            assert least <= got <= most, (n, dtype, fgn_form, anti, cv,
+                                          policy, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fgn_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fgn_form", ["chol", "spectral"])
+@pytest.mark.parametrize("form", ["plain", "anti", "quad"])
+def test_seeded_k2_matches_seeded_k5_of_one_strike(cuda, form, fgn_form,
+                                                   fgn_dtype):
+    """Seeded K2 against seeded K5 with one strike on the same key and fit,
+    in each form K5 has: K5 decides on the S-space table (the quadratic
+    with the reciprocal of sd), K2 on the log table (with the division),
+    which differ only in the root band (rtol 1e-4)."""
+    n_steps, rows = 365, 1 << 17
+    anti, quad = form == "anti", form == "quad"
+    policy = "quadratic" if quad else "boundary"
+    consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda,
+                                 fgn_form=fgn_form, fgn_dtype=fgn_dtype)
+    key = pc._fold_words(5, 139)
+    pilot = pc.pathgen(consts, rows=1 << 14, key=pc._fold_words(5, 141))
+    _, fits = engine.lsm_fit(pilot, MARKET["r"], 104.0, n_steps * DT, DT,
+                             False)
+    if quad:
+        k5_table = pc.policy_rows(fits, MARKET["r"], 104.0, n_steps * DT,
+                                  DT, n_steps, False).contiguous()
+        k2_table = k5_table
+    else:
+        k5_table = pc.boundary_rows(fits, MARKET["r"], 104.0, n_steps * DT,
+                                    DT, n_steps, False).contiguous()
+        k2_table = pc.log_boundary_rows(k5_table).contiguous()
+    k5 = float(cc.priced_chain(consts, k5_table[None], False, rows=rows,
+                               key=key, antithetic=anti,
+                               policy_form=policy)[0])
+    k2 = float(pc.priced_chunk(consts, k2_table, 104.0, False, rows=rows,
+                               key=key, antithetic=anti, policy_form=policy))
+    assert k2 > 0 and abs(k5 / k2 - 1.0) < 1e-4
