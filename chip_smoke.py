@@ -171,8 +171,10 @@ K5, K3 and K4 entry of the kernels line carries the blocks one SM runs at
 once (``blocks_per_sm``, the C entries' occupancy query); each K2 entry
 carries its blocks per SM, the ms of K1 in the same fGN form, dtype and
 pairing (``k1_ms``) and K5's one-strike ms in its form where K5 has it
-(``k5_one_strike_ms``).  ``python3 chip_smoke.py --k2-forms [ROOT]`` times
-K2's 24 forms alone (``k2_forms_main``), on this checkout or another.
+(``k5_one_strike_ms``); each K8 and K9 entry carries its blocks per SM.
+``python3 chip_smoke.py --k2-forms [ROOT]`` times K2's 24 forms alone
+(``k2_forms_main``), ``--k9-forms [ROOT]`` K9's 12 forms and K8's four
+(``k9_forms_main``), on this checkout or another.
 
 Usage (from the root of a checkout, one CUDA card):  python3 chip_smoke.py
 
@@ -823,6 +825,31 @@ def k2_split(pc, kernels: list, dev) -> None:
                                    else by_name[k5]["one_strike_ms"])
 
 
+def k89_split(pfc, kernels: list, dev) -> None:
+    """Each K8 and K9 entry of the kernels line gains the blocks one SM runs
+    at once of its form at XLONG_STEPS (``blocks_per_sm``, the C entry's
+    occupancy query)."""
+    market = [MARKET[k] for k in ("s0", "xi", "h", "eta", "r")]
+    consts = {}
+    for rec in kernels:
+        name = rec["name"]
+        k8 = name == "factored_pathgen" or name.startswith("K8/")
+        if not (k8 or name == "factored_priced_chunk"
+                or name.startswith("K9/")):
+            continue
+        parts = name.split("/")[1:]
+        bf16 = "bf16" in parts
+        if bf16 not in consts:
+            consts[bf16] = pfc.make_factored_consts(
+                *market, XLONG_STEPS, DT, dev,
+                fgn_dtype="bfloat16" if bf16 else "float32")
+        rec["blocks_per_sm"] = pfc.blocks_per_sm(
+            consts[bf16], priced=not k8,
+            antithetic="anti" in parts or "anti+cv" in parts,
+            with_cv="cv" in parts or "anti+cv" in parts,
+            policy_form="quadratic" if "quad" in parts else "boundary")
+
+
 def plain_chain_means(torch, pc, cc, engine, chain, fits, seed: int,
                       n_chunks: int, antithetic: bool = False):
     """Per-strike mean discounted payoff of the first n_chunks chunks of
@@ -1303,10 +1330,8 @@ def factored_bound_ms(rows: int, n: int, out_bytes: int,
     the diagonal's complex multiply (6 per step) and one length-m2 complex
     FFT (5 m2 log2 m2), once per pair when ``antithetic``; per path ~8 per
     step, and 2 for the control ``with_cv``; QUAD_CELL_OPS per cell a
-    quadratic policy tests (``quad_cells``).  The kernels' dense 128-point
-    stage 1 and N2-point stage 2 (8 N2 128^2 + 4 N2 s_pad per path, 19
-    times the FFT's count at m2 4096) are the TPU's choice of algorithm,
-    not what the function needs, so they do not set the bound.  Under
+    quadratic policy tests (``quad_cells``).  The float32 kernels run that
+    FFT (128-point FFTs over k1, then N2-point FFTs over k2).  Under
     ``bf16`` the FFT's first log2(128) = 7 radix-2 stages (stage 1's
     128-point DFTs, 5 m2 7 operations a path) run on bf16 inputs, so
     they go over the dense bf16 tensor-core peak and the rest over the
@@ -4844,6 +4869,125 @@ def k2_forms_main(root: Path) -> int:
     return 0
 
 
+K9_FORMS = ((False, False, False), (True, False, False), (False, True, False),
+            (True, True, False), (False, False, True), (False, True, True))
+
+
+def k9_forms_main(root: Path) -> int:
+    """``python3 chip_smoke.py --k9-forms [ROOT]``: K9 in each of its 12
+    forms (float32 and bf16; plain, paired, CV, paired CV, quadratic,
+    quadratic CV) and K8 in its four (float32 and bf16, plain and paired)
+    at XLONG_STEPS, and K9 and K8 plain at LONG_STEPS and 8192, seeded at
+    131,072 rows on the bench option's fitted tables of each horizon, with
+    the package of the checkout at ROOT (default: this script's): each
+    form's ms (CUDA events, the mean of 10 launches after a warm one), K9's
+    lanes' relative error against the plain version on the same seed
+    (16,384 rows at 8192 steps, whose plain planes would not fit beside
+    the chunk's), K8's largest absolute error on its first 8,192 rows, and
+    blocks per SM where the checkout reports them.  Prints one JSON line;
+    run it on two checkouts in one call, in turns, to compare them."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root.resolve()))
+    from montecarlooptionspricer_tpu_torch.kernels import build
+    from montecarlooptionspricer_tpu_torch.models import engine
+    from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
+    from montecarlooptionspricer_tpu_torch.models import (
+        pathgen_factored_cuda as pfc)
+
+    check(Path(pfc.__file__).resolve().is_relative_to(root.resolve()),
+          f"imported {pfc.__file__}, not the checkout at {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load()
+    dev = torch.device("cuda", 0)
+    market = [MARKET[k] for k in ("s0", "xi", "h", "eta", "r")]
+    key = pc._fold_words(12345, 9)
+    k9_rows, k8_err_rows = CHUNK, min(CHUNK, 1 << 13)
+    forms = []
+    for n in (XLONG_STEPS, LONG_STEPS, 8192):
+        cfg = engine.StreamConfig(n_paths=CHUNK, n_steps=n, chunk_paths=CHUNK,
+                                  pilot_paths=PILOT, dt=DT,
+                                  tiled_impl="factored")
+        pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                        maturity=n * DT, is_call=IS_CALL,
+                                        config=cfg, device=dev)
+        check(pricer.kernel_family == "factored",
+              f"{n} steps resolved to {pricer.kernel_family!r}")
+        fits = pricer.fit(engine._pilot_stream_keys(SEED)[0])
+        tables = {policy: engine._fused_rows_builder(
+            MARKET["r"], STRIKE, n * DT, DT, n, IS_CALL, policy)(fits)
+            for policy in ("boundary", "quadratic")}
+        del pricer
+        err_rows = k9_rows if n <= 4096 else min(k9_rows, 1 << 14)
+        all_forms = n == XLONG_STEPS
+        for bf16 in ((False, True) if all_forms else (False,)):
+            consts = pfc.make_factored_consts(
+                *market, n, DT, dev,
+                fgn_dtype="bfloat16" if bf16 else "float32")
+            for anti in ((False, True) if all_forms else (False,)):
+                def run_k8():
+                    return pfc.factored_pathgen(consts, rows=k9_rows,
+                                                key=key, antithetic=anti)
+                ms = time_ms(torch, run_k8, 10)
+                got = pfc.factored_pathgen(consts, rows=k8_err_rows,
+                                           key=key, antithetic=anti)
+                noise = pfc.philox_factored_normals_ref(
+                    key, k8_err_rows // 2 if anti else k8_err_rows, n,
+                    device=dev)
+                want = pfc.factored_pathgen_from_noise_ref(consts, noise,
+                                                           anti)
+                rec = {"kernel": "K8", "n_steps": n,
+                       "form": pc.form_name(anti, bf16=bf16), "ms": ms,
+                       "max_abs_err": float((got - want).abs().max()),
+                       "max_rel_err": float(((got - want) / want).abs()
+                                            .max())}
+                if hasattr(pfc, "blocks_per_sm"):
+                    rec["blocks_per_sm"] = pfc.blocks_per_sm(
+                        consts, priced=False, antithetic=anti)
+                forms.append(rec)
+                del got, noise, want
+            for anti, cv, quad in (K9_FORMS if all_forms
+                                   else K9_FORMS[:1]):
+                policy = "quadratic" if quad else "boundary"
+                table = tables[policy]
+
+                def run_k9(rows=k9_rows):
+                    return pfc.factored_priced_chunk(
+                        consts, table, STRIKE, IS_CALL, rows=rows, key=key,
+                        antithetic=anti, with_cv=cv, policy_form=policy)
+
+                ms = time_ms(torch, run_k9, 10)
+                got = run_k9(err_rows)
+                noise = pfc.philox_factored_normals_ref(
+                    key, err_rows // 2 if anti else err_rows, n, device=dev)
+                want = pfc.factored_priced_chunk_from_noise_ref(
+                    consts, table, noise, STRIKE, IS_CALL, anti, cv, policy)
+                del noise
+                got, want = (got, want) if cv else ((got,), (want,))
+                rec = {"kernel": "K9", "n_steps": n,
+                       "form": pc.form_name(anti, cv, quadratic=quad,
+                                            bf16=bf16), "ms": ms,
+                       "rel_err": [abs(float(g) / float(w) - 1.0)
+                                   for g, w in zip(got, want)],
+                       "abs_err": [abs(float(g) - float(w))
+                                   for g, w in zip(got, want)]}
+                if hasattr(pfc, "blocks_per_sm"):
+                    rec["blocks_per_sm"] = pfc.blocks_per_sm(
+                        consts, antithetic=anti, with_cv=cv,
+                        policy_form=policy)
+                forms.append(rec)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    emit({"k9_forms": forms, "rows": k9_rows, "root": str(root),
+          "card": smi})
+    return 0
+
+
 def main() -> int:
     _START[0] = time.perf_counter()
     import torch
@@ -5127,6 +5271,7 @@ def main() -> int:
     kernels += roofline_phase(torch, rl, smi, dev, kernels, reset_counts,
                               read_counts)
     k2_split(pc, kernels, dev)
+    k89_split(pfc, kernels, dev)
     check(sorted(k["name"] for k in kernels) == sorted(REPLACES),
           "the kernels line does not list every kernel and form")
     emit({"kernels": kernels})
@@ -5138,9 +5283,11 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        if sys.argv[1:2] == ["--k2-forms"]:
-            sys.exit(k2_forms_main(Path(sys.argv[2]) if len(sys.argv) > 2
-                                   else Path(__file__).resolve().parent))
+        if sys.argv[1:2] in (["--k2-forms"], ["--k9-forms"]):
+            forms_main = (k2_forms_main if sys.argv[1] == "--k2-forms"
+                          else k9_forms_main)
+            sys.exit(forms_main(Path(sys.argv[2]) if len(sys.argv) > 2
+                                else Path(__file__).resolve().parent))
         sys.exit(main())
     except SmokeError as e:
         print(f"error: {e}", file=sys.stderr)

@@ -164,6 +164,8 @@ def load() -> types.SimpleNamespace:
                                         p]},
         "pathgen_factored": {
             "mcop_factored_smem_bytes": [i],
+            "mcop_factored_form_smem_bytes": [i] * 3,
+            "mcop_factored_blocks_per_sm": [i] * 5,
             "mcop_factored_pathgen": [p] * 10 + [i, i, u, f, f, f, f, f, i,
                                                  i, p, p],
             "mcop_factored_priced_chunk": [p] * 10 + [

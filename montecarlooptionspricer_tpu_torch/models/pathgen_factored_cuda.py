@@ -24,9 +24,12 @@ The fGN increments are the reference's spectral synthesis, half-scaled
 (m2 = next_pow2(n_steps)) of the complex fGN noise Z with the diagonal
 phi' = 0.5 sqrt(2H) eta phi / m2 in front (zero at k >= n_steps).  The
 kernels split it four-step, k = N2 k1 + k2 and m = m1 + 128 j
-(N2 = m2 / 128): stage 1 is a complex [rows N2, 128] x [128, 128] product
-against F1 over k1, then the twiddle W_m2^{k2 m1}; stage 2 sums the N2
-rows with W_N2^{k2 j} for each output step tile j.  The noise is stored
+(N2 = m2 / 128): stage 1 is a 128-point FFT over k1 of each (path, k2)
+row, then the twiddle W_m2^{k2 m1}; stage 2 is an N2-point FFT over k2 of
+each (path, m1) column, output j being step tile j.  The roots of unity
+come from the host tables (F1's row 1 and the stage-2 table's row 1).
+The bf16 form keeps stage 1 as the dense [rows N2, 128] x [128, 128]
+product against F1 on the tensor cores.  The noise is stored
 transposed, so stage 1 reads it in place: storage column c = 128 k2 + k1
 holds logical frequency k = N2 k1 + k2 (``transposed_to_logical``).  The
 Euler recursion and the first-hit test are those of the other kernels, and
@@ -79,8 +82,16 @@ LANE = pc.LANE
 # ---------------------------------------------------------------------------
 # The card's memory model (mirrors csrc/pathgen_factored.cu).
 
-STAGE1_ROWS = 64        # (path, k2) rows of the stage-1 product per block
-TILE_K = 16             # k1 per staged k-tile of the noise and of F1
+STAGE1_ROWS = 64        # (path, k2) rows of stage 1 per block
+MAX_N2 = STAGE1_ROWS    # a block holds at least one path
+ROW_STRIDE = LANE + 16  # floats a row of the Re and Im planes
+THREADS = 256
+# The staging region: the bf16 form's F1 k-tiles (two [128][40] bf16
+# planes), then four steps a thread of the decision's table rows, for two
+# tiles at once (one under the quadratic policy).
+F1_TILE_FLOATS = LANE * 40
+STAGED_ROWS = {"path": 0, "boundary": 3, "quadratic": 8}
+STAGED_TILES = {"path": 0, "boundary": 2, "quadratic": 1}
 
 
 def _n2(n_steps: int) -> int:
@@ -92,24 +103,27 @@ def paths_per_block(n_steps: int) -> int:
     return STAGE1_ROWS // _n2(n_steps)
 
 
-def smem_bytes(n_steps: int) -> int:
-    """Shared memory of one CUDA block: the twiddled stage-1 output S'
-    (real and imaginary [STAGE1_ROWS, 128]), one region that holds first
-    the staged k-tiles (noise (row stride STAGE1_ROWS + 4) and F1) and
-    then the paths' Euler increments ([paths, m2] = STAGE1_ROWS * 128
-    floats), and the stage-2 cos and sin tables [N2, max(N2, 4)]."""
-    n2 = _n2(n_steps)
-    staging = 2 * TILE_K * (STAGE1_ROWS + 4) + 2 * TILE_K * LANE
-    floats = (2 * STAGE1_ROWS * LANE + max(staging, STAGE1_ROWS * LANE)
-              + 2 * n2 * max(n2, 4))
-    return 4 * floats
+def smem_bytes(n_steps: int, policy: str = "quadratic") -> int:
+    """Shared memory of one CUDA block of K8 (``policy="path"``) or of K9
+    under the ``"boundary"`` or ``"quadratic"`` policy, the same at every
+    horizon and in both fGN input dtypes: the Re and Im planes (STAGE1_ROWS
+    rows of ROW_STRIDE floats, the third and fourth of each group of four
+    rows shifted by 8 floats), the root tables (W_128 and W_N2 up to
+    MAX_N2, complex) and the staging region.  The default is the largest
+    form's, K9's quadratic one, what ``mcop_factored_smem_bytes`` reports."""
+    del n_steps
+    plane = STAGE1_ROWS * ROW_STRIDE + 8
+    roots = 2 * LANE + 2 * MAX_N2
+    stage = max(F1_TILE_FLOATS,
+                THREADS * 4 * STAGED_ROWS[policy] * STAGED_TILES[policy])
+    return 4 * (2 * plane + roots + stage)
 
 
 def max_factored_steps() -> int:
     """Largest horizon K8/K9 take: the longest m2 whose block holds at
     least one path (N2 <= STAGE1_ROWS) inside the card's shared memory."""
     best, m2 = 0, 2 * LANE
-    while m2 // LANE <= STAGE1_ROWS and smem_bytes(m2) <= pc.SMEM_LIMIT:
+    while m2 // LANE <= MAX_N2 and smem_bytes(m2) <= pc.SMEM_LIMIT:
         best, m2 = m2, 2 * m2
     return best
 
@@ -399,6 +413,26 @@ def _const_ptrs(consts: FactoredConsts, rows: int, noise,
                          f"{consts.n_steps}")
     return (None if noise is None else noise.data_ptr(),
             *(t.data_ptr() for t in tensors), rows, consts.n_steps)
+
+
+def blocks_per_sm(consts: FactoredConsts, priced: bool = True,
+                  antithetic: bool = False, with_cv: bool = False,
+                  policy_form: str = "boundary") -> int:
+    """Blocks of K8 (``priced=False``) or K9 one SM of the card runs at
+    once in the form of ``consts`` (its fGN input dtype), ``antithetic``,
+    ``with_cv`` and ``policy_form`` (the CUDA runtime's occupancy query on
+    the seeded body)."""
+    quadratic = priced and pc.check_policy(policy_form, antithetic)
+    from ..kernels import build
+
+    got = build.entry(build.load(), "pathgen_factored",
+                      "mcop_factored_blocks_per_sm", consts.bf16)(
+        consts.n_steps, int(priced), int(antithetic), int(with_cv),
+        int(quadratic))
+    if got < 0:
+        raise RuntimeError(f"mcop_factored_blocks_per_sm failed: cudaError "
+                           f"{-got}")
+    return got
 
 
 def _key_word(key) -> int:

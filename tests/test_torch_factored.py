@@ -416,8 +416,8 @@ def test_factored_memory_model():
         assert pfc.smem_bytes(m2) <= pc.SMEM_LIMIT
         assert pfc.paths_per_block(m2) * m2 // pc.LANE == pfc.STAGE1_ROWS
         m2 *= 2
-    assert pfc.smem_bytes(1825) == 100_352 and pfc.paths_per_block(1825) == 4
-    assert pfc.smem_bytes(4000) == 106_496 and pfc.paths_per_block(4000) == 2
+    assert pfc.smem_bytes(1825) == 108_096 and pfc.paths_per_block(1825) == 4
+    assert pfc.smem_bytes(4000) == 108_096 and pfc.paths_per_block(4000) == 2
     for n in (129, 200, 1825, 4000, 4096):
         assert pfc.supports(n) and jf.supports(n)
     assert not pfc.supports(128) and not pfc.supports(CAP + 1)

@@ -1961,14 +1961,14 @@ def _k2_edge_columns(n):
     return sorted({c for c in (63, 64, n - 1) if c < n})
 
 
-def _k2_edge_tables(ls, first_tile=False):
+def _k2_edge_tables(ls, first_tile=False, cols=None):
     """A log_boundary_rows table and a policy_rows table on the log paths
     ``ls`` [rows, n] (a put at 105): each open column stops about a third of
     the paths still running (the bottom third of log S, or the top third
     of the payoff less 0.5 z, z = (S - mu) / sd with mu and sd the
     column's mean and standard deviation), every other column none, so
     paths stop at 63, 64 or n - 1 or never.  ``first_tile``: every path
-    stops at column min(5, n - 1)."""
+    stops at column min(5, n - 1).  ``cols`` names other open columns."""
     n, dev = ls.shape[1], ls.device
     disc = torch.exp(-MARKET["r"] * DT * torch.arange(1, n + 1, device=dev))
     log_t = torch.zeros((8, n), device=dev)
@@ -1977,7 +1977,8 @@ def _k2_edge_tables(ls, first_tile=False):
     quad[3], quad[4], quad[5], quad[6], quad[7] = 0.0, 1.0, 1e30, disc, 105.0
     quad[1] = 0.5
     s = torch.exp(ls)
-    cols = [min(5, n - 1)] if first_tile else _k2_edge_columns(n)
+    if cols is None:
+        cols = [min(5, n - 1)] if first_tile else _k2_edge_columns(n)
     for c in cols:
         if first_tile:
             log_t[0, c], log_t[1, c] = -1e30, 1e30
@@ -2196,3 +2197,145 @@ def test_seeded_k2_matches_seeded_k5_of_one_strike(cuda, form, fgn_form,
     k2 = float(pc.priced_chunk(consts, k2_table, 104.0, False, rows=rows,
                                key=key, antithetic=anti, policy_form=policy))
     assert k2 > 0 and abs(k5 / k2 - 1.0) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# K8 and K9 as FFTs: every form on edge tables, the memory model.
+
+K89_FORMS = [(d, a, cv, p) for d in ("float32", "bfloat16")
+             for a, cv, p in ((False, False, "boundary"),
+                              (True, False, "boundary"),
+                              (False, True, "boundary"),
+                              (True, True, "boundary"),
+                              (False, False, "quadratic"),
+                              (False, True, "quadratic"))]
+
+
+def _k89_edge_columns(n):
+    """K9's open columns: the edges of its step tiles and of its scan
+    segments (127, 128, 1023, 1024, 2047, 2048, where they exist) and the
+    last step."""
+    return sorted({c for c in (127, 128, 1023, 1024, 2047, 2048, n - 1)
+                   if c < n})
+
+
+def _check_k9_form(consts, table, noise, key, anti, cv, policy, rows):
+    """One K9 form, seeded and noise-in, against its plain version (each
+    lane at rtol 1e-4), two seeded launches bit for bit, and paired against
+    the unpaired form on [X; -X] (1e-5)."""
+    priced = pfc.factored_priced_chunk
+    want = pfc.factored_priced_chunk_from_noise_ref(
+        consts, table, noise, 105.0, False, anti, cv, policy)
+    want = want if cv else (want,)
+    form = dict(antithetic=anti, with_cv=cv, policy_form=policy)
+    got_n, got_s, again = (
+        priced(consts, table, 105.0, False, **form, **kw)
+        for kw in ({"noise": noise}, {"rows": rows, "key": key},
+                   {"rows": rows, "key": key}))
+    torch.cuda.synchronize()
+    for got in (got_n, got_s):
+        for g, w in zip(got if cv else (got,), want):
+            assert float(w) > 0
+            assert abs(float(g) / float(w) - 1.0) < 1e-4, form
+    for g, w in zip(got_s if cv else (got_s,), again if cv else (again,)):
+        assert torch.equal(g, w)
+    if anti:
+        unpaired = priced(consts, table, 105.0, False,
+                          noise=torch.cat([noise, -noise], dim=1),
+                          with_cv=cv)
+        torch.cuda.synchronize()
+        for g, w in zip(got_n if cv else (got_n,),
+                        unpaired if cv else (unpaired,)):
+            assert abs(float(g) / float(w) - 1.0) < 1e-5, form
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [129, 200, 400, 1825, 4000, 8192])
+def test_k89_every_form_on_edge_tables(cuda, n_steps):
+    """K8 in its four forms and K9 in its twelve at 131072 rows (32768 at
+    8192 steps, which keeps the plain planes in memory), seeded and
+    noise-in: K8's paths at rtol 5e-4 against the plain version (the bf16
+    form's: the four-step split), the pair to the bit against the unpaired
+    kernel on [X; -X]; K9 on tables whose first hits fall at the edges of
+    its step tiles and scan segments, at n - 1 or never (each open column
+    stops a third of the paths still running), against the plain versions
+    at rtol 1e-4, two seeded launches bit for bit and pairs against
+    [X; -X] (1e-5).  Each launch counts under its form."""
+    rows = 1 << 17 if n_steps <= 4096 else 1 << 15
+    key = pc._fold_words(5, 151)
+    path = pfc.factored_pathgen
+    cols = _k89_edge_columns(n_steps)
+    for dtype in ("float32", "bfloat16"):
+        consts = pfc.make_factored_consts(*MARKET.values(), n_steps, DT,
+                                          cuda, fgn_dtype=dtype)
+        for anti in (False, True):
+            noise = pfc.philox_factored_normals_ref(
+                key, rows // 2 if anti else rows, n_steps, device=cuda)
+            want = pfc.factored_pathgen_from_noise_ref(consts, noise, anti)
+            name = pc.form_name(anti, bf16=dtype == "bfloat16")
+            before = path.form_launches[name]
+            for got in (path(consts, noise=noise, antithetic=anti),
+                        path(consts, rows=rows, key=key, antithetic=anti)):
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, rtol=5e-4, atol=0)
+                del got
+            assert path.form_launches[name] - before == 2
+            del want
+            if anti:
+                torch.testing.assert_close(
+                    path(consts, noise=noise, antithetic=True),
+                    path(consts, noise=torch.cat([noise, -noise], dim=1)),
+                    rtol=0, atol=0)
+            ls = pfc._log_paths_ref(consts, noise, anti)
+            log_t, quad = _k2_edge_tables(ls, cols=cols)
+            del ls
+            for d, a, cv, policy in K89_FORMS:
+                if d != dtype or a != anti:
+                    continue
+                name = pc.form_name(anti, cv, quadratic=policy == "quadratic",
+                                    bf16=dtype == "bfloat16")
+                before = pfc.factored_priced_chunk.form_launches[name]
+                _check_k9_form(consts, quad if policy == "quadratic"
+                               else log_t, noise, key, anti, cv, policy,
+                               rows)
+                assert pfc.factored_priced_chunk.form_launches[name] \
+                    - before == 3
+            del noise
+
+
+@pytest.mark.gpu
+def test_k89_memory_model_and_blocks_are_the_cards(cuda):
+    """Each unit's mcop_factored_smem_bytes and mcop_factored_form_smem_bytes
+    equal pfc.smem_bytes (the same at every horizon and in both dtypes,
+    -1 outside the range), and the runtime holds each K8 and K9 form's block
+    at least as often as the launch bounds' minimum of two allows within
+    shared memory, and no more than shared memory allows."""
+    from montecarlooptionspricer_tpu_torch.kernels import build
+
+    lib = build.load()
+    for bf16 in (False, True):
+        smem = build.entry(lib, "pathgen_factored",
+                           "mcop_factored_smem_bytes", bf16)
+        form = build.entry(lib, "pathgen_factored",
+                           "mcop_factored_form_smem_bytes", bf16)
+        for n in (129, 200, 400, 1825, 4000, 8192):
+            assert smem(n) == pfc.smem_bytes(n)
+            assert form(n, 0, 0) == pfc.smem_bytes(n, "path")
+            assert form(n, 1, 0) == pfc.smem_bytes(n, "boundary")
+            assert form(n, 1, 1) == pfc.smem_bytes(n, "quadratic")
+        assert smem(128) == smem(8193) == form(8193, 1, 0) == -1
+    for n in (1825, 4000, 8192):
+        for dtype in ("float32", "bfloat16"):
+            consts = pfc.make_factored_consts(*MARKET.values(), n, DT, cuda,
+                                              fgn_dtype=dtype)
+            for anti in (False, True):
+                most = pc.smem_blocks_per_sm(pfc.smem_bytes(n, "path"))
+                got = pfc.blocks_per_sm(consts, False, anti)
+                assert min(2, most) <= got <= most, (n, dtype, anti, got)
+            for d, anti, cv, policy in K89_FORMS:
+                if d != dtype:
+                    continue
+                most = pc.smem_blocks_per_sm(pfc.smem_bytes(n, policy))
+                got = pfc.blocks_per_sm(consts, True, anti, cv, policy)
+                assert min(2, most) <= got <= most, (n, dtype, anti, cv,
+                                                     policy, got)
