@@ -162,19 +162,24 @@ to 0 just before it and read just after:
   shapes the rates come from, the library yardsticks, and each of
   K1/K2/K6/K7 (float32 and bf16) beside its P1 ceiling.
 
-It also times K2 against K7 per chunk across horizons (the crossover that
-sets engine.SINGLE_TILE_MAX_STEPS) and times each kernel and form (K8 and
-K9 at 1825 and 4000 steps).  Each K5 form is timed on one strike beside
+It also times K2 against K7 and K9 per chunk across horizons, in float32
+and bf16 (the crossover that sets engine.SINGLE_TILE_MAX_STEPS and the
+long-horizon family choice) and times each kernel and form (K8 and K9 at
+1825 and 4000 steps).  Each K5 form is timed on one strike beside
 the strip (``one_strike_ms``, ``sweep_ms``: the strike sweep's share),
 each K4 form beside K3 of the same form (``k4_minus_k3_ms``), and each
 K5, K3 and K4 entry of the kernels line carries the blocks one SM runs at
 once (``blocks_per_sm``, the C entries' occupancy query); each K2 entry
 carries its blocks per SM, the ms of K1 in the same fGN form, dtype and
 pairing (``k1_ms``) and K5's one-strike ms in its form where K5 has it
-(``k5_one_strike_ms``); each K8 and K9 entry carries its blocks per SM.
+(``k5_one_strike_ms``); each K1, K6, K7, K8 and K9 entry carries its
+blocks per SM.
 ``python3 chip_smoke.py --k2-forms [ROOT]`` times K2's 24 forms alone
 (``k2_forms_main``), ``--k9-forms [ROOT]`` K9's 12 forms and K8's four
-(``k9_forms_main``), on this checkout or another.
+(``k9_forms_main``), ``--k1-forms [ROOT]`` K1's 8 forms and the ms of
+each block that fits (``k1_forms_main``), ``--k7-forms [ROOT]`` K7's 24
+forms, K6's 8 and P1's matmul with digests of K6's and P1's outputs
+(``k7_forms_main``), on this checkout or another.
 
 Usage (from the root of a checkout, one CUDA card):  python3 chip_smoke.py
 
@@ -825,6 +830,37 @@ def k2_split(pc, kernels: list, dev) -> None:
                                    else by_name[k5]["one_strike_ms"])
 
 
+def k1_k7_split(pc, ptc, kernels: list, dev) -> None:
+    """Each K1 entry of the kernels line gains the blocks one SM runs at
+    once of its form at N_STEPS and each K6 and K7 entry of its form at
+    LONG_STEPS (``blocks_per_sm``, the C entries' occupancy queries at the
+    blocks the wrappers pick)."""
+    market = [MARKET[k] for k in ("s0", "xi", "h", "eta", "r")]
+    consts = {}
+    names = {"pathgen": "K1", "tiled_pathgen": "K6",
+             "tiled_priced_chunk": "K7"}
+    for rec in kernels:
+        name = names.get(rec["name"], rec["name"])
+        kernel, parts = name.split("/")[0], name.split("/")[1:]
+        if kernel not in ("K1", "K6", "K7"):
+            continue
+        bf16, spec = "bf16" in parts, "spectral" in parts
+        anti = "anti" in parts or "anti+cv" in parts
+        n = N_STEPS if kernel == "K1" else LONG_STEPS
+        if (n, bf16, spec) not in consts:
+            consts[n, bf16, spec] = pc.make_path_consts(
+                *market, n, DT, dev, fgn_form="spectral" if spec else "chol",
+                fgn_dtype="bfloat16" if bf16 else "float32")
+        c = consts[n, bf16, spec]
+        if kernel == "K1":
+            rec["blocks_per_sm"] = pc.pathgen_blocks_per_sm(c, CHUNK, anti)
+        else:
+            rec["blocks_per_sm"] = ptc.blocks_per_sm(
+                c, CHUNK, kernel == "K7", anti,
+                "cv" in parts or "anti+cv" in parts,
+                "quadratic" if "quad" in parts else "boundary")
+
+
 def k89_split(pfc, kernels: list, dev) -> None:
     """Each K8 and K9 entry of the kernels line gains the blocks one SM runs
     at once of its form at XLONG_STEPS (``blocks_per_sm``, the C entry's
@@ -1252,28 +1288,45 @@ def long_horizon_phases(torch, pc, ptc, engine, smi, dev, key, rel_err,
           "K7 disagrees with its plain version")
 
     # Crossover: K2 against K7 per chunk across horizons, on one key and
-    # one table (their sums must agree too).
+    # one table (their sums must agree too), in float32 and bf16, with K9
+    # (the factored family, another stream: timed only) beside them.
+    from montecarlooptionspricer_tpu_torch.models import (
+        pathgen_factored_cuda as pfc)
+
     horizons = []
     for n in CROSSOVER_STEPS:
-        c = pc.make_path_consts(MARKET["s0"], MARKET["xi"], MARKET["h"],
-                                MARKET["eta"], MARKET["r"], n, DT, dev)
         tab = threshold_table(torch, n, dev)
+        for dtype in pc.FGN_DTYPES:
+            c = pc.make_path_consts(MARKET["s0"], MARKET["xi"], MARKET["h"],
+                                    MARKET["eta"], MARKET["r"], n, DT, dev,
+                                    fgn_dtype=dtype)
+            fc = pfc.make_factored_consts(
+                MARKET["s0"], MARKET["xi"], MARKET["h"], MARKET["eta"],
+                MARKET["r"], n, DT, dev, fgn_dtype=dtype)
 
-        def run_k2(c=c, tab=tab):
-            return pc.priced_chunk(c, tab, STRIKE, IS_CALL, rows=CHUNK,
-                                   key=key)
+            def run_k2(c=c, tab=tab):
+                return pc.priced_chunk(c, tab, STRIKE, IS_CALL, rows=CHUNK,
+                                       key=key)
 
-        def run_k7(c=c, tab=tab):
-            return ptc.tiled_priced_chunk(c, tab, STRIKE, IS_CALL, rows=CHUNK,
-                                          key=key)
+            def run_k7(c=c, tab=tab):
+                return ptc.tiled_priced_chunk(c, tab, STRIKE, IS_CALL,
+                                              rows=CHUNK, key=key)
 
-        s2, s7 = float(run_k2()), float(run_k7())
-        rel = abs(s7 / s2 - 1.0)
-        horizons.append({"n_steps": n, "k2_block_paths": c.block_paths,
-                         "k2_ms": time_ms(torch, run_k2, 3),
-                         "k7_ms": time_ms(torch, run_k7, 3),
-                         "sum_rel_err": rel})
-        check(rel <= SUM_RTOL, f"K2 and K7 sums disagree at {n} steps")
+            def run_k9(fc=fc, tab=tab):
+                return pfc.factored_priced_chunk(fc, tab, STRIKE, IS_CALL,
+                                                 rows=CHUNK, key=key)
+
+            s2, s7 = float(run_k2()), float(run_k7())
+            rel = abs(s7 / s2 - 1.0)
+            horizons.append({"n_steps": n, "fgn_dtype": dtype,
+                             "k2_block_paths": pc.priced_block_paths(
+                                 c, CHUNK),
+                             "k2_ms": time_ms(torch, run_k2, 3),
+                             "k7_ms": time_ms(torch, run_k7, 3),
+                             "k9_ms": time_ms(torch, run_k9, 3),
+                             "sum_rel_err": rel})
+            check(rel <= SUM_RTOL,
+                  f"K2 and K7 sums disagree at {n} steps ({dtype})")
     emit({"phase": "crossover", "card": smi, "rows": CHUNK,
           "table": "put exercised once S <= 0.9 strike",
           "horizons": horizons,
@@ -4770,6 +4823,43 @@ def roofline_phase(torch, rl, smi, dev, kernels: list, reset_counts,
                           / PEAK_BF16_FLOPS * 1e3)]
 
 
+def _forms_setup(root: Path, module: str):
+    """The checkout at ROOT on sys.path, its package checked to be the one
+    imported, TF32 off and the kernels built: (torch, dev) for the forms
+    runners, or None without a CUDA device."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device", file=sys.stderr)
+        return None
+    sys.path.insert(0, str(root.resolve()))
+    import importlib
+
+    from montecarlooptionspricer_tpu_torch.kernels import build
+
+    mod = importlib.import_module(module)
+    check(Path(mod.__file__).resolve().is_relative_to(root.resolve()),
+          f"imported {mod.__file__}, not the checkout at {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load()
+    return torch, torch.device("cuda", 0)
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+def _digest(t) -> str:
+    """sha256 of a tensor's bytes, to hold two checkouts' outputs equal bit
+    for bit."""
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
 def k2_forms_main(root: Path) -> int:
     """``python3 chip_smoke.py --k2-forms [ROOT]``: K2 in each of its 24
     forms (float32 and bf16, chol and spectral, the four boundary forms
@@ -4781,22 +4871,15 @@ def k2_forms_main(root: Path) -> int:
     each fGN form, dtype and pairing and K5's one-strike ms in its
     plain, paired and quadratic forms.  Prints one JSON line; run it on
     two checkouts in one call, in turns, to compare them."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("error: no CUDA device", file=sys.stderr)
+    got_setup = _forms_setup(root, "montecarlooptionspricer_tpu_torch."
+                                   "models.pathgen_cuda")
+    if got_setup is None:
         return 1
-    sys.path.insert(0, str(root.resolve()))
-    from montecarlooptionspricer_tpu_torch.kernels import build
+    torch, dev = got_setup
     from montecarlooptionspricer_tpu_torch.models import chain_cuda as cc
     from montecarlooptionspricer_tpu_torch.models import engine
     from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
 
-    check(Path(pc.__file__).resolve().is_relative_to(root.resolve()),
-          f"imported {pc.__file__}, not the checkout at {root}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    build.load()
-    dev = torch.device("cuda", 0)
     market = [MARKET[k] for k in ("s0", "xi", "h", "eta", "r")]
     cfg = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
                               chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
@@ -4860,12 +4943,8 @@ def k2_forms_main(root: Path) -> int:
                     rec["blocks_per_sm"] = pc.priced_blocks_per_sm(
                         consts, CHUNK, anti, cv, policy)
                 forms.append(rec)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
     emit({"k2_forms": forms, "k1_ms": k1, "k5_one_strike_ms": k5,
-          "root": str(root), "card": smi})
+          "root": str(root), "card": _card()})
     return 0
 
 
@@ -4886,23 +4965,16 @@ def k9_forms_main(root: Path) -> int:
     the chunk's), K8's largest absolute error on its first 8,192 rows, and
     blocks per SM where the checkout reports them.  Prints one JSON line;
     run it on two checkouts in one call, in turns, to compare them."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("error: no CUDA device", file=sys.stderr)
+    got_setup = _forms_setup(root, "montecarlooptionspricer_tpu_torch."
+                                   "models.pathgen_factored_cuda")
+    if got_setup is None:
         return 1
-    sys.path.insert(0, str(root.resolve()))
-    from montecarlooptionspricer_tpu_torch.kernels import build
+    torch, dev = got_setup
     from montecarlooptionspricer_tpu_torch.models import engine
     from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
     from montecarlooptionspricer_tpu_torch.models import (
         pathgen_factored_cuda as pfc)
 
-    check(Path(pfc.__file__).resolve().is_relative_to(root.resolve()),
-          f"imported {pfc.__file__}, not the checkout at {root}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    build.load()
-    dev = torch.device("cuda", 0)
     market = [MARKET[k] for k in ("s0", "xi", "h", "eta", "r")]
     key = pc._fold_words(12345, 9)
     k9_rows, k8_err_rows = CHUNK, min(CHUNK, 1 << 13)
@@ -4979,13 +5051,198 @@ def k9_forms_main(root: Path) -> int:
                         consts, antithetic=anti, with_cv=cv,
                         policy_form=policy)
                 forms.append(rec)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
     emit({"k9_forms": forms, "rows": k9_rows, "root": str(root),
-          "card": smi})
+          "card": _card()})
     return 0
+
+
+# K1's eight forms and K6's: (bf16, spectral, antithetic).
+PATH_FORM_KEYS = tuple((b, s, a) for b in (False, True) for s in (False, True)
+                       for a in (False, True))
+
+
+def k1_forms_main(root: Path) -> int:
+    """``python3 chip_smoke.py --k1-forms [ROOT]``: K1 in each of its 8
+    forms (float32 and bf16, chol and spectral, plain and paired) at
+    N_STEPS, seeded at 131,072 rows, with the package of the checkout at
+    ROOT (default: this script's): each form's ms (CUDA events, the mean
+    of 10 launches after a warm one), its largest absolute and relative
+    error against the plain version on the same seed, its block and, where
+    the checkout reports them, its blocks per SM and the ms of every block
+    that fits (``block_ms``, the form's cap set to each in turn).  Prints
+    one JSON line; run it on two checkouts in one call, in turns, to
+    compare them."""
+    got_setup = _forms_setup(root, "montecarlooptionspricer_tpu_torch."
+                                   "models.pathgen_cuda")
+    if got_setup is None:
+        return 1
+    torch, dev = got_setup
+    from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
+
+    market = [MARKET[k] for k in ("s0", "xi", "h", "eta", "r")]
+    key = pc._fold_words(12345, 16)
+    forms = []
+    for bf16, spec, anti in PATH_FORM_KEYS:
+        consts = pc.make_path_consts(
+            *market, N_STEPS, DT, dev,
+            fgn_form="spectral" if spec else "chol",
+            fgn_dtype="bfloat16" if bf16 else "float32")
+
+        def run():
+            return pc.pathgen(consts, rows=CHUNK, key=key, antithetic=anti)
+
+        got = run()
+        noise = pc.normals_ref(consts, key, CHUNK // 2 if anti else CHUNK,
+                               device=dev)
+        want = pc.pathgen_from_noise_ref(consts, noise, anti)
+        del noise
+        diff = (got - want).abs()
+        rec = {"form": pc.form_name(anti, spectral=spec, bf16=bf16),
+               "ms": time_ms(torch, run, 10),
+               "max_abs_err": float(diff.max()),
+               "max_rel_err": float((diff / want.abs()).max())}
+        del got, want, diff
+        if hasattr(pc, "pathgen_block_paths"):
+            rec["block_paths"] = pc.pathgen_block_paths(consts, CHUNK, anti)
+            rec["blocks_per_sm"] = pc.pathgen_blocks_per_sm(consts, CHUNK,
+                                                            anti)
+            caps, form_key = pc.PATHGEN_BLOCK_CAPS, (bf16, spec, anti)
+            saved = caps.get(form_key)
+            block_ms = {}
+            for bp in (pc.PAIRED_BLOCK_CHOICES if anti
+                       else pc.BLOCK_CHOICES):
+                if pc.pathgen_smem_bytes(N_STEPS, bp, anti, spec,
+                                         bf16) > pc.SMEM_LIMIT:
+                    continue
+                caps[form_key] = bp
+                block_ms[bp] = time_ms(torch, run, 10)
+            if saved is None:
+                del caps[form_key]
+            else:
+                caps[form_key] = saved
+            rec["block_ms"] = block_ms
+        else:
+            rec["block_paths"] = (consts.block_paths if not anti
+                                  else pc.path_block_paths(consts, CHUNK,
+                                                           True))
+        forms.append(rec)
+    emit({"k1_forms": forms, "n_steps": N_STEPS, "rows": CHUNK,
+          "root": str(root), "card": _card()})
+    return 0
+
+
+def k7_forms_main(root: Path) -> int:
+    """``python3 chip_smoke.py --k7-forms [ROOT]``: K7 in each of its 24
+    forms (float32 and bf16, chol and spectral; plain, paired, CV, paired
+    CV, quadratic, quadratic CV) and K6 in its 8 at LONG_STEPS, seeded at
+    131,072 rows on the bench option's fitted tables, and P1's matmul
+    probe in both dtypes (66 blocks of 512 rows, 384 steps, k 19 and 31),
+    with the package of the checkout at ROOT (default: this script's):
+    each form's ms (CUDA events, the mean of 5 launches after a warm one),
+    K7's lanes' relative error against the plain version on the same
+    seed, K6's largest errors and the sha256 of its seeded output on
+    16,384 rows, P1's ms and the sha256 of its product, and blocks per SM
+    where the checkout reports them.  Prints one JSON line; run it on two
+    checkouts in one call, in turns: equal digests are the same bits."""
+    got_setup = _forms_setup(root, "montecarlooptionspricer_tpu_torch."
+                                   "models.pathgen_tiled_cuda")
+    if got_setup is None:
+        return 1
+    torch, dev = got_setup
+    from montecarlooptionspricer_tpu_torch import roofline as rl
+    from montecarlooptionspricer_tpu_torch.models import engine
+    from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
+    from montecarlooptionspricer_tpu_torch.models import (
+        pathgen_tiled_cuda as ptc)
+
+    market = [MARKET[k] for k in ("s0", "xi", "h", "eta", "r")]
+    key = pc._fold_words(12345, 17)
+    n = LONG_STEPS
+    cfg = engine.StreamConfig(n_paths=CHUNK, n_steps=n, chunk_paths=CHUNK,
+                              pilot_paths=PILOT, dt=DT)
+    pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                    maturity=LONG_MATURITY, is_call=IS_CALL,
+                                    config=cfg, device=dev)
+    check(pricer.kernel_family == "tiled",
+          f"{n} steps resolved to {pricer.kernel_family!r}")
+    fits = pricer.fit(engine._pilot_stream_keys(SEED)[0])
+    tables = {policy: engine._fused_rows_builder(
+        MARKET["r"], STRIKE, LONG_MATURITY, DT, n, IS_CALL, policy)(fits)
+        for policy in ("boundary", "quadratic")}
+    del pricer
+    k6_rows = 1 << 14
+    forms = []
+    for bf16, spec, anti in PATH_FORM_KEYS:
+        consts = pc.make_path_consts(
+            *market, n, DT, dev, fgn_form="spectral" if spec else "chol",
+            fgn_dtype="bfloat16" if bf16 else "float32")
+
+        def run_k6(rows=CHUNK):
+            return ptc.tiled_pathgen(consts, rows=rows, key=key,
+                                     antithetic=anti)
+
+        got = run_k6(k6_rows)
+        noise = pc.normals_ref(consts, key, k6_rows // 2 if anti else k6_rows,
+                               device=dev)
+        want = ptc.pathgen_from_noise_ref(consts, noise, anti)
+        diff = (got - want).abs()
+        rec = {"kernel": "K6", "form": pc.form_name(anti, spectral=spec,
+                                                    bf16=bf16),
+               "ms": time_ms(torch, run_k6, 5),
+               "max_abs_err": float(diff.max()),
+               "max_rel_err": float((diff / want.abs()).max()),
+               "sha256": _digest(got)}
+        del got, noise, want, diff
+        if hasattr(ptc, "blocks_per_sm"):
+            rec["blocks_per_sm"] = ptc.blocks_per_sm(consts, CHUNK, False,
+                                                     anti)
+        forms.append(rec)
+        if anti:
+            continue
+        for anti7, cv, quad in K9_FORMS:
+            policy = "quadratic" if quad else "boundary"
+            table = tables[policy]
+
+            def run_k7():
+                return ptc.tiled_priced_chunk(
+                    consts, table, STRIKE, IS_CALL, rows=CHUNK, key=key,
+                    antithetic=anti7, with_cv=cv, policy_form=policy)
+
+            got = run_k7()
+            noise = pc.normals_ref(consts, key,
+                                   CHUNK // 2 if anti7 else CHUNK,
+                                   device=dev)
+            want = ptc.priced_chunk_from_noise_ref(
+                consts, table, noise, STRIKE, IS_CALL, anti7, cv, policy)
+            del noise
+            got, want = (got, want) if cv else ((got,), (want,))
+            rec = {"kernel": "K7",
+                   "form": pc.form_name(anti7, cv, spec, quad, bf16),
+                   "ms": time_ms(torch, run_k7, 5),
+                   "rel_err": [abs(float(g) / float(w) - 1.0)
+                               for g, w in zip(got, want)],
+                   "abs_err": [abs(float(g) - float(w))
+                               for g, w in zip(got, want)]}
+            if hasattr(ptc, "blocks_per_sm"):
+                rec["blocks_per_sm"] = ptc.blocks_per_sm(
+                    consts, CHUNK, True, anti7, cv, policy)
+            forms.append(rec)
+    p1 = []
+    s_pad = 384
+    b32 = rl.orthogonal(s_pad).to(dev)
+    for name, b, k in (("float32", b32, 19),
+                       ("bfloat16", b32.to(torch.bfloat16), 31)):
+        out = rl.matmul(7, b, 66, k)
+        p1.append({"dtype": name, "grid": 66, "s_pad": s_pad, "k": k,
+                   "ms": time_ms(torch, lambda: rl.matmul(7, b, 66, k), 5),
+                   "sha256": _digest(out)})
+    emit({"k7_forms": forms, "p1_matmul": p1, "n_steps": n, "rows": CHUNK,
+          "k6_digest_rows": k6_rows, "root": str(root), "card": _card()})
+    return 0
+
+
+FORMS_MAINS = {"--k1-forms": "k1_forms_main", "--k2-forms": "k2_forms_main",
+               "--k7-forms": "k7_forms_main", "--k9-forms": "k9_forms_main"}
 
 
 def main() -> int:
@@ -5271,6 +5528,7 @@ def main() -> int:
     kernels += roofline_phase(torch, rl, smi, dev, kernels, reset_counts,
                               read_counts)
     k2_split(pc, kernels, dev)
+    k1_k7_split(pc, ptc, kernels, dev)
     k89_split(pfc, kernels, dev)
     check(sorted(k["name"] for k in kernels) == sorted(REPLACES),
           "the kernels line does not list every kernel and form")
@@ -5283,9 +5541,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        if sys.argv[1:2] in (["--k2-forms"], ["--k9-forms"]):
-            forms_main = (k2_forms_main if sys.argv[1] == "--k2-forms"
-                          else k9_forms_main)
+        if sys.argv[1:2] and sys.argv[1] in FORMS_MAINS:
+            forms_main = globals()[FORMS_MAINS[sys.argv[1]]]
             sys.exit(forms_main(Path(sys.argv[2]) if len(sys.argv) > 2
                                 else Path(__file__).resolve().parent))
         sys.exit(main())

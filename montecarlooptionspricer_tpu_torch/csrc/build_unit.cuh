@@ -17,6 +17,13 @@
 #define MCOP_UNIT_SEEDED -1
 #endif
 
+// The phases K1/K2, K6/K7 and P1's matmul run (a bit mask, every phase
+// unless a measurement build leaves some out: kernels/phase_split.py times
+// a phase by difference, and such a build's results mean nothing).
+#ifndef MCOP_PHASES
+#define MCOP_PHASES 15
+#endif
+
 #if MCOP_UNIT_BF16 && MCOP_UNIT_SEEDED == 1
 #define MCOP_ENTRY(name) name##_bf16_seeded
 #elif MCOP_UNIT_BF16
@@ -34,5 +41,12 @@ constexpr bool kUnitBf16 = MCOP_UNIT_BF16 != 0;
 // Whether this unit holds the seeded and the noise-in bodies.
 constexpr bool kUnitSeeded = MCOP_UNIT_SEEDED != 0;
 constexpr bool kUnitNoiseIn = MCOP_UNIT_SEEDED != 1;
+
+// The phases: the seeded draw, the variance exp and Euler increment (with
+// W), the running sum, and the decision or the price stores (P1: the draw
+// of a0 and the writes of each step's a).  The product always runs.
+constexpr unsigned kPhaseDraw = 1u, kPhaseEuler = 2u, kPhaseScan = 4u,
+                   kPhaseOut = 8u;
+constexpr unsigned kPhases = MCOP_PHASES;
 
 }  // namespace mcop

@@ -62,7 +62,8 @@
 // The bf16 form runs the triangle on the tensor cores (989 TFLOP/s dense
 // bf16): 0.02 ms of product at 131072 paths (the spectral form's two dense
 // products 0.07 ms), so the exp, the Box-Muller draws and the running sum
-// bound it.
+// bound it; K1 also writes its [rows, n + 1] prices, 192 MB at 365 steps,
+// 0.057 ms at the card's 3.35 TB/s.
 //
 // Design:
 // * One block of 256 threads owns BP = 16*PM paths (64, 32 or 16).  Its N
@@ -81,20 +82,26 @@
 //   the variance exp and Euler increment elementwise over the tile with all
 //   threads, then the running log price with one thread per path.  Padded
 //   steps are never computed.
-// * K1 keeps a W plane [BP][ld] resident beside N and carries its running
-//   sum from log s0; the block size (max_block_paths in models/
-//   pathgen_cuda.py) sets the single-tile family's range.
-// * K2 (priced_kernel) keeps no W plane: the Euler pass takes each tile's
-//   W per step pair, redrawn from the seeded stream at the counter
-//   load_noise uses, or read from the injected plane
-//   (csrc/strip_sweep.cuh:tile_w_pair), so W is bitwise K1's.  Its log
-//   price is log s0 plus the running sum of the increments, JAX's
-//   association (log_s0 + the cumsum matmul) and the plain version's.
-//   Without W the bf16 chol block at 365 steps takes 69,888 bytes, so
-//   three share an SM, and the float32 chol block, staging Lt' 16 rows a
-//   pass (priced_tile_k), 114,176, so two do (__launch_bounds__ per form,
-//   priced_kernel).  K2's block is its own (models/pathgen_cuda.py
-//   priced_block_paths: the largest that fits, below measured caps).
+// * K1 and K2 are one body (tile_kernel; PRICED false is K1) and keep no
+//   W plane: the Euler pass takes each tile's W per step pair, redrawn
+//   from the seeded stream at the counter load_noise uses, or read from
+//   the injected plane (csrc/strip_sweep.cuh:tile_w_pair), so W is the
+//   same bits wherever it is read.  The log price is log s0 plus the
+//   running sum of the increments, JAX's association (log_s0 + the cumsum
+//   matmul, _logpaths_from_x_anti:161) and the plain version's, carried
+//   along each tile one step after another by one thread per path: a few
+//   microseconds of dependent adds a block, while another block of the SM
+//   runs its product.  Without W the bf16 chol block at 365 steps takes
+//   69,888 bytes, so three share an SM, and the float32 chol block,
+//   staging Lt' 16 rows a pass (priced_tile_k), 114,176, so two do
+//   (__launch_bounds__ per form, tile_kernel).  Each kernel has its own
+//   block (models/pathgen_cuda.py pathgen_block_paths, priced_block_paths:
+//   the largest that fits, below measured caps).  The single-tile
+//   family's range is still set by the layout with a resident W plane
+//   (models/pathgen_cuda.py range_smem_bytes, max_block_paths): K1's own
+//   block does not move a horizon from one family to another.
+// * K1 writes each tile's prices once its log prices stand: exp of each
+//   cell, neighbouring lanes on neighbouring steps of one path's row.
 // * K2's decision, JAX's min-index reduction over columns
 //   (_priced_log_subvals:589, _policy_value:277), runs as a parallel pass
 //   once the tile's log prices stand: warp w owns paths w, w + 8, ...
@@ -119,8 +126,7 @@
 // * K2's partial sums are reduced in a fixed order through the X tile: no
 //   atomics.  Shared memory (priced_smem_bytes): the planes, one X tile of
 //   every member and the staged factor tiles, in either policy.
-// * Antithetic blocks hold BP/2 drawn rows of N (and W in K1) (the
-//   product's micro-tile maps 16*PM drawn rows onto the 256 threads, so a
+// * Antithetic blocks hold BP/2 drawn rows of N (the product's micro-tile maps 16*PM drawn rows onto the 256 threads, so a
 //   paired block of 32*PM paths reuses the unpaired block's product of
 //   16*PM) and an X tile of BP paths: the elementwise pass writes both
 //   members' increments from one x and one w.  A paired K1 block draws
@@ -199,91 +205,23 @@ __device__ __forceinline__ size_t member_row(int drawn, int row0, int p) {
                                             : row0 + p);
 }
 
-// K1.  Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members
-// (ANTI: member p < D is drawn row p, member D + p its partner).  SPEC the
-// spectral fGN form, BF16 the bf16 fGN-input form.
-template <int PM, bool SEEDED, bool ANTI, bool SPEC, bool BF16>
-__global__ void __launch_bounds__(kThreads, 1) path_kernel(Args a) {
-  constexpr int D = 16 * PM;
-  constexpr int BP = ANTI ? 2 * D : D;
-  using E = fgn_elem<BF16>;
-  extern __shared__ float smem[];
-  const int n = a.n, ld = a.ld;
-  const int npf = n_plane_floats(n, D, BF16);
-  E* ns = reinterpret_cast<E*>(smem);     // [D][ld] N (Zr); bf16: [D][ldn]
-  E* zs = reinterpret_cast<E*>(smem + npf);   // the same, Zi under SPEC
-  float* ws = smem + (SPEC ? 2 : 1) * npf;    // [D][ld]
-  float* xs = ws + D * ld;                // [BP][kXStride]
-  E* lts = reinterpret_cast<E*>(xs + BP * kXStride);
-                                          // [1 or 2][kTileK][kTileCols];
-                                          // bf16: [kTileCols][kTileKB]
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * D;        // first drawn row
-
-  load_noise<D, SEEDED, SPEC, BF16>(a.noise, a.drawn, n, a.key, row0, ns, ws,
-                                    zs);
-  for (int p = tid; p < BP; p += kThreads)
-    a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1)] = a.s0;
-
-  float ls = a.log_s0;   // running log price of path tid < BP
-
-  for (int c0 = 0; c0 < n; c0 += kTileCols) {
-    const int kmax = min(c0 + kTileCols, n);
-    fgn_tile<PM, 1, SPEC, BF16>(static_cast<const E*>(a.lt),
-                                static_cast<const E*>(a.ci), n, c0, ns,
-                                lts, xs, nullptr, zs);
-
-    // Variance exp and Euler increment, elementwise over the tile (both
-    // members of a pair from one x and one w).
-    const int cn = kmax - c0;
-    for (int idx = tid; idx < D * kTileCols; idx += kThreads) {
-      const int p = idx / kTileCols, cc = idx - p * kTileCols;
-      float* xp = &xs[p * kXStride + cc];
-      if (cc < cn) {
-        const int c = c0 + cc;
-        const float x = *xp, w = ws[p * ld + c];
-        *xp = euler_inc(a, x, w, c);
-        if (ANTI) xp[D * kXStride] = euler_inc(a, -x, -w, c);
-      } else {
-        *xp = 0.0f;
-        if (ANTI) xp[D * kXStride] = 0.0f;
-      }
-    }
-    __syncthreads();
-
-    // Running sum along the tile, one thread per path.
-    if (tid < BP) {
-      float* xp = &xs[tid * kXStride];
-      for (int cc = 0; cc < cn; ++cc) {
-        ls += xp[cc];
-        xp[cc] = ls;
-      }
-    }
-
-    __syncthreads();
-    for (int idx = tid; idx < BP * kTileCols; idx += kThreads) {
-      const int p = idx / kTileCols, cc = idx - p * kTileCols;
-      if (cc < cn)
-        a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1) + c0 + cc +
-              1] = expf(xs[p * kXStride + cc]);
-    }
-  }
-}
-
 // Rows K2's decision reads per tile: llo, lhi and disc, or the eight
 // policy_rows rows under the quadratic policy.
 __host__ __device__ constexpr int priced_rows(bool quad) {
   return quad ? 8 : 3;
 }
 
-// Rows of Lt' K2 stages per pass of its float32 product: 16 for the
-// unpaired chol block, whose shared memory then fits two blocks an SM at
-// 365 steps (the product's sums run k ascending whatever the depth, so X
-// is the same bits), else kTileK.
+// Rows of Lt' K2 (priced) or K1 stages per pass of its float32 product:
+// 16 for the unpaired chol block, whose shared memory then fits two blocks
+// an SM at 365 steps, 8 for K1's spectral pair (two blocks an SM where 32
+// rows leave one), else kTileK.  The product's sums run k ascending
+// whatever the depth, so X is the same bits.
 __host__ __device__ constexpr int priced_tile_k(bool anti, bool spec,
-                                                bool bf16) {
-  return !anti && !spec && !bf16 ? 16 : kTileK;
+                                                bool bf16,
+                                                bool priced = true) {
+  return !anti && !spec && !bf16            ? 16
+         : !priced && anti && spec && !bf16 ? 8
+                                            : kTileK;
 }
 
 // Copy rows 0 .. rows - 1 of a table (row r at row(r)) for the tile's
@@ -304,24 +242,26 @@ __device__ __forceinline__ void stage_rows(int rows, Row row, int c0, int cn,
   }
 }
 
-// K2.  Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members
-// (ANTI, as K1's).  CV adds the control lane, SPEC the spectral fGN form,
-// QUAD the quadratic policy, BF16 the bf16 fGN-input form.  The launch
-// bounds' minimum of blocks an SM caps the registers (128 a thread at 2,
-// 80 at 3): at 365 steps three bf16 blocks fit an SM, but the paired chol
-// one (two), and two float32 unpaired chol blocks or three paired ones;
-// the float32 spectral ones fit one.
-template <int PM, bool SEEDED, bool ANTI, bool CV, bool SPEC, bool QUAD,
-          bool BF16>
+// K1 (PRICED false) and K2.  Block of D = 16*PM drawn rows; BP = D paths,
+// or 2D pair members (ANTI: member p < D is drawn row p, member D + p its
+// partner).  CV adds K2's control lane, SPEC the spectral fGN form, QUAD
+// K2's quadratic policy, BF16 the bf16 fGN-input form.  The launch bounds'
+// minimum of blocks an SM caps the registers (128 a thread at 2, 80 at 3):
+// at 365 steps three bf16 blocks fit an SM, but the paired chol one (two),
+// and two float32 unpaired chol blocks or three paired ones; the float32
+// spectral ones fit one.
+template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC,
+          bool QUAD, bool BF16>
 __global__ void __launch_bounds__(kThreads,
                                   BF16 && (SPEC || !ANTI) ? 3 : 2)
-    priced_kernel(Args a) {
+    tile_kernel(Args a) {
   constexpr int D = 16 * PM;
   constexpr int BP = ANTI ? 2 * D : D;
   constexpr int kPaths = BP / kWarps;     // paths each warp decides
+  constexpr bool kDecide = PRICED && (kPhases & kPhaseOut);
   constexpr int kHalf = kTileCols / 2;
-  constexpr int TK = priced_tile_k(ANTI, SPEC, BF16);
-  static_assert(staged_floats(1, BF16, TK) >= 8 * kTileCols,
+  constexpr int TK = priced_tile_k(ANTI, SPEC, BF16, PRICED);
+  static_assert(!PRICED || staged_floats(1, BF16, TK) >= 8 * kTileCols,
                 "the staged rows live in the factor tiles' room");
   using E = fgn_elem<BF16>;
   extern __shared__ float smem[];
@@ -339,8 +279,13 @@ __global__ void __launch_bounds__(kThreads,
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int row0 = blockIdx.x * D;        // first drawn row
-  load_noise<D, SEEDED, SPEC, BF16, false>(a.noise, a.drawn, n, a.key, row0,
-                                           ns, nullptr, zs);
+  if (!SEEDED || (kPhases & kPhaseDraw))
+    load_noise<D, SEEDED, SPEC, BF16, false>(a.noise, a.drawn, n, a.key,
+                                             row0, ns, nullptr, zs);
+  if (!PRICED) {
+    for (int p = tid; p < BP; p += kThreads)
+      a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1)] = a.s0;
+  }
 
   float cum = 0.0f;   // running sum of the log increments, thread tid < BP
   // Bit j: path warp + kWarps * j has stopped (warp-uniform); lane j keeps
@@ -354,17 +299,18 @@ __global__ void __launch_bounds__(kThreads,
     fgn_tile<PM, 1, SPEC, BF16, TK>(static_cast<const E*>(a.lt),
                                     static_cast<const E*>(a.ci), n, c0, ns,
                                     lts, xs, nullptr, zs);
-    if constexpr (QUAD)
+    if constexpr (kDecide && QUAD)
       stage_rows(priced_rows(true),
                  [&](int r) { return a.tab + r * a.tstride; }, c0, cn, tab);
-    else
+    else if constexpr (kDecide)
       stage_rows(priced_rows(false), [&](int r) {
         return r == 0 ? a.llo : r == 1 ? a.lhi : a.disc;
       }, c0, cn, tab);
 
     // Variance exp and Euler increment of each step pair (both members of
     // a pair from one x and one w), W drawn or read here.
-    for (int idx = tid; idx < D * kHalf; idx += kThreads) {
+    for (int idx = tid; (kPhases & kPhaseEuler) && idx < D * kHalf;
+         idx += kThreads) {
       const int q = idx / kHalf, cc = 2 * (idx - q * kHalf);
       if (cc >= cn) continue;
       float w[2];
@@ -385,12 +331,25 @@ __global__ void __launch_bounds__(kThreads,
 
     // Running log price along the tile, one thread per path: log s0 plus
     // the running sum of the increments.
-    if (tid < BP) {
+    if ((kPhases & kPhaseScan) && tid < BP) {
       float* xp = &xs[tid * kXStride];
       for (int cc = 0; cc < cn; ++cc) {
         cum += xp[cc];
         xp[cc] = a.log_s0 + cum;
       }
+    }
+    if constexpr (!kDecide) {
+      // K1's prices, neighbouring lanes on neighbouring steps.
+      __syncthreads();
+      for (int idx = tid; !PRICED && (kPhases & kPhaseOut) &&
+                          idx < BP * kTileCols;
+           idx += kThreads) {
+        const int p = idx / kTileCols, cc = idx - p * kTileCols;
+        if (cc < cn)
+          a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1) + c0 + cc +
+                1] = expf(xs[p * kXStride + cc]);
+      }
+      continue;   // the next tile synchronises before it overwrites xs
     }
     cp_async_wait_all();
     __syncthreads();
@@ -478,6 +437,7 @@ __global__ void __launch_bounds__(kThreads,
     // The next tile synchronises before it overwrites tab and xs.
   }
 
+  if (!PRICED) return;
   __syncthreads();
   float* red = xs;                        // [BP], and [BP] more under CV
   if (lane < kPaths) red[warp + kWarps * lane] = val;
@@ -495,56 +455,36 @@ __global__ void __launch_bounds__(kThreads,
   }
 }
 
-// Shared memory of a K1 block of bp paths (pair members when antithetic):
-// the planes with W, one X tile of every member, the staged factor tiles
-// and (cv ? 2 : 1) * bp floats more.
-int smem_bytes(int n, int bp, bool anti, bool cv, bool spec,
-               bool bf16 = false) {
-  const int d = anti ? bp / 2 : bp;
-  return block_smem_bytes(n, d, 1, (bp - d) * kXStride + (cv ? 2 : 1) * bp,
-                          spec, bf16);
-}
-
-// Shared memory of a K2 block: the planes without W, one X tile of every
-// member (its partial sums at the end) and the staged factor tiles of
-// priced_tile_k rows (the decision's rows in their room), in either
-// policy.
-int priced_smem_bytes(int n, int bp, bool anti, bool spec, bool bf16) {
+// Shared memory of a K2 (priced) or K1 block: the planes without W, one X
+// tile of every member (K2's partial sums at the end) and the staged factor
+// tiles of priced_tile_k rows (K2's decision rows in their room), in
+// either policy.
+int priced_smem_bytes(int n, int bp, bool anti, bool spec, bool bf16,
+                      bool priced = true) {
   const int d = anti ? bp / 2 : bp;
   return 4 * ((spec ? 2 : 1) * n_plane_floats(n, d, bf16) + bp * kXStride +
               staged_floats(spec ? 2 : 1, bf16,
-                            priced_tile_k(anti, spec, bf16)));
+                            priced_tile_k(anti, spec, bf16, priced)));
 }
 
 using Kernel = void (*)(Args);
 
-// This unit's K1 body of the form, or null where the unit holds none.
-template <int PM, bool ANTI>
-Kernel path_body(bool seeded, bool spec) {
+// This unit's K1 (PRICED false) or K2 body of the form, or null where the
+// unit holds none.
+template <int PM, bool PRICED, bool ANTI, bool CV, bool QUAD>
+Kernel unit_body(bool seeded, bool spec) {
   if (seeded) {
     if constexpr (kUnitSeeded)
-      return spec ? path_kernel<PM, true, ANTI, true, kUnitBf16>
-                  : path_kernel<PM, true, ANTI, false, kUnitBf16>;
+      return spec ? tile_kernel<PM, true, PRICED, ANTI, CV, true, QUAD,
+                                kUnitBf16>
+                  : tile_kernel<PM, true, PRICED, ANTI, CV, false, QUAD,
+                                kUnitBf16>;
   } else {
     if constexpr (kUnitNoiseIn)
-      return spec ? path_kernel<PM, false, ANTI, true, kUnitBf16>
-                  : path_kernel<PM, false, ANTI, false, kUnitBf16>;
-  }
-  return nullptr;
-}
-
-// This unit's K2 body of the form, or null where the unit holds none.
-template <int PM, bool ANTI, bool CV, bool QUAD>
-Kernel priced_body(bool seeded, bool spec) {
-  if (seeded) {
-    if constexpr (kUnitSeeded)
-      return spec ? priced_kernel<PM, true, ANTI, CV, true, QUAD, kUnitBf16>
-                  : priced_kernel<PM, true, ANTI, CV, false, QUAD, kUnitBf16>;
-  } else {
-    if constexpr (kUnitNoiseIn)
-      return spec ? priced_kernel<PM, false, ANTI, CV, true, QUAD, kUnitBf16>
-                  : priced_kernel<PM, false, ANTI, CV, false, QUAD,
-                                  kUnitBf16>;
+      return spec ? tile_kernel<PM, false, PRICED, ANTI, CV, true, QUAD,
+                                kUnitBf16>
+                  : tile_kernel<PM, false, PRICED, ANTI, CV, false, QUAD,
+                                kUnitBf16>;
   }
   return nullptr;
 }
@@ -553,33 +493,29 @@ template <int PM>
 Kernel body_of(bool priced, bool seeded, bool anti, bool cv, bool spec,
                bool quad) {
   if (!priced)
-    return anti ? path_body<PM, true>(seeded, spec)
-                : path_body<PM, false>(seeded, spec);
+    return anti ? unit_body<PM, false, true, false, false>(seeded, spec)
+                : unit_body<PM, false, false, false, false>(seeded, spec);
   if (quad)
-    return cv ? priced_body<PM, false, true, true>(seeded, spec)
-              : priced_body<PM, false, false, true>(seeded, spec);
+    return cv ? unit_body<PM, true, false, true, true>(seeded, spec)
+              : unit_body<PM, true, false, false, true>(seeded, spec);
   if (anti)
-    return cv ? priced_body<PM, true, true, false>(seeded, spec)
-              : priced_body<PM, true, false, false>(seeded, spec);
-  return cv ? priced_body<PM, false, true, false>(seeded, spec)
-            : priced_body<PM, false, false, false>(seeded, spec);
-}
-
-// The shared memory of K1's (priced false) or K2's block of the form.
-int form_smem_bytes(bool priced, int n, int bp, bool anti, bool spec) {
-  return priced ? priced_smem_bytes(n, bp, anti, spec, kUnitBf16)
-                : smem_bytes(n, bp, anti, false, spec, kUnitBf16);
+    return cv ? unit_body<PM, true, true, true, false>(seeded, spec)
+              : unit_body<PM, true, true, false, false>(seeded, spec);
+  return cv ? unit_body<PM, true, false, true, false>(seeded, spec)
+            : unit_body<PM, true, false, false, false>(seeded, spec);
 }
 
 // This unit's body of the form (block_paths counts paths, pair members when
 // anti: 16, 32 or 64 plain, 32, 64 or 128 paired), or null where the
-// arguments name none.  The quadratic policy (quad) has no pair form.
+// arguments name none.  The quadratic policy (quad) has no pair form, and
+// K1 (priced false) no policy.
 Kernel kernel_for(bool priced, int n, int block_paths, bool seeded,
                   bool anti, bool cv, bool spec, bool quad) {
   const int unit = anti ? 32 : 16;
   if (n < 1 || block_paths < unit || block_paths % unit ||
-      (quad && (anti || !priced)) ||
-      form_smem_bytes(priced, n, block_paths, anti, spec) > kSmemLimit)
+      (quad && (anti || !priced)) || (!priced && cv) ||
+      priced_smem_bytes(n, block_paths, anti, spec, kUnitBf16, priced) >
+          kSmemLimit)
     return nullptr;
   switch (block_paths / unit) {
     case 4:
@@ -603,7 +539,8 @@ cudaError_t launch(bool priced, Args a, int block_paths, bool anti, bool cv,
       a.rows % block_paths)
     return cudaErrorInvalidValue;
   a.drawn = anti ? a.rows / 2 : a.rows;
-  const int smem = form_smem_bytes(priced, a.n, block_paths, anti, spec);
+  const int smem =
+      priced_smem_bytes(a.n, block_paths, anti, spec, kUnitBf16, priced);
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -612,18 +549,30 @@ cudaError_t launch(bool priced, Args a, int block_paths, bool anti, bool cv,
   return cudaGetLastError();
 }
 
+// Blocks of the K1 (priced false) or K2 form one SM runs at once, of this
+// unit's seeded body (its noise-in one in a noise-in unit), by
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor at the form's shared
+// memory; minus a cudaError_t where the arguments name no body or the
+// query fails.
+int blocks_per_sm(bool priced, int n, int block_paths, bool anti, bool cv,
+                  bool spec, bool quad) {
+  const Kernel k = kernel_for(priced, n, block_paths, kUnitSeeded, anti, cv,
+                              spec, quad);
+  if (k == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  const int smem =
+      priced_smem_bytes(n, block_paths, anti, spec, kUnitBf16, priced);
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads,
+                                                        smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
-
-// Shared memory of a K1 block of block_paths paths (pair members when
-// antithetic != 0), the spectral form when spectral != 0, in this unit's
-// fGN input dtype.
-int MCOP_ENTRY(mcop_smem_bytes)(int n_steps, int block_paths, int antithetic,
-                                int with_cv, int spectral) {
-  return smem_bytes(n_steps, block_paths, antithetic != 0, with_cv != 0,
-                    spectral != 0, kUnitBf16);
-}
 
 // Shared memory of a K2 block of block_paths paths (pair members when
 // antithetic != 0), the spectral form when spectral != 0, in this unit's
@@ -634,27 +583,26 @@ int MCOP_ENTRY(mcop_priced_smem_bytes)(int n_steps, int block_paths,
                            spectral != 0, kUnitBf16);
 }
 
-// Blocks of the K2 form one SM runs at once, of this unit's seeded body
-// (its noise-in one in a noise-in unit), by
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor at the form's shared
-// memory; minus a cudaError_t where the arguments name no body or the
-// query fails.
+// The same of a K1 block.
+int MCOP_ENTRY(mcop_path_smem_bytes)(int n_steps, int block_paths,
+                                     int antithetic, int spectral) {
+  return priced_smem_bytes(n_steps, block_paths, antithetic != 0,
+                           spectral != 0, kUnitBf16, false);
+}
+
+// Blocks of the K2 form one SM runs at once (blocks_per_sm).
 int MCOP_ENTRY(mcop_priced_blocks_per_sm)(int n_steps, int block_paths,
                                           int antithetic, int with_cv,
                                           int spectral, int quadratic) {
-  const Kernel k = kernel_for(true, n_steps, block_paths, kUnitSeeded,
-                              antithetic != 0, with_cv != 0, spectral != 0,
-                              quadratic != 0);
-  if (k == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
-  const int smem = priced_smem_bytes(n_steps, block_paths, antithetic != 0,
-                                     spectral != 0, kUnitBf16);
-  cudaError_t err = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads,
-                                                        smem);
-  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+  return blocks_per_sm(true, n_steps, block_paths, antithetic != 0,
+                       with_cv != 0, spectral != 0, quadratic != 0);
+}
+
+// Blocks of the K1 form one SM runs at once (blocks_per_sm).
+int MCOP_ENTRY(mcop_path_blocks_per_sm)(int n_steps, int block_paths,
+                                        int antithetic, int spectral) {
+  return blocks_per_sm(false, n_steps, block_paths, antithetic != 0, false,
+                       spectral != 0, false);
 }
 
 // K1.  noise may be null (seeded entry, stream of `key`).  lt is Lt' (chol,

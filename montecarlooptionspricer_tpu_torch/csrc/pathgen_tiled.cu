@@ -61,57 +61,79 @@
 // * Shared memory.  At 1825 steps one path's N row is 7.3 KB, so the N
 //   plane of a block wide enough for a register-tiled product (128 paths,
 //   934 KB) is four times the 227 KB a block may use.  The noise therefore
-//   stays in device memory as a [2, rows, n] plane (the noise-in layout),
-//   and the product streams N through shared memory in k-tiles of 16
-//   steps.  The noise-in entry reads its input; the seeded entry first
-//   draws its block's rows of N and W into a workspace plane of the same
-//   layout and then runs the same loop.  Shared memory per block is fixed
-//   by the tile shapes (83 KB at 128 paths, two blocks per SM) at every
-//   horizon.
+//   stays in device memory (the noise-in layout, or the seeded entry's
+//   workspace, draw_rows) and the product streams N and the factor
+//   through a ring of k-tile stages, 16-byte cp.async copies issued stages
+//   - 1 k-tiles ahead with one barrier a k-tile (csrc/slab_tile.cuh).  The
+//   ring shares its room with the X tile of the block's BP paths (stride
+//   kTileCols+1) and, ahead of it, the decision's staged rows: the product
+//   writes X only once its last k-tile is done.  At 128 paths and every
+//   horizon 99,840 bytes a block in float32 (three stages of 32 steps) and
+//   70,144 in bf16: two blocks an SM, by the 128 registers of
+//   __launch_bounds__(256, 2).
+// * The factor.  The kernels read Lt' (or Cr' and Ci') with rows padded to
+//   slab_ld(n) elements, zero past n (models/pathgen_tiled_cuda.py keeps
+//   the padded copy beside the constants), so every copy of its k-tiles
+//   is 16 bytes.
+// * The seeded workspace.  The seeded entry first draws its block's rows
+//   into the workspace: in float32 the noise-in layout [2 or 3, drawn, n];
+//   under BF16 the N plane (and Zi) as bf16 rows of slab_ld(n), each normal
+//   rounded to nearest even once at the draw (the bits the product would
+//   round to) and zero past n, so the product copies them 16 bytes at a
+//   time and each column tile re-reads half the bytes, then W in float32
+//   [drawn, n].  The noise-in entry reads its float32 input (4-byte copies
+//   in float32; under BF16 read a k-tile ahead into registers and rounded
+//   there).
 // * One block of 256 threads owns BP = 16*PM paths (128, 64, 32 or 16, the
 //   largest that divides the rows).  Output tiles are 128 step columns;
-//   each thread accumulates a PM x 8 micro-tile (paths ty*PM.., columns
-//   tx*4..+3 and 64+tx*4..+3, read as float4 so a quarter-warp reads 128
-//   contiguous bytes of the Lt' tile).  Output tile c reads k-tiles that
-//   end at its last column only: Lt' is upper triangular.  The product of
-//   a column tile, float32 and bf16, is csrc/slab_tile.cuh's, which the
-//   P1 matmul probe (csrc/roofline.cu) also runs.
+//   output tile c reads k-tiles that end at its last column only: Lt' is
+//   upper triangular.  The product of a column tile, float32 and bf16, is
+//   csrc/slab_tile.cuh's, which the P1 matmul probe (csrc/roofline.cu)
+//   also runs.
 // * The TPU grid carried per-path state across step tiles in scratch.
-//   Here the state of path p (log-price carry, stopped flag, stop value)
-//   lives in the registers of thread p < BP, which runs the running sum and
-//   the first-hit test along each tile.  Padded columns past n are never
-//   computed.  W is read once, at its own tile.  The TPU carried "already
-//   exercised" across tiles in stop_ref; here it is the stopped flag.
-// * The QUAD forms take exp and the policy's seven table rows (through
-//   __ldg) per cell of that loop until the path's first hit, ~30
-//   operations a cell beside the product's 2 n per cell.
+//   Here thread p < BP carries path p's running sum across tiles in a
+//   register, one step after another along each tile (K6: the running log
+//   price from log s0; K7: the running sum of the increments, to which log
+//   s0 is added, JAX's association, ls = log_s0 + carry + local,
+//   _euler_tile:156, and the plain version's).  Padded columns past n are
+//   never computed.  W is read once, at its own tile, each thread's next
+//   eight cells' loads in flight together.
+// * K7's decision, _policy_tile_log's first hit, runs as a parallel pass
+//   once the tile's log prices stand: warp w owns paths w, w + 8, ...
+//   (BP / 8 of them) and lane l tests columns l, l + 32, l + 64 and l + 96:
+//   four ballots a path (bit order is column order), no branch; then, for
+//   each path that had not stopped and hits in this tile (one warp-uniform
+//   branch), the first set bit gives the column, that column's lane
+//   supplies the log price by shuffle and lane j keeps path j's value.  A
+//   path stopped in an earlier tile is masked; nothing exits early.  The
+//   boundary forms test llo <= logS <= lhi in log space and take the exp
+//   only at the hit; the QUAD forms take exp of each lane's columns of a
+//   path that has not stopped and test quad_exercise's arithmetic (IEEE
+//   division, as _policy_tile:161 divides), z and the polynomial only for
+//   a path some lane's column pays on.  The rows the decision reads for the
+//   tile (llo, lhi and disc, or the eight policy_rows rows) are copied with
+//   cp.async into the room ahead of the X tile once the product is done
+//   with it, and waited for after the running sum.  The stopped paths'
+//   values (and under CV each path's terminal price) are reduced in path
+//   order through the X tile: no atomics.
 // * Antithetic blocks stream D = 16*PM drawn rows (64, 32 or 16) through
 //   the same product and keep 2D members: the X tile holds both halves,
 //   and thread p < 2D carries member p (p >= D the partner of row p - D).
-//   The 128-member paired block has the unpaired 128-path block's shared
-//   memory within 256 bytes, so two blocks still share an SM.  Paired K6
-//   writes member p >= D to the partner row `drawn` rows below drawn row
-//   p - D (member_row).
+//   Paired K6 writes member p >= D to the partner row `drawn` rows below
+//   drawn row p - D (member_row).
 // * The spectral form keeps its noise as [3, rows, n] (Zr, Zi, W) and
-//   streams the Zr and Zi k-tiles beside the Cr' and Ci' k-tiles (16.6 KB
-//   more a block, still two blocks an SM).  Every output tile reads every
-//   k-tile: the matrices are dense.  Both matrices stay in L2 up to
-//   isqrt(L2 / 8) = 2,560 steps (max_tiled_steps), the chol factor to
-//   3,620.  The seeded entry draws Zr and W as the chol stream's N and W
-//   and Zi from its own counter word, as K1/K2 do.
-// * The bf16 form (BF16) stages each k-tile as bf16, the N^T tile as
-//   [D][kNB] (k contiguous; each normal rounded to nearest even from the
-//   float32 plane) and the Lt' tile column by column, [kTileCols][kNB],
-//   and runs the tile as m16n8k16 tensor-core products with float32 sums
-//   (csrc/mma_bf16.cuh): warp w owns the 8-column groups w and w + 8 of
-//   the 128-column tile and every m16 row group, and skips a group's
-//   product on the k-tiles past its last column (the triangle).  Under
-//   SPEC the Zi k-tile and the Ci' k-tile are staged in bf16 beside them
-//   (24.6 KB of tiles at 128 paths, 91.6 KB a block: still two an SM) and
-//   every column tile sums over every k-tile, the Zi fragments negated
+//   streams the Zr and Zi k-tiles beside the Cr' and Ci' k-tiles.  Every
+//   output tile reads every k-tile: the matrices are dense.  Both matrices
+//   stay in L2 up to isqrt(L2 / 8) = 2,560 steps (max_tiled_steps), the
+//   chol factor to 3,620.  The seeded entry draws Zr and W as the chol
+//   stream's N and W and Zi from its own counter word, as K1/K2 do.
+// * The bf16 form (BF16) runs the tile as m16n8k16 tensor-core products
+//   with float32 sums (csrc/mma_bf16.cuh) on ldmatrix fragments, skipping a
+//   column group's product on the k-tiles past its last column (the
+//   triangle); under SPEC the Zi and Ci' k-tiles are staged beside them
+//   and every column tile sums over every k-tile, the Zi fragments negated
 //   into the same accumulators.  The rest of the body (the QUAD policy
 //   included) is the float32 form's; a pair's partner is -x to the bit.
-//   It keeps the float32 form's path blocks.
 // * No --use_fast_math: logf/expf/sinf/cosf stay precise so the plain
 //   PyTorch versions agree to a few ulp per cell.
 
@@ -127,19 +149,28 @@
 namespace {
 
 using namespace mcop::slab;
+using mcop::kPhaseDraw;
+using mcop::kPhaseEuler;
+using mcop::kPhaseOut;
+using mcop::kPhases;
+using mcop::kPhaseScan;
 using mcop::kUnitBf16;
 using mcop::kUnitNoiseIn;
 using mcop::kUnitSeeded;
 
 constexpr int kSmemLimit = 232448;
+constexpr unsigned kFullMask = 0xffffffffu;
+// The decision's staged rows: llo, lhi and disc, or the eight policy_rows
+// rows, of one column tile.
+constexpr int kTabFloats = 8 * kTileCols;
 
 struct Args {
   float* noise;         // [2 or 3, drawn, n]: the input, or the seeded
-                        // workspace
-  const void* lt;       // [n, n] half-scaled factor: Lt' (upper), or Cr';
-                        // bf16 under the bf16 form, else float32
-  const float* ci;      // [n, n] Ci' (spectral; its bf16 bits under the
-                        // bf16 form), or nullptr (chol)
+                        // workspace (draw_rows)
+  const void* lt;       // [n, slab_ld(n)] half-scaled factor, zero past n:
+                        // Lt' (upper), or Cr'; bf16 under the bf16 form,
+                        // else float32
+  const void* ci;       // the same of Ci' (spectral), or nullptr (chol)
   const float* vd;      // [n] half variance drift
   const float* llo;     // [n] log lower bounds (K7)
   const float* lhi;     // [n] log upper bounds (K7)
@@ -154,41 +185,51 @@ struct Args {
   bool bf16;            // the bf16 fGN-input form
 };
 
-// Shared memory of one block, in floats: the N^T k-tile of its D drawn
-// rows (row stride D+4, a multiple of 4 for float4 reads), the Lt' k-tile
-// (under SPEC the Zr^T and Zi^T k-tiles and the Cr' and Ci' k-tiles; under
-// BF16 the bf16 N tile [D][kNB] and Lt' tile [kTileCols][kNB]), the X tile
-// of its BP paths (stride kTileCols+1, so the per-path loop reads distinct
-// banks) and the path-sum slots (twice under CV).
-template <int PM, bool ANTI = false, bool CV = false, bool SPEC = false,
-          bool BF16 = false>
+__host__ __device__ constexpr int smem_floats(int d, int bp, bool spec,
+                                              bool bf16) {
+  return ring_floats(d, spec, bf16) > kTabFloats + bp * kXStride
+             ? ring_floats(d, spec, bf16)
+             : kTabFloats + bp * kXStride;
+}
+
+template <int PM, bool ANTI = false, bool SPEC = false, bool BF16 = false>
 struct Layout {
   static constexpr int kD = 16 * PM;
   static constexpr int kBP = ANTI ? 2 * kD : kD;
-  static constexpr int kNStride = kD + 4;
-  static constexpr int kTileFloats = tile_floats<PM, SPEC, BF16>();
-  static constexpr int kFloats =
-      kTileFloats + kBP * kXStride + (CV ? 2 : 1) * kBP;
-  static constexpr int kBytes = 4 * kFloats;
+  static constexpr int kBytes = 4 * smem_floats(kD, kBP, SPEC, BF16);
 };
 
-// Seeded entry: draw the block's D rows of N and W into the plane (SPEC:
-// Zr = N into plane 0, Zi into plane 1, W into plane 2).
-template <int D, bool SPEC>
+// Seeded entry: draw the block's D rows of N and W into the workspace
+// (SPEC: Zr = N, then Zi, then W): in float32 the noise-in layout; under
+// BF16 the N (and Zi) planes as bf16 rows [drawn][slab_ld(n)], each normal
+// rounded to nearest even, zero past n, then W [drawn][n] in float32
+// (models/pathgen_tiled_cuda.py:workspace_floats).
+template <int D, bool SPEC, bool BF16>
 __device__ void draw_rows(const Args& a, int row0) {
   const int n = a.n, pairs = (n + 1) / 2;
-  const size_t plane = static_cast<size_t>(a.drawn) * n;
-  float* wplane = a.noise + (SPEC ? 2 : 1) * plane;
+  const size_t drawn = a.drawn;
+  const int ld = BF16 ? slab_ld(n) : n;
+  auto* nb = reinterpret_cast<__nv_bfloat16*>(a.noise);
+  float* zplane = a.noise + drawn * n;                   // float32 Zi
+  __nv_bfloat16* zb = nb + drawn * ld;                   // bf16 Zi
+  float* wplane =
+      a.noise + (SPEC ? 2 : 1) * drawn * (BF16 ? ld / 2 : n);
+  auto put = [&](size_t row, int c, float v, bool zi) {
+    if constexpr (BF16)
+      (zi ? zb : nb)[row * ld + c] = __float2bfloat16_rn(v);
+    else
+      (zi ? zplane : a.noise)[row * n + c] = v;
+  };
   for (int idx = threadIdx.x; idx < D * pairs; idx += kThreads) {
     const int p = idx / pairs, j = idx - p * pairs;
     float n0, w0, n1, w1;
     mcop::step_pair_normals(a.key, row0 + p, j, &n0, &w0, &n1, &w1);
-    const size_t g = static_cast<size_t>(row0 + p) * n + 2 * j;
-    a.noise[g] = n0;
-    wplane[g] = w0;
+    const size_t row = static_cast<size_t>(row0 + p);
+    put(row, 2 * j, n0, false);
+    wplane[row * n + 2 * j] = w0;
     if (2 * j + 1 < n) {
-      a.noise[g + 1] = n1;
-      wplane[g + 1] = w1;
+      put(row, 2 * j + 1, n1, false);
+      wplane[row * n + 2 * j + 1] = w1;
     }
   }
   if (SPEC) {
@@ -197,10 +238,18 @@ __device__ void draw_rows(const Args& a, int row0) {
       const int p = idx / quads, q = idx - p * quads;
       const float4 z = mcop::spectral_zi_quad(a.key, row0 + p, q);
       const float zv[4] = {z.x, z.y, z.z, z.w};
-      float* zrow = a.noise + plane + static_cast<size_t>(row0 + p) * n;
 #pragma unroll
       for (int t = 0; t < 4; ++t)
-        if (4 * q + t < n) zrow[4 * q + t] = zv[t];
+        if (4 * q + t < n) put(row0 + p, 4 * q + t, zv[t], true);
+    }
+  }
+  if (BF16) {
+    const int pad = ld - n;
+    for (int idx = threadIdx.x; idx < D * pad; idx += kThreads) {
+      const int p = idx / pad, c = n + idx - p * pad;
+      const size_t row = static_cast<size_t>(row0 + p);
+      put(row, c, 0.0f, false);
+      if (SPEC) put(row, c, 0.0f, true);
     }
   }
 }
@@ -226,6 +275,28 @@ __device__ __forceinline__ size_t member_row(int drawn, int row0, int p) {
                                             : row0 + p);
 }
 
+// Copy rows 0 .. rows - 1 of a table (row r at row(r)) for the tile's
+// columns c0 .. c0 + cn - 1 into tab [rows][kTileCols] and commit them;
+// cp_async_wait<0> and a barrier make them visible.
+template <class Row>
+__device__ __forceinline__ void stage_rows(int rows, Row row, int c0, int cn,
+                                           float* tab) {
+  for (int idx = threadIdx.x; idx < rows * kTileCols; idx += kThreads) {
+    const int r = idx / kTileCols, cc = idx - r * kTileCols;
+    if (cc < cn) cp_async4(tab + idx, row(r) + c0 + cc, true);
+  }
+  cp_async_commit();
+}
+
+// The first column of the tile whose test holds, from the ballots of the
+// lanes' tests of columns l + 32 h (b[h]), where one does.
+__device__ __forceinline__ int first_hit4(const unsigned (&b)[4]) {
+  return b[0]   ? __ffs(b[0]) - 1
+         : b[1] ? 31 + __ffs(b[1])
+         : b[2] ? 63 + __ffs(b[2])
+                : 95 + __ffs(b[3]);
+}
+
 // Block of D = 16*PM drawn rows; BP = D paths, or 2D pair members (ANTI:
 // member p < D is drawn row p, member D + p its partner).  CV adds the
 // control lane, SPEC the spectral fGN form, QUAD the quadratic policy,
@@ -233,93 +304,118 @@ __device__ __forceinline__ size_t member_row(int drawn, int row0, int p) {
 template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC,
           bool QUAD, bool BF16>
 __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
-  using L = Layout<PM, ANTI, CV, SPEC, BF16>;
+  using L = Layout<PM, ANTI, SPEC, BF16>;
   constexpr int D = L::kD;
   constexpr int BP = L::kBP;
-  constexpr int NS = L::kNStride;
+  constexpr int kPaths = BP / kWarps;           // paths each warp decides
+  constexpr bool kDecide = PRICED && (kPhases & kPhaseOut);
+  constexpr Rows R = !BF16   ? Rows::kF32
+                     : SEEDED ? Rows::kBf16
+                              : Rows::kF32Round;
   extern __shared__ float4 smem4[];
-  float* ns = reinterpret_cast<float*>(smem4);  // [kTileK][NS]   N^T k-tile
-  float* lts = ns + kTileK * NS;                // [kTileK][kTileCols]
-  float* zs = lts + kTileK * kTileCols;         // SPEC: Zi^T k-tile
-  float* cts = zs + kTileK * NS;                // SPEC: Ci' k-tile
-  auto* nsb = reinterpret_cast<__nv_bfloat16*>(smem4);  // BF16: [D][kNB]
-  __nv_bfloat16* ltb = nsb + D * kNB;           // BF16: [kTileCols][kNB]
-  __nv_bfloat16* zsb = ltb + kTileCols * kNB;   // BF16 and SPEC: Zi tile
-  __nv_bfloat16* ctb = zsb + D * kNB;           // BF16 and SPEC: Ci' tile
-  float* xs = reinterpret_cast<float*>(smem4) + L::kTileFloats;
-                                                // [BP][kXStride]
-  float* red = xs + BP * kXStride;              // [BP] (twice under CV)
+  float* ring = reinterpret_cast<float*>(smem4);  // the product's k-tiles
+  float* tab = ring;                            // [8][kTileCols] K7's rows
+  float* xs = ring + kTabFloats;                // [BP][kXStride]
 
   const int n = a.n;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int row0 = blockIdx.x * D;              // first drawn row
-  const size_t plane = static_cast<size_t>(a.drawn) * n;
-  const float* nrows = a.noise + static_cast<size_t>(row0) * n;
-  const float* zrows = nrows + plane;           // SPEC: Zi
-  const float* wrows = nrows + (SPEC ? 2 : 1) * plane;
+  const size_t drawn = a.drawn;
+  Operands o;
+  const float* wrows;                           // W of the block's rows
+  if (SEEDED && BF16) {
+    const int ld = slab_ld(n);
+    const auto* nb = reinterpret_cast<const __nv_bfloat16*>(a.noise);
+    o.nrows = nb + static_cast<size_t>(row0) * ld;
+    o.zrows = nb + (drawn + row0) * ld;
+    o.nld = ld;
+    wrows = a.noise + (SPEC ? 2 : 1) * drawn * ld / 2 +
+            static_cast<size_t>(row0) * n;
+  } else {
+    const float* nrows = a.noise + static_cast<size_t>(row0) * n;
+    o.nrows = nrows;
+    o.zrows = nrows + drawn * n;
+    o.nld = n;
+    wrows = nrows + (SPEC ? 2 : 1) * drawn * n;
+  }
+  o.fac = a.lt;
+  o.fci = a.ci;
+  o.fld = slab_ld(n);
+  o.n = n;
 
-  if (SEEDED) {
-    draw_rows<D, SPEC>(a, row0);
-    __syncthreads();  // the block's plane writes are visible to the block
+  if (SEEDED && (kPhases & kPhaseDraw)) {
+    draw_rows<D, SPEC, BF16>(a, row0);
+    __syncthreads();  // the block's workspace writes are visible to it
   }
   if (!PRICED) {
     for (int p = tid; p < BP; p += kThreads)
       a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1)] = a.s0;
   }
 
-  // Per-path state, held by thread p < BP across tiles.
-  float ls = a.log_s0;
-  bool stopped = false;
-  float val = 0.0f;
+  // K6: the running log price of thread p < BP.  K7: its running sum of
+  // the increments; bit j of `stopped` says path warp + kWarps j has
+  // stopped (warp-uniform), and lane j keeps that path's value.
+  float ls = a.log_s0, cum = 0.0f, val = 0.0f;
+  unsigned stopped = 0u;
 
   for (int c0 = 0; c0 < n; c0 += kTileCols) {
-    const int kmax = min(c0 + kTileCols, n);
-    if constexpr (BF16)
-      tile_product_bf16<PM, true, SPEC>(a, nrows, c0, nsb, ltb, xs, zrows,
-                                        zsb, ctb);
-    else
-      tile_product<PM, SPEC>(a, nrows, zrows, c0, ns, lts, zs, cts, xs);
+    const int cn = min(c0 + kTileCols, n) - c0;
+    tile_product<PM, SPEC, true, BF16, R>(o, c0, ring, xs);
+    if constexpr (kDecide && QUAD)
+      stage_rows(8, [&](int r) { return a.tab + r * a.tstride; }, c0, cn,
+                 tab);
+    else if constexpr (kDecide)
+      stage_rows(3, [&](int r) {
+        return r == 0 ? a.llo : r == 1 ? a.lhi : a.disc;
+      }, c0, cn, tab);
 
     // Variance exp and Euler increment, elementwise over the tile (both
-    // members of a pair from one x and one w).
-    const int cn = kmax - c0;
-    for (int idx = tid; idx < D * kTileCols; idx += kThreads) {
-      const int p = idx / kTileCols, cc = idx - p * kTileCols;
-      if (cc < cn) {
-        const int c = c0 + cc;
-        float* xp = &xs[p * kXStride + cc];
-        const float x = *xp, w = wrows[static_cast<size_t>(p) * n + c];
-        *xp = euler_inc(a, x, w, c);
-        if (ANTI) xp[D * kXStride] = euler_inc(a, -x, -w, c);
+    // members of a pair from one x and one w).  Each thread reads the W of
+    // its next kBatch cells before it computes them: the loads come from
+    // L2 or device memory, and one at a time they left the pass waiting.
+    constexpr int kBatch = 8;
+    for (int base = tid; (kPhases & kPhaseEuler) && base < D * kTileCols;
+         base += kThreads * kBatch) {
+      float w[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int idx = base + u * kThreads;
+        const int p = idx / kTileCols, cc = idx - p * kTileCols;
+        w[u] = idx < D * kTileCols && cc < cn
+                   ? wrows[static_cast<size_t>(p) * n + c0 + cc]
+                   : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int idx = base + u * kThreads;
+        const int p = idx / kTileCols, cc = idx - p * kTileCols;
+        if (idx < D * kTileCols && cc < cn) {
+          const int c = c0 + cc;
+          float* xp = &xs[p * kXStride + cc];
+          const float x = *xp;
+          *xp = euler_inc(a, x, w[u], c);
+          if (ANTI) xp[D * kXStride] = euler_inc(a, -x, -w[u], c);
+        }
       }
     }
     __syncthreads();
 
-    // Running sum (and the first-hit test) along the tile, one thread per
-    // path; the carry crosses tiles in registers.
-    if (tid < BP) {
+    // The running sum along the tile, one thread per path; the carry
+    // crosses tiles in registers.
+    if ((kPhases & kPhaseScan) && tid < BP) {
       float* xp = &xs[tid * kXStride];
       for (int cc = 0; cc < cn; ++cc) {
-        ls += xp[cc];
-        if (PRICED && QUAD) {
-          if (!stopped)
-            stopped = mcop::quad_exercise(a.tab, a.tstride, c0 + cc,
-                                          expf(ls), a.is_call, &val);
-        } else if (PRICED) {
-          const int c = c0 + cc;
-          if (!stopped && ls >= a.llo[c] && ls <= a.lhi[c]) {
-            stopped = true;
-            const float s = expf(ls);
-            const float pay = a.is_call ? s - a.strike : a.strike - s;
-            val = a.disc[c] * fmaxf(pay, 0.0f);
-          }
+        if (PRICED) {
+          cum += xp[cc];
+          xp[cc] = a.log_s0 + cum;
         } else {
+          ls += xp[cc];
           xp[cc] = ls;
         }
       }
     }
 
-    if (!PRICED) {
+    if constexpr (!PRICED && (kPhases & kPhaseOut)) {
       __syncthreads();
       for (int idx = tid; idx < BP * kTileCols; idx += kThreads) {
         const int p = idx / kTileCols, cc = idx - p * kTileCols;
@@ -327,14 +423,107 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
           a.out[member_row<D, ANTI>(a.drawn, row0, p) * (n + 1) + c0 + cc +
                 1] = expf(xs[p * kXStride + cc]);
       }
+    } else if constexpr (kDecide) {
+      cp_async_wait<0>();
+      __syncthreads();
+
+      // The decision: lanes on columns, the warp over its paths.  The
+      // lane's rows at its four columns are read once per tile.
+      bool valid[4];
+      float lo[4], hi[4];
+      mcop::QuadRows q[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int cc = lane + 32 * h;
+        valid[h] = cc < cn;
+        if constexpr (QUAD) {
+          q[h] = mcop::quad_rows(tab, kTileCols, cc);
+        } else {
+          lo[h] = tab[cc];
+          hi[h] = tab[kTileCols + cc];
+        }
+      }
+      // Path p's ballots b over the tile (bit l of b[h]: column l + 32 h
+      // exercises) and the lane's values x at its columns: the log price,
+      // or under QUAD the price.
+      auto ballots = [&](int p, unsigned (&b)[4], float (&x)[4]) {
+        const float* xp = &xs[p * kXStride + lane];
+        if constexpr (QUAD) {
+          // quad_exercise's test, p > eps and p >= cont; z and the
+          // polynomial only where a lane's column pays over eps.
+          float pay[4];
+          bool over[4], any = false;
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            x[h] = expf(xp[32 * h]);
+            pay[h] = mcop::quad_payoff(x[h], q[h].strike, a.is_call);
+            over[h] = valid[h] & (pay[h] > q[h].eps);
+            any |= over[h];
+          }
+          if (__any_sync(kFullMask, any)) {
+#pragma unroll
+            for (int h = 0; h < 4; ++h)
+              b[h] = __ballot_sync(
+                  kFullMask,
+                  over[h] & (pay[h] >= mcop::quad_rows_cont(q[h], x[h])));
+          } else {
+#pragma unroll
+            for (int h = 0; h < 4; ++h) b[h] = 0u;
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            x[h] = xp[32 * h];
+            b[h] = __ballot_sync(
+                kFullMask, valid[h] & (x[h] >= lo[h]) & (x[h] <= hi[h]));
+          }
+        }
+      };
+      unsigned hits = 0u;
+#pragma unroll
+      for (int j = 0; j < kPaths; ++j) {
+        // A stopped path's exps and quadratics are skipped (warp-uniform);
+        // the boundary test costs less than the branch.
+        if (QUAD && ((stopped >> j) & 1u)) continue;
+        unsigned b[4];
+        float x[4];
+        ballots(warp + kWarps * j, b, x);
+        hits |= (b[0] | b[1] | b[2] | b[3]) != 0u ? 1u << j : 0u;
+      }
+      hits &= ~stopped;
+      stopped |= hits;
+      while (hits != 0u) {   // the paths whose first hit is in this tile
+        const int j = __ffs(hits) - 1;
+        hits &= hits - 1u;
+        unsigned b[4];
+        float x[4];
+        ballots(warp + kWarps * j, b, x);
+        const int c = first_hit4(b);
+        const float mine = c < 32 ? x[0] : c < 64 ? x[1] : c < 96 ? x[2]
+                                                                : x[3];
+        const float xc = __shfl_sync(kFullMask, mine, c & 31);
+        if (lane == j) {
+          if constexpr (QUAD) {
+            val = __fmul_rn(
+                mcop::quad_payoff(xc, tab[7 * kTileCols + c], a.is_call),
+                tab[6 * kTileCols + c]);
+          } else {
+            const float s = expf(xc);
+            const float pay = a.is_call ? s - a.strike : a.strike - s;
+            val = tab[2 * kTileCols + c] * fmaxf(pay, 0.0f);
+          }
+        }
+      }
+      // The next tile's product synchronises before it overwrites tab
+      // and xs.
     }
   }
 
   if (PRICED) {
-    if (tid < BP) {
-      red[tid] = val;
-      if (CV) red[BP + tid] = expf(ls);  // ls is the terminal log price
-    }
+    __syncthreads();
+    float* red = xs;                            // [BP], and [BP] more (CV)
+    if (lane < kPaths) red[warp + kWarps * lane] = val;
+    if (CV && tid < BP) red[BP + tid] = expf(a.log_s0 + cum);  // terminal
     __syncthreads();
     if (tid == 0) {
       float sum = 0.0f;
@@ -349,101 +538,104 @@ __global__ void __launch_bounds__(kThreads, 2) tiled_kernel(Args a) {
   }
 }
 
+using Kernel = void (*)(Args);
+
+// A body of this unit and its shared memory.
+struct Body {
+  Kernel kernel;
+  int smem;
+};
+
 template <int PM, bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC,
-          bool QUAD, bool BF16>
-cudaError_t launch_one(const Args& a, cudaStream_t stream) {
-  constexpr int smem = Layout<PM, ANTI, CV, SPEC, BF16>::kBytes;
+          bool QUAD>
+Body body_pm() {
+  constexpr int smem = Layout<PM, ANTI, SPEC, kUnitBf16>::kBytes;
   static_assert(smem <= kSmemLimit, "tile shapes exceed shared memory");
-  auto kernel = tiled_kernel<PM, SEEDED, PRICED, ANTI, CV, SPEC, QUAD, BF16>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  kernel<<<a.drawn / (16 * PM), kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  return {tiled_kernel<PM, SEEDED, PRICED, ANTI, CV, SPEC, QUAD, kUnitBf16>,
+          smem};
 }
 
 // The plain forms take 128, 64, 32 or 16 paths a block; the paired forms
-// 128, 64 or 32 members (64, 32 or 16 drawn rows).
-template <bool SEEDED, bool PRICED, bool ANTI, bool CV, bool SPEC, bool QUAD,
-          bool BF16 = false>
-cudaError_t launch_pm(const Args& a, int block_paths, cudaStream_t stream) {
+// 128, 64 or 32 members (64, 32 or 16 drawn rows); chol or spectral.
+template <bool SEEDED, bool PRICED, bool ANTI, bool CV, bool QUAD, bool SPEC>
+Body body_of(int block_paths) {
   switch (ANTI ? block_paths / 2 : block_paths) {
     case 128:
-      if constexpr (ANTI) return cudaErrorInvalidValue;
+      if constexpr (ANTI) return {nullptr, 0};
       else
-        return launch_one<8, SEEDED, PRICED, ANTI, CV, SPEC, QUAD, BF16>(
-            a, stream);
+        return body_pm<8, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>();
     case 64:
-      return launch_one<4, SEEDED, PRICED, ANTI, CV, SPEC, QUAD, BF16>(
-          a, stream);
+      return body_pm<4, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>();
     case 32:
-      return launch_one<2, SEEDED, PRICED, ANTI, CV, SPEC, QUAD, BF16>(
-          a, stream);
+      return body_pm<2, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>();
     case 16:
-      return launch_one<1, SEEDED, PRICED, ANTI, CV, SPEC, QUAD, BF16>(
-          a, stream);
+      return body_pm<1, SEEDED, PRICED, ANTI, CV, SPEC, QUAD>();
     default:
-      return cudaErrorInvalidValue;
+      return {nullptr, 0};
   }
 }
 
-// Chol or spectral (from a.ci), in this unit's fGN input dtype.
-template <bool SEEDED, bool PRICED, bool ANTI, bool CV, bool QUAD>
-cudaError_t launch_form(const Args& a, int block_paths, cudaStream_t stream) {
-  return a.ci != nullptr
-             ? launch_pm<SEEDED, PRICED, ANTI, CV, true, QUAD, kUnitBf16>(
-                   a, block_paths, stream)
-             : launch_pm<SEEDED, PRICED, ANTI, CV, false, QUAD, kUnitBf16>(
-                   a, block_paths, stream);
-}
-
-// The seeded or noise-in entry, where this unit holds it and a.bf16 names
-// its dtype.
+// The seeded or noise-in body, where this unit holds it.
 template <bool PRICED, bool ANTI, bool CV, bool QUAD = false>
-cudaError_t launch_seeded(const Args& a, int seeded, int block_paths,
-                          cudaStream_t stream) {
-  if (a.bf16 != kUnitBf16) return cudaErrorInvalidValue;
+Body body_for(bool seeded, bool spec, int block_paths) {
   if (seeded) {
     if constexpr (kUnitSeeded)
-      return launch_form<true, PRICED, ANTI, CV, QUAD>(a, block_paths,
-                                                       stream);
+      return spec ? body_of<true, PRICED, ANTI, CV, QUAD, true>(block_paths)
+                  : body_of<true, PRICED, ANTI, CV, QUAD, false>(block_paths);
   } else {
     if constexpr (kUnitNoiseIn)
-      return launch_form<false, PRICED, ANTI, CV, QUAD>(a, block_paths,
-                                                        stream);
+      return spec ? body_of<false, PRICED, ANTI, CV, QUAD, true>(block_paths)
+                  : body_of<false, PRICED, ANTI, CV, QUAD, false>(
+                        block_paths);
   }
-  return cudaErrorInvalidValue;
+  return {nullptr, 0};
 }
 
-template <bool PRICED>
-cudaError_t launch(Args a, int seeded, int block_paths, bool anti, bool cv,
-                   bool quad, cudaStream_t stream) {
-  if (a.n < 1 || a.rows < 1 || a.noise == nullptr || block_paths < 16 ||
-      a.rows % block_paths || (anti && block_paths % 32) ||
-      (quad && (anti || !PRICED)))
-    return cudaErrorInvalidValue;
-  a.drawn = anti ? a.rows / 2 : a.rows;
+// This unit's body of the form (K6: priced false), or a null kernel where
+// the arguments name none.  The quadratic policy has no pair form.
+Body find_body(bool priced, bool seeded, bool anti, bool cv, bool quad,
+               bool spec, int block_paths) {
+  if (block_paths < 16 || (anti && block_paths % 32) ||
+      (quad && (anti || !priced)))
+    return {nullptr, 0};
   if (quad)
-    return cv ? launch_seeded<true, false, true, true>(a, seeded,
-                                                       block_paths, stream)
-              : launch_seeded<true, false, false, true>(a, seeded,
-                                                        block_paths, stream);
-  if (!PRICED)
-    return anti ? launch_seeded<false, true, false>(a, seeded, block_paths,
-                                                    stream)
-                : launch_seeded<false, false, false>(a, seeded, block_paths,
-                                                     stream);
+    return cv ? body_for<true, false, true, true>(seeded, spec, block_paths)
+              : body_for<true, false, false, true>(seeded, spec,
+                                                   block_paths);
+  if (!priced)
+    return anti ? body_for<false, true, false>(seeded, spec, block_paths)
+                : body_for<false, false, false>(seeded, spec, block_paths);
   if (anti)
-    return cv ? launch_seeded<true, true, true>(a, seeded, block_paths, stream)
-              : launch_seeded<true, true, false>(a, seeded, block_paths,
-                                                 stream);
-  return cv ? launch_seeded<true, false, true>(a, seeded, block_paths, stream)
-            : launch_seeded<true, false, false>(a, seeded, block_paths,
-                                                stream);
+    return cv ? body_for<true, true, true>(seeded, spec, block_paths)
+              : body_for<true, true, false>(seeded, spec, block_paths);
+  return cv ? body_for<true, false, true>(seeded, spec, block_paths)
+            : body_for<true, false, false>(seeded, spec, block_paths);
+}
+
+cudaError_t set_smem(const Body& b) {
+  cudaError_t err = cudaFuncSetAttribute(
+      b.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, b.smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(b.kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// Launch K6 (priced false) or K7 over a.rows paths in blocks of block_paths.
+cudaError_t launch(bool priced, Args a, int seeded, int block_paths,
+                   bool anti, bool cv, bool quad, cudaStream_t stream) {
+  if (a.n < 1 || a.rows < 1 || a.noise == nullptr || a.bf16 != kUnitBf16 ||
+      block_paths < 1 || a.rows % block_paths)
+    return cudaErrorInvalidValue;
+  const Body b = find_body(priced, seeded != 0, anti, cv, quad,
+                           a.ci != nullptr, block_paths);
+  if (b.kernel == nullptr) return cudaErrorInvalidValue;
+  a.drawn = anti ? a.rows / 2 : a.rows;
+  cudaError_t err = set_smem(b);
+  if (err != cudaSuccess) return err;
+  const int d = anti ? block_paths / 2 : block_paths;
+  b.kernel<<<a.drawn / d, kThreads, b.smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 Args make_args(float* noise, const void* lt, const void* ci,
@@ -453,7 +645,7 @@ Args make_args(float* noise, const void* lt, const void* ci,
   a.bf16 = bf16 != 0;
   a.noise = noise;
   a.lt = lt;
-  a.ci = static_cast<const float*>(ci);
+  a.ci = ci;
   a.vd = vd;
   a.rows = rows;
   a.n = n_steps;
@@ -472,25 +664,46 @@ extern "C" {
 // The per-block shared memory of the tiled kernels at this block size
 // (pair members when antithetic; the spectral form when spectral != 0) in
 // this unit's fGN input dtype, or -1 for a block size they do not take.
+// The control variate takes none more (with_cv is not read).
 int MCOP_ENTRY(mcop_tiled_smem_bytes)(int block_paths, int antithetic,
                                       int with_cv, int spectral) {
   const int d = antithetic ? block_paths / 2 : block_paths;
   if (antithetic && (block_paths % 2 || d == 128)) return -1;
   const int pm = d / 16;
   if (d % 16 || (pm != 1 && pm != 2 && pm != 4 && pm != 8)) return -1;
-  const int bp = antithetic ? 2 * d : d;
-  return 4 * (tile_floats_of(d, spectral != 0, kUnitBf16) + bp * kXStride +
-              (with_cv ? 2 : 1) * bp);
+  return 4 * smem_floats(d, antithetic ? 2 * d : d, spectral != 0,
+                         kUnitBf16);
+}
+
+// Blocks of the K6 (priced == 0) or K7 form one SM runs at once, of this
+// unit's seeded body (its noise-in one in a noise-in unit), by
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor at the form's shared
+// memory; minus a cudaError_t where the arguments name no body or the
+// query fails.
+int MCOP_ENTRY(mcop_tiled_blocks_per_sm)(int block_paths, int priced,
+                                         int antithetic, int with_cv,
+                                         int spectral, int quadratic) {
+  const Body b = find_body(priced != 0, kUnitSeeded, antithetic != 0,
+                           with_cv != 0, quadratic != 0, spectral != 0,
+                           block_paths);
+  if (b.kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = set_smem(b);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, b.kernel,
+                                                        kThreads, b.smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 // K6.  noise: [2, rows, n_steps] float32 (N, W; ci null: lt is Lt') or
 // [3, rows, n_steps] (Zr, Zi, W; spectral: lt is Cr', ci is Ci'), read as
-// given (seeded == 0) or filled first from the stream of `key` (seeded !=
-// 0, a workspace; the _seeded units only).  bf16 != 0 (the _bf16 units
-// only): the bf16 form, lt and ci bf16, the noise float32.  rows counts paths; antithetic != 0
-// reads (or draws into the workspace) rows / 2 rows of noise, block_paths
-// counts pair members, and out holds the drawn rows' paths, then their
-// partners'.
+// given (seeded == 0), or a workspace filled first from the stream of
+// `key` (seeded != 0, the _seeded units only; draw_rows' layout).  lt and
+// ci: [n_steps, slab_ld(n_steps)], zero past n_steps.  bf16 != 0 (the
+// _bf16 units only): the bf16 form, lt and ci bf16, the noise float32.
+// rows counts paths; antithetic != 0 reads (or draws into the workspace)
+// rows / 2 rows of noise, block_paths counts pair members, and out holds
+// the drawn rows' paths, then their partners'.
 int MCOP_ENTRY(mcop_tiled_pathgen)(
     float* noise, int seeded, const void* lt, const void* ci,
     const float* vd, int rows, int n_steps, int block_paths,
@@ -500,9 +713,9 @@ int MCOP_ENTRY(mcop_tiled_pathgen)(
                      log_s0, bf16);
   a.s0 = s0;
   a.out = out;
-  return static_cast<int>(launch<false>(a, seeded, block_paths,
-                                        antithetic != 0, false, false,
-                                        static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch(false, a, seeded, block_paths,
+                                 antithetic != 0, false, false,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
 // K7.  table: rows 0-2 of the log_boundary_rows table, or with
@@ -531,10 +744,10 @@ int MCOP_ENTRY(mcop_tiled_priced_chunk)(
   a.is_call = is_call;
   a.cv_disc = cv_disc;
   a.out = out;
-  return static_cast<int>(launch<true>(a, seeded, block_paths,
-                                       antithetic != 0, with_cv != 0,
-                                       quadratic != 0,
-                                       static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch(true, a, seeded, block_paths,
+                                 antithetic != 0, with_cv != 0,
+                                 quadratic != 0,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -40,8 +40,12 @@
 //   block reads its rows of a from device memory (two buffers, the step's
 //   input and output, in the workspace the wrapper passes) k-tile by
 //   k-tile, B streams from L2 as Lt' does, and each column tile's X is
-//   written back to the output buffer.  Each CUDA block writes the column
-//   sums of its 128 rows; the wrapper adds the 4 of a JAX block.
+//   written back to the output buffer.  Under bf16 each step also writes
+//   its output rounded to bf16 (the product's rounding, so the product is
+//   the same bits), and the next step's product copies those rows 16
+//   bytes at a time as K6/K7 copy their seeded bf16 N.  Each CUDA block
+//   writes the column sums of its 128 rows; the wrapper adds the 4 of a
+//   JAX block.
 // * No --use_fast_math: expf, logf, sinf and cosf are the kernels' own
 //   precise ones.
 
@@ -49,6 +53,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "build_unit.cuh"
 #include "philox.cuh"
 #include "slab_tile.cuh"
 
@@ -93,71 +98,80 @@ __global__ void __launch_bounds__(kLanes) normals_kernel(uint32_t key, int k,
   out[col] = acc;
 }
 
-// The factor and width the slab's product reads: B [s_pad][s_pad], dense.
-struct MmSrc {
-  int n;
-  const void* lt;
-  const float* ci;
-};
-
-// Shared memory of a matmul-probe block: the slab's staged k-tiles at
-// kMmPM and the X tile of its kMmRows rows.
+// Shared memory of a matmul-probe block: the slab's ring of k-tile stages
+// at kMmRows rows, sharing its room with the X tile of its rows.
 template <bool BF16>
 constexpr int mm_smem_bytes() {
-  return 4 * (slab::tile_floats<kMmPM, false, BF16>() +
-              kMmRows * slab::kXStride);
+  constexpr int ring = slab::ring_floats(kMmRows, false, BF16);
+  constexpr int x = kMmRows * slab::kXStride;
+  return 4 * (ring > x ? ring : x);
 }
 
 // kMmRows rows of the chain in a0 / a1 ([rows][s_pad] each, the step's
 // input and output in turn): a0 from the stream (the N plane of
 // step_pair_normals over the row's s_pad steps), k * unroll steps
-// a = a @ B, each column tile by the slab's product, then the column sums
-// of the block's rows into out[blockIdx.x][s_pad].
+// a = a @ B, each column tile by the slab's product (B dense, rows of
+// s_pad: 16-byte copies; a's float32 rows copied 4 bytes a cell), then the
+// column sums of the block's rows into out[blockIdx.x][s_pad].  BF16: a
+// is also kept rounded to bf16 in b0 / b1 (the rounding the product would
+// make of it), from which the product copies 16 bytes at a time.
 template <bool BF16>
 __global__ void __launch_bounds__(slab::kThreads, 2) matmul_kernel(
     uint32_t key, const void* b, int s_pad, int k, int unroll, float* a0,
-    float* a1, float* out) {
+    float* a1, __nv_bfloat16* b0, __nv_bfloat16* b1, float* out) {
   extern __shared__ float4 smem4[];
-  float* tile = reinterpret_cast<float*>(smem4);     // the staged k-tiles
-  float* xs = tile + slab::tile_floats<kMmPM, false, BF16>();
+  float* ring = reinterpret_cast<float*>(smem4);     // the k-tile stages
+  float* xs = ring;                                  // [kMmRows][kXStride]
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * kMmRows;
-  float* acur = a0 + static_cast<size_t>(row0) * s_pad;
-  float* anext = a1 + static_cast<size_t>(row0) * s_pad;
-  const MmSrc src{s_pad, b, nullptr};
+  const size_t first = static_cast<size_t>(row0) * s_pad;
+  float* acur = a0 + first;
+  float* anext = a1 + first;
+  __nv_bfloat16* bcur = BF16 ? b0 + first : nullptr;
+  __nv_bfloat16* bnext = BF16 ? b1 + first : nullptr;
   const int pairs = s_pad / 2;
-  for (int idx = tid; idx < kMmRows * pairs; idx += slab::kThreads) {
+  for (int idx = tid; (mcop::kPhases & mcop::kPhaseDraw) &&
+                      idx < kMmRows * pairs;
+       idx += slab::kThreads) {
     const int p = idx / pairs, j = idx - p * pairs;
     float n0, w0, n1, w1;
     mcop::step_pair_normals(key, row0 + p, j, &n0, &w0, &n1, &w1);
     acur[p * s_pad + 2 * j] = n0;
     acur[p * s_pad + 2 * j + 1] = n1;
+    if (BF16)
+      *reinterpret_cast<__nv_bfloat162*>(bcur + p * s_pad + 2 * j) =
+          __floats2bfloat162_rn(n0, n1);
   }
   const int steps = k * unroll;
   for (int s = 0; s < steps; ++s) {
+    const slab::Operands o{BF16 ? static_cast<const void*>(bcur) : acur,
+                           nullptr, s_pad, b, nullptr, s_pad, s_pad};
     for (int c0 = 0; c0 < s_pad; c0 += slab::kTileCols) {
       // Each call starts on the block's barrier, so a's writes of the
       // previous step (and xs's readers below) are done.
-      if constexpr (BF16) {
-        auto* nsb = reinterpret_cast<__nv_bfloat16*>(tile);
-        slab::tile_product_bf16<kMmPM, false>(
-            src, acur, c0, nsb, nsb + kMmRows * slab::kNB, xs);
-      } else {
-        float* ns = tile;
-        float* lts = ns + slab::kTileK * (kMmRows + 4);
-        slab::tile_product<kMmPM, false, false>(
-            src, acur, nullptr, c0, ns, lts, nullptr, nullptr, xs);
-      }
-      for (int idx = tid; idx < kMmRows * slab::kTileCols;
+      if constexpr (BF16)
+        slab::tile_product<kMmPM, false, false, true, slab::Rows::kBf16>(
+            o, c0, ring, xs);
+      else
+        slab::tile_product<kMmPM, false, false, false, slab::Rows::kF32>(
+            o, c0, ring, xs);
+      for (int idx = tid; (mcop::kPhases & mcop::kPhaseOut) &&
+                          idx < kMmRows * slab::kTileCols;
            idx += slab::kThreads) {
         const int p = idx / slab::kTileCols, cc = idx - p * slab::kTileCols;
-        anext[static_cast<size_t>(p) * s_pad + c0 + cc] =
-            xs[p * slab::kXStride + cc];
+        const float x = xs[p * slab::kXStride + cc];
+        anext[static_cast<size_t>(p) * s_pad + c0 + cc] = x;
+        if (BF16)
+          bnext[static_cast<size_t>(p) * s_pad + c0 + cc] =
+              __float2bfloat16_rn(x);
       }
     }
     float* t = acur;
     acur = anext;
     anext = t;
+    __nv_bfloat16* tb = bcur;
+    bcur = bnext;
+    bnext = tb;
   }
   __syncthreads();
   for (int c = tid; c < s_pad; c += slab::kThreads) {
@@ -191,8 +205,10 @@ cudaError_t launch_matmul(uint32_t key, const void* b, int grid, int s_pad,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const size_t plane = static_cast<size_t>(grid) * kPlaneRows * s_pad;
+  auto* shadow = reinterpret_cast<__nv_bfloat16*>(work + 2 * plane);
   kernel<<<grid * kMmSplit, slab::kThreads, smem, stream>>>(
-      key, b, s_pad, k, unroll, work, work + plane, out);
+      key, b, s_pad, k, unroll, work, work + plane, BF16 ? shadow : nullptr,
+      BF16 ? shadow + plane : nullptr, out);
   return cudaGetLastError();
 }
 
@@ -221,8 +237,9 @@ int mcop_roofline_normals(unsigned int key, int grid, int k, int unroll,
 // P1/matmul.  b: [s_pad, s_pad] float32 (bf16 == 0: the CUDA cores) or
 // bf16 (the tensor cores); s_pad a multiple of 128.  grid counts JAX
 // blocks of 512 rows; work: [2, grid * 512, s_pad] float32, a's two
-// buffers; out: [grid * 4, s_pad] float32 column sums, 4 consecutive rows
-// of it per JAX block.
+// buffers, and under bf16 a third plane for their bf16 shadows; out:
+// [grid * 4, s_pad] float32 column sums, 4 consecutive rows of it per JAX
+// block.
 int mcop_roofline_matmul(unsigned int key, const void* b, int grid,
                          int s_pad, int k, int unroll, int bf16, float* work,
                          float* out, void* stream) {

@@ -78,12 +78,14 @@ def library_path(name: str, src: Path, flags: tuple = ()) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> tuple[list[Path], float, dict]:
-    """Compile every unit whose library does not exist yet, all at once;
-    returns (library paths in UNITS order, wall seconds spent compiling,
-    {unit name: seconds from the common start to its nvcc's exit})."""
-    libs = [library_path(*unit[:3]) for unit in UNITS]
-    todo = [(unit, lib) for unit, lib in zip(UNITS, libs) if not lib.exists()]
+def build(verbose: bool = False,
+          units: tuple = UNITS) -> tuple[list[Path], float, dict]:
+    """Compile every unit (of ``units``, UNITS' layout) whose library does
+    not exist yet, all at once; returns (library paths in their order,
+    wall seconds spent compiling, {unit name: seconds from the common start
+    to its nvcc's exit})."""
+    libs = [library_path(*unit[:3]) for unit in units]
+    todo = [(unit, lib) for unit, lib in zip(units, libs) if not lib.exists()]
     if not todo:
         return libs, 0.0, {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -121,67 +123,80 @@ def build(verbose: bool = False) -> tuple[list[Path], float, dict]:
     return libs, time.perf_counter() - t0, seconds
 
 
+_P, _I, _U, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                       ctypes.c_float, ctypes.c_longlong)
+# Each source's C entries and their argument types; a unit exports them with
+# its suffix.  Every entry returns an int (a launch's cudaError_t).
+SIGNATURES = {
+    "pathgen": {
+        "mcop_priced_smem_bytes": [_I] * 4,
+        "mcop_priced_blocks_per_sm": [_I] * 6,
+        "mcop_path_smem_bytes": [_I] * 4,
+        "mcop_path_blocks_per_sm": [_I] * 4,
+        "mcop_pathgen": [_P, _P, _P, _P, _I, _I, _I, _U, _F, _F, _F, _F, _F,
+                         _I, _I, _P, _P],
+        "mcop_priced_chunk": [_P, _P, _P, _P, _I, _I, _I, _U, _F, _F, _F, _F,
+                              _P, _LL, _F, _I, _I, _I, _I, _I, _F, _P, _P]},
+    "pathgen_tiled": {
+        "mcop_tiled_smem_bytes": [_I] * 4,
+        "mcop_tiled_blocks_per_sm": [_I] * 6,
+        "mcop_tiled_pathgen": [_P, _I, _P, _P, _P, _I, _I, _I, _U, _F, _F, _F,
+                               _F, _F, _I, _I, _P, _P],
+        "mcop_tiled_priced_chunk": [_P, _I, _P, _P, _P, _I, _I, _I, _U, _F, _F,
+                                    _F, _F, _P, _LL, _F, _I, _I, _I, _I, _I,
+                                    _F, _P, _P]},
+    "chain": {
+        "mcop_chain_smem_bytes": [_I] * 6,
+        "mcop_chain_group": [],
+        "mcop_chain_blocks_per_sm": [_I] * 6,
+        "mcop_priced_chain": [_P, _P, _P, _P, _I, _I, _I, _U, _F, _F, _F, _F,
+                              _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _P]},
+    "greeks": {
+        "mcop_greeks_smem_bytes": [_I] * 4,
+        "mcop_greeks_group": [],
+        "mcop_greeks_blocks_per_sm": [_I] * 4,
+        "mcop_greeks_chunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _F,
+                              _F, _F, _F, _P, _LL, _F, _I, _I, _I, _P, _P],
+        "mcop_chain_greeks_chunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F,
+                                    _F, _F, _F, _F, _P, _LL, _LL, _I, _I, _I,
+                                    _I, _P, _P]},
+    "pathgen_factored": {
+        "mcop_factored_smem_bytes": [_I],
+        "mcop_factored_form_smem_bytes": [_I] * 3,
+        "mcop_factored_blocks_per_sm": [_I] * 5,
+        "mcop_factored_pathgen": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _U, _F, _F, _F, _F, _F, _I, _I, _P, _P],
+        "mcop_factored_priced_chunk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _U, _F, _F, _F, _F, _P, _LL, _F,
+                                       _I, _I, _I, _I, _I, _F, _P, _P]},
+    "roofline": {
+        "mcop_roofline_normals": [_U, _I, _I, _I, _I, _I, _P, _P],
+        "mcop_roofline_matmul": [_U, _P, _I, _I, _I, _I, _I, _P, _P, _P]}
+}
+
+
+def bind(path: Path, stem: str, suffix: str) -> dict:
+    """The C entries of source ``stem`` in the library at ``path`` (a unit
+    of suffix ``suffix``), their signatures declared, by entry name."""
+    lib = ctypes.CDLL(str(path))
+    entries = {}
+    for name, argtypes in SIGNATURES[stem].items():
+        fn = getattr(lib, name + suffix)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        entries[name + suffix] = fn
+    return entries
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> types.SimpleNamespace:
     """The kernels' C entries with their signatures declared (built first
     if needed), as attributes of one namespace.  Every launching entry
     returns a cudaError_t as int."""
     paths, _, _ = build()
-    p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                  ctypes.c_float)
-    ll = ctypes.c_longlong
-    # Each source's entries; a unit exports them with its suffix.
-    signatures = {
-        "pathgen": {
-            "mcop_smem_bytes": [i, i, i, i, i],
-            "mcop_priced_smem_bytes": [i] * 4,
-            "mcop_priced_blocks_per_sm": [i] * 6,
-            "mcop_pathgen": [p, p, p, p, i, i, i, u, f, f, f, f, f, i, i, p,
-                             p],
-            "mcop_priced_chunk": [p, p, p, p, i, i, i, u, f, f, f, f, p, ll,
-                                  f, i, i, i, i, i, f, p, p]},
-        "pathgen_tiled": {
-            "mcop_tiled_smem_bytes": [i, i, i, i],
-            "mcop_tiled_pathgen": [p, i, p, p, p, i, i, i, u, f, f, f, f, f,
-                                   i, i, p, p],
-            "mcop_tiled_priced_chunk": [p, i, p, p, p, i, i, i, u, f, f, f,
-                                        f, p, ll, f, i, i, i, i, i, f, p,
-                                        p]},
-        "chain": {
-            "mcop_chain_smem_bytes": [i] * 6,
-            "mcop_chain_group": [],
-            "mcop_chain_blocks_per_sm": [i] * 6,
-            "mcop_priced_chain": [p, p, p, p, i, i, i, u, f, f, f, f, p, ll,
-                                  ll, i, i, i, i, i, p, p]},
-        "greeks": {
-            "mcop_greeks_smem_bytes": [i] * 4,
-            "mcop_greeks_group": [],
-            "mcop_greeks_blocks_per_sm": [i] * 4,
-            "mcop_greeks_chunk": [p, p, p, p, p, p, i, i, i, u, f, f, f, f,
-                                  f, p, ll, f, i, i, i, p, p],
-            "mcop_chain_greeks_chunk": [p, p, p, p, p, p, i, i, i, u, f, f,
-                                        f, f, f, p, ll, ll, i, i, i, i, p,
-                                        p]},
-        "pathgen_factored": {
-            "mcop_factored_smem_bytes": [i],
-            "mcop_factored_form_smem_bytes": [i] * 3,
-            "mcop_factored_blocks_per_sm": [i] * 5,
-            "mcop_factored_pathgen": [p] * 10 + [i, i, u, f, f, f, f, f, i,
-                                                 i, p, p],
-            "mcop_factored_priced_chunk": [p] * 10 + [
-                i, i, u, f, f, f, f, p, ll, f, i, i, i, i, i, f, p, p]},
-        "roofline": {
-            "mcop_roofline_normals": [u, i, i, i, i, i, p, p],
-            "mcop_roofline_matmul": [u, p, i, i, i, i, i, p, p, p]},
-    }
     entries = {}
     for (_, src, _, suffix), path in zip(UNITS, paths):
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in signatures[src.stem].items():
-            fn = getattr(lib, name + suffix)
-            fn.argtypes = argtypes
-            fn.restype = i
-            entries[name + suffix] = fn
+        entries.update(bind(path, src.stem, suffix))
     return types.SimpleNamespace(**entries)
 
 

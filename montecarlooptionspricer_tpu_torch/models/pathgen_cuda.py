@@ -79,6 +79,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -315,14 +316,16 @@ def block_smem_bytes(n_steps: int, block_paths: int, n_products: int = 1,
     return 4 * floats
 
 
-def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
-               with_cv: bool = False, spectral: bool = False,
-               bf16: bool = False) -> int:
-    """K1 (``smem_bytes`` of csrc/pathgen.cu): the planes with W, one
-    product and ``block_paths`` floats more (twice ``with_cv``).  A paired
-    block of ``block_paths`` members keeps half as many rows of noise and
-    a product tile of every member.  Its block sets the single-tile
-    family's range (``max_block_paths``)."""
+def range_smem_bytes(n_steps: int, block_paths: int,
+                     antithetic: bool = False, with_cv: bool = False,
+                     spectral: bool = False, bf16: bool = False) -> int:
+    """The single-tile family's range model (``max_block_paths``): the
+    shared memory of a block that keeps a W plane resident beside its
+    noise planes, one product tile and ``block_paths`` floats more (twice
+    ``with_cv``); a paired block of ``block_paths`` members keeps half as
+    many rows of noise and a product tile of every member.  No kernel takes
+    this layout (K1 and K2 draw W per tile, ``priced_smem_bytes``); it
+    fixes where the single tile ends and the slab begins: 365 steps."""
     drawn = block_paths // 2 if antithetic else block_paths
     return block_smem_bytes(
         n_steps, drawn, extra=(block_paths - drawn) * (TILE_COLS + 1)
@@ -330,27 +333,41 @@ def smem_bytes(n_steps: int, block_paths: int, antithetic: bool = False,
 
 
 def priced_tile_k(antithetic: bool = False, spectral: bool = False,
-                  bf16: bool = False) -> int:
-    """Rows of Lt' K2 stages per pass of its float32 product
-    (``priced_tile_k`` of csrc/pathgen.cu): 16 for the unpaired chol
-    block, which then fits two blocks an SM at 365 steps, else TILE_K."""
-    return 16 if not (antithetic or spectral or bf16) else TILE_K
+                  bf16: bool = False, priced: bool = True) -> int:
+    """Rows of Lt' K2 (K1 with ``priced`` False) stages per pass of its
+    float32 product (``priced_tile_k`` of csrc/pathgen.cu): 16 for the
+    unpaired chol block, which then fits two blocks an SM at 365 steps, 8
+    for K1's spectral pair (two blocks an SM where TILE_K leaves one),
+    else TILE_K."""
+    if not (antithetic or spectral or bf16):
+        return 16
+    return 8 if not priced and antithetic and spectral and not bf16 \
+        else TILE_K
 
 
 def priced_smem_bytes(n_steps: int, block_paths: int,
                       antithetic: bool = False, spectral: bool = False,
-                      bf16: bool = False) -> int:
-    """K2 (``priced_smem_bytes`` of csrc/pathgen.cu): the planes without W
-    (K2 draws W per tile), one product tile of every member (it holds the
-    block's partial sums at the end, the control lane's too) and the
-    staged factor tiles of ``priced_tile_k`` rows, in whose room the
-    decision's rows of a step tile are staged once the product is done:
-    the same in both policies."""
+                      bf16: bool = False, priced: bool = True) -> int:
+    """K2 (K1 with ``priced`` False; ``priced_smem_bytes`` of
+    csrc/pathgen.cu): the planes without W (both draw W per tile), one
+    product tile of every member (K2's partial sums at the end, the
+    control lane's too) and the staged factor tiles of ``priced_tile_k``
+    rows, in whose room K2's decision rows of a step tile are staged once
+    the product is done: the same in both policies."""
     drawn = drawn_rows(block_paths, antithetic)
     return block_smem_bytes(
         n_steps, drawn, extra=(block_paths - drawn) * (TILE_COLS + 1),
         spectral=spectral, bf16=bf16, w_plane=False,
-        tile_k=priced_tile_k(antithetic, spectral, bf16))
+        tile_k=priced_tile_k(antithetic, spectral, bf16, priced))
+
+
+def pathgen_smem_bytes(n_steps: int, block_paths: int,
+                       antithetic: bool = False, spectral: bool = False,
+                       bf16: bool = False) -> int:
+    """K1's block (``mcop_path_smem_bytes``): K2's layout, its spectral
+    pair staging 8 rows of the factors a pass."""
+    return priced_smem_bytes(n_steps, block_paths, antithetic, spectral,
+                             bf16, priced=False)
 
 
 SM_SMEM = 233_472          # shared memory of one H100 SM
@@ -366,10 +383,10 @@ def smem_blocks_per_sm(smem: int) -> int:
 
 def priced_min_blocks(antithetic: bool = False, spectral: bool = False,
                       bf16: bool = False) -> int:
-    """K2's ``__launch_bounds__`` minimum of blocks an SM (csrc/pathgen.cu
-    priced_kernel), which caps its registers: 3 for the bf16 forms but
-    the paired chol one (three of their blocks fit an SM at 365 steps),
-    else 2."""
+    """K1's and K2's ``__launch_bounds__`` minimum of blocks an SM
+    (csrc/pathgen.cu tile_kernel), which caps their registers: 3 for the
+    bf16 forms but the paired chol one (three of their blocks fit an SM at
+    365 steps), else 2."""
     return 3 if bf16 and (spectral or not antithetic) else 2
 
 
@@ -381,6 +398,13 @@ def priced_min_blocks(antithetic: bool = False, spectral: bool = False,
 # float32 spectral pair and the bf16 chol pair ran slower halved.
 PRICED_BLOCK_CAPS = {(False, False, True): 64, (True, True, False): 32,
                      (True, True, True): 64}
+# K1's largest block per form (bf16, spectral, antithetic), below the largest
+# that fits where a smaller block ran faster at 365 steps (NVIDIA H100 80GB
+# HBM3, 700 W; ``chip_smoke.py --k1-forms`` times every block, PERF.md §6):
+# the float32 chol pair (64 members: 1.02 ms against 1.35 at 128) and
+# spectral pair (64: 3.32 against 3.85), the bf16 spectral form (32: 2.31
+# against 2.78) and its pair (64: 1.23 against 1.50).
+PATHGEN_BLOCK_CAPS = {**PRICED_BLOCK_CAPS, (False, True, True): 64}
 
 
 def fitting_block(smem, n_steps: int, rows: int = 0,
@@ -393,6 +417,13 @@ def fitting_block(smem, n_steps: int, rows: int = 0,
                 and (not rows or rows % bp == 0)):
             return bp
     return 0
+
+
+def slab_ld(n_steps: int) -> int:
+    """Row stride, in elements, of a factor the step-tiled kernels copy 16
+    bytes at a time (``slab_ld`` of csrc/slab_tile.cuh): n rounded up to
+    8."""
+    return _round_up(n_steps, 8)
 
 
 def _check_form(fgn_form: str) -> bool:
@@ -412,12 +443,13 @@ def check_fgn_dtype(fgn_dtype: str) -> bool:
 
 
 def max_block_paths(n_steps: int, fgn_form: str = "chol") -> int:
-    """Largest path block (64, 32 or 16) of K1/K2 at this horizon in this
-    fGN form, or 0 (the spectral form's three planes take 32 at 365
+    """The single-tile family's range at this horizon in this fGN form:
+    the largest path block (64, 32 or 16) whose ``range_smem_bytes``
+    fits, or 0 (the spectral form's three planes take 32 at 365
     steps)."""
     spectral = _check_form(fgn_form)
-    return fitting_block(lambda n, b: smem_bytes(n, b, spectral=spectral),
-                         n_steps)
+    return fitting_block(
+        lambda n, b: range_smem_bytes(n, b, spectral=spectral), n_steps)
 
 
 def supports(n_steps: int, fgn_form: str = "chol") -> bool:
@@ -501,6 +533,27 @@ class PathConsts:
         if self.spectral:
             return self.cr_half.data_ptr(), self.ci_half.data_ptr()
         return self.lt_half.data_ptr(), None
+
+    @functools.cached_property
+    def slab_factors(self) -> tuple:
+        """The factors as the step-tiled kernels read them: each row padded
+        with zeros to ``slab_ld(n_steps)`` elements, so every copy of a
+        k-tile is 16 bytes (csrc/slab_tile.cuh); (Lt', None) or (Cr',
+        Ci'), made at first use and kept with the constants."""
+        ld = slab_ld(self.n_steps)
+
+        def pad(m):
+            return torch.nn.functional.pad(m, (0, ld - m.shape[1]))
+
+        if self.spectral:
+            return pad(self.cr_half), pad(self.ci_half)
+        return pad(self.lt_half), None
+
+    def slab_factor_ptrs(self) -> tuple:
+        """The step-tiled kernels' (lt, ci) pointer arguments: those of
+        ``slab_factors``."""
+        fac, fci = self.slab_factors
+        return fac.data_ptr(), None if fci is None else fci.data_ptr()
 
 
 def make_path_consts(s0, xi, h, eta, r, n_steps: int, dt: float,
@@ -984,17 +1037,51 @@ def _no_block(kernel: str, consts: PathConsts, rows: int,
 
 def path_block_paths(consts: PathConsts, rows: int,
                      antithetic: bool = False) -> int:
-    """The path block of a K1 launch: ``consts.block_paths``, or paired
-    the largest of PAIRED_BLOCK_CHOICES whose float32 shared memory fits
-    and which divides ``rows``."""
+    """The single-tile range model's block of a K1 form:
+    ``consts.block_paths``, or paired the largest of PAIRED_BLOCK_CHOICES
+    whose ``range_smem_bytes`` fits and which divides ``rows``.  K1
+    launches on its own block, ``pathgen_block_paths``."""
     if not antithetic:
         return consts.block_paths
-    bp = fitting_block(lambda n, b: smem_bytes(n, b, True,
-                                               spectral=consts.spectral),
-                       consts.n_steps, rows, True)
+    bp = fitting_block(lambda n, b: range_smem_bytes(
+        n, b, True, spectral=consts.spectral), consts.n_steps, rows, True)
     if not bp:
         raise _no_block("K1", consts, rows, True)
     return bp
+
+
+def pathgen_block_paths(consts: PathConsts, rows: int,
+                        antithetic: bool = False) -> int:
+    """The path block of a K1 launch, its own as K2's is: the largest of
+    BLOCK_CHOICES (PAIRED_BLOCK_CHOICES, in pair members, when
+    ``antithetic``), up to the form's PATHGEN_BLOCK_CAPS, whose shared
+    memory (``pathgen_smem_bytes``) in the constants' fGN form and dtype
+    fits and which divides ``rows``."""
+    bp = fitting_block(
+        lambda n, b: pathgen_smem_bytes(n, b, antithetic, consts.spectral,
+                                        consts.bf16),
+        consts.n_steps, rows, antithetic, PATHGEN_BLOCK_CAPS.get(
+            (consts.bf16, consts.spectral, bool(antithetic)), 128))
+    if not bp:
+        raise _no_block("K1", consts, rows, antithetic)
+    return bp
+
+
+def pathgen_blocks_per_sm(consts: PathConsts, rows: int,
+                          antithetic: bool = False) -> int:
+    """Blocks of K1 one SM of the card runs at once in the form of
+    ``consts`` and ``antithetic``, at the block ``pathgen_block_paths``
+    picks (the CUDA runtime's occupancy query on the seeded body)."""
+    bp = pathgen_block_paths(consts, rows, antithetic)
+    from ..kernels import build
+
+    got = build.entry(build.load(), "pathgen", "mcop_path_blocks_per_sm",
+                      consts.bf16, True)(
+        consts.n_steps, bp, int(antithetic), int(consts.spectral))
+    if got < 0:
+        raise RuntimeError(f"mcop_path_blocks_per_sm failed: cudaError "
+                           f"{-got}")
+    return got
 
 
 def priced_block_paths(consts: PathConsts, rows: int,
@@ -1077,14 +1164,16 @@ def pathgen(consts: PathConsts, rows: int = None, key: int = None,
     the chol form, 3 for the spectral).  With ``antithetic`` the rows are
     rows / 2 pairs (the seeded entry draws rows / 2 rows, noise is
     [planes, rows / 2, n_steps]): the drawn rows' paths, then their
-    partners'."""
+    partners'.  On the card it launches on its own block
+    (``pathgen_block_paths``) and adds log s0 to the running sum of the
+    increments, as the plain version does."""
     rows = _noise_or_rows(consts, rows, key, noise, antithetic)
     consts.check_dtype()
     if consts.device.type == "cpu":
         if noise is None:
             noise = normals_ref(consts, key, drawn_rows(rows, antithetic))
         return pathgen_from_noise_ref(consts, noise, antithetic)
-    bp = path_block_paths(consts, rows, antithetic)
+    bp = pathgen_block_paths(consts, rows, antithetic)
     args = _kernel_args(consts, rows, key, noise, bp)
     out = torch.empty((rows, consts.n_steps + 1), dtype=torch.float32,
                       device=consts.device)

@@ -32,10 +32,16 @@ are K1's and K2's bf16 ones.  Their counters count it as "bf16",
 "bf16/anti", ..., "bf16/spectral/quad/cv".
 
 The noise planes [2, rows, n_steps] (N, W), or [3, rows, n_steps] (Zr, Zi,
-W) spectral, stay in device memory and the kernels
-stream it through shared memory in k-tiles (the design note in the CUDA
-source says why); the seeded entries first draw their rows into a
-workspace plane the wrapper allocates.
+W) spectral, stay in device memory and the kernels stream them, with the
+factors, through a ring of k-tile stages in shared memory filled by
+cp.async copies a few k-tiles ahead (the design note in the CUDA source says
+why).  The seeded entries first draw their rows into a workspace the
+wrapper allocates (``workspace_floats``: under bf16 the multiplied planes
+already rounded to bf16); the kernels read the factors with rows padded to
+``pc.slab_ld`` (``PathConsts.slab_factors``).  K7 decides each 128-column
+tile with a warp's lanes across its columns, its table rows staged per
+tile, and adds log s0 to the running sum of the increments, as the plain
+version does.
 """
 
 from __future__ import annotations
@@ -54,32 +60,64 @@ priced_chunk_from_noise_ref = pc.priced_chunk_from_noise_ref
 # The card's memory model (mirrors csrc/pathgen_tiled.cu).
 
 TILE_COLS = 128             # step columns per output tile
-TILE_K = 16                 # steps per staged k-tile of N and Lt'
 BLOCK_CHOICES = (128, 64, 32, 16)
 PAIRED_BLOCK_CHOICES = (128, 64, 32)   # members: 64, 32 or 16 drawn rows
 L2_BYTES = 50 * 1024 * 1024  # H100 SXM L2 cache
+X_STRIDE = TILE_COLS + 1    # row stride of the X tile
+TAB_FLOATS = 8 * TILE_COLS  # the decision's staged rows of one tile
+N_KB = 16 + 8               # bf16 row stride of N's staged k-tile
+FAC_KB = TILE_COLS + 8      # bf16 row stride of the factor's
 
 
-TILE_KB = TILE_K + 8        # bf16 row stride of a staged k-tile
+def tile_k(spectral: bool = False, bf16: bool = False) -> int:
+    """Steps of a staged k-tile (``tile_k`` of csrc/slab_tile.cuh): 32 for
+    the float32 chol form, else 16."""
+    return 32 if not (spectral or bf16) else 16
+
+
+def stages(spectral: bool = False, bf16: bool = False) -> int:
+    """Stages of the product's ring: 3, or 6 for the bf16 chol form."""
+    return 6 if bf16 and not spectral else 3
+
+
+def ring_floats(drawn: int, spectral: bool = False,
+                bf16: bool = False) -> int:
+    """Floats of the ring of a block of ``drawn`` rows: per stage N^T
+    [tile_k][drawn + 4] and the factor's k-tile [tile_k][TILE_COLS] in
+    float32, or N's [drawn][N_KB] and the factor's [tile_k][FAC_KB]
+    k-tiles in bf16; two of each under ``spectral``."""
+    tk = tile_k(spectral, bf16)
+    per = ((drawn * N_KB + tk * FAC_KB) // 2 if bf16
+           else tk * (drawn + 4 + TILE_COLS))
+    return stages(spectral, bf16) * (2 if spectral else 1) * per
 
 
 def smem_bytes(block_paths: int, antithetic: bool = False,
                with_cv: bool = False, spectral: bool = False,
                bf16: bool = False) -> int:
     """Shared memory of one CUDA block (``mcop_tiled_smem_bytes``): the
-    N^T k-tile of its drawn rows (row stride drawn + 4), the Lt' k-tile
-    (``spectral``: the Zr^T and Zi^T k-tiles and the Cr' and Ci'
-    k-tiles; ``bf16``: each a bf16 tile of row stride TILE_KB, N's
-    [drawn][TILE_KB], the factor's [TILE_COLS][TILE_KB]), the X tile of its
-    ``block_paths`` paths (stride TILE_COLS + 1) and the path-sum slots
-    (twice under CV).  It does not depend on the horizon."""
+    decision's staged rows [8][TILE_COLS] and the X tile of its
+    ``block_paths`` paths [block_paths][X_STRIDE], in whose room the
+    product's ring (``ring_floats`` of its drawn rows) lives while it
+    runs; the control variate takes none more (its sums are reduced
+    through the X tile).  It does not depend on the horizon: at 128
+    paths 99,840 bytes in float32 (the ring) and 70,144 in bf16 (the X
+    tile), two blocks an SM in every form."""
     drawn = block_paths // 2 if antithetic else block_paths
-    tiles = ((drawn + TILE_COLS) * TILE_KB // 2 if bf16
-             else TILE_K * (drawn + 4) + TILE_K * TILE_COLS)
-    floats = ((2 if spectral else 1) * tiles
-              + block_paths * (TILE_COLS + 1)
-              + (2 if with_cv else 1) * block_paths)
-    return 4 * floats
+    return 4 * max(ring_floats(drawn, spectral, bf16),
+                   TAB_FLOATS + block_paths * X_STRIDE)
+
+
+def workspace_floats(drawn: int, n_steps: int, spectral: bool = False,
+                     bf16: bool = False) -> int:
+    """Floats of the seeded entries' workspace of ``drawn`` rows
+    (csrc/pathgen_tiled.cu:draw_rows): the noise-in layout [2 or 3, drawn,
+    n_steps] in float32; under ``bf16`` the N (and Zi) planes as bf16 rows
+    of ``pc.slab_ld(n_steps)``, then W [drawn, n_steps] in float32."""
+    planes = 2 if spectral else 1
+    if bf16:
+        return planes * drawn * pc.slab_ld(n_steps) // 2 + drawn * n_steps
+    return (planes + 1) * drawn * n_steps
 
 
 def max_tiled_steps(fgn_form: str = "chol") -> int:
@@ -117,15 +155,36 @@ def _plane_args(consts: pc.PathConsts, rows: int, key, noise,
                 antithetic: bool = False):
     """(noise plane, seeded flag, block, key word) for a launch: the given
     noise, or a workspace the seeded kernel fills from the stream (its
-    drawn rows only)."""
+    drawn rows only, ``workspace_floats``)."""
     pc.check_device_inputs(consts, noise)
     bp = block_paths_for(rows, antithetic)
     if noise is not None:
         return noise, 0, bp, 0
-    plane = torch.empty((consts.n_planes, pc.drawn_rows(rows, antithetic),
-                         consts.n_steps), dtype=torch.float32,
-                        device=consts.device)
+    plane = torch.empty(workspace_floats(
+        pc.drawn_rows(rows, antithetic), consts.n_steps, consts.spectral,
+        consts.bf16), dtype=torch.float32, device=consts.device)
     return plane, 1, bp, key & pc._U32
+
+
+def blocks_per_sm(consts: pc.PathConsts, rows: int, priced: bool = True,
+                  antithetic: bool = False, with_cv: bool = False,
+                  policy_form: str = "boundary") -> int:
+    """Blocks of K7 (K6 with ``priced`` False) one SM of the card runs at
+    once in the form of ``consts`` (its fGN form and dtype),
+    ``antithetic``, ``with_cv`` and ``policy_form``, at the block
+    ``block_paths_for`` picks (the CUDA runtime's occupancy query on the
+    seeded body)."""
+    quadratic = pc.check_policy(policy_form, antithetic)
+    from ..kernels import build
+
+    got = build.entry(build.load(), "pathgen_tiled",
+                      "mcop_tiled_blocks_per_sm", consts.bf16, True)(
+        block_paths_for(rows, antithetic), int(priced), int(antithetic),
+        int(with_cv), int(consts.spectral), int(quadratic))
+    if got < 0:
+        raise RuntimeError(f"mcop_tiled_blocks_per_sm failed: cudaError "
+                           f"{-got}")
+    return got
 
 
 def tiled_pathgen(consts: pc.PathConsts, rows: int = None, key: int = None,
@@ -152,7 +211,7 @@ def tiled_pathgen(consts: pc.PathConsts, rows: int = None, key: int = None,
 
     err = build.entry(build.load(), "pathgen_tiled", "mcop_tiled_pathgen",
                       consts.bf16, bool(seeded))(
-        plane.data_ptr(), seeded, *consts.factor_ptrs(),
+        plane.data_ptr(), seeded, *consts.slab_factor_ptrs(),
         consts.vd.data_ptr(), rows, consts.n_steps, bp, word,
         *pc._scalars(consts), ctypes.c_float(consts.s0),
         int(bool(antithetic)), int(consts.bf16), out.data_ptr(),
@@ -202,7 +261,7 @@ def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
 
     err = build.entry(build.load(), "pathgen_tiled",
                       "mcop_tiled_priced_chunk", consts.bf16, bool(seeded))(
-        plane.data_ptr(), seeded, *consts.factor_ptrs(),
+        plane.data_ptr(), seeded, *consts.slab_factor_ptrs(),
         consts.vd.data_ptr(), rows, consts.n_steps, bp, word,
         *pc._scalars(consts), table.data_ptr(), table.stride(0),
         ctypes.c_float(strike), int(bool(is_call)), int(bool(antithetic)),

@@ -148,8 +148,9 @@ def matmul(key: int, b: torch.Tensor, grid: int, k: int,
     from .kernels import build
 
     bf16 = b.dtype == torch.bfloat16
-    work = torch.empty((2, grid * BLOCK, s_pad), dtype=torch.float32,
-                       device=b.device)
+    # a's two buffers, and under bf16 their bf16 shadows in a third plane.
+    work = torch.empty((3 if bf16 else 2, grid * BLOCK, s_pad),
+                       dtype=torch.float32, device=b.device)
     out = torch.empty((grid * MM_SPLIT, s_pad), dtype=torch.float32,
                       device=b.device)
     err = build.load().mcop_roofline_matmul(

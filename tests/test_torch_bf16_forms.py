@@ -109,9 +109,9 @@ def test_bf16_blocks_fit_the_float32_blocks():
                                   (True, pc.PAIRED_BLOCK_CHOICES)):
                 for bp in choices:
                     for cv in (False, True):
-                        assert pc.smem_bytes(n, bp, anti, cv, spec,
-                                             bf16=True) <= pc.smem_bytes(
-                            n, bp, anti, cv, spec)
+                        assert pc.range_smem_bytes(
+                            n, bp, anti, cv, spec, bf16=True) <= \
+                            pc.range_smem_bytes(n, bp, anti, cv, spec)
     for spec in (False, True):
         for bp in ptc.BLOCK_CHOICES:
             for cv in (False, True):

@@ -941,11 +941,9 @@ def test_spectral_wrappers_reject_bad_inputs(cuda):
                 assert lib.mcop_chain_smem_bytes(n, bp, anti, 1, 0,
                                                  cc.GROUP) == \
                     cc.smem_bytes(n, bp, bool(anti), True)
-                for cv in (0, 1):
-                    assert lib.mcop_smem_bytes(n, bp, anti, cv, 1) == \
-                        pc.smem_bytes(n, bp, bool(anti), bool(cv), True)
-                    assert lib.mcop_smem_bytes(n, bp, anti, cv, 0) == \
-                        pc.smem_bytes(n, bp, bool(anti), bool(cv))
+                for spec in (0, 1):   # K1's and K2's layout
+                    assert lib.mcop_priced_smem_bytes(n, bp, anti, spec) == \
+                        pc.priced_smem_bytes(n, bp, bool(anti), bool(spec))
     for anti, choices in ((0, ptc.BLOCK_CHOICES),
                           (1, ptc.PAIRED_BLOCK_CHOICES)):
         for bp in choices:
@@ -1619,12 +1617,10 @@ def test_bf16_memory_models_are_the_cards(cuda):
         for anti, choices in ((0, pc.BLOCK_CHOICES),
                               (1, pc.PAIRED_BLOCK_CHOICES)):
             for bp in choices:
-                for cv in (0, 1):
-                    for spec in (0, 1):
-                        assert lib.mcop_smem_bytes_bf16(
-                            n, bp, anti, cv, spec) == pc.smem_bytes(
-                            n, bp, bool(anti), bool(cv), bool(spec),
-                            bf16=True)
+                for spec in (0, 1):   # K1's and K2's layout
+                    assert lib.mcop_priced_smem_bytes_bf16(
+                        n, bp, anti, spec) == pc.priced_smem_bytes(
+                        n, bp, bool(anti), bool(spec), bf16=True)
     for anti, choices in ((0, ptc.BLOCK_CHOICES),
                           (1, ptc.PAIRED_BLOCK_CHOICES)):
         for bp in choices:
@@ -1995,16 +1991,17 @@ def _k2_edge_tables(ls, first_tile=False, cols=None):
 
 
 def _check_k2_form(cuda, consts, table, noise, key, anti, cv, policy,
-                   rows):
-    """One K2 form, seeded and noise-in, against its plain version (each
-    lane at rtol 1e-4), two seeded launches bit for bit, and paired against
-    the unpaired form on [X; -X] (1e-5)."""
+                   rows, priced=pc.priced_chunk):
+    """One K2 form (K7's, ``priced`` its wrapper), seeded and noise-in,
+    against its plain version (each lane at rtol 1e-4), two seeded
+    launches bit for bit, and paired against the unpaired form on [X; -X]
+    (1e-5)."""
     want = pc.priced_chunk_from_noise_ref(consts, table, noise, 105.0, False,
                                           anti, cv, policy)
     want = want if cv else (want,)
     form = dict(antithetic=anti, with_cv=cv, policy_form=policy)
     got_n, got_s, again = (
-        pc.priced_chunk(consts, table, 105.0, False, **form, **kw)
+        priced(consts, table, 105.0, False, **form, **kw)
         for kw in ({"noise": noise}, {"rows": rows, "key": key},
                    {"rows": rows, "key": key}))
     torch.cuda.synchronize()
@@ -2015,9 +2012,9 @@ def _check_k2_form(cuda, consts, table, noise, key, anti, cv, policy,
     for g, w in zip(got_s if cv else (got_s,), again if cv else (again,)):
         assert torch.equal(g, w)
     if anti:
-        unpaired = pc.priced_chunk(consts, table, 105.0, False,
-                                   noise=torch.cat([noise, -noise], dim=1),
-                                   with_cv=cv)
+        unpaired = priced(consts, table, 105.0, False,
+                          noise=torch.cat([noise, -noise], dim=1),
+                          with_cv=cv)
         torch.cuda.synchronize()
         for g, w in zip(got_n if cv else (got_n,),
                         unpaired if cv else (unpaired,)):
@@ -2339,3 +2336,124 @@ def test_k89_memory_model_and_blocks_are_the_cards(cuda):
                 got = pfc.blocks_per_sm(consts, True, anti, cv, policy)
                 assert min(2, most) <= got <= most, (n, dtype, anti, cv,
                                                      policy, got)
+
+
+# ---------------------------------------------------------------------------
+# K1 without a W plane, on its own blocks; K7's slab product on a ring of
+# cp.async stages and its decision on a warp's lanes across a 128-column
+# tile.
+
+# K1's 8 forms: (fgn_dtype, fgn_form).
+K1_FORMS = [(d, f) for d in ("float32", "bfloat16")
+            for f in ("chol", "spectral")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [47, 365])
+def test_k1_every_form_and_memory_model(cuda, n_steps):
+    """K1 in each of its 8 forms at 131072 rows against its plain version,
+    seeded and noise-in (rtol 2e-4), the pair form equal to the bit to the
+    unpaired form on [X; -X]; its units' shared memory is its model, and
+    the runtime holds each form's block at least as often as the launch
+    bounds' minimum allows within shared memory, and no more than shared
+    memory allows."""
+    from montecarlooptionspricer_tpu_torch.kernels import build
+
+    rows, key = 1 << 17, pc._fold_words(5, 161)
+    lib = build.load()
+    for dtype, fgn_form in K1_FORMS:
+        consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda,
+                                     fgn_form=fgn_form, fgn_dtype=dtype)
+        spec, bf16 = consts.spectral, consts.bf16
+        for anti in (False, True):
+            noise = pc.normals_ref(consts, key, rows // 2 if anti else rows,
+                                   device=cuda)
+            want = pc.pathgen_from_noise_ref(consts, noise, anti)
+            got_n = pc.pathgen(consts, noise=noise, antithetic=anti)
+            for got in (got_n, pc.pathgen(consts, rows=rows, key=key,
+                                          antithetic=anti)):
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, rtol=2e-4, atol=0)
+            if anti:
+                unpaired = pc.pathgen(consts,
+                                      noise=torch.cat([noise, -noise], dim=1))
+                torch.cuda.synchronize()
+                assert torch.equal(got_n, unpaired)
+                del unpaired
+            del noise, want, got_n, got
+            bp = pc.pathgen_block_paths(consts, rows, anti)
+            smem = pc.pathgen_smem_bytes(n_steps, bp, anti, spec, bf16)
+            for seeded in (False, True):
+                assert build.entry(lib, "pathgen", "mcop_path_smem_bytes",
+                                   bf16, seeded)(n_steps, bp, anti,
+                                                 spec) == smem
+            most = pc.smem_blocks_per_sm(smem)
+            least = min(most, pc.priced_min_blocks(anti, spec, bf16))
+            got = pc.pathgen_blocks_per_sm(consts, rows, anti)
+            assert least <= got <= most, (dtype, fgn_form, anti, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [129, 400])
+def test_k7_every_form_on_edge_tables(cuda, n_steps):
+    """K7 in each of its 24 forms at 131072 rows, on tables whose first
+    hits fall at the four ballots' and the 128-column tiles' edges (31,
+    32, 63, 64, 95, 96, 127, 128) and n - 1 or never, then on a table
+    every path leaves in the first tile: against the plain versions,
+    seeded and noise-in, two seeded launches bit for bit, pairs against
+    [X; -X].  Each launch counts under its form."""
+    rows, key = 1 << 17, pc._fold_words(5, 171)
+    cols = [c for c in (31, 32, 63, 64, 95, 96, 127, 128, n_steps - 1)
+            if c < n_steps]
+    for dtype, fgn_form, anti, cv, policy in K2_FORMS:
+        consts = pc.make_path_consts(*MARKET.values(), n_steps, DT, cuda,
+                                     fgn_form=fgn_form, fgn_dtype=dtype)
+        noise = pc.normals_ref(consts, key, rows // 2 if anti else rows,
+                               device=cuda)
+        ls = pc._log_paths_ref(consts, noise, anti)
+        name = pc.form_name(anti, cv, fgn_form == "spectral",
+                            policy == "quadratic", dtype == "bfloat16")
+        before = ptc.tiled_priced_chunk.form_launches[name]
+        for first_tile in (False, True):
+            log_t, quad = _k2_edge_tables(ls, first_tile,
+                                          None if first_tile else cols)
+            _check_k2_form(cuda, consts, quad if policy == "quadratic"
+                           else log_t, noise, key, anti, cv, policy, rows,
+                           ptc.tiled_priced_chunk)
+        assert ptc.tiled_priced_chunk.form_launches[name] - before == 6
+        del noise, ls
+
+
+@pytest.mark.gpu
+def test_k6_k7_memory_model_and_blocks_are_the_cards(cuda):
+    """Every unit's mcop_tiled_smem_bytes equals ptc.smem_bytes in every
+    block, pairing, fGN form and control lane, and the runtime holds two or
+    three blocks of each of K7's 24 forms and K6's 8 an SM (two float32
+    blocks of 99,840 bytes, two or three bf16 ones of 70,144 by the launch
+    bounds' registers)."""
+    from montecarlooptionspricer_tpu_torch.kernels import build
+
+    lib = build.load()
+    for bf16 in (False, True):
+        for seeded in (False, True):
+            entry = build.entry(lib, "pathgen_tiled",
+                                "mcop_tiled_smem_bytes", bf16, seeded)
+            for anti, choices in ((False, ptc.BLOCK_CHOICES),
+                                  (True, ptc.PAIRED_BLOCK_CHOICES)):
+                for bp in choices:
+                    for cv in (False, True):
+                        for spec in (False, True):
+                            assert entry(bp, anti, cv, spec) == \
+                                ptc.smem_bytes(bp, anti, cv, spec, bf16)
+    for dtype in ("float32", "bfloat16"):
+        for fgn_form in ("chol", "spectral"):
+            consts = pc.make_path_consts(*MARKET.values(), 400, DT, cuda,
+                                         fgn_form=fgn_form, fgn_dtype=dtype)
+            for anti in (False, True):
+                got = ptc.blocks_per_sm(consts, 1 << 17, False, anti)
+                assert 2 <= got <= 3, (dtype, fgn_form, anti, got)
+            for _, _, anti, cv, policy in K2_FORMS[:6]:
+                got = ptc.blocks_per_sm(consts, 1 << 17, True, anti, cv,
+                                        policy)
+                assert 2 <= got <= 3, (dtype, fgn_form, anti, cv, policy,
+                                       got)

@@ -1,8 +1,8 @@
 """K2's layout and decision on the CPU: its shared-memory model against the
 C layout of ``csrc/pathgen.cu:priced_kernel``, written out here region by
 region as the kernel carves its dynamic shared memory, the block and the
-blocks an SM holds that it picks in each of its 24 forms, K1's model and
-the single-tile range left as they were, and a Python mirror of its
+blocks an SM holds that it picks in each of its 24 forms, the single-tile
+range model left as it was, and a Python mirror of its
 parallel first-hit decision (lanes on columns l and l + 32, two ballots a
 path and tile) held equal to the plain versions' ``first_hit_sum`` and
 ``quadratic_stops``.  The card tests hold the C entries equal to the same
@@ -49,9 +49,10 @@ def k2_layout(n, bp, anti, spec, bf16):
     return 4 * (planes * _plane(n, drawn, bf16) + bp * 65 + staged)
 
 
-def k1_layout(n, bp, anti, cv, spec, bf16):
-    """path_kernel: the planes and a W plane [D][n | 1], the X tile of every
-    member, the staged factor tiles and (1 or 2) * BP floats."""
+def range_layout(n, bp, anti, cv, spec, bf16):
+    """The single-tile range model (pc.range_smem_bytes, the layout with a
+    resident W plane): the planes and a W plane [D][n | 1], the X tile of
+    every member, the staged factor tiles and (1 or 2) * BP floats."""
     drawn = bp // 2 if anti else bp
     planes = 2 if spec else 1
     staged = planes * (64 * 40 // 2 if bf16 else 32 * 64)
@@ -88,7 +89,7 @@ K2_SMEM_BLOCKS_365 = {(0, 0, 0): 2, (0, 0, 1): 3, (0, 1, 0): 1,
 def test_k2_memory_model_is_the_c_layout(n):
     """pc.priced_smem_bytes equals the C layout for every block, fGN form,
     pairing and dtype (the policy and the control variate take no memory
-    more), and is K1's less its W plane at least."""
+    more), and is the range model's less its W plane at least."""
     for anti, choices in ((False, pc.BLOCK_CHOICES),
                           (True, pc.PAIRED_BLOCK_CHOICES)):
         for spec in (False, True):
@@ -97,8 +98,8 @@ def test_k2_memory_model_is_the_c_layout(n):
                     got = pc.priced_smem_bytes(n, bp, anti, spec, bf16)
                     assert got == k2_layout(n, bp, anti, spec, bf16)
                     drawn = bp // 2 if anti else bp
-                    assert got <= k1_layout(n, bp, anti, False, spec,
-                                            bf16) - 4 * drawn * (n | 1)
+                    assert got <= range_layout(n, bp, anti, False, spec,
+                                               bf16) - 4 * drawn * (n | 1)
 
 
 @pytest.mark.parametrize("n", STEPS)
@@ -130,10 +131,11 @@ def test_k2_blocks_in_every_form(n):
 
 
 def test_k1_model_and_single_tile_range_unchanged():
-    """K1 keeps its W plane, its model and its blocks, and its block still
-    sets the single-tile family's range: 64 paths at 365 steps chol
-    (211,968 bytes; 163,584 bf16), 32 spectral, the pair forms' K1 blocks
-    128 and 64; 365 steps single, 366 the slab."""
+    """The range model keeps the layout with a W plane, which no kernel
+    takes (K1's is tests/test_torch_k1_k7_layout.py's), and sets the
+    single-tile family's range: 64 paths at 365 steps chol
+    (211,968 bytes; 163,584 bf16), 32 spectral, the pair forms' range
+    blocks 128 and 64; 365 steps single, 366 the slab."""
     for n in STEPS:
         for anti, choices in ((False, pc.BLOCK_CHOICES),
                               (True, pc.PAIRED_BLOCK_CHOICES)):
@@ -141,11 +143,11 @@ def test_k1_model_and_single_tile_range_unchanged():
                 for cv in (False, True):
                     for spec in (False, True):
                         for bf16 in (False, True):
-                            assert pc.smem_bytes(
-                                n, bp, anti, cv, spec, bf16) == k1_layout(
+                            assert pc.range_smem_bytes(
+                                n, bp, anti, cv, spec, bf16) == range_layout(
                                 n, bp, anti, cv, spec, bf16)
-    assert pc.smem_bytes(365, 64) == 211_968
-    assert pc.smem_bytes(365, 64, bf16=True) == 163_584
+    assert pc.range_smem_bytes(365, 64) == 211_968
+    assert pc.range_smem_bytes(365, 64, bf16=True) == 163_584
     assert pc.max_block_paths(365) == 64
     assert pc.max_block_paths(365, "spectral") == 32
     assert pc.path_block_paths(_consts(365, False, False), ROWS, True) == 128

@@ -190,7 +190,7 @@ def test_block_limits():
     """The card's shared-memory model: the bench horizon takes the 64-path
     block, longer horizons smaller blocks, then none."""
     assert pc.max_block_paths(365) == 64
-    assert pc.smem_bytes(365, 64) <= pc.SMEM_LIMIT
+    assert pc.range_smem_bytes(365, 64) <= pc.SMEM_LIMIT
     assert pc.max_block_paths(800) == 32
     assert pc.max_block_paths(1500) == 16
     assert not pc.supports(2000)

@@ -162,7 +162,7 @@ def test_tiled_memory_model():
     largest choice dividing the rows."""
     for bp in ptc.BLOCK_CHOICES:
         assert ptc.smem_bytes(bp) <= pc.SMEM_LIMIT
-    assert ptc.smem_bytes(128) == 83_200
+    assert ptc.smem_bytes(128) == 99_840
     cap = ptc.max_tiled_steps()
     assert 4 * cap * cap <= ptc.L2_BYTES < 4 * (cap + 1) ** 2
     assert ptc.supports(1825) and not ptc.supports(cap + 1)
