@@ -160,7 +160,22 @@ to 0 just before it and read just after:
   (normals, exp, FMA, and the slab's tile product's multiply-adds in
   float32 and bf16), each probe again against its plain version at the
   shapes the rates come from, the library yardsticks, and each of
-  K1/K2/K6/K7 (float32 and bf16) beside its P1 ceiling.
+  K1/K2/K6/K7 (float32 and bf16) beside its P1 ceiling;
+* the PredictionGen pipeline (``prediction_gen``), plain PyTorch on the
+  card, where no kernel of the port lies (every launch count must stay
+  0): ``run_pipeline`` on a 512-row option CSV and a 2,600-day spot CSV
+  made from the seed, 250 paths a row, 10 branches, 64 rows a batch,
+  days to expiry over 7-1825 so every bucket n_pad 4..2048 runs, 8 rows
+  planted to fail validation; the exit code, the rows, the header, the
+  sentinels at exactly the planted rows, finite prices elsewhere, a
+  resume of the output cut after 384 rows byte-equal to the one-shot
+  run, one batch of 8 rows at n_pad 256 through
+  ``BatchedPricer.price_from_noise`` on the card and on the host from one
+  injected noise (each estimator within 1e-5 relative), and GBM paths
+  through the row pricer's LSM within 10 % of the binomial American put
+  and above Black-Scholes - 0.15; it prints the wall, rows/s, the host
+  pass's and the device pass's seconds, and each bucket's batches and ms
+  a batch.
 
 It also times K2 against K7 and K9 per chunk across horizons, in float32
 and bf16 (the crossover that sets engine.SINGLE_TILE_MAX_STEPS and the
@@ -179,7 +194,9 @@ blocks per SM.
 (``k9_forms_main``), ``--k1-forms [ROOT]`` K1's 8 forms and the ms of
 each block that fits (``k1_forms_main``), ``--k7-forms [ROOT]`` K7's 24
 forms, K6's 8 and P1's matmul with digests of K6's and P1's outputs
-(``k7_forms_main``), on this checkout or another.
+(``k7_forms_main``), on this checkout or another; ``--prediction-gen
+[ROOT]`` the ``prediction_gen`` phase alone, with no kernel built
+(``prediction_gen_main``).
 
 Usage (from the root of a checkout, one CUDA card):  python3 chip_smoke.py
 
@@ -311,6 +328,26 @@ QUAD_SWEEP_OPS = 12.0
 # the same fitted quadratic on the same paths: only the float32 order of
 # the sums differs.
 QUAD_LOWER_RTOL = 1e-5
+
+# The PredictionGen pipeline (``prediction_gen``): an option CSV of
+# PG_ROWS rows, PG_SENTINELS of them planted to fail validation, against a
+# wide spot CSV of two tickers over PG_SPOT_DAYS calendar days (the
+# 1825-day history cap is reached), both made from SEED; the reference's
+# width (250 paths a row, 10 branches, order 2, 5 iterations, 64 rows a
+# batch).  Days to expiry spread log-uniformly over 7-1825, with one row
+# forced into each bucket n_pad 4 .. 2048.  The resume reprocesses the rows
+# from PG_RESUME_FROM on.  The card-against-host check prices
+# PG_CHECK_ROWS rows of the n_pad 256 bucket on one injected noise.
+PG_ROWS, PG_SENTINELS, PG_SPOT_DAYS = 512, 8, 2600
+PG_PRICING = dict(num_paths=250, num_branches=10, poly_order=2,
+                  max_iterations=5, rows_per_batch=64, seed=SEED)
+PG_BUCKET_DTE = (7, 10, 20, 40, 80, 150, 300, 600, 1200, 1825)
+PG_RESUME_FROM = 384
+PG_CHECK_ROWS, PG_CHECK_PAD, PG_CHECK_RTOL = 8, 256, 1e-5
+PG_PHASE_LIMIT_S = 60.0
+PG_OPTION_HEADER = ("ticker,option_type,quote_date,underlying_last,dte,"
+                    "strike_distance_pct,delta,gamma,vega,theta,rho,iv,"
+                    "volume,last,dividend")
 
 # H100 SXM peaks (NVIDIA data sheet): float32 without tensor cores, dense
 # bf16 on the tensor cores, HBM3.
@@ -4823,6 +4860,310 @@ def roofline_phase(torch, rl, smi, dev, kernels: list, reset_counts,
                           / PEAK_BF16_FLOPS * 1e3)]
 
 
+def pipeline_inputs(work: Path, seed: int) -> list:
+    """The ``prediction_gen`` phase's inputs in WORK, made from SEED: a
+    wide spot CSV (two tickers, PG_SPOT_DAYS calendar days) and an option
+    CSV of PG_ROWS rows, puts and calls within 10 % of the money, PG_SENTINELS
+    of them planted at random rows to fail validation.  Returns the planted
+    rows' indices."""
+    import datetime
+
+    import numpy as np
+    from montecarlooptionspricer_tpu_torch.pipeline import csv_io
+
+    rng = np.random.default_rng(seed)
+    end = datetime.date(2024, 6, 28)
+    tickers = ("aaa", "bbb")
+    px = {t: 100.0 for t in tickers}
+    spot = {t: {} for t in tickers}
+    table = []
+    for back in range(PG_SPOT_DAYS, -1, -1):
+        d = end - datetime.timedelta(days=back)
+        row = [f"{d.month}/{d.day}/{d.year}"]
+        for t in tickers:
+            px[t] *= float(np.exp(rng.normal(0.0002, 0.015)))
+            row.append(f"{px[t]:.4f}")
+            spot[t][d] = float(row[-1])
+        table.append(row)
+    csv_io.write_csv(str(work / "spot.csv"),
+                     ["Date"] + [t.upper() for t in tickers], table)
+
+    def line(ticker, option_type, d, s, dte, sdp, dividend):
+        date = d if isinstance(d, str) else f"{d.month}/{d.day}/{d.year}"
+        return (f"{ticker},{option_type},{date},{s},{dte},{sdp},0.5,0.01,"
+                f"0.2,-0.05,0.03,0.25,100,2.5,{dividend}")
+
+    s_end = spot["aaa"][end]
+    planted = [
+        "bad,row",                                        # short row
+        line("aaa", 0, end, "abc", 30, 0.0, 0.01),        # not a number
+        line("aaa", 0, end, -5.0, 30, 0.0, 0.01),         # spot <= 0
+        line("aaa", 0, end, s_end, 30, 1.5, 0.01),        # distance > 1
+        line("zzz", 0, end, 100.0, 30, 0.0, 0.01),        # no history
+        line("aaa", 1, "13/45/2024", s_end, 30, 0.0, 0.01),  # bad date
+        line("aaa", 0, end, s_end, 1.0, 0.0, 0.01),       # 0 steps
+        line("bbb", 1, end, s_end, 1.5, 0.0, 0.01),       # 11 days: vol 0
+    ]
+    assert len(planted) == PG_SENTINELS
+    at = sorted(int(i) for i in rng.choice(PG_ROWS, PG_SENTINELS,
+                                           replace=False))
+    dtes = list(PG_BUCKET_DTE) + [
+        float(round(v)) for v in np.exp(rng.uniform(
+            np.log(7.0), np.log(1825.0),
+            PG_ROWS - PG_SENTINELS - len(PG_BUCKET_DTE)))]
+    rng.shuffle(dtes)
+    planted_it, dte_it = iter(planted), iter(dtes)
+    lines = []
+    for i in range(PG_ROWS):
+        if i in at:
+            lines.append(next(planted_it))
+            continue
+        t = tickers[int(rng.integers(2))]
+        d = end - datetime.timedelta(days=int(rng.integers(0, 600)))
+        lines.append(line(t, int(rng.integers(2)), d, spot[t][d],
+                          next(dte_it), round(float(rng.uniform(-0.1, 0.1)),
+                                              4),
+                          round(float(rng.uniform(0.0, 0.03)), 4)))
+    (work / "options.csv").write_text(
+        PG_OPTION_HEADER + "\n" + "".join(ln + "\n" for ln in lines))
+    return at
+
+
+def pipeline_stage_ms(torch, pricing, market, tasks, zc, dw, rp,
+                      dev) -> dict:
+    """Host-clock ms of each stage of one batch of ``tasks`` on the card,
+    the device synchronized around each: the paths, then each estimator,
+    as ``BatchedPricer.price_from_noise`` runs them."""
+    from montecarlooptionspricer_tpu_torch.models import (
+        asymptotic, branching, lsm, martingale)
+    from montecarlooptionspricer_tpu_torch.models import (
+        rough_volatility as rv)
+    from montecarlooptionspricer_tpu_torch.pipeline.driver import bucket_key
+
+    def col(name, dtype=torch.float32):
+        return torch.tensor([getattr(t, name) for t in tasks], dtype=dtype,
+                            device=dev)
+
+    out = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.perf_counter() - t0)
+        return result
+
+    n_pad, m1 = bucket_key(tasks[0].n_steps)
+    n_steps = col("n_steps", torch.int64)
+    kw = dict(strike=col("strike"), maturity=col("maturity"), dt=market.dt,
+              is_call=col("is_call", torch.bool))
+    paths = stage("paths", lambda: rv._bucketed_paths_from_noise(
+        col("s0"), col("xi"), col("h"), col("eta"), market.r, n_steps, n_pad,
+        m1, zc.to(dev), dw.to(dev), market.dt))
+    stage("asymptotic", lambda: asymptotic.asymptotic_price(
+        paths, market.r, sigma=col("sigma"), dividend=col("dividend"), **kw))
+    stage("branching", lambda: branching.branching_price(
+        paths, market.r, num_branches=pricing.num_branches, rp=rp.to(dev),
+        n_steps=n_steps, **kw))
+    stage("lsm", lambda: lsm.lsm_price_rows(
+        paths, market.r, poly_order=pricing.poly_order, n_steps=n_steps,
+        **kw))
+    stage("martingale", lambda: martingale.martingale_price(
+        paths, market.r, poly_order=pricing.poly_order,
+        max_iterations=pricing.max_iterations, n_steps=n_steps, **kw))
+    return out
+
+
+def prediction_gen_phase(torch, smi, dev, reset_counts, read_counts) -> None:
+    """``prediction_gen``: the PredictionGen path at the reference's width
+    through ``run_pipeline`` on the card (no CUDA kernel of the port lies
+    on it: the JAX package prices these rows in XLA, so every kernel's
+    launch count must stay 0).  Checks the exit code, the rows, the
+    header, the planted sentinel rows and finite prices elsewhere, that a
+    resume of the output cut after PG_RESUME_FROM rows writes the one-shot
+    run's bytes, one batch of the n_pad 256 bucket priced through
+    ``BatchedPricer.price_from_noise`` on the card and on the host from
+    one injected noise (each estimator within PG_CHECK_RTOL relative, the
+    path's plain-version check), and GBM paths through the row pricer's
+    LSM against the binomial tree and Black-Scholes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from montecarlooptionspricer_tpu_torch.config import (
+        AUGMENTED_COLUMNS, MarketDefaults, PipelineConfig, PricingConfig)
+    from montecarlooptionspricer_tpu_torch.models import gbm
+    from montecarlooptionspricer_tpu_torch.models.closed_form import (
+        binomial_american, black_scholes)
+    from montecarlooptionspricer_tpu_torch.models.lsm import lsm_price_rows
+    from montecarlooptionspricer_tpu_torch.models.pricing import ESTIMATORS
+    from montecarlooptionspricer_tpu_torch.pipeline import csv_io, driver
+    from montecarlooptionspricer_tpu_torch.pipeline import spot as spot_mod
+    from montecarlooptionspricer_tpu_torch.pipeline.watchdog import (
+        current_memory_bytes)
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="mcop_prediction_gen_"))
+    try:
+        planted = pipeline_inputs(work, SEED)
+        # The watchdog reads this process's peak RSS, which the earlier
+        # phases set: keep its 8 GiB of room above what they left.
+        limit = PipelineConfig().max_memory_bytes
+        peak_rss = current_memory_bytes()
+        if peak_rss >= limit // 2:
+            limit += peak_rss
+        config = PipelineConfig(
+            option_csv=str(work / "options.csv"),
+            spot_csv=str(work / "spot.csv"),
+            output_csv=str(work / "out.csv"),
+            error_log=str(work / "error_log.txt"),
+            diagnostic_csv=str(work / "diagnostic.csv"),
+            max_memory_bytes=limit)
+        pricing = PricingConfig(**PG_PRICING)
+        market = MarketDefaults()
+
+        timings = {}
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = driver.run_pipeline(config, pricing, market, device=dev,
+                                 timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak_device = torch.cuda.max_memory_allocated()
+        buckets = {key: {"batches": len(secs),
+                         "ms_per_batch": 1e3 * sum(secs) / len(secs)}
+                   for key, secs in timings.get("buckets", {}).items()}
+        emit({"phase": "prediction_gen_run", "rows": PG_ROWS, "rc": rc,
+              "wall_s": wall, "rows_per_s": PG_ROWS / wall,
+              "host_s": timings.get("host_s"),
+              "device_s": timings.get("device_s"), "buckets": buckets,
+              "peak_rss_bytes_before": peak_rss,
+              "max_memory_bytes": limit, "peak_device_bytes": peak_device,
+              "card": smi})
+        check(rc == 0, f"prediction_gen: run_pipeline exit code {rc}")
+        check(launches == expected_counts(),
+              f"prediction_gen launched kernels: {launches}")
+        header, rows = csv_io.read_table(config.option_csv)
+        out_header, out_rows = csv_io.read_table(config.output_csv)
+        check(out_header == header + list(AUGMENTED_COLUMNS),
+              f"prediction_gen: header {out_header}")
+        check(len(out_rows) == len(rows) == PG_ROWS,
+              f"prediction_gen: {len(out_rows)} rows out of {len(rows)}")
+        one_shot = (work / "out.csv").read_bytes()
+        body = one_shot.decode().splitlines()[1:]
+        sentinels = [i for i, ln in enumerate(body)
+                     if ln.endswith(driver.SENTINEL)]
+        check(sentinels == planted,
+              f"prediction_gen: sentinels at {sentinels}, planted {planted}")
+        prices = np.asarray([[float(v) for v in r[-6:-2]]
+                             for i, r in enumerate(out_rows)
+                             if i not in planted])
+        check(bool(np.isfinite(prices).all()),
+              "prediction_gen: non-finite prices")
+        check(len(buckets) >= len(PG_BUCKET_DTE),
+              f"prediction_gen: buckets {sorted(buckets)}")
+
+        # Resume of the output cut after PG_RESUME_FROM rows.
+        cut = one_shot.splitlines(keepends=True)[:1 + PG_RESUME_FROM]
+        (work / "out.csv").write_bytes(b"".join(cut))
+        t0 = time.perf_counter()
+        rc = driver.run_pipeline(config, pricing, market, resume=True,
+                                 device=dev)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resumed = (work / "out.csv").read_bytes()
+        differ = [i for i, (a, b) in enumerate(zip(
+            resumed.splitlines(), one_shot.splitlines())) if a != b]
+        check(rc == 0 and resumed == one_shot,
+              f"prediction_gen: resume rc {rc}, {len(differ)} lines differ "
+              f"(first {differ[:3]}), {len(resumed)} against "
+              f"{len(one_shot)} bytes")
+
+        # One batch of the n_pad 256 bucket on the card and on the host.
+        spot_data = spot_mod.load_spot_prices(config.spot_csv)
+        tasks = []
+        for idx, tokens in enumerate(rows):
+            task, _ = driver._parse_row(idx, ",".join(tokens), tokens,
+                                        spot_data, market, lambda m: None)
+            if task is not None and driver.bucket_key(task.n_steps) == (
+                    PG_CHECK_PAD, PG_CHECK_PAD):
+                tasks.append(task)
+            if len(tasks) == PG_CHECK_ROWS:
+                break
+        check(len(tasks) == PG_CHECK_ROWS,
+              f"prediction_gen: {len(tasks)} rows at n_pad {PG_CHECK_PAD}")
+        gen = torch.Generator().manual_seed(SEED)
+        shape = (PG_CHECK_ROWS, pricing.num_paths, PG_CHECK_PAD)
+        zc = torch.complex(torch.randn(shape, generator=gen),
+                           torch.randn(shape, generator=gen))
+        dw = torch.randn(shape, generator=gen) * math.sqrt(market.dt)
+        rp = torch.randint(0, pricing.num_paths,
+                           shape + (pricing.num_branches,), generator=gen)
+        on_card = driver.BatchedPricer(pricing, market, dev).price_from_noise(
+            tasks, zc, dw, rp)
+        on_host = driver.BatchedPricer(pricing, market, "cpu") \
+            .price_from_noise(tasks, zc, dw, rp)
+        stage_ms = pipeline_stage_ms(torch, pricing, market, tasks, zc, dw,
+                                     rp, dev)
+        diff = np.abs(on_card.astype(np.float64) - on_host)
+        rel = np.where(diff == 0.0, 0.0, diff / np.maximum(np.abs(on_host),
+                                                           1e-30))
+        noise_err = {name: float(rel[:, i].max())
+                     for i, name in enumerate(ESTIMATORS)}
+
+        # GBM through the row pricer's LSM (tests/test_pricers.py's bracket).
+        s0, k, r, sigma, mat, steps = 100.0, 110.0, 0.05, 0.25, 0.5, 50
+        paths = gbm.generate_paths(
+            torch.Generator(device=dev).manual_seed(SEED), s0, sigma, r,
+            steps, 20_000, mat / steps)
+        lsm = float(lsm_price_rows(paths[None], r, k, mat, mat / steps,
+                                   False)[0])
+        amer = binomial_american(s0, k, r, sigma, mat, False, steps=2000)
+        euro = black_scholes(s0, k, r, sigma, mat, False)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "prediction_gen", "rows": PG_ROWS, "wall_s": wall,
+          "rows_per_s": PG_ROWS / wall, "host_s": timings["host_s"],
+          "device_s": timings["device_s"], "buckets": buckets,
+          "resume_from": PG_RESUME_FROM, "resume_s": resume_s,
+          "resume_byte_equal": True, "sentinel_rows": planted,
+          "noise_rows": PG_CHECK_ROWS, "noise_n_pad": PG_CHECK_PAD,
+          "card_vs_host_rel_err": noise_err, "rtol": PG_CHECK_RTOL,
+          "stage_ms": stage_ms, "peak_device_bytes": peak_device,
+          "gbm_lsm": lsm, "binomial": amer, "black_scholes": euro,
+          "kernel_launches": sum(launches.values()), "phase_s": phase_s,
+          "phase_limit_s": PG_PHASE_LIMIT_S, "card": smi})
+    check(max(noise_err.values()) <= PG_CHECK_RTOL,
+          f"prediction_gen: card against host {noise_err}")
+    check(euro - 0.15 < lsm < amer * 1.10 and abs(lsm - amer) / amer < 0.10,
+          f"prediction_gen: GBM LSM {lsm} against binomial {amer}, "
+          f"Black-Scholes {euro}")
+
+
+def prediction_gen_main(root: Path) -> int:
+    """``python3 chip_smoke.py --prediction-gen [ROOT]``: the
+    ``prediction_gen`` phase alone with the package of the checkout at
+    ROOT (default: this script's), no kernel built."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root.resolve()))
+    _START[0] = time.perf_counter()
+    smi = _card()
+    reset_counts, read_counts = launch_counters()
+    prediction_gen_phase(torch, smi, torch.device("cuda", 0), reset_counts,
+                         read_counts)
+    print(smi, flush=True)
+    return 0
+
+
 def _forms_setup(root: Path, module: str):
     """The checkout at ROOT on sys.path, its package checked to be the one
     imported, TF32 off and the kernels built: (torch, dev) for the forms
@@ -5242,7 +5583,49 @@ def k7_forms_main(root: Path) -> int:
 
 
 FORMS_MAINS = {"--k1-forms": "k1_forms_main", "--k2-forms": "k2_forms_main",
-               "--k7-forms": "k7_forms_main", "--k9-forms": "k9_forms_main"}
+               "--k7-forms": "k7_forms_main", "--k9-forms": "k9_forms_main",
+               "--prediction-gen": "prediction_gen_main"}
+
+
+def launch_counters():
+    """(reset_counts, read_counts) over the launch counters of every kernel
+    wrapper: the plain form keeps the wrapper's name, the others are
+    kernel/form."""
+    from montecarlooptionspricer_tpu_torch import roofline as rl
+    from montecarlooptionspricer_tpu_torch.models import chain_cuda as cc
+    from montecarlooptionspricer_tpu_torch.models import greeks_cuda as gc
+    from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
+    from montecarlooptionspricer_tpu_torch.models import (
+        pathgen_factored_cuda as pfc)
+    from montecarlooptionspricer_tpu_torch.models import (
+        pathgen_tiled_cuda as ptc)
+
+    wrappers = {"pathgen": pc.pathgen, "priced_chunk": pc.priced_chunk,
+                "tiled_pathgen": ptc.tiled_pathgen,
+                "tiled_priced_chunk": ptc.tiled_priced_chunk,
+                "priced_chain": cc.priced_chain,
+                "greeks_chunk": gc.greeks_chunk,
+                "chain_greeks_chunk": gc.chain_greeks_chunk,
+                "factored_pathgen": pfc.factored_pathgen,
+                "factored_priced_chunk": pfc.factored_priced_chunk,
+                "P1/normals": rl.normals, "P1/matmul": rl.matmul}
+
+    def reset_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+            for form in getattr(fn, "form_launches", {}):
+                fn.form_launches[form] = 0
+
+    def read_counts():
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        for kernel, wname in FORM_WRAPPERS.items():
+            by_form = wrappers[wname].form_launches
+            counts[wname] = by_form["plain"]
+            counts.update({f"{kernel}/{f}": n for f, n in by_form.items()
+                           if f != "plain"})
+        return counts
+
+    return reset_counts, read_counts
 
 
 def main() -> int:
@@ -5281,33 +5664,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
 
-    # Launch counters of every kernel wrapper.
-    wrappers = {"pathgen": pc.pathgen, "priced_chunk": pc.priced_chunk,
-                "tiled_pathgen": ptc.tiled_pathgen,
-                "tiled_priced_chunk": ptc.tiled_priced_chunk,
-                "priced_chain": cc.priced_chain,
-                "greeks_chunk": gc.greeks_chunk,
-                "chain_greeks_chunk": gc.chain_greeks_chunk,
-                "factored_pathgen": pfc.factored_pathgen,
-                "factored_priced_chunk": pfc.factored_priced_chunk,
-                "P1/normals": rl.normals, "P1/matmul": rl.matmul}
-
-    def reset_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
-            for form in getattr(fn, "form_launches", {}):
-                fn.form_launches[form] = 0
-
-    def read_counts():
-        # The plain form keeps the wrapper's name; the others are
-        # kernel/form.
-        counts = {k: fn.launches for k, fn in wrappers.items()}
-        for kernel, wname in FORM_WRAPPERS.items():
-            by_form = wrappers[wname].form_launches
-            counts[wname] = by_form["plain"]
-            counts.update({f"{kernel}/{f}": n for f, n in by_form.items()
-                           if f != "plain"})
-        return counts
+    reset_counts, read_counts = launch_counters()
 
     # Phase 1: build, one nvcc per unit, all started together.
     t0 = time.perf_counter()
@@ -5530,6 +5887,8 @@ def main() -> int:
     k2_split(pc, kernels, dev)
     k1_k7_split(pc, ptc, kernels, dev)
     k89_split(pfc, kernels, dev)
+    # The PredictionGen pipeline, which launches no kernel.
+    prediction_gen_phase(torch, smi, dev, reset_counts, read_counts)
     check(sorted(k["name"] for k in kernels) == sorted(REPLACES),
           "the kernels line does not list every kernel and form")
     emit({"kernels": kernels})

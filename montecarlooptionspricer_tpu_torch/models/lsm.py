@@ -10,6 +10,14 @@ and never syncs.  Parity semantics kept from the reference:
 * steps past maturity only discount;
 * the ITM threshold is payoff > 1e-14, and a step with no ITM path skips
   the regression and only discounts.
+
+Two forms share the step body (``_exercise_step``).  ``lsm_fit`` is the
+engine's pilot fit on one path matrix (a strike strip when ``strike`` is a
+[K] tensor), with the live window a host list.  ``lsm_price_rows`` is the
+PredictionGen form: [rows, paths, n_pad + 1] blocks with per-row strike,
+maturity, option type and step count, the live window a [rows, steps]
+tensor, padded steps identities, and its sums ``row_sum``'s, so a row's
+price has the same bits whatever batch it is priced in.
 """
 
 from __future__ import annotations
@@ -19,11 +27,31 @@ import math
 import torch
 
 from ..ops.payoff import payoff
-from ..ops.reductions import global_mean
+from ..ops.reductions import global_mean, row_mean, row_sum
 from ..ops.regression import PolyFit, eval_poly, fit_poly_masked
-from ..ops.timegrid import step_mask
+from ..ops.rows import per_row
+from ..ops.timegrid import step_mask, step_mask_rows
 
 ITM_EPS = 1e-14
+
+
+def _exercise_step(v, s, k, disc: float, is_call, poly_order: int,
+                   decide: bool = True, total=torch.sum):
+    """One backward step on carried values v [..., n] and prices s:
+    (discounted carry, the step's value, the step's fit).  The value is
+    max(payoff, fitted continuation) on ITM paths, or the carry where
+    ``decide`` is false or no path is ITM (per leading index)."""
+    vd = v * disc
+    p = payoff(is_call, s, k)
+    itm = (p > ITM_EPS).to(s.dtype)
+    fit = fit_poly_masked(s, vd, itm, poly_order, total=total)
+    if not decide:
+        return vd, vd, fit
+    cont = eval_poly(PolyFit(fit.coeffs[..., None, :], fit.mu[..., None],
+                             fit.sd[..., None]), s)
+    v_exercised = torch.where(itm > 0, torch.maximum(p, cont), vd)
+    return vd, torch.where(total(itm, dim=-1, keepdim=True) > 0,
+                           v_exercised, vd), fit
 
 
 def _lsm_backward(paths, r, strike, maturity, dt, is_call: bool,
@@ -41,21 +69,8 @@ def _lsm_backward(paths, r, strike, maturity, dt, is_call: bool,
     v = payoff(is_call, paths[:, m - 1], k)
     fits = [None] * (m - 1)
     for j in range(m - 2, -1, -1):
-        s = paths[:, j]
-        vd = v * disc
-        p = payoff(is_call, s, k)
-        itm = (p > ITM_EPS).to(paths.dtype)
-        fit = fit_poly_masked(s, vd, itm, poly_order)
-        fits[j] = fit
-        if not live[j]:
-            v = vd
-            continue
-        cont = eval_poly(PolyFit(fit.coeffs[..., None, :], fit.mu[..., None],
-                                 fit.sd[..., None]), s)
-        v_exercised = torch.where(itm > 0, torch.maximum(p, cont), vd)
-        # Per strike: a step with no ITM path only discounts.
-        v = torch.where(torch.sum(itm, dim=-1, keepdim=True) > 0,
-                        v_exercised, vd)
+        _, v, fits[j] = _exercise_step(v, paths[:, j], k, disc, is_call,
+                                       poly_order, decide=live[j])
     stacked = PolyFit(*(torch.stack([getattr(f, name) for f in fits],
                                     dim=k.dim() - 1)
                         for name in PolyFit._fields))
@@ -65,11 +80,44 @@ def _lsm_backward(paths, r, strike, maturity, dt, is_call: bool,
 
 
 def lsm_price(paths, r, strike, maturity, dt, is_call: bool,
-              poly_order: int = 2) -> torch.Tensor:
-    """American option price by LSM regression on paths [n, steps + 1]."""
+              poly_order: int = 2, n_steps=None) -> torch.Tensor:
+    """American option price by LSM regression on paths [n, steps + 1].
+    ``n_steps`` marks the columns past a padded block's true horizon as
+    padding (identity steps): the block prices as its first n_steps + 1
+    columns would."""
+    if n_steps is not None:
+        return lsm_price_rows(paths[None], r, strike, maturity, dt, is_call,
+                              poly_order, n_steps=n_steps)[0]
     price, _ = _lsm_backward(paths, r, strike, maturity, dt, is_call,
                              poly_order)
     return price
+
+
+def lsm_price_rows(paths, r, strike, maturity, dt, is_call,
+                   poly_order: int = 2, n_steps=None) -> torch.Tensor:
+    """[rows] LSM prices of [rows, paths, M] blocks, with per-row strike,
+    maturity, option type and step count ([rows] tensors or numbers).
+    The loop runs over the M - 1 steps, each one set of launches across
+    the rows; steps j >= n_steps[row] leave that row's values as they
+    are (JAX's padding semantics), and past-maturity steps only
+    discount."""
+    rows, _, m = paths.shape
+    dev = paths.device
+    disc = math.exp(-r * dt)
+    k = per_row(strike, rows, dev)[:, None]
+    call = per_row(is_call, rows, dev, torch.bool)[:, None]
+    live = step_mask_rows(m - 1, dt, per_row(maturity, rows, dev))
+    padded = None if n_steps is None else (
+        torch.arange(m - 1, device=dev)[None, :]
+        >= per_row(n_steps, rows, dev, torch.int64)[:, None])
+    v = payoff(call, paths[..., m - 1], k)
+    for j in range(m - 2, -1, -1):
+        vd, v_reg, _ = _exercise_step(v, paths[..., j], k, disc, call,
+                                      poly_order, total=row_sum)
+        v_new = torch.where(live[:, j:j + 1], v_reg, vd)
+        v = v_new if padded is None else torch.where(padded[:, j:j + 1], v,
+                                                     v_new)
+    return row_mean(v)
 
 
 def lsm_fit(paths, r, strike, maturity, dt, is_call: bool,

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..ops import fgn
+from ..ops.rng import mix64
 from .pathgen_cuda import _matmul_f32, check_fgn_dtype, round_bf16
 
 FGN_IMPLS = ("auto", "matmul", "fft")
@@ -178,18 +179,6 @@ def paths_from_noise(consts: StreamConsts, z: torch.Tensor, dw: torch.Tensor,
     return out
 
 
-_M64 = (1 << 64) - 1
-
-
-def _mix64(x: int) -> int:
-    """splitmix64's finalizer: a bijection of 64-bit words whose low 32
-    bits depend on every input bit."""
-    z = (x + 0x9E3779B97F4A7C15) & _M64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
-    return z ^ (z >> 31)
-
-
 def stream_generator(device, carrier) -> torch.Generator:
     """A torch.Generator on ``device`` seeded from the (run_word,
     stream_index) ``carrier`` (run word below 2^31, index below 2^32)
@@ -199,7 +188,7 @@ def stream_generator(device, carrier) -> torch.Generator:
     both words."""
     run, index = carrier
     gen = torch.Generator(device=device)
-    gen.manual_seed(_mix64((int(run) << 32) | (int(index) & 0xFFFFFFFF)))
+    gen.manual_seed(mix64((int(run) << 32) | (int(index) & 0xFFFFFFFF)))
     return gen
 
 

@@ -42,7 +42,8 @@ def poly_basis(z: torch.Tensor, order: int) -> torch.Tensor:
     return torch.stack([z ** k for k in range(order + 1)], dim=-1)
 
 
-def fit_poly_masked(x, y, w, order: int, ridge: float = 1e-6) -> PolyFit:
+def fit_poly_masked(x, y, w, order: int, ridge: float = 1e-6,
+                    total=torch.sum) -> PolyFit:
     """Weighted polynomial least squares min_c sum_i w_i (P_c(x_i) - y_i)^2.
 
     x, y, w: [..., n] tensors that broadcast (w a {0,1} mask in LSM); the
@@ -50,15 +51,18 @@ def fit_poly_masked(x, y, w, order: int, ridge: float = 1e-6) -> PolyFit:
     chain sharing one regressor column (the counterpart of ``jax.vmap``
     over the JAX function), and the fit's fields carry them.  With zero
     total weight the fit is a dead constant 1e30: a continuation nothing
-    beats, so a policy read from it never exercises at that step."""
+    beats, so a policy read from it never exercises at that step.
+
+    ``total(t, dim=...)`` forms the moment sums; the PredictionGen rows pass
+    ``reductions.row_sum``, whose bits do not depend on the batch."""
     x = x.to(torch.float32)
     y = y.to(torch.float32)
     w = w.to(torch.float32)
 
-    wsum = torch.sum(w, dim=-1)
+    wsum = total(w, dim=-1)
     safe_wsum = torch.clamp_min(wsum, 1.0)
-    mu = torch.sum(w * x, dim=-1) / safe_wsum
-    var = torch.sum(w * (x - mu[..., None]) ** 2, dim=-1) / safe_wsum
+    mu = total(w * x, dim=-1) / safe_wsum
+    var = total(w * (x - mu[..., None]) ** 2, dim=-1) / safe_wsum
     # Relative floor: a (near-)constant regressor such as the S0 column is
     # a pure intercept fit, and z snaps to exactly 0 there (a constant
     # nonzero z from roundoff in mu would make the solve near-singular).
@@ -70,8 +74,8 @@ def fit_poly_masked(x, y, w, order: int, ridge: float = 1e-6) -> PolyFit:
 
     basis = poly_basis(z, order)                          # [..., n, p+1]
     wb = basis * w[..., None]
-    gram = torch.sum(wb[..., :, None] * basis[..., None, :], dim=-3)
-    rhs = torch.sum(wb * y[..., None], dim=-2)
+    gram = total(wb[..., :, None] * basis[..., None, :], dim=-3)
+    rhs = total(wb * y[..., None], dim=-2)
 
     # Diagonal-scaled Tikhonov term; 1e-6 is the smallest ridge that is
     # meaningful in float32, and smaller requests are raised to it.

@@ -28,3 +28,14 @@ def step_mask(n: int, dt: float, maturity: float,
               device=None) -> torch.Tensor:
     """Boolean [n] mask of steps j = 0..n-1 with j * dt <= maturity."""
     return torch.arange(n, device=device) <= last_valid_step(dt, maturity)
+
+
+def step_mask_rows(n: int, dt: float, maturity: torch.Tensor) -> torch.Tensor:
+    """[rows, n] mask of steps j < n with j * dt <= maturity[row] for a
+    float32 [rows] ``maturity`` on the device.  The slack sum is formed in
+    float32, as the JAX package forms it for a traced float32 maturity
+    (its pipeline's rows), so the two masks agree bit for bit."""
+    ratio = maturity / dt
+    last = torch.floor(ratio + 1e-4 + ratio * 1e-6)
+    return (torch.arange(n, device=maturity.device)[None, :]
+            <= last[:, None])

@@ -2457,3 +2457,76 @@ def test_k6_k7_memory_model_and_blocks_are_the_cards(cuda):
                                         policy)
                 assert 2 <= got <= 3, (dtype, fgn_form, anti, cv, policy,
                                        got)
+
+
+# The PredictionGen path: plain PyTorch on the card (no kernel of the port
+# lies on it), held against the same code on the host.
+
+def _pg_tasks(n_steps, seed=0):
+    """RowTasks of one bucket with near-the-money contracts."""
+    from montecarlooptionspricer_tpu_torch.pipeline.driver import RowTask
+
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand((len(n_steps), 6), generator=g).tolist()
+    return [RowTask(index=i, line=f"row{i}", n_steps=n,
+                    is_call=bool(i % 2), s0=100.0 + 10 * a, xi=0.02 + 0.08 * b,
+                    h=0.05 + 0.4 * c, eta=0.5 + 1.5 * d, rho=-0.3,
+                    strike=95.0 + 15 * e, maturity=(n + 0.5) / 252.0,
+                    sigma=0.1 + 0.3 * f, dividend=0.01,
+                    twenty_day_vol=0.2, twenty_day_momentum=0.0)
+            for i, (n, (a, b, c, d, e, f)) in enumerate(zip(n_steps, u))]
+
+
+def _pg_pricers(device):
+    from montecarlooptionspricer_tpu_torch.config import (
+        MarketDefaults, PricingConfig)
+    from montecarlooptionspricer_tpu_torch.pipeline.driver import (
+        BatchedPricer)
+
+    return BatchedPricer(PricingConfig(), MarketDefaults(), device)
+
+
+@pytest.mark.gpu
+def test_prediction_gen_price_from_noise_card_matches_host(cuda):
+    """One batch of 8 rows at n_pad 256 from one injected noise and branch
+    indices, on the card and on the host: each estimator within 1e-5
+    relative."""
+    tasks = _pg_tasks([129, 140, 170, 200, 220, 240, 250, 255])
+    g = torch.Generator().manual_seed(1)
+    shape = (8, 250, 256)
+    zc = torch.complex(torch.randn(shape, generator=g),
+                       torch.randn(shape, generator=g))
+    dw = torch.randn(shape, generator=g) / 252 ** 0.5
+    rp = torch.randint(0, 250, shape + (10,), generator=g)
+    on_card = _pg_pricers(cuda).price_from_noise(tasks, zc, dw, rp)
+    on_host = _pg_pricers("cpu").price_from_noise(tasks, zc, dw, rp)
+    assert on_card.shape == on_host.shape == (8, 4)
+    assert (on_host > 0).all()
+    torch.testing.assert_close(torch.from_numpy(on_card),
+                               torch.from_numpy(on_host), rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_prediction_gen_rows_do_not_depend_on_their_batch(cuda):
+    """A row's seeded prices have the same bits in a batch of 8 and in a
+    batch of 3 rows padded to 8, at another position."""
+    pricer = _pg_pricers(cuda)
+    tasks = _pg_tasks([33, 40, 47, 50, 55, 60, 62, 63])
+    whole = pricer.price(tasks, 7)
+    part = pricer.price(tasks[3:6], 7)
+    assert (whole[3:6] == part).all()
+
+
+@pytest.mark.gpu
+def test_prediction_gen_2048_bucket_batch(cuda):
+    """The largest bucket at the reference's width, 64 rows x 250 paths x
+    2049 columns, seeded: finite prices, within a quarter of the card's
+    memory."""
+    pricer = _pg_pricers(cuda)
+    n_steps = [1025 + 16 * i for i in range(64)]
+    torch.cuda.reset_peak_memory_stats()
+    out = pricer.price(_pg_tasks(n_steps), 3)
+    peak = torch.cuda.max_memory_allocated()
+    assert out.shape == (64, 4)
+    assert torch.isfinite(torch.from_numpy(out)).all()
+    assert peak < torch.cuda.get_device_properties(0).total_memory / 4, peak
