@@ -175,7 +175,23 @@ to 0 just before it and read just after:
   through the row pricer's LSM within 10 % of the binomial American put
   and above Black-Scholes - 0.15; it prints the wall, rows/s, the host
   pass's and the device pass's seconds, and each bucket's batches and ms
-  a batch.
+  a batch;
+* randomized QMC (``qmc=True``: a digitally shifted scrambled Sobol set,
+  built on the card per chunk and fed to the kernels' noise-in entries):
+  ``qmc_noise`` holds the QMC noise on the card against its host build and the
+  card's float32 ndtri against float64; ``qmc_price`` (1e7 x 365, K2 76
+  times on QMC noise, no path kernel: the pilot rides the generic
+  stream's QMC generator), ``qmc_price_cv`` (K2/cv), ``qmc_fgn`` (the fGN
+  planes in the Sobol set), ``qmc_price_long`` (1825 steps on K7),
+  ``qmc_price_xlong`` (4000 on K9), the last four cut to 16 chunks, and
+  ``qmc_chain`` (the strip on K5 at full width) each count one noise-in
+  launch a chunk, hold chunk 0's kernel against its plain version, time
+  the noise beside the kernel, and stream under the PRNG run's fits
+  within 5 combined stderr of it, with the variance ratio per path (> 1
+  at 365 steps); ``qmc_fallback`` checks that a configuration outside
+  every noise-in kernel streams on the generic stream with a warning;
+  ``qmc_prediction_gen`` runs ``--qmc`` on 128 of ``prediction_gen``'s
+  rows, every bucket among them, and a resume byte-equal.
 
 It also times K2 against K7 and K9 per chunk across horizons, in float32
 and bf16 (the crossover that sets engine.SINGLE_TILE_MAX_STEPS and the
@@ -196,7 +212,8 @@ each block that fits (``k1_forms_main``), ``--k7-forms [ROOT]`` K7's 24
 forms, K6's 8 and P1's matmul with digests of K6's and P1's outputs
 (``k7_forms_main``), on this checkout or another; ``--prediction-gen
 [ROOT]`` the ``prediction_gen`` phase alone, with no kernel built
-(``prediction_gen_main``).
+(``prediction_gen_main``); ``--qmc [ROOT]`` the QMC phases alone after
+the PRNG runs they are held against (``qmc_main``).
 
 Usage (from the root of a checkout, one CUDA card):  python3 chip_smoke.py
 
@@ -348,6 +365,21 @@ PG_PHASE_LIMIT_S = 60.0
 PG_OPTION_HEADER = ("ticker,option_type,quote_date,underlying_last,dte,"
                     "strike_distance_pct,delta,gamma,vega,theta,rho,iv,"
                     "volume,last,dividend")
+
+# Randomized QMC (``qmc_*``): the price Brownian's leading PCA components
+# (and under ``qmc_fgn`` the fGN planes') from a digitally shifted Sobol
+# set, built on the card and fed to the noise-in entries of K2, K5, K7 and
+# K9.  The CV and qmc_fgn forms and the horizons past the bench stream
+# QMC_CUT_CHUNKS chunks (each runs its own pilot fit, seconds at 1825 and
+# 4000 steps, and the host builds each Sobol base once); the card's noise is
+# held against its host build on QMC_HOST_ROWS rows within QMC_NOISE_ATOL
+# at 365 steps, growing as sqrt(n / 365) with the PCA product's length;
+# the pipeline runs QMC_PG_ROWS of ``prediction_gen``'s rows, every bucket
+# among them, and resumes from QMC_PG_RESUME_FROM.
+QMC_CUT_CHUNKS = 16
+QMC_HOST_ROWS = 4096
+QMC_NOISE_ATOL = 1e-5
+QMC_PG_ROWS, QMC_PG_RESUME_FROM = 128, 112
 
 # H100 SXM peaks (NVIDIA data sheet): float32 without tensor cores, dense
 # bf16 on the tensor cores, HBM3.
@@ -5145,6 +5177,451 @@ def prediction_gen_phase(torch, smi, dev, reset_counts, read_counts) -> None:
           f"Black-Scholes {euro}")
 
 
+# ---------------------------------------------------------------------------
+# Randomized QMC: the noise, its cells on K2, K5, K7 and K9, the
+# fallback to the generic stream, and the pipeline's ``--qmc``.
+
+def qmc_noise_phase(torch, engine, smi, dev) -> None:
+    """``qmc_noise``: the QMC noise made on the card against its host build
+    from one set of draws on QMC_HOST_ROWS rows (chol at 365 steps without
+    and with qmc_fgn, spectral with it, the factored planes at 1000 steps
+    with it), within QMC_NOISE_ATOL; the card's float32 ndtri against
+    float64 on a chunk's uniforms; the shift words spanning both signs of
+    their int32 patterns (full 32-bit words)."""
+    from montecarlooptionspricer_tpu_torch.ops import qmc as qmc_ops
+
+    errs, tols = {}, {}
+    for form, n, fgn in (("chol", N_STEPS, False), ("chol", N_STEPS, True),
+                         ("spectral", N_STEPS, True),
+                         ("factored", 1000, True)):
+        cfg = engine.StreamConfig(
+            n_paths=QMC_HOST_ROWS, n_steps=n, chunk_paths=QMC_HOST_ROWS,
+            pilot_paths=QMC_HOST_ROWS, dt=DT, qmc=True, qmc_fgn=fgn)
+        host = engine.make_fused_qmc(cfg, form, "cpu")
+        draws = engine.fused_qmc_draws(host,
+                                       torch.Generator().manual_seed(SEED))
+        want = engine.fused_qmc_noise(host, *draws)
+        got = engine.fused_qmc_noise(engine.make_fused_qmc(cfg, form, dev),
+                                     *(d.to(dev) for d in draws))
+        torch.cuda.synchronize()
+        name = f"{form}/{n}" + ("/qmc_fgn" if fgn else "")
+        errs[name] = float((got.cpu() - want).abs().max())
+        tols[name] = QMC_NOISE_ATOL * math.sqrt(n / N_STEPS)
+    shift = qmc_ops.draw_shift(torch.Generator(device=dev).manual_seed(SEED),
+                               256)
+    u = qmc_ops.rotate(qmc_ops.base_bits(CHUNK, 256, dev), shift)
+    ndtri_err = float((torch.special.ndtri(u).double()
+                       - torch.special.ndtri(u.double())).abs().max())
+    signs = (int(shift.min()) < 0 < int(shift.max()))
+    emit({"phase": "qmc_noise", "card": smi, "host_rows": QMC_HOST_ROWS,
+          "card_vs_host_max_abs_err": errs, "atol": tols,
+          "ndtri_f32_vs_f64_max_abs_err": ndtri_err,
+          "ndtri_points": u.numel(), "shift_spans_32_bits": signs})
+    check(all(errs[k] <= tols[k] for k in errs),
+          f"qmc_noise: the card's noise differs from the host's: {errs}")
+    check(ndtri_err <= 2e-6, f"qmc_noise: float32 ndtri off by {ndtri_err}")
+    check(signs, "qmc_noise: the shift words do not span 32 bits")
+
+
+def qmc_noise_times(torch, pc, pricer, n: int, kernel, c0) -> dict:
+    """The QMC noise's ms per chunk (the chunk of carrier ``c0``)
+    beside the kernel's on that noise, the PCA product alone (TF32 off),
+    and its peak device bytes over what was allocated before
+    it."""
+    q = pricer._fused_qmc
+    a = torch.randn((q.rows, n), device=q.device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pricer._qmc_chunk_noise(c0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    out = {"noise_ms": time_ms(torch, lambda: pricer._qmc_chunk_noise(c0),
+                                 3),
+           "pca_matmul_ms": time_ms(torch,
+                                    lambda: pc._matmul_f32(a, q.pca_t), 3),
+           "kernel_ms": time_ms(torch, kernel, 5),
+           "noise_peak_bytes": peak}
+    out["noise_over_kernel"] = out["noise_ms"] / out["kernel_ms"]
+    return out
+
+
+def qmc_price_phase(torch, pc, pfc, engine, smi, dev, name: str,
+                    n_steps: int, form: dict, n_chunks: int, prng: tuple,
+                    reset_counts, read_counts, check_ratio: bool) -> tuple:
+    """One QMC price: price()'s fit (the pilot on the generic stream's QMC
+    generator, no kernel) and stream (each chunk's QMC noise through the
+    family's noise-in kernel, ``n_chunks`` launches, every one on injected
+    noise), the launch counts read around them; chunk 0's noise through
+    the kernel against its plain version; the noise's and the kernel's
+    times.  ``prng`` = (price, stderr, paths, fits) is the same
+    configuration's PRNG price and the fits it streamed under: the QMC
+    chunks streamed under those fits too (a stderr is conditional on its
+    pilot's fit, so two pilots' prices differ by more than their
+    stderrs) lie within 5 combined stderr of it, and their variance ratio
+    per path (se_prng^2 n_prng) / (se^2 n) is held > 1 where
+    ``check_ratio``.  The QMC pilot's price is reported beside it.
+    Returns (kernel name, noise-in launches)."""
+    cfg = engine.StreamConfig(n_paths=CHUNK * n_chunks, n_steps=n_steps,
+                              chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                              chunks_per_call=n_chunks, qmc=True, **form)
+    pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                    maturity=n_steps * DT, is_call=IS_CALL,
+                                    config=cfg, device=dev)
+    wrapper = pricer._priced_chunk
+    kname = {"single": "K2", "tiled": "K7",
+             "factored": "K9"}[pricer.kernel_family]
+    cv = cfg.control_variate
+    key = (wrapper.__name__ if not cv
+           else f"{kname}/{pc.form_name(False, True)}")
+    reset_counts()
+    wrapper.noise_launches = 0
+    fits, price, stderr, fit_s, stream_s = fit_and_price(torch, engine,
+                                                         pricer)
+    launches, noise_launches = read_counts(), wrapper.noise_launches
+    table = pricer._make_rows(fits.fits if cv else fits)
+    c0 = (engine._pilot_stream_keys(SEED)[1][0], 0)     # chunk 0's carrier
+    noise = pricer._qmc_chunk_noise(c0)
+    ref = (pfc.factored_priced_chunk_from_noise_ref
+           if pricer.kernel_family == "factored"
+           else pc.priced_chunk_from_noise_ref)
+
+    def kernel():
+        return wrapper(pricer.consts, table, STRIKE, IS_CALL, noise=noise,
+                       with_cv=cv, policy_form=cfg.policy_form)
+
+    got, want = kernel(), ref(pricer.consts, table, noise, STRIKE, IS_CALL,
+                              False, cv, cfg.policy_form)
+    got, want = (got[0], want[0]) if cv else (got, want)
+    torch.cuda.synchronize()
+    err = abs(float(got) / float(want) - 1.0)
+    times = qmc_noise_times(torch, pc, pricer, n_steps, kernel, c0)
+    del noise
+    p_prng, se_prng, n_prng, prng_fits = prng
+    n_paths = CHUNK * n_chunks
+    shared, se_shared = pricer.price_with_fit(prng_fits, SEED,
+                                              with_stderr=True)
+    sigmas = abs(shared - p_prng) / math.hypot(se_shared, se_prng)
+    ratio = (se_prng ** 2 * n_prng) / (se_shared ** 2 * n_paths)
+    pilot_sigmas = abs(price - p_prng) / math.hypot(stderr, se_prng)
+    wall = fit_s + stream_s
+    emit({"phase": name, "card": smi, "n_paths": n_paths, "n_steps": n_steps,
+          **form, "qmc_dim": cfg.qmc_dim, "kernel": kname,
+          "kernel_family": pricer.kernel_family, "price": price,
+          "stderr": stderr, "wall_s": wall, "paths_per_s": n_paths / wall,
+          "fit_s": fit_s, "stream_s": stream_s, "launches": launches,
+          "noise_in_launches": noise_launches,
+          "chunk0_kernel_vs_plain_rel_err": err, "rtol": SUM_RTOL, **times,
+          "prng_price": p_prng, "prng_stderr": se_prng,
+          "prng_paths": n_prng, "price_under_prng_fits": shared,
+          "stderr_under_prng_fits": se_shared,
+          "combined_stderrs_apart": sigmas, "limit": STDERR_SIGMAS,
+          "variance_ratio_per_path": ratio,
+          "qmc_pilot_combined_stderrs_apart": pilot_sigmas})
+    check(launches == expected_counts(**{key: n_chunks}),
+          f"{name} launches {launches}, want {key} {n_chunks} times and "
+          "nothing else")
+    check(noise_launches == n_chunks,
+          f"{name}: {noise_launches} noise-in launches, want {n_chunks}")
+    check(math.isfinite(price) and 0.0 < price < STRIKE,
+          f"{name} price {price} outside (0, strike)")
+    check(math.isfinite(stderr) and stderr > 0.0,
+          f"{name} stderr {stderr} not finite and positive")
+    check(err <= SUM_RTOL,
+          f"{name}: {kname} on QMC noise disagrees with its plain version")
+    check(math.isfinite(se_shared) and se_shared > 0.0,
+          f"{name}: stderr {se_shared} under the PRNG fits")
+    check(sigmas <= STDERR_SIGMAS,
+          f"{name} is {sigmas:.2f} combined stderr from the PRNG price")
+    if check_ratio:
+        check(ratio > 1.0, f"{name}: variance ratio {ratio} <= 1")
+    return kname, noise_launches
+
+
+def qmc_chain_phase(torch, pc, cc, engine, smi, dev, strip_prng: tuple,
+                    reset_counts, read_counts) -> int:
+    """``qmc_chain``: the 21-strike strip at 1e7 x 365 under QMC, the
+    pilot on the QMC stream and each chunk's noise through K5's noise-in
+    entry once; K5 on chunk 0's noise against its plain version; prices
+    rising in strike.  ``strip_prng`` = (prices, stderrs, fits) is the
+    PRNG strip on as many paths and the fits it streamed under: the QMC
+    chunks under those fits hold each strike within 5 combined stderr of
+    it, with the variance ratio at the bench strike > 1.  Returns K5's
+    noise-in launches."""
+    import numpy as np
+
+    cfg = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
+                              chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                              chunks_per_call=N_CHUNKS, qmc=True)
+    chain = engine.StreamingChainPricer(**MARKET, strikes=STRIP,
+                                        maturity=MATURITY, is_call=IS_CALL,
+                                        config=cfg, device=dev)
+    reset_counts()
+    cc.priced_chain.noise_launches = 0
+    (prices, stderrs), wall = timed(
+        torch, lambda: chain.price(SEED, with_stderr=True))
+    launches, noise_launches = read_counts(), cc.priced_chain.noise_launches
+    fits = chain.fit(engine._pilot_stream_keys(SEED)[0])
+    tables = chain._tables(fits, chain.strikes)
+    c0 = (engine._pilot_stream_keys(SEED)[1][0], 0)
+    noise = chain._qmc_chunk_noise(c0)
+
+    def kernel():
+        return cc.priced_chain(chain.chain_consts, tables, IS_CALL,
+                               noise=noise)
+
+    err = scaled_err(torch, kernel(), cc.priced_chain_from_noise_ref(
+        chain.chain_consts, tables, noise, IS_CALL))
+    times = qmc_noise_times(torch, pc, chain, N_STEPS, kernel, c0)
+    del noise
+    p_prng, se_prng = (np.asarray(v, np.float64) for v in strip_prng[:2])
+    shared, se_shared = chain.price_with_fit(strip_prng[2], SEED,
+                                             with_stderr=True)
+    combined = np.hypot(se_shared, se_prng)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sigmas = np.where(combined > 0, np.abs(shared - p_prng) / combined,
+                          np.where(shared == p_prng, 0.0, np.inf))
+        ratios = (se_prng / se_shared) ** 2
+        pilot_sigmas = np.abs(prices - p_prng) / np.hypot(stderrs, se_prng)
+    i_k = STRIP.index(STRIKE)
+    n_paths = CHUNK * N_CHUNKS
+    emit({"phase": "qmc_chain", "card": smi, "n_paths": n_paths,
+          "n_steps": N_STEPS, "strikes": list(STRIP), "kernel": "K5",
+          "prices": prices.tolist(), "stderrs": stderrs.tolist(),
+          "wall_s": wall, "paths_strikes_per_s": n_paths * len(STRIP) / wall,
+          "launches": launches, "noise_in_launches": noise_launches,
+          "chunk0_kernel_vs_plain_rel_err": err, "rtol": SUM_RTOL, **times,
+          "prng_prices": p_prng.tolist(), "prng_stderrs": se_prng.tolist(),
+          "prices_under_prng_fits": shared.tolist(),
+          "stderrs_under_prng_fits": se_shared.tolist(),
+          "combined_stderrs_apart": [float(v) for v in sigmas],
+          "qmc_pilot_combined_stderrs_apart": [float(v)
+                                               for v in pilot_sigmas],
+          "limit": STDERR_SIGMAS,
+          "variance_ratios": [float(v) for v in ratios],
+          "variance_ratio_at_strike": float(ratios[i_k])})
+    check(launches == expected_counts(priced_chain=N_CHUNKS),
+          f"qmc_chain launches {launches}, want K5 {N_CHUNKS} times")
+    check(noise_launches == N_CHUNKS,
+          f"qmc_chain: {noise_launches} noise-in launches")
+    check(bool(np.all(np.isfinite(prices))) and bool(np.all(prices > 0)),
+          "qmc_chain: prices not finite and positive")
+    check(bool(np.all(np.diff(prices) > 0)),
+          "qmc_chain: put prices do not rise in strike")
+    check(err <= SUM_RTOL, "qmc_chain: K5 on QMC noise disagrees with its "
+          "plain version")
+    check(float(np.max(sigmas)) <= STDERR_SIGMAS,
+          f"qmc_chain: a strike is {float(np.max(sigmas)):.2f} combined "
+          "stderr from the PRNG strip")
+    check(ratios[i_k] > 1.0,
+          f"qmc_chain: variance ratio {ratios[i_k]} <= 1 at {STRIKE}")
+    return noise_launches
+
+
+def qmc_fallback_phase(engine, smi, dev) -> None:
+    """``qmc_fallback``: a QMC configuration that no noise-in kernel covers
+    (a cubic policy at 365 steps; a strip past K5's 512 steps, where the
+    JAX chain falls back silently) resolves to the generic stream and logs
+    a warning; one that a kernel covers logs none."""
+    import logging
+
+    seen = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    logger = logging.getLogger(engine.__name__)
+    handler = Keep(logging.WARNING)
+    logger.addHandler(handler)
+    cases = {}
+    try:
+        for name, n, extra, strip in (("cubic_365", N_STEPS,
+                                       dict(poly_order=3), False),
+                                      ("strip_600", 600, {}, True),
+                                      ("kernel_365", N_STEPS, {}, False)):
+            seen.clear()
+            cfg = engine.StreamConfig(
+                n_paths=CHUNK, n_steps=n, chunk_paths=CHUNK,
+                pilot_paths=PILOT, dt=DT, qmc=True, **extra)
+            kw = dict(**MARKET, maturity=n * DT, is_call=IS_CALL,
+                      config=cfg, device=dev)
+            p = (engine.StreamingChainPricer(strikes=STRIP, **kw) if strip
+                 else engine.StreamingPricer(strike=STRIKE, **kw))
+            cases[name] = {"kernel_family": p.kernel_family,
+                           "warned": any("no noise-in kernel" in m
+                                         for m in seen)}
+    finally:
+        logger.removeHandler(handler)
+    emit({"phase": "qmc_fallback", "card": smi, "cases": cases})
+    for name in ("cubic_365", "strip_600"):
+        check(cases[name] == {"kernel_family": "stream", "warned": True},
+              f"qmc_fallback {name}: {cases[name]}")
+    check(cases["kernel_365"] == {"kernel_family": "single",
+                                  "warned": False},
+          f"qmc_fallback kernel_365: {cases['kernel_365']}")
+
+
+def prng_pricer(engine, dev, n_steps: int, n_chunks: int,
+                strip: bool = False, **form):
+    """The bench market's pricer (the strip's with ``strip``) at
+    ``n_steps`` on ``n_chunks`` chunks, with the StreamConfig fields
+    ``form``."""
+    cfg = engine.StreamConfig(n_paths=CHUNK * n_chunks, n_steps=n_steps,
+                              chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                              chunks_per_call=n_chunks, **form)
+    kw = dict(**MARKET, maturity=n_steps * DT, is_call=IS_CALL, config=cfg,
+              device=dev)
+    if strip:
+        return engine.StreamingChainPricer(strikes=STRIP, **kw)
+    return engine.StreamingPricer(strike=STRIKE, **kw)
+
+
+def qmc_phases(torch, pc, cc, pfc, engine, smi, dev, prng: dict,
+               reset_counts, read_counts) -> dict:
+    """The QMC phases: ``qmc_noise``, ``qmc_price`` (1e7 x 365 on K2),
+    ``qmc_price_cv`` (K2/cv), ``qmc_fgn`` (365 steps with the fGN planes
+    in the Sobol set), ``qmc_price_long`` (1825 steps on K7) and
+    ``qmc_price_xlong`` (4000 on K9), each cut to QMC_CUT_CHUNKS,
+    ``qmc_chain`` (the strip on K5, 1e7 x 365) and ``qmc_fallback``.
+    ``prng`` holds the PRNG runs they are held against: "price",
+    "price_cv", "price_long", "price_xlong" as (price, stderr, paths,
+    fits) and "strip" as (prices, stderrs, fits).  Returns each kernel's
+    noise-in launches, by the wrapper's name."""
+    t0 = time.perf_counter()
+    qmc_noise_phase(torch, engine, smi, dev)
+    out = {}
+    for name, n, form, chunks, ref, ratio in (
+            ("qmc_price", N_STEPS, {}, N_CHUNKS, "price", True),
+            ("qmc_price_cv", N_STEPS, dict(control_variate=True),
+             QMC_CUT_CHUNKS, "price_cv", True),
+            ("qmc_fgn", N_STEPS, dict(qmc_fgn=True), QMC_CUT_CHUNKS,
+             "price", True),
+            ("qmc_price_long", LONG_STEPS, {}, QMC_CUT_CHUNKS, "price_long",
+             False),
+            ("qmc_price_xlong", XLONG_STEPS, {}, QMC_CUT_CHUNKS,
+             "price_xlong", False)):
+        kname, launches = qmc_price_phase(
+            torch, pc, pfc, engine, smi, dev, name, n, form, chunks,
+            prng[ref], reset_counts, read_counts, ratio)
+        out.setdefault(FORM_WRAPPERS[kname], 0)
+        out[FORM_WRAPPERS[kname]] += launches
+    out["priced_chain"] = qmc_chain_phase(torch, pc, cc, engine, smi, dev,
+                                          prng["strip"], reset_counts,
+                                          read_counts)
+    qmc_fallback_phase(engine, smi, dev)
+    emit({"phase": "qmc", "card": smi, "noise_in_launches": out,
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
+def qmc_prediction_gen_phase(torch, smi, dev, reset_counts,
+                             read_counts) -> None:
+    """``qmc_prediction_gen``: ``run_pipeline`` with ``PricingConfig(qmc=
+    True)`` (the CLI's ``--qmc``) on the card, on QMC_PG_ROWS of the
+    ``prediction_gen`` phase's rows: one row of each bucket, the planted
+    rows, then the earliest others.  No kernel lies on it (every launch
+    count stays 0).  Checks the exit code, the header, the rows, the
+    sentinels at the planted rows, finite prices elsewhere, every bucket
+    run, and that a resume of the output cut after QMC_PG_RESUME_FROM
+    rows writes the one-shot run's bytes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from montecarlooptionspricer_tpu_torch.config import (
+        AUGMENTED_COLUMNS, MarketDefaults, PipelineConfig, PricingConfig)
+    from montecarlooptionspricer_tpu_torch.pipeline import csv_io, driver
+    from montecarlooptionspricer_tpu_torch.pipeline.watchdog import (
+        current_memory_bytes)
+
+    work = Path(tempfile.mkdtemp(prefix="mcop_qmc_prediction_gen_"))
+    try:
+        planted = pipeline_inputs(work, SEED)
+        lines = (work / "options.csv").read_text().splitlines()
+        body = lines[1:]
+        first = {}
+        for i, ln in enumerate(body):
+            tokens = ln.split(",")
+            if i not in planted and len(tokens) > 4:
+                first.setdefault(float(tokens[4]), i)
+        keep = set(planted) | {first[d] for d in PG_BUCKET_DTE}
+        for i in range(len(body)):
+            if len(keep) == QMC_PG_ROWS:
+                break
+            keep.add(i)
+        keep = sorted(keep)
+        sentinel_at = [j for j, i in enumerate(keep) if i in planted]
+        (work / "options.csv").write_text("\n".join(
+            [lines[0]] + [body[i] for i in keep]) + "\n")
+        limit = PipelineConfig().max_memory_bytes
+        peak_rss = current_memory_bytes()
+        if peak_rss >= limit // 2:
+            limit += peak_rss
+        config = PipelineConfig(
+            option_csv=str(work / "options.csv"),
+            spot_csv=str(work / "spot.csv"),
+            output_csv=str(work / "out.csv"),
+            error_log=str(work / "error_log.txt"),
+            diagnostic_csv=str(work / "diagnostic.csv"),
+            max_memory_bytes=limit)
+        pricing = PricingConfig(**PG_PRICING, qmc=True)
+        market = MarketDefaults()
+        timings = {}
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = driver.run_pipeline(config, pricing, market, device=dev,
+                                 timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        header, rows = csv_io.read_table(config.option_csv)
+        out_header, out_rows = csv_io.read_table(config.output_csv)
+        one_shot = (work / "out.csv").read_bytes()
+        sentinels = [i for i, ln in enumerate(one_shot.decode().splitlines()
+                                              [1:])
+                     if ln.endswith(driver.SENTINEL)]
+        prices = np.asarray([[float(v) for v in r[-6:-2]]
+                             for i, r in enumerate(out_rows)
+                             if i not in sentinel_at])
+        buckets = {key: {"batches": len(secs),
+                         "ms_per_batch": 1e3 * sum(secs) / len(secs)}
+                   for key, secs in timings.get("buckets", {}).items()}
+        cut = one_shot.splitlines(keepends=True)[:1 + QMC_PG_RESUME_FROM]
+        (work / "out.csv").write_bytes(b"".join(cut))
+        t0 = time.perf_counter()
+        rc_resume = driver.run_pipeline(config, pricing, market, resume=True,
+                                        device=dev)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resumed = (work / "out.csv").read_bytes()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "qmc_prediction_gen", "card": smi, "rows": len(keep),
+          "rc": rc, "wall_s": wall, "rows_per_s": len(keep) / wall,
+          "host_s": timings.get("host_s"), "device_s": timings.get("device_s"),
+          "buckets": buckets, "sentinel_rows": sentinels,
+          "resume_from": QMC_PG_RESUME_FROM, "resume_s": resume_s,
+          "resume_byte_equal": resumed == one_shot,
+          "kernel_launches": sum(launches.values())})
+    check(rc == 0 and rc_resume == 0,
+          f"qmc_prediction_gen: exit codes {rc}, {rc_resume}")
+    check(launches == expected_counts(),
+          f"qmc_prediction_gen launched kernels: {launches}")
+    check(out_header == header + list(AUGMENTED_COLUMNS)
+          and len(out_rows) == len(rows) == QMC_PG_ROWS,
+          f"qmc_prediction_gen: {len(out_rows)} rows, header {out_header}")
+    check(sentinels == sentinel_at,
+          f"qmc_prediction_gen: sentinels at {sentinels}, planted at "
+          f"{sentinel_at}")
+    check(bool(np.isfinite(prices).all()),
+          "qmc_prediction_gen: non-finite prices")
+    check(len(buckets) >= len(PG_BUCKET_DTE),
+          f"qmc_prediction_gen: buckets {sorted(buckets)}")
+    check(resumed == one_shot, "qmc_prediction_gen: the resume's bytes "
+          "differ from the one-shot run's")
+
+
 def prediction_gen_main(root: Path) -> int:
     """``python3 chip_smoke.py --prediction-gen [ROOT]``: the
     ``prediction_gen`` phase alone with the package of the checkout at
@@ -5160,6 +5637,54 @@ def prediction_gen_main(root: Path) -> int:
     reset_counts, read_counts = launch_counters()
     prediction_gen_phase(torch, smi, torch.device("cuda", 0), reset_counts,
                          read_counts)
+    print(smi, flush=True)
+    return 0
+
+
+def qmc_main(root: Path) -> int:
+    """``python3 chip_smoke.py --qmc [ROOT]``: the QMC phases alone with
+    the package of the checkout at ROOT (default: this script's), the
+    kernels built first, after the PRNG runs they are held against (the
+    bench price and its CV form, the 1825- and 4000-step prices, the
+    strip; 76 chunks each)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root.resolve()))
+    _START[0] = time.perf_counter()
+    from montecarlooptionspricer_tpu_torch.kernels import build
+    from montecarlooptionspricer_tpu_torch.models import chain_cuda as cc
+    from montecarlooptionspricer_tpu_torch.models import engine
+    from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
+    from montecarlooptionspricer_tpu_torch.models import (
+        pathgen_factored_cuda as pfc)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, smi = torch.device("cuda", 0), _card()
+    reset_counts, read_counts = launch_counters()
+    _, nvcc_s, _ = build.build()
+    build.load()
+    emit({"phase": "build", "nvcc_wall_s": round(nvcc_s, 3)})
+
+    def run(n, chunks, strip=False, **form):
+        pricer = prng_pricer(engine, dev, n, chunks, strip, **form)
+        fits = pricer.fit(engine._pilot_stream_keys(SEED)[0])
+        out = pricer.price_with_fit(fits, SEED, with_stderr=True)
+        return (*out, fits) if strip else (*out, CHUNK * chunks, fits)
+
+    prng = {"price": run(N_STEPS, N_CHUNKS),
+            "price_cv": run(N_STEPS, N_CHUNKS, control_variate=True),
+            "price_long": run(LONG_STEPS, LONG_CHUNKS),
+            "price_xlong": run(XLONG_STEPS, XLONG_CHUNKS),
+            "strip": run(N_STEPS, N_CHUNKS, strip=True)}
+    emit({"phase": "qmc_prng_runs", "runs": {
+        k: [v.tolist() if hasattr(v, "tolist") else v for v in r[:-1]]
+        for k, r in prng.items()}})
+    qmc_phases(torch, pc, cc, pfc, engine, smi, dev, prng, reset_counts,
+               read_counts)
+    qmc_prediction_gen_phase(torch, smi, dev, reset_counts, read_counts)
     print(smi, flush=True)
     return 0
 
@@ -5584,7 +6109,8 @@ def k7_forms_main(root: Path) -> int:
 
 FORMS_MAINS = {"--k1-forms": "k1_forms_main", "--k2-forms": "k2_forms_main",
                "--k7-forms": "k7_forms_main", "--k9-forms": "k9_forms_main",
-               "--prediction-gen": "prediction_gen_main"}
+               "--prediction-gen": "prediction_gen_main",
+               "--qmc": "qmc_main"}
 
 
 def launch_counters():
@@ -5887,8 +6413,27 @@ def main() -> int:
     k2_split(pc, kernels, dev)
     k1_k7_split(pc, ptc, kernels, dev)
     k89_split(pfc, kernels, dev)
-    # The PredictionGen pipeline, which launches no kernel.
+    # Randomized QMC through the noise-in entries of K2, K7, K9 and K5, held
+    # against the PRNG runs above under their fits (refitted: a seed's fit
+    # is the same bits every time).
+    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    cv_fits = prng_pricer(engine, dev, N_STEPS, N_CHUNKS,
+                          control_variate=True).fit(k_pilot)
+    strip_fits = prng_pricer(engine, dev, N_STEPS, N_CHUNKS,
+                             strip=True).fit(k_pilot)
+    qmc_launches = qmc_phases(torch, pc, cc, pfc, engine, smi, dev, {
+        "price": (price, stderr, CHUNK * N_CHUNKS, fits),
+        "price_cv": (*vr_prices["price_cv"], CHUNK * N_CHUNKS, cv_fits),
+        "price_long": (long_price, long_stderr, CHUNK * LONG_CHUNKS,
+                       long_fits),
+        "price_xlong": (*xlong[1:3], CHUNK * XLONG_CHUNKS, xlong[0]),
+        "strip": (*strip_plain, strip_fits)}, reset_counts, read_counts)
+    for k in kernels:
+        if k["name"] in qmc_launches:
+            k["qmc_noise_in_launches"] = qmc_launches[k["name"]]
+    # The PredictionGen pipeline, which launches no kernel, and its --qmc.
     prediction_gen_phase(torch, smi, dev, reset_counts, read_counts)
+    qmc_prediction_gen_phase(torch, smi, dev, reset_counts, read_counts)
     check(sorted(k["name"] for k in kernels) == sorted(REPLACES),
           "the kernels line does not list every kernel and form")
     emit({"kernels": kernels})

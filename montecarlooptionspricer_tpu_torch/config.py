@@ -39,7 +39,8 @@ class PricingConfig:
     poly_order: basis order of the LSM and martingale regressions.
     max_iterations: martingale primal/dual iterations.
     rows_per_batch: rows priced together in one batch.
-    qmc: randomized quasi-Monte Carlo noise (not ported: ROADMAP A12).
+    qmc: randomized quasi-Monte Carlo noise (a Sobol base per bucket, a
+      digital shift per row).
     antithetic: half the draws per row, paired as (Z, W) / (-Z, -W).
 
     JAX's ``max_history_days`` and ``dtype`` fields, which nothing reads

@@ -214,11 +214,13 @@ def priced_chain(consts: pc.PathConsts, tables: torch.Tensor, is_call: bool,
             int(consts.bf16), partial.data_ptr(), stream)
         pc._check(err, "priced_chain")
         priced_chain.launches += 1
+        priced_chain.noise_launches += noise is not None
         priced_chain.form_launches[form] += 1
         sums.append(torch.sum(partial, dim=0))
     return torch.cat(sums)
 
 
 priced_chain.launches = 0
+priced_chain.noise_launches = 0           # launches on injected noise
 priced_chain.form_launches = pc.new_form_counts(FORMS, bf16=True)
 

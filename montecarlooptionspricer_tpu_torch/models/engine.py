@@ -72,6 +72,19 @@ policy's value (lower) and the delta-hedge dual (upper,
 ``dual_upper_values``).  The dual is plain PyTorch, as JAX computes it in
 XLA.
 
+Randomized quasi-Monte Carlo (``qmc``, counterpart: the JAX engine's
+``qmc_fused`` route) feeds the priced kernels through their noise-in
+entries: each chunk's planes are built on the device from a scrambled
+Sobol set with its own digital shift (``make_fused_qmc``,
+``fused_qmc_draws``, ``fused_qmc_noise``, the counterpart of
+``_make_fused_qmc_noise``), the price Brownian by the PCA map, and the
+chunk streams through K2, K7 or K9 (K5 for a strip) in any of its forms
+but the pair.  The pilot, and the whole paths of ``price_with_bounds``,
+come from the generic stream's QMC generator, as JAX's come from its XLA
+generator.  A configuration outside every noise-in kernel streams through
+the generic stream with a warning; Greeks under ``qmc`` need JAX's jvp
+stream (ROADMAP A10).
+
 ``fgn_matmul_dtype="bfloat16"`` (counterpart: the JAX field of that name,
 JAX's bench default at long horizons) runs the fGN product on bf16 inputs
 with float32 sums, in every estimator, fGN and policy form of
@@ -101,12 +114,15 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import math
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
+from ..ops import qmc as qmc_ops
+from ..ops.fgn import next_pow2
 from ..ops.payoff import payoff
 from ..ops.reductions import global_mean
 from ..ops.regression import (PolyFit, eval_poly, fit_poly_columns,
@@ -118,6 +134,8 @@ from .greeks_cuda import GREEK_ORDER  # noqa: F401
 from .lsm import ITM_EPS, lsm_fit
 
 PILOT_STREAM = 3 << 28     # stream index of the pilot, past every chunk
+
+log = logging.getLogger(__name__)
 
 # Longest horizon priced by the single-tile kernels K1/K2; the step-tiled
 # K6/K7 take every longer one.  chip_smoke.py's crossover phase measured K7
@@ -146,9 +164,12 @@ class StreamConfig:
     intervals) or "quadratic" (the fitted quadratic per cell).
     ``antithetic``, ``qmc`` and ``control_variate`` name the JAX package's
     estimators: antithetic pairing needs chunk and pilot sizes divisible
-    by 32 and excludes qmc, which is not ported
-    (``_reject_unported_estimators``); on a kernel family it needs the
-    boundary policy (``_check_pairing``).  ``fgn_matmul_dtype``
+    by 32 and excludes qmc; on a kernel family it needs the boundary
+    policy (``_check_pairing``).  ``qmc_fgn`` (it needs ``qmc``) extends
+    the Sobol set to the fGN planes, and ``qmc_dim`` (>= 1) is the
+    Sobol coordinates of each plane, the leading PCA components of the
+    price Brownian, the rest PRNG-filled, as the JAX fields.
+    ``fgn_matmul_dtype``
     ("float32" or "bfloat16") is the fGN product's input dtype; the
     family does not depend on it, and every kernel body runs in both."""
 
@@ -166,6 +187,8 @@ class StreamConfig:
     tiled_impl: str = "auto"
     antithetic: bool = False
     qmc: bool = False
+    qmc_fgn: bool = False
+    qmc_dim: int = 256
     control_variate: bool = False
     pathgen_impl: str = "pallas"
     fgn_impl: str = "auto"
@@ -173,6 +196,10 @@ class StreamConfig:
 
     def __post_init__(self):
         pathgen_cuda.check_fgn_dtype(self.fgn_matmul_dtype)
+        if self.qmc_fgn and not self.qmc:
+            raise ValueError("qmc_fgn requires qmc=True")
+        if self.qmc_dim < 1:
+            raise ValueError("qmc_dim must be >= 1")
         if self.antithetic and self.qmc:
             raise ValueError("antithetic is incompatible with qmc (the "
                              "Sobol set has its own stratification)")
@@ -615,20 +642,111 @@ def control_fit(paths, fits: PolyFit, r, strike, maturity, dt,
 
 
 # ---------------------------------------------------------------------------
+# Randomized QMC noise for the priced kernels' noise-in entries.
 
-def _reject_unported_estimators(config: StreamConfig) -> None:
-    """NotImplementedError for the estimators the port does not have."""
-    if config.qmc:
-        raise NotImplementedError(
-            "qmc=True: the randomized-Sobol noise is not ported (ROADMAP "
-            "A12)")
+@dataclasses.dataclass(frozen=True)
+class FusedQMC:
+    """What a chunk's QMC noise needs besides its draws (counterpart: the
+    closure of ``_make_fused_qmc_noise``): the chunk's Sobol base ``bits``
+    [rows, dims] (int32 bit patterns on the device), the transposed PCA
+    map ``pca_t`` [n, n] (it carries sqrt(dt), divided back out:
+    ``inv_sqrt_dt``), the planes' ``width`` (n_steps, or the factored
+    kernels' m2), the fGN planes ``n_fgn`` (1 chol, 2 spectral or
+    factored), and the Sobol coordinates of the Brownian ``q_w`` and of
+    each fGN plane under ``qmc_fgn``, ``q_f``."""
+
+    n_steps: int
+    width: int
+    n_fgn: int
+    q_w: int
+    q_f: int
+    qmc_fgn: bool
+    inv_sqrt_dt: float
+    bits: torch.Tensor
+    pca_t: torch.Tensor
+
+    @property
+    def rows(self) -> int:
+        return self.bits.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.bits.device
+
+
+def make_fused_qmc(config: StreamConfig, fgn_form: str,
+                   device) -> FusedQMC:
+    """The QMC noise of a chunk of ``config.chunk_paths`` rows for the
+    noise-in entry of the ``fgn_form`` bodies: "chol" (N, W), "spectral"
+    (Zr, Zi, W), each [rows, n_steps], or "factored" (Zr, Zi, W) over the
+    factored kernels' m2-wide frequency planes (W in its first n_steps
+    columns, zero after).  The Sobol set is the truncated one of
+    ``config.qmc_dim``: the leading q_w = min(n, qmc_dim) PCA components
+    of the price Brownian, and under ``qmc_fgn`` the leading q_f =
+    min(width, qmc_dim) columns of each fGN plane (for the factored
+    planes their storage order's), the rest PRNG-filled, as JAX builds
+    it."""
+    n, dt = config.n_steps, float(config.dt)
+    width = next_pow2(n) if fgn_form == "factored" else n
+    n_fgn = 1 if fgn_form == "chol" else 2
+    q_w, q_f = min(n, config.qmc_dim), min(width, config.qmc_dim)
+    dims = q_w + (n_fgn * q_f if config.qmc_fgn else 0)
+    pca_t = torch.tensor(np.ascontiguousarray(
+        qmc_ops.brownian_pca_matrix(n, dt).T), dtype=torch.float32,
+        device=device)
+    return FusedQMC(n, width, n_fgn, q_w, q_f, bool(config.qmc_fgn),
+                    float(1.0 / np.sqrt(dt)),
+                    qmc_ops.base_bits(config.chunk_paths, dims,
+                                      torch.device(device)), pca_t)
+
+
+def fused_qmc_draws(q: FusedQMC, gen: torch.Generator) -> tuple:
+    """A chunk's draws from ``gen``, in this order (counterpart: JAX's
+    ``split(key, 3)`` into kq, kp, kt): the digital shift [dims], the
+    PRNG tail of the PCA coordinates [rows, n - q_w], and the fGN normals
+    [n_fgn, rows, width] (under ``qmc_fgn`` their tails [n_fgn, rows,
+    width - q_f])."""
+    dev = q.device
+    shift = qmc_ops.draw_shift(gen, q.bits.shape[1])
+    tail = torch.randn((q.rows, q.n_steps - q.q_w), generator=gen,
+                       device=dev)
+    cols = q.width - q.q_f if q.qmc_fgn else q.width
+    return shift, tail, torch.randn((q.n_fgn, q.rows, cols), generator=gen,
+                                    device=dev)
+
+
+def fused_qmc_noise(q: FusedQMC, shift: torch.Tensor, w_tail: torch.Tensor,
+                    fgn: torch.Tensor) -> torch.Tensor:
+    """[n_fgn + 1, rows, width] float32 noise from a chunk's draws
+    (``fused_qmc_draws``', or JAX's injected): the fGN planes first, then
+    W, the PCA'd Brownian increments divided by sqrt(dt) (the kernels
+    scale W by sqrt(dt) themselves).  A fresh contiguous tensor, so its
+    planes start 16-byte aligned."""
+    zq = qmc_ops.normals(q.bits, shift)
+    out = torch.empty((q.n_fgn + 1, q.rows, q.width), dtype=torch.float32,
+                      device=q.device)
+    w = pathgen_stream.pca_increments(zq[:, :q.q_w], w_tail, q.pca_t)
+    out[-1, :, :q.n_steps] = w.mul_(q.inv_sqrt_dt)
+    out[-1, :, q.n_steps:] = 0.0
+    del w
+    for i in range(q.n_fgn):
+        if q.qmc_fgn:
+            lo = q.q_w + i * q.q_f
+            out[i, :, :q.q_f] = zq[:, lo:lo + q.q_f]
+            out[i, :, q.q_f:] = fgn[i]
+        else:
+            out[i] = fgn[i]
+    return out
 
 
 class _FusedStream:
     """What both pricers share: the device, the path constants of the
     family (the fused kernels', or the generic stream's), the pilot, and
     the chunk loop that turns per-chunk sums into float64 totals and
-    chunk-total stderrs."""
+    chunk-total stderrs.  ``stream_consts`` are the generic stream's
+    constants wherever whole paths come from it: on the "stream" family
+    (they are ``consts``), and under ``qmc`` for the pilot and the
+    bounds' chunks (then beside the kernels' ``consts``)."""
 
     def __init__(self, s0, xi, h, eta, r, maturity, is_call: bool,
                  config: StreamConfig, device, family: Optional[str] = None):
@@ -640,7 +758,6 @@ class _FusedStream:
             raise ValueError(f"unsupported device {device}")
         if config.chunk_paths % 16 or config.pilot_paths % 16:
             raise ValueError("chunk_paths and pilot_paths must divide by 16")
-        _reject_unported_estimators(config)
         self.config = config
         self.device = device
         self.s0, self.r = float(s0), float(r)
@@ -650,10 +767,16 @@ class _FusedStream:
         self.kernel_family = family or resolve_kernel_family(
             config.n_steps, config.fgn_form, config.tiled_impl,
             config.pathgen_impl, config.poly_order)
-        if self.kernel_family == "stream":
-            self.consts = pathgen_stream.make_stream_consts(
+        self._fused_qmc = None
+        self.stream_consts = None
+        if self.kernel_family == "stream" or config.qmc:
+            self.stream_consts = pathgen_stream.make_stream_consts(
                 s0, xi, h, eta, r, config.n_steps, config.dt, device,
-                config.fgn_impl, fgn_dtype=config.fgn_matmul_dtype)
+                config.fgn_impl, fgn_dtype=config.fgn_matmul_dtype,
+                qmc=config.qmc, qmc_fgn=config.qmc_fgn,
+                qmc_dim=config.qmc_dim)
+        if self.kernel_family == "stream":
+            self.consts = self.stream_consts
             return
         if self.kernel_family == "factored":
             # The family builds only its own constants: no Cholesky.
@@ -686,35 +809,73 @@ class _FusedStream:
             self.config.dt, self.device,
             fgn_dtype=self.config.fgn_matmul_dtype)
 
+    def _warn_stream_fallback(self, what: str) -> None:
+        """The loud fallback of the JAX engine (its ``qmc_fused``
+        selection): a QMC configuration of the kernels that no noise-in
+        kernel covers streams through the generic stream, and says so."""
+        if self.config.qmc and self.kernel_family == "stream" \
+                and self.config.pathgen_impl == "pallas":
+            log.warning(
+                "qmc=True with pathgen_impl='pallas': no noise-in kernel "
+                "covers %s at n_steps=%d (poly_order=%d); the QMC stream "
+                "rides the generic path stream at reduced throughput", what,
+                self.config.n_steps, self.config.poly_order)
+
     def _pilot(self, carrier) -> torch.Tensor:
         """Pilot block from the (run_word, stream_index) ``carrier``
         through the family's path kernel, or the generic stream's
-        generator (plain under ``antithetic``)."""
-        if self.kernel_family == "stream":
+        generator (plain under ``antithetic``; its QMC generator under
+        ``qmc``)."""
+        if self.stream_consts is not None:
             return pathgen_stream.chunk_paths(
-                self.consts, self.config.pilot_paths, carrier)
+                self.stream_consts, self.config.pilot_paths, carrier)
         return self._pathgen(self.consts, rows=self.config.pilot_paths,
                              key=pathgen_cuda._fold_words(*carrier))
 
     def _stream_paths(self, rows=None, carrier=None, noise=None):
         """One chunk of the generic stream: from the seeded ``carrier`` or
         from ``noise`` = (z, dw), paired under ``antithetic``."""
-        anti = self.config.antithetic
+        anti, consts = self.config.antithetic, self.stream_consts
         if noise is not None:
-            return pathgen_stream.paths_from_noise(self.consts, *noise, anti)
-        return pathgen_stream.chunk_paths(self.consts, rows, carrier, anti)
+            return pathgen_stream.paths_from_noise(consts, *noise, anti)
+        return pathgen_stream.chunk_paths(consts, rows, carrier, anti)
 
     def _chunk_paths(self, rows=None, key=None, carrier=None, noise=None):
         """One chunk's whole paths (kw from ``_groups``): the family's path
         kernel K1, K6 or K8 in its pair form under ``antithetic`` (the
         drawn rows' paths, then their partners'), or the generic
-        stream's."""
-        if self.kernel_family == "stream":
+        stream's (under ``qmc`` too, as JAX's whole paths ride its XLA
+        generator)."""
+        if self.stream_consts is not None:
             return self._stream_paths(rows, carrier, noise)
         return self._pathgen(self.consts, rows=rows, key=key, noise=noise,
                              antithetic=self.config.antithetic)
 
+    def _qmc_chunk_noise(self, carrier) -> torch.Tensor:
+        """The QMC noise of the chunk of ``carrier``, from a generator
+        seeded from it, so chunks are independent randomizations."""
+        q = self._fused_qmc
+        gen = pathgen_stream.stream_generator(self.device, carrier)
+        return fused_qmc_noise(q, *fused_qmc_draws(q, gen))
+
+    def _kernel_chunks(self, kernel):
+        """``kernel(**kw)`` over the chunks of ``_groups``; under ``qmc``
+        each seeded chunk (a carrier) reads its QMC noise through the
+        kernel's noise-in entry, built one chunk at a time."""
+        if self._fused_qmc is None:
+            return kernel
+
+        def chunk(carrier=None, noise=None):
+            if noise is None:
+                noise = self._qmc_chunk_noise(carrier)
+            return kernel(noise=noise)
+        return chunk
+
     def _require_greeks(self) -> None:
+        if self.config.qmc:
+            raise NotImplementedError(
+                "Greeks under qmc: JAX sends them to its jvp Greeks stream "
+                "on the QMC generator, which is not ported (ROADMAP A10)")
         if self.quadratic:
             raise NotImplementedError(
                 "Greeks under the quadratic policy: JAX's fused Greeks "
@@ -750,13 +911,19 @@ class _FusedStream:
         _check_pallas_chunk_range(n_chunks)
         return n_paths
 
-    def _groups(self, seed: int, n_paths: Optional[int], noise):
+    def _groups(self, seed: int, n_paths: Optional[int], noise,
+                whole_paths: bool = False):
         """(n_paths, groups): each group of at most chunks_per_call chunks
         lists each chunk's arguments: the seeded rows and key of chunk i
-        (the carrier (run_word, stream_index) on the generic stream), or
-        ``noise[i]`` (a (z[i], dw[i]) pair of the stream's (z, dw))."""
+        (the carrier (run_word, stream_index) on the generic stream, and
+        the carrier alone for the QMC noise of a kernel), or ``noise[i]``
+        (a (z[i], dw[i]) pair of the stream's (z, dw)).  ``whole_paths``:
+        chunks of whole paths (the bounds'), from the generic stream
+        wherever ``stream_consts`` are set."""
         chunk = self.config.chunk_paths
-        stream = self.kernel_family == "stream"
+        stream = self.kernel_family == "stream" or (
+            whole_paths and self.stream_consts is not None)
+        qmc_kernel = not stream and self._fused_qmc is not None
         if noise is not None:
             noise = list(zip(*noise)) if stream else noise
             n_paths = len(noise) * chunk
@@ -767,6 +934,8 @@ class _FusedStream:
         def seeded(i):
             if stream:
                 return {"rows": chunk, "carrier": (run, start + i)}
+            if qmc_kernel:
+                return {"carrier": (run, start + i)}
             return {"rows": chunk,
                     "key": pathgen_cuda._fold_words(run, start + i)}
 
@@ -784,30 +953,36 @@ class _FusedStream:
         and with ``with_stderr`` their chunk-total stderrs.  Where ``ex0``
         holds, time-0 exercise: every path shares S0, so each path is
         worth ``v0`` and every chunk total is v0 * chunk_paths exactly
-        (stderr 0)."""
+        (stderr 0).  The squares are taken about the first chunk's total
+        (the stderr's ``center``; any constant gives the same variance):
+        float32 squares of raw totals cancel where the chunks' spread is
+        small against their mean, as under ``qmc``."""
         chunk = self.config.chunk_paths
         n_paths, groups = self._groups(seed, n_paths, noise)
 
         # Float32 accumulation on the device per group of chunks_per_call
         # chunks (no sync inside a group), float64 across groups.
+        c0 = v0 * float(chunk)
         total = sq = 0.0
+        center = None
         for group in groups:
             count = len(group)
             tot_g = sq_g = 0.0
             for kw in group:
                 c = chunk_sum(**kw)
+                if center is None:
+                    center = torch.where(ex0, c0, c)
                 tot_g = tot_g + c
-                sq_g = sq_g + c * c
+                sq_g = sq_g + (c - center) ** 2
             all0 = v0 * float(count * chunk)
-            c0 = v0 * float(chunk)
-            sq0 = float(count) * c0 * c0
             total = total + torch.where(ex0, all0, tot_g).double().cpu()
-            sq = sq + torch.where(ex0, sq0, sq_g).double().cpu()
+            sq = sq + torch.where(ex0, 0.0, sq_g).double().cpu()
         total, sq = total.numpy(), sq.numpy()
         if not with_stderr:
             return total / n_paths
         return (total / n_paths,
-                _chunk_stderr(total, sq, n_paths // chunk, chunk))
+                _chunk_stderr(total, sq, n_paths // chunk, chunk,
+                              center=center.double().cpu().numpy()))
 
     def _stream_cv(self, chunk_sum, seed: int, n_paths: Optional[int],
                    noise, ex0, p0: float, cv: CVFit, with_stderr: bool):
@@ -856,7 +1031,11 @@ class StreamingPricer(_FusedStream):
     names; the pilot and its fit are the plain ones.  On the generic path
     stream (``kernel_family`` "stream") each chunk's whole paths are
     priced by ``lsm_policy_value`` under the fitted policy of any order,
-    and under ``control_variate`` beside their ``martingale_control``."""
+    and under ``control_variate`` beside their ``martingale_control``.
+    Under ``qmc`` the pilot is the generic stream's QMC block and each
+    chunk's QMC noise streams through the family's priced kernel
+    (``_kernel_chunks``), or on the "stream" family through the stream's
+    QMC generator, with a warning when the kernels were asked for."""
 
     def __init__(self, s0, xi, h, eta, rho, r, strike, maturity,
                  is_call: bool, config: StreamConfig, device="cuda"):
@@ -869,6 +1048,11 @@ class StreamingPricer(_FusedStream):
                          device, family)
         _check_pairing(self.quadratic, self.kernel_family, config,
                        "policy_form")
+        self._warn_stream_fallback("this configuration")
+        if config.qmc and family != "stream":
+            self._fused_qmc = make_fused_qmc(
+                config, "factored" if family == "factored"
+                else kernel_fgn_form(config.fgn_form), self.device)
         self.strike = float(strike)
         self._priced_chunk = {
             "single": pathgen_cuda.priced_chunk,
@@ -959,12 +1143,10 @@ class StreamingPricer(_FusedStream):
             table = self._make_rows(fits)
             ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, self.strike,
                                                self.is_call)
-
-            def chunk_sum(**kw):
-                return self._priced_chunk(
-                    self.consts, table, self.strike, self.is_call,
-                    antithetic=config.antithetic, with_cv=cv is not None,
-                    policy_form=config.policy_form, **kw)
+            chunk_sum = self._kernel_chunks(functools.partial(
+                self._priced_chunk, self.consts, table, self.strike,
+                self.is_call, antithetic=config.antithetic,
+                with_cv=cv is not None, policy_form=config.policy_form))
 
         if cv is not None:
             out = self._stream_cv(chunk_sum, seed, n_paths, noise, ex0, p0,
@@ -1033,7 +1215,8 @@ class StreamingPricer(_FusedStream):
         self._require_bounds()
         fits, deltas, lam, cc = fit
         chunk = self.config.chunk_paths
-        n_paths, groups = self._groups(seed, n_paths, noise)
+        n_paths, groups = self._groups(seed, n_paths, noise,
+                                       whole_paths=True)
         args = (self.r, self.strike, self.maturity, self.config.dt,
                 self.is_call)
         lo = up = lsq = usq = 0.0
@@ -1137,8 +1320,12 @@ class StreamingChainPricer(_FusedStream):
     it, under ``pathgen_impl="xla"`` and for a ``poly_order`` other than
     2 the whole pricer takes the generic path stream (``chain_family``):
     its pilot, one batched fit, and each strike's ``lsm_policy_value`` on
-    every chunk's whole paths, plain or paired.  Runs on ``device``
-    ("cuda" unless the caller asks for "cpu")."""
+    every chunk's whole paths, plain or paired.  Under ``qmc`` the pilot
+    is the generic stream's QMC block and each chunk's QMC noise streams
+    through K5's noise-in entry; past K5 the generic stream's QMC
+    generator takes the strip, with a warning (JAX's chain falls back
+    silently).  Runs on ``device`` ("cuda" unless the caller asks for
+    "cpu")."""
 
     def __init__(self, s0, xi, h, eta, rho, r, strikes, maturity,
                  is_call: bool, config: StreamConfig, device="cuda",
@@ -1169,6 +1356,11 @@ class StreamingChainPricer(_FusedStream):
             self.chain_consts = pathgen_cuda.make_path_consts(
                 s0, xi, h, eta, r, config.n_steps, config.dt, self.device,
                 fgn_form="spectral", fgn_dtype=config.fgn_matmul_dtype)
+        # JAX's chain falls back to its XLA generator silently here.
+        self._warn_stream_fallback("a strike strip")
+        if config.qmc and family != "stream":
+            self._fused_qmc = make_fused_qmc(
+                config, self.chain_consts.fgn_form, self.device)
 
     def _strip(self, strikes) -> torch.Tensor:
         strip = torch.as_tensor(strikes, dtype=torch.float32).reshape(-1)
@@ -1247,10 +1439,10 @@ class StreamingChainPricer(_FusedStream):
         ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, strip,
                                            self.is_call)
         return self._stream(
-            lambda **kw: chain_cuda.priced_chain(
-                self.chain_consts, tables, self.is_call,
-                antithetic=self.config.antithetic,
-                policy_form=self.config.chain_policy_form, **kw),
+            self._kernel_chunks(functools.partial(
+                chain_cuda.priced_chain, self.chain_consts, tables,
+                self.is_call, antithetic=self.config.antithetic,
+                policy_form=self.config.chain_policy_form)),
             seed, n_paths, noise, ex0, p0, with_stderr)
 
     def price_and_greeks(self, seed: int, n_paths: Optional[int] = None,

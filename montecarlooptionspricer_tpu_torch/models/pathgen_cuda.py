@@ -1253,6 +1253,7 @@ def priced_chunk(consts: PathConsts, table: torch.Tensor, strike: float,
         torch.cuda.current_stream(consts.device).cuda_stream)
     _check(err, "priced_chunk")
     priced_chunk.launches += 1
+    priced_chunk.noise_launches += noise is not None
     priced_chunk.form_launches[form_name(antithetic, with_cv,
                                          consts.spectral, quadratic,
                                          consts.bf16)] += 1
@@ -1260,4 +1261,5 @@ def priced_chunk(consts: PathConsts, table: torch.Tensor, strike: float,
 
 
 priced_chunk.launches = 0
+priced_chunk.noise_launches = 0           # launches on injected noise
 priced_chunk.form_launches = new_form_counts(FORMS + QUAD_FORMS, bf16=True)

@@ -518,11 +518,13 @@ def factored_priced_chunk(consts: FactoredConsts, table: torch.Tensor,
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, "factored_priced_chunk")
     factored_priced_chunk.launches += 1
+    factored_priced_chunk.noise_launches += noise is not None
     factored_priced_chunk.form_launches[pc.form_name(
         antithetic, with_cv, quadratic=quadratic, bf16=consts.bf16)] += 1
     return pc.sums_from_partials(partial, with_cv)
 
 
 factored_priced_chunk.launches = 0
+factored_priced_chunk.noise_launches = 0  # launches on injected noise
 factored_priced_chunk.form_launches = dict.fromkeys(
     [*pc.FORMS, *pc.QUAD_FORMS, *pc.bf16_names(pc.FORMS + pc.QUAD_FORMS)], 0)

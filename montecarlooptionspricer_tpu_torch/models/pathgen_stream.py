@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..ops import fgn
+from ..ops import qmc as qmc_ops
 from ..ops.rng import mix64
 from .pathgen_cuda import _matmul_f32, check_fgn_dtype, round_bf16
 
@@ -65,8 +66,11 @@ class StreamConsts:
     constants: ``cr``, ``ci`` [n, n] (unit-eta spectral matrices) for
     "matmul", the complex spectrum ``phi`` [n] and ``fft_scale`` for
     "fft", and ``bf16``: the matmul synthesis on bf16 inputs (``cr`` and
-    ``ci`` then hold bf16 values).  Its tensors' device is where the
-    stream runs."""
+    ``ci`` then hold bf16 values).  Under ``qmc`` the price Brownian is
+    the randomized Sobol set's, ``pca_t`` [n, n] the transposed PCA map
+    (it carries the sqrt(dt) scale), the leading ``min(n, qmc_dim)``
+    coordinates Sobol (and the fGN planes' too under ``qmc_fgn``).  Its
+    tensors' device is where the stream runs."""
 
     n_steps: int
     dt: float
@@ -81,10 +85,24 @@ class StreamConsts:
     phi: torch.Tensor = None
     fft_scale: float = 0.0
     bf16: bool = False
+    qmc: bool = False
+    qmc_fgn: bool = False
+    qmc_dim: int = 256
+    pca_t: torch.Tensor = None
 
     @property
     def device(self) -> torch.device:
         return self.t_pow.device
+
+    @property
+    def q_w(self) -> int:
+        """Sobol coordinates of each QMC plane: min(n_steps, qmc_dim)."""
+        return min(self.n_steps, self.qmc_dim)
+
+    @property
+    def qmc_dims(self) -> int:
+        """Dimensions of the Sobol set: q_w, or 3 q_w under qmc_fgn."""
+        return 3 * self.q_w if self.qmc_fgn else self.q_w
 
 
 def _unit_eta_matrices(n_steps: int, h: float, dt: float):
@@ -97,26 +115,35 @@ def _unit_eta_matrices(n_steps: int, h: float, dt: float):
 
 def make_stream_consts(s0, xi, h, eta, r, n_steps: int, dt: float, device,
                        fgn_impl: str = "auto", traced_h: bool = False,
-                       qmc: bool = False,
-                       fgn_dtype: str = "float32") -> StreamConsts:
+                       qmc: bool = False, fgn_dtype: str = "float32",
+                       qmc_fgn: bool = False,
+                       qmc_dim: int = 256) -> StreamConsts:
     """StreamConsts on ``device`` from float64 host constants (the matmul
-    synthesis's matrices rounded to bf16 under ``fgn_dtype="bfloat16"``).
-    The traced Hurst exponent of the serving and jvp-Greeks generators and
-    the QMC noise are not ported."""
+    synthesis's matrices rounded to bf16 under ``fgn_dtype="bfloat16"``;
+    the PCA map under ``qmc``).  The traced Hurst exponent of the serving
+    and jvp-Greeks generators is not ported."""
     if traced_h:
         raise NotImplementedError(
             "traced_h: the in-graph spectral build of the serving and jvp "
             "Greeks generators is not ported (ROADMAP A13, A10)")
-    if qmc:
-        raise NotImplementedError(
-            "qmc: the randomized-Sobol noise is not ported (ROADMAP A12)")
     impl = resolve_fgn_impl(fgn_impl)
+    if qmc_fgn and not qmc:
+        raise ValueError("qmc_fgn requires qmc=True")
+    if qmc_fgn and impl == "fft":
+        raise ValueError("qmc_fgn requires the matmul fGN synthesis (the "
+                         "fft branch draws its own noise)")
+    if qmc_dim < 1:
+        raise ValueError("qmc_dim must be >= 1")
     bf16 = check_fgn_dtype(fgn_dtype) and impl == "matmul"
     t = torch.arange(n_steps + 1, dtype=torch.float32) * dt
     f32 = dict(dtype=torch.float32, device=device)
     kw = dict(n_steps=n_steps, dt=float(dt), s0=float(s0), xi=float(xi),
               r=float(r), eta=float(eta), fgn_impl=impl,
-              t_pow=torch.pow(t[:n_steps], 2.0 * h).to(device))
+              t_pow=torch.pow(t[:n_steps], 2.0 * h).to(device),
+              qmc=bool(qmc), qmc_fgn=bool(qmc_fgn), qmc_dim=int(qmc_dim))
+    if qmc:
+        kw["pca_t"] = torch.tensor(np.ascontiguousarray(
+            qmc_ops.brownian_pca_matrix(n_steps, float(dt)).T), **f32)
     if impl == "matmul":
         cr, ci = (torch.tensor(m, **f32)
                   for m in _unit_eta_matrices(n_steps, float(h), float(dt)))
@@ -192,9 +219,54 @@ def stream_generator(device, carrier) -> torch.Generator:
     return gen
 
 
+def pca_increments(z_lead: torch.Tensor, tail: torch.Tensor,
+                   pca_t: torch.Tensor) -> torch.Tensor:
+    """[rows, n] Brownian increments z @ M^T (the PCA map carries sqrt(dt))
+    from the leading Sobol normals ``z_lead`` [rows, q] and the PRNG tail
+    ``tail`` [rows, n - q] of the PCA coordinates, in full float32 (TF32
+    off): the rotation realizes the low-discrepancy structure, and a
+    rounded product would drown the sub-MC accuracy QMC buys."""
+    zw = torch.cat([z_lead, tail], dim=1) if tail.shape[1] else z_lead
+    return _matmul_f32(zw, pca_t)
+
+
+def draw_qmc(consts: StreamConsts, drawn: int, gen: torch.Generator):
+    """A QMC chunk's draws from ``gen``, in this order: the digital shift
+    [qmc_dims] (int32 bit patterns), the PCA tail [drawn, n - q_w], and
+    the fGN normals [2, drawn, n] (under ``qmc_fgn`` their tails [2,
+    drawn, n - q_w])."""
+    n, q, dev = consts.n_steps, consts.q_w, consts.device
+    shift = qmc_ops.draw_shift(gen, consts.qmc_dims)
+    tail = torch.randn((drawn, n - q), generator=gen, device=dev)
+    z = torch.randn((2, drawn, n - q if consts.qmc_fgn else n),
+                    generator=gen, device=dev)
+    return shift, tail, z
+
+
+def qmc_noise(consts: StreamConsts, shift: torch.Tensor,
+              w_tail: torch.Tensor, z_part: torch.Tensor):
+    """(z [2, rows, n], dw [rows, n]) of a QMC chunk from its draws
+    (``draw_qmc``'s, or JAX's injected): the shifted Sobol normals of the
+    rows' base set, the leading q_w PCA coordinates Sobol and ``w_tail``
+    after them, and z the drawn fGN normals, or under ``qmc_fgn`` Sobol
+    dimensions [q, 2q) and [2q, 3q) as (Zr, Zi) with ``z_part`` their
+    tails (counterpart: ``make_chunk_pathgen``'s qmc branch)."""
+    rows, q = w_tail.shape[0], consts.q_w
+    zq = qmc_ops.normals(
+        qmc_ops.base_bits(rows, consts.qmc_dims, consts.device), shift)
+    dw = pca_increments(zq[:, :q], w_tail, consts.pca_t)
+    if not consts.qmc_fgn:
+        return z_part, dw
+    lead = torch.stack([zq[:, q:2 * q], zq[:, 2 * q:]])
+    return (torch.cat([lead, z_part], dim=2) if z_part.shape[2] else lead,
+            dw)
+
+
 def draw_noise(consts: StreamConsts, drawn: int, gen: torch.Generator):
     """(z [2, drawn, n], dw [drawn, n]) from ``gen``: standard normals,
-    dw scaled by sqrt(dt)."""
+    dw scaled by sqrt(dt); under ``qmc`` the QMC chunk's planes."""
+    if consts.qmc:
+        return qmc_noise(consts, *draw_qmc(consts, drawn, gen))
     n, dev = consts.n_steps, consts.device
     z = torch.randn((2, drawn, n), generator=gen, device=dev)
     dw = torch.randn((drawn, n), generator=gen, device=dev)
@@ -205,6 +277,8 @@ def chunk_paths(consts: StreamConsts, rows: int, carrier,
                 antithetic: bool = False) -> torch.Tensor:
     """[rows, n_steps + 1] prices of the chunk of ``carrier``: its noise
     drawn by ``stream_generator`` (rows / 2 rows under ``antithetic``)."""
+    if antithetic and consts.qmc:
+        raise ValueError("antithetic is incompatible with qmc")
     if antithetic and rows % 2:
         raise ValueError(f"antithetic rows={rows} must be even")
     drawn = rows // 2 if antithetic else rows

@@ -270,11 +270,13 @@ def tiled_priced_chunk(consts: pc.PathConsts, table: torch.Tensor,
         torch.cuda.current_stream(consts.device).cuda_stream)
     pc._check(err, "tiled_priced_chunk")
     tiled_priced_chunk.launches += 1
+    tiled_priced_chunk.noise_launches += not seeded
     tiled_priced_chunk.form_launches[pc.form_name(
         antithetic, with_cv, consts.spectral, quadratic, consts.bf16)] += 1
     return pc.sums_from_partials(partial, with_cv)
 
 
 tiled_priced_chunk.launches = 0
+tiled_priced_chunk.noise_launches = 0     # launches on injected noise
 tiled_priced_chunk.form_launches = pc.new_form_counts(
     pc.FORMS + pc.QUAD_FORMS, bf16=True)

@@ -14,6 +14,14 @@ H, eta and step count, and each row's noise drawn from its own generator
 batch it lands in.  ``rho`` is distributionally inert, as in the
 reference: both of its Brownians are independent of the variance driver,
 so their mix is one N(0, dt) increment.
+
+The QMC forms (``generate_paths_qmc``, ``generate_paths_qmc_bucketed``)
+drive all 3n normals of a path from one digitally shifted scrambled Sobol
+set (``ops/qmc.py``): dimensions [0, n) build the price Brownian through
+the PCA map, [n, 2n) and [2n, 3n) are the complex fGN plane.  The shift
+is drawn from the row's generator (or injected); the inverse CDF runs in
+float64 on the exact float32 uniforms, and the synthesis in float64, as
+the pseudo-random forms' does.
 """
 
 from __future__ import annotations
@@ -25,11 +33,9 @@ import numpy as np
 import torch
 
 from ..ops import fgn as fgn_ops
+from ..ops import qmc as qmc_ops
 from ..ops import rng as rng_ops
 from ..ops.estimators import estimate_params
-
-_QMC = ("the quasi-Monte Carlo path forms are not ported yet "
-        "(ROADMAP A12)")
 
 
 def variance_curve(gen: torch.Generator, xi, h, eta, n_steps: int,
@@ -68,12 +74,90 @@ def generate_paths(gen: torch.Generator, s0, xi, h, eta, rho, r,
     return euler_log_paths(gen, s0, r, rho, v, dt)
 
 
-def generate_paths_qmc(*args, **kwargs):
-    raise NotImplementedError(_QMC)
+def _qmc_base(base_u, n_paths: int, dim: int, device) -> torch.Tensor:
+    """The Sobol base as int32 bit patterns on ``device``: ``base_u`` (uint32
+    words) when given, else the cached ``sobol_base(n_paths, dim)``."""
+    if base_u is None:
+        return qmc_ops.base_bits(n_paths, dim, torch.device(device))
+    return qmc_ops.as_bits(base_u).to(device)
 
 
-def generate_paths_qmc_bucketed(*args, **kwargs):
-    raise NotImplementedError(_QMC)
+def _pca_t64(n: int, dt: float, device) -> torch.Tensor:
+    """The transposed PCA map at ``n`` steps, float64 on ``device``."""
+    return torch.tensor(np.ascontiguousarray(
+        qmc_ops.brownian_pca_matrix(n, float(dt)).T), dtype=torch.float64,
+        device=device)
+
+
+def qmc_bucketed_noise(base: torch.Tensor, shifts: torch.Tensor, n_pad: int,
+                       dt: float) -> tuple:
+    """(zc [rows, paths, n_pad] complex128, dw [rows, paths, n_pad]
+    float64) of each row's digital shift ``shifts`` [rows, 3 n_pad] of the
+    base set ``base`` [paths, 3 n_pad]: the complex fGN plane from
+    dimensions [n_pad, 3 n_pad), the increments from the PCA map at n_pad
+    steps (they carry sqrt(dt)).  Each row's product has the same shape
+    whatever the batch, so a row's bits do not depend on it."""
+    pca_t = _pca_t64(n_pad, dt, base.device)
+    zc, dw = [], []
+    for shift in shifts:
+        z = qmc_ops.normals(base, shift, torch.float64)
+        zc.append(torch.complex(z[:, n_pad:2 * n_pad], z[:, 2 * n_pad:]))
+        dw.append(z[:, :n_pad] @ pca_t)
+    return torch.stack(zc), torch.stack(dw)
+
+
+def generate_paths_qmc(gen: torch.Generator, s0, xi, h, eta, rho, r,
+                       n_steps: int, n_paths: int, dt: float = 1.0 / 252.0,
+                       base_u=None, shift: torch.Tensor = None
+                       ) -> torch.Tensor:
+    """rBergomi prices [n_paths, n_steps + 1] driven by randomized QMC
+    noise: the same model as ``generate_paths``, with the 3 n
+    normals of a path from the digitally shifted Sobol set (``base_u``
+    [n_paths, 3 n] uint32, default ``sobol_base``; the shift [3 n] drawn
+    from ``gen``, or injected as int32 bit patterns), the price Brownian
+    by the PCA map at n steps.  Independent shifts give independent
+    unbiased estimates.  The synthesis is the bucketed one's on a single
+    row at n_pad = next_pow2(n), which is exact there."""
+    del rho
+    n = int(n_steps)
+    if shift is None:
+        shift = qmc_ops.draw_shift(gen, 3 * n)
+    dev = shift.device
+    z = qmc_ops.normals(_qmc_base(base_u, n_paths, 3 * n, dev), shift,
+                        torch.float64)
+    n_pad = fgn_ops.next_pow2(n)
+    zc = torch.zeros((1, n_paths, n_pad), dtype=torch.complex128, device=dev)
+    zc[0, :, :n] = torch.complex(z[:, n:2 * n], z[:, 2 * n:])
+    dw = torch.zeros((1, n_paths, n_pad), dtype=torch.float64, device=dev)
+    dw[0, :, :n] = z[:, :n] @ _pca_t64(n, dt, dev)
+    row = [torch.tensor([float(v)], device=dev) for v in (s0, xi, h, eta)]
+    return _bucketed_paths_from_noise(
+        *row, r, torch.tensor([n], device=dev), n_pad,
+        fgn_ops.next_pow2(n + 1), zc, dw, dt)[0, :, :n + 1]
+
+
+def generate_paths_qmc_bucketed(gens, s0, xi, h, eta, rho, r, n_steps,
+                                n_pad: int, m1: int, n_paths: int,
+                                dt: float = 1.0 / 252.0, base_u=None,
+                                shifts: torch.Tensor = None) -> torch.Tensor:
+    """[rows, n_paths, n_pad + 1] prices, the bucketed form of
+    ``generate_paths_qmc`` (see ``generate_paths_bucketed`` for the
+    (n_pad, m1) contract): one base set [n_paths, 3 n_pad] for the bucket
+    and each row's shift drawn from its generator in ``gens`` (or the
+    injected ``shifts`` [rows, 3 n_pad]).  The PCA map is built at n_pad
+    steps; any orthogonal construction gives exactly distributed
+    increments, so a row's first n_steps of them are exact."""
+    del rho
+    if n_pad & (n_pad - 1):
+        raise ValueError(f"n_pad={n_pad} must be a power of two")
+    if shifts is None:
+        shifts = torch.stack([qmc_ops.draw_shift(g, 3 * n_pad)
+                              for g in gens])
+    zc, dw = qmc_bucketed_noise(
+        _qmc_base(base_u, n_paths, 3 * n_pad, shifts.device), shifts, n_pad,
+        dt)
+    return _bucketed_paths_from_noise(s0, xi, h, eta, r, n_steps, n_pad, m1,
+                                      zc, dw, dt)
 
 
 def draw_bucketed_noise(gens: Sequence[torch.Generator], n_draw: int,

@@ -13,6 +13,10 @@ Each row's draws come from its own generator seeded from (seed, row
 index), and the estimators' sums are batch-independent
 (``ops.reductions.row_sum``), so a row's prices do not depend on the
 batch it lands in: a resumed run writes the same bytes as a one-shot run.
+Under ``PricingConfig.qmc`` the paths are randomized QMC: one scrambled
+Sobol base per (num_paths, 3 n_pad) bucket, and each row's digital shift
+drawn first from the row's own generator
+(``rough_volatility.qmc_bucketed_noise``), so resumes stay byte-equal.
 
 Failure containment follows the reference: a sentinel ",0,0,0,0,0,0" line
 for a row that fails validation or pricing, an error count, the health
@@ -40,6 +44,7 @@ from ..models import rough_volatility
 from ..models.branching import BranchIndices
 from ..models.pricing import PricerSpec, price_all
 from ..ops import estimators
+from ..ops import qmc as qmc_ops
 from ..ops.fgn import next_pow2
 from ..ops.rng import generator_for_row
 from . import csv_io, spot as spot_mod
@@ -52,7 +57,6 @@ SENTINEL = ",0,0,0,0,0,0"
 RESUME_MARKER_SUFFIX = ".resume"
 _MESH = ("a device mesh is not ported yet (ROADMAP A15): run on one "
          "device")
-_QMC = "quasi-Monte Carlo noise is not ported yet (ROADMAP A12)"
 
 
 @dataclasses.dataclass
@@ -181,8 +185,6 @@ class BatchedPricer:
                  device="cuda", mesh=None):
         if mesh is not None:
             raise NotImplementedError(_MESH)
-        if pricing.qmc:
-            raise NotImplementedError(_QMC)
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu'")
@@ -213,9 +215,16 @@ class BatchedPricer:
         p = self.pricing
         gens = [generator_for_row(base_seed, t.index, self.device)
                 for t in padded]
-        n_draw = p.num_paths // 2 if p.antithetic else p.num_paths
-        zc, dw = rough_volatility.draw_bucketed_noise(gens, n_draw, n_pad,
-                                                      self.market.dt)
+        if p.qmc:
+            shifts = torch.stack([qmc_ops.draw_shift(g, 3 * n_pad)
+                                  for g in gens])
+            zc, dw = rough_volatility.qmc_bucketed_noise(
+                qmc_ops.base_bits(p.num_paths, 3 * n_pad, self.device),
+                shifts, n_pad, self.market.dt)
+        else:
+            n_draw = p.num_paths // 2 if p.antithetic else p.num_paths
+            zc, dw = rough_volatility.draw_bucketed_noise(
+                gens, n_draw, n_pad, self.market.dt)
 
         def branch_plane(b: int) -> torch.Tensor:
             del b      # each row's generator yields its branches in order
@@ -234,7 +243,8 @@ class BatchedPricer:
         """[len(tasks), 4] prices of rows of one bucket from injected
         noise: ``zc`` [rows, n_draw, n_pad] complex, ``dw`` [rows, n_draw,
         n_pad] Brownian increments with their sqrt(dt) scale (n_draw =
-        num_paths, or half of it under antithetic), and ``rp`` the branch
+        num_paths, or half of it under antithetic; under qmc the planes of
+        ``rough_volatility.qmc_bucketed_noise``), and ``rp`` the branch
         indices ([rows, num_paths, n_pad, num_branches], or a callable of
         the branch)."""
         n_pad, m1 = bucket_key(tasks[0].n_steps)

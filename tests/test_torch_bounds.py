@@ -463,18 +463,22 @@ def test_lower_bound_equals_price_on_the_same_seed(antithetic, policy_form,
 
 
 def test_bounds_refusals():
-    """JAX's refusals: bounds under the control variate (ValueError), and
-    qmc keeps its unported error (ROADMAP A12); with no card, a pricer
-    for the card raises instead of running elsewhere."""
+    """JAX's refusal: bounds under the control variate (ValueError); under
+    qmc (refused naming ROADMAP A12 before it was ported) the bracket
+    streams whole QMC paths from the generic stream, as JAX's ride its
+    XLA generator, and holds the price; with no card, a pricer for the
+    card raises instead of running elsewhere."""
     cfg = tengine.StreamConfig(n_paths=512, n_steps=16, chunk_paths=256,
                                pilot_paths=256, control_variate=True)
     p = tengine.StreamingPricer(**RB, config=cfg, device="cpu")
     with pytest.raises(ValueError, match="control_variate"):
         p.price_with_bounds(0)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tengine.StreamingPricer(**RB, config=tengine.StreamConfig(
-            n_paths=512, n_steps=16, chunk_paths=256, pilot_paths=256,
-            qmc=True), device="cpu")
+    q = tengine.StreamingPricer(**RB, config=tengine.StreamConfig(
+        n_paths=512, n_steps=16, chunk_paths=256, pilot_paths=256,
+        qmc=True), device="cpu")
+    assert q.kernel_family == "single" and q.stream_consts.qmc
+    lo, up = q.price_with_bounds(0)
+    assert lo < up and abs(lo / q.price(0) - 1.0) < 0.02
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA"):
             tengine.StreamingPricer(**RB, config=tengine.StreamConfig(

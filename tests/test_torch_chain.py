@@ -321,7 +321,7 @@ def test_strip_of_one_matches_single_strike_pricer():
 @pytest.mark.parametrize("kwargs,exc,match", [
     (dict(bucketed=True), NotImplementedError, "ROADMAP A13"),
     (dict(traced_market=True), NotImplementedError, "ROADMAP A13"),
-    (dict(config=dict(qmc=True)), NotImplementedError, "ROADMAP A12"),
+    (dict(config=dict(qmc_fgn=True)), ValueError, "qmc_fgn requires qmc"),
     (dict(config=dict(control_variate=True)), ValueError, "control_variate"),
 ])
 def test_chain_unported_options_raise(kwargs, exc, match):

@@ -209,10 +209,16 @@ def test_cli_prices_on_cpu(capsys):
     assert out["price"] > 0 and out["stderr"] > 0 and not out["is_call"]
 
 
-@pytest.mark.parametrize("flag", ["--serve", "--qmc"])
-def test_cli_unported_flags_exit_2(capsys, flag):
-    assert tcli.main([flag, "--device", "cpu"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+@pytest.mark.parametrize("argv,match", [
+    (["--serve"], "not yet ported"),
+    (["--qmc", "--antithetic"], "incompatible with --qmc")],
+    ids=["--serve", "--qmc"])
+def test_cli_unported_flags_exit_2(capsys, argv, match):
+    """--serve is not ported (ROADMAP A13) and exits 2; --qmc prices (see
+    tests/test_torch_qmc.py) and exits 2 only where the JAX CLI does,
+    with --antithetic."""
+    assert tcli.main(argv + ["--device", "cpu"]) == 2
+    assert match in capsys.readouterr().err
 
 
 _RUN = ["--strike", "102", "--put", "--maturity", "0.12", "--steps", "24",

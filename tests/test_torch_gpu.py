@@ -2530,3 +2530,134 @@ def test_prediction_gen_2048_bucket_batch(cuda):
     assert out.shape == (64, 4)
     assert torch.isfinite(torch.from_numpy(out)).all()
     assert peak < torch.cuda.get_device_properties(0).total_memory / 4, peak
+
+
+# ---------------------------------------------------------------------------
+# Randomized QMC: the noise made on the card, and the noise-in entries of
+# K2, K5, K7 and K9 on its noise.
+
+QMC_MARKET = dict(**MARKET, rho=-0.4)
+
+
+@pytest.mark.gpu
+def test_qmc_normals_on_the_card(cuda):
+    """The card's shift words span 32 bits, its digital shift equals the
+    host's bit for bit, the uniforms stay inside (0, 1), and its float32
+    ndtri lies within 2e-6 of float64."""
+    from montecarlooptionspricer_tpu_torch.ops import qmc
+
+    shift = qmc.draw_shift(torch.Generator(device=cuda).manual_seed(1), 64)
+    assert int(shift.min()) < 0 < int(shift.max())
+    base = qmc.base_bits(1 << 17, 64, cuda)
+    u = qmc.rotate(base, shift)
+    assert torch.equal(u.cpu(), qmc.rotate(base.cpu(), shift.cpu()))
+    assert bool((u > 0).all()) and bool((u < 1).all())
+    err = (qmc.normals(base, shift).double()
+           - qmc.normals(base, shift, torch.float64)).abs().max()
+    assert float(err) <= 2e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,n_steps,qmc_fgn", [
+    ("chol", 365, False), ("chol", 365, True), ("spectral", 365, True),
+    ("chol", 1825, False), ("factored", 4000, False),
+    ("factored", 1000, True)])
+def test_qmc_noise_card_matches_host(cuda, form, n_steps, qmc_fgn):
+    """``fused_qmc_noise`` on the card against its host build from the
+    same draws, within 1e-5 at 365 steps and sqrt(n / 365) times that
+    past it (the PCA product's n-term sums in another float32 order)."""
+    rows = 2048
+    cfg = engine.StreamConfig(n_paths=rows, n_steps=n_steps, chunk_paths=rows,
+                              pilot_paths=rows, dt=DT, qmc=True,
+                              qmc_fgn=qmc_fgn)
+    host = engine.make_fused_qmc(cfg, form, "cpu")
+    draws = engine.fused_qmc_draws(host, torch.Generator().manual_seed(3))
+    want = engine.fused_qmc_noise(host, *draws)
+    got = engine.fused_qmc_noise(engine.make_fused_qmc(cfg, form, cuda),
+                                 *(d.to(cuda) for d in draws))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-5 * (n_steps / 365) ** 0.5)
+
+
+def _qmc_pricer(cuda, n_steps, rows, n_chunks=1, **extra):
+    cfg = engine.StreamConfig(n_paths=rows * n_chunks, n_steps=n_steps,
+                              chunk_paths=rows, pilot_paths=1 << 14, dt=DT,
+                              qmc=True, **extra)
+    return engine.StreamingPricer(**QMC_MARKET, strike=100.0,
+                                  maturity=n_steps * DT, is_call=False,
+                                  config=cfg, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps,extra,family", [
+    (96, {}, "single"), (96, dict(fgn_form="spectral"), "single"),
+    (96, dict(control_variate=True), "single"),
+    (96, dict(policy_form="quadratic"), "single"),
+    (96, dict(fgn_matmul_dtype="bfloat16"), "single"),
+    (96, dict(qmc_fgn=True), "single"), (400, {}, "tiled"),
+    (400, dict(control_variate=True), "tiled"),
+    (400, dict(fgn_matmul_dtype="bfloat16"), "tiled"),
+    (400, dict(tiled_impl="factored"), "factored"),
+    (400, dict(tiled_impl="factored", qmc_fgn=True), "factored")])
+def test_priced_kernels_on_qmc_noise(cuda, n_steps, extra, family):
+    """K2, K7 and K9 on a chunk of the QMC stream's noise (131,072 rows,
+    the pilot's fits) against their plain versions, each lane within
+    1e-4."""
+    p = _qmc_pricer(cuda, n_steps, 1 << 17, **extra)
+    assert p.kernel_family == family
+    cv = p.config.control_variate
+    fits = p.fit((7, engine.PILOT_STREAM))
+    table = p._make_rows(fits.fits if cv else fits)
+    noise = p._qmc_chunk_noise((7, 0))
+    ref = (pfc.factored_priced_chunk_from_noise_ref if family == "factored"
+           else pc.priced_chunk_from_noise_ref)
+    got = p._priced_chunk(p.consts, table, 100.0, False, noise=noise,
+                          with_cv=cv, policy_form=p.config.policy_form)
+    want = ref(p.consts, table, noise, 100.0, False, False, cv,
+               p.config.policy_form)
+    torch.cuda.synchronize()
+    for g, w in zip(*((got, want) if cv else ((got,), (want,)))):
+        assert abs(float(g) / float(w) - 1.0) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps,extra", [(96, {}), (400, {}),
+                                           (400, dict(fgn_form="spectral"))])
+def test_k5_on_qmc_noise(cuda, n_steps, extra):
+    """K5 on a chunk of the QMC stream's noise in its pilot family's form
+    (chol at 96 and on the slab at 400 steps; spectral on the factored
+    family) against its plain version."""
+    cfg = engine.StreamConfig(n_paths=1 << 17, n_steps=n_steps,
+                              chunk_paths=1 << 17, pilot_paths=1 << 14,
+                              dt=DT, qmc=True, **extra)
+    chain = engine.StreamingChainPricer(
+        **QMC_MARKET, strikes=[90.0, 100.0, 110.0], maturity=n_steps * DT,
+        is_call=False, config=cfg, device=cuda)
+    fits = chain.fit((7, engine.PILOT_STREAM))
+    tables = chain._tables(fits, chain.strikes)
+    noise = chain._qmc_chunk_noise((7, 0))
+    got = cc.priced_chain(chain.chain_consts, tables, False, noise=noise)
+    want = cc.priced_chain_from_noise_ref(chain.chain_consts, tables, noise,
+                                          False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps,extra,wrapper", [
+    (96, {}, pc.priced_chunk), (400, {}, ptc.tiled_priced_chunk),
+    (400, dict(tiled_impl="factored"), pfc.factored_priced_chunk)])
+def test_qmc_price_streams_through_noise_in(cuda, n_steps, extra, wrapper):
+    """``price`` under qmc launches the family's priced kernel once a
+    chunk, every launch on injected noise, and no path kernel (the pilot
+    rides the generic stream)."""
+    p = _qmc_pricer(cuda, n_steps, 1 << 14, n_chunks=4, **extra)
+    path_kernels = (pc.pathgen, ptc.tiled_pathgen, pfc.factored_pathgen)
+    for fn in (wrapper, *path_kernels):
+        fn.launches = 0
+    wrapper.noise_launches = 0
+    price, se = p.price(3, with_stderr=True)
+    assert wrapper.launches == wrapper.noise_launches == 4
+    assert all(fn.launches == 0 for fn in path_kernels)
+    assert 0 < price < 100.0 and 0 < se < 0.1 * price

@@ -212,12 +212,20 @@ def test_run_leaves_no_handlers_or_threads(workdir):
 
 
 def test_unported_configurations_raise():
-    """No silent fallback: a mesh (A15), QMC noise (A12) and a CUDA device
-    on a host without one raise."""
+    """No silent fallback: a mesh (A15) and a CUDA device on a host
+    without one raise; QMC noise (refused naming A12 before it was
+    ported) prices, and only its pairing with antithetic is refused."""
     with pytest.raises(NotImplementedError, match="A15"):
         BatchedPricer(PricingConfig(), MarketDefaults(), "cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        BatchedPricer(PricingConfig(qmc=True), MarketDefaults(), "cpu")
+    qmc = BatchedPricer(PricingConfig(qmc=True, num_paths=32),
+                        MarketDefaults(), "cpu")
+    task = tdriver.RowTask(
+        index=0, line="x", n_steps=20, is_call=False, s0=100.0, xi=0.04,
+        h=0.1, eta=1.5, rho=-0.4, strike=102.0, maturity=20 / 252,
+        sigma=0.2, dividend=0.0, twenty_day_vol=0.2, twenty_day_momentum=0.0)
+    prices = qmc.price([task], base_seed=0)
+    assert prices.shape == (1, 4) and np.all(np.isfinite(prices))
+    assert np.all(prices > 0)
     with pytest.raises(ValueError):
         PricingConfig(qmc=True, antithetic=True)
     if torch.cuda.is_available():
@@ -232,13 +240,16 @@ def _flags(parser):
 
 def test_cli_flags_and_refusals(workdir, capsys):
     """The CLI's flags are JAX's, with its defaults, plus --device; --qmc
-    exits 2 naming A12, --mesh-devices 2 and --trace-dir exit 2 naming
-    A15; --device cpu writes the augmented CSV."""
+    with --antithetic exits 2 (JAX's PricingConfig refusal; --qmc alone
+    exited 2 naming A12 before it was ported), --mesh-devices 2 and
+    --trace-dir exit 2 naming A15; --device cpu writes the augmented
+    CSV."""
     jflags = _flags(jcli.build_parser())
     tflags = _flags(tcli.build_parser())
     assert tflags.pop("device") == "cuda"
     assert tflags == jflags
-    for argv, item in ((["--qmc"], "A12"), (["--mesh-devices", "2"], "A15"),
+    for argv, item in ((["--qmc", "--antithetic"], "incompatible"),
+                       (["--mesh-devices", "2"], "A15"),
                        (["--trace-dir", "trace"], "A15")):
         assert tcli.main(argv + ["--device", "cpu"]) == 2
         assert item in capsys.readouterr().err

@@ -286,8 +286,14 @@ def test_seeded_single_row_paths_are_the_model():
     q = trv.generate_paths_from_history(gen, hist, 10, 64)
     assert q.shape == (64, 11) and float(q[0, 0]) == pytest.approx(
         hist[-1], rel=1e-6)
-    with pytest.raises(NotImplementedError, match="A12"):
-        trv.generate_paths_qmc(gen, 100.0, 0.04, 0.1, 1.5, -0.4, R, 21, 64)
+    # The QMC form (refused naming A12 before it was ported): the same
+    # model, s0 in column 0 and the same drift.
+    pq = trv.generate_paths_qmc(gen, 100.0, 0.04, 0.1, 1.5, -0.4, R, 21,
+                                4096)
+    assert pq.shape == (4096, 22) and (pq[:, 0] == 100.0).all()
+    assert torch.isfinite(pq).all() and (pq > 0).all()
+    assert abs(float(pq[:, -1].mean()) / (100.0 * np.exp(R * 21 * DT))
+               - 1.0) < 0.01
 
 
 @pytest.mark.parametrize("antithetic", [False, True], ids=["plain", "anti"])

@@ -260,8 +260,11 @@ def test_engine_reads_stream_noise():
 
 
 def test_out_of_scope_stream_options_raise():
-    """The serving generator's traced Hurst exponent and live horizon and
-    the QMC noise are not ported: each raises naming its ROADMAP item."""
+    """The serving generator's traced Hurst exponent and live horizon are
+    not ported: each raises naming its ROADMAP item.  The QMC noise
+    (refused naming A12 before it was ported) builds its PCA map, and
+    ``qmc_fgn`` is refused without ``qmc`` and on the FFT synthesis, as
+    JAX refuses them."""
     consts = stream_consts(16)
     z = torch.zeros((2, 4, 16))
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
@@ -269,9 +272,14 @@ def test_out_of_scope_stream_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A13, A10"):
         ps.make_stream_consts(100.0, 0.04, 0.1, 1.5, 0.04, 16, DT, "cpu",
                               traced_h=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        ps.make_stream_consts(100.0, 0.04, 0.1, 1.5, 0.04, 16, DT, "cpu",
+    q = ps.make_stream_consts(100.0, 0.04, 0.1, 1.5, 0.04, 16, DT, "cpu",
                               qmc=True)
+    assert q.qmc and q.pca_t.shape == (16, 16) and q.qmc_dims == 16
+    for kw in (dict(qmc_fgn=True), dict(qmc=True, qmc_fgn=True,
+                                        fgn_impl="fft")):
+        with pytest.raises(ValueError, match="qmc_fgn requires"):
+            ps.make_stream_consts(100.0, 0.04, 0.1, 1.5, 0.04, 16, DT,
+                                  "cpu", **kw)
     with pytest.raises(ValueError, match="fgn_impl"):
         tengine.StreamConfig(n_paths=1024, n_steps=16, fgn_impl="dft")
     with pytest.raises(ValueError, match="pathgen_impl"):

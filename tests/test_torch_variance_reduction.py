@@ -375,7 +375,7 @@ def test_long_horizon_forms_price(family, n_steps):
     (dict(antithetic=True, qmc=True), ValueError, "qmc"),
     (dict(antithetic=True, chunk_paths=48), ValueError, "divisible by 32"),
     (dict(antithetic=True, pilot_paths=272), ValueError, "divisible by 32"),
-    (dict(qmc=True), NotImplementedError, "ROADMAP A12"),
+    (dict(qmc_fgn=True), ValueError, "qmc_fgn requires qmc"),
 ])
 def test_estimator_configurations_refused(config, exc, match):
     kw = dict(n_paths=1024, n_steps=32, chunk_paths=256, pilot_paths=256)
