@@ -191,7 +191,23 @@ to 0 just before it and read just after:
   at 365 steps); ``qmc_fallback`` checks that a configuration outside
   every noise-in kernel streams on the generic stream with a warning;
   ``qmc_prediction_gen`` runs ``--qmc`` on 128 of ``prediction_gen``'s
-  rows, every bucket among them, and a resume byte-equal.
+  rows, every bucket among them, and a resume byte-equal;
+* the serving CLI and the jvp Greeks stream, plain PyTorch on the generic
+  stream, which launch no kernel: ``serve`` feeds 40 mixed quotes (step
+  buckets 8 and 32, strips of 2 and 3 strikes, Greeks every 5th), 2
+  malformed lines and the bench strip (21 strikes, 365 live steps in
+  bucket 512, 8 chunks) to the in-process ``mcop-price-torch --serve`` on
+  the card, checks 9 pricers or first Greeks quotes built, 2 errors,
+  every pricer's tensors on the card and no launch, holds the served
+  strike 105 within 5 combined stderr of ``serve_reference`` (K1 + K5 on
+  the Cholesky factor of the 512-step bucket's covariance, the law a
+  server prices a 365-step quote in) and prints its distance from
+  ``chain_price`` and each class's first and warm quote seconds;
+  ``greeks_jvp`` streams the jvp Greeks of the bench option at 365 steps
+  (16 chunks; each Greek within 5 combined stderr of ``greeks``, the
+  price lane within 1e-5 of ``price_with_fit`` on the same fits) and at
+  1825 steps (8 chunks; the price lane within 5 combined stderr of
+  ``price_long``), with the seconds a chunk and the peak device bytes.
 
 It also times K2 against K7 and K9 per chunk across horizons, in float32
 and bf16 (the crossover that sets engine.SINGLE_TILE_MAX_STEPS and the
@@ -213,7 +229,9 @@ forms, K6's 8 and P1's matmul with digests of K6's and P1's outputs
 (``k7_forms_main``), on this checkout or another; ``--prediction-gen
 [ROOT]`` the ``prediction_gen`` phase alone, with no kernel built
 (``prediction_gen_main``); ``--qmc [ROOT]`` the QMC phases alone after
-the PRNG runs they are held against (``qmc_main``).
+the PRNG runs they are held against (``qmc_main``); ``--serve-jvp
+[ROOT]`` the ``serve`` and ``greeks_jvp`` phases alone after the kernel
+runs they are held against (``serve_jvp_main``).
 
 Usage (from the root of a checkout, one CUDA card):  python3 chip_smoke.py
 
@@ -5622,6 +5640,330 @@ def qmc_prediction_gen_phase(torch, smi, dev, reset_counts,
           "differ from the one-shot run's")
 
 
+# ---------------------------------------------------------------------------
+# The serving CLI (``mcop-price-torch --serve``) and the jvp Greeks stream:
+# plain PyTorch on the generic stream, which no kernel runs.
+
+SERVE_REPLAY = 40          # mixed quotes, as the CPU test's 100-quote replay
+SERVE_BENCH_CHUNKS = 8     # the bench strip's served chunks
+JVP_CHUNKS = 16            # the jvp Greeks at 365 steps
+JVP_LONG_CHUNKS = 8        # and at 1825, past the tile
+
+
+def serve_requests() -> list:
+    """The serve phase's JSON lines: SERVE_REPLAY quotes over step buckets
+    8 and 32 and strip buckets 2 and 4 (2 and 3 strikes), fresh strips,
+    markets, H and seeds, one or two chunks, Greeks every 5th quote, two
+    malformed lines, and last the bench strip (21 strikes, 365 steps in
+    bucket 512, SERVE_BENCH_CHUNKS chunks), quoted twice."""
+    reqs = []
+    for i in range(SERVE_REPLAY):
+        k = [2, 3][i % 2]
+        steps = [8, 24][(i // 2) % 2]
+        reqs.append(json.dumps({
+            "id": i, "strikes": [94.0 + 4 * j + (i % 9) * 0.5
+                                 for j in range(k)],
+            "put": True, "steps": steps, "maturity": steps / 252.0,
+            "paths": CHUNK * (1 + i % 2), "hurst": 0.1 + 0.02 * (i % 8),
+            "s0": 100.0 + 0.2 * (i % 7), "xi": 0.04 + 0.002 * (i % 4),
+            "seed": i, "greeks": i % 5 == 4}))
+    reqs.insert(13, "{broken json")
+    reqs.insert(27, json.dumps({"id": "bad", "strike": 100.0,
+                                "maturity": 0.1, "hurst": 2.0}))
+    bench = {"strikes": list(STRIP), "put": not IS_CALL, "steps": N_STEPS,
+             "maturity": MATURITY, "paths": CHUNK * SERVE_BENCH_CHUNKS,
+             "seed": SEED, "hurst": MARKET["h"], "s0": MARKET["s0"],
+             "xi": MARKET["xi"], "eta": MARKET["eta"], "r": MARKET["r"]}
+    reqs += [json.dumps({"id": "bench", **bench}),
+             json.dumps({"id": "bench_warm", **bench})]
+    return reqs
+
+
+def bucket_law_strip(torch, engine, smi, dev, reset_counts,
+                     read_counts) -> tuple:
+    """The bench strip under the law a server prices it in: 365 live steps
+    of the 512-step bucket's spectral synthesis, whose first 365 fGN
+    entries have another covariance than the 365-step synthesis's (the
+    reference's map is no circulant embedding).  K1 and K5 in the chol
+    form on the Cholesky factor of that covariance's leading 365 x 365
+    block (the same Gaussian law), N_CHUNKS chunks: (prices, stderrs) of
+    the ``serve_reference`` phase, beside the variance ratio of the two
+    laws' fGN entries."""
+    import dataclasses
+
+    import numpy as np
+
+    bucket = 1 << (N_STEPS - 1).bit_length()
+    cr, ci = engine._fgn_matrices_np(bucket, MARKET["h"], MARKET["eta"], DT)
+    cov = (cr.T @ cr + ci.T @ ci)[:N_STEPS, :N_STEPS]
+    cr0, ci0 = engine._fgn_matrices_np(N_STEPS, MARKET["h"], MARKET["eta"],
+                                       DT)
+    var_ratio = float(cov[0, 0] / (cr0.T @ cr0 + ci0.T @ ci0)[0, 0])
+    lt = np.ascontiguousarray(np.linalg.cholesky(cov).T)
+    cfg = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
+                              chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                              chunks_per_call=N_CHUNKS)
+    chain = engine.StreamingChainPricer(**MARKET, strikes=STRIP,
+                                        maturity=MATURITY, is_call=IS_CALL,
+                                        config=cfg, device=dev)
+    chain.consts = chain.chain_consts = dataclasses.replace(
+        chain.consts, lt_half=(0.5 * torch.tensor(lt, dtype=torch.float32)
+                               ).to(dev).contiguous())
+    reset_counts()
+    out, wall = timed(torch, lambda: chain.price(SEED, with_stderr=True))
+    launches = read_counts()
+    i_k = STRIP.index(STRIKE)
+    emit({"phase": "serve_reference", "card": smi, "bucket": bucket,
+          "n_steps": N_STEPS, "fgn_var_ratio_bucket_to_exact": var_ratio,
+          "prices": out[0].tolist(), "stderrs": out[1].tolist(),
+          "price_at_strike": float(out[0][i_k]),
+          "stderr_at_strike": float(out[1][i_k]), "wall_s": wall,
+          "nonzero_launches": {k: v for k, v in launches.items() if v}})
+    check(launches == expected_counts(pathgen=1, priced_chain=N_CHUNKS),
+          f"serve_reference launches {launches}")
+    return out
+
+
+def serve_phase(torch, smi, dev, strip: tuple, bucket_strip: tuple,
+                reset_counts, read_counts) -> None:
+    """The ``serve`` phase: ``serve_requests()`` through the in-process
+    server of ``mcop-price-torch --serve`` on the card (chunk CHUNK, the
+    JAX server's default pilot of 65,536), launch counts 0 before it and
+    read after.  Checks 9 compiled answers (5 classes, 4 first Greeks
+    quotes), 2 errors, 8 Greeks answers, no kernel launched, every
+    pricer's tensors on the card, and the bench strip's strike 105 within
+    5 combined stderr of ``bucket_strip`` = (prices, stderrs), K1 + K5
+    under the bucket's law (``bucket_law_strip``); its distance from
+    ``chain_price``'s ``strip`` (K1 + K5 under the 365-step law) is
+    printed beside.  Prints the answers' seconds by class, the first (the
+    build) apart from the warm ones."""
+    import collections
+    import contextlib
+    import io
+    import statistics
+
+    from montecarlooptionspricer_tpu_torch.cli import price as price_cli
+    from montecarlooptionspricer_tpu_torch.config import MarketDefaults
+
+    args = price_cli.build_parser().parse_args(
+        ["--serve", "--device", str(dev), "--chunk-paths", str(CHUNK)])
+    reqs = serve_requests()
+    pricers = collections.OrderedDict()
+    out = io.StringIO()
+    old_stdin = sys.stdin
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        sys.stdin = io.StringIO("\n".join(reqs) + "\n")
+        with contextlib.redirect_stdout(out):
+            rc = price_cli.serve(args, MarketDefaults(), pricers)
+    finally:
+        sys.stdin = old_stdin
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    rows = [json.loads(line) for line in out.getvalue().splitlines()]
+    errors = [r for r in rows if "error" in r]
+    ok = [r for r in rows if "error" not in r]
+    by_class = collections.defaultdict(lambda: {"first_s": None,
+                                                "warm_s": []})
+    for r in ok:
+        k_b = 1 << max(0, (len(r["strikes"]) - 1).bit_length())
+        b = max(8, 1 << max(0, (r["n_steps"] - 1).bit_length()))
+        cls = by_class[f"{b}x{k_b}{'/greeks' if 'delta' in r else ''}"]
+        if r["compiled"]:
+            cls["first_s"] = r["elapsed_s"]
+        else:
+            cls["warm_s"].append(r["elapsed_s"])
+    latency = {k: {"first_s": v["first_s"], "n_warm": len(v["warm_s"]),
+                   "warm_median_s": (statistics.median(v["warm_s"])
+                                     if v["warm_s"] else None),
+                   "warm_max_s": max(v["warm_s"], default=None)}
+               for k, v in sorted(by_class.items())}
+    bench = {r["id"]: r for r in ok if r["id"] in ("bench", "bench_warm")}
+    i_k = STRIP.index(STRIKE)
+    p_k = bench["bench"]["prices"][i_k]
+    se_k = bench["bench"]["stderrs"][i_k]
+    sigmas = abs(p_k - float(bucket_strip[0][i_k])) / math.hypot(
+        se_k, float(bucket_strip[1][i_k]))
+    sigmas_exact = abs(p_k - float(strip[0][i_k])) / math.hypot(
+        se_k, float(strip[1][i_k]))
+    on_card = all(
+        t.device.type == "cuda"
+        for entry in pricers.values()
+        for t in (entry[0].strikes, entry[0].stream_consts.cr,
+                  entry[0].stream_consts.ci, entry[0].stream_consts.t_pow))
+    compiled = sum(bool(r.get("compiled")) for r in ok)
+    n_greeks = sum("delta" in r for r in ok)
+    emit({"phase": "serve", "card": smi, "requests": len(reqs),
+          "answers": len(rows), "errors": len(errors),
+          "compiled": compiled, "greeks_answers": n_greeks,
+          "classes": len(pricers), "wall_s": wall,
+          "latency_by_class": latency,
+          "bench_strip": {"n_paths": bench["bench"]["n_paths"],
+                          "n_steps": N_STEPS, "price_at_strike": p_k,
+                          "stderr_at_strike": se_k,
+                          "elapsed_s": bench["bench"]["elapsed_s"],
+                          "warm_elapsed_s":
+                              bench["bench_warm"]["elapsed_s"]},
+          "bucket_law_at_strike": [float(bucket_strip[0][i_k]),
+                                   float(bucket_strip[1][i_k])],
+          "combined_stderrs_apart": sigmas, "limit": STDERR_SIGMAS,
+          "chain_price_at_strike": [float(strip[0][i_k]),
+                                    float(strip[1][i_k])],
+          "combined_stderrs_from_chain_price": sigmas_exact,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "tensors_on_card": on_card,
+          "nonzero_launches": {k: v for k, v in launches.items() if v}})
+    check(rc == 0 and len(rows) == len(reqs), "serve lost answers")
+    check(len(errors) == 2, f"serve answered {len(errors)} errors, want 2")
+    check(compiled == 9, f"serve built {compiled} times, want 9")
+    check(n_greeks == SERVE_REPLAY // 5, "serve Greeks answers")
+    check(launches == expected_counts(), f"serve launched kernels: "
+          f"{launches}")
+    check(on_card, "a served pricer holds tensors off the card")
+    check(all(math.isfinite(v) for r in ok for v in r["prices"]),
+          "non-finite served prices")
+    check(sigmas <= STDERR_SIGMAS, "the served strip's strike 105 is "
+          f"{sigmas:.2f} combined stderrs from K1 + K5 under its bucket's "
+          "law")
+
+
+def greeks_jvp_phase(torch, engine, smi, dev, greeks: tuple,
+                     price_long: tuple, reset_counts, read_counts) -> None:
+    """The ``greeks_jvp`` phase: the jvp Greeks stream of the bench option
+    at 365 steps (``pathgen_impl="xla"``, JVP_CHUNKS chunks), each Greek
+    within 5 combined stderr of K3's ``greeks`` = (greeks, stderrs) and
+    the price lane within 1e-5 of ``price_with_fit`` on the same fits,
+    timed beside it; then
+    at 1825 steps past the tile (the tiled family's configuration, whose
+    Greeks K3 does not reach; JVP_LONG_CHUNKS chunks), its price lane
+    within 5 combined stderr of ``price_long`` = (price, stderr) (K6/K7),
+    with the peak device bytes.  No kernel launches in either."""
+    import numpy as np
+
+    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    runs = {}
+    for name, n, chunks, impl in (("bench", N_STEPS, JVP_CHUNKS, "xla"),
+                                  ("long", LONG_STEPS, JVP_LONG_CHUNKS,
+                                   "pallas")):
+        cfg = engine.StreamConfig(n_paths=CHUNK * chunks, n_steps=n,
+                                  chunk_paths=CHUNK, pilot_paths=PILOT,
+                                  dt=DT, chunks_per_call=chunks,
+                                  pathgen_impl=impl)
+        pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                        maturity=n * DT, is_call=IS_CALL,
+                                        config=cfg, device=dev)
+        check(not pricer._kernel_greeks(), f"{name}: K3 took the Greeks")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        fits, fit_s = timed(torch, lambda: pricer.greeks_fit(k_pilot))
+        (g, se), stream_s = timed(torch, lambda: pricer.greeks_with_fit(
+            fits, SEED, with_stderr=True))
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        runs[name] = dict(n_steps=n, n_paths=CHUNK * chunks,
+                          family=pricer.kernel_family,
+                          greeks=dict(zip(engine.GREEK_ORDER, g)),
+                          stderrs=dict(zip(engine.GREEK_ORDER, se)),
+                          fit_s=fit_s, stream_s=stream_s,
+                          stream_s_per_chunk=stream_s / chunks,
+                          peak_device_bytes=peak,
+                          peak_above_start_bytes=peak - base,
+                          nonzero_launches={k: v for k, v in
+                                            launches.items() if v})
+        if pricer.kernel_family == "stream":
+            # The same pilot, fits and chunks as price(): the price lane
+            # is price_with_fit's, and the price stream's time beside.
+            price, p_stream_s = timed(torch, lambda: pricer.price_with_fit(
+                fits, SEED))
+            runs[name].update(price_stream_s=p_stream_s,
+                              price_same_fits=price)
+            check(abs(g[0] / price - 1.0) <= 1e-5, f"greeks_jvp {name}: "
+                  "the price lane differs from price_with_fit")
+        check(launches == expected_counts(),
+              f"greeks_jvp {name} launched kernels: {launches}")
+        check(all(math.isfinite(v) for v in (*g, *se)),
+              f"greeks_jvp {name}: non-finite Greeks")
+    g, se = np.array(list(runs["bench"]["greeks"].values())), np.array(
+        list(runs["bench"]["stderrs"].values()))
+    k3, k3_se = np.array(greeks[0]), np.array(greeks[1])
+    sig = np.abs(g - k3) / np.hypot(se, k3_se)
+    lg = runs["long"]
+    sig_long = abs(lg["greeks"]["price"] - price_long[0]) / math.hypot(
+        lg["stderrs"]["price"], price_long[1])
+    emit({"phase": "greeks_jvp", "card": smi, "runs": runs,
+          "k3_greeks": dict(zip(engine.GREEK_ORDER, k3.tolist())),
+          "combined_stderrs_apart_k3": dict(zip(engine.GREEK_ORDER,
+                                                sig.tolist())),
+          "price_long": list(price_long),
+          "long_price_combined_stderrs_apart": sig_long,
+          "limit": STDERR_SIGMAS})
+    check(bool(np.all(sig <= STDERR_SIGMAS)),
+          f"jvp Greeks at {N_STEPS} steps vs K3: {sig.tolist()} stderrs")
+    check(sig_long <= STDERR_SIGMAS, "the jvp price lane at "
+          f"{LONG_STEPS} steps is {sig_long:.2f} stderrs from price_long")
+
+
+def serve_jvp_main(root: Path) -> int:
+    """``python3 chip_smoke.py --serve-jvp [ROOT]``: the ``serve`` and
+    ``greeks_jvp`` phases alone with the package of the checkout at ROOT
+    (default: this script's), after the kernel runs they are held against
+    (the strip through K1 + K5, the Greeks through K3, 1e7 x 1825 through
+    K6/K7; 76 chunks each)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root.resolve()))
+    _START[0] = time.perf_counter()
+    from montecarlooptionspricer_tpu_torch.kernels import build
+    from montecarlooptionspricer_tpu_torch.models import engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, smi = torch.device("cuda", 0), _card()
+    reset_counts, read_counts = launch_counters()
+    _, nvcc_s, _ = build.build()
+    build.load()
+    emit({"phase": "build", "nvcc_wall_s": round(nvcc_s, 3)})
+    k_pilot = engine._pilot_stream_keys(SEED)[0]
+    cfg = engine.StreamConfig(n_paths=CHUNK * N_CHUNKS, n_steps=N_STEPS,
+                              chunk_paths=CHUNK, pilot_paths=PILOT, dt=DT,
+                              chunks_per_call=N_CHUNKS)
+    chain = engine.StreamingChainPricer(**MARKET, strikes=STRIP,
+                                        maturity=MATURITY, is_call=IS_CALL,
+                                        config=cfg, device=dev)
+    strip = chain.price_with_fit(chain.fit(k_pilot), SEED, with_stderr=True)
+    pricer = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                    maturity=MATURITY, is_call=IS_CALL,
+                                    config=cfg, device=dev)
+    greeks = pricer.price_and_greeks(SEED, with_stderr=True)
+    long_cfg = engine.StreamConfig(n_paths=CHUNK * LONG_CHUNKS,
+                                   n_steps=LONG_STEPS, chunk_paths=CHUNK,
+                                   pilot_paths=PILOT, dt=DT,
+                                   chunks_per_call=LONG_CHUNKS)
+    long_p = engine.StreamingPricer(**MARKET, strike=STRIKE,
+                                    maturity=LONG_MATURITY, is_call=IS_CALL,
+                                    config=long_cfg, device=dev)
+    price_long = long_p.price(SEED, with_stderr=True)
+    emit({"phase": "serve_jvp_references", "strip_at_strike": [
+        float(strip[0][STRIP.index(STRIKE)]),
+        float(strip[1][STRIP.index(STRIKE)])], "greeks": list(greeks[0]),
+        "greeks_stderrs": list(greeks[1]), "price_long": list(price_long)})
+    bucket_strip = bucket_law_strip(torch, engine, smi, dev,
+                                    reset_counts, read_counts)
+    serve_phase(torch, smi, dev, strip, bucket_strip, reset_counts,
+                read_counts)
+    greeks_jvp_phase(torch, engine, smi, dev, greeks, price_long,
+                     reset_counts, read_counts)
+    print(smi, flush=True)
+    return 0
+
+
 def prediction_gen_main(root: Path) -> int:
     """``python3 chip_smoke.py --prediction-gen [ROOT]``: the
     ``prediction_gen`` phase alone with the package of the checkout at
@@ -6110,7 +6452,7 @@ def k7_forms_main(root: Path) -> int:
 FORMS_MAINS = {"--k1-forms": "k1_forms_main", "--k2-forms": "k2_forms_main",
                "--k7-forms": "k7_forms_main", "--k9-forms": "k9_forms_main",
                "--prediction-gen": "prediction_gen_main",
-               "--qmc": "qmc_main"}
+               "--qmc": "qmc_main", "--serve-jvp": "serve_jvp_main"}
 
 
 def launch_counters():
@@ -6434,6 +6776,14 @@ def main() -> int:
     # The PredictionGen pipeline, which launches no kernel, and its --qmc.
     prediction_gen_phase(torch, smi, dev, reset_counts, read_counts)
     qmc_prediction_gen_phase(torch, smi, dev, reset_counts, read_counts)
+    # The serving CLI and the jvp Greeks stream, which launch no kernel;
+    # the served bench strip against K1 + K5 under its bucket's law.
+    bucket_strip = bucket_law_strip(torch, engine, smi, dev,
+                                    reset_counts, read_counts)
+    serve_phase(torch, smi, dev, strip_plain, bucket_strip, reset_counts,
+                read_counts)
+    greeks_jvp_phase(torch, engine, smi, dev, greeks32[0],
+                     (long_price, long_stderr), reset_counts, read_counts)
     check(sorted(k["name"] for k in kernels) == sorted(REPLACES),
           "the kernels line does not list every kernel and form")
     emit({"kernels": kernels})

@@ -1,7 +1,7 @@
 """Fit-then-stream LSM pricing engine (counterpart:
 ``montecarlooptionspricer_tpu/models/engine.py``, the single-device
-``StreamingPricer`` and the non-bucketed ``StreamingChainPricer`` with the
-fused kernels).
+``StreamingPricer`` and ``StreamingChainPricer`` with the fused kernels,
+the bucketed serving chains and the jvp Greeks).
 
   pilot:  the family's path kernel (K1 ``pathgen_cuda.pathgen``, K6
           ``pathgen_tiled_cuda.tiled_pathgen`` or K8
@@ -82,8 +82,8 @@ chunk streams through K2, K7 or K9 (K5 for a strip) in any of its forms
 but the pair.  The pilot, and the whole paths of ``price_with_bounds``,
 come from the generic stream's QMC generator, as JAX's come from its XLA
 generator.  A configuration outside every noise-in kernel streams through
-the generic stream with a warning; Greeks under ``qmc`` need JAX's jvp
-stream (ROADMAP A10).
+the generic stream with a warning; Greeks under ``qmc`` take the jvp
+Greeks stream on the QMC generator, as JAX's do.
 
 ``fgn_matmul_dtype="bfloat16"`` (counterpart: the JAX field of that name,
 JAX's bench default at long horizons) runs the fGN product on bf16 inputs
@@ -99,15 +99,27 @@ the JAX engine sends the dtype into its chain and Greeks kernels; and the
 bf16 matmul synthesis on the generic stream.  The bounds stream K1/K6/K8
 in that form.
 
-Only this path is ported.  Other configurations raise
-``NotImplementedError`` naming their ROADMAP item; nothing runs another
-path silently.  Greeks under ``control_variate`` are the plain Greeks, as
-in the JAX engine.  The quadratic policy forms select the priced kernels'
-quadratic bodies and nothing else: the generic stream and the bounds
-decide on whole paths by the fitted quadratic under either form, pairs
-with a quadratic policy raise on a kernel family (no kernel pairs it, as
-in JAX) and price on the generic stream, and Greeks under it need JAX's
-jvp stream (ROADMAP A10).
+The jvp Greeks stream (counterpart: ``_greek_jvp_loop`` over the JAX
+engine's ``traced_h`` XLA generator) carries the Greeks wherever K3/K4 do
+not reach: past 365 steps, on the generic stream, under the spectral form,
+the quadratic policy and qmc.  Each chunk's noise is drawn as the generic
+stream draws it; ``jvp_chunk_greeks`` runs one ``torch.func.jvp`` over the
+market (s0, xi, r, eta, H), vmapped over the five basis tangents, through
+``pathgen_stream.paths_from_params`` (H enters through the matrices'
+derivative, ``pathgen_stream.hurst_matrices``) and the fixed policy's
+value, in row blocks that bound its memory.  It is plain PyTorch, as JAX
+runs it in XLA.  Greeks under ``control_variate`` are the plain Greeks,
+as in the JAX engine.  The quadratic policy forms select the priced
+kernels' quadratic bodies and nothing else: the generic stream and the
+bounds decide on whole paths by the fitted quadratic under either form,
+and pairs with a quadratic policy raise on a kernel family (no kernel
+pairs it, as in JAX) and price on the generic stream.
+
+The serving pricers (``StreamingChainPricer(bucketed=True[,
+traced_market=True])``, counterpart of the JAX branches of those names)
+ride the generic stream: a step bucket with a per-call live horizon and
+maturity, and under ``traced_market`` the whole market per call, Greeks
+included (``cli/price.py --serve``).  Nothing runs another path silently.
 """
 
 from __future__ import annotations
@@ -443,10 +455,14 @@ def _time_discount(m: int, r, dt, device) -> torch.Tensor:
 
 
 def lsm_policy_path_values(paths, fits: PolyFit, r, strike, maturity, dt,
-                           is_call: bool) -> torch.Tensor:
+                           is_call: bool, n_steps_live=None) -> torch.Tensor:
     """[n] discounted payoff of each path under the fitted policy: the
     first step j < n_steps that is in the money with payoff >= the fitted
-    continuation, else the terminal payoff."""
+    continuation, else the terminal payoff.  ``n_steps_live`` (a host int,
+    the contract's horizon in a step-bucketed block that is flat past it)
+    forces exercise at that column and keeps the pad columns from
+    exercising, so the padded block prices as the exact-shape one.  ``r``
+    may be a 0-d tensor (the jvp Greeks' rho)."""
     n, m = paths.shape
     p = payoff(is_call, paths, strike)
     cont = eval_poly(fits, paths[:, : m - 1])
@@ -454,16 +470,19 @@ def lsm_policy_path_values(paths, fits: PolyFit, r, strike, maturity, dt,
     exercise = (p[:, : m - 1] > ITM_EPS) & (p[:, : m - 1] >= cont) & live
     exercise = torch.cat([exercise, torch.ones((n, 1), dtype=torch.bool,
                                                device=paths.device)], dim=1)
+    if n_steps_live is not None and n_steps_live < m - 1:
+        col = torch.arange(m, device=paths.device)[None, :]
+        exercise = (exercise & (col < n_steps_live)) | (col == n_steps_live)
     stop = exercise.to(torch.int8).argmax(dim=1)
     disc = _time_discount(m, r, dt, paths.device)
     return (p * disc[None, :]).gather(1, stop[:, None])[:, 0]
 
 
 def lsm_policy_value(paths, fits: PolyFit, r, strike, maturity, dt,
-                     is_call: bool):
+                     is_call: bool, n_steps_live=None):
     """(sum of lsm_policy_path_values, path count)."""
     value = lsm_policy_path_values(paths, fits, r, strike, maturity, dt,
-                                   is_call)
+                                   is_call, n_steps_live)
     return torch.sum(value), paths.shape[0]
 
 
@@ -474,6 +493,97 @@ def martingale_control(paths, r, dt) -> torch.Tensor:
     m = paths.shape[1]
     return torch.exp(torch.tensor(-r * (m - 1) * dt,
                                   dtype=paths.dtype)) * paths[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# The jvp Greeks stream (counterpart: ``_greek_jvp_loop`` and the chunk
+# functions of the JAX engine's Greeks streams, which XLA runs, not a
+# kernel): forward mode over the market (s0, xi, r, eta, H) through the
+# generic stream's synthesis and the fixed policy.
+
+# Floats of one [rows, steps + 1] path plane per row block of a jvp chunk:
+# the five tangent lanes and the primal make each live plane six times
+# this (2^26 floats, 256 MB), and a block holds a few at once.  A 131,072-
+# row chunk is one block up to 511 steps and four at 1825.
+_JVP_BLOCK_FLOATS = 1 << 26
+
+
+def jvp_market(consts: pathgen_stream.StreamConsts) -> tuple:
+    """(primals, tangents) of the jvp at the market of ``consts``: primals
+    (s0, xi, r, eta) as float32 0-d tensors and the synthesis (cr, ci,
+    t_pow) of ``consts``; tangents, one per primal, each with a leading
+    axis of the five basis directions s0, xi, r, eta, H: the unit vectors
+    for the scalars, and H's derivative of the matrices and of t^{2H}
+    (``pathgen_stream.hurst_matrices(with_dh=True)``) in the fifth."""
+    if consts.fgn_impl != "matmul":
+        raise ValueError("the jvp Greeks take the matmul fGN synthesis")
+    dev = consts.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    _, dmats = pathgen_stream.hurst_matrices(
+        consts.n_steps, consts.dt, consts.h, dev,
+        "bfloat16" if consts.bf16 else "float32", with_dh=True)
+    eye = torch.eye(5, **f32)
+    scalars = tuple(torch.tensor(v, **f32)
+                    for v in (consts.s0, consts.xi, consts.r, consts.eta))
+    tangents = tuple(eye[:, j] for j in range(4)) + tuple(
+        eye[:, 4].reshape(5, *([1] * d.dim())) * d for d in dmats)
+    return scalars + (consts.cr, consts.ci, consts.t_pow), tangents
+
+
+def jvp_lanes(chunk_val, primals: tuple, tangents: tuple) -> torch.Tensor:
+    """[6, ...] rows (``GREEK_ORDER``) of ``chunk_val``'s value and its
+    derivatives in (s0, xi, r, eta, H): one ``torch.func.jvp`` vmapped
+    over the five basis tangents, so the primal runs once (the JAX
+    engine's ``_greek_jvp_loop`` body), the lanes reordered as JAX's
+    [vals, d s0, d xi, d eta, d r, d H]."""
+    vals, grads = torch.func.vmap(
+        lambda *t: torch.func.jvp(chunk_val, primals, t))(*tangents)
+    return torch.stack([vals[0], grads[0], grads[1], grads[3], grads[2],
+                        grads[4]])
+
+
+def jvp_chunk_greeks(consts: pathgen_stream.StreamConsts, z: torch.Tensor,
+                     dw: torch.Tensor, fits: PolyFit, strike, maturity,
+                     is_call: bool, antithetic: bool = False, n_live=None,
+                     market: Optional[tuple] = None) -> torch.Tensor:
+    """One chunk's jvp Greeks: [6] (one strike, a number) or [6, K] (a
+    [K] strike tensor with fits of a leading [K] axis) sums over the
+    chunk's paths of the policy values and their derivatives, rows in
+    ``GREEK_ORDER``, from the noise (z [2, drawn, n], dw [drawn, n]) as
+    ``pathgen_stream.paths_from_noise`` takes it, at the market of
+    ``consts`` (``market``: its ``jvp_market``, built here when None).  The
+    rows
+    go through in blocks of at most ``_JVP_BLOCK_FLOATS`` path floats
+    (the sums are linear in the rows): each block's tangent planes are
+    five times its primal's."""
+    primals, tangents = market if market is not None else jvp_market(consts)
+    strip = isinstance(strike, torch.Tensor) and strike.dim() == 1
+    ks = strike.tolist() if strip else [strike]
+    dt = consts.dt
+
+    def chunk_val(zb, dwb):
+        def value(s0, xi, r, eta, cr, ci, tp):
+            paths = pathgen_stream.paths_from_params(
+                consts, zb, dwb, (s0, xi, r, eta), (cr, ci, tp), antithetic,
+                n_live)
+            if not strip:
+                return lsm_policy_value(paths, fits, r, strike, maturity, dt,
+                                        is_call, n_live)[0]
+            return torch.stack([lsm_policy_value(
+                paths, PolyFit(*(f[i] for f in fits)), r, k, maturity, dt,
+                is_call, n_live)[0] for i, k in enumerate(ks)])
+        return value
+
+    drawn = z.shape[1]
+    width = (consts.n_steps + 1) * (2 if antithetic else 1)
+    n_blocks = -(-drawn * width // _JVP_BLOCK_FLOATS)
+    step = -(-drawn // n_blocks)
+    total = None
+    for a in range(0, drawn, step):
+        lanes = jvp_lanes(chunk_val(z[:, a:a + step], dw[a:a + step]),
+                          primals, tangents)
+        total = lanes if total is None else total + lanes
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -832,13 +942,17 @@ class _FusedStream:
         return self._pathgen(self.consts, rows=self.config.pilot_paths,
                              key=pathgen_cuda._fold_words(*carrier))
 
-    def _stream_paths(self, rows=None, carrier=None, noise=None):
-        """One chunk of the generic stream: from the seeded ``carrier`` or
-        from ``noise`` = (z, dw), paired under ``antithetic``."""
-        anti, consts = self.config.antithetic, self.stream_consts
+    def _stream_paths(self, rows=None, carrier=None, noise=None,
+                      consts=None, n_live=None):
+        """One chunk of the generic stream (``consts``, default
+        ``stream_consts``): from the seeded ``carrier`` or from ``noise`` =
+        (z, dw), paired under ``antithetic``, flat past ``n_live``."""
+        anti, consts = self.config.antithetic, consts or self.stream_consts
         if noise is not None:
-            return pathgen_stream.paths_from_noise(consts, *noise, anti)
-        return pathgen_stream.chunk_paths(consts, rows, carrier, anti)
+            return pathgen_stream.paths_from_noise(consts, *noise, anti,
+                                                   n_live)
+        return pathgen_stream.chunk_paths(consts, rows, carrier, anti,
+                                          n_live)
 
     def _chunk_paths(self, rows=None, key=None, carrier=None, noise=None):
         """One chunk's whole paths (kw from ``_groups``): the family's path
@@ -871,35 +985,74 @@ class _FusedStream:
             return kernel(noise=noise)
         return chunk
 
-    def _require_greeks(self) -> None:
-        if self.config.qmc:
-            raise NotImplementedError(
-                "Greeks under qmc: JAX sends them to its jvp Greeks stream "
-                "on the QMC generator, which is not ported (ROADMAP A10)")
-        if self.quadratic:
-            raise NotImplementedError(
-                "Greeks under the quadratic policy: JAX's fused Greeks "
-                "kernels take the boundary policy only, and its quadratic "
-                "configurations take the jvp Greeks stream, which is not "
-                "ported (ROADMAP A10)")
-        if self.kernel_family == "stream":
-            raise NotImplementedError(
-                "Greeks on the generic path stream (pathgen_impl='xla', "
-                "poly_order != 2 or past the kernels' horizons) need the "
-                "jvp Greeks (ROADMAP A10)")
-        if self.kernel_family != "single" or not greeks_cuda.supports(
-                self.config.n_steps):
-            raise NotImplementedError(
-                f"n_steps={self.config.n_steps}: the fused Greeks kernels "
-                "K3/K4 run on the single-tile horizons only; Greeks past "
-                f"{SINGLE_TILE_MAX_STEPS} steps need the tiled Greeks or "
-                "the jvp stream (ROADMAP A10)")
-        if self.consts.spectral:
-            raise NotImplementedError(
-                "fgn_form='spectral': the fused Greeks kernels K3/K4 take "
-                "the chol form only, as the JAX engine's do; a spectral "
-                "configuration's Greeks take JAX's jvp stream, which is not "
-                "ported (ROADMAP A10)")
+    def _kernel_greeks(self) -> bool:
+        """Whether the fused Greeks kernels K3/K4 take this configuration:
+        where the JAX engine keeps its fused Greeks (the single-tile
+        horizons, the chol form, the boundary policy, not qmc).  Every
+        other configuration takes the jvp Greeks stream."""
+        return (self.kernel_family == "single" and not self.config.qmc
+                and not self.quadratic and not self.consts.spectral
+                and greeks_cuda.supports(self.config.n_steps))
+
+    @functools.cached_property
+    def jvp_consts(self) -> pathgen_stream.StreamConsts:
+        """The jvp Greeks' generator (counterpart: the JAX engine's
+        dedicated ``traced_h=True`` matmul generators): the generic
+        stream's constants where they run the matmul synthesis, so on the
+        "stream" family the Greeks' pilot and chunks are ``price``'s, else
+        the matmul stream's of the same market, QMC and dtype."""
+        sc = self.stream_consts
+        if sc is not None and sc.fgn_impl == "matmul":
+            return sc
+        cfg = self.config
+        return pathgen_stream.make_stream_consts(
+            self.s0, self._xi, self._h, self._eta, self.r, cfg.n_steps,
+            cfg.dt, self.device, "matmul", fgn_dtype=cfg.fgn_matmul_dtype,
+            qmc=cfg.qmc, qmc_fgn=cfg.qmc_fgn, qmc_dim=cfg.qmc_dim)
+
+    def _stream_fit(self, carrier, strike, consts=None, maturity=None,
+                    n_live=None) -> PolyFit:
+        """A policy fitted on the generic stream: the plain pilot of
+        ``carrier`` from ``consts`` (default ``jvp_consts``, the jvp
+        Greeks' generator; a bucketed chain's call constants, flat past
+        ``n_live``), fitted at ``strike`` (a number, or a [K] strip) in
+        one backward pass, the steps past ``n_live`` padding."""
+        consts = consts or self.jvp_consts
+        pilot = pathgen_stream.chunk_paths(consts, self.config.pilot_paths,
+                                           carrier, n_live=n_live)
+        _, fits = lsm_fit(pilot, consts.r, strike,
+                          self.maturity if maturity is None else maturity,
+                          self.config.dt, self.is_call,
+                          self.config.poly_order, n_steps=n_live)
+        return fits
+
+    def _jvp_stream(self, fits: PolyFit, strike, seed: int,
+                    n_paths: Optional[int], with_stderr: bool, noise=None,
+                    consts=None, maturity=None, n_live=None):
+        """The jvp Greeks stream: each chunk's noise from its carrier (the
+        generic stream's seeding, ``price``'s chunks on the "stream"
+        family) or from ``noise`` = (z, dw), through ``jvp_chunk_greeks``
+        (pairs at the noise level under ``antithetic``), then ``_stream``'s
+        float64 totals and centred stderrs.  The policy decides time 0 on
+        the whole paths, so no time-0 shortcut."""
+        consts = consts or self.jvp_consts
+        maturity = self.maturity if maturity is None else maturity
+        anti = self.config.antithetic
+        market = jvp_market(consts)
+
+        def chunk(rows=None, carrier=None, noise=None):
+            if noise is None:
+                gen = pathgen_stream.stream_generator(self.device, carrier)
+                noise = pathgen_stream.draw_noise(
+                    consts, rows // 2 if anti else rows, gen)
+            return jvp_chunk_greeks(consts, *noise, fits, strike, maturity,
+                                    self.is_call, anti, n_live, market)
+
+        shape = (6,) + tuple(strike.shape if isinstance(strike, torch.Tensor)
+                             else ())
+        zeros = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        return self._stream(chunk, seed, n_paths, noise, zeros.bool(), zeros,
+                            with_stderr, carriers=True)
 
     def _n_paths(self, n_paths: Optional[int]) -> int:
         if n_paths is None:
@@ -912,16 +1065,17 @@ class _FusedStream:
         return n_paths
 
     def _groups(self, seed: int, n_paths: Optional[int], noise,
-                whole_paths: bool = False):
+                whole_paths: bool = False, carriers: bool = False):
         """(n_paths, groups): each group of at most chunks_per_call chunks
         lists each chunk's arguments: the seeded rows and key of chunk i
         (the carrier (run_word, stream_index) on the generic stream, and
         the carrier alone for the QMC noise of a kernel), or ``noise[i]``
         (a (z[i], dw[i]) pair of the stream's (z, dw)).  ``whole_paths``:
         chunks of whole paths (the bounds'), from the generic stream
-        wherever ``stream_consts`` are set."""
+        wherever ``stream_consts`` are set.  ``carriers``: the generic
+        stream's seeding on any family (the jvp Greeks')."""
         chunk = self.config.chunk_paths
-        stream = self.kernel_family == "stream" or (
+        stream = carriers or self.kernel_family == "stream" or (
             whole_paths and self.stream_consts is not None)
         qmc_kernel = not stream and self._fused_qmc is not None
         if noise is not None:
@@ -947,7 +1101,8 @@ class _FusedStream:
         return n_paths, groups
 
     def _stream(self, chunk_sum, seed: int, n_paths: Optional[int], noise,
-                ex0, v0: torch.Tensor, with_stderr: bool):
+                ex0, v0: torch.Tensor, with_stderr: bool,
+                carriers: bool = False):
         """Stream n_paths fresh paths through ``chunk_sum(**kw)`` (kw from
         ``_groups``): the per-path means of its float32 outputs, float64,
         and with ``with_stderr`` their chunk-total stderrs.  Where ``ex0``
@@ -956,9 +1111,11 @@ class _FusedStream:
         (stderr 0).  The squares are taken about the first chunk's total
         (the stderr's ``center``; any constant gives the same variance):
         float32 squares of raw totals cancel where the chunks' spread is
-        small against their mean, as under ``qmc``."""
+        small against their mean, as under ``qmc``.  ``carriers`` as
+        ``_groups`` takes it."""
         chunk = self.config.chunk_paths
-        n_paths, groups = self._groups(seed, n_paths, noise)
+        n_paths, groups = self._groups(seed, n_paths, noise,
+                                       carriers=carriers)
 
         # Float32 accumulation on the device per group of chunks_per_call
         # chunks (no sync inside a group), float64 across groups.
@@ -1242,31 +1399,55 @@ class StreamingPricer(_FusedStream):
     def price_and_greeks(self, seed: int, n_paths: Optional[int] = None,
                          with_stderr: bool = False):
         """(price, delta, vega_xi, vega_eta, rho_rate, vega_h)
-        (``GREEK_ORDER``) on ``n_paths`` fresh paths from ``seed``, through
-        the fused Greeks kernel K3 (its pair form under ``antithetic``):
-        pathwise forward tangents with the exercise policy fixed from the
-        same pilot and fit as ``price`` (counterpart of the JAX fused
-        Greeks stream).  Time-0 exercise leaves (p0, +-1, 0, 0, 0, 0).
-        ``with_stderr`` returns (greeks, stderrs), each a tuple of six
-        floats.  Under ``control_variate`` these are the plain Greeks,
-        price lane included, as in the JAX engine, whose fused Greeks
-        stream ignores the control.  Under ``policy_form="quadratic"``
-        it raises NotImplementedError (ROADMAP A10): JAX's fused Greeks
-        take the boundary policy only."""
-        self._require_greeks()
+        (``GREEK_ORDER``) on ``n_paths`` fresh paths from ``seed``:
+        pathwise forward tangents with the exercise policy fixed from a
+        pilot fit (counterpart of the JAX method).  Where JAX keeps its
+        fused Greeks (``_kernel_greeks``: single tile, chol, boundary
+        policy, not qmc) they stream through K3 (its pair form under
+        ``antithetic``) with the same pilot and fit as ``price``; time-0
+        exercise leaves (p0, +-1, 0, 0, 0, 0).  Everywhere else (past 365
+        steps, the generic stream, spectral, quadratic, qmc) they are the
+        jvp Greeks stream (``jvp_chunk_greeks``) on the matmul generic
+        stream, its pilot from the same carrier as ``price``'s (on the
+        "stream" family ``price``'s own pilot and chunks), paired at the
+        noise level under ``antithetic`` and on the QMC generator under
+        ``qmc``.  ``with_stderr`` returns (greeks, stderrs), each a tuple
+        of six floats.  Under ``control_variate`` these are the plain
+        Greeks, price lane included, as in the JAX engine."""
         k_pilot, _ = _pilot_stream_keys(seed)
         n_paths = self._n_paths(n_paths)
-        return self.greeks_with_fit(self._policy_fit(k_pilot)[1], seed,
-                                    n_paths, with_stderr)
+        return self.greeks_with_fit(self.greeks_fit(k_pilot), seed, n_paths,
+                                    with_stderr)
+
+    def greeks_fit(self, carrier) -> PolyFit:
+        """The policy ``price_and_greeks`` streams under: ``price``'s pilot
+        fit where K3 runs, else the jvp generator's pilot fit."""
+        if self._kernel_greeks():
+            return self._policy_fit(carrier)[1]
+        return self._stream_fit(carrier, self.strike)
 
     def greeks_with_fit(self, fits: Union[PolyFit, CVFit], seed: int = 0,
                         n_paths: Optional[int] = None,
-                        with_stderr: bool = False):
+                        with_stderr: bool = False, noise=None):
         """``price_and_greeks`` against a given policy ``fits`` (a CVFit's
-        beta and center are not read)."""
-        self._require_greeks()
+        beta and center are not read); ``noise`` = (z [n_chunks, 2, drawn,
+        n], dw [n_chunks, drawn, n]) feeds the jvp stream's chunks (not
+        K3's)."""
         if isinstance(fits, CVFit):
             fits = fits.fits
+        if self._kernel_greeks():
+            if noise is not None:
+                raise ValueError("noise feeds the jvp Greeks stream only")
+            return self._k3_greeks(fits, seed, n_paths, with_stderr)
+        out = self._jvp_stream(fits, self.strike, seed, n_paths,
+                               with_stderr, noise)
+        if not with_stderr:
+            return tuple(float(v) for v in out)
+        return (tuple(float(v) for v in out[0]),
+                tuple(float(v) for v in out[1]))
+
+    def _k3_greeks(self, fits: PolyFit, seed: int, n_paths: Optional[int],
+                   with_stderr: bool):
         table = self._make_rows(fits)
         ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, self.strike,
                                            self.is_call)
@@ -1300,9 +1481,23 @@ def chain_family(config: StreamConfig) -> str:
     return family
 
 
+_MARKET_KEYS = ("s0", "xi", "r", "eta")
+
+
+class _Call(NamedTuple):
+    """What one call of a bucketed chain pricer prices against: the
+    stream's constants at the call's market (the pricer's own without
+    ``traced_market``), the maturity and the live horizon (None on a
+    non-bucketed pricer)."""
+
+    consts: pathgen_stream.StreamConsts
+    maturity: float
+    n_live: Optional[int]
+
+
 class StreamingChainPricer(_FusedStream):
     """Price a strike strip of one expiry on shared paths (counterpart of
-    the JAX ``StreamingChainPricer``'s non-bucketed branches).
+    the JAX ``StreamingChainPricer``).
 
     The pilot comes from the single-strike pricer's path kernel (K1 up to
     365 steps; past them K6 on the slab, or K8 on the factored family,
@@ -1315,7 +1510,9 @@ class StreamingChainPricer(_FusedStream):
     backward pass fits the whole strip (``lsm_fit`` with a
     strike tensor), and each chunk runs K5 once per 32 strikes, every
     strike swept against the same path block (K5's pair form under
-    ``antithetic``).  ``price_and_greeks`` runs K4 on the same stream.
+    ``antithetic``).  ``price_and_greeks`` runs K4 on the same stream
+    where JAX keeps its fused chain Greeks, and the jvp Greeks stream
+    (``jvp_chunk_greeks``, per strike) everywhere else.
     K5 takes horizons up to 512 steps (the JAX chain kernel's cap); past
     it, under ``pathgen_impl="xla"`` and for a ``poly_order`` other than
     2 the whole pricer takes the generic path stream (``chain_family``):
@@ -1324,29 +1521,50 @@ class StreamingChainPricer(_FusedStream):
     is the generic stream's QMC block and each chunk's QMC noise streams
     through K5's noise-in entry; past K5 the generic stream's QMC
     generator takes the strip, with a warning (JAX's chain falls back
-    silently).  Runs on ``device`` ("cuda" unless the caller asks for
-    "cpu")."""
+    silently).
+
+    ``bucketed=True`` (the serving pricer) takes the generic stream at any
+    configuration and treats ``config.n_steps`` as a step bucket:
+    ``price(..., n_steps_live=, maturity=)`` prices any contract of at
+    most that many steps on paths flat past its horizon, its fit and
+    policy padded as JAX's.  ``traced_market=True`` (``traced_h`` is its
+    alias; it needs ``bucketed``) makes the whole market a per-call input
+    too (``market=`` s0, xi, r, eta and ``hurst=``): H rebuilds the
+    synthesis's matrices on the device (``pathgen_stream.with_market``),
+    except at the pricer's own H, which keeps the host build, so a quote
+    at the construction market prices as the non-bucketed stream does.
+    Its ``price_and_greeks`` is the jvp over that per-call market, on the
+    fits of ``price``; a plain bucketed pricer has no Greeks, as in JAX.
+    Runs on ``device`` ("cuda" unless the caller asks for "cpu")."""
 
     def __init__(self, s0, xi, h, eta, rho, r, strikes, maturity,
                  is_call: bool, config: StreamConfig, device="cuda",
                  bucketed: bool = False, traced_h: bool = False,
                  traced_market: bool = False):
         del rho  # the price Brownian is drawn independent of the fGN noise
+        traced_market = bool(traced_market or traced_h)
+        if traced_market and not bucketed:
+            raise ValueError("traced_market/traced_h require bucketed=True "
+                             "(the serving configuration)")
         if config.control_variate:
             raise ValueError(
                 "control_variate is not supported by the chain pricer: the "
                 "chain kernel emits per-strike payoff sums only (no control "
                 "sums); use StreamingPricer per strike for CV estimates.")
-        if bucketed or traced_h or traced_market:
-            raise NotImplementedError(
-                "bucketed and traced-market chains (the serving pricers) "
-                "are not ported (ROADMAP A13)")
-        family = chain_family(config)
+        if traced_market and pathgen_stream.resolve_fgn_impl(
+                config.fgn_impl) != "matmul":
+            raise ValueError("traced_h requires the matmul fGN synthesis")
+        self._bucketed = bool(bucketed)
+        self._traced_market = traced_market
+        family = "stream" if bucketed else chain_family(config)
         super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
                          device, family)
         self.quadratic = config.chain_policy_form == "quadratic"
         _check_pairing(self.quadratic, family, config, "chain_policy_form")
         self.strikes = self._strip(strikes)
+        self._market_defaults = dict(s0=self.s0, xi=self._xi, r=self.r,
+                                     eta=self._eta, hurst=self._h)
+        self._hurst_consts = {}
         # K5's constants: the pilot family's (K1's, K6's), or on the
         # factored family the spectral single-tile constants of the same
         # law (K8's FactoredConsts carry no dense matrices), in the
@@ -1356,6 +1574,10 @@ class StreamingChainPricer(_FusedStream):
             self.chain_consts = pathgen_cuda.make_path_consts(
                 s0, xi, h, eta, r, config.n_steps, config.dt, self.device,
                 fgn_form="spectral", fgn_dtype=config.fgn_matmul_dtype)
+        if bucketed:
+            # Serving chains ride the generic stream by construction, as
+            # JAX's ride its XLA generator: no warning.
+            return
         # JAX's chain falls back to its XLA generator silently here.
         self._warn_stream_fallback("a strike strip")
         if config.qmc and family != "stream":
@@ -1372,11 +1594,80 @@ class StreamingChainPricer(_FusedStream):
                 f"{self.strikes.numel()}; build a new pricer")
         return strip.to(self.device)
 
-    def fit(self, carrier, strikes=None) -> PolyFit:
+    def _call(self, n_steps_live, maturity, hurst, market,
+              greeks: bool = False) -> Optional[_Call]:
+        """The per-call inputs checked as the JAX methods check them, then
+        the call's ``_Call`` (None on a non-bucketed pricer)."""
+        n = self.config.n_steps
+        if greeks and self._bucketed and not self._traced_market:
+            raise ValueError(
+                "price_and_greeks is not available on a plain-bucketed "
+                "chain pricer (its market is fixed at construction); use a "
+                "non-bucketed StreamingChainPricer, or bucketed=True with "
+                "traced_market=True (the serving configuration)")
+        if greeks and not self._bucketed and (
+                n_steps_live is not None or maturity is not None
+                or hurst is not None or market is not None):
+            raise ValueError(
+                "n_steps_live/maturity/market/hurst are per-call inputs "
+                "only for a traced-market pricer")
+        if self._bucketed:
+            if n_steps_live is None:
+                raise ValueError("bucketed pricer needs n_steps_live")
+            if not 1 <= n_steps_live <= n:
+                raise ValueError(f"n_steps_live={n_steps_live} outside [1, "
+                                 f"{n}] bucket")
+        elif n_steps_live is not None or maturity is not None:
+            raise ValueError(
+                "n_steps_live/maturity are per-call inputs only for a "
+                "bucketed pricer (construct with bucketed=True)")
+        if (hurst is not None or market is not None) \
+                and not self._traced_market:
+            raise ValueError("hurst/market are per-call inputs only for a "
+                             "traced-market pricer (construct with "
+                             "traced_market=True)")
+        if market is not None:
+            bad = set(market) - set(_MARKET_KEYS)
+            if bad:
+                raise ValueError(f"unknown market override keys: {bad} "
+                                 "(use s0/xi/r/eta; hurst= for H)")
+        if not self._bucketed:
+            return None
+        consts = self.stream_consts
+        if self._traced_market:
+            m = dict(self._market_defaults)
+            m.update(market or {})
+            if hurst is not None:
+                m["hurst"] = hurst
+            consts = pathgen_stream.with_market(
+                self._consts_at(float(m["hurst"])),
+                **{k: m[k] for k in _MARKET_KEYS})
+        return _Call(consts, self.maturity if maturity is None
+                     else float(maturity), int(n_steps_live))
+
+    def _consts_at(self, h: float) -> pathgen_stream.StreamConsts:
+        """The stream's constants with the synthesis at H = ``h``: the
+        host build at the pricer's own H, else the device build, kept for
+        the last few H a server quotes."""
+        if h == self.stream_consts.h:
+            return self.stream_consts
+        if h not in self._hurst_consts:
+            if len(self._hurst_consts) >= 4:
+                self._hurst_consts.pop(next(iter(self._hurst_consts)))
+            self._hurst_consts[h] = pathgen_stream.with_market(
+                self.stream_consts, h=h)
+        return self._hurst_consts[h]
+
+    def fit(self, carrier, strikes=None, call: Optional[_Call] = None
+            ) -> PolyFit:
         """The pilot from ``carrier`` (K1, K6 or the generic stream), then
         one LSM backward pass over the strip (default the pricer's): fits
-        with a leading [K] axis."""
+        with a leading [K] axis.  ``call`` (a bucketed pricer's) fits on
+        the call's market, maturity and live horizon."""
         strip = self.strikes if strikes is None else self._strip(strikes)
+        if call is not None:
+            return self._stream_fit(carrier, strip, call.consts, call.maturity,
+                                 call.n_live)
         _, fits = lsm_fit(self._pilot(carrier), self.r, strip,
                           self.maturity, self.config.dt, self.is_call,
                           self.config.poly_order)
@@ -1392,49 +1683,63 @@ class StreamingChainPricer(_FusedStream):
                     self.config.n_steps, self.is_call).contiguous()
 
     def price(self, seed: int, n_paths: Optional[int] = None,
-              strikes=None, with_stderr: bool = False):
+              strikes=None, with_stderr: bool = False, *,
+              n_steps_live: Optional[int] = None,
+              maturity: Optional[float] = None,
+              hurst: Optional[float] = None, market=None):
         """[K] prices (numpy float64) of the strip on ``n_paths`` fresh
         paths from ``seed``; ``strikes`` prices a fresh strip of the same
         length without a rebuild.  ``with_stderr`` returns (prices,
-        stderrs), each per strike, conditional on the pilot's fits."""
+        stderrs), each per strike, conditional on the pilot's fits.  A
+        bucketed pricer takes ``n_steps_live`` (required) and
+        ``maturity``, a traced-market one also ``market`` (a dict of
+        s0/xi/r/eta) and ``hurst``, as the JAX method does."""
+        call = self._call(n_steps_live, maturity, hurst, market)
         strip = self.strikes if strikes is None else self._strip(strikes)
         k_pilot, _ = _pilot_stream_keys(seed)
         n_paths = self._n_paths(n_paths)
-        return self.price_with_fit(self.fit(k_pilot, strip), seed, n_paths,
-                                   strip, with_stderr)
+        return self.price_with_fit(self.fit(k_pilot, strip, call), seed,
+                                   n_paths, strip, with_stderr, call=call)
 
-    def _stream_chunk_sums(self, fits: PolyFit, strip: torch.Tensor):
+    def _stream_chunk_sums(self, fits: PolyFit, strip: torch.Tensor,
+                           call: Optional[_Call] = None):
         """The generic stream's chunk: [K] sums of each strike's policy
-        values on the chunk's whole paths, one strike at a time."""
+        values on the chunk's whole paths, one strike at a time, at the
+        call's market, maturity and live horizon where ``call`` is given."""
         ks = strip.tolist()
+        consts = call.consts if call else self.stream_consts
+        maturity = call.maturity if call else self.maturity
+        n_live = call.n_live if call else None
 
         def chunk_sums(**kw):
-            paths = self._stream_paths(**kw)
+            paths = self._stream_paths(**kw, consts=consts, n_live=n_live)
             return torch.stack([
                 lsm_policy_value(paths, PolyFit(*(f[k] for f in fits)),
-                                 self.r, strike, self.maturity,
-                                 self.config.dt, self.is_call)[0]
+                                 consts.r, strike, maturity,
+                                 self.config.dt, self.is_call, n_live)[0]
                 for k, strike in enumerate(ks)])
         return chunk_sums
 
     def price_with_fit(self, fits: PolyFit, seed: int = 0,
                        n_paths: Optional[int] = None, strikes=None,
                        with_stderr: bool = False,
-                       noise: Optional[torch.Tensor] = None):
+                       noise: Optional[torch.Tensor] = None,
+                       call: Optional[_Call] = None):
         """Stream the strip against given fits (leading [K] axis), e.g.
         converted from the JAX package with ``polyfit_from_numpy``.  With
         ``noise`` the chunks read that noise instead of the seeded stream:
         [n_chunks, 2 or 3, chunk_paths, n_steps] on K5 (3 planes Zr, Zi,
         W in the spectral form, ``chain_consts.n_planes``), (z, dw) as
         ``StreamingPricer.price_with_fit`` takes them on the generic
-        stream; chunk_paths / 2 rows a chunk under ``antithetic``."""
+        stream; chunk_paths / 2 rows a chunk under ``antithetic``.
+        ``call``: a bucketed pricer's per-call inputs (``_call``)."""
         strip = self.strikes if strikes is None else self._strip(strikes)
         if self.kernel_family == "stream":
             ex0 = torch.zeros(strip.shape, dtype=torch.bool,
                               device=self.device)
-            return self._stream(self._stream_chunk_sums(fits, strip), seed,
-                                n_paths, noise, ex0, torch.zeros_like(strip),
-                                with_stderr)
+            return self._stream(self._stream_chunk_sums(fits, strip, call),
+                                seed, n_paths, noise, ex0,
+                                torch.zeros_like(strip), with_stderr)
         tables = self._tables(fits, strip)
         ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, strip,
                                            self.is_call)
@@ -1446,25 +1751,52 @@ class StreamingChainPricer(_FusedStream):
             seed, n_paths, noise, ex0, p0, with_stderr)
 
     def price_and_greeks(self, seed: int, n_paths: Optional[int] = None,
-                         strikes=None, with_stderr: bool = False):
+                         strikes=None, with_stderr: bool = False, *,
+                         n_steps_live: Optional[int] = None,
+                         maturity: Optional[float] = None,
+                         hurst: Optional[float] = None, market=None):
         """[6, K] (numpy float64, rows in ``GREEK_ORDER``) per-strike price
-        and Greeks of the strip through the chain Greeks kernel K4 (its
-        pair form under ``antithetic``), with the fits of the same pilot
-        as ``price``; ``with_stderr`` returns (values, stderrs).  Time-0
-        exercise leaves (p0, +-1, 0, 0, 0, 0) for that strike."""
-        self._require_greeks()
+        and Greeks of the strip; ``with_stderr`` returns (values,
+        stderrs).  Where JAX keeps its fused chain Greeks
+        (``_kernel_greeks``) through K4 (its pair form under
+        ``antithetic``), with the fits of the same pilot as ``price``;
+        time-0 exercise leaves (p0, +-1, 0, 0, 0, 0) for that strike.
+        Everywhere else the jvp Greeks stream, per strike, on the matmul
+        generic stream; on a traced-market pricer over the call's market,
+        maturity and horizon on the fits ``price`` takes (the serving
+        Greeks).  A plain bucketed pricer raises ValueError, as JAX's."""
+        call = self._call(n_steps_live, maturity, hurst, market, True)
         strip = self.strikes if strikes is None else self._strip(strikes)
         k_pilot, _ = _pilot_stream_keys(seed)
         n_paths = self._n_paths(n_paths)
-        return self.greeks_with_fit(self.fit(k_pilot, strip), seed, n_paths,
-                                    strip, with_stderr)
+        if call is not None:
+            return self._jvp_stream(
+                self.fit(k_pilot, strip, call), strip, seed, n_paths,
+                with_stderr, consts=call.consts, maturity=call.maturity,
+                n_live=call.n_live)
+        return self.greeks_with_fit(self.greeks_fit(k_pilot, strip), seed,
+                                    n_paths, strip, with_stderr)
+
+    def greeks_fit(self, carrier, strikes=None) -> PolyFit:
+        """The fits a non-bucketed ``price_and_greeks`` streams under:
+        ``price``'s where K4 runs, else the jvp generator's pilot fit."""
+        strip = self.strikes if strikes is None else self._strip(strikes)
+        if self._kernel_greeks():
+            return self.fit(carrier, strip)
+        return self._stream_fit(carrier, strip)
 
     def greeks_with_fit(self, fits: PolyFit, seed: int = 0,
                         n_paths: Optional[int] = None, strikes=None,
-                        with_stderr: bool = False):
-        """``price_and_greeks`` against given fits (leading [K] axis)."""
-        self._require_greeks()
+                        with_stderr: bool = False, noise=None):
+        """``price_and_greeks`` against given fits (leading [K] axis) on a
+        non-bucketed pricer; ``noise`` = (z, dw) feeds the jvp stream's
+        chunks (not K4's)."""
         strip = self.strikes if strikes is None else self._strip(strikes)
+        if not self._kernel_greeks():
+            return self._jvp_stream(fits, strip, seed, n_paths, with_stderr,
+                                    noise)
+        if noise is not None:
+            raise ValueError("noise feeds the jvp Greeks stream only")
         tables = pathgen_cuda.log_boundary_rows(
             self._tables(fits, strip)).contiguous()
         ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, strip,

@@ -178,8 +178,9 @@ def _check_tables(consts: pc.PathConsts, tables: torch.Tensor) -> None:
     if consts.spectral:
         raise NotImplementedError(
             "the Greeks kernels K3/K4 take the chol fGN form only, as the "
-            "JAX package's fused Greeks do; a spectral configuration's "
-            "Greeks need the jvp stream (ROADMAP A10)")
+            "JAX package's fused Greeks do; the pricers send a spectral "
+            "configuration's Greeks to the jvp Greeks stream "
+            "(engine.jvp_chunk_greeks)")
     if tables.dim() != 3 or tables.shape[1] < 4 or \
             tables.shape[2] < consts.n_steps:
         raise ValueError("tables must be [K, 8, >= n_steps] "

@@ -54,23 +54,39 @@ def _exercise_step(v, s, k, disc: float, is_call, poly_order: int,
                            v_exercised, vd), fit
 
 
+def _pad_fit(like) -> PolyFit:
+    """The fit left at a padded step: coefficients 0 about mu 0, sd 1
+    (never read: the policy cannot exercise past the live horizon)."""
+    return PolyFit(torch.zeros_like(like.coeffs), torch.zeros_like(like.mu),
+                   torch.ones_like(like.sd))
+
+
 def _lsm_backward(paths, r, strike, maturity, dt, is_call: bool,
-                  poly_order: int = 2):
+                  poly_order: int = 2, n_steps=None):
     """(price, fits in forward step order) for paths [n, m].  ``strike`` is
     a number, or a [K] tensor of strikes sharing the paths: then every
     per-path quantity carries a leading strike axis, the price is [K] and
     each fit field gains a leading [K] axis, with the same launches per
-    step as one strike."""
+    step as one strike.  ``n_steps`` (a host int) marks the steps j >=
+    n_steps of a padded block as identities (no discount, no regression
+    effect), as JAX's padded scan does: the loop runs over the live steps
+    only and the padded steps keep ``_pad_fit``.  ``r`` may be a 0-d
+    tensor, whose gradient then flows through the discount."""
     n_paths, m = paths.shape
-    disc = math.exp(-r * dt)
+    disc = (torch.exp(-r * dt) if isinstance(r, torch.Tensor)
+            else math.exp(-r * dt))
     live = step_mask(m - 1, dt, maturity).tolist()
     k = torch.as_tensor(strike, dtype=paths.dtype, device=paths.device)
     k = k[..., None]                       # [1] or [K, 1] against [n]
     v = payoff(is_call, paths[:, m - 1], k)
     fits = [None] * (m - 1)
-    for j in range(m - 2, -1, -1):
+    top = m - 1 if n_steps is None else min(int(n_steps), m - 1)
+    if top < 1:
+        raise ValueError(f"n_steps={n_steps} must be >= 1")
+    for j in range(top - 1, -1, -1):
         _, v, fits[j] = _exercise_step(v, paths[:, j], k, disc, is_call,
                                        poly_order, decide=live[j])
+    fits[top:] = [_pad_fit(fits[0])] * (m - 1 - top)
     stacked = PolyFit(*(torch.stack([getattr(f, name) for f in fits],
                                     dim=k.dim() - 1)
                         for name in PolyFit._fields))
@@ -84,7 +100,8 @@ def lsm_price(paths, r, strike, maturity, dt, is_call: bool,
     """American option price by LSM regression on paths [n, steps + 1].
     ``n_steps`` marks the columns past a padded block's true horizon as
     padding (identity steps): the block prices as its first n_steps + 1
-    columns would."""
+    columns would.  Differentiable in the paths and in a 0-d tensor ``r``
+    (``models.greeks.lsm_greeks``)."""
     if n_steps is not None:
         return lsm_price_rows(paths[None], r, strike, maturity, dt, is_call,
                               poly_order, n_steps=n_steps)[0]
@@ -121,15 +138,20 @@ def lsm_price_rows(paths, r, strike, maturity, dt, is_call,
 
 
 def lsm_fit(paths, r, strike, maturity, dt, is_call: bool,
-            poly_order: int = 2):
+            poly_order: int = 2, n_steps=None):
     """(price, fits): the LSM price and the per-step PolyFit, leading axis
     of length steps in forward order (index j covers step j), for use as
     an exercise policy on independent paths.  Fits at past-maturity steps
     are unused by the backward pass; consumers mask the live window.
+    ``n_steps`` (a host int, the bucketed block's live horizon; counterpart
+    of JAX's traced ``n_steps``) makes the steps j >= n_steps identities:
+    the price and the live fits are the padded scan's, and the padded
+    steps' fits are placeholders (``lsm_policy_path_values`` with
+    ``n_steps_live`` never reads them).
 
     With a [K] strike tensor it fits the whole strip on the same paths in
     one backward pass (the counterpart of ``jax.vmap`` over strikes of the
     JAX function): the price is [K] and each field of the fit is [K,
     steps, ...]."""
     return _lsm_backward(paths, r, strike, maturity, dt, is_call,
-                         poly_order)
+                         poly_order, n_steps)

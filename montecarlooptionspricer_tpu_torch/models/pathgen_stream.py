@@ -89,6 +89,7 @@ class StreamConsts:
     qmc_fgn: bool = False
     qmc_dim: int = 256
     pca_t: torch.Tensor = None
+    h: float = None
 
     @property
     def device(self) -> torch.device:
@@ -113,6 +114,70 @@ def _unit_eta_matrices(n_steps: int, h: float, dt: float):
     return _fgn_matrices_np(n_steps, h, 1.0, dt)
 
 
+def safe_tpow(t: torch.Tensor, p) -> torch.Tensor:
+    """t ** p for t >= 0 with a tensor exponent, 0 at t = 0 in value and
+    in every derivative (counterpart: the JAX engine's ``_safe_tpow``):
+    ``torch.pow``'s exponent tangent t^p log t is NaN at t = 0."""
+    pos = t > 0
+    safe_t = torch.where(pos, t, torch.ones_like(t))
+    return torch.where(pos, torch.exp(p * torch.log(safe_t)),
+                       torch.zeros_like(t))
+
+
+def _hurst_build(h: torch.Tensor, n_steps: int, dt: float) -> tuple:
+    """float64 (Cr, Ci, t^{2H}) at eta = 1 from a float64 0-d ``h`` on its
+    device: the JAX engine's in-graph ``traced_h`` build
+    (``make_chunk_pathgen``) in float64, differentiable in ``h``."""
+    t = torch.arange(n_steps + 1, dtype=torch.float64, device=h.device) * dt
+    lam = 0.5 * safe_tpow(t, 2.0 * h)
+    phi = torch.conj(torch.fft.fft(lam.to(torch.complex128),
+                                   n=fgn.next_pow2(n_steps + 1)))
+    cr, ci = fgn.fgn_matrices(phi, n_steps, h, 1.0, dtype=torch.float64)
+    return cr, ci, safe_tpow(t[:n_steps], 2.0 * h)
+
+
+def hurst_matrices(n_steps: int, dt: float, h, device,
+                   fgn_dtype: str = "float32", with_dh: bool = False):
+    """(cr, ci, t_pow) float32 on ``device`` at the Hurst exponent ``h``:
+    the unit-eta spectral matrices [n, n] (bf16 values under
+    ``fgn_dtype="bfloat16"``) and t^{2H} [n], built in float64 on the
+    device and rounded once, within about an ulp of ``make_stream_consts``'s
+    host build at the same H.  ``with_dh`` also returns their float32
+    derivatives in H, (dcr, dci, dt_pow), by forward mode through the same
+    build: the tangents of vega_h."""
+    bf16 = check_fgn_dtype(fgn_dtype)
+    h64 = torch.tensor(float(h), dtype=torch.float64, device=device)
+    if with_dh:
+        vals, tans = torch.func.jvp(
+            lambda hh: _hurst_build(hh, n_steps, float(dt)), (h64,),
+            (torch.ones_like(h64),))
+    else:
+        vals, tans = _hurst_build(h64, n_steps, float(dt)), None
+    cr, ci, tp = (v.to(torch.float32) for v in vals)
+    if bf16:
+        cr, ci = round_bf16(cr), round_bf16(ci)
+    if tans is None:
+        return cr, ci, tp
+    return (cr, ci, tp), tuple(v.to(torch.float32) for v in tans)
+
+
+def with_market(consts: StreamConsts, s0=None, xi=None, r=None, eta=None,
+                h=None) -> StreamConsts:
+    """``consts`` with fresh market scalars; a new ``h`` rebuilds the
+    matmul synthesis's matrices and t^{2H} (``hurst_matrices``).  Fields
+    left None keep their values, and the noise draws do not change."""
+    kw = {k: float(v) for k, v in (("s0", s0), ("xi", xi), ("r", r),
+                                   ("eta", eta)) if v is not None}
+    if h is not None and float(h) != consts.h:
+        if consts.fgn_impl != "matmul":
+            raise ValueError("traced_h requires the matmul fGN synthesis")
+        kw["cr"], kw["ci"], kw["t_pow"] = hurst_matrices(
+            consts.n_steps, consts.dt, h, consts.device,
+            "bfloat16" if consts.bf16 else "float32")
+        kw["h"] = float(h)
+    return dataclasses.replace(consts, **kw) if kw else consts
+
+
 def make_stream_consts(s0, xi, h, eta, r, n_steps: int, dt: float, device,
                        fgn_impl: str = "auto", traced_h: bool = False,
                        qmc: bool = False, fgn_dtype: str = "float32",
@@ -120,13 +185,12 @@ def make_stream_consts(s0, xi, h, eta, r, n_steps: int, dt: float, device,
                        qmc_dim: int = 256) -> StreamConsts:
     """StreamConsts on ``device`` from float64 host constants (the matmul
     synthesis's matrices rounded to bf16 under ``fgn_dtype="bfloat16"``;
-    the PCA map under ``qmc``).  The traced Hurst exponent of the serving
-    and jvp-Greeks generators is not ported."""
-    if traced_h:
-        raise NotImplementedError(
-            "traced_h: the in-graph spectral build of the serving and jvp "
-            "Greeks generators is not ported (ROADMAP A13, A10)")
+    the PCA map under ``qmc``).  ``traced_h`` builds the matrices and
+    t^{2H} from H on the device instead (``hurst_matrices``), as the JAX
+    generator's in-graph build does: the matmul synthesis only."""
     impl = resolve_fgn_impl(fgn_impl)
+    if traced_h and impl != "matmul":
+        raise ValueError("traced_h requires the matmul fGN synthesis")
     if qmc_fgn and not qmc:
         raise ValueError("qmc_fgn requires qmc=True")
     if qmc_fgn and impl == "fft":
@@ -140,10 +204,15 @@ def make_stream_consts(s0, xi, h, eta, r, n_steps: int, dt: float, device,
     kw = dict(n_steps=n_steps, dt=float(dt), s0=float(s0), xi=float(xi),
               r=float(r), eta=float(eta), fgn_impl=impl,
               t_pow=torch.pow(t[:n_steps], 2.0 * h).to(device),
-              qmc=bool(qmc), qmc_fgn=bool(qmc_fgn), qmc_dim=int(qmc_dim))
+              qmc=bool(qmc), qmc_fgn=bool(qmc_fgn), qmc_dim=int(qmc_dim),
+              h=float(h))
     if qmc:
         kw["pca_t"] = torch.tensor(np.ascontiguousarray(
             qmc_ops.brownian_pca_matrix(n_steps, float(dt)).T), **f32)
+    if traced_h:
+        kw["cr"], kw["ci"], kw["t_pow"] = hurst_matrices(
+            n_steps, dt, h, device, fgn_dtype)
+        return StreamConsts(bf16=bf16, **kw)
     if impl == "matmul":
         cr, ci = (torch.tensor(m, **f32)
                   for m in _unit_eta_matrices(n_steps, float(h), float(dt)))
@@ -177,12 +246,10 @@ def paths_from_noise(consts: StreamConsts, z: torch.Tensor, dw: torch.Tensor,
     """[rows, n_steps + 1] float32 prices, s0 in column 0, from the normals
     ``z`` [2, drawn, n] and the scaled price Brownian ``dw`` [drawn, n]
     (N(0, 1) sqrt(dt), as the JAX generator draws it); rows = 2 drawn
-    under ``antithetic``, the partner of row i at row i + drawn.  The
-    bucketed generator's ``n_live`` is not ported."""
-    if n_live is not None:
-        raise NotImplementedError(
-            "n_live: the bucketed serving generator is not ported (ROADMAP "
-            "A13)")
+    under ``antithetic``, the partner of row i at row i + drawn.
+    ``n_live`` (< n_steps) zeroes the increments at steps >= n_live, so
+    each path stays flat past its live horizon (the bucketed generator's
+    padding); at n_steps or None the bits are the unmasked ones."""
     n = consts.n_steps
     if z.dim() != 3 or z.shape[0] != 2 or z.shape[2] != n or \
             tuple(dw.shape) != tuple(z.shape[1:]):
@@ -197,6 +264,8 @@ def paths_from_noise(consts: StreamConsts, z: torch.Tensor, dw: torch.Tensor,
     inc = (consts.r - 0.5 * v) * consts.dt + torch.sqrt(
         torch.clamp_min(v, 0.0)) * dw
     del v
+    if n_live is not None and n_live < n:
+        inc[:, n_live:] = 0.0
     out = torch.empty((inc.shape[0], n + 1), dtype=torch.float32,
                       device=inc.device)
     out[:, 0] = consts.s0
@@ -204,6 +273,31 @@ def paths_from_noise(consts: StreamConsts, z: torch.Tensor, dw: torch.Tensor,
     del inc
     out[:, 1:].add_(math.log(consts.s0)).exp_()
     return out
+
+
+def paths_from_params(consts: StreamConsts, z: torch.Tensor,
+                      dw: torch.Tensor, market, mats, antithetic=False,
+                      n_live=None) -> torch.Tensor:
+    """``paths_from_noise`` with the market ``market`` = (s0, xi, r, eta)
+    and the synthesis ``mats`` = (cr, ci, t_pow) as tensors (0-d, [n, n],
+    [n]), out of place throughout, so ``torch.func.jvp`` and ``vmap``
+    carry their tangents (counterpart: ``gen_with_params``).  The matmul
+    synthesis only (the jvp generator's, as in JAX); the noise is as
+    ``paths_from_noise`` takes it."""
+    s0, xi, r, eta = market
+    cr, ci, t_pow = mats
+    n = consts.n_steps
+    zz = round_bf16(z) if consts.bf16 else z
+    x = _matmul_f32(zz[0], cr) - _matmul_f32(zz[1], ci)
+    if antithetic:
+        x, dw = torch.cat([x, -x]), torch.cat([dw, -dw])
+    v = xi * torch.exp(eta * x - 0.5 * (eta * eta) * t_pow)
+    inc = (r - 0.5 * v) * consts.dt + torch.sqrt(torch.clamp_min(v, 0.0)) * dw
+    if n_live is not None and n_live < n:
+        live = torch.arange(n, device=inc.device) < n_live
+        inc = torch.where(live, inc, torch.zeros_like(inc))
+    s = torch.exp(torch.log(s0) + torch.cumsum(inc, dim=1))
+    return torch.cat([s0 * torch.ones_like(s[:, :1]), s], dim=1)
 
 
 def stream_generator(device, carrier) -> torch.Generator:
@@ -274,9 +368,10 @@ def draw_noise(consts: StreamConsts, drawn: int, gen: torch.Generator):
 
 
 def chunk_paths(consts: StreamConsts, rows: int, carrier,
-                antithetic: bool = False) -> torch.Tensor:
+                antithetic: bool = False, n_live=None) -> torch.Tensor:
     """[rows, n_steps + 1] prices of the chunk of ``carrier``: its noise
-    drawn by ``stream_generator`` (rows / 2 rows under ``antithetic``)."""
+    drawn by ``stream_generator`` (rows / 2 rows under ``antithetic``),
+    flat past ``n_live`` (``paths_from_noise``)."""
     if antithetic and consts.qmc:
         raise ValueError("antithetic is incompatible with qmc")
     if antithetic and rows % 2:
@@ -284,4 +379,4 @@ def chunk_paths(consts: StreamConsts, rows: int, carrier,
     drawn = rows // 2 if antithetic else rows
     z, dw = draw_noise(consts, drawn,
                        stream_generator(consts.device, carrier))
-    return paths_from_noise(consts, z, dw, antithetic)
+    return paths_from_noise(consts, z, dw, antithetic, n_live)

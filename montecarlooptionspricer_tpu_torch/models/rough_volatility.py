@@ -53,12 +53,17 @@ def variance_curve(gen: torch.Generator, xi, h, eta, n_steps: int,
 def euler_log_paths(gen: torch.Generator, s0, r, rho, v: torch.Tensor,
                     dt: float) -> torch.Tensor:
     """[paths, steps + 1] prices from variance curves v, column 0 == s0;
-    one N(0, dt) increment a step drawn from ``gen`` (``rho`` inert)."""
+    one N(0, dt) increment a step drawn from ``gen`` (``rho`` inert).
+    ``s0`` and ``r`` may be 0-d tensors, whose gradients then flow
+    (``models.greeks.lsm_greeks``)."""
     del rho
     n_paths, n_steps = v.shape
     w = rng_ops.normal(gen, (n_paths, n_steps))
     inc = ((r - 0.5 * v) * dt
            + torch.sqrt(torch.clamp_min(v, 0.0)) * (w * math.sqrt(dt)))
+    if isinstance(s0, torch.Tensor):
+        s = torch.exp(torch.log(s0) + torch.cumsum(inc, dim=-1))
+        return torch.cat([s0 * torch.ones_like(s[:, :1]), s], dim=-1)
     s = torch.exp(math.log(s0) + torch.cumsum(inc, dim=-1))
     return torch.cat([torch.full((n_paths, 1), float(s0), device=v.device),
                       s], dim=-1)

@@ -69,14 +69,18 @@ def fgn_matrices(phi: torch.Tensor, n: int, h, eta,
     formed, so the cosine never sees an argument past 2 pi (unreduced,
     k*m reaches ~1.7e7 at n = 4096 and a float32 angle carries ~1 rad of
     rounding).  The angle is float64 for a complex128 ``phi``, else
-    float32."""
+    float32.  ``h`` may be a 0-d tensor (the traced-H build), and then
+    the matrices carry its tangents."""
     m2 = next_pow2(n)
     idx = np.arange(n, dtype=np.int64)
     km = (idx[:, None] * idx[None, :]) % m2
     real_t = torch.float64 if phi.dtype == torch.complex128 else torch.float32
     ang = torch.as_tensor((-2.0 * np.pi / m2) * km, dtype=real_t,
                           device=phi.device)
-    scale = math.sqrt(2.0 * h) * eta / m2
+    if isinstance(h, torch.Tensor):
+        scale = torch.sqrt(2.0 * h) * (eta / m2)
+    else:
+        scale = math.sqrt(2.0 * h) * eta / m2
     c = phi[:n][:, None] * torch.polar(torch.ones_like(ang), ang)
     return ((torch.real(c) * scale).to(dtype),
             (torch.imag(c) * scale).to(dtype))

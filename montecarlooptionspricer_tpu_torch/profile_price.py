@@ -14,8 +14,9 @@ then runs that form of the priced kernel, and the fit adds the control's
 beta and centre.  ``--strikes`` prices that strike strip of the same
 expiry through ``StreamingChainPricer`` instead: the fit is one LSM
 backward pass over the strip, the stream K5 per chunk.  ``--greeks``
-streams the Greeks kernel instead (K3, or K4 with ``--strikes``); each
-pairs with ``--antithetic``.  ``--pathgen xla`` takes the generic path
+streams the Greeks instead: the Greeks kernel (K3, or K4 with
+``--strikes``) where it runs, else the jvp Greeks stream (fitted on the
+jvp generator's pilot); each pairs with ``--antithetic``.  ``--pathgen xla`` takes the generic path
 stream (``pathgen_stream``): the stream stage then generates whole paths
 and prices them in plain PyTorch, which is also where ``--strikes`` goes
 past K5's 512 steps.  ``--bounds`` profiles ``price_with_bounds``: the
@@ -62,8 +63,12 @@ def _stages(pricer, seed, greeks: bool, bounds: bool):
 
     def fit():
         carrier = _pilot_stream_keys(seed)[0]
-        state["fits"] = (pricer.bounds_fit(carrier) if bounds
-                         else pricer.fit(carrier))
+        if bounds:
+            state["fits"] = pricer.bounds_fit(carrier)
+        elif greeks:
+            state["fits"] = pricer.greeks_fit(carrier)
+        else:
+            state["fits"] = pricer.fit(carrier)
 
     def stream():
         if bounds:
@@ -94,8 +99,8 @@ def main(argv=None) -> int:
                         choices=("auto", "slab", "factored"),
                         help="StreamConfig.tiled_impl")
     parser.add_argument("--greeks", action="store_true",
-                        help="stream the Greeks kernel (K3, K4 with "
-                             "--strikes)")
+                        help="stream the Greeks: K3 (K4 with --strikes) "
+                             "where they run, else the jvp Greeks stream")
     parser.add_argument("--antithetic", action="store_true",
                         help="StreamConfig.antithetic")
     parser.add_argument("--control-variate", action="store_true",

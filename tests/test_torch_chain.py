@@ -319,19 +319,36 @@ def test_strip_of_one_matches_single_strike_pricer():
 
 
 @pytest.mark.parametrize("kwargs,exc,match", [
-    (dict(bucketed=True), NotImplementedError, "ROADMAP A13"),
-    (dict(traced_market=True), NotImplementedError, "ROADMAP A13"),
+    (dict(bucketed=True), None, None),
+    (dict(traced_market=True), ValueError, "require bucketed=True"),
     (dict(config=dict(qmc_fgn=True)), ValueError, "qmc_fgn requires qmc"),
     (dict(config=dict(control_variate=True)), ValueError, "control_variate"),
 ])
 def test_chain_unported_options_raise(kwargs, exc, match):
+    """The options the chain refuses, as JAX's does: ``qmc_fgn`` without
+    ``qmc``, ``control_variate``, and ``traced_market`` without
+    ``bucketed`` (JAX's ValueError).  ``bucketed`` (refused naming ROADMAP
+    A13 before the serving pricers were ported) builds on the generic
+    stream and prices any live horizon of its bucket, the 32-step quote
+    above the 20-step one."""
     cfg = dict(n_paths=1024, n_steps=32, chunk_paths=256, pilot_paths=256)
     cfg.update(kwargs.pop("config", {}))
-    with pytest.raises(exc, match=match):
-        tengine.StreamingChainPricer(
+
+    def build():
+        return tengine.StreamingChainPricer(
             **BENCH_MARKET, strikes=[95.0, 100.0], maturity=32 * DT,
             is_call=False, config=tengine.StreamConfig(**cfg), device="cpu",
             **kwargs)
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            build()
+        return
+    chain = build()
+    assert chain.kernel_family == "stream"
+    full = chain.price(1, n_steps_live=32)
+    short = chain.price(1, n_steps_live=20, maturity=20 * DT)
+    assert np.all(np.isfinite(full)) and 0 < full[0] < full[1]
+    assert np.all(short < full)
 
 
 def test_antithetic_strip_streams_k5_pairs():

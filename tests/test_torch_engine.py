@@ -209,16 +209,25 @@ def test_cli_prices_on_cpu(capsys):
     assert out["price"] > 0 and out["stderr"] > 0 and not out["is_call"]
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--serve"], "not yet ported"),
-    (["--qmc", "--antithetic"], "incompatible with --qmc")],
+@pytest.mark.parametrize("argv,rc,match", [
+    (["--serve", "--chunk-paths", "256"], 0, '"compiled": true'),
+    (["--qmc", "--antithetic"], 2, "incompatible with --qmc")],
     ids=["--serve", "--qmc"])
-def test_cli_unported_flags_exit_2(capsys, argv, match):
-    """--serve is not ported (ROADMAP A13) and exits 2; --qmc prices (see
+def test_cli_unported_flags_exit_2(capsys, monkeypatch, argv, rc, match):
+    """--serve (which exited 2 naming ROADMAP A13 before it was ported)
+    answers a quote on stdin and exits 0 at the end of its input (the
+    protocol: tests/test_torch_serve.py); --qmc prices (see
     tests/test_torch_qmc.py) and exits 2 only where the JAX CLI does,
     with --antithetic."""
-    assert tcli.main(argv + ["--device", "cpu"]) == 2
-    assert match in capsys.readouterr().err
+    import io
+    import sys
+
+    monkeypatch.setattr(sys, "stdin", io.StringIO(
+        '{"id": 7, "strike": 100.0, "put": true, "maturity": 0.1, '
+        '"steps": 8, "paths": 256}\n'))
+    assert tcli.main(argv + ["--device", "cpu"]) == rc
+    captured = capsys.readouterr()
+    assert match in (captured.out if rc == 0 else captured.err)
 
 
 _RUN = ["--strike", "102", "--put", "--maturity", "0.12", "--steps", "24",

@@ -310,8 +310,13 @@ def test_engine_streams_given_noise_on_the_factored_family(rng):
         pricer.consts, table, noise[i], 100.0, False))
         for i in range(n_chunks)) / (chunk * n_chunks)
     np.testing.assert_allclose(got, want, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        pricer.price_and_greeks(0)
+    # Greeks on the factored family (refused naming A10 before the jvp
+    # Greeks were ported) ride the jvp stream, the same spectral law: the
+    # price lane within 5 combined stderr of the price.
+    (g, g_se), (p, p_se) = (pricer.price_and_greeks(0, with_stderr=True),
+                            pricer.price(0, with_stderr=True))
+    assert all(np.isfinite(g)) and g[1] < 0 < g[2]
+    assert abs(g[0] - p) < 5 * np.hypot(g_se[0], p_se)
 
 
 def test_cli_prices_past_the_slab_on_cpu(capsys):
@@ -391,8 +396,9 @@ def test_factored_chain_raises():
     """A strip whose configuration resolves to K8/K9 (400 steps, spectral)
     raised naming ROADMAP B5 until K5 had its spectral form.  It now runs
     on the K8 pilot with K5 streaming on its own spectral constants (the
-    plain versions here), in both pricers' law; only its Greeks still
-    raise, naming ROADMAP A10 (the fused Greeks are chol only)."""
+    plain versions here), in both pricers' law.  Its Greeks (refused
+    naming ROADMAP A10 before the jvp Greeks were ported) ride the jvp
+    stream: [6, 2], put deltas falling in the strike."""
     cfg = tengine.StreamConfig(n_paths=1024, n_steps=400, chunk_paths=512,
                                pilot_paths=512, fgn_form="spectral")
     chain = tengine.StreamingChainPricer(
@@ -403,8 +409,9 @@ def test_factored_chain_raises():
     assert chain.chain_consts.spectral
     prices = chain.price(0)
     assert prices.shape == (2,) and 0 < prices[0] < prices[1] < 105.0
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        chain.price_and_greeks(0)
+    g, se = chain.price_and_greeks(0, with_stderr=True)
+    assert g.shape == se.shape == (6, 2) and np.all(np.isfinite(g))
+    assert g[1, 1] < g[1, 0] < 0 and np.all(g[0] > 0)
 
 
 def test_factored_memory_model():

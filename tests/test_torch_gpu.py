@@ -968,7 +968,7 @@ def test_spectral_wrappers_reject_bad_inputs(cuda):
             fn(chol, three)
     g = pc.make_greeks_consts(MARKET["xi"], MARKET["h"], MARKET["eta"], 64,
                               DT, cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(NotImplementedError, match="jvp Greeks stream"):
         gc.greeks_chunk(spec, g, table, 100.0, False, rows=64, key=1)
 
 
@@ -2661,3 +2661,83 @@ def test_qmc_price_streams_through_noise_in(cuda, n_steps, extra, wrapper):
     assert wrapper.launches == wrapper.noise_launches == 4
     assert all(fn.launches == 0 for fn in path_kernels)
     assert 0 < price < 100.0 and 0 < se < 0.1 * price
+
+
+# ---------------------------------------------------------------------------
+# The serving stream and the jvp Greeks (plain PyTorch on the card).
+
+def _traced_inputs(dev, n_steps=64, rows=4096, anti=False):
+    """Traced-market constants at a fresh market and H on ``dev``, a
+    seeded host noise pair copied there, and a pilot fit on the host."""
+    from montecarlooptionspricer_tpu_torch.models import pathgen_stream as ps
+
+    c = ps.with_market(ps.make_stream_consts(
+        *MARKET.values(), n_steps, DT, dev, traced_h=True), h=0.3, s0=97.0,
+        xi=0.06, r=0.03, eta=1.2)
+    gen = torch.Generator().manual_seed(17)
+    drawn = rows // 2 if anti else rows
+    z = torch.randn((2, drawn, n_steps), generator=gen)
+    dw = torch.randn((drawn, n_steps), generator=gen) * DT ** 0.5
+    return c, z.to(dev), dw.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("anti", [False, True], ids=["plain", "anti"])
+def test_traced_market_chunk_card_matches_host(cuda, anti):
+    """A traced-market chunk (fresh market and H, live for 40 of 64 steps)
+    on the card against the same chunk on the host: the matrices within
+    1e-6 of their scale and the paths at rtol 2e-5 (float32 products in
+    another order)."""
+    from montecarlooptionspricer_tpu_torch.models import pathgen_stream as ps
+
+    c_d, z, dw = _traced_inputs(cuda, anti=anti)
+    c_h, _, _ = _traced_inputs(torch.device("cpu"), anti=anti)
+    for a, b in ((c_d.cr, c_h.cr), (c_d.ci, c_h.ci), (c_d.t_pow, c_h.t_pow)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-6 * float(
+            b.abs().max())
+    got = ps.paths_from_noise(c_d, z, dw, anti, n_live=40)
+    want = ps.paths_from_noise(c_h, z.cpu(), dw.cpu(), anti, n_live=40)
+    torch.cuda.synchronize()
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=0)
+    assert torch.equal(got[:, 41:], got[:, 40:41].expand(-1, 24))
+
+
+@pytest.mark.gpu
+def test_jvp_chunk_on_the_card_matches_autograd(cuda):
+    """One chunk's jvp Greeks on the card (a 2-strike strip, pairs, live
+    for 40 of 64 steps) against ``torch.autograd.grad`` of the same chunk
+    value on the card (H through the float64 build), each lane within
+    1e-4 of its scale; the price lane within 1e-5 of the plain stream's
+    policy value on the same paths."""
+    from montecarlooptionspricer_tpu_torch.models import pathgen_stream as ps
+
+    c, z, dw = _traced_inputs(cuda, anti=True)
+    strikes = torch.tensor([95.0, 103.0], device=cuda)
+    mat = 40 * DT
+    pilot = ps.paths_from_noise(c, *ps.draw_noise(
+        c, 8192, ps.stream_generator(cuda, (4, 2))), n_live=40)
+    _, fits = engine.lsm_fit(pilot, c.r, strikes, mat, DT, False,
+                             n_steps=40)
+    got = engine.jvp_chunk_greeks(c, z, dw, fits, strikes, mat, False, True,
+                                  40)
+    h64 = torch.tensor(c.h, dtype=torch.float64, device=cuda,
+                       requires_grad=True)
+    prm = [torch.tensor(v, device=cuda, requires_grad=True)
+           for v in (c.s0, c.xi, c.r, c.eta)]
+    mats = [m.float() for m in ps._hurst_build(h64, c.n_steps, DT)]
+    paths = ps.paths_from_params(c, z, dw, prm, mats, True, 40)
+    plain = ps.paths_from_noise(c, z, dw, True, 40)
+    for i, k in enumerate(strikes.tolist()):
+        f = engine.PolyFit(*(x[i] for x in fits))
+        val = engine.lsm_policy_value(paths, f, prm[2], k, mat, DT, False,
+                                      40)[0]
+        grads = torch.autograd.grad(val, prm + [h64], retain_graph=True)
+        s0_, xi_, r_, eta_, h_ = (float(g) for g in grads)
+        want = torch.tensor([float(val.detach()), s0_, xi_, eta_, r_, h_])
+        lane = got[:, i].cpu()
+        assert float((lane - want).abs().max()) <= 1e-4 * float(
+            want.abs().max()), (lane, want)
+        ref = float(engine.lsm_policy_value(plain, f, c.r, k, mat, DT, False,
+                                            40)[0])
+        assert abs(float(lane[0]) / ref - 1.0) < 1e-5

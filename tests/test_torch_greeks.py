@@ -331,8 +331,12 @@ def test_seeded_greeks_in_distribution_match_jax(chain):
                                     dict(n_steps=32, poly_order=3)],
                          ids=["past-365", "xla", "poly3"])
 def test_greeks_past_the_single_tile_horizon_raise(config):
-    """Greeks past 365 steps and on the generic stream need the jvp Greeks
-    (ROADMAP A10), on both pricers."""
+    """Greeks past 365 steps and on the generic stream (refused naming
+    ROADMAP A10 before the jvp Greeks were ported) ride the jvp Greeks
+    stream on both pricers: finite, a put's delta below 0 and vega_xi
+    above, the strip's row of one strike the single pricer's (the same
+    pilot carrier and chunks), and the price lane within 5 combined stderr
+    of ``price`` (on the "stream" family the same paths: 1e-5)."""
     cfg = tengine.StreamConfig(n_paths=1024, chunk_paths=256,
                                pilot_paths=256, dt=DT, **config)
     maturity = config["n_steps"] * DT
@@ -342,6 +346,12 @@ def test_greeks_past_the_single_tile_horizon_raise(config):
     chain = tengine.StreamingChainPricer(**BENCH_MARKET, strikes=[100.0],
                                          maturity=maturity, is_call=False,
                                          config=cfg, device="cpu")
-    for call in (pricer.price_and_greeks, chain.price_and_greeks):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            call(0)
+    g, se = pricer.price_and_greeks(0, with_stderr=True)
+    rows = chain.price_and_greeks(0)
+    assert all(np.isfinite(g)) and g[1] < 0 < g[2]
+    np.testing.assert_allclose(rows[:, 0], g, rtol=1e-5, atol=1e-7)
+    price, p_se = pricer.price(0, with_stderr=True)
+    if pricer.kernel_family == "stream":
+        np.testing.assert_allclose(g[0], price, rtol=1e-5)
+    else:
+        assert abs(g[0] - price) < 5 * np.hypot(se[0], p_se)

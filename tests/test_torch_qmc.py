@@ -271,7 +271,11 @@ def test_streaming_qmc_matches_jax_and_beats_prng():
 def test_chain_and_bounds_under_qmc():
     """A QMC strip (K5's plain version on QMC noise) rises in strike with
     stderrs below the PRNG strip's at the near-the-money strikes; the
-    QMC bracket holds the price; Greeks under qmc raise naming A10."""
+    QMC bracket holds the price; Greeks under qmc (refused naming A10
+    before the jvp Greeks were ported) ride the jvp stream on the QMC
+    generator: finite, the single pricer's price lane within 5 combined
+    stderr of its price and the strip's strike-105 row the single
+    pricer's (the same pilot carrier and chunks)."""
     kw = dict(n_paths=4 * 2048, n_steps=16, chunk_paths=2048,
               pilot_paths=2048)
     market = dict(**BENCH_MARKET, maturity=16 * DT, is_call=False)
@@ -289,9 +293,12 @@ def test_chain_and_bounds_under_qmc():
                                 device="cpu")
     lo, up = p.price_with_bounds(0)
     assert lo < up and abs(lo / p.price(0) - 1.0) < 0.01
-    for fn in (p.price_and_greeks, chain.price_and_greeks):
-        with pytest.raises(NotImplementedError, match="A10"):
-            fn(0)
+    g, g_se = p.price_and_greeks(0, with_stderr=True)
+    price, p_se = p.price(0, with_stderr=True)
+    assert all(np.isfinite(g)) and g[1] < 0 < g[2]
+    assert abs(g[0] - price) < 5 * np.hypot(g_se[0], p_se)
+    rows = chain.price_and_greeks(0)
+    np.testing.assert_allclose(rows[:, 2], g, rtol=1e-5, atol=1e-7)
 
 
 # ---------------------------------------------------------------------------
@@ -357,10 +364,12 @@ _RUN = ["--strike", "102", "--put", "--maturity", "0.12", "--steps", "24",
     (["--qmc"], 0, None), (["--qmc", "--qmc-fgn"], 0, None),
     (["--qmc-fgn"], 2, "qmc_fgn requires qmc"),
     (["--qmc", "--antithetic"], 2, "incompatible with --qmc"),
-    (["--qmc", "--greeks"], 2, "A10")])
+    (["--qmc", "--greeks"], 0, None)])
 def test_price_cli_qmc(capsys, flags, rc, match):
     """``mcop-price-torch --qmc`` and ``--qmc --qmc-fgn`` print a price on
-    the CPU; the JAX CLI's refusals exit 2, and so do Greeks under qmc."""
+    the CPU, and ``--qmc --greeks`` (refused naming A10 before the jvp
+    Greeks were ported) the Greeks of the jvp stream on the QMC
+    generator, as the JAX CLI does; the JAX CLI's refusals exit 2."""
     assert tprice_cli.main(_RUN + flags) == rc
     captured = capsys.readouterr()
     if rc:
@@ -368,4 +377,8 @@ def test_price_cli_qmc(capsys, flags, rc, match):
         return
     out = json.loads(captured.out)
     assert out["kernel_family"] == "single"
+    if "--greeks" in flags:
+        assert out["price"] > 0 and out["delta"] < 0 < out["vega_xi"]
+        assert all(v > 0 for v in out["stderrs"].values())
+        return
     assert out["price"] > 0 and out["stderr"] > 0

@@ -20,6 +20,7 @@ from montecarlooptionspricer_tpu.models import pathgen_pallas_factored as jf
 from montecarlooptionspricer_tpu.models import pathgen_pallas_tiled as jtiled
 from montecarlooptionspricer_tpu_torch.models import chain_cuda as cc
 from montecarlooptionspricer_tpu_torch.models import engine as tengine
+from montecarlooptionspricer_tpu_torch.models import greeks_cuda as tgc
 from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
 from montecarlooptionspricer_tpu_torch.models import (
     pathgen_factored_cuda as pfc)
@@ -442,10 +443,12 @@ def test_pairs_with_quadratic_policy(strip):
 
 
 @pytest.mark.parametrize("strip", [False, True], ids=["single", "strip"])
-def test_quadratic_greeks_raise_a10(strip):
+def test_quadratic_greeks_raise_a10(monkeypatch, strip):
     """JAX's fused Greeks take the boundary policy only; under the
-    quadratic one it runs the jvp stream, which the port does not have:
-    both pricers raise NotImplementedError naming ROADMAP A10."""
+    quadratic one it runs the jvp stream, and so does the port (both
+    pricers raised naming ROADMAP A10 before it was ported): finite
+    Greeks, a put's delta below 0 and vega_xi above, the price lane within
+    5 combined stderr of ``price``, and K3/K4 never called."""
     field = "chain_policy_form" if strip else "policy_form"
     config = tengine.StreamConfig(n_paths=512, n_steps=32, chunk_paths=256,
                                   pilot_paths=256, dt=DT,
@@ -458,8 +461,17 @@ def test_quadratic_greeks_raise_a10(strip):
         pricer = tengine.StreamingPricer(
             **QUAD_MARKET, strike=QUAD_STRIKE, maturity=32 * DT,
             is_call=False, config=config, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        pricer.price_and_greeks(0)
+    def refuse(*args, **kwargs):
+        raise AssertionError("K3/K4 ran under the quadratic policy")
+
+    monkeypatch.setattr(tgc, "greeks_chunk", refuse)
+    monkeypatch.setattr(tgc, "chain_greeks_chunk", refuse)
+    g, se = pricer.price_and_greeks(0, with_stderr=True)
+    price, p_se = pricer.price(0, with_stderr=True)
+    g, se = np.asarray(g).reshape(6, -1), np.asarray(se).reshape(6, -1)
+    price, p_se = np.atleast_1d(price), np.atleast_1d(p_se)
+    assert np.all(np.isfinite(g)) and np.all(g[1] < 0) and np.all(g[2] > 0)
+    assert np.all(np.abs(g[0] - price) < 5 * np.hypot(se[0], p_se))
 
 
 def test_unknown_policy_names_raise():

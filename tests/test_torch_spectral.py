@@ -22,6 +22,7 @@ from montecarlooptionspricer_tpu.models import pathgen_pallas_tiled as jtiled
 from montecarlooptionspricer_tpu.models.lsm import lsm_fit as jlsm_fit
 from montecarlooptionspricer_tpu_torch.models import chain_cuda as cc
 from montecarlooptionspricer_tpu_torch.models import engine as tengine
+from montecarlooptionspricer_tpu_torch.models import greeks_cuda as tgc
 from montecarlooptionspricer_tpu_torch.models import pathgen_cuda as pc
 from montecarlooptionspricer_tpu_torch.models import pathgen_tiled_cuda as ptc
 
@@ -357,11 +358,12 @@ def test_spectral_strip_past_the_tile_fits_on_k8_pilot():
 
 
 @pytest.mark.parametrize("strip", [False, True], ids=["single", "strip"])
-def test_spectral_greeks_raise(strip):
+def test_spectral_greeks_raise(monkeypatch, strip):
     """JAX's fused Greeks run under chol only; a spectral configuration's
-    Greeks take its jvp stream, which the port does not have: both
-    pricers raise NotImplementedError naming ROADMAP A10 (and never run
-    the chol K3/K4 on spectral paths)."""
+    Greeks take its jvp stream, and so do the port's (both pricers raised
+    naming ROADMAP A10 before it was ported): finite Greeks, the price
+    lane within 5 combined stderr of ``price``, and the chol K3/K4 never
+    called on spectral paths."""
     cfg = tengine.StreamConfig(n_paths=1024, n_steps=32, chunk_paths=512,
                                pilot_paths=512, dt=DT, fgn_form="spectral")
     if strip:
@@ -373,5 +375,15 @@ def test_spectral_greeks_raise(strip):
             **BENCH_MARKET, strike=105.0, maturity=32 * DT, is_call=False,
             config=cfg, device="cpu")
     assert pricer.kernel_family == "single"
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        pricer.price_and_greeks(0)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the chol K3/K4 ran on a spectral pricer")
+
+    monkeypatch.setattr(tgc, "greeks_chunk", refuse)
+    monkeypatch.setattr(tgc, "chain_greeks_chunk", refuse)
+    g, se = pricer.price_and_greeks(0, with_stderr=True)
+    price, p_se = pricer.price(0, with_stderr=True)
+    g, se = np.asarray(g).reshape(6, -1), np.asarray(se).reshape(6, -1)
+    price, p_se = np.atleast_1d(price), np.atleast_1d(p_se)
+    assert np.all(np.isfinite(g)) and np.all(g[1] < 0)
+    assert np.all(np.abs(g[0] - price) < 5 * np.hypot(se[0], p_se))

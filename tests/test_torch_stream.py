@@ -260,18 +260,28 @@ def test_engine_reads_stream_noise():
 
 
 def test_out_of_scope_stream_options_raise():
-    """The serving generator's traced Hurst exponent and live horizon are
-    not ported: each raises naming its ROADMAP item.  The QMC noise
-    (refused naming A12 before it was ported) builds its PCA map, and
-    ``qmc_fgn`` is refused without ``qmc`` and on the FFT synthesis, as
-    JAX refuses them."""
+    """The serving generator's live horizon and traced Hurst exponent
+    (each refused naming ROADMAP A13/A10 before they were ported): paths
+    stay flat past ``n_live``, and ``traced_h`` builds the matrices on the
+    device within 1e-7 of the host build (and refuses the FFT synthesis,
+    as JAX does).  The QMC noise (refused naming A12 before it was
+    ported) builds its PCA map, and ``qmc_fgn`` is refused without
+    ``qmc`` and on the FFT synthesis, as JAX refuses them."""
     consts = stream_consts(16)
-    z = torch.zeros((2, 4, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        ps.paths_from_noise(consts, z, z[0], n_live=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13, A10"):
+    z = torch.randn((2, 4, 16), generator=torch.Generator().manual_seed(0))
+    live = ps.paths_from_noise(consts, z, z[0], n_live=8)
+    full = ps.paths_from_noise(consts, z, z[0])
+    assert torch.equal(live[:, :9], full[:, :9])
+    assert torch.equal(live[:, 9:], live[:, 8:9].expand(-1, 8))
+    traced = ps.make_stream_consts(100.0, 0.04, 0.1, 1.5, 0.04, 16, DT,
+                                   "cpu", traced_h=True)
+    host = ps.make_stream_consts(100.0, 0.04, 0.1, 1.5, 0.04, 16, DT, "cpu")
+    for a, b in ((traced.cr, host.cr), (traced.ci, host.ci),
+                 (traced.t_pow, host.t_pow)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-7)
+    with pytest.raises(ValueError, match="traced_h requires the matmul"):
         ps.make_stream_consts(100.0, 0.04, 0.1, 1.5, 0.04, 16, DT, "cpu",
-                              traced_h=True)
+                              traced_h=True, fgn_impl="fft")
     q = ps.make_stream_consts(100.0, 0.04, 0.1, 1.5, 0.04, 16, DT, "cpu",
                               qmc=True)
     assert q.qmc and q.pca_t.shape == (16, 16) and q.qmc_dims == 16
