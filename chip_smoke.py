@@ -207,7 +207,16 @@ to 0 just before it and read just after:
   (16 chunks; each Greek within 5 combined stderr of ``greeks``, the
   price lane within 1e-5 of ``price_with_fit`` on the same fits) and at
   1825 steps (8 chunks; the price lane within 5 combined stderr of
-  ``price_long``), with the seconds a chunk and the peak device bytes.
+  ``price_long``), with the seconds a chunk and the peak device bytes;
+* the Bayesian meta-model, plain PyTorch, which launches no kernel: ``nn``
+  trains it at its full width through ``mcop-train-nn-torch`` (65,536
+  rows of synthetic features, 7 epochs across the warm-up, batch 256) and
+  evaluates 8,192 rows through ``mcop-evaluate-nn-torch`` at 100 draws,
+  plain and calibrated, and holds the card against the host: the eval
+  forward, one masked batch's gradients and update, the NaN-batch skip,
+  an epoch with no host sync, a resume against one run, the MC-dropout
+  interval of one row; with s an epoch, ms and CUDA operators a step,
+  rows/s, peak device bytes and the device's busy share.
 
 It also times K2 against K7 and K9 per chunk across horizons, in float32
 and bf16 (the crossover that sets engine.SINGLE_TILE_MAX_STEPS and the
@@ -231,7 +240,8 @@ forms, K6's 8 and P1's matmul with digests of K6's and P1's outputs
 (``prediction_gen_main``); ``--qmc [ROOT]`` the QMC phases alone after
 the PRNG runs they are held against (``qmc_main``); ``--serve-jvp
 [ROOT]`` the ``serve`` and ``greeks_jvp`` phases alone after the kernel
-runs they are held against (``serve_jvp_main``).
+runs they are held against (``serve_jvp_main``); ``--nn [ROOT]`` the
+``nn`` phase alone, with no kernel built (``nn_main``).
 
 Usage (from the root of a checkout, one CUDA card):  python3 chip_smoke.py
 
@@ -5964,6 +5974,382 @@ def serve_jvp_main(root: Path) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The Bayesian meta-model: ``mcop-train-nn-torch`` and
+# ``mcop-evaluate-nn-torch`` at the model's full width, plain PyTorch on the
+# card, which no kernel runs.
+
+NN_ROWS = {"train": 65_536, "valid": 8_192, "test": 8_192}
+NN_EPOCHS = 7              # crosses the 5 warm-up epochs
+NN_BATCH, NN_LR, NN_MC = 256, 3e-4, 100
+NN_EVAL_BATCH = 512
+NN_RESUME_ROWS = 4_096
+NN_INTERVAL_DRAWS = 2_000
+NN_FWD_RTOL, NN_FWD_ATOL = 1e-4, 1e-5
+NN_GRAD_TOL, NN_UPDATE_ATOL = 1e-4, 1e-6
+NN_PEAK_GROWTH = 10.0
+# In the full script; ``--nn`` alone also pays the process's first
+# dispatch mode (``cuda_ops``, ~9 s), which an earlier phase pays there.
+NN_PHASE_LIMIT_S = 30.0
+
+
+def nn_inputs(work: Path, seed: int) -> dict:
+    """Feature CSVs in the INPUT_COLUMNS + ``last`` schema, from a numpy
+    seed: Black-Scholes calls on lognormal spots, 7-730 days, the four
+    estimators' columns within 5 % of the price, the traded price within
+    3 %.  Returns {split: (path, features, targets)}, the arrays as
+    float32."""
+    import numpy as np
+    from montecarlooptionspricer_tpu_torch.config import (
+        INPUT_COLUMNS, TARGET_COLUMN)
+
+    rng = np.random.default_rng(seed)
+    ncdf = np.frompyfunc(lambda v: 0.5 * (1.0 + math.erf(v / math.sqrt(2))),
+                         1, 1)
+    paths = {}
+    for split, n in NN_ROWS.items():
+        s = 100.0 * np.exp(0.3 * rng.standard_normal(n))
+        dte = rng.integers(7, 731, n).astype(np.float64)
+        dist = 15.0 * rng.standard_normal(n)
+        iv = rng.uniform(0.15, 0.6, n)
+        k, t, r, q = s * (1.0 + dist / 100.0), dte / 365.0, 0.04, 0.01
+        sd = iv * np.sqrt(t)
+        d1 = (np.log(s / k) + (r - q + 0.5 * iv ** 2) * t) / sd
+        n1 = ncdf(d1).astype(np.float64)
+        n2 = ncdf(d1 - sd).astype(np.float64)
+        pdf = np.exp(-0.5 * d1 ** 2) / math.sqrt(2.0 * math.pi)
+        price = s * np.exp(-q * t) * n1 - k * np.exp(-r * t) * n2
+        cols = [s, dte, dist, n1, pdf / (s * sd), s * pdf * np.sqrt(t) / 100,
+                -s * pdf * iv / (2.0 * np.sqrt(t)) / 365.0,
+                k * t * np.exp(-r * t) * n2 / 100.0, iv,
+                np.exp(rng.normal(6.0, 1.5, n)), np.full(n, q)]
+        cols += [price * (1.0 + 0.05 * rng.standard_normal(n))
+                 for _ in range(4)]
+        cols += [iv * (1.0 + 0.1 * rng.standard_normal(n)),
+                 0.05 * rng.standard_normal(n),
+                 np.maximum(price * (1.0 + 0.03 * rng.standard_normal(n)),
+                            0.01)]
+        path = work / f"{split}.csv"
+        table = np.stack(cols, axis=1)
+        np.savetxt(path, table, fmt="%.6g", delimiter=",",
+                   header=",".join(INPUT_COLUMNS + (TARGET_COLUMN,)),
+                   comments="")
+        table = table.astype(np.float32)
+        paths[split] = (path, table[:, :-1].copy(), table[:, -1].copy())
+    return paths
+
+
+def nn_interval_sigmas(card_draws, host_draws, stds: float) -> dict:
+    """Combined stderrs between the card's and the host's MC-dropout
+    mean and interval ends (mean +- stds * sd), each end's stderr from the
+    draws' variance and fourth moment."""
+    import numpy as np
+
+    def stats(v):
+        v = np.asarray(v, np.float64)
+        n, m, s = v.size, v.mean(), v.std()
+        m4 = np.mean((v - m) ** 4)
+        se_m = s / math.sqrt(n)
+        se_s = math.sqrt(max(m4 - s ** 4, 0.0) / n) / (2.0 * s)
+        return m, s, se_m, math.hypot(se_m, stds * se_s)
+
+    mc, sc, se_mc, se_ec = stats(card_draws)
+    mh, sh, se_mh, se_eh = stats(host_draws)
+    return {"mean": abs(mc - mh) / math.hypot(se_mc, se_mh),
+            "lower": abs((mc - stds * sc) - (mh - stds * sh))
+            / math.hypot(se_ec, se_eh),
+            "upper": abs((mc + stds * sc) - (mh + stds * sh))
+            / math.hypot(se_ec, se_eh),
+            "card": [mc, sc], "host": [mh, sh]}
+
+
+def nn_phase(torch, smi, dev, reset_counts, read_counts,
+             limit_s=NN_PHASE_LIMIT_S) -> None:
+    """``nn``: the Bayesian meta-model at its full width (17 inputs, the
+    fixed 512-256-128-64-32-16 funnel; the batch attention's output is dead,
+    so no forward computes it) on the card. ``train_nn.main`` trains
+    NN_EPOCHS epochs on 65,536 rows of synthetic features (batch 256, lr
+    3e-4, 100 MC draws), then ``evaluate_nn.main`` evaluates 8,192 rows at
+    100 draws a row in batches of 512, plainly and with
+    ``--calibrated-intervals``. Checks: (a) the trained model's eval forward
+    on the card within 1e-5 abs / 1e-4 rel of the host's, and its peak bytes
+    linear in the rows (8,192 against 65,536: at most NN_PEAK_GROWTH times,
+    8 if linear, 64 if quadratic); (b) one masked batch's loss and gradients
+    in both loss phases within 1e-4 of each gradient's max-abs of the
+    host's, and the optimizer's update on the host's gradients within 1e-6;
+    (c) a batch with a NaN row leaves the parameters and Adam's count and
+    stays out of the epoch's loss; (d) one epoch's step loop under
+    ``torch.cuda.set_sync_debug_mode("error")``; (e) 2 epochs against 1 +
+    resume + 1 on 4,096 rows; (f) the card's and the host's MC-dropout mean
+    and interval ends for test row 0 at 2,000 draws within 5 combined
+    stderr; (g) the results CSVs' 8,192 rows, lower <= mean <= upper, the
+    calibrated coverage at least the plain one; (h) no kernel launched; the
+    phase within ``limit_s`` when one is given. Prints s an epoch, ms and
+    CUDA operators a step, rows/s, ms an MC batch, peak device bytes and the
+    device's busy share over one epoch (torch.profiler)."""
+    import logging
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from montecarlooptionspricer_tpu_torch.cli import evaluate_nn, train_nn
+    from montecarlooptionspricer_tpu_torch.config import (
+        INPUT_COLUMNS, TrainConfig)
+    from montecarlooptionspricer_tpu_torch.nn.trainer import BayesianTrainer
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="mcop_nn_"))
+    epochs = []
+
+    class EpochSeconds(logging.Handler):
+        def emit(self, record):
+            if record.msg.startswith("Epoch "):
+                epochs.append(float(record.args[3]))
+
+    epoch_log = logging.getLogger("montecarlooptionspricer_tpu_torch.nn."
+                                  "trainer")
+    handler = EpochSeconds()
+    epoch_log.addHandler(handler)
+    split_s = {}
+    try:
+        t0 = time.perf_counter()
+        data = nn_inputs(work, SEED)
+        csv = {k: v[0] for k, v in data.items()}
+        split_s["csv"] = time.perf_counter() - t0
+        model, ckpt = str(work / "model"), str(work / "checkpoint")
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rc, train_s = timed(torch, lambda: train_nn.main([
+            "--train-csv", str(csv["train"]), "--valid-csv",
+            str(csv["valid"]), "--test-csv", str(csv["test"]),
+            "--model-file", model, "--checkpoint-file", ckpt,
+            "--num-epochs", str(NN_EPOCHS), "--batch-size", str(NN_BATCH),
+            "--learning-rate", str(NN_LR), "--mc-samples", str(NN_MC),
+            "--device", "cuda"]))
+        epoch_log.removeHandler(handler)
+        check(rc == 0, f"nn: train_nn exit code {rc}")
+        check(len(epochs) == NN_EPOCHS, f"nn: {len(epochs)} epochs logged")
+        results, eval_s = {}, {}
+        for name, extra in (("plain", []),
+                            ("calibrated", ["--calibrated-intervals"])):
+            results[name] = str(work / f"results_{name}.csv")
+            rc, eval_s[name] = timed(torch, lambda: evaluate_nn.main([
+                "--test-csv", str(csv["test"]), "--model-file", model,
+                "--results-csv", results[name], "--n-samples", str(NN_MC),
+                "--batch-size", str(NN_EVAL_BATCH), "--device", "cuda"]
+                + extra))
+            check(rc == 0, f"nn: evaluate_nn {name} exit code {rc}")
+        peak = torch.cuda.max_memory_allocated()
+
+        t0 = time.perf_counter()
+        _, x_tr, y_tr = data["train"]
+        _, x_te, _ = data["test"]
+        card = BayesianTrainer(len(INPUT_COLUMNS), 64, device=dev)
+        host = BayesianTrainer(len(INPUT_COLUMNS), 64, device="cpu")
+        for t in (card, host):
+            t.load_model(model)
+
+        # (a) the eval forward, card against host.
+        got = card.forward(x_te[:NN_EVAL_BATCH]).cpu()
+        want = host.forward(x_te[:NN_EVAL_BATCH])
+        fwd_abs = float((got - want).abs().max())
+        fwd_ok = bool(((got - want).abs()
+                       <= NN_FWD_ATOL + NN_FWD_RTOL * want.abs()).all())
+        # Its peak bytes above what was allocated before it, at the test
+        # set's rows and at the training set's.
+        fwd_peak = {}
+        for rows in (NN_ROWS["test"], NN_ROWS["train"]):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            check(card.forward(x_tr[:rows]).shape == (rows, 15),
+                  f"nn (a): eval forward shape at {rows} rows")
+            torch.cuda.synchronize()
+            fwd_peak[rows] = torch.cuda.max_memory_allocated() - base
+
+        # (f) MC-dropout intervals of test row 0, card against host.
+        sig = nn_interval_sigmas(
+            card.predict_mc(x_te[:1], NN_INTERVAL_DRAWS)[:, 0].cpu().numpy(),
+            host.predict_mc(x_te[:1], NN_INTERVAL_DRAWS)[:, 0].numpy(), 3.0)
+        mc_ms = time_ms(torch, lambda: card.predict_mc(
+            x_te[:NN_EVAL_BATCH], NN_MC), reps=5)
+
+        # (b) one masked batch in both phases; the update on equal grads.
+        gen = torch.Generator().manual_seed(SEED)
+        x, y = torch.from_numpy(x_tr[:NN_BATCH]), torch.from_numpy(
+            y_tr[:NN_BATCH]).reshape(-1, 1)
+        w = torch.ones(NN_BATCH)
+        masks = host.model.draw_masks((NN_BATCH,), gen, "cpu")
+        grad_err, loss_rel = {}, {}
+        for phase, warmup in (("warmup", True), ("mdn", False)):
+            lh, gh = host.loss_and_grads(x, y, w, warmup=warmup, masks=masks)
+            lc, gc_ = card.loss_and_grads(x.to(dev), y.to(dev), w.to(dev),
+                                          warmup=warmup,
+                                          masks=[m.to(dev) for m in masks])
+            loss_rel[phase] = abs(float(lc) / float(lh) - 1.0)
+            grad_err[phase] = max(
+                float((c.cpu() - h).abs().max())
+                / max(float(h.abs().max()), 1e-30)
+                for c, h in zip(gc_, gh))
+        for t in (card, host):
+            t._make_optimizer(NN_LR)
+        card.optimizer.step([g.to(dev) for g in gh])
+        host.optimizer.step(gh)
+        update_abs = float((card.optimizer._update.cpu()
+                            - host.optimizer._update).abs().max())
+
+        # (c) a NaN row: no update, count kept, out of the epoch's loss.
+        xb, yb, wb = card.batched(x_tr[:2 * NN_BATCH], y_tr[:2 * NN_BATCH],
+                                  NN_BATCH)
+        xb[1, 7, 3] = float("nan")
+        params = {k: v.clone() for k, v in card.model.state_dict().items()}
+        opt_state = card.optimizer.state_dict()
+        gen_state = card.generator.get_state()
+        count = int(card.optimizer.count)
+        epoch_loss = float(card.run_epoch(xb, yb, wb, warmup=False))
+        card.model.load_state_dict(params)
+        card.optimizer.load_state_dict(opt_state)
+        card.generator.set_state(gen_state)
+        good, _ = card._step(xb[0], yb[0], wb[0], False)
+        after = {k: v.clone() for k, v in card.model.state_dict().items()}
+        skipped, finite = card._step(xb[1], yb[1], wb[1], False)
+        nan_ok = (not bool(finite) and float(skipped) == 0.0
+                  and int(card.optimizer.count) == count + 1
+                  and int(card.optimizer.total_notfinite) == 1
+                  and all(torch.equal(v, after[k]) for k, v in
+                          card.model.state_dict().items())
+                  and epoch_loss == float(good))
+
+        split_s["checks_a_b_c_f"] = time.perf_counter() - t0
+
+        # (d) one epoch's step loop with no host sync; its time, operators
+        # a step (the process's first dispatch mode costs seconds, paid by
+        # an earlier phase in the full run) and the device's busy share
+        # under the profiler, CUDA activity only.
+        xb, yb, wb = card.batched(x_tr, y_tr, NN_BATCH)
+        steps = xb.shape[0]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, epoch_s = timed(torch, lambda: card.run_epoch(
+                xb, yb, wb, warmup=False))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(math.isfinite(float(loss)), "nn: non-finite epoch loss")
+        ops, split_s["cuda_ops"] = timed(torch, lambda: cuda_ops(
+            torch, lambda: card._step(xb[0], yb[0], wb[0], False)))
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, epoch_prof_s = timed(torch, lambda: card.run_epoch(
+                xb, yb, wb, warmup=False))
+        kernels = [e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA]
+        busy_s = sum(e.duration_ns() for e in kernels) * 1e-9
+        split_s["profile"] = time.perf_counter() - t0
+
+        # (e) 2 epochs against 1 + resume + 1, crossing the warm-up.
+        t0 = time.perf_counter()
+        cfg = TrainConfig(warmup_epochs=1, batch_size=NN_BATCH)
+        xr, yr = x_tr[:NN_RESUME_ROWS], y_tr[:NN_RESUME_ROWS]
+        one = BayesianTrainer(17, 64, config=cfg, device=dev)
+        one.train_model(xr, yr, num_epochs=2,
+                        checkpoint_path=str(work / "one"))
+        BayesianTrainer(17, 64, config=cfg, device=dev).train_model(
+            xr, yr, num_epochs=1, checkpoint_path=str(work / "two"))
+        two = BayesianTrainer(17, 64, config=cfg, device=dev)
+        two.train_model(xr, yr, num_epochs=2,
+                        checkpoint_path=str(work / "two"))
+        resume_diff = max(float((a - b).abs().max()) for a, b in zip(
+            one.model.state_dict().values(),
+            two.model.state_dict().values()))
+        split_s["resume_e"] = time.perf_counter() - t0
+        launches = read_counts()
+
+        # (g) the results CSVs.
+        res = {name: np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+               for name, path in results.items()}
+        coverage = {name: float(r[:, 6].mean()) for name, r in res.items()}
+        ordered = all(bool(((r[:, 3] <= r[:, 2]) & (r[:, 2] <= r[:, 4]))
+                           .all()) for r in res.values())
+        mae = {name: float(r[:, 5].mean()) for name, r in res.items()}
+    finally:
+        epoch_log.removeHandler(handler)
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    train_rows = NN_ROWS["train"]
+    emit({"phase": "nn", "card": smi, "rows": NN_ROWS,
+          "epochs": NN_EPOCHS, "batch": NN_BATCH, "mc_draws": NN_MC,
+          "split_s": split_s, "train_cli_s": train_s,
+          "epoch_s": epochs, "first_epoch_s": epochs[0],
+          "later_epoch_s_mean": sum(epochs[1:]) / len(epochs[1:]),
+          "train_rows_per_s": train_rows * NN_EPOCHS / sum(epochs),
+          "step_loop_epoch_s": epoch_s, "steps_per_epoch": steps,
+          "ms_per_step": 1e3 * epoch_s / steps,
+          "step_rows_per_s": train_rows / epoch_s,
+          "cuda_ops_per_step": ops,
+          "profiled_epoch_s": epoch_prof_s, "device_busy_s": busy_s,
+          "device_launches_epoch": len(kernels),
+          "busy_share": busy_s / epoch_s,
+          "busy_share_profiled": busy_s / epoch_prof_s,
+          "eval_cli_s": eval_s,
+          "eval_rows_per_s": {k: NN_ROWS["test"] / v
+                              for k, v in eval_s.items()},
+          "mc_batch_ms": mc_ms, "mc_batch_rows": NN_EVAL_BATCH,
+          "peak_device_bytes": peak, "eval_forward_peak_bytes": fwd_peak,
+          "fwd_max_abs_err": fwd_abs, "loss_rel_err": loss_rel,
+          "grad_err_of_max_abs": grad_err, "update_max_abs_err": update_abs,
+          "nan_batch_skipped": nan_ok, "resume_max_abs_diff": resume_diff,
+          "interval_sigmas": sig, "coverage": coverage, "mae": mae,
+          "kernel_launches": sum(launches.values()), "phase_s": phase_s,
+          "phase_limit_s": NN_PHASE_LIMIT_S})
+    check(fwd_ok, f"nn (a): card forward {fwd_abs} from the host's")
+    small, big = (fwd_peak[NN_ROWS[k]] for k in ("test", "train"))
+    check(big <= NN_PEAK_GROWTH * small,
+          f"nn (a): eval forward peak {small} -> {big} bytes for 8x rows")
+    check(max(loss_rel.values()) <= 1e-5
+          and max(grad_err.values()) <= NN_GRAD_TOL,
+          f"nn (b): loss {loss_rel}, gradients {grad_err}")
+    check(update_abs <= NN_UPDATE_ATOL, f"nn (b): update {update_abs}")
+    check(nan_ok, "nn (c): the NaN batch was not skipped cleanly")
+    if resume_diff:
+        print("nn (e): the resumed parameters differ by "
+              f"{resume_diff:.3g}: float32 reductions on the card need not "
+              "repeat their bits", file=sys.stderr)
+    check(resume_diff <= 1e-6, f"nn (e): resume differs by {resume_diff}")
+    check(max(sig["mean"], sig["lower"], sig["upper"]) <= STDERR_SIGMAS,
+          f"nn (f): intervals {sig}")
+    check(all(r.shape == (NN_ROWS["test"], 7) for r in res.values())
+          and ordered, "nn (g): results CSV rows or interval order")
+    check(coverage["calibrated"] >= coverage["plain"],
+          f"nn (g): coverage {coverage}")
+    check(launches == expected_counts(),
+          f"nn (h): kernels launched: {launches}")
+    if limit_s is not None:
+        check(phase_s <= limit_s, f"nn: the phase took {phase_s:.1f} s")
+
+
+def nn_main(root: Path) -> int:
+    """``python3 chip_smoke.py --nn [ROOT]``: the ``nn`` phase alone with
+    the package of the checkout at ROOT (default: this script's), no
+    kernel built."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root.resolve()))
+    _START[0] = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = _card()
+    reset_counts, read_counts = launch_counters()
+    nn_phase(torch, smi, torch.device("cuda", 0), reset_counts, read_counts,
+             limit_s=None)
+    print(smi, flush=True)
+    return 0
+
+
 def prediction_gen_main(root: Path) -> int:
     """``python3 chip_smoke.py --prediction-gen [ROOT]``: the
     ``prediction_gen`` phase alone with the package of the checkout at
@@ -6452,7 +6838,8 @@ def k7_forms_main(root: Path) -> int:
 FORMS_MAINS = {"--k1-forms": "k1_forms_main", "--k2-forms": "k2_forms_main",
                "--k7-forms": "k7_forms_main", "--k9-forms": "k9_forms_main",
                "--prediction-gen": "prediction_gen_main",
-               "--qmc": "qmc_main", "--serve-jvp": "serve_jvp_main"}
+               "--qmc": "qmc_main", "--serve-jvp": "serve_jvp_main",
+               "--nn": "nn_main"}
 
 
 def launch_counters():
@@ -6784,6 +7171,8 @@ def main() -> int:
                 read_counts)
     greeks_jvp_phase(torch, engine, smi, dev, greeks32[0],
                      (long_price, long_stderr), reset_counts, read_counts)
+    # The Bayesian meta-model's two CLIs, which launch no kernel.
+    nn_phase(torch, smi, dev, reset_counts, read_counts)
     check(sorted(k["name"] for k in kernels) == sorted(REPLACES),
           "the kernels line does not list every kernel and form")
     emit({"kernels": kernels})

@@ -1,9 +1,11 @@
 """Configuration of the port: market constants, the PredictionGen
-pipeline's pricing and file settings, and the augmented CSV's columns.
+pipeline's pricing and file settings, the augmented CSV's columns, and the
+Bayesian meta-model's training and evaluation settings and feature schema.
 
 Counterpart: ``montecarlooptionspricer_tpu/config.py`` (``MarketDefaults``,
-``PricingConfig``, ``PipelineConfig``, ``AUGMENTED_COLUMNS``), with the
-reference's constants as defaults.
+``PricingConfig``, ``PipelineConfig``, ``AUGMENTED_COLUMNS``,
+``TrainConfig``, ``EvalConfig``, ``INPUT_COLUMNS``, ``TARGET_COLUMN``),
+with the reference's constants as defaults.
 """
 
 from __future__ import annotations
@@ -66,6 +68,41 @@ class PricingConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training of the Bayesian meta-model.
+
+    Epochs up to ``warmup_epochs`` train on the MSE of the mean of the
+    mixture means, later ones on the mixture density's negative
+    log-likelihood; ``l2_lambda`` weighs the L2 term and
+    ``grad_clip_norm`` the global-norm clip (``nn/trainer.py``).
+    ``hidden_dim`` is accepted for the reference's constructor; the funnel
+    widths are fixed.
+    """
+
+    input_dim: int = 17
+    hidden_dim: int = 64
+    num_epochs: int = 100
+    batch_size: int = 256
+    learning_rate: float = 3e-4
+    warmup_epochs: int = 5
+    l2_lambda: float = 1e-7
+    grad_clip_norm: float = 1.0
+    num_mixtures: int = 5
+    seed: int = 0
+    checkpoint_path: str = "checkpoint"
+    model_path: str = "bayesian_model"
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation of the meta-model: MC-dropout draws per row and the
+    interval's half-width in standard deviations."""
+
+    n_samples: int = 100
+    stds: float = 3.0
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """File names and failure-containment settings of the pipeline."""
 
@@ -87,3 +124,12 @@ AUGMENTED_COLUMNS = (
     "asymptotic_prediction", "branching_prediction", "lsm_prediction",
     "martingale_prediction", "twenty_day_vol", "twenty_day_momentum",
 )
+
+# Input features and target of the meta-model, columns of the augmented CSV.
+INPUT_COLUMNS = (
+    "underlying_last", "dte", "strike_distance_pct", "delta", "gamma",
+    "vega", "theta", "rho", "iv", "volume", "dividend",
+    "asymptotic_prediction", "branching_prediction", "lsm_prediction",
+    "martingale_prediction", "twenty_day_vol", "twenty_day_momentum",
+)
+TARGET_COLUMN = "last"

@@ -2741,3 +2741,72 @@ def test_jvp_chunk_on_the_card_matches_autograd(cuda):
         ref = float(engine.lsm_policy_value(plain, f, c.r, k, mat, DT, False,
                                             40)[0])
         assert abs(float(lane[0]) / ref - 1.0) < 1e-5
+
+
+def _nn_pair(cuda):
+    """The meta-model's trainer on the card and on the host: one seed, so
+    the same initial weights."""
+    from montecarlooptionspricer_tpu_torch.nn.trainer import BayesianTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return (BayesianTrainer(17, 64, device=cuda),
+            BayesianTrainer(17, 64, device="cpu"))
+
+
+@pytest.mark.gpu
+def test_nn_eval_forward_card_matches_host(cuda):
+    """The eval forward of 512 rows within 1e-5 abs / 1e-4 rel of the
+    host's."""
+    card, host = _nn_pair(cuda)
+    x = torch.randn(512, 17, generator=torch.Generator().manual_seed(3))
+    torch.testing.assert_close(card.forward(x).cpu(), host.forward(x),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_nn_eval_forward_peak_is_linear_in_rows(cuda):
+    """The eval forward's peak bytes grow with the rows, not with their
+    square: 65,536 rows take at most 10x the peak of 8,192 (8x if linear;
+    a batch attention's scores would make it 64x)."""
+    card, _ = _nn_pair(cuda)
+    x = torch.randn(65_536, 17, generator=torch.Generator().manual_seed(5))
+    peak = {}
+    for rows in (8_192, 65_536):
+        torch.cuda.synchronize(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        assert card.forward(x[:rows]).shape == (rows, 15)
+        torch.cuda.synchronize(cuda)
+        peak[rows] = torch.cuda.max_memory_allocated(cuda) - base
+    assert peak[65_536] <= 10 * peak[8_192], peak
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warmup", [True, False], ids=["warmup", "mdn"])
+def test_nn_masked_step_card_matches_host(cuda, warmup):
+    """One batch of 256 rows on injected masks: the loss within 1e-5 rel,
+    each gradient within 1e-4 of its max-abs; then the optimizer's update
+    on the host's gradients within 1e-6 of the host's."""
+    card, host = _nn_pair(cuda)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(256, 17, generator=gen)
+    y = 1.0 + 0.5 * torch.randn(256, 1, generator=gen)
+    w = torch.ones(256)
+    w[-7:] = 0.0
+    masks = host.model.draw_masks((256,), gen, "cpu")
+    loss_h, grads_h = host.loss_and_grads(x, y, w, warmup=warmup,
+                                          masks=masks)
+    loss_c, grads_c = card.loss_and_grads(
+        x.to(cuda), y.to(cuda), w.to(cuda), warmup=warmup,
+        masks=[m.to(cuda) for m in masks])
+    assert abs(float(loss_c) / float(loss_h) - 1.0) <= 1e-5
+    for (name, _), gc_, gh in zip(host.model.named_parameters(), grads_c,
+                                  grads_h):
+        scale = float(gh.abs().max())
+        assert float((gc_.cpu() - gh).abs().max()) <= 1e-4 * scale, name
+    for t in (card, host):
+        t._make_optimizer(3e-4)
+    assert bool(card.optimizer.step([g.to(cuda) for g in grads_h]))
+    assert bool(host.optimizer.step(grads_h))
+    torch.testing.assert_close(card.optimizer._update.cpu(),
+                               host.optimizer._update, rtol=0, atol=1e-6)
