@@ -11,7 +11,14 @@ Layer map:
             their plain versions (``pathgen_cuda``), and the streaming
             engine (``engine``).
   kernels/  builds ``csrc/*.cu`` with ``nvcc`` at first use (sm_90a).
-  cli/      ``mcop-price-torch``.
+  parallel/ the multi-device forms: one process per device in a
+            ``torch.distributed`` group (``make_mesh``, the sharded
+            runners); the pricers, the pipeline and the trainer take
+            ``mesh=``.
+  utils/    logging, ``torch.profiler`` traces and spans, the kernel
+            build cache.
+  cli/      ``mcop-price-torch``, ``mcop-prediction-gen-torch``,
+            ``mcop-train-nn-torch``, ``mcop-evaluate-nn-torch``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU each kernel wrapper runs its plain PyTorch version.

@@ -6,11 +6,17 @@ defaults, the reference's constants, plus ``--device``).
 Runs on the CUDA device unless ``--device cpu`` is given; there is no
 fallback.  ``--qmc`` drives each row's paths from a randomized Sobol set
 (one base per bucket, a digital shift per row; with ``--antithetic`` it
-exits 2).  ``--mesh-devices`` above 1 and ``--trace-dir`` (ROADMAP A15)
-are not ported and exit 2.
+exits 2).  ``--mesh-devices N`` shards each batch's rows over a mesh of N
+processes, one a device (``parallel.make_mesh``): start N of them with
+torchrun; a mesh larger than the world raises ValueError.  Rank 0 writes
+the output.  ``--trace-dir`` writes a ``torch.profiler`` Chrome trace of
+the run there.
 
   mcop-prediction-gen-torch --option-csv option_data.csv \\
       --spot-csv nasdaq_stock_data.csv --output-csv out.csv --device cpu
+  torchrun --nproc-per-node 2 -m \\
+      montecarlooptionspricer_tpu_torch.cli.prediction_gen --device cpu \\
+      --mesh-devices 2 --output-csv out.csv
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import logging
 import sys
 
 from ..config import MarketDefaults, PipelineConfig, PricingConfig
+from ..utils import device_trace, enable_persistent_cache
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,8 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--r", type=float, default=d_mkt.r)
     p.add_argument("--dividend", type=float, default=d_mkt.dividend)
     p.add_argument("--mesh-devices", type=int, default=0,
-                   help="devices to shard row batches over (0 or 1: one "
-                        "device; more is not ported, ROADMAP A15)")
+                   help="devices to shard row batches over (0: no mesh; "
+                        "N: one process a device, started by torchrun)")
     p.add_argument("--qmc", action="store_true",
                    help="drive path generation with randomized quasi-Monte "
                         "Carlo (scrambled Sobol): several-fold lower price "
@@ -59,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="append to an existing output CSV, continuing from "
                         "the first unwritten row")
     p.add_argument("--trace-dir", default="",
-                   help="profiler trace directory (not ported, ROADMAP A15)")
+                   help="write a torch.profiler Chrome trace of the run "
+                        "here")
     p.add_argument("--max-memory-gb", type=float,
                    default=d_pipe.max_memory_bytes / 1024**3,
                    help="health-check kill threshold on peak RSS")
@@ -73,11 +81,8 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
+    enable_persistent_cache()
     args = build_parser().parse_args(argv)
-    if args.mesh_devices > 1 or args.trace_dir:
-        print("error: --mesh-devices > 1 and --trace-dir are not yet ported "
-              "to the PyTorch/CUDA package (ROADMAP A15)", file=sys.stderr)
-        return 2
     config = PipelineConfig(option_csv=args.option_csv,
                             spot_csv=args.spot_csv,
                             output_csv=args.output_csv,
@@ -97,9 +102,15 @@ def main(argv=None) -> int:
         return 2
     market = MarketDefaults(r=args.r, dividend=args.dividend)
 
+    mesh = None
+    if args.mesh_devices:
+        from ..parallel import make_mesh
+        mesh = make_mesh(args.mesh_devices, args.device)
+
     from ..pipeline.driver import run_pipeline
-    return run_pipeline(config, pricing, market, resume=args.resume,
-                        device=args.device)
+    with device_trace(args.trace_dir):
+        return run_pipeline(config, pricing, market, mesh,
+                            resume=args.resume, device=args.device)
 
 
 if __name__ == "__main__":

@@ -75,6 +75,7 @@ import time
 
 from ..config import MarketDefaults
 from ..ops.fgn import next_pow2
+from ..utils import enable_persistent_cache
 
 log = logging.getLogger(__name__)
 
@@ -169,6 +170,7 @@ def _j(v):
 
 
 def main(argv=None) -> int:
+    enable_persistent_cache()
     args = build_parser().parse_args(argv)
     if args.antithetic and args.qmc:
         print("error: --antithetic is incompatible with --qmc (the Sobol "

@@ -23,7 +23,7 @@ import sys
 import numpy as np
 
 from ..config import INPUT_COLUMNS, TARGET_COLUMN, TrainConfig
-from ..utils import setup_logging
+from ..utils import enable_persistent_cache, setup_logging
 
 log = logging.getLogger(__name__)
 
@@ -54,6 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     setup_logging()
+    enable_persistent_cache()
     args = build_parser().parse_args(argv)
 
     from ..nn.data import read_csv

@@ -3,13 +3,14 @@
 Each build unit (``UNITS``: a ``csrc/*.cu`` source and its defines) is
 compiled at first use with ``nvcc`` for ``sm_90a`` into a shared library
 of its own with a plain C interface, under ``build/kernels/`` at the root
-of the checkout (a directory ``.gitignore`` lists), and loaded with
-``ctypes``.  The units compile in parallel, one ``nvcc`` each, all started
-together, so the build's wall is its slowest unit's: every kernel source
-but P1's builds its bf16 bodies apart from the float32 ones, and K1/K2's
-and K6/K7's seeded bodies apart from their noise-in ones
-(``csrc/build_unit.cuh``; a unit's entries carry the suffix of what it
-holds, ``entry`` picks one).  A library's file name carries a hash of its
+of the checkout (a directory ``.gitignore`` lists; the environment
+variable ``MCOP_KERNEL_CACHE_DIR`` moves it, ``utils.jit_cache``), and
+loaded with ``ctypes``.  The units compile in parallel, one ``nvcc``
+each, all started together, so the build's wall is its slowest unit's:
+every kernel source but P1's builds its bf16 bodies apart from the
+float32 ones, and K1/K2's and K6/K7's seeded bodies apart from their
+noise-in ones (``csrc/build_unit.cuh``; a unit's entries carry the
+suffix of what it holds, ``entry`` picks one).  A library's file name carries a hash of its
 source, the shared headers, the flags and the defines, so an edited
 source is rebuilt and a stale library never loads.  Nothing here runs at
 import time.
@@ -49,7 +50,8 @@ HEADERS = (CSRC / "philox.cuh", CSRC / "fgn_tile.cuh",
            CSRC / "quad_policy.cuh", CSRC / "mma_bf16.cuh",
            CSRC / "slab_tile.cuh", CSRC / "build_unit.cuh",
            CSRC / "strip_sweep.cuh")
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+DEFAULT_BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+CACHE_ENV = "MCOP_KERNEL_CACHE_DIR"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -71,11 +73,17 @@ def nvcc_path() -> str:
                             "source at first use")
 
 
+def build_dir() -> Path:
+    """Where the libraries are built and found: ``$MCOP_KERNEL_CACHE_DIR``,
+    else ``DEFAULT_BUILD_DIR``."""
+    return Path(os.environ.get(CACHE_ENV) or DEFAULT_BUILD_DIR)
+
+
 def library_path(name: str, src: Path, flags: tuple = ()) -> Path:
     h = hashlib.sha256(" ".join((*NVCC_FLAGS, *flags)).encode())
     for f in (src, *HEADERS):
         h.update(f.read_bytes())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(verbose: bool = False,
@@ -88,7 +96,7 @@ def build(verbose: bool = False,
     todo = [(unit, lib) for unit, lib in zip(units, libs) if not lib.exists()]
     if not todo:
         return libs, 0.0, {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     procs = []

@@ -38,9 +38,10 @@ def exercise_boundary(t, maturity, strike, r, dividend, sigma, is_call):
 
 
 def asymptotic_price(paths, r, strike, maturity, dt, is_call, sigma,
-                     dividend) -> torch.Tensor:
+                     dividend, group=None) -> torch.Tensor:
     """[rows] means over paths of the best discounted payoff among the
-    live steps where the path lies in the exercise region."""
+    live steps where the path lies in the exercise region; with a process
+    ``group`` over every rank's shard of the paths."""
     rows, _, m = paths.shape
     dev = paths.device
 
@@ -63,4 +64,4 @@ def asymptotic_price(paths, r, strike, maturity, dt, is_call, sigma,
         is_call[:, None], paths, col(strike, torch.float32)[:, None])
     mask = finite & in_region & valid_t[:, None, :]
     best = torch.amax(torch.where(mask, disc, 0.0), dim=-1)
-    return row_mean(best)
+    return row_mean(best, group)

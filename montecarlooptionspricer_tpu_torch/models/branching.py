@@ -55,10 +55,12 @@ def _exercise_window(paths, dt, maturity, exercise_times, n_steps):
 
 
 def lower_bound(paths, r, strike, maturity, dt, is_call,
-                exercise_times=None, n_steps=None) -> torch.Tensor:
+                exercise_times=None, n_steps=None,
+                group=None) -> torch.Tensor:
     """[rows] first-positive stopping values: each path stops at the first
     live exercise time with a strictly positive discounted payoff (0 when
-    none).  ``exercise_times`` defaults to every column but the last."""
+    none).  ``exercise_times`` defaults to every column but the last.
+    ``group``: the mean runs over every rank's shard of the paths."""
     ex, valid = _exercise_window(paths, dt, maturity, exercise_times,
                                  n_steps)
     dp = _discounted_payoffs(paths, r, strike, dt, is_call)[..., ex]
@@ -69,18 +71,21 @@ def lower_bound(paths, r, strike, maturity, dt, is_call,
     idx = torch.arange(n_ex, device=paths.device)
     first = torch.amin(torch.where(pos, idx, n_ex), dim=-1)
     val = torch.gather(dp, -1, torch.clamp_max(first, n_ex - 1)[..., None])
-    return row_mean(torch.where(first < n_ex, val[..., 0], 0.0))
+    return row_mean(torch.where(first < n_ex, val[..., 0], 0.0), group)
 
 
 def upper_bound(paths, r, strike, maturity, dt, is_call, num_branches: int,
                 exercise_times=None, rp: Optional[BranchIndices] = None,
-                n_steps=None) -> torch.Tensor:
+                n_steps=None, group=None) -> torch.Tensor:
     """[rows] sub-simulation upper bounds.  At each live exercise time the
     value is max(discounted payoff, continuation), the continuation being
     the mean over ``num_branches`` drawn paths of their best discounted
     payoff from the next column on (0 at the row's final exercise time,
     n_steps - 1 when ``n_steps`` is given); a path's bound is its best
-    such value, floored at 0."""
+    such value, floored at 0.  With a process ``group`` the paths are this
+    rank's shard: the branches draw among them (``rp`` indexes the
+    shard's paths, as JAX's branches do under ``shard_map``), and the mean
+    runs over every rank's."""
     if rp is None:
         raise ValueError("upper_bound needs branch indices rp: a [rows, "
                          "paths, T, B] tensor or a callable of the branch")
@@ -114,16 +119,16 @@ def upper_bound(paths, r, strike, maturity, dt, is_call, num_branches: int,
     cont = torch.where(has_future[:, None, :], cont, 0.0)
     better = torch.maximum(dp, cont)
     best = torch.amax(torch.where(valid[:, None, :], better, 0.0), dim=-1)
-    return row_mean(torch.clamp_min(best, 0.0))
+    return row_mean(torch.clamp_min(best, 0.0), group)
 
 
 def branching_price(paths, r, strike, maturity, dt, is_call,
                     num_branches: int, exercise_times=None,
                     rp: Optional[BranchIndices] = None,
-                    n_steps=None) -> torch.Tensor:
-    """[rows] 0.5 * (lower + upper)."""
+                    n_steps=None, group=None) -> torch.Tensor:
+    """[rows] 0.5 * (lower + upper), each over the ranks of ``group``."""
     lo = lower_bound(paths, r, strike, maturity, dt, is_call, exercise_times,
-                     n_steps=n_steps)
+                     n_steps=n_steps, group=group)
     up = upper_bound(paths, r, strike, maturity, dt, is_call, num_branches,
-                     exercise_times, rp=rp, n_steps=n_steps)
+                     exercise_times, rp=rp, n_steps=n_steps, group=group)
     return 0.5 * (lo + up)

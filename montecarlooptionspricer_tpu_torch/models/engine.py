@@ -85,6 +85,18 @@ generator.  A configuration outside every noise-in kernel streams through
 the generic stream with a warning; Greeks under ``qmc`` take the jvp
 Greeks stream on the QMC generator, as JAX's do.
 
+Under a ``mesh`` (``parallel.mesh.Mesh``, counterpart: the ``mesh=`` of
+the JAX pricers) each rank of the mesh's process group prices its own
+chunks of every loop step, so one "chunk" of ``n_paths`` means
+``chunk_paths`` x mesh size paths.  Rank r adds (r + 1) << 20 to the
+stream index of every carrier it draws (the pilot's, each chunk's, the QMC
+and generic-stream carriers: JAX's Pallas ``shard_mix``); its pilot is its
+shard of a pilot of ``pilot_paths`` x size paths, whose regression
+moments, control-variate moments, hedge fits and dual scale are
+all-reduced, so every rank holds the same fits.  Each rank sums its chunk
+totals on its device and one collective at the end pools the float64
+totals and squares: only those partial sums cross devices.
+
 ``fgn_matmul_dtype="bfloat16"`` (counterpart: the JAX field of that name,
 JAX's bench default at long horizons) runs the fGN product on bf16 inputs
 with float32 sums, in every estimator, fGN and policy form of
@@ -136,10 +148,11 @@ import torch
 from ..ops import qmc as qmc_ops
 from ..ops.fgn import next_pow2
 from ..ops.payoff import payoff
-from ..ops.reductions import global_mean
+from ..ops.reductions import gather_ranks, global_mean, psum_all, psum_if
 from ..ops.regression import (PolyFit, eval_poly, fit_poly_columns,
                               polyfit_from_numpy)  # noqa: F401
 from ..ops.timegrid import step_mask
+from ..parallel.mesh import mesh_device
 from . import (chain_cuda, greeks_cuda, pathgen_cuda, pathgen_factored_cuda,
                pathgen_stream, pathgen_tiled_cuda)
 from .greeks_cuda import GREEK_ORDER  # noqa: F401
@@ -404,12 +417,37 @@ def _pilot_stream_keys(seed: int):
     return (run, PILOT_STREAM), (run, 0)
 
 
-def _check_pallas_chunk_range(n_chunks: int) -> None:
-    """Keep the stream index inside the seed scheme's int32 ranges:
-    fewer than 2^20 chunks, below the pilot marker."""
+def _check_pallas_chunk_range(n_chunks: int, n_dev: int = 1) -> None:
+    """Keep the stream index inside the seed scheme's int32 ranges: fewer
+    than 2^20 chunks a rank, and at most 256 ranks, whose offsets (r + 1)
+    << 20 stay below the pilot marker 3 << 28 plus them; past either bound
+    two chunks or ranks would draw the same stream."""
     if n_chunks >= 1 << 20:
         raise ValueError(f"{n_chunks} chunks exceeds the seed scheme's "
                          "2^20 range; raise chunk_paths")
+    if n_dev > 256:
+        raise ValueError("the seed scheme supports <= 256 shards")
+
+
+def _shard_offset(mesh) -> int:
+    """The stream-index offset of this rank's carriers: 0 without a mesh,
+    (rank + 1) << 20 on one (JAX's Pallas ``shard_mix``)."""
+    return 0 if mesh is None else (mesh.rank + 1) << 20
+
+
+def _pool_centred(total, sq, center, n_local: int, group):
+    """(total, sum of squares, center) of every rank's chunk totals, from
+    each rank's float64 ``total`` and ``sq`` about its own ``center`` (its
+    first chunk's total), in one collective.  The squares move to rank 0's
+    center b by the exact shift sum (c - b)^2 = sum (c - a)^2
+    + 2 (a - b) sum (c - a) + n (a - b)^2 in float64, where
+    sum (c - a) = total - n a."""
+    if group is None:
+        return total, sq, center
+    t, q, a = gather_ranks(torch.stack([total, sq, center]), group).unbind(1)
+    d = a - a[0]
+    q = q + 2.0 * d * (t - n_local * a) + n_local * d * d
+    return t.sum(0), q.sum(0), a[0]
 
 
 def _chunk_stderr(totals, sumsq, m: int, per_chunk: int,
@@ -634,7 +672,7 @@ _HEDGE_FIT_FLOATS = 1 << 26
 
 
 def fit_hedge_deltas(pilot, fits: PolyFit, r, strike, maturity, dt,
-                     is_call: bool) -> PolyFit:
+                     is_call: bool, group=None) -> PolyFit:
     """[m - 1] quartic fits of the realized value-to-go on S_k over all
     pilot paths, whose derivatives drive the dual's delta hedge
     (``_hedge_martingale``).  The value-to-go at step k is the discounted
@@ -642,7 +680,8 @@ def fit_hedge_deltas(pilot, fits: PolyFit, r, strike, maturity, dt,
     time-k dollars.  The JAX engine vmaps its masked fit over the steps;
     here ``fit_poly_columns`` fits a group of steps at once from power
     sums, in groups that bound the memory of the pilot's transposed
-    planes."""
+    planes.  With a process ``group`` the pilot is this rank's shard and
+    the sums pool over the group's ranks."""
     n, m = pilot.shape
     dev = pilot.device
     disc = _time_discount(m, r, dt, dev)
@@ -662,10 +701,11 @@ def fit_hedge_deltas(pilot, fits: PolyFit, r, strike, maturity, dt,
     del idx
     vtg = (p * disc[None, :]).gather(1, tau).div_(disc[None, :])[:, : m - 1]
     del tau, p
-    group = max(1, _HEDGE_FIT_FLOATS // n)
-    parts = [fit_poly_columns(s_steps[:, j:j + group].T,
-                              vtg[:, j:j + group].T, HEDGE_POLY_ORDER)
-             for j in range(0, m - 1, group)]
+    step = max(1, _HEDGE_FIT_FLOATS // n)
+    parts = [fit_poly_columns(s_steps[:, j:j + step].T,
+                              vtg[:, j:j + step].T, HEDGE_POLY_ORDER,
+                              group=group)
+             for j in range(0, m - 1, step)]
     return PolyFit(*(torch.cat(f) for f in zip(*parts)))
 
 
@@ -689,14 +729,16 @@ def dual_upper_values(paths, delta_fits: PolyFit, lam, r, strike,
 
 
 def fit_dual_scale(paths, delta_fits: PolyFit, r, strike, maturity, dt,
-                   is_call: bool) -> torch.Tensor:
+                   is_call: bool, group=None) -> torch.Tensor:
     """The hedge scale lam (a 0-d float32 tensor on the paths' device)
     that minimizes the pilot's dual bound, as the JAX engine searches it:
     41 lam in [0, 2]; where the coarse argmin lands on the last point,
     41 more in [2, 10]; then 21 points of +-0.05 (+-0.1 on the extended
     grid) around the winner.  Z and the unit-scale martingale are hoisted
     out of the sweep, one [n, m] pass per lam; ties go to the first
-    index.  The coarse argmin is read on the host once."""
+    index.  The coarse argmin is read on the host once.  With a process
+    ``group`` each lam's mean pools every rank's shard of the pilot, so
+    the ranks pick the same lam."""
     m = paths.shape[1]
     dev = paths.device
     z = payoff(is_call, paths, strike) * _time_discount(m, r, dt, dev)
@@ -707,7 +749,7 @@ def fit_dual_scale(paths, delta_fits: PolyFit, r, strike, maturity, dt,
 
     def obj(lams: torch.Tensor) -> torch.Tensor:
         return torch.stack([global_mean(torch.max(z - lam * mart,
-                                                  dim=1).values)
+                                                  dim=1).values, group)
                             for lam in lams])
 
     f32 = dict(dtype=torch.float32, device=dev)
@@ -736,17 +778,21 @@ class CVFit(NamedTuple):
 
 
 def control_fit(paths, fits: PolyFit, r, strike, maturity, dt,
-                is_call: bool, chunk_paths: int) -> tuple[float, float]:
+                is_call: bool, chunk_paths: int,
+                group=None) -> tuple[float, float]:
     """(beta, center) from pilot ``paths`` under ``fits``: beta from the
     centred moments of the policy values and the control, center = (mean
-    value - beta mean control) * chunk_paths, in the paths' float32."""
+    value - beta mean control) * chunk_paths, in the paths' float32.  With
+    a process ``group`` the means and moments pool every rank's shard of
+    the pilot (JAX's pooled beta), so the ranks share beta and center."""
     av = lsm_policy_path_values(paths, fits, r, strike, maturity, dt,
                                 is_call)
     cv = martingale_control(paths, r, dt)
-    av_m, cv_m = torch.mean(av), torch.mean(cv)
+    av_m, cv_m = global_mean(av, group), global_mean(cv, group)
     cvc, avc = cv - cv_m, av - av_m
-    beta = torch.sum(cvc * avc) / torch.clamp_min(torch.sum(cvc * cvc),
-                                                  1e-12)
+    cross, var = psum_all(torch.sum(cvc * avc), torch.sum(cvc * cvc),
+                          group=group)
+    beta = cross / torch.clamp_min(var, 1e-12)
     center = (av_m - beta * cv_m) * float(chunk_paths)
     return float(beta), float(center)
 
@@ -856,11 +902,14 @@ class _FusedStream:
     chunk-total stderrs.  ``stream_consts`` are the generic stream's
     constants wherever whole paths come from it: on the "stream" family
     (they are ``consts``), and under ``qmc`` for the pilot and the
-    bounds' chunks (then beside the kernels' ``consts``)."""
+    bounds' chunks (then beside the kernels' ``consts``).  Under ``mesh``
+    the device is the mesh's (of ``device``'s type), and ``_group`` the
+    process group every fit and total pools over (None without one)."""
 
     def __init__(self, s0, xi, h, eta, r, maturity, is_call: bool,
-                 config: StreamConfig, device, family: Optional[str] = None):
-        device = torch.device(device)
+                 config: StreamConfig, device, family: Optional[str] = None,
+                 mesh=None):
+        device = mesh_device(mesh, device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run "
                                "the plain versions")
@@ -870,6 +919,10 @@ class _FusedStream:
             raise ValueError("chunk_paths and pilot_paths must divide by 16")
         self.config = config
         self.device = device
+        self.mesh = mesh
+        self.n_dev = 1 if mesh is None else mesh.size
+        self._group = None if mesh is None else mesh.group
+        self._shard = _shard_offset(mesh)
         self.s0, self.r = float(s0), float(r)
         self.maturity = float(maturity)
         self.is_call = bool(is_call)
@@ -931,11 +984,18 @@ class _FusedStream:
                 "rides the generic path stream at reduced throughput", what,
                 self.config.n_steps, self.config.poly_order)
 
+    def _shard_mix(self, carrier) -> tuple:
+        """``carrier`` with this rank's offset added to its stream index."""
+        run, index = carrier
+        return run, index + self._shard
+
     def _pilot(self, carrier) -> torch.Tensor:
         """Pilot block from the (run_word, stream_index) ``carrier``
         through the family's path kernel, or the generic stream's
         generator (plain under ``antithetic``; its QMC generator under
-        ``qmc``)."""
+        ``qmc``); under a mesh this rank's shard of the pilot, from the
+        carrier shifted by its offset."""
+        carrier = self._shard_mix(carrier)
         if self.stream_consts is not None:
             return pathgen_stream.chunk_paths(
                 self.stream_consts, self.config.pilot_paths, carrier)
@@ -1019,11 +1079,13 @@ class _FusedStream:
         one backward pass, the steps past ``n_live`` padding."""
         consts = consts or self.jvp_consts
         pilot = pathgen_stream.chunk_paths(consts, self.config.pilot_paths,
-                                           carrier, n_live=n_live)
+                                           self._shard_mix(carrier),
+                                           n_live=n_live)
         _, fits = lsm_fit(pilot, consts.r, strike,
                           self.maturity if maturity is None else maturity,
                           self.config.dt, self.is_call,
-                          self.config.poly_order, n_steps=n_live)
+                          self.config.poly_order, n_steps=n_live,
+                          group=self._group)
         return fits
 
     def _jvp_stream(self, fits: PolyFit, strike, seed: int,
@@ -1055,13 +1117,19 @@ class _FusedStream:
                             with_stderr, carriers=True)
 
     def _n_paths(self, n_paths: Optional[int]) -> int:
+        """``n_paths`` (default ``config.n_paths``), checked to be a
+        positive multiple of chunk_paths x the mesh size (one loop step's
+        paths) inside the seed scheme's ranges."""
         if n_paths is None:
             n_paths = self.config.n_paths
-        n_chunks, rem = divmod(n_paths, self.config.chunk_paths)
+        per_step = self.config.chunk_paths * self.n_dev
+        n_chunks, rem = divmod(n_paths, per_step)
         if rem or n_chunks < 1:
-            raise ValueError(f"n_paths={n_paths} is not a positive multiple "
-                             f"of chunk_paths={self.config.chunk_paths}")
-        _check_pallas_chunk_range(n_chunks)
+            raise ValueError(
+                f"n_paths={n_paths} is not a positive multiple of chunk_paths"
+                f"={self.config.chunk_paths} (x {self.n_dev} devices: "
+                f"{per_step})")
+        _check_pallas_chunk_range(n_chunks, self.n_dev)
         return n_paths
 
     def _groups(self, seed: int, n_paths: Optional[int], noise,
@@ -1073,17 +1141,21 @@ class _FusedStream:
         (a (z[i], dw[i]) pair of the stream's (z, dw)).  ``whole_paths``:
         chunks of whole paths (the bounds'), from the generic stream
         wherever ``stream_consts`` are set.  ``carriers``: the generic
-        stream's seeding on any family (the jvp Greeks')."""
+        stream's seeding on any family (the jvp Greeks').  Under a mesh
+        the groups list this rank's chunks, n_paths / (chunk_paths x size)
+        of them, at stream indices past its offset, and ``noise`` holds
+        this rank's chunks."""
         chunk = self.config.chunk_paths
         stream = carriers or self.kernel_family == "stream" or (
             whole_paths and self.stream_consts is not None)
         qmc_kernel = not stream and self._fused_qmc is not None
         if noise is not None:
             noise = list(zip(*noise)) if stream else noise
-            n_paths = len(noise) * chunk
+            n_paths = len(noise) * chunk * self.n_dev
         n_paths = self._n_paths(n_paths)
-        n_chunks = n_paths // chunk
+        n_chunks = n_paths // (chunk * self.n_dev)
         _, (run, start) = _pilot_stream_keys(seed)
+        start += self._shard
 
         def seeded(i):
             if stream:
@@ -1112,7 +1184,9 @@ class _FusedStream:
         (the stderr's ``center``; any constant gives the same variance):
         float32 squares of raw totals cancel where the chunks' spread is
         small against their mean, as under ``qmc``.  ``carriers`` as
-        ``_groups`` takes it."""
+        ``_groups`` takes it.  Under a mesh each rank streams its own
+        chunks about its own first total, and ``_pool_centred`` pools the
+        ranks' float64 sums in one collective after the last group."""
         chunk = self.config.chunk_paths
         n_paths, groups = self._groups(seed, n_paths, noise,
                                        carriers=carriers)
@@ -1132,14 +1206,17 @@ class _FusedStream:
                 tot_g = tot_g + c
                 sq_g = sq_g + (c - center) ** 2
             all0 = v0 * float(count * chunk)
-            total = total + torch.where(ex0, all0, tot_g).double().cpu()
-            sq = sq + torch.where(ex0, 0.0, sq_g).double().cpu()
-        total, sq = total.numpy(), sq.numpy()
+            total = total + torch.where(ex0, all0, tot_g).double()
+            sq = sq + torch.where(ex0, 0.0, sq_g).double()
+        total, sq, center = _pool_centred(
+            total, sq, center.double(), n_paths // (chunk * self.n_dev),
+            self._group)
+        total, sq = total.cpu().numpy(), sq.cpu().numpy()
         if not with_stderr:
             return total / n_paths
         return (total / n_paths,
                 _chunk_stderr(total, sq, n_paths // chunk, chunk,
-                              center=center.double().cpu().numpy()))
+                              center=center.cpu().numpy()))
 
     def _stream_cv(self, chunk_sum, seed: int, n_paths: Optional[int],
                    noise, ex0, p0: float, cv: CVFit, with_stderr: bool):
@@ -1149,14 +1226,16 @@ class _FusedStream:
         accumulate centred on ``cv.center`` in float32 on the device, and
         the price is sum a / n - beta (sum c / n - s0).  Time-0 exercise
         sets a = p0 n and c = s0 n, so the correction vanishes and every
-        corrected total is the same constant (stderr 0)."""
+        corrected total is the same constant (stderr 0).  Under a mesh the
+        ranks share the center (a pooled fit's), so their float64 sums add
+        in one collective after the last group."""
         chunk = self.config.chunk_paths
         n_paths, groups = self._groups(seed, n_paths, noise)
         f32 = dict(dtype=torch.float32, device=self.device)
         beta, center = (torch.tensor(v, **f32) for v in (cv.beta, cv.center))
         p0_t, s0_t = (torch.tensor(v, **f32) for v in (p0, self.s0))
         t0 = (p0_t - beta * s0_t) * float(chunk) - center
-        amer = ctl = sq = 0.0
+        acc = 0.0
         for group in groups:
             count = len(group)
             a_g = c_g = q_g = 0.0
@@ -1165,12 +1244,11 @@ class _FusedStream:
                 t = da - beta * dc - center
                 a_g, c_g, q_g = a_g + da, c_g + dc, q_g + t * t
             n_f = torch.tensor(float(count * chunk), **f32)
-            sums = torch.stack([
+            acc = acc + torch.stack([
                 torch.where(ex0, p0_t * n_f, a_g),
                 torch.where(ex0, s0_t * n_f, c_g),
-                torch.where(ex0, float(count) * t0 * t0, q_g)]).double().cpu()
-            amer, ctl, sq = (amer + float(sums[0]), ctl + float(sums[1]),
-                             sq + float(sums[2]))
+                torch.where(ex0, float(count) * t0 * t0, q_g)]).double()
+        amer, ctl, sq = psum_if(acc, self._group).tolist()
         value = amer / n_paths - cv.beta * (ctl / n_paths - self.s0)
         if not with_stderr:
             return value
@@ -1192,17 +1270,24 @@ class StreamingPricer(_FusedStream):
     Under ``qmc`` the pilot is the generic stream's QMC block and each
     chunk's QMC noise streams through the family's priced kernel
     (``_kernel_chunks``), or on the "stream" family through the stream's
-    QMC generator, with a warning when the kernels were asked for."""
+    QMC generator, with a warning when the kernels were asked for.
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``; counterpart: the JAX
+    ``mesh=``) every rank of its group, one process per device, runs this
+    pricer on its own device: each prices its own chunks, and the fits and
+    the chunk totals pool over the group (module docstring), so every
+    method returns the same numbers on every rank."""
 
     def __init__(self, s0, xi, h, eta, rho, r, strike, maturity,
-                 is_call: bool, config: StreamConfig, device="cuda"):
+                 is_call: bool, config: StreamConfig, device="cuda",
+                 mesh=None):
         del rho  # the price Brownian is drawn independent of the fGN noise
         family = resolve_kernel_family(config.n_steps, config.fgn_form,
                                        config.tiled_impl, config.pathgen_impl,
                                        config.poly_order)
         self.quadratic = config.policy_form == "quadratic"
         super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
-                         device, family)
+                         device, family, mesh)
         _check_pairing(self.quadratic, self.kernel_family, config,
                        "policy_form")
         self._warn_stream_fallback("this configuration")
@@ -1225,7 +1310,7 @@ class StreamingPricer(_FusedStream):
         pilot = self._pilot(carrier)
         _, fits = lsm_fit(pilot, self.r, self.strike, self.maturity,
                           self.config.dt, self.is_call,
-                          self.config.poly_order)
+                          self.config.poly_order, group=self._group)
         return pilot, fits
 
     def fit(self, carrier) -> Union[PolyFit, CVFit]:
@@ -1238,7 +1323,7 @@ class StreamingPricer(_FusedStream):
             return fits
         return CVFit(fits, *control_fit(
             pilot, fits, self.r, self.strike, self.maturity, self.config.dt,
-            self.is_call, self.config.chunk_paths))
+            self.is_call, self.config.chunk_paths, self._group))
 
     def price(self, seed: int, n_paths: Optional[int] = None,
               with_stderr: bool = False):
@@ -1352,11 +1437,12 @@ class StreamingPricer(_FusedStream):
         pilot, fits = self._policy_fit(carrier)
         args = (self.r, self.strike, self.maturity, self.config.dt,
                 self.is_call)
-        deltas = fit_hedge_deltas(pilot, fits, *args)
-        lam = fit_dual_scale(pilot, deltas, *args)
+        deltas = fit_hedge_deltas(pilot, fits, *args, group=self._group)
+        lam = fit_dual_scale(pilot, deltas, *args, group=self._group)
         lv = lsm_policy_path_values(pilot, fits, *args)
         uv = dual_upper_values(pilot, deltas, lam, *args)
-        cc = torch.stack([global_mean(lv), global_mean(uv)]) \
+        cc = torch.stack([global_mean(lv, self._group),
+                          global_mean(uv, self._group)]) \
             * float(self.config.chunk_paths)
         return fits, deltas, lam, cc
 
@@ -1368,7 +1454,8 @@ class StreamingPricer(_FusedStream):
         sum (``lsm_policy_value``) and upper sum (``dual_upper_values``)
         and the squares of both about cc, summed in float32 on the device
         per group of ``chunks_per_call`` chunks and in float64 across
-        groups.  ``noise`` takes the layouts of ``price_with_fit``."""
+        groups (and across a mesh's ranks, which share cc, in one
+        collective).  ``noise`` takes the layouts of ``price_with_fit``."""
         self._require_bounds()
         fits, deltas, lam, cc = fit
         chunk = self.config.chunk_paths
@@ -1376,7 +1463,7 @@ class StreamingPricer(_FusedStream):
                                        whole_paths=True)
         args = (self.r, self.strike, self.maturity, self.config.dt,
                 self.is_call)
-        lo = up = lsq = usq = 0.0
+        acc = 0.0
         for group in groups:
             sums = torch.zeros(4, dtype=torch.float32, device=self.device)
             for kw in group:
@@ -1386,8 +1473,8 @@ class StreamingPricer(_FusedStream):
                 del paths
                 sums += torch.stack([a, b, (a - cc[0]) ** 2,
                                      (b - cc[1]) ** 2])
-            a, b, ql, qu = sums.double().cpu().tolist()
-            lo, up, lsq, usq = lo + a, up + b, lsq + ql, usq + qu
+            acc = acc + sums.double()
+        lo, up, lsq, usq = psum_if(acc, self._group).tolist()
         if not with_stderr:
             return lo / n_paths, up / n_paths
         m = n_paths // chunk
@@ -1535,12 +1622,15 @@ class StreamingChainPricer(_FusedStream):
     at the construction market prices as the non-bucketed stream does.
     Its ``price_and_greeks`` is the jvp over that per-call market, on the
     fits of ``price``; a plain bucketed pricer has no Greeks, as in JAX.
-    Runs on ``device`` ("cuda" unless the caller asks for "cpu")."""
+    Runs on ``device`` ("cuda" unless the caller asks for "cpu").  With
+    ``mesh`` every rank prices its own chunks of each method, bucketed and
+    traced-market calls included, on fits pooled over the mesh's group,
+    as ``StreamingPricer`` does."""
 
     def __init__(self, s0, xi, h, eta, rho, r, strikes, maturity,
                  is_call: bool, config: StreamConfig, device="cuda",
                  bucketed: bool = False, traced_h: bool = False,
-                 traced_market: bool = False):
+                 traced_market: bool = False, mesh=None):
         del rho  # the price Brownian is drawn independent of the fGN noise
         traced_market = bool(traced_market or traced_h)
         if traced_market and not bucketed:
@@ -1558,7 +1648,7 @@ class StreamingChainPricer(_FusedStream):
         self._traced_market = traced_market
         family = "stream" if bucketed else chain_family(config)
         super().__init__(s0, xi, h, eta, r, maturity, is_call, config,
-                         device, family)
+                         device, family, mesh)
         self.quadratic = config.chain_policy_form == "quadratic"
         _check_pairing(self.quadratic, family, config, "chain_policy_form")
         self.strikes = self._strip(strikes)
@@ -1670,7 +1760,7 @@ class StreamingChainPricer(_FusedStream):
                                  call.n_live)
         _, fits = lsm_fit(self._pilot(carrier), self.r, strip,
                           self.maturity, self.config.dt, self.is_call,
-                          self.config.poly_order)
+                          self.config.poly_order, group=self._group)
         return fits
 
     def _tables(self, fits: PolyFit, strip: torch.Tensor) -> torch.Tensor:

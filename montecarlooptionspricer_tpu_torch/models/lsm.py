@@ -27,7 +27,7 @@ import math
 import torch
 
 from ..ops.payoff import payoff
-from ..ops.reductions import global_mean, row_mean, row_sum
+from ..ops.reductions import global_mean, mean_last, psum_if, row_mean, row_sum
 from ..ops.regression import PolyFit, eval_poly, fit_poly_masked
 from ..ops.rows import per_row
 from ..ops.timegrid import step_mask, step_mask_rows
@@ -36,22 +36,24 @@ ITM_EPS = 1e-14
 
 
 def _exercise_step(v, s, k, disc: float, is_call, poly_order: int,
-                   decide: bool = True, total=torch.sum):
+                   decide: bool = True, total=torch.sum, group=None):
     """One backward step on carried values v [..., n] and prices s:
     (discounted carry, the step's value, the step's fit).  The value is
     max(payoff, fitted continuation) on ITM paths, or the carry where
-    ``decide`` is false or no path is ITM (per leading index)."""
+    ``decide`` is false or no path is ITM (per leading index; on any rank
+    of ``group``, whose ranks hold shards of the paths and fit the pooled
+    moments)."""
     vd = v * disc
     p = payoff(is_call, s, k)
     itm = (p > ITM_EPS).to(s.dtype)
-    fit = fit_poly_masked(s, vd, itm, poly_order, total=total)
+    fit = fit_poly_masked(s, vd, itm, poly_order, total=total, group=group)
     if not decide:
         return vd, vd, fit
     cont = eval_poly(PolyFit(fit.coeffs[..., None, :], fit.mu[..., None],
                              fit.sd[..., None]), s)
     v_exercised = torch.where(itm > 0, torch.maximum(p, cont), vd)
-    return vd, torch.where(total(itm, dim=-1, keepdim=True) > 0,
-                           v_exercised, vd), fit
+    any_itm = psum_if(total(itm, dim=-1, keepdim=True), group) > 0
+    return vd, torch.where(any_itm, v_exercised, vd), fit
 
 
 def _pad_fit(like) -> PolyFit:
@@ -62,7 +64,7 @@ def _pad_fit(like) -> PolyFit:
 
 
 def _lsm_backward(paths, r, strike, maturity, dt, is_call: bool,
-                  poly_order: int = 2, n_steps=None):
+                  poly_order: int = 2, n_steps=None, group=None):
     """(price, fits in forward step order) for paths [n, m].  ``strike`` is
     a number, or a [K] tensor of strikes sharing the paths: then every
     per-path quantity carries a leading strike axis, the price is [K] and
@@ -71,7 +73,9 @@ def _lsm_backward(paths, r, strike, maturity, dt, is_call: bool,
     n_steps of a padded block as identities (no discount, no regression
     effect), as JAX's padded scan does: the loop runs over the live steps
     only and the padded steps keep ``_pad_fit``.  ``r`` may be a 0-d
-    tensor, whose gradient then flows through the discount."""
+    tensor, whose gradient then flows through the discount.  With a
+    process ``group`` the paths are this rank's shard: every regression
+    pools its moments, and the price its mean, over the group's ranks."""
     n_paths, m = paths.shape
     disc = (torch.exp(-r * dt) if isinstance(r, torch.Tensor)
             else math.exp(-r * dt))
@@ -85,39 +89,43 @@ def _lsm_backward(paths, r, strike, maturity, dt, is_call: bool,
         raise ValueError(f"n_steps={n_steps} must be >= 1")
     for j in range(top - 1, -1, -1):
         _, v, fits[j] = _exercise_step(v, paths[:, j], k, disc, is_call,
-                                       poly_order, decide=live[j])
+                                       poly_order, decide=live[j],
+                                       group=group)
     fits[top:] = [_pad_fit(fits[0])] * (m - 1 - top)
     stacked = PolyFit(*(torch.stack([getattr(f, name) for f in fits],
                                     dim=k.dim() - 1)
                         for name in PolyFit._fields))
     if k.dim() == 1:
-        return global_mean(v), stacked
-    return torch.mean(v, dim=-1), stacked
+        return global_mean(v, group), stacked
+    return mean_last(v, group), stacked
 
 
 def lsm_price(paths, r, strike, maturity, dt, is_call: bool,
-              poly_order: int = 2, n_steps=None) -> torch.Tensor:
+              poly_order: int = 2, n_steps=None, group=None) -> torch.Tensor:
     """American option price by LSM regression on paths [n, steps + 1].
     ``n_steps`` marks the columns past a padded block's true horizon as
     padding (identity steps): the block prices as its first n_steps + 1
     columns would.  Differentiable in the paths and in a 0-d tensor ``r``
-    (``models.greeks.lsm_greeks``)."""
+    (``models.greeks.lsm_greeks``).  ``group``: the paths are this rank's
+    shard of the group's (``_lsm_backward``)."""
     if n_steps is not None:
         return lsm_price_rows(paths[None], r, strike, maturity, dt, is_call,
-                              poly_order, n_steps=n_steps)[0]
+                              poly_order, n_steps=n_steps, group=group)[0]
     price, _ = _lsm_backward(paths, r, strike, maturity, dt, is_call,
-                             poly_order)
+                             poly_order, group=group)
     return price
 
 
 def lsm_price_rows(paths, r, strike, maturity, dt, is_call,
-                   poly_order: int = 2, n_steps=None) -> torch.Tensor:
+                   poly_order: int = 2, n_steps=None,
+                   group=None) -> torch.Tensor:
     """[rows] LSM prices of [rows, paths, M] blocks, with per-row strike,
     maturity, option type and step count ([rows] tensors or numbers).
     The loop runs over the M - 1 steps, each one set of launches across
     the rows; steps j >= n_steps[row] leave that row's values as they
     are (JAX's padding semantics), and past-maturity steps only
-    discount."""
+    discount.  With a process ``group`` the paths axis is this rank's
+    shard, and the moments and means are pooled over the group."""
     rows, _, m = paths.shape
     dev = paths.device
     disc = math.exp(-r * dt)
@@ -130,15 +138,15 @@ def lsm_price_rows(paths, r, strike, maturity, dt, is_call,
     v = payoff(call, paths[..., m - 1], k)
     for j in range(m - 2, -1, -1):
         vd, v_reg, _ = _exercise_step(v, paths[..., j], k, disc, call,
-                                      poly_order, total=row_sum)
+                                      poly_order, total=row_sum, group=group)
         v_new = torch.where(live[:, j:j + 1], v_reg, vd)
         v = v_new if padded is None else torch.where(padded[:, j:j + 1], v,
                                                      v_new)
-    return row_mean(v)
+    return row_mean(v, group)
 
 
 def lsm_fit(paths, r, strike, maturity, dt, is_call: bool,
-            poly_order: int = 2, n_steps=None):
+            poly_order: int = 2, n_steps=None, group=None):
     """(price, fits): the LSM price and the per-step PolyFit, leading axis
     of length steps in forward order (index j covers step j), for use as
     an exercise policy on independent paths.  Fits at past-maturity steps
@@ -152,6 +160,9 @@ def lsm_fit(paths, r, strike, maturity, dt, is_call: bool,
     With a [K] strike tensor it fits the whole strip on the same paths in
     one backward pass (the counterpart of ``jax.vmap`` over strikes of the
     JAX function): the price is [K] and each field of the fit is [K,
-    steps, ...]."""
+    steps, ...].  With a process ``group`` (JAX's ``axis_name``) the paths
+    are this rank's shard of the pilot, and each step's regression pools
+    its moments over the group's ranks: every rank ends with the same
+    fits."""
     return _lsm_backward(paths, r, strike, maturity, dt, is_call,
-                         poly_order, n_steps)
+                         poly_order, n_steps, group)

@@ -33,8 +33,10 @@ from ..ops.timegrid import step_mask_rows
 
 def martingale_price(paths, r, strike, maturity, dt, is_call,
                      poly_order: int = 2, max_iterations: int = 5,
-                     n_steps=None) -> torch.Tensor:
-    """[rows] martingale-duality prices of [rows, paths, M] blocks."""
+                     n_steps=None, group=None) -> torch.Tensor:
+    """[rows] martingale-duality prices of [rows, paths, M] blocks; with a
+    process ``group`` the paths are this rank's shard, and the means and
+    the surrogate's regression are pooled over the group's ranks."""
     rows, n, m = paths.shape
     dev = paths.device
     mat = per_row(maturity, rows, dev)
@@ -55,7 +57,7 @@ def martingale_price(paths, r, strike, maturity, dt, is_call,
     first_max = torch.amin(torch.where(dpv == best[..., None], idx, m),
                            dim=-1)
     stop = torch.where(best > 0.0, first_max, 0)
-    primal = row_mean(torch.clamp_min(best, 0.0))
+    primal = row_mean(torch.clamp_min(best, 0.0), group)
 
     s0 = paths[..., 0]
     j_other = torch.remainder(stop + (m_act // 2)[:, None], m_act[:, None])
@@ -75,15 +77,15 @@ def martingale_price(paths, r, strike, maturity, dt, is_call,
         dual = primal if max_iterations == 1 else torch.zeros_like(primal)
         return 0.5 * (primal + dual)
     fit = fit_poly_masked(xs, ys, torch.ones_like(xs), poly_order,
-                          total=row_sum)
+                          total=row_sum, group=group)
     offset = row_mean(eval_poly(PolyFit(fit.coeffs[:, None, :],
                                         fit.mu[:, None], fit.sd[:, None]),
-                                s0))
+                                s0), group)
     mval = eval_poly(PolyFit(fit.coeffs[:, None, None, :],
                              fit.mu[:, None, None], fit.sd[:, None, None]),
                      paths)
     cand = torch.where(valid, dpv - (mval - offset[:, None, None]),
                        -torch.inf)
     del mval
-    dual = row_mean(torch.clamp_min(torch.amax(cand, dim=-1), 0.0))
+    dual = row_mean(torch.clamp_min(torch.amax(cand, dim=-1), 0.0), group)
     return 0.5 * (primal + dual)

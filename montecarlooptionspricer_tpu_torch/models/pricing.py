@@ -41,19 +41,24 @@ class PricerSpec:
 
 
 def price_all(paths: torch.Tensor, spec: PricerSpec, rp: BranchIndices,
-              n_steps: Optional[torch.Tensor] = None) -> torch.Tensor:
+              n_steps: Optional[torch.Tensor] = None,
+              group=None) -> torch.Tensor:
     """[rows, 4] prices (asymptotic, branching, lsm, martingale) of
     [rows, paths, n_pad + 1] blocks; ``rp`` gives the branching
     estimator's branch indices, ``n_steps`` [rows] the true horizons of a
-    padded block (None: every column is a real step)."""
+    padded block (None: every column is a real step).  With a process
+    ``group`` (JAX's ``axis_name``) the paths axis is this rank's shard:
+    every mean and regression pools over the group's ranks, so each rank
+    returns the same prices."""
     s = spec
     return torch.stack([
         asymptotic_price(paths, s.r, s.strike, s.maturity, s.dt, s.is_call,
-                         s.sigma, s.dividend),
+                         s.sigma, s.dividend, group),
         branching_price(paths, s.r, s.strike, s.maturity, s.dt, s.is_call,
-                        s.num_branches, rp=rp, n_steps=n_steps),
+                        s.num_branches, rp=rp, n_steps=n_steps, group=group),
         lsm_price_rows(paths, s.r, s.strike, s.maturity, s.dt, s.is_call,
-                       s.poly_order, n_steps=n_steps),
+                       s.poly_order, n_steps=n_steps, group=group),
         martingale_price(paths, s.r, s.strike, s.maturity, s.dt, s.is_call,
-                         s.poly_order, s.max_iterations, n_steps=n_steps),
+                         s.poly_order, s.max_iterations, n_steps=n_steps,
+                         group=group),
     ], dim=-1)

@@ -16,11 +16,24 @@ Training semantics, as the JAX package's:
     Adam's moments and count as they were and counts itself.  A batch with
     a non-finite loss stays out of the epoch's mean loss.
   * One host sync an epoch: the skip, the clip and the loss sums are tensor
-    ops, and the epoch's mean loss is read once, after its last step.
+    ops, and the epoch's mean loss is read once, after its last step (and
+    under a mesh the ranks' SIGINT flag, once before it).
   * A checkpoint every epoch (parameters, optimizer state, epoch, loss and
     the dropout generator's device type and state), resumed at epoch + 1
     with the dropout stream continued, on the same device type only;
     SIGINT saves and returns.
+
+Under a ``mesh`` (``parallel.mesh.Mesh``; counterpart: the JAX
+``train_model(mesh=)``) each rank trains on its contiguous slice of every
+batch's rows with the parameters replicated: the gradients and the data
+loss are all-reduced (SUM) in one collective before ``FiniteAdam.step``,
+so the finite flag and the clip norm are the global ones (a NaN on any
+rank skips the step on every rank).  Each rank divides its loss by the
+whole batch's weight sum, so a padded last batch, whose zero-weight rows
+fall on the last ranks, weighs as on one device; each draws the whole
+batch's dropout masks from the shared generator state and keeps its rows,
+so a sharded epoch draws one device's masks and the generator stays in
+step for a resume.  Rank 0 alone writes checkpoints.
 
 Dropout draws from the trainer's own ``torch.Generator`` on the device,
 seeded from ``TrainConfig.seed``; the weights are initialized from a CPU
@@ -40,25 +53,28 @@ import numpy as np
 import torch
 
 from ..config import TrainConfig
+from ..ops.reductions import psum_if
+from ..parallel.mesh import mesh_device
 from . import checkpoint as ckpt_lib
 from .bnn import BayesianMetaModelNN, split_mdn
 
 log = logging.getLogger(__name__)
 
 LOG_2PI = float(np.log(2.0 * np.pi))
-_MESH = ("multi-device training (mesh=) is not ported yet (ROADMAP A15): "
-         "train on one device")
 
 
-def _wmean(per_row, w):
+def _wmean(per_row, w, wsum=None):
     """Mean over rows, or the mean over the rows ``w`` weighs 1 (the padded
-    last batch's zero-weight rows drop out)."""
+    last batch's zero-weight rows drop out); ``wsum`` replaces the weight
+    sum of ``w`` (a rank's shard divides by its whole batch's)."""
     if w is None:
         return per_row.mean()
-    return (per_row * w).sum() / w.sum().clamp_min(1.0)
+    if wsum is None:
+        wsum = w.sum().clamp_min(1.0)
+    return (per_row * w).sum() / wsum
 
 
-def mdn_nll(outputs, targets, num_mixtures: int = 5, w=None):
+def mdn_nll(outputs, targets, num_mixtures: int = 5, w=None, wsum=None):
     """The mixture density's negative log-likelihood of ``targets``
     ([B, 1]), with the model's softmaxed weights softmaxed again."""
     means, logvars, mix_sm = split_mdn(outputs, num_mixtures)
@@ -67,14 +83,14 @@ def mdn_nll(outputs, targets, num_mixtures: int = 5, w=None):
     var = torch.exp(logvars) + 1e-6
     log_probs = -0.5 * ((means - targets).square() / var + logvars + LOG_2PI)
     joint = log_probs + torch.log(mix + 1e-6)
-    return _wmean(-torch.logsumexp(joint, dim=-1), w)
+    return _wmean(-torch.logsumexp(joint, dim=-1), w, wsum)
 
 
-def warmup_mse(outputs, targets, num_mixtures: int = 5, w=None):
+def warmup_mse(outputs, targets, num_mixtures: int = 5, w=None, wsum=None):
     """The warm-up loss: MSE of the mean of the mixture means."""
     means, _, _ = split_mdn(outputs, num_mixtures)
     pred = means.mean(dim=-1, keepdim=True)
-    return _wmean((pred - targets).square().mean(dim=-1), w)
+    return _wmean((pred - targets).square().mean(dim=-1), w, wsum)
 
 
 def live_names(names: Sequence[str]) -> list:
@@ -193,6 +209,7 @@ class BayesianTrainer:
         self.generator.manual_seed(dropout_seed)
         self._named = list(self.model.named_parameters())
         self._params = [p for _, p in self._named]
+        self._sizes = [p.numel() for p in self._params]
         live = set(live_names([n for n, _ in self._named]))
         self._live_idx = [i for i, (n, _) in enumerate(self._named)
                           if n in live]
@@ -206,21 +223,31 @@ class BayesianTrainer:
             return a.to(self.device, torch.float32)
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
-    def loss_and_grads(self, x, y, w=None, *, warmup: bool, masks=None):
+    def loss_and_grads(self, x, y, w=None, *, warmup: bool, masks=None,
+                       wsum=None, group=None):
         """(loss, grads) of one train-mode batch: the phase's data loss
         plus ``l2_lambda`` times ``l2_penalty``, and its gradients aligned
         with ``model.named_parameters()``.  The L2 term's gradient,
         2 * l2_lambda * p, is added to the data loss's in one foreach op.
         ``masks`` injects the dropout masks; otherwise they are drawn from
-        the trainer's generator."""
+        the trainer's generator.  With a process ``group`` the rows are
+        this rank's shard of a batch of weight sum ``wsum``: the data
+        loss and its gradients are summed over the group's ranks in one
+        all-reduce before the L2 term joins them."""
         cfg = self.config
         out = self.model(x, train=True, generator=self.generator,
                          masks=masks)
         loss_fn = warmup_mse if warmup else mdn_nll
-        data = loss_fn(out, y, cfg.num_mixtures, w)
+        data = loss_fn(out, y, cfg.num_mixtures, w, wsum)
         # The attention's parameters get zeros, as from JAX's autodiff.
         grads = torch.autograd.grad(data, self._params, allow_unused=True,
                                     materialize_grads=True)
+        if group is not None:
+            flat = psum_if(torch.cat([g.reshape(-1) for g in grads]
+                                     + [data.detach().reshape(1)]), group)
+            grads = [t.view_as(p) for t, p in zip(
+                flat.split(self._sizes + [1]), self._params)]
+            data = flat[-1]
         with torch.no_grad():
             torch._foreach_add_([grads[i] for i in self._live_idx],
                                 [self._params[i] for i in self._live_idx],
@@ -235,21 +262,34 @@ class BayesianTrainer:
                                         self.config.grad_clip_norm)
         self.optimizer.lr = lr
 
-    def _step(self, x, y, w, warmup: bool):
-        """One optimizer step; (the loss where finite else 0, finite)."""
-        loss, grads = self.loss_and_grads(x, y, w, warmup=warmup)
+    def _step(self, x, y, w, warmup: bool, mesh=None):
+        """One optimizer step; (the loss where finite else 0, finite).
+        Under ``mesh`` on this rank's slice of the batch's rows, with the
+        whole batch's masks drawn and its weight sum."""
+        if mesh is None:
+            loss, grads = self.loss_and_grads(x, y, w, warmup=warmup)
+        else:
+            rows = x.shape[0]
+            per = rows // mesh.size
+            mine = slice(mesh.rank * per, (mesh.rank + 1) * per)
+            masks = [m[mine] for m in self.model.draw_masks(
+                (rows,), self.generator, x.device)]
+            loss, grads = self.loss_and_grads(
+                x[mine], y[mine], w[mine], warmup=warmup, masks=masks,
+                wsum=w.sum().clamp_min(1.0), group=mesh.group)
         self.optimizer.step(grads)
         finite = torch.isfinite(loss)
         return torch.where(finite, loss, 0.0), finite
 
-    def run_epoch(self, xb, yb, wb, warmup: bool) -> torch.Tensor:
+    def run_epoch(self, xb, yb, wb, warmup: bool, mesh=None) -> torch.Tensor:
         """One epoch over batches [n_batches, batch, ...] on the device, no
         host sync; the mean of the finite batches' losses, 0-d on the
-        device."""
+        device.  Under ``mesh`` each rank steps on its rows of each batch
+        (``_step``)."""
         total = torch.zeros((), device=self.device)
         count = torch.zeros((), device=self.device)
         for x, y, w in zip(xb.unbind(0), yb.unbind(0), wb.unbind(0)):
-            loss, finite = self._step(x, y, w, warmup)
+            loss, finite = self._step(x, y, w, warmup, mesh)
             total += loss
             count += finite
         return total / count.clamp_min(1.0)
@@ -306,12 +346,19 @@ class BayesianTrainer:
                     checkpoint_path: Optional[str] = None,
                     mesh=None) -> None:
         """Train from epoch 1, or from the checkpoint's epoch + 1 when
-        ``checkpoint_path`` holds one, to ``num_epochs``."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
+        ``checkpoint_path`` holds one, to ``num_epochs``.  With ``mesh``
+        every rank calls it with the same arguments and trains on its rows
+        of each batch (module docstring); ``batch_size`` must divide by the
+        mesh size, and rank 0 alone writes the checkpoints."""
         cfg = self.config
         num_epochs = cfg.num_epochs if num_epochs is None else num_epochs
         batch_size = cfg.batch_size if batch_size is None else batch_size
+        if mesh is not None:
+            mesh_device(mesh, self.device)
+            if batch_size % mesh.size:
+                raise ValueError(f"batch_size={batch_size} not divisible by "
+                                 f"mesh size {mesh.size}")
+        writes = mesh is None or mesh.rank == 0
         lr = cfg.learning_rate if lr is None else lr
         if checkpoint_path is None:
             checkpoint_path = cfg.checkpoint_path
@@ -340,20 +387,31 @@ class BayesianTrainer:
         except ValueError:
             pass  # not on the main thread; the caller handles SIGINT
 
+        def stop() -> bool:
+            """The SIGINT flag, on any rank of the mesh."""
+            if mesh is None:
+                return self._stop_requested
+            flag = torch.tensor([float(self._stop_requested)],
+                                device=self.device)
+            return bool(psum_if(flag, mesh.group).item() > 0)
+
         try:
             for epoch in range(start_epoch, num_epochs + 1):
-                if self._stop_requested:
+                if stop():
                     log.info("Training interrupted. Saving checkpoint...")
-                    self._save_checkpoint(checkpoint_path, epoch - 1,
-                                          last_epoch_loss)
+                    if writes:
+                        self._save_checkpoint(checkpoint_path, epoch - 1,
+                                              last_epoch_loss)
                     return
                 t0 = time.time()
                 loss = self.run_epoch(xb, yb, wb,
-                                      warmup=epoch <= cfg.warmup_epochs)
+                                      warmup=epoch <= cfg.warmup_epochs,
+                                      mesh=mesh)
                 epoch_loss = float(loss)              # one sync an epoch
                 last_epoch_loss = epoch_loss
                 self.current_epoch = epoch
-                self._save_checkpoint(checkpoint_path, epoch, epoch_loss)
+                if writes:
+                    self._save_checkpoint(checkpoint_path, epoch, epoch_loss)
                 log.info("Epoch %d/%d | loss %.6f | %.2fs", epoch, num_epochs,
                          epoch_loss, time.time() - t0)
         finally:

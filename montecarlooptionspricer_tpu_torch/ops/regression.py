@@ -19,6 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .reductions import psum_all, psum_if
+
 
 class PolyFit(NamedTuple):
     """A polynomial fit in standardized coordinates; a leading step axis
@@ -43,7 +45,7 @@ def poly_basis(z: torch.Tensor, order: int) -> torch.Tensor:
 
 
 def fit_poly_masked(x, y, w, order: int, ridge: float = 1e-6,
-                    total=torch.sum) -> PolyFit:
+                    total=torch.sum, group=None) -> PolyFit:
     """Weighted polynomial least squares min_c sum_i w_i (P_c(x_i) - y_i)^2.
 
     x, y, w: [..., n] tensors that broadcast (w a {0,1} mask in LSM); the
@@ -54,15 +56,21 @@ def fit_poly_masked(x, y, w, order: int, ridge: float = 1e-6,
     beats, so a policy read from it never exercises at that step.
 
     ``total(t, dim=...)`` forms the moment sums; the PredictionGen rows pass
-    ``reductions.row_sum``, whose bits do not depend on the batch."""
+    ``reductions.row_sum``, whose bits do not depend on the batch.  With a
+    process ``group`` (JAX's ``axis_name``) the weight sum, the weighted
+    sums of x and of its squared deviations, the Gram matrix and the
+    right-hand side are each all-reduced over its ranks, which hold the
+    sample's shards, so every rank solves the pooled system (the pivot
+    floor included) and ends with the same fit."""
     x = x.to(torch.float32)
     y = y.to(torch.float32)
     w = w.to(torch.float32)
 
-    wsum = total(w, dim=-1)
+    wsum, wx = psum_all(total(w, dim=-1), total(w * x, dim=-1), group=group)
     safe_wsum = torch.clamp_min(wsum, 1.0)
-    mu = total(w * x, dim=-1) / safe_wsum
-    var = total(w * (x - mu[..., None]) ** 2, dim=-1) / safe_wsum
+    mu = wx / safe_wsum
+    var = psum_if(total(w * (x - mu[..., None]) ** 2, dim=-1),
+                  group) / safe_wsum
     # Relative floor: a (near-)constant regressor such as the S0 column is
     # a pure intercept fit, and z snaps to exactly 0 there (a constant
     # nonzero z from roundoff in mu would make the solve near-singular).
@@ -74,8 +82,9 @@ def fit_poly_masked(x, y, w, order: int, ridge: float = 1e-6,
 
     basis = poly_basis(z, order)                          # [..., n, p+1]
     wb = basis * w[..., None]
-    gram = total(wb[..., :, None] * basis[..., None, :], dim=-3)
-    rhs = total(wb * y[..., None], dim=-2)
+    gram, rhs = psum_all(total(wb[..., :, None] * basis[..., None, :],
+                               dim=-3),
+                         total(wb * y[..., None], dim=-2), group=group)
 
     # Diagonal-scaled Tikhonov term; 1e-6 is the smallest ridge that is
     # meaningful in float32, and smaller requests are raised to it.
@@ -93,7 +102,8 @@ def fit_poly_masked(x, y, w, order: int, ridge: float = 1e-6,
     return PolyFit(coeffs, mu, sd)
 
 
-def fit_poly_columns(x, y, order: int, ridge: float = 1e-6) -> PolyFit:
+def fit_poly_columns(x, y, order: int, ridge: float = 1e-6,
+                     group=None) -> PolyFit:
     """Unweighted least squares of each row of y [G, n] on the same row of
     x [G, n]: ``fit_poly_masked`` with every weight 1, for a batch of G
     independent fits (the counterpart of ``jax.vmap`` over the JAX
@@ -102,12 +112,21 @@ def fit_poly_columns(x, y, order: int, ridge: float = 1e-6) -> PolyFit:
     The Gram matrix is Hankel, G_ij = sum_i z^(i+j), so it is built from
     the 2 order + 1 power sums of z and never as an [G, n, p+1, p+1]
     outer product: each pass holds one [G, n] power plane, whatever the
-    order."""
+    order.  With a process ``group`` the rows of x and y are the ranks'
+    shards of each fit's sample: the count, the sums behind mu and the
+    variance, the power sums and the right-hand side are all-reduced over
+    its ranks, so every rank ends with the pooled fit."""
     x = x.to(torch.float32)
     y = y.to(torch.float32)
     n = x.shape[-1]
-    mu = torch.sum(x, dim=-1) / float(n)
-    var = torch.sum((x - mu[..., None]) ** 2, dim=-1) / float(n)
+    sx = torch.sum(x, dim=-1)
+    if group is not None:
+        sx, count = psum_all(sx, torch.tensor([float(n)], device=x.device),
+                             group=group)
+        n = int(count.item())
+    mu = sx / float(n)
+    var = psum_if(torch.sum((x - mu[..., None]) ** 2, dim=-1),
+                  group) / float(n)
     sd_floor = 1e-6 * (torch.abs(mu) + 1.0)
     sd = torch.sqrt(torch.maximum(var, sd_floor * sd_floor))
     z = (x - mu[..., None]) / sd[..., None]
@@ -123,15 +142,16 @@ def fit_poly_columns(x, y, order: int, ridge: float = 1e-6) -> PolyFit:
             rhs.append(torch.sum(y * zk, dim=-1))
         if k < 2 * order:
             zk = zk * z
-    power = torch.stack(sums, dim=-1)              # [..., 2p+1]
+    power, rhs_t = psum_all(torch.stack(sums[1:], dim=-1),
+                            torch.stack(rhs, dim=-1), group=group)
+    power = torch.cat([sums[0][..., None], power], dim=-1)  # [..., 2p+1]
     idx = torch.arange(order + 1, device=x.device)
     gram = power[..., idx[:, None] + idx[None, :]]
     lam = max(ridge, 1e-6)
     ridge_diag = lam * (torch.diagonal(gram, dim1=-2, dim2=-1) + 1.0)
     a = gram + torch.diag_embed(ridge_diag)
     chol, _ = torch.linalg.cholesky_ex(a)
-    coeffs = torch.cholesky_solve(torch.stack(rhs, dim=-1)[..., None],
-                                  chol)[..., 0]
+    coeffs = torch.cholesky_solve(rhs_t[..., None], chol)[..., 0]
     return PolyFit(coeffs, mu, sd)
 
 

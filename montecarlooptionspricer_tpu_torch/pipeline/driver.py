@@ -18,6 +18,17 @@ Sobol base per (num_paths, 3 n_pad) bucket, and each row's digital shift
 drawn first from the row's own generator
 (``rough_volatility.qmc_bucketed_noise``), so resumes stay byte-equal.
 
+Under a ``mesh`` (``parallel.mesh.Mesh``; counterpart: the ``mesh=`` of
+the JAX pipeline) every rank runs the pipeline: the host pass on every rank, and
+each batch, rounded up to a multiple of the mesh size, split into one
+contiguous slice of rows a rank.  The ranks price their rows with no
+cross-rank reduction, and one collective gathers the batch's prices on
+every rank.  Rank 0 alone writes the CSV, the error log, the diagnostic
+dump, the backup and the resume state; the others write nothing.  A
+batch that fails on any rank fails on all of them, and the ranks agree on
+termination before each batch, so they stay in step; a failed collective
+raises out of ``run_pipeline``.
+
 Failure containment follows the reference: a sentinel ",0,0,0,0,0,0" line
 for a row that fails validation or pricing, an error count, the health
 watchdog and heartbeat, signal handlers, a backup of earlier output,
@@ -46,7 +57,10 @@ from ..models.pricing import PricerSpec, price_all
 from ..ops import estimators
 from ..ops import qmc as qmc_ops
 from ..ops.fgn import next_pow2
+from ..ops.reductions import gather_ranks, psum_if
 from ..ops.rng import generator_for_row
+from ..parallel.mesh import mesh_device
+from ..utils.profiling import annotate
 from . import csv_io, spot as spot_mod
 from .watchdog import ProcessStats, Watchdog, install_signal_handlers
 from .writer import OrderedResultWriter, SafeFileWriter
@@ -55,8 +69,6 @@ log = logging.getLogger(__name__)
 
 SENTINEL = ",0,0,0,0,0,0"
 RESUME_MARKER_SUFFIX = ".resume"
-_MESH = ("a device mesh is not ported yet (ROADMAP A15): run on one "
-         "device")
 
 
 @dataclasses.dataclass
@@ -165,6 +177,11 @@ def _parse_row(index: int, line: str, tokens: List[str],
                    twenty_day_momentum=momentum), None
 
 
+class BatchFailed(RuntimeError):
+    """A batch whose pricing failed on some rank of a mesh: every rank
+    raises it after the batch's gather, so the ranks stay in step."""
+
+
 def bucket_key(n_steps: int) -> Tuple[int, int]:
     """A row's bucket (n_pad, m1): n_pad = next_pow2(n_steps) is the
     reference's circular-convolution length, the same across the bucket,
@@ -174,7 +191,8 @@ def bucket_key(n_steps: int) -> Tuple[int, int]:
 
 
 class BatchedPricer:
-    """Prices a bucket's rows in padded batches on one device.
+    """Prices a bucket's rows in padded batches on one device, or under
+    ``mesh`` on every rank's device, each rank its slice of a batch.
 
     ``price`` draws each row's noise from the row's own generator and calls
     ``price_from_noise``, the seam that the tests and the card check drive
@@ -183,35 +201,96 @@ class BatchedPricer:
 
     def __init__(self, pricing: PricingConfig, market: MarketDefaults,
                  device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
-        device = torch.device(device)
+        device = mesh_device(mesh, device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu'")
         self.pricing = pricing
         self.market = market
         self.device = device
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else mesh.rank
         self.batch_seconds: Dict[Tuple[int, int], List[float]] = {}
 
     def _batch_size(self, n: int) -> int:
         """The batch for a call of n rows: rows_per_batch for full chunks,
         else the next power of two with a floor of min(8, rows_per_batch),
-        so a sparse bucket's tail pays at most ~2x its rows."""
+        so a sparse bucket's tail pays at most ~2x its rows.  Under a mesh
+        every batch rounds up to a multiple of its size (rows_per_batch
+        need not divide it)."""
         full = self.pricing.rows_per_batch
-        if n >= full:
-            return full
-        return min(full, max(next_pow2(n), min(8, full)))
+        batch = full if n >= full else min(full, max(next_pow2(n),
+                                                      min(8, full)))
+        if self.mesh is not None:
+            d = self.mesh.size
+            batch = -(-batch // d) * d
+        return batch
+
+    def agree(self, flag: bool) -> bool:
+        """``flag`` on any rank of the mesh (``flag`` itself without one):
+        the ranks' common decision, e.g. to stop."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([float(flag)], device=self.device)
+        return bool(psum_if(t, self.mesh.group).item() > 0)
 
     def price(self, tasks: List[RowTask], base_seed: int) -> np.ndarray:
         """[len(tasks), 4] prices (asymptotic, branching, lsm, martingale)
         of rows of one bucket, padded to ``_batch_size`` rows with copies
-        of the first."""
+        of the first.  Under a mesh each rank prices its slice
+        (``price_shard``) and one collective gathers the batch: a pricing
+        failure on any rank raises ``BatchFailed`` on every rank, and any
+        other exception is the collective's own."""
+        if self.mesh is None:
+            return self.price_shard(tasks, base_seed)[:len(tasks)] \
+                .cpu().numpy()
+        try:
+            shard, err = self.price_shard(tasks, base_seed), None
+        except Exception as e:  # noqa: BLE001 - carried to every rank
+            shard, err = None, e
+        per = len(self._shard_rows(tasks))
+        local = torch.zeros((per, 5), dtype=torch.float64,
+                            device=self.device)
+        if shard is None:
+            local[:, 4] = 1.0               # this rank's failure flag
+        else:
+            local[:, :4] = shard.to(torch.float64)
+        every = gather_ranks(local, self.mesh.group).reshape(-1, 5)
+        bad = np.flatnonzero(every[::per, 4].cpu().numpy())
+        if bad.size:
+            why = f": {err}" if err is not None else ""
+            raise BatchFailed(f"pricing failed on rank(s) {bad.tolist()}"
+                              f"{why}") from err
+        return every[:len(tasks), :4].cpu().numpy().astype(np.float32)
+
+    def share(self, value: int) -> int:
+        """Rank 0's ``value`` on every rank of the mesh (``value`` itself
+        without one)."""
+        if self.mesh is None:
+            return value
+        t = torch.tensor([float(value if self.rank == 0 else 0)],
+                         dtype=torch.float64, device=self.device)
+        return int(psum_if(t, self.mesh.group).item())
+
+    def _shard_rows(self, tasks: List[RowTask]) -> List[RowTask]:
+        """This rank's contiguous slice of the padded batch (all of it
+        without a mesh)."""
+        n = len(tasks)
+        padded = tasks + [tasks[0]] * (self._batch_size(n) - n)
+        if self.mesh is None:
+            return padded
+        per = len(padded) // self.mesh.size
+        return padded[self.rank * per:(self.rank + 1) * per]
+
+    def price_shard(self, tasks: List[RowTask],
+                    base_seed: int) -> torch.Tensor:
+        """[rows of this rank's slice, 4] prices (asymptotic, branching,
+        lsm, martingale) on the device, of the padded batch of ``tasks``
+        (all of it without a mesh)."""
         if not tasks:
             raise ValueError("no rows to price")
         t0 = time.perf_counter()
         n_pad, _ = bucket_key(tasks[0].n_steps)
-        n = len(tasks)
-        padded = tasks + [tasks[0]] * (self._batch_size(n) - n)
+        padded = self._shard_rows(tasks)
         p = self.pricing
         gens = [generator_for_row(base_seed, t.index, self.device)
                 for t in padded]
@@ -233,13 +312,21 @@ class BatchedPricer:
                               generator=g, device=self.device)
                 for g in gens])
 
-        out = self.price_from_noise(padded, zc, dw, branch_plane)[:n]
+        out = self.prices_from_noise(padded, zc, dw, branch_plane)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         self.batch_seconds.setdefault(bucket_key(tasks[0].n_steps), []).append(
             time.perf_counter() - t0)
         return out
 
     def price_from_noise(self, tasks: List[RowTask], zc: torch.Tensor,
                          dw: torch.Tensor, rp: BranchIndices) -> np.ndarray:
+        """``prices_from_noise`` on the host (numpy)."""
+        return self.prices_from_noise(tasks, zc, dw, rp).cpu().numpy()
+
+    def prices_from_noise(self, tasks: List[RowTask], zc: torch.Tensor,
+                          dw: torch.Tensor,
+                          rp: BranchIndices) -> torch.Tensor:
         """[len(tasks), 4] prices of rows of one bucket from injected
         noise: ``zc`` [rows, n_draw, n_pad] complex, ``dw`` [rows, n_draw,
         n_pad] Brownian increments with their sqrt(dt) scale (n_draw =
@@ -270,7 +357,7 @@ class BatchedPricer:
                           max_iterations=p.max_iterations)
         if isinstance(rp, torch.Tensor):
             rp = rp.to(dev)
-        return price_all(paths, spec, rp, n_steps=n_steps).cpu().numpy()
+        return price_all(paths, spec, rp, n_steps=n_steps)
 
 
 def _resume_row_count(output_csv: str, expected_header: str) -> int:
@@ -335,14 +422,16 @@ def run_pipeline(config: Optional[PipelineConfig] = None,
     ``config.output_csv`` on ``device``.  Returns the process exit code.
     ``timings``, when given, receives the host pass's seconds (parse and
     estimate), the device pass's, and each bucket's batch seconds keyed
-    "n_pad/m1"."""
+    "n_pad/m1".  Under ``mesh`` every rank calls it with the same
+    arguments; rank 0 writes every file (module docstring)."""
     config = config or PipelineConfig()
     pricing = pricing or PricingConfig()
     market = market or MarketDefaults()
     pricer = BatchedPricer(pricing, market, device, mesh)
 
     stats = ProcessStats(config)
-    error_log = SafeFileWriter(config.error_log)
+    error_log = SafeFileWriter(config.error_log if pricer.rank == 0
+                               else os.devnull)
     restore_signals = install_signal_handlers(stats, error_log.write)
     try:
         return _run(config, pricing, market, resume, pricer, stats,
@@ -356,9 +445,11 @@ def _run(config: PipelineConfig, pricing: PricingConfig,
          market: MarketDefaults, resume: bool, pricer: BatchedPricer,
          stats: ProcessStats, error_log: SafeFileWriter,
          timings: Optional[dict]) -> int:
+    writes = pricer.rank == 0
     spot_data = spot_mod.load_spot_prices(config.spot_csv)
     try:
-        with open(config.diagnostic_csv, "w") as diag:
+        with open(config.diagnostic_csv if writes else os.devnull,
+                  "w") as diag:
             diag.write("Ticker,Date,Price\n")
             for ticker, daily in spot_data.items():
                 for ymd, px in daily.items():
@@ -377,28 +468,32 @@ def _run(config: PipelineConfig, pricing: PricingConfig,
     total_rows = len(raw_rows)
 
     out_header = ",".join(header) + "," + ",".join(AUGMENTED_COLUMNS)
-    done_rows = (_resume_row_count(config.output_csv, out_header) if resume
-                 else 0)
-    # The marker, if any, was read above; drop it so it cannot mislead a
-    # later run against fresh output.
-    try:
-        os.remove(config.output_csv + RESUME_MARKER_SUFFIX)
-    except OSError:
-        pass
-    # Back up earlier output before truncating it: foo.csv ->
-    # foo.backup.csv.  Skipped only for a genuine resume.
-    if os.path.exists(config.output_csv) and done_rows == 0:
+    done_rows = pricer.share(
+        _resume_row_count(config.output_csv, out_header)
+        if resume and writes else 0)
+    out_csv = config.output_csv if writes else os.devnull
+    if writes:
+        # The marker, if any, was read above; drop it so it cannot mislead
+        # a later run against fresh output.
         try:
-            base, _ = os.path.splitext(config.output_csv)
-            shutil.copyfile(config.output_csv, base + config.backup_suffix)
+            os.remove(config.output_csv + RESUME_MARKER_SUFFIX)
         except OSError:
             pass
+        # Back up earlier output before truncating it: foo.csv ->
+        # foo.backup.csv.  Skipped only for a genuine resume.
+        if os.path.exists(config.output_csv) and done_rows == 0:
+            try:
+                base, _ = os.path.splitext(config.output_csv)
+                shutil.copyfile(config.output_csv,
+                                base + config.backup_suffix)
+            except OSError:
+                pass
     if done_rows:
         log.info("Resuming: %d/%d rows already in %s", done_rows, total_rows,
                  config.output_csv)
-        result_file = SafeFileWriter(config.output_csv, mode="a")
+        result_file = SafeFileWriter(out_csv, mode="a")
     else:
-        result_file = SafeFileWriter(config.output_csv)
+        result_file = SafeFileWriter(out_csv)
         result_file.write(out_header + "\n")
     writer = OrderedResultWriter(result_file, total_rows,
                                  start_index=done_rows)
@@ -415,7 +510,7 @@ def _run(config: PipelineConfig, pricing: PricingConfig,
         result_file.close()
     # A terminating run records where its fills began, so a later resume
     # re-processes from there; a clean finish leaves no marker.
-    if stats.catastrophic_failure and first_fill is not None:
+    if writes and stats.catastrophic_failure and first_fill is not None:
         try:
             with open(config.output_csv + RESUME_MARKER_SUFFIX, "w") as mf:
                 mf.write(f"{first_fill}\n")
@@ -459,7 +554,8 @@ def _price_rows(raw_rows, done_rows: int, spot_data: spot_mod.SpotData,
         line = ",".join(tokens)
         if idx < done_rows:
             continue
-        if terminating():
+        # Under a mesh the ranks stop together, at a batch (below).
+        if pricer.mesh is None and terminating():
             fill(idx, line)
             continue
         error_log.write_line(f"Starting row {idx}")
@@ -488,15 +584,17 @@ def _price_rows(raw_rows, done_rows: int, spot_data: spot_mod.SpotData,
         b = pricing.rows_per_batch
         for i in range(0, len(tasks), b):
             chunk = tasks[i:i + b]
-            if terminating():
+            if pricer.agree(terminating()):
                 for t in chunk:
                     fill(t.index, t.line)
                 continue
             try:
-                with torch.profiler.record_function(
-                        f"price_batch[{n_pad}x{len(chunk)}]"):
+                with annotate(f"price_batch[{n_pad}x{len(chunk)}]"):
                     values = pricer.price(chunk, pricing.seed)
             except Exception as e:  # noqa: BLE001 - a batch's failure
+                if pricer.mesh is not None and not isinstance(e,
+                                                              BatchFailed):
+                    raise       # a collective failed: the ranks are apart
                 stats.fail(f"Thread error: {e}")
                 error_log.write_line(f"Thread error: {e}")
                 for t in chunk:

@@ -2810,3 +2810,97 @@ def test_nn_masked_step_card_matches_host(cuda, warmup):
     assert bool(host.optimizer.step(grads_h))
     torch.testing.assert_close(card.optimizer._update.cpu(),
                                host.optimizer._update, rtol=0, atol=1e-6)
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """The port's mesh over NCCL at a world of one (the card's process
+    group), destroyed after the test."""
+    import torch.distributed as dist
+
+    from montecarlooptionspricer_tpu_torch.parallel import make_mesh
+
+    if dist.is_initialized():
+        pytest.skip("a process group already exists in this process")
+    try:
+        yield make_mesh(1, "cuda")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_mesh_nccl_world_of_one(nccl_mesh):
+    """``make_mesh(1, "cuda")`` gives an NCCL group of one rank on the
+    card; a mesh of two raises ValueError (JAX's message)."""
+    import torch.distributed as dist
+
+    from montecarlooptionspricer_tpu_torch.parallel import make_mesh
+
+    assert dist.get_backend() == "nccl"
+    assert (nccl_mesh.rank, nccl_mesh.size) == (0, 1)
+    assert nccl_mesh.device.type == "cuda"
+    with pytest.raises(ValueError, match="2-device mesh but only 1"):
+        make_mesh(2, "cuda")
+
+
+@pytest.mark.gpu
+def test_mesh_pricer_on_the_card(nccl_mesh):
+    """``StreamingPricer(mesh=)`` at 365 steps on 4 chunks of 16,384:
+    K1 once and K2 4 times; the fit through the group is the fit without
+    one on the same pilot to the bit; K2 on the rank-offset key against
+    its plain version (1e-4)."""
+    cfg = engine.StreamConfig(n_paths=4 << 14, n_steps=365,
+                              chunk_paths=1 << 14, pilot_paths=1 << 14,
+                              chunks_per_call=4)
+    pricer = engine.StreamingPricer(**MARKET, rho=-0.4, strike=100.0,
+                                    maturity=365 * DT, is_call=False,
+                                    config=cfg, device="cuda",
+                                    mesh=nccl_mesh)
+    pc.pathgen.launches = pc.priced_chunk.launches = 0
+    price, stderr = pricer.price(3, with_stderr=True)
+    assert (pc.pathgen.launches, pc.priced_chunk.launches) == (1, 4)
+    assert 0.0 < price < 100.0 and 0.0 < stderr < 0.05 * price
+    carrier = engine._pilot_stream_keys(3)[0]
+    pilot = pricer._pilot(carrier)
+    with_group = engine.lsm_fit(pilot, MARKET["r"], 100.0, 365 * DT, DT,
+                                False, group=nccl_mesh.group)[1]
+    without = engine.lsm_fit(pilot, MARKET["r"], 100.0, 365 * DT, DT,
+                             False)[1]
+    assert all(torch.equal(a, b) for a, b in zip(with_group, without))
+    table = pricer._make_rows(with_group)
+    run, start = engine._pilot_stream_keys(3)[1]
+    key = pc._fold_words(run, start + (1 << 20))
+    got = float(pc.priced_chunk(pricer.consts, table, 100.0, False,
+                                rows=1 << 14, key=key))
+    want = float(pc.priced_chunk_from_noise_ref(
+        pricer.consts, table, pc.philox_normals_ref(key, 1 << 14, 365,
+                                                    device=pricer.device),
+        100.0, False))
+    assert abs(got / want - 1.0) < 1e-4
+
+
+@pytest.mark.gpu
+def test_mesh_trainer_epoch_on_the_card(nccl_mesh, tmp_path):
+    """One ``train_model(mesh=)`` epoch at a world of one leaves the
+    parameters and Adam's moments of the one-device epoch to the bit."""
+    import numpy as np
+
+    from montecarlooptionspricer_tpu_torch.config import TrainConfig
+    from montecarlooptionspricer_tpu_torch.nn.trainer import BayesianTrainer
+
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(1024, 17)).astype(np.float32)
+    y = (1.0 + 0.5 * x[:, 0]).astype(np.float32)
+    out = []
+    for mesh in (None, nccl_mesh):
+        t = BayesianTrainer(17, 64, config=TrainConfig(seed=1),
+                            device="cuda")
+        t.train_model(x, y, num_epochs=1, batch_size=128,
+                      checkpoint_path=str(tmp_path / f"c{mesh is None}"),
+                      mesh=mesh)
+        out.append((t.model.state_dict(), t.optimizer.m, t.optimizer.v))
+    for k, v in out[0][0].items():
+        assert torch.equal(v, out[1][0][k]), k
+    assert torch.equal(out[0][1], out[1][1])
+    assert torch.equal(out[0][2], out[1][2])

@@ -1,7 +1,8 @@
 """The port's meta-model around the network, on the CPU: feature CSVs
 against the JAX package's ``read_csv``, the ``.pt`` checkpoints, resume
-and SIGINT, the unported ``mesh=``, and both CLIs (``mcop-train-nn-torch``,
-``mcop-evaluate-nn-torch``) driven as a user would on 64/16/16 rows."""
+and SIGINT, a ``mesh=`` of the wrong type, and both CLIs
+(``mcop-train-nn-torch``, ``mcop-evaluate-nn-torch``) driven as a user
+would on 64/16/16 rows."""
 
 import os
 import signal
@@ -173,8 +174,11 @@ def test_nan_batch_is_skipped(rng):
 
 
 def test_mesh_is_not_ported(rng):
+    """A mesh that is no ``parallel.mesh.Mesh`` raises TypeError (it raised
+    NotImplementedError before the mesh was ported; the sharded trainer
+    is tests/test_torch_mesh.py's)."""
     x, y = _xy(rng, 32)
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         _trainer().train_model(x, y, num_epochs=1, mesh=object())
 
 

@@ -212,10 +212,12 @@ def test_run_leaves_no_handlers_or_threads(workdir):
 
 
 def test_unported_configurations_raise():
-    """No silent fallback: a mesh (A15) and a CUDA device on a host
-    without one raise; QMC noise (refused naming A12 before it was
-    ported) prices, and only its pairing with antithetic is refused."""
-    with pytest.raises(NotImplementedError, match="A15"):
+    """No silent fallback: a mesh that is no ``parallel.mesh.Mesh`` (it
+    raised NotImplementedError before the mesh was ported) and
+    a CUDA device on a host without one raise; QMC noise (refused naming
+    A12 before it was ported) prices, and only its pairing with
+    antithetic is refused."""
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         BatchedPricer(PricingConfig(), MarketDefaults(), "cpu", mesh=object())
     qmc = BatchedPricer(PricingConfig(qmc=True, num_paths=32),
                         MarketDefaults(), "cpu")
@@ -241,18 +243,19 @@ def _flags(parser):
 def test_cli_flags_and_refusals(workdir, capsys):
     """The CLI's flags are JAX's, with its defaults, plus --device; --qmc
     with --antithetic exits 2 (JAX's PricingConfig refusal; --qmc alone
-    exited 2 naming A12 before it was ported), --mesh-devices 2 and
-    --trace-dir exit 2 naming A15; --device cpu writes the augmented
-    CSV."""
+    exited 2 naming A12 before it was ported); --mesh-devices 2 in a
+    world of one process raises make_mesh's ValueError (it and
+    --trace-dir exited 2 before they were ported; the traces
+    are tests/test_torch_profiling.py's, the mesh tests/test_torch_
+    mesh.py's); --device cpu writes the augmented CSV."""
     jflags = _flags(jcli.build_parser())
     tflags = _flags(tcli.build_parser())
     assert tflags.pop("device") == "cuda"
     assert tflags == jflags
-    for argv, item in ((["--qmc", "--antithetic"], "incompatible"),
-                       (["--mesh-devices", "2"], "A15"),
-                       (["--trace-dir", "trace"], "A15")):
-        assert tcli.main(argv + ["--device", "cpu"]) == 2
-        assert item in capsys.readouterr().err
+    assert tcli.main(["--qmc", "--antithetic", "--device", "cpu"]) == 2
+    assert "incompatible" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="2-device mesh but only 1"):
+        tcli.main(["--mesh-devices", "2", "--device", "cpu"])
     make_option_csv("option_data.csv", _near_money(workdir)[:2])
     assert tcli.main(["--device", "cpu", "--num-paths", "64",
                       "--antithetic", "--rows-per-batch", "2"]) == 0
