@@ -3,7 +3,8 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per build unit, all started together; the ``build`` line gives each
-unit's seconds), holds each kernel against its plain PyTorch version at
+unit's seconds) and, beside them, its native host engine with the host
+C++ compiler (``host_build_s``), holds each kernel against its plain PyTorch version at
 its path's shapes, and drives full-width
 fit-then-stream runs through the kernels, each with the launch counts set
 to 0 just before it and read just after:
@@ -162,9 +163,18 @@ to 0 just before it and read just after:
   float32 and bf16), each probe again against its plain version at the
   shapes the rates come from, the library yardsticks, and each of
   K1/K2/K6/K7 (float32 and bf16) beside its P1 ceiling;
+* the native host engine (``host_engine``, ``csrc/host/``, no kernel of
+  the card): ``estimate_params``, the DFA Hurst estimate and the 20-day
+  vol and momentum against their NumPy plain versions on seeded
+  histories of 2, 21, 60, 400, 1260 and 1825 points (1e-12 relative, H
+  1e-9), with the µs of one row's features, native and plain, at each
+  size; ``read_table`` against ``read_table_plain`` on
+  ``prediction_gen``'s option and spot CSVs, equal as lists, each timed;
+  the host build's seconds;
 * the PredictionGen pipeline (``prediction_gen``), plain PyTorch on the
   card, where no kernel of the port lies (every launch count must stay
-  0): ``run_pipeline`` on a 256-row option CSV and a 2,600-day spot CSV
+  0), its host pass (the CSVs, each row's parameters, vol and momentum)
+  on the host engine: ``run_pipeline`` on a 256-row option CSV and a 2,600-day spot CSV
   made from the seed, 250 paths a row, 10 branches, 64 rows a batch,
   days to expiry over 7-1825 so every bucket n_pad 4..2048 runs, 8 rows
   planted to fail validation; the exit code, the rows, the header, the
@@ -246,9 +256,10 @@ blocks per SM.
 each block that fits (``k1_forms_main``), ``--k7-forms [ROOT]`` K7's 24
 forms, K6's 8 and P1's matmul with digests of K6's and P1's outputs
 (``k7_forms_main``), on this checkout or another; ``--prediction-gen
-[ROOT]`` the ``prediction_gen`` phase alone, with no kernel built
-(``prediction_gen_main``); ``--qmc [ROOT]`` the QMC phases alone after
-the PRNG runs they are held against (``qmc_main``); ``--serve-jvp
+[ROOT]`` the ``host_engine`` and ``prediction_gen`` phases alone, the host
+engine built and no kernel (``prediction_gen_main``); ``--qmc [ROOT]``
+the QMC phases alone after the PRNG runs they are held against
+(``qmc_main``); ``--serve-jvp
 [ROOT]`` the ``serve`` and ``greeks_jvp`` phases alone after the kernel
 runs they are held against (``serve_jvp_main``); ``--nn [ROOT]`` the
 ``nn`` phase alone, with no kernel built (``nn_main``); ``--mesh [ROOT]``
@@ -408,6 +419,13 @@ PG_BUCKET_DTE = (7, 10, 20, 40, 80, 150, 300, 600, 1200, 1825)
 PG_RESUME_FROM = 192
 PG_CHECK_ROWS, PG_CHECK_PAD, PG_CHECK_RTOL = 8, 256, 1e-5
 PG_PHASE_LIMIT_S = 60.0
+# The native host engine (``host_engine``): its features held against their
+# plain versions on seeded histories of HOST_SIZES points (1e-12 relative,
+# H 1e-9, as the CPU tests hold the JAX package's engine against its NumPy
+# path), each timed for at least HOST_TIME_S a form.
+HOST_SIZES = (2, 21, 60, 400, 1260, 1825)
+HOST_RTOL, HOST_H_RTOL = 1e-12, 1e-9
+HOST_TIME_S = 0.2
 PG_OPTION_HEADER = ("ticker,option_type,quote_date,underlying_last,dte,"
                     "strike_distance_pct,delta,gamma,vega,theta,rho,iv,"
                     "volume,last,dividend")
@@ -5068,6 +5086,100 @@ def pipeline_stage_ms(torch, pricing, market, tasks, zc, dw, rp,
     return out
 
 
+def per_call_us(fn) -> float:
+    """Host-clock microseconds a call of ``fn``, over at least HOST_TIME_S
+    and three calls, after one call."""
+    fn()
+    reps, t0 = 0, time.perf_counter()
+    while reps < 3 or time.perf_counter() - t0 < HOST_TIME_S:
+        fn()
+        reps += 1
+    return 1e6 * (time.perf_counter() - t0) / reps
+
+
+def host_rel(got: float, want: float) -> float:
+    """|got - want| / |want|, 0 where the two are equal (0 and 0 too)."""
+    return 0.0 if got == want else abs(got - want) / abs(want)
+
+
+def host_engine_phase(smi, built=None) -> None:
+    """``host_engine``: the port's native host engine (``csrc/host/``,
+    built with the host C++ compiler; ``built`` is ``host_build.build()``'s
+    result where the build ran beside nvcc, else it builds here) against
+    its plain versions: ``estimate_params``, ``hurst_exponent_dfa`` and
+    ``twenty_day_vol_and_momentum`` on seeded histories of HOST_SIZES
+    points (HOST_RTOL relative, H HOST_H_RTOL), each size's host features
+    of one option row (the parameters and the 20-day vol and momentum)
+    timed native and plain; ``read_table`` against ``read_table_plain`` on
+    the ``prediction_gen`` phase's option and spot CSVs, equal as lists,
+    each timed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from montecarlooptionspricer_tpu_torch.kernels import host_build
+    from montecarlooptionspricer_tpu_torch.ops import estimators as est
+    from montecarlooptionspricer_tpu_torch.pipeline import csv_io
+    from montecarlooptionspricer_tpu_torch.pipeline import spot as spot_mod
+
+    t_phase = time.perf_counter()
+    libs, build_s, unit_s = built or host_build.build()
+    rng = np.random.default_rng(SEED)
+    sizes = {}
+    for n in HOST_SIZES:
+        prices = 100.0 * np.exp(np.cumsum(rng.normal(2e-4, 0.015, n)))
+        rets = np.log(prices[1:] / prices[:-1])
+        hist = [float(v) for v in prices]
+        got, want = est.estimate_params(prices), est.estimate_params_plain(
+            prices)
+        err = {k: host_rel(getattr(got, k), getattr(want, k))
+               for k in ("s0", "xi", "h", "eta", "rho")}
+        err["hurst_dfa"] = host_rel(est.hurst_exponent_dfa(rets),
+                                    est.hurst_exponent_dfa_plain(rets))
+        vm = spot_mod.twenty_day_vol_and_momentum(hist)
+        vm_plain = spot_mod.twenty_day_vol_and_momentum_plain(hist)
+        err["vol"], err["momentum"] = (host_rel(vm[0], vm_plain[0]),
+                                       host_rel(vm[1], vm_plain[1]))
+        native_us = per_call_us(lambda: (
+            est.estimate_params(prices),
+            spot_mod.twenty_day_vol_and_momentum(hist)))
+        plain_us = per_call_us(lambda: (
+            est.estimate_params_plain(prices),
+            spot_mod.twenty_day_vol_and_momentum_plain(hist)))
+        sizes[n] = {"max_rel_err": err, "native_us_per_row": native_us,
+                    "plain_us_per_row": plain_us,
+                    "plain_over_native": plain_us / native_us}
+        h_err = max(err["h"], err["hurst_dfa"])
+        check(h_err <= HOST_H_RTOL and max(
+            v for k, v in err.items() if k not in ("h", "hurst_dfa"))
+            <= HOST_RTOL, f"host_engine: {n} points, errors {err}")
+    work = Path(tempfile.mkdtemp(prefix="mcop_host_engine_"))
+    try:
+        pipeline_inputs(work, SEED)
+        tables = {}
+        for name in ("options.csv", "spot.csv"):
+            path = str(work / name)
+            table = csv_io.read_table(path)
+            check(table == csv_io.read_table_plain(path),
+                  f"host_engine: read_table differs from its plain version "
+                  f"on {name}")
+            tables[name] = {
+                "rows": len(table[1]), "bytes": (work / name).stat().st_size,
+                "native_ms": 1e-3 * per_call_us(
+                    lambda: csv_io.read_table(path)),
+                "plain_ms": 1e-3 * per_call_us(
+                    lambda: csv_io.read_table_plain(path))}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "host_engine",
+          "libraries": [p.name for p in libs.values()],
+          "compiler": host_build.compiler(),
+          "flags": list(host_build.CXX_FLAGS), "build_s": build_s,
+          "build_s_per_unit": unit_s, "features": sizes,
+          "rtol": HOST_RTOL, "h_rtol": HOST_H_RTOL, "read_table": tables,
+          "seconds": time.perf_counter() - t_phase, "card": smi})
+
+
 def prediction_gen_phase(torch, smi, dev, reset_counts, read_counts) -> None:
     """``prediction_gen``: the PredictionGen path at the reference's width
     through ``run_pipeline`` on the card (no CUDA kernel of the port lies
@@ -6683,8 +6795,9 @@ def nn_main(root: Path) -> int:
 
 def prediction_gen_main(root: Path) -> int:
     """``python3 chip_smoke.py --prediction-gen [ROOT]``: the
-    ``prediction_gen`` phase alone with the package of the checkout at
-    ROOT (default: this script's), no kernel built."""
+    ``host_engine`` and ``prediction_gen`` phases alone with the package of
+    the checkout at ROOT (default: this script's), the host engine built
+    and no kernel."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6694,6 +6807,7 @@ def prediction_gen_main(root: Path) -> int:
     _START[0] = time.perf_counter()
     smi = _card()
     reset_counts, read_counts = launch_counters()
+    host_engine_phase(smi)
     prediction_gen_phase(torch, smi, torch.device("cuda", 0), reset_counts,
                          read_counts)
     print(smi, flush=True)
@@ -7243,6 +7357,19 @@ def main() -> int:
 
     build_thread = threading.Thread(target=run_build)
     build_thread.start()
+    # The host engine's two units, compiled with the host C++ compiler
+    # beside nvcc; the ``host_engine`` phase reports and checks them.
+    from montecarlooptionspricer_tpu_torch.kernels import host_build
+    host_built = {}
+
+    def run_host_build():
+        try:
+            host_built["out"] = host_build.build()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            host_built["err"] = e
+
+    host_thread = threading.Thread(target=run_host_build)
+    host_thread.start()
     from montecarlooptionspricer_tpu_torch import roofline as rl
     from montecarlooptionspricer_tpu_torch.models import chain_cuda as cc
     from montecarlooptionspricer_tpu_torch.models import closed_form
@@ -7267,13 +7394,16 @@ def main() -> int:
     reset_counts, read_counts = launch_counters()
     warm_s = warm_up(torch, dev)
     build_thread.join()
-    if "err" in built:
-        raise built["err"]
+    host_thread.join()
+    for out in (built, host_built):
+        if "err" in out:
+            raise out["err"]
     lib_paths, nvcc_s, unit_s = built["out"]
     build.load()
     torch.cuda.synchronize()
     emit({"phase": "build", "libraries": [p.name for p in lib_paths],
           "nvcc_wall_s": round(nvcc_s, 3), "nvcc_s_per_unit": unit_s,
+          "host_build_s": round(host_built["out"][1], 3),
           "warm_up_s": round(warm_s, 3),
           "seconds": round(time.perf_counter() - t0, 3)})
 
@@ -7507,7 +7637,9 @@ def main() -> int:
     for k in kernels:
         if k["name"] in qmc_launches:
             k["qmc_noise_in_launches"] = qmc_launches[k["name"]]
-    # The PredictionGen pipeline, which launches no kernel, and its --qmc.
+    # The native host engine against its plain versions, then the
+    # PredictionGen pipeline on it, which launches no kernel, and its --qmc.
+    host_engine_phase(smi, host_built["out"])
     prediction_gen_phase(torch, smi, dev, reset_counts, read_counts)
     qmc_prediction_gen_phase(torch, smi, dev, reset_counts, read_counts)
     # The serving CLI and the jvp Greeks stream, which launch no kernel;

@@ -1,7 +1,9 @@
 """Feature CSVs of the meta-model (counterpart:
 ``montecarlooptionspricer_tpu/nn/data.py``): columns chosen by header
-name, an error on a missing column, float32 arrays out.  Parsed by the
-port's own ``pipeline/csv_io.read_table``.
+name, an error on a missing column, float32 arrays out.  Parsed by
+``pipeline/csv_io.read_table``, the port's native CSV reader
+(``csrc/host/fastcsv.cpp``, built at first use), which the tests hold
+list for list against its Python plain version ``read_table_plain``.
 """
 
 from __future__ import annotations

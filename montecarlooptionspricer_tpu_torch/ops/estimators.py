@@ -1,11 +1,15 @@
 """Rough-volatility parameters estimated from a price history
-(counterpart: ``montecarlooptionspricer_tpu/ops/estimators.py``, its NumPy
-path, copied so the port imports nothing of the JAX package).
+(counterpart: ``montecarlooptionspricer_tpu/ops/estimators.py``).
 
 Host work in float64, once per option row on a history of at most 1825
-points.  The JAX package dispatches to a native feature engine built into
-its own directory; the port keeps this NumPy form only, which agrees with
-that engine to ~1e-14 relative (not bit for bit).
+points.  ``estimate_params`` and ``hurst_exponent_dfa`` run on the port's
+native host engine (``csrc/host/features.cpp``, built at first use by
+``kernels/host_build.py``), whose sums run in the JAX package's engine's
+order, so the two agree to the bit.  The NumPy forms stay beside them as
+their plain versions, ``estimate_params_plain`` and
+``hurst_exponent_dfa_plain``: the tests and the card check hold the engine
+against them to 1e-12 relative (H to 1e-9); the main path never calls
+them.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from ..kernels import host_build
 
 
 def log_returns(prices: np.ndarray) -> np.ndarray:
@@ -61,7 +67,14 @@ def _detrend_segment(segment: np.ndarray) -> np.ndarray:
 
 
 def hurst_exponent_dfa(data_in: np.ndarray) -> float:
-    """Detrended-fluctuation-analysis Hurst estimate: demean, cumulate,
+    """Detrended-fluctuation-analysis Hurst estimate on the native engine;
+    0.5 below the two windows the slope needs."""
+    return host_build.load("features").hurst_dfa(
+        np.ascontiguousarray(data_in, dtype=np.float64))
+
+
+def hurst_exponent_dfa_plain(data_in: np.ndarray) -> float:
+    """The plain version of ``hurst_exponent_dfa``: demean, cumulate,
     detrend in dyadic windows 4, 8, ..., n/4, then the log-log slope of
     the RMS fluctuation against the window size."""
     data = np.asarray(data_in, dtype=np.float64).copy()
@@ -95,8 +108,8 @@ def hurst_exponent_dfa(data_in: np.ndarray) -> float:
 
 
 def estimate_h(logrets: np.ndarray) -> float:
-    """Hurst exponent by DFA."""
-    return hurst_exponent_dfa(logrets)
+    """Hurst exponent by DFA, in NumPy (``hurst_exponent_dfa_plain``)."""
+    return hurst_exponent_dfa_plain(logrets)
 
 
 def estimate_eta(logrets: np.ndarray, h: float = 0.0) -> float:
@@ -134,8 +147,16 @@ class RBergomiParams:
 
 def estimate_params(historical_prices: np.ndarray, r: float = 0.04,
                     dt_yr: float = 1.0 / 252.0) -> RBergomiParams:
-    """All parameters from a price history; raises ValueError on fewer
-    than two points."""
+    """All parameters from a price history on the native engine; raises
+    ValueError on fewer than two points."""
+    s0, xi, h, eta, rho = host_build.load("features").estimate_params(
+        np.ascontiguousarray(historical_prices, dtype=np.float64), dt_yr)
+    return RBergomiParams(s0=s0, xi=xi, h=h, eta=eta, rho=rho, r=r)
+
+
+def estimate_params_plain(historical_prices: np.ndarray, r: float = 0.04,
+                          dt_yr: float = 1.0 / 252.0) -> RBergomiParams:
+    """The plain version of ``estimate_params``, in NumPy."""
     historical_prices = np.ascontiguousarray(historical_prices,
                                              dtype=np.float64)
     if historical_prices.size < 2:

@@ -1,5 +1,5 @@
 """Spot-price histories and the per-row 20-day features (counterpart:
-``montecarlooptionspricer_tpu/pipeline/spot.py``, its NumPy path).
+``montecarlooptionspricer_tpu/pipeline/spot.py``).
 
 * dates are M/D/YYYY;
 * the spot CSV is wide (Date,TICK1,TICK2,...), tickers lowercased,
@@ -7,7 +7,10 @@
 * a row's history window is 10x / 6x / 4x its days to expiry, capped at
   1825 calendar days, walked back day by day over the dates present;
 * the 20-day realized vol is annualized from the biased variance, the
-  momentum the sum of the 20 log returns.
+  momentum the sum of the 20 log returns, on the port's native host
+  engine (``csrc/host/features.cpp``, equal to the JAX package's engine to
+  the bit); ``twenty_day_vol_and_momentum_plain`` is its NumPy plain
+  version, which the tests and the card check hold it against.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..kernels import host_build
 from .csv_io import read_table
 
 log = logging.getLogger(__name__)
@@ -100,8 +104,16 @@ def fetch_spot_history(spot_data: SpotData, ticker: str,
 
 
 def twenty_day_vol_and_momentum(hist: List[float]) -> Tuple[float, float]:
-    """(annualized 20-day realized vol, 20-day momentum): (0, 0) below 21
-    points; a return with a non-positive price or a non-finite log is 0."""
+    """(annualized 20-day realized vol, 20-day momentum) on the native
+    engine: (0, 0) below 21 points; a return with a non-positive price or
+    a non-finite log is 0.  Only the last 21 points cross into the
+    engine."""
+    return host_build.load("features").vol_momentum(hist[-21:])
+
+
+def twenty_day_vol_and_momentum_plain(
+        hist: List[float]) -> Tuple[float, float]:
+    """The plain version of ``twenty_day_vol_and_momentum``, in NumPy."""
     if len(hist) < 21:
         return 0.0, 0.0
     window = np.asarray(hist[-21:], dtype=np.float64)

@@ -83,8 +83,9 @@ def _torch_paths(a, n_pad, m1, zc, dw, antithetic=False):
 
 @pytest.mark.parametrize("n_hist", [60, 400, 1260])
 def test_estimate_params_matches_jax(rng, n_hist):
-    """The NumPy estimators against the JAX package's (its native engine
-    where built): 1e-12 relative on every parameter."""
+    """The port's estimate_params (its native host engine) against the
+    JAX package's (its native engine where built, else its NumPy path):
+    1e-12 relative on every parameter."""
     hist = 100.0 * np.exp(np.cumsum(rng.normal(0.0002, 0.015, n_hist)))
     want = jest.estimate_params(hist, r=R)
     got = test_.estimate_params(hist, r=R)
