@@ -55,6 +55,12 @@ does.  ``--greeks`` runs the Greeks kernels K3/K4 where JAX runs its
 fused Greeks and the jvp Greeks stream everywhere else (``--qmc``,
 ``--pathgen xla``, past 365 steps).
 
+``--trace-dir D`` writes a ``torch.profiler`` Chrome trace of the pricer's
+build and its pricing, in which the engine's ``mcop.*`` spans enclose
+their kernels, and the same spans with host and device edges on one
+clock, and the counters, as ``D/spans_<pid>.json``
+(``utils.profiling.device_trace``).
+
 ``--serve`` reads JSON-lines quote requests on stdin and answers each on
 stdout (``serve``), e.g.
   mcop-price-torch --serve --chunk-paths 131072 <<'EOF'
@@ -75,7 +81,7 @@ import time
 
 from ..config import MarketDefaults
 from ..ops.fgn import next_pow2
-from ..utils import enable_persistent_cache
+from ..utils import device_trace, enable_persistent_cache
 
 log = logging.getLogger(__name__)
 
@@ -137,6 +143,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pathgen", choices=("pallas", "xla"), default="pallas",
                    help="the hand-written kernels (pallas) or the generic "
                         "path stream (xla), as StreamConfig.pathgen_impl")
+    p.add_argument("--trace-dir", default="",
+                   help="write a torch.profiler Chrome trace of the "
+                        "pricing, with the engine's spans, and the spans "
+                        "and counters as spans_<pid>.json, here")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain versions)")
@@ -222,10 +232,12 @@ def main(argv=None) -> int:
         market = dict(s0=args.s0, xi=args.xi, h=args.hurst, eta=args.eta,
                       rho=args.rho, r=args.r)
         t0 = time.time()
-        if strikes:
-            out, family = _price_chain(args, cfg, market, strikes, engine)
-        else:
-            out, family = _price_one(args, cfg, market, engine)
+        with device_trace(args.trace_dir):
+            if strikes:
+                out, family = _price_chain(args, cfg, market, strikes,
+                                           engine)
+            else:
+                out, family = _price_one(args, cfg, market, engine)
     except (ValueError, NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -200,11 +200,21 @@ def bind(path: Path, stem: str, suffix: str) -> dict:
 def load() -> types.SimpleNamespace:
     """The kernels' C entries with their signatures declared (built first
     if needed), as attributes of one namespace.  Every launching entry
-    returns a cudaError_t as int."""
-    paths, _, _ = build()
-    entries = {}
-    for (_, src, _, suffix), path in zip(UNITS, paths):
-        entries.update(bind(path, src.stem, suffix))
+    returns a cudaError_t as int.  Its span, ``mcop.setup.kernels``,
+    carries one attribute a unit: the milliseconds to bind its library
+    and, where this call compiled it, its nvcc seconds."""
+    from ..utils.profiling import span
+
+    with span("mcop.setup.kernels") as sp:
+        paths, _, nvcc_s = build()
+        entries = {}
+        for (name, src, _, suffix), path in zip(UNITS, paths):
+            t0 = time.perf_counter()
+            entries.update(bind(path, src.stem, suffix))
+            unit = {"bind_ms": 1e3 * (time.perf_counter() - t0)}
+            if name in nvcc_s:
+                unit["nvcc_s"] = nvcc_s[name]
+            sp.set(**{name: unit})
     return types.SimpleNamespace(**entries)
 
 

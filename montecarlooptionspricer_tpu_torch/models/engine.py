@@ -153,6 +153,7 @@ from ..ops.regression import (PolyFit, eval_poly, fit_poly_columns,
                               polyfit_from_numpy)  # noqa: F401
 from ..ops.timegrid import step_mask
 from ..parallel.mesh import mesh_device
+from ..utils.profiling import count, span
 from . import (chain_cuda, greeks_cuda, pathgen_cuda, pathgen_factored_cuda,
                pathgen_stream, pathgen_tiled_cuda)
 from .greeks_cuda import GREEK_ORDER  # noqa: F401
@@ -785,16 +786,18 @@ def control_fit(paths, fits: PolyFit, r, strike, maturity, dt,
     value - beta mean control) * chunk_paths, in the paths' float32.  With
     a process ``group`` the means and moments pool every rank's shard of
     the pilot (JAX's pooled beta), so the ranks share beta and center."""
-    av = lsm_policy_path_values(paths, fits, r, strike, maturity, dt,
-                                is_call)
-    cv = martingale_control(paths, r, dt)
-    av_m, cv_m = global_mean(av, group), global_mean(cv, group)
-    cvc, avc = cv - cv_m, av - av_m
-    cross, var = psum_all(torch.sum(cvc * avc), torch.sum(cvc * cvc),
-                          group=group)
-    beta = cross / torch.clamp_min(var, 1e-12)
-    center = (av_m - beta * cv_m) * float(chunk_paths)
-    return float(beta), float(center)
+    with span("mcop.control_fit"):
+        av = lsm_policy_path_values(paths, fits, r, strike, maturity, dt,
+                                    is_call)
+        cv = martingale_control(paths, r, dt)
+        av_m, cv_m = global_mean(av, group), global_mean(cv, group)
+        cvc, avc = cv - cv_m, av - av_m
+        cross, var = psum_all(torch.sum(cvc * avc), torch.sum(cvc * cvc),
+                              group=group)
+        beta = cross / torch.clamp_min(var, 1e-12)
+        center = (av_m - beta * cv_m) * float(chunk_paths)
+        count("host_reads", 2)
+        return float(beta), float(center)
 
 
 # ---------------------------------------------------------------------------
@@ -931,6 +934,13 @@ class _FusedStream:
             config.n_steps, config.fgn_form, config.tiled_impl,
             config.pathgen_impl, config.poly_order)
         self._fused_qmc = None
+        with span("mcop.setup.consts", family=self.kernel_family):
+            self._make_consts(s0, xi, h, eta, r, config, device)
+
+    def _make_consts(self, s0, xi, h, eta, r, config: StreamConfig,
+                     device) -> None:
+        """The family's path constants (``consts``; ``stream_consts`` on
+        the generic stream and under ``qmc``)."""
         self.stream_consts = None
         if self.kernel_family == "stream" or config.qmc:
             self.stream_consts = pathgen_stream.make_stream_consts(
@@ -996,11 +1006,12 @@ class _FusedStream:
         ``qmc``); under a mesh this rank's shard of the pilot, from the
         carrier shifted by its offset."""
         carrier = self._shard_mix(carrier)
-        if self.stream_consts is not None:
-            return pathgen_stream.chunk_paths(
-                self.stream_consts, self.config.pilot_paths, carrier)
-        return self._pathgen(self.consts, rows=self.config.pilot_paths,
-                             key=pathgen_cuda._fold_words(*carrier))
+        with span("mcop.pilot", family=self.kernel_family):
+            if self.stream_consts is not None:
+                return pathgen_stream.chunk_paths(
+                    self.stream_consts, self.config.pilot_paths, carrier)
+            return self._pathgen(self.consts, rows=self.config.pilot_paths,
+                                 key=pathgen_cuda._fold_words(*carrier))
 
     def _stream_paths(self, rows=None, carrier=None, noise=None,
                       consts=None, n_live=None):
@@ -1078,9 +1089,10 @@ class _FusedStream:
         ``n_live``), fitted at ``strike`` (a number, or a [K] strip) in
         one backward pass, the steps past ``n_live`` padding."""
         consts = consts or self.jvp_consts
-        pilot = pathgen_stream.chunk_paths(consts, self.config.pilot_paths,
-                                           self._shard_mix(carrier),
-                                           n_live=n_live)
+        with span("mcop.pilot", family="stream"):
+            pilot = pathgen_stream.chunk_paths(
+                consts, self.config.pilot_paths, self._shard_mix(carrier),
+                n_live=n_live)
         _, fits = lsm_fit(pilot, consts.r, strike,
                           self.maturity if maturity is None else maturity,
                           self.config.dt, self.is_call,
@@ -1196,27 +1208,30 @@ class _FusedStream:
         c0 = v0 * float(chunk)
         total = sq = 0.0
         center = None
-        for group in groups:
-            count = len(group)
-            tot_g = sq_g = 0.0
-            for kw in group:
-                c = chunk_sum(**kw)
-                if center is None:
-                    center = torch.where(ex0, c0, c)
-                tot_g = tot_g + c
-                sq_g = sq_g + (c - center) ** 2
-            all0 = v0 * float(count * chunk)
-            total = total + torch.where(ex0, all0, tot_g).double()
-            sq = sq + torch.where(ex0, 0.0, sq_g).double()
-        total, sq, center = _pool_centred(
-            total, sq, center.double(), n_paths // (chunk * self.n_dev),
-            self._group)
-        total, sq = total.cpu().numpy(), sq.cpu().numpy()
-        if not with_stderr:
-            return total / n_paths
-        return (total / n_paths,
-                _chunk_stderr(total, sq, n_paths // chunk, chunk,
-                              center=center.cpu().numpy()))
+        with span("mcop.chunks", chunks=sum(map(len, groups)),
+                  groups=len(groups)):
+            for group in groups:
+                tot_g = sq_g = 0.0
+                for kw in group:
+                    c = chunk_sum(**kw)
+                    if center is None:
+                        center = torch.where(ex0, c0, c)
+                    tot_g = tot_g + c
+                    sq_g = sq_g + (c - center) ** 2
+                all0 = v0 * float(len(group) * chunk)
+                total = total + torch.where(ex0, all0, tot_g).double()
+                sq = sq + torch.where(ex0, 0.0, sq_g).double()
+            total, sq, center = _pool_centred(
+                total, sq, center.double(), n_paths // (chunk * self.n_dev),
+                self._group)
+        with span("mcop.readback"):
+            count("host_reads", 3 if with_stderr else 2)
+            total, sq = total.cpu().numpy(), sq.cpu().numpy()
+            if not with_stderr:
+                return total / n_paths
+            return (total / n_paths,
+                    _chunk_stderr(total, sq, n_paths // chunk, chunk,
+                                  center=center.cpu().numpy()))
 
     def _stream_cv(self, chunk_sum, seed: int, n_paths: Optional[int],
                    noise, ex0, p0: float, cv: CVFit, with_stderr: bool):
@@ -1236,25 +1251,30 @@ class _FusedStream:
         p0_t, s0_t = (torch.tensor(v, **f32) for v in (p0, self.s0))
         t0 = (p0_t - beta * s0_t) * float(chunk) - center
         acc = 0.0
-        for group in groups:
-            count = len(group)
-            a_g = c_g = q_g = 0.0
-            for kw in group:
-                da, dc = chunk_sum(**kw)
-                t = da - beta * dc - center
-                a_g, c_g, q_g = a_g + da, c_g + dc, q_g + t * t
-            n_f = torch.tensor(float(count * chunk), **f32)
-            acc = acc + torch.stack([
-                torch.where(ex0, p0_t * n_f, a_g),
-                torch.where(ex0, s0_t * n_f, c_g),
-                torch.where(ex0, float(count) * t0 * t0, q_g)]).double()
-        amer, ctl, sq = psum_if(acc, self._group).tolist()
-        value = amer / n_paths - cv.beta * (ctl / n_paths - self.s0)
-        if not with_stderr:
-            return value
-        return value, _chunk_stderr(amer - cv.beta * ctl, sq,
-                                    n_paths // chunk, chunk,
-                                    center=cv.center)
+        with span("mcop.chunks", chunks=sum(map(len, groups)),
+                  groups=len(groups)):
+            for group in groups:
+                n_g = len(group)
+                a_g = c_g = q_g = 0.0
+                for kw in group:
+                    da, dc = chunk_sum(**kw)
+                    t = da - beta * dc - center
+                    a_g, c_g, q_g = a_g + da, c_g + dc, q_g + t * t
+                n_f = torch.tensor(float(n_g * chunk), **f32)
+                acc = acc + torch.stack([
+                    torch.where(ex0, p0_t * n_f, a_g),
+                    torch.where(ex0, s0_t * n_f, c_g),
+                    torch.where(ex0, float(n_g) * t0 * t0, q_g)]).double()
+            acc = psum_if(acc, self._group)
+        with span("mcop.readback"):
+            count("host_reads")
+            amer, ctl, sq = acc.tolist()
+            value = amer / n_paths - cv.beta * (ctl / n_paths - self.s0)
+            if not with_stderr:
+                return value
+            return value, _chunk_stderr(amer - cv.beta * ctl, sq,
+                                        n_paths // chunk, chunk,
+                                        center=cv.center)
 
 
 class StreamingPricer(_FusedStream):
@@ -1318,12 +1338,14 @@ class StreamingPricer(_FusedStream):
         through the family's path kernel (or the generic stream), then the
         LSM policy fit; under ``control_variate`` a CVFit with the
         control's beta and centre from the same pilot."""
-        pilot, fits = self._policy_fit(carrier)
-        if not self.config.control_variate:
-            return fits
-        return CVFit(fits, *control_fit(
-            pilot, fits, self.r, self.strike, self.maturity, self.config.dt,
-            self.is_call, self.config.chunk_paths, self._group))
+        with span("mcop.fit"):
+            pilot, fits = self._policy_fit(carrier)
+            if not self.config.control_variate:
+                return fits
+            return CVFit(fits, *control_fit(
+                pilot, fits, self.r, self.strike, self.maturity,
+                self.config.dt, self.is_call, self.config.chunk_paths,
+                self._group))
 
     def price(self, seed: int, n_paths: Optional[int] = None,
               with_stderr: bool = False):
@@ -1333,8 +1355,9 @@ class StreamingPricer(_FusedStream):
         pilot's fitted policy."""
         k_pilot, _ = _pilot_stream_keys(seed)
         n_paths = self._n_paths(n_paths)
-        return self.price_with_fit(self.fit(k_pilot), seed, n_paths,
-                                   with_stderr)
+        with span("mcop.price", request=seed):
+            return self.price_with_fit(self.fit(k_pilot), seed, n_paths,
+                                       with_stderr)
 
     def _stream_chunk_sum(self, fits: PolyFit, with_cv: bool):
         """The generic stream's chunk: the sum of the policy values of its
@@ -1376,27 +1399,29 @@ class StreamingPricer(_FusedStream):
                 f"alone; got {type(fits).__name__}")
         cv = fits if config.control_variate else None
         fits = cv.fits if cv else fits
-        if self.kernel_family == "stream":
-            # Time 0 is one of the policy's columns on whole paths.
-            ex0 = torch.zeros((), dtype=torch.bool, device=self.device)
-            p0 = 0.0
-            chunk_sum = self._stream_chunk_sum(fits, cv is not None)
-        else:
-            table = self._make_rows(fits)
-            ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, self.strike,
-                                               self.is_call)
-            chunk_sum = self._kernel_chunks(functools.partial(
-                self._priced_chunk, self.consts, table, self.strike,
-                self.is_call, antithetic=config.antithetic,
-                with_cv=cv is not None, policy_form=config.policy_form))
-
-        if cv is not None:
-            out = self._stream_cv(chunk_sum, seed, n_paths, noise, ex0, p0,
-                                  cv, with_stderr)
-        else:
-            p0_t = torch.tensor(p0, dtype=torch.float32, device=self.device)
-            out = self._stream(chunk_sum, seed, n_paths, noise, ex0, p0_t,
-                               with_stderr)
+        with span("mcop.stream"):
+            if self.kernel_family == "stream":
+                # Time 0 is one of the policy's columns on whole paths.
+                ex0 = torch.zeros((), dtype=torch.bool, device=self.device)
+                p0 = 0.0
+                chunk_sum = self._stream_chunk_sum(fits, cv is not None)
+            else:
+                with span("mcop.tables"):
+                    table = self._make_rows(fits)
+                    ex0, p0 = pathgen_cuda.time0_value(
+                        fits, self.s0, self.strike, self.is_call)
+                chunk_sum = self._kernel_chunks(functools.partial(
+                    self._priced_chunk, self.consts, table, self.strike,
+                    self.is_call, antithetic=config.antithetic,
+                    with_cv=cv is not None, policy_form=config.policy_form))
+            if cv is not None:
+                out = self._stream_cv(chunk_sum, seed, n_paths, noise, ex0,
+                                      p0, cv, with_stderr)
+            else:
+                p0_t = torch.tensor(p0, dtype=torch.float32,
+                                    device=self.device)
+                out = self._stream(chunk_sum, seed, n_paths, noise, ex0, p0_t,
+                                   with_stderr)
         if not with_stderr:
             return float(out)
         return float(out[0]), float(out[1])
@@ -1755,13 +1780,14 @@ class StreamingChainPricer(_FusedStream):
         with a leading [K] axis.  ``call`` (a bucketed pricer's) fits on
         the call's market, maturity and live horizon."""
         strip = self.strikes if strikes is None else self._strip(strikes)
-        if call is not None:
-            return self._stream_fit(carrier, strip, call.consts, call.maturity,
-                                 call.n_live)
-        _, fits = lsm_fit(self._pilot(carrier), self.r, strip,
-                          self.maturity, self.config.dt, self.is_call,
-                          self.config.poly_order, group=self._group)
-        return fits
+        with span("mcop.fit"):
+            if call is not None:
+                return self._stream_fit(carrier, strip, call.consts,
+                                        call.maturity, call.n_live)
+            _, fits = lsm_fit(self._pilot(carrier), self.r, strip,
+                              self.maturity, self.config.dt, self.is_call,
+                              self.config.poly_order, group=self._group)
+            return fits
 
     def _tables(self, fits: PolyFit, strip: torch.Tensor) -> torch.Tensor:
         """The strip's [K, 8, s_pad] tables K5 reads: S-space
@@ -1788,8 +1814,10 @@ class StreamingChainPricer(_FusedStream):
         strip = self.strikes if strikes is None else self._strip(strikes)
         k_pilot, _ = _pilot_stream_keys(seed)
         n_paths = self._n_paths(n_paths)
-        return self.price_with_fit(self.fit(k_pilot, strip, call), seed,
-                                   n_paths, strip, with_stderr, call=call)
+        with span("mcop.price", request=seed):
+            return self.price_with_fit(self.fit(k_pilot, strip, call), seed,
+                                       n_paths, strip, with_stderr,
+                                       call=call)
 
     def _stream_chunk_sums(self, fits: PolyFit, strip: torch.Tensor,
                            call: Optional[_Call] = None):
@@ -1824,21 +1852,24 @@ class StreamingChainPricer(_FusedStream):
         stream; chunk_paths / 2 rows a chunk under ``antithetic``.
         ``call``: a bucketed pricer's per-call inputs (``_call``)."""
         strip = self.strikes if strikes is None else self._strip(strikes)
-        if self.kernel_family == "stream":
-            ex0 = torch.zeros(strip.shape, dtype=torch.bool,
-                              device=self.device)
-            return self._stream(self._stream_chunk_sums(fits, strip, call),
-                                seed, n_paths, noise, ex0,
-                                torch.zeros_like(strip), with_stderr)
-        tables = self._tables(fits, strip)
-        ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, strip,
-                                           self.is_call)
-        return self._stream(
-            self._kernel_chunks(functools.partial(
-                chain_cuda.priced_chain, self.chain_consts, tables,
-                self.is_call, antithetic=self.config.antithetic,
-                policy_form=self.config.chain_policy_form)),
-            seed, n_paths, noise, ex0, p0, with_stderr)
+        with span("mcop.stream"):
+            if self.kernel_family == "stream":
+                ex0 = torch.zeros(strip.shape, dtype=torch.bool,
+                                  device=self.device)
+                return self._stream(
+                    self._stream_chunk_sums(fits, strip, call), seed,
+                    n_paths, noise, ex0, torch.zeros_like(strip),
+                    with_stderr)
+            with span("mcop.tables"):
+                tables = self._tables(fits, strip)
+                ex0, p0 = pathgen_cuda.time0_value(fits, self.s0, strip,
+                                                   self.is_call)
+            return self._stream(
+                self._kernel_chunks(functools.partial(
+                    chain_cuda.priced_chain, self.chain_consts, tables,
+                    self.is_call, antithetic=self.config.antithetic,
+                    policy_form=self.config.chain_policy_form)),
+                seed, n_paths, noise, ex0, p0, with_stderr)
 
     def price_and_greeks(self, seed: int, n_paths: Optional[int] = None,
                          strikes=None, with_stderr: bool = False, *,

@@ -31,6 +31,7 @@ from ..ops.reductions import global_mean, mean_last, psum_if, row_mean, row_sum
 from ..ops.regression import PolyFit, eval_poly, fit_poly_masked
 from ..ops.rows import per_row
 from ..ops.timegrid import step_mask, step_mask_rows
+from ..utils.profiling import count, span
 
 ITM_EPS = 1e-14
 
@@ -82,22 +83,26 @@ def _lsm_backward(paths, r, strike, maturity, dt, is_call: bool,
     live = step_mask(m - 1, dt, maturity).tolist()
     k = torch.as_tensor(strike, dtype=paths.dtype, device=paths.device)
     k = k[..., None]                       # [1] or [K, 1] against [n]
-    v = payoff(is_call, paths[:, m - 1], k)
     fits = [None] * (m - 1)
     top = m - 1 if n_steps is None else min(int(n_steps), m - 1)
     if top < 1:
         raise ValueError(f"n_steps={n_steps} must be >= 1")
-    for j in range(top - 1, -1, -1):
-        _, v, fits[j] = _exercise_step(v, paths[:, j], k, disc, is_call,
-                                       poly_order, decide=live[j],
-                                       group=group)
-    fits[top:] = [_pad_fit(fits[0])] * (m - 1 - top)
-    stacked = PolyFit(*(torch.stack([getattr(f, name) for f in fits],
-                                    dim=k.dim() - 1)
-                        for name in PolyFit._fields))
-    if k.dim() == 1:
-        return global_mean(v, group), stacked
-    return mean_last(v, group), stacked
+    strikes = k.shape[0] if k.dim() == 2 else 1
+    count("lsm.steps", top)
+    count("lsm.regressions", top * strikes)
+    with span("mcop.lsm", steps=top, strikes=strikes):
+        v = payoff(is_call, paths[:, m - 1], k)
+        for j in range(top - 1, -1, -1):
+            _, v, fits[j] = _exercise_step(v, paths[:, j], k, disc, is_call,
+                                           poly_order, decide=live[j],
+                                           group=group)
+        fits[top:] = [_pad_fit(fits[0])] * (m - 1 - top)
+        stacked = PolyFit(*(torch.stack([getattr(f, name) for f in fits],
+                                        dim=k.dim() - 1)
+                            for name in PolyFit._fields))
+        if k.dim() == 1:
+            return global_mean(v, group), stacked
+        return mean_last(v, group), stacked
 
 
 def lsm_price(paths, r, strike, maturity, dt, is_call: bool,
@@ -135,14 +140,18 @@ def lsm_price_rows(paths, r, strike, maturity, dt, is_call,
     padded = None if n_steps is None else (
         torch.arange(m - 1, device=dev)[None, :]
         >= per_row(n_steps, rows, dev, torch.int64)[:, None])
-    v = payoff(call, paths[..., m - 1], k)
-    for j in range(m - 2, -1, -1):
-        vd, v_reg, _ = _exercise_step(v, paths[..., j], k, disc, call,
-                                      poly_order, total=row_sum, group=group)
-        v_new = torch.where(live[:, j:j + 1], v_reg, vd)
-        v = v_new if padded is None else torch.where(padded[:, j:j + 1], v,
-                                                     v_new)
-    return row_mean(v, group)
+    count("lsm.steps", m - 1)
+    count("lsm.regressions", (m - 1) * rows)
+    with span("mcop.lsm", steps=m - 1, strikes=rows):
+        v = payoff(call, paths[..., m - 1], k)
+        for j in range(m - 2, -1, -1):
+            vd, v_reg, _ = _exercise_step(v, paths[..., j], k, disc, call,
+                                          poly_order, total=row_sum,
+                                          group=group)
+            v_new = torch.where(live[:, j:j + 1], v_reg, vd)
+            v = v_new if padded is None else torch.where(
+                padded[:, j:j + 1], v, v_new)
+        return row_mean(v, group)
 
 
 def lsm_fit(paths, r, strike, maturity, dt, is_call: bool,

@@ -60,7 +60,7 @@ from ..ops.fgn import next_pow2
 from ..ops.reductions import gather_ranks, psum_if
 from ..ops.rng import generator_for_row
 from ..parallel.mesh import mesh_device
-from ..utils.profiling import annotate
+from ..utils.profiling import span
 from . import csv_io, spot as spot_mod
 from .watchdog import ProcessStats, Watchdog, install_signal_handlers
 from .writer import OrderedResultWriter, SafeFileWriter
@@ -589,7 +589,7 @@ def _price_rows(raw_rows, done_rows: int, spot_data: spot_mod.SpotData,
                     fill(t.index, t.line)
                 continue
             try:
-                with annotate(f"price_batch[{n_pad}x{len(chunk)}]"):
+                with span(f"price_batch[{n_pad}x{len(chunk)}]"):
                     values = pricer.price(chunk, pricing.seed)
             except Exception as e:  # noqa: BLE001 - a batch's failure
                 if pricer.mesh is not None and not isinstance(e,
